@@ -1,0 +1,98 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface, under ``build/kernels/`` at the root of
+the checkout.  The file name
+carries a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree loads the library it built before.  There is no fallback:
+a missing ``nvcc`` or a failed build raises with the compiler's output.
+``build_log`` keeps ptxas's report of the last compile (registers, shared
+memory, spills per kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None  # wall time of the last compile, None if loaded
+build_log = ""  # compiler output of the last compile
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# entry point -> argtypes (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
+    "oasisx_matvec_win": [P, P, P, I, I, I, I, I, I, I, P],
+    "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
+}
+
+
+def build_dir() -> Path:
+    return _CSRC.parent.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path], flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in sources + sorted(_CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = _sources()
+        out = build_dir() / f"liboasisx_kernels_{_digest(sources, _FLAGS)}.so"
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, out)
+            build_seconds = time.perf_counter() - t0
+            build_log = proc.stdout + proc.stderr
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return _lib

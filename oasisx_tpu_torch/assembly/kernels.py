@@ -1,0 +1,305 @@
+"""The slice's hand-written cube kernels, their plain versions, and their
+host-side tables.
+
+Four wrappers, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
+
+============== ======================================== =========================
+wrapper        computes                                 replaces (pallas_ops.py)
+============== ======================================== =========================
+matvec_const   y_b = sum_c P_c^T C P_c x_b, batch B     make_matvec_pf, make_matvec
+matvec_win     y_b = sum_c P_c^T W_c P_c x_b            make_matvec_win
+mixed          r_g = C_g p, g < d                       make_mixed_pf
+divergence     b2 = sum_g B_g^T u_g                     make_divergence_pf
+============== ======================================== =========================
+
+A CPU tensor goes to the plain version (built from the ``cubes.py`` ops); a
+CUDA tensor goes to the kernel, and anything else raises.  ``launches``
+counts kernel launches per wrapper and ``plain_calls`` counts the plain
+versions, so a run can show which path it took.
+
+Also here: ``conv_weight_tensor`` and ``build_w`` (the per-cube weights of
+the tentative operator, one matmul), and ``build_pressure_mg_data`` (the
+pressure V-cycle's host tables), both copied from the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cubes as cub
+from .structured import StructuredMap
+
+KERNELS = ("matvec_const", "matvec_win", "mixed", "divergence")
+launches = dict.fromkeys(KERNELS, 0)
+plain_calls = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+        plain_calls[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# host tables
+# ---------------------------------------------------------------------------
+
+
+def conv_weight_tensor(cu) -> np.ndarray:
+    """T[(g,m),(i,j)] with C_cube(u)[i,j] = sum_{g,m} u27[g,m] T[(g,m),(i,j)]:
+    the cube-level convection matrix is linear in the convecting velocity's
+    cube-local values. Host-side, tiny ((d*nl) x (nl*nl))."""
+    PhiW = cu.PhiW.detach().cpu().double().numpy()  # (Q, nl)
+    Phi = cu.Phi.detach().cpu().double().numpy()  # (Q, nl)
+    Dg = cu.Dg.detach().cpu().double().numpy()  # (Q, d, nl)
+    T = np.einsum("qi,qm,qgj->gmij", PhiW, Phi, Dg)
+    d, nl = Dg.shape[1], Dg.shape[2]
+    return T.reshape(d * nl, nl * nl)
+
+
+def build_w(T: torch.Tensor, A0: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Per-cube tentative-operator weights in the compact layout:
+    W = A0.reshape(-1, 1) + 0.5 * T^T U, shape (nl*nl, ncubes), row
+    ``to*nl + ti``.  ``U`` is the convecting velocity gathered to cubes,
+    (d*nl, ncubes).  The math of ``build_w_win_from_u`` without the TPU's
+    seam/pad window; a plain matmul, as the JAX package leaves it to XLA."""
+    return torch.addmm(A0.reshape(-1, 1), T.T, U, alpha=0.5)
+
+
+def build_pressure_mg_data(
+    sm_q: StructuredMap,
+    Ap_c: np.ndarray,
+    coarsest: int = 3,
+    nsmooth: int = 2,
+    omega: float = 0.8,
+    coarse_degree: int = 14,
+) -> dict | None:
+    """Host-side tables of the pressure V-cycle preconditioner: level
+    hierarchy, per-level Jacobi diagonals, 1-D transfer matrices, and exact
+    coarsest-level Chebyshev eigenvalue bounds.
+
+    The P1 pressure grid on a structured generator mesh coarsens by cell
+    halving; the coarse cube matrix is exactly ``Ap_c * 2**(l*(d-2))``.
+    Transfers are axis-separable linear interpolation P (restriction
+    P^T).  The coarsest level is solved by a degree-``coarse_degree``
+    Chebyshev-Jacobi iteration with bounds from a dense eigvalsh.
+
+    Returns None when the grid does not coarsen (odd cells / too coarse /
+    degree != 1).  Copied from ``oasisx_tpu/assembly/pallas_ops.py``.
+    """
+    _, cells, deg, _, _ = sm_q
+    d = len(cells)
+    if deg != 1 or d not in (2, 3):
+        return None
+    res = [tuple(int(c) for c in cells)]
+    while all(c % 2 == 0 and c // 2 >= coarsest for c in res[-1]):
+        res.append(tuple(c // 2 for c in res[-1]))
+    if len(res) < 2:
+        return None
+    Ap = np.asarray(Ap_c, np.float64)
+    levels = []
+    for li, cl in enumerate(res):
+        scale = 2.0 ** (li * (d - 2))
+        grid = tuple(c + 1 for c in cl)
+        D = np.zeros(grid)
+        for t in range(2**d):
+            base = np.unravel_index(t, (2,) * d)
+            slc = tuple(slice(int(b), int(b) + c) for b, c in zip(base, cl))
+            D[slc] += Ap[t, t] * scale
+        invd = (1.0 / np.where(D != 0, D, 1.0)).astype(np.float32)
+        levels.append(dict(cells=cl, grid=grid, scale=scale, invd=invd))
+
+    def interp1d(nf: int, nc: int) -> np.ndarray:
+        P = np.zeros((nf, nc), np.float32)
+        for i in range(nf):
+            if i % 2 == 0:
+                P[i, i // 2] = 1.0
+            else:
+                P[i, (i - 1) // 2] = 0.5
+                P[i, (i + 1) // 2] = 0.5
+        return P
+
+    # per transition: (A^T, A, B, B^T) — A interpolates grid axis d-2, B axis
+    # d-1; a 3D leading axis uses the same 1.0/0.5 weights written out
+    transfers = []
+    for li in range(len(levels) - 1):
+        gf, gc = levels[li]["grid"], levels[li + 1]["grid"]
+        A = interp1d(gf[d - 2], gc[d - 2])
+        B = interp1d(gf[d - 1], gc[d - 1])
+        transfers.append((np.ascontiguousarray(A.T), A, B, np.ascontiguousarray(B.T)))
+
+    # exact Chebyshev bounds for the coarsest operator D^{-1}A (singular
+    # Neumann: lmin = smallest NONZERO eigenvalue)
+    Lc = levels[-1]
+    grid_c, cl = Lc["grid"], Lc["cells"]
+    n = int(np.prod(grid_c))
+    idx = np.arange(n).reshape(grid_c)
+    A_dense = np.zeros((n, n))
+    for tO in range(2**d):
+        bO = np.unravel_index(tO, (2,) * d)
+        rows = idx[tuple(slice(int(b), int(b) + c) for b, c in zip(bO, cl))].ravel()
+        for tI in range(2**d):
+            bI = np.unravel_index(tI, (2,) * d)
+            cols = idx[tuple(slice(int(b), int(b) + c) for b, c in zip(bI, cl))].ravel()
+            np.add.at(A_dense, (rows, cols), Ap[tO, tI] * Lc["scale"])
+    dsqrt = 1.0 / np.sqrt(np.diag(A_dense))
+    w = np.linalg.eigvalsh(A_dense * dsqrt[:, None] * dsqrt[None, :])
+    lmax = float(w[-1]) * 1.02
+    nonzero = w[w > 1e-8 * max(w[-1], 1.0)]
+    lmin = float(nonzero[0]) * 0.95 if len(nonzero) else lmax / 30.0
+    return dict(
+        levels=levels,
+        transfers=transfers,
+        coarse=(lmin, lmax, int(coarse_degree)),
+        nsmooth=int(nsmooth),
+        omega=float(omega),
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the reference the card is held to)
+# ---------------------------------------------------------------------------
+
+
+def matvec_const_plain(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    plain_calls["matvec_const"] += 1
+    return cub.matvec_cube(x, C, sm)
+
+
+def matvec_win_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    plain_calls["matvec_win"] += 1
+    nl = cub.num_slots(sm)
+    U = cub.cube_gather(x, sm)  # (B, nl, nc)
+    Y = torch.einsum("tic,bic->btc", W.reshape(nl, nl, -1), U)
+    return cub.cube_scatter(Y, sm)
+
+
+def mixed_plain(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    plain_calls["mixed"] += 1
+    return cub.mixed_all(p, C_all, sm_v, sm_q)
+
+
+def divergence_plain(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    plain_calls["divergence"] += 1
+    return cub.divergence_cube(u, B_all, sm_v, sm_q)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _route(*tensors: torch.Tensor) -> bool:
+    """True for the kernel (all on one CUDA device), False for the plain
+    version (all on the CPU); raises otherwise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype or t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype} (float32 or float64)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _dims(sm: StructuredMap) -> tuple[int, int, int, int]:
+    cells = tuple(int(c) for c in sm[1])
+    if len(cells) not in (2, 3):
+        raise ValueError(f"only 2D and 3D grids, got cells {cells}")
+    return (len(cells),) + cells + (0,) * (3 - len(cells))
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _call(name: str, *args) -> None:
+    from .._build import library
+
+    err = getattr(library(), "oasisx_" + name)(*args)
+    if err != 0:
+        raise RuntimeError(f"kernel {name} failed to launch: CUDA error {err}")
+    launches[name] += 1
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def matvec_const(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    """y = A x with constant cube matrix C (nl, nl); x (B, npad) or (npad,)."""
+    if not _route(x, C):
+        return matvec_const_plain(x, C, sm)
+    npad = int(np.prod(sm[0]))
+    nl = cub.num_slots(sm)
+    xb = x.reshape(-1, npad) if x.dim() == 1 else x
+    _check(xb, "x", x.dtype, (xb.shape[0], npad))
+    _check(C, "C", x.dtype, (nl, nl))
+    y = torch.empty_like(xb)
+    with torch.cuda.device(x.device):
+        _call("matvec_const", _ptr(xb), _ptr(C), _ptr(y), int(x.dtype == torch.float64),
+              *_dims(sm), int(sm[2]), int(xb.shape[0]), _stream(x))
+    return y.reshape(x.shape)
+
+
+def matvec_win(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    """y_b = A_W x_b with per-cube weights W (nl*nl, ncubes); x (B, npad)."""
+    if not _route(W, x):
+        return matvec_win_plain(W, x, sm)
+    npad = int(np.prod(sm[0]))
+    nl = cub.num_slots(sm)
+    nc = int(np.prod(sm[1]))
+    _check(x, "x", x.dtype, (x.shape[0], npad))
+    _check(W, "W", x.dtype, (nl * nl, nc))
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _call("matvec_win", _ptr(x), _ptr(W), _ptr(y), int(x.dtype == torch.float64),
+              *_dims(sm), int(sm[2]), int(x.shape[0]), _stream(x))
+    return y
+
+
+def mixed(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    """r_g = C_all[g] p for every component g: (npad_q,) -> (d, npad_v)."""
+    if not _route(p, C_all):
+        return mixed_plain(p, C_all, sm_v, sm_q)
+    if tuple(sm_v[1]) != tuple(sm_q[1]):
+        raise ValueError("velocity and pressure grids must share their cells")
+    npad_v, npad_q = int(np.prod(sm_v[0])), int(np.prod(sm_q[0]))
+    ncomp = C_all.shape[0]
+    _check(p, "p", p.dtype, (npad_q,))
+    _check(C_all, "C_all", p.dtype, (ncomp, cub.num_slots(sm_v), cub.num_slots(sm_q)))
+    r = torch.empty((ncomp, npad_v), dtype=p.dtype, device=p.device)
+    with torch.cuda.device(p.device):
+        _call("mixed", _ptr(p), _ptr(C_all), _ptr(r), int(p.dtype == torch.float64),
+              *_dims(sm_v), int(sm_v[2]), int(sm_q[2]), int(ncomp), _stream(p))
+    return r
+
+
+def divergence(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    """b2 = sum_g B_all[g]^T u[g]: (d, npad_v) -> (npad_q,)."""
+    if not _route(u, B_all):
+        return divergence_plain(u, B_all, sm_v, sm_q)
+    if tuple(sm_v[1]) != tuple(sm_q[1]):
+        raise ValueError("velocity and pressure grids must share their cells")
+    npad_v, npad_q = int(np.prod(sm_v[0])), int(np.prod(sm_q[0]))
+    ncomp = u.shape[0]
+    _check(u, "u", u.dtype, (ncomp, npad_v))
+    _check(B_all, "B_all", u.dtype, (ncomp, cub.num_slots(sm_v), cub.num_slots(sm_q)))
+    b2 = torch.empty(npad_q, dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        _call("divergence", _ptr(u), _ptr(B_all), _ptr(b2), int(u.dtype == torch.float64),
+              *_dims(sm_v), int(sm_v[2]), int(sm_q[2]), int(ncomp), _stream(u))
+    return b2

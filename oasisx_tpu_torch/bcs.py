@@ -1,0 +1,113 @@
+"""Velocity Dirichlet boundary conditions.
+
+Re-provides the reference's ``DirichletBC`` surface (src/oasisx/bcs.py):
+deferred creation (``create_bc``), geometric or topological dof location,
+float/Constant/callable values and time-dependent re-interpolation
+(``update_bc``).  Dof sets and values stay NumPy on the host; the solver
+turns them into a boolean mask and a value tensor on its device,
+re-uploading only when ``_version`` changes.
+
+The outlet ``PressureBC`` of the JAX package is not ported yet.
+"""
+
+from __future__ import annotations
+
+from enum import Enum
+
+import numpy as np
+
+from .spaces.functionspace import Constant, FunctionSpace
+
+__all__ = ["DirichletBC", "LocatorMethod", "bc_mask_and_values"]
+
+
+class LocatorMethod(Enum):
+    """Search methods for Dirichlet BCs."""
+
+    GEOMETRICAL = 1
+    TOPOLOGICAL = 2
+
+
+LocatorMethod.TOPOLOGICAL.__doc__ = "Topological search for dofs"
+LocatorMethod.GEOMETRICAL.__doc__ = "Geometrical search for dofs"
+
+
+class DirichletBC:
+    """Strong Dirichlet condition on a scalar (velocity-component) space.
+
+    Args:
+        value: float, Constant, or callable ``f(x)`` with ``x`` of shape
+            (3, n) (zero-padded), returning dof values.
+        method: LocatorMethod.GEOMETRICAL or .TOPOLOGICAL.
+        marker: geometric predicate, or ``(MeshTags, tag_value)``.
+    """
+
+    def __init__(self, value, method: LocatorMethod, marker):
+        self._method = method
+        self._value = value
+        if method == LocatorMethod.GEOMETRICAL:
+            self._locator = marker
+        elif method == LocatorMethod.TOPOLOGICAL:
+            self._entities = marker[0].find(marker[1])
+            self._e_dim = marker[0].dim
+        else:
+            raise ValueError(method)
+        self._dofs: np.ndarray | None = None
+        self._V: FunctionSpace | None = None
+        self._vals: np.ndarray | None = None
+        # bumped whenever dofs/values change, so the solver re-uploads its
+        # value tensor only then
+        self._version = 0
+
+    def _locate_dofs(self, V: FunctionSpace) -> None:
+        if self._method == LocatorMethod.GEOMETRICAL:
+            self._dofs = V.locate_dofs_geometrical(self._locator)
+        else:
+            self._dofs = V.locate_dofs_topological(self._e_dim, self._entities)
+
+    def create_bc(self, V: FunctionSpace) -> None:
+        if self._dofs is None:
+            self._locate_dofs(V)
+        self._V = V
+        self.update_bc()
+
+    def update_bc(self) -> None:
+        """Re-evaluate a time-dependent callable value (reference bcs.py:128-133)."""
+        if self._V is None:
+            return
+        old = self._vals
+        if callable(self._value):
+            x = self._V.dof_coords[self._dofs]
+            pad = np.zeros((3, x.shape[0]))
+            pad[: x.shape[1]] = x.T
+            self._vals = np.asarray(self._value(pad), dtype=np.float64)
+        else:
+            v = self._value.value if isinstance(self._value, Constant) else self._value
+            self._vals = np.full(len(self._dofs), float(v))
+        if old is None or old.shape != self._vals.shape or not np.array_equal(old, self._vals):
+            self._version += 1
+
+    @property
+    def dofs(self) -> np.ndarray:
+        if self._dofs is None:
+            raise RuntimeError("create_bc must be called first")
+        return self._dofs
+
+    @property
+    def values(self) -> np.ndarray:
+        if self._vals is None:
+            raise RuntimeError("create_bc must be called first")
+        return self._vals
+
+
+def bc_mask_and_values(bcs: list[DirichletBC], ndofs: int) -> tuple[np.ndarray, np.ndarray]:
+    """Combine a list of DirichletBCs into (bool mask, value vector).
+
+    Later BCs in the list win on overlapping dofs, matching sequential
+    ``set_bc`` application order."""
+    mask = np.zeros(ndofs, dtype=bool)
+    vals = np.zeros(ndofs, dtype=np.float64)
+    for bc in bcs:
+        mask[bc.dofs] = True
+        vals[bc.dofs] = bc.values
+    return mask, vals

@@ -1,0 +1,226 @@
+"""Matrix-free Krylov solvers on tensors, with the loop on the host.
+
+CG for the SPD operators (pressure Poisson, mass) and batched BiCGStab for
+the nonsymmetric tentative-velocity operator, following
+``oasisx_tpu/la/krylov.py`` operation for operation so that both packages
+take the same iterations.  The loop runs in Python; its condition reads
+a device scalar once per iteration (one host sync), counted in
+``KrylovResult.syncs`` so a run can report syncs per step.
+
+Batched variants solve k systems sharing one operator, with per-row
+convergence: converged rows are frozen so further iterations cannot
+corrupt them.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("oasisx_tpu_torch")
+
+
+class KrylovResult(NamedTuple):
+    x: torch.Tensor
+    iters: torch.Tensor  # int32, per row for the batched solvers
+    resnorm: torch.Tensor  # final residual 2-norm
+    converged: torch.Tensor  # bool
+    syncs: int = 0  # device reads made by the loop condition
+
+
+def _identity(x):
+    return x
+
+
+_warned_rtol_clamps: set = set()
+
+
+def _effective_rtol(rtol: float, dtype) -> float:
+    """Clamp the relative tolerance to what the dtype can reach (50 eps):
+    asking float32 for 1e-13 otherwise drives the iteration to maxiter.
+    Logs once per (rtol, dtype) when the floor raises it."""
+    npd = np.dtype(np.float64 if dtype in (torch.float64, np.float64) else np.float32)
+    floor = 50.0 * float(np.finfo(npd).eps)
+    if float(rtol) < floor:
+        key = (float(rtol), npd.name)
+        if key not in _warned_rtol_clamps:
+            _warned_rtol_clamps.add(key)
+            logger.info(
+                "ksp_rtol %.3g below the %s accuracy floor; using %.3g",
+                float(rtol), npd.name, floor,
+            )
+        return floor
+    return float(rtol)
+
+
+def _nz(v: torch.Tensor) -> torch.Tensor:
+    """v where v != 0, else 1 (safe denominator)."""
+    return torch.where(v != 0, v, torch.ones_like(v))
+
+
+def cg(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-50,
+    maxiter: int = 1000,
+    project_nullspace: bool = False,
+    nullvec: torch.Tensor | None = None,
+) -> KrylovResult:
+    """Preconditioned conjugate gradients for an SPD operator.
+
+    With ``project_nullspace`` the constant vector (or ``nullvec``) is
+    removed from b, every operator application and the final solution."""
+    M = M or _identity
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    rtol = _effective_rtol(rtol, b.dtype)
+    ee = None if nullvec is None else torch.dot(nullvec, nullvec)
+
+    def demean(v):
+        if not project_nullspace:
+            return v
+        if nullvec is not None:
+            return v - (torch.dot(nullvec, v) / ee) * nullvec
+        return v - v.mean()
+
+    b = demean(b)
+    tol = torch.clamp(rtol * torch.linalg.vector_norm(b), min=atol)
+    r = demean(b - A(x))
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    rnorm = torch.linalg.vector_norm(r)
+    k = syncs = 0
+    brk = torch.zeros((), dtype=torch.bool, device=b.device)
+    while k < maxiter:
+        syncs += 1
+        if not bool((rnorm > tol) & ~brk):
+            break
+        Ap = demean(A(p))
+        pAp = torch.dot(p, Ap)
+        brk = brk | (pAp == 0) | (rz == 0)
+        alpha = rz / _nz(pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        beta = rz_new / _nz(rz)
+        p = z + beta * p
+        rz = rz_new
+        rnorm = torch.linalg.vector_norm(r)
+        k += 1
+    x = demean(x) if project_nullspace else x
+    return KrylovResult(
+        x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, rnorm <= tol, syncs
+    )
+
+
+def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
+    inv = torch.where(diag != 0, 1.0 / _nz(diag), torch.ones_like(diag))
+    return lambda r: inv * r
+
+
+def _row_norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def _row_dot(a, b):
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def cg_batched(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-50,
+    maxiter: int = 1000,
+    r0: torch.Tensor | None = None,
+) -> KrylovResult:
+    """Preconditioned CG on k systems at once: b, x0 of shape (k, n).
+    ``r0`` overrides the initial residual b - A x0 when the caller has it
+    in a cheaper or better-conditioned form."""
+    M = M or _identity
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    rtol = _effective_rtol(rtol, b.dtype)
+    tol = torch.clamp(rtol * _row_norm(b), min=atol)
+    r = b - A(x) if r0 is None else r0
+    z = M(r)
+    p = z
+    rz = _row_dot(r, z)
+    rnorm = _row_norm(r)
+    iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    k = syncs = 0
+    while k < maxiter:
+        syncs += 1
+        if not bool(torch.any(rnorm > tol)):
+            break
+        active = rnorm > tol
+        Ap = A(p)
+        pAp = _row_dot(p, Ap)
+        alpha = torch.where(active, rz / _nz(pAp), torch.zeros_like(rz))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.where(active, _row_dot(r, z), rz)
+        beta = torch.where(active, rz_new / _nz(rz), torch.zeros_like(rz))
+        p = torch.where(active, z + beta * p, p)
+        iters = iters + active[..., 0].to(torch.int32)
+        rz = rz_new
+        rnorm = _row_norm(r)
+        k += 1
+    return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)
+
+
+def bicgstab_batched(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-50,
+    maxiter: int = 1000,
+) -> KrylovResult:
+    """Preconditioned BiCGStab on k systems at once: b, x0 of shape (k, n)."""
+    M = M or _identity
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    rtol = _effective_rtol(rtol, b.dtype)
+    tol = torch.clamp(rtol * _row_norm(b), min=atol)
+    r = b - A(x)
+    rhat = r
+    rho = _row_dot(rhat, r)
+    p = r
+    rnorm = _row_norm(r)
+    iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = syncs = 0
+    while k < maxiter:
+        syncs += 1
+        if not bool(torch.any(rnorm > tol)):
+            break
+        active = rnorm > tol
+        phat = M(p)
+        v = A(phat)
+        rv = _row_dot(rhat, v)
+        alpha = rho / _nz(rv)
+        s = r - alpha * v
+        shat = M(s)
+        t = A(shat)
+        tt = _row_dot(t, t)
+        omega = _row_dot(t, s) / _nz(tt)
+        x = x + torch.where(active, alpha * phat + omega * shat, zero)
+        r = torch.where(active, s - omega * t, r)
+        rho_new = torch.where(active, _row_dot(rhat, r), rho)
+        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+        p = torch.where(active, r + beta * (p - omega * v), p)
+        iters = iters + active[..., 0].to(torch.int32)
+        rho = rho_new
+        rnorm = _row_norm(r)
+        k += 1
+    return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)

@@ -1,0 +1,157 @@
+"""Geometric-multigrid-preconditioned CG for the pressure Poisson.
+
+The plain-tensor counterpart of the whole-solve TPU kernel
+``make_pressure_cg(..., mg=build_pressure_mg_data(...))``
+(``oasisx_tpu/assembly/pallas_ops.py``), step for step:
+
+- V-cycle preconditioner: damped Jacobi smoothing (omega 0.8, 2 sweeps),
+  axis-separable linear transfers (restriction = prolongation^T), coarse
+  operators ``Ap_c * 2**(l*(d-2))``, and a degree-14 Chebyshev-Jacobi
+  solve on the coarsest level;
+- the singular Neumann operator handled by demeaning b, every operator
+  application, the preconditioned residual and the final iterate;
+- the result ``(x, iters, resnorm, converged)``.
+
+Every ``Ap`` application, on every level, goes through the constant-cube
+kernel at batch 1 (``assembly.kernels.matvec_const``).  The CG loop runs on
+the host with one device read per iteration.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..assembly import kernels as kn
+from .krylov import KrylovResult
+
+
+class PressureMGCG:
+    """``solve(b, x0)`` on the P1 pressure grid vector (npad_q,)."""
+
+    def __init__(self, sm_q, Ap_c: torch.Tensor, inv_diag, mg: dict, rtol: float,
+                 maxiter: int):
+        dev, dt = Ap_c.device, Ap_c.dtype
+        self.d = d = len(sm_q[1])
+        self.rtol = float(rtol)
+        self.maxiter = int(maxiter)
+        self.omega = mg["omega"]
+        self.nsmooth = mg["nsmooth"]
+        self.coarse = mg["coarse"]
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+        self.levels = []
+        for li, lvl in enumerate(mg["levels"]):
+            grid = tuple(lvl["grid"])
+            self.levels.append(dict(
+                grid=grid,
+                sm=((1,) * d + grid, tuple(lvl["cells"]), 1, None, None),
+                C=(Ap_c * lvl["scale"]).contiguous(),
+                # the fine level uses the operator's own diagonal, rounded
+                # to float32 as the kernel it mirrors stores it
+                invd=t(np.asarray(inv_diag, np.float32) if li == 0 else lvl["invd"]).reshape(-1),
+            ))
+        self.transfers = [tuple(t(m) for m in mats) for mats in mg["transfers"]]
+        self.n = int(np.prod(self.levels[0]["grid"]))
+
+    # --- operators -----------------------------------------------------------
+    def matvec(self, li: int, x: torch.Tensor) -> torch.Tensor:
+        lvl = self.levels[li]
+        return kn.matvec_const(x.view(1, -1), lvl["C"], lvl["sm"]).view(-1)
+
+    def demean(self, v: torch.Tensor) -> torch.Tensor:
+        return v - torch.sum(v) / self.n
+
+    def restrict(self, li: int, v: torch.Tensor) -> torch.Tensor:
+        AT, _, B, _ = self.transfers[li]
+        v = v.view(self.levels[li]["grid"])
+        if self.d == 2:
+            return (AT @ (v @ B)).reshape(-1)
+        rows = AT @ (v @ B)  # (gf0, gc1, gc2)
+        out = rows[0::2].clone()
+        half = 0.5 * rows[1::2]
+        out[1:] += half
+        out[:-1] += half
+        return out.reshape(-1)
+
+    def prolong_add(self, li: int, zc: torch.Tensor, zf: torch.Tensor) -> torch.Tensor:
+        _, A, _, BT = self.transfers[li]
+        Zc = zc.view(self.levels[li + 1]["grid"])
+        Zf = zf.view(self.levels[li]["grid"]).clone()
+        if self.d == 2:
+            return (Zf + A @ (Zc @ BT)).reshape(-1)
+        ups = A @ (Zc @ BT)  # (gc0, gf1, gf2)
+        Zf[0::2] += ups
+        Zf[1::2] += 0.5 * (ups[:-1] + ups[1:])
+        return Zf.reshape(-1)
+
+    # --- preconditioner ------------------------------------------------------
+    def smooth(self, li: int, r: torch.Tensor, z: torch.Tensor | None) -> torch.Tensor:
+        om, iv = self.omega, self.levels[li]["invd"]
+        sweeps = self.nsmooth
+        if z is None:
+            z = om * iv * r
+            sweeps -= 1
+        for _ in range(sweeps):
+            z = z + om * iv * (r - self.matvec(li, z))
+        return z
+
+    def chebyshev(self, li: int, r: torch.Tensor) -> torch.Tensor:
+        """z = p(D^-1 A) D^-1 r on level li with the coarse bounds."""
+        lmin, lmax, deg = self.coarse
+        iv = self.levels[li]["invd"]
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma1 = theta / delta
+        rho = 1.0 / sigma1
+        dk = (iv * r) / theta
+        z = dk
+        for _ in range(deg - 1):
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            dk = rho_new * rho * dk + (2.0 * rho_new / delta) * (iv * (r - self.matvec(li, z)))
+            z = z + dk
+            rho = rho_new
+        return z
+
+    def vcycle(self, r: torch.Tensor) -> torch.Tensor:
+        L = len(self.levels)
+        rs, zs = [r], []
+        for li in range(L - 1):
+            z = self.smooth(li, rs[li], None)
+            zs.append(z)
+            rs.append(self.restrict(li, rs[li] - self.matvec(li, z)))
+        z = self.chebyshev(L - 1, rs[L - 1])
+        for li in reversed(range(L - 1)):
+            z = self.smooth(li, rs[li], self.prolong_add(li, z, zs[li]))
+        return self.demean(z)
+
+    # --- PCG -----------------------------------------------------------------
+    def solve(self, b: torch.Tensor, x0: torch.Tensor) -> KrylovResult:
+        b = self.demean(b)
+        tol = self.rtol * torch.linalg.vector_norm(b)
+        x = x0
+        r = self.demean(b - self.matvec(0, x0))
+        z = self.vcycle(r)
+        p = z
+        rz = torch.dot(r, z)
+        rnorm = torch.linalg.vector_norm(r)
+        k = syncs = 0
+        while k < self.maxiter:
+            syncs += 1
+            if not bool(rnorm > tol):
+                break
+            Apv = self.demean(self.matvec(0, p))
+            pAp = torch.dot(p, Apv)
+            alpha = rz / torch.where(pAp != 0, pAp, torch.ones_like(pAp))
+            x = x + alpha * p
+            r = r - alpha * Apv
+            z = self.vcycle(r)
+            rz_new = torch.dot(r, z)
+            beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
+            p = z + beta * p
+            rz = rz_new
+            rnorm = torch.linalg.vector_norm(r)
+            k += 1
+        x = self.demean(x)
+        return KrylovResult(
+            x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, rnorm <= tol, syncs
+        )

@@ -1,13 +1,17 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, under ``build/kernels/`` at the root of
-the checkout.  The file name
-carries a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree loads the library it built before.  There is no fallback:
-a missing ``nvcc`` or a failed build raises with the compiler's output.
-``build_log`` keeps ptxas's report of the last compile (registers, shared
-memory, spills per kernel).
+the checkout.  The file name carries a hash of the sources, headers and
+flags, so an edit rebuilds and an unchanged tree loads the library it built
+before.  There is no fallback: a missing ``nvcc`` or a failed build raises
+with the compiler's output.  ``build_log`` keeps ptxas's report of the last
+compile (registers, shared memory, spills, stack per kernel).
+
+The whole-solve kernels of ``krylov_ops.cu`` use cooperative groups' grid
+barrier, which needs no relocatable device code (``-rdc``) on CUDA 11 and
+later, so the sources compile and link as ordinary objects.
 """
 
 from __future__ import annotations
@@ -24,20 +28,24 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None  # wall time of the last compile, None if loaded
 build_log = ""  # compiler output of the last compile
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_matvec_win": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "oasisx_cube_gather": [P, P, I, I, I, I, I, I, I, P],
+    "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 8 + [P],
+    "oasisx_bicgstab": [P] * 9 + [I] + [P] * 2 + [I] * 8 + [P],
+    "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 7 + [D] * 3 + [I, D, I, P],
 }
 
 
@@ -77,18 +85,28 @@ def library() -> ctypes.CDLL:
         out = build_dir() / f"liboasisx_kernels_{_digest(sources, _FLAGS)}.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            tag = f"{out.stem}.{os.getpid()}"
+            objs = [out.parent / f"{tag}.{s.stem}.o" for s in sources]
+            nvcc = _nvcc()
+            cmds = [[nvcc, *_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            logs = [p.communicate()[0] for p in procs]
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            for cmd, proc, log in zip(cmds, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            proc = subprocess.run(link, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)
+            for o in objs:
+                o.unlink(missing_ok=True)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
+            build_log = "".join(logs) + proc.stdout + proc.stderr
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,7 +1,7 @@
-"""The slice's hand-written cube kernels, their plain versions, and their
-host-side tables.
+"""The slice's hand-written cube kernels, their plain versions, their
+host-side tables, and the launch counters of every kernel of the port.
 
-Four wrappers, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
+Five wrappers here, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
 
 ============== ======================================== =========================
 wrapper        computes                                 replaces (pallas_ops.py)
@@ -10,7 +10,12 @@ matvec_const   y_b = sum_c P_c^T C P_c x_b, batch B     make_matvec_pf, make_mat
 matvec_win     y_b = sum_c P_c^T W_c P_c x_b            make_matvec_win
 mixed          r_g = C_g p, g < d                       make_mixed_pf
 divergence     b2 = sum_g B_g^T u_g                     make_divergence_pf
+cube_gather    U_b = (P_c x_b)_c, (B, nl, ncubes)       make_gather(_chunked)
 ============== ======================================== =========================
+
+The whole-solve kernels of ``csrc/krylov_ops.cu`` have their wrappers in
+``la/fused.py`` (``cg_mass``, ``bicgstab``) and ``la/pressure_mg.py``
+(``pressure_mg``) and count here too.
 
 A CPU tensor goes to the plain version (built from the ``cubes.py`` ops); a
 CUDA tensor goes to the kernel, and anything else raises.  ``launches``
@@ -32,7 +37,10 @@ import torch
 from . import cubes as cub
 from .structured import StructuredMap
 
-KERNELS = ("matvec_const", "matvec_win", "mixed", "divergence")
+KERNELS = (
+    "matvec_const", "matvec_win", "mixed", "divergence", "cube_gather",
+    "cg_mass", "bicgstab", "pressure_mg",
+)
 launches = dict.fromkeys(KERNELS, 0)
 plain_calls = dict.fromkeys(KERNELS, 0)
 
@@ -187,6 +195,11 @@ def divergence_plain(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.
     return cub.divergence_cube(u, B_all, sm_v, sm_q)
 
 
+def cube_gather_plain(x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    plain_calls["cube_gather"] += 1
+    return cub.cube_gather(x, sm)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -224,6 +237,14 @@ def _dims(sm: StructuredMap) -> tuple[int, int, int, int]:
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def coop_capacity(device: torch.device) -> int:
+    """The most blocks of 256 threads the card holds at once: the size of
+    the reduction-slot buffer a cooperative (whole-solve) kernel needs."""
+    props = torch.cuda.get_device_properties(device)
+    per_sm = getattr(props, "max_threads_per_multi_processor", 2048) // 256
+    return per_sm * props.multi_processor_count
 
 
 def _call(name: str, *args) -> None:
@@ -303,3 +324,17 @@ def divergence(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor
         _call("divergence", _ptr(u), _ptr(B_all), _ptr(b2), int(u.dtype == torch.float64),
               *_dims(sm_v), int(sm_v[2]), int(sm_q[2]), int(ncomp), _stream(u))
     return b2
+
+
+def cube_gather(x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    """Cube-local values of grid vectors: (B, npad) -> (B, nl, ncubes)."""
+    if not _route(x):
+        return cube_gather_plain(x, sm)
+    npad = int(np.prod(sm[0]))
+    _check(x, "x", x.dtype, (x.shape[0], npad))
+    u = torch.empty((x.shape[0], cub.num_slots(sm), int(np.prod(sm[1]))),
+                    dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _call("cube_gather", _ptr(x), _ptr(u), int(x.dtype == torch.float64), *_dims(sm),
+              int(sm[2]), int(x.shape[0]), _stream(x))
+    return u

@@ -1,0 +1,954 @@
+// Whole Krylov solves as persistent cooperative kernels, for sm_90a.
+//
+// They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py) together
+// with the device-side loops that drive them:
+//   oasisx_cg_mass      <- make_cg_iter_pf (K4) and the loop of cg_pf_solve /
+//                          fracstep.py's velocity update: batched Jacobi-PCG on
+//                          a constant cube matrix, from the caller's r0 and x0
+//   oasisx_bicgstab     <- make_bicgstab_iter (K2) and bicgstab_fused_from_r0:
+//                          batched BiCGStab on A_W (per-cube weights) with
+//                          zero-masked Dirichlet rows and Jacobi
+//   oasisx_pressure_mg  <- make_pressure_cg(..., mg=build_pressure_mg_data(...))
+//                          (K1): the MG-preconditioned pressure CG, nullspace
+//                          demeaning included
+//
+// Form.  On the TPU one core walks the grid in order and the state sits in
+// VMEM.  Here one kernel launch runs the whole solve: the grid is as many
+// blocks as fit on the card at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times the SM count, fewer when the grid has fewer points), launched with
+// cudaLaunchCooperativeKernel.  Every phase is a grid-stride loop over the
+// points, and phases are separated by grid barriers (cooperative_groups
+// grid_group::sync).  The Krylov loop runs inside the kernel until every row
+// has converged or maxiter is reached; the host reads nothing during a solve.
+// grid_group::sync needs no relocatable device code (-rdc) since CUDA 11.
+//
+// Reductions are deterministic and give the same value on every block: each
+// block sums its threads' partial sums in a fixed tree, writes the result to
+// its own slot, and after the barrier every block sums all slots in the same
+// fixed order.  So every block takes the same branch of the loop condition
+// (a block that saw another decision would deadlock the grid), no
+// floating-point atomics are used, and a run repeats bit for bit.  The slot
+// arrays alternate between two halves, so a block that runs ahead into the
+// next reduction never overwrites slots another block is still reading.
+//
+// Operators: the cube device function of cube_device.cuh, with the constant
+// matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in shared
+// memory, or K2's per-cube weights W read from global memory.
+//
+// Bound on the H100.  K2: memory; each iteration applies A_W twice, and each
+// application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
+// components, so two W streams per iteration are the floor; the ~10 state
+// vectors (3 x 1.6 MB each) stay in L2.  K4 and K1: latency; the 3 x 389k
+// point mass state and the 50k / 7k / 1k point pressure levels fit in L2, and
+// the time goes to grid barriers (3 per K4 iteration, about 30 per K1
+// iteration, most of them on the two coarse levels).
+//
+// Each entry point launches on the stream it is given, allocates nothing
+// (the caller passes the work and reduction buffers), and returns the launch
+// error, or cudaErrorInvalidValue for arguments it does not take.
+
+#include <cooperative_groups.h>
+
+#include "cube_device.cuh"
+
+namespace {
+
+using namespace oasisx;
+namespace cg = cooperative_groups;
+
+constexpr int kMaxRed = 2 * kMaxBatch;  // values reduced together
+constexpr int kMaxLevels = 8;
+
+__device__ __forceinline__ float vsqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double vsqrt(double v) { return sqrt(v); }
+
+template <typename T>
+__device__ __forceinline__ T nz(T v) {
+  return v != T(0) ? v : T(1);
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Deterministic block sum of N values (blockDim.x == kThreads); every thread
+// gets the sums.  sred holds N * kThreads values.
+template <int N, typename T>
+__device__ void block_sum(T* v, T* sred) {
+  __syncthreads();  // the previous reduction's readers are done
+  for (int i = 0; i < N; ++i) sred[i * kThreads + threadIdx.x] = v[i];
+  __syncthreads();
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s)
+      for (int i = 0; i < N; ++i)
+        sred[i * kThreads + threadIdx.x] += sred[i * kThreads + threadIdx.x + s];
+    __syncthreads();
+  }
+  for (int i = 0; i < N; ++i) v[i] = sred[i * kThreads];
+}
+
+template <typename T>
+struct Reducer {
+  T* slots;  // 2 * kMaxRed * gridDim.x, global
+  T* sred;   // kMaxRed * kThreads, shared
+  int half;
+};
+
+// Sum N values over the whole grid; a grid barrier.  Every block returns the
+// same bits.
+template <int N, typename T>
+__device__ void grid_sum(Reducer<T>& red, T* v) {
+  block_sum<N>(v, red.sred);
+  T* slot = red.slots + (size_t)red.half * kMaxRed * gridDim.x;
+  red.half ^= 1;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N; ++i) slot[i * gridDim.x + blockIdx.x] = v[i];
+  cg::this_grid().sync();
+  for (int i = 0; i < N; ++i) {
+    T s = T(0);
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x) s += slot[i * gridDim.x + b];
+    v[i] = s;
+  }
+  block_sum<N>(v, red.sred);
+}
+
+template <typename T>
+__device__ __forceinline__ void zero(T* v) {
+#pragma unroll
+  for (int i = 0; i < kMaxRed; ++i) v[i] = T(0);
+}
+
+// Shared memory: [matrix (mat_len T)] [slot offsets (nl ints)] [reduction].
+template <typename T>
+__host__ __device__ inline size_t red_offset(int mat_len, int nl) {
+  return align16(sizeof(T) * mat_len + sizeof(int) * nl);
+}
+
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int mat_len, int nl) {
+  return red_offset<T>(mat_len, nl) + sizeof(T) * kMaxRed * kThreads;
+}
+
+// ---------------------------------------------------------------------------
+// K4: batched Jacobi-PCG on a constant cube matrix, nb rows at once
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct CgMassArgs {
+  const T* C;     // (nl, nl) cube matrix
+  const T* r0;    // (nb, n) initial residual
+  const T* x0;    // (nb, n) initial guess
+  const T* invd;  // (n) Jacobi inverse diagonal, shared by the rows
+  const T* tol;   // (nb) absolute tolerance per row
+  T* x;           // (nb, n) out
+  T* r;           // (nb, n) work
+  T* p;           // (nb, n) work
+  T* Ap;          // (nb, n) work
+  T* red;         // reduction slots
+  int* iters;     // (nb) out
+  T* rnorm;       // (nb) out
+  CubeArgs a;     // nbo = nb rows
+  int maxiter;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) cg_mass_kernel(CgMassArgs<T> P) {
+  const CubeArgs& a = P.a;
+  const int nb = a.nbo;  // rows solved together
+  const int64_t n = a.npad_out;
+  unsigned char* smem = dynamic_smem();
+  T* smat = reinterpret_cast<T*>(smem);
+  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
+  cube_stage(P.C, a, smat, soff);
+  __syncthreads();
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
+  T s[kMaxRed];
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T iv = P.invd[idx];
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      const int64_t i = b * n + idx;
+      const T rr = P.r0[i];
+      const T z = iv * rr;
+      P.x[i] = P.x0[i];
+      P.r[i] = rr;
+      P.p[i] = z;
+      s[b] += rr * z;
+      s[kMaxBatch + b] += rr * rr;
+    }
+  }
+  grid_sum<kMaxRed>(red, s);
+  T rz[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch];
+  int it[kMaxBatch];
+  for (int b = 0; b < kMaxBatch; ++b) {
+    rz[b] = s[b];
+    rn[b] = vsqrt(s[kMaxBatch + b]);
+    tol[b] = b < nb ? P.tol[b] : T(0);
+    it[b] = 0;
+  }
+
+  for (int k = 0; k < P.maxiter; ++k) {
+    bool act[kMaxBatch];
+    bool any = false;
+    for (int b = 0; b < kMaxBatch; ++b) {
+      act[b] = b < nb && rn[b] > tol[b];
+      any = any || act[b];
+    }
+    if (!any) break;
+
+    // Ap = C p; pAp
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kMaxBatch];
+      cube_point(P.p, smat, soff, a, idx, acc);
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.Ap[i] = acc[b];
+        s[b] += P.p[i] * acc[b];
+      }
+    }
+    grid_sum<kMaxBatch>(red, s);
+    T alpha[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) alpha[b] = act[b] ? rz[b] / nz(s[b]) : T(0);
+
+    // x += alpha p; r -= alpha Ap; z = invd r; rz_new = r.z, |r|^2
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.x[i] = P.x[i] + alpha[b] * P.p[i];
+        const T rr = P.r[i] - alpha[b] * P.Ap[i];
+        P.r[i] = rr;
+        const T z = iv * rr;
+        s[b] += rr * z;
+        s[kMaxBatch + b] += rr * rr;
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T beta[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) {
+      const T rz_new = act[b] ? s[b] : rz[b];
+      beta[b] = act[b] ? rz_new / nz(rz[b]) : T(0);
+      rz[b] = rz_new;
+      if (act[b]) {
+        rn[b] = vsqrt(s[kMaxBatch + b]);
+        ++it[b];
+      }
+    }
+
+    // p = z + beta p on the active rows (inactive rows keep p)
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        if (!act[b]) continue;
+        const int64_t i = b * n + idx;
+        P.p[i] = iv * P.r[i] + beta[b] * P.p[i];
+      }
+    }
+    cg::this_grid().sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      P.iters[b] = it[b];
+      P.rnorm[b] = rn[b];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K2: batched BiCGStab on A_W with zero-masked Dirichlet rows
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct BicgArgs {
+  const T* W;      // (nl*nl, ncubes) per-cube weights
+  const T* r0;     // (nb, n) zmask (b - A_W x0); also rhat
+  const T* x0;     // (nb, n), bc rows preset to the bc values
+  const T* zmask;  // (nb, n) 0 on Dirichlet rows, 1 elsewhere
+  const T* invd;   // (n) Jacobi inverse diagonal, shared by the rows
+  const T* tol;    // (nb)
+  T* x;            // (nb, n) out
+  T* r;            // (nb, n) work: r, and s between the two matvecs
+  T* p;            // (nb, n) work
+  T* v;            // (nb, n) work
+  T* t;            // (nb, n) work
+  T* y;            // (nb, n) work: invd p, then invd s (the matvec input)
+  T* red;
+  int* iters;
+  T* rnorm;
+  CubeArgs a;      // nbo = nb rows, weights from global memory
+  int maxiter;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) bicgstab_kernel(BicgArgs<T> P) {
+  const CubeArgs& a = P.a;
+  const int nb = a.nbo;  // rows solved together
+  const int64_t n = a.npad_out;
+  unsigned char* smem = dynamic_smem();
+  int* soff = reinterpret_cast<int*>(smem);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(0, a.nl_in)), 0};
+  cube_stage<T>(nullptr, a, nullptr, soff);
+  __syncthreads();
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  // x = x0, r = p = rhat = r0, y = invd p; rho = |r0|^2, rnorm = |r0|
+  T s[kMaxRed];
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T iv = P.invd[idx];
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      const int64_t i = b * n + idx;
+      const T rr = P.r0[i];
+      P.x[i] = P.x0[i];
+      P.r[i] = rr;
+      P.p[i] = rr;
+      P.y[i] = iv * rr;
+      s[b] += rr * rr;
+    }
+  }
+  grid_sum<kMaxBatch>(red, s);
+  T rho[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch];
+  int it[kMaxBatch];
+  for (int b = 0; b < kMaxBatch; ++b) {
+    rho[b] = s[b];
+    rn[b] = vsqrt(s[b]);
+    tol[b] = b < nb ? P.tol[b] : T(0);
+    it[b] = 0;
+  }
+
+  for (int k = 0; k < P.maxiter; ++k) {
+    bool act[kMaxBatch];
+    bool any = false;
+    for (int b = 0; b < kMaxBatch; ++b) {
+      act[b] = b < nb && rn[b] > tol[b];
+      any = any || act[b];
+    }
+    if (!any) break;
+
+    // v = zmask A_W (invd p); rv = rhat.v
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kMaxBatch];
+      cube_point(P.y, P.W, soff, a, idx, acc);
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T vv = P.zmask[i] * acc[b];
+        P.v[i] = vv;
+        s[b] += P.r0[i] * vv;
+      }
+    }
+    grid_sum<kMaxBatch>(red, s);
+    T alpha[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) alpha[b] = rho[b] / nz(s[b]);
+
+    // s = r - alpha v (kept in r); y = invd s
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T ss = P.r[i] - alpha[b] * P.v[i];
+        P.r[i] = ss;
+        P.y[i] = iv * ss;
+      }
+    }
+    cg::this_grid().sync();
+
+    // t = zmask A_W (invd s); tt = t.t, ts = t.s
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kMaxBatch];
+      cube_point(P.y, P.W, soff, a, idx, acc);
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T tv = P.zmask[i] * acc[b];
+        P.t[i] = tv;
+        s[b] += tv * tv;
+        s[kMaxBatch + b] += tv * P.r[i];
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T omega[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) omega[b] = s[kMaxBatch + b] / nz(s[b]);
+
+    // x += alpha phat + omega shat (active rows); r = s - omega t, or restored
+    // to s + alpha v on an inactive row; rho_new = rhat.r, |r|^2
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T ss = P.r[i];
+        const T dx = alpha[b] * (iv * P.p[i]) + omega[b] * (iv * ss);
+        P.x[i] = P.x[i] + (act[b] ? T(1) : T(0)) * dx;
+        const T rr = act[b] ? ss - omega[b] * P.t[i] : ss + alpha[b] * P.v[i];
+        P.r[i] = rr;
+        s[b] += P.r0[i] * rr;
+        s[kMaxBatch + b] += rr * rr;
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T beta[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) {
+      const T rho_new = act[b] ? s[b] : rho[b];
+      beta[b] = (rho_new / nz(rho[b])) * (alpha[b] / nz(omega[b]));
+      rho[b] = rho_new;
+      if (act[b]) {
+        rn[b] = vsqrt(s[kMaxBatch + b]);
+        ++it[b];
+      }
+    }
+
+    // p = r + beta (p - omega v) on the active rows; y = invd p
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        T pp = P.p[i];
+        if (act[b]) {
+          pp = P.r[i] + beta[b] * (pp - omega[b] * P.v[i]);
+          P.p[i] = pp;
+        }
+        P.y[i] = iv * pp;
+      }
+    }
+    cg::this_grid().sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      P.iters[b] = it[b];
+      P.rnorm[b] = rn[b];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K1: MG-preconditioned CG for the singular P1 pressure Poisson
+// ---------------------------------------------------------------------------
+
+struct Level {
+  int g[3];     // grid points per axis; a 2D grid is (1, g0, g1)
+  int64_t n;    // points
+  int64_t off;  // first point of this level in the concatenated level arrays
+};
+
+template <typename T>
+struct MgArgs {
+  const T* Ap;    // (nl, nl) fine cube matrix
+  const T* b;     // (n0)
+  const T* x0;    // (n0)
+  const T* invd;  // every level's Jacobi inverse diagonal, concatenated
+  T* x;           // (n0) out
+  T* work;        // 4 vectors per level (r, z, z', t), then p (n0)
+  T* red;
+  int* iters;     // (1) out
+  T* rnorm;       // (1) out
+  int* conv;      // (1) out
+  CubeArgs lv[kMaxLevels];  // each level's operator (mat_len 0: staged here)
+  Level lev[kMaxLevels];
+  T scale[kMaxLevels];      // 2^(l (d-2))
+  int L, nsmooth, cheb_degree, maxiter;
+  double omega, lmin, lmax, rtol;
+};
+
+__device__ __forceinline__ void coords(int64_t idx, const Level& lv, int* c) {
+  c[2] = (int)(idx % lv.g[2]);
+  idx /= lv.g[2];
+  c[1] = (int)(idx % lv.g[1]);
+  c[0] = (int)(idx / lv.g[1]);
+}
+
+// Fine neighbours of coarse index I along an axis of f fine points: the
+// column of the 1-D linear interpolation (weights 0.5, 1, 0.5).
+__device__ __forceinline__ int restrict_taps(int I, int f, int* i, float* w) {
+  int m = 0;
+  for (int a = -1; a <= 1; ++a) {
+    const int j = 2 * I + a;
+    if (j < 0 || j >= f) continue;
+    i[m] = j;
+    w[m++] = a == 0 ? 1.0f : 0.5f;
+  }
+  return m;
+}
+
+// Coarse neighbours of fine index i: the row of the same interpolation.
+__device__ __forceinline__ int prolong_taps(int i, int* I, float* w) {
+  if (i % 2 == 0) {
+    I[0] = i / 2;
+    w[0] = 1.0f;
+    return 1;
+  }
+  I[0] = (i - 1) / 2;
+  I[1] = (i + 1) / 2;
+  w[0] = w[1] = 0.5f;
+  return 2;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) pressure_mg_kernel(MgArgs<T> P) {
+  const int L = P.L;
+  const int nl = P.lv[0].nl_in;
+  const int nn = nl * nl;
+  unsigned char* smem = dynamic_smem();
+  T* smat = reinterpret_cast<T*>(smem);
+  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * L * nn);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(L * nn, L * nl)), 0};
+  for (int l = 0; l < L; ++l) {
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) smat[l * nn + i] = P.Ap[i] * P.scale[l];
+    cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * nl);
+  }
+  __syncthreads();
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  T* rr[kMaxLevels];
+  T* z[kMaxLevels];
+  T* zb[kMaxLevels];
+  T* t[kMaxLevels];
+  const T* iv[kMaxLevels];
+  for (int l = 0; l < L; ++l) {
+    rr[l] = P.work + 4 * P.lev[l].off;
+    z[l] = rr[l] + P.lev[l].n;
+    zb[l] = z[l] + P.lev[l].n;
+    t[l] = zb[l] + P.lev[l].n;
+    iv[l] = P.invd + P.lev[l].off;
+  }
+  T* p = P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n);
+  T* x = P.x;
+  const int64_t n0 = P.lev[0].n;
+  const T nmean = (T)n0;
+  const T om = (T)P.omega;
+  const int ns = P.nsmooth;
+
+  auto mv = [&](int l, const T* src, int64_t idx) -> T {
+    T acc[kMaxBatch];
+    cube_point(src, smat + l * nn, soff + l * nl, P.lv[l], idx, acc);
+    return acc[0];
+  };
+  auto swapz = [&](int l) {
+    T* tmp = z[l];
+    z[l] = zb[l];
+    zb[l] = tmp;
+  };
+  T s[kMaxRed];
+
+  // z' = z + omega invd (r - A z); with_sum: a grid sum of z', else a barrier
+  auto sweep = [&](int l, bool with_sum) -> T {
+    zero(s);
+    for (int64_t idx = first; idx < P.lev[l].n; idx += stride) {
+      const T zn = z[l][idx] + (om * iv[l][idx]) * (rr[l][idx] - mv(l, z[l], idx));
+      zb[l][idx] = zn;
+      s[0] += zn;
+    }
+    swapz(l);
+    if (with_sum) {
+      grid_sum<1>(red, s);
+      return s[0];
+    }
+    cg::this_grid().sync();
+    return T(0);
+  };
+
+  const double theta = 0.5 * (P.lmax + P.lmin);
+  const double delta = 0.5 * (P.lmax - P.lmin);
+  const double sigma1 = theta / delta;
+
+  // z[0] holds omega invd r[0] (the first sweep from zero) on entry; returns
+  // the grid sum of the V-cycle's z[0]
+  auto vcycle = [&]() -> T {
+    for (int l = 0; l + 1 < L; ++l) {
+      for (int k = 1; k < ns; ++k) sweep(l, false);
+      for (int64_t idx = first; idx < P.lev[l].n; idx += stride)
+        t[l][idx] = rr[l][idx] - mv(l, z[l], idx);
+      cg::this_grid().sync();
+      // r[l+1] = P^T t[l], then the next level's first step
+      const Level& F = P.lev[l];
+      const Level& C = P.lev[l + 1];
+      const bool coarsest = l + 2 == L;
+      for (int64_t idx = first; idx < C.n; idx += stride) {
+        int I[3], i0[3], i1[3], i2[3];
+        float w0[3], w1[3], w2[3];
+        coords(idx, C, I);
+        const int m0 = restrict_taps(I[0], F.g[0], i0, w0);
+        const int m1 = restrict_taps(I[1], F.g[1], i1, w1);
+        const int m2 = restrict_taps(I[2], F.g[2], i2, w2);
+        T acc0 = T(0);
+        for (int a0 = 0; a0 < m0; ++a0) {
+          T acc1 = T(0);
+          for (int a1 = 0; a1 < m1; ++a1) {
+            const T* row = t[l] + ((int64_t)i0[a0] * F.g[1] + i1[a1]) * F.g[2];
+            T acc2 = T(0);
+            for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[i2[a2]];
+            acc1 += (T)w1[a1] * acc2;
+          }
+          acc0 += (T)w0[a0] * acc1;
+        }
+        rr[l + 1][idx] = acc0;
+        if (coarsest) {
+          const T dk = (iv[l + 1][idx] * acc0) / (T)theta;
+          t[l + 1][idx] = dk;
+          z[l + 1][idx] = dk;
+        } else {
+          z[l + 1][idx] = (om * iv[l + 1][idx]) * acc0;
+        }
+      }
+      cg::this_grid().sync();
+    }
+    // coarsest level: Chebyshev-Jacobi, dk kept in t
+    const int lc = L - 1;
+    double rho = 1.0 / sigma1;
+    for (int k = 0; k + 1 < P.cheb_degree; ++k) {
+      const double rho_new = 1.0 / (2.0 * sigma1 - rho);
+      const T c1 = (T)(rho_new * rho);
+      const T c2 = (T)(2.0 * rho_new / delta);
+      for (int64_t idx = first; idx < P.lev[lc].n; idx += stride) {
+        const T dk = c1 * t[lc][idx] + c2 * (iv[lc][idx] * (rr[lc][idx] - mv(lc, z[lc], idx)));
+        t[lc][idx] = dk;
+        zb[lc][idx] = z[lc][idx] + dk;
+      }
+      swapz(lc);
+      cg::this_grid().sync();
+      rho = rho_new;
+    }
+    T zsum = T(0);
+    for (int l = L - 2; l >= 0; --l) {
+      // z[l] += P z[l+1]
+      const Level& F = P.lev[l];
+      const Level& C = P.lev[l + 1];
+      for (int64_t idx = first; idx < F.n; idx += stride) {
+        int i[3], I0[2], I1[2], I2[2];
+        float w0[2], w1[2], w2[2];
+        coords(idx, F, i);
+        const int m0 = prolong_taps(i[0], I0, w0);
+        const int m1 = prolong_taps(i[1], I1, w1);
+        const int m2 = prolong_taps(i[2], I2, w2);
+        T acc0 = T(0);
+        for (int a0 = 0; a0 < m0; ++a0) {
+          T acc1 = T(0);
+          for (int a1 = 0; a1 < m1; ++a1) {
+            const T* row = z[l + 1] + ((int64_t)I0[a0] * C.g[1] + I1[a1]) * C.g[2];
+            T acc2 = T(0);
+            for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[I2[a2]];
+            acc1 += (T)w1[a1] * acc2;
+          }
+          acc0 += (T)w0[a0] * acc1;
+        }
+        z[l][idx] += acc0;
+      }
+      cg::this_grid().sync();
+      for (int k = 0; k < ns; ++k) zsum = sweep(l, l == 0 && k + 1 == ns);
+    }
+    return zsum;
+  };
+
+  // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
+  zero(s);
+  for (int64_t idx = first; idx < n0; idx += stride) {
+    x[idx] = P.x0[idx];
+    t[0][idx] = mv(0, P.x0, idx);
+    s[0] += P.b[idx];
+  }
+  grid_sum<1>(red, s);
+  const T mb = s[0] / nmean;
+  zero(s);
+  for (int64_t idx = first; idx < n0; idx += stride) {
+    const T bd = P.b[idx] - mb;
+    const T v = bd - t[0][idx];
+    rr[0][idx] = v;
+    s[0] += bd * bd;
+    s[1] += v;
+  }
+  grid_sum<2>(red, s);
+  const T tol = (T)P.rtol * vsqrt(s[0]);
+  const T mr = s[1] / nmean;
+  zero(s);
+  for (int64_t idx = first; idx < n0; idx += stride) {
+    const T r = rr[0][idx] - mr;
+    rr[0][idx] = r;
+    z[0][idx] = (om * iv[0][idx]) * r;
+    s[0] += r * r;
+  }
+  grid_sum<1>(red, s);
+  T rn = vsqrt(s[0]);
+  // z = demean(V-cycle(r)); p = z; rz = r.z
+  T mz = vcycle() / nmean;
+  zero(s);
+  for (int64_t idx = first; idx < n0; idx += stride) {
+    const T zz = z[0][idx] - mz;
+    z[0][idx] = zz;
+    p[idx] = zz;
+    s[0] += rr[0][idx] * zz;
+  }
+  grid_sum<1>(red, s);
+  T rz = s[0];
+
+  int k = 0;
+  while (k < P.maxiter && rn > tol) {
+    // Apv = demean(A p); alpha = rz / p.Apv
+    zero(s);
+    for (int64_t idx = first; idx < n0; idx += stride) {
+      const T ap = mv(0, p, idx);
+      t[0][idx] = ap;
+      s[0] += ap;
+    }
+    grid_sum<1>(red, s);
+    const T ma = s[0] / nmean;
+    zero(s);
+    for (int64_t idx = first; idx < n0; idx += stride) {
+      const T apv = t[0][idx] - ma;
+      t[0][idx] = apv;
+      s[0] += p[idx] * apv;
+    }
+    grid_sum<1>(red, s);
+    const T alpha = rz / nz(s[0]);
+    // x += alpha p; r -= alpha Apv; |r|; the V-cycle's first sweep
+    zero(s);
+    for (int64_t idx = first; idx < n0; idx += stride) {
+      x[idx] = x[idx] + alpha * p[idx];
+      const T r = rr[0][idx] - alpha * t[0][idx];
+      rr[0][idx] = r;
+      z[0][idx] = (om * iv[0][idx]) * r;
+      s[0] += r * r;
+    }
+    grid_sum<1>(red, s);
+    const T rn_new = vsqrt(s[0]);
+    mz = vcycle() / nmean;
+    // z = demean(z); rz_new = r.z; p = z + beta p
+    zero(s);
+    for (int64_t idx = first; idx < n0; idx += stride) {
+      const T zz = z[0][idx] - mz;
+      z[0][idx] = zz;
+      s[0] += rr[0][idx] * zz;
+    }
+    grid_sum<1>(red, s);
+    const T rz_new = s[0];
+    const T beta = rz_new / nz(rz);
+    for (int64_t idx = first; idx < n0; idx += stride) p[idx] = z[0][idx] + beta * p[idx];
+    cg::this_grid().sync();
+    rz = rz_new;
+    rn = rn_new;
+    ++k;
+  }
+
+  // x = demean(x)
+  zero(s);
+  for (int64_t idx = first; idx < n0; idx += stride) s[0] += x[idx];
+  grid_sum<1>(red, s);
+  const T mx = s[0] / nmean;
+  for (int64_t idx = first; idx < n0; idx += stride) x[idx] = x[idx] - mx;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    P.iters[0] = k;
+    P.rnorm[0] = rn;
+    P.conv[0] = rn <= tol ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Cooperative launch of one block per kThreads points of `work`, at most as
+// many blocks as fit on the card at once; refuses (returns an error) rather
+// than launching a grid that cannot be resident.
+template <typename Args>
+int coop_launch(void (*kernel)(Args), Args& args, int64_t work, size_t smem,
+                int max_blocks, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int64_t need = (work + kThreads - 1) / kThreads;
+  int64_t grid = (int64_t)per_sm * sms;
+  if (need < grid) grid = need < 1 ? 1 : need;
+  if (grid > max_blocks) return (int)cudaErrorInvalidValue;
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)grid), dim3(kThreads),
+                                  params, smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* invd,
+                   const void* tol, void* x, void* work, void* red, int max_blocks,
+                   void* iters, void* rnorm, int d, int n0, int n1, int n2, int deg,
+                   int batch, int maxiter, void* stream) {
+  CgMassArgs<T> P;
+  P.a = const_args(d, n0, n1, n2, deg, batch);
+  const int64_t n = P.a.npad_out;
+  P.C = static_cast<const T*>(C);
+  P.r0 = static_cast<const T*>(r0);
+  P.x0 = static_cast<const T*>(x0);
+  P.invd = static_cast<const T*>(invd);
+  P.tol = static_cast<const T*>(tol);
+  P.x = static_cast<T*>(x);
+  P.r = static_cast<T*>(work);
+  P.p = P.r + batch * n;
+  P.Ap = P.p + batch * n;
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.maxiter = maxiter;
+  return coop_launch(cg_mass_kernel<T>, P, n, smem_bytes<T>(P.a.mat_len, P.a.nl_in),
+                     max_blocks, stream);
+}
+
+template <typename T>
+int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* zmask,
+                    const void* invd, const void* tol, void* x, void* work, void* red,
+                    int max_blocks, void* iters, void* rnorm, int d, int n0, int n1, int n2,
+                    int deg, int batch, int maxiter, void* stream) {
+  BicgArgs<T> P;
+  P.a = win_args(d, n0, n1, n2, deg, batch);
+  const int64_t n = P.a.npad_out;
+  P.W = static_cast<const T*>(W);
+  P.r0 = static_cast<const T*>(r0);
+  P.x0 = static_cast<const T*>(x0);
+  P.zmask = static_cast<const T*>(zmask);
+  P.invd = static_cast<const T*>(invd);
+  P.tol = static_cast<const T*>(tol);
+  P.x = static_cast<T*>(x);
+  P.r = static_cast<T*>(work);
+  P.p = P.r + batch * n;
+  P.v = P.p + batch * n;
+  P.t = P.v + batch * n;
+  P.y = P.t + batch * n;
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.maxiter = maxiter;
+  return coop_launch(bicgstab_kernel<T>, P, n, smem_bytes<T>(0, P.a.nl_in), max_blocks,
+                     stream);
+}
+
+template <typename T>
+int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void* invd,
+                       void* x, void* work, void* red, int max_blocks, void* iters,
+                       void* rnorm, void* conv, int d, int n0, int n1, int n2, int levels,
+                       int nsmooth, double omega, double lmin, double lmax,
+                       int cheb_degree, double rtol, int maxiter, void* stream) {
+  MgArgs<T> P;
+  P.L = levels;
+  int cells[3] = {n0, n1, d == 3 ? n2 : 0};
+  int64_t off = 0;
+  for (int l = 0; l < levels; ++l) {
+    P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
+    P.lv[l].mat_len = 0;  // the kernel stages Ap * scale itself
+    Level& lv = P.lev[l];
+    lv.g[0] = d == 3 ? cells[0] + 1 : 1;
+    lv.g[1] = d == 3 ? cells[1] + 1 : cells[0] + 1;
+    lv.g[2] = d == 3 ? cells[2] + 1 : cells[1] + 1;
+    lv.n = (int64_t)lv.g[0] * lv.g[1] * lv.g[2];
+    lv.off = off;
+    off += lv.n;
+    P.scale[l] = (T)(double)(1 << (l * (d - 2)));
+    for (int k = 0; k < d; ++k) cells[k] /= 2;
+  }
+  P.Ap = static_cast<const T*>(Ap);
+  P.b = static_cast<const T*>(b);
+  P.x0 = static_cast<const T*>(x0);
+  P.invd = static_cast<const T*>(invd);
+  P.x = static_cast<T*>(x);
+  P.work = static_cast<T*>(work);
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.conv = static_cast<int*>(conv);
+  P.nsmooth = nsmooth;
+  P.cheb_degree = cheb_degree;
+  P.maxiter = maxiter;
+  P.omega = omega;
+  P.lmin = lmin;
+  P.lmax = lmax;
+  P.rtol = rtol;
+  const int nl = P.lv[0].nl_in;
+  return coop_launch(pressure_mg_kernel<T>, P, P.lev[0].n,
+                     smem_bytes<T>(levels * nl * nl, levels * nl), max_blocks, stream);
+}
+
+bool batch_ok(int d, int batch) { return (d == 2 || d == 3) && batch >= 1 && batch <= kMaxBatch; }
+
+}  // namespace
+
+extern "C" {
+
+// Batched Jacobi-PCG with constant cube matrix C (nl, nl): rows b < batch of
+// x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol (batch).
+// work: 3 * batch * grid; red: 2 * 8 * max_blocks.  Writes x, iters (int32,
+// batch) and rnorm (batch).
+int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* invd,
+                   const void* tol, void* x, void* work, void* red, int max_blocks,
+                   void* iters, void* rnorm, int is_f64, int d, int n0, int n1, int n2,
+                   int deg, int batch, int maxiter, void* stream) {
+  if (!batch_ok(d, batch)) return (int)cudaErrorInvalidValue;
+  return is_f64 ? cg_mass_launch<double>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
+                                         rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
+                : cg_mass_launch<float>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
+                                        rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
+}
+
+// Batched BiCGStab on A_W (W (nl*nl, ncubes)) with zero-masked rows, from
+// r0 = zmask (b - A_W x0) and x0; invd (grid); zmask, r0, x0 (batch, grid);
+// tol (batch).  work: 5 * batch * grid; red: 2 * 8 * max_blocks.
+int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* zmask,
+                    const void* invd, const void* tol, void* x, void* work, void* red,
+                    int max_blocks, void* iters, void* rnorm, int is_f64, int d, int n0,
+                    int n1, int n2, int deg, int batch, int maxiter, void* stream) {
+  if (!batch_ok(d, batch)) return (int)cudaErrorInvalidValue;
+  return is_f64
+             ? bicgstab_launch<double>(W, r0, x0, zmask, invd, tol, x, work, red, max_blocks,
+                                       iters, rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
+             : bicgstab_launch<float>(W, r0, x0, zmask, invd, tol, x, work, red, max_blocks,
+                                      iters, rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
+}
+
+// MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)
+// and `levels` levels of halved cells: b, x0, x (grid); invd (every level's
+// points, concatenated); work: 4 * (points of all levels) + grid points;
+// red: 2 * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
+int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void* invd,
+                       void* x, void* work, void* red, int max_blocks, void* iters,
+                       void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
+                       int levels, int nsmooth, double omega, double lmin, double lmax,
+                       int cheb_degree, double rtol, int maxiter, void* stream) {
+  if ((d != 2 && d != 3) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
+      cheb_degree < 1)
+    return (int)cudaErrorInvalidValue;
+  return is_f64 ? pressure_mg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
+                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
+                                             lmin, lmax, cheb_degree, rtol, maxiter, stream)
+                : pressure_mg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
+                                            rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
+                                            lmin, lmax, cheb_degree, rtol, maxiter, stream);
+}
+
+}  // extern "C"

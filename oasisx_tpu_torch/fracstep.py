@@ -4,26 +4,31 @@ Crank-Nicolson diffusion) on PyTorch: the structured single-device path.
 Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN`` on a
 mesh from the structured generators, with velocity Dirichlet data and no
 outlet (so the pressure Poisson is singular).  Every operator application
-of the step goes through one of the four cube kernels of
-``assembly/kernels.py`` (their plain versions on a CPU device):
+and every solve of the step goes through one of the eight kernels of
+``assembly/kernels.py``, ``la/fused.py`` and ``la/pressure_mg.py`` (their
+plain versions on a CPU device):
 
+  U       = the cube-local values of uab         cube_gather
   b_first = (2/dt) M u1 - A_W u1               matvec_const, matvec_win
   A_W     = (1/dt) M + (nu/2) K + 1/2 C(uab)   per-cube weights W, one matmul
   inner loop (k < max_iter and diff > max_error):
       rhs   = b_first + B ps;  rhs[bc] = g     mixed
-      solve A_W u = rhs (bc rows identity)     batched BiCGStab, Jacobi
+      solve A_W u = rhs: x0[bc] = g,           bicgstab (r0 by matvec_win)
+        r0 = zmask (rhs - A_W x0), Jacobi
       b2    = -(1/dt) div u                    divergence
-      solve Ap dp = b2 (nullspace)             MG-PCG, matvec_const at batch 1
+      solve Ap dp = b2 (nullspace)             pressure_mg
       ps    = p + dp
-  velocity update: solve M u_new = M u - dt G dp   batched Jacobi CG
+  velocity update: solve M u_new = M u - dt G dp   cg_mass (r0 by mixed,
+                                                   matvec_const)
   rotate u2 <- u1 <- u_new;  p <- ps
 
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout; after each call it is written into the solver's
-Functions.  The Krylov loops run on the host and read one device scalar per
-iteration; ``last_stats["host_syncs"]`` counts those reads per step (plus
-the inner-loop test when ``max_iter > 1``); ``run`` adds one read of the
-stats per call.
+Functions.  On the card each solve is one kernel with its loop on the
+device, so a step reads nothing on the host (with ``max_iter > 1`` the
+inner-loop test reads ``diff``); the plain versions loop on the host and
+read one device scalar per iteration.  ``last_stats["host_syncs"]`` counts
+those reads per step; ``run`` adds one read of the stats per call.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ from .assembly.structured import build_structured_map, num_padded
 from .bcs import DirichletBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
-from .la.krylov import _effective_rtol, bicgstab_batched, cg_batched, jacobi_preconditioner
+from .la import fused
+from .la.krylov import _effective_rtol
 from .la.pressure_mg import PressureMGCG
 from .la.solver import KSPSolver
 from .meshes.mesh import Mesh
@@ -54,9 +60,9 @@ logger = logging.getLogger("oasisx_tpu_torch")
 STATE_KEYS = ("u", "u1", "u2", "p", "dp", "duc")
 
 
-def _rel_res(rnorm: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Relative exit residual ||b - A x|| / ||b|| along the last axis."""
-    return rnorm / torch.clamp(torch.linalg.vector_norm(rhs, dim=-1), min=1e-30)
+def _rel_res(rnorm: torch.Tensor, bnorm: torch.Tensor) -> torch.Tensor:
+    """Relative exit residual ||b - A x|| / ||b||."""
+    return rnorm / torch.clamp(bnorm, min=1e-30)
 
 
 class FractionalStep_AB_CN:
@@ -172,6 +178,9 @@ class FractionalStep_AB_CN:
         nv = self._Vi[0][0].num_dofs
         masks = np.stack([bc_mask_and_values(bc_i, nv)[0] for bc_i in self._bcs_u])
         self._bc_masks = self._pv(torch.as_tensor(masks, device=dev))
+        # 0 on Dirichlet rows: the tentative operator's output is zeroed there
+        self._zmask = (~self._bc_masks).to(dt)
+        self._M_invd = torch.where(self._M_diag != 0, 1.0 / self._M_diag, 1.0)
 
         Ap64 = cu.Ap_c.detach().cpu().double().numpy()
         mg = kn.build_pressure_mg_data(self._sm_q, Ap64)
@@ -224,7 +233,7 @@ class FractionalStep_AB_CN:
         cu, d = self._cu, u1.shape[0]
         nl = cu.M_c.shape[0]
         uab = 1.5 * u1 - 0.5 * u2
-        U = cub.cube_gather(uab, self._sm_v)  # (d, nl, ncube)
+        U = kn.cube_gather(uab, self._sm_v)  # (d, nl, ncube)
         uq = cu.Phi @ U  # (d, Q, ncube)
         A0 = (1.0 / dt) * cu.M_c + (0.5 * nu) * cu.K_c
         W = kn.build_w(self._T, A0, U.reshape(d * nl, -1))
@@ -242,21 +251,22 @@ class FractionalStep_AB_CN:
         )
 
     def _tentative_solve(self, W, diag, rhs1, bc_vals, u, x0):
-        """Batched BiCGStab on A_W with identity bc rows; returns
+        """Batched BiCGStab on A_W with zero-masked bc rows (the kernel
+        path's formulation, oasisx_tpu fracstep.py:2390-2410): x0's bc rows
+        preset to the bc values, r0 = zmask (rhs - A_W x0), tolerance from
+        the full rhs norm, Jacobi from the full diagonal.  Returns
         (KrylovResult, diff against u, relative exit residual)."""
-        masks = self._bc_masks
-        M = jacobi_preconditioner(torch.where(masks, torch.ones_like(diag), diag))
+        masks, zmask, sm_v = self._bc_masks, self._zmask, self._sm_v
         rhs = torch.where(masks, bc_vals, rhs1)
-        sm_v = self._sm_v
-
-        def mv(x):
-            return torch.where(masks, x, kn.matvec_win(W, x, sm_v))
-
+        x0 = torch.where(masks, bc_vals, x0)
+        r0 = zmask * (rhs - kn.matvec_win(W, x0, sm_v))
+        bnorm = torch.linalg.vector_norm(rhs, dim=-1)
+        invd = torch.where(diag != 0, 1.0 / diag, 1.0)
         s = self._solver_u
-        res = bicgstab_batched(mv, rhs, x0=x0, M=M, rtol=s.rtol, atol=s.atol,
-                               maxiter=s.maxiter)
+        res = fused.bicgstab(W, r0, x0, zmask, invd, bnorm, sm_v,
+                             _effective_rtol(s.rtol, self._dtype), s.maxiter, s.atol)
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
-        return res, diff, _rel_res(res.resnorm, rhs)
+        return res, diff, _rel_res(res.resnorm, bnorm)
 
     def _pressure_solve(self, b2, dp0):
         """Projected warm start, MG-PCG, volume-weighted zero mean; returns
@@ -265,7 +275,7 @@ class FractionalStep_AB_CN:
         x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
         res = self._pcg.solve(b2, x0)
         dp = res.x - (torch.dot(self._intw, res.x) / self._vol) * nv
-        return res, dp, _rel_res(res.resnorm, b2)
+        return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
 
     def _velocity_update(self, u, dp, dt, duc):
         """Mass solves M u_new = M u - dt G dp, warm-started from u + duc
@@ -275,10 +285,11 @@ class FractionalStep_AB_CN:
         g = kn.mixed(dp, cu.G_c, sm_v, self._sm_q)
         b3 = mv(u) - dt * g
         r0 = -dt * g - mv(duc)
+        bnorm = torch.linalg.vector_norm(b3, dim=-1)
         sc = self._solver_c
-        res = cg_batched(mv, b3, x0=u + duc, M=jacobi_preconditioner(self._M_diag),
-                         rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, r0=r0)
-        return res, _rel_res(res.resnorm, b3)
+        res = fused.cg_mass(cu.M_c, r0, u + duc, self._M_invd, bnorm, sm_v,
+                            _effective_rtol(sc.rtol, self._dtype), sc.maxiter, sc.atol)
+        return res, _rel_res(res.resnorm, bnorm)
 
     def _step(self, state, dt, nu, bc_vals, max_error, max_iter):
         """One time step; returns (new state, per-step stats on the device,
@@ -309,7 +320,8 @@ class FractionalStep_AB_CN:
             u_iters=ures.iters, u_converged=ures.converged, u_res=u_res,
             p_iters=pres.iters, p_converged=pres.converged, p_res=p_res,
             c_iters=cres.iters, c_converged=cres.converged, c_res=c_res,
-            inner_iters=torch.tensor(it, dtype=torch.int32, device=u.device), diff=diff,
+            # filled on the device: a copy from the host would synchronise
+            inner_iters=torch.full((), it, dtype=torch.int32, device=u.device), diff=diff,
         )
         return new_state, stats, syncs
 

@@ -141,16 +141,13 @@ def cg_batched(
     rtol: float = 1e-10,
     atol: float = 1e-50,
     maxiter: int = 1000,
-    r0: torch.Tensor | None = None,
 ) -> KrylovResult:
-    """Preconditioned CG on k systems at once: b, x0 of shape (k, n).
-    ``r0`` overrides the initial residual b - A x0 when the caller has it
-    in a cheaper or better-conditioned form."""
+    """Preconditioned CG on k systems at once: b, x0 of shape (k, n)."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     rtol = _effective_rtol(rtol, b.dtype)
     tol = torch.clamp(rtol * _row_norm(b), min=atol)
-    r = b - A(x) if r0 is None else r0
+    r = b - A(x)
     z = M(r)
     p = z
     rz = _row_dot(r, z)

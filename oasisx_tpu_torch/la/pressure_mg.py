@@ -12,9 +12,14 @@ The plain-tensor counterpart of the whole-solve TPU kernel
   application, the preconditioned residual and the final iterate;
 - the result ``(x, iters, resnorm, converged)``.
 
-Every ``Ap`` application, on every level, goes through the constant-cube
-kernel at batch 1 (``assembly.kernels.matvec_const``).  The CG loop runs on
-the host with one device read per iteration.
+``solve`` sends a CUDA tensor to the whole-solve kernel of
+``csrc/krylov_ops.cu`` (K1: the CG loop, the V-cycle and every reduction on
+the card, no host read) and a CPU tensor to ``solve_plain``, the plain
+version: its loop runs on the host with one device read per iteration, and
+every ``Ap`` application, on every level, goes through the level operator
+it is given (by default the constant-cube kernel's wrapper
+``assembly.kernels.matvec_const``).  Launches and plain calls count under
+``pressure_mg`` in ``assembly.kernels``.
 """
 
 from __future__ import annotations
@@ -52,11 +57,16 @@ class PressureMGCG:
             ))
         self.transfers = [tuple(t(m) for m in mats) for mats in mg["transfers"]]
         self.n = int(np.prod(self.levels[0]["grid"]))
+        # the kernel's tables: the fine cube matrix, every level's diagonal
+        self.Ap_c = Ap_c.contiguous()
+        self.cells = tuple(int(c) for c in sm_q[1])
+        self.invd_all = torch.cat([lvl["invd"] for lvl in self.levels]).contiguous()
+        self.matvec_fn = kn.matvec_const
 
     # --- operators -----------------------------------------------------------
     def matvec(self, li: int, x: torch.Tensor) -> torch.Tensor:
         lvl = self.levels[li]
-        return kn.matvec_const(x.view(1, -1), lvl["C"], lvl["sm"]).view(-1)
+        return self.matvec_fn(x.view(1, -1), lvl["C"], lvl["sm"]).view(-1)
 
     def demean(self, v: torch.Tensor) -> torch.Tensor:
         return v - torch.sum(v) / self.n
@@ -126,6 +136,40 @@ class PressureMGCG:
 
     # --- PCG -----------------------------------------------------------------
     def solve(self, b: torch.Tensor, x0: torch.Tensor) -> KrylovResult:
+        """K1 on a CUDA tensor, ``solve_plain`` on the CPU."""
+        if not kn._route(b, x0, self.Ap_c):
+            return self.solve_plain(b, x0)
+        with torch.cuda.device(b.device):
+            return self._solve_kernel(b, x0)
+
+    def _solve_kernel(self, b: torch.Tensor, x0: torch.Tensor) -> KrylovResult:
+        dev, dt = b.device, b.dtype
+        n = self.n
+        kn._check(b, "b", dt, (n,))
+        kn._check(x0, "x0", dt, (n,))
+        kn._check(self.Ap_c, "Ap_c", dt, tuple(self.Ap_c.shape))
+        ntot = self.invd_all.numel()
+        x = torch.empty(n, dtype=dt, device=dev)
+        work = torch.empty(4 * ntot + n, dtype=dt, device=dev)
+        red = torch.empty(2 * 8 * kn.coop_capacity(dev), dtype=dt, device=dev)
+        iters = torch.empty(1, dtype=torch.int32, device=dev)
+        rnorm = torch.empty(1, dtype=dt, device=dev)
+        conv = torch.empty(1, dtype=torch.int32, device=dev)
+        lmin, lmax, deg = self.coarse
+        p = kn._ptr
+        cells = self.cells + (0,) * (3 - self.d)
+        kn._call("pressure_mg", p(self.Ap_c), p(b), p(x0), p(self.invd_all), p(x), p(work),
+                 p(red), red.numel() // 16, p(iters), p(rnorm), p(conv),
+                 int(dt == torch.float64), self.d, *cells, len(self.levels), int(self.nsmooth),
+                 float(self.omega), float(lmin), float(lmax), int(deg), self.rtol,
+                 self.maxiter, kn._stream(b))
+        return KrylovResult(x, iters[0], rnorm[0], conv[0] != 0, 0)
+
+    def solve_plain(self, b: torch.Tensor, x0: torch.Tensor, matvec=None) -> KrylovResult:
+        """The plain version of K1; ``matvec(x (1, n), C, sm)`` applies a
+        level's operator (default ``assembly.kernels.matvec_const``)."""
+        kn.plain_calls["pressure_mg"] += 1
+        self.matvec_fn = matvec or kn.matvec_const
         b = self.demean(b)
         tol = self.rtol * torch.linalg.vector_norm(b)
         x = x0

@@ -2,9 +2,10 @@
 
 - 3D, float64: the bench problem (bench.py ``build_solver`` semantics) at
   N=6, rtol 1e-10, 3 steps, max_iter 1, against the JAX solver's default
-  CPU path: u and p to 1e-7 relative, u/c iterations within 1 per step
-  (the JAX CPU path runs per-component BiCGStab and CG; p iterations may
-  differ, its pressure preconditioner is la/multigrid.py).
+  CPU path with its kernel path's tentative initial guess: u and p to 1e-7
+  relative, u/c iterations within 1 per step (the JAX CPU path runs
+  per-component BiCGStab and CG; p iterations may differ, its pressure
+  preconditioner is la/multigrid.py).
 - State carry-over: the port started from the JAX state after 2 steps
   takes the third step as JAX does (1e-8).
 - 2D, float32: the pallas-wiring recipe against the JAX kernel path in
@@ -23,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax.numpy as jnp  # noqa: E402
 import oasisx_tpu as J  # noqa: E402
 import oasisx_tpu.meshes as JM  # noqa: E402
 import oasisx_tpu.spaces as JS  # noqa: E402
@@ -67,10 +69,27 @@ def _cat(*stats):
     return {k: np.concatenate([s[k] for s in stats]) for k in ("u_iters", "p_iters", "c_iters")}
 
 
+def _kernel_path_x0(solver):
+    """Give the JAX solver's float64 XLA tentative solve the initial guess
+    of its kernel path (oasisx_tpu/fracstep.py:2395): Dirichlet rows of x0
+    preset to the bc values.  The port runs the kernel path's formulation
+    on every device; the JAX package builds that path in float32 only.  The
+    velocity update does not re-apply the bcs, so from the second step on
+    the two guesses differ on bc rows and so do the iteration counts."""
+    solve = solver._tentative_solve_dev
+
+    def preset(P, A_lhs, rhs1, bc_vals, u, x0=None):
+        x0 = u if x0 is None else x0
+        return solve(P, A_lhs, rhs1, bc_vals, u, x0=jnp.where(P["bc_masks"], bc_vals, x0))
+
+    solver._tentative_solve_dev = preset
+
+
 @pytest.fixture(scope="module")
 def jax3d():
     """JAX 3D run: 2 steps, its state, 1 more step."""
     s = _tgv3d(J, JM, options={"low_memory_version": False})
+    _kernel_path_x0(s)
     st2 = dict(s.run(2, DT, NU, max_iter=1))
     state = {k: np.asarray(v) for k, v in s._state_from_functions().items()}
     st3 = dict(s.run(1, DT, NU, max_iter=1))

@@ -34,6 +34,36 @@ every case under "cases"), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line, on
 any failure or when there is no card.
 
+3b. ELL kernels: on the vessel-deformed Taylor-Green mesh at N=36 (the
+   general path: 389,017 dofs per velocity component, 50,653 pressure
+   dofs) K14-K17 against their plain versions, in float64 and float32,
+   both timed with CUDA events: K14 on the tentative operator of the
+   initial state (batch 3 and batch 1) and on Ap, max relative error 1e-12
+   (f64) and 1e-5 (f32); K15 on the tentative system with the mesh's bc
+   rows, K16 on M with a random rhs, K17 on Ap with the nullspace and on
+   the res=30 DFG cylinder's Ap with its outlet mask, and K17's V-cycle
+   alone: x to 1e-10 relative with equal iterations in f64 (rtol 1e-8), to
+   10 rtol with iterations within 10% (at least 1) per row in f32 (rtol
+   1e-5); every repeat call bit-identical.  K14 is also timed against one
+   torch.sparse CSR product of the same operator (the library yardstick).
+4b. The vessel path at N=36 in float32 (dt 2e-3, nu 1/1600, rtol 1e-5,
+   max_iter 1, CG velocity update, low_memory_version False): 5 warm-up
+   and 25 timed steps, the same checks as phase 4 on the ELL kernels, and
+   the peak device memory.
+4c. The res=30 DFG cylinder with its outlet PressureBC in float32: 5
+   steps, every solve converged, the ELL kernels launched.
+5b. GPU against CPU in float64, 3 steps: the vessel at N=6 and the
+   cylinder at res=10; equal iterations, u and p to 1e-10 relative.
+
+Every kernel's entry in the JSON line also has "bound_ms" (the least time
+the H100 could take for the same work: the bytes of the inputs read once
+and the outputs written once over 3.35 TB/s, or the operations over 67
+TFLOP/s in float32, whichever is larger, with "bound_by" naming which; for
+a solve, the operations of the iterations this run's data took) and
+"library_ms" (one PyTorch call computing the same function: a
+torch.sparse CSR product of the assembled operator for the cube operators
+and K14, one indexing call for K8; null for the solves).
+
 --profile N adds a torch.profiler window of N more steps after phase 4:
 device time by kernel, the device's busy share of the window, and a
 Chrome trace in build/chip_smoke_trace.json.
@@ -48,22 +78,32 @@ import sys
 import time
 
 TPU_ERA_ITERS = {"u": 0.88, "p": 5.0, "c": 2.2266666666666666}  # BENCH_r05.json
+TPU_ERA_ITERS_VESSEL = {"u": 1.33, "p": 14.44}  # BENCH_unstructured_r05.json
+PO = "oasisx_tpu/assembly/pallas_ops.py"
 REPLACES = {
-    "matvec_const": "oasisx_tpu/assembly/pallas_ops.py:2019",  # make_matvec_pf (K5)
-    "matvec_win": "oasisx_tpu/assembly/pallas_ops.py:1949",  # make_matvec_win (K3)
-    "mixed": "oasisx_tpu/assembly/pallas_ops.py:1862",  # make_mixed_pf (K6)
-    "divergence": "oasisx_tpu/assembly/pallas_ops.py:1906",  # make_divergence_pf (K7)
-    "cube_gather": "oasisx_tpu/assembly/pallas_ops.py:524",  # make_gather (K8)
-    "cg_mass": "oasisx_tpu/assembly/pallas_ops.py:1770",  # make_cg_iter_pf (K4)
-    "bicgstab": "oasisx_tpu/assembly/pallas_ops.py:1058",  # make_bicgstab_iter (K2)
-    "pressure_mg": "oasisx_tpu/assembly/pallas_ops.py:128",  # make_pressure_cg (K1)
+    "matvec_const": f"{PO}:2019",  # make_matvec_pf (K5)
+    "matvec_win": f"{PO}:1949",  # make_matvec_win (K3)
+    "mixed": f"{PO}:1862",  # make_mixed_pf (K6)
+    "divergence": f"{PO}:1906",  # make_divergence_pf (K7)
+    "cube_gather": f"{PO}:524",  # make_gather (K8)
+    "cg_mass": f"{PO}:1770",  # make_cg_iter_pf (K4)
+    "bicgstab": f"{PO}:1058",  # make_bicgstab_iter (K2)
+    "pressure_mg": f"{PO}:128",  # make_pressure_cg (K1)
+    "ell_matvec": f"{PO}:646",  # make_ell_matvec, make_ell_matvec_batched :682 (K14)
+    "ell_bicgstab": f"{PO}:2083",  # make_ell_bicgstab_iter (K15)
+    "ell_cg": f"{PO}:2194",  # make_ell_cg_iter (K16)
+    "ell_pcg_amg": f"{PO}:2413",  # make_ell_pcg_amg_iter, make_ell_vcycle :2385 (K17)
 }
-SOURCE = {name: "oasisx_tpu_torch/csrc/cube_ops.cu" for name in REPLACES}
-SOURCE.update(dict.fromkeys(("cg_mass", "bicgstab", "pressure_mg"),
-                            "oasisx_tpu_torch/csrc/krylov_ops.cu"))
+CSRC = "oasisx_tpu_torch/csrc/"
+SOURCE = {name: CSRC + "cube_ops.cu" for name in REPLACES}
+SOURCE.update(dict.fromkeys(("cg_mass", "bicgstab", "pressure_mg"), CSRC + "krylov_ops.cu"))
+SOURCE.update(dict.fromkeys(("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg"),
+                            CSRC + "ell_ops.cu"))
 SOLVE_RTOL = {"float64": 1e-8, "float32": 1e-5}
 DT, NU = 2e-3, 1.0 / 1600.0
 N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
+CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
 
 
 class SmokeError(RuntimeError):
@@ -75,32 +115,96 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeError(msg)
 
 
-def tgv_solver(N: int, dtype, device, rtol: float):
-    """The bench problem (bench.py build_solver) on the port."""
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the H100 could take: bytes over its memory rate or
+    operations over its float32 rate, whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return {"bound_ms": 1e3 * max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+# ---------------------------------------------------------------------------
+# problems
+# ---------------------------------------------------------------------------
+
+def deform_vessel(mesh):
+    """Vessel-style deformation of a box mesh (taper, bulge, curved
+    centerline), as bench.py's unstructured mode makes it; marks the mesh
+    unstructured."""
+    import numpy as np
+
+    x = mesh.x.copy()
+    lo, hi = x[:, 0].min(), x[:, 0].max()
+    s = (x[:, 0] - lo) / (hi - lo)
+    r = (1.0 - 0.25 * s) * (1.0 + 0.55 * np.exp(-(((s - 0.55) / 0.12) ** 2)))
+    x[:, 1] = 0.45 * np.sin(np.pi * s) + 1.0 * r * x[:, 1]
+    x[:, 2] = 0.3 * np.sin(np.pi * s * 0.9) + 0.8 * r * x[:, 2]
+    mesh.x[:] = x
+    mesh.structured = None
+    return mesh
+
+
+def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False):
+    """The bench problem (bench.py build_solver) on the port: the box, or
+    with ``vessel`` the deformed box on the general path with bench.py's
+    low_memory_version=False."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
     from oasisx_tpu_torch.meshes import create_box, meshtags
 
-    mesh = create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (N, N, N))
-    facets = mesh.exterior_facet_indices()
-    tags = meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
     fs = (
         lambda x: np.sin(np.pi * x[0]) * np.cos(np.pi * x[1]) * np.cos(np.pi * x[2]),
         lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1]) * np.cos(np.pi * x[2]),
         lambda x: np.zeros_like(x[0]),
     )
+    mesh = create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (N, N, N))
+    if vessel:
+        deform_vessel(mesh)
+    facets = mesh.exterior_facet_indices()
+    tags = meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
     bcs_u = [[DirichletBC(f, LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in fs]
     opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
     solver = FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
         solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
+        options={"low_memory_version": False} if vessel else None,
         dtype=dtype, device=device,
     )
     for f, u1, u2 in zip(fs, solver._u1, solver._u2):
         u1.interpolate(f)
         u2.interpolate(f)
     return solver
+
+
+def cylinder_solver(res: int, dtype, device, rtol: float):
+    """The DFG cylinder channel with a parabolic inflow, no-slip walls and
+    cylinder, and a PressureBC(0) outlet (tests/test_ell_wiring.py's
+    set-up; Um 0.3 as demo/cylinder.py)."""
+    import numpy as np
+
+    from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
+    from oasisx_tpu_torch.meshes import (create_cylinder_channel, locate_entities_boundary,
+                                         meshtags)
+
+    mesh = create_cylinder_channel(res)
+    L, H = 2.2, 0.41
+    inlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 0.0))
+    outlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], L))
+    others = np.setdiff1d(mesh.exterior_facet_indices(), np.hstack([inlet, outlet]))
+    facets = np.hstack([inlet, others, outlet])
+    values = np.hstack([np.full_like(inlet, 1), np.full_like(others, 2),
+                        np.full_like(outlet, 3)]).astype(np.int32)
+    tags = meshtags(mesh, 1, facets, values)
+    inflow = lambda x: 4.0 * 0.3 * x[1] * (H - x[1]) / H**2
+    T = LocatorMethod.TOPOLOGICAL
+    bcs_u = [[DirichletBC(inflow, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))],
+             [DirichletBC(0.0, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))]]
+    opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
+    return FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[PressureBC(0.0, (tags, 3))],
+        solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
+        dtype=dtype, device=device,
+    )
 
 
 def _sync(device) -> None:
@@ -131,9 +235,61 @@ def time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
-def kernel_cases(solver, dtype, device, seed: int = 0):
-    """(kernel, label, kernel call, plain call, padded-output mask) at the
-    solver's shapes, on random inputs made from ``seed``."""
+# ---------------------------------------------------------------------------
+# library yardsticks: one torch.sparse product of the assembled operator
+# ---------------------------------------------------------------------------
+
+
+def _csr(rows, cols, vals, shape):
+    import torch
+
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce()
+    return coo.to_sparse_csr()
+
+
+def cube_index(sm, device):
+    """(nl, ncubes) grid index of every cube slot (the cube gather of an
+    index vector)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    ar = torch.arange(int(np.prod(sm[0])), dtype=torch.float64, device=device)
+    return cub.cube_gather(ar, sm).round().long()
+
+
+def cube_csr(idx_out, idx_in, vals, n_out, n_in, row_off=0, col_off=0):
+    """CSR of sum_c P_c^T V_c P_c with per-cube values vals (nl_out, nl_in,
+    ncubes) (or (nl_out, nl_in), one matrix for every cube)."""
+    nlo, nc = idx_out.shape
+    nli = idx_in.shape[0]
+    rows = (idx_out[:, None, :] + row_off).expand(nlo, nli, nc)
+    cols = (idx_in[None, :, :] + col_off).expand(nlo, nli, nc)
+    v = vals if vals.dim() == 3 else vals[:, :, None].expand(nlo, nli, nc)
+    return rows.reshape(-1), cols.reshape(-1), v.reshape(-1), (n_out, n_in)
+
+
+def ell_csr(vals, cols):
+    """CSR of an ELL operator (K, n) from its stored non-zero slots."""
+    import torch
+
+    V, C = vals.T, cols.T.long()
+    m = V != 0
+    crow = torch.zeros(V.shape[0] + 1, dtype=torch.long, device=V.device)
+    crow[1:] = torch.cumsum(m.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(crow, C[m], V[m], (V.shape[0], V.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the structured path's kernels
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
+    """(kernel, label, kernel call, plain call, padded-output mask, (bytes,
+    operations), library call or None) at the solver's shapes, on random
+    inputs made from ``seed``."""
     import numpy as np
     import torch
 
@@ -149,47 +305,91 @@ def kernel_cases(solver, dtype, device, seed: int = 0):
     c = lambda t: t.to(device, dtype).contiguous()
     xv = rnd(d, solver._npad_v) * valid_v
     xq = rnd(solver._npad_q) * valid_q
-    nl = cub.num_slots(sm_v)
-    W = rnd(nl * nl, int(np.prod(sm_v[1])))
+    nl, nlq = cub.num_slots(sm_v), cub.num_slots(sm_q)
+    nc = int(np.prod(sm_v[1]))
+    nv, nq = solver._npad_v, solver._npad_q
+    W = rnd(nl * nl, nc)
     M_c, Ap_c, B_c, G_c = c(cu.M_c), c(cu.Ap_c), c(cu.B_c), c(cu.G_c)
     st = solver._state_from_functions()
     uab = c(1.5 * st["u1"] - 0.5 * st["u2"])
-    all_valid = torch.ones(d, nl, int(np.prod(sm_v[1])), dtype=torch.bool, device=device)
+    all_valid = torch.ones(d, nl, nc, dtype=torch.bool, device=device)
+    isz = torch.empty((), dtype=dtype).element_size()
+    lib = dict.fromkeys(("gather", "M", "Ap", "W", "B", "G", "div"))
+    if library:
+        iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
+        xt = xv.T.contiguous()
+        A_M = _csr(*cube_csr(iv, iv, M_c, nv, nv))
+        A_Ap = _csr(*cube_csr(iq, iq, Ap_c, nq, nq))
+        A_W = _csr(*cube_csr(iv, iv, W.reshape(nl, nl, nc), nv, nv))
+        stack = lambda parts, shape: _csr(*(torch.cat(t) for t in zip(*[q[:3] for q in parts])),
+                                          shape)
+        mixed = lambda C: stack([cube_csr(iv, iq, C[k], nv, nq, row_off=k * nv)
+                                 for k in range(d)], (d * nv, nq))
+        A_B, A_G = mixed(B_c), mixed(G_c)
+        A_div = stack([cube_csr(iq, iv, B_c[k].T, nq, nv, col_off=k * nv) for k in range(d)],
+                      (nq, d * nv))
+        uflat = xv.reshape(-1)
+        lib = dict(gather=lambda: uab[:, iv], M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
+                   W=lambda: A_W @ xt, B=lambda: A_B @ xq, G=lambda: A_G @ xq,
+                   div=lambda: A_div @ uflat)
+    mv = lambda nlo, nli, B: 2.0 * nlo * nli * nc * B  # cube matvec operations
     return [
         ("cube_gather", "TGV uab",
-         lambda: kn.cube_gather(uab, sm_v), lambda: kn.cube_gather_plain(uab, sm_v), all_valid),
+         lambda: kn.cube_gather(uab, sm_v), lambda: kn.cube_gather_plain(uab, sm_v), all_valid,
+         (isz * d * (nv + nl * nc), 0.0), lib["gather"]),
         ("matvec_const", "M_c batch 3",
          lambda: kn.matvec_const(xv, M_c, sm_v), lambda: kn.matvec_const_plain(xv, M_c, sm_v),
-         valid_v),
+         valid_v, (isz * 2 * d * nv, mv(nl, nl, d)), lib["M"]),
         ("matvec_const", "Ap_c batch 1",
          lambda: kn.matvec_const(xq[None], Ap_c, sm_q),
-         lambda: kn.matvec_const_plain(xq[None], Ap_c, sm_q), valid_q),
+         lambda: kn.matvec_const_plain(xq[None], Ap_c, sm_q), valid_q,
+         (isz * 2 * nq, mv(nlq, nlq, 1)), lib["Ap"]),
         ("matvec_win", "W batch 3",
-         lambda: kn.matvec_win(W, xv, sm_v), lambda: kn.matvec_win_plain(W, xv, sm_v), valid_v),
+         lambda: kn.matvec_win(W, xv, sm_v), lambda: kn.matvec_win_plain(W, xv, sm_v), valid_v,
+         (isz * (nl * nl * nc + 2 * d * nv), mv(nl, nl, d)), lib["W"]),
         ("mixed", "B_c",
          lambda: kn.mixed(xq, B_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, B_c, sm_v, sm_q),
-         valid_v),
+         valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["B"]),
         ("mixed", "G_c",
          lambda: kn.mixed(xq, G_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, G_c, sm_v, sm_q),
-         valid_v),
+         valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["G"]),
         ("divergence", "B_c",
          lambda: kn.divergence(xv, B_c, sm_v, sm_q),
-         lambda: kn.divergence_plain(xv, B_c, sm_v, sm_q), valid_q),
+         lambda: kn.divergence_plain(xv, B_c, sm_v, sm_q), valid_q,
+         (isz * (d * nv + nq), mv(nl, nlq, d)), lib["div"]),
     ]
 
 
+def _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=20, extra=None):
+    """One f32 case's record: kernel and plain times (plain, kernel, kernel,
+    plain), the bound and the library call's time."""
+    p1 = time_ms(pfn, device, reps=preps, warmup=1 if preps < 20 else 3)
+    k1 = time_ms(kfn, device, reps=reps)
+    k2 = time_ms(kfn, device, reps=reps)
+    p2 = time_ms(pfn, device, reps=preps, warmup=1 if preps < 20 else 3)
+    lib_ms = None if lib is None else min(time_ms(lib, device), time_ms(lib, device))
+    rec = {"case": label, "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           **bound(*work), "library_ms": lib_ms, **(extra or {})}
+    print(f"    {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
+          f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    return rec
+
+
 def compare_kernels(solver, device) -> dict:
-    """Phase 3: every kernel against its plain version in f64 and f32.
+    """Phase 3: every cube kernel against its plain version in f64 and f32.
 
     Returns, per kernel, a list of its cases in float32, each with its own
-    max abs error and its time per call (kernel and plain version) at that
-    one shape."""
+    max abs error, its time per call (kernel, plain version, library call)
+    and its bound at that one shape."""
     import torch
 
     tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     out: dict = {}
     for dtype, tol in tols.items():
-        for name, label, kfn, pfn, valid in kernel_cases(solver, dtype, device):
+        timed = dtype == torch.float32 and torch.device(device).type == "cuda"
+        for name, label, kfn, pfn, valid, work, lib in kernel_cases(solver, dtype, device,
+                                                                     library=timed):
             yk = kfn()
             yp = pfn()
             _sync(device)
@@ -204,23 +404,18 @@ def compare_kernels(solver, device) -> dict:
             check(pad_zero, f"{name} ({label}, {tag}) wrote non-zero padding")
             if dtype != torch.float32:
                 continue
-            # one call at the main path's shape; plain, kernel, kernel, plain
-            p1 = time_ms(pfn, device)
-            k1 = time_ms(kfn, device)
-            k2 = time_ms(kfn, device)
-            p2 = time_ms(pfn, device)
-            print(f"    {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-            out.setdefault(name, []).append(
-                {"case": label, "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2)})
+            out.setdefault(name, []).append(_timed(name, label, kfn, pfn, device, err, work, lib))
     return out
 
 
 def solve_cases(solver, device, seed: int = 1):
-    """(kernel, label, kernel solve, plain solve) on the main path's systems
-    of ``solver`` (its dtype), each returning a KrylovResult."""
+    """(kernel, label, kernel solve, plain solve, work(result) -> (bytes,
+    operations)) on the structured path's systems of ``solver`` (its
+    dtype), each solve returning a KrylovResult."""
     import numpy as np
     import torch
 
+    from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la import fused
     from oasisx_tpu_torch.la.pressure_mg import PressureMGCG
@@ -232,9 +427,13 @@ def solve_cases(solver, device, seed: int = 1):
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
     valid_v = (solver._pv(torch.ones(solver._gf_v.shape[0], device=device)) != 0)
+    isz = torch.empty((), dtype=dtype).element_size()
+    nv, nq = solver._npad_v, solver._npad_q
+    nl, nlq = cub.num_slots(sm_v), cub.num_slots(sm_q)
+    nc = int(np.prod(sm_v[1]))
 
     # K4: M x = b, x0 = 0 (so r0 = b)
-    b = rnd(d, solver._npad_v) * valid_v
+    b = rnd(d, nv) * valid_v
     x0 = torch.zeros_like(b)
     bn = torch.linalg.vector_norm(b, dim=-1)
     mass = lambda v: kn.matvec_const_plain(v, cu.M_c, sm_v)
@@ -244,15 +443,23 @@ def solve_cases(solver, device, seed: int = 1):
     diag = solver._Ap_diag.detach().cpu().double().numpy()
     invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
     pcg = PressureMGCG(sm_q, cu.Ap_c, invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol, maxiter)
-    bq = rnd(solver._npad_q)
+    bq = rnd(nq)
     bq = bq - bq.mean()
     xq = torch.zeros_like(bq)
+
+    def mg_work(res):
+        # operator applications: the fine Ap per iteration, and per V-cycle
+        # 2 nsmooth on each level above the coarsest and degree-1 there
+        k = int(res.iters)
+        lv = [2.0 * nlq * nlq * int(np.prod(L["sm"][1])) for L in pcg.levels]
+        vflops = sum(2 * pcg.nsmooth * f for f in lv[:-1]) + (pcg.coarse[2] - 1) * lv[-1]
+        return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
 
     # K2: the first tentative solve from the Taylor-Green initial state
     st = solver._state_from_functions()
     u1, u2 = st["u1"], st["u2"]
     W, uq, b_first = solver._assemble_first(u1, u2, DT, NU)
-    tdiag = solver._tentative_diag(uq, DT, NU)
+    tdiag = solver._tentative_diag(W, uq, DT, NU)
     bc, masks, zmask = solver._bc_values(), solver._bc_masks, solver._zmask
     rhs = torch.where(masks, bc, b_first)
     tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
@@ -260,29 +467,41 @@ def solve_cases(solver, device, seed: int = 1):
     tbn = torch.linalg.vector_norm(rhs, dim=-1)
     tinvd = torch.where(tdiag != 0, 1.0 / tdiag, 1.0)
     win = lambda v: kn.matvec_win_plain(W, v, sm_v)
+    rows = lambda res: float(res.iters.sum())
     return rtol, [
         ("cg_mass", "M_c, random rhs",
          lambda: fused.cg_mass(cu.M_c, b, x0, solver._M_invd, bn, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b, x0, solver._M_invd, bn, rtol, maxiter)),
+         lambda: fused.cg_from_r0(mass, b, x0, solver._M_invd, bn, rtol, maxiter),
+         lambda res: (isz * (3 * d * nv + nv), rows(res) * (2.0 * nl * nl * nc + 10 * nv))),
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
-         lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain)),
+         lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
         ("bicgstab", "TGV first step",
          lambda: fused.bicgstab(W, r0, tx0, zmask, tinvd, tbn, sm_v, rtol, maxiter),
-         lambda: fused.bicgstab_from_r0(win, r0, tx0, zmask, tinvd, tbn, rtol, maxiter)),
+         lambda: fused.bicgstab_from_r0(win, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
+         lambda res: (isz * (nl * nl * nc + 4 * d * nv + nv),
+                      rows(res) * (4.0 * nl * nl * nc + 20 * nv))),
     ]
 
 
-def compare_solves(solvers: dict, device) -> dict:
-    """Phase 3, whole solves: each kernel against its plain host-loop
-    version, per dtype; f32 cases timed.  Returns per kernel its f32 case."""
+def _f32_iters_ok(ik, ip) -> bool:
+    import numpy as np
+
+    return bool(np.all(np.abs(ik - ip) <= np.maximum(1, np.ceil(0.1 * ip))))
+
+
+def compare_solves(solvers: dict, device, cases_fn=None) -> dict:
+    """Each solve kernel against its plain host-loop version, per dtype:
+    f64 x to 1e-10 relative with equal iterations, f32 x to 10 rtol with
+    iterations within 10% (at least 1); a repeat call bit-identical; f32
+    cases timed.  Returns per kernel its f32 cases."""
     import numpy as np
     import torch
 
     out: dict = {}
     for tag, solver in solvers.items():
-        rtol, cases = solve_cases(solver, device)
-        for name, label, kfn, pfn in cases:
+        rtol, cases = (cases_fn or solve_cases)(solver, device)
+        for name, label, kfn, pfn, work in cases:
             rk, rk2, rp = kfn(), kfn(), pfn()
             _sync(device)
             err = float((rk.x - rp.x).abs().max())
@@ -291,41 +510,208 @@ def compare_solves(solvers: dict, device) -> dict:
             ip = np.atleast_1d(rp.iters.cpu().numpy())
             same = bool(torch.equal(rk.x, rk2.x) and torch.equal(rk.iters, rk2.iters))
             tol = 1e-10 if tag == "float64" else 10 * rtol
-            print(f"  {name:13s} {label:18s} {tag}: x rel err {rel:.3e} (tol {tol:g}), iterations"
+            print(f"  {name:13s} {label:22s} {tag}: x rel err {rel:.3e} (tol {tol:g}), iterations"
                   f" kernel {ik.tolist()} plain {ip.tolist()}, repeat bit-identical: {same}")
             check(bool(rk.converged.all()) and bool(rp.converged.all()),
-                  f"{name} ({tag}) did not converge")
-            check(rel <= tol, f"{name} ({tag}) disagrees: rel err {rel:.3e}")
+                  f"{name} ({label}, {tag}) did not converge")
+            check(rel <= tol, f"{name} ({label}, {tag}) disagrees: rel err {rel:.3e}")
             if tag == "float64":
                 check(np.array_equal(ik, ip), f"{name} (f64) iterations differ: {ik} {ip}")
             else:
-                check(np.abs(ik - ip).max() <= 1, f"{name} (f32) iterations differ: {ik} {ip}")
-            check(same, f"{name} ({tag}): a second kernel call differs from the first")
-            if tag != "float32":
+                check(_f32_iters_ok(ik, ip), f"{name} (f32) iterations differ: {ik} {ip}")
+            check(same, f"{name} ({label}, {tag}): a second kernel call differs from the first")
+            if tag != "float32" or torch.device(device).type != "cuda":
                 continue
-            p1 = time_ms(pfn, device, reps=3, warmup=1)
-            k1 = time_ms(kfn, device, reps=10)
-            k2 = time_ms(kfn, device, reps=10)
-            p2 = time_ms(pfn, device, reps=3, warmup=1)
-            print(f"    {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms,"
-                  f" {int(ik.sum())} iterations")
-            out[name] = [{"case": label, "max_abs_err": err, "ms": min(k1, k2),
-                          "plain_ms": min(p1, p2), "iters": ik.tolist()}]
+            out.setdefault(name, []).append(_timed(
+                name, label, kfn, pfn, device, err, work(rk), None, reps=10, preps=3,
+                extra={"iters": ik.tolist()}))
     return out
 
 
-def drive_main_path(solver, warmup: int, steps: int, device) -> dict:
-    """Phase 4: warm-up steps, reset counters, timed steps; returns stats."""
+# ---------------------------------------------------------------------------
+# phase 3b: the general path's ELL kernels
+# ---------------------------------------------------------------------------
+
+
+def _amg_work(amg, isz, iters=None):
+    """(bytes, operations) of K17 (or of one V-cycle, iters None): every
+    table's stored non-zeros read once, b, x0 and x; per V-cycle
+    (pre + post) A products, R and P on each level and the dense coarse
+    product; per iteration one fine product and one V-cycle (plus z0)."""
+    meta, arrays = amg
+    nnz = lambda t: float((t != 0).sum())
+    lv = [dict(zip(("Av", "Ac", "sm", "Pv", "Pc", "Rv", "Rc"), arrays[7 * i: 7 * i + 7]))
+          for i in range(len(meta["levels"]))]
+    cn = meta["coarse_n"]
+    vflops = 2.0 * cn * cn + sum(
+        2 * (meta["pre"] + meta["post"]) * nnz(L["Av"]) + 2 * nnz(L["Rv"]) + 2 * nnz(L["Pv"])
+        for L in lv)
+    table = sum((isz + 4) * (nnz(L["Av"]) + nnz(L["Rv"]) + nnz(L["Pv"])) + isz * L["sm"].numel()
+                for L in lv) + isz * cn * cn
+    n0 = meta["levels"][0]["n"] if lv else cn
+    if iters is None:
+        return table + 2 * isz * n0, vflops
+    return table + 3 * isz * n0, (iters + 1) * vflops + iters * 2.0 * nnz(lv[0]["Av"] if lv
+                                                                           else arrays[-1])
+
+
+def ell_kernel_cases(vsolver, device, seed: int = 2):
+    """Phase 3b, products: (kernel, label, kernel call, plain call, (bytes,
+    operations), library call) for K14 on the vessel's tentative operator of
+    the initial state (batch 3 and 1) and on Ap, and K17's V-cycle alone."""
+    import torch
+
+    from oasisx_tpu_torch.la import ell
+    from oasisx_tpu_torch.parallel.graph import ell_values
+
+    dtype = vsolver._dtype
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    st = vsolver._state_from_functions()
+    A, _, _ = vsolver._assemble_first(st["u1"], st["u2"], DT, NU)
+    ev, eq = vsolver._ell_v, vsolver._ell_q
+    vals = ell_values(A, ev)
+    Apv = vsolver._Ap_vals
+    x3, xq = rnd(3, ev.n), rnd(eq.n)
+    x1 = x3[0].contiguous()
+    isz = torch.empty((), dtype=dtype).element_size()
+    timed = dtype == torch.float32 and torch.device(device).type == "cuda"
+    lib = dict.fromkeys(("A", "Ap"))
+    if timed:
+        A_csr, Ap_csr = ell_csr(vals, ev.cols), ell_csr(Apv, eq.cols)
+        x3t = x3.T.contiguous()
+        lib = dict(A3=lambda: A_csr @ x3t, A1=lambda: A_csr @ x1, Ap=lambda: Ap_csr @ xq)
+    work = lambda nnz, n, nb: ((isz + 4) * nnz + isz * 2 * nb * n, 2.0 * nnz * nb)
+    amg = vsolver._amg_data
+    r = rnd(eq.n)
+    return [
+        ("ell_matvec", "A_lhs batch 3",
+         lambda: ell.ell_matvec(vals, ev.cols, x3), lambda: ell.ell_matvec_plain(vals, ev.cols, x3),
+         work(ev.nnz, ev.n, 3), lib.get("A3")),
+        ("ell_matvec", "A_lhs batch 1",
+         lambda: ell.ell_matvec(vals, ev.cols, x1), lambda: ell.ell_matvec_plain(vals, ev.cols, x1),
+         work(ev.nnz, ev.n, 1), lib.get("A1")),
+        ("ell_matvec", "Ap batch 1",
+         lambda: ell.ell_matvec(Apv, eq.cols, xq), lambda: ell.ell_matvec_plain(Apv, eq.cols, xq),
+         work(eq.nnz, eq.n, 1), lib.get("Ap")),
+        ("ell_pcg_amg", f"V-cycle alone, {len(amg[0]['levels']) + 1} levels",
+         lambda: ell.ell_vcycle(amg, r), lambda: ell.ell_vcycle_plain(amg, r),
+         _amg_work(amg, isz), None),
+    ]
+
+
+def compare_ell_kernels(vsolvers: dict, device) -> dict:
+    """Phase 3b, products: in f64 (1e-12) and f32 (1e-5), max relative
+    error against the plain version, a repeat bit-identical; f32 timed.
+    The V-cycle's records go under "cases" of K17 only."""
+    import torch
+
+    out: dict = {}
+    for tag, vs in vsolvers.items():
+        tol = 1e-12 if tag == "float64" else 1e-5
+        for name, label, kfn, pfn, work, lib in ell_kernel_cases(vs, device):
+            yk, yk2, yp = kfn(), kfn(), pfn()
+            _sync(device)
+            err = float((yk - yp).abs().max())
+            rel = err / max(float(yp.abs().max()), 1e-300)
+            same = bool(torch.equal(yk, yk2))
+            print(f"  {name:13s} {label:22s} {tag}: max abs err {err:.3e}, rel {rel:.3e} "
+                  f"(tol {tol:g}), repeat bit-identical: {same}")
+            check(rel <= tol, f"{name} ({label}, {tag}) disagrees: rel err {rel:.3e}")
+            check(same, f"{name} ({label}, {tag}): a second kernel call differs from the first")
+            if tag == "float32" and torch.device(device).type == "cuda":
+                out.setdefault(name, []).append(
+                    _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=5))
+    return out
+
+
+def ell_solve_cases(pair, device, seed: int = 3):
+    """Phase 3b, solves on the vessel's systems and the cylinder's outlet
+    Ap: (kernel, label, kernel solve, plain solve, work(result))."""
+    import torch
+
+    from oasisx_tpu_torch.la import ell
+    from oasisx_tpu_torch.parallel.graph import ell_values
+
+    vs, cs = pair
+    dtype = vs._dtype
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    maxiter = 2000
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    isz = torch.empty((), dtype=dtype).element_size()
+    ev, eq = vs._ell_v, vs._ell_q
+    n = ev.n
+
+    # K15: the first tentative solve from the Taylor-Green initial state
+    st = vs._state_from_functions()
+    u1, u2 = st["u1"], st["u2"]
+    A, _, b_first = vs._assemble_first(u1, u2, DT, NU)
+    vals = ell_values(A, ev)
+    diag = vs._tentative_diag(A, None, DT, NU)
+    bc, masks, zmask = vs._bc_values(), vs._bc_masks, vs._zmask
+    rhs = torch.where(masks, bc, b_first + vs._pressure_gradient(st["p"]))
+    tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
+    r0 = zmask * (rhs - ell.ell_matvec_plain(vals, ev.cols, tx0))
+    tbn = torch.linalg.vector_norm(rhs, dim=-1)
+    tinvd = torch.where(diag != 0, 1.0 / diag, 1.0)
+
+    # K16: M x = b, x0 = 0
+    b = rnd(3, n)
+    x0 = torch.zeros_like(b)
+    bn = torch.linalg.vector_norm(b, dim=-1)
+
+    # K17: Ap with the nullspace (random demeaned b), and the cylinder's
+    # outlet-masked Ap (b 0 on the outlet rows)
+    bq = rnd(eq.n)
+    bq = bq - bq.mean()
+    zq = torch.zeros_like(bq)
+    cmask = cs._pbc_mask.to(dtype)
+    bc_q = rnd(cs._ell_q.n) * (1.0 - cmask)
+    zc = torch.zeros_like(bc_q)
+    rows = lambda res: float(res.iters.sum())
+    nnz_bytes = lambda e: (isz + 4) * e.nnz
+    pcg = lambda s, bb, xx, mask: (
+        lambda: ell.ell_pcg_amg(s._amg_data, s._Ap_vals, s._ell_q.cols, bb, xx, rtol, maxiter,
+                                mask=mask),
+        lambda: ell.ell_pcg_amg_plain(s._amg_data, s._Ap_vals, s._ell_q.cols, bb, xx, rtol,
+                                      maxiter, mask=mask),
+        lambda res: _amg_work(s._amg_data, isz, int(res.iters)))
+    return rtol, [
+        ("ell_bicgstab", "TGV first step, bc rows",
+         lambda: ell.ell_bicgstab(vals, ev.cols, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
+         lambda: ell.ell_bicgstab_plain(vals, ev.cols, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
+         lambda res: (nnz_bytes(ev) + isz * (4 * 3 * n + n),
+                      rows(res) * (4.0 * ev.nnz + 20 * n))),
+        ("ell_cg", "M, random rhs",
+         lambda: ell.ell_cg(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
+         lambda: ell.ell_cg_plain(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
+         lambda res: (nnz_bytes(ev) + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n))),
+        ("ell_pcg_amg", f"Ap nullspace, {len(vs._amg_data[0]['levels']) + 1} levels",
+         *pcg(vs, bq, zq, None)),
+        ("ell_pcg_amg", f"cylinder res={CYL_RES} Ap, outlet mask", *pcg(cs, bc_q, zc, cmask)),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# phases 4, 4b, 4c, 5, 5b
+# ---------------------------------------------------------------------------
+
+
+def drive_main_path(solver, warmup: int, steps: int, device, kernels, dt=DT, nu=NU) -> dict:
+    """Warm-up steps, reset counters, timed steps; fails unless every
+    kernel of ``kernels`` launched, no plain version ran, every solve
+    converged and (on the card) no step read the host."""
     import numpy as np
     import torch
 
     from oasisx_tpu_torch.assembly import kernels as kn
 
-    solver.run(warmup, DT, NU, max_iter=1)
+    solver.run(warmup, dt, nu, max_iter=1)
     _sync(device)
     kn.reset_counts()
     t0 = time.perf_counter()
-    stats = solver.run(steps, DT, NU, max_iter=1)
+    stats = solver.run(steps, dt, nu, max_iter=1)
     _sync(device)
     wall = time.perf_counter() - t0
     launches = dict(kn.launches)
@@ -334,13 +720,34 @@ def drive_main_path(solver, warmup: int, steps: int, device) -> dict:
     check(np.isfinite(u).all(), "velocity is not finite")
     for fam in ("u", "p", "c"):
         check(bool(np.all(stats[f"{fam}_converged"])), f"a {fam} solve did not converge")
-    for name in kn.KERNELS:
+    for name in kernels:
         check(launches[name] > 0, f"kernel {name} was not launched on the main path")
-        check(plain[name] == 0, f"plain {name} ran on the main path ({plain[name]} calls)")
+    for name, calls in plain.items():
+        check(calls == 0, f"plain {name} ran on the main path ({calls} calls)")
     if torch.device(device).type == "cuda":
         check(bool(np.all(stats["host_syncs"] == 0)),
               f"host reads inside the steps: {stats['host_syncs'].tolist()}")
     return dict(stats=stats, wall=wall, launches=launches, plain=plain)
+
+
+def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: dict) -> None:
+    st = res["stats"]
+    sps = steps / res["wall"]
+    mean = lambda k: float(st[k].sum(axis=-1).mean()) if st[k].ndim > 1 else float(st[k].mean())
+    used = {k: v for k, v in res["launches"].items() if v}
+    print(f"[{tag}] {steps} steps in {res['wall']:.3f} s = {sps:.4f} steps/s "
+          f"({ndofs * sps / 1e6:.3f} MDOF-updates/s) on {smi}")
+    print(f"    per step mean iterations (summed over components): u {mean('u_iters'):.3f} "
+          f"p {mean('p_iters'):.3f} c {mean('c_iters'):.3f}; TPU-era reference "
+          f"(per-component means): {tpu_era}")
+    print(f"    per-component means: u {float(st['u_iters'].mean()):.3f} "
+          f"c {float(st['c_iters'].mean()):.3f}")
+    print(f"    worst exit residuals: u {float(st['u_res'].max()):.3e} "
+          f"p {float(st['p_res'].max()):.3e} c {float(st['c_res'].max()):.3e}")
+    print(f"    host syncs per step: {float(st['host_syncs'].mean()):.2f} in the steps "
+          f"(+1 stats read per run call); launches {used} "
+          f"({sum(used.values()) / steps:.2f} a step); plain calls "
+          f"{ {k: v for k, v in res['plain'].items() if v} }")
 
 
 def profile_steps(solver, steps: int, path: str) -> None:
@@ -373,26 +780,27 @@ def profile_steps(solver, steps: int, path: str) -> None:
     prof.export_chrome_trace(path)
 
 
-def gpu_vs_cpu(N: int = 6, steps: int = 3) -> None:
-    """Phase 5: the port on cuda and on cpu from the same state, float64."""
+def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU) -> None:
+    """The same problem on cuda and on cpu from the same state, float64:
+    equal iterations, u and p to 1e-10 relative."""
     import numpy as np
     import torch
 
     runs = {}
     for dev in ("cuda", "cpu"):
-        s = tgv_solver(N, torch.float64, dev, rtol=1e-8)
-        st = s.run(steps, DT, NU, max_iter=1)
+        s = make(torch.float64, dev)
+        st = s.run(steps, dt, nu, max_iter=1)
         u = np.stack([f.x.array.detach().cpu().numpy() for f in s._u])
         p = s._p.x.array.detach().cpu().numpy()
         runs[dev] = (u, p, st)
     (ug, pg, sg), (uc, pc, sc) = runs["cuda"], runs["cpu"]
     du = np.abs(ug - uc).max() / np.abs(uc).max()
     dp = np.abs(pg - pc).max() / np.abs(pc).max()
-    print(f"  N={N} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}")
+    print(f"  {label} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}")
     for k in ("u_iters", "p_iters", "c_iters"):
         print(f"  {k}: cuda {sg[k].tolist()} cpu {sc[k].tolist()}")
-        check(np.array_equal(sg[k], sc[k]), f"{k} differ between cuda and cpu")
-    check(du <= 1e-10 and dp <= 1e-10, f"cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
+        check(np.array_equal(sg[k], sc[k]), f"{label}: {k} differ between cuda and cpu")
+    check(du <= 1e-10 and dp <= 1e-10, f"{label}: cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
 
 
 def nvidia_smi() -> str:
@@ -409,7 +817,7 @@ def nvidia_smi() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="profile this many more steps after the main path")
+                    help="profile this many more steps after each main path")
     args = ap.parse_args()
 
     import torch
@@ -434,51 +842,82 @@ def main() -> int:
     if _build.build_log.strip():
         print(_build.build_log.strip())
 
-    # 4a. main-path setup (its shapes feed phase 3)
+    # 4a. structured main-path setup (its shapes feed phase 3)
     t0 = time.perf_counter()
     solver = tgv_solver(N, torch.float32, "cuda", rtol=1e-5)
     _sync("cuda")
-    setup_s = time.perf_counter() - t0
     nvel = 3 * solver._Vi[0][0].num_dofs
-    print(f"[4] setup N={N}: {setup_s:.1f} s, {nvel} velocity dofs")
+    print(f"[4] setup N={N}: {time.perf_counter() - t0:.1f} s, {nvel} velocity dofs")
 
-    # 3. kernels against their plain versions
+    # 3. cube kernels against their plain versions
     print(f"[3] kernels against plain versions (N={N} shapes)")
     kres = compare_kernels(solver, "cuda")
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     kres.update(compare_solves({"float64": solver64, "float32": solver}, "cuda"))
     del solver64
 
-    # 4b. main path
-    res = drive_main_path(solver, WARMUP, STEPS, "cuda")
-    st = res["stats"]
-    sps = STEPS / res["wall"]
-    mean = lambda k: float(st[k].sum(axis=-1).mean()) if st[k].ndim > 1 else float(st[k].mean())
-    print(f"[4] main path: {STEPS} steps in {res['wall']:.3f} s = {sps:.4f} steps/s "
-          f"({nvel * sps / 1e6:.3f} MDOF-updates/s) on {smi}")
-    print(f"    per step mean iterations (summed over components): u {mean('u_iters'):.3f} "
-          f"p {mean('p_iters'):.3f} c {mean('c_iters'):.3f}; TPU-era reference "
-          f"(BENCH_r05.json, per-component means): {TPU_ERA_ITERS}")
-    print(f"    per-component means: u {float(st['u_iters'].mean()):.3f} "
-          f"c {float(st['c_iters'].mean()):.3f}")
-    print(f"    worst exit residuals: u {float(st['u_res'].max()):.3e} "
-          f"p {float(st['p_res'].max()):.3e} c {float(st['c_res'].max()):.3e}")
-    print(f"    host syncs per step: {float(st['host_syncs'].mean()):.2f} in the steps "
-          f"(+1 stats read per run call); "
-          f"launches {res['launches']} ({sum(res['launches'].values()) / STEPS:.2f} a step); "
-          f"plain calls {res['plain']}")
-
+    # 4. the structured main path
+    res = drive_main_path(solver, WARMUP, STEPS, "cuda", kn.STRUCTURED_KERNELS)
+    report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS)
+    launches = dict(res["launches"])
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
+    del solver
 
     # 5. GPU against CPU
     print("[5] cuda against cpu")
-    gpu_vs_cpu()
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6")
+
+    # 3b. ELL kernels at the vessel's N=36 shapes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vessel = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True)
+    _sync("cuda")
+    rep = vessel.config_report()
+    print(f"[4b] vessel setup N={N}: {time.perf_counter() - t0:.1f} s, "
+          f"{3 * vessel._Vi[0][0].num_dofs} velocity dofs, ELL {rep['ell']}, "
+          f"AMG {rep['pressure_mg_levels']} levels (coarse n {vessel._amg.coarse_n}), "
+          f"device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    vessel64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"], vessel=True)
+    cyl = cylinder_solver(CYL_RES, torch.float32, "cuda", rtol=1e-5)
+    cyl64 = cylinder_solver(CYL_RES, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
+    print(f"[3b] ELL kernels against plain versions (vessel N={N}, cylinder res={CYL_RES})")
+    kres.update(compare_ell_kernels({"float64": vessel64, "float32": vessel}, "cuda"))
+    for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
+                                     "cuda", cases_fn=ell_solve_cases).items():
+        kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
+    del vessel64, cyl64
+    torch.cuda.empty_cache()
+
+    # 4b. the vessel main path
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
+    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
+    print(f"    peak device memory in the steps {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB")
+    for k, v in res["launches"].items():
+        if v:
+            launches[k] = v
+    if args.profile:
+        profile_steps(vessel, args.profile, "build/chip_smoke_trace_vessel.json")
+    del vessel
+
+    # 4c. the cylinder with its outlet
+    res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
+    report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {})
+    del cyl
+
+    # 5b. GPU against CPU on the general path
+    print("[5b] cuda against cpu, general path")
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True), "vessel N=6")
+    gpu_vs_cpu(lambda dt, dev: cylinder_solver(10, dt, dev, rtol=1e-8), "cylinder res=10",
+               dt=CYL_DT, nu=CYL_NU)
 
     # per kernel: its first case's numbers, and every case under "cases"
     kernels = [
         {"name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
-         "launches": res["launches"][n], **kres[n][0], "cases": kres[n]}
+         "launches": launches.get(n, 0), **kres[n][0], "cases": kres[n]}
         for n in kn.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,10 @@
 """oasisx_tpu_torch: the PyTorch and CUDA port of oasisx_tpu.
 
-The structured single-device IPCS path (3D Taylor-Green on ``create_box``,
-P2/P1 Taylor-Hood) with hand-written CUDA kernels for the cube operators.
+The single-device IPCS solver (P2/P1 Taylor-Hood): the structured path
+(``create_box`` meshes, hand-written CUDA kernels for the cube operators and
+solves) and the general unstructured path (any simplex mesh, outlet
+pressure conditions, hand-written CUDA kernels for the ELL operators and
+solves).
 It imports neither jax nor oasisx_tpu; the JAX package stays the reference
 its tests compare against.
 """
@@ -10,7 +13,7 @@ import logging
 
 logger = logging.getLogger("oasisx_tpu_torch")
 
-from .bcs import DirichletBC, LocatorMethod  # noqa: E402
+from .bcs import DirichletBC, LocatorMethod, PressureBC  # noqa: E402
 from .fracstep import FractionalStep_AB_CN  # noqa: E402
 
-__all__ = ["DirichletBC", "FractionalStep_AB_CN", "LocatorMethod"]
+__all__ = ["DirichletBC", "FractionalStep_AB_CN", "LocatorMethod", "PressureBC"]

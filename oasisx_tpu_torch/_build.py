@@ -9,9 +9,10 @@ before.  There is no fallback: a missing ``nvcc`` or a failed build raises
 with the compiler's output.  ``build_log`` keeps ptxas's report of the last
 compile (registers, shared memory, spills, stack per kernel).
 
-The whole-solve kernels of ``krylov_ops.cu`` use cooperative groups' grid
-barrier, which needs no relocatable device code (``-rdc``) on CUDA 11 and
-later, so the sources compile and link as ordinary objects.
+The whole-solve kernels of ``krylov_ops.cu`` and ``ell_ops.cu`` use
+cooperative groups' grid barrier, which needs no relocatable device code
+(``-rdc``) on CUDA 11 and later, so the sources compile and link as
+ordinary objects.
 """
 
 from __future__ import annotations
@@ -35,9 +36,15 @@ _lib = None
 build_seconds: float | None = None  # wall time of the last compile, None if loaded
 build_log = ""  # compiler output of the last compile
 
-P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+P, I, D, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+_AMG = [P, P, I, LL] + [P] * 5 + [I, LL, I, I] + [P] * 6 + [I] + [P] * 3 + [I, I, P]
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
+    "oasisx_ell_matvec": [P] * 4 + [I, LL, LL, I, I, P],
+    "oasisx_ell_bicgstab": [P] * 10 + [I, P, P, I, I, LL, I, I, P],
+    "oasisx_ell_cg": [P] * 9 + [I, P, P, I, I, LL, I, I, P],
+    "oasisx_ell_pcg_amg": _AMG,
+    "oasisx_ell_vcycle": _AMG,
     "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_matvec_win": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],

@@ -15,7 +15,8 @@ cube_gather    U_b = (P_c x_b)_c, (B, nl, ncubes)       make_gather(_chunked)
 
 The whole-solve kernels of ``csrc/krylov_ops.cu`` have their wrappers in
 ``la/fused.py`` (``cg_mass``, ``bicgstab``) and ``la/pressure_mg.py``
-(``pressure_mg``) and count here too.
+(``pressure_mg``), the ELL kernels of the unstructured path
+(``csrc/ell_ops.cu``) theirs in ``la/ell.py``, and all count here too.
 
 A CPU tensor goes to the plain version (built from the ``cubes.py`` ops); a
 CUDA tensor goes to the kernel, and anything else raises.  ``launches``
@@ -37,16 +38,22 @@ import torch
 from . import cubes as cub
 from .structured import StructuredMap
 
-KERNELS = (
+# the kernels each path of the solver launches: the structured cube path
+# and the unstructured ELL path
+STRUCTURED_KERNELS = (
     "matvec_const", "matvec_win", "mixed", "divergence", "cube_gather",
     "cg_mass", "bicgstab", "pressure_mg",
 )
-launches = dict.fromkeys(KERNELS, 0)
-plain_calls = dict.fromkeys(KERNELS, 0)
+ELL_KERNELS = ("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg")
+KERNELS = STRUCTURED_KERNELS + ELL_KERNELS
+# counted too: K17's V-cycle launched alone (tests and checks; not on a path)
+_COUNTED = KERNELS + ("ell_vcycle",)
+launches = dict.fromkeys(_COUNTED, 0)
+plain_calls = dict.fromkeys(_COUNTED, 0)
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
+    for k in _COUNTED:
         launches[k] = 0
         plain_calls[k] = 0
 

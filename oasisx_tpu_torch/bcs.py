@@ -1,13 +1,16 @@
-"""Velocity Dirichlet boundary conditions.
+"""Boundary conditions: DirichletBC (velocity) and PressureBC (outlet).
 
-Re-provides the reference's ``DirichletBC`` surface (src/oasisx/bcs.py):
-deferred creation (``create_bc``), geometric or topological dof location,
-float/Constant/callable values and time-dependent re-interpolation
-(``update_bc``).  Dof sets and values stay NumPy on the host; the solver
-turns them into a boolean mask and a value tensor on its device,
-re-uploading only when ``_version`` changes.
+Re-provides the reference's BC surface (src/oasisx/bcs.py):
 
-The outlet ``PressureBC`` of the JAX package is not ported yet.
+- ``DirichletBC``: deferred creation (``create_bc``), geometric or
+  topological dof location, float/Constant/callable values and
+  time-dependent re-interpolation (``update_bc``).  Dof sets and values
+  stay NumPy on the host; the solver turns them into a boolean mask and a
+  value tensor on its device, re-uploading only when ``_version`` changes.
+- ``PressureBC(value, (meshtags, id))``: the surface forms
+  ``int h n_i dv/dx_i ds`` of the tentative-velocity right-hand side
+  (assembly/facets.py) and the homogeneous Dirichlet condition on the
+  pressure correction over the same facets.
 """
 
 from __future__ import annotations
@@ -16,9 +19,13 @@ from enum import Enum
 
 import numpy as np
 
-from .spaces.functionspace import Constant, FunctionSpace
+import torch
 
-__all__ = ["DirichletBC", "LocatorMethod", "bc_mask_and_values"]
+from .assembly.facets import FacetContext, build_facet_context, facet_eval_q
+from .meshes.tags import MeshTags
+from .spaces.functionspace import Constant, Function, FunctionSpace
+
+__all__ = ["DirichletBC", "LocatorMethod", "PressureBC", "bc_mask_and_values"]
 
 
 class LocatorMethod(Enum):
@@ -111,3 +118,66 @@ def bc_mask_and_values(bcs: list[DirichletBC], ndofs: int) -> tuple[np.ndarray, 
         mask[bc.dofs] = True
         vals[bc.dofs] = bc.values
     return mask, vals
+
+
+class PressureBC:
+    """Outlet pseudo-traction condition (reference bcs.py:142-268).
+
+    Contributes ``int h n_i dv/dx_i ds`` to each tentative-velocity
+    right-hand side and a homogeneous Dirichlet condition on the pressure
+    correction over the tagged facets.
+    """
+
+    def __init__(self, value, marker: tuple[MeshTags, int]):
+        self._subdomain_data, self._subdomain_id = marker
+        self._value = value
+        self._fctx: FacetContext | None = None
+        self._u: Function | None = None
+        self._dofs_q: np.ndarray | None = None
+
+    def create_bcs(self, V: FunctionSpace, Q: FunctionSpace, dtype: torch.dtype,
+                   device: torch.device) -> None:
+        """V: the collapsed scalar velocity space; Q: the pressure space.
+        The facet tables live on ``device`` in ``dtype``."""
+        mesh = V.mesh
+        if isinstance(self._subdomain_id, tuple):
+            facets = self._subdomain_data.indices[
+                np.isin(self._subdomain_data.values, np.asarray(self._subdomain_id))
+            ]
+        else:
+            facets = self._subdomain_data.find(int(self._subdomain_id))
+        self._facets = np.asarray(facets, dtype=np.int32)
+        self._fctx = build_facet_context(
+            mesh, V.element, Q.element, self._facets, V.dofmap.cell_dofs,
+            dtype=dtype, device=device,
+        )
+        if callable(self._value):
+            self._u = Function(Q, name="pressure_bc", dtype=dtype, device=device)
+            self._u.interpolate(self._value)
+        self._dofs_q = Q.locate_dofs_topological(mesh.dim - 1, self._facets)
+
+    def update_bc(self) -> None:
+        if self._u is not None:
+            self._u.interpolate(self._value)
+
+    @property
+    def facet_context(self) -> FacetContext:
+        if self._fctx is None:
+            raise RuntimeError("create_bcs must be called first")
+        return self._fctx
+
+    @property
+    def dofs(self) -> np.ndarray:
+        """Pressure-correction dofs carrying the homogeneous condition."""
+        if self._dofs_q is None:
+            raise RuntimeError("create_bcs must be called first")
+        return self._dofs_q
+
+    def value_at_facet_qp(self, ctx) -> torch.Tensor:
+        """The outlet value h at the facet quadrature points: (nf, nqf)."""
+        f = self.facet_context
+        if self._u is not None:
+            return facet_eval_q(ctx, f, self._u.x.array)
+        v = self._value.value if isinstance(self._value, Constant) else self._value
+        return torch.full((f.nfacets, f.qw.shape[0]), float(v), dtype=f.scale.dtype,
+                          device=f.scale.device)

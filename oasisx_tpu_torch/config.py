@@ -1,8 +1,9 @@
 """Global dtype/device helpers for the PyTorch port.
 
 Correctness tests run in float64 on the CPU; the card runs float32 state.
-Every tensor the solver owns lives on a device its caller named: nothing
-here picks one.
+Every tensor the solver owns lives on one device: the card unless the
+caller names another (the CPU tests pass ``device="cpu"``).  There is no
+fallback to the CPU when no card is present.
 
 FEM operators need exact float32 contractions: TF32 keeps about three
 decimal digits, which degrades Krylov convergence the same way the TPU's
@@ -40,7 +41,13 @@ def real_dtype(dtype=None) -> torch.dtype:
 
 
 def resolve_device(device) -> torch.device:
-    """The caller's device; there is no default."""
+    """The caller's device; None means the card, and raises when there is
+    none (it never falls back to the CPU: pass ``device="cpu"`` for that)."""
     if device is None:
-        raise ValueError("device is required (e.g. 'cuda' or 'cpu')")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the solver runs on the card by default; "
+                "pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
     return torch.device(device)

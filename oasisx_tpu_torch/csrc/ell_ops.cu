@@ -1,0 +1,873 @@
+// The unstructured path's ELL kernels, for sm_90a.
+//
+// They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py),
+// together with the device-side loops that drive them:
+//   oasisx_ell_matvec   <- make_ell_matvec (K14), make_ell_matvec_batched:
+//                          y_b = A x_b for nb vectors sharing one operator
+//   oasisx_ell_bicgstab <- make_ell_bicgstab_iter (K15) and
+//                          ell_bicgstab_from_r0: batched BiCGStab with
+//                          zero-masked Dirichlet rows, Jacobi, per-row
+//                          freezing of converged rows
+//   oasisx_ell_cg       <- make_ell_cg_iter (K16) and ell_cg_batched_from_r0:
+//                          batched Jacobi-PCG (the velocity update's mass
+//                          solves)
+//   oasisx_ell_pcg_amg  <- make_ell_pcg_amg_iter (K17) with _emit_vcycle and
+//                          the loop of ell_pcg_amg_solve: CG preconditioned by
+//                          the smoothed-aggregation V(pre, post) cycle, with
+//                          an outlet mask or a nullspace projection
+//   oasisx_ell_vcycle   <- make_ell_vcycle: K17's V-cycle alone
+//
+// Operators are ELL tables (K, n), slot-major (ell_device.cuh): one thread
+// per row, coalesced reads of vals and cols, the input vector gathered.
+//
+// Form.  K14 is an ordinary kernel, one thread per row.  K15, K16 and K17
+// are whole solves, each one cooperative launch with the loop on the device
+// (grid_reduce.cuh): phases are grid-stride loops over rows separated by
+// grid barriers, reductions are deterministic and identical on every block,
+// and the host reads nothing during a solve.  On the TPU each iteration was
+// one kernel call inside an XLA while loop, with the state in VMEM.
+//
+// Bound on the H100.  K14: memory, the operator's K*n*(4+sizeof(T)) bytes
+// per call for all nb vectors (at the vessel's N=36 velocity operator,
+// K=65, n=389,017: 202 MB in f32 with the padding, about 40% of it real
+// nonzeros).  K15 (two operator reads per iteration) and K16 (one): memory,
+// the operator does not fit in the 50 MB L2; the state vectors do.  K17:
+// grid barriers, about six per AMG level and V-cycle, most of them on
+// coarse levels too small to fill the card.
+//
+// Each entry point launches on the stream it is given, allocates nothing
+// (the caller passes the work and reduction buffers), and returns the launch
+// error, or cudaErrorInvalidValue for arguments it does not take.
+
+#include "ell_device.cuh"
+#include "grid_reduce.cuh"
+
+namespace {
+
+using namespace oasisx;
+
+static_assert(kMaxRed >= 2 * kEllMaxBatch, "two sums per batch row");
+
+constexpr int kThreadsMv = 256;
+constexpr int kMaxAmgLevels = 10;
+
+template <typename T>
+size_t red_smem() {
+  return sizeof(T) * kMaxRed * kRedThreads;
+}
+
+template <typename T>
+__device__ __forceinline__ T* red_shared() {
+  extern __shared__ __align__(16) unsigned char ell_smem_raw[];
+  return reinterpret_cast<T*>(ell_smem_raw);
+}
+
+// ---------------------------------------------------------------------------
+// K14: y_b = A x_b
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreadsMv) ell_matvec_kernel(
+    const T* __restrict__ vals, const int* __restrict__ cols, const T* __restrict__ x,
+    T* __restrict__ y, int K, int64_t n, int64_t nin, int nb) {
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  T acc[kEllMaxBatch];
+  ell_row_batch(vals, cols, K, n, r, x, nin, nb, acc);
+#pragma unroll
+  for (int b = 0; b < kEllMaxBatch; ++b) {
+    if (b >= nb) break;
+    y[b * n + r] = acc[b];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K15: batched BiCGStab with zero-masked Dirichlet rows
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct EllBicgArgs {
+  const T* vals;   // (K, n)
+  const int* cols;
+  const T* r0;     // (nb, n) zmask (b - A x0); also rhat
+  const T* x0;     // (nb, n), bc rows preset to the bc values
+  const T* zmask;  // (nb, n) 0 on Dirichlet rows, 1 elsewhere
+  const T* invd;   // (n) Jacobi inverse diagonal, shared by the rows
+  const T* tol;    // (nb)
+  T* x;            // (nb, n) out
+  T *r, *s, *p, *v, *t, *y;  // (nb, n) work; y = invd p, then invd s
+  T* red;
+  int* iters;
+  T* rnorm;
+  int K, nb, maxiter;
+  int64_t n;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArgs<T> P) {
+  const int nb = P.nb;
+  const int64_t n = P.n;
+  Reducer<T> red{P.red, red_shared<T>(), 0};
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  // x = x0, r = p = rhat = r0, y = invd p; rho = |r0|^2, rnorm = |r0|
+  T s[kMaxRed];
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T iv = P.invd[idx];
+    #pragma unroll
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      if (b >= nb) break;
+      const int64_t i = b * n + idx;
+      const T rr = P.r0[i];
+      P.x[i] = P.x0[i];
+      P.r[i] = rr;
+      P.p[i] = rr;
+      P.y[i] = iv * rr;
+      s[b] += rr * rr;
+    }
+  }
+  grid_sum<kEllMaxBatch>(red, s);
+  T rho[kEllMaxBatch], rn[kEllMaxBatch], tol[kEllMaxBatch];
+  int it[kEllMaxBatch];
+  for (int b = 0; b < kEllMaxBatch; ++b) {
+    rho[b] = s[b];
+    rn[b] = vsqrt(s[b]);
+    tol[b] = b < nb ? P.tol[b] : T(0);
+    it[b] = 0;
+  }
+
+  for (int k = 0; k < P.maxiter; ++k) {
+    bool act[kEllMaxBatch];
+    bool any = false;
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      act[b] = b < nb && rn[b] > tol[b];
+      any = any || act[b];
+    }
+    if (!any) break;
+
+    // v = zmask A (invd p); rv = rhat.v
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kEllMaxBatch];
+      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.y, n, nb, acc);
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T vv = P.zmask[i] * acc[b];
+        P.v[i] = vv;
+        s[b] += P.r0[i] * vv;
+      }
+    }
+    grid_sum<kEllMaxBatch>(red, s);
+    T alpha[kEllMaxBatch];
+    for (int b = 0; b < kEllMaxBatch; ++b) alpha[b] = rho[b] / nz(s[b]);
+
+    // s = r - alpha v; y = invd s
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T ss = P.r[i] - alpha[b] * P.v[i];
+        P.s[i] = ss;
+        P.y[i] = iv * ss;
+      }
+    }
+    cg::this_grid().sync();
+
+    // t = zmask A (invd s); tt = t.t, ts = t.s
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kEllMaxBatch];
+      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.y, n, nb, acc);
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T tv = P.zmask[i] * acc[b];
+        P.t[i] = tv;
+        s[b] += tv * tv;
+        s[kEllMaxBatch + b] += tv * P.s[i];
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T omega[kEllMaxBatch];
+    for (int b = 0; b < kEllMaxBatch; ++b) omega[b] = s[kEllMaxBatch + b] / nz(s[b]);
+
+    // x += alpha phat + omega shat and r = s - omega t on the active rows
+    // (an inactive row keeps x and r); rho_new = rhat.r, |r|^2
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        const T ss = P.s[i];
+        T rr = P.r[i];
+        if (act[b]) {
+          P.x[i] = P.x[i] + (alpha[b] * (iv * P.p[i]) + omega[b] * (iv * ss));
+          rr = ss - omega[b] * P.t[i];
+          P.r[i] = rr;
+        }
+        s[b] += P.r0[i] * rr;
+        s[kEllMaxBatch + b] += rr * rr;
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T beta[kEllMaxBatch];
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      const T rho_new = act[b] ? s[b] : rho[b];
+      beta[b] = (rho_new / nz(rho[b])) * (alpha[b] / nz(omega[b]));
+      rho[b] = rho_new;
+      if (act[b]) {
+        rn[b] = vsqrt(s[kEllMaxBatch + b]);
+        ++it[b];
+      }
+    }
+
+    // p = r + beta (p - omega v) on the active rows; y = invd p
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        T pp = P.p[i];
+        if (act[b]) {
+          pp = P.r[i] + beta[b] * (pp - omega[b] * P.v[i]);
+          P.p[i] = pp;
+        }
+        P.y[i] = iv * pp;
+      }
+    }
+    cg::this_grid().sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    #pragma unroll
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      if (b >= nb) break;
+      P.iters[b] = it[b];
+      P.rnorm[b] = rn[b];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K16: batched Jacobi-PCG
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct EllCgArgs {
+  const T* vals;  // (K, n)
+  const int* cols;
+  const T* r0;    // (nb, n) b - A x0
+  const T* x0;    // (nb, n)
+  const T* invd;  // (n)
+  const T* tol;   // (nb)
+  T* x;           // (nb, n) out
+  T *r, *p, *Ap;  // (nb, n) work
+  T* red;
+  int* iters;
+  T* rnorm;
+  int K, nb, maxiter;
+  int64_t n;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads, 2) ell_cg_kernel(EllCgArgs<T> P) {
+  const int nb = P.nb;
+  const int64_t n = P.n;
+  Reducer<T> red{P.red, red_shared<T>(), 0};
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
+  T s[kMaxRed];
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T iv = P.invd[idx];
+    #pragma unroll
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      if (b >= nb) break;
+      const int64_t i = b * n + idx;
+      const T rr = P.r0[i];
+      const T z = iv * rr;
+      P.x[i] = P.x0[i];
+      P.r[i] = rr;
+      P.p[i] = z;
+      s[b] += rr * z;
+      s[kEllMaxBatch + b] += rr * rr;
+    }
+  }
+  grid_sum<kMaxRed>(red, s);
+  T rz[kEllMaxBatch], rn[kEllMaxBatch], tol[kEllMaxBatch];
+  int it[kEllMaxBatch];
+  for (int b = 0; b < kEllMaxBatch; ++b) {
+    rz[b] = s[b];
+    rn[b] = vsqrt(s[kEllMaxBatch + b]);
+    tol[b] = b < nb ? P.tol[b] : T(0);
+    it[b] = 0;
+  }
+
+  for (int k = 0; k < P.maxiter; ++k) {
+    bool act[kEllMaxBatch];
+    bool any = false;
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      act[b] = b < nb && rn[b] > tol[b];
+      any = any || act[b];
+    }
+    if (!any) break;
+
+    // Ap = A p; pAp
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kEllMaxBatch];
+      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.p, n, nb, acc);
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.Ap[i] = acc[b];
+        s[b] += P.p[i] * acc[b];
+      }
+    }
+    grid_sum<kEllMaxBatch>(red, s);
+    T alpha[kEllMaxBatch];
+    for (int b = 0; b < kEllMaxBatch; ++b) alpha[b] = act[b] ? rz[b] / nz(s[b]) : T(0);
+
+    // x += alpha p; r -= alpha Ap; z = invd r; rz_new = r.z, |r|^2
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.x[i] = P.x[i] + alpha[b] * P.p[i];
+        const T rr = P.r[i] - alpha[b] * P.Ap[i];
+        P.r[i] = rr;
+        s[b] += rr * (iv * rr);
+        s[kEllMaxBatch + b] += rr * rr;
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T beta[kEllMaxBatch];
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      const T rz_new = act[b] ? s[b] : rz[b];
+      beta[b] = act[b] ? rz_new / nz(rz[b]) : T(0);
+      rz[b] = rz_new;
+      if (act[b]) {
+        rn[b] = vsqrt(s[kEllMaxBatch + b]);
+        ++it[b];
+      }
+    }
+
+    // p = z + beta p on the active rows (an inactive row keeps p)
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kEllMaxBatch; ++b) {
+        if (b >= nb) break;
+        if (!act[b]) continue;
+        const int64_t i = b * n + idx;
+        P.p[i] = iv * P.r[i] + beta[b] * P.p[i];
+      }
+    }
+    cg::this_grid().sync();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    #pragma unroll
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      if (b >= nb) break;
+      P.iters[b] = it[b];
+      P.rnorm[b] = rn[b];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K17: AMG-preconditioned CG, and its V-cycle alone
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct AmgLevel {
+  const T* Av;  // (KA, n) level operator
+  const int* Ac;
+  const T* sm;  // (n) omega_s / diag: the damped-Jacobi smoother
+  const T* Pv;  // (KP, n) prolongation, columns < nc
+  const int* Pc;
+  const T* Rv;  // (KR, nc) restriction, columns < n
+  const int* Rc;
+  int64_t n, nc;
+  int KA, KP, KR;
+};
+
+template <typename T>
+struct AmgArgs {
+  AmgLevel<T> lv[kMaxAmgLevels];
+  int L;           // AMG levels in ELL form; the dense coarse level is L
+  int64_t cn;      // coarse size
+  const T* cinvT;  // (cn, cn) the coarse pseudo-inverse, transposed
+  const T* nullv;  // (n0) nullspace vector, or null
+  const T* mask;   // (n0) 1 on outlet rows, or null
+  const T* vals0;  // (K0, n0) the fine operator of the CG
+  const int* cols0;
+  int K0;
+  int64_t n0;
+  int pre, post;
+  const T* r0;     // (n0) initial residual (projected with a nullspace)
+  const T* x0;     // (n0)
+  const T* tol;    // (1) absolute tolerance
+  T* x;            // (n0) out: the solution, or the V-cycle's z
+  T* work;         // 4 vectors per level (coarse included), then r, p (n0)
+  T* red;
+  int* iters;
+  T* rnorm;
+  int* conv;
+  int maxiter;
+  int vcycle_only;
+};
+
+template <typename T>
+struct AmgVecs {
+  T* rr[kMaxAmgLevels + 1];  // level input
+  T* z[kMaxAmgLevels + 1];   // level correction (ping-pong with zb)
+  T* zb[kMaxAmgLevels + 1];
+  T* t[kMaxAmgLevels + 1];   // residual; t[0] also holds the CG's A p
+  int64_t n[kMaxAmgLevels + 1];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> P) {
+  const int L = P.L;
+  Reducer<T> red{P.red, red_shared<T>(), 0};
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t n0 = P.n0;
+  const bool has_null = P.nullv != nullptr;
+
+  AmgVecs<T> V;
+  {
+    T* w = P.work;
+    for (int l = 0; l <= L; ++l) {
+      const int64_t m = l < L ? P.lv[l].n : P.cn;
+      V.n[l] = m;
+      V.rr[l] = w;
+      V.z[l] = w + m;
+      V.zb[l] = w + 2 * m;
+      V.t[l] = w + 3 * m;
+      w += 4 * m;
+    }
+  }
+  T* r = P.work;
+  for (int l = 0; l <= L; ++l) r += 4 * V.n[l];
+  T* p = r + n0;
+
+  T s[kMaxRed];
+  T nn = T(1);
+  if (has_null) {
+    zero(s);
+    for (int64_t i = first; i < n0; i += stride) s[0] += P.nullv[i] * P.nullv[i];
+    grid_sum<1>(red, s);
+    nn = s[0];
+  }
+
+  // z' = z + sm (r - A z) on level l, then a barrier
+  auto sweep = [&](int l) {
+    const AmgLevel<T>& A = P.lv[l];
+    for (int64_t i = first; i < A.n; i += stride)
+      V.zb[l][i] = V.z[l][i] + A.sm[i] * (V.rr[l][i] - ell_row(A.Av, A.Ac, A.KA, A.n, i, V.z[l]));
+    T* tmp = V.z[l];
+    V.z[l] = V.zb[l];
+    V.zb[l] = tmp;
+    cg::this_grid().sync();
+  };
+
+  // the V-cycle on rr[0] (visible to every block); for L > 0 the caller has
+  // also written z[0] = sm rr[0].  Leaves the (unprojected) result in z[0].
+  auto vcycle = [&]() {
+    for (int l = 0; l < L; ++l) {
+      const AmgLevel<T>& A = P.lv[l];
+      for (int k = 1; k < P.pre; ++k) sweep(l);
+      for (int64_t i = first; i < A.n; i += stride)
+        V.t[l][i] = V.rr[l][i] - ell_row(A.Av, A.Ac, A.KA, A.n, i, V.z[l]);
+      cg::this_grid().sync();
+      // restriction, and the next level's first smoothing step
+      const bool coarse = l + 1 == L;
+      for (int64_t I = first; I < A.nc; I += stride) {
+        const T rc = ell_row(A.Rv, A.Rc, A.KR, A.nc, I, V.t[l]);
+        V.rr[l + 1][I] = rc;
+        if (!coarse) V.z[l + 1][I] = P.lv[l + 1].sm[I] * rc;
+      }
+      cg::this_grid().sync();
+    }
+    // coarsest: z_c[j] = sum_i CinvT[i, j] r_c[i], read from global memory
+    const int64_t cn = P.cn;
+    for (int64_t j = first; j < cn; j += stride) {
+      T acc = T(0);
+      for (int64_t i = 0; i < cn; ++i) acc += __ldg(P.cinvT + i * cn + j) * V.rr[L][i];
+      V.z[L][j] = acc;
+    }
+    cg::this_grid().sync();
+    for (int l = L - 1; l >= 0; --l) {
+      const AmgLevel<T>& A = P.lv[l];
+      for (int64_t i = first; i < A.n; i += stride)
+        V.z[l][i] = V.z[l][i] + ell_row(A.Pv, A.Pc, A.KP, A.n, i, V.z[l + 1]);
+      cg::this_grid().sync();
+      for (int k = 0; k < P.post; ++k) sweep(l);
+    }
+  };
+
+  // rr[0] = v - c nullv (c = 0 without a nullspace), z[0] = sm rr[0]
+  auto vcycle_input = [&](const T* v, T c) {
+    const T* sm = L > 0 ? P.lv[0].sm : nullptr;
+    for (int64_t i = first; i < n0; i += stride) {
+      const T q = has_null ? v[i] - c * P.nullv[i] : v[i];
+      V.rr[0][i] = q;
+      if (L > 0) V.z[0][i] = sm[i] * q;
+    }
+    cg::this_grid().sync();
+  };
+
+  // z[0] -= (nullv.z / nn) nullv; with_r: returns r.z (a grid sum)
+  auto vcycle_output = [&](const T* rv) -> T {
+    T c = T(0);
+    if (has_null) {
+      zero(s);
+      for (int64_t i = first; i < n0; i += stride) s[0] += P.nullv[i] * V.z[0][i];
+      grid_sum<1>(red, s);
+      c = s[0] / nn;
+    }
+    zero(s);
+    for (int64_t i = first; i < n0; i += stride) {
+      const T zz = has_null ? V.z[0][i] - c * P.nullv[i] : V.z[0][i];
+      V.z[0][i] = zz;
+      if (rv != nullptr) s[0] += rv[i] * zz;
+    }
+    grid_sum<1>(red, s);
+    return s[0];
+  };
+
+  if (P.vcycle_only) {
+    T c = T(0);
+    if (has_null) {
+      zero(s);
+      for (int64_t i = first; i < n0; i += stride) s[0] += P.nullv[i] * P.r0[i];
+      grid_sum<1>(red, s);
+      c = s[0] / nn;
+    }
+    vcycle_input(P.r0, c);
+    vcycle();
+    vcycle_output(nullptr);
+    for (int64_t i = first; i < n0; i += stride) P.x[i] = V.z[0][i];
+    return;
+  }
+
+  // x = x0, r = r0; rn = |r0|; z = M r0; p = z; rz = r.z
+  zero(s);
+  for (int64_t i = first; i < n0; i += stride) {
+    const T rv = P.r0[i];
+    P.x[i] = P.x0[i];
+    r[i] = rv;
+    s[0] += rv * rv;
+    if (has_null) s[1] += P.nullv[i] * rv;
+  }
+  grid_sum<2>(red, s);
+  T rn = vsqrt(s[0]);
+  vcycle_input(r, s[1] / nn);
+  vcycle();
+  T rz = vcycle_output(r);
+  for (int64_t i = first; i < n0; i += stride) p[i] = V.z[0][i];
+  cg::this_grid().sync();
+  const T tol = *P.tol;
+
+  int k = 0;
+  bool brk = false;
+  while (k < P.maxiter && rn > tol && !brk) {
+    // Ap = A p, or where(mask, p, A (1 - mask) p); projected with a nullspace
+    T* Ap = V.t[0];
+    zero(s);
+    for (int64_t i = first; i < n0; i += stride) {
+      T ap;
+      if (P.mask != nullptr) {
+        T acc = T(0);
+        for (int kk = 0; kk < P.K0; ++kk) {
+          const int64_t e = (int64_t)kk * n0 + i;
+          const int c = __ldg(P.cols0 + e);
+          acc += __ldg(P.vals0 + e) * ((T(1) - P.mask[c]) * p[c]);
+        }
+        const T m = P.mask[i];
+        ap = m * p[i] + (T(1) - m) * acc;
+      } else {
+        ap = ell_row(P.vals0, P.cols0, P.K0, n0, i, p);
+      }
+      Ap[i] = ap;
+      if (has_null) s[0] += P.nullv[i] * ap;
+      else s[0] += p[i] * ap;
+    }
+    grid_sum<1>(red, s);
+    if (has_null) {
+      const T c = s[0] / nn;
+      zero(s);
+      for (int64_t i = first; i < n0; i += stride) {
+        const T ap = Ap[i] - c * P.nullv[i];
+        Ap[i] = ap;
+        s[0] += p[i] * ap;
+      }
+      grid_sum<1>(red, s);
+    }
+    const T pAp = s[0];
+    brk = brk || pAp == T(0) || rz == T(0);
+    const T alpha = rz / nz(pAp);
+
+    // x += alpha p; r -= alpha Ap; |r|^2 (and nullv.r)
+    zero(s);
+    for (int64_t i = first; i < n0; i += stride) {
+      P.x[i] = P.x[i] + alpha * p[i];
+      const T rv = r[i] - alpha * Ap[i];
+      r[i] = rv;
+      s[0] += rv * rv;
+      if (has_null) s[1] += P.nullv[i] * rv;
+    }
+    grid_sum<2>(red, s);
+    const T rn_new = vsqrt(s[0]);
+    vcycle_input(r, s[1] / nn);
+    vcycle();
+    const T rz_new = vcycle_output(r);
+    const T beta = rz_new / nz(rz);
+    for (int64_t i = first; i < n0; i += stride) p[i] = V.z[0][i] + beta * p[i];
+    cg::this_grid().sync();
+    rz = rz_new;
+    rn = rn_new;
+    ++k;
+  }
+
+  // x = x - (nullv.x / nn) nullv
+  if (has_null) {
+    zero(s);
+    for (int64_t i = first; i < n0; i += stride) s[0] += P.nullv[i] * P.x[i];
+    grid_sum<1>(red, s);
+    const T c = s[0] / nn;
+    for (int64_t i = first; i < n0; i += stride) P.x[i] = P.x[i] - c * P.nullv[i];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    P.iters[0] = k;
+    P.rnorm[0] = rn;
+    P.conv[0] = rn <= tol ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+bool nb_ok(int nb) { return nb >= 1 && nb <= kEllMaxBatch; }
+
+template <typename T>
+int ell_matvec_launch(const void* vals, const void* cols, const void* x, void* y, int K,
+                      int64_t n, int64_t nin, int nb, void* stream) {
+  if (n == 0) return 0;
+  const unsigned grid = (unsigned)((n + kThreadsMv - 1) / kThreadsMv);
+  ell_matvec_kernel<T><<<grid, kThreadsMv, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(vals), static_cast<const int*>(cols), static_cast<const T*>(x),
+      static_cast<T*>(y), K, n, nin, nb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ell_bicgstab_launch(const void* vals, const void* cols, const void* r0, const void* x0,
+                        const void* zmask, const void* invd, const void* tol, void* x,
+                        void* work, void* red, int max_blocks, void* iters, void* rnorm, int K,
+                        int64_t n, int nb, int maxiter, void* stream) {
+  EllBicgArgs<T> P;
+  P.vals = static_cast<const T*>(vals);
+  P.cols = static_cast<const int*>(cols);
+  P.r0 = static_cast<const T*>(r0);
+  P.x0 = static_cast<const T*>(x0);
+  P.zmask = static_cast<const T*>(zmask);
+  P.invd = static_cast<const T*>(invd);
+  P.tol = static_cast<const T*>(tol);
+  P.x = static_cast<T*>(x);
+  P.r = static_cast<T*>(work);
+  P.s = P.r + nb * n;
+  P.p = P.s + nb * n;
+  P.v = P.p + nb * n;
+  P.t = P.v + nb * n;
+  P.y = P.t + nb * n;
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.K = K;
+  P.nb = nb;
+  P.maxiter = maxiter;
+  P.n = n;
+  return coop_launch(ell_bicgstab_kernel<T>, P, n, red_smem<T>(), max_blocks, stream);
+}
+
+template <typename T>
+int ell_cg_launch(const void* vals, const void* cols, const void* r0, const void* x0,
+                  const void* invd, const void* tol, void* x, void* work, void* red,
+                  int max_blocks, void* iters, void* rnorm, int K, int64_t n, int nb,
+                  int maxiter, void* stream) {
+  EllCgArgs<T> P;
+  P.vals = static_cast<const T*>(vals);
+  P.cols = static_cast<const int*>(cols);
+  P.r0 = static_cast<const T*>(r0);
+  P.x0 = static_cast<const T*>(x0);
+  P.invd = static_cast<const T*>(invd);
+  P.tol = static_cast<const T*>(tol);
+  P.x = static_cast<T*>(x);
+  P.r = static_cast<T*>(work);
+  P.p = P.r + nb * n;
+  P.Ap = P.p + nb * n;
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.K = K;
+  P.nb = nb;
+  P.maxiter = maxiter;
+  P.n = n;
+  return coop_launch(ell_cg_kernel<T>, P, n, red_smem<T>(), max_blocks, stream);
+}
+
+template <typename T>
+int ell_amg_launch(const void* const* lvl_ptrs, const long long* lvl_dims, int L, long long cn,
+                   const void* cinvT, const void* nullv, const void* mask, const void* vals0,
+                   const void* cols0, int K0, long long n0, int pre, int post, const void* r0,
+                   const void* x0, const void* tol, void* x, void* work, void* red,
+                   int max_blocks, void* iters, void* rnorm, void* conv, int maxiter,
+                   int vcycle_only, void* stream) {
+  if (L < 0 || L > kMaxAmgLevels || cn < 1 || n0 < 1 || pre < 1 || post < 0)
+    return (int)cudaErrorInvalidValue;
+  AmgArgs<T> P;
+  for (int l = 0; l < L; ++l) {
+    AmgLevel<T>& A = P.lv[l];
+    const void* const* q = lvl_ptrs + 7 * l;
+    const long long* d = lvl_dims + 5 * l;
+    A.Av = static_cast<const T*>(q[0]);
+    A.Ac = static_cast<const int*>(q[1]);
+    A.sm = static_cast<const T*>(q[2]);
+    A.Pv = static_cast<const T*>(q[3]);
+    A.Pc = static_cast<const int*>(q[4]);
+    A.Rv = static_cast<const T*>(q[5]);
+    A.Rc = static_cast<const int*>(q[6]);
+    A.n = d[0];
+    A.nc = d[1];
+    A.KA = (int)d[2];
+    A.KP = (int)d[3];
+    A.KR = (int)d[4];
+    const long long next = l + 1 < L ? lvl_dims[5 * (l + 1)] : cn;
+    if (A.n != (l == 0 ? n0 : lvl_dims[5 * (l - 1) + 1]) || A.nc != next)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (L == 0 && cn != n0) return (int)cudaErrorInvalidValue;
+  P.L = L;
+  P.cn = cn;
+  P.cinvT = static_cast<const T*>(cinvT);
+  P.nullv = static_cast<const T*>(nullv);
+  P.mask = static_cast<const T*>(mask);
+  P.vals0 = static_cast<const T*>(vals0);
+  P.cols0 = static_cast<const int*>(cols0);
+  P.K0 = K0;
+  P.n0 = n0;
+  P.pre = pre;
+  P.post = post;
+  P.r0 = static_cast<const T*>(r0);
+  P.x0 = static_cast<const T*>(x0);
+  P.tol = static_cast<const T*>(tol);
+  P.x = static_cast<T*>(x);
+  P.work = static_cast<T*>(work);
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.conv = static_cast<int*>(conv);
+  P.maxiter = maxiter;
+  P.vcycle_only = vcycle_only;
+  return coop_launch(ell_pcg_amg_kernel<T>, P, n0, red_smem<T>(), max_blocks, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// y (nb, n) = A x for x (nb, nin); vals (K, n), cols (K, n) int32 < nin.
+int oasisx_ell_matvec(const void* vals, const void* cols, const void* x, void* y, int K,
+                      long long n, long long nin, int nb, int is_f64, void* stream) {
+  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
+  return is_f64 ? ell_matvec_launch<double>(vals, cols, x, y, K, n, nin, nb, stream)
+                : ell_matvec_launch<float>(vals, cols, x, y, K, n, nin, nb, stream);
+}
+
+// Batched BiCGStab on an ELL operator with zero-masked rows, from
+// r0 = zmask (b - A x0) and x0 (nb, n); invd (n); tol (nb).  work: 6 * nb * n;
+// red: 2 * 8 * max_blocks.  Writes x, iters (int32, nb) and rnorm (nb).
+int oasisx_ell_bicgstab(const void* vals, const void* cols, const void* r0, const void* x0,
+                        const void* zmask, const void* invd, const void* tol, void* x,
+                        void* work, void* red, int max_blocks, void* iters, void* rnorm,
+                        int is_f64, int K, long long n, int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
+  return is_f64 ? ell_bicgstab_launch<double>(vals, cols, r0, x0, zmask, invd, tol, x, work,
+                                              red, max_blocks, iters, rnorm, K, n, nb, maxiter,
+                                              stream)
+                : ell_bicgstab_launch<float>(vals, cols, r0, x0, zmask, invd, tol, x, work, red,
+                                             max_blocks, iters, rnorm, K, n, nb, maxiter,
+                                             stream);
+}
+
+// Batched Jacobi-PCG on an ELL operator from r0 = b - A x0 and x0 (nb, n);
+// invd (n); tol (nb).  work: 3 * nb * n; red: 2 * 8 * max_blocks.
+int oasisx_ell_cg(const void* vals, const void* cols, const void* r0, const void* x0,
+                  const void* invd, const void* tol, void* x, void* work, void* red,
+                  int max_blocks, void* iters, void* rnorm, int is_f64, int K, long long n,
+                  int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
+  return is_f64 ? ell_cg_launch<double>(vals, cols, r0, x0, invd, tol, x, work, red, max_blocks,
+                                        iters, rnorm, K, n, nb, maxiter, stream)
+                : ell_cg_launch<float>(vals, cols, r0, x0, invd, tol, x, work, red, max_blocks,
+                                       iters, rnorm, K, n, nb, maxiter, stream);
+}
+
+// AMG-PCG: lvl_ptrs holds 7 pointers per level (Av, Ac, sm, Pv, Pc, Rv, Rc),
+// lvl_dims 5 numbers per level (n, nc, KA, KP, KR), both host arrays; cinvT
+// (cn, cn); nullv and mask (n0) or null; the fine operator vals0/cols0
+// (K0, n0); r0, x0 (n0), tol (1).  work: 4 * (sum of the level sizes and cn)
+// + 2 * n0; red: 2 * 8 * max_blocks.  Writes x, iters (the loop count),
+// rnorm and conv (int32).
+int oasisx_ell_pcg_amg(const void* const* lvl_ptrs, const long long* lvl_dims, int L,
+                       long long cn, const void* cinvT, const void* nullv, const void* mask,
+                       const void* vals0, const void* cols0, int K0, long long n0, int pre,
+                       int post, const void* r0, const void* x0, const void* tol, void* x,
+                       void* work, void* red, int max_blocks, void* iters, void* rnorm,
+                       void* conv, int maxiter, int is_f64, void* stream) {
+  if (K0 < 1 || vals0 == nullptr || x0 == nullptr || tol == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return is_f64
+             ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                      cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
+                                      max_blocks, iters, rnorm, conv, maxiter, 0, stream)
+             : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                     cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
+                                     max_blocks, iters, rnorm, conv, maxiter, 0, stream);
+}
+
+// K17's V-cycle alone: x = M r0 (projected with a nullspace); the same
+// arguments as oasisx_ell_pcg_amg, the fine operator, x0 and tol unused.
+int oasisx_ell_vcycle(const void* const* lvl_ptrs, const long long* lvl_dims, int L,
+                      long long cn, const void* cinvT, const void* nullv, const void* mask,
+                      const void* vals0, const void* cols0, int K0, long long n0, int pre,
+                      int post, const void* r0, const void* x0, const void* tol, void* x,
+                      void* work, void* red, int max_blocks, void* iters, void* rnorm,
+                      void* conv, int maxiter, int is_f64, void* stream) {
+  return is_f64
+             ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                      cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
+                                      max_blocks, iters, rnorm, conv, maxiter, 1, stream)
+             : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                     cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
+                                     max_blocks, iters, rnorm, conv, maxiter, 1, stream);
+}
+
+}  // extern "C"

@@ -1,12 +1,13 @@
 """IPCS fractional-step Navier-Stokes solver (Adams-Bashforth convection,
-Crank-Nicolson diffusion) on PyTorch: the structured single-device path.
+Crank-Nicolson diffusion) on PyTorch, single device.
 
-Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN`` on a
-mesh from the structured generators, with velocity Dirichlet data and no
-outlet (so the pressure Poisson is singular).  Every operator application
-and every solve of the step goes through one of the eight kernels of
-``assembly/kernels.py``, ``la/fused.py`` and ``la/pressure_mg.py`` (their
-plain versions on a CPU device):
+Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN``.  The
+solver picks one of two paths the way the JAX package does:
+
+The structured path (a mesh from the structured generators, no outlet):
+every operator application and every solve of the step goes through one of
+the eight kernels of ``assembly/kernels.py``, ``la/fused.py`` and
+``la/pressure_mg.py`` (their plain versions on a CPU device):
 
   U       = the cube-local values of uab         cube_gather
   b_first = (2/dt) M u1 - A_W u1               matvec_const, matvec_win
@@ -22,13 +23,31 @@ plain versions on a CPU device):
                                                    matvec_const)
   rotate u2 <- u1 <- u_new;  p <- ps
 
+The general path (any other mesh, e.g. with ``mesh.structured = None``, or
+a ``PressureBC`` outlet): element stacks assembled on the device
+(``assembly/engine.py``); every solve and every stand-alone product with an
+assembled operator goes through the ELL kernels of ``la/ell.py``:
+
+  A_rhs   = -1/2 C(uab) + (1/dt) M - (nu/2) K  element stacks
+  b_first = A_rhs u1 + outlet surface terms    element matvec
+  A_lhs   = -A_rhs + (2/dt) M
+  inner loop:
+      rhs   = b_first + assemble(ps v.dx(i))
+      solve A_lhs u = rhs (ELL values of A_lhs  ell_bicgstab (r0 by ell_matvec)
+        assembled once per solve)
+      b2    = -(1/dt) assemble(div u q); b2[outlet] = 0
+      solve Ap dp = b2: outlet mask, or        ell_pcg_amg (r0 by ell_matvec)
+        nullspace + zero mean
+  velocity update: M u_new = M u - dt G dp     ell_cg (b3, r0 by ell_matvec)
+
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
-parity-split grid layout; after each call it is written into the solver's
-Functions.  On the card each solve is one kernel with its loop on the
-device, so a step reads nothing on the host (with ``max_iter > 1`` the
-inner-loop test reads ``diff``); the plain versions loop on the host and
-read one device scalar per iteration.  ``last_stats["host_syncs"]`` counts
-those reads per step; ``run`` adds one read of the stats per call.
+parity-split grid layout (structured) or the canonical dof order
+(general); after each call it is written into the solver's Functions.  On
+the card each solve is one kernel with its loop on the device, so a step
+reads nothing on the host (with ``max_iter > 1`` the inner-loop test reads
+``diff``); the plain versions loop on the host and read one device scalar
+per iteration.  ``last_stats["host_syncs"]`` counts those reads per step;
+``run`` adds one read of the stats per call.
 """
 
 from __future__ import annotations
@@ -39,18 +58,22 @@ import numpy as np
 import torch
 
 from .assembly import cubes as cub
+from .assembly import engine as eng
 from .assembly import kernels as kn
+from .assembly.facets import pressure_surface_vecs
 from .assembly.geometry import compute_cell_geometry
 from .assembly.reference_tensors import build_reference_tensors
 from .assembly.structured import build_structured_map, num_padded
-from .bcs import DirichletBC, bc_mask_and_values
+from .bcs import DirichletBC, PressureBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
-from .la import fused
+from .la import ell, fused
+from .la.amg import AlgebraicMG, amg_kernel_data, coo_from_elems
 from .la.krylov import _effective_rtol
 from .la.pressure_mg import PressureMGCG
 from .la.solver import KSPSolver
 from .meshes.mesh import Mesh
+from .parallel.graph import build_ell_assembly, ell_values
 from .spaces.functionspace import Function, FunctionSpace
 
 __all__ = ["FractionalStep_AB_CN"]
@@ -58,6 +81,7 @@ __all__ = ["FractionalStep_AB_CN"]
 logger = logging.getLogger("oasisx_tpu_torch")
 
 STATE_KEYS = ("u", "u1", "u2", "p", "dp", "duc")
+AMG_PC_TYPES = ("amg", "gamg", "hypre", "ml", "mg")
 
 
 def _rel_res(rnorm: torch.Tensor, bnorm: torch.Tensor) -> torch.Tensor:
@@ -65,17 +89,25 @@ def _rel_res(rnorm: torch.Tensor, bnorm: torch.Tensor) -> torch.Tensor:
     return rnorm / torch.clamp(bnorm, min=1e-30)
 
 
+def _inv(diag: torch.Tensor) -> torch.Tensor:
+    """Jacobi inverse diagonal, 1 where the diagonal is 0."""
+    return torch.where(diag != 0, 1.0 / torch.where(diag != 0, diag, torch.ones_like(diag)),
+                       torch.ones_like(diag))
+
+
 class FractionalStep_AB_CN:
     """Fractional-step solver with AB2-linearized convection and CN diffusion.
 
-    Args mirror the JAX package: ``mesh`` (from the structured generators),
-    ``u_element`` / ``p_element`` as ("Lagrange", degree) tuples or
-    FiniteElements, per-component velocity Dirichlet BCs, pressure outlet
-    BCs (must be empty: not ported yet), per-family ``solver_options``
-    keyed ``tentative`` / ``pressure`` / ``scalar``, ``dtype`` and the
-    ``device`` every tensor lives on (required).  The structured path has
-    one assembly strategy, so the JAX solver's ``low_memory_version``
-    option has no counterpart here.
+    Args mirror the JAX package: ``mesh``, ``u_element`` / ``p_element`` as
+    ("Lagrange", degree) tuples or FiniteElements, per-component velocity
+    Dirichlet BCs, pressure outlet ``PressureBC``s, per-family
+    ``solver_options`` keyed ``tentative`` / ``pressure`` / ``scalar``,
+    ``options`` (``low_memory_version``: direct vector assembly of the
+    mixed terms, default True, or preassembled mixed matrices;
+    ``ell_layout``: "ell", the only layout ported), ``dtype`` and the
+    ``device`` every tensor lives on (default: the card; there is no
+    fallback to the CPU).  A structured mesh without an outlet takes the
+    cube path, where ``low_memory_version`` has no counterpart.
     """
 
     def __init__(
@@ -84,15 +116,24 @@ class FractionalStep_AB_CN:
         u_element,
         p_element,
         bcs_u: list[list[DirichletBC]],
-        bcs_p: list | tuple = (),
+        bcs_p: list[PressureBC] | tuple = (),
         solver_options: dict | None = None,
+        options: dict | None = None,
         dtype=None,
         device=None,
     ):
-        if bcs_p:
-            raise NotImplementedError("PressureBC (outlet) is not ported yet")
         self._device = resolve_device(device)
         self._dtype = real_dtype(dtype)
+        options = dict(options or {})
+        layout = options.get("ell_layout", "ell")
+        if layout == "band":
+            raise NotImplementedError(
+                "ell_layout='band' (the band-ELL kernels, K18) is not ported: "
+                "ROADMAP.md Queue 2"
+            )
+        if layout != "ell":
+            raise ValueError(f"unknown ell_layout {layout!r}")
+        self._low_memory = bool(options.get("low_memory_version", True))
         self._mesh = mesh
         d = mesh.dim
         el_u = make_element(u_element, mesh.cell_type)
@@ -115,24 +156,35 @@ class FractionalStep_AB_CN:
         for bc_i, (Vi, _) in zip(self._bcs_u, self._Vi):
             for bc in bc_i:
                 bc.create_bc(Vi)
+        self._bcs_p = list(bcs_p)
+        for bcp in self._bcs_p:
+            bcp.create_bcs(Vi0, self._Q, dtype=self._dtype, device=self._device)
 
-        # --- structured grid layout and cube operators ------------------------
-        rv = build_structured_map(mesh, el_u, Vi0.dofmap)
-        rq = build_structured_map(mesh, el_p, self._Q.dofmap)
-        if rv is None or rq is None:
-            raise ValueError("only meshes from the structured generators are supported")
-        (self._sm_v, gf_v, _), (self._sm_q, gf_q, valid_q) = rv, rq
+        # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
-        self._cu = cub.build_cube_ops(
-            mesh, self._refs, self._sm_v, self._sm_q, dtype=self._dtype, device=self._device
-        )
-        if self._cu is None:
-            raise ValueError("mesh cells of one shape must share their geometry")
-        self._npad_v = num_padded(self._sm_v)
-        self._npad_q = num_padded(self._sm_q)
-        self._gf_v = torch.as_tensor(gf_v, dtype=torch.long, device=self._device)
-        self._gf_q = torch.as_tensor(gf_q, dtype=torch.long, device=self._device)
-        self._q_null = torch.as_tensor(valid_q, dtype=self._dtype, device=self._device)
+        self._cu = None
+        if not self._bcs_p and mesh.structured is not None:
+            rv = build_structured_map(mesh, el_u, Vi0.dofmap)
+            rq = build_structured_map(mesh, el_p, self._Q.dofmap)
+            if rv is not None and rq is not None:
+                (self._sm_v, gf_v, _), (self._sm_q, gf_q, valid_q) = rv, rq
+                self._cu = cub.build_cube_ops(
+                    mesh, self._refs, self._sm_v, self._sm_q, dtype=self._dtype,
+                    device=self._device,
+                )
+        self._structured = self._cu is not None
+        if self._structured:
+            self._npad_v = num_padded(self._sm_v)
+            self._npad_q = num_padded(self._sm_q)
+            self._gf_v = torch.as_tensor(gf_v, dtype=torch.long, device=self._device)
+            self._gf_q = torch.as_tensor(gf_q, dtype=torch.long, device=self._device)
+            self._q_null = torch.as_tensor(valid_q, dtype=self._dtype, device=self._device)
+        else:
+            self._gf_v = self._gf_q = None
+            self._ctx, _ = eng.build_device_context(
+                mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
+                self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device,
+            )
 
         # --- solvers ---------------------------------------------------------
         solver_options = solver_options or {}
@@ -145,11 +197,19 @@ class FractionalStep_AB_CN:
         self._solver_c = KSPSolver(
             solver_options.get("scalar"), prefix="velocity_update", symmetric=True
         )
+        if str(self._solver_c.options.get("pc_type", "")).lower() == "lumped" or \
+                self._solver_c.options.get("lumped"):
+            raise NotImplementedError(
+                "the lumped velocity update is not ported: ROADMAP.md Queue 1 item 7"
+            )
         if self._solver_u.method != "bcgs":
             logger.info("the tentative solves run batched BiCGStab (requested %s)",
                         self._solver_u.method)
 
-        self._preassemble()
+        if self._structured:
+            self._preassemble()
+        else:
+            self._preassemble_general(solver_options.get("pressure") or {})
         self._state: dict | None = None
         self._state_versions = None
         self._bc_cache = None
@@ -159,9 +219,14 @@ class FractionalStep_AB_CN:
     # ------------------------------------------------------------------
     # setup
     # ------------------------------------------------------------------
+    def _bc_mask_tensor(self) -> torch.Tensor:
+        nv = self._Vi[0][0].num_dofs
+        masks = np.stack([bc_mask_and_values(bc_i, nv)[0] for bc_i in self._bcs_u])
+        return self._pv(torch.as_tensor(masks, device=self._device))
+
     def _preassemble(self) -> None:
-        """Constant diagonals, integration weights, BC masks, convection
-        weight tensor and the pressure preconditioner."""
+        """Structured path: constant diagonals, integration weights, BC
+        masks, convection weight tensor and the pressure preconditioner."""
         cu, dev, dt = self._cu, self._device, self._dtype
         mesh = self._mesh
         d = mesh.dim
@@ -175,9 +240,7 @@ class FractionalStep_AB_CN:
         self._intw = cub.matvec_cube(self._q_null, cu.Mq_c, self._sm_q)
         self._T = torch.as_tensor(kn.conv_weight_tensor(cu), dtype=dt, device=dev)
 
-        nv = self._Vi[0][0].num_dofs
-        masks = np.stack([bc_mask_and_values(bc_i, nv)[0] for bc_i in self._bcs_u])
-        self._bc_masks = self._pv(torch.as_tensor(masks, device=dev))
+        self._bc_masks = self._bc_mask_tensor()
         # 0 on Dirichlet rows: the tentative operator's output is zeroed there
         self._zmask = (~self._bc_masks).to(dt)
         self._M_invd = torch.where(self._M_diag != 0, 1.0 / self._M_diag, 1.0)
@@ -197,39 +260,147 @@ class FractionalStep_AB_CN:
             rtol=_effective_rtol(s.rtol, dt), maxiter=s.maxiter,
         )
 
+    def _preassemble_general(self, popts: dict) -> None:
+        """General path: constant element stacks and diagonals, BC masks,
+        the outlet mask, the mixed matrices (``low_memory_version=False``),
+        the ELL tables and the constant operators M and Ap in ELL form, and
+        the pressure AMG with its kernel tables."""
+        ctx, dev, dt = self._ctx, self._device, self._dtype
+        c = eng.setup_constants(ctx)
+        self._M_elems, self._K_elems, self._Ap_elems = c["M"], c["K"], c["Ap"]
+        self._M_invd = _inv(c["M_diag"])
+        self._vol = float(c["vol"])
+        self._bc_masks = self._bc_mask_tensor()
+        self._zmask = (~self._bc_masks).to(dt)
+        nq = self._Q.num_dofs
+        pmask = np.zeros(nq, dtype=bool)
+        for bcp in self._bcs_p:
+            pmask[bcp.dofs] = True
+        self._pbc_mask = torch.as_tensor(pmask, device=dev) if self._bcs_p else None
+        if not self._low_memory:
+            pg = eng.pressure_gradient_mats(ctx)  # (d, nc, ndv, ndq)
+            self._p_vdxi = pg
+            self._divu = pg.transpose(2, 3)
+            self._grad_p = eng.grad_p_mats(ctx)
+
+        Vi0 = self._Vi[0][0]
+        self._ell_v = build_ell_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
+        self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
+        # the constant operators' ELL values, assembled once here: the JAX
+        # package assembles them again in every solve, to the same values
+        self._M_vals = ell_values(self._M_elems, self._ell_v)
+        self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
+        self._amg = self._build_amg(popts, pmask)
+        self._amg_data = amg_kernel_data(self._amg)
+
+    def _build_amg(self, popts: dict, pmask: np.ndarray) -> AlgebraicMG:
+        """Smoothed-aggregation AMG for the pressure Poisson (the JAX
+        package's ``_build_amg`` on one device).  Its set-up reads the
+        pressure Laplacian's element stack computed on the host in float64,
+        not the solver's stack: a run on the card and one on the CPU then
+        build the same hierarchy, and in float32 the singular coarse
+        operator keeps exact zero row sums.  Built from float32-rounded
+        elements (as the JAX package does), its pseudo-inverse inverts the
+        rounding noise in the constant mode (entries near 1e6 against 14)
+        and the vessel's float32 pressure solves at N=12 took 370-440
+        iterations instead of 11-12."""
+        pc = str(popts.get("pc_type", "amg")).lower()
+        if pc not in AMG_PC_TYPES:
+            raise NotImplementedError(
+                f"pressure pc_type {pc!r}: the general path has the AMG preconditioner only"
+            )
+        ctx = self._ctx
+        n = self._Q.num_dofs
+        geo = compute_cell_geometry(self._mesh.x, self._mesh.cells, self._mesh.dim)
+        elems = np.einsum("c,cab,abij->cij", geo.detJ, geo.G, self._refs.stiffness_q)
+        rows, cols, vals = coo_from_elems(ctx.cd_q.cpu().numpy(), elems, n)
+        if self._bcs_p:
+            # identity rows and columns on the outlet dofs, as the operator's
+            # mask wrap (bc_symmetric_matvec) has them
+            keep = ~(pmask[rows] | pmask[cols])
+            drows = np.flatnonzero(pmask).astype(np.int64)
+            rows = np.concatenate([rows[keep], drows])
+            cols = np.concatenate([cols[keep], drows])
+            vals = np.concatenate([vals[keep], np.ones(drows.size)])
+        amg = AlgebraicMG(
+            rows, cols, vals, n, dtype=self._dtype, device=self._device,
+            theta=float(popts.get("amg_theta", 0.25)),
+            coarse_max=int(popts.get("amg_coarse_max", 400)),
+            # V(2,2): on deformed simplex meshes V(1,1) took 3-4x more PCG
+            # iterations (the JAX package's measurement)
+            pre=int(popts.get("amg_pre", 2)),
+            post=int(popts.get("amg_post", 2)),
+            nullvec=None if self._bcs_p else np.ones(n),
+        )
+        logger.info("pressure AMG: %d levels, coarse n=%d", amg.num_levels, amg.coarse_n)
+        return amg
+
     def config_report(self) -> dict:
         """The paths this solver instance uses."""
-        return {
-            "sharding": "single-device",
-            "structured_fastpath": True,
-            "velocity_update": self._solver_c.method,
-            "pressure_pc": "mg-pcg",
-            "pressure_mg_levels": len(self._pcg.levels),
-            "tentative_method": "bcgs",
-            "kernels": list(kn.KERNELS),
-            "device": str(self._device),
-            "dtype": str(self._dtype).replace("torch.", ""),
-        }
+        common = dict(
+            sharding="single-device",
+            structured_fastpath=self._structured,
+            velocity_update=self._solver_c.method,
+            tentative_method="bcgs",
+            kernels=list(kn.KERNELS),
+            device=str(self._device),
+            dtype=str(self._dtype).replace("torch.", ""),
+        )
+        if self._structured:
+            return dict(common, pressure_pc="mg-pcg", pressure_mg_levels=len(self._pcg.levels),
+                        path_kernels=list(kn.STRUCTURED_KERNELS))
+        return dict(
+            common,
+            pressure_pc="amg-pcg-fused",
+            pressure_mg_levels=self._amg.num_levels,
+            path_kernels=list(kn.ELL_KERNELS),
+            low_memory=self._low_memory,
+            outlet=bool(self._bcs_p),
+            ell={"K_v": self._ell_v.K, "n_v": self._ell_v.n, "nnz_v": self._ell_v.nnz,
+                 "K_q": self._ell_q.K, "n_q": self._ell_q.n, "nnz_q": self._ell_q.nnz},
+        )
 
-    # --- canonical <-> grid dof order ---------------------------------------
+    # --- canonical <-> internal dof order -----------------------------------
     def _pv(self, arr: torch.Tensor) -> torch.Tensor:
-        """Canonical V dof order -> padded grid layout (padding zero)."""
+        """Canonical V dof order -> the internal layout (the padded grid on
+        the structured path, padding zero; a copy on the general path)."""
+        if self._gf_v is None:
+            return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_v,), dtype=arr.dtype, device=arr.device)
         out[..., self._gf_v] = arr
         return out
 
     def _pq(self, arr: torch.Tensor) -> torch.Tensor:
+        if self._gf_q is None:
+            return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_q,), dtype=arr.dtype, device=arr.device)
         out[..., self._gf_q] = arr
         return out
 
+    def _uv(self, arr: torch.Tensor) -> torch.Tensor:
+        """Internal layout -> canonical V dof order."""
+        return arr if self._gf_v is None else arr[..., self._gf_v]
+
+    def _uq(self, arr: torch.Tensor) -> torch.Tensor:
+        return arr if self._gf_q is None else arr[..., self._gf_q]
+
     # ------------------------------------------------------------------
-    # step phases (tensors on the solver's device, grid layout)
+    # step phases (tensors on the solver's device, internal layout)
     # ------------------------------------------------------------------
-    def _assemble_first(self, u1, u2, dt, nu):
-        """The per-cube weights W of A_W, the convecting velocity at the
-        quadrature points uq, and b_first = (2/dt) M u1 - A_W u1 (there is
-        no body force on this path)."""
+    def _assemble_first(self, u1, u2, dt, nu, h_qvals=()):
+        """Returns (the tentative operator, the Q-point convecting velocity
+        or None, b_first).  Structured: the per-cube weights W of A_W and
+        b_first = (2/dt) M u1 - A_W u1.  General: the element stack A_lhs
+        and b_first = A_rhs u1 plus the outlet surface terms (there is no
+        body force on either path)."""
+        if not self._structured:
+            ctx = self._ctx
+            C = eng.convection_elems(ctx, 1.5 * u1 - 0.5 * u2)
+            A_rhs = -0.5 * C + (1.0 / dt) * self._M_elems - (0.5 * nu) * self._K_elems
+            b_first = eng.matvec_v(ctx, A_rhs, u1)
+            for bcp, hq in zip(self._bcs_p, h_qvals):
+                b_first = b_first + pressure_surface_vecs(ctx, bcp.facet_context, hq)
+            return -A_rhs + (2.0 / dt) * self._M_elems, None, b_first
         cu, d = self._cu, u1.shape[0]
         nl = cu.M_c.shape[0]
         uab = 1.5 * u1 - 0.5 * u2
@@ -243,73 +414,134 @@ class FractionalStep_AB_CN:
         )
         return W, uq, b_first
 
-    def _tentative_diag(self, uq, dt, nu):
+    def _tentative_diag(self, A, uq, dt, nu):
+        if not self._structured:
+            return eng.diagonal_v(self._ctx, A)
         return (
             (1.0 / dt) * self._M_diag
             + (0.5 * nu) * self._K_diag
             + 0.5 * cub.conv_diag(self._cu, uq)
         )
 
-    def _tentative_solve(self, W, diag, rhs1, bc_vals, u, x0):
-        """Batched BiCGStab on A_W with zero-masked bc rows (the kernel
-        path's formulation, oasisx_tpu fracstep.py:2390-2410): x0's bc rows
-        preset to the bc values, r0 = zmask (rhs - A_W x0), tolerance from
+    def _pressure_gradient(self, ps):
+        """The tentative right-hand side's pressure term, (d, n)."""
+        if self._structured:
+            return kn.mixed(ps, self._cu.B_c, self._sm_v, self._sm_q)
+        if self._low_memory:
+            return eng.pressure_gradient_vecs(self._ctx, ps)
+        return eng.matvec_vq(self._ctx, self._p_vdxi, ps)
+
+    def _tentative_solve(self, A, diag, rhs1, bc_vals, u, x0):
+        """Batched BiCGStab with zero-masked bc rows (the kernel path's
+        formulation, oasisx_tpu fracstep.py:2390-2410, 2465-2488): x0's bc
+        rows preset to the bc values, r0 = zmask (rhs - A x0), tolerance from
         the full rhs norm, Jacobi from the full diagonal.  Returns
         (KrylovResult, diff against u, relative exit residual)."""
-        masks, zmask, sm_v = self._bc_masks, self._zmask, self._sm_v
+        masks, zmask = self._bc_masks, self._zmask
         rhs = torch.where(masks, bc_vals, rhs1)
         x0 = torch.where(masks, bc_vals, x0)
-        r0 = zmask * (rhs - kn.matvec_win(W, x0, sm_v))
         bnorm = torch.linalg.vector_norm(rhs, dim=-1)
-        invd = torch.where(diag != 0, 1.0 / diag, 1.0)
+        invd = _inv(diag)
         s = self._solver_u
-        res = fused.bicgstab(W, r0, x0, zmask, invd, bnorm, sm_v,
-                             _effective_rtol(s.rtol, self._dtype), s.maxiter, s.atol)
+        rtol = _effective_rtol(s.rtol, self._dtype)
+        if self._structured:
+            sm_v = self._sm_v
+            r0 = zmask * (rhs - kn.matvec_win(A, x0, sm_v))
+            res = fused.bicgstab(A, r0, x0, zmask, invd, bnorm, sm_v, rtol, s.maxiter, s.atol)
+        else:
+            vals, cols = ell_values(A, self._ell_v), self._ell_v.cols
+            r0 = zmask * (rhs - ell.ell_matvec(vals, cols, x0))
+            res = ell.ell_bicgstab(vals, cols, r0, x0, zmask, invd, bnorm, rtol, s.maxiter,
+                                   s.atol)
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
         return res, diff, _rel_res(res.resnorm, bnorm)
 
+    def _divergence(self, u, dt):
+        """b2 = -(1/dt) assemble(div u q), 0 on the outlet dofs."""
+        if self._structured:
+            return (-1.0 / dt) * kn.divergence(u, self._cu.B_c, self._sm_v, self._sm_q)
+        ctx = self._ctx
+        if self._low_memory:
+            b2 = eng.divergence_vec(ctx, u)
+        else:
+            b2 = torch.zeros(ctx.ndofs_q, dtype=u.dtype, device=u.device)
+            for i in range(self._mesh.dim):
+                b2 = b2 + eng.matvec_qv(ctx, self._divu[i], u[i])
+        b2 = (-1.0 / dt) * b2
+        if self._pbc_mask is not None:
+            b2 = torch.where(self._pbc_mask, torch.zeros_like(b2), b2)
+        return b2
+
     def _pressure_solve(self, b2, dp0):
-        """Projected warm start, MG-PCG, volume-weighted zero mean; returns
-        (KrylovResult, dp, relative exit residual)."""
-        nv = self._q_null
-        x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
-        res = self._pcg.solve(b2, x0)
-        dp = res.x - (torch.dot(self._intw, res.x) / self._vol) * nv
+        """Returns (KrylovResult, dp, relative exit residual).  Structured:
+        projected warm start, MG-PCG, volume-weighted zero mean.  General:
+        AMG-PCG with the outlet mask (dp0 as it is), or with the nullspace
+        (warm start demeaned, volume-weighted zero mean after)."""
+        if self._structured:
+            nv = self._q_null
+            x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
+            res = self._pcg.solve(b2, x0)
+            dp = res.x - (torch.dot(self._intw, res.x) / self._vol) * nv
+            return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
+        s = self._solver_p
+        rtol = _effective_rtol(s.rtol, self._dtype)
+        vals, cols = self._Ap_vals, self._ell_q.cols
+        if self._pbc_mask is not None:
+            res = ell.ell_pcg_amg(self._amg_data, vals, cols, b2, dp0, rtol, s.maxiter, s.atol,
+                                  mask=self._pbc_mask.to(b2.dtype))
+            dp = res.x
+        else:
+            res = ell.ell_pcg_amg(self._amg_data, vals, cols, b2, dp0 - torch.mean(dp0), rtol,
+                                  s.maxiter, s.atol)
+            ctx = self._ctx
+            dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
         return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
 
     def _velocity_update(self, u, dp, dt, duc):
         """Mass solves M u_new = M u - dt G dp, warm-started from u + duc
         with r0 = -dt G dp - M duc."""
-        cu, sm_v = self._cu, self._sm_v
-        mv = lambda x: kn.matvec_const(x, cu.M_c, sm_v)
-        g = kn.mixed(dp, cu.G_c, sm_v, self._sm_q)
+        sc = self._solver_c
+        rtol = _effective_rtol(sc.rtol, self._dtype)
+        if self._structured:
+            cu, sm_v = self._cu, self._sm_v
+            mv = lambda x: kn.matvec_const(x, cu.M_c, sm_v)
+            g = kn.mixed(dp, cu.G_c, sm_v, self._sm_q)
+        else:
+            ctx, cols = self._ctx, self._ell_v.cols
+            mv = lambda x: ell.ell_matvec(self._M_vals, cols, x)
+            if self._low_memory:
+                g = eng.grad_p_vecs(ctx, dp)
+            else:
+                g = eng.matvec_vq(ctx, self._grad_p, dp)
         b3 = mv(u) - dt * g
         r0 = -dt * g - mv(duc)
         bnorm = torch.linalg.vector_norm(b3, dim=-1)
-        sc = self._solver_c
-        res = fused.cg_mass(cu.M_c, r0, u + duc, self._M_invd, bnorm, sm_v,
-                            _effective_rtol(sc.rtol, self._dtype), sc.maxiter, sc.atol)
+        if self._structured:
+            res = fused.cg_mass(self._cu.M_c, r0, u + duc, self._M_invd, bnorm, self._sm_v,
+                                rtol, sc.maxiter, sc.atol)
+        else:
+            res = ell.ell_cg(self._M_vals, self._ell_v.cols, r0, u + duc, self._M_invd, bnorm,
+                             rtol, sc.maxiter, sc.atol)
         return res, _rel_res(res.resnorm, bnorm)
 
-    def _step(self, state, dt, nu, bc_vals, max_error, max_iter):
+    def _step(self, state, dt, nu, bc_vals, h_qvals, max_error, max_iter):
         """One time step; returns (new state, per-step stats on the device,
         host syncs made)."""
         u, u1, u2, p = state["u"], state["u1"], state["u2"], state["p"]
-        W, uq, b_first = self._assemble_first(u1, u2, dt, nu)
-        diag = self._tentative_diag(uq, dt, nu)
+        A, uq, b_first = self._assemble_first(u1, u2, dt, nu, h_qvals)
+        diag = self._tentative_diag(A, uq, dt, nu)
         ps, dp, it, syncs = p, state["dp"], 0, 0
         while it < max_iter:
             if it > 0:
                 syncs += 1
                 if not bool(diff > max_error):
                     break
-            rhs1 = b_first + kn.mixed(ps, self._cu.B_c, self._sm_v, self._sm_q)
+            rhs1 = b_first + self._pressure_gradient(ps)
             # first inner iteration: AB2-extrapolated guess
             x0 = 2.0 * u1 - u2 if it == 0 else u
-            ures, diff, u_res = self._tentative_solve(W, diag, rhs1, bc_vals, u, x0)
+            ures, diff, u_res = self._tentative_solve(A, diag, rhs1, bc_vals, u, x0)
             u = ures.x
-            b2 = (-1.0 / dt) * kn.divergence(u, self._cu.B_c, self._sm_v, self._sm_q)
-            pres, dp, p_res = self._pressure_solve(b2, dp)
+            pres, dp, p_res = self._pressure_solve(self._divergence(u, dt), dp)
             ps = p + dp
             syncs += ures.syncs + pres.syncs
             it += 1
@@ -351,21 +583,23 @@ class FractionalStep_AB_CN:
     def _set_device_state(self, state: dict) -> None:
         self._state = state
         for i in range(self._mesh.dim):
-            self._u[i].x.array.copy_(state["u"][i][self._gf_v])
-            self._u1[i].x.array.copy_(state["u1"][i][self._gf_v])
-            self._u2[i].x.array.copy_(state["u2"][i][self._gf_v])
-        self._p.x.array.copy_(state["p"][self._gf_q])
-        self._dp.x.array.copy_(state["dp"][self._gf_q])
+            self._u[i].x.array.copy_(self._uv(state["u"][i]))
+            self._u1[i].x.array.copy_(self._uv(state["u1"][i]))
+            self._u2[i].x.array.copy_(self._uv(state["u2"][i]))
+        self._p.x.array.copy_(self._uq(state["p"]))
+        self._dp.x.array.copy_(self._uq(state["dp"]))
         self._state_versions = self._versions()
 
     def set_state(self, state: dict) -> None:
-        """Load the solver state from NumPy arrays in the grid layout, keyed
-        as the JAX solver's ``_state_from_functions``: u, u1, u2, p, dp, duc."""
+        """Load the solver state from NumPy arrays in the internal layout
+        (the grid on the structured path, the canonical dof order on the
+        general path), keyed as the JAX solver's ``_state_from_functions``:
+        u, u1, u2, p, dp, duc."""
         t = lambda a: torch.as_tensor(np.array(a), device=self._device).to(self._dtype)
         self._set_device_state({k: t(state[k]) for k in STATE_KEYS})
 
     def get_state(self) -> dict:
-        """The solver state as NumPy arrays in the grid layout."""
+        """The solver state as NumPy arrays in the internal layout."""
         st = self._state_from_functions()
         return {k: st[k].detach().cpu().numpy() for k in STATE_KEYS}
 
@@ -378,6 +612,10 @@ class FractionalStep_AB_CN:
             self._bc_cache = (key, self._pv(vals))
         return self._bc_cache[1]
 
+    def _h_qvals(self) -> list[torch.Tensor]:
+        """Each outlet's value at its facet quadrature points."""
+        return [bcp.value_at_facet_qp(self._ctx) for bcp in self._bcs_p]
+
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
@@ -389,9 +627,10 @@ class FractionalStep_AB_CN:
             raise ValueError("num_steps and max_iter must be at least 1")
         state = self._state_from_functions()
         bc_vals = self._bc_values()
+        h_qvals = self._h_qvals()
         steps, syncs = [], []
         for _ in range(num_steps):
-            state, stats, n = self._step(state, dt, nu, bc_vals, max_error, max_iter)
+            state, stats, n = self._step(state, dt, nu, bc_vals, h_qvals, max_error, max_iter)
             steps.append(stats)
             syncs.append(n)
         self._set_device_state(state)
@@ -406,6 +645,8 @@ class FractionalStep_AB_CN:
         for bc_i in self._bcs_u:
             for bc in bc_i:
                 bc.update_bc()
+        for bcp in self._bcs_p:
+            bcp.update_bc()
         stats = self.run(1, dt, nu, max_error=max_error, max_iter=max_iter)
         self.last_stats = {k: v[0] for k, v in stats.items()}
         if not (

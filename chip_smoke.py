@@ -8,11 +8,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. Build: compiles the CUDA kernels of oasisx_tpu_torch/csrc (first use).
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
-   timed with CUDA events.  The cube operators (K5, K3, K6, K7) on random
-   data, max relative error 1e-12 (f64) and 1e-5 (f32), padded outputs
-   exactly 0; the cube gather (K8) on the Taylor-Green initial uab, equal.
+   timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1
+   and with its premul and zmask multipliers, K6, K7) and the cube scatter
+   (K13) on random data, max relative error 1e-12 (f64) and 1e-5 (f32),
+   padded outputs exactly 0, a repeat call bit-identical; the cube gather
+   (K8) on the Taylor-Green initial uab, equal.
    The whole solves on the main path's systems: the mass CG (K4) on M_c
-   with a random rhs, the MG pressure CG (K1) on Ap_c with a demeaned
+   with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
    Taylor-Green initial state with the mesh's bc rows; x to 1e-10 relative
    with equal iteration counts in f64 (rtol 1e-8), to 10 rtol with
@@ -49,11 +51,32 @@ any failure or when there is no card.
 4b. The vessel path at N=36 in float32 (dt 2e-3, nu 1/1600, rtol 1e-5,
    max_iter 1, CG velocity update, low_memory_version False): 5 warm-up
    and 25 timed steps, the same checks as phase 4 on the ELL kernels, and
-   the peak device memory.
+   the device memory before and at its peak in the steps.
 4c. The res=30 DFG cylinder with its outlet PressureBC in float32: 5
    steps, every solve converged, the ELL kernels launched.
 5b. GPU against CPU in float64, 3 steps: the vessel at N=6 and the
    cylinder at res=10; equal iterations, u and p to 1e-10 relative.
+
+3c. The structured kernels at the N=64 shapes (6,440,067 velocity dofs,
+   the JAX package's size tier: K9, K10, K11 and the per-slot-row W stream
+   fold into K2, K3 and K4, and K13 is its scatter): the phase 3 cases and
+   tolerances, the float64 cases on the float32 solver's operators cast,
+   and K1 on its 5 levels.
+4d. The N=64 main path in float32 (bench.py's BENCH_N=64 settings): 5
+   warm-up and 25 timed steps, phase 4's checks, K1 on 5 levels, peak
+   device memory and set-up time; the TPU-era iterations of
+   BENCH_N64_r05.json printed as the reference only.
+3d. The band-ELL kernels (K18) at the vessel's N=36 shapes against their
+   plain versions in float64 and float32: the product at batch 3 on the
+   tentative operator and at batch 1 on Ap, BiCGStab on the tentative
+   system and CG on M, at phase 3b's tolerances; beside each case the
+   same work by K14/K15/K16 on the flat ELL form and one torch.sparse CSR
+   product; S, R, the share of band slots that hold a value and the bytes
+   a product reads in each layout.
+4e. The vessel path with ell_layout="band", run before 4b so that 4b's
+   peak device memory holds no band tables: phase 4b's run and checks on
+   the band kernels, the iterations within 10% of phase 4b's.
+5c. GPU against CPU in float64 with the band layout: the vessel at N=6.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -61,12 +84,14 @@ and the outputs written once over 3.35 TB/s, or the operations over 67
 TFLOP/s in float32, whichever is larger, with "bound_by" naming which; for
 a solve, the operations of the iterations this run's data took) and
 "library_ms" (one PyTorch call computing the same function: a
-torch.sparse CSR product of the assembled operator for the cube operators
-and K14, one indexing call for K8; null for the solves).
+torch.sparse CSR product of the assembled operator for the cube operators,
+K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
+solves).  A band case also has "ell_ms": the same product or solve by
+K14/K15/K16 on the flat ELL form.
 
---profile N adds a torch.profiler window of N more steps after phase 4:
-device time by kernel, the device's busy share of the window, and a
-Chrome trace in build/chip_smoke_trace.json.
+--profile N adds a torch.profiler window of N more steps after phases 4,
+4d, 4b and 4e: device time by kernel, the device's busy share of the
+window, and Chrome traces under build/chip_smoke_trace*.json.
 """
 
 from __future__ import annotations
@@ -79,29 +104,38 @@ import time
 
 TPU_ERA_ITERS = {"u": 0.88, "p": 5.0, "c": 2.2266666666666666}  # BENCH_r05.json
 TPU_ERA_ITERS_VESSEL = {"u": 1.33, "p": 14.44}  # BENCH_unstructured_r05.json
+TPU_ERA_ITERS_N64 = {"u": 1.12, "p": 5.0, "c": 3.506666666666667}  # BENCH_N64_r05.json
 PO = "oasisx_tpu/assembly/pallas_ops.py"
+# each kernel's TPU functions, the folded size-tier variants included
 REPLACES = {
-    "matvec_const": f"{PO}:2019",  # make_matvec_pf (K5)
-    "matvec_win": f"{PO}:1949",  # make_matvec_win (K3)
+    "matvec_const": f"{PO}:2019; {PO}:94",  # make_matvec_pf (K5), make_matvec (K12)
+    # make_matvec_win (K3), make_matvec_hbm_chan (K10), make_tent_matvec_hbm (+pad_weights :799)
+    "matvec_win": f"{PO}:1949; {PO}:1409; {PO}:717",
     "mixed": f"{PO}:1862",  # make_mixed_pf (K6)
     "divergence": f"{PO}:1906",  # make_divergence_pf (K7)
-    "cube_gather": f"{PO}:524",  # make_gather (K8)
-    "cg_mass": f"{PO}:1770",  # make_cg_iter_pf (K4)
-    "bicgstab": f"{PO}:1058",  # make_bicgstab_iter (K2)
+    "cube_gather": f"{PO}:524; {PO}:569",  # make_gather, make_gather_chunked (K8)
+    "cube_scatter": f"{PO}:583; {PO}:629",  # make_scatter, make_scatter_chunked (K13)
+    "cg_mass": f"{PO}:1770; {PO}:810",  # make_cg_iter_pf (K4), make_cg_step (K11)
+    # make_bicgstab_iter (K2), make_bicgstab_hbm_kernels (K9) with bicgstab_hbm_from_r0 :1706
+    "bicgstab": f"{PO}:1058; {PO}:1463",
     "pressure_mg": f"{PO}:128",  # make_pressure_cg (K1)
-    "ell_matvec": f"{PO}:646",  # make_ell_matvec, make_ell_matvec_batched :682 (K14)
+    "ell_matvec": f"{PO}:646; {PO}:682",  # make_ell_matvec, make_ell_matvec_batched (K14)
     "ell_bicgstab": f"{PO}:2083",  # make_ell_bicgstab_iter (K15)
     "ell_cg": f"{PO}:2194",  # make_ell_cg_iter (K16)
-    "ell_pcg_amg": f"{PO}:2413",  # make_ell_pcg_amg_iter, make_ell_vcycle :2385 (K17)
+    "ell_pcg_amg": f"{PO}:2413; {PO}:2385",  # make_ell_pcg_amg_iter, make_ell_vcycle (K17)
+    "band_matvec": f"{PO}:2588",  # make_band_matvec_batched (K18)
+    "band_bicgstab": f"{PO}:2613",  # make_band_bicgstab_iter (K18)
+    "band_cg": f"{PO}:2683",  # make_band_cg_iter (K18)
 }
 CSRC = "oasisx_tpu_torch/csrc/"
 SOURCE = {name: CSRC + "cube_ops.cu" for name in REPLACES}
 SOURCE.update(dict.fromkeys(("cg_mass", "bicgstab", "pressure_mg"), CSRC + "krylov_ops.cu"))
-SOURCE.update(dict.fromkeys(("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg"),
-                            CSRC + "ell_ops.cu"))
+SOURCE.update(dict.fromkeys(("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg", "band_matvec",
+                             "band_bicgstab", "band_cg"), CSRC + "ell_ops.cu"))
 SOLVE_RTOL = {"float64": 1e-8, "float32": 1e-5}
 DT, NU = 2e-3, 1.0 / 1600.0
 N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
+N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
 
@@ -143,10 +177,11 @@ def deform_vessel(mesh):
     return mesh
 
 
-def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False):
+def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell"):
     """The bench problem (bench.py build_solver) on the port: the box, or
     with ``vessel`` the deformed box on the general path with bench.py's
-    low_memory_version=False."""
+    low_memory_version=False and the velocity operators in ``layout``
+    ("ell" or "band")."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
@@ -167,7 +202,7 @@ def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False):
     solver = FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
         solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
-        options={"low_memory_version": False} if vessel else None,
+        options={"low_memory_version": False, "ell_layout": layout} if vessel else None,
         dtype=dtype, device=device,
     )
     for f, u1, u2 in zip(fs, solver._u1, solver._u2):
@@ -289,7 +324,7 @@ def ell_csr(vals, cols):
 def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     """(kernel, label, kernel call, plain call, padded-output mask, (bytes,
     operations), library call or None) at the solver's shapes, on random
-    inputs made from ``seed``."""
+    inputs made from ``seed``, the solver's operators cast to ``dtype``."""
     import numpy as np
     import torch
 
@@ -314,7 +349,10 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     uab = c(1.5 * st["u1"] - 0.5 * st["u2"])
     all_valid = torch.ones(d, nl, nc, dtype=torch.bool, device=device)
     isz = torch.empty((), dtype=dtype).element_size()
-    lib = dict.fromkeys(("gather", "M", "Ap", "W", "B", "G", "div"))
+    pm = rnd(d, nv) * valid_v
+    zm = solver._zmask.to(dtype)
+    U = rnd(d, nl, nc)
+    lib = dict.fromkeys(("gather", "M", "Ap", "W", "B", "G", "div", "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
@@ -329,9 +367,11 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         A_div = stack([cube_csr(iq, iv, B_c[k].T, nq, nv, col_off=k * nv) for k in range(d)],
                       (nq, d * nv))
         uflat = xv.reshape(-1)
+        ivf, Uf = iv.reshape(-1), U.reshape(d, -1)
         lib = dict(gather=lambda: uab[:, iv], M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
                    W=lambda: A_W @ xt, B=lambda: A_B @ xq, G=lambda: A_G @ xq,
-                   div=lambda: A_div @ uflat)
+                   div=lambda: A_div @ uflat,
+                   scatter=lambda: torch.zeros_like(xv).index_add_(1, ivf, Uf))
     mv = lambda nlo, nli, B: 2.0 * nlo * nli * nc * B  # cube matvec operations
     return [
         ("cube_gather", "TGV uab",
@@ -347,6 +387,13 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         ("matvec_win", "W batch 3",
          lambda: kn.matvec_win(W, xv, sm_v), lambda: kn.matvec_win_plain(W, xv, sm_v), valid_v,
          (isz * (nl * nl * nc + 2 * d * nv), mv(nl, nl, d)), lib["W"]),
+        ("matvec_win", "W premul zmask",
+         lambda: kn.matvec_win(W, xv, sm_v, premul=pm, zmask=zm),
+         lambda: kn.matvec_win_plain(W, xv, sm_v, premul=pm, zmask=zm), valid_v,
+         (isz * (nl * nl * nc + 4 * d * nv), mv(nl, nl, d) + 2.0 * d * nv), None),
+        ("matvec_win", "W batch 1",
+         lambda: kn.matvec_win(W, xv[:1], sm_v), lambda: kn.matvec_win_plain(W, xv[:1], sm_v),
+         valid_v, (isz * (nl * nl * nc + 2 * nv), mv(nl, nl, 1)), None),
         ("mixed", "B_c",
          lambda: kn.mixed(xq, B_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, B_c, sm_v, sm_q),
          valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["B"]),
@@ -357,6 +404,9 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
          lambda: kn.divergence(xv, B_c, sm_v, sm_q),
          lambda: kn.divergence_plain(xv, B_c, sm_v, sm_q), valid_q,
          (isz * (d * nv + nq), mv(nl, nlq, d)), lib["div"]),
+        ("cube_scatter", "U batch 3",
+         lambda: kn.cube_scatter(U, sm_v), lambda: kn.cube_scatter_plain(U, sm_v), valid_v,
+         (isz * d * (nl * nc + nv), float(d * nl * nc)), lib["scatter"]),
     ]
 
 
@@ -370,48 +420,55 @@ def _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=20, ext
     lib_ms = None if lib is None else min(time_ms(lib, device), time_ms(lib, device))
     rec = {"case": label, "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
            **bound(*work), "library_ms": lib_ms, **(extra or {})}
+    others = "".join(f", {k} {v:.4f}" for k, v in (extra or {}).items() if k.endswith("_ms"))
     print(f"    {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), library "
-          f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+          f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}{others}")
     return rec
 
 
-def compare_kernels(solver, device) -> dict:
-    """Phase 3: every cube kernel against its plain version in f64 and f32.
+def compare_kernels(solver, device, tag: str = "") -> dict:
+    """Phases 3 and 3c: every cube kernel against its plain version in f64
+    and f32 (the solver's operators cast), a repeat call bit-identical.
 
     Returns, per kernel, a list of its cases in float32, each with its own
-    max abs error, its time per call (kernel, plain version, library call)
-    and its bound at that one shape."""
+    max abs error, its time per call (kernel, plain version and library
+    call) and its bound at that one shape; ``tag`` ends each case's label."""
     import torch
 
     tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     out: dict = {}
     for dtype, tol in tols.items():
         timed = dtype == torch.float32 and torch.device(device).type == "cuda"
-        for name, label, kfn, pfn, valid, work, lib in kernel_cases(solver, dtype, device,
-                                                                     library=timed):
+        for name, label, kfn, pfn, valid, work, lib in kernel_cases(
+                solver, dtype, device, library=timed):
+            label += tag
             yk = kfn()
+            yk2 = kfn()
             yp = pfn()
             _sync(device)
             scale = float(yp.abs().max())
             err = float((yk - yp).abs().max())
             rel = err / max(scale, 1e-300)
             pad_zero = bool((yk[..., ~valid] == 0).all())
-            tag = str(dtype).replace("torch.", "")
-            print(f"  {name:13s} {label:13s} {tag}: max abs err {err:.3e}, rel {rel:.3e}"
-                  f" (tol {tol:g}), padding zero: {pad_zero}")
-            check(rel <= tol, f"{name} ({label}, {tag}) disagrees: rel err {rel:.3e}")
-            check(pad_zero, f"{name} ({label}, {tag}) wrote non-zero padding")
+            same = bool(torch.equal(yk, yk2))
+            dt = str(dtype).replace("torch.", "")
+            print(f"  {name:13s} {label:20s} {dt}: max abs err {err:.3e}, rel {rel:.3e}"
+                  f" (tol {tol:g}), padding zero: {pad_zero}, repeat bit-identical: {same}")
+            check(rel <= tol, f"{name} ({label}, {dt}) disagrees: rel err {rel:.3e}")
+            check(pad_zero, f"{name} ({label}, {dt}) wrote non-zero padding")
+            check(same, f"{name} ({label}, {dt}): a second kernel call differs from the first")
             if dtype != torch.float32:
                 continue
             out.setdefault(name, []).append(_timed(name, label, kfn, pfn, device, err, work, lib))
     return out
 
 
-def solve_cases(solver, device, seed: int = 1):
+def solve_cases(solver, device, seed: int = 1, dtype=None):
     """(kernel, label, kernel solve, plain solve, work(result) -> (bytes,
-    operations)) on the structured path's systems of ``solver`` (its
-    dtype), each solve returning a KrylovResult."""
+    operations)) on the structured path's systems of ``solver``, in its
+    dtype or in ``dtype`` with its operators cast, each solve returning a
+    KrylovResult."""
     import numpy as np
     import torch
 
@@ -420,9 +477,11 @@ def solve_cases(solver, device, seed: int = 1):
     from oasisx_tpu_torch.la import fused
     from oasisx_tpu_torch.la.pressure_mg import PressureMGCG
 
-    dtype = solver._dtype
+    dtype = dtype or solver._dtype
     rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    c = lambda t: t.to(dtype)
     cu, sm_v, sm_q = solver._cu, solver._sm_v, solver._sm_q
+    M_c, Ap_c = c(cu.M_c), c(cu.Ap_c)
     d, maxiter = solver._mesh.dim, 2000
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
@@ -436,13 +495,15 @@ def solve_cases(solver, device, seed: int = 1):
     b = rnd(d, nv) * valid_v
     x0 = torch.zeros_like(b)
     bn = torch.linalg.vector_norm(b, dim=-1)
-    mass = lambda v: kn.matvec_const_plain(v, cu.M_c, sm_v)
+    mass = lambda v: kn.matvec_const_plain(v, M_c, sm_v)
+    M_invd = c(solver._M_invd)
+    b1, x01, bn1 = b[1:2], x0[1:2], bn[1:2]
 
     # K1: Ap x = b - mean(b), x0 = 0, the solver's MG hierarchy
     Ap64 = cu.Ap_c.detach().cpu().double().numpy()
     diag = solver._Ap_diag.detach().cpu().double().numpy()
     invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
-    pcg = PressureMGCG(sm_q, cu.Ap_c, invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol, maxiter)
+    pcg = PressureMGCG(sm_q, Ap_c, invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol, maxiter)
     bq = rnd(nq)
     bq = bq - bq.mean()
     xq = torch.zeros_like(bq)
@@ -459,20 +520,25 @@ def solve_cases(solver, device, seed: int = 1):
     st = solver._state_from_functions()
     u1, u2 = st["u1"], st["u2"]
     W, uq, b_first = solver._assemble_first(u1, u2, DT, NU)
-    tdiag = solver._tentative_diag(W, uq, DT, NU)
-    bc, masks, zmask = solver._bc_values(), solver._bc_masks, solver._zmask
+    tdiag = c(solver._tentative_diag(W, uq, DT, NU))
+    W, b_first, u1, u2 = c(W), c(b_first), c(u1), c(u2)
+    bc, masks, zmask = c(solver._bc_values()), solver._bc_masks, c(solver._zmask)
     rhs = torch.where(masks, bc, b_first)
     tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
-    r0 = zmask * (rhs - kn.matvec_win(W, tx0, sm_v))
+    r0 = zmask * rhs - kn.matvec_win(W, tx0, sm_v, zmask=zmask)
     tbn = torch.linalg.vector_norm(rhs, dim=-1)
     tinvd = torch.where(tdiag != 0, 1.0 / tdiag, 1.0)
     win = lambda v: kn.matvec_win_plain(W, v, sm_v)
     rows = lambda res: float(res.iters.sum())
     return rtol, [
         ("cg_mass", "M_c, random rhs",
-         lambda: fused.cg_mass(cu.M_c, b, x0, solver._M_invd, bn, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b, x0, solver._M_invd, bn, rtol, maxiter),
+         lambda: fused.cg_mass(M_c, b, x0, M_invd, bn, sm_v, rtol, maxiter),
+         lambda: fused.cg_from_r0(mass, b, x0, M_invd, bn, rtol, maxiter),
          lambda res: (isz * (3 * d * nv + nv), rows(res) * (2.0 * nl * nl * nc + 10 * nv))),
+        ("cg_mass", "M_c batch 1",
+         lambda: fused.cg_mass(M_c, b1, x01, M_invd, bn1, sm_v, rtol, maxiter),
+         lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter),
+         lambda res: (isz * (3 * nv + nv), rows(res) * (2.0 * nl * nl * nc + 10 * nv))),
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
          lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
@@ -490,18 +556,20 @@ def _f32_iters_ok(ik, ip) -> bool:
     return bool(np.all(np.abs(ik - ip) <= np.maximum(1, np.ceil(0.1 * ip))))
 
 
-def compare_solves(solvers: dict, device, cases_fn=None) -> dict:
+def compare_solves(solvers: dict, device, cases_fn=None, suffix: str = "") -> dict:
     """Each solve kernel against its plain host-loop version, per dtype:
     f64 x to 1e-10 relative with equal iterations, f32 x to 10 rtol with
     iterations within 10% (at least 1); a repeat call bit-identical; f32
-    cases timed.  Returns per kernel its f32 cases."""
+    cases timed.  ``suffix`` ends each case's label.  Returns per kernel
+    its f32 cases."""
     import numpy as np
     import torch
 
     out: dict = {}
     for tag, solver in solvers.items():
         rtol, cases = (cases_fn or solve_cases)(solver, device)
-        for name, label, kfn, pfn, work in cases:
+        for name, label, kfn, pfn, work, *extra in cases:
+            label += suffix
             rk, rk2, rp = kfn(), kfn(), pfn()
             _sync(device)
             err = float((rk.x - rp.x).abs().max())
@@ -522,9 +590,12 @@ def compare_solves(solvers: dict, device, cases_fn=None) -> dict:
             check(same, f"{name} ({label}, {tag}): a second kernel call differs from the first")
             if tag != "float32" or torch.device(device).type != "cuda":
                 continue
+            more = {"iters": ik.tolist()}
+            for key, fn in (extra[0] if extra else {}).items():  # the same solve, flat ELL
+                more[key] = min(time_ms(fn, device, reps=10), time_ms(fn, device, reps=10))
             out.setdefault(name, []).append(_timed(
                 name, label, kfn, pfn, device, err, work(rk), None, reps=10, preps=3,
-                extra={"iters": ik.tolist()}))
+                extra=more))
     return out
 
 
@@ -600,16 +671,17 @@ def ell_kernel_cases(vsolver, device, seed: int = 2):
     ]
 
 
-def compare_ell_kernels(vsolvers: dict, device) -> dict:
-    """Phase 3b, products: in f64 (1e-12) and f32 (1e-5), max relative
-    error against the plain version, a repeat bit-identical; f32 timed.
-    The V-cycle's records go under "cases" of K17 only."""
+def compare_ell_kernels(vsolvers: dict, device, cases_fn=None) -> dict:
+    """Phases 3b and 3d, products: in f64 (1e-12) and f32 (1e-5), max
+    relative error against the plain version, a repeat bit-identical; f32
+    timed (with any other timings a case names).  The V-cycle's records go
+    under "cases" of K17 only."""
     import torch
 
     out: dict = {}
     for tag, vs in vsolvers.items():
         tol = 1e-12 if tag == "float64" else 1e-5
-        for name, label, kfn, pfn, work, lib in ell_kernel_cases(vs, device):
+        for name, label, kfn, pfn, work, lib, *extra in (cases_fn or ell_kernel_cases)(vs, device):
             yk, yk2, yp = kfn(), kfn(), pfn()
             _sync(device)
             err = float((yk - yp).abs().max())
@@ -620,8 +692,11 @@ def compare_ell_kernels(vsolvers: dict, device) -> dict:
             check(rel <= tol, f"{name} ({label}, {tag}) disagrees: rel err {rel:.3e}")
             check(same, f"{name} ({label}, {tag}): a second kernel call differs from the first")
             if tag == "float32" and torch.device(device).type == "cuda":
+                more = {key: min(time_ms(fn, device), time_ms(fn, device))
+                        for key, fn in (extra[0] if extra else {}).items()}
                 out.setdefault(name, []).append(
-                    _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=5))
+                    _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=5,
+                           extra=more))
     return out
 
 
@@ -694,7 +769,127 @@ def ell_solve_cases(pair, device, seed: int = 3):
 
 
 # ---------------------------------------------------------------------------
-# phases 4, 4b, 4c, 5, 5b
+# phase 3d: the band-ELL kernels (K18) on the vessel's operators
+# ---------------------------------------------------------------------------
+
+
+def band_layouts(bv, ev, isz: int) -> dict:
+    """One operator in both layouts: S, R, the share of band slots that hold
+    a value, and the bytes a product reads (values and columns of every
+    slot) in the band and the flat ELL layout."""
+    slots = bv.S * bv.R * 128
+    return dict(S=bv.S, R=bv.R, band_fill=bv.nnz / slots, band_bytes=(isz + 4) * slots,
+                K=ev.K, ell_fill=ev.nnz / (ev.K * ev.n), ell_bytes=(isz + 4) * ev.K * ev.n,
+                nnz_bytes=(isz + 4) * ev.nnz)
+
+
+def band_kernel_cases(pair, device, seed: int = 4):
+    """Phase 3d, products: (kernel, label, kernel call, plain call, (bytes,
+    operations), library call, {"ell_ms": the same product by K14}) for K18
+    at batch 3 on the tentative operator of the initial state and at batch
+    1 on Ap.  ``pair`` is (the band-layout solver, whose tables are used;
+    the flat-ELL solver whose elements and dtype are used) and the Ap band
+    tables."""
+    import torch
+
+    from oasisx_tpu_torch.assembly.band import band_values
+    from oasisx_tpu_torch.la import band, ell
+    from oasisx_tpu_torch.parallel.graph import ell_values
+
+    (bs, es), bq = pair
+    dtype = es._dtype
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    st = es._state_from_functions()
+    A, _, _ = es._assemble_first(st["u1"], st["u2"], DT, NU)
+    bv, ev, eq = bs._band_v, es._ell_v, es._ell_q
+    vals, avals = band_values(A, bv), band_values(es._Ap_elems, bq)
+    evals = ell_values(A, ev)
+    x3, xq = rnd(3, ev.n), rnd(eq.n)
+    x3b, xqb = band.to_band(x3, bv), band.to_band(xq, bq)
+    isz = torch.empty((), dtype=dtype).element_size()
+    work = lambda nnz, n, nb: ((isz + 4) * nnz + isz * 2 * nb * n, 2.0 * nnz * nb)
+    timed = dtype == torch.float32 and torch.device(device).type == "cuda"
+    lib = dict.fromkeys(("A3", "Ap"))
+    if timed:
+        A_csr, Ap_csr = ell_csr(evals, ev.cols), ell_csr(es._Ap_vals, eq.cols)
+        x3t = x3.T.contiguous()
+        lib = dict(A3=lambda: A_csr @ x3t, Ap=lambda: Ap_csr @ xq)
+    return [
+        ("band_matvec", "A_lhs batch 3",
+         lambda: band.band_matvec(vals, bv.cols, bv.shifts_t, x3b),
+         lambda: band.band_matvec_plain(vals, bv.cols, bv.shifts_t, x3b),
+         work(ev.nnz, ev.n, 3), lib["A3"], {"ell_ms": lambda: ell.ell_matvec(evals, ev.cols, x3)}),
+        ("band_matvec", "Ap batch 1",
+         lambda: band.band_matvec(avals, bq.cols, bq.shifts_t, xqb),
+         lambda: band.band_matvec_plain(avals, bq.cols, bq.shifts_t, xqb),
+         work(eq.nnz, eq.n, 1), lib["Ap"],
+         {"ell_ms": lambda: ell.ell_matvec(es._Ap_vals, eq.cols, xq)}),
+    ]
+
+
+def band_solve_cases(pair, device, seed: int = 5):
+    """Phase 3d, solves: K18's BiCGStab on the vessel's first tentative
+    system with its bc rows and K18's CG on M with a random rhs, in band
+    form; each with the same solve by K15 / K16 on the flat ELL form."""
+    import torch
+
+    from oasisx_tpu_torch.assembly.band import band_values
+    from oasisx_tpu_torch.la import band, ell
+    from oasisx_tpu_torch.parallel.graph import ell_values
+
+    bs, es = pair
+    dtype = es._dtype
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    maxiter = 2000
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    isz = torch.empty((), dtype=dtype).element_size()
+    bv, ev = bs._band_v, es._ell_v
+    n = ev.n
+    tb = lambda t, fill=0.0: band.to_band(t, bv, fill)
+
+    st = es._state_from_functions()
+    u1, u2 = st["u1"], st["u2"]
+    A, _, b_first = es._assemble_first(u1, u2, DT, NU)
+    vals, evals = band_values(A, bv), ell_values(A, ev)
+    diag = es._tentative_diag(A, None, DT, NU)
+    bc, masks, zmask = es._bc_values(), es._bc_masks, es._zmask
+    rhs = torch.where(masks, bc, b_first + es._pressure_gradient(st["p"]))
+    tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
+    tinvd = torch.where(diag != 0, 1.0 / diag, 1.0)
+    tbn = torch.linalg.vector_norm(rhs, dim=-1)
+    er0 = zmask * (rhs - ell.ell_matvec_plain(evals, ev.cols, tx0))
+    zb, xb, ivb = tb(zmask), tb(tx0), tb(tinvd, 1.0)
+    r0 = zb * (tb(rhs) - band.band_matvec_plain(vals, bv.cols, bv.shifts_t, xb))
+
+    Mb = band_values(es._M_elems, bv)
+    b = rnd(3, n)
+    bb, x0b, Mivb = tb(b), torch.zeros((3, bv.R * 128), dtype=dtype, device=device), \
+        tb(es._M_invd, 1.0)
+    bn = torch.linalg.vector_norm(b, dim=-1)
+    rows = lambda res: float(res.iters.sum())
+    nnz_bytes = (isz + 4) * ev.nnz
+    args = (vals, bv.cols, bv.shifts_t)
+    margs = (Mb, bv.cols, bv.shifts_t)
+    return rtol, [
+        ("band_bicgstab", "TGV first step, bc rows",
+         lambda: band.band_bicgstab(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
+         lambda: band.band_bicgstab_plain(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
+         lambda res: (nnz_bytes + isz * (4 * 3 * n + n), rows(res) * (4.0 * ev.nnz + 20 * n)),
+         {"ell_ms": lambda: ell.ell_bicgstab(evals, ev.cols, er0, tx0, zmask, tinvd, tbn, rtol,
+                                             maxiter)}),
+        ("band_cg", "M, random rhs",
+         lambda: band.band_cg(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
+         lambda: band.band_cg_plain(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
+         lambda res: (nnz_bytes + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n)),
+         {"ell_ms": lambda: ell.ell_cg(es._M_vals, ev.cols, b, torch.zeros_like(b), es._M_invd,
+                                       bn, rtol, maxiter)}),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# phases 4, 4b, 4c, 4d, 4e, 5, 5b, 5c
 # ---------------------------------------------------------------------------
 
 
@@ -822,6 +1017,7 @@ def main() -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     # 1. card
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda.is_available() is false)")
     try:
@@ -859,7 +1055,7 @@ def main() -> int:
     # 4. the structured main path
     res = drive_main_path(solver, WARMUP, STEPS, "cuda", kn.STRUCTURED_KERNELS)
     report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS)
-    launches = dict(res["launches"])
+    launches = {k: v for k, v in res["launches"].items() if v}
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
     del solver
@@ -868,8 +1064,39 @@ def main() -> int:
     print("[5] cuda against cpu")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6")
 
-    # 3b. ELL kernels at the vessel's N=36 shapes
+    # 3c. the structured kernels at the N=64 shapes (the f64 cases on the
+    # f32 solver's operators cast), and 4d. the N=64 main path
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s64 = tgv_solver(N64, torch.float32, "cuda", rtol=1e-5)
+    _sync("cuda")
+    setup64 = time.perf_counter() - t0
+    nvel64 = 3 * s64._Vi[0][0].num_dofs
+    levels64 = s64.config_report()["pressure_mg_levels"]
+    print(f"[4d] setup N={N64}: {setup64:.1f} s, {nvel64} velocity dofs, pressure MG "
+          f"{levels64} levels, device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    check(levels64 == 5, f"N={N64}: the pressure MG has {levels64} levels, not 5")
+    print(f"[3c] kernels against plain versions (N={N64} shapes)")
+    for name, recs in compare_kernels(s64, "cuda", tag=f" N={N64}").items():
+        kres[name] = kres[name] + recs
+    for name, recs in compare_solves(
+            {"float64": (s64, torch.float64), "float32": (s64, torch.float32)}, "cuda",
+            cases_fn=lambda pr, dev: solve_cases(pr[0], dev, dtype=pr[1]),
+            suffix=f" N={N64}").items():
+        kres[name] = kres[name] + recs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_main_path(s64, WARMUP, STEPS, "cuda", kn.STRUCTURED_KERNELS)
+    report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64)
+    print(f"    pressure MG levels {levels64}; peak device memory in the steps "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; setup {setup64:.1f} s")
+    if args.profile:
+        profile_steps(s64, args.profile, "build/chip_smoke_trace_n64.json")
+    del s64
+    torch.cuda.empty_cache()
+
+    # 3b. ELL kernels at the vessel's N=36 shapes
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     vessel = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True)
@@ -887,34 +1114,89 @@ def main() -> int:
     for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
                                      "cuda", cases_fn=ell_solve_cases).items():
         kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
-    del vessel64, cyl64
+    del cyl64
+
+    # 3d. the band-ELL kernels at the vessel's N=36 shapes (tables of the
+    # band-layout solver of phase 4e; elements of the flat-ELL solvers)
+    from oasisx_tpu_torch.assembly.band import build_band_assembly
+
+    t0 = time.perf_counter()
+    vband = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True, layout="band")
+    _sync("cuda")
+    setup_band = time.perf_counter() - t0
+    bq = build_band_assembly(vband._Q.dofmap.cell_dofs, vband._Q.num_dofs, "cuda")
+    print(f"[4e] vessel band setup N={N}: {setup_band:.1f} s, {vband.config_report()['ell']}, "
+          f"device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    print(f"[3d] band-ELL kernels against plain versions (vessel N={N})")
+    for label, bt, et in (("A_lhs, M", vband._band_v, vessel._ell_v),
+                          ("Ap", bq, vessel._ell_q)):
+        lay = band_layouts(bt, et, 4)
+        print(f"  {label}: S {lay['S']} R {lay['R']} (K {lay['K']}), slots holding a value: band "
+              f"{lay['band_fill']:.4f}, ELL {lay['ell_fill']:.4f}; a float32 product reads "
+              f"{lay['band_bytes'] / 1e6:.1f} MB band, {lay['ell_bytes'] / 1e6:.1f} MB ELL, "
+              f"{lay['nnz_bytes'] / 1e6:.1f} MB of real nonzeros")
+    kres.update(compare_ell_kernels({"float64": ((vband, vessel64), bq),
+                                     "float32": ((vband, vessel), bq)}, "cuda",
+                                    cases_fn=band_kernel_cases))
+    for name, recs in compare_solves({"float64": (vband, vessel64), "float32": (vband, vessel)},
+                                     "cuda", cases_fn=band_solve_cases).items():
+        kres[name] = recs
+    del vessel64, bq
+    torch.cuda.empty_cache()
+
+    # 4e. the vessel with the band layout, before 4b so that 4b's peak
+    # device memory holds no band tables (4e's holds the flat-ELL solver's)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    res = drive_main_path(vband, WARMUP, STEPS, "cuda", kn.BAND_KERNELS)
+    report_path("4e", res, STEPS, 3 * vband._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
+    iters_4e = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
+    print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps; setup "
+          f"{setup_band:.1f} s")
+    for k in ("band_matvec", "band_bicgstab", "band_cg"):
+        launches[k] = res["launches"][k]
+    if args.profile:
+        profile_steps(vband, args.profile, "build/chip_smoke_trace_band.json")
+    del vband
     torch.cuda.empty_cache()
 
     # 4b. the vessel main path
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
     report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
-    print(f"    peak device memory in the steps {torch.cuda.max_memory_allocated() / 2**20:.1f} "
-          f"MiB")
+    print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
     for k, v in res["launches"].items():
         if v:
-            launches[k] = v
+            launches.setdefault(k, v)
+    iters_4b = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
+    print(f"    per-component mean iterations, band (4e) {iters_4e} against ELL (4b) {iters_4b}")
+    for f in ("u", "p", "c"):
+        check(abs(iters_4e[f] - iters_4b[f]) <= 0.1 * iters_4b[f] + 1e-9,
+              f"band layout: {f} iterations {iters_4e[f]:.3f} against {iters_4b[f]:.3f} (4b)")
     if args.profile:
         profile_steps(vessel, args.profile, "build/chip_smoke_trace_vessel.json")
     del vessel
+    torch.cuda.empty_cache()
 
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
     report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {})
     del cyl
 
-    # 5b. GPU against CPU on the general path
+    # 5b, 5c. GPU against CPU on the general path, both layouts
     print("[5b] cuda against cpu, general path")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True), "vessel N=6")
     gpu_vs_cpu(lambda dt, dev: cylinder_solver(10, dt, dev, rtol=1e-8), "cylinder res=10",
                dt=CYL_DT, nu=CYL_NU)
+    print("[5c] cuda against cpu, band layout")
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True, layout="band"),
+               "vessel band N=6")
 
     # per kernel: its first case's numbers, and every case under "cases"
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
          "launches": launches.get(n, 0), **kres[n][0], "cases": kres[n]}

@@ -1,22 +1,27 @@
 """The slice's hand-written cube kernels, their plain versions, their
 host-side tables, and the launch counters of every kernel of the port.
 
-Five wrappers here, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
+Six wrappers here, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
 
 ============== ======================================== =========================
 wrapper        computes                                 replaces (pallas_ops.py)
 ============== ======================================== =========================
 matvec_const   y_b = sum_c P_c^T C P_c x_b, batch B     make_matvec_pf, make_matvec
-matvec_win     y_b = sum_c P_c^T W_c P_c x_b            make_matvec_win
+matvec_win     y_b = zmask_b sum_c P_c^T W_c P_c        make_matvec_win,
+               (premul_b x_b); the multipliers          make_matvec_hbm_chan,
+               optional                                 make_tent_matvec_hbm
 mixed          r_g = C_g p, g < d                       make_mixed_pf
 divergence     b2 = sum_g B_g^T u_g                     make_divergence_pf
 cube_gather    U_b = (P_c x_b)_c, (B, nl, ncubes)       make_gather(_chunked)
+cube_scatter   y_b = sum_c P_c^T U_b[:, c]              make_scatter(_chunked)
 ============== ======================================== =========================
 
-The whole-solve kernels of ``csrc/krylov_ops.cu`` have their wrappers in
-``la/fused.py`` (``cg_mass``, ``bicgstab``) and ``la/pressure_mg.py``
-(``pressure_mg``), the ELL kernels of the unstructured path
-(``csrc/ell_ops.cu``) theirs in ``la/ell.py``, and all count here too.
+``cube_scatter`` is on no path of the solver: its matvecs fuse gather,
+product and scatter in one kernel.  The whole-solve kernels of
+``csrc/krylov_ops.cu`` have their wrappers in ``la/fused.py`` (``cg_mass``,
+``bicgstab``) and ``la/pressure_mg.py`` (``pressure_mg``), the ELL kernels
+of the unstructured path (``csrc/ell_ops.cu``) theirs in ``la/ell.py`` and,
+for the band-ELL layout, ``la/band.py``; all count here too.
 
 A CPU tensor goes to the plain version (built from the ``cubes.py`` ops); a
 CUDA tensor goes to the kernel, and anything else raises.  ``launches``
@@ -45,7 +50,11 @@ STRUCTURED_KERNELS = (
     "cg_mass", "bicgstab", "pressure_mg",
 )
 ELL_KERNELS = ("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg")
-KERNELS = STRUCTURED_KERNELS + ELL_KERNELS
+# the general path with ell_layout="band": the velocity operators in band
+# form, the pressure solve (and its r0 product) on the flat ELL Ap
+BAND_KERNELS = ("band_matvec", "band_bicgstab", "band_cg", "ell_matvec", "ell_pcg_amg")
+KERNELS = (STRUCTURED_KERNELS + ("cube_scatter",) + ELL_KERNELS
+           + ("band_matvec", "band_bicgstab", "band_cg"))
 # counted too: K17's V-cycle launched alone (tests and checks; not on a path)
 _COUNTED = KERNELS + ("ell_vcycle",)
 launches = dict.fromkeys(_COUNTED, 0)
@@ -184,12 +193,14 @@ def matvec_const_plain(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> t
     return cub.matvec_cube(x, C, sm)
 
 
-def matvec_win_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+def matvec_win_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
+                     zmask=None) -> torch.Tensor:
     plain_calls["matvec_win"] += 1
     nl = cub.num_slots(sm)
-    U = cub.cube_gather(x, sm)  # (B, nl, nc)
+    U = cub.cube_gather(x if premul is None else premul * x, sm)  # (B, nl, nc)
     Y = torch.einsum("tic,bic->btc", W.reshape(nl, nl, -1), U)
-    return cub.cube_scatter(Y, sm)
+    y = cub.cube_scatter(Y, sm)
+    return y if zmask is None else zmask * y
 
 
 def mixed_plain(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
@@ -205,6 +216,11 @@ def divergence_plain(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.
 def cube_gather_plain(x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
     plain_calls["cube_gather"] += 1
     return cub.cube_gather(x, sm)
+
+
+def cube_scatter_plain(U: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    plain_calls["cube_scatter"] += 1
+    return cub.cube_scatter(U, sm)
 
 
 # ---------------------------------------------------------------------------
@@ -283,19 +299,27 @@ def matvec_const(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.T
     return y.reshape(x.shape)
 
 
-def matvec_win(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
-    """y_b = A_W x_b with per-cube weights W (nl*nl, ncubes); x (B, npad)."""
-    if not _route(W, x):
-        return matvec_win_plain(W, x, sm)
+def matvec_win(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
+               zmask=None) -> torch.Tensor:
+    """y_b = zmask_b * A_W (premul_b * x_b) with per-cube weights W
+    (nl*nl, ncubes); x (B, npad), premul and zmask (B, npad) or None (1)."""
+    extra = [t for t in (premul, zmask) if t is not None]
+    if not _route(W, x, *extra):
+        return matvec_win_plain(W, x, sm, premul, zmask)
     npad = int(np.prod(sm[0]))
     nl = cub.num_slots(sm)
     nc = int(np.prod(sm[1]))
     _check(x, "x", x.dtype, (x.shape[0], npad))
     _check(W, "W", x.dtype, (nl * nl, nc))
+    for name, t in (("premul", premul), ("zmask", zmask)):
+        if t is not None:
+            _check(t, name, x.dtype, tuple(x.shape))
+    opt = lambda t: ctypes.c_void_p(0) if t is None else _ptr(t)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        _call("matvec_win", _ptr(x), _ptr(W), _ptr(y), int(x.dtype == torch.float64),
-              *_dims(sm), int(sm[2]), int(x.shape[0]), _stream(x))
+        _call("matvec_win", _ptr(x), _ptr(W), opt(premul), opt(zmask), _ptr(y),
+              int(x.dtype == torch.float64), *_dims(sm), int(sm[2]), int(x.shape[0]),
+              _stream(x))
     return y
 
 
@@ -345,3 +369,16 @@ def cube_gather(x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
         _call("cube_gather", _ptr(x), _ptr(u), int(x.dtype == torch.float64), *_dims(sm),
               int(sm[2]), int(x.shape[0]), _stream(x))
     return u
+
+
+def cube_scatter(U: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    """Assembled grid vectors of cube-local values: (B, nl, ncubes) -> (B, npad)."""
+    if not _route(U):
+        return cube_scatter_plain(U, sm)
+    B = U.shape[0]
+    _check(U, "U", U.dtype, (B, cub.num_slots(sm), int(np.prod(sm[1]))))
+    y = torch.empty((B, int(np.prod(sm[0]))), dtype=U.dtype, device=U.device)
+    with torch.cuda.device(U.device):
+        _call("cube_scatter", _ptr(U), _ptr(y), int(U.dtype == torch.float64), *_dims(sm),
+              int(sm[2]), int(B), _stream(U))
+    return y

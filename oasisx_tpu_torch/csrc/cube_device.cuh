@@ -72,12 +72,14 @@ __device__ void cube_stage(const T* mat, const CubeArgs& a, T* smat, int* soff) 
   }
 }
 
-// acc[bo] = (A x)_bo at output grid point idx, for bo < a.nbo; 0 at padding.
-// M is the staged matrix (a.mat_len > 0) or the matrix in global memory.
-template <typename T>
-__device__ __forceinline__ void cube_point(const T* x, const T* M, const int* soff,
-                                           const CubeArgs& a, int64_t idx,
-                                           T (&acc)[kMaxBatch]) {
+// The output side of every cube operator: calls f(to, cube, cbase) for each
+// of the <= 2^d cubes that contain output grid point idx, in one fixed order
+// (the delta bits in C-order, as cubes.cube_scatter sums them).  `to` is the
+// point's slot in that cube, `cube` the cube's index (C-order over the
+// cells) and `cbase` the offset of the cube's base in one input channel.
+// Returns false, calling nothing, at a padding position.
+template <typename F>
+__device__ __forceinline__ bool cube_visit(const CubeArgs& a, int64_t idx, F&& f) {
   int b[3], p[3];
   int64_t rem = idx;
   for (int k = a.d - 1; k >= 0; --k) {
@@ -91,9 +93,7 @@ __device__ __forceinline__ void cube_point(const T* x, const T* M, const int* so
     ch /= a.deg_out;
     if (p[k] > 0 && b[k] == a.n[k]) valid = false;
   }
-#pragma unroll
-  for (int bo = 0; bo < kMaxBatch; ++bo) acc[bo] = T(0);
-  if (!valid) return;
+  if (!valid) return false;
 
   for (int dm = 0; dm < (1 << a.d); ++dm) {
     bool ok = true;
@@ -110,7 +110,21 @@ __device__ __forceinline__ void cube_point(const T* x, const T* M, const int* so
       cube = cube * a.n[k] + c;
       cbase = cbase * (a.n[k] + 1) + c;
     }
-    if (!ok) continue;
+    if (ok) f(to, cube, cbase);
+  }
+  return true;
+}
+
+// acc[bo] = (A x)_bo at output grid point idx, for bo < a.nbo; 0 at padding.
+// M is the staged matrix (a.mat_len > 0) or the matrix in global memory.
+// kPm: the input is pm * x, pm laid out as x (K3's premul; K5 form only).
+template <typename T, bool kPm = false>
+__device__ __forceinline__ void cube_point(const T* x, const T* M, const int* soff,
+                                           const CubeArgs& a, int64_t idx,
+                                           T (&acc)[kMaxBatch], const T* pm = nullptr) {
+#pragma unroll
+  for (int bo = 0; bo < kMaxBatch; ++bo) acc[bo] = T(0);
+  cube_visit(a, idx, [&](int to, int64_t cube, int cbase) {
     const T* mc = M + to * a.m_to + cube * a.m_cube;
     for (int ti = 0; ti < a.nl_in; ++ti) {
       const T* mt = mc + ti * a.m_ti;
@@ -118,9 +132,11 @@ __device__ __forceinline__ void cube_point(const T* x, const T* M, const int* so
       if (a.m_bo == 0 && a.m_bi == 0) {
         // one coefficient for every component (K5, K3): read it once
         const T coef = mt[0];
+        const T* pt = kPm ? pm + soff[ti] + cbase : nullptr;
 #pragma unroll
         for (int bo = 0; bo < kMaxBatch; ++bo)
-          if (bo < a.nbo) acc[bo] += coef * xt[bo * a.x_bo];
+          if (bo < a.nbo)
+            acc[bo] += coef * (kPm ? xt[bo * a.x_bo] * pt[bo * a.x_bo] : xt[bo * a.x_bo]);
       } else {
 #pragma unroll
         for (int bo = 0; bo < kMaxBatch; ++bo) {
@@ -133,19 +149,24 @@ __device__ __forceinline__ void cube_point(const T* x, const T* M, const int* so
         }
       }
     }
-  }
+  });
 }
 
-// y[bo * npad_out + idx] = (A x)_bo for idx = first, first + stride, ...
-template <typename T>
+// y[bo * npad_out + idx] = (A x)_bo for idx = first, first + stride, ...;
+// kPm, kZm: y = zm * A (pm * x), pm laid out as x and zm as y.
+template <typename T, bool kPm = false, bool kZm = false>
 __device__ void cube_apply_range(const T* x, const T* M, const int* soff, const CubeArgs& a,
-                                 T* y, int64_t first, int64_t stride) {
+                                 T* y, int64_t first, int64_t stride, const T* pm = nullptr,
+                                 const T* zm = nullptr) {
   for (int64_t idx = first; idx < a.npad_out; idx += stride) {
     T acc[kMaxBatch];
-    cube_point(x, M, soff, a, idx, acc);
+    cube_point<T, kPm>(x, M, soff, a, idx, acc, pm);
 #pragma unroll
     for (int bo = 0; bo < kMaxBatch; ++bo)
-      if (bo < a.nbo) y[bo * a.npad_out + idx] = acc[bo];
+      if (bo < a.nbo) {
+        const int64_t i = bo * a.npad_out + idx;
+        y[i] = kZm ? zm[i] * acc[bo] : acc[bo];
+      }
   }
 }
 

@@ -1,5 +1,5 @@
-// The ELL row product as a device function, shared by every kernel of
-// ell_ops.cu.
+// The ELL and band-ELL row products as device functions, shared by every
+// kernel of ell_ops.cu.
 //
 //     y[r] = sum_k vals[k * n + r] * x[cols[k * n + r]]
 //
@@ -52,5 +52,67 @@ __device__ __forceinline__ void ell_row_batch(const T* __restrict__ vals,
     }
   }
 }
+
+// The band-ELL layout (K18; oasisx_tpu_torch/assembly/band.py): rows in
+// reverse Cuthill-McKee order, grouped in tiles of kLane; vals and cols are
+// (S, n) slot-major with n = R * kLane, and slot s of row r = rb * kLane + j
+// reads the source tile rb + shifts[s] at lane cols[s, r]:
+//
+//     y[r] = sum_s vals[s * n + r] * x[(rb + shifts[s]) * kLane + cols[s * n + r]]
+//
+// A source tile outside [0, Rc) reads 0 (the TPU kernel's zero-filled frame;
+// every such slot holds value 0).  A warp's rows share one tile, so the
+// branch is uniform.  Slots are summed in order s = 0, 1, ..., S-1.
+constexpr int kLane = 128;
+
+template <typename T>
+__device__ __forceinline__ void band_row_batch(const T* __restrict__ vals,
+                                               const int* __restrict__ cols,
+                                               const int* __restrict__ shifts, int S,
+                                               int64_t n, int Rc, int64_t r, const T* x,
+                                               int64_t xs, int nb, T (&acc)[kEllMaxBatch]) {
+#pragma unroll
+  for (int b = 0; b < kEllMaxBatch; ++b) acc[b] = T(0);
+  const int rb = (int)(r / kLane);
+  for (int s = 0; s < S; ++s) {
+    const int src = rb + __ldg(shifts + s);
+    if (src < 0 || src >= Rc) continue;
+    const int64_t i = (int64_t)s * n + r;
+    const T v = __ldg(vals + i);
+    const int64_t c = (int64_t)src * kLane + __ldg(cols + i);
+#pragma unroll
+    for (int b = 0; b < kEllMaxBatch; ++b) {
+      if (b >= nb) break;
+      acc[b] += v * x[b * xs + c];
+    }
+  }
+}
+
+// The operators of the kernels of ell_ops.cu: rows(r, x, xs, nb, acc) sets
+// acc[b] = (A x_b)[r] for b < nb, x_b = x + b * xs.
+template <typename T>
+struct EllOp {
+  const T* vals;  // (K, n)
+  const int* cols;
+  int K;
+  int64_t n;
+  __device__ __forceinline__ void rows(int64_t r, const T* x, int64_t xs, int nb,
+                                       T (&acc)[kEllMaxBatch]) const {
+    ell_row_batch(vals, cols, K, n, r, x, xs, nb, acc);
+  }
+};
+
+template <typename T>
+struct BandOp {
+  const T* vals;  // (S, n), n = R * kLane
+  const int* cols;
+  const int* shifts;  // (S)
+  int S, Rc;
+  int64_t n;
+  __device__ __forceinline__ void rows(int64_t r, const T* x, int64_t xs, int nb,
+                                       T (&acc)[kEllMaxBatch]) const {
+    band_row_batch(vals, cols, shifts, S, n, Rc, r, x, xs, nb, acc);
+  }
+};
 
 }  // namespace oasisx

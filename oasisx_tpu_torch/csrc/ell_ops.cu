@@ -16,9 +16,19 @@
 //                          the smoothed-aggregation V(pre, post) cycle, with
 //                          an outlet mask or a nullspace projection
 //   oasisx_ell_vcycle   <- make_ell_vcycle: K17's V-cycle alone
+//   oasisx_band_matvec, <- make_band_matvec_batched, make_band_bicgstab_iter
+//   oasisx_band_bicgstab,  and make_band_cg_iter (K18): K14, K15 and K16 on the
+//   oasisx_band_cg         band-ELL layout, the solves driven as K15's and
+//                          K16's loops drive theirs
 //
 // Operators are ELL tables (K, n), slot-major (ell_device.cuh): one thread
-// per row, coalesced reads of vals and cols, the input vector gathered.
+// per row, coalesced reads of vals and cols, the input vector gathered.  The
+// band-ELL layout (S, R * 128) is ELL in reverse Cuthill-McKee order whose
+// column is a per-slot tile shift plus a lane.  K14-K16 and K18 differ only
+// in that row product: the matvec and the BiCGStab and CG solve bodies are
+// templates on an operator (EllOp or BandOp of ell_device.cuh), so the
+// Krylov math, the zero-masked rows, the Jacobi preconditioner, the freezing
+// of converged rows and the exit test are one code for both layouts.
 //
 // Form.  K14 is an ordinary kernel, one thread per row.  K15, K16 and K17
 // are whole solves, each one cooperative launch with the loop on the device
@@ -31,7 +41,8 @@
 // per call for all nb vectors (at the vessel's N=36 velocity operator,
 // K=65, n=389,017: 202 MB in f32 with the padding, about 40% of it real
 // nonzeros).  K15 (two operator reads per iteration) and K16 (one): memory,
-// the operator does not fit in the 50 MB L2; the state vectors do.  K17:
+// the operator does not fit in the 50 MB L2; the state vectors do.  K18 as
+// K14-K16, reading S * n * (4 + sizeof(T)) bytes a product.  K17:
 // grid barriers, about six per AMG level and V-cycle, most of them on
 // coarse levels too small to fill the card.
 //
@@ -63,17 +74,16 @@ __device__ __forceinline__ T* red_shared() {
 }
 
 // ---------------------------------------------------------------------------
-// K14: y_b = A x_b
+// K14, K18: y_b = A x_b
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename Op>
 __global__ void __launch_bounds__(kThreadsMv) ell_matvec_kernel(
-    const T* __restrict__ vals, const int* __restrict__ cols, const T* __restrict__ x,
-    T* __restrict__ y, int K, int64_t n, int64_t nin, int nb) {
+    Op op, const T* __restrict__ x, T* __restrict__ y, int64_t n, int64_t nin, int nb) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   T acc[kEllMaxBatch];
-  ell_row_batch(vals, cols, K, n, r, x, nin, nb, acc);
+  op.rows(r, x, nin, nb, acc);
 #pragma unroll
   for (int b = 0; b < kEllMaxBatch; ++b) {
     if (b >= nb) break;
@@ -82,13 +92,12 @@ __global__ void __launch_bounds__(kThreadsMv) ell_matvec_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K15: batched BiCGStab with zero-masked Dirichlet rows
+// K15, K18: batched BiCGStab with zero-masked Dirichlet rows
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename Op>
 struct EllBicgArgs {
-  const T* vals;   // (K, n)
-  const int* cols;
+  Op op;           // the operator, n rows
   const T* r0;     // (nb, n) zmask (b - A x0); also rhat
   const T* x0;     // (nb, n), bc rows preset to the bc values
   const T* zmask;  // (nb, n) 0 on Dirichlet rows, 1 elsewhere
@@ -99,12 +108,12 @@ struct EllBicgArgs {
   T* red;
   int* iters;
   T* rnorm;
-  int K, nb, maxiter;
+  int nb, maxiter;
   int64_t n;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArgs<T> P) {
+template <typename T, typename Op>
+__global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArgs<T, Op> P) {
   const int nb = P.nb;
   const int64_t n = P.n;
   Reducer<T> red{P.red, red_shared<T>(), 0};
@@ -151,7 +160,7 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArg
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kEllMaxBatch];
-      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.y, n, nb, acc);
+      P.op.rows(idx, P.y, n, nb, acc);
       #pragma unroll
       for (int b = 0; b < kEllMaxBatch; ++b) {
         if (b >= nb) break;
@@ -183,7 +192,7 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArg
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kEllMaxBatch];
-      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.y, n, nb, acc);
+      P.op.rows(idx, P.y, n, nb, acc);
       #pragma unroll
       for (int b = 0; b < kEllMaxBatch; ++b) {
         if (b >= nb) break;
@@ -257,13 +266,12 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_bicgstab_kernel(EllBicgArg
 }
 
 // ---------------------------------------------------------------------------
-// K16: batched Jacobi-PCG
+// K16, K18: batched Jacobi-PCG
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename Op>
 struct EllCgArgs {
-  const T* vals;  // (K, n)
-  const int* cols;
+  Op op;          // the operator, n rows
   const T* r0;    // (nb, n) b - A x0
   const T* x0;    // (nb, n)
   const T* invd;  // (n)
@@ -273,12 +281,12 @@ struct EllCgArgs {
   T* red;
   int* iters;
   T* rnorm;
-  int K, nb, maxiter;
+  int nb, maxiter;
   int64_t n;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kRedThreads, 2) ell_cg_kernel(EllCgArgs<T> P) {
+template <typename T, typename Op>
+__global__ void __launch_bounds__(kRedThreads, 2) ell_cg_kernel(EllCgArgs<T, Op> P) {
   const int nb = P.nb;
   const int64_t n = P.n;
   Reducer<T> red{P.red, red_shared<T>(), 0};
@@ -326,7 +334,7 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_cg_kernel(EllCgArgs<T> P) 
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kEllMaxBatch];
-      ell_row_batch(P.vals, P.cols, P.K, n, idx, P.p, n, nb, acc);
+      P.op.rows(idx, P.p, n, nb, acc);
       #pragma unroll
       for (int b = 0; b < kEllMaxBatch; ++b) {
         if (b >= nb) break;
@@ -666,25 +674,37 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
 
 bool nb_ok(int nb) { return nb >= 1 && nb <= kEllMaxBatch; }
 
+bool band_ok(int S, int R, int Rc) { return S >= 1 && R >= 1 && Rc >= 1; }
+
 template <typename T>
-int ell_matvec_launch(const void* vals, const void* cols, const void* x, void* y, int K,
-                      int64_t n, int64_t nin, int nb, void* stream) {
-  if (n == 0) return 0;
-  const unsigned grid = (unsigned)((n + kThreadsMv - 1) / kThreadsMv);
-  ell_matvec_kernel<T><<<grid, kThreadsMv, 0, (cudaStream_t)stream>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(cols), static_cast<const T*>(x),
-      static_cast<T*>(y), K, n, nin, nb);
-  return (int)cudaGetLastError();
+EllOp<T> ell_op(const void* vals, const void* cols, int K, int64_t n) {
+  return EllOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols), K, n};
 }
 
 template <typename T>
-int ell_bicgstab_launch(const void* vals, const void* cols, const void* r0, const void* x0,
-                        const void* zmask, const void* invd, const void* tol, void* x,
-                        void* work, void* red, int max_blocks, void* iters, void* rnorm, int K,
-                        int64_t n, int nb, int maxiter, void* stream) {
-  EllBicgArgs<T> P;
-  P.vals = static_cast<const T*>(vals);
-  P.cols = static_cast<const int*>(cols);
+BandOp<T> band_op(const void* vals, const void* cols, const void* shifts, int S, int R,
+                  int Rc) {
+  return BandOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols),
+                   static_cast<const int*>(shifts), S, Rc, (int64_t)R * kLane};
+}
+
+template <typename T, typename Op>
+int matvec_launch(const Op& op, const void* x, void* y, int64_t n, int64_t nin, int nb,
+                  void* stream) {
+  if (n == 0) return 0;
+  const unsigned grid = (unsigned)((n + kThreadsMv - 1) / kThreadsMv);
+  ell_matvec_kernel<T, Op><<<grid, kThreadsMv, 0, (cudaStream_t)stream>>>(
+      op, static_cast<const T*>(x), static_cast<T*>(y), n, nin, nb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename Op>
+int bicgstab_launch(const Op& op, const void* r0, const void* x0, const void* zmask,
+                    const void* invd, const void* tol, void* x, void* work, void* red,
+                    int max_blocks, void* iters, void* rnorm, int64_t n, int nb, int maxiter,
+                    void* stream) {
+  EllBicgArgs<T, Op> P;
+  P.op = op;
   P.r0 = static_cast<const T*>(r0);
   P.x0 = static_cast<const T*>(x0);
   P.zmask = static_cast<const T*>(zmask);
@@ -700,21 +720,18 @@ int ell_bicgstab_launch(const void* vals, const void* cols, const void* r0, cons
   P.red = static_cast<T*>(red);
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
-  P.K = K;
   P.nb = nb;
   P.maxiter = maxiter;
   P.n = n;
-  return coop_launch(ell_bicgstab_kernel<T>, P, n, red_smem<T>(), max_blocks, stream);
+  return coop_launch(ell_bicgstab_kernel<T, Op>, P, n, red_smem<T>(), max_blocks, stream);
 }
 
-template <typename T>
-int ell_cg_launch(const void* vals, const void* cols, const void* r0, const void* x0,
-                  const void* invd, const void* tol, void* x, void* work, void* red,
-                  int max_blocks, void* iters, void* rnorm, int K, int64_t n, int nb,
-                  int maxiter, void* stream) {
-  EllCgArgs<T> P;
-  P.vals = static_cast<const T*>(vals);
-  P.cols = static_cast<const int*>(cols);
+template <typename T, typename Op>
+int cg_launch(const Op& op, const void* r0, const void* x0, const void* invd, const void* tol,
+              void* x, void* work, void* red, int max_blocks, void* iters, void* rnorm,
+              int64_t n, int nb, int maxiter, void* stream) {
+  EllCgArgs<T, Op> P;
+  P.op = op;
   P.r0 = static_cast<const T*>(r0);
   P.x0 = static_cast<const T*>(x0);
   P.invd = static_cast<const T*>(invd);
@@ -726,11 +743,10 @@ int ell_cg_launch(const void* vals, const void* cols, const void* r0, const void
   P.red = static_cast<T*>(red);
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
-  P.K = K;
   P.nb = nb;
   P.maxiter = maxiter;
   P.n = n;
-  return coop_launch(ell_cg_kernel<T>, P, n, red_smem<T>(), max_blocks, stream);
+  return coop_launch(ell_cg_kernel<T, Op>, P, n, red_smem<T>(), max_blocks, stream);
 }
 
 template <typename T>
@@ -797,8 +813,10 @@ extern "C" {
 int oasisx_ell_matvec(const void* vals, const void* cols, const void* x, void* y, int K,
                       long long n, long long nin, int nb, int is_f64, void* stream) {
   if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? ell_matvec_launch<double>(vals, cols, x, y, K, n, nin, nb, stream)
-                : ell_matvec_launch<float>(vals, cols, x, y, K, n, nin, nb, stream);
+  return is_f64 ? matvec_launch<double>(ell_op<double>(vals, cols, K, n), x, y, n, nin, nb,
+                                        stream)
+                : matvec_launch<float>(ell_op<float>(vals, cols, K, n), x, y, n, nin, nb,
+                                       stream);
 }
 
 // Batched BiCGStab on an ELL operator with zero-masked rows, from
@@ -809,12 +827,12 @@ int oasisx_ell_bicgstab(const void* vals, const void* cols, const void* r0, cons
                         void* work, void* red, int max_blocks, void* iters, void* rnorm,
                         int is_f64, int K, long long n, int nb, int maxiter, void* stream) {
   if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? ell_bicgstab_launch<double>(vals, cols, r0, x0, zmask, invd, tol, x, work,
-                                              red, max_blocks, iters, rnorm, K, n, nb, maxiter,
-                                              stream)
-                : ell_bicgstab_launch<float>(vals, cols, r0, x0, zmask, invd, tol, x, work, red,
-                                             max_blocks, iters, rnorm, K, n, nb, maxiter,
-                                             stream);
+  return is_f64 ? bicgstab_launch<double>(ell_op<double>(vals, cols, K, n), r0, x0, zmask, invd,
+                                          tol, x, work, red, max_blocks, iters, rnorm, n, nb,
+                                          maxiter, stream)
+                : bicgstab_launch<float>(ell_op<float>(vals, cols, K, n), r0, x0, zmask, invd,
+                                         tol, x, work, red, max_blocks, iters, rnorm, n, nb,
+                                         maxiter, stream);
 }
 
 // Batched Jacobi-PCG on an ELL operator from r0 = b - A x0 and x0 (nb, n);
@@ -824,10 +842,10 @@ int oasisx_ell_cg(const void* vals, const void* cols, const void* r0, const void
                   int max_blocks, void* iters, void* rnorm, int is_f64, int K, long long n,
                   int nb, int maxiter, void* stream) {
   if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? ell_cg_launch<double>(vals, cols, r0, x0, invd, tol, x, work, red, max_blocks,
-                                        iters, rnorm, K, n, nb, maxiter, stream)
-                : ell_cg_launch<float>(vals, cols, r0, x0, invd, tol, x, work, red, max_blocks,
-                                       iters, rnorm, K, n, nb, maxiter, stream);
+  return is_f64 ? cg_launch<double>(ell_op<double>(vals, cols, K, n), r0, x0, invd, tol, x,
+                                    work, red, max_blocks, iters, rnorm, n, nb, maxiter, stream)
+                : cg_launch<float>(ell_op<float>(vals, cols, K, n), r0, x0, invd, tol, x, work,
+                                   red, max_blocks, iters, rnorm, n, nb, maxiter, stream);
 }
 
 // AMG-PCG: lvl_ptrs holds 7 pointers per level (Av, Ac, sm, Pv, Pc, Rv, Rc),
@@ -868,6 +886,57 @@ int oasisx_ell_vcycle(const void* const* lvl_ptrs, const long long* lvl_dims, in
              : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
                                      cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
                                      max_blocks, iters, rnorm, conv, maxiter, 1, stream);
+}
+
+// K18, the band-ELL layout: vals, cols (S, R * 128), shifts (S) int32, the
+// rows in RCM order; the source has Rc tiles (a solve's operator is square,
+// Rc == R).
+
+// y (nb, R * 128) = A x for x (nb, Rc * 128).
+int oasisx_band_matvec(const void* vals, const void* cols, const void* shifts, const void* x,
+                       void* y, int S, int R, int Rc, int nb, int is_f64, void* stream) {
+  if (!nb_ok(nb) || !band_ok(S, R, Rc)) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)R * kLane, nin = (int64_t)Rc * kLane;
+  return is_f64
+             ? matvec_launch<double>(band_op<double>(vals, cols, shifts, S, R, Rc), x, y, n, nin,
+                                     nb, stream)
+             : matvec_launch<float>(band_op<float>(vals, cols, shifts, S, R, Rc), x, y, n, nin,
+                                    nb, stream);
+}
+
+// Batched BiCGStab on a band-ELL operator with zero-masked rows, from
+// r0 = zmask (b - A x0) and x0 (nb, R * 128); invd (R * 128); tol (nb).
+// work: 6 * nb * R * 128; red: 2 * 8 * max_blocks.  As oasisx_ell_bicgstab.
+int oasisx_band_bicgstab(const void* vals, const void* cols, const void* shifts, const void* r0,
+                         const void* x0, const void* zmask, const void* invd, const void* tol,
+                         void* x, void* work, void* red, int max_blocks, void* iters,
+                         void* rnorm, int is_f64, int S, int R, int nb, int maxiter,
+                         void* stream) {
+  if (!nb_ok(nb) || !band_ok(S, R, R)) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)R * kLane;
+  return is_f64 ? bicgstab_launch<double>(band_op<double>(vals, cols, shifts, S, R, R), r0, x0,
+                                          zmask, invd, tol, x, work, red, max_blocks, iters,
+                                          rnorm, n, nb, maxiter, stream)
+                : bicgstab_launch<float>(band_op<float>(vals, cols, shifts, S, R, R), r0, x0,
+                                         zmask, invd, tol, x, work, red, max_blocks, iters,
+                                         rnorm, n, nb, maxiter, stream);
+}
+
+// Batched Jacobi-PCG on a band-ELL operator from r0 = b - A x0 and x0
+// (nb, R * 128); invd (R * 128); tol (nb).  work: 3 * nb * R * 128.  As
+// oasisx_ell_cg.
+int oasisx_band_cg(const void* vals, const void* cols, const void* shifts, const void* r0,
+                   const void* x0, const void* invd, const void* tol, void* x, void* work,
+                   void* red, int max_blocks, void* iters, void* rnorm, int is_f64, int S, int R,
+                   int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || !band_ok(S, R, R)) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)R * kLane;
+  return is_f64 ? cg_launch<double>(band_op<double>(vals, cols, shifts, S, R, R), r0, x0, invd,
+                                    tol, x, work, red, max_blocks, iters, rnorm, n, nb, maxiter,
+                                    stream)
+                : cg_launch<float>(band_op<float>(vals, cols, shifts, S, R, R), r0, x0, invd,
+                                   tol, x, work, red, max_blocks, iters, rnorm, n, nb, maxiter,
+                                   stream);
 }
 
 }  // extern "C"

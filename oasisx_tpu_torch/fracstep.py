@@ -14,8 +14,8 @@ the eight kernels of ``assembly/kernels.py``, ``la/fused.py`` and
   A_W     = (1/dt) M + (nu/2) K + 1/2 C(uab)   per-cube weights W, one matmul
   inner loop (k < max_iter and diff > max_error):
       rhs   = b_first + B ps;  rhs[bc] = g     mixed
-      solve A_W u = rhs: x0[bc] = g,           bicgstab (r0 by matvec_win)
-        r0 = zmask (rhs - A_W x0), Jacobi
+      solve A_W u = rhs: x0[bc] = g,           bicgstab (r0 by matvec_win
+        r0 = zmask rhs - zmask A_W x0, Jacobi    with its zmask)
       b2    = -(1/dt) div u                    divergence
       solve Ap dp = b2 (nullspace)             pressure_mg
       ps    = p + dp
@@ -39,6 +39,14 @@ assembled operator goes through the ELL kernels of ``la/ell.py``:
       solve Ap dp = b2: outlet mask, or        ell_pcg_amg (r0 by ell_matvec)
         nullspace + zero mean
   velocity update: M u_new = M u - dt G dp     ell_cg (b3, r0 by ell_matvec)
+
+With ``options={"ell_layout": "band"}`` the velocity operators (A_lhs and
+M) take the band-ELL layout (``assembly/band.py``, RCM order inside a
+solve only): the tentative solve runs band_bicgstab (r0 by band_matvec)
+and the velocity update band_cg (b3, r0 by band_matvec).  The pressure
+solve stays ell_pcg_amg on the flat ELL Ap: the JAX package's band engine
+ran an XLA AMG-PCG there only because its TPU could not lower the fused
+V-cycle's gathers, and the AMG and the PCG are the same math.
 
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
@@ -67,7 +75,8 @@ from .assembly.structured import build_structured_map, num_padded
 from .bcs import DirichletBC, PressureBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
-from .la import ell, fused
+from .assembly.band import band_values, build_band_assembly
+from .la import band, ell, fused
 from .la.amg import AlgebraicMG, amg_kernel_data, coo_from_elems
 from .la.krylov import _effective_rtol
 from .la.pressure_mg import PressureMGCG
@@ -104,7 +113,8 @@ class FractionalStep_AB_CN:
     ``solver_options`` keyed ``tentative`` / ``pressure`` / ``scalar``,
     ``options`` (``low_memory_version``: direct vector assembly of the
     mixed terms, default True, or preassembled mixed matrices;
-    ``ell_layout``: "ell", the only layout ported), ``dtype`` and the
+    ``ell_layout``: "ell", default, or "band" for the velocity operators
+    of the general path), ``dtype`` and the
     ``device`` every tensor lives on (default: the card; there is no
     fallback to the CPU).  A structured mesh without an outlet takes the
     cube path, where ``low_memory_version`` has no counterpart.
@@ -126,13 +136,9 @@ class FractionalStep_AB_CN:
         self._dtype = real_dtype(dtype)
         options = dict(options or {})
         layout = options.get("ell_layout", "ell")
-        if layout == "band":
-            raise NotImplementedError(
-                "ell_layout='band' (the band-ELL kernels, K18) is not ported: "
-                "ROADMAP.md Queue 2"
-            )
-        if layout != "ell":
+        if layout not in ("ell", "band"):
             raise ValueError(f"unknown ell_layout {layout!r}")
+        self._layout = layout
         self._low_memory = bool(options.get("low_memory_version", True))
         self._mesh = mesh
         d = mesh.dim
@@ -284,11 +290,16 @@ class FractionalStep_AB_CN:
             self._grad_p = eng.grad_p_mats(ctx)
 
         Vi0 = self._Vi[0][0]
-        self._ell_v = build_ell_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
-        self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
-        # the constant operators' ELL values, assembled once here: the JAX
+        # the constant operators' values, assembled once here: the JAX
         # package assembles them again in every solve, to the same values
-        self._M_vals = ell_values(self._M_elems, self._ell_v)
+        if self._layout == "band":
+            self._band_v = build_band_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
+            self._M_vals = band_values(self._M_elems, self._band_v)
+            self._M_invd_b = band.to_band(self._M_invd, self._band_v, fill=1.0)
+        else:
+            self._ell_v = build_ell_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
+            self._M_vals = ell_values(self._M_elems, self._ell_v)
+        self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
         self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
         self._amg = self._build_amg(popts, pmask)
         self._amg_data = amg_kernel_data(self._amg)
@@ -349,15 +360,23 @@ class FractionalStep_AB_CN:
         if self._structured:
             return dict(common, pressure_pc="mg-pcg", pressure_mg_levels=len(self._pcg.levels),
                         path_kernels=list(kn.STRUCTURED_KERNELS))
+        eq = self._ell_q
+        if self._layout == "band":
+            bv = self._band_v
+            velocity = {"S_v": bv.S, "R_v": bv.R, "n_v": bv.n, "nnz_v": bv.nnz,
+                        "shifts_v": [min(bv.shifts), max(bv.shifts)]}
+        else:
+            ev = self._ell_v
+            velocity = {"K_v": ev.K, "n_v": ev.n, "nnz_v": ev.nnz}
         return dict(
             common,
             pressure_pc="amg-pcg-fused",
             pressure_mg_levels=self._amg.num_levels,
-            path_kernels=list(kn.ELL_KERNELS),
+            path_kernels=list(kn.BAND_KERNELS if self._layout == "band" else kn.ELL_KERNELS),
             low_memory=self._low_memory,
             outlet=bool(self._bcs_p),
-            ell={"K_v": self._ell_v.K, "n_v": self._ell_v.n, "nnz_v": self._ell_v.nnz,
-                 "K_q": self._ell_q.K, "n_q": self._ell_q.n, "nnz_q": self._ell_q.nnz},
+            ell_layout=self._layout,
+            ell=dict(velocity, K_q=eq.K, n_q=eq.n, nnz_q=eq.nnz),
         )
 
     # --- canonical <-> internal dof order -----------------------------------
@@ -445,9 +464,19 @@ class FractionalStep_AB_CN:
         s = self._solver_u
         rtol = _effective_rtol(s.rtol, self._dtype)
         if self._structured:
+            # zmask {0, 1}: the same bits as zmask (rhs - A_W x0)
             sm_v = self._sm_v
-            r0 = zmask * (rhs - kn.matvec_win(A, x0, sm_v))
+            r0 = zmask * rhs - kn.matvec_win(A, x0, sm_v, zmask=zmask)
             res = fused.bicgstab(A, r0, x0, zmask, invd, bnorm, sm_v, rtol, s.maxiter, s.atol)
+        elif self._layout == "band":
+            bv = self._band_v
+            vals, b = band_values(A, bv), lambda t: band.to_band(t, bv)
+            x0b, zmb = b(x0), b(zmask)
+            r0 = zmb * (b(rhs) - band.band_matvec(vals, bv.cols, bv.shifts_t, x0b))
+            res = band.band_bicgstab(vals, bv.cols, bv.shifts_t, r0, x0b, zmb,
+                                     band.to_band(invd, bv, fill=1.0), bnorm, rtol, s.maxiter,
+                                     s.atol)
+            res = res._replace(x=band.from_band(res.x, bv))
         else:
             vals, cols = ell_values(A, self._ell_v), self._ell_v.cols
             r0 = zmask * (rhs - ell.ell_matvec(vals, cols, x0))
@@ -507,12 +536,15 @@ class FractionalStep_AB_CN:
             mv = lambda x: kn.matvec_const(x, cu.M_c, sm_v)
             g = kn.mixed(dp, cu.G_c, sm_v, self._sm_q)
         else:
-            ctx, cols = self._ctx, self._ell_v.cols
-            mv = lambda x: ell.ell_matvec(self._M_vals, cols, x)
+            ctx = self._ctx
             if self._low_memory:
                 g = eng.grad_p_vecs(ctx, dp)
             else:
                 g = eng.matvec_vq(ctx, self._grad_p, dp)
+            if self._layout == "band":
+                return self._velocity_update_band(u, g, dt, duc, rtol)
+            cols = self._ell_v.cols
+            mv = lambda x: ell.ell_matvec(self._M_vals, cols, x)
         b3 = mv(u) - dt * g
         r0 = -dt * g - mv(duc)
         bnorm = torch.linalg.vector_norm(b3, dim=-1)
@@ -523,6 +555,20 @@ class FractionalStep_AB_CN:
             res = ell.ell_cg(self._M_vals, self._ell_v.cols, r0, u + duc, self._M_invd, bnorm,
                              rtol, sc.maxiter, sc.atol)
         return res, _rel_res(res.resnorm, bnorm)
+
+    def _velocity_update_band(self, u, g, dt, duc, rtol):
+        """The general path's mass solves in band form, as the JAX band
+        engine's ``mass_solve``: b3, r0 and the norms on the RCM-permuted
+        vectors, the result back in the canonical order."""
+        sc, bv = self._solver_c, self._band_v
+        mv = lambda x: band.band_matvec(self._M_vals, bv.cols, bv.shifts_t, x)
+        ub, gb, ducb = (band.to_band(t, bv) for t in (u, g, duc))
+        b3 = mv(ub) - dt * gb
+        r0 = -dt * gb - mv(ducb)
+        bnorm = torch.linalg.vector_norm(b3, dim=-1)
+        res = band.band_cg(self._M_vals, bv.cols, bv.shifts_t, r0, ub + ducb, self._M_invd_b,
+                           bnorm, rtol, sc.maxiter, sc.atol)
+        return res._replace(x=band.from_band(res.x, bv)), _rel_res(res.resnorm, bnorm)
 
     def _step(self, state, dt, nu, bc_vals, h_qvals, max_error, max_iter):
         """One time step; returns (new state, per-step stats on the device,

@@ -77,11 +77,16 @@ def ell_bicgstab_plain(vals, cols, r0, x0, zmask, invd, bnorm, rtol: float, maxi
                        atol: float = 1e-50) -> KrylovResult:
     """Batched BiCGStab from r0 = zmask (b - A x0), all (nb, n), x0's bc
     rows preset to the bc values and the operator's output zeroed on them:
-    ``make_ell_bicgstab_iter`` driven by ``ell_bicgstab_from_r0``.
-    rhat = r0; an inactive row keeps x, r and p and freezes rho / rnorm /
-    iters."""
+    ``make_ell_bicgstab_iter`` driven by ``ell_bicgstab_from_r0``."""
     kn.plain_calls["ell_bicgstab"] += 1
-    A = lambda v: _mv(vals, cols, v)
+    return bicgstab_loop(lambda v: _mv(vals, cols, v), r0, x0, zmask, invd, bnorm, rtol,
+                         maxiter, atol)
+
+
+def bicgstab_loop(A, r0, x0, zmask, invd, bnorm, rtol: float, maxiter: int,
+                  atol: float = 1e-50) -> KrylovResult:
+    """The BiCGStab of K15 and K18 on the operator ``A``: rhat = r0; an
+    inactive row keeps x, r and p and freezes rho / rnorm / iters."""
     tol = _tol(bnorm, rtol, atol)
     rho = _dot(r0, r0)
     rn = torch.sqrt(rho)
@@ -116,9 +121,15 @@ def ell_bicgstab_plain(vals, cols, r0, x0, zmask, invd, bnorm, rtol: float, maxi
 def ell_cg_plain(vals, cols, r0, x0, invd, bnorm, rtol: float, maxiter: int,
                  atol: float = 1e-50) -> KrylovResult:
     """Batched Jacobi-PCG from r0 = b - A x0 and x0, all (nb, n):
-    ``make_ell_cg_iter`` driven by ``ell_cg_batched_from_r0``.  On an
-    inactive row alpha and beta are 0, p is kept and iters is frozen."""
+    ``make_ell_cg_iter`` driven by ``ell_cg_batched_from_r0``."""
     kn.plain_calls["ell_cg"] += 1
+    return cg_loop(lambda v: _mv(vals, cols, v), r0, x0, invd, bnorm, rtol, maxiter, atol)
+
+
+def cg_loop(A, r0, x0, invd, bnorm, rtol: float, maxiter: int,
+            atol: float = 1e-50) -> KrylovResult:
+    """The Jacobi-PCG of K16 and K18 on the operator ``A``: on an inactive
+    row alpha and beta are 0, p is kept and iters is frozen."""
     tol = _tol(bnorm, rtol, atol)
     x, r = x0, r0
     z = invd * r
@@ -133,7 +144,7 @@ def ell_cg_plain(vals, cols, r0, x0, invd, bnorm, rtol: float, maxiter: int,
         if not bool(torch.any(rn > tol)):
             break
         active = rn > tol
-        Ap = _mv(vals, cols, p)
+        Ap = A(p)
         alpha = torch.where(active, rz / _nz(_dot(p, Ap)), zero)
         x = x + alpha[:, None] * p
         r = r - alpha[:, None] * Ap

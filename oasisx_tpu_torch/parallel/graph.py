@@ -86,29 +86,35 @@ class EllAssembly:
     nnz: int  # slots that carry an entry (the operator's nonzeros)
 
 
-def ell_values(elems: torch.Tensor, asm: EllAssembly) -> torch.Tensor:
-    """ELL values (K, n) of the element stack ``elems`` (nc, nd, nd): each
-    slot sums its entries in the fixed order of its bucket's row; a padded
-    slot is 0."""
+def bucket_sum(elems: torch.Tensor, buckets: list, nseg: int) -> torch.Tensor:
+    """The (nseg,) segment sums of the flattened element stack ``elems``
+    over a slot-grouped map (``slot_buckets``): each segment sums its
+    entries in the fixed order of its bucket's row; a segment without an
+    entry is 0."""
     flat = torch.cat([elems.reshape(-1), elems.new_zeros(1)])
-    out = elems.new_zeros(asm.K * asm.n)
-    for pos, slots in asm.buckets:
+    out = elems.new_zeros(nseg)
+    for pos, slots in buckets:
         out[slots] = flat[pos].sum(dim=1)
-    return out.reshape(asm.K, asm.n)
+    return out
 
 
-def build_ell_assembly(cell_dofs: np.ndarray, n: int, device: torch.device) -> EllAssembly:
-    """The single-device ELL tables of the operators on the dofmap
-    ``cell_dofs`` (nc, nd) with ``n`` dofs.  A real cell never has all its
-    dofs equal to n - 1, so no entry is dropped."""
-    cd = np.asarray(cell_dofs)
-    K, slots, cols = build_ell_tables(cd, cd, n, 1)
-    slots = slots[0].astype(np.int64)
+def ell_values(elems: torch.Tensor, asm: EllAssembly) -> torch.Tensor:
+    """ELL values (K, n) of the element stack ``elems`` (nc, nd, nd); a
+    padded slot is 0."""
+    return bucket_sum(elems, asm.buckets, asm.K * asm.n).reshape(asm.K, asm.n)
+
+
+def slot_buckets(slots: np.ndarray, nseg: int, device) -> tuple[list, int]:
+    """The slot-grouped assembly map of element entries whose segments are
+    ``slots`` (int64, one per flattened entry; a segment >= ``nseg`` is
+    dropped): per bucket (entry positions (nsegs, width) padded with the
+    position of an appended 0, the segments (nsegs,)), and the count of
+    segments with an entry."""
     nent = slots.shape[0]
-    order = np.argsort(slots, kind="stable")  # entries grouped by slot, ascending
-    uslots, starts, counts = np.unique(slots[order], return_index=True, return_counts=True)
-    keep = uslots < K * n  # the dropped segment of padded cells
-    uslots, starts, counts = uslots[keep], starts[keep], counts[keep]
+    order = np.argsort(slots, kind="stable")  # entries grouped by segment, ascending
+    useg, starts, counts = np.unique(slots[order], return_index=True, return_counts=True)
+    keep = useg < nseg
+    useg, starts, counts = useg[keep], starts[keep], counts[keep]
     width = 1 << np.ceil(np.log2(counts)).astype(np.int64)
     buckets = []
     for w in np.unique(width):
@@ -117,8 +123,19 @@ def build_ell_assembly(cell_dofs: np.ndarray, n: int, device: torch.device) -> E
         idx = starts[sel, None] + j[None, :]
         pos = np.where(j[None, :] < counts[sel, None], order[np.minimum(idx, nent - 1)], nent)
         buckets.append((torch.as_tensor(pos, device=device),
-                        torch.as_tensor(uslots[sel], device=device)))
+                        torch.as_tensor(useg[sel], device=device)))
+    return buckets, int(len(useg))
+
+
+def build_ell_assembly(cell_dofs: np.ndarray, n: int, device: torch.device) -> EllAssembly:
+    """The single-device ELL tables of the operators on the dofmap
+    ``cell_dofs`` (nc, nd) with ``n`` dofs.  A real cell never has all its
+    dofs equal to n - 1, so no entry is dropped."""
+    cd = np.asarray(cell_dofs)
+    K, slots, cols = build_ell_tables(cd, cd, n, 1)
+    # segment K * n: the dropped segment of padded cells
+    buckets, nnz = slot_buckets(slots[0].astype(np.int64), K * n, device)
     return EllAssembly(
         K=int(K), n=int(n), cols=torch.as_tensor(cols[0], device=device), buckets=buckets,
-        nnz=int(len(uslots)),
+        nnz=nnz,
     )

@@ -17,7 +17,8 @@ equal, and u and p agree to 1e-9 relative to their largest entry: both run
 the same float64 algorithm with sums in another order, and the solves stop
 at rtol 1e-8, which leaves rounding differences of ~1e-11 (measured) in
 the iterates.  Also: the state round trip on the general path, the card
-as the default device, and the options that are not ported.
+as the default device, and the option that is not ported (the lumped
+update; the band layout is in tests/test_torch_band.py).
 """
 
 import numpy as np
@@ -179,7 +180,6 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("options,solver_c,match", [
-    ({"ell_layout": "band"}, {}, "K18"),
     ({}, {"pc_type": "lumped"}, "lumped"),
 ])
 def test_options_not_ported_raise(options, solver_c, match):

@@ -12,7 +12,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and with its premul and zmask multipliers, K6, K7) and the cube scatter
    (K13) on random data, max relative error 1e-12 (f64) and 1e-5 (f32),
    padded outputs exactly 0, a repeat call bit-identical; the cube gather
-   (K8) on the Taylor-Green initial uab, equal.
+   (K8) on the Taylor-Green initial uab (P2, its 27 slots unrolled) and on
+   a random P1 pressure vector (8 slots, the loop of any other count),
+   equal.
    The whole solves on the main path's systems: the mass CG (K4) on M_c
    with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
@@ -71,11 +73,17 @@ any failure or when there is no card.
    tentative operator and at batch 1 on Ap, BiCGStab on the tentative
    system and CG on M, at phase 3b's tolerances; beside each case the
    same work by K14/K15/K16 on the flat ELL form and one torch.sparse CSR
-   product; S, R, the share of band slots that hold a value and the bytes
-   a product reads in each layout.
-4e. The vessel path with ell_layout="band", run before 4b so that 4b's
-   peak device memory holds no band tables: phase 4b's run and checks on
-   the band kernels, the iterations within 10% of phase 4b's.
+   product.  The band operators are pair tables: only the (tile, slot)
+   pairs of the JAX package's (S, R, 128) layout that hold an entry are
+   stored and read.  Printed per operator: S, R, P, pairs a tile, the
+   share of the stored lanes that hold a value, and the bytes a float32
+   product reads in the pair layout, in the (S, R, 128) layout, in flat
+   ELL and in the real nonzeros.
+4e. The vessel path with ell_layout="band", run after 4b with the flat-ELL
+   solvers freed, so that each path's device memory is its own: phase 4b's
+   run and checks on the band kernels, the iterations within 10% of phase
+   4b's; the band solver's own device memory (before the steps, less what
+   stays once it is freed).
 5c. GPU against CPU in float64 with the band layout: the vessel at N=6.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
@@ -88,6 +96,17 @@ torch.sparse CSR product of the assembled operator for the cube operators,
 K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
+
+The vessel phases run in the order 3b, 4b, 3d, 4e.  Kernel, plain and
+library times are device times of back-to-back calls (``time_ms``).
+
+--tree DIR runs the chip_smoke.py of another checkout DIR (a parent
+commit unpacked with ``git archive``) on its own package and kernel build,
+with this file's ``time_ms``: two trees' times from one timer.
+--band-setup N only times the host set-up of the band layout of the
+vessel's P2 dofmap at N (``build_band_assembly`` on the CPU) and prints
+the process's peak resident memory before and after it; with --tree, the
+other checkout's.
 
 --profile N adds a torch.profiler window of N more steps after phases 4,
 4d, 4b and 4e: device time by kernel, the device's busy share of the
@@ -138,6 +157,7 @@ N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
+SPIN_CYCLES_S = 2.0e9  # about the H100's SM clock: spin-kernel cycles a second
 
 
 class SmokeError(RuntimeError):
@@ -250,14 +270,27 @@ def _sync(device) -> None:
 
 
 def time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
-    """Mean time per call: CUDA events on the card, the host clock on CPU."""
+    """Mean time per call: CUDA events on the card, the host clock on CPU.
+
+    On the card the device time of back-to-back calls: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host enqueues the
+    calls, sized from the host time of one call (at most 50 ms), so a call
+    shorter than its own Python and launch overhead is not timed as that
+    overhead.  A call that waits on the device inside (a plain solve's host
+    loop) is timed with its waits."""
     import torch
 
     for _ in range(warmup):
         fn()
     if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(SPIN_CYCLES_S * min(1.5 * reps * host_s + 1e-4, 0.05)))
         t0.record()
         for _ in range(reps):
             fn()
@@ -341,7 +374,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     xv = rnd(d, solver._npad_v) * valid_v
     xq = rnd(solver._npad_q) * valid_q
     nl, nlq = cub.num_slots(sm_v), cub.num_slots(sm_q)
-    nc = int(np.prod(sm_v[1]))
+    nc, ncq = int(np.prod(sm_v[1])), int(np.prod(sm_q[1]))
     nv, nq = solver._npad_v, solver._npad_q
     W = rnd(nl * nl, nc)
     M_c, Ap_c, B_c, G_c = c(cu.M_c), c(cu.Ap_c), c(cu.B_c), c(cu.G_c)
@@ -352,7 +385,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     pm = rnd(d, nv) * valid_v
     zm = solver._zmask.to(dtype)
     U = rnd(d, nl, nc)
-    lib = dict.fromkeys(("gather", "M", "Ap", "W", "B", "G", "div", "scatter"))
+    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "B", "G", "div", "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
@@ -368,7 +401,8 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
                       (nq, d * nv))
         uflat = xv.reshape(-1)
         ivf, Uf = iv.reshape(-1), U.reshape(d, -1)
-        lib = dict(gather=lambda: uab[:, iv], M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
+        lib = dict(gather=lambda: uab[:, iv], gather_q=lambda: xq[None][:, iq],
+                   M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
                    W=lambda: A_W @ xt, B=lambda: A_B @ xq, G=lambda: A_G @ xq,
                    div=lambda: A_div @ uflat,
                    scatter=lambda: torch.zeros_like(xv).index_add_(1, ivf, Uf))
@@ -377,6 +411,10 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         ("cube_gather", "TGV uab",
          lambda: kn.cube_gather(uab, sm_v), lambda: kn.cube_gather_plain(uab, sm_v), all_valid,
          (isz * d * (nv + nl * nc), 0.0), lib["gather"]),
+        ("cube_gather", "P1 p",
+         lambda: kn.cube_gather(xq[None], sm_q), lambda: kn.cube_gather_plain(xq[None], sm_q),
+         torch.ones(1, nlq, ncq, dtype=torch.bool, device=device),
+         (isz * (nq + nlq * ncq), 0.0), lib["gather_q"]),
         ("matvec_const", "M_c batch 3",
          lambda: kn.matvec_const(xv, M_c, sm_v), lambda: kn.matvec_const_plain(xv, M_c, sm_v),
          valid_v, (isz * 2 * d * nv, mv(nl, nl, d)), lib["M"]),
@@ -774,11 +812,15 @@ def ell_solve_cases(pair, device, seed: int = 3):
 
 
 def band_layouts(bv, ev, isz: int) -> dict:
-    """One operator in both layouts: S, R, the share of band slots that hold
-    a value, and the bytes a product reads (values and columns of every
-    slot) in the band and the flat ELL layout."""
-    slots = bv.S * bv.R * 128
-    return dict(S=bv.S, R=bv.R, band_fill=bv.nnz / slots, band_bytes=(isz + 4) * slots,
+    """One operator in its layouts: S, R, P and pairs a tile; the share of
+    the stored lanes that hold a value and the bytes a product reads (the
+    stored values, lanes or columns, and the pair tables) in the pair
+    layout, in the JAX package's (S, R, 128) layout, in flat ELL, and in the
+    real nonzeros."""
+    slots, lanes = bv.S * bv.R * 128, bv.P * 128
+    return dict(S=bv.S, R=bv.R, P=bv.P, pairs_per_tile=bv.P / bv.R, pair_fill=bv.nnz / lanes,
+                pair_bytes=(isz + 1) * lanes + 4 * (bv.R + 1 + bv.P),
+                slab_fill=bv.nnz / slots, slab_bytes=(isz + 4) * slots,
                 K=ev.K, ell_fill=ev.nnz / (ev.K * ev.n), ell_bytes=(isz + 4) * ev.K * ev.n,
                 nnz_bytes=(isz + 4) * ev.nnz)
 
@@ -788,19 +830,19 @@ def band_kernel_cases(pair, device, seed: int = 4):
     operations), library call, {"ell_ms": the same product by K14}) for K18
     at batch 3 on the tentative operator of the initial state and at batch
     1 on Ap.  ``pair`` is (the band-layout solver, whose tables are used;
-    the flat-ELL solver whose elements and dtype are used) and the Ap band
-    tables."""
+    the flat-ELL solver whose elements and dtype are used; its initial
+    state, or None to read it from that solver) and the Ap band tables."""
     import torch
 
     from oasisx_tpu_torch.assembly.band import band_values
     from oasisx_tpu_torch.la import band, ell
     from oasisx_tpu_torch.parallel.graph import ell_values
 
-    (bs, es), bq = pair
+    (bs, es, st), bq = pair
     dtype = es._dtype
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
-    st = es._state_from_functions()
+    st = st or es._state_from_functions()
     A, _, _ = es._assemble_first(st["u1"], st["u2"], DT, NU)
     bv, ev, eq = bs._band_v, es._ell_v, es._ell_q
     vals, avals = band_values(A, bv), band_values(es._Ap_elems, bq)
@@ -817,12 +859,12 @@ def band_kernel_cases(pair, device, seed: int = 4):
         lib = dict(A3=lambda: A_csr @ x3t, Ap=lambda: Ap_csr @ xq)
     return [
         ("band_matvec", "A_lhs batch 3",
-         lambda: band.band_matvec(vals, bv.cols, bv.shifts_t, x3b),
-         lambda: band.band_matvec_plain(vals, bv.cols, bv.shifts_t, x3b),
+         lambda: band.band_matvec(vals, *bv.tables, x3b),
+         lambda: band.band_matvec_plain(vals, *bv.tables, x3b),
          work(ev.nnz, ev.n, 3), lib["A3"], {"ell_ms": lambda: ell.ell_matvec(evals, ev.cols, x3)}),
         ("band_matvec", "Ap batch 1",
-         lambda: band.band_matvec(avals, bq.cols, bq.shifts_t, xqb),
-         lambda: band.band_matvec_plain(avals, bq.cols, bq.shifts_t, xqb),
+         lambda: band.band_matvec(avals, *bq.tables, xqb),
+         lambda: band.band_matvec_plain(avals, *bq.tables, xqb),
          work(eq.nnz, eq.n, 1), lib["Ap"],
          {"ell_ms": lambda: ell.ell_matvec(es._Ap_vals, eq.cols, xq)}),
     ]
@@ -831,14 +873,15 @@ def band_kernel_cases(pair, device, seed: int = 4):
 def band_solve_cases(pair, device, seed: int = 5):
     """Phase 3d, solves: K18's BiCGStab on the vessel's first tentative
     system with its bc rows and K18's CG on M with a random rhs, in band
-    form; each with the same solve by K15 / K16 on the flat ELL form."""
+    form; each with the same solve by K15 / K16 on the flat ELL form.
+    ``pair`` as band_kernel_cases's first item."""
     import torch
 
     from oasisx_tpu_torch.assembly.band import band_values
     from oasisx_tpu_torch.la import band, ell
     from oasisx_tpu_torch.parallel.graph import ell_values
 
-    bs, es = pair
+    bs, es, st = pair
     dtype = es._dtype
     rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
     maxiter = 2000
@@ -849,7 +892,7 @@ def band_solve_cases(pair, device, seed: int = 5):
     n = ev.n
     tb = lambda t, fill=0.0: band.to_band(t, bv, fill)
 
-    st = es._state_from_functions()
+    st = st or es._state_from_functions()
     u1, u2 = st["u1"], st["u2"]
     A, _, b_first = es._assemble_first(u1, u2, DT, NU)
     vals, evals = band_values(A, bv), ell_values(A, ev)
@@ -861,7 +904,7 @@ def band_solve_cases(pair, device, seed: int = 5):
     tbn = torch.linalg.vector_norm(rhs, dim=-1)
     er0 = zmask * (rhs - ell.ell_matvec_plain(evals, ev.cols, tx0))
     zb, xb, ivb = tb(zmask), tb(tx0), tb(tinvd, 1.0)
-    r0 = zb * (tb(rhs) - band.band_matvec_plain(vals, bv.cols, bv.shifts_t, xb))
+    r0 = zb * (tb(rhs) - band.band_matvec_plain(vals, *bv.tables, xb))
 
     Mb = band_values(es._M_elems, bv)
     b = rnd(3, n)
@@ -870,8 +913,8 @@ def band_solve_cases(pair, device, seed: int = 5):
     bn = torch.linalg.vector_norm(b, dim=-1)
     rows = lambda res: float(res.iters.sum())
     nnz_bytes = (isz + 4) * ev.nnz
-    args = (vals, bv.cols, bv.shifts_t)
-    margs = (Mb, bv.cols, bv.shifts_t)
+    args = (vals, *bv.tables)
+    margs = (Mb, *bv.tables)
     return rtol, [
         ("band_bicgstab", "TGV first step, bc rows",
          lambda: band.band_bicgstab(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
@@ -1009,11 +1052,73 @@ def nvidia_smi() -> str:
         return "not available"
 
 
+def run_tree(root: str, argv: list) -> int:
+    """--tree: the chip_smoke.py of another checkout ``root`` on its own
+    package and kernel build, with this file's ``time_ms``, so that the
+    times of two trees come from one timer.  Its phases and checks are its
+    own."""
+    import importlib.util
+    import os
+
+    root = os.path.abspath(root)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_tree",
+                                                  os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.time_ms = time_ms
+    sys.argv = [spec.origin, *argv]
+    print(f"[tree] {root}: its chip_smoke.py, timed by this one's time_ms")
+    try:
+        return mod.main()
+    except mod.SmokeError as e:
+        raise SmokeError(f"{root}: {e}") from e
+
+
+def band_setup(n: int, tree: str | None) -> int:
+    """--band-setup: ``build_band_assembly`` (RCM, slots, pair tables,
+    assembly map) of the vessel's P2 velocity dofmap at ``n``, on the CPU:
+    its seconds and the process's peak resident memory before and after
+    it; with ``tree``, the package of that checkout."""
+    import os
+    import resource
+
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    import oasisx_tpu_torch
+    from oasisx_tpu_torch.assembly.band import build_band_assembly
+    from oasisx_tpu_torch.elements.element import make_element
+    from oasisx_tpu_torch.meshes import create_box
+    from oasisx_tpu_torch.spaces.functionspace import FunctionSpace
+
+    mesh = deform_vessel(create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (n, n, n)))
+    el = make_element(("Lagrange", 2), mesh.cell_type)
+    V = FunctionSpace(mesh, el, shape=(mesh.dim,)).sub(0).collapse()[0]
+    peak_mib = lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024  # KiB on Linux
+    before = peak_mib()
+    t0 = time.perf_counter()
+    asm = build_band_assembly(V.dofmap.cell_dofs, V.num_dofs, "cpu")
+    seconds = time.perf_counter() - t0
+    print(f"[band-setup] {os.path.dirname(oasisx_tpu_torch.__file__)}: vessel N={n}, "
+          f"{V.num_dofs} dofs, S {asm.S} R {asm.R} P {asm.P}, {seconds:.2f} s; peak resident "
+          f"memory {before:.1f} MiB before, {peak_mib():.1f} MiB after")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="profile this many more steps after each main path")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="run another checkout's chip_smoke.py with this file's time_ms")
+    ap.add_argument("--band-setup", type=int, default=0, metavar="N",
+                    help="only time the band layout's host set-up of the vessel at N")
     args = ap.parse_args()
+    if args.band_setup:
+        return band_setup(args.band_setup, args.tree)
+    if args.tree:
+        return run_tree(args.tree, ["--profile", str(args.profile)] if args.profile else [])
 
     import torch
 
@@ -1106,6 +1211,7 @@ def main() -> int:
           f"{3 * vessel._Vi[0][0].num_dofs} velocity dofs, ELL {rep['ell']}, "
           f"AMG {rep['pressure_mg_levels']} levels (coarse n {vessel._amg.coarse_n}), "
           f"device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    vessel_state0 = vessel._state_from_functions()  # phase 3d's inputs, taken before 4b runs
     vessel64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"], vessel=True)
     cyl = cylinder_solver(CYL_RES, torch.float32, "cuda", rtol=1e-5)
     cyl64 = cylinder_solver(CYL_RES, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
@@ -1114,12 +1220,30 @@ def main() -> int:
     for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
                                      "cuda", cases_fn=ell_solve_cases).items():
         kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
-    del cyl64
+    del vessel64, cyl64
+    torch.cuda.empty_cache()
+
+    # 4b. the vessel main path, before the band solver exists (so that 4b's
+    # device memory holds no band tables)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
+    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
+    print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
+    for k, v in res["launches"].items():
+        if v:
+            launches.setdefault(k, v)
+    iters_4b = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
+    if args.profile:
+        profile_steps(vessel, args.profile, "build/chip_smoke_trace_vessel.json")
 
     # 3d. the band-ELL kernels at the vessel's N=36 shapes (tables of the
-    # band-layout solver of phase 4e; elements of the flat-ELL solvers)
+    # band-layout solver of phase 4e; elements of the flat-ELL solvers, at
+    # the initial state: the float64 one built again)
     from oasisx_tpu_torch.assembly.band import build_band_assembly
 
+    vessel64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"], vessel=True)
     t0 = time.perf_counter()
     vband = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True, layout="band")
     _sync("cuda")
@@ -1131,21 +1255,21 @@ def main() -> int:
     for label, bt, et in (("A_lhs, M", vband._band_v, vessel._ell_v),
                           ("Ap", bq, vessel._ell_q)):
         lay = band_layouts(bt, et, 4)
-        print(f"  {label}: S {lay['S']} R {lay['R']} (K {lay['K']}), slots holding a value: band "
-              f"{lay['band_fill']:.4f}, ELL {lay['ell_fill']:.4f}; a float32 product reads "
-              f"{lay['band_bytes'] / 1e6:.1f} MB band, {lay['ell_bytes'] / 1e6:.1f} MB ELL, "
-              f"{lay['nnz_bytes'] / 1e6:.1f} MB of real nonzeros")
-    kres.update(compare_ell_kernels({"float64": ((vband, vessel64), bq),
-                                     "float32": ((vband, vessel), bq)}, "cuda",
+        print(f"  {label}: S {lay['S']} R {lay['R']} P {lay['P']} ({lay['pairs_per_tile']:.1f} "
+              f"pairs a tile; K {lay['K']}), stored lanes holding a value: pairs "
+              f"{lay['pair_fill']:.4f}, (S, R, 128) {lay['slab_fill']:.4f}, ELL "
+              f"{lay['ell_fill']:.4f}; a float32 product reads {lay['pair_bytes'] / 1e6:.1f} MB "
+              f"pairs, {lay['slab_bytes'] / 1e6:.1f} MB (S, R, 128), {lay['ell_bytes'] / 1e6:.1f} "
+              f"MB ELL, {lay['nnz_bytes'] / 1e6:.1f} MB of real nonzeros")
+    pairs = {"float64": (vband, vessel64, None), "float32": (vband, vessel, vessel_state0)}
+    kres.update(compare_ell_kernels({k: (v, bq) for k, v in pairs.items()}, "cuda",
                                     cases_fn=band_kernel_cases))
-    for name, recs in compare_solves({"float64": (vband, vessel64), "float32": (vband, vessel)},
-                                     "cuda", cases_fn=band_solve_cases).items():
+    for name, recs in compare_solves(pairs, "cuda", cases_fn=band_solve_cases).items():
         kres[name] = recs
-    del vessel64, bq
+    del vessel64, vessel, vessel_state0, bq, pairs
     torch.cuda.empty_cache()
 
-    # 4e. the vessel with the band layout, before 4b so that 4b's peak
-    # device memory holds no band tables (4e's holds the flat-ELL solver's)
+    # 4e. the vessel with the band layout, the flat-ELL solvers freed
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vband, WARMUP, STEPS, "cuda", kn.BAND_KERNELS)
@@ -1156,30 +1280,17 @@ def main() -> int:
           f"{setup_band:.1f} s")
     for k in ("band_matvec", "band_bicgstab", "band_cg"):
         launches[k] = res["launches"][k]
-    if args.profile:
-        profile_steps(vband, args.profile, "build/chip_smoke_trace_band.json")
-    del vband
-    torch.cuda.empty_cache()
-
-    # 4b. the vessel main path
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
-    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
-    print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
-    for k, v in res["launches"].items():
-        if v:
-            launches.setdefault(k, v)
-    iters_4b = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
     print(f"    per-component mean iterations, band (4e) {iters_4e} against ELL (4b) {iters_4b}")
     for f in ("u", "p", "c"):
         check(abs(iters_4e[f] - iters_4b[f]) <= 0.1 * iters_4b[f] + 1e-9,
               f"band layout: {f} iterations {iters_4e[f]:.3f} against {iters_4b[f]:.3f} (4b)")
     if args.profile:
-        profile_steps(vessel, args.profile, "build/chip_smoke_trace_vessel.json")
-    del vessel
+        profile_steps(vband, args.profile, "build/chip_smoke_trace_band.json")
+    del vband
     torch.cuda.empty_cache()
+    print(f"    the band solver's own device memory "
+          f"{(resident - torch.cuda.memory_allocated()) / 2**20:.1f} MiB (before the steps, "
+          f"less what stays once it is freed)")
 
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
@@ -1194,6 +1305,14 @@ def main() -> int:
     print("[5c] cuda against cpu, band layout")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True, layout="band"),
                "vessel band N=6")
+
+    # the two kernels redesigned against their one-call library yardsticks
+    for name, label in (("cube_gather", "TGV uab"), ("cube_gather", f"TGV uab N={N64}"),
+                        ("band_matvec", "A_lhs batch 3")):
+        r = next(c for c in kres[name] if c["case"] == label)
+        side = "at or below" if r["ms"] <= r["library_ms"] else "above"
+        print(f"  {name} {label}: kernel {r['ms']:.4f} ms, library call {r['library_ms']:.4f} ms "
+              f"({side} it)")
 
     # per kernel: its first case's numbers, and every case under "cases"
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -51,9 +51,9 @@ _SIGNATURES = {
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_cube_gather": [P, P, I, I, I, I, I, I, I, P],
     "oasisx_cube_scatter": [P, P, I, I, I, I, I, I, I, P],
-    "oasisx_band_matvec": [P] * 5 + [I] * 5 + [P],
-    "oasisx_band_bicgstab": [P] * 11 + [I, P, P] + [I] * 5 + [P],
-    "oasisx_band_cg": [P] * 10 + [I, P, P] + [I] * 5 + [P],
+    "oasisx_band_matvec": [P] * 6 + [I] * 5 + [P],
+    "oasisx_band_bicgstab": [P] * 12 + [I, P, P] + [I] * 5 + [P],
+    "oasisx_band_cg": [P] * 11 + [I, P, P] + [I] * 5 + [P],
     "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_bicgstab": [P] * 9 + [I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 7 + [D] * 3 + [I, D, I, P],

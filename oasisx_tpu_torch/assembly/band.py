@@ -3,22 +3,25 @@
 An unstructured operator in band-ELL form is ELL in reverse Cuthill-McKee
 (RCM) order: rows are grouped in tiles of 128, and a nonzero's column is
 ``(rb + s) * 128 + lane`` with a static block shift ``s`` per slot and a
-lane index per entry.  The values (S, R, 128) are assembled from an element
-stack once per solve, outside the Krylov loop; the kernels of
-``la/band.py`` apply them.  The JAX package chose this layout because its
-TPU lowers only lane gathers; the port keeps it as a layout option of the
-general path (``options={"ell_layout": "band"}``) to measure against flat
-ELL: fewer padded slots where RCM clusters a row's columns, more where it
-spreads them over many shifts.
+lane index per entry.  The JAX package stores it as (S, R, 128) arrays,
+every slot for every tile, because its TPU lowers only lane gathers; the
+port keeps that layout's slots, shifts and lanes but stores only the
+(tile, slot) pairs that hold an entry (``build_pair_tables``): a tile
+touches about 122 of the vessel's 2,794 slots at N=36, and that count does
+not grow with N.  The values (P, 128) are assembled from an element stack
+once per solve, outside the Krylov loop; the kernels of ``la/band.py``
+apply them.  The port keeps the layout as an option of the general path
+(``options={"ell_layout": "band"}``) to measure against flat ELL.
 
-``rcm_permutation``, ``build_band_tables`` and ``build_band_tables_coo``
-are copied from ``oasisx_tpu/assembly/band.py`` with the same NumPy (the
-slot assignment shared by the two table builders), so the tables equal the
-JAX package's.  ``band_values`` replaces its
-segment-sum with the deterministic slot-grouped sum of
-``parallel/graph.py`` (the same bits on every run; ``index_add_`` sums with
-atomics on the card).  The RCM permutation is applied only inside a solve,
-so dofmaps, bc masks and state keep the canonical order.
+``rcm_permutation``, ``build_band_tables``, ``build_band_tables_coo``,
+``_slot_layout`` and ``_band_layout`` are copied from
+``oasisx_tpu/assembly/band.py`` with the same NumPy, so the tables equal
+the JAX package's; ``expand`` and ``compact`` convert values between the
+two layouts.  ``band_values`` replaces its segment-sum with the
+deterministic slot-grouped sum of ``parallel/graph.py`` (the same bits on
+every run; ``index_add_`` sums with atomics on the card).  The RCM
+permutation is applied only inside a solve, so dofmaps, bc masks and state
+keep the canonical order.
 """
 
 from __future__ import annotations
@@ -209,30 +212,120 @@ def build_band_tables_coo(
     return shifts, vals_b.reshape(S, Rr, LANE), cols.reshape(S, Rr, LANE), Rr, Rc
 
 
+def build_pair_tables(urow: np.ndarray, ucol: np.ndarray, R: int):
+    """The band layout of a square operator as pair tables: only the
+    (tile, slot) pairs that hold an entry.
+
+    ``urow``/``ucol`` are the operator's distinct entries in RCM order,
+    sorted row-major (row tiles of 128, ``R`` tiles).  The slots are
+    ``_slot_layout``'s, so they equal the JAX package's (S, R, 128) layout.
+    Returns ``(shifts, tile_ptr, pair_shift, lanes, pair_slot, seg)``:
+      - shifts: the S slot shifts, as ``build_band_tables``,
+      - tile_ptr (R+1,) int32: the pairs of tile rb are
+        ``tile_ptr[rb] : tile_ptr[rb+1]``, in ascending slot order,
+      - pair_shift (P,) int32: the block shift of each pair's slot,
+      - lanes (P, 128) uint8: the lanes of the pair's slot in its tile (0
+        where the row has no entry there, as in the JAX layout),
+      - pair_slot (P,) int32: the pair's slot (for ``expand``/``compact``),
+      - seg (E,) int64: each entry's position ``pair * 128 + row % 128``.
+
+    Then ``y[rb*128 + j] = sum_p vals[p, j] * x[(rb + pair_shift[p])*128 +
+    lanes[p, j]]`` over the pairs of tile rb: the band product without the
+    slots that hold no entry.  The (S, R, 128) arrays are never built.
+    """
+    shifts, slot, lane = _slot_layout(urow, ucol)
+    S = len(shifts)
+    pairs, pair_of = np.unique((urow // LANE) * S + slot, return_inverse=True)
+    pair_of = pair_of.reshape(-1)
+    ptile, pslot = np.divmod(pairs, S)
+    P = len(pairs)
+    pair_shift = np.asarray(shifts, np.int64)[pslot]
+    tile_ptr = np.zeros(R + 1, np.int64)
+    np.cumsum(np.bincount(ptile, minlength=R), out=tile_ptr[1:])
+    lanes = np.zeros((P, LANE), np.uint8)
+    lanes[pair_of, urow % LANE] = lane  # lane = ucol % 128 < 128
+    check_pair_tables(tile_ptr, pair_shift, R)
+    return (shifts, tile_ptr.astype(np.int32), pair_shift.astype(np.int32), lanes,
+            pslot.astype(np.int32), pair_of * LANE + urow % LANE)
+
+
+def check_pair_tables(tile_ptr, pair_shift, R: int) -> None:
+    """Raises ValueError unless the tables frame a product the kernels may
+    run: R tiles, the pairs of each tile a range of [0, P) with P*128 <
+    2**31 (the kernels index pair lanes in int32), every source tile
+    ``rb + pair_shift`` in [0, R).  On host arrays, once, where tables are
+    built: the wrappers check only shapes and types, without a host read."""
+    tile_ptr = np.asarray(tile_ptr, np.int64)
+    pair_shift = np.asarray(pair_shift, np.int64)
+    P = pair_shift.shape[0]
+    if tile_ptr.shape != (R + 1,) or tile_ptr[0] != 0 or tile_ptr[-1] != P:
+        raise ValueError(f"tile_ptr must be (R+1,) = ({R + 1},) from 0 to P = {P}")
+    count = np.diff(tile_ptr)
+    if count.min(initial=0) < 0:
+        raise ValueError("tile_ptr decreases")
+    if P * LANE >= 2**31:
+        raise ValueError(f"{P} pairs: the kernels index pair lanes in int32")
+    src = np.repeat(np.arange(R), count) + pair_shift
+    if P and (src.min() < 0 or src.max() >= R):
+        raise ValueError(f"a pair's source tile is outside [0, {R})")
+
+
+def pair_tiles(tile_ptr: torch.Tensor) -> torch.Tensor:
+    """The tile of every pair, (P,) int64."""
+    return torch.repeat_interleave(torch.arange(tile_ptr.numel() - 1, device=tile_ptr.device),
+                                   torch.diff(tile_ptr.long()))
+
+
+def expand(t: torch.Tensor, tile_ptr: torch.Tensor, pair_slot, S: int) -> torch.Tensor:
+    """Pair layout (P, 128) -> the JAX package's (S, R, 128), 0 in the
+    (slot, tile) cells that hold no pair."""
+    out = t.new_zeros((S, tile_ptr.numel() - 1, LANE))
+    out[torch.as_tensor(pair_slot, device=t.device).long(), pair_tiles(tile_ptr)] = t
+    return out
+
+
+def compact(t: torch.Tensor, tile_ptr: torch.Tensor, pair_slot) -> torch.Tensor:
+    """The JAX package's (S, R, 128) layout -> pair layout (P, 128)."""
+    return t[torch.as_tensor(pair_slot, device=t.device).long(), pair_tiles(tile_ptr)]
+
+
 @dataclass
 class BandAssembly:
-    """One square operator's band-ELL tables and its slot-grouped assembly
-    map, on a device.  ``perm[new] = old``, ``iperm`` its inverse."""
+    """One square operator's band-ELL pair tables and its slot-grouped
+    assembly map, on a device (``pair_slot`` stays on the host: only
+    ``expand``/``compact`` read it).  ``perm[new] = old``, ``iperm`` its
+    inverse."""
 
     n: int  # rows (dofs) of the operator
     R: int  # row tiles: R * 128 >= n
-    shifts: tuple  # per-slot block shift, sorted
-    shifts_t: torch.Tensor  # (S,) int32, the same on the device
-    cols: torch.Tensor  # (S, R, 128) int32 lanes
+    shifts: tuple  # the block shift of each of the S slots, sorted
+    tile_ptr: torch.Tensor  # (R+1,) int32
+    pair_shift: torch.Tensor  # (P,) int32
+    lanes: torch.Tensor  # (P, 128) uint8
+    pair_slot: np.ndarray  # (P,) int32, host
     perm: torch.Tensor  # (n,) int64
     iperm: torch.Tensor  # (n,) int64
     buckets: list  # the slot-grouped map of ``parallel.graph.slot_buckets``
-    nnz: int  # slots that carry an entry
+    nnz: int  # entries of the operator: (row, column) pairs
 
     @property
     def S(self) -> int:
         return len(self.shifts)
 
+    @property
+    def P(self) -> int:
+        return self.pair_shift.shape[0]
+
+    @property
+    def tables(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(tile_ptr, pair_shift, lanes): the tables a product reads."""
+        return self.tile_ptr, self.pair_shift, self.lanes
+
 
 def band_values(elems: torch.Tensor, asm: BandAssembly) -> torch.Tensor:
-    """Band-ELL values (S, R, 128) of the element stack ``elems``
-    (nc, nd, nd); a slot without an entry is 0."""
-    return bucket_sum(elems, asm.buckets, asm.S * asm.R * LANE).reshape(asm.S, asm.R, LANE)
+    """Band-ELL values (P, 128) of the element stack ``elems``
+    (nc, nd, nd); a lane without an entry is 0."""
+    return bucket_sum(elems, asm.buckets, asm.P * LANE).reshape(asm.P, LANE)
 
 
 def _edges(cd: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -242,17 +335,25 @@ def _edges(cd: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def build_band_assembly(cell_dofs: np.ndarray, n: int, device) -> BandAssembly:
-    """The band-ELL tables, in RCM order, of the operators on the dofmap
-    ``cell_dofs`` (nc, nd) with ``n`` dofs (the JAX package's
-    ``_make_band_engine`` set-up); the slot index is built in int64."""
+    """The band-ELL pair tables, in RCM order, of the operators on the
+    dofmap ``cell_dofs`` (nc, nd) with ``n`` dofs: the JAX package's
+    ``_make_band_engine`` set-up (RCM, then the slots of ``_band_layout``),
+    with the entries' positions in the pair layout in place of its
+    (S, R, 128) segments, in int64."""
     cd = np.asarray(cell_dofs, np.int64)
-    perm = rcm_permutation(*_edges(cd), n)
-    shifts, slots, cols, R, _ = _band_layout(cd, cd, n, n, perm)
-    S = len(shifts)
-    buckets, nnz = slot_buckets(slots, S * R * LANE, device)
+    rows, cols = _edges(cd)
+    perm = rcm_permutation(rows, cols, n)
+    iperm = _inverse(perm, n)
+    uniq, inv = np.unique(iperm[rows] * np.int64(n) + iperm[cols], return_inverse=True)
+    del rows, cols
+    R = -(-n // LANE)
+    shifts, tile_ptr, pair_shift, lanes, pair_slot, useg = build_pair_tables(
+        uniq // n, uniq % n, R)
+    buckets, nnz = slot_buckets(useg[inv.reshape(-1)], len(pair_shift) * LANE, device)
     dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
     return BandAssembly(
-        n=int(n), R=int(R), shifts=tuple(shifts), shifts_t=dev(np.asarray(shifts), torch.int32),
-        cols=dev(cols, torch.int32), perm=dev(perm, torch.int64),
-        iperm=dev(np.argsort(perm), torch.int64), buckets=buckets, nnz=nnz,
+        n=int(n), R=int(R), shifts=tuple(shifts), tile_ptr=dev(tile_ptr, torch.int32),
+        pair_shift=dev(pair_shift, torch.int32), lanes=dev(lanes, torch.uint8),
+        pair_slot=pair_slot, perm=dev(perm, torch.int64), iperm=dev(iperm, torch.int64),
+        buckets=buckets, nnz=nnz,
     )

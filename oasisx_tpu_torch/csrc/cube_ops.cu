@@ -17,9 +17,12 @@
 //                           B_all (d, nl_v, nl_q) read transposed [g, ti, to]
 //   oasisx_cube_gather   <- make_gather / make_gather_chunked (K8): the cube-local
 //                           values U (B, nl, ncubes) of a grid vector (B, npad);
-//                           one thread per output element, one launch for all
-//                           B components.  The TPU's slot chunking existed
-//                           only to fit VMEM and is dropped.
+//                           one launch for all B components, a block per
+//                           (component, outer cube row), a thread per cube
+//                           of that row's plane and all its slots, 32-bit
+//                           indices.  The
+//                           TPU's slot chunking existed only to fit VMEM and
+//                           is dropped.
 //   oasisx_cube_scatter  <- make_scatter / make_scatter_chunked (K13): the
 //                           assembled grid vectors (B, npad) of cube-local values
 //                           U (B, nl, ncubes).  Output owner: each grid point sums
@@ -38,7 +41,9 @@
 // cores: the contractions are 27 x 27 per cube with nothing to batch into a
 // tile that the grid layout does not already give as a gather.  K8 writes U
 // (3 x 27 x 46656 f32, 15 MB at N=36) once and reads each grid value up to
-// 2^d times from L2; K13 reads U once and writes the grid once.
+// 2^d times from L2; its index arithmetic is 32-bit with at most one
+// division a thread, where 64-bit divisions (a software sequence on the GPU)
+// made it integer-bound.  K13 reads U once and writes the grid once.
 //
 // Each entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after the launch.
@@ -65,29 +70,56 @@ cube_apply_kernel(const T* __restrict__ x, const T* __restrict__ mat,
                                 (int64_t)gridDim.x * blockDim.x, pm, zm);
 }
 
+// K8's launch: the grid offset of every input slot relative to its cube's
+// base (cube_stage's soff, computed on the host), and the cube grid cut as
+// (outer rows) x (a plane of A x B cubes): in 3D the rows are c0 and the
+// plane (c1, c2), in 2D one row and the plane (c0, c1).
+constexpr int kGatherThreads = 128;
+constexpr int kGatherMaxSlots = 64;  // (deg + 1)^d: deg <= 3 in 3D, <= 7 in 2D
+
+struct GatherArgs {
+  int soff[kGatherMaxSlots];
+  int nl, A, B, plane, ncube, npad;
+};
+
 // U[b, t, cube] = x[b, slot t of cube]: (batch, npad) -> (batch, nl, ncubes).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cube_gather_kernel(const T* __restrict__ x, T* __restrict__ u, CubeArgs a, int batch,
-                   int64_t ncube) {
-  int* soff = reinterpret_cast<int*>(dynamic_smem());
-  cube_stage<T>(nullptr, a, nullptr, soff);
-  __syncthreads();
-  const int64_t total = (int64_t)batch * a.nl_in * ncube;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    int64_t rem = e % ncube;
-    const int64_t bt = e / ncube;
-    const int t = (int)(bt % a.nl_in);
-    const int64_t b = bt / a.nl_in;
-    int64_t cbase = 0, stride = 1;
-    for (int k = a.d - 1; k >= 0; --k) {
-      cbase += (rem % a.n[k]) * stride;
-      rem /= a.n[k];
-      stride *= a.n[k] + 1;
-    }
-    u[e] = x[b * a.npad_out + soff[t] + cbase];
+// A block owns (component b = blockIdx.z, outer row o = blockIdx.y) and a
+// thread one cube q = ci * B + cj of the row's plane, for all nl slots: for
+// each slot, neighbouring threads write neighbouring U and read neighbouring
+// x, and a thread's nl loads are independent.  One 32-bit division a thread
+// (q / B) and none a block; every index fits in int32 (the entry point checks
+// it).  NL > 0 fixes nl at compile time (the slot loop unrolled, soff read at
+// constant offsets); NL == 0 takes g.nl.
+template <typename T, int NL>
+__global__ void __launch_bounds__(kGatherThreads)
+cube_gather_kernel(const T* __restrict__ x, T* __restrict__ u, GatherArgs g) {
+  const int q = blockIdx.x * kGatherThreads + threadIdx.x;
+  if (q >= g.plane) return;
+  const int o = blockIdx.y, b = blockIdx.z;
+  const int ci = q / g.B;
+  const int cj = q - ci * g.B;
+  const T* xc = x + b * g.npad + (o * (g.A + 1) + ci) * (g.B + 1) + cj;
+  T* uc = u + b * g.nl * g.ncube + o * g.plane + q;
+#pragma unroll
+  for (int t = 0; t < (NL > 0 ? NL : kGatherMaxSlots); ++t) {
+    if (NL == 0 && t >= g.nl) break;
+    uc[t * g.ncube] = __ldg(xc + g.soff[t]);
   }
+}
+
+template <typename T, int NL>
+void launch_gather(const void* x, void* u, const GatherArgs& g, dim3 grid, void* stream) {
+  cube_gather_kernel<T, NL><<<grid, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(u), g);
+}
+
+// the main path's 3D P2 cubes (27 slots) unrolled, any other count at run time
+template <typename T>
+void gather_dispatch(const void* x, void* u, const GatherArgs& g, dim3 grid, void* stream) {
+  if (g.nl == 27)
+    launch_gather<T, 27>(x, u, g, grid, stream);
+  else
+    launch_gather<T, 0>(x, u, g, grid, stream);
 }
 
 // y[b, idx] = sum over the cubes c containing idx of U[b, slot of idx in c, c]:
@@ -215,19 +247,45 @@ int oasisx_divergence(const void* u, const void* B_all, void* b2, int is_f64, in
 }
 
 // U[b] = the cube-local values of x[b]; x (batch, grid) -> U (batch, nl, ncubes).
+// cudaErrorInvalidValue where x or U has 2^31 entries or more, or a cube has
+// more than kGatherMaxSlots slots.
 int oasisx_cube_gather(const void* x, void* u, int is_f64, int d, int n0, int n1, int n2,
                        int deg, int batch, void* stream) {
   const CubeArgs a = base_args(d, n0, n1, n2, deg, deg);
   int64_t ncube = 1;
   for (int k = 0; k < d; ++k) ncube *= a.n[k];
-  const int blocks = grid_blocks((int64_t)batch * a.nl_in * ncube);
-  const size_t smem = sizeof(int) * a.nl_in;
+  if (a.nl_in > kGatherMaxSlots || batch < 1 || ncube < 1 ||
+      (int64_t)batch * a.nl_in * ncube >= ((int64_t)1 << 31) ||
+      (int64_t)batch * a.npad_out >= ((int64_t)1 << 31) || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  GatherArgs g = {};
+  // cube_stage's offsets: slot digits in C-order, parity channel and base
+  for (int ti = 0; ti < a.nl_in; ++ti) {
+    int digit[3];
+    int rem = ti;
+    for (int k = d - 1; k >= 0; --k) {
+      digit[k] = rem % (deg + 1);
+      rem /= deg + 1;
+    }
+    int ch = 0, boff = 0;
+    for (int k = 0; k < d; ++k) {
+      ch = ch * deg + digit[k] % deg;
+      boff = boff * (a.n[k] + 1) + digit[k] / deg;
+    }
+    g.soff[ti] = (int)(ch * a.plane_in) + boff;
+  }
+  g.nl = a.nl_in;
+  g.A = d == 3 ? a.n[1] : a.n[0];
+  g.B = a.n[d - 1];
+  g.plane = g.A * g.B;
+  g.ncube = (int)ncube;
+  g.npad = (int)a.npad_out;
+  const int rows = d == 3 ? a.n[0] : 1;
+  const dim3 grid((g.plane + kGatherThreads - 1) / kGatherThreads, rows, batch);
   if (is_f64)
-    cube_gather_kernel<double><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const double*>(x), static_cast<double*>(u), a, batch, ncube);
+    gather_dispatch<double>(x, u, g, grid, stream);
   else
-    cube_gather_kernel<float><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const float*>(x), static_cast<float*>(u), a, batch, ncube);
+    gather_dispatch<float>(x, u, g, grid, stream);
   return (int)cudaGetLastError();
 }
 

@@ -54,32 +54,43 @@ __device__ __forceinline__ void ell_row_batch(const T* __restrict__ vals,
 }
 
 // The band-ELL layout (K18; oasisx_tpu_torch/assembly/band.py): rows in
-// reverse Cuthill-McKee order, grouped in tiles of kLane; vals and cols are
-// (S, n) slot-major with n = R * kLane, and slot s of row r = rb * kLane + j
-// reads the source tile rb + shifts[s] at lane cols[s, r]:
+// reverse Cuthill-McKee order, grouped in tiles of kLane, and only the
+// (tile, slot) pairs that hold an entry stored.  The pairs of tile rb are
+// p = tile_ptr[rb] .. tile_ptr[rb + 1] - 1, in ascending slot order; pair p
+// reads the source tile rb + pair_shift[p] at the lanes lanes[p, :]
+// (uint8), with the values vals[p, :]:
 //
-//     y[r] = sum_s vals[s * n + r] * x[(rb + shifts[s]) * kLane + cols[s * n + r]]
+//     y[rb * kLane + j] = sum_p vals[p * kLane + j]
+//                                * x[(rb + pair_shift[p]) * kLane + lanes[p * kLane + j]]
 //
-// A source tile outside [0, Rc) reads 0 (the TPU kernel's zero-filled frame;
-// every such slot holds value 0).  A warp's rows share one tile, so the
-// branch is uniform.  Slots are summed in order s = 0, 1, ..., S-1.
+// Every pair's source tile is in frame (check_pair_tables, where the
+// tables are built, raises otherwise).  A
+// warp's 32 rows share rb, so the loop bounds and the shift are uniform, and a
+// warp reads 128 B of f32 values and 32 B of lanes per pair, coalesced;
+// the gathers stay inside one 512 B source tile.  The pairs are summed in
+// ascending order; a lane of a pair that holds no entry has value 0 and
+// adds 0 * x, exactly 0 for finite x, so the sums equal the (S, R, 128)
+// layout's.
 constexpr int kLane = 128;
+static_assert(kLane == 1 << 7, "band_row_batch splits a row index by shift and mask");
 
 template <typename T>
 __device__ __forceinline__ void band_row_batch(const T* __restrict__ vals,
-                                               const int* __restrict__ cols,
-                                               const int* __restrict__ shifts, int S,
-                                               int64_t n, int Rc, int64_t r, const T* x,
-                                               int64_t xs, int nb, T (&acc)[kEllMaxBatch]) {
+                                               const int* __restrict__ tile_ptr,
+                                               const int* __restrict__ pair_shift,
+                                               const uint8_t* __restrict__ lanes, int64_t r,
+                                               const T* x, int64_t xs, int nb,
+                                               T (&acc)[kEllMaxBatch]) {
 #pragma unroll
   for (int b = 0; b < kEllMaxBatch; ++b) acc[b] = T(0);
-  const int rb = (int)(r / kLane);
-  for (int s = 0; s < S; ++s) {
-    const int src = rb + __ldg(shifts + s);
-    if (src < 0 || src >= Rc) continue;
-    const int64_t i = (int64_t)s * n + r;
+  const int rb = (int)(r >> 7);
+  const int j = (int)(r & (kLane - 1));
+  const int p1 = __ldg(tile_ptr + rb + 1);
+#pragma unroll 4
+  for (int p = __ldg(tile_ptr + rb); p < p1; ++p) {
+    const int64_t i = (int64_t)p * kLane + j;
     const T v = __ldg(vals + i);
-    const int64_t c = (int64_t)src * kLane + __ldg(cols + i);
+    const int64_t c = (int64_t)(rb + __ldg(pair_shift + p)) * kLane + __ldg(lanes + i);
 #pragma unroll
     for (int b = 0; b < kEllMaxBatch; ++b) {
       if (b >= nb) break;
@@ -104,14 +115,13 @@ struct EllOp {
 
 template <typename T>
 struct BandOp {
-  const T* vals;  // (S, n), n = R * kLane
-  const int* cols;
-  const int* shifts;  // (S)
-  int S, Rc;
-  int64_t n;
+  const T* vals;  // (P, kLane)
+  const int* tile_ptr;  // (R + 1)
+  const int* pair_shift;  // (P)
+  const uint8_t* lanes;  // (P, kLane)
   __device__ __forceinline__ void rows(int64_t r, const T* x, int64_t xs, int nb,
                                        T (&acc)[kEllMaxBatch]) const {
-    band_row_batch(vals, cols, shifts, S, n, Rc, r, x, xs, nb, acc);
+    band_row_batch(vals, tile_ptr, pair_shift, lanes, r, x, xs, nb, acc);
   }
 };
 

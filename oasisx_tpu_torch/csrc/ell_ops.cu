@@ -23,8 +23,9 @@
 //
 // Operators are ELL tables (K, n), slot-major (ell_device.cuh): one thread
 // per row, coalesced reads of vals and cols, the input vector gathered.  The
-// band-ELL layout (S, R * 128) is ELL in reverse Cuthill-McKee order whose
-// column is a per-slot tile shift plus a lane.  K14-K16 and K18 differ only
+// band-ELL layout is ELL in reverse Cuthill-McKee order whose column is a
+// per-slot tile shift plus a lane, stored as the (tile, slot) pairs that hold
+// an entry (P pairs of 128 lanes).  K14-K16 and K18 differ only
 // in that row product: the matvec and the BiCGStab and CG solve bodies are
 // templates on an operator (EllOp or BandOp of ell_device.cuh), so the
 // Krylov math, the zero-masked rows, the Jacobi preconditioner, the freezing
@@ -42,7 +43,10 @@
 // K=65, n=389,017: 202 MB in f32 with the padding, about 40% of it real
 // nonzeros).  K15 (two operator reads per iteration) and K16 (one): memory,
 // the operator does not fit in the 50 MB L2; the state vectors do.  K18 as
-// K14-K16, reading S * n * (4 + sizeof(T)) bytes a product.  K17:
+// K14-K16, reading P * 128 * (1 + sizeof(T)) bytes a product (the vessel's
+// N=36 velocity operator: P = 371,620 pairs, 238 MB in f32, where the
+// (S, R, 128) layout of the TPU kernel held 2,794 slots for every tile,
+// 8.7 GB, 1% of it values).  K17:
 // grid barriers, about six per AMG level and V-cycle, most of them on
 // coarse levels too small to fill the card.
 //
@@ -674,7 +678,9 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
 
 bool nb_ok(int nb) { return nb >= 1 && nb <= kEllMaxBatch; }
 
-bool band_ok(int S, int R, int Rc) { return S >= 1 && R >= 1 && Rc >= 1; }
+// The pair tables are square (build_pair_tables checks every source tile
+// against R): a source of another size is refused, never read out of frame.
+bool band_ok(int P, int R, int Rc) { return P >= 1 && R >= 1 && Rc == R; }
 
 template <typename T>
 EllOp<T> ell_op(const void* vals, const void* cols, int K, int64_t n) {
@@ -682,10 +688,10 @@ EllOp<T> ell_op(const void* vals, const void* cols, int K, int64_t n) {
 }
 
 template <typename T>
-BandOp<T> band_op(const void* vals, const void* cols, const void* shifts, int S, int R,
-                  int Rc) {
-  return BandOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols),
-                   static_cast<const int*>(shifts), S, Rc, (int64_t)R * kLane};
+BandOp<T> band_op(const void* vals, const void* tile_ptr, const void* pair_shift,
+                  const void* lanes) {
+  return BandOp<T>{static_cast<const T*>(vals), static_cast<const int*>(tile_ptr),
+                   static_cast<const int*>(pair_shift), static_cast<const uint8_t*>(lanes)};
 }
 
 template <typename T, typename Op>
@@ -888,55 +894,55 @@ int oasisx_ell_vcycle(const void* const* lvl_ptrs, const long long* lvl_dims, in
                                      max_blocks, iters, rnorm, conv, maxiter, 1, stream);
 }
 
-// K18, the band-ELL layout: vals, cols (S, R * 128), shifts (S) int32, the
-// rows in RCM order; the source has Rc tiles (a solve's operator is square,
-// Rc == R).
+// K18, the band-ELL layout as pair tables: vals (P, 128), tile_ptr (R + 1)
+// int32, pair_shift (P) int32, lanes (P, 128) uint8, the rows in RCM order;
+// every pair's source tile lies in [0, R), and the source has Rc == R tiles.
 
-// y (nb, R * 128) = A x for x (nb, Rc * 128).
-int oasisx_band_matvec(const void* vals, const void* cols, const void* shifts, const void* x,
-                       void* y, int S, int R, int Rc, int nb, int is_f64, void* stream) {
-  if (!nb_ok(nb) || !band_ok(S, R, Rc)) return (int)cudaErrorInvalidValue;
+// y (nb, R * 128) = A x for x (nb, Rc * 128), Rc == R.
+int oasisx_band_matvec(const void* vals, const void* tile_ptr, const void* pair_shift,
+                       const void* lanes, const void* x, void* y, int P, int R, int Rc, int nb,
+                       int is_f64, void* stream) {
+  if (!nb_ok(nb) || !band_ok(P, R, Rc)) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)R * kLane, nin = (int64_t)Rc * kLane;
-  return is_f64
-             ? matvec_launch<double>(band_op<double>(vals, cols, shifts, S, R, Rc), x, y, n, nin,
-                                     nb, stream)
-             : matvec_launch<float>(band_op<float>(vals, cols, shifts, S, R, Rc), x, y, n, nin,
-                                    nb, stream);
+  return is_f64 ? matvec_launch<double>(band_op<double>(vals, tile_ptr, pair_shift, lanes), x,
+                                        y, n, nin, nb, stream)
+                : matvec_launch<float>(band_op<float>(vals, tile_ptr, pair_shift, lanes), x, y,
+                                       n, nin, nb, stream);
 }
 
 // Batched BiCGStab on a band-ELL operator with zero-masked rows, from
 // r0 = zmask (b - A x0) and x0 (nb, R * 128); invd (R * 128); tol (nb).
 // work: 6 * nb * R * 128; red: 2 * 8 * max_blocks.  As oasisx_ell_bicgstab.
-int oasisx_band_bicgstab(const void* vals, const void* cols, const void* shifts, const void* r0,
-                         const void* x0, const void* zmask, const void* invd, const void* tol,
-                         void* x, void* work, void* red, int max_blocks, void* iters,
-                         void* rnorm, int is_f64, int S, int R, int nb, int maxiter,
-                         void* stream) {
-  if (!nb_ok(nb) || !band_ok(S, R, R)) return (int)cudaErrorInvalidValue;
+int oasisx_band_bicgstab(const void* vals, const void* tile_ptr, const void* pair_shift,
+                         const void* lanes, const void* r0, const void* x0, const void* zmask,
+                         const void* invd, const void* tol, void* x, void* work, void* red,
+                         int max_blocks, void* iters, void* rnorm, int is_f64, int P, int R,
+                         int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || !band_ok(P, R, R)) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)R * kLane;
-  return is_f64 ? bicgstab_launch<double>(band_op<double>(vals, cols, shifts, S, R, R), r0, x0,
-                                          zmask, invd, tol, x, work, red, max_blocks, iters,
+  return is_f64 ? bicgstab_launch<double>(band_op<double>(vals, tile_ptr, pair_shift, lanes), r0,
+                                          x0, zmask, invd, tol, x, work, red, max_blocks, iters,
                                           rnorm, n, nb, maxiter, stream)
-                : bicgstab_launch<float>(band_op<float>(vals, cols, shifts, S, R, R), r0, x0,
-                                         zmask, invd, tol, x, work, red, max_blocks, iters,
+                : bicgstab_launch<float>(band_op<float>(vals, tile_ptr, pair_shift, lanes), r0,
+                                         x0, zmask, invd, tol, x, work, red, max_blocks, iters,
                                          rnorm, n, nb, maxiter, stream);
 }
 
 // Batched Jacobi-PCG on a band-ELL operator from r0 = b - A x0 and x0
 // (nb, R * 128); invd (R * 128); tol (nb).  work: 3 * nb * R * 128.  As
 // oasisx_ell_cg.
-int oasisx_band_cg(const void* vals, const void* cols, const void* shifts, const void* r0,
-                   const void* x0, const void* invd, const void* tol, void* x, void* work,
-                   void* red, int max_blocks, void* iters, void* rnorm, int is_f64, int S, int R,
-                   int nb, int maxiter, void* stream) {
-  if (!nb_ok(nb) || !band_ok(S, R, R)) return (int)cudaErrorInvalidValue;
+int oasisx_band_cg(const void* vals, const void* tile_ptr, const void* pair_shift,
+                   const void* lanes, const void* r0, const void* x0, const void* invd,
+                   const void* tol, void* x, void* work, void* red, int max_blocks, void* iters,
+                   void* rnorm, int is_f64, int P, int R, int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || !band_ok(P, R, R)) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)R * kLane;
-  return is_f64 ? cg_launch<double>(band_op<double>(vals, cols, shifts, S, R, R), r0, x0, invd,
-                                    tol, x, work, red, max_blocks, iters, rnorm, n, nb, maxiter,
-                                    stream)
-                : cg_launch<float>(band_op<float>(vals, cols, shifts, S, R, R), r0, x0, invd,
-                                   tol, x, work, red, max_blocks, iters, rnorm, n, nb, maxiter,
-                                   stream);
+  return is_f64 ? cg_launch<double>(band_op<double>(vals, tile_ptr, pair_shift, lanes), r0, x0,
+                                    invd, tol, x, work, red, max_blocks, iters, rnorm, n, nb,
+                                    maxiter, stream)
+                : cg_launch<float>(band_op<float>(vals, tile_ptr, pair_shift, lanes), r0, x0,
+                                   invd, tol, x, work, red, max_blocks, iters, rnorm, n, nb,
+                                   maxiter, stream);
 }
 
 }  // extern "C"

@@ -363,7 +363,7 @@ class FractionalStep_AB_CN:
         eq = self._ell_q
         if self._layout == "band":
             bv = self._band_v
-            velocity = {"S_v": bv.S, "R_v": bv.R, "n_v": bv.n, "nnz_v": bv.nnz,
+            velocity = {"S_v": bv.S, "P_v": bv.P, "R_v": bv.R, "n_v": bv.n, "nnz_v": bv.nnz,
                         "shifts_v": [min(bv.shifts), max(bv.shifts)]}
         else:
             ev = self._ell_v
@@ -472,8 +472,8 @@ class FractionalStep_AB_CN:
             bv = self._band_v
             vals, b = band_values(A, bv), lambda t: band.to_band(t, bv)
             x0b, zmb = b(x0), b(zmask)
-            r0 = zmb * (b(rhs) - band.band_matvec(vals, bv.cols, bv.shifts_t, x0b))
-            res = band.band_bicgstab(vals, bv.cols, bv.shifts_t, r0, x0b, zmb,
+            r0 = zmb * (b(rhs) - band.band_matvec(vals, *bv.tables, x0b))
+            res = band.band_bicgstab(vals, *bv.tables, r0, x0b, zmb,
                                      band.to_band(invd, bv, fill=1.0), bnorm, rtol, s.maxiter,
                                      s.atol)
             res = res._replace(x=band.from_band(res.x, bv))
@@ -561,12 +561,12 @@ class FractionalStep_AB_CN:
         engine's ``mass_solve``: b3, r0 and the norms on the RCM-permuted
         vectors, the result back in the canonical order."""
         sc, bv = self._solver_c, self._band_v
-        mv = lambda x: band.band_matvec(self._M_vals, bv.cols, bv.shifts_t, x)
+        mv = lambda x: band.band_matvec(self._M_vals, *bv.tables, x)
         ub, gb, ducb = (band.to_band(t, bv) for t in (u, g, duc))
         b3 = mv(ub) - dt * gb
         r0 = -dt * gb - mv(ducb)
         bnorm = torch.linalg.vector_norm(b3, dim=-1)
-        res = band.band_cg(self._M_vals, bv.cols, bv.shifts_t, r0, ub + ducb, self._M_invd_b,
+        res = band.band_cg(self._M_vals, *bv.tables, r0, ub + ducb, self._M_invd_b,
                            bnorm, rtol, sc.maxiter, sc.atol)
         return res._replace(x=band.from_band(res.x, bv)), _rel_res(res.resnorm, bnorm)
 

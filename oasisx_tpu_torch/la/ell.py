@@ -305,16 +305,22 @@ def _solve_buffers(r0, nwork, bnorm, rtol, atol):
     )
 
 
-def _check_state(vals, cols, r0, named, invd, bnorm):
+def _check_vectors(n, r0, named, invd, bnorm):
+    """A solve's vectors for an operator of n rows: r0 and ``named``
+    (nb, n), invd (n,), bnorm (nb,)."""
     dt = r0.dtype
-    nb, n = r0.shape
-    _check_ell(vals, cols, dt)
-    if vals.shape[1] != n:
-        raise ValueError(f"operator rows {vals.shape[1]}, state {n}")
+    nb, m = r0.shape
+    if m != n:
+        raise ValueError(f"operator rows {n}, state {m}")
     for name, t in named:
         kn._check(t, name, dt, (nb, n))
     kn._check(invd, "invd", dt, (n,))
     kn._check(bnorm, "bnorm", dt, (nb,))
+
+
+def _check_state(vals, cols, r0, named, invd, bnorm):
+    _check_ell(vals, cols, r0.dtype)
+    _check_vectors(vals.shape[1], r0, named, invd, bnorm)
 
 
 def ell_bicgstab(vals, cols, r0, x0, zmask, invd, bnorm, rtol: float, maxiter: int,

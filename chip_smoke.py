@@ -31,6 +31,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    read inside a step (host_syncs 0).
 5. GPU against CPU: N=6 in float64, 3 steps from the same state on cuda
    and on cpu; u and p agree to 1e-10 relative with equal iteration counts.
+3e. K1's non-MG modes at N=35 (bench.py's problem at a grid of odd cell
+   count, which does not coarsen: 1,073,733 velocity dofs, 46,656 pressure
+   dofs): the Chebyshev(4)-Jacobi mode with the bounds the solver
+   estimated at set-up, and the Jacobi mode, against their plain versions
+   on a demeaned random rhs, in float64 and float32 (phase 3's solve
+   tolerances, a repeat bit-identical, f32 timed, the bound from this
+   run's iterations); and phase 3's cube kernel cases at the N=35 shapes.
+4f. The N=35 main path in float32 at bench settings: 5 warm-up and 25
+   timed steps, phase 4's checks with pressure_cg in place of
+   pressure_mg, the pressure method "cheb-pcg", the estimated lmax and its
+   validated value.
+5d. GPU against CPU in float64, 3 steps: N=5 (Chebyshev mode) and N=6 with
+   the pressure pc_type "jacobi" (Jacobi mode).
 
 Prints the kernels' JSON line (per kernel: "ms", "plain_ms" and
 "max_abs_err" of one call at its first case's shape, named in "case", and
@@ -97,7 +110,8 @@ K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
-The vessel phases run in the order 3b, 4b, 3d, 4e.  Kernel, plain and
+The phases run in the order 3, 4, 5, 3e, 4f, 5d, 3c, 4d, then the vessel
+phases 3b, 4b, 3d, 4e, then 4c, 5b, 5c.  Kernel, plain and
 library times are device times of back-to-back calls (``time_ms``).
 
 --tree DIR runs the chip_smoke.py of another checkout DIR (a parent
@@ -109,7 +123,7 @@ the process's peak resident memory before and after it; with --tree, the
 other checkout's.
 
 --profile N adds a torch.profiler window of N more steps after phases 4,
-4d, 4b and 4e: device time by kernel, the device's busy share of the
+4f, 4d, 4b and 4e: device time by kernel, the device's busy share of the
 window, and Chrome traces under build/chip_smoke_trace*.json.
 """
 
@@ -137,7 +151,8 @@ REPLACES = {
     "cg_mass": f"{PO}:1770; {PO}:810",  # make_cg_iter_pf (K4), make_cg_step (K11)
     # make_bicgstab_iter (K2), make_bicgstab_hbm_kernels (K9) with bicgstab_hbm_from_r0 :1706
     "bicgstab": f"{PO}:1058; {PO}:1463",
-    "pressure_mg": f"{PO}:128",  # make_pressure_cg (K1)
+    "pressure_mg": f"{PO}:128",  # make_pressure_cg (K1) with build_pressure_mg_data :404
+    "pressure_cg": f"{PO}:128",  # make_pressure_cg (K1) with mg=None
     "ell_matvec": f"{PO}:646; {PO}:682",  # make_ell_matvec, make_ell_matvec_batched (K14)
     "ell_bicgstab": f"{PO}:2083",  # make_ell_bicgstab_iter (K15)
     "ell_cg": f"{PO}:2194",  # make_ell_cg_iter (K16)
@@ -148,12 +163,14 @@ REPLACES = {
 }
 CSRC = "oasisx_tpu_torch/csrc/"
 SOURCE = {name: CSRC + "cube_ops.cu" for name in REPLACES}
-SOURCE.update(dict.fromkeys(("cg_mass", "bicgstab", "pressure_mg"), CSRC + "krylov_ops.cu"))
+SOURCE.update(dict.fromkeys(("cg_mass", "bicgstab", "pressure_mg", "pressure_cg"),
+                            CSRC + "krylov_ops.cu"))
 SOURCE.update(dict.fromkeys(("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg", "band_matvec",
                              "band_bicgstab", "band_cg"), CSRC + "ell_ops.cu"))
 SOLVE_RTOL = {"float64": 1e-8, "float32": 1e-5}
 DT, NU = 2e-3, 1.0 / 1600.0
 N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
+N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev mode
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
@@ -197,11 +214,12 @@ def deform_vessel(mesh):
     return mesh
 
 
-def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell"):
+def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell",
+               pressure: dict | None = None):
     """The bench problem (bench.py build_solver) on the port: the box, or
     with ``vessel`` the deformed box on the general path with bench.py's
     low_memory_version=False and the velocity operators in ``layout``
-    ("ell" or "band")."""
+    ("ell" or "band"); ``pressure`` adds to the pressure solver options."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
@@ -221,7 +239,8 @@ def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False, layout:
     opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
     solver = FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
-        solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
+        solver_options={"tentative": dict(opts), "pressure": dict(opts, **(pressure or {})),
+                        "scalar": dict(opts)},
         options={"low_memory_version": False, "ell_layout": layout} if vessel else None,
         dtype=dtype, device=device,
     )
@@ -585,6 +604,52 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
          lambda: fused.bicgstab_from_r0(win, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
          lambda res: (isz * (nl * nl * nc + 4 * d * nv + nv),
                       rows(res) * (4.0 * nl * nl * nc + 20 * nv))),
+    ]
+
+
+def pcg_solve_cases(pair, device, seed: int = 6):
+    """Phase 3e: K1's non-MG modes, Jacobi and Chebyshev-Jacobi of the
+    solver's degree with the bounds it estimated at set-up, on the pressure
+    Ap of ``pair`` = (solver, dtype), its operators cast to dtype: a random
+    demeaned rhs, x0 = 0.  (kernel, label, kernel solve, plain solve,
+    work(result) -> (bytes, operations)): every fine product (one an
+    iteration, degree - 1 a Chebyshev application, one for r0) and ~12
+    vector operations a point an iteration."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la.pressure_cg import PressureCG
+
+    solver, dtype = pair
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    sm_q, maxiter = solver._sm_q, 2000
+    Ap_c = solver._cu.Ap_c.to(dtype)
+    cheb = solver.config_report()["pressure_cheb"]
+    invd = solver._pcg.invd
+    g = torch.Generator().manual_seed(seed)
+    nq = solver._npad_q
+    bq = torch.randn(nq, generator=g, dtype=torch.float64).to(device, dtype)
+    bq = bq - bq.mean()
+    xq = torch.zeros_like(bq)
+    isz = torch.empty((), dtype=dtype).element_size()
+    prod = 2.0 * cub.num_slots(sm_q) ** 2 * int(np.prod(sm_q[1]))
+
+    def case(deg, lmin, lmax, label):
+        pcg = PressureCG(sm_q, Ap_c, invd, rtol, maxiter, deg, lmin, lmax)
+
+        def work(res):
+            k = int(res.iters)
+            products = 1 + k + (k + 1) * max(deg - 1, 0)
+            return isz * 4 * nq, products * prod + 12.0 * k * nq
+
+        return ("pressure_cg", label, lambda: pcg.solve(bq, xq),
+                lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), work)
+
+    return rtol, [
+        case(cheb["degree"], cheb["lmin"], cheb["lmax"], f"Ap_c, Chebyshev({cheb['degree']})"),
+        case(0, 0.0, 0.0, "Ap_c, Jacobi"),
     ]
 
 
@@ -1018,15 +1083,18 @@ def profile_steps(solver, steps: int, path: str) -> None:
     prof.export_chrome_trace(path)
 
 
-def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU) -> None:
+def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None) -> None:
     """The same problem on cuda and on cpu from the same state, float64:
-    equal iterations, u and p to 1e-10 relative."""
+    equal iterations, u and p to 1e-10 relative; with ``pressure_pc``, the
+    pressure method both solvers report."""
     import numpy as np
     import torch
 
     runs = {}
     for dev in ("cuda", "cpu"):
         s = make(torch.float64, dev)
+        pc = s.config_report()["pressure_pc"]
+        check(pressure_pc in (None, pc), f"{label} on {dev}: pressure {pc}, not {pressure_pc}")
         st = s.run(steps, dt, nu, max_iter=1)
         u = np.stack([f.x.array.detach().cpu().numpy() for f in s._u])
         p = s._p.x.array.detach().cpu().numpy()
@@ -1158,7 +1226,9 @@ def main() -> int:
     del solver64
 
     # 4. the structured main path
-    res = drive_main_path(solver, WARMUP, STEPS, "cuda", kn.STRUCTURED_KERNELS)
+    rep = solver.config_report()
+    check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
+    res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
     report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS)
     launches = {k: v for k, v in res["launches"].items() if v}
     if args.profile:
@@ -1167,7 +1237,39 @@ def main() -> int:
 
     # 5. GPU against CPU
     print("[5] cuda against cpu")
-    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6")
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6", pressure_pc="mg-pcg")
+
+    # 3e. K1's non-MG modes at the N=35 shapes (the grid does not coarsen),
+    # with the cube kernels there; 4f. the N=35 main path
+    t0 = time.perf_counter()
+    s35 = tgv_solver(N_ODD, torch.float32, "cuda", rtol=1e-5)
+    _sync("cuda")
+    rep35 = s35.config_report()
+    cheb = rep35.get("pressure_cheb")
+    nvel35 = 3 * s35._Vi[0][0].num_dofs
+    print(f"[4f] setup N={N_ODD}: {time.perf_counter() - t0:.1f} s, {nvel35} velocity dofs, "
+          f"{s35._npad_q} pressure dofs, pressure {rep35['pressure_pc']} {cheb}")
+    check(rep35["pressure_pc"] == "cheb-pcg", f"N={N_ODD}: pressure {rep35['pressure_pc']}")
+    print(f"[3e] kernels against plain versions (N={N_ODD} shapes)")
+    for name, recs in compare_kernels(s35, "cuda", tag=f" N={N_ODD}").items():
+        kres[name] = kres[name] + recs
+    kres.update(compare_solves({"float64": (s35, torch.float64), "float32": (s35, torch.float32)},
+                               "cuda", cases_fn=pcg_solve_cases, suffix=f" N={N_ODD}"))
+    res = drive_main_path(s35, WARMUP, STEPS, "cuda", rep35["path_kernels"])
+    report_path("4f", res, STEPS, nvel35, smi, {})
+    print(f"    pressure Chebyshev({cheb['degree']})-Jacobi: lmax estimated "
+          f"{cheb['lmax_estimate']:.6f}, validated {cheb['lmax']:.6f}, lmin {cheb['lmin']:.6f}")
+    launches["pressure_cg"] = res["launches"]["pressure_cg"]
+    if args.profile:
+        profile_steps(s35, args.profile, "build/chip_smoke_trace_n35.json")
+    del s35
+    torch.cuda.empty_cache()
+
+    # 5d. GPU against CPU with K1's non-MG modes
+    print("[5d] cuda against cpu, K1's non-MG modes")
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(5, dt, dev, rtol=1e-8), "N=5", pressure_pc="cheb-pcg")
+    gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, pressure={"pc_type": "jacobi"}),
+               "N=6 pc_type jacobi", pressure_pc="jacobi-pcg")
 
     # 3c. the structured kernels at the N=64 shapes (the f64 cases on the
     # f32 solver's operators cast), and 4d. the N=64 main path
@@ -1178,10 +1280,12 @@ def main() -> int:
     _sync("cuda")
     setup64 = time.perf_counter() - t0
     nvel64 = 3 * s64._Vi[0][0].num_dofs
-    levels64 = s64.config_report()["pressure_mg_levels"]
+    rep64 = s64.config_report()
+    levels64 = rep64["pressure_mg_levels"]
     print(f"[4d] setup N={N64}: {setup64:.1f} s, {nvel64} velocity dofs, pressure MG "
           f"{levels64} levels, device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
-    check(levels64 == 5, f"N={N64}: the pressure MG has {levels64} levels, not 5")
+    check(rep64["pressure_pc"] == "mg-pcg" and levels64 == 5,
+          f"N={N64}: pressure {rep64['pressure_pc']} with {levels64} levels, not mg-pcg with 5")
     print(f"[3c] kernels against plain versions (N={N64} shapes)")
     for name, recs in compare_kernels(s64, "cuda", tag=f" N={N64}").items():
         kres[name] = kres[name] + recs
@@ -1192,7 +1296,7 @@ def main() -> int:
         kres[name] = kres[name] + recs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = drive_main_path(s64, WARMUP, STEPS, "cuda", kn.STRUCTURED_KERNELS)
+    res = drive_main_path(s64, WARMUP, STEPS, "cuda", rep64["path_kernels"])
     report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64)
     print(f"    pressure MG levels {levels64}; peak device memory in the steps "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; setup {setup64:.1f} s")

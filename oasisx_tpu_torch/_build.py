@@ -57,6 +57,7 @@ _SIGNATURES = {
     "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_bicgstab": [P] * 9 + [I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 7 + [D] * 3 + [I, D, I, P],
+    "oasisx_pressure_cg": [P] * 7 + [I] + [P] * 3 + [I] * 6 + [D] * 3 + [I, P],
 }
 
 

@@ -19,7 +19,8 @@ cube_scatter   y_b = sum_c P_c^T U_b[:, c]              make_scatter(_chunked)
 ``cube_scatter`` is on no path of the solver: its matvecs fuse gather,
 product and scatter in one kernel.  The whole-solve kernels of
 ``csrc/krylov_ops.cu`` have their wrappers in ``la/fused.py`` (``cg_mass``,
-``bicgstab``) and ``la/pressure_mg.py`` (``pressure_mg``), the ELL kernels
+``bicgstab``), ``la/pressure_mg.py`` (``pressure_mg``) and
+``la/pressure_cg.py`` (``pressure_cg``, K1's non-MG modes), the ELL kernels
 of the unstructured path (``csrc/ell_ops.cu``) theirs in ``la/ell.py`` and,
 for the band-ELL layout, ``la/band.py``; all count here too.
 
@@ -44,10 +45,11 @@ from . import cubes as cub
 from .structured import StructuredMap
 
 # the kernels each path of the solver launches: the structured cube path
-# and the unstructured ELL path
+# (with one of the two pressure solves: pressure_mg on a grid that coarsens,
+# pressure_cg otherwise) and the unstructured ELL path
 STRUCTURED_KERNELS = (
     "matvec_const", "matvec_win", "mixed", "divergence", "cube_gather",
-    "cg_mass", "bicgstab", "pressure_mg",
+    "cg_mass", "bicgstab", "pressure_mg", "pressure_cg",
 )
 ELL_KERNELS = ("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg")
 # the general path with ell_layout="band": the velocity operators in band

@@ -11,6 +11,10 @@
 //   oasisx_pressure_mg  <- make_pressure_cg(..., mg=build_pressure_mg_data(...))
 //                          (K1): the MG-preconditioned pressure CG, nullspace
 //                          demeaning included
+//   oasisx_pressure_cg  <- make_pressure_cg(..., mg=None) (K1's other modes):
+//                          the same CG with Jacobi (cheb_degree 0) or
+//                          Chebyshev-Jacobi preconditioning, for grids that
+//                          do not coarsen
 //
 // Form.  On the TPU one core walks the grid in order and the state sits in
 // VMEM.  Here one kernel launch runs the whole solve: the grid is as many
@@ -35,7 +39,8 @@
 // vectors (3 x 1.6 MB each) stay in L2.  K4 and K1: latency; the 3 x 389k
 // point mass state and the 50k / 7k / 1k point pressure levels fit in L2, and
 // the time goes to grid barriers (3 per K4 iteration, about 30 per K1
-// iteration, most of them on the two coarse levels).
+// iteration, most of them on the two coarse levels; 5 + (degree - 1) per
+// iteration of K1's Chebyshev mode, where every barrier spans the fine grid).
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
@@ -707,6 +712,188 @@ __global__ void __launch_bounds__(kThreads, 2) pressure_mg_kernel(MgArgs<T> P) {
 }
 
 // ---------------------------------------------------------------------------
+// K1, non-MG modes: Jacobi- or Chebyshev-Jacobi-preconditioned CG for the
+// singular P1 pressure Poisson
+// ---------------------------------------------------------------------------
+//
+// make_pressure_cg with mg=None: b demeaned, tol = rtol |b|, r0 = demean(b -
+// A x0), every A p demeaned, x demeaned at the end; z = M r is not demeaned.
+// M r is invd r (cheb_degree 0), or the recurrence of cheb_into on the fine
+// operator: dk = invd r / theta, z = dk, then cheb_degree - 1 steps of
+// dk = c1 dk + c2 invd (r - A z), z += dk, each a fine A z and a barrier
+// (z double-buffered, since A z reads the neighbours' z).
+
+template <typename T>
+struct PcgArgs {
+  const T* Ap;    // (nl, nl) cube matrix
+  const T* b;     // (n)
+  const T* x0;    // (n)
+  const T* invd;  // (n) Jacobi inverse diagonal
+  T* x;           // (n) out
+  T* work;        // 6 vectors: r, z, z', p, t (A p), dk
+  T* red;
+  int* iters;     // (1) out
+  T* rnorm;       // (1) out
+  int* conv;      // (1) out
+  CubeArgs a;     // the fine operator, staged in shared memory
+  int cheb_degree, maxiter;
+  double lmin, lmax, rtol;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) pressure_cg_kernel(PcgArgs<T> P) {
+  const CubeArgs& a = P.a;
+  const int64_t n = a.npad_out;
+  unsigned char* smem = dynamic_smem();
+  T* smat = reinterpret_cast<T*>(smem);
+  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
+  cube_stage(P.Ap, a, smat, soff);
+  __syncthreads();
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  T* r = P.work;
+  T* z = r + n;
+  T* zb = z + n;
+  T* p = zb + n;
+  T* t = p + n;
+  T* dk = t + n;
+  T* x = P.x;
+  const T* iv = P.invd;
+  const T nmean = (T)n;
+  const int deg = P.cheb_degree;
+  const double theta = 0.5 * (P.lmax + P.lmin);
+  const double delta = 0.5 * (P.lmax - P.lmin);
+  const double sigma1 = deg > 0 ? theta / delta : 0.0;
+  const T rtheta = deg > 0 ? (T)theta : T(1);
+
+  auto mv = [&](const T* src, int64_t idx) -> T {
+    T acc[kMaxBatch];
+    cube_point(src, smat, soff, a, idx, acc);
+    return acc[0];
+  };
+  T s[kMaxRed] = {};
+
+  // r[idx] = v: its first preconditioner term into z (and dk); sums |r|^2 and
+  // r.z into s[0], s[1]
+  auto first_term = [&](int64_t idx, T v) {
+    r[idx] = v;
+    const T zz = deg > 0 ? (iv[idx] * v) / rtheta : iv[idx] * v;
+    z[idx] = zz;
+    if (deg > 0) dk[idx] = zz;
+    s[0] += v * v;
+    s[1] += v * zz;
+  };
+  // the Chebyshev steps after first_term's grid sum; returns r.z of the result
+  auto cheb_steps = [&](T rz) -> T {
+    double rho = 1.0 / sigma1;
+    for (int k = 0; k + 1 < deg; ++k) {
+      const double rho_new = 1.0 / (2.0 * sigma1 - rho);
+      const T c1 = (T)(rho_new * rho);
+      const T c2 = (T)(2.0 * rho_new / delta);
+      zero(s);
+      for (int64_t idx = first; idx < n; idx += stride) {
+        const T d = c1 * dk[idx] + c2 * (iv[idx] * (r[idx] - mv(z, idx)));
+        dk[idx] = d;
+        const T zn = z[idx] + d;
+        zb[idx] = zn;
+        s[0] += r[idx] * zn;
+      }
+      T* tmp = z;
+      z = zb;
+      zb = tmp;
+      if (k + 2 == deg) {
+        grid_sum<1>(red, s);
+        rz = s[0];
+      } else {
+        cg::this_grid().sync();
+      }
+      rho = rho_new;
+    }
+    return rz;
+  };
+
+  // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    x[idx] = P.x0[idx];
+    t[idx] = mv(P.x0, idx);
+    s[0] += P.b[idx];
+  }
+  grid_sum<1>(red, s);
+  const T mb = s[0] / nmean;
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T bd = P.b[idx] - mb;
+    const T v = bd - t[idx];
+    r[idx] = v;
+    s[0] += bd * bd;
+    s[1] += v;
+  }
+  grid_sum<2>(red, s);
+  const T tol = (T)P.rtol * vsqrt(s[0]);
+  const T mr = s[1] / nmean;
+  // z = M r; p = z; rz = r.z
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) first_term(idx, r[idx] - mr);
+  grid_sum<2>(red, s);
+  T rn = vsqrt(s[0]);
+  T rz = cheb_steps(s[1]);
+  for (int64_t idx = first; idx < n; idx += stride) p[idx] = z[idx];
+  cg::this_grid().sync();
+
+  int k = 0;
+  while (k < P.maxiter && rn > tol) {
+    // Apv = demean(A p); alpha = rz / p.Apv
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T ap = mv(p, idx);
+      t[idx] = ap;
+      s[0] += ap;
+    }
+    grid_sum<1>(red, s);
+    const T ma = s[0] / nmean;
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T apv = t[idx] - ma;
+      t[idx] = apv;
+      s[0] += p[idx] * apv;
+    }
+    grid_sum<1>(red, s);
+    const T alpha = rz / nz(s[0]);
+    // x += alpha p; r -= alpha Apv; z = M r; |r|, r.z
+    zero(s);
+    for (int64_t idx = first; idx < n; idx += stride) {
+      x[idx] = x[idx] + alpha * p[idx];
+      first_term(idx, r[idx] - alpha * t[idx]);
+    }
+    grid_sum<2>(red, s);
+    const T rn_new = vsqrt(s[0]);
+    const T rz_new = cheb_steps(s[1]);
+    // p = z + beta p
+    const T beta = rz_new / nz(rz);
+    for (int64_t idx = first; idx < n; idx += stride) p[idx] = z[idx] + beta * p[idx];
+    cg::this_grid().sync();
+    rz = rz_new;
+    rn = rn_new;
+    ++k;
+  }
+
+  // x = demean(x)
+  zero(s);
+  for (int64_t idx = first; idx < n; idx += stride) s[0] += x[idx];
+  grid_sum<1>(red, s);
+  const T mx = s[0] / nmean;
+  for (int64_t idx = first; idx < n; idx += stride) x[idx] = x[idx] - mx;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    P.iters[0] = k;
+    P.rnorm[0] = rn;
+    P.conv[0] = rn <= tol ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -808,6 +995,32 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
                      smem_bytes<T>(levels * nl * nl, levels * nl), max_blocks, stream);
 }
 
+template <typename T>
+int pressure_cg_launch(const void* Ap, const void* b, const void* x0, const void* invd, void* x,
+                       void* work, void* red, int max_blocks, void* iters, void* rnorm,
+                       void* conv, int d, int n0, int n1, int n2, int cheb_degree, double lmin,
+                       double lmax, double rtol, int maxiter, void* stream) {
+  PcgArgs<T> P;
+  P.a = const_args(d, n0, n1, n2, 1, 1);
+  P.Ap = static_cast<const T*>(Ap);
+  P.b = static_cast<const T*>(b);
+  P.x0 = static_cast<const T*>(x0);
+  P.invd = static_cast<const T*>(invd);
+  P.x = static_cast<T*>(x);
+  P.work = static_cast<T*>(work);
+  P.red = static_cast<T*>(red);
+  P.iters = static_cast<int*>(iters);
+  P.rnorm = static_cast<T*>(rnorm);
+  P.conv = static_cast<int*>(conv);
+  P.cheb_degree = cheb_degree;
+  P.maxiter = maxiter;
+  P.lmin = lmin;
+  P.lmax = lmax;
+  P.rtol = rtol;
+  return coop_launch(pressure_cg_kernel<T>, P, P.a.npad_out,
+                     smem_bytes<T>(P.a.mat_len, P.a.nl_in), max_blocks, stream);
+}
+
 bool batch_ok(int d, int batch) { return (d == 2 || d == 3) && batch >= 1 && batch <= kMaxBatch; }
 
 }  // namespace
@@ -862,6 +1075,25 @@ int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void
                 : pressure_mg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
                                             lmin, lmax, cheb_degree, rtol, maxiter, stream);
+}
+
+// Jacobi (cheb_degree 0) or degree-cheb_degree Chebyshev-Jacobi PCG on the P1
+// grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d), bounds
+// lmin < lmax of D^-1 A: b, x0, x, invd (grid); work: 6 * grid points; red:
+// 2 * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
+int oasisx_pressure_cg(const void* Ap, const void* b, const void* x0, const void* invd,
+                       void* x, void* work, void* red, int max_blocks, void* iters,
+                       void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
+                       int cheb_degree, double lmin, double lmax, double rtol, int maxiter,
+                       void* stream) {
+  if ((d != 2 && d != 3) || cheb_degree < 0 || (cheb_degree > 0 && !(lmin < lmax)))
+    return (int)cudaErrorInvalidValue;
+  return is_f64 ? pressure_cg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
+                                             rnorm, conv, d, n0, n1, n2, cheb_degree, lmin, lmax,
+                                             rtol, maxiter, stream)
+                : pressure_cg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
+                                            rnorm, conv, d, n0, n1, n2, cheb_degree, lmin, lmax,
+                                            rtol, maxiter, stream);
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@ Crank-Nicolson diffusion) on PyTorch, single device.
 Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN``.  The
 solver picks one of two paths the way the JAX package does:
 
-The structured path (a mesh from the structured generators, no outlet):
-every operator application and every solve of the step goes through one of
-the eight kernels of ``assembly/kernels.py``, ``la/fused.py`` and
-``la/pressure_mg.py`` (their plain versions on a CPU device):
+The structured path (a mesh from the structured generators, no outlet,
+``options["structured"]`` not False): every operator application and every
+solve of the step goes through one of the eight kernels of
+``assembly/kernels.py``, ``la/fused.py`` and ``la/pressure_mg.py`` or
+``la/pressure_cg.py`` (their plain versions on a CPU device):
 
   U       = the cube-local values of uab         cube_gather
   b_first = (2/dt) M u1 - A_W u1               matvec_const, matvec_win
@@ -17,11 +18,19 @@ the eight kernels of ``assembly/kernels.py``, ``la/fused.py`` and
       solve A_W u = rhs: x0[bc] = g,           bicgstab (r0 by matvec_win
         r0 = zmask rhs - zmask A_W x0, Jacobi    with its zmask)
       b2    = -(1/dt) div u                    divergence
-      solve Ap dp = b2 (nullspace)             pressure_mg
+      solve Ap dp = b2 (nullspace)             pressure_mg, or pressure_cg
       ps    = p + dp
   velocity update: solve M u_new = M u - dt G dp   cg_mass (r0 by mixed,
                                                    matvec_const)
   rotate u2 <- u1 <- u_new;  p <- ps
+
+The pressure solve is chosen as the JAX package's kernel path chooses it:
+the MG-PCG (``pressure_mg``) when the pressure grid coarsens (even cell
+counts) and ``options["pallas_pressure_pc"]`` is "mg" (the default); else
+CG preconditioned by a degree-``options["pallas_cheb_degree"]`` (default 4)
+Chebyshev acceleration of Jacobi, its bounds estimated at set-up
+(``pressure_cg``), or by Jacobi alone at degree 0.  A pressure ``pc_type``
+of "jacobi" or "none" selects Jacobi-CG, as on the JAX package's XLA path.
 
 The general path (any other mesh, e.g. with ``mesh.structured = None``, or
 a ``PressureBC`` outlet): element stacks assembled on the device
@@ -76,9 +85,10 @@ from .bcs import DirichletBC, PressureBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
 from .assembly.band import band_values, build_band_assembly
-from .la import band, ell, fused
+from .la import band, ell, fused, krylov
 from .la.amg import AlgebraicMG, amg_kernel_data, coo_from_elems
 from .la.krylov import _effective_rtol
+from .la.pressure_cg import PressureCG
 from .la.pressure_mg import PressureMGCG
 from .la.solver import KSPSolver
 from .meshes.mesh import Mesh
@@ -114,7 +124,9 @@ class FractionalStep_AB_CN:
     ``options`` (``low_memory_version``: direct vector assembly of the
     mixed terms, default True, or preassembled mixed matrices;
     ``ell_layout``: "ell", default, or "band" for the velocity operators
-    of the general path), ``dtype`` and the
+    of the general path; ``structured``: False sends a structured mesh to
+    the general path; ``pallas_pressure_pc`` and ``pallas_cheb_degree``:
+    the structured path's pressure solve, above), ``dtype`` and the
     ``device`` every tensor lives on (default: the card; there is no
     fallback to the CPU).  A structured mesh without an outlet takes the
     cube path, where ``low_memory_version`` has no counterpart.
@@ -169,7 +181,7 @@ class FractionalStep_AB_CN:
         # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
         self._cu = None
-        if not self._bcs_p and mesh.structured is not None:
+        if not self._bcs_p and mesh.structured is not None and options.get("structured", True):
             rv = build_structured_map(mesh, el_u, Vi0.dofmap)
             rq = build_structured_map(mesh, el_p, self._Q.dofmap)
             if rv is not None and rq is not None:
@@ -213,7 +225,7 @@ class FractionalStep_AB_CN:
                         self._solver_u.method)
 
         if self._structured:
-            self._preassemble()
+            self._preassemble(options)
         else:
             self._preassemble_general(solver_options.get("pressure") or {})
         self._state: dict | None = None
@@ -230,9 +242,9 @@ class FractionalStep_AB_CN:
         masks = np.stack([bc_mask_and_values(bc_i, nv)[0] for bc_i in self._bcs_u])
         return self._pv(torch.as_tensor(masks, device=self._device))
 
-    def _preassemble(self) -> None:
+    def _preassemble(self, options: dict) -> None:
         """Structured path: constant diagonals, integration weights, BC
-        masks, convection weight tensor and the pressure preconditioner."""
+        masks, convection weight tensor and the pressure solve."""
         cu, dev, dt = self._cu, self._device, self._dtype
         mesh = self._mesh
         d = mesh.dim
@@ -251,20 +263,33 @@ class FractionalStep_AB_CN:
         self._zmask = (~self._bc_masks).to(dt)
         self._M_invd = torch.where(self._M_diag != 0, 1.0 / self._M_diag, 1.0)
 
-        Ap64 = cu.Ap_c.detach().cpu().double().numpy()
-        mg = kn.build_pressure_mg_data(self._sm_q, Ap64)
-        if mg is None:
-            raise ValueError(
-                f"the pressure grid {self._sm_q[1]} does not coarsen "
-                "(the MG-preconditioned pressure solve needs even cell counts)"
-            )
+        # the pressure solve, chosen as the JAX package's kernel path chooses
+        # it (oasisx_tpu/fracstep.py:741-767): the MG-PCG where the grid
+        # coarsens and pallas_pressure_pc is "mg", else K1's non-MG mode of
+        # degree pallas_cheb_degree with bounds estimated here (set-up reads
+        # only).  A pressure pc_type of jacobi or none selects Jacobi-CG, the
+        # method the JAX package's XLA path runs for it.
         diag = self._Ap_diag.detach().cpu().double().numpy()
         invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
         s = self._solver_p
-        self._pcg = PressureMGCG(
-            self._sm_q, cu.Ap_c, invd, mg,
-            rtol=_effective_rtol(s.rtol, dt), maxiter=s.maxiter,
-        )
+        rtol = _effective_rtol(s.rtol, dt)
+        jacobi = str(s.options.get("pc_type", "")).lower() in ("jacobi", "none")
+        mg = None
+        if options.get("pallas_pressure_pc", "mg") == "mg" and not jacobi:
+            mg = kn.build_pressure_mg_data(self._sm_q, cu.Ap_c.detach().cpu().double().numpy())
+        self._p_cheb = None
+        if mg is not None:
+            self._pcg = PressureMGCG(self._sm_q, cu.Ap_c, invd, mg, rtol=rtol, maxiter=s.maxiter)
+            return
+        deg = 0 if jacobi else int(options.get("pallas_cheb_degree", 4))
+        lmin = lmax = 0.0
+        if deg > 0:
+            mv = lambda x: kn.matvec_const(x, cu.Ap_c, self._sm_q)
+            invd_t = torch.as_tensor(invd, device=dev).to(dt)
+            est = krylov.estimate_lmax(mv, invd_t)
+            lmin, lmax = krylov.validated_cheb_bounds(mv, invd_t, est, deg)
+            self._p_cheb = dict(degree=deg, lmin=lmin, lmax=lmax, lmax_estimate=est)
+        self._pcg = PressureCG(self._sm_q, cu.Ap_c, invd, rtol, s.maxiter, deg, lmin, lmax)
 
     def _preassemble_general(self, popts: dict) -> None:
         """General path: constant element stacks and diagonals, BC masks,
@@ -318,7 +343,8 @@ class FractionalStep_AB_CN:
         pc = str(popts.get("pc_type", "amg")).lower()
         if pc not in AMG_PC_TYPES:
             raise NotImplementedError(
-                f"pressure pc_type {pc!r}: the general path has the AMG preconditioner only"
+                f"pressure pc_type {pc!r}: the general path has the AMG preconditioner only "
+                "(the others are ROADMAP.md Queue 1 item 2.2)"
             )
         ctx = self._ctx
         n = self._Q.num_dofs
@@ -358,8 +384,15 @@ class FractionalStep_AB_CN:
             dtype=str(self._dtype).replace("torch.", ""),
         )
         if self._structured:
-            return dict(common, pressure_pc="mg-pcg", pressure_mg_levels=len(self._pcg.levels),
-                        path_kernels=list(kn.STRUCTURED_KERNELS))
+            mg = isinstance(self._pcg, PressureMGCG)
+            unused = "pressure_cg" if mg else "pressure_mg"
+            out = dict(common, path_kernels=[k for k in kn.STRUCTURED_KERNELS if k != unused])
+            if mg:
+                return dict(out, pressure_pc="mg-pcg", pressure_mg_levels=len(self._pcg.levels))
+            if self._p_cheb is None:
+                return dict(out, pressure_pc="jacobi-pcg", pressure_mg_levels=0)
+            return dict(out, pressure_pc="cheb-pcg", pressure_mg_levels=0,
+                        pressure_cheb=dict(self._p_cheb))
         eq = self._ell_q
         if self._layout == "band":
             bv = self._band_v
@@ -503,9 +536,9 @@ class FractionalStep_AB_CN:
 
     def _pressure_solve(self, b2, dp0):
         """Returns (KrylovResult, dp, relative exit residual).  Structured:
-        projected warm start, MG-PCG, volume-weighted zero mean.  General:
-        AMG-PCG with the outlet mask (dp0 as it is), or with the nullspace
-        (warm start demeaned, volume-weighted zero mean after)."""
+        projected warm start, the pressure PCG, volume-weighted zero mean.
+        General: AMG-PCG with the outlet mask (dp0 as it is), or with the
+        nullspace (warm start demeaned, volume-weighted zero mean after)."""
         if self._structured:
             nv = self._q_null
             x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv

@@ -1,6 +1,15 @@
-"""Krylov solvers and the pressure MG-PCG."""
+"""Krylov solvers, Chebyshev-Jacobi and its bounds, and the pressure PCGs."""
 
-from .krylov import KrylovResult, bicgstab_batched, cg, cg_batched, jacobi_preconditioner
+from .krylov import (
+    KrylovResult,
+    bicgstab_batched,
+    cg,
+    cg_batched,
+    chebyshev_preconditioner,
+    estimate_lmax,
+    jacobi_preconditioner,
+    validated_cheb_bounds,
+)
 from .solver import KSPSolver
 
 __all__ = [
@@ -9,5 +18,8 @@ __all__ = [
     "bicgstab_batched",
     "cg",
     "cg_batched",
+    "chebyshev_preconditioner",
+    "estimate_lmax",
     "jacobi_preconditioner",
+    "validated_cheb_bounds",
 ]

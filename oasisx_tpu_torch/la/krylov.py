@@ -10,6 +10,10 @@ a device scalar once per iteration (one host sync), counted in
 Batched variants solve k systems sharing one operator, with per-row
 convergence: converged rows are frozen so further iterations cannot
 corrupt them.
+
+Also the Chebyshev acceleration of Jacobi (``chebyshev_preconditioner``)
+and its set-up-time bounds (``estimate_lmax``, ``validated_cheb_bounds``),
+which the pressure solve of a structured grid that does not coarsen uses.
 """
 
 from __future__ import annotations
@@ -123,6 +127,96 @@ def cg(
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
     inv = torch.where(diag != 0, 1.0 / _nz(diag), torch.ones_like(diag))
     return lambda r: inv * r
+
+
+def chebyshev_preconditioner(matvec: Callable, inv_diag: torch.Tensor, lmin: float, lmax: float,
+                             degree: int = 8) -> Callable:
+    """Chebyshev acceleration of Jacobi as an SPD preconditioner
+    (``oasisx_tpu/la/krylov.py:chebyshev_preconditioner``): z = p(D^-1 A)
+    D^-1 r by the three-term recurrence (Saad, Iterative Methods, alg.
+    12.1) on the Jacobi-preconditioned operator with eigenvalue bounds
+    [lmin, lmax]; ``degree - 1`` applications of ``matvec``, and degree 1
+    gives D^-1 r / theta.  A fixed polynomial, so a fixed linear operator,
+    valid inside CG."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+
+    def M(r):
+        rho = 1.0 / sigma1
+        d = (inv_diag * r) / theta
+        z = d
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            d = rho_new * rho * d + (2.0 * rho_new / delta) * (inv_diag * (r - matvec(z)))
+            z = z + d
+            rho = rho_new
+        return z
+
+    return M
+
+
+def _start_vector(inv_diag: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """A standard normal vector drawn on the CPU in float64, then cast and
+    moved to inv_diag's device: a run on the card and one on the CPU start
+    from the same vector."""
+    v = torch.randn(inv_diag.shape, generator=generator, dtype=torch.float64)
+    return v.to(device=inv_diag.device, dtype=inv_diag.dtype)
+
+
+def estimate_lmax(matvec: Callable, inv_diag: torch.Tensor, iters: int = 60, seed: int = 0,
+                  tol: float = 1e-3, generator: torch.Generator | None = None) -> float:
+    """Residual-guarded power iteration for the largest eigenvalue of
+    D^-1 A (set-up time, reads the host every iteration): iterate until the
+    Rayleigh quotient changes by at most ``tol`` (at most ``iters`` times),
+    then pad the estimate by the Rayleigh residual ||D^-1 A v - lam v|| and
+    2%.  The start vector comes from ``generator`` (default: seeded with
+    ``seed``); the JAX package's ``jax.random`` stream is not reproduced."""
+    v = _start_vector(inv_diag, generator or torch.Generator().manual_seed(seed))
+    v = v / torch.linalg.vector_norm(v)
+    mv = lambda x: inv_diag * matvec(x)
+    lam_prev = 0.0
+    for k in range(iters):
+        w = mv(v)
+        nw = float(torch.linalg.vector_norm(w))
+        if nw == 0:
+            return 1.05
+        lam = float(torch.dot(v, w))
+        v = w / nw
+        if k >= 4 and abs(lam - lam_prev) <= tol * abs(lam):
+            break
+        lam_prev = lam
+    w = mv(v)
+    lam = float(torch.dot(v, w))
+    resid = float(torch.linalg.vector_norm(w - lam * v))
+    return (abs(lam) + resid) * 1.02
+
+
+def validated_cheb_bounds(matvec: Callable, inv_diag: torch.Tensor, lmax: float, degree: int,
+                          tries: int = 5, seed: int = 1,
+                          generator: torch.Generator | None = None) -> tuple[float, float]:
+    """Divergence backstop for Chebyshev-Jacobi: a polynomial built on an
+    underestimated lmax amplifies the top of the spectrum.  Apply the
+    candidate preconditioner's error operator E = I - A M three times to a
+    random demeaned vector; while ||E^3 r|| exceeds ||r||, double lmax (at
+    most ``tries`` times).  Returns (lmax / 30, lmax)."""
+    r0 = _start_vector(inv_diag, generator or torch.Generator().manual_seed(seed))
+    r0 = r0 - torch.mean(r0)
+    rn = float(torch.linalg.vector_norm(r0))
+    for _ in range(tries):
+        M = chebyshev_preconditioner(matvec, inv_diag, lmax / 30.0, lmax, degree)
+        r = r0
+        for _ in range(3):
+            r = r - matvec(M(r))
+        en = float(torch.linalg.vector_norm(r))
+        if np.isfinite(en) and en <= rn:
+            return lmax / 30.0, lmax
+        logger.warning(
+            "chebyshev bounds rejected (||E^3 r||/||r|| = %.3g); doubling lmax %.3g -> %.3g",
+            en / rn if rn else float("inf"), lmax, 2 * lmax,
+        )
+        lmax *= 2.0
+    return lmax / 30.0, lmax
 
 
 def _row_norm(v):

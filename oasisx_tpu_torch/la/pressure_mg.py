@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..assembly import kernels as kn
-from .krylov import KrylovResult
+from .krylov import KrylovResult, chebyshev_preconditioner
 
 
 class PressureMGCG:
@@ -108,19 +108,9 @@ class PressureMGCG:
     def chebyshev(self, li: int, r: torch.Tensor) -> torch.Tensor:
         """z = p(D^-1 A) D^-1 r on level li with the coarse bounds."""
         lmin, lmax, deg = self.coarse
-        iv = self.levels[li]["invd"]
-        theta = 0.5 * (lmax + lmin)
-        delta = 0.5 * (lmax - lmin)
-        sigma1 = theta / delta
-        rho = 1.0 / sigma1
-        dk = (iv * r) / theta
-        z = dk
-        for _ in range(deg - 1):
-            rho_new = 1.0 / (2.0 * sigma1 - rho)
-            dk = rho_new * rho * dk + (2.0 * rho_new / delta) * (iv * (r - self.matvec(li, z)))
-            z = z + dk
-            rho = rho_new
-        return z
+        M = chebyshev_preconditioner(lambda z: self.matvec(li, z), self.levels[li]["invd"], lmin,
+                                     lmax, deg)
+        return M(r)
 
     def vcycle(self, r: torch.Tensor) -> torch.Tensor:
         L = len(self.levels)

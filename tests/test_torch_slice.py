@@ -44,7 +44,7 @@ def _arr(a):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _tgv3d(pkg, meshes, N=6, rtol=1e-10, **kw):
+def _tgv3d(pkg, meshes, N=6, rtol=1e-10, popts=None, **kw):
     mesh = meshes.create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (N, N, N))
     facets = mesh.exterior_facet_indices()
     tags = meshes.meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
@@ -52,7 +52,8 @@ def _tgv3d(pkg, meshes, N=6, rtol=1e-10, **kw):
     opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
     solver = pkg.FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
-        solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
+        solver_options={"tentative": dict(opts), "pressure": dict(opts, **(popts or {})),
+                        "scalar": dict(opts)},
         dtype=np.float64, **kw,
     )
     for f, u1, u2 in zip(TGV, solver._u1, solver._u2):
@@ -159,8 +160,8 @@ class _TG:
         return np.cos(np.pi * x[1]) * np.sin(np.pi * x[0]) * self._decay()
 
 
-def _run2d(pkg, meshes, spaces, nsteps=3, **kw):
-    mesh = meshes.create_rectangle((-1, -1), (1, 1), (N2, N2))
+def _run2d(pkg, meshes, spaces, nsteps=3, N=N2, **kw):
+    mesh = meshes.create_rectangle((-1, -1), (1, 1), (N, N))
     facets = mesh.exterior_facet_indices()
     tags = meshes.meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 3))
     t_u = spaces.Constant(0.0)

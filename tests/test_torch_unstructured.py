@@ -57,8 +57,10 @@ def deform_vessel(mesh):
     return mesh
 
 
-def _vessel(pkg, M, N, options, popts=None, **kw):
-    mesh = deform_vessel(M.create_box((-1.0,) * 3, (1.0,) * 3, (N, N, N)))
+def _vessel(pkg, M, N, options, popts=None, deform=True, **kw):
+    mesh = M.create_box((-1.0,) * 3, (1.0,) * 3, (N, N, N))
+    if deform:
+        deform_vessel(mesh)
     facets = mesh.exterior_facet_indices()
     tags = M.meshtags(mesh, 2, facets, np.full_like(facets, 1))
     bcs = [[pkg.DirichletBC(f, pkg.LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in TGV]
@@ -144,6 +146,19 @@ def test_vessel_matches_jax_ell_path(low_memory, coarse_max):
     _compare(sj, st, 3, 2e-3, 1.0 / 1600.0)
 
 
+def test_structured_false_box_matches_jax_ell_path():
+    """options={"structured": False} sends the undeformed box, which has a
+    structured map, to the general path in both packages."""
+    opts = {"low_memory_version": False, "structured": False}
+    popts = {"amg_coarse_max": 20}
+    sj = _vessel(J, JM, 3, dict(opts, pallas="interpret"), popts, deform=False)
+    st = _vessel(T, TM, 3, opts, popts, deform=False, device="cpu")
+    assert st._mesh.structured is not None
+    rep = st.config_report()
+    assert rep["structured_fastpath"] is False and rep["pressure_pc"] == "amg-pcg-fused"
+    _compare(sj, st, 3, 2e-3, 1.0 / 1600.0)
+
+
 def test_cylinder_outlet_matches_jax_ell_path():
     sj = _cylinder(J, JM, {"pallas": "interpret", "low_memory_version": False})
     st = _cylinder(T, TM, {"low_memory_version": False}, device="cpu")
@@ -179,12 +194,13 @@ def test_default_device_is_the_card():
         _vessel(T, TM, 2, {})
 
 
-@pytest.mark.parametrize("options,solver_c,match", [
-    ({}, {"pc_type": "lumped"}, "lumped"),
-])
-def test_options_not_ported_raise(options, solver_c, match):
+@pytest.mark.parametrize("options,solver_c,solver_p,match", [
+    ({}, {"pc_type": "lumped"}, {}, "lumped"),
+    ({}, {}, {"pc_type": "jacobi"}, "Queue 1 item 2.2"),
+], ids=["options0-solver_c0-lumped", "pressure-jacobi"])
+def test_options_not_ported_raise(options, solver_c, solver_p, match):
     mesh = deform_vessel(TM.create_box((-1.0,) * 3, (1.0,) * 3, (2, 2, 2)))
     with pytest.raises(NotImplementedError, match=match):
         T.FractionalStep_AB_CN(mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=[[], [], []],
-                               solver_options={"scalar": solver_c}, options=options,
-                               device="cpu")
+                               solver_options={"scalar": solver_c, "pressure": solver_p},
+                               options=options, device="cpu")

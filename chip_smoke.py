@@ -5,7 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Card: requires torch.cuda; prints the device and nvidia-smi's name and
    power limit.
-2. Build: compiles the CUDA kernels of oasisx_tpu_torch/csrc (first use).
+2. Build: compiles the CUDA kernels of oasisx_tpu_torch/csrc (first use),
+   and emits the PTX of cube_ops.cu and krylov_ops.cu (nvcc -ptx): the
+   count of 64-bit integer divisions and remainders (div/rem on .s64/.u64)
+   in each is printed, and phase 2 fails unless cube_ops.cu has none.
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
    timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1
@@ -14,7 +17,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    padded outputs exactly 0, a repeat call bit-identical; the cube gather
    (K8) on the Taylor-Green initial uab (P2, its 27 slots unrolled) and on
    a random P1 pressure vector (8 slots, the loop of any other count),
-   equal.
+   equal.  The same cases on two structured grids whose axes differ and
+   whose planes are no multiple of a block, a 3D box of 20x27x33 cells and
+   a 2D rectangle of 41x57 cells: an axis mixed up in the kernels'
+   decomposition of the grid shows there, where a cube would hide it.
+   K8's two loops (27 slots unrolled, and the run-time loop) on one input,
+   the TGV uab, equal and timed (again at N=64 in phase 3c).
    The whole solves on the main path's systems: the mass CG (K4) on M_c
    with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
@@ -172,6 +180,7 @@ DT, NU = 2e-3, 1.0 / 1600.0
 N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
 N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev mode
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
+BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
 SPIN_CYCLES_S = 2.0e9  # about the H100's SM clock: spin-kernel cycles a second
@@ -214,23 +223,31 @@ def deform_vessel(mesh):
     return mesh
 
 
-def tgv_solver(N: int, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell",
+def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell",
                pressure: dict | None = None):
-    """The bench problem (bench.py build_solver) on the port: the box, or
-    with ``vessel`` the deformed box on the general path with bench.py's
-    low_memory_version=False and the velocity operators in ``layout``
-    ("ell" or "band"); ``pressure`` adds to the pressure solver options."""
+    """The bench problem (bench.py build_solver) on the port: the box of N
+    cells an axis (or of the cells of a tuple N: a 3D box, or a 2D rectangle
+    with the 2D Taylor-Green field), or with ``vessel`` the deformed box on
+    the general path with bench.py's low_memory_version=False and the
+    velocity operators in ``layout`` ("ell" or "band"); ``pressure`` adds to
+    the pressure solver options."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
-    from oasisx_tpu_torch.meshes import create_box, meshtags
+    from oasisx_tpu_torch.meshes import create_box, create_rectangle, meshtags
 
-    fs = (
-        lambda x: np.sin(np.pi * x[0]) * np.cos(np.pi * x[1]) * np.cos(np.pi * x[2]),
-        lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1]) * np.cos(np.pi * x[2]),
-        lambda x: np.zeros_like(x[0]),
-    )
-    mesh = create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (N, N, N))
+    cells = (N, N, N) if isinstance(N, int) else tuple(N)
+    if len(cells) == 3:
+        fs = (
+            lambda x: np.sin(np.pi * x[0]) * np.cos(np.pi * x[1]) * np.cos(np.pi * x[2]),
+            lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1]) * np.cos(np.pi * x[2]),
+            lambda x: np.zeros_like(x[0]),
+        )
+        mesh = create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), cells)
+    else:
+        fs = (lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1]),
+              lambda x: np.sin(np.pi * x[0]) * np.cos(np.pi * x[1]))
+        mesh = create_rectangle((-1.0, -1.0), (1.0, 1.0), cells)
     if vessel:
         deform_vessel(mesh)
     facets = mesh.exterior_facet_indices()
@@ -519,6 +536,37 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
                 continue
             out.setdefault(name, []).append(_timed(name, label, kfn, pfn, device, err, work, lib))
     return out
+
+
+def gather_loops(solver, tag: str = "") -> None:
+    """K8's two instantiations on one input, the solver's TGV uab (27 slots
+    a cube in 3D P2): the unrolled slot loop of the main path and the
+    run-time loop that every other slot count takes; equal outputs, device
+    times of both (unrolled, loop, loop, unrolled)."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    st = solver._state_from_functions()
+    uab = (1.5 * st["u1"] - 0.5 * st["u2"]).contiguous()
+    sm = solver._sm_v
+    u = torch.empty_like(kn.cube_gather(uab, sm))
+    lib = _build.library()
+
+    def loop():
+        err = lib.oasisx_cube_gather_loop(kn._ptr(uab), kn._ptr(u), int(uab.dtype == torch.float64),
+                                          *kn._dims(sm), int(sm[2]), int(uab.shape[0]),
+                                          kn._stream(uab))
+        check(err == 0, f"K8's run-time loop failed to launch: CUDA error {err}")
+        return u
+
+    check(torch.equal(loop(), kn.cube_gather(uab, sm)), f"K8's two loops differ{tag}")
+    unrolled = lambda: kn.cube_gather(uab, sm)
+    t = [time_ms(unrolled, "cuda"), time_ms(loop, "cuda"), time_ms(loop, "cuda"),
+         time_ms(unrolled, "cuda")]
+    print(f"  cube_gather   TGV uab{tag}: {u.shape[1]} slots unrolled {t[0]:.4f} / {t[3]:.4f} ms, "
+          f"run-time loop {t[1]:.4f} / {t[2]:.4f} ms, outputs equal")
 
 
 def solve_cases(solver, device, seed: int = 1, dtype=None):
@@ -1109,6 +1157,41 @@ def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None)
     check(du <= 1e-10 and dp <= 1e-10, f"{label}: cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
 
 
+PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu")
+
+
+def ptx_divisions(roots: dict) -> dict:
+    """Per checkout ``roots[tag]`` and per source of PTX_SOURCES, the 64-bit
+    integer divisions and remainders (div/rem on .s64/.u64) in the PTX that
+    nvcc -ptx emits for the kernels' target (sm_90a, -std=c++17 -O3), every
+    source of every checkout compiled in parallel into build/ptx/.  Imports
+    no package, so that --tree still loads the other checkout's."""
+    import os
+    import re
+    import shutil
+
+    nvcc = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                "bin", "nvcc")
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ptx")
+    os.makedirs(outdir, exist_ok=True)
+    jobs = {}
+    for tag, root in roots.items():
+        for src in PTX_SOURCES:
+            out = os.path.join(outdir, f"{tag}.{src}.ptx")
+            cmd = [nvcc, "-ptx", "-arch=sm_90a", "-std=c++17", "-O3", "-o", out,
+                   os.path.join(root, "oasisx_tpu_torch", "csrc", src)]
+            jobs[tag, src] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+    pat = re.compile(r"\b(?:div|rem)\.[su]64\b")
+    counts: dict = {}
+    for (tag, src), (out, proc) in jobs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc -ptx {src} ({tag}) failed:\n{log}")
+        with open(out) as f:
+            counts.setdefault(tag, {})[src] = len(pat.findall(f.read()))
+    return counts
+
+
 def nvidia_smi() -> str:
     try:
         r = subprocess.run(
@@ -1129,6 +1212,10 @@ def run_tree(root: str, argv: list) -> int:
     import os
 
     root = os.path.abspath(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    counts = ptx_divisions({"tree": root, "this": here})
+    print(f"[2] 64-bit integer div/rem in the PTX: {root} {counts['tree']}; {here} "
+          f"{counts['this']}")
     os.chdir(root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke_tree",
@@ -1188,6 +1275,8 @@ def main() -> int:
     if args.tree:
         return run_tree(args.tree, ["--profile", str(args.profile)] if args.profile else [])
 
+    import os
+
     import torch
 
     t_start = time.perf_counter()
@@ -1210,6 +1299,11 @@ def main() -> int:
     print(f"[2] build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds})")
     if _build.build_log.strip():
         print(_build.build_log.strip())
+    t0 = time.perf_counter()
+    divs = ptx_divisions({"this": os.path.dirname(os.path.abspath(__file__))})["this"]
+    print(f"[2] 64-bit integer div/rem in the PTX: {divs} ({time.perf_counter() - t0:.1f} s)")
+    check(divs["cube_ops.cu"] == 0, f"cube_ops.cu's PTX has {divs['cube_ops.cu']} 64-bit "
+          "integer divisions or remainders")
 
     # 4a. structured main-path setup (its shapes feed phase 3)
     t0 = time.perf_counter()
@@ -1221,6 +1315,14 @@ def main() -> int:
     # 3. cube kernels against their plain versions
     print(f"[3] kernels against plain versions (N={N} shapes)")
     kres = compare_kernels(solver, "cuda")
+    gather_loops(solver)
+    for cells in BOXES:
+        box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
+        tag = " " + "x".join(map(str, cells))
+        print(f"[3] kernels against plain versions ({len(cells)}D, {tag[1:]} cells)")
+        for name, recs in compare_kernels(box, "cuda", tag=tag).items():
+            kres[name] = kres[name] + recs
+        del box
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     kres.update(compare_solves({"float64": solver64, "float32": solver}, "cuda"))
     del solver64
@@ -1289,6 +1391,7 @@ def main() -> int:
     print(f"[3c] kernels against plain versions (N={N64} shapes)")
     for name, recs in compare_kernels(s64, "cuda", tag=f" N={N64}").items():
         kres[name] = kres[name] + recs
+    gather_loops(s64, tag=f" N={N64}")
     for name, recs in compare_solves(
             {"float64": (s64, torch.float64), "float32": (s64, torch.float32)}, "cuda",
             cases_fn=lambda pr, dev: solve_cases(pr[0], dev, dtype=pr[1]),
@@ -1410,8 +1513,11 @@ def main() -> int:
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True, layout="band"),
                "vessel band N=6")
 
-    # the two kernels redesigned against their one-call library yardsticks
-    for name, label in (("cube_gather", "TGV uab"), ("cube_gather", f"TGV uab N={N64}"),
+    # the kernels redesigned against their one-call library yardsticks
+    for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),
+                        ("matvec_const", "Ap_c batch 1"),
+                        ("matvec_const", f"Ap_c batch 1 N={N64}"),
+                        ("cube_gather", "TGV uab"), ("cube_gather", f"TGV uab N={N64}"),
                         ("band_matvec", "A_lhs batch 3")):
         r = next(c for c in kres[name] if c["case"] == label)
         side = "at or below" if r["ms"] <= r["library_ms"] else "above"

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_cube_gather": [P, P, I, I, I, I, I, I, I, P],
+    "oasisx_cube_gather_loop": [P, P, I, I, I, I, I, I, I, P],
     "oasisx_cube_scatter": [P, P, I, I, I, I, I, I, I, P],
     "oasisx_band_matvec": [P] * 6 + [I] * 5 + [P],
     "oasisx_band_bicgstab": [P] * 12 + [I, P, P] + [I] * 5 + [P],

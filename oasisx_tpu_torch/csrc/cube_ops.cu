@@ -33,20 +33,49 @@
 //                           package used it for the staged gather -> einsum ->
 //                           scatter products of its N=64 tier).
 //
-// Bound on the H100: memory.  K3 at N=36 (3D P2) must stream the 136 MB W
-// (729 x 46656 f32) once per call, 764 MB at N=64; x and y are 3 x 1.6 MB
-// (3 x 8.8 MB at N=64) and stay in L2.  K5, K6 and K7 read and write a few MB
-// with the small constant matrix in shared memory; their re-reads of x (each
-// input value is read by the <= 8 cubes around it) hit L1/L2.  No tensor
-// cores: the contractions are 27 x 27 per cube with nothing to batch into a
-// tile that the grid layout does not already give as a gather.  K8 writes U
-// (3 x 27 x 46656 f32, 15 MB at N=36) once and reads each grid value up to
-// 2^d times from L2; its index arithmetic is 32-bit with at most one
-// division a thread, where 64-bit divisions (a software sequence on the GPU)
-// made it integer-bound.  K13 reads U once and writes the grid once.
+// Bound on the H100.  K3 at N=36 (3D P2) must stream the 136 MB W
+// (729 x 46656 f32) once per call, 764 MB at N=64: memory.  K5, K6 and K7
+// read and write a few MB with the small constant matrix in shared memory,
+// and K13 reads U once (15 MB at N=36) and writes the grid once: by bytes
+// they are memory-bound too, and by operations K5's 27 x 27 products are
+// below 5% of the float32 rate.  What bounded them on this card was integer
+// work: an output side that split each grid index with 64-bit divisions and
+// remainders (a software sequence of dozens of instructions each) ran at
+// 12-88x their bounds, as K8 did at 18x its present time before it took the
+// shape below.  No
+// tensor cores: the contractions are 27 x 27 per cube with nothing to batch
+// into a tile that the grid layout does not already give as a gather.
+//
+// Launch shape of the standalone cube kernels (every one but K8), K8's
+// shape on the output grid: a block per (stretch of the plane of inner base
+// coordinates, outer base row, parity channel) on blockIdx.x/y/z, a thread
+// per output point for every output component.  In 3D the plane is (b1, b2)
+// and the row b0; a 2D grid is one row and the plane (b0, b1).  So a
+// thread's one division is t / g2 (32-bit), the channel's parities are
+// block-uniform (by subtraction, no division), the cubes that can hold the
+// point are the same across the block, and the padding test is a
+// comparison.  Neighbouring threads own neighbouring base points, so for
+// each cube slot they read neighbouring x, W and U (K13: U[b, to, :] for
+// each to) and write neighbouring y.  The plane is flat, so a block of 128
+// threads packs several of the short rows (36 base points a row at N=35, 37
+// at N=36, 65 at N=64): a plane of 37 x 37 points fills 11 blocks with 97%
+// of their threads useful (6 blocks of 256: 89%).  K13 keeps a thread's
+// <= 4 components in the thread (the point split once for all), where a
+// block per component would split it once each.
+//
+// Registers against latency.  A thread's loads are latency-bound: K12's 8
+// slots a cube with one coefficient each are unrolled (8 loads in flight);
+// the 27-slot loops stay rolled, since unrolled they take about twice the
+// registers and the occupancy they lose costs more than the latency they
+// hide.  K3 without premul (a W load a slot) and K7 (three input components
+// a slot) are held to 32 registers (kFill: 16 blocks, every thread slot of
+// an SM) when their grid has that many blocks (K3 at N=36 and N=64, K7 at
+// N=64; K7's 407 blocks at N=36 fill 3 an SM whatever the registers); K5
+// and K6 keep the registers the compiler gives them, which measured faster.
 //
 // Each entry point launches on the stream it is given, allocates nothing,
-// and returns cudaGetLastError() after the launch.
+// and returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// where an index would not fit in int32 (cube_fits).
 
 #include "cube_device.cuh"
 
@@ -54,9 +83,46 @@ namespace {
 
 using namespace oasisx;
 
-// kPm, kZm: y = zm * A (pm * x), pm and zm (batch, grid).
-template <typename T, bool kPm, bool kZm>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCubeThreads = 128;  // threads per block of the standalone cube kernels
+constexpr int kFillBlocks = 16;    // blocks an SM when every thread slot is filled (2048 threads)
+
+// The output point a thread of a standalone launch owns, and its flat index
+// in one component: block (x: a stretch of the plane of base points, y: the
+// base row b0, z: the parity channel); false past the plane's end.
+__device__ __forceinline__ bool block_point(const CubeArgs& a, CubePoint& q, int& idx) {
+  const int plane12 = a.g[1] * a.g[2];
+  const int t = blockIdx.x * kCubeThreads + threadIdx.x;
+  if (t >= plane12) return false;
+  // the channel's parities (block-uniform), by subtraction: < deg steps an axis
+  int r = blockIdx.z;
+  const int s0 = a.par[1] * a.par[2];
+  q.p[0] = 0;
+  while (r >= s0) {
+    r -= s0;
+    ++q.p[0];
+  }
+  q.p[1] = 0;
+  while (r >= a.par[2]) {
+    r -= a.par[2];
+    ++q.p[1];
+  }
+  q.p[2] = r;
+  q.b[0] = blockIdx.y;
+  q.b[1] = (int)((unsigned)t / (unsigned)a.g[2]);  // the thread's one division
+  q.b[2] = t - q.b[1] * a.g[2];
+  idx = blockIdx.z * a.plane + blockIdx.y * plane12 + t;
+  return true;
+}
+
+dim3 block_grid(const CubeArgs& a) {
+  return dim3((a.g[1] * a.g[2] + kCubeThreads - 1) / kCubeThreads, a.g[0],
+              a.par[0] * a.par[1] * a.par[2]);
+}
+
+// kPm, kZm: y = zm * A (pm * x), pm and zm (batch, grid); NL as cube_point's.
+// kFill: at most 32 registers a thread, so that kFillBlocks blocks fit on an SM.
+template <typename T, bool kPm, bool kZm, int NL, bool kFill>
+__global__ void __launch_bounds__(kCubeThreads, kFill ? kFillBlocks : 1)
 cube_apply_kernel(const T* __restrict__ x, const T* __restrict__ mat,
                   T* __restrict__ y, CubeArgs a, const T* __restrict__ pm,
                   const T* __restrict__ zm) {
@@ -65,13 +131,21 @@ cube_apply_kernel(const T* __restrict__ x, const T* __restrict__ mat,
   int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
   cube_stage(mat, a, smat, soff);
   __syncthreads();
-  cube_apply_range<T, kPm, kZm>(x, a.mat_len > 0 ? smat : mat, soff, a, y,
-                                (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
-                                (int64_t)gridDim.x * blockDim.x, pm, zm);
+  CubePoint q;
+  int idx;
+  if (!block_point(a, q, idx)) return;
+  T acc[kMaxBatch];
+  cube_point<T, kPm, NL>(x, a.mat_len > 0 ? smat : mat, soff, a, q, acc, pm);
+#pragma unroll
+  for (int bo = 0; bo < kMaxBatch; ++bo)
+    if (bo < a.nbo) {
+      const int i = bo * a.npad_out + idx;
+      y[i] = kZm ? zm[i] * acc[bo] : acc[bo];
+    }
 }
 
 // K8's launch: the grid offset of every input slot relative to its cube's
-// base (cube_stage's soff, computed on the host), and the cube grid cut as
+// base (slot_offset, computed on the host), and the cube grid cut as
 // (outer rows) x (a plane of A x B cubes): in 3D the rows are c0 and the
 // plane (c1, c2), in 2D one row and the plane (c0, c1).
 constexpr int kGatherThreads = 128;
@@ -113,46 +187,113 @@ void launch_gather(const void* x, void* u, const GatherArgs& g, dim3 grid, void*
       static_cast<const T*>(x), static_cast<T*>(u), g);
 }
 
-// the main path's 3D P2 cubes (27 slots) unrolled, any other count at run time
+// the main path's 3D P2 cubes (27 slots) unrolled, any other count at run
+// time; `loop` takes the run-time loop for any count
 template <typename T>
-void gather_dispatch(const void* x, void* u, const GatherArgs& g, dim3 grid, void* stream) {
-  if (g.nl == 27)
+void gather_dispatch(const void* x, void* u, const GatherArgs& g, dim3 grid, void* stream,
+                     bool loop) {
+  if (g.nl == 27 && !loop)
     launch_gather<T, 27>(x, u, g, grid, stream);
   else
     launch_gather<T, 0>(x, u, g, grid, stream);
 }
 
+// K8 on any slot count: cudaErrorInvalidValue where x or U has 2^31
+// entries or more, or a cube has more than kGatherMaxSlots slots.
+int gather(const void* x, void* u, int is_f64, int d, int n0, int n1, int n2, int deg,
+           int batch, void* stream, bool loop) {
+  const int n[3] = {n0, n1, d == 3 ? n2 : 0};
+  if ((d != 2 && d != 3) || deg < 1 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int nl = ipow(deg + 1, d);
+  int64_t ncube = 1;
+  for (int k = 0; k < d; ++k) ncube *= n[k];
+  if (nl > kGatherMaxSlots || ncube < 1 || (int64_t)batch * nl * ncube >= ((int64_t)1 << 31) ||
+      batch * grid_points(d, n, deg) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const CubeArgs a = base_args(d, n0, n1, n2, deg, deg);
+  GatherArgs g = {};
+  for (int ti = 0; ti < nl; ++ti) g.soff[ti] = slot_offset(d, n, deg, a.plane, ti);
+  g.nl = nl;
+  g.A = d == 3 ? n[1] : n[0];
+  g.B = n[d - 1];
+  g.plane = g.A * g.B;
+  g.ncube = (int)ncube;
+  g.npad = a.npad_out;
+  const int rows = d == 3 ? n[0] : 1;
+  const dim3 grid((g.plane + kGatherThreads - 1) / kGatherThreads, rows, batch);
+  if (is_f64)
+    gather_dispatch<double>(x, u, g, grid, stream, loop);
+  else
+    gather_dispatch<float>(x, u, g, grid, stream, loop);
+  return (int)cudaGetLastError();
+}
+
 // y[b, idx] = sum over the cubes c containing idx of U[b, slot of idx in c, c]:
-// (batch, nl, ncubes) -> (batch, npad), 0 at padding.
+// (nbo, nl, ncubes) -> (nbo, npad), 0 at padding, the components in the thread.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cube_scatter_kernel(const T* __restrict__ u, T* __restrict__ y, CubeArgs a, int batch,
-                    int64_t ncube) {
-  const int64_t total = (int64_t)batch * a.npad_out;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t b = e / a.npad_out;
-    const T* ub = u + b * a.nl_out * ncube;
-    T acc = T(0);
-    cube_visit(a, e - b * a.npad_out,
-               [&](int to, int64_t cube, int) { acc += ub[to * ncube + cube]; });
-    y[e] = acc;
-  }
+__global__ void __launch_bounds__(kCubeThreads)
+cube_scatter_kernel(const T* __restrict__ u, T* __restrict__ y, CubeArgs a, int ncube) {
+  CubePoint q;
+  int idx;
+  if (!block_point(a, q, idx)) return;
+  const int comp = a.nl_out * ncube;  // one component of U
+  T acc[kMaxBatch];
+#pragma unroll
+  for (int bo = 0; bo < kMaxBatch; ++bo) acc[bo] = T(0);
+  cube_visit(a, q, [&](int to, int cube, int) {
+    const T* ut = u + to * ncube + cube;
+#pragma unroll
+    for (int bo = 0; bo < kMaxBatch; ++bo)
+      if (bo < a.nbo) acc[bo] += __ldg(ut + bo * comp);
+  });
+#pragma unroll
+  for (int bo = 0; bo < kMaxBatch; ++bo)
+    if (bo < a.nbo) y[bo * a.npad_out + idx] = acc[bo];
 }
 
-int grid_blocks(int64_t work) {
-  const int64_t blocks_needed = (work + kThreads - 1) / kThreads;
-  return (int)(blocks_needed < 65535 * 16 ? blocks_needed : 65535 * 16);
+template <typename T, bool kPm, bool kZm, int NL, bool kFill>
+void launch_nl(const void* x, const void* mat, void* y, const CubeArgs& a, void* stream,
+               const void* pm, const void* zm) {
+  const size_t smem = sizeof(T) * a.mat_len + sizeof(int) * a.nl_in;
+  cube_apply_kernel<T, kPm, kZm, NL, kFill>
+      <<<block_grid(a), kCubeThreads, smem, (cudaStream_t)stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(mat), static_cast<T*>(y), a,
+          static_cast<const T*>(pm), static_cast<const T*>(zm));
 }
 
+// blocks that fill every SM's thread slots at kFillBlocks blocks an SM
+int fill_blocks() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms * kFillBlocks;
+  }();
+  return blocks;
+}
+
+// K12's 8 slots a cube with one coefficient a slot: the slot loop unrolled.
+// K3 without premul and K7, which load per slot from global memory (W) or
+// three input components: kFill when the grid fills the card at kFillBlocks
+// blocks an SM.  Every other case as it is.
 template <typename T, bool kPm, bool kZm>
 void launch_apply(const void* x, const void* mat, void* y, const CubeArgs& a, void* stream,
                   const void* pm, const void* zm) {
-  const int blocks = grid_blocks(a.npad_out);
-  const size_t smem = sizeof(T) * a.mat_len + sizeof(int) * a.nl_in;
-  cube_apply_kernel<T, kPm, kZm><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(mat), static_cast<T*>(y), a,
-      static_cast<const T*>(pm), static_cast<const T*>(zm));
+  const dim3 grid = block_grid(a);
+  const bool coef = a.m_bo == 0 && a.m_bi == 0;
+  if (coef && a.nl_in == 8 && a.mat_len > 0) {
+    launch_nl<T, kPm, kZm, 8, false>(x, mat, y, a, stream, pm, zm);
+    return;
+  }
+  if constexpr (!kPm) {
+    if ((a.mat_len == 0 || a.nbi > 1) &&
+        (int64_t)grid.x * grid.y * grid.z >= fill_blocks()) {
+      launch_nl<T, kPm, kZm, 0, true>(x, mat, y, a, stream, pm, zm);
+      return;
+    }
+  }
+  launch_nl<T, kPm, kZm, 0, false>(x, mat, y, a, stream, pm, zm);
 }
 
 // One launch of the cube operator; a null pm or zm means 1 and picks the
@@ -188,9 +329,9 @@ int batched(int is_f64, const void* x, const void* mat, void* y, CubeArgs a, int
   };
   for (int b0 = 0; b0 < batch; b0 += kMaxBatch) {
     a.nbo = batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch;
-    char* yb = static_cast<char*>(y) + esz * a.npad_out * b0;
-    const int err = dispatch(is_f64, at(x, a.x_bo * b0), mat, yb, a, stream,
-                             at(pm, a.x_bo * b0), at(zm, a.npad_out * b0));
+    const int64_t off = (int64_t)a.npad_out * b0;
+    const int err = dispatch(is_f64, at(x, off), mat, static_cast<char*>(y) + esz * off, a,
+                             stream, at(pm, off), at(zm, off));
     if (err) return err;
   }
   return 0;
@@ -203,6 +344,7 @@ extern "C" {
 // y[b] = A x[b] with constant cube matrix C (nl, nl); x, y (batch, grid).
 int oasisx_matvec_const(const void* x, const void* C, void* y, int is_f64, int d, int n0,
                         int n1, int n2, int deg, int batch, void* stream) {
+  if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
   return batched(is_f64, x, C, y, const_args(d, n0, n1, n2, deg, batch), batch, stream);
 }
 
@@ -212,6 +354,7 @@ int oasisx_matvec_const(const void* x, const void* C, void* y, int is_f64, int d
 int oasisx_matvec_win(const void* x, const void* W, const void* premul, const void* zmask,
                       void* y, int is_f64, int d, int n0, int n1, int n2, int deg, int batch,
                       void* stream) {
+  if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
   return batched(is_f64, x, W, y, win_args(d, n0, n1, n2, deg, batch), batch, stream, premul,
                  zmask);
 }
@@ -219,11 +362,12 @@ int oasisx_matvec_win(const void* x, const void* W, const void* premul, const vo
 // r[g] = C_all[g] p for g < ncomp; p (grid_q) -> r (ncomp, grid_v).
 int oasisx_mixed(const void* p, const void* C_all, void* r, int is_f64, int d, int n0,
                  int n1, int n2, int deg_v, int deg_q, int ncomp, void* stream) {
-  if (ncomp > kMaxBatch) return (int)cudaErrorInvalidValue;
+  if (ncomp > kMaxBatch || !cube_fits(d, n0, n1, n2, deg_v, deg_q, ncomp))
+    return (int)cudaErrorInvalidValue;
   CubeArgs a = base_args(d, n0, n1, n2, deg_v, deg_q);
   a.nbo = ncomp;
   a.nbi = 1;
-  a.m_bo = (int64_t)a.nl_out * a.nl_in;
+  a.m_bo = a.nl_out * a.nl_in;
   a.m_to = a.nl_in;
   a.m_ti = 1;
   a.mat_len = ncomp * a.nl_out * a.nl_in;
@@ -234,12 +378,13 @@ int oasisx_mixed(const void* p, const void* C_all, void* r, int is_f64, int d, i
 int oasisx_divergence(const void* u, const void* B_all, void* b2, int is_f64, int d,
                       int n0, int n1, int n2, int deg_v, int deg_q, int ncomp,
                       void* stream) {
-  if (ncomp > kMaxBatch) return (int)cudaErrorInvalidValue;
+  if (ncomp > kMaxBatch || !cube_fits(d, n0, n1, n2, deg_q, deg_v, ncomp))
+    return (int)cudaErrorInvalidValue;
   CubeArgs a = base_args(d, n0, n1, n2, deg_q, deg_v);
   a.nbo = 1;
   a.nbi = ncomp;
-  a.x_bi = grid_points(d, a.n, deg_v);
-  a.m_bi = (int64_t)a.nl_out * a.nl_in;
+  a.x_bi = (int)grid_points(d, a.n, deg_v);
+  a.m_bi = a.nl_out * a.nl_in;
   a.m_ti = a.nl_out;  // B_all[g] is (nl_v, nl_q) = (nl_in, nl_out): [ti, to]
   a.m_to = 1;
   a.mat_len = ncomp * a.nl_out * a.nl_in;
@@ -251,59 +396,42 @@ int oasisx_divergence(const void* u, const void* B_all, void* b2, int is_f64, in
 // more than kGatherMaxSlots slots.
 int oasisx_cube_gather(const void* x, void* u, int is_f64, int d, int n0, int n1, int n2,
                        int deg, int batch, void* stream) {
-  const CubeArgs a = base_args(d, n0, n1, n2, deg, deg);
-  int64_t ncube = 1;
-  for (int k = 0; k < d; ++k) ncube *= a.n[k];
-  if (a.nl_in > kGatherMaxSlots || batch < 1 || ncube < 1 ||
-      (int64_t)batch * a.nl_in * ncube >= ((int64_t)1 << 31) ||
-      (int64_t)batch * a.npad_out >= ((int64_t)1 << 31) || batch > 65535)
-    return (int)cudaErrorInvalidValue;
-  GatherArgs g = {};
-  // cube_stage's offsets: slot digits in C-order, parity channel and base
-  for (int ti = 0; ti < a.nl_in; ++ti) {
-    int digit[3];
-    int rem = ti;
-    for (int k = d - 1; k >= 0; --k) {
-      digit[k] = rem % (deg + 1);
-      rem /= deg + 1;
-    }
-    int ch = 0, boff = 0;
-    for (int k = 0; k < d; ++k) {
-      ch = ch * deg + digit[k] % deg;
-      boff = boff * (a.n[k] + 1) + digit[k] / deg;
-    }
-    g.soff[ti] = (int)(ch * a.plane_in) + boff;
-  }
-  g.nl = a.nl_in;
-  g.A = d == 3 ? a.n[1] : a.n[0];
-  g.B = a.n[d - 1];
-  g.plane = g.A * g.B;
-  g.ncube = (int)ncube;
-  g.npad = (int)a.npad_out;
-  const int rows = d == 3 ? a.n[0] : 1;
-  const dim3 grid((g.plane + kGatherThreads - 1) / kGatherThreads, rows, batch);
-  if (is_f64)
-    gather_dispatch<double>(x, u, g, grid, stream);
-  else
-    gather_dispatch<float>(x, u, g, grid, stream);
-  return (int)cudaGetLastError();
+  return gather(x, u, is_f64, d, n0, n1, n2, deg, batch, stream, false);
+}
+
+// The same with the run-time slot loop whatever the slot count (the main
+// path's 27 slots are otherwise unrolled): the two loops timed on one input.
+int oasisx_cube_gather_loop(const void* x, void* u, int is_f64, int d, int n0, int n1,
+                            int n2, int deg, int batch, void* stream) {
+  return gather(x, u, is_f64, d, n0, n1, n2, deg, batch, stream, true);
 }
 
 // y[b] = the grid vector assembled from the cube-local values U[b];
-// U (batch, nl, ncubes) -> y (batch, grid).
+// U (batch, nl, ncubes) -> y (batch, grid), in launches of kMaxBatch
+// components.
 int oasisx_cube_scatter(const void* u, void* y, int is_f64, int d, int n0, int n1, int n2,
                         int deg, int batch, void* stream) {
-  const CubeArgs a = base_args(d, n0, n1, n2, deg, deg);
+  if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
+  CubeArgs a = base_args(d, n0, n1, n2, deg, deg);
   int64_t ncube = 1;
   for (int k = 0; k < d; ++k) ncube *= a.n[k];
-  const int blocks = grid_blocks((int64_t)batch * a.npad_out);
-  if (is_f64)
-    cube_scatter_kernel<double><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const double*>(u), static_cast<double*>(y), a, batch, ncube);
-  else
-    cube_scatter_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<const float*>(u), static_cast<float*>(y), a, batch, ncube);
-  return (int)cudaGetLastError();
+  const int64_t comp = a.nl_out * ncube;
+  if (batch * comp >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  const size_t esz = is_f64 ? sizeof(double) : sizeof(float);
+  for (int b0 = 0; b0 < batch; b0 += kMaxBatch) {
+    a.nbo = batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch;
+    const void* ub = static_cast<const char*>(u) + esz * comp * b0;
+    void* yb = static_cast<char*>(y) + esz * a.npad_out * b0;
+    if (is_f64)
+      cube_scatter_kernel<double><<<block_grid(a), kCubeThreads, 0, (cudaStream_t)stream>>>(
+          static_cast<const double*>(ub), static_cast<double*>(yb), a, (int)ncube);
+    else
+      cube_scatter_kernel<float><<<block_grid(a), kCubeThreads, 0, (cudaStream_t)stream>>>(
+          static_cast<const float*>(ub), static_cast<float*>(yb), a, (int)ncube);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -28,6 +28,8 @@ constexpr int kMaxRed = 8;        // values reduced together
 
 __device__ __forceinline__ float vsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double vsqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float vfma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double vfma(double a, double b, double c) { return fma(a, b, c); }
 
 template <typename T>
 __device__ __forceinline__ T nz(T v) {
@@ -84,12 +86,15 @@ __device__ __forceinline__ void zero(T* v) {
 }
 
 // Cooperative launch of one block per kRedThreads points of `work`, at most
-// as many blocks as fit on the card at once; refuses (returns an error)
-// rather than launching a grid that cannot be resident, or one larger than
-// the caller's reduction slots (max_blocks).
+// as many blocks as fit on the card at once, and at most per_sm_cap an SM
+// when it is > 0 (a kernel's launch bound: then the grid, and with it the
+// order of every reduction, does not depend on the registers the compiler
+// assigns); refuses (returns an error) rather than launching a grid that
+// cannot be resident, or one larger than the caller's reduction slots
+// (max_blocks).
 template <typename Args>
 int coop_launch(void (*kernel)(Args), Args& args, int64_t work, size_t smem, int max_blocks,
-                void* stream) {
+                void* stream, int per_sm_cap = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -97,6 +102,7 @@ int coop_launch(void (*kernel)(Args), Args& args, int64_t work, size_t smem, int
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRedThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm_cap > 0 && per_sm > per_sm_cap) per_sm = per_sm_cap;
   const int64_t need = (work + kRedThreads - 1) / kRedThreads;
   int64_t grid = (int64_t)per_sm * sms;
   if (need < grid) grid = need < 1 ? 1 : need;

@@ -31,7 +31,21 @@
 //
 // Operators: the cube device function of cube_device.cuh, with the constant
 // matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in shared
-// memory, or K2's per-cube weights W read from global memory.
+// memory, or K2's per-cube weights W read from global memory.  The grid is
+// fixed by the cooperative launch, so a product's grid-stride loop cannot
+// take its points' parities and base coordinates from blockIdx, as the
+// standalone cube kernels do: each point is split in place by cube_split's
+// multiply-and-shift divisions, whose constants are kernel parameters, so
+// the split holds no register across the loop.  K1's 8 slots a cube (P1)
+// and K2's 27 are unrolled (NL), so a thread's loads of one cube are in
+// flight together at these kernels' 2-3 blocks an SM; K4's 27-slot loop
+// stays rolled (unrolled, it ran slower on this card).  Blocks an SM are
+// fixed (kMinBlocks, kSolveBlocks: launch bound and grid cap), and K1's
+// Chebyshev updates fuse c1 dk into an explicit fma, so neither the grid
+// nor the rounding of a step depends on how the compiler allocates
+// registers or contracts products: a run repeats bit for bit across
+// builds of this source.  K1's grid transfers still find a point's
+// coordinates with 64-bit divisions (coords).
 //
 // Bound on the H100.  K2: memory; each iteration applies A_W twice, and each
 // application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
@@ -57,6 +71,13 @@ static_assert(kThreads == kRedThreads, "one block size for the cube and reductio
 static_assert(kMaxRed == 2 * kMaxBatch, "two sums per batch row");
 
 constexpr int kMaxLevels = 8;
+// Blocks an SM of each whole-solve kernel: its launch bound and the cap of
+// its cooperative grid, so that the grid, and with it the order of every
+// reduction, does not depend on the registers the compiler assigns.  K4 and
+// K1's non-MG mode hold 3 in float32 (<= 80 registers), the others 2.
+template <typename T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
+constexpr int kSolveBlocks = 2;
 
 // Shared memory: [matrix (mat_len T)] [slot offsets (nl ints)] [reduction].
 template <typename T>
@@ -92,7 +113,7 @@ struct CgMassArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) cg_mass_kernel(CgMassArgs<T> P) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMassArgs<T> P) {
   const CubeArgs& a = P.a;
   const int nb = a.nbo;  // rows solved together
   const int64_t n = a.npad_out;
@@ -146,7 +167,7 @@ __global__ void __launch_bounds__(kThreads, 2) cg_mass_kernel(CgMassArgs<T> P) {
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point(P.p, smat, soff, a, idx, acc);
+      cube_point(P.p, smat, soff, a, cube_split(a, (int)idx), acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -234,8 +255,8 @@ struct BicgArgs {
   int maxiter;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) bicgstab_kernel(BicgArgs<T> P) {
+template <typename T, int NL>
+__global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgArgs<T> P) {
   const CubeArgs& a = P.a;
   const int nb = a.nbo;  // rows solved together
   const int64_t n = a.npad_out;
@@ -287,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 2) bicgstab_kernel(BicgArgs<T> P) {
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point(P.y, P.W, soff, a, idx, acc);
+      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, (int)idx), acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -319,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 2) bicgstab_kernel(BicgArgs<T> P) {
     zero(s);
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point(P.y, P.W, soff, a, idx, acc);
+      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, (int)idx), acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -452,8 +473,8 @@ __device__ __forceinline__ int prolong_taps(int i, int* I, float* w) {
   return 2;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) pressure_mg_kernel(MgArgs<T> P) {
+template <typename T, int NL>
+__global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgArgs<T> P) {
   const int L = P.L;
   const int nl = P.lv[0].nl_in;
   const int nn = nl * nl;
@@ -490,7 +511,8 @@ __global__ void __launch_bounds__(kThreads, 2) pressure_mg_kernel(MgArgs<T> P) {
 
   auto mv = [&](int l, const T* src, int64_t idx) -> T {
     T acc[kMaxBatch];
-    cube_point(src, smat + l * nn, soff + l * nl, P.lv[l], idx, acc);
+    cube_point<T, false, NL>(src, smat + l * nn, soff + l * nl, P.lv[l],
+                             cube_split(P.lv[l], (int)idx), acc);
     return acc[0];
   };
   auto swapz = [&](int l) {
@@ -570,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 2) pressure_mg_kernel(MgArgs<T> P) {
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);
       for (int64_t idx = first; idx < P.lev[lc].n; idx += stride) {
-        const T dk = c1 * t[lc][idx] + c2 * (iv[lc][idx] * (rr[lc][idx] - mv(lc, z[lc], idx)));
+        const T dk = vfma(c1, t[lc][idx], c2 * (iv[lc][idx] * (rr[lc][idx] - mv(lc, z[lc], idx))));
         t[lc][idx] = dk;
         zb[lc][idx] = z[lc][idx] + dk;
       }
@@ -740,8 +762,8 @@ struct PcgArgs {
   double lmin, lmax, rtol;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) pressure_cg_kernel(PcgArgs<T> P) {
+template <typename T, int NL>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(PcgArgs<T> P) {
   const CubeArgs& a = P.a;
   const int64_t n = a.npad_out;
   unsigned char* smem = dynamic_smem();
@@ -770,7 +792,7 @@ __global__ void __launch_bounds__(kThreads, 2) pressure_cg_kernel(PcgArgs<T> P) 
 
   auto mv = [&](const T* src, int64_t idx) -> T {
     T acc[kMaxBatch];
-    cube_point(src, smat, soff, a, idx, acc);
+    cube_point<T, false, NL>(src, smat, soff, a, cube_split(a, (int)idx), acc);
     return acc[0];
   };
   T s[kMaxRed] = {};
@@ -794,7 +816,7 @@ __global__ void __launch_bounds__(kThreads, 2) pressure_cg_kernel(PcgArgs<T> P) 
       const T c2 = (T)(2.0 * rho_new / delta);
       zero(s);
       for (int64_t idx = first; idx < n; idx += stride) {
-        const T d = c1 * dk[idx] + c2 * (iv[idx] * (r[idx] - mv(z, idx)));
+        const T d = vfma(c1, dk[idx], c2 * (iv[idx] * (r[idx] - mv(z, idx))));
         dk[idx] = d;
         const T zn = z[idx] + d;
         zb[idx] = zn;
@@ -918,8 +940,8 @@ int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* in
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
-  return coop_launch(cg_mass_kernel<T>, P, n, smem_bytes<T>(P.a.mat_len, P.a.nl_in),
-                     max_blocks, stream);
+  const size_t smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
+  return coop_launch(cg_mass_kernel<T>, P, n, smem, max_blocks, stream, kMinBlocks<T>);
 }
 
 template <typename T>
@@ -946,8 +968,10 @@ int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* z
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
-  return coop_launch(bicgstab_kernel<T>, P, n, smem_bytes<T>(0, P.a.nl_in), max_blocks,
-                     stream);
+  const size_t smem = smem_bytes<T>(0, P.a.nl_in);
+  return P.a.nl_in == 27
+             ? coop_launch(bicgstab_kernel<T, 27>, P, n, smem, max_blocks, stream, kSolveBlocks)
+             : coop_launch(bicgstab_kernel<T, 0>, P, n, smem, max_blocks, stream, kSolveBlocks);
 }
 
 template <typename T>
@@ -991,8 +1015,12 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
   P.lmax = lmax;
   P.rtol = rtol;
   const int nl = P.lv[0].nl_in;
-  return coop_launch(pressure_mg_kernel<T>, P, P.lev[0].n,
-                     smem_bytes<T>(levels * nl * nl, levels * nl), max_blocks, stream);
+  const size_t smem = smem_bytes<T>(levels * nl * nl, levels * nl);
+  return nl == 8
+             ? coop_launch(pressure_mg_kernel<T, 8>, P, P.lev[0].n, smem, max_blocks, stream,
+                           kSolveBlocks)
+             : coop_launch(pressure_mg_kernel<T, 0>, P, P.lev[0].n, smem, max_blocks, stream,
+                           kSolveBlocks);
 }
 
 template <typename T>
@@ -1017,11 +1045,18 @@ int pressure_cg_launch(const void* Ap, const void* b, const void* x0, const void
   P.lmin = lmin;
   P.lmax = lmax;
   P.rtol = rtol;
-  return coop_launch(pressure_cg_kernel<T>, P, P.a.npad_out,
-                     smem_bytes<T>(P.a.mat_len, P.a.nl_in), max_blocks, stream);
+  const size_t smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
+  return P.a.nl_in == 8
+             ? coop_launch(pressure_cg_kernel<T, 8>, P, P.a.npad_out, smem, max_blocks, stream,
+                           kMinBlocks<T>)
+             : coop_launch(pressure_cg_kernel<T, 0>, P, P.a.npad_out, smem, max_blocks, stream,
+                           kMinBlocks<T>);
 }
 
-bool batch_ok(int d, int batch) { return (d == 2 || d == 3) && batch >= 1 && batch <= kMaxBatch; }
+// d, batch and every index in int32 (cube_fits)
+bool batch_ok(int d, int n0, int n1, int n2, int deg, int batch) {
+  return batch <= kMaxBatch && cube_fits(d, n0, n1, n2, deg, deg, batch);
+}
 
 }  // namespace
 
@@ -1035,7 +1070,7 @@ int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* in
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int is_f64, int d, int n0, int n1, int n2,
                    int deg, int batch, int maxiter, void* stream) {
-  if (!batch_ok(d, batch)) return (int)cudaErrorInvalidValue;
+  if (!batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
   return is_f64 ? cg_mass_launch<double>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
                                          rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
                 : cg_mass_launch<float>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
@@ -1049,7 +1084,7 @@ int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* z
                     const void* invd, const void* tol, void* x, void* work, void* red,
                     int max_blocks, void* iters, void* rnorm, int is_f64, int d, int n0,
                     int n1, int n2, int deg, int batch, int maxiter, void* stream) {
-  if (!batch_ok(d, batch)) return (int)cudaErrorInvalidValue;
+  if (!batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
   return is_f64
              ? bicgstab_launch<double>(W, r0, x0, zmask, invd, tol, x, work, red, max_blocks,
                                        iters, rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
@@ -1066,7 +1101,7 @@ int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void
                        void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
                        int levels, int nsmooth, double omega, double lmin, double lmax,
                        int cheb_degree, double rtol, int maxiter, void* stream) {
-  if ((d != 2 && d != 3) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
+  if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
       cheb_degree < 1)
     return (int)cudaErrorInvalidValue;
   return is_f64 ? pressure_mg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
@@ -1086,7 +1121,8 @@ int oasisx_pressure_cg(const void* Ap, const void* b, const void* x0, const void
                        void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
                        int cheb_degree, double lmin, double lmax, double rtol, int maxiter,
                        void* stream) {
-  if ((d != 2 && d != 3) || cheb_degree < 0 || (cheb_degree > 0 && !(lmin < lmax)))
+  if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || cheb_degree < 0 ||
+      (cheb_degree > 0 && !(lmin < lmax)))
     return (int)cudaErrorInvalidValue;
   return is_f64 ? pressure_cg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
                                              rnorm, conv, d, n0, n1, n2, cheb_degree, lmin, lmax,

@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Card: requires torch.cuda; prints the device and nvidia-smi's name and
    power limit.
 2. Build: compiles the CUDA kernels of oasisx_tpu_torch/csrc (first use),
-   and emits the PTX of cube_ops.cu and krylov_ops.cu (nvcc -ptx): the
-   count of 64-bit integer divisions and remainders (div/rem on .s64/.u64)
-   in each is printed, and phase 2 fails unless cube_ops.cu has none.
+   and emits the PTX of cube_ops.cu, krylov_ops.cu and ell_ops.cu (nvcc
+   -ptx): the count of 64-bit integer divisions and remainders (div/rem on
+   .s64/.u64) in each is printed, and phase 2 fails unless cube_ops.cu and
+   krylov_ops.cu have none.
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
    timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1
@@ -30,7 +31,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with equal iteration counts in f64 (rtol 1e-8), to 10 rtol with
    iterations within 1 per row in f32 (rtol 1e-5), and a second kernel
    call bit-identical to the first.  The plain solves loop on the host
-   with their operators on the cube kernels' plain versions.
+   with their operators on the cube kernels' plain versions.  Printed for
+   K1 (and in 3c at N=64): its levels, the levels that run on the
+   sub-group of blocks, and its grid and sub-group barriers an iteration.
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
    dofs) in float32 on the card, bench settings (dt 2e-3, nu 1/1600, rtol
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
@@ -71,6 +74,10 @@ any failure or when there is no card.
    10 rtol with iterations within 10% (at least 1) per row in f32 (rtol
    1e-5); every repeat call bit-identical.  K14 is also timed against one
    torch.sparse CSR product of the same operator (the library yardstick).
+   Printed per ELL operator: the bytes a float32 K14 product reads of its
+   32-row slices' widths, and the share of them that are entries, against
+   all K slots; K14's records carry those bytes ("read_bytes"), while the
+   bound counts the real nonzeros.
 4b. The vessel path at N=36 in float32 (dt 2e-3, nu 1/1600, rtol 1e-5,
    max_iter 1, CG velocity update, low_memory_version False): 5 warm-up
    and 25 timed steps, the same checks as phase 4 on the ELL kernels, and
@@ -124,7 +131,14 @@ library times are device times of back-to-back calls (``time_ms``).
 
 --tree DIR runs the chip_smoke.py of another checkout DIR (a parent
 commit unpacked with ``git archive``) on its own package and kernel build,
-with this file's ``time_ms``: two trees' times from one timer.
+with this file's ``time_ms``: two trees' times from one timer.  Each main
+path's per-step u / p / c iterations and a hash of its final state go to
+build/chip_smoke_steps_tree.json (under --tree) or _this.json (this
+checkout); a --tree run that finds _this.json fails unless the iterations
+of every step of phases 4, 4f, 4d, 4b, 4e and 4c equal those of this
+checkout's run, and prints whether the final states are bit-identical.
+Run parent, change, change, parent in one call, after removing both
+files: the last parent run compares.
 --band-setup N only times the host set-up of the band layout of the
 vessel's P2 dofmap at N (``build_band_assembly`` on the CPU) and prints
 the process's peak resident memory before and after it; with --tree, the
@@ -312,8 +326,12 @@ def time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
     (``torch.cuda._sleep``) holds the stream while the host enqueues the
     calls, sized from the host time of one call (at most 50 ms), so a call
     shorter than its own Python and launch overhead is not timed as that
-    overhead.  A call that waits on the device inside (a plain solve's host
-    loop) is timed with its waits."""
+    overhead.  Where the spin ended before the host had enqueued every call
+    (the device may then have waited for the host between calls), the
+    reading is taken once more behind a spin four times as long, and a
+    reading that this lowers by more than 10% is printed with the first.  A
+    call that waits on the device inside (a plain solve's host loop) is
+    timed with its waits."""
     import torch
 
     for _ in range(warmup):
@@ -323,16 +341,29 @@ def time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
         t = time.perf_counter()
         fn()
         host_s = time.perf_counter() - t
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(SPIN_CYCLES_S * min(1.5 * reps * host_s + 1e-4, 0.05)))
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
+        spin_s = min(1.5 * reps * host_s + 1e-4, 0.05)
+        first = None
+        while True:
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(SPIN_CYCLES_S * spin_s))
+            t0.record()
+            for _ in range(reps):
+                fn()
+            caught_up = t0.query()  # the spin has ended: the device may have waited
+            t1.record()
+            torch.cuda.synchronize()
+            ms = t0.elapsed_time(t1) / reps
+            if first is not None:
+                if ms < 0.9 * first:
+                    print(f"    [timer] {first:.4f} ms a call behind a {spin_s / 4 * 1e3:.2f} ms "
+                          f"spin that ended before the host had enqueued {reps} calls; "
+                          f"{ms:.4f} ms behind a {spin_s * 1e3:.2f} ms spin")
+                return ms
+            if not caught_up or spin_s >= 0.05:
+                return ms
+            first, spin_s = ms, 4 * spin_s
     t = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -385,6 +416,21 @@ def ell_csr(vals, cols):
     return torch.sparse_csr_tensor(crow, C[m], V[m], (V.shape[0], V.shape[0]))
 
 
+def ell_read(asm, isz: int) -> tuple[float, float]:
+    """(bytes, fill) of one K14 product's operator read: each row reads its
+    32-row slice's width of values and columns (and the slice's width), and
+    the share of the slots read that hold an entry."""
+    import numpy as np
+
+    from oasisx_tpu_torch.parallel.graph import ELL_SLICE
+
+    w = asm.widths.cpu().numpy().astype(np.int64)
+    rows = np.full(w.shape, ELL_SLICE, dtype=np.int64)
+    rows[-1] = asm.n - ELL_SLICE * (len(w) - 1)
+    slots = float((w * rows).sum())
+    return (isz + 4) * slots + 4 * len(w), asm.nnz / slots
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the structured path's kernels
 # ---------------------------------------------------------------------------
@@ -421,7 +467,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     pm = rnd(d, nv) * valid_v
     zm = solver._zmask.to(dtype)
     U = rnd(d, nl, nc)
-    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "B", "G", "div", "scatter"))
+    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "W1", "B", "G", "div", "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
@@ -437,9 +483,11 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
                       (nq, d * nv))
         uflat = xv.reshape(-1)
         ivf, Uf = iv.reshape(-1), U.reshape(d, -1)
+        x1 = xv[0].contiguous()
         lib = dict(gather=lambda: uab[:, iv], gather_q=lambda: xq[None][:, iq],
                    M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
-                   W=lambda: A_W @ xt, B=lambda: A_B @ xq, G=lambda: A_G @ xq,
+                   W=lambda: A_W @ xt, W1=lambda: A_W @ x1, B=lambda: A_B @ xq,
+                   G=lambda: A_G @ xq,
                    div=lambda: A_div @ uflat,
                    scatter=lambda: torch.zeros_like(xv).index_add_(1, ivf, Uf))
     mv = lambda nlo, nli, B: 2.0 * nlo * nli * nc * B  # cube matvec operations
@@ -467,7 +515,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
          (isz * (nl * nl * nc + 4 * d * nv), mv(nl, nl, d) + 2.0 * d * nv), None),
         ("matvec_win", "W batch 1",
          lambda: kn.matvec_win(W, xv[:1], sm_v), lambda: kn.matvec_win_plain(W, xv[:1], sm_v),
-         valid_v, (isz * (nl * nl * nc + 2 * nv), mv(nl, nl, 1)), None),
+         valid_v, (isz * (nl * nl * nc + 2 * nv), mv(nl, nl, 1)), lib["W1"]),
         ("mixed", "B_c",
          lambda: kn.mixed(xq, B_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, B_c, sm_v, sm_q),
          valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["B"]),
@@ -580,7 +628,7 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la import fused
-    from oasisx_tpu_torch.la.pressure_mg import PressureMGCG
+    from oasisx_tpu_torch.la.pressure_mg import PressureMGCG, barriers
 
     dtype = dtype or solver._dtype
     rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
@@ -609,6 +657,12 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     diag = solver._Ap_diag.detach().cpu().double().numpy()
     invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
     pcg = PressureMGCG(sm_q, Ap_c, invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol, maxiter)
+    L = len(pcg.levels)
+    grid, sub = barriers(L, pcg.sub_level, pcg.nsmooth, pcg.coarse[2])
+    print(f"  pressure_mg   {L} levels of {[int(np.prod(lv['grid'])) for lv in pcg.levels]} points "
+          f"({dtype}): levels {pcg.sub_level}-{L - 1} on {pcg.sub_blocks} blocks; barriers an "
+          f"iteration: {grid} grid, {sub} sub-group (all on the grid: "
+          f"{barriers(L, L, pcg.nsmooth, pcg.coarse[2])[0]})")
     bq = rnd(nq)
     bq = bq - bq.mean()
     xq = torch.zeros_like(bq)
@@ -803,19 +857,25 @@ def ell_kernel_cases(vsolver, device, seed: int = 2):
         A_csr, Ap_csr = ell_csr(vals, ev.cols), ell_csr(Apv, eq.cols)
         x3t = x3.T.contiguous()
         lib = dict(A3=lambda: A_csr @ x3t, A1=lambda: A_csr @ x1, Ap=lambda: Ap_csr @ xq)
+    # the bound reads the real nonzeros; "read_bytes": what K14 reads of the
+    # operator, its slices' widths of values and columns
     work = lambda nnz, n, nb: ((isz + 4) * nnz + isz * 2 * nb * n, 2.0 * nnz * nb)
+    read = lambda e: {"read_bytes": ell_read(e, isz)[0]}
     amg = vsolver._amg_data
     r = rnd(eq.n)
     return [
         ("ell_matvec", "A_lhs batch 3",
-         lambda: ell.ell_matvec(vals, ev.cols, x3), lambda: ell.ell_matvec_plain(vals, ev.cols, x3),
-         work(ev.nnz, ev.n, 3), lib.get("A3")),
+         lambda: ell.ell_matvec(vals, ev.cols, ev.widths, x3),
+         lambda: ell.ell_matvec_plain(vals, ev.cols, x3), work(ev.nnz, ev.n, 3), lib.get("A3"),
+         read(ev)),
         ("ell_matvec", "A_lhs batch 1",
-         lambda: ell.ell_matvec(vals, ev.cols, x1), lambda: ell.ell_matvec_plain(vals, ev.cols, x1),
-         work(ev.nnz, ev.n, 1), lib.get("A1")),
+         lambda: ell.ell_matvec(vals, ev.cols, ev.widths, x1),
+         lambda: ell.ell_matvec_plain(vals, ev.cols, x1), work(ev.nnz, ev.n, 1), lib.get("A1"),
+         read(ev)),
         ("ell_matvec", "Ap batch 1",
-         lambda: ell.ell_matvec(Apv, eq.cols, xq), lambda: ell.ell_matvec_plain(Apv, eq.cols, xq),
-         work(eq.nnz, eq.n, 1), lib.get("Ap")),
+         lambda: ell.ell_matvec(Apv, eq.cols, eq.widths, xq),
+         lambda: ell.ell_matvec_plain(Apv, eq.cols, xq), work(eq.nnz, eq.n, 1), lib.get("Ap"),
+         read(eq)),
         ("ell_pcg_amg", f"V-cycle alone, {len(amg[0]['levels']) + 1} levels",
          lambda: ell.ell_vcycle(amg, r), lambda: ell.ell_vcycle_plain(amg, r),
          _amg_work(amg, isz), None),
@@ -825,7 +885,7 @@ def ell_kernel_cases(vsolver, device, seed: int = 2):
 def compare_ell_kernels(vsolvers: dict, device, cases_fn=None) -> dict:
     """Phases 3b and 3d, products: in f64 (1e-12) and f32 (1e-5), max
     relative error against the plain version, a repeat bit-identical; f32
-    timed (with any other timings a case names).  The V-cycle's records go
+    timed (with any other timings a case names, and its other numbers).  The V-cycle's records go
     under "cases" of K17 only."""
     import torch
 
@@ -843,7 +903,7 @@ def compare_ell_kernels(vsolvers: dict, device, cases_fn=None) -> dict:
             check(rel <= tol, f"{name} ({label}, {tag}) disagrees: rel err {rel:.3e}")
             check(same, f"{name} ({label}, {tag}): a second kernel call differs from the first")
             if tag == "float32" and torch.device(device).type == "cuda":
-                more = {key: min(time_ms(fn, device), time_ms(fn, device))
+                more = {key: min(time_ms(fn, device), time_ms(fn, device)) if callable(fn) else fn
                         for key, fn in (extra[0] if extra else {}).items()}
                 out.setdefault(name, []).append(
                     _timed(name, label, kfn, pfn, device, err, work, lib, reps=20, preps=5,
@@ -881,6 +941,7 @@ def ell_solve_cases(pair, device, seed: int = 3):
     r0 = zmask * (rhs - ell.ell_matvec_plain(vals, ev.cols, tx0))
     tbn = torch.linalg.vector_norm(rhs, dim=-1)
     tinvd = torch.where(diag != 0, 1.0 / diag, 1.0)
+    op = (vals, ev.cols, ev.widths)
 
     # K16: M x = b, x0 = 0
     b = rnd(3, n)
@@ -898,19 +959,20 @@ def ell_solve_cases(pair, device, seed: int = 3):
     rows = lambda res: float(res.iters.sum())
     nnz_bytes = lambda e: (isz + 4) * e.nnz
     pcg = lambda s, bb, xx, mask: (
-        lambda: ell.ell_pcg_amg(s._amg_data, s._Ap_vals, s._ell_q.cols, bb, xx, rtol, maxiter,
-                                mask=mask),
+        lambda: ell.ell_pcg_amg(s._amg_data, s._Ap_vals, s._ell_q.cols, s._ell_q.widths, bb, xx,
+                                rtol, maxiter, mask=mask),
         lambda: ell.ell_pcg_amg_plain(s._amg_data, s._Ap_vals, s._ell_q.cols, bb, xx, rtol,
                                       maxiter, mask=mask),
         lambda res: _amg_work(s._amg_data, isz, int(res.iters)))
     return rtol, [
         ("ell_bicgstab", "TGV first step, bc rows",
-         lambda: ell.ell_bicgstab(vals, ev.cols, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
+         lambda: ell.ell_bicgstab(*op, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
          lambda: ell.ell_bicgstab_plain(vals, ev.cols, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
          lambda res: (nnz_bytes(ev) + isz * (4 * 3 * n + n),
                       rows(res) * (4.0 * ev.nnz + 20 * n))),
         ("ell_cg", "M, random rhs",
-         lambda: ell.ell_cg(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
+         lambda: ell.ell_cg(vs._M_vals, ev.cols, ev.widths, b, x0, vs._M_invd, bn, rtol,
+                            maxiter),
          lambda: ell.ell_cg_plain(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
          lambda res: (nnz_bytes(ev) + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n))),
         ("ell_pcg_amg", f"Ap nullspace, {len(vs._amg_data[0]['levels']) + 1} levels",
@@ -974,12 +1036,13 @@ def band_kernel_cases(pair, device, seed: int = 4):
         ("band_matvec", "A_lhs batch 3",
          lambda: band.band_matvec(vals, *bv.tables, x3b),
          lambda: band.band_matvec_plain(vals, *bv.tables, x3b),
-         work(ev.nnz, ev.n, 3), lib["A3"], {"ell_ms": lambda: ell.ell_matvec(evals, ev.cols, x3)}),
+         work(ev.nnz, ev.n, 3), lib["A3"],
+         {"ell_ms": lambda: ell.ell_matvec(evals, ev.cols, ev.widths, x3)}),
         ("band_matvec", "Ap batch 1",
          lambda: band.band_matvec(avals, *bq.tables, xqb),
          lambda: band.band_matvec_plain(avals, *bq.tables, xqb),
          work(eq.nnz, eq.n, 1), lib["Ap"],
-         {"ell_ms": lambda: ell.ell_matvec(es._Ap_vals, eq.cols, xq)}),
+         {"ell_ms": lambda: ell.ell_matvec(es._Ap_vals, eq.cols, eq.widths, xq)}),
     ]
 
 
@@ -1033,14 +1096,14 @@ def band_solve_cases(pair, device, seed: int = 5):
          lambda: band.band_bicgstab(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
          lambda: band.band_bicgstab_plain(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
          lambda res: (nnz_bytes + isz * (4 * 3 * n + n), rows(res) * (4.0 * ev.nnz + 20 * n)),
-         {"ell_ms": lambda: ell.ell_bicgstab(evals, ev.cols, er0, tx0, zmask, tinvd, tbn, rtol,
-                                             maxiter)}),
+         {"ell_ms": lambda: ell.ell_bicgstab(evals, ev.cols, ev.widths, er0, tx0, zmask, tinvd,
+                                             tbn, rtol, maxiter)}),
         ("band_cg", "M, random rhs",
          lambda: band.band_cg(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
          lambda: band.band_cg_plain(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
          lambda res: (nnz_bytes + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n)),
-         {"ell_ms": lambda: ell.ell_cg(es._M_vals, ev.cols, b, torch.zeros_like(b), es._M_invd,
-                                       bn, rtol, maxiter)}),
+         {"ell_ms": lambda: ell.ell_cg(es._M_vals, ev.cols, ev.widths, b, torch.zeros_like(b),
+                                       es._M_invd, bn, rtol, maxiter)}),
     ]
 
 
@@ -1078,10 +1141,68 @@ def drive_main_path(solver, warmup: int, steps: int, device, kernels, dt=DT, nu=
     if torch.device(device).type == "cuda":
         check(bool(np.all(stats["host_syncs"] == 0)),
               f"host reads inside the steps: {stats['host_syncs'].tolist()}")
-    return dict(stats=stats, wall=wall, launches=launches, plain=plain)
+    return dict(stats=stats, wall=wall, launches=launches, plain=plain,
+                state_sha=state_sha(solver))
 
 
-def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: dict) -> None:
+class StepLog:
+    """Per main path (phase tag): every timed step's u / p / c iterations
+    and a hash of the final velocity and pressure, written to
+    build/chip_smoke_steps_<role>.json beside this file; role "this" for
+    this checkout's run, "tree" for another checkout's run under --tree.
+    Only a --tree run compares: where this checkout's file holds the same
+    tag, the iterations must be equal step for step (the state hashes are
+    printed, equal or not).  A plain run only writes its file, so no file
+    left by an earlier run decides whether it passes."""
+
+    def __init__(self, role: str):
+        import os
+
+        d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+        os.makedirs(d, exist_ok=True)
+        self.path = os.path.join(d, f"chip_smoke_steps_{role}.json")
+        other = os.path.join(d, "chip_smoke_steps_this.json")
+        self.other = {}
+        if role == "tree" and os.path.exists(other):
+            with open(other) as f:
+                self.other = json.load(f)
+        self.data: dict = {}
+        print(f"[steps] logging to {self.path}; comparing with "
+              f"{other if self.other else 'nothing'}")
+
+    def add(self, tag: str, res: dict, state_sha: str | None) -> None:
+        import numpy as np
+
+        st = res["stats"]
+        rec = {f: np.asarray(st[f"{f}_iters"]).tolist() for f in ("u", "p", "c")}
+        rec["state_sha"] = state_sha
+        self.data[tag] = rec
+        with open(self.path, "w") as f:
+            json.dump(self.data, f)
+        ref = self.other.get(tag)
+        if ref is None:
+            return
+        same = {f: ref[f] == rec[f] for f in ("u", "p", "c")}
+        print(f"    [{tag}] iterations of every step equal to the other tree's: {same}; final "
+              f"state bit-identical: {ref.get('state_sha') == state_sha}")
+        check(all(same.values()), f"[{tag}] iterations differ from the other tree's: {same}")
+
+
+
+def state_sha(solver) -> str:
+    """A hash of the solver's velocity and pressure arrays."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in (*solver._u, solver._p):
+        h.update(f.x.array.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: dict,
+                log: StepLog | None = None) -> None:
+    if log is not None:
+        log.add(tag, res, res["state_sha"])
     st = res["stats"]
     sps = steps / res["wall"]
     mean = lambda k: float(st[k].sum(axis=-1).mean()) if st[k].ndim > 1 else float(st[k].mean())
@@ -1157,7 +1278,8 @@ def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None)
     check(du <= 1e-10 and dp <= 1e-10, f"{label}: cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
 
 
-PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu")
+PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
+PTX_NO_DIVISION = ("cube_ops.cu", "krylov_ops.cu")  # phase 2 fails on a 64-bit div/rem there
 
 
 def ptx_divisions(roots: dict) -> dict:
@@ -1223,6 +1345,18 @@ def run_tree(root: str, argv: list) -> int:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.time_ms = time_ms
+    # the other tree's main paths in this checkout's step log, role "tree"
+    log = StepLog("tree")
+    drive, report = mod.drive_main_path, mod.report_path
+
+    def drive_logged(solver, *a, **k):
+        return dict(drive(solver, *a, **k), state_sha=state_sha(solver))
+
+    def report_logged(tag, res, *a, **k):
+        log.add(tag, res, res["state_sha"])
+        return report(tag, res, *a, **k)
+
+    mod.drive_main_path, mod.report_path = drive_logged, report_logged
     sys.argv = [spec.origin, *argv]
     print(f"[tree] {root}: its chip_smoke.py, timed by this one's time_ms")
     try:
@@ -1289,6 +1423,7 @@ def main() -> int:
     except ImportError as e:
         raise SmokeError(f"oasisx_tpu_torch not importable; run from a checkout ({e})")
     check("jax" not in sys.modules, "jax was imported")
+    steps_log = StepLog("this")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     print(f"[1] card: {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1302,8 +1437,9 @@ def main() -> int:
     t0 = time.perf_counter()
     divs = ptx_divisions({"this": os.path.dirname(os.path.abspath(__file__))})["this"]
     print(f"[2] 64-bit integer div/rem in the PTX: {divs} ({time.perf_counter() - t0:.1f} s)")
-    check(divs["cube_ops.cu"] == 0, f"cube_ops.cu's PTX has {divs['cube_ops.cu']} 64-bit "
-          "integer divisions or remainders")
+    for src in PTX_NO_DIVISION:
+        check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
+              "remainders")
 
     # 4a. structured main-path setup (its shapes feed phase 3)
     t0 = time.perf_counter()
@@ -1331,7 +1467,7 @@ def main() -> int:
     rep = solver.config_report()
     check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
     res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
-    report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS)
+    report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS, steps_log)
     launches = {k: v for k, v in res["launches"].items() if v}
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
@@ -1358,7 +1494,7 @@ def main() -> int:
     kres.update(compare_solves({"float64": (s35, torch.float64), "float32": (s35, torch.float32)},
                                "cuda", cases_fn=pcg_solve_cases, suffix=f" N={N_ODD}"))
     res = drive_main_path(s35, WARMUP, STEPS, "cuda", rep35["path_kernels"])
-    report_path("4f", res, STEPS, nvel35, smi, {})
+    report_path("4f", res, STEPS, nvel35, smi, {}, steps_log)
     print(f"    pressure Chebyshev({cheb['degree']})-Jacobi: lmax estimated "
           f"{cheb['lmax_estimate']:.6f}, validated {cheb['lmax']:.6f}, lmin {cheb['lmin']:.6f}")
     launches["pressure_cg"] = res["launches"]["pressure_cg"]
@@ -1400,7 +1536,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = drive_main_path(s64, WARMUP, STEPS, "cuda", rep64["path_kernels"])
-    report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64)
+    report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64, steps_log)
     print(f"    pressure MG levels {levels64}; peak device memory in the steps "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; setup {setup64:.1f} s")
     if args.profile:
@@ -1423,6 +1559,12 @@ def main() -> int:
     cyl = cylinder_solver(CYL_RES, torch.float32, "cuda", rtol=1e-5)
     cyl64 = cylinder_solver(CYL_RES, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     print(f"[3b] ELL kernels against plain versions (vessel N={N}, cylinder res={CYL_RES})")
+    for label, e in (("A_lhs, M", vessel._ell_v), ("Ap", vessel._ell_q)):
+        rb, fill = ell_read(e, 4)
+        print(f"  {label}: K {e.K}, n {e.n}, nnz {e.nnz}; a float32 K14 product reads "
+              f"{rb / 1e6:.1f} MB of its slices' widths (fill {fill:.4f}) in place of "
+              f"{8 * e.K * e.n / 1e6:.1f} MB of all K slots (fill {e.nnz / (e.K * e.n):.4f}); "
+              f"real nonzeros {8 * e.nnz / 1e6:.1f} MB")
     kres.update(compare_ell_kernels({"float64": vessel64, "float32": vessel}, "cuda"))
     for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
                                      "cuda", cases_fn=ell_solve_cases).items():
@@ -1435,7 +1577,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
-    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
+    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL,
+                steps_log)
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
     for k, v in res["launches"].items():
@@ -1480,7 +1623,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vband, WARMUP, STEPS, "cuda", kn.BAND_KERNELS)
-    report_path("4e", res, STEPS, 3 * vband._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL)
+    report_path("4e", res, STEPS, 3 * vband._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL,
+                steps_log)
     iters_4e = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps; setup "
@@ -1501,7 +1645,7 @@ def main() -> int:
 
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
-    report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {})
+    report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {}, steps_log)
     del cyl
 
     # 5b, 5c. GPU against CPU on the general path, both layouts

@@ -11,6 +11,19 @@
 // kernel and go through the read-only path; x may be a vector the calling
 // kernel writes between grid barriers, so it is read through a plain
 // pointer.
+//
+// K14-K16 (EllOp) stop a row at its slice's width: widths[r / 32] is the
+// largest slot count among the 32 rows r & ~31 .. r | 31 (a warp's rows:
+// every kernel of ell_ops.cu gives a warp 32 consecutive rows starting at a
+// multiple of 32, since its blocks start and stride by multiples of 256), so
+// the bound is uniform across a warp.  A row's slots past its own length
+// hold value 0 and column 0 (build_ell_tables fills each row's slots from
+// k = 0), so dropping them changes no sum: acc starts at +0 and adding
+// 0 * x = +-0 leaves it as it is.  The operator is a stream read once per
+// product, larger than L2 at the vessel's size, so its values and columns
+// are loaded evict-first (__ldcs) and the gathered x keeps its lines in L1
+// and L2.  The entry points check K * n < 2^31 (ell_fits): a row and each
+// slot's offset fit in int32, and each slot advances the pointers by n.
 
 #pragma once
 
@@ -32,23 +45,28 @@ __device__ __forceinline__ T ell_row(const T* __restrict__ vals, const int* __re
   return acc;
 }
 
-// acc[b] = (A x_b)[r] for b < nb, x_b = x + b * xs: every slot's value and
-// column are read once for all the vectors.
+constexpr int kEllSlice = 32;  // rows of one width (parallel/graph.py ELL_SLICE): a warp
+static_assert(kEllSlice == 1 << 5, "ell_row_batch finds a row's slice by a shift");
+
+// acc[b] = (A x_b)[r] for b < nb, x_b = x + b * xs, over the w slots of
+// row r's slice: every slot's value and column are read once for all the
+// vectors.
 template <typename T>
 __device__ __forceinline__ void ell_row_batch(const T* __restrict__ vals,
-                                              const int* __restrict__ cols, int K, int64_t n,
-                                              int64_t r, const T* x, int64_t xs, int nb,
+                                              const int* __restrict__ cols, int w, int n, int r,
+                                              const T* x, int64_t xs, int nb,
                                               T (&acc)[kEllMaxBatch]) {
 #pragma unroll
   for (int b = 0; b < kEllMaxBatch; ++b) acc[b] = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int64_t i = (int64_t)k * n + r;
-    const T v = __ldg(vals + i);
-    const int64_t c = __ldg(cols + i);
+  const T* v = vals + r;
+  const int* c = cols + r;
+  for (int k = 0; k < w; ++k, v += n, c += n) {
+    const T a = __ldcs(v);
+    const int j = __ldcs(c);
 #pragma unroll
     for (int b = 0; b < kEllMaxBatch; ++b) {
       if (b >= nb) break;
-      acc[b] += v * x[b * xs + c];
+      acc[b] += a * x[b * xs + j];
     }
   }
 }
@@ -105,11 +123,13 @@ template <typename T>
 struct EllOp {
   const T* vals;  // (K, n)
   const int* cols;
+  const int* widths;  // (ceil(n / kEllSlice)): each slice's slot count
   int K;
-  int64_t n;
+  int n;
+  // a width past K is read as K, so a row never reads past its K slots
   __device__ __forceinline__ void rows(int64_t r, const T* x, int64_t xs, int nb,
                                        T (&acc)[kEllMaxBatch]) const {
-    ell_row_batch(vals, cols, K, n, r, x, xs, nb, acc);
+    ell_row_batch(vals, cols, min(__ldg(widths + (r >> 5)), K), n, (int)r, x, xs, nb, acc);
   }
 };
 

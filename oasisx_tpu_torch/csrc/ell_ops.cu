@@ -38,11 +38,13 @@
 // and the host reads nothing during a solve.  On the TPU each iteration was
 // one kernel call inside an XLA while loop, with the state in VMEM.
 //
-// Bound on the H100.  K14: memory, the operator's K*n*(4+sizeof(T)) bytes
-// per call for all nb vectors (at the vessel's N=36 velocity operator,
-// K=65, n=389,017: 202 MB in f32 with the padding, about 40% of it real
-// nonzeros).  K15 (two operator reads per iteration) and K16 (one): memory,
-// the operator does not fit in the 50 MB L2; the state vectors do.  K18 as
+// Bound on the H100.  K14: memory, the operator's (4+sizeof(T)) bytes per
+// slot for all nb vectors.  Each 32-row slice reads only its width's slots
+// (ell_device.cuh): at the vessel's N=36 velocity operator (K=65,
+// n=389,017, rows of 65, 27 and 19 entries interleaved) a float32 product
+// reads ~98 MB, 89% of it real nonzeros, where all K slots are 202 MB.
+// K15 (two operator reads per iteration) and K16 (one): memory, the
+// operator does not fit in the 50 MB L2; the state vectors do.  K18 as
 // K14-K16, reading P * 128 * (1 + sizeof(T)) bytes a product (the vessel's
 // N=36 velocity operator: P = 371,620 pairs, 238 MB in f32, where the
 // (S, R, 128) layout of the TPU kernel held 2,794 slots for every tile,
@@ -682,9 +684,15 @@ bool nb_ok(int nb) { return nb >= 1 && nb <= kEllMaxBatch; }
 // against R): a source of another size is refused, never read out of frame.
 bool band_ok(int P, int R, int Rc) { return P >= 1 && R >= 1 && Rc == R; }
 
+// K * n slots addressed in int32 (EllOp)
+bool ell_fits(int K, long long n) {
+  return K >= 1 && n >= 1 && (long long)K * n <= INT32_MAX;
+}
+
 template <typename T>
-EllOp<T> ell_op(const void* vals, const void* cols, int K, int64_t n) {
-  return EllOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols), K, n};
+EllOp<T> ell_op(const void* vals, const void* cols, const void* widths, int K, long long n) {
+  return EllOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols),
+                  static_cast<const int*>(widths), K, (int)n};
 }
 
 template <typename T>
@@ -815,43 +823,49 @@ int ell_amg_launch(const void* const* lvl_ptrs, const long long* lvl_dims, int L
 
 extern "C" {
 
-// y (nb, n) = A x for x (nb, nin); vals (K, n), cols (K, n) int32 < nin.
-int oasisx_ell_matvec(const void* vals, const void* cols, const void* x, void* y, int K,
-                      long long n, long long nin, int nb, int is_f64, void* stream) {
-  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? matvec_launch<double>(ell_op<double>(vals, cols, K, n), x, y, n, nin, nb,
+// The ELL operators of K14-K16: vals (K, n), cols (K, n) int32, widths
+// (ceil(n / 32)) int32: the slots that slice's rows read (graph.slice_widths;
+// a width past K reads K slots, one short of a row's length drops entries).
+
+// y (nb, n) = A x for x (nb, nin), cols < nin.
+int oasisx_ell_matvec(const void* vals, const void* cols, const void* widths, const void* x,
+                      void* y, int K, long long n, long long nin, int nb, int is_f64,
+                      void* stream) {
+  if (!nb_ok(nb) || !ell_fits(K, n)) return (int)cudaErrorInvalidValue;
+  return is_f64 ? matvec_launch<double>(ell_op<double>(vals, cols, widths, K, n), x, y, n, nin, nb,
                                         stream)
-                : matvec_launch<float>(ell_op<float>(vals, cols, K, n), x, y, n, nin, nb,
+                : matvec_launch<float>(ell_op<float>(vals, cols, widths, K, n), x, y, n, nin, nb,
                                        stream);
 }
 
 // Batched BiCGStab on an ELL operator with zero-masked rows, from
 // r0 = zmask (b - A x0) and x0 (nb, n); invd (n); tol (nb).  work: 6 * nb * n;
 // red: 2 * 8 * max_blocks.  Writes x, iters (int32, nb) and rnorm (nb).
-int oasisx_ell_bicgstab(const void* vals, const void* cols, const void* r0, const void* x0,
-                        const void* zmask, const void* invd, const void* tol, void* x,
-                        void* work, void* red, int max_blocks, void* iters, void* rnorm,
-                        int is_f64, int K, long long n, int nb, int maxiter, void* stream) {
-  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? bicgstab_launch<double>(ell_op<double>(vals, cols, K, n), r0, x0, zmask, invd,
-                                          tol, x, work, red, max_blocks, iters, rnorm, n, nb,
-                                          maxiter, stream)
-                : bicgstab_launch<float>(ell_op<float>(vals, cols, K, n), r0, x0, zmask, invd,
-                                         tol, x, work, red, max_blocks, iters, rnorm, n, nb,
-                                         maxiter, stream);
+int oasisx_ell_bicgstab(const void* vals, const void* cols, const void* widths, const void* r0,
+                        const void* x0, const void* zmask, const void* invd, const void* tol,
+                        void* x, void* work, void* red, int max_blocks, void* iters,
+                        void* rnorm, int is_f64, int K, long long n, int nb, int maxiter,
+                        void* stream) {
+  if (!nb_ok(nb) || !ell_fits(K, n)) return (int)cudaErrorInvalidValue;
+  return is_f64 ? bicgstab_launch<double>(ell_op<double>(vals, cols, widths, K, n), r0, x0, zmask,
+                                          invd, tol, x, work, red, max_blocks, iters, rnorm, n,
+                                          nb, maxiter, stream)
+                : bicgstab_launch<float>(ell_op<float>(vals, cols, widths, K, n), r0, x0, zmask,
+                                         invd, tol, x, work, red, max_blocks, iters, rnorm, n,
+                                         nb, maxiter, stream);
 }
 
 // Batched Jacobi-PCG on an ELL operator from r0 = b - A x0 and x0 (nb, n);
 // invd (n); tol (nb).  work: 3 * nb * n; red: 2 * 8 * max_blocks.
-int oasisx_ell_cg(const void* vals, const void* cols, const void* r0, const void* x0,
-                  const void* invd, const void* tol, void* x, void* work, void* red,
-                  int max_blocks, void* iters, void* rnorm, int is_f64, int K, long long n,
-                  int nb, int maxiter, void* stream) {
-  if (!nb_ok(nb) || K < 1) return (int)cudaErrorInvalidValue;
-  return is_f64 ? cg_launch<double>(ell_op<double>(vals, cols, K, n), r0, x0, invd, tol, x,
+int oasisx_ell_cg(const void* vals, const void* cols, const void* widths, const void* r0,
+                  const void* x0, const void* invd, const void* tol, void* x, void* work,
+                  void* red, int max_blocks, void* iters, void* rnorm, int is_f64, int K,
+                  long long n, int nb, int maxiter, void* stream) {
+  if (!nb_ok(nb) || !ell_fits(K, n)) return (int)cudaErrorInvalidValue;
+  return is_f64 ? cg_launch<double>(ell_op<double>(vals, cols, widths, K, n), r0, x0, invd, tol, x,
                                     work, red, max_blocks, iters, rnorm, n, nb, maxiter, stream)
-                : cg_launch<float>(ell_op<float>(vals, cols, K, n), r0, x0, invd, tol, x, work,
-                                   red, max_blocks, iters, rnorm, n, nb, maxiter, stream);
+                : cg_launch<float>(ell_op<float>(vals, cols, widths, K, n), r0, x0, invd, tol, x,
+                                   work, red, max_blocks, iters, rnorm, n, nb, maxiter, stream);
 }
 
 // AMG-PCG: lvl_ptrs holds 7 pointers per level (Av, Ac, sm, Pv, Pc, Rv, Rc),

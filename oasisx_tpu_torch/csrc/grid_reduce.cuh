@@ -79,6 +79,34 @@ __device__ void grid_sum(Reducer<T>& red, T* v) {
   block_sum<N>(v, red.sred);
 }
 
+// A barrier among the first nb blocks of a cooperative grid (every block is
+// resident, so a spin cannot deadlock): bar[0] counts the arrivals, bar[1]
+// is the generation, both in global memory, neither shared with the
+// reduction slots.  Thread 0 of a block reads the generation, releases the
+// block's writes (the fence) and arrives; the last to arrive resets the
+// count and advances the generation, the others spin until it moves, then
+// acquire (the fence).  The kernel sets bar[0] = 0 before its first grid
+// barrier; each barrier leaves it 0 again.  The generation may start at
+// any value.
+__device__ __forceinline__ void sub_sync(unsigned* bar, unsigned nb) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nb - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 template <typename T>
 __device__ __forceinline__ void zero(T* v) {
 #pragma unroll
@@ -90,8 +118,9 @@ __device__ __forceinline__ void zero(T* v) {
 // when it is > 0 (a kernel's launch bound: then the grid, and with it the
 // order of every reduction, does not depend on the registers the compiler
 // assigns); refuses (returns an error) rather than launching a grid that
-// cannot be resident, or one larger than the caller's reduction slots
-// (max_blocks).
+// cannot be resident, one larger than the caller's reduction slots
+// (max_blocks), or one whose grid-stride loops over `work` points would
+// step past 2^31 - 1 (krylov_ops.cu's loops count in int32).
 template <typename Args>
 int coop_launch(void (*kernel)(Args), Args& args, int64_t work, size_t smem, int max_blocks,
                 void* stream, int per_sm_cap = 0) {
@@ -107,6 +136,7 @@ int coop_launch(void (*kernel)(Args), Args& args, int64_t work, size_t smem, int
   int64_t grid = (int64_t)per_sm * sms;
   if (need < grid) grid = need < 1 ? 1 : need;
   if (grid > max_blocks) return (int)cudaErrorInvalidValue;
+  if (work + grid * kRedThreads > INT32_MAX) return (int)cudaErrorInvalidValue;  // int32 loops
   void* params[] = {&args};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)grid), dim3(kRedThreads),
                                   params, smem, (cudaStream_t)stream);

@@ -44,17 +44,32 @@
 // Chebyshev updates fuse c1 dk into an explicit fma, so neither the grid
 // nor the rounding of a step depends on how the compiler allocates
 // registers or contracts products: a run repeats bit for bit across
-// builds of this source.  K1's grid transfers still find a point's
-// coordinates with 64-bit divisions (coords).
+// builds of this source.  K1's grid transfers split a point the same way
+// (coords), and every grid-stride loop counts in int32 or is not unrolled
+// (nvcc unrolls these loops and divides their trip count, in 64 bits for a
+// 64-bit index), so no kernel here divides in 64 bits.  cube_fits and
+// coop_launch bound every index, and an index plus a stride, below 2^31.
+//
+// K1's V-cycle runs its coarse levels on a sub-group of blocks.  Those
+// levels (6,859 and 1,000 points at N=36) leave 90-99% of the cooperative
+// grid's threads idle, and a grid barrier over all of them costs more than
+// their work: so from the restriction into level sub_level down to the
+// coarsest and back up to the last sweep on sub_level, the phases run on
+// the first sub_blocks blocks, separated by a barrier among them alone
+// (sub_sync, grid_reduce.cuh), and one grid barrier closes that part.  At
+// N=36 an iteration's 30 grid barriers become 11 and 19 sub-group
+// barriers; at N=64, 42 become 17 and 25.  la/pressure_mg.py chooses
+// sub_level and sub_blocks (SUB_BLOCKS says how they were timed).
 //
 // Bound on the H100.  K2: memory; each iteration applies A_W twice, and each
 // application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
 // components, so two W streams per iteration are the floor; the ~10 state
 // vectors (3 x 1.6 MB each) stay in L2.  K4 and K1: latency; the 3 x 389k
 // point mass state and the 50k / 7k / 1k point pressure levels fit in L2, and
-// the time goes to grid barriers (3 per K4 iteration, about 30 per K1
-// iteration, most of them on the two coarse levels; 5 + (degree - 1) per
-// iteration of K1's Chebyshev mode, where every barrier spans the fine grid).
+// the time goes to barriers (3 grid barriers per K4 iteration; per K1 MG
+// iteration at N=36, 11 grid barriers and 19 among the sub-group's blocks;
+// 5 + (degree - 1) per iteration of K1's Chebyshev mode, where every
+// barrier spans the fine grid).
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
@@ -123,12 +138,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMass
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
   cube_stage(P.C, a, smat, soff);
   __syncthreads();
+  // K4's grid-stride loops: 64-bit and not unrolled.  Unrolled, nvcc divides
+  // their trip count (in 64 bits for a 64-bit index), and on an H100 80GB
+  // HBM3 at 700 W they ran 1-2% slower either way, in 32 or 64 bits.
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
 
   // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
   T s[kMaxRed];
   zero(s);
+  #pragma unroll 1
   for (int64_t idx = first; idx < n; idx += stride) {
     const T iv = P.invd[idx];
     #pragma unroll
@@ -165,6 +184,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMass
 
     // Ap = C p; pAp
     zero(s);
+    #pragma unroll 1
     for (int64_t idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
       cube_point(P.p, smat, soff, a, cube_split(a, (int)idx), acc);
@@ -182,6 +202,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMass
 
     // x += alpha p; r -= alpha Ap; z = invd r; rz_new = r.z, |r|^2
     zero(s);
+    #pragma unroll 1
     for (int64_t idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
       #pragma unroll
@@ -209,6 +230,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMass
     }
 
     // p = z + beta p on the active rows (inactive rows keep p)
+    #pragma unroll 1
     for (int64_t idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
       #pragma unroll
@@ -259,19 +281,19 @@ template <typename T, int NL>
 __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgArgs<T> P) {
   const CubeArgs& a = P.a;
   const int nb = a.nbo;  // rows solved together
-  const int64_t n = a.npad_out;
+  const int n = a.npad_out;
   unsigned char* smem = dynamic_smem();
   int* soff = reinterpret_cast<int*>(smem);
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(0, a.nl_in)), 0};
   cube_stage<T>(nullptr, a, nullptr, soff);
   __syncthreads();
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
 
   // x = x0, r = p = rhat = r0, y = invd p; rho = |r0|^2, rnorm = |r0|
   T s[kMaxRed];
   zero(s);
-  for (int64_t idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < n; idx += stride) {
     const T iv = P.invd[idx];
     #pragma unroll
     for (int b = 0; b < kMaxBatch; ++b) {
@@ -306,9 +328,9 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 
     // v = zmask A_W (invd p); rv = rhat.v
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, (int)idx), acc);
+      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, idx), acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -323,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
     for (int b = 0; b < kMaxBatch; ++b) alpha[b] = rho[b] / nz(s[b]);
 
     // s = r - alpha v (kept in r); y = invd s
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
@@ -338,9 +360,9 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 
     // t = zmask A_W (invd s); tt = t.t, ts = t.s
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, (int)idx), acc);
+      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, idx), acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -358,7 +380,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
     // x += alpha phat + omega shat (active rows); r = s - omega t, or restored
     // to s + alpha v on an inactive row; rho_new = rhat.r, |r|^2
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
@@ -386,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
     }
 
     // p = r + beta (p - omega v) on the active rows; y = invd p
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
@@ -416,9 +438,10 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // ---------------------------------------------------------------------------
 
 struct Level {
-  int g[3];     // grid points per axis; a 2D grid is (1, g0, g1)
-  int64_t n;    // points
-  int64_t off;  // first point of this level in the concatenated level arrays
+  int g[3];            // grid points per axis; a 2D grid is (1, g0, g1)
+  FastDiv div1, div2;  // divisions by g[1] and g[2] (coords)
+  int n;               // points
+  int64_t off;         // first point of this level in the concatenated level arrays
 };
 
 template <typename T>
@@ -437,14 +460,19 @@ struct MgArgs {
   Level lev[kMaxLevels];
   T scale[kMaxLevels];      // 2^(l (d-2))
   int L, nsmooth, cheb_degree, maxiter;
+  // levels sub_level (>= 1) to L - 1 run on the first sub_blocks blocks
+  // (pressure_mg_kernel); sub_level == L: every level on the whole grid
+  int sub_level, sub_blocks;
   double omega, lmin, lmax, rtol;
 };
 
-__device__ __forceinline__ void coords(int64_t idx, const Level& lv, int* c) {
-  c[2] = (int)(idx % lv.g[2]);
-  idx /= lv.g[2];
-  c[1] = (int)(idx % lv.g[1]);
-  c[0] = (int)(idx / lv.g[1]);
+// A point's coordinates on its level, by exact multiply-and-shift divisions
+// (FastDiv, exact below 2^31; cube_fits bounds every level).
+__device__ __forceinline__ void coords(int idx, const Level& lv, int* c) {
+  const int q = (int)fast_quo((unsigned)idx, lv.div2);
+  c[2] = idx - q * lv.g[2];
+  c[0] = (int)fast_quo((unsigned)q, lv.div1);
+  c[1] = q - c[0] * lv.g[1];
 }
 
 // Fine neighbours of coarse index I along an axis of f fine points: the
@@ -487,8 +515,8 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * nl);
   }
   __syncthreads();
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
 
   T* rr[kMaxLevels];
   T* z[kMaxLevels];
@@ -504,15 +532,40 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   }
   T* p = P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n);
   T* x = P.x;
-  const int64_t n0 = P.lev[0].n;
+  const int n0 = P.lev[0].n;
   const T nmean = (T)n0;
   const T om = (T)P.omega;
   const int ns = P.nsmooth;
 
-  auto mv = [&](int l, const T* src, int64_t idx) -> T {
+  // The team of a level: the whole grid above level lsub; on lsub and below
+  // the first B blocks (a level there has at most ~8 points a thread of
+  // theirs), while the other blocks, which would have no work, run through
+  // the same phases with empty loops and no barrier, and so make the same
+  // z/zb swaps, up to the grid barrier that closes the coarse part.  A
+  // coarse phase holds no reduction and a point's arithmetic does not
+  // depend on its thread, so the result is the whole grid's, bit for bit.
+  const int lsub = P.sub_level;
+  const int B = P.sub_blocks < (int)gridDim.x ? P.sub_blocks : (int)gridDim.x;
+  const bool member = (int)blockIdx.x < B;
+  const int sub_first = member ? first : INT32_MAX;
+  const int sub_stride = B * blockDim.x;
+  auto lo = [&](int l) { return l < lsub ? first : sub_first; };
+  auto step = [&](int l) { return l < lsub ? stride : sub_stride; };
+  unsigned* bar = reinterpret_cast<unsigned*>(p + n0);  // sub_sync's words
+  if (blockIdx.x == 0 && threadIdx.x == 0) bar[0] = 0u;  // before the first grid barrier
+  // the barrier that ends a phase on level l: the grid's above lsub and for
+  // the phase that closes the coarse part, else the sub-group's
+  auto sync = [&](int l, bool closing) {
+    if (l < lsub || closing)
+      cg::this_grid().sync();
+    else if (member)
+      sub_sync(bar, (unsigned)B);
+  };
+
+  auto mv = [&](int l, const T* src, int idx) -> T {
     T acc[kMaxBatch];
     cube_point<T, false, NL>(src, smat + l * nn, soff + l * nl, P.lv[l],
-                             cube_split(P.lv[l], (int)idx), acc);
+                             cube_split(P.lv[l], idx), acc);
     return acc[0];
   };
   auto swapz = [&](int l) {
@@ -522,10 +575,11 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   };
   T s[kMaxRed];
 
-  // z' = z + omega invd (r - A z); with_sum: a grid sum of z', else a barrier
-  auto sweep = [&](int l, bool with_sum) -> T {
+  // z' = z + omega invd (r - A z); with_sum: a grid sum of z', else the
+  // level's barrier (closing: the grid's)
+  auto sweep = [&](int l, bool with_sum, bool closing) -> T {
     zero(s);
-    for (int64_t idx = first; idx < P.lev[l].n; idx += stride) {
+    for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
       const T zn = z[l][idx] + (om * iv[l][idx]) * (rr[l][idx] - mv(l, z[l], idx));
       zb[l][idx] = zn;
       s[0] += zn;
@@ -535,7 +589,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       grid_sum<1>(red, s);
       return s[0];
     }
-    cg::this_grid().sync();
+    sync(l, closing);
     return T(0);
   };
 
@@ -547,15 +601,15 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   // the grid sum of the V-cycle's z[0]
   auto vcycle = [&]() -> T {
     for (int l = 0; l + 1 < L; ++l) {
-      for (int k = 1; k < ns; ++k) sweep(l, false);
-      for (int64_t idx = first; idx < P.lev[l].n; idx += stride)
+      for (int k = 1; k < ns; ++k) sweep(l, false, false);
+      for (int idx = lo(l); idx < P.lev[l].n; idx += step(l))
         t[l][idx] = rr[l][idx] - mv(l, z[l], idx);
-      cg::this_grid().sync();
+      sync(l, false);
       // r[l+1] = P^T t[l], then the next level's first step
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
       const bool coarsest = l + 2 == L;
-      for (int64_t idx = first; idx < C.n; idx += stride) {
+      for (int idx = lo(l + 1); idx < C.n; idx += step(l + 1)) {
         int I[3], i0[3], i1[3], i2[3];
         float w0[3], w1[3], w2[3];
         coords(idx, C, I);
@@ -582,7 +636,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
           z[l + 1][idx] = (om * iv[l + 1][idx]) * acc0;
         }
       }
-      cg::this_grid().sync();
+      sync(l + 1, coarsest && l + 1 == lsub && P.cheb_degree < 2);
     }
     // coarsest level: Chebyshev-Jacobi, dk kept in t
     const int lc = L - 1;
@@ -591,13 +645,13 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const double rho_new = 1.0 / (2.0 * sigma1 - rho);
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);
-      for (int64_t idx = first; idx < P.lev[lc].n; idx += stride) {
+      for (int idx = lo(lc); idx < P.lev[lc].n; idx += step(lc)) {
         const T dk = vfma(c1, t[lc][idx], c2 * (iv[lc][idx] * (rr[lc][idx] - mv(lc, z[lc], idx))));
         t[lc][idx] = dk;
         zb[lc][idx] = z[lc][idx] + dk;
       }
       swapz(lc);
-      cg::this_grid().sync();
+      sync(lc, lc == lsub && k + 2 == P.cheb_degree);
       rho = rho_new;
     }
     T zsum = T(0);
@@ -605,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       // z[l] += P z[l+1]
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
-      for (int64_t idx = first; idx < F.n; idx += stride) {
+      for (int idx = lo(l); idx < F.n; idx += step(l)) {
         int i[3], I0[2], I1[2], I2[2];
         float w0[2], w1[2], w2[2];
         coords(idx, F, i);
@@ -625,15 +679,16 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         }
         z[l][idx] += acc0;
       }
-      cg::this_grid().sync();
-      for (int k = 0; k < ns; ++k) zsum = sweep(l, l == 0 && k + 1 == ns);
+      sync(l, false);
+      for (int k = 0; k < ns; ++k)
+        zsum = sweep(l, l == 0 && k + 1 == ns, l == lsub && k + 1 == ns);
     }
     return zsum;
   };
 
   // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
   zero(s);
-  for (int64_t idx = first; idx < n0; idx += stride) {
+  for (int idx = first; idx < n0; idx += stride) {
     x[idx] = P.x0[idx];
     t[0][idx] = mv(0, P.x0, idx);
     s[0] += P.b[idx];
@@ -641,7 +696,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   grid_sum<1>(red, s);
   const T mb = s[0] / nmean;
   zero(s);
-  for (int64_t idx = first; idx < n0; idx += stride) {
+  for (int idx = first; idx < n0; idx += stride) {
     const T bd = P.b[idx] - mb;
     const T v = bd - t[0][idx];
     rr[0][idx] = v;
@@ -652,7 +707,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   const T tol = (T)P.rtol * vsqrt(s[0]);
   const T mr = s[1] / nmean;
   zero(s);
-  for (int64_t idx = first; idx < n0; idx += stride) {
+  for (int idx = first; idx < n0; idx += stride) {
     const T r = rr[0][idx] - mr;
     rr[0][idx] = r;
     z[0][idx] = (om * iv[0][idx]) * r;
@@ -663,7 +718,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   // z = demean(V-cycle(r)); p = z; rz = r.z
   T mz = vcycle() / nmean;
   zero(s);
-  for (int64_t idx = first; idx < n0; idx += stride) {
+  for (int idx = first; idx < n0; idx += stride) {
     const T zz = z[0][idx] - mz;
     z[0][idx] = zz;
     p[idx] = zz;
@@ -676,7 +731,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   while (k < P.maxiter && rn > tol) {
     // Apv = demean(A p); alpha = rz / p.Apv
     zero(s);
-    for (int64_t idx = first; idx < n0; idx += stride) {
+    for (int idx = first; idx < n0; idx += stride) {
       const T ap = mv(0, p, idx);
       t[0][idx] = ap;
       s[0] += ap;
@@ -684,7 +739,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     grid_sum<1>(red, s);
     const T ma = s[0] / nmean;
     zero(s);
-    for (int64_t idx = first; idx < n0; idx += stride) {
+    for (int idx = first; idx < n0; idx += stride) {
       const T apv = t[0][idx] - ma;
       t[0][idx] = apv;
       s[0] += p[idx] * apv;
@@ -693,7 +748,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     const T alpha = rz / nz(s[0]);
     // x += alpha p; r -= alpha Apv; |r|; the V-cycle's first sweep
     zero(s);
-    for (int64_t idx = first; idx < n0; idx += stride) {
+    for (int idx = first; idx < n0; idx += stride) {
       x[idx] = x[idx] + alpha * p[idx];
       const T r = rr[0][idx] - alpha * t[0][idx];
       rr[0][idx] = r;
@@ -705,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     mz = vcycle() / nmean;
     // z = demean(z); rz_new = r.z; p = z + beta p
     zero(s);
-    for (int64_t idx = first; idx < n0; idx += stride) {
+    for (int idx = first; idx < n0; idx += stride) {
       const T zz = z[0][idx] - mz;
       z[0][idx] = zz;
       s[0] += rr[0][idx] * zz;
@@ -713,7 +768,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     grid_sum<1>(red, s);
     const T rz_new = s[0];
     const T beta = rz_new / nz(rz);
-    for (int64_t idx = first; idx < n0; idx += stride) p[idx] = z[0][idx] + beta * p[idx];
+    for (int idx = first; idx < n0; idx += stride) p[idx] = z[0][idx] + beta * p[idx];
     cg::this_grid().sync();
     rz = rz_new;
     rn = rn_new;
@@ -722,10 +777,10 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
 
   // x = demean(x)
   zero(s);
-  for (int64_t idx = first; idx < n0; idx += stride) s[0] += x[idx];
+  for (int idx = first; idx < n0; idx += stride) s[0] += x[idx];
   grid_sum<1>(red, s);
   const T mx = s[0] / nmean;
-  for (int64_t idx = first; idx < n0; idx += stride) x[idx] = x[idx] - mx;
+  for (int idx = first; idx < n0; idx += stride) x[idx] = x[idx] - mx;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     P.iters[0] = k;
     P.rnorm[0] = rn;
@@ -765,15 +820,15 @@ struct PcgArgs {
 template <typename T, int NL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(PcgArgs<T> P) {
   const CubeArgs& a = P.a;
-  const int64_t n = a.npad_out;
+  const int n = a.npad_out;
   unsigned char* smem = dynamic_smem();
   T* smat = reinterpret_cast<T*>(smem);
   int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
   cube_stage(P.Ap, a, smat, soff);
   __syncthreads();
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
 
   T* r = P.work;
   T* z = r + n;
@@ -790,16 +845,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
   const double sigma1 = deg > 0 ? theta / delta : 0.0;
   const T rtheta = deg > 0 ? (T)theta : T(1);
 
-  auto mv = [&](const T* src, int64_t idx) -> T {
+  auto mv = [&](const T* src, int idx) -> T {
     T acc[kMaxBatch];
-    cube_point<T, false, NL>(src, smat, soff, a, cube_split(a, (int)idx), acc);
+    cube_point<T, false, NL>(src, smat, soff, a, cube_split(a, idx), acc);
     return acc[0];
   };
   T s[kMaxRed] = {};
 
   // r[idx] = v: its first preconditioner term into z (and dk); sums |r|^2 and
   // r.z into s[0], s[1]
-  auto first_term = [&](int64_t idx, T v) {
+  auto first_term = [&](int idx, T v) {
     r[idx] = v;
     const T zz = deg > 0 ? (iv[idx] * v) / rtheta : iv[idx] * v;
     z[idx] = zz;
@@ -815,7 +870,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);
       zero(s);
-      for (int64_t idx = first; idx < n; idx += stride) {
+      for (int idx = first; idx < n; idx += stride) {
         const T d = vfma(c1, dk[idx], c2 * (iv[idx] * (r[idx] - mv(z, idx))));
         dk[idx] = d;
         const T zn = z[idx] + d;
@@ -838,7 +893,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
 
   // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
   zero(s);
-  for (int64_t idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < n; idx += stride) {
     x[idx] = P.x0[idx];
     t[idx] = mv(P.x0, idx);
     s[0] += P.b[idx];
@@ -846,7 +901,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
   grid_sum<1>(red, s);
   const T mb = s[0] / nmean;
   zero(s);
-  for (int64_t idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < n; idx += stride) {
     const T bd = P.b[idx] - mb;
     const T v = bd - t[idx];
     r[idx] = v;
@@ -858,18 +913,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
   const T mr = s[1] / nmean;
   // z = M r; p = z; rz = r.z
   zero(s);
-  for (int64_t idx = first; idx < n; idx += stride) first_term(idx, r[idx] - mr);
+  for (int idx = first; idx < n; idx += stride) first_term(idx, r[idx] - mr);
   grid_sum<2>(red, s);
   T rn = vsqrt(s[0]);
   T rz = cheb_steps(s[1]);
-  for (int64_t idx = first; idx < n; idx += stride) p[idx] = z[idx];
+  for (int idx = first; idx < n; idx += stride) p[idx] = z[idx];
   cg::this_grid().sync();
 
   int k = 0;
   while (k < P.maxiter && rn > tol) {
     // Apv = demean(A p); alpha = rz / p.Apv
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T ap = mv(p, idx);
       t[idx] = ap;
       s[0] += ap;
@@ -877,7 +932,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
     grid_sum<1>(red, s);
     const T ma = s[0] / nmean;
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T apv = t[idx] - ma;
       t[idx] = apv;
       s[0] += p[idx] * apv;
@@ -886,7 +941,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
     const T alpha = rz / nz(s[0]);
     // x += alpha p; r -= alpha Apv; z = M r; |r|, r.z
     zero(s);
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       x[idx] = x[idx] + alpha * p[idx];
       first_term(idx, r[idx] - alpha * t[idx]);
     }
@@ -895,7 +950,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
     const T rz_new = cheb_steps(s[1]);
     // p = z + beta p
     const T beta = rz_new / nz(rz);
-    for (int64_t idx = first; idx < n; idx += stride) p[idx] = z[idx] + beta * p[idx];
+    for (int idx = first; idx < n; idx += stride) p[idx] = z[idx] + beta * p[idx];
     cg::this_grid().sync();
     rz = rz_new;
     rn = rn_new;
@@ -904,10 +959,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
 
   // x = demean(x)
   zero(s);
-  for (int64_t idx = first; idx < n; idx += stride) s[0] += x[idx];
+  for (int idx = first; idx < n; idx += stride) s[0] += x[idx];
   grid_sum<1>(red, s);
   const T mx = s[0] / nmean;
-  for (int64_t idx = first; idx < n; idx += stride) x[idx] = x[idx] - mx;
+  for (int idx = first; idx < n; idx += stride) x[idx] = x[idx] - mx;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     P.iters[0] = k;
     P.rnorm[0] = rn;
@@ -978,10 +1033,12 @@ template <typename T>
 int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,
                        void* rnorm, void* conv, int d, int n0, int n1, int n2, int levels,
-                       int nsmooth, double omega, double lmin, double lmax,
-                       int cheb_degree, double rtol, int maxiter, void* stream) {
+                       int nsmooth, int sub_level, int sub_blocks, double omega, double lmin,
+                       double lmax, int cheb_degree, double rtol, int maxiter, void* stream) {
   MgArgs<T> P;
   P.L = levels;
+  P.sub_level = sub_level;
+  P.sub_blocks = sub_blocks;
   int cells[3] = {n0, n1, d == 3 ? n2 : 0};
   int64_t off = 0;
   for (int l = 0; l < levels; ++l) {
@@ -991,7 +1048,9 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
     lv.g[0] = d == 3 ? cells[0] + 1 : 1;
     lv.g[1] = d == 3 ? cells[1] + 1 : cells[0] + 1;
     lv.g[2] = d == 3 ? cells[2] + 1 : cells[1] + 1;
-    lv.n = (int64_t)lv.g[0] * lv.g[1] * lv.g[2];
+    lv.div1 = fast_div(lv.g[1]);
+    lv.div2 = fast_div(lv.g[2]);
+    lv.n = lv.g[0] * lv.g[1] * lv.g[2];
     lv.off = off;
     off += lv.n;
     P.scale[l] = (T)(double)(1 << (l * (d - 2)));
@@ -1093,23 +1152,28 @@ int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* z
 }
 
 // MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)
-// and `levels` levels of halved cells: b, x0, x (grid); invd (every level's
-// points, concatenated); work: 4 * (points of all levels) + grid points;
-// red: 2 * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
+// and `levels` levels of halved cells, levels sub_level (1 <= sub_level <=
+// levels) and below on the first sub_blocks blocks: b, x0, x (grid); invd
+// (every level's points, concatenated); work: 4 * (points of all levels) +
+// grid points + 2 (the sub-group barrier's words); red: 2 * 8 * max_blocks.
+// Writes x, iters, rnorm and conv (int32, 1 each).
 int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,
                        void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
-                       int levels, int nsmooth, double omega, double lmin, double lmax,
-                       int cheb_degree, double rtol, int maxiter, void* stream) {
+                       int levels, int nsmooth, int sub_level, int sub_blocks, double omega,
+                       double lmin, double lmax, int cheb_degree, double rtol, int maxiter,
+                       void* stream) {
   if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
-      cheb_degree < 1)
+      cheb_degree < 1 || sub_level < 1 || sub_level > levels || sub_blocks < 1)
     return (int)cudaErrorInvalidValue;
   return is_f64 ? pressure_mg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
-                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
-                                             lmin, lmax, cheb_degree, rtol, maxiter, stream)
+                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth,
+                                             sub_level, sub_blocks, omega, lmin, lmax,
+                                             cheb_degree, rtol, maxiter, stream)
                 : pressure_mg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
-                                            rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
-                                            lmin, lmax, cheb_degree, rtol, maxiter, stream);
+                                            rnorm, conv, d, n0, n1, n2, levels, nsmooth,
+                                            sub_level, sub_blocks, omega, lmin, lmax,
+                                            cheb_degree, rtol, maxiter, stream);
 }
 
 // Jacobi (cheb_degree 0) or degree-cheb_degree Chebyshev-Jacobi PCG on the P1

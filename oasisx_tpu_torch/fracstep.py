@@ -511,10 +511,11 @@ class FractionalStep_AB_CN:
                                      s.atol)
             res = res._replace(x=band.from_band(res.x, bv))
         else:
-            vals, cols = ell_values(A, self._ell_v), self._ell_v.cols
-            r0 = zmask * (rhs - ell.ell_matvec(vals, cols, x0))
-            res = ell.ell_bicgstab(vals, cols, r0, x0, zmask, invd, bnorm, rtol, s.maxiter,
-                                   s.atol)
+            ev = self._ell_v
+            vals = ell_values(A, ev)
+            r0 = zmask * (rhs - ell.ell_matvec(vals, ev.cols, ev.widths, x0))
+            res = ell.ell_bicgstab(vals, ev.cols, ev.widths, r0, x0, zmask, invd, bnorm, rtol,
+                                   s.maxiter, s.atol)
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
         return res, diff, _rel_res(res.resnorm, bnorm)
 
@@ -547,13 +548,13 @@ class FractionalStep_AB_CN:
             return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
         s = self._solver_p
         rtol = _effective_rtol(s.rtol, self._dtype)
-        vals, cols = self._Ap_vals, self._ell_q.cols
+        op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
         if self._pbc_mask is not None:
-            res = ell.ell_pcg_amg(self._amg_data, vals, cols, b2, dp0, rtol, s.maxiter, s.atol,
+            res = ell.ell_pcg_amg(self._amg_data, *op, b2, dp0, rtol, s.maxiter, s.atol,
                                   mask=self._pbc_mask.to(b2.dtype))
             dp = res.x
         else:
-            res = ell.ell_pcg_amg(self._amg_data, vals, cols, b2, dp0 - torch.mean(dp0), rtol,
+            res = ell.ell_pcg_amg(self._amg_data, *op, b2, dp0 - torch.mean(dp0), rtol,
                                   s.maxiter, s.atol)
             ctx = self._ctx
             dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
@@ -576,8 +577,8 @@ class FractionalStep_AB_CN:
                 g = eng.matvec_vq(ctx, self._grad_p, dp)
             if self._layout == "band":
                 return self._velocity_update_band(u, g, dt, duc, rtol)
-            cols = self._ell_v.cols
-            mv = lambda x: ell.ell_matvec(self._M_vals, cols, x)
+            ev = self._ell_v
+            mv = lambda x: ell.ell_matvec(self._M_vals, ev.cols, ev.widths, x)
         b3 = mv(u) - dt * g
         r0 = -dt * g - mv(duc)
         bnorm = torch.linalg.vector_norm(b3, dim=-1)
@@ -585,7 +586,8 @@ class FractionalStep_AB_CN:
             res = fused.cg_mass(self._cu.M_c, r0, u + duc, self._M_invd, bnorm, self._sm_v,
                                 rtol, sc.maxiter, sc.atol)
         else:
-            res = ell.ell_cg(self._M_vals, self._ell_v.cols, r0, u + duc, self._M_invd, bnorm,
+            ev = self._ell_v
+            res = ell.ell_cg(self._M_vals, ev.cols, ev.widths, r0, u + duc, self._M_invd, bnorm,
                              rtol, sc.maxiter, sc.atol)
         return res, _rel_res(res.resnorm, bnorm)
 

@@ -23,20 +23,27 @@ ell_vcycle    K17's V-cycle alone, z = M r              make_ell_vcycle (:2385)
 ============= ========================================= =============================
 
 What bounds them on the H100, and what the kernels do about it: K14 streams
-the operator (vals and cols, K*n*8 bytes in f32) once per call for every
-vector of the batch, one thread per row so that the slot-major layout reads
-coalesced; it is bound by memory.  K15 and K16 stream the operator once or
-twice per iteration for all rows together; at the vessel's N=36 size the
-operator (200 MB) does not fit in the 50 MB L2, so they too are bound by
-memory, and the state vectors (3 x 1.6 MB) stay in L2.  K17 is bound by
-its grid barriers: one V-cycle is about 6 barriers per level, and the
-coarse levels have too few rows to fill the card.
+the operator (vals and cols) once per call for every vector of the batch,
+one thread per row so that the slot-major layout reads coalesced; it is
+bound by memory.  Each 32-row slice (a warp's rows) stops at its width, the
+largest slot count among its rows (``widths``, ``graph.slice_widths``), so
+the padding past it is not read: at the vessel's N=36 velocity operator a
+float32 product reads ~98 MB in place of the 202 MB of all K slots.  K15
+and K16 stream the operator once or twice per iteration for all rows
+together, on the same row product; at the vessel's N=36 size the operator
+does not fit in the 50 MB L2, so they too are bound by memory, and the
+state vectors (3 x 1.6 MB) stay in L2.  K17 is bound by its grid
+barriers: one V-cycle is about 6 barriers per level, and the coarse levels
+have too few rows to fill the card.
 
 The plain versions follow the JAX kernels and the loops around them
 operation for operation, with the loop on the host (one device read per iteration,
-counted in ``KrylovResult.syncs``).  A wrapper sends CPU tensors to the
-plain version and CUDA tensors to its kernel (``syncs`` 0), and raises for
-anything else; launches and plain calls count in
+counted in ``KrylovResult.syncs``); they sum all K slots, since a slot past
+its slice's width adds exactly 0.  The K14-K17 wrappers take the operator's
+``widths`` (int32, one per 32 rows) beside its columns and raise, on every
+device, when it is missing or of another shape or type.  A wrapper sends
+CPU tensors to the plain version and CUDA tensors to its kernel (``syncs``
+0), and raises for anything else; launches and plain calls count in
 ``assembly.kernels.launches`` / ``plain_calls``.
 """
 
@@ -47,6 +54,7 @@ import ctypes
 import torch
 
 from ..assembly import kernels as kn
+from ..parallel.graph import ELL_SLICE
 from .krylov import KrylovResult, _nz
 
 
@@ -267,6 +275,16 @@ def ell_pcg_amg_plain(amg: tuple[dict, list], vals0, cols0, b, x0, rtol: float, 
 # ---------------------------------------------------------------------------
 
 
+def _check_widths(widths, n: int) -> None:
+    """An operator's slice widths: contiguous int32 of shape (ceil(n / 32),)."""
+    nsl = -(-n // ELL_SLICE)
+    if not isinstance(widths, torch.Tensor) or tuple(widths.shape) != (nsl,):
+        raise ValueError(f"widths: expected shape ({nsl},) for {n} rows, got "
+                         f"{tuple(widths.shape) if isinstance(widths, torch.Tensor) else widths}")
+    if widths.dtype != torch.int32 or not widths.is_contiguous():
+        raise TypeError(f"widths: expected contiguous int32, got {widths.dtype}")
+
+
 def _check_ell(vals, cols, dtype):
     if vals.dim() != 2 or tuple(cols.shape) != tuple(vals.shape):
         raise ValueError(f"vals/cols: shapes {tuple(vals.shape)} {tuple(cols.shape)}")
@@ -275,10 +293,13 @@ def _check_ell(vals, cols, dtype):
         raise TypeError("cols: expected contiguous int32")
 
 
-def ell_matvec(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def ell_matvec(vals: torch.Tensor, cols: torch.Tensor, widths: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
     """y = A x for x (nin,) or (nb, nin); A in ELL form (K, n) with columns
-    < nin.  K14 on CUDA tensors, the plain version on the CPU."""
-    if not kn._route(vals, cols, x):
+    < nin and slice widths ``widths``.  K14 on CUDA tensors, the plain
+    version on the CPU."""
+    _check_widths(widths, vals.shape[-1])
+    if not kn._route(vals, cols, widths, x):
         return ell_matvec_plain(vals, cols, x)
     K, n = vals.shape
     xb = x.reshape(1, -1) if x.dim() == 1 else x
@@ -287,8 +308,8 @@ def ell_matvec(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor) -> torch
     y = torch.empty((xb.shape[0], n), dtype=x.dtype, device=x.device)
     p = kn._ptr
     with torch.cuda.device(x.device):
-        kn._call("ell_matvec", p(vals), p(cols), p(xb), p(y), K, n, xb.shape[1], xb.shape[0],
-                 int(x.dtype == torch.float64), kn._stream(x))
+        kn._call("ell_matvec", p(vals), p(cols), p(widths), p(xb), p(y), K, n, xb.shape[1],
+                 xb.shape[0], int(x.dtype == torch.float64), kn._stream(x))
     return y.reshape(n) if x.dim() == 1 else y
 
 
@@ -323,36 +344,39 @@ def _check_state(vals, cols, r0, named, invd, bnorm):
     _check_vectors(vals.shape[1], r0, named, invd, bnorm)
 
 
-def ell_bicgstab(vals, cols, r0, x0, zmask, invd, bnorm, rtol: float, maxiter: int,
+def ell_bicgstab(vals, cols, widths, r0, x0, zmask, invd, bnorm, rtol: float, maxiter: int,
                  atol: float = 1e-50) -> KrylovResult:
-    """Batched BiCGStab on an ELL operator with zero-masked bc rows, from
-    r0 = zmask (b - A x0) and x0 (nb, n); K15 on CUDA tensors, the plain
-    version on the CPU."""
-    if not kn._route(vals, cols, r0, x0, zmask, invd, bnorm):
+    """Batched BiCGStab on an ELL operator (slice widths ``widths``) with
+    zero-masked bc rows, from r0 = zmask (b - A x0) and x0 (nb, n); K15 on
+    CUDA tensors, the plain version on the CPU."""
+    _check_widths(widths, vals.shape[-1])
+    if not kn._route(vals, cols, widths, r0, x0, zmask, invd, bnorm):
         return ell_bicgstab_plain(vals, cols, r0, x0, zmask, invd, bnorm, rtol, maxiter, atol)
     _check_state(vals, cols, r0, (("r0", r0), ("x0", x0), ("zmask", zmask)), invd, bnorm)
     o = _solve_buffers(r0, 6, bnorm, rtol, atol)
     p = kn._ptr
     with torch.cuda.device(r0.device):
-        kn._call("ell_bicgstab", p(vals), p(cols), p(r0), p(x0), p(zmask), p(invd), p(o["tol"]),
-                 p(o["x"]), p(o["work"]), p(o["red"]), o["red"].numel() // 16, p(o["iters"]),
-                 p(o["rnorm"]), int(r0.dtype == torch.float64), vals.shape[0], r0.shape[1],
-                 r0.shape[0], int(maxiter), kn._stream(r0))
+        kn._call("ell_bicgstab", p(vals), p(cols), p(widths), p(r0), p(x0), p(zmask), p(invd),
+                 p(o["tol"]), p(o["x"]), p(o["work"]), p(o["red"]), o["red"].numel() // 16,
+                 p(o["iters"]), p(o["rnorm"]), int(r0.dtype == torch.float64), vals.shape[0],
+                 r0.shape[1], r0.shape[0], int(maxiter), kn._stream(r0))
     return KrylovResult(o["x"], o["iters"], o["rnorm"], o["rnorm"] <= o["tol"], 0)
 
 
-def ell_cg(vals, cols, r0, x0, invd, bnorm, rtol: float, maxiter: int,
+def ell_cg(vals, cols, widths, r0, x0, invd, bnorm, rtol: float, maxiter: int,
            atol: float = 1e-50) -> KrylovResult:
-    """Batched Jacobi-PCG on an ELL operator from r0 = b - A x0 and x0
-    (nb, n); K16 on CUDA tensors, the plain version on the CPU."""
-    if not kn._route(vals, cols, r0, x0, invd, bnorm):
+    """Batched Jacobi-PCG on an ELL operator (slice widths ``widths``) from
+    r0 = b - A x0 and x0 (nb, n); K16 on CUDA tensors, the plain version on
+    the CPU."""
+    _check_widths(widths, vals.shape[-1])
+    if not kn._route(vals, cols, widths, r0, x0, invd, bnorm):
         return ell_cg_plain(vals, cols, r0, x0, invd, bnorm, rtol, maxiter, atol)
     _check_state(vals, cols, r0, (("r0", r0), ("x0", x0)), invd, bnorm)
     o = _solve_buffers(r0, 3, bnorm, rtol, atol)
     p = kn._ptr
     with torch.cuda.device(r0.device):
-        kn._call("ell_cg", p(vals), p(cols), p(r0), p(x0), p(invd), p(o["tol"]), p(o["x"]),
-                 p(o["work"]), p(o["red"]), o["red"].numel() // 16, p(o["iters"]),
+        kn._call("ell_cg", p(vals), p(cols), p(widths), p(r0), p(x0), p(invd), p(o["tol"]),
+                 p(o["x"]), p(o["work"]), p(o["red"]), o["red"].numel() // 16, p(o["iters"]),
                  p(o["rnorm"]), int(r0.dtype == torch.float64), vals.shape[0], r0.shape[1],
                  r0.shape[0], int(maxiter), kn._stream(r0))
     return KrylovResult(o["x"], o["iters"], o["rnorm"], o["rnorm"] <= o["tol"], 0)
@@ -417,18 +441,21 @@ def ell_vcycle(amg: tuple[dict, list], r: torch.Tensor) -> torch.Tensor:
                      True)[0]
 
 
-def ell_pcg_amg(amg: tuple[dict, list], vals0, cols0, b, x0, rtol: float, maxiter: int,
-                atol: float = 1e-50, mask=None) -> KrylovResult:
+def ell_pcg_amg(amg: tuple[dict, list], vals0, cols0, widths0, b, x0, rtol: float,
+                maxiter: int, atol: float = 1e-50, mask=None) -> KrylovResult:
     """AMG-preconditioned CG on the pressure Poisson in ELL form
-    (vals0/cols0 (K0, n)), ``ell_pcg_amg_solve``'s semantics: with a
-    nullspace vector in the AMG data, b, r0, A p and the V-cycle's input
-    and output are projected and so is x on exit; with ``mask`` (1.0 on the
-    outlet rows) the operator is where(mask, p, A (1-mask) p).  On CUDA
-    tensors the set-up (b, tol, r0 = b - A x0 through K14) is tensor code
-    and the loop is K17; CPU tensors go to the plain version."""
-    if not kn._route(vals0, cols0, b, x0, *amg[1]):
+    (vals0/cols0 (K0, n), slice widths ``widths0``), ``ell_pcg_amg_solve``'s
+    semantics: with a nullspace vector in the AMG data, b, r0, A p and the
+    V-cycle's input and output are projected and so is x on exit; with
+    ``mask`` (1.0 on the outlet rows) the operator is where(mask, p,
+    A (1-mask) p).  On CUDA tensors the set-up (b, tol, r0 = b - A x0
+    through K14, which reads the widths) is tensor code and the loop is K17
+    (all K0 slots of a row); CPU tensors go to the plain version."""
+    _check_widths(widths0, vals0.shape[-1])
+    if not kn._route(vals0, cols0, widths0, b, x0, *amg[1]):
         return ell_pcg_amg_plain(amg, vals0, cols0, b, x0, rtol, maxiter, atol, mask)
-    r0, tol = _pcg_start(amg, vals0, cols0, b, x0, rtol, atol, mask, ell_matvec)
+    r0, tol = _pcg_start(amg, vals0, cols0, b, x0, rtol, atol, mask,
+                         lambda v, c, x: ell_matvec(v, c, widths0, x))
     x, k, rn, conv = _amg_call("ell_pcg_amg", amg, vals0, cols0, r0.contiguous(),
                                x0.contiguous(), tol, maxiter, mask, False)
     return KrylovResult(x, k, rn, conv, 0)

@@ -14,8 +14,9 @@ The plain-tensor counterpart of the whole-solve TPU kernel
 
 ``solve`` sends a CUDA tensor to the whole-solve kernel of
 ``csrc/krylov_ops.cu`` (K1: the CG loop, the V-cycle and every reduction on
-the card, no host read) and a CPU tensor to ``solve_plain``, the plain
-version: its loop runs on the host with one device read per iteration, and
+the card, no host read; its coarse levels on a sub-group of the grid's
+blocks, chosen by ``sub_group``) and a CPU tensor to ``solve_plain``, the
+plain version: its loop runs on the host with one device read per iteration, and
 every ``Ap`` application, on every level, goes through the level operator
 it is given (by default the constant-cube kernel's wrapper
 ``assembly.kernels.matvec_const``).  Launches and plain calls count under
@@ -29,6 +30,45 @@ import torch
 
 from ..assembly import kernels as kn
 from .krylov import KrylovResult, chebyshev_preconditioner
+
+# The sub-group of K1's V-cycle: SUB_BLOCKS blocks of 256 threads run the
+# levels from the first one below the finest with at most SUB_POINTS points
+# a thread of theirs; the rest of the grid waits at one grid barrier.  Chosen
+# by timing 8, 16 and 32 blocks from every level on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md): a coarse phase is bound by the work of the sub-group's
+# SMs, so 8 blocks are slower than the whole grid (5 iterations at N=36:
+# 2.91 ms from level 1, whole grid 1.89 ms); 16 and 32 blocks tie once the
+# first sub-group level has at most one point a thread (N=36: 1.44 ms), and
+# 32 blocks reach that on level 1 at N=36 and on level 2 at N=64 (2.47 ms,
+# whole grid 3.05 ms).  A thread-block cluster of 8 blocks with
+# cluster.sync() in place of the counter barrier ran as slow as 8 blocks.
+SUB_BLOCKS = 32
+SUB_POINTS = 1
+
+
+def sub_group(sizes: list[int]) -> tuple[int, int]:
+    """(sub_level, SUB_BLOCKS) for MG levels of ``sizes`` points, finest
+    first: the first level l >= 1 with at most SUB_POINTS * 256 * SUB_BLOCKS
+    points (len(sizes) if none: every level on the whole grid)."""
+    cap = SUB_POINTS * 256 * SUB_BLOCKS
+    lsub = next((l for l in range(1, len(sizes)) if sizes[l] <= cap), len(sizes))
+    return lsub, SUB_BLOCKS
+
+
+def barriers(L: int, lsub: int, nsmooth: int, degree: int) -> tuple[int, int]:
+    """(grid, sub-group) barriers of one K1 MG iteration: 5 in the CG body,
+    and one after each V-cycle phase (per level above the coarsest: nsmooth
+    down (the sweeps after the first, the residual), the restriction into the
+    next level, nsmooth + 1 up (the prolongation, the sweeps); degree - 1
+    Chebyshev steps on the coarsest); the phases on levels >= lsub are the
+    sub-group's, the last of them closed by a grid barrier."""
+    phases = [0] * L  # V-cycle phases per level
+    for l in range(L - 1):
+        phases[l] += 2 * nsmooth + 1
+        phases[l + 1] += 1
+    phases[L - 1] += degree - 1
+    sub = sum(phases[lsub:])
+    return 5 + sum(phases[:lsub]) + (1 if sub else 0), max(sub - 1, 0)
 
 
 class PressureMGCG:
@@ -62,6 +102,8 @@ class PressureMGCG:
         self.cells = tuple(int(c) for c in sm_q[1])
         self.invd_all = torch.cat([lvl["invd"] for lvl in self.levels]).contiguous()
         self.matvec_fn = kn.matvec_const
+        self.sub_level, self.sub_blocks = sub_group(
+            [int(np.prod(lvl["grid"])) for lvl in self.levels])
 
     # --- operators -----------------------------------------------------------
     def matvec(self, li: int, x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +182,7 @@ class PressureMGCG:
         kn._check(self.Ap_c, "Ap_c", dt, tuple(self.Ap_c.shape))
         ntot = self.invd_all.numel()
         x = torch.empty(n, dtype=dt, device=dev)
-        work = torch.empty(4 * ntot + n, dtype=dt, device=dev)
+        work = torch.empty(4 * ntot + n + 2, dtype=dt, device=dev)  # + sub_sync's 2 words
         red = torch.empty(2 * 8 * kn.coop_capacity(dev), dtype=dt, device=dev)
         iters = torch.empty(1, dtype=torch.int32, device=dev)
         rnorm = torch.empty(1, dtype=dt, device=dev)
@@ -151,8 +193,8 @@ class PressureMGCG:
         kn._call("pressure_mg", p(self.Ap_c), p(b), p(x0), p(self.invd_all), p(x), p(work),
                  p(red), red.numel() // 16, p(iters), p(rnorm), p(conv),
                  int(dt == torch.float64), self.d, *cells, len(self.levels), int(self.nsmooth),
-                 float(self.omega), float(lmin), float(lmax), int(deg), self.rtol,
-                 self.maxiter, kn._stream(b))
+                 self.sub_level, self.sub_blocks, float(self.omega), float(lmin), float(lmax),
+                 int(deg), self.rtol, self.maxiter, kn._stream(b))
         return KrylovResult(x, iters[0], rnorm[0], conv[0] != 0, 0)
 
     def solve_plain(self, b: torch.Tensor, x0: torch.Tensor, matvec=None) -> KrylovResult:

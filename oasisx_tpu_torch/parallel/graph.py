@@ -17,6 +17,13 @@ written to its slot, one bucket at a time, so repeated runs give the same
 bits on the card where ``index_add_`` would sum with atomics.  (A segmented
 reduction with one segment per slot, ``torch.segment_reduce``, took 23 ms
 a step at the vessel's N=36 size on the H100: one thread block per slot.)
+
+The ELL kernels give each 32-row slice of an operator (the rows of one warp)
+its *width*, the largest slot count of a row there (``slice_widths``), and
+stop each row's loop at it: the slots past a row's own length hold value 0
+and column 0 and add exactly 0, so the product reads only the slices' real
+widths (at the vessel's P2 operator 89% of what it reads are entries, where
+the full K slots are 43% entries).
 """
 
 from __future__ import annotations
@@ -73,6 +80,26 @@ def build_ell_tables(
     return K, slots, cols
 
 
+ELL_SLICE = 32  # rows of one slice: one warp of the ELL kernels (csrc/ell_device.cuh)
+
+
+def slice_widths(slots: np.ndarray, K: int, n: int) -> np.ndarray:
+    """(ceil(n / ELL_SLICE),) int32: per slice of ELL_SLICE consecutive rows,
+    the largest slot count of its rows, from the slot map ``slots`` of
+    ``build_ell_tables`` (a segment s < K n is slot s // n of row s % n;
+    larger segments are dropped).  Not from the columns: column 0 is also a
+    real column."""
+    seg = slots[slots < K * n].astype(np.int64)
+    used = np.zeros(K * n, dtype=bool)
+    used[seg] = True
+    used = used.reshape(K, n)
+    # a row's length: one past its last used slot (0 for an empty row)
+    rowlen = np.where(used.any(axis=0), K - np.argmax(used[::-1], axis=0), 0)
+    nsl = -(-n // ELL_SLICE)
+    rowlen = np.concatenate([rowlen, np.zeros(nsl * ELL_SLICE - n, dtype=rowlen.dtype)])
+    return rowlen.reshape(nsl, ELL_SLICE).max(axis=1).astype(np.int32)
+
+
 @dataclass
 class EllAssembly:
     """One operator's ELL sparsity and its slot-grouped assembly map."""
@@ -80,6 +107,7 @@ class EllAssembly:
     K: int
     n: int
     cols: torch.Tensor  # (K, n) int32, padding column 0
+    widths: torch.Tensor  # (ceil(n / ELL_SLICE),) int32: each slice's slot count (slice_widths)
     # per bucket: (positions (nslots, width) into the flattened element
     # stack with one appended 0, padded with that 0; the slots (nslots,))
     buckets: list[tuple[torch.Tensor, torch.Tensor]]
@@ -136,6 +164,7 @@ def build_ell_assembly(cell_dofs: np.ndarray, n: int, device: torch.device) -> E
     # segment K * n: the dropped segment of padded cells
     buckets, nnz = slot_buckets(slots[0].astype(np.int64), K * n, device)
     return EllAssembly(
-        K=int(K), n=int(n), cols=torch.as_tensor(cols[0], device=device), buckets=buckets,
+        K=int(K), n=int(n), cols=torch.as_tensor(cols[0], device=device),
+        widths=torch.as_tensor(slice_widths(slots[0], K, n), device=device), buckets=buckets,
         nnz=nnz,
     )

@@ -47,6 +47,12 @@ from test_ell_kernels import _lap1d_ell, _lap2d_coo, _nonsym_ell  # noqa: E402
 T = lambda a: torch.as_tensor(np.asarray(a))
 
 
+def _W(cols):
+    """Slice widths that read every slot of an ELL table (K, n)."""
+    K, n = np.shape(cols)
+    return torch.full((-(-n // tgr.ELL_SLICE),), K, dtype=torch.int32)
+
+
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b).max() / max(np.abs(a).max(), 1e-300)
@@ -103,7 +109,7 @@ def test_ell_matvec_plain_matches_interpret(nb):
         ref = po.make_ell_matvec_batched(3, n, n, nb, interpret=True)(
             jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x))
     kn.reset_counts()
-    got = ell.ell_matvec(T(vals), T(cols), T(x[0]) if nb == 1 else T(x))
+    got = ell.ell_matvec(T(vals), T(cols), _W(cols), T(x[0]) if nb == 1 else T(x))
     assert kn.plain_calls["ell_matvec"] == 1 and kn.launches["ell_matvec"] == 0
     assert _rel(ref, got.reshape(nb, n)) <= 1e-13
 
@@ -129,8 +135,8 @@ def test_ell_bicgstab_plain_matches_interpret():
         it_fn, jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(r0), jnp.asarray(x0),
         jnp.asarray(zmask), jnp.asarray(invd), jnp.asarray(bnorm), rtol, maxiter)
     kn.reset_counts()
-    res = ell.ell_bicgstab(T(vals), T(cols), T(r0), T(x0), T(zmask), T(invd), T(bnorm), rtol,
-                           maxiter)
+    res = ell.ell_bicgstab(T(vals), T(cols), _W(cols), T(r0), T(x0), T(zmask), T(invd),
+                           T(bnorm), rtol, maxiter)
     assert kn.plain_calls["ell_bicgstab"] == 1 and res.syncs >= 1
     assert bool(np.asarray(cj).all()) and bool(res.converged.all())
     np.testing.assert_array_equal(np.asarray(itj), res.iters.numpy())
@@ -155,7 +161,7 @@ def test_ell_cg_plain_matches_interpret():
         it_fn, jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(r0), jnp.asarray(x0),
         jnp.asarray(invd), jnp.asarray(bnorm), rtol, maxiter)
     kn.reset_counts()
-    res = ell.ell_cg(T(vals), T(cols), T(r0), T(x0), T(invd), T(bnorm), rtol, maxiter)
+    res = ell.ell_cg(T(vals), T(cols), _W(cols), T(r0), T(x0), T(invd), T(bnorm), rtol, maxiter)
     assert kn.plain_calls["ell_cg"] == 1
     assert bool(np.asarray(cj).all()) and bool(res.converged.all())
     np.testing.assert_array_equal(np.asarray(itj), res.iters.numpy())
@@ -238,7 +244,7 @@ def test_ell_pcg_amg_plain_matches_interpret(variant):
         mask=mk if variant == "mask" else None,
         nullvec=jnp.ones(n) if variant == "null" else None)
     kn.reset_counts()
-    res = ell.ell_pcg_amg((meta, arrays), T(ev), T(ec), T(b), T(x0), rtol, maxiter,
+    res = ell.ell_pcg_amg((meta, arrays), T(ev), T(ec), _W(ec), T(b), T(x0), rtol, maxiter,
                           mask=T(mask.astype(np.float64)) if variant == "mask" else None)
     assert kn.plain_calls["ell_pcg_amg"] == 1 and sum(kn.launches.values()) == 0
     assert bool(cvj) and bool(res.converged)
@@ -249,4 +255,5 @@ def test_ell_pcg_amg_plain_matches_interpret(variant):
 def test_wrappers_refuse_mixed_devices():
     vals, cols, _ = _nonsym_ell(8, np.float64)
     with pytest.raises(ValueError):
-        ell.ell_matvec(T(vals), T(cols), torch.zeros(8, dtype=torch.float64, device="meta"))
+        ell.ell_matvec(T(vals), T(cols), _W(cols),
+                       torch.zeros(8, dtype=torch.float64, device="meta"))

@@ -84,3 +84,60 @@ def test_pressure_mg_explicit_level_operator():
     assert np.abs(res.x.numpy() - xj).max() <= 1e-8 * np.abs(xj).max()
     ref = pcg.solve(torch.tensor(b), torch.tensor(x0))
     assert torch.equal(ref.x, res.x) and int(ref.iters) == int(res.iters)
+
+
+def _fast_div(d: int) -> tuple[int, int]:
+    """The multiply-and-shift constants of ``fast_div`` (csrc/cube_device.cuh):
+    n / d = (n m) >> s for 0 <= n < 2^31."""
+    s = 31 + max(d - 1, 0).bit_length()
+    return -(-(1 << s) // d), s
+
+
+def _mg_grids(cells: tuple) -> list[tuple]:
+    """K1's level grids (points per axis, 3D form) as pressure_mg_launch makes
+    them: the cells halved per level down to one cell an axis."""
+    cells, out = list(cells), []
+    while min(cells) >= 1:
+        g = tuple(c + 1 for c in cells)
+        out.append(g if len(g) == 3 else (1, *g))
+        cells = [c // 2 for c in cells]
+    return out
+
+
+def test_coords_split_exact():
+    """K1's transfers split a level point idx into (c0, c1, c2) by two
+    multiply-and-shift divisions, by g2 and then by g1: exact for every point
+    of every level of every 3D grid up to N=64 (even N, and the 20x27x33
+    box whose axes differ) and of 2D grids up to 256 cells an axis."""
+    shapes = [(N,) * 3 for N in range(2, 65, 2)] + [(20, 27, 33)]
+    shapes += [(N, N) for N in range(2, 257, 2)] + [(41, 57)]
+    grids = {g for c in shapes for g in _mg_grids(c)}
+    assert (1, 129, 129) in grids and (65, 65, 65) in grids
+    for g in sorted(grids):
+        (m2, s2), (m1, s1) = _fast_div(g[2]), _fast_div(g[1])
+        assert m1 < 2**32 and m2 < 2**32
+        idx = np.arange(g[0] * g[1] * g[2], dtype=np.uint64)
+        q = (idx * np.uint64(m2)) >> np.uint64(s2)
+        c0 = (q * np.uint64(m1)) >> np.uint64(s1)
+        c2, c1 = idx - q * np.uint64(g[2]), q - c0 * np.uint64(g[1])
+        want = np.unravel_index(idx.astype(np.int64), g)
+        for got, ref in zip((c0, c1, c2), want):
+            np.testing.assert_array_equal(got.astype(np.int64), ref)
+
+
+@pytest.mark.parametrize("cells, levels, plan, bars", [
+    ((36,) * 3, 3, (1, 32), (11, 19)),   # bench.py's N=36: 50,653 / 6,859 / 1,000 points
+    ((64,) * 3, 5, (2, 32), (17, 25)),   # N=64: level 1 has 35,937 points, over 1 a thread
+    ((256, 256), 6, (2, 32), (17, 31)),  # 2D: 66,049 / 16,641 / 4,225 / ... / 81 points
+], ids=["3d-36", "3d-64", "2d-256"])
+def test_sub_group_plan(cells, levels, plan, bars):
+    """The sub-group of K1's V-cycle: the first level below the finest with at
+    most one point a thread of 32 blocks of 256, and the barriers of one
+    iteration (nsmooth 2, coarse Chebyshev degree 14): the grid's, and the
+    sub-group's; on the whole grid there would be their sum."""
+    from oasisx_tpu_torch.la.pressure_mg import barriers, sub_group
+
+    sizes = [int(np.prod(g)) for g in _mg_grids(cells)[:levels]]
+    assert sub_group(sizes) == plan
+    assert barriers(levels, plan[0], 2, 14) == bars
+    assert barriers(levels, levels, 2, 14) == (sum(bars), 0)

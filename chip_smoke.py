@@ -27,13 +27,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    The whole solves on the main path's systems: the mass CG (K4) on M_c
    with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
-   Taylor-Green initial state with the mesh's bc rows; x to 1e-10 relative
-   with equal iteration counts in f64 (rtol 1e-8), to 10 rtol with
-   iterations within 1 per row in f32 (rtol 1e-5), and a second kernel
-   call bit-identical to the first.  The plain solves loop on the host
-   with their operators on the cube kernels' plain versions.  Printed for
-   K1 (and in 3c at N=64): its levels, the levels that run on the
-   sub-group of blocks, and its grid and sub-group barriers an iteration.
+   Taylor-Green initial state with the mesh's bc rows, at batch 3 and at
+   batch 1 (also on the two unequal grids, and at N=64 in 3c); x to 1e-10
+   relative with equal iteration counts in f64 (rtol 1e-8), to 10 rtol
+   with iterations within 1 per row in f32 (rtol 1e-5), and a second
+   kernel call bit-identical to the first.  The plain solves loop on the
+   host with their operators on the cube kernels' plain versions.  Printed
+   for K1 (and in 3c at N=64): its levels, the levels that run on the
+   sub-group of blocks, and its grid and sub-group barriers an iteration;
+   for K2: the bytes of one product (W, the staged per-cube outputs, the
+   vectors) and the rate its products moved them at.
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
    dofs) in float32 on the card, bench settings (dt 2e-3, nu 1/1600, rtol
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
@@ -77,7 +80,10 @@ any failure or when there is no card.
    Printed per ELL operator: the bytes a float32 K14 product reads of its
    32-row slices' widths, and the share of them that are entries, against
    all K slots; K14's records carry those bytes ("read_bytes"), while the
-   bound counts the real nonzeros.
+   bound counts the real nonzeros.  Printed for K17 on the vessel and the
+   cylinder: each AMG level's rows, each table's K (and whether K17 reads
+   it a warp a row) and width-bounded bytes, and its grid barriers an
+   iteration.
 4b. The vessel path at N=36 in float32 (dt 2e-3, nu 1/1600, rtol 1e-5,
    max_iter 1, CG velocity update, low_memory_version False): 5 warm-up
    and 25 timed steps, the same checks as phase 4 on the ELL kernels, and
@@ -118,7 +124,10 @@ Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
 and the outputs written once over 3.35 TB/s, or the operations over 67
 TFLOP/s in float32, whichever is larger, with "bound_by" naming which; for
-a solve, the operations of the iterations this run's data took) and
+a solve, the operations of the iterations this run's data took, and an
+operator larger than the 50 MB L2 (K2's W, the A_lhs and M of K15, K16
+and K18) read once a product, the products from the iterations; each such
+operator is printed) and
 "library_ms" (one PyTorch call computing the same function: a
 torch.sparse CSR product of the assembled operator for the cube operators,
 K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
@@ -197,6 +206,7 @@ N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
+L2_BYTES = 50e6  # H100 SXM L2: a solve's operator above it is read from HBM once a product
 SPIN_CYCLES_S = 2.0e9  # about the H100's SM clock: spin-kernel cycles a second
 
 
@@ -214,6 +224,17 @@ def bound(nbytes: float, flops: float) -> dict:
     operations over its float32 rate, whichever is larger."""
     tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return {"bound_ms": 1e3 * max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations"}
+
+
+def operator_bytes(label: str, nbytes: float, products: int) -> float:
+    """An operator's bytes in a solve's bound: read once where it fits in
+    the L2, once a product (``products``, from the solve's iterations) where
+    it does not; the latter is printed."""
+    if nbytes <= L2_BYTES:
+        return nbytes
+    print(f"    bound: {label}, {nbytes / 1e6:.1f} MB > the {L2_BYTES / 1e6:.0f} MB L2, counted "
+          f"once a product: {products} products")
+    return nbytes * products
 
 
 # ---------------------------------------------------------------------------
@@ -416,19 +437,51 @@ def ell_csr(vals, cols):
     return torch.sparse_csr_tensor(crow, C[m], V[m], (V.shape[0], V.shape[0]))
 
 
-def ell_read(asm, isz: int) -> tuple[float, float]:
-    """(bytes, fill) of one K14 product's operator read: each row reads its
-    32-row slice's width of values and columns (and the slice's width), and
-    the share of the slots read that hold an entry."""
+def width_slots(widths, n: int) -> float:
+    """Slots a width-bounded product of an ELL table of n rows reads: each
+    row its 32-row slice's width."""
     import numpy as np
 
     from oasisx_tpu_torch.parallel.graph import ELL_SLICE
 
-    w = asm.widths.cpu().numpy().astype(np.int64)
+    w = widths.cpu().numpy().astype(np.int64)
     rows = np.full(w.shape, ELL_SLICE, dtype=np.int64)
-    rows[-1] = asm.n - ELL_SLICE * (len(w) - 1)
-    slots = float((w * rows).sum())
-    return (isz + 4) * slots + 4 * len(w), asm.nnz / slots
+    rows[-1] = n - ELL_SLICE * (len(w) - 1)
+    return float((w * rows).sum())
+
+
+def ell_read(asm, isz: int) -> tuple[float, float]:
+    """(bytes, fill) of one K14 product's operator read: each row reads its
+    32-row slice's width of values and columns (and the slice's width), and
+    the share of the slots read that hold an entry."""
+    slots = width_slots(asm.widths, asm.n)
+    return (isz + 4) * slots + 4 * len(asm.widths), asm.nnz / slots
+
+
+def amg_report(label: str, solver, isz: int = 4) -> None:
+    """K17's AMG levels: rows, each table's K (marked where K17 reads it a
+    warp a row, from the kernel's own kWarpRowK) and the bytes a float32
+    product reads of its slices' widths against all K slots; and its grid
+    barriers an iteration."""
+    from oasisx_tpu_torch._build import library
+    from oasisx_tpu_torch.la import ell
+
+    meta = solver._amg_data[0]
+    warp_k = library().oasisx_ell_warp_row_k()
+    for i, m in enumerate(meta["levels"]):
+        parts = []
+        for j, (key, K, rows) in enumerate((("A", m["K_A"], m["n"]), ("P", m["K_P"], m["n"]),
+                                            ("R", m["K_R"], m["nc"]))):
+            w = solver._amg_widths[3 * i + j]
+            read = (isz + 4) * width_slots(w, rows) + 4 * len(w)
+            warp = " (a warp a row)" if K >= warp_k else ""
+            parts.append(f"{key} K {K}{warp}: {read / 1e6:.3f} MB of "
+                         f"{(isz + 4) * K * rows / 1e6:.3f}")
+        print(f"  K17 {label} level {i}: {m['n']} rows; " + "; ".join(parts) + " MB")
+    cn = meta["coarse_n"]
+    print(f"  K17 {label} level {len(meta['levels'])}: {cn} rows, dense "
+          f"{isz * cn * cn / 1e6:.3f} MB; grid barriers an iteration (pre {meta['pre']}, post "
+          f"{meta['post']}): {ell.amg_barriers(meta)}")
 
 
 # ---------------------------------------------------------------------------
@@ -675,19 +728,6 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
         vflops = sum(2 * pcg.nsmooth * f for f in lv[:-1]) + (pcg.coarse[2] - 1) * lv[-1]
         return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
 
-    # K2: the first tentative solve from the Taylor-Green initial state
-    st = solver._state_from_functions()
-    u1, u2 = st["u1"], st["u2"]
-    W, uq, b_first = solver._assemble_first(u1, u2, DT, NU)
-    tdiag = c(solver._tentative_diag(W, uq, DT, NU))
-    W, b_first, u1, u2 = c(W), c(b_first), c(u1), c(u2)
-    bc, masks, zmask = c(solver._bc_values()), solver._bc_masks, c(solver._zmask)
-    rhs = torch.where(masks, bc, b_first)
-    tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
-    r0 = zmask * rhs - kn.matvec_win(W, tx0, sm_v, zmask=zmask)
-    tbn = torch.linalg.vector_norm(rhs, dim=-1)
-    tinvd = torch.where(tdiag != 0, 1.0 / tdiag, 1.0)
-    win = lambda v: kn.matvec_win_plain(W, v, sm_v)
     rows = lambda res: float(res.iters.sum())
     return rtol, [
         ("cg_mass", "M_c, random rhs",
@@ -701,12 +741,75 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
          lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
-        ("bicgstab", "TGV first step",
-         lambda: fused.bicgstab(W, r0, tx0, zmask, tinvd, tbn, sm_v, rtol, maxiter),
-         lambda: fused.bicgstab_from_r0(win, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
-         lambda res: (isz * (nl * nl * nc + 4 * d * nv + nv),
-                      rows(res) * (4.0 * nl * nl * nc + 20 * nv))),
-    ]
+    ] + bicgstab_cases(solver, dtype)[1]
+
+
+def k2_product_bytes(solver, dtype, batch: int) -> dict:
+    """Bytes of one K2 product (the two phases of csrc/krylov_ops.cu): W
+    streamed once, the staged per-cube outputs written and read once, and
+    the input vectors y read and the output vectors written once."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    isz = torch.empty((), dtype=dtype).element_size()
+    nl, nc = cub.num_slots(solver._sm_v), int(np.prod(solver._sm_v[1]))
+    return dict(W=isz * nl * nl * nc, staging=2.0 * isz * batch * nl * nc,
+                vectors=2.0 * isz * batch * solver._npad_v)
+
+
+def bicgstab_cases(solver, dtype):
+    """(rtol, cases) of K2: the first tentative solve from the Taylor-Green
+    initial state with the mesh's bc rows, at the batch of the velocity's
+    components and at batch 1 (its first component), in ``dtype`` with the
+    solver's operators cast.  The bound counts W once a product where it
+    exceeds the L2; each case prints its bytes a product and the rate its
+    products achieved."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la import fused
+
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    c = lambda t: t.to(dtype)
+    sm_v, maxiter = solver._sm_v, 2000
+    isz = torch.empty((), dtype=dtype).element_size()
+    nv = solver._npad_v
+    nl, nc = cub.num_slots(sm_v), int(np.prod(sm_v[1]))
+    st = solver._state_from_functions()
+    u1, u2 = st["u1"], st["u2"]
+    W, uq, b_first = solver._assemble_first(u1, u2, DT, NU)
+    tdiag = c(solver._tentative_diag(W, uq, DT, NU))
+    W, b_first, u1, u2 = c(W), c(b_first), c(u1), c(u2)
+    bc, masks, zmask = c(solver._bc_values()), solver._bc_masks, c(solver._zmask)
+    rhs = torch.where(masks, bc, b_first)
+    tx0 = torch.where(masks, bc, 2.0 * u1 - u2)
+    r0 = zmask * rhs - kn.matvec_win(W, tx0, sm_v, zmask=zmask)
+    tbn = torch.linalg.vector_norm(rhs, dim=-1)
+    tinvd = torch.where(tdiag != 0, 1.0 / tdiag, 1.0)
+    win = lambda v: kn.matvec_win_plain(W, v, sm_v)
+    one = lambda t: t[:1].contiguous()
+
+    def case(B, args, label):
+        def work(res):
+            products = 2 * int(res.iters.max())
+            per = k2_product_bytes(solver, dtype, B)
+            w_bytes = operator_bytes(f"K2 W ({label})", per["W"], products)
+            return (w_bytes + isz * (4 * B * nv + nv),
+                    float(res.iters.sum()) * (4.0 * nl * nl * nc + 20 * nv))
+
+        return ("bicgstab", label, lambda: fused.bicgstab(W, *args, sm_v, rtol, maxiter),
+                lambda: fused.bicgstab_from_r0(win, *args, rtol, maxiter), work,
+                {"product_bytes": k2_product_bytes(solver, dtype, B)})
+
+    full = (r0, tx0, zmask, tinvd, tbn)
+    B = r0.shape[0]
+    return rtol, [case(B, full, "TGV first step"),
+                  case(1, (one(r0), one(tx0), one(zmask), tinvd, one(tbn)),
+                       "TGV first step batch 1")]
 
 
 def pcg_solve_cases(pair, device, seed: int = 6):
@@ -797,10 +900,18 @@ def compare_solves(solvers: dict, device, cases_fn=None, suffix: str = "") -> di
                 continue
             more = {"iters": ik.tolist()}
             for key, fn in (extra[0] if extra else {}).items():  # the same solve, flat ELL
-                more[key] = min(time_ms(fn, device, reps=10), time_ms(fn, device, reps=10))
-            out.setdefault(name, []).append(_timed(
-                name, label, kfn, pfn, device, err, work(rk), None, reps=10, preps=3,
-                extra=more))
+                more[key] = (min(time_ms(fn, device, reps=10), time_ms(fn, device, reps=10))
+                             if callable(fn) else fn)
+            rec = _timed(name, label, kfn, pfn, device, err, work(rk), None, reps=10, preps=3,
+                         extra=more)
+            if "product_bytes" in more:  # K2: its products' bytes and rate
+                pb, products = more["product_bytes"], 2 * int(ik.max())
+                moved = products * sum(pb.values())
+                print(f"    bytes a product: W {pb['W'] / 1e6:.1f} MB, staging "
+                      f"{pb['staging'] / 1e6:.1f} MB, vectors {pb['vectors'] / 1e6:.1f} MB; "
+                      f"{products} products, {moved / 1e6:.1f} MB in {rec['ms']:.4f} ms: "
+                      f"{moved / rec['ms'] / 1e9:.3f} TB/s")
+            out.setdefault(name, []).append(rec)
     return out
 
 
@@ -861,7 +972,7 @@ def ell_kernel_cases(vsolver, device, seed: int = 2):
     # operator, its slices' widths of values and columns
     work = lambda nnz, n, nb: ((isz + 4) * nnz + isz * 2 * nb * n, 2.0 * nnz * nb)
     read = lambda e: {"read_bytes": ell_read(e, isz)[0]}
-    amg = vsolver._amg_data
+    amg, amg_w = vsolver._amg_data, vsolver._amg_widths
     r = rnd(eq.n)
     return [
         ("ell_matvec", "A_lhs batch 3",
@@ -877,7 +988,7 @@ def ell_kernel_cases(vsolver, device, seed: int = 2):
          lambda: ell.ell_matvec_plain(Apv, eq.cols, xq), work(eq.nnz, eq.n, 1), lib.get("Ap"),
          read(eq)),
         ("ell_pcg_amg", f"V-cycle alone, {len(amg[0]['levels']) + 1} levels",
-         lambda: ell.ell_vcycle(amg, r), lambda: ell.ell_vcycle_plain(amg, r),
+         lambda: ell.ell_vcycle(amg, r, amg_w), lambda: ell.ell_vcycle_plain(amg, r),
          _amg_work(amg, isz), None),
     ]
 
@@ -960,7 +1071,7 @@ def ell_solve_cases(pair, device, seed: int = 3):
     nnz_bytes = lambda e: (isz + 4) * e.nnz
     pcg = lambda s, bb, xx, mask: (
         lambda: ell.ell_pcg_amg(s._amg_data, s._Ap_vals, s._ell_q.cols, s._ell_q.widths, bb, xx,
-                                rtol, maxiter, mask=mask),
+                                rtol, maxiter, mask=mask, amg_widths=s._amg_widths),
         lambda: ell.ell_pcg_amg_plain(s._amg_data, s._Ap_vals, s._ell_q.cols, bb, xx, rtol,
                                       maxiter, mask=mask),
         lambda res: _amg_work(s._amg_data, isz, int(res.iters)))
@@ -968,13 +1079,14 @@ def ell_solve_cases(pair, device, seed: int = 3):
         ("ell_bicgstab", "TGV first step, bc rows",
          lambda: ell.ell_bicgstab(*op, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
          lambda: ell.ell_bicgstab_plain(vals, ev.cols, r0, tx0, zmask, tinvd, tbn, rtol, maxiter),
-         lambda res: (nnz_bytes(ev) + isz * (4 * 3 * n + n),
-                      rows(res) * (4.0 * ev.nnz + 20 * n))),
+         lambda res: (operator_bytes("K15 A_lhs", nnz_bytes(ev), 2 * int(res.iters.max()))
+                      + isz * (4 * 3 * n + n), rows(res) * (4.0 * ev.nnz + 20 * n))),
         ("ell_cg", "M, random rhs",
          lambda: ell.ell_cg(vs._M_vals, ev.cols, ev.widths, b, x0, vs._M_invd, bn, rtol,
                             maxiter),
          lambda: ell.ell_cg_plain(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
-         lambda res: (nnz_bytes(ev) + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n))),
+         lambda res: (operator_bytes("K16 M", nnz_bytes(ev), int(res.iters.max()))
+                      + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n))),
         ("ell_pcg_amg", f"Ap nullspace, {len(vs._amg_data[0]['levels']) + 1} levels",
          *pcg(vs, bq, zq, None)),
         ("ell_pcg_amg", f"cylinder res={CYL_RES} Ap, outlet mask", *pcg(cs, bc_q, zc, cmask)),
@@ -1095,13 +1207,15 @@ def band_solve_cases(pair, device, seed: int = 5):
         ("band_bicgstab", "TGV first step, bc rows",
          lambda: band.band_bicgstab(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
          lambda: band.band_bicgstab_plain(*args, r0, xb, zb, ivb, tbn, rtol, maxiter),
-         lambda res: (nnz_bytes + isz * (4 * 3 * n + n), rows(res) * (4.0 * ev.nnz + 20 * n)),
+         lambda res: (operator_bytes("K18 A_lhs", nnz_bytes, 2 * int(res.iters.max()))
+                      + isz * (4 * 3 * n + n), rows(res) * (4.0 * ev.nnz + 20 * n)),
          {"ell_ms": lambda: ell.ell_bicgstab(evals, ev.cols, ev.widths, er0, tx0, zmask, tinvd,
                                              tbn, rtol, maxiter)}),
         ("band_cg", "M, random rhs",
          lambda: band.band_cg(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
          lambda: band.band_cg_plain(*margs, bb, x0b, Mivb, bn, rtol, maxiter),
-         lambda res: (nnz_bytes + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n)),
+         lambda res: (operator_bytes("K18 M", nnz_bytes, int(res.iters.max()))
+                      + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n)),
          {"ell_ms": lambda: ell.ell_cg(es._M_vals, ev.cols, ev.widths, b, torch.zeros_like(b),
                                        es._M_invd, bn, rtol, maxiter)}),
     ]
@@ -1175,6 +1289,7 @@ class StepLog:
 
         st = res["stats"]
         rec = {f: np.asarray(st[f"{f}_iters"]).tolist() for f in ("u", "p", "c")}
+        rec.update({f"{f}_res": np.asarray(st[f"{f}_res"]).tolist() for f in ("u", "p", "c")})
         rec["state_sha"] = state_sha
         self.data[tag] = rec
         with open(self.path, "w") as f:
@@ -1185,6 +1300,12 @@ class StepLog:
         same = {f: ref[f] == rec[f] for f in ("u", "p", "c")}
         print(f"    [{tag}] iterations of every step equal to the other tree's: {same}; final "
               f"state bit-identical: {ref.get('state_sha') == state_sha}")
+        for f in ("u", "p", "c"):  # each step that differs: both trees' iterations and residuals
+            for k, (a, b) in enumerate(zip(ref[f], rec[f])):
+                if a != b:
+                    print(f"    [{tag}] step {k} {f}: iterations {a} (this checkout) / {b} "
+                          f"(the other tree), exit residuals {ref.get(f'{f}_res', [None] * (k + 1))[k]}"
+                          f" / {rec[f'{f}_res'][k]}")
         check(all(same.values()), f"[{tag}] iterations differ from the other tree's: {same}")
 
 
@@ -1452,15 +1573,22 @@ def main() -> int:
     print(f"[3] kernels against plain versions (N={N} shapes)")
     kres = compare_kernels(solver, "cuda")
     gather_loops(solver)
+    box_solves: dict = {}
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
         tag = " " + "x".join(map(str, cells))
         print(f"[3] kernels against plain versions ({len(cells)}D, {tag[1:]} cells)")
         for name, recs in compare_kernels(box, "cuda", tag=tag).items():
             kres[name] = kres[name] + recs
+        for name, recs in compare_solves(
+                {"float64": (box, torch.float64), "float32": (box, torch.float32)}, "cuda",
+                cases_fn=lambda pr, dev: bicgstab_cases(*pr), suffix=tag).items():
+            box_solves[name] = box_solves.get(name, []) + recs
         del box
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     kres.update(compare_solves({"float64": solver64, "float32": solver}, "cuda"))
+    for name, recs in box_solves.items():
+        kres[name] = kres[name] + recs
     del solver64
 
     # 4. the structured main path
@@ -1565,6 +1693,8 @@ def main() -> int:
               f"{rb / 1e6:.1f} MB of its slices' widths (fill {fill:.4f}) in place of "
               f"{8 * e.K * e.n / 1e6:.1f} MB of all K slots (fill {e.nnz / (e.K * e.n):.4f}); "
               f"real nonzeros {8 * e.nnz / 1e6:.1f} MB")
+    amg_report(f"vessel N={N}", vessel)
+    amg_report(f"cylinder res={CYL_RES}", cyl)
     kres.update(compare_ell_kernels({"float64": vessel64, "float32": vessel}, "cuda"))
     for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
                                      "cuda", cases_fn=ell_solve_cases).items():

@@ -37,7 +37,7 @@ build_seconds: float | None = None  # wall time of the last compile, None if loa
 build_log = ""  # compiler output of the last compile
 
 P, I, D, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-_AMG = [P, P, I, LL] + [P] * 5 + [I, LL, I, I] + [P] * 6 + [I] + [P] * 3 + [I, I, P]
+_AMG = [P, P, I, LL] + [P] * 6 + [I, LL, I, I] + [P] * 6 + [I] + [P] * 3 + [I, I, P]
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "oasisx_ell_matvec": [P] * 5 + [I, LL, LL, I, I, P],
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "oasisx_ell_cg": [P] * 10 + [I, P, P, I, I, LL, I, I, P],
     "oasisx_ell_pcg_amg": _AMG,
     "oasisx_ell_vcycle": _AMG,
+    "oasisx_ell_warp_row_k": [],
     "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_matvec_win": [P] * 5 + [I] * 7 + [P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
@@ -56,7 +57,7 @@ _SIGNATURES = {
     "oasisx_band_bicgstab": [P] * 12 + [I, P, P] + [I] * 5 + [P],
     "oasisx_band_cg": [P] * 11 + [I, P, P] + [I] * 5 + [P],
     "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 8 + [P],
-    "oasisx_bicgstab": [P] * 9 + [I] + [P] * 2 + [I] * 8 + [P],
+    "oasisx_bicgstab": [P] * 9 + [LL, P, I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 9 + [D] * 3 + [I, D, I, P],
     "oasisx_pressure_cg": [P] * 7 + [I] + [P] * 3 + [I] * 6 + [D] * 3 + [I, P],
 }

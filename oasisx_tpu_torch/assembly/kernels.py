@@ -205,6 +205,23 @@ def matvec_win_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul
     return y if zmask is None else zmask * y
 
 
+def matvec_win_staged_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
+                            zmask=None) -> torch.Tensor:
+    """``matvec_win_plain`` summed in the order of K2's in-solve product
+    (``csrc/krylov_ops.cu``): per cube, each output slot sums its nl input
+    slots in slot order into a staged (B, nl, ncubes) value; then each point
+    sums the staged values of its cubes in ``cube_visit``'s order, which is
+    ``cubes.cube_scatter``'s.  K2's product as tensor code, for the tests."""
+    nl = cub.num_slots(sm)
+    U = cub.cube_gather(x if premul is None else premul * x, sm)  # (B, nl, nc)
+    Wt = W.reshape(nl, nl, -1)
+    Y = torch.zeros_like(U)
+    for ti in range(nl):
+        Y = Y + Wt[:, ti] * U[:, ti : ti + 1]
+    y = cub.cube_scatter(Y, sm)
+    return y if zmask is None else zmask * y
+
+
 def mixed_plain(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
     plain_calls["mixed"] += 1
     return cub.mixed_all(p, C_all, sm_v, sm_q)

@@ -12,13 +12,14 @@
 // kernel writes between grid barriers, so it is read through a plain
 // pointer.
 //
-// K14-K16 (EllOp) stop a row at its slice's width: widths[r / 32] is the
+// K14-K17 (EllOp) stop a row at its slice's width: widths[r / 32] is the
 // largest slot count among the 32 rows r & ~31 .. r | 31 (a warp's rows:
 // every kernel of ell_ops.cu gives a warp 32 consecutive rows starting at a
 // multiple of 32, since its blocks start and stride by multiples of 256), so
 // the bound is uniform across a warp.  A row's slots past its own length
-// hold value 0 and column 0 (build_ell_tables fills each row's slots from
-// k = 0), so dropping them changes no sum: acc starts at +0 and adding
+// hold value 0 and column 0 (build_ell_tables, and the AMG's _to_ell for
+// K17's level tables, fill each row's slots from k = 0), so dropping them
+// changes no sum: acc starts at +0 and adding
 // 0 * x = +-0 leaves it as it is.  The operator is a stream read once per
 // product, larger than L2 at the vessel's size, so its values and columns
 // are loaded evict-first (__ldcs) and the gathered x keeps its lines in L1
@@ -30,28 +31,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_reduce.cuh"
+
 namespace oasisx {
 
 constexpr int kEllMaxBatch = 4;  // vectors that share one operator read
 
-template <typename T>
-__device__ __forceinline__ T ell_row(const T* __restrict__ vals, const int* __restrict__ cols,
-                                     int K, int64_t n, int64_t r, const T* x) {
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) {
-    const int64_t i = (int64_t)k * n + r;
-    acc += __ldg(vals + i) * x[__ldg(cols + i)];
-  }
-  return acc;
-}
-
 constexpr int kEllSlice = 32;  // rows of one width (parallel/graph.py ELL_SLICE): a warp
 static_assert(kEllSlice == 1 << 5, "ell_row_batch finds a row's slice by a shift");
 
+// Loads of an ELL table: a stream read once a product (K14-K16: the
+// operator does not fit in L2) evict-first (__ldcs); a table read again and
+// again in one launch (kReuse: K17's AMG levels and fine operator, a few MB
+// in all) through the read-only path, keeping its lines (__ldg: faster for
+// K17 at the vessel's N=36 size on an NVIDIA H100 80GB HBM3 at 700 W).
+template <typename T, bool kReuse>
+__device__ __forceinline__ T ell_load(const T* p) {
+  return kReuse ? __ldg(p) : __ldcs(p);
+}
+
 // acc[b] = (A x_b)[r] for b < nb, x_b = x + b * xs, over the w slots of
 // row r's slice: every slot's value and column are read once for all the
-// vectors.
-template <typename T>
+// vectors, and each product is added by an explicit fma, in slot order.
+template <typename T, bool kReuse>
 __device__ __forceinline__ void ell_row_batch(const T* __restrict__ vals,
                                               const int* __restrict__ cols, int w, int n, int r,
                                               const T* x, int64_t xs, int nb,
@@ -61,14 +63,48 @@ __device__ __forceinline__ void ell_row_batch(const T* __restrict__ vals,
   const T* v = vals + r;
   const int* c = cols + r;
   for (int k = 0; k < w; ++k, v += n, c += n) {
-    const T a = __ldcs(v);
-    const int j = __ldcs(c);
+    const T a = ell_load<T, kReuse>(v);
+    const int j = ell_load<int, kReuse>(c);
 #pragma unroll
     for (int b = 0; b < kEllMaxBatch; ++b) {
       if (b >= nb) break;
-      acc[b] += a * x[b * xs + j];
+      acc[b] = vfma(a, x[b * xs + j], acc[b]);
     }
   }
+}
+
+// The same sum for one vector by a warp, every lane getting it (r uniform
+// across the warp): the lanes load 4 x 32 slots of the row at a time, the
+// values, the columns and the gathered x, and every lane adds the products
+// in slot order by explicit fmas, each slot's operands broadcast from its
+// lane by shuffles, so the bits are ell_row_batch's.  For a row of hundreds
+// of slots (K17's coarse levels: 373-596) a thread's chain of dependent
+// loads takes tens of microseconds; the warp keeps 128 of them in flight.
+template <typename T, bool kReuse>
+__device__ __forceinline__ T ell_row_warp(const T* __restrict__ vals,
+                                          const int* __restrict__ cols, int w, int n, int r,
+                                          const T* x) {
+  const int lane = threadIdx.x & (kEllSlice - 1);
+  T acc = T(0);
+  for (int base = 0; base < w; base += 4 * kEllSlice) {
+    T a[4], xv[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int k = base + g * kEllSlice + lane;
+      const bool on = k < w;
+      a[g] = on ? ell_load<T, kReuse>(vals + k * n + r) : T(0);
+      const int j = on ? ell_load<int, kReuse>(cols + k * n + r) : 0;
+      xv[g] = on ? x[j] : T(0);
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int m = min(kEllSlice, w - base - g * kEllSlice);
+#pragma unroll 8
+      for (int l = 0; l < m; ++l)
+        acc = vfma(__shfl_sync(0xffffffffu, a[g], l), __shfl_sync(0xffffffffu, xv[g], l), acc);
+    }
+  }
+  return acc;
 }
 
 // The band-ELL layout (K18; oasisx_tpu_torch/assembly/band.py): rows in
@@ -119,7 +155,7 @@ __device__ __forceinline__ void band_row_batch(const T* __restrict__ vals,
 
 // The operators of the kernels of ell_ops.cu: rows(r, x, xs, nb, acc) sets
 // acc[b] = (A x_b)[r] for b < nb, x_b = x + b * xs.
-template <typename T>
+template <typename T, bool kReuse = false>
 struct EllOp {
   const T* vals;  // (K, n)
   const int* cols;
@@ -127,9 +163,14 @@ struct EllOp {
   int K;
   int n;
   // a width past K is read as K, so a row never reads past its K slots
+  __device__ __forceinline__ int width(int64_t r) const { return min(__ldg(widths + (r >> 5)), K); }
   __device__ __forceinline__ void rows(int64_t r, const T* x, int64_t xs, int nb,
                                        T (&acc)[kEllMaxBatch]) const {
-    ell_row_batch(vals, cols, min(__ldg(widths + (r >> 5)), K), n, (int)r, x, xs, nb, acc);
+    ell_row_batch<T, kReuse>(vals, cols, width(r), n, (int)r, x, xs, nb, acc);
+  }
+  // (A x)[r] of one vector by the calling warp
+  __device__ __forceinline__ T row_warp(int64_t r, const T* x) const {
+    return ell_row_warp<T, kReuse>(vals, cols, width(r), n, (int)r, x);
   }
 };
 

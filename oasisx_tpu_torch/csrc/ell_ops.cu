@@ -48,9 +48,18 @@
 // K14-K16, reading P * 128 * (1 + sizeof(T)) bytes a product (the vessel's
 // N=36 velocity operator: P = 371,620 pairs, 238 MB in f32, where the
 // (S, R, 128) layout of the TPU kernel held 2,794 slots for every tile,
-// 8.7 GB, 1% of it values).  K17:
-// grid barriers, about six per AMG level and V-cycle, most of them on
-// coarse levels too small to fill the card.
+// 8.7 GB, 1% of it values).  K17: latency.  An iteration of the vessel's
+// V(2, 2) cycle over 3 ELL levels and the dense coarse one holds 26 grid
+// barriers, and its time goes to the coarse tables' long rows: level 2's A
+// has rows of up to 432 slots and the restrictions into levels 2 and 3 up
+// to 373 and 596 on a few hundred rows, and a thread walks such a row as a
+// chain of dependent loads.  So a table of kWarpRowK slots or more is read
+// a warp a row (ell_row_warp: 128 loads in flight, the products added in
+// slot order), every table to its 32-row slices' widths (EllOp, as
+// K14-K16), through the read-only path (its few MB are read again every
+// V-cycle).  Running the coarse levels on a sub-group of the grid's blocks
+// (as K1 does) was slower with the warp rows, which want the whole grid's
+// warps, and on the cylinder, whose grid is smaller than such a group.
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
@@ -67,6 +76,10 @@ static_assert(kMaxRed >= 2 * kEllMaxBatch, "two sums per batch row");
 
 constexpr int kThreadsMv = 256;
 constexpr int kMaxAmgLevels = 10;
+// A K17 table at least this wide (its K) is read a warp a row (ell_row_warp):
+// the vessel's coarse A and R (373-596 slots a row on a few hundred rows);
+// narrower ones a thread a row.
+constexpr int kWarpRowK = 128;
 
 template <typename T>
 size_t red_smem() {
@@ -408,15 +421,11 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_cg_kernel(EllCgArgs<T, Op>
 
 template <typename T>
 struct AmgLevel {
-  const T* Av;  // (KA, n) level operator
-  const int* Ac;
-  const T* sm;  // (n) omega_s / diag: the damped-Jacobi smoother
-  const T* Pv;  // (KP, n) prolongation, columns < nc
-  const int* Pc;
-  const T* Rv;  // (KR, nc) restriction, columns < n
-  const int* Rc;
+  EllOp<T, true> A;  // (KA, n) level operator
+  const T* sm;       // (n) omega_s / diag: the damped-Jacobi smoother
+  EllOp<T, true> P;  // (KP, n) prolongation, columns < nc
+  EllOp<T, true> R;  // (KR, nc) restriction, columns < n
   int64_t n, nc;
-  int KA, KP, KR;
 };
 
 template <typename T>
@@ -427,9 +436,7 @@ struct AmgArgs {
   const T* cinvT;  // (cn, cn) the coarse pseudo-inverse, transposed
   const T* nullv;  // (n0) nullspace vector, or null
   const T* mask;   // (n0) 1 on outlet rows, or null
-  const T* vals0;  // (K0, n0) the fine operator of the CG
-  const int* cols0;
-  int K0;
+  EllOp<T, true> A0;  // (K0, n0) the fine operator of the CG
   int64_t n0;
   int pre, post;
   const T* r0;     // (n0) initial residual (projected with a nullspace)
@@ -453,6 +460,14 @@ struct AmgVecs {
   T* t[kMaxAmgLevels + 1];   // residual; t[0] also holds the CG's A p
   int64_t n[kMaxAmgLevels + 1];
 };
+
+// (A x)[r] of one vector
+template <typename T>
+__device__ __forceinline__ T ell_row1(const EllOp<T, true>& A, int64_t r, const T* x) {
+  T acc[kEllMaxBatch];
+  A.rows(r, x, 0, 1, acc);
+  return acc[0];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> P) {
@@ -480,6 +495,20 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
   for (int l = 0; l <= L; ++l) r += 4 * V.n[l];
   T* p = r + n0;
 
+  // f(i, (A x)[i]) for every row i of a level table: a thread a row, or a
+  // warp a row (lane 0 calls f) for a table of kWarpRowK slots or more
+  auto level_rows = [&](const EllOp<T, true>& A, const T* x, auto&& f) {
+    if (A.K >= kWarpRowK) {
+      const bool lead = (threadIdx.x & (kEllSlice - 1)) == 0;
+      for (int64_t i = first >> 5; i < A.n; i += stride >> 5) {
+        const T ax = A.row_warp(i, x);
+        if (lead) f(i, ax);
+      }
+    } else {
+      for (int64_t i = first; i < A.n; i += stride) f(i, ell_row1(A, i, x));
+    }
+  };
+
   T s[kMaxRed];
   T nn = T(1);
   if (has_null) {
@@ -492,8 +521,9 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
   // z' = z + sm (r - A z) on level l, then a barrier
   auto sweep = [&](int l) {
     const AmgLevel<T>& A = P.lv[l];
-    for (int64_t i = first; i < A.n; i += stride)
-      V.zb[l][i] = V.z[l][i] + A.sm[i] * (V.rr[l][i] - ell_row(A.Av, A.Ac, A.KA, A.n, i, V.z[l]));
+    level_rows(A.A, V.z[l], [&](int64_t i, T az) {
+      V.zb[l][i] = V.z[l][i] + A.sm[i] * (V.rr[l][i] - az);
+    });
     T* tmp = V.z[l];
     V.z[l] = V.zb[l];
     V.zb[l] = tmp;
@@ -506,16 +536,14 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
     for (int l = 0; l < L; ++l) {
       const AmgLevel<T>& A = P.lv[l];
       for (int k = 1; k < P.pre; ++k) sweep(l);
-      for (int64_t i = first; i < A.n; i += stride)
-        V.t[l][i] = V.rr[l][i] - ell_row(A.Av, A.Ac, A.KA, A.n, i, V.z[l]);
+      level_rows(A.A, V.z[l], [&](int64_t i, T az) { V.t[l][i] = V.rr[l][i] - az; });
       cg::this_grid().sync();
       // restriction, and the next level's first smoothing step
       const bool coarse = l + 1 == L;
-      for (int64_t I = first; I < A.nc; I += stride) {
-        const T rc = ell_row(A.Rv, A.Rc, A.KR, A.nc, I, V.t[l]);
+      level_rows(A.R, V.t[l], [&](int64_t I, T rc) {
         V.rr[l + 1][I] = rc;
         if (!coarse) V.z[l + 1][I] = P.lv[l + 1].sm[I] * rc;
-      }
+      });
       cg::this_grid().sync();
     }
     // coarsest: z_c[j] = sum_i CinvT[i, j] r_c[i], read from global memory
@@ -528,8 +556,7 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
     cg::this_grid().sync();
     for (int l = L - 1; l >= 0; --l) {
       const AmgLevel<T>& A = P.lv[l];
-      for (int64_t i = first; i < A.n; i += stride)
-        V.z[l][i] = V.z[l][i] + ell_row(A.Pv, A.Pc, A.KP, A.n, i, V.z[l + 1]);
+      level_rows(A.P, V.z[l + 1], [&](int64_t i, T pz) { V.z[l][i] = V.z[l][i] + pz; });
       cg::this_grid().sync();
       for (int k = 0; k < P.post; ++k) sweep(l);
     }
@@ -601,22 +628,25 @@ __global__ void __launch_bounds__(kRedThreads, 2) ell_pcg_amg_kernel(AmgArgs<T> 
   int k = 0;
   bool brk = false;
   while (k < P.maxiter && rn > tol && !brk) {
-    // Ap = A p, or where(mask, p, A (1 - mask) p); projected with a nullspace
+    // Ap = A p, or where(mask, p, A (1 - mask) p), each row to its slice's
+    // width; projected with a nullspace
     T* Ap = V.t[0];
     zero(s);
     for (int64_t i = first; i < n0; i += stride) {
       T ap;
       if (P.mask != nullptr) {
+        const EllOp<T, true>& A0 = P.A0;
+        const T* v = A0.vals + i;
+        const int* cc = A0.cols + i;
         T acc = T(0);
-        for (int kk = 0; kk < P.K0; ++kk) {
-          const int64_t e = (int64_t)kk * n0 + i;
-          const int c = __ldg(P.cols0 + e);
-          acc += __ldg(P.vals0 + e) * ((T(1) - P.mask[c]) * p[c]);
+        for (int kk = A0.width(i); kk > 0; --kk, v += A0.n, cc += A0.n) {
+          const int c = __ldg(cc);
+          acc = vfma(__ldg(v), (T(1) - P.mask[c]) * p[c], acc);
         }
         const T m = P.mask[i];
         ap = m * p[i] + (T(1) - m) * acc;
       } else {
-        ap = ell_row(P.vals0, P.cols0, P.K0, n0, i, p);
+        ap = ell_row1(P.A0, i, p);
       }
       Ap[i] = ap;
       if (has_null) s[0] += P.nullv[i] * ap;
@@ -689,10 +719,11 @@ bool ell_fits(int K, long long n) {
   return K >= 1 && n >= 1 && (long long)K * n <= INT32_MAX;
 }
 
-template <typename T>
-EllOp<T> ell_op(const void* vals, const void* cols, const void* widths, int K, long long n) {
-  return EllOp<T>{static_cast<const T*>(vals), static_cast<const int*>(cols),
-                  static_cast<const int*>(widths), K, (int)n};
+template <typename T, bool kReuse = false>
+EllOp<T, kReuse> ell_op(const void* vals, const void* cols, const void* widths, int K,
+                        long long n) {
+  return EllOp<T, kReuse>{static_cast<const T*>(vals), static_cast<const int*>(cols),
+                          static_cast<const int*>(widths), K, (int)n};
 }
 
 template <typename T>
@@ -766,42 +797,43 @@ int cg_launch(const Op& op, const void* r0, const void* x0, const void* invd, co
 template <typename T>
 int ell_amg_launch(const void* const* lvl_ptrs, const long long* lvl_dims, int L, long long cn,
                    const void* cinvT, const void* nullv, const void* mask, const void* vals0,
-                   const void* cols0, int K0, long long n0, int pre, int post, const void* r0,
-                   const void* x0, const void* tol, void* x, void* work, void* red,
-                   int max_blocks, void* iters, void* rnorm, void* conv, int maxiter,
-                   int vcycle_only, void* stream) {
-  if (L < 0 || L > kMaxAmgLevels || cn < 1 || n0 < 1 || pre < 1 || post < 0)
+                   const void* cols0, const void* widths0, int K0, long long n0, int pre,
+                   int post, const void* r0, const void* x0, const void* tol, void* x,
+                   void* work, void* red, int max_blocks, void* iters, void* rnorm, void* conv,
+                   int maxiter, int vcycle_only, void* stream) {
+  if (L < 0 || L > kMaxAmgLevels || cn < 1 || n0 < 1 || n0 > INT32_MAX || pre < 1 || post < 0)
     return (int)cudaErrorInvalidValue;
   AmgArgs<T> P;
   for (int l = 0; l < L; ++l) {
     AmgLevel<T>& A = P.lv[l];
-    const void* const* q = lvl_ptrs + 7 * l;
+    const void* const* q = lvl_ptrs + 10 * l;
     const long long* d = lvl_dims + 5 * l;
-    A.Av = static_cast<const T*>(q[0]);
-    A.Ac = static_cast<const int*>(q[1]);
-    A.sm = static_cast<const T*>(q[2]);
-    A.Pv = static_cast<const T*>(q[3]);
-    A.Pc = static_cast<const int*>(q[4]);
-    A.Rv = static_cast<const T*>(q[5]);
-    A.Rc = static_cast<const int*>(q[6]);
-    A.n = d[0];
-    A.nc = d[1];
-    A.KA = (int)d[2];
-    A.KP = (int)d[3];
-    A.KR = (int)d[4];
+    const long long n = d[0], nc = d[1];
+    const int KA = (int)d[2], KP = (int)d[3], KR = (int)d[4];
     const long long next = l + 1 < L ? lvl_dims[5 * (l + 1)] : cn;
-    if (A.n != (l == 0 ? n0 : lvl_dims[5 * (l - 1) + 1]) || A.nc != next)
+    if (n != (l == 0 ? n0 : lvl_dims[5 * (l - 1) + 1]) || nc != next || !ell_fits(KA, n) ||
+        !ell_fits(KP, n) || !ell_fits(KR, nc) || q[2] == nullptr || q[6] == nullptr ||
+        q[9] == nullptr)
       return (int)cudaErrorInvalidValue;
+    A.A = ell_op<T, true>(q[0], q[1], q[2], KA, n);
+    A.sm = static_cast<const T*>(q[3]);
+    A.P = ell_op<T, true>(q[4], q[5], q[6], KP, n);
+    A.R = ell_op<T, true>(q[7], q[8], q[9], KR, nc);
+    A.n = n;
+    A.nc = nc;
   }
   if (L == 0 && cn != n0) return (int)cudaErrorInvalidValue;
+  if (!vcycle_only) {
+    if (!ell_fits(K0, n0) || widths0 == nullptr) return (int)cudaErrorInvalidValue;
+    P.A0 = ell_op<T, true>(vals0, cols0, widths0, K0, n0);
+  } else {
+    P.A0 = EllOp<T, true>{nullptr, nullptr, nullptr, 0, 0};
+  }
   P.L = L;
   P.cn = cn;
   P.cinvT = static_cast<const T*>(cinvT);
   P.nullv = static_cast<const T*>(nullv);
   P.mask = static_cast<const T*>(mask);
-  P.vals0 = static_cast<const T*>(vals0);
-  P.cols0 = static_cast<const int*>(cols0);
-  P.K0 = K0;
   P.n0 = n0;
   P.pre = pre;
   P.post = post;
@@ -823,7 +855,7 @@ int ell_amg_launch(const void* const* lvl_ptrs, const long long* lvl_dims, int L
 
 extern "C" {
 
-// The ELL operators of K14-K16: vals (K, n), cols (K, n) int32, widths
+// The ELL operators of K14-K17: vals (K, n), cols (K, n) int32, widths
 // (ceil(n / 32)) int32: the slots that slice's rows read (graph.slice_widths;
 // a width past K reads K slots, one short of a row's length drops entries).
 
@@ -868,45 +900,49 @@ int oasisx_ell_cg(const void* vals, const void* cols, const void* widths, const 
                                    work, red, max_blocks, iters, rnorm, n, nb, maxiter, stream);
 }
 
-// AMG-PCG: lvl_ptrs holds 7 pointers per level (Av, Ac, sm, Pv, Pc, Rv, Rc),
-// lvl_dims 5 numbers per level (n, nc, KA, KP, KR), both host arrays; cinvT
-// (cn, cn); nullv and mask (n0) or null; the fine operator vals0/cols0
-// (K0, n0); r0, x0 (n0), tol (1).  work: 4 * (sum of the level sizes and cn)
-// + 2 * n0; red: 2 * 8 * max_blocks.  Writes x, iters (the loop count),
-// rnorm and conv (int32).
+// AMG-PCG: lvl_ptrs holds 10 pointers per level (Av, Ac, Aw, sm, Pv, Pc, Pw,
+// Rv, Rc, Rw: each table's values, columns and slice widths, int32, one per
+// 32 rows), lvl_dims 5 numbers per level (n, nc, KA, KP, KR), both host
+// arrays; cinvT (cn, cn); nullv and mask (n0) or null; the fine operator
+// vals0/cols0 (K0, n0) with its widths0; r0, x0 (n0), tol (1).  work:
+// 4 * (sum of the level sizes and cn) + 2 * n0; red: 2 * 8 * max_blocks.
+// Writes x, iters (the loop count), rnorm and conv (int32).
 int oasisx_ell_pcg_amg(const void* const* lvl_ptrs, const long long* lvl_dims, int L,
                        long long cn, const void* cinvT, const void* nullv, const void* mask,
-                       const void* vals0, const void* cols0, int K0, long long n0, int pre,
-                       int post, const void* r0, const void* x0, const void* tol, void* x,
-                       void* work, void* red, int max_blocks, void* iters, void* rnorm,
-                       void* conv, int maxiter, int is_f64, void* stream) {
+                       const void* vals0, const void* cols0, const void* widths0, int K0,
+                       long long n0, int pre, int post, const void* r0, const void* x0,
+                       const void* tol, void* x, void* work, void* red, int max_blocks,
+                       void* iters, void* rnorm, void* conv, int maxiter, int is_f64,
+                       void* stream) {
   if (K0 < 1 || vals0 == nullptr || x0 == nullptr || tol == nullptr)
     return (int)cudaErrorInvalidValue;
-  return is_f64
-             ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
-                                      cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
-                                      max_blocks, iters, rnorm, conv, maxiter, 0, stream)
-             : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
-                                     cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
-                                     max_blocks, iters, rnorm, conv, maxiter, 0, stream);
+  return is_f64 ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                         cols0, widths0, K0, n0, pre, post, r0, x0, tol, x, work,
+                                         red, max_blocks, iters, rnorm, conv, maxiter, 0, stream)
+                : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                        cols0, widths0, K0, n0, pre, post, r0, x0, tol, x, work,
+                                        red, max_blocks, iters, rnorm, conv, maxiter, 0, stream);
 }
 
 // K17's V-cycle alone: x = M r0 (projected with a nullspace); the same
 // arguments as oasisx_ell_pcg_amg, the fine operator, x0 and tol unused.
 int oasisx_ell_vcycle(const void* const* lvl_ptrs, const long long* lvl_dims, int L,
                       long long cn, const void* cinvT, const void* nullv, const void* mask,
-                      const void* vals0, const void* cols0, int K0, long long n0, int pre,
-                      int post, const void* r0, const void* x0, const void* tol, void* x,
-                      void* work, void* red, int max_blocks, void* iters, void* rnorm,
-                      void* conv, int maxiter, int is_f64, void* stream) {
-  return is_f64
-             ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
-                                      cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
-                                      max_blocks, iters, rnorm, conv, maxiter, 1, stream)
-             : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
-                                     cols0, K0, n0, pre, post, r0, x0, tol, x, work, red,
-                                     max_blocks, iters, rnorm, conv, maxiter, 1, stream);
+                      const void* vals0, const void* cols0, const void* widths0, int K0,
+                      long long n0, int pre, int post, const void* r0, const void* x0,
+                      const void* tol, void* x, void* work, void* red, int max_blocks,
+                      void* iters, void* rnorm, void* conv, int maxiter, int is_f64,
+                      void* stream) {
+  return is_f64 ? ell_amg_launch<double>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                         cols0, widths0, K0, n0, pre, post, r0, x0, tol, x, work,
+                                         red, max_blocks, iters, rnorm, conv, maxiter, 1, stream)
+                : ell_amg_launch<float>(lvl_ptrs, lvl_dims, L, cn, cinvT, nullv, mask, vals0,
+                                        cols0, widths0, K0, n0, pre, post, r0, x0, tol, x, work,
+                                        red, max_blocks, iters, rnorm, conv, maxiter, 1, stream);
 }
+
+// The table width from which K17 reads a row by a warp (kWarpRowK).
+int oasisx_ell_warp_row_k() { return kWarpRowK; }
 
 // K18, the band-ELL layout as pair tables: vals (P, 128), tile_ptr (R + 1)
 // int32, pair_shift (P) int32, lanes (P, 128) uint8, the rows in RCM order;

@@ -31,15 +31,28 @@
 //
 // Operators: the cube device function of cube_device.cuh, with the constant
 // matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in shared
-// memory, or K2's per-cube weights W read from global memory.  The grid is
-// fixed by the cooperative launch, so a product's grid-stride loop cannot
-// take its points' parities and base coordinates from blockIdx, as the
-// standalone cube kernels do: each point is split in place by cube_split's
-// multiply-and-shift divisions, whose constants are kernel parameters, so
-// the split holds no register across the loop.  K1's 8 slots a cube (P1)
-// and K2's 27 are unrolled (NL), so a thread's loads of one cube are in
-// flight together at these kernels' 2-3 blocks an SM; K4's 27-slot loop
-// stays rolled (unrolled, it ran slower on this card).  Blocks an SM are
+// memory.  The grid is fixed by the cooperative launch, so a product's
+// grid-stride loop cannot take its points' parities and base coordinates
+// from blockIdx, as the standalone cube kernels do: each point is split in
+// place by cube_split's multiply-and-shift divisions, whose constants are
+// kernel parameters, so the split holds no register across the loop.  K1's
+// 8 slots a cube (P1) are unrolled (NL), so a thread's loads of one cube are
+// in flight together at these kernels' 2-3 blocks an SM; K4's 27-slot loop
+// stays rolled (unrolled, it ran slower on this card).
+//
+// K2's per-cube weights W (nl^2 x ncubes, 764 MB in f32 at N=64) do not fit
+// in L2, so its product is cube-owned and in two phases.  Phase A, a
+// grid-stride loop over cubes: a thread copies its cube's nb * nl inputs
+// once into its own column of shared memory and streams the cube's nl^2
+// weights (27 loads in flight, NL unrolled), coalesced across the warp's
+// neighbouring cubes, into nb * nl staged outputs (stage, (nb, nl, ncubes):
+// 15.1 MB at N=36, 84.9 MB at N=64).  Phase B, after a grid barrier, is
+// the output side of every cube operator: a point sums its <= 2^d staged
+// values in cube_visit's order, with the zmask, the store and the dot
+// products of the solve's loop fused in.  A product point by point through
+// cube_point (the form before) read each cube's 27 nb inputs once for each
+// of its 27 output slots, through the L1/L2 that W streams through, and ran
+// at a third of the standalone product's rate.  Blocks an SM are
 // fixed (kMinBlocks, kSolveBlocks: launch bound and grid cap), and K1's
 // Chebyshev updates fuse c1 dk into an explicit fma, so neither the grid
 // nor the rounding of a step depends on how the compiler allocates
@@ -63,8 +76,9 @@
 //
 // Bound on the H100.  K2: memory; each iteration applies A_W twice, and each
 // application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
-// components, so two W streams per iteration are the floor; the ~10 state
-// vectors (3 x 1.6 MB each) stay in L2.  K4 and K1: latency; the 3 x 389k
+// components, so two W streams per iteration are the floor, plus the staged
+// outputs written and read once a product; the ~10 state vectors (3 x 1.6
+// MB each at N=36) stay in L2.  K4 and K1: latency; the 3 x 389k
 // point mass state and the 50k / 7k / 1k point pressure levels fit in L2, and
 // the time goes to barriers (3 grid barriers per K4 iteration; per K1 MG
 // iteration at N=36, 11 grid barriers and 19 among the sub-group's blocks;
@@ -270,25 +284,96 @@ struct BicgArgs {
   T* v;            // (nb, n) work
   T* t;            // (nb, n) work
   T* y;            // (nb, n) work: invd p, then invd s (the matvec input)
+  T* stage;        // (nb, nl, ncubes) work: a product's per-cube outputs
   T* red;
   int* iters;
   T* rnorm;
   CubeArgs a;      // nbo = nb rows, weights from global memory
+  FastDiv div_c1, div_c2;  // divisions by a.c[1] and a.c[2] (a cube's coordinates)
+  int ncubes;
   int maxiter;
 };
 
-template <typename T, int NL>
+// K2's shared memory: [slot offsets (nl ints)] [reduction] [each thread's
+// cube inputs, nb * nl values, value k of thread i at k * kThreads + i].
+template <typename T>
+__host__ __device__ inline size_t bicg_smem(int nl, int nb) {
+  return smem_bytes<T>(0, nl) + sizeof(T) * nb * nl * kThreads;
+}
+
+// NB > 0: NB rows solved together, fixed at compile time (the 3D P2 cube's
+// batch 3, the velocity solve's), so that the batch loops of phase A emit no
+// predicated-off loads and fmas (faster at batch 3 than a run-time count on
+// an NVIDIA H100 80GB HBM3 at 700 W); NB == 0 takes a.nbo rows.
+template <typename T, int NL, int NB>
 __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgArgs<T> P) {
   const CubeArgs& a = P.a;
-  const int nb = a.nbo;  // rows solved together
+  const int nb = NB > 0 ? NB : a.nbo;
   const int n = a.npad_out;
+  const int nl = NL > 0 ? NL : a.nl_in;
+  const int nc = P.ncubes;
   unsigned char* smem = dynamic_smem();
   int* soff = reinterpret_cast<int*>(smem);
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(0, a.nl_in)), 0};
+  T* xs = reinterpret_cast<T*>(smem + smem_bytes<T>(0, a.nl_in)) + threadIdx.x;
   cube_stage<T>(nullptr, a, nullptr, soff);
   __syncthreads();
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
+
+  // A_W y, phase A, cube-owned: stage[b, to, c] = sum_ti W[to nl + ti, c]
+  // y_b[slot ti of cube c], the slots in order.  A thread copies its cube's
+  // nb * nl inputs once into its own shared-memory column, then streams the
+  // cube's nl^2 weights (evict-first: W is read once a product and does not
+  // fit in L2), coalesced across the warp's neighbouring cubes.
+  auto cube_products = [&]() {
+    for (int c = first; c < nc; c += stride) {
+      const int q = (int)fast_quo((unsigned)c, P.div_c2);
+      const int i0 = (int)fast_quo((unsigned)q, P.div_c1);
+      const int cbase = (i0 * a.g[1] + (q - i0 * a.c[1])) * a.g[2] + (c - q * a.c[2]);
+#pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const T* yb = P.y + b * n + cbase;
+        for (int ti = 0; ti < nl; ++ti) xs[(b * nl + ti) * kThreads] = yb[soff[ti]];
+      }
+      const T* wc = P.W + c;
+      T* sc = P.stage + c;
+      for (int to = 0; to < nl; ++to) {
+        const T* wt = wc + to * nl * nc;
+        T acc[kMaxBatch];
+#pragma unroll
+        for (int b = 0; b < kMaxBatch; ++b) acc[b] = T(0);
+        auto slot = [&](int ti) {
+          const T w = __ldcs(wt + ti * nc);
+#pragma unroll
+          for (int b = 0; b < kMaxBatch; ++b)
+            if (b < nb) acc[b] += w * xs[(b * nl + ti) * kThreads];
+        };
+        if constexpr (NL > 0) {
+#pragma unroll
+          for (int ti = 0; ti < NL; ++ti) slot(ti);
+        } else {
+          for (int ti = 0; ti < nl; ++ti) slot(ti);
+        }
+#pragma unroll
+        for (int b = 0; b < kMaxBatch; ++b)
+          if (b < nb) sc[(b * nl + to) * nc] = acc[b];
+      }
+    }
+  };
+  // A_W y, phase B, after a grid barrier: acc[b] at output point idx, the
+  // sum of its <= 2^d staged values in cube_visit's order (no atomics)
+  auto point_sum = [&](int idx, T (&acc)[kMaxBatch]) {
+#pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) acc[b] = T(0);
+    cube_visit(a, cube_split(a, idx), [&](int to, int cube, int) {
+      const T* st = P.stage + to * nc + cube;
+#pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b)
+        if (b < nb) acc[b] += st[b * nl * nc];
+    });
+  };
 
   // x = x0, r = p = rhat = r0, y = invd p; rho = |r0|^2, rnorm = |r0|
   T s[kMaxRed];
@@ -327,10 +412,12 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
     if (!any) break;
 
     // v = zmask A_W (invd p); rv = rhat.v
+    cube_products();
+    cg::this_grid().sync();
     zero(s);
     for (int idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, idx), acc);
+      point_sum(idx, acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -359,10 +446,12 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
     cg::this_grid().sync();
 
     // t = zmask A_W (invd s); tt = t.t, ts = t.s
+    cube_products();
+    cg::this_grid().sync();
     zero(s);
     for (int idx = first; idx < n; idx += stride) {
       T acc[kMaxBatch];
-      cube_point<T, false, NL>(P.y, P.W, soff, a, cube_split(a, idx), acc);
+      point_sum(idx, acc);
       #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
@@ -1000,13 +1089,26 @@ int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* in
 }
 
 template <typename T>
+auto bicg_kernel(int nl, int batch) {
+  if (nl != 27) return bicgstab_kernel<T, 0, 0>;
+  return batch == 3 ? bicgstab_kernel<T, 27, 3> : bicgstab_kernel<T, 27, 0>;
+}
+
+template <typename T>
 int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* zmask,
-                    const void* invd, const void* tol, void* x, void* work, void* red,
-                    int max_blocks, void* iters, void* rnorm, int d, int n0, int n1, int n2,
-                    int deg, int batch, int maxiter, void* stream) {
+                    const void* invd, const void* tol, void* x, void* work, void* stage,
+                    long long stage_len, void* red, int max_blocks, void* iters, void* rnorm,
+                    int d, int n0, int n1, int n2, int deg, int batch, int maxiter,
+                    void* stream) {
   BicgArgs<T> P;
   P.a = win_args(d, n0, n1, n2, deg, batch);
   const int64_t n = P.a.npad_out;
+  const int nl = P.a.nl_in;
+  P.ncubes = P.a.c[0] * P.a.c[1] * P.a.c[2];
+  if (stage == nullptr || stage_len < (long long)batch * nl * P.ncubes)
+    return (int)cudaErrorInvalidValue;
+  P.div_c1 = fast_div(P.a.c[1]);
+  P.div_c2 = fast_div(P.a.c[2]);
   P.W = static_cast<const T*>(W);
   P.r0 = static_cast<const T*>(r0);
   P.x0 = static_cast<const T*>(x0);
@@ -1019,14 +1121,20 @@ int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* z
   P.v = P.p + batch * n;
   P.t = P.v + batch * n;
   P.y = P.t + batch * n;
+  P.stage = static_cast<T*>(stage);
   P.red = static_cast<T*>(red);
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
-  const size_t smem = smem_bytes<T>(0, P.a.nl_in);
-  return P.a.nl_in == 27
-             ? coop_launch(bicgstab_kernel<T, 27>, P, n, smem, max_blocks, stream, kSolveBlocks)
-             : coop_launch(bicgstab_kernel<T, 0>, P, n, smem, max_blocks, stream, kSolveBlocks);
+  // above 48 KB of dynamic shared memory only once the kernel allows it;
+  // beyond the card's limit (batch 4 of a 3D float64 system) it refuses
+  const size_t smem = bicg_smem<T>(nl, batch);
+  auto kernel = bicg_kernel<T>(nl, batch);
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return coop_launch(kernel, P, n, smem, max_blocks, stream, kSolveBlocks);
 }
 
 template <typename T>
@@ -1138,17 +1246,20 @@ int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* in
 
 // Batched BiCGStab on A_W (W (nl*nl, ncubes)) with zero-masked rows, from
 // r0 = zmask (b - A_W x0) and x0; invd (grid); zmask, r0, x0 (batch, grid);
-// tol (batch).  work: 5 * batch * grid; red: 2 * 8 * max_blocks.
+// tol (batch).  work: 5 * batch * grid; stage: batch * nl * ncubes values
+// (stage_len, checked); red: 2 * 8 * max_blocks.
 int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* zmask,
-                    const void* invd, const void* tol, void* x, void* work, void* red,
-                    int max_blocks, void* iters, void* rnorm, int is_f64, int d, int n0,
-                    int n1, int n2, int deg, int batch, int maxiter, void* stream) {
+                    const void* invd, const void* tol, void* x, void* work, void* stage,
+                    long long stage_len, void* red, int max_blocks, void* iters, void* rnorm,
+                    int is_f64, int d, int n0, int n1, int n2, int deg, int batch, int maxiter,
+                    void* stream) {
   if (!batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
-  return is_f64
-             ? bicgstab_launch<double>(W, r0, x0, zmask, invd, tol, x, work, red, max_blocks,
-                                       iters, rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
-             : bicgstab_launch<float>(W, r0, x0, zmask, invd, tol, x, work, red, max_blocks,
-                                      iters, rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
+  return is_f64 ? bicgstab_launch<double>(W, r0, x0, zmask, invd, tol, x, work, stage,
+                                          stage_len, red, max_blocks, iters, rnorm, d, n0, n1,
+                                          n2, deg, batch, maxiter, stream)
+                : bicgstab_launch<float>(W, r0, x0, zmask, invd, tol, x, work, stage, stage_len,
+                                         red, max_blocks, iters, rnorm, d, n0, n1, n2, deg,
+                                         batch, maxiter, stream);
 }
 
 // MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)

@@ -86,7 +86,7 @@ from .config import real_dtype, resolve_device
 from .elements.element import make_element
 from .assembly.band import band_values, build_band_assembly
 from .la import band, ell, fused, krylov
-from .la.amg import AlgebraicMG, amg_kernel_data, coo_from_elems
+from .la.amg import AlgebraicMG, amg_kernel_data, amg_widths, coo_from_elems
 from .la.krylov import _effective_rtol
 from .la.pressure_cg import PressureCG
 from .la.pressure_mg import PressureMGCG
@@ -328,6 +328,7 @@ class FractionalStep_AB_CN:
         self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
         self._amg = self._build_amg(popts, pmask)
         self._amg_data = amg_kernel_data(self._amg)
+        self._amg_widths = amg_widths(self._amg)
 
     def _build_amg(self, popts: dict, pmask: np.ndarray) -> AlgebraicMG:
         """Smoothed-aggregation AMG for the pressure Poisson (the JAX
@@ -551,11 +552,11 @@ class FractionalStep_AB_CN:
         op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
         if self._pbc_mask is not None:
             res = ell.ell_pcg_amg(self._amg_data, *op, b2, dp0, rtol, s.maxiter, s.atol,
-                                  mask=self._pbc_mask.to(b2.dtype))
+                                  mask=self._pbc_mask.to(b2.dtype), amg_widths=self._amg_widths)
             dp = res.x
         else:
             res = ell.ell_pcg_amg(self._amg_data, *op, b2, dp0 - torch.mean(dp0), rtol,
-                                  s.maxiter, s.atol)
+                                  s.maxiter, s.atol, amg_widths=self._amg_widths)
             ctx = self._ctx
             dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
         return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))

@@ -16,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["AlgebraicMG", "amg_kernel_data", "coo_from_elems"]
+from ..parallel.graph import row_widths
+
+__all__ = ["AlgebraicMG", "amg_kernel_data", "amg_widths", "coo_from_elems"]
 
 
 def coo_from_elems(cd: np.ndarray, elems: np.ndarray, n: int):
@@ -132,16 +134,20 @@ def _galerkin(prows, pcols, pvals, arows, acols, avals, n_f, n_c):
 
 
 def _to_ell(rows, cols, vals, n):
-    """COO -> ELL: (cols (n, K) int64, vals (n, K) float64); padding points
-    at column 0 with zero weight, so the matvec is (vals * x[cols]).sum(-1)."""
+    """COO -> ELL: (cols (n, K) int64, vals (n, K) float64, widths); padding
+    points at column 0 with zero weight, so the matvec is (vals *
+    x[cols]).sum(-1).  ``widths`` (ceil(n / 32),) int32: each 32-row slice's
+    longest row (``graph.row_widths`` of the CSR row lengths), where K17's
+    row loops stop."""
     indptr = _csr_pointers(rows, n)  # rows must be sorted (sum_duplicates)
-    K = max(1, int(np.diff(indptr).max()))
+    rowlen = np.diff(indptr)
+    K = max(1, int(rowlen.max()))
     ecols = np.zeros((n, K), np.int64)
     evals = np.zeros((n, K), np.float64)
     pos = np.arange(rows.shape[0]) - indptr[rows]
     ecols[rows, pos] = cols
     evals[rows, pos] = vals
-    return ecols, evals
+    return ecols, evals, row_widths(rowlen)
 
 
 def _power_lmax(rows, cols, vals, invd, n, iters=30, seed=7):
@@ -221,15 +227,18 @@ class AlgebraicMG:
             crw, ccl, cvl = _galerkin(prw, pcl, pvl, lrows, lcols, lvals, ln, nagg)
             # restriction = P^T: swap row/col then duplicate-sort by row
             rrw, rcl, rvl = _sum_duplicates(pcl, prw, pvl, ln)
-            ell = lambda r, c, v, m: (lambda ec, ev: (t(ec), f(ev)))(*_to_ell(r, c, v, m))
+            ells = {key: _to_ell(*coo) for key, coo in (
+                ("A", (lrows, lcols, lvals, ln)), ("P", (prw, pcl, pvl, ln)),
+                ("R", (rrw, rcl, rvl, nagg)))}
             self.levels.append(
                 dict(
                     n=ln,
                     nc=nagg,
-                    A=ell(lrows, lcols, lvals, ln),
+                    A=(t(ells["A"][0]), f(ells["A"][1])),
                     sm=f(invd * (4.0 / (3.0 * lmax))),
-                    P=ell(prw, pcl, pvl, ln),
-                    R=ell(rrw, rcl, rvl, nagg),
+                    P=(t(ells["P"][0]), f(ells["P"][1])),
+                    R=(t(ells["R"][0]), f(ells["R"][1])),
+                    widths={key: t(e[2]) for key, e in ells.items()},
                 )
             )
             lrows, lcols, lvals, ln = crw, ccl, cvl, nagg
@@ -313,3 +322,10 @@ def amg_kernel_data(amg: AlgebraicMG) -> tuple[dict, list[torch.Tensor]]:
     if amg.nullvec is not None:
         arrays.append(amg.nullvec.contiguous())
     return meta, arrays
+
+
+def amg_widths(amg: AlgebraicMG) -> list[torch.Tensor]:
+    """The slice widths of the tables of ``amg_kernel_data``, where K17's
+    row loops stop: per level those of A, P and R (int32, one per 32 rows:
+    A and P over the level's n rows, R over its nc)."""
+    return [lv["widths"][key].contiguous() for lv in amg.levels for key in ("A", "P", "R")]

@@ -32,18 +32,21 @@ float32 product reads ~98 MB in place of the 202 MB of all K slots.  K15
 and K16 stream the operator once or twice per iteration for all rows
 together, on the same row product; at the vessel's N=36 size the operator
 does not fit in the 50 MB L2, so they too are bound by memory, and the
-state vectors (3 x 1.6 MB) stay in L2.  K17 is bound by its grid
-barriers: one V-cycle is about 6 barriers per level, and the coarse levels
-have too few rows to fill the card.
+state vectors (3 x 1.6 MB) stay in L2.  K17 is bound by latency: its
+grid barriers (``amg_barriers`` counts an iteration's) and the long rows of
+the coarse AMG tables, which it reads a warp a row from ``kWarpRowK``
+(``csrc/ell_ops.cu``) slots up; every AMG table is read to its slices'
+widths (``la.amg.amg_widths``).
 
 The plain versions follow the JAX kernels and the loops around them
 operation for operation, with the loop on the host (one device read per iteration,
 counted in ``KrylovResult.syncs``); they sum all K slots, since a slot past
 its slice's width adds exactly 0.  The K14-K17 wrappers take the operator's
-``widths`` (int32, one per 32 rows) beside its columns and raise, on every
-device, when it is missing or of another shape or type.  A wrapper sends
-CPU tensors to the plain version and CUDA tensors to its kernel (``syncs``
-0), and raises for anything else; launches and plain calls count in
+``widths`` (int32, one per 32 rows) beside its columns, K17's also the AMG
+tables' (``amg_widths``), and raise, on every device, when one is missing
+or of another shape or type.  A wrapper sends CPU tensors to the plain
+version and CUDA tensors to its kernel (``syncs`` 0), and raises for
+anything else; launches and plain calls count in
 ``assembly.kernels.launches`` / ``plain_calls``.
 """
 
@@ -382,9 +385,37 @@ def ell_cg(vals, cols, widths, r0, x0, invd, bnorm, rtol: float, maxiter: int,
     return KrylovResult(o["x"], o["iters"], o["rnorm"], o["rnorm"] <= o["tol"], 0)
 
 
-def _amg_call(name, amg, vals0, cols0, r0, x0, tol, maxiter, mask, vcycle_only):
+def _amg_widths(meta: dict, amg_widths) -> list:
+    """``amg_widths``: the slice widths of every AMG level's A, P and R
+    (``la.amg.amg_widths``), each checked as ``_check_widths`` checks an
+    operator's; raises when they are missing or of another count."""
+    L = len(meta["levels"])
+    if not isinstance(amg_widths, (list, tuple)) or len(amg_widths) != 3 * L:
+        raise ValueError(f"AMG widths: expected 3 tables a level for {L} levels "
+                         f"(la.amg.amg_widths), got {type(amg_widths).__name__}")
+    for i, m in enumerate(meta["levels"]):
+        for j, rows in enumerate((m["n"], m["n"], m["nc"])):
+            _check_widths(amg_widths[3 * i + j], rows)
+    return list(amg_widths)
+
+
+def amg_barriers(meta: dict) -> int:
+    """Grid barriers of one K17 iteration: in the CG body 5, or 7 with a
+    nullspace (its two projections' sums); then one after each V-cycle
+    phase, per ELL level above the dense coarse one: pre down (the sweeps
+    after the first, the residual), the restriction into the next level,
+    post + 1 up (the prolongation, the sweeps); one for the dense coarse
+    solve."""
+    L = len(meta["levels"])
+    return (7 if meta["has_null"] else 5) + L * (meta["pre"] + meta["post"] + 2) + 1
+
+
+def _amg_call(name, amg, widths, vals0, cols0, widths0, r0, x0, tol, maxiter, mask,
+              vcycle_only):
     """Launch the K17 entry ``name`` (whole PCG solve, or the V-cycle
-    alone with ``vcycle_only``); returns (x, iters, rnorm, conv)."""
+    alone with ``vcycle_only``) on the AMG tables ``amg`` and their slice
+    widths ``widths`` (checked by the caller); returns (x, iters, rnorm,
+    conv)."""
     meta, arrays = amg
     dev, dt = r0.device, r0.dtype
     n0 = r0.shape[0]
@@ -392,15 +423,17 @@ def _amg_call(name, amg, vals0, cols0, r0, x0, tol, maxiter, mask, vcycle_only):
     sizes = [m["n"] for m in meta["levels"]] + [meta["coarse_n"]]
     if sizes[0] != n0:
         raise ValueError(f"AMG fine size {sizes[0]}, vector {n0}")
-    ptrs = (ctypes.c_void_p * max(1, 7 * len(lv)))()
+    keys = ("Av", "Ac", "Aw", "sm", "Pv", "Pc", "Pw", "Rv", "Rc", "Rw")
+    ptrs = (ctypes.c_void_p * max(1, len(keys) * len(lv)))()
     dims = (ctypes.c_longlong * max(1, 5 * len(lv)))()
     for i, (L, m) in enumerate(zip(lv, meta["levels"])):
-        for j, key in enumerate(("Av", "Ac", "sm", "Pv", "Pc", "Rv", "Rc")):
+        L = dict(L, Aw=widths[3 * i], Pw=widths[3 * i + 1], Rw=widths[3 * i + 2])
+        for j, key in enumerate(keys):
             t = L[key]
-            want = torch.int32 if key.endswith("c") else dt
+            want = torch.int32 if key[1] in "cw" else dt
             if t.dtype != want or not t.is_contiguous() or t.device != dev:
                 raise TypeError(f"AMG level {i} {key}: {t.dtype} on {t.device}")
-            ptrs[7 * i + j] = t.data_ptr()
+            ptrs[len(keys) * i + j] = t.data_ptr()
         dims[5 * i: 5 * i + 5] = [m["n"], m["nc"], m["K_A"], m["K_P"], m["K_R"]]
     kn._check(cinvT, "CinvT", dt, (sizes[-1], sizes[-1]))
     if nv is not None:
@@ -426,36 +459,42 @@ def _amg_call(name, amg, vals0, cols0, r0, x0, tol, maxiter, mask, vcycle_only):
         kn._call(name, ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(dims, ctypes.c_void_p),
                  len(lv), sizes[-1], p(cinvT), z if nv is None else p(nv),
                  z if mask is None else p(mask), z if vcycle_only else p(vals0),
-                 z if vcycle_only else p(cols0), K0, n0, int(meta["pre"]), int(meta["post"]),
-                 p(r0), z if vcycle_only else p(x0), z if vcycle_only else p(tol), p(x),
-                 p(work), p(red), red.numel() // 16, p(iters), p(rnorm), p(conv), int(maxiter),
+                 z if vcycle_only else p(cols0), z if vcycle_only else p(widths0), K0, n0,
+                 int(meta["pre"]), int(meta["post"]), p(r0),
+                 z if vcycle_only else p(x0), z if vcycle_only else p(tol), p(x), p(work),
+                 p(red), red.numel() // 16, p(iters), p(rnorm), p(conv), int(maxiter),
                  int(dt == torch.float64), kn._stream(r0))
     return x, iters[0], rnorm[0], conv[0] != 0
 
 
-def ell_vcycle(amg: tuple[dict, list], r: torch.Tensor) -> torch.Tensor:
-    """z = M r, K17's V-cycle alone (a CUDA tensor) or its plain version."""
-    if not kn._route(r, *amg[1]):
+def ell_vcycle(amg: tuple[dict, list], r: torch.Tensor, amg_widths=None) -> torch.Tensor:
+    """z = M r, K17's V-cycle alone (a CUDA tensor) or its plain version;
+    ``amg_widths`` (``la.amg.amg_widths``) is checked on every device."""
+    widths = _amg_widths(amg[0], amg_widths)
+    if not kn._route(r, *amg[1], *widths):
         return ell_vcycle_plain(amg, r)
-    return _amg_call("ell_vcycle", amg, None, None, r.contiguous(), None, None, 0, None,
-                     True)[0]
+    return _amg_call("ell_vcycle", amg, widths, None, None, None, r.contiguous(), None, None,
+                     0, None, True)[0]
 
 
 def ell_pcg_amg(amg: tuple[dict, list], vals0, cols0, widths0, b, x0, rtol: float,
-                maxiter: int, atol: float = 1e-50, mask=None) -> KrylovResult:
+                maxiter: int, atol: float = 1e-50, mask=None, amg_widths=None) -> KrylovResult:
     """AMG-preconditioned CG on the pressure Poisson in ELL form
     (vals0/cols0 (K0, n), slice widths ``widths0``), ``ell_pcg_amg_solve``'s
     semantics: with a nullspace vector in the AMG data, b, r0, A p and the
     V-cycle's input and output are projected and so is x on exit; with
     ``mask`` (1.0 on the outlet rows) the operator is where(mask, p,
     A (1-mask) p).  On CUDA tensors the set-up (b, tol, r0 = b - A x0
-    through K14, which reads the widths) is tensor code and the loop is K17
-    (all K0 slots of a row); CPU tensors go to the plain version."""
+    through K14) is tensor code and the loop is K17, whose every row
+    product stops at its slice's width (``widths0``, and the AMG tables'
+    ``amg_widths`` from ``la.amg.amg_widths``, both checked on every
+    device); CPU tensors go to the plain version."""
     _check_widths(widths0, vals0.shape[-1])
-    if not kn._route(vals0, cols0, widths0, b, x0, *amg[1]):
+    widths = _amg_widths(amg[0], amg_widths)
+    if not kn._route(vals0, cols0, widths0, b, x0, *amg[1], *widths):
         return ell_pcg_amg_plain(amg, vals0, cols0, b, x0, rtol, maxiter, atol, mask)
     r0, tol = _pcg_start(amg, vals0, cols0, b, x0, rtol, atol, mask,
                          lambda v, c, x: ell_matvec(v, c, widths0, x))
-    x, k, rn, conv = _amg_call("ell_pcg_amg", amg, vals0, cols0, r0.contiguous(),
-                               x0.contiguous(), tol, maxiter, mask, False)
+    x, k, rn, conv = _amg_call("ell_pcg_amg", amg, widths, vals0, cols0, widths0,
+                               r0.contiguous(), x0.contiguous(), tol, maxiter, mask, False)
     return KrylovResult(x, k, rn, conv, 0)

@@ -16,8 +16,11 @@ read per iteration, counted in ``KrylovResult.syncs``) and the operator
 passed in.  The wrappers send a CPU tensor to the plain version on the cube
 kernels' wrappers (their plain versions on the CPU), a CUDA tensor to the
 kernel of ``csrc/krylov_ops.cu``, which runs the whole loop on the card
-(``syncs`` 0), and raise for anything else.  Launches and plain calls count
-in ``assembly.kernels.launches`` / ``plain_calls``.
+(``syncs`` 0), and raise for anything else.  K2's wrapper allocates the
+kernel's staging buffer, (B, nl, ncubes): each product's per-cube outputs
+before the points sum them (15.1 MB at N=36, 84.9 MB at N=64 in float32).
+Launches and plain calls count in ``assembly.kernels.launches`` /
+``plain_calls``.
 
 Both take per-row tolerances ``max(rtol * bnorm, atol)``, active-row
 freezing, and one Jacobi inverse diagonal ``invd`` (npad,) shared by the
@@ -193,17 +196,30 @@ def bicgstab(W: torch.Tensor, r0, x0, zmask, invd, bnorm, sm, rtol: float, maxit
         return bicgstab_from_r0(lambda v: kn.matvec_win(W, v, sm), r0, x0, zmask, invd,
                                 bnorm, rtol, maxiter, atol)
     with torch.cuda.device(r0.device):
-        return _bicgstab_kernel(W, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter, atol)
+        stage = torch.empty((r0.shape[0], cub.num_slots(sm), int(np.prod(sm[1]))),
+                            dtype=r0.dtype, device=r0.device)
+        return _bicgstab_kernel(W, stage, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter, atol)
 
 
-def _bicgstab_kernel(W, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter, atol) -> KrylovResult:
+def _check_stage(stage, B: int, nl: int, nc: int, dtype: torch.dtype) -> None:
+    """K2's staging buffer: a contiguous (B, nl, ncubes) tensor of the
+    solve's dtype, where each product's per-cube outputs go before they are
+    summed into the points."""
+    if not isinstance(stage, torch.Tensor):
+        raise ValueError(f"stage: expected a ({B}, {nl}, {nc}) tensor, got {stage!r}")
+    kn._check(stage, "stage", dtype, (B, nl, nc))
+
+
+def _bicgstab_kernel(W, stage, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter,
+                     atol) -> KrylovResult:
     B, npad = _vectors(sm, r0, x0, invd, bnorm, ("zmask", zmask))
-    nl = cub.num_slots(sm)
-    kn._check(W, "W", r0.dtype, (nl * nl, int(np.prod(sm[1]))))
+    nl, nc = cub.num_slots(sm), int(np.prod(sm[1]))
+    kn._check(W, "W", r0.dtype, (nl * nl, nc))
+    _check_stage(stage, B, nl, nc, r0.dtype)
     o = _outputs(r0, B, 5, npad, bnorm, rtol, atol)
     p = kn._ptr
     kn._call("bicgstab", p(W), p(r0), p(x0), p(zmask), p(invd), p(o["tol"]), p(o["x"]),
-             p(o["work"]), p(o["red"]), o["red"].numel() // 16, p(o["iters"]), p(o["rnorm"]),
-             int(r0.dtype == torch.float64), *kn._dims(sm), int(sm[2]), B, int(maxiter),
-             kn._stream(r0))
+             p(o["work"]), p(stage), stage.numel(), p(o["red"]), o["red"].numel() // 16,
+             p(o["iters"]), p(o["rnorm"]), int(r0.dtype == torch.float64), *kn._dims(sm),
+             int(sm[2]), B, int(maxiter), kn._stream(r0))
     return _result(o)

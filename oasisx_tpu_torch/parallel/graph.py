@@ -94,7 +94,13 @@ def slice_widths(slots: np.ndarray, K: int, n: int) -> np.ndarray:
     used[seg] = True
     used = used.reshape(K, n)
     # a row's length: one past its last used slot (0 for an empty row)
-    rowlen = np.where(used.any(axis=0), K - np.argmax(used[::-1], axis=0), 0)
+    return row_widths(np.where(used.any(axis=0), K - np.argmax(used[::-1], axis=0), 0))
+
+
+def row_widths(rowlen: np.ndarray) -> np.ndarray:
+    """(ceil(n / ELL_SLICE),) int32: the largest of the row lengths
+    ``rowlen`` (n,) in each slice of ELL_SLICE consecutive rows."""
+    n = rowlen.shape[0]
     nsl = -(-n // ELL_SLICE)
     rowlen = np.concatenate([rowlen, np.zeros(nsl * ELL_SLICE - n, dtype=rowlen.dtype)])
     return rowlen.reshape(nsl, ELL_SLICE).max(axis=1).astype(np.int32)

@@ -39,7 +39,7 @@ from oasisx_tpu.parallel import graph as jgr  # noqa: E402
 from oasisx_tpu.spaces.functionspace import FunctionSpace as JFS  # noqa: E402
 from oasisx_tpu_torch.assembly import kernels as kn  # noqa: E402
 from oasisx_tpu_torch.la import ell  # noqa: E402
-from oasisx_tpu_torch.la.amg import AlgebraicMG, amg_kernel_data  # noqa: E402
+from oasisx_tpu_torch.la.amg import AlgebraicMG, amg_kernel_data, amg_widths  # noqa: E402
 from oasisx_tpu_torch.parallel import graph as tgr  # noqa: E402
 
 from test_ell_kernels import _lap1d_ell, _lap2d_coo, _nonsym_ell  # noqa: E402
@@ -215,7 +215,7 @@ def test_ell_vcycle_plain_matches_interpret(variant):
     assert len(meta["levels"]) >= 2
     r = np.random.default_rng(4).standard_normal(n)
     ref = po.make_ell_vcycle(meta, n, interpret=True)(*jarrays, jnp.asarray(r))
-    assert _rel(ref, ell.ell_vcycle((meta, arrays), T(r))) <= 1e-12
+    assert _rel(ref, ell.ell_vcycle((meta, arrays), T(r), amg_widths(amg))) <= 1e-12
     assert _rel(amg.vcycle(T(r)), ell.vcycle_plain(meta, arrays, T(r))) <= 1e-12
 
 
@@ -245,7 +245,8 @@ def test_ell_pcg_amg_plain_matches_interpret(variant):
         nullvec=jnp.ones(n) if variant == "null" else None)
     kn.reset_counts()
     res = ell.ell_pcg_amg((meta, arrays), T(ev), T(ec), _W(ec), T(b), T(x0), rtol, maxiter,
-                          mask=T(mask.astype(np.float64)) if variant == "mask" else None)
+                          mask=T(mask.astype(np.float64)) if variant == "mask" else None,
+                          amg_widths=amg_widths(amg))
     assert kn.plain_calls["ell_pcg_amg"] == 1 and sum(kn.launches.values()) == 0
     assert bool(cvj) and bool(res.converged)
     assert int(kj) == int(res.iters) >= 3

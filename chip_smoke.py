@@ -36,7 +36,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    for K1 (and in 3c at N=64): its levels, the levels that run on the
    sub-group of blocks, and its grid and sub-group barriers an iteration;
    for K2: the bytes of one product (W, the staged per-cube outputs, the
-   vectors) and the rate its products moved them at.
+   vectors) and the rate its products moved them at; for K5 (M_c at batch
+   d): its tile, shared memory a block, blocks an SM, the bytes a product
+   moves and their rate; for K4: its grid barriers an iteration.
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
    dofs) in float32 on the card, bench settings (dt 2e-3, nu 1/1600, rtol
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
@@ -636,6 +638,8 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
             if dtype != torch.float32:
                 continue
             out.setdefault(name, []).append(_timed(name, label, kfn, pfn, device, err, work, lib))
+            if label.startswith("M_c") and torch.device(device).type == "cuda":
+                k5_report(solver, dtype, out[name][-1])
     return out
 
 
@@ -678,6 +682,7 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     import numpy as np
     import torch
 
+    from oasisx_tpu_torch import _build
     from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la import fused
@@ -729,19 +734,61 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
         return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
 
     rows = lambda res: float(res.iters.sum())
+    if torch.device(device).type == "cuda":
+        print(f"  cg_mass       grid barriers an iteration: "
+              f"{_build.library().oasisx_cg_mass_barriers()} (the product's pAp, the update's "
+              "rz and |r|^2)")
+
+    def mass_work(B):
+        return lambda res: (mass_bytes(isz, B, nv, int(res.iters.max())),
+                            rows(res) * (2.0 * nl * nl * nc + 10 * nv))
+
     return rtol, [
         ("cg_mass", "M_c, random rhs",
          lambda: fused.cg_mass(M_c, b, x0, M_invd, bn, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b, x0, M_invd, bn, rtol, maxiter),
-         lambda res: (isz * (3 * d * nv + nv), rows(res) * (2.0 * nl * nl * nc + 10 * nv))),
+         lambda: fused.cg_from_r0(mass, b, x0, M_invd, bn, rtol, maxiter), mass_work(d)),
         ("cg_mass", "M_c batch 1",
          lambda: fused.cg_mass(M_c, b1, x01, M_invd, bn1, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter),
-         lambda res: (isz * (3 * nv + nv), rows(res) * (2.0 * nl * nl * nc + 10 * nv))),
+         lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter), mass_work(1)),
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
          lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
     ] + bicgstab_cases(solver, dtype)[1]
+
+
+def mass_bytes(isz: int, B: int, nv: int, iters: int) -> float:
+    """Bytes of K4's bound: r0 and x0 read, x written and invd read once;
+    where its state (x, r, two p, Ap: 5 vectors of B rows, and invd) does
+    not fit in the L2, also each iteration's two passes from memory: the
+    product reads r, p and invd and writes p and Ap, the update reads x, p,
+    r, Ap and invd and writes x and r (10 B + 2 vectors)."""
+    once = isz * (3 * B * nv + nv)
+    state = isz * (5 * B * nv + nv)
+    if state <= L2_BYTES:
+        return once
+    it = isz * (10 * B + 2) * nv
+    print(f"    bound: K4's state {state / 1e6:.1f} MB > the {L2_BYTES / 1e6:.0f} MB L2, counted "
+          f"{it / 1e6:.1f} MB an iteration: {iters} iterations")
+    return once + iters * it
+
+
+def k5_report(solver, dtype, rec: dict) -> None:
+    """K5's tile at the solver's batch-d product: the tile, its shared
+    memory, the blocks an SM the card runs, the bytes a product moves (x
+    read and y written once, C) and the rate of ``rec``'s time."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    d = solver._mesh.dim
+    isz = torch.empty((), dtype=dtype).element_size()
+    tile = kn.const_tile(d, d, dtype)
+    blocks = _build.library().oasisx_const_tile_blocks(int(dtype == torch.float64), d, d, *tile)
+    moved = isz * (2 * d * solver._npad_v + 3 ** (2 * d))
+    print(f"    K5 tile {tile} (3D form), {kn.tile_smem(d, tile, d, isz)} bytes of shared memory "
+          f"a block, {blocks} blocks an SM; a product moves {moved / 1e6:.2f} MB: "
+          f"{moved / rec['ms'] / 1e9:.3f} TB/s")
 
 
 def k2_product_bytes(solver, dtype, batch: int) -> dict:
@@ -1327,6 +1374,7 @@ def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: 
     st = res["stats"]
     sps = steps / res["wall"]
     mean = lambda k: float(st[k].sum(axis=-1).mean()) if st[k].ndim > 1 else float(st[k].mean())
+    kmax = lambda k: float(st[k].max(axis=-1).mean()) if st[k].ndim > 1 else float(st[k].mean())
     used = {k: v for k, v in res["launches"].items() if v}
     print(f"[{tag}] {steps} steps in {res['wall']:.3f} s = {sps:.4f} steps/s "
           f"({ndofs * sps / 1e6:.3f} MDOF-updates/s) on {smi}")
@@ -1334,7 +1382,8 @@ def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: 
           f"p {mean('p_iters'):.3f} c {mean('c_iters'):.3f}; TPU-era reference "
           f"(per-component means): {tpu_era}")
     print(f"    per-component means: u {float(st['u_iters'].mean()):.3f} "
-          f"c {float(st['c_iters'].mean()):.3f}")
+          f"c {float(st['c_iters'].mean()):.3f}; K4's iterations a step (its rows run "
+          f"together until the last converges): {kmax('c_iters'):.3f}")
     print(f"    worst exit residuals: u {float(st['u_res'].max()):.3e} "
           f"p {float(st['p_res'].max()):.3e} c {float(st['c_res'].max()):.3e}")
     print(f"    host syncs per step: {float(st['host_syncs'].mean()):.2f} in the steps "
@@ -1353,7 +1402,7 @@ def profile_steps(solver, steps: int, path: str) -> None:
     _sync("cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.run(steps, DT, NU, max_iter=1)
+        stats = solver.run(steps, DT, NU, max_iter=1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -1367,6 +1416,10 @@ def profile_steps(solver, steps: int, path: str) -> None:
     print(f"  profile: {steps} steps, wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%, "
           f"{count / steps:.1f} device kernels a step")
+    # a whole solve's kernel time over its iterations needs these steps' own counts
+    print("    iterations a step in these steps (the slowest row): " + ", ".join(
+        f"{f} {float(stats[f'{f}_iters'].reshape(steps, -1).max(axis=-1).mean()):.2f}"
+        for f in ("u", "p", "c")))
     for e in dev[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} x  {e.key[:90]}")
     os.makedirs(os.path.dirname(path), exist_ok=True)

@@ -8,14 +8,20 @@
 // p_k = f_k % deg, base b_k = f_k / deg.  Positions with p_k > 0 and
 // b_k = n_k are padding and give 0.
 //
-// Form: output-owner, deterministic, no atomics.  The caller owns one
-// output grid point (parity p, base b) for every output component.  It sums
+// Two forms, both deterministic, with no atomics.  Point by point
+// (cube_point; K3, K6, K7, K12, K1): the caller owns one output grid point
+// (parity p, base b) for every output component.  It sums
 // over the <= 2^d cubes b - delta that contain the point (delta_k in {0,1}
 // on the axes with p_k == 0; the point is slot t = p + deg*delta of that
 // cube), and for each cube over the nl_in input slots, in a fixed order, so
 // a run repeats bit for bit.  Each (output slot, cube) pair belongs to
 // exactly one output point, so each entry of a per-cube weight array is
-// read once per application, for all components together.
+// read once per application, for all components together; but each input
+// is read once for every output slot of every cube that holds it.  Block-
+// tiled (tile_product, below; the P2 constant product of K5 and K4): a
+// block reads a box of inputs once into shared memory, a thread a cube
+// computes all the cube's output slots into a stage, and each owned point
+// sums its cubes' staged values through cube_visit.
 //
 // The output side takes a point already split into its parities and base
 // coordinates (CubePoint), on a 3D form of the grid (a 2D grid gets a
@@ -84,6 +90,10 @@ struct CubeArgs {
   int x_bo, x_bi;      // input strides per output / input component
   int m_bo, m_bi, m_to, m_ti, m_cube;  // matrix strides
   int mat_len;         // > 0: the matrix is constant, staged in shared memory
+  // the block-tiled product (tile_product; tile_set fills these): base
+  // points a tile owns per axis, tiles per axis, and divisions by both
+  int tile[3], ntile[3];
+  FastDiv div_tile[3], div_ntile[3];
 };
 
 // An output grid point in the 3D form: parity p_k and base b_k per axis.
@@ -301,6 +311,279 @@ inline CubeArgs win_args(int d, int n0, int n1, int n2, int deg, int batch) {
   a.m_to = ncube * a.nl_in;
   a.mat_len = 0;
   return a;
+}
+
+// ---------------------------------------------------------------------------
+// The block-tiled, cube-owned product of a constant P2 cube matrix (K5, K4)
+// ---------------------------------------------------------------------------
+//
+// A block owns a tile: a box of a.tile[k] base points per axis (3D form), all
+// parity channels.  The cubes that hold an owned point are b - delta, so the
+// tile's cubes reach one cube below the box on each axis (the halo, which
+// every block recomputes: no block reads another's results).  Three steps,
+// with block barriers between them, in one buffer of shared memory:
+//   the box: the inputs of every cube of the tile, as a fine-lattice box
+//     (2 ncu_k + 1 points an axis for ncu_k cubes), each read once from
+//     global memory by the caller's load(b, i);
+//   phase 1: a thread a cube keeps the cube's nl * nb inputs in registers,
+//     and for each output slot sums its nl inputs in slot order against the
+//     matrix row (16-byte shared loads, the same address in every lane) into
+//     the stage (nb, nl, cubes of the tile), which overwrites the box;
+//   phase 2: a thread an owned point sums its <= 2^d staged values in
+//     cube_visit's order and hands them to the caller's store(i, acc).
+// No atomics, and one order of sums: per cube, slot by slot, then per point
+// over its cubes, as kernels.matvec_const_staged_plain.  Each input is read
+// once a tile, not once for each output slot of each cube that holds it (27
+// times a product, as cube_point does).
+
+constexpr int kTileThreads = 256;  // threads a block of the tiled product: at most one cube each
+
+// Row stride of the staged matrix: nl rounded up to whole 16-byte loads.
+template <typename T>
+__host__ __device__ constexpr int tile_ld(int nl) {
+  return (nl + (int)(16 / sizeof(T)) - 1) / (int)(16 / sizeof(T)) * (int)(16 / sizeof(T));
+}
+
+// Bytes of shared memory of one tile at batch nb: the staged matrix, then
+// the larger of the box and the stage (the stage is never the smaller in
+// 2D or 3D, but the buffer holds both in turn).  kernels.tile_smem mirrors it.
+template <typename T>
+inline size_t tile_smem(const CubeArgs& a, int nb) {
+  int64_t cubes = 1, box = 1;
+  for (int k = 0; k < 3; ++k)
+    if (a.par[k] > 1) {
+      cubes *= a.tile[k] + 1;
+      box *= 2 * (a.tile[k] + 1) + 1;
+    }
+  const size_t mat = (sizeof(T) * a.nl_in * tile_ld<T>(a.nl_in) + 15) & ~size_t(15);
+  const int64_t buf = a.nl_in * cubes > box ? a.nl_in * cubes : box;
+  return mat + sizeof(T) * nb * buf;
+}
+
+// Set the tile of a deg-2 operator: a.tile = (t0, t1, t2) in the 3D form (t0
+// is 1 on a 2D grid's leading axis), at most kTileThreads cubes a tile and
+// launchable tile counts.  False for any other tile.
+inline bool tile_set(CubeArgs& a, int t0, int t1, int t2) {
+  const int t[3] = {t0, t1, t2};
+  int64_t cubes = 1;
+  for (int k = 0; k < 3; ++k) {
+    if (t[k] < 1 || (a.par[k] == 1 && t[k] != 1)) return false;
+    cubes *= a.par[k] > 1 ? t[k] + 1 : 1;
+    a.tile[k] = t[k];
+    a.ntile[k] = (a.g[k] + t[k] - 1) / t[k];
+    a.div_tile[k] = fast_div(t[k]);
+    a.div_ntile[k] = fast_div(a.ntile[k]);
+  }
+  return a.deg_out == 2 && a.deg_in == 2 && cubes <= kTileThreads && a.ntile[0] <= 65535 &&
+         a.ntile[1] <= 65535;
+}
+
+// Stage the constant matrix (nl, nl) in rows of tile_ld(NL), zero-padded.
+// The caller's first tile_product synchronises the block before use.
+template <typename T, int NL>
+__device__ __forceinline__ void tile_stage(const T* mat, T* smat) {
+  constexpr int LD = tile_ld<T>(NL);
+  for (int i = threadIdx.x; i < NL * LD; i += blockDim.x) {
+    const int to = i / LD, ti = i - to * LD;
+    smat[i] = ti < NL ? mat[to * NL + ti] : T(0);
+  }
+}
+
+__device__ __forceinline__ float tile_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double tile_fma(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  __device__ static float get(const float4& v, int u) {
+    return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  __device__ static double get(const double2& v, int u) { return u == 0 ? v.x : v.y; }
+};
+
+// Tile (i0, i1, i2) of y_b = sum_c P_c^T C P_c x_b for b < nb (NB > 0: nb
+// fixed at compile time; 0: a.nbo), NL = 27 (3D) or 9 (2D) slots, C staged
+// in smat by tile_stage, sbuf the tile's buffer (tile_smem past the matrix).
+// Every thread of the block calls it, with blockDim.x >= the tile's cubes.
+// The caller's functions:
+//   load(i, v): v[b] = input component b at grid index i of one
+//     component, b < nb (no stores: the loads of several box rows are
+//     issued together);
+//   keep(i, v): after the loads, v as load gave it at a point i that the
+//     tile owns (each point of the grid but padding on one tile);
+//   dot(d): after phase 1, on the thread of each cube whose base point the
+//     tile owns (each cube of the grid on one tile), d[b] = x_c . (C x_c),
+//     x_c the cube's inputs of component b (K4's pAp, cube by cube);
+//   store(i, acc, pad): the output components at owned grid point i (0 at
+//     padding, pad true there).
+template <typename T, int NL, int NB, typename Load, typename Keep, typename Dot, typename Store>
+__device__ __forceinline__ void tile_product(const CubeArgs& a, const T* smat, T* sbuf, int i0,
+                                             int i1, int i2, Load&& load, Keep&& keep, Dot&& dot,
+                                             Store&& store) {
+  constexpr int LD = tile_ld<T>(NL);
+  constexpr int NBX = NB > 0 ? NB : kMaxBatch;
+  constexpr int V = 16 / sizeof(T);
+  const int nb = NB > 0 ? NB : a.nbo;
+  const int it[3] = {i0, i1, i2};
+  // per axis: first owned base point, first cube, cubes, box points, owned base points
+  int B0[3], lo[3], ncu[3], F[3], own[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    B0[k] = it[k] * a.tile[k];
+    lo[k] = B0[k] > 0 ? B0[k] - 1 : 0;
+    const int hi = min(a.c[k] - 1, B0[k] + a.tile[k] - 1);
+    ncu[k] = hi - lo[k] + 1;
+    F[k] = a.par[k] > 1 ? 2 * ncu[k] + 1 : 1;
+    own[k] = min(a.tile[k], a.g[k] - B0[k]);
+  }
+  const int ncubes = ncu[0] * ncu[1] * ncu[2];
+  const int plane = F[1] * F[2];
+  const int boxpts = F[0] * plane;
+  __syncthreads();  // the previous tile's readers of sbuf are done (and smat is staged)
+
+  // the box: fine point f of an axis is parity f & 1 of base lo + f / 2.
+  // A thread takes a point of the (axis 1, axis 2) plane and walks axis 0
+  // in chunks of kRows rows: every load of a chunk, then its stores, so
+  // that the loads are in flight together whatever the caller stores.
+  constexpr int kRows = 3;
+  for (int j = threadIdx.x; j < plane; j += blockDim.x) {
+    const int f1 = (int)((unsigned)j / (unsigned)F[2]);
+    const int f2 = j - f1 * F[2];
+    const int ch12 = (f1 & 1) * a.par[2] + (f2 & 1);
+    const int b1 = lo[1] + (f1 >> 1), b2 = lo[2] + (f2 >> 1);
+    const int b12 = b1 * a.g[2] + b2;
+    const bool own12 = b1 >= B0[1] && b1 < B0[1] + own[1] && b2 >= B0[2] && b2 < B0[2] + own[2];
+    for (int r0 = 0; r0 < F[0]; r0 += kRows) {
+      int gi[kRows];
+      T v[kRows][NBX];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int f0 = r0 + u;
+        gi[u] = ((f0 & 1) * a.par[1] * a.par[2] + ch12) * a.plane +
+                (lo[0] + (f0 >> 1)) * a.g[1] * a.g[2] + b12;
+        if (f0 < F[0]) load(gi[u], v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int f0 = r0 + u;
+        if (f0 >= F[0]) break;
+        const int b0 = lo[0] + (f0 >> 1);
+#pragma unroll
+        for (int b = 0; b < NBX; ++b)
+          if (b < nb) sbuf[b * boxpts + f0 * plane + j] = v[u][b];
+        if (own12 && b0 >= B0[0] && b0 < B0[0] + own[0]) keep(gi[u], v[u]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 1: thread tid owns local cube tid = (cl0 ncu1 + cl1) ncu2 + cl2
+  const int tid = threadIdx.x;
+  const bool mine = tid < ncubes;
+  bool base_owned = false;  // the cube's base point is the tile's
+  T xin[NBX][NL];
+  if (mine) {
+    const int q = (int)((unsigned)tid / (unsigned)ncu[2]);
+    const int cl2 = tid - q * ncu[2];
+    const int cl0 = (int)((unsigned)q / (unsigned)ncu[1]);
+    const int cl1 = q - cl0 * ncu[1];
+    base_owned = lo[0] + cl0 >= B0[0] && lo[1] + cl1 >= B0[1] && lo[2] + cl2 >= B0[2];
+    const T* bx = sbuf + 2 * (cl0 * plane + cl1 * F[2] + cl2);
+#pragma unroll
+    for (int ti = 0; ti < NL; ++ti) {
+      const int t0 = NL == 27 ? ti / 9 : 0, t1 = (ti / 3) % 3, t2 = ti % 3;
+      const int off = t0 * plane + t1 * F[2] + t2;
+#pragma unroll
+      for (int b = 0; b < NBX; ++b) xin[b][ti] = b < nb ? bx[b * boxpts + off] : T(0);
+    }
+  }
+  __syncthreads();  // the box is read: the stage overwrites it
+  if (mine) {
+#pragma unroll 1
+    for (int to = 0; to < NL; ++to) {
+      T acc[NBX];
+#pragma unroll
+      for (int b = 0; b < NBX; ++b) acc[b] = T(0);
+      const typename Vec16<T>::type* mr =
+          reinterpret_cast<const typename Vec16<T>::type*>(smat + to * LD);
+#pragma unroll
+      for (int t4 = 0; t4 < LD / V; ++t4) {
+        const typename Vec16<T>::type m = mr[t4];
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int ti = t4 * V + u;
+          if (ti < NL) {
+            const T c = Vec16<T>::get(m, u);
+#pragma unroll
+            for (int b = 0; b < NBX; ++b)
+              if (NB > 0 || b < nb) acc[b] = tile_fma(c, xin[b][ti], acc[b]);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NBX; ++b)
+        if (b < nb) sbuf[(b * NL + to) * ncubes + tid] = acc[b];
+    }
+    if (base_owned) {
+      // x_c . (C x_c) from the thread's own staged outputs, the slots
+      // unrolled (xin indexed at run time would leave the registers)
+      T dots[NBX];
+#pragma unroll
+      for (int b = 0; b < NBX; ++b) dots[b] = T(0);
+#pragma unroll
+      for (int to = 0; to < NL; ++to)
+#pragma unroll
+        for (int b = 0; b < NBX; ++b)
+          if (b < nb) dots[b] = tile_fma(xin[b][to], sbuf[(b * NL + to) * ncubes + tid], dots[b]);
+      dot(dots);
+    }
+  }
+  __syncthreads();
+
+  // phase 2: owned point j = ((ch t0 + l0) t1 + l1) t2 + l2 of the tile
+  CubeArgs v = a;  // the tile's cubes, so that cube_visit gives local cube indices
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v.c[k] = ncu[k];
+  const int nown = a.par[0] * a.par[1] * a.par[2] * a.tile[0] * a.tile[1] * a.tile[2];
+  for (int j = tid; j < nown; j += blockDim.x) {
+    CubePoint q;
+    int l[3];
+    unsigned r = (unsigned)j;
+#pragma unroll
+    for (int k = 2; k >= 0; --k) {
+      const unsigned t = fast_quo(r, a.div_tile[k]);
+      l[k] = (int)(r - t * (unsigned)a.tile[k]);
+      r = t;
+    }
+    if (l[0] >= own[0] || l[1] >= own[1] || l[2] >= own[2]) continue;
+    const int ch = (int)r;
+    unsigned c = r;
+#pragma unroll
+    for (int k = 2; k >= 0; --k) {
+      q.p[k] = a.par[k] > 1 ? (int)(c & 1u) : 0;
+      if (a.par[k] > 1) c >>= 1;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q.b[k] = B0[k] + l[k] - lo[k];
+    T acc[NBX];
+#pragma unroll
+    for (int b = 0; b < NBX; ++b) acc[b] = T(0);
+    bool pad = true;
+    cube_visit(v, q, [&](int to, int cube, int) {
+      pad = false;
+#pragma unroll
+      for (int b = 0; b < NBX; ++b)
+        if (b < nb) acc[b] += sbuf[(b * NL + to) * ncubes + cube];
+    });
+    store(ch * a.plane + ((B0[0] + l[0]) * a.g[1] + B0[1] + l[1]) * a.g[2] + B0[2] + l[2], acc,
+          pad);
+  }
 }
 
 }  // namespace oasisx

@@ -1,10 +1,13 @@
 // Cube operators on the parity-split grid layout, for sm_90a.
 //
-// Every entry point but the gather and the scatter applies the cube device
-// function of cube_device.cuh (y = sum_cubes P_c^T C P_c x, output-owner, no
-// atomics).  They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py):
+// Every entry point but the gather and the scatter applies a cube device
+// function of cube_device.cuh (y = sum_cubes P_c^T C P_c x, no atomics):
+// point by point (cube_point), or K5's block-tiled product (tile_product).
+// They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py):
 //   oasisx_matvec_const  <- make_matvec_pf (K5) and make_matvec (K12):
-//                           constant cube matrix C (nl, nl), batch B
+//                           constant cube matrix C (nl, nl), batch B; the P2
+//                           cube (K5) by the block-tiled product of
+//                           cube_device.cuh, the P1 cube (K12) point by point
 //   oasisx_matvec_win    <- make_matvec_win (K3): per-cube weights
 //                           W[to*nl + ti, cube], shared by the B components;
 //                           with the optional multipliers y = zmask A_W (premul x)
@@ -34,17 +37,24 @@
 //                           scatter products of its N=64 tier).
 //
 // Bound on the H100.  K3 at N=36 (3D P2) must stream the 136 MB W
-// (729 x 46656 f32) once per call, 764 MB at N=64: memory.  K5, K6 and K7
-// read and write a few MB with the small constant matrix in shared memory,
-// and K13 reads U once (15 MB at N=36) and writes the grid once: by bytes
-// they are memory-bound too, and by operations K5's 27 x 27 products are
-// below 5% of the float32 rate.  What bounded them on this card was integer
-// work: an output side that split each grid index with 64-bit divisions and
+// (729 x 46656 f32) once per call, 764 MB at N=64: memory.  K6 and K7 read
+// and write a few MB with the small constant matrix in shared memory, and
+// K13 reads U once (15 MB at N=36) and writes the grid once: by bytes they
+// are memory-bound too.  What bounded them on this card was integer work:
+// an output side that split each grid index with 64-bit divisions and
 // remainders (a software sequence of dozens of instructions each) ran at
 // 12-88x their bounds, as K8 did at 18x its present time before it took the
-// shape below.  No
-// tensor cores: the contractions are 27 x 27 per cube with nothing to batch
-// into a tile that the grid layout does not already give as a gather.
+// shape below.  K5 (3D P2, batch 3) moves 2 x 3 x 4.9 MB at N=36 and 2 x
+// 26.4 MB at N=64, and its 27 x 27 products a cube are 1.15 GFLOP at N=64
+// (0.017 ms at the float32 rate): by the bound both sides are close.  Point
+// by point (cube_point, the form before) it loaded each input once for each
+// output slot of each cube that holds it, 27 loads a value, and ran at 23x
+// its bound; so it is block-tiled (cube_device.cuh tile_product): a block
+// reads a tile's inputs once into shared memory, a thread a cube sums them
+// against the staged matrix (halo cubes recomputed, ~1.8x the operations at
+// a 3 x 7 x 7 tile), and each owned point sums its cubes' staged values.  No
+// tensor cores: the standing rule keeps TF32 off, and in float32 the
+// products are a few hundredths of a millisecond of FFMA.
 //
 // Launch shape of the standalone cube kernels (every one but K8), K8's
 // shape on the output grid: a block per (stretch of the plane of inner base
@@ -65,13 +75,16 @@
 //
 // Registers against latency.  A thread's loads are latency-bound: K12's 8
 // slots a cube with one coefficient each are unrolled (8 loads in flight);
-// the 27-slot loops stay rolled, since unrolled they take about twice the
-// registers and the occupancy they lose costs more than the latency they
-// hide.  K3 without premul (a W load a slot) and K7 (three input components
-// a slot) are held to 32 registers (kFill: 16 blocks, every thread slot of
-// an SM) when their grid has that many blocks (K3 at N=36 and N=64, K7 at
-// N=64; K7's 407 blocks at N=36 fill 3 an SM whatever the registers); K5
-// and K6 keep the registers the compiler gives them, which measured faster.
+// the 27-slot loops of K3, K6 and K7 stay rolled, since unrolled they take
+// about twice the registers and the occupancy they lose costs more than the
+// latency they hide.  K3 without premul (a W load a slot) and K7 (three input
+// components a slot) are held to 32 registers (kFill: 16 blocks, every
+// thread slot of an SM) when their grid has that many blocks (K3 at N=36
+// and N=64, K7 at N=64; K7's 407 blocks at N=36 fill 3 an SM whatever the
+// registers); K6 keeps the registers the compiler gives it, which measured
+// faster.  K5's tiled kernel keeps a cube's 27 nb inputs in registers, its
+// batch a template parameter in 3D, at most 128 registers (2 blocks an SM,
+// as its shared memory allows at batch 3 in float32).
 //
 // Each entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
@@ -337,15 +350,113 @@ int batched(int is_f64, const void* x, const void* mat, void* y, CubeArgs a, int
   return 0;
 }
 
+// K5 on the P2 cube: one block a tile (tile_product), a grid of
+// (ntile2, ntile1, ntile0) blocks.  NB > 0: the batch fixed at compile time
+// (the 3D cube's inputs in registers, 27 NB of them); 0: a.nbo (2D).  At most
+// 128 registers a thread (2 blocks an SM).
+template <typename T, int NL, int NB>
+__global__ void __launch_bounds__(kTileThreads, 2)
+const_tile_kernel(const T* __restrict__ x, const T* __restrict__ mat, T* __restrict__ y,
+                  CubeArgs a) {
+  T* smat = reinterpret_cast<T*>(dynamic_smem());
+  T* sbuf = smat + NL * tile_ld<T>(NL);
+  tile_stage<T, NL>(mat, smat);
+  const int nb = NB > 0 ? NB : a.nbo;
+  tile_product<T, NL, NB>(
+      a, smat, sbuf, blockIdx.z, blockIdx.y, blockIdx.x,
+      [&](int i, auto& v) {
+#pragma unroll
+        for (int b = 0; b < (NB > 0 ? NB : kMaxBatch); ++b)
+          if (b < nb) v[b] = __ldg(x + b * a.npad_out + i);
+      },
+      [](int, const auto&) {}, [](const T*) {},
+      [&](int i, const auto& acc, bool) {
+#pragma unroll
+        for (int b = 0; b < (NB > 0 ? NB : kMaxBatch); ++b)
+          if (b < nb) y[b * a.npad_out + i] = acc[b];
+      });
+}
+
+template <typename T>
+auto tile_kernel(int nl, int nb) {
+  if (nl != 27) return const_tile_kernel<T, 9, 0>;
+  return nb == 1 ? const_tile_kernel<T, 27, 1>
+         : nb == 2 ? const_tile_kernel<T, 27, 2>
+         : nb == 3 ? const_tile_kernel<T, 27, 3>
+                   : const_tile_kernel<T, 27, 4>;
+}
+
+// the kernel of a.nbo components with its shared memory limit set
+template <typename T>
+int tile_prepare(const CubeArgs& a, void (**kernel)(const T*, const T*, T*, CubeArgs),
+                 size_t* smem) {
+  *kernel = tile_kernel<T>(a.nl_in, a.nbo);
+  *smem = tile_smem<T>(a, a.nbo);
+  return (int)cudaFuncSetAttribute((const void*)*kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+template <typename T>
+int tile_occupancy(const CubeArgs& a, int* blocks) {
+  void (*kernel)(const T*, const T*, T*, CubeArgs);
+  size_t smem;
+  const int err = tile_prepare<T>(a, &kernel, &smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kTileThreads, smem);
+}
+
+// K5 in launches of kMaxBatch components
+template <typename T>
+int tiled(const void* x, const void* C, void* y, CubeArgs a, int batch, void* stream) {
+  for (int b0 = 0; b0 < batch; b0 += kMaxBatch) {
+    a.nbo = batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch;
+    void (*kernel)(const T*, const T*, T*, CubeArgs);
+    size_t smem;
+    int err = tile_prepare<T>(a, &kernel, &smem);
+    if (err) return err;
+    const int64_t off = (int64_t)a.npad_out * b0;
+    kernel<<<dim3(a.ntile[2], a.ntile[1], a.ntile[0]), kTileThreads, smem,
+             (cudaStream_t)stream>>>(static_cast<const T*>(x) + off, static_cast<const T*>(C),
+                                     static_cast<T*>(y) + off, a);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // y[b] = A x[b] with constant cube matrix C (nl, nl); x, y (batch, grid).
+// deg 2 (K5) takes the tiled product with tile (t0, t1, t2) (tile_set's
+// rules; kernels.const_tile chooses it), any other degree (K12) the
+// point-by-point product with the tile (0, 0, 0); cudaErrorInvalidValue
+// for any other tile.
 int oasisx_matvec_const(const void* x, const void* C, void* y, int is_f64, int d, int n0,
-                        int n1, int n2, int deg, int batch, void* stream) {
+                        int n1, int n2, int deg, int batch, int t0, int t1, int t2,
+                        void* stream) {
   if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
-  return batched(is_f64, x, C, y, const_args(d, n0, n1, n2, deg, batch), batch, stream);
+  CubeArgs a = const_args(d, n0, n1, n2, deg, batch);
+  if (deg != 2) {
+    if (t0 != 0 || t1 != 0 || t2 != 0) return (int)cudaErrorInvalidValue;
+    return batched(is_f64, x, C, y, a, batch, stream);
+  }
+  if (!tile_set(a, t0, t1, t2)) return (int)cudaErrorInvalidValue;
+  return is_f64 ? tiled<double>(x, C, y, a, batch, stream)
+                : tiled<float>(x, C, y, a, batch, stream);
+}
+
+// Blocks an SM of K5's tiled kernel at batch and tile (t0, t1, t2) on a
+// d-dimensional grid (the occupancy calculator, after the kernel's shared
+// memory limit is set), or minus a CUDA error.
+int oasisx_const_tile_blocks(int is_f64, int d, int batch, int t0, int t1, int t2) {
+  if ((d != 2 && d != 3) || batch < 1 || batch > kMaxBatch) return -(int)cudaErrorInvalidValue;
+  CubeArgs a = const_args(d, 8, 8, 8, 2, batch);
+  if (!tile_set(a, t0, t1, t2)) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const int err = is_f64 ? tile_occupancy<double>(a, &blocks) : tile_occupancy<float>(a, &blocks);
+  return err ? -err : blocks;
 }
 
 // y[b] = zmask[b] * A_W (premul[b] * x[b]) with per-cube weights W

@@ -4,7 +4,7 @@
 // with the device-side loops that drive them:
 //   oasisx_cg_mass      <- make_cg_iter_pf (K4) and the loop of cg_pf_solve /
 //                          fracstep.py's velocity update: batched Jacobi-PCG on
-//                          a constant cube matrix, from the caller's r0 and x0
+//                          a constant P2 cube matrix, from the caller's r0 and x0
 //   oasisx_bicgstab     <- make_bicgstab_iter (K2) and bicgstab_fused_from_r0:
 //                          batched BiCGStab on A_W (per-cube weights) with
 //                          zero-masked Dirichlet rows and Jacobi
@@ -29,16 +29,27 @@
 // Reductions and the cooperative launch are those of grid_reduce.cuh:
 // deterministic, the same bits on every block, no floating-point atomics.
 //
-// Operators: the cube device function of cube_device.cuh, with the constant
-// matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in shared
-// memory.  The grid is fixed by the cooperative launch, so a product's
-// grid-stride loop cannot take its points' parities and base coordinates
-// from blockIdx, as the standalone cube kernels do: each point is split in
-// place by cube_split's multiply-and-shift divisions, whose constants are
-// kernel parameters, so the split holds no register across the loop.  K1's
-// 8 slots a cube (P1) are unrolled (NL), so a thread's loads of one cube are
-// in flight together at these kernels' 2-3 blocks an SM; K4's 27-slot loop
-// stays rolled (unrolled, it ran slower on this card).
+// Operators: the cube device functions of cube_device.cuh, with the
+// constant matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in
+// shared memory.  K1's products go point by point (cube_point): the grid is
+// fixed by the cooperative launch, so a product's grid-stride loop cannot
+// take its points' parities and base coordinates from blockIdx, as the
+// standalone cube kernels do, and each point is split in place by
+// cube_split's multiply-and-shift divisions, whose constants are kernel
+// parameters.  K1's 8 slots a cube (P1) are unrolled (NL), so a thread's
+// loads of one cube are in flight together at its 2-3 blocks an SM.
+//
+// K4's product is K5's block-tiled one (tile_product): the grid-stride loop
+// runs over tiles, a block a tile at a time, each input read once a tile
+// into shared memory, a thread a cube with its 27 nb inputs in registers
+// (kMassBlocks 2 an SM: at most 128 registers), pAp summed cube by cube
+// (p_c . C p_c, each cube on the one tile that owns its base point).  The
+// direction update p = z + beta p rides on the next product: a tile
+// computes p from r and the last p wherever it reads p (its box, halo
+// included) and writes its owned points to the other of two p buffers (by
+// iteration parity, an explicit fma).  So an iteration
+// has two grid barriers (pAp; rz and |r|^2) and two passes over the state,
+// where the product, the update and the direction pass had three of each.
 //
 // K2's per-cube weights W (nl^2 x ncubes, 764 MB in f32 at N=64) do not fit
 // in L2, so its product is cube-owned and in two phases.  Phase A, a
@@ -53,7 +64,7 @@
 // cube_point (the form before) read each cube's 27 nb inputs once for each
 // of its 27 output slots, through the L1/L2 that W streams through, and ran
 // at a third of the standalone product's rate.  Blocks an SM are
-// fixed (kMinBlocks, kSolveBlocks: launch bound and grid cap), and K1's
+// fixed (kMinBlocks, kMassBlocks, kSolveBlocks: launch bound and grid cap), and K1's
 // Chebyshev updates fuse c1 dk into an explicit fma, so neither the grid
 // nor the rounding of a step depends on how the compiler allocates
 // registers or contracts products: a run repeats bit for bit across
@@ -78,12 +89,15 @@
 // application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
 // components, so two W streams per iteration are the floor, plus the staged
 // outputs written and read once a product; the ~10 state vectors (3 x 1.6
-// MB each at N=36) stay in L2.  K4 and K1: latency; the 3 x 389k
-// point mass state and the 50k / 7k / 1k point pressure levels fit in L2, and
-// the time goes to barriers (3 grid barriers per K4 iteration; per K1 MG
-// iteration at N=36, 11 grid barriers and 19 among the sub-group's blocks;
-// 5 + (degree - 1) per iteration of K1's Chebyshev mode, where every
-// barrier spans the fine grid).
+// MB each at N=36) stay in L2.  K4: at N=36 its state (3 x 405k points a
+// vector) fits in L2 and an iteration is bound by its product's operations
+// and its two grid barriers; at N=64 a state vector is 26.4 MB in float32
+// (batch 3) and does not, so an iteration moves its two passes from HBM:
+// 10 vectors of nb rows and the shared invd twice, ~282 MB (0.084 ms).
+// K1: latency; the 50k / 7k / 1k point pressure levels fit in L2, and the
+// time goes to barriers (per MG iteration at N=36, 11 grid barriers and 19
+// among the sub-group's blocks; 5 + (degree - 1) per iteration of the
+// Chebyshev mode, where every barrier spans the fine grid).
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
@@ -97,13 +111,15 @@ namespace {
 using namespace oasisx;
 
 static_assert(kThreads == kRedThreads, "one block size for the cube and reduction code");
+static_assert(kThreads == kTileThreads, "K4's blocks run the tiled product");
 static_assert(kMaxRed == 2 * kMaxBatch, "two sums per batch row");
 
 constexpr int kMaxLevels = 8;
 // Blocks an SM of each whole-solve kernel: its launch bound and the cap of
 // its cooperative grid, so that the grid, and with it the order of every
-// reduction, does not depend on the registers the compiler assigns.  K4 and
-// K1's non-MG mode hold 3 in float32 (<= 80 registers), the others 2.
+// reduction, does not depend on the registers the compiler assigns.  K1's
+// non-MG mode holds 3 in float32 (<= 80 registers), the others 2 (K4's
+// kMassBlocks).
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
 constexpr int kSolveBlocks = 2;
@@ -132,130 +148,187 @@ struct CgMassArgs {
   const T* tol;   // (nb) absolute tolerance per row
   T* x;           // (nb, n) out
   T* r;           // (nb, n) work
-  T* p;           // (nb, n) work
+  T* p[2];        // (nb, n) work each: the search direction, by iteration parity
   T* Ap;          // (nb, n) work
   T* red;         // reduction slots
   int* iters;     // (nb) out
   T* rnorm;       // (nb) out
-  CubeArgs a;     // nbo = nb rows
+  CubeArgs a;     // nbo = nb rows; the tile of the product (tile_set)
+  size_t red_off; // bytes of shared memory before the reduction's
   int maxiter;
 };
 
+// Blocks an SM of K4: its launch bound and the cap of its cooperative grid.
+// Two, so that a thread keeps its cube's 81 inputs (batch 3) in registers.
+constexpr int kMassBlocks = 2;
+// K4's grid barriers an iteration: the product's reduction (pAp) and the
+// update's (rz, |r|^2); the direction update rides on the next product.
+constexpr int kMassBarriers = 2;
+
+// K4's shared memory: [matrix (tile rows)] [tile buffer] [reduction].
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) cg_mass_kernel(CgMassArgs<T> P) {
+size_t mass_red_offset(const CubeArgs& a) {
+  return align16(tile_smem<T>(a, a.nbo));
+}
+
+// NL: 27 (3D) or 9 (2D) slots of the P2 cube; NB as tile_product's.  The
+// rows' scalars (rz, |r|, tol, beta, iterations, last activity) are the
+// same in every thread: they live in shared memory, written by thread 0
+// after each reduction, so that the registers go to the product's inputs.
+template <typename T, int NL, int NB>
+__global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassArgs<T> P) {
+  constexpr int NBX = NB > 0 ? NB : kMaxBatch;
   const CubeArgs& a = P.a;
-  const int nb = a.nbo;  // rows solved together
-  const int64_t n = a.npad_out;
+  const int nb = NB > 0 ? NB : a.nbo;  // rows solved together
+  const int n = a.npad_out;            // nb * n < 2^31 (cube_fits)
   unsigned char* smem = dynamic_smem();
   T* smat = reinterpret_cast<T*>(smem);
-  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
-  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
-  cube_stage(P.C, a, smat, soff);
-  __syncthreads();
-  // K4's grid-stride loops: 64-bit and not unrolled.  Unrolled, nvcc divides
-  // their trip count (in 64 bits for a 64-bit index), and on an H100 80GB
-  // HBM3 at 700 W they ran 1-2% slower either way, in 32 or 64 bits.
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  T* sbuf = smat + NL * tile_ld<T>(NL);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + P.red_off), 0};
+  __shared__ T rz[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch], beta[kMaxBatch];
+  __shared__ int it[kMaxBatch];
+  __shared__ bool upd[kMaxBatch];  // the row was active in the last iteration: p = z + beta p
+  tile_stage<T, NL>(P.C, smat);
+  // K4's point loops: int32 (coop_launch bounds an index plus a stride
+  // below 2^31) and not unrolled (nvcc would divide their trip count); each
+  // point loads every row before it stores any, so that its loads are in
+  // flight together (a store may alias a later row's load).
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int ntiles = a.ntile[0] * a.ntile[1] * a.ntile[2];
+  auto active = [&](int b) { return b < nb && rn[b] > tol[b]; };
 
   // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
   T s[kMaxRed];
   zero(s);
   #pragma unroll 1
-  for (int64_t idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < n; idx += stride) {
     const T iv = P.invd[idx];
+    T rv[NBX], xv[NBX];
     #pragma unroll
-    for (int b = 0; b < kMaxBatch; ++b) {
-      if (b >= nb) break;
-      const int64_t i = b * n + idx;
-      const T rr = P.r0[i];
-      const T z = iv * rr;
-      P.x[i] = P.x0[i];
-      P.r[i] = rr;
-      P.p[i] = z;
-      s[b] += rr * z;
-      s[kMaxBatch + b] += rr * rr;
-    }
+    for (int b = 0; b < NBX; ++b)
+      if (b < nb) {
+        rv[b] = P.r0[b * n + idx];
+        xv[b] = P.x0[b * n + idx];
+      }
+    #pragma unroll
+    for (int b = 0; b < NBX; ++b)
+      if (b < nb) {
+        const int i = b * n + idx;
+        const T z = iv * rv[b];
+        P.x[i] = xv[b];
+        P.r[i] = rv[b];
+        P.p[0][i] = z;
+        s[b] += rv[b] * z;
+        s[kMaxBatch + b] += rv[b] * rv[b];
+      }
   }
   grid_sum<kMaxRed>(red, s);
-  T rz[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch];
-  int it[kMaxBatch];
-  for (int b = 0; b < kMaxBatch; ++b) {
-    rz[b] = s[b];
-    rn[b] = vsqrt(s[kMaxBatch + b]);
-    tol[b] = b < nb ? P.tol[b] : T(0);
-    it[b] = 0;
-  }
+  if (threadIdx.x == 0)
+    for (int b = 0; b < kMaxBatch; ++b) {
+      rz[b] = s[b];
+      rn[b] = vsqrt(s[kMaxBatch + b]);
+      tol[b] = b < nb ? P.tol[b] : T(0);
+      it[b] = 0;
+      beta[b] = T(0);
+      upd[b] = false;
+    }
+  __syncthreads();
 
   for (int k = 0; k < P.maxiter; ++k) {
-    bool act[kMaxBatch];
     bool any = false;
-    for (int b = 0; b < kMaxBatch; ++b) {
-      act[b] = b < nb && rn[b] > tol[b];
-      any = any || act[b];
-    }
+    for (int b = 0; b < kMaxBatch; ++b) any = any || active(b);
     if (!any) break;
 
-    // Ap = C p; pAp
+    // p = z + beta p on the rows active in the last iteration (the others
+    // keep p), from r and the last p, wherever a tile reads it (its box,
+    // halo included); its owned points go to the other buffer.  Ap = C p,
+    // and pAp = sum over cubes of p_c . (C p_c), each cube on the tile that
+    // owns its base point.  A padding point lies in no box: its owner
+    // updates its p where it stores its Ap (0).
+    const T* po = P.p[k & 1];
+    T* pn = P.p[(k & 1) ^ 1];
+    auto dir = [&](int b, int i, T iv) {
+      const T old = po[i];
+      return upd[b] ? vfma(beta[b], old, iv * P.r[i]) : old;
+    };
     zero(s);
     #pragma unroll 1
-    for (int64_t idx = first; idx < n; idx += stride) {
-      T acc[kMaxBatch];
-      cube_point(P.p, smat, soff, a, cube_split(a, (int)idx), acc);
-      #pragma unroll
-      for (int b = 0; b < kMaxBatch; ++b) {
-        if (b >= nb) break;
-        const int64_t i = b * n + idx;
-        P.Ap[i] = acc[b];
-        s[b] += P.p[i] * acc[b];
-      }
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const unsigned q = fast_quo((unsigned)t, a.div_ntile[2]);
+      const int i0 = (int)fast_quo(q, a.div_ntile[1]);
+      tile_product<T, NL, NB>(
+          a, smat, sbuf, i0, (int)q - i0 * a.ntile[1], t - (int)q * a.ntile[2],
+          [&](int i, auto& v) {
+            const T iv = P.invd[i];
+            #pragma unroll
+            for (int b = 0; b < NBX; ++b)
+              if (b < nb) v[b] = dir(b, b * n + i, iv);
+          },
+          [&](int i, const auto& v) {
+            #pragma unroll
+            for (int b = 0; b < NBX; ++b)
+              if (b < nb) pn[b * n + i] = v[b];
+          },
+          [&](const T* dots) {
+            #pragma unroll
+            for (int b = 0; b < NBX; ++b)
+              if (b < nb) s[b] += dots[b];
+          },
+          [&](int i, const auto& acc, bool pad) {
+            #pragma unroll
+            for (int b = 0; b < NBX; ++b)
+              if (b < nb) {
+                P.Ap[b * n + i] = acc[b];
+                if (pad) pn[b * n + i] = dir(b, b * n + i, P.invd[i]);
+              }
+          });
     }
     grid_sum<kMaxBatch>(red, s);
     T alpha[kMaxBatch];
-    for (int b = 0; b < kMaxBatch; ++b) alpha[b] = act[b] ? rz[b] / nz(s[b]) : T(0);
+    for (int b = 0; b < kMaxBatch; ++b) alpha[b] = active(b) ? rz[b] / nz(s[b]) : T(0);
 
     // x += alpha p; r -= alpha Ap; z = invd r; rz_new = r.z, |r|^2
     zero(s);
     #pragma unroll 1
-    for (int64_t idx = first; idx < n; idx += stride) {
+    for (int idx = first; idx < n; idx += stride) {
       const T iv = P.invd[idx];
+      T xv[NBX], pv[NBX], rv[NBX], av[NBX];
       #pragma unroll
-      for (int b = 0; b < kMaxBatch; ++b) {
-        if (b >= nb) break;
-        const int64_t i = b * n + idx;
-        P.x[i] = P.x[i] + alpha[b] * P.p[i];
-        const T rr = P.r[i] - alpha[b] * P.Ap[i];
-        P.r[i] = rr;
-        const T z = iv * rr;
-        s[b] += rr * z;
-        s[kMaxBatch + b] += rr * rr;
-      }
-    }
-    grid_sum<kMaxRed>(red, s);
-    T beta[kMaxBatch];
-    for (int b = 0; b < kMaxBatch; ++b) {
-      const T rz_new = act[b] ? s[b] : rz[b];
-      beta[b] = act[b] ? rz_new / nz(rz[b]) : T(0);
-      rz[b] = rz_new;
-      if (act[b]) {
-        rn[b] = vsqrt(s[kMaxBatch + b]);
-        ++it[b];
-      }
-    }
-
-    // p = z + beta p on the active rows (inactive rows keep p)
-    #pragma unroll 1
-    for (int64_t idx = first; idx < n; idx += stride) {
-      const T iv = P.invd[idx];
+      for (int b = 0; b < NBX; ++b)
+        if (b < nb) {
+          const int i = b * n + idx;
+          xv[b] = P.x[i];
+          pv[b] = pn[i];
+          rv[b] = P.r[i];
+          av[b] = P.Ap[i];
+        }
       #pragma unroll
-      for (int b = 0; b < kMaxBatch; ++b) {
-        if (b >= nb) break;
-        if (!act[b]) continue;
-        const int64_t i = b * n + idx;
-        P.p[i] = iv * P.r[i] + beta[b] * P.p[i];
-      }
+      for (int b = 0; b < NBX; ++b)
+        if (b < nb) {
+          const int i = b * n + idx;
+          P.x[i] = xv[b] + alpha[b] * pv[b];
+          const T rr = rv[b] - alpha[b] * av[b];
+          P.r[i] = rr;
+          const T z = iv * rr;
+          s[b] += rr * z;
+          s[kMaxBatch + b] += rr * rr;
+        }
     }
-    cg::this_grid().sync();
+    grid_sum<kMaxRed>(red, s);  // its block sums end the block's reads of the scalars
+    if (threadIdx.x == 0)
+      for (int b = 0; b < kMaxBatch; ++b) {
+        const bool act = active(b);
+        const T rz_new = act ? s[b] : rz[b];
+        beta[b] = act ? rz_new / nz(rz[b]) : T(0);
+        rz[b] = rz_new;
+        upd[b] = act;
+        if (act) {
+          rn[b] = vsqrt(s[kMaxBatch + b]);
+          ++it[b];
+        }
+      }
+    __syncthreads();
   }
   if (blockIdx.x == 0 && threadIdx.x == 0)
     #pragma unroll
@@ -1064,12 +1137,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
 // ---------------------------------------------------------------------------
 
 template <typename T>
+auto mass_kernel(int nl, int nb) {
+  if (nl != 27) return cg_mass_kernel<T, 9, 0>;
+  return nb == 1 ? cg_mass_kernel<T, 27, 1>
+         : nb == 2 ? cg_mass_kernel<T, 27, 2>
+         : nb == 3 ? cg_mass_kernel<T, 27, 3>
+                   : cg_mass_kernel<T, 27, 4>;
+}
+
+template <typename T>
 int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* invd,
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int d, int n0, int n1, int n2, int deg,
-                   int batch, int maxiter, void* stream) {
+                   int batch, int t0, int t1, int t2, int maxiter, void* stream) {
   CgMassArgs<T> P;
   P.a = const_args(d, n0, n1, n2, deg, batch);
+  if (!tile_set(P.a, t0, t1, t2)) return (int)cudaErrorInvalidValue;
   const int64_t n = P.a.npad_out;
   P.C = static_cast<const T*>(C);
   P.r0 = static_cast<const T*>(r0);
@@ -1078,14 +1161,21 @@ int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* in
   P.tol = static_cast<const T*>(tol);
   P.x = static_cast<T*>(x);
   P.r = static_cast<T*>(work);
-  P.p = P.r + batch * n;
-  P.Ap = P.p + batch * n;
+  P.p[0] = P.r + batch * n;
+  P.p[1] = P.p[0] + batch * n;
+  P.Ap = P.p[1] + batch * n;
   P.red = static_cast<T*>(red);
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
-  const size_t smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
-  return coop_launch(cg_mass_kernel<T>, P, n, smem, max_blocks, stream, kMinBlocks<T>);
+  P.red_off = mass_red_offset<T>(P.a);
+  const size_t smem = P.red_off + sizeof(T) * kMaxRed * kThreads;
+  auto kernel = mass_kernel<T>(P.a.nl_in, batch);
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return coop_launch(kernel, P, n, smem, max_blocks, stream, kMassBlocks);
 }
 
 template <typename T>
@@ -1229,20 +1319,26 @@ bool batch_ok(int d, int n0, int n1, int n2, int deg, int batch) {
 
 extern "C" {
 
-// Batched Jacobi-PCG with constant cube matrix C (nl, nl): rows b < batch of
-// x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol (batch).
-// work: 3 * batch * grid; red: 2 * 8 * max_blocks.  Writes x, iters (int32,
-// batch) and rnorm (batch).
+// Batched Jacobi-PCG with the constant P2 cube matrix C (nl, nl): rows b <
+// batch of x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol
+// (batch); the product's tile (t0, t1, t2) (tile_set's rules).  work: 4 *
+// batch * grid; red: 2 * 8 * max_blocks.  Writes x, iters (int32, batch) and
+// rnorm (batch).  cudaErrorInvalidValue for deg other than 2 or another tile.
 int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* invd,
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int is_f64, int d, int n0, int n1, int n2,
-                   int deg, int batch, int maxiter, void* stream) {
-  if (!batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
+                   int deg, int batch, int t0, int t1, int t2, int maxiter, void* stream) {
+  if (deg != 2 || !batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
   return is_f64 ? cg_mass_launch<double>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
-                                         rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
+                                         rnorm, d, n0, n1, n2, deg, batch, t0, t1, t2, maxiter,
+                                         stream)
                 : cg_mass_launch<float>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
-                                        rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
+                                        rnorm, d, n0, n1, n2, deg, batch, t0, t1, t2, maxiter,
+                                        stream);
 }
+
+// K4's grid barriers an iteration (chip_smoke prints it).
+int oasisx_cg_mass_barriers() { return kMassBarriers; }
 
 // Batched BiCGStab on A_W (W (nl*nl, ncubes)) with zero-masked rows, from
 // r0 = zmask (b - A_W x0) and x0; invd (grid); zmask, r0, x0 (batch, grid);

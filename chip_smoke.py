@@ -709,6 +709,21 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     mass = lambda v: kn.matvec_const_plain(v, M_c, sm_v)
     M_invd = c(solver._M_invd)
     b1, x01, bn1 = b[1:2], x0[1:2], bn[1:2]
+    # K4 on the P1 cube (point by point) on the pressure grid: the SPD cube
+    # matrix of a tensor-product (Q1) mass, a unit cube
+    m1 = torch.tensor([[2.0, 1.0], [1.0, 2.0]], dtype=torch.float64) / 6
+    M1 = m1
+    for _ in range(d - 1):
+        M1 = torch.kron(M1, m1)
+    M1 = M1.to(device, dtype)
+    ncq = int(np.prod(sm_q[1]))
+    diag1 = cub.cube_scatter(torch.diag(M1)[None, :, None].expand(1, nlq, ncq).contiguous(),
+                             sm_q)[0]
+    M1_invd = torch.where(diag1 != 0, 1.0 / diag1, torch.ones_like(diag1))
+    bp = rnd(d, nq)
+    x0p = torch.zeros_like(bp)
+    bnp = torch.linalg.vector_norm(bp, dim=-1)
+    mass1 = lambda v: kn.matvec_const_plain(v, M1, sm_q)
 
     # K1: Ap x = b - mean(b), x0 = 0, the solver's MG hierarchy
     Ap64 = cu.Ap_c.detach().cpu().double().numpy()
@@ -750,6 +765,11 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
         ("cg_mass", "M_c batch 1",
          lambda: fused.cg_mass(M_c, b1, x01, M_invd, bn1, sm_v, rtol, maxiter),
          lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter), mass_work(1)),
+        ("cg_mass", "P1 mass",
+         lambda: fused.cg_mass(M1, bp, x0p, M1_invd, bnp, sm_q, rtol, maxiter),
+         lambda: fused.cg_from_r0(mass1, bp, x0p, M1_invd, bnp, rtol, maxiter),
+         lambda res: (mass_bytes(isz, d, nq, int(res.iters.max())),
+                      rows(res) * (2.0 * nlq * nlq * ncq + 10 * nq))),
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
          lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
@@ -758,12 +778,13 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
 
 def mass_bytes(isz: int, B: int, nv: int, iters: int) -> float:
     """Bytes of K4's bound: r0 and x0 read, x written and invd read once;
-    where its state (x, r, two p, Ap: 5 vectors of B rows, and invd) does
-    not fit in the L2, also each iteration's two passes from memory: the
-    product reads r, p and invd and writes p and Ap, the update reads x, p,
-    r, Ap and invd and writes x and r (10 B + 2 vectors)."""
+    where the state that Jacobi-PCG needs (x, r, p, Ap: 4 vectors of B
+    rows, and invd; not the second p buffer of K4's design) does not fit in
+    the L2, also each iteration's two passes from memory: the product reads
+    r, p and invd and writes p and Ap, the update reads x, p, r, Ap and
+    invd and writes x and r (10 B + 2 vectors)."""
     once = isz * (3 * B * nv + nv)
-    state = isz * (5 * B * nv + nv)
+    state = isz * (4 * B * nv + nv)
     if state <= L2_BYTES:
         return once
     it = isz * (10 * B + 2) * nv
@@ -772,22 +793,49 @@ def mass_bytes(isz: int, B: int, nv: int, iters: int) -> float:
     return once + iters * it
 
 
+def const_tile(d: int, batch: int, dtype) -> list:
+    """K5's and K4's tile on this card for ``batch`` components of a
+    ``d``-D P2 grid, as the kernels choose it (``oasisx_const_tile``): [t0,
+    t1, t2 (3D form), K5's shared memory a block, K5's blocks an SM, K4's
+    shared memory a block]."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().oasisx_const_tile(int(dtype == torch.float64), d, batch, kn._ptr(out))
+    check(err == 0, f"no tile for {d}D batch {batch} {dtype}: CUDA error {err}")
+    return out.tolist()
+
+
+def check_tiles() -> None:
+    """Phase 2: the tile the kernels choose for every grid dimension, type
+    and batch 1-4 lets K5 run two blocks an SM of this card."""
+    import torch
+
+    for d in (3, 2):
+        for dtype in (torch.float32, torch.float64):
+            tiles = {b: const_tile(d, b, dtype) for b in range(1, 5)}
+            print(f"[2] tiles {d}D {str(dtype).replace('torch.', '')}, batch: (t0, t1, t2), "
+                  f"bytes a block of K5 / K4, K5's blocks an SM: " + "; ".join(
+                      f"{b}: {tuple(t[:3])} {t[3]} / {t[5]} B {t[4]}" for b, t in tiles.items()))
+            for b, t in tiles.items():
+                check(t[4] >= 2, f"K5 runs {t[4]} blocks an SM at {d}D batch {b} {dtype}")
+
+
 def k5_report(solver, dtype, rec: dict) -> None:
     """K5's tile at the solver's batch-d product: the tile, its shared
     memory, the blocks an SM the card runs, the bytes a product moves (x
     read and y written once, C) and the rate of ``rec``'s time."""
     import torch
 
-    from oasisx_tpu_torch import _build
-    from oasisx_tpu_torch.assembly import kernels as kn
-
     d = solver._mesh.dim
     isz = torch.empty((), dtype=dtype).element_size()
-    tile = kn.const_tile(d, d, dtype)
-    blocks = _build.library().oasisx_const_tile_blocks(int(dtype == torch.float64), d, d, *tile)
+    t = const_tile(d, d, dtype)
     moved = isz * (2 * d * solver._npad_v + 3 ** (2 * d))
-    print(f"    K5 tile {tile} (3D form), {kn.tile_smem(d, tile, d, isz)} bytes of shared memory "
-          f"a block, {blocks} blocks an SM; a product moves {moved / 1e6:.2f} MB: "
+    print(f"    K5 tile {tuple(t[:3])} (3D form), {t[3]} bytes of shared memory a block, {t[4]} "
+          f"blocks an SM; a product moves {moved / 1e6:.2f} MB: "
           f"{moved / rec['ms'] / 1e9:.3f} TB/s")
 
 
@@ -1614,6 +1662,7 @@ def main() -> int:
     for src in PTX_NO_DIVISION:
         check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
               "remainders")
+    check_tiles()
 
     # 4a. structured main-path setup (its shapes feed phase 3)
     t0 = time.perf_counter()

@@ -46,8 +46,8 @@ _SIGNATURES = {
     "oasisx_ell_pcg_amg": _AMG,
     "oasisx_ell_vcycle": _AMG,
     "oasisx_ell_warp_row_k": [],
-    "oasisx_matvec_const": [P, P, P] + [I] * 10 + [P],
-    "oasisx_const_tile_blocks": [I] * 6,
+    "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
+    "oasisx_const_tile": [I] * 3 + [P],
     "oasisx_matvec_win": [P] * 5 + [I] * 7 + [P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "oasisx_band_matvec": [P] * 6 + [I] * 5 + [P],
     "oasisx_band_bicgstab": [P] * 12 + [I, P, P] + [I] * 5 + [P],
     "oasisx_band_cg": [P] * 11 + [I, P, P] + [I] * 5 + [P],
-    "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 11 + [P],
+    "oasisx_cg_mass": [P] * 8 + [I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_cg_mass_barriers": [],
     "oasisx_bicgstab": [P] * 9 + [LL, P, I] + [P] * 2 + [I] * 8 + [P],
     "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 9 + [D] * 3 + [I, D, I, P],

@@ -30,9 +30,8 @@ counts kernel launches per wrapper and ``plain_calls`` counts the plain
 versions, so a run can show which path it took.
 
 ``matvec_const`` on the P2 cube (K5) and K4's product run the block-tiled
-product of ``csrc/cube_device.cuh``: ``const_tile`` chooses the tile (base
-points a block owns per axis) from ``TILES`` by its shared memory
-(``tile_smem``, ``mass_smem``), ``check_tile`` refuses any other, and
+product of ``csrc/cube_device.cuh``, whose tile (base points a block owns
+per axis) the entry points choose there (``tile_choose``);
 ``matvec_const_staged_plain`` is its order of sums as tensor code, for the
 tests (``matvec_win_staged_plain`` is K2's).
 
@@ -193,75 +192,6 @@ def build_pressure_mg_data(
 
 
 # ---------------------------------------------------------------------------
-# the tile of the block-tiled P2 product (K5, K4; csrc/cube_device.cuh)
-# ---------------------------------------------------------------------------
-
-TILE_THREADS = 256  # kTileThreads: a block's threads, at most one cube each
-SMEM_BLOCK = 232_448  # the most shared memory one block may use on an H100
-# the shared memory of one block when two fit on an SM (228 KB, 1 KB of it
-# reserved a block): K5 and K4 run two blocks an SM
-SMEM_TWO = 233_472 // 2 - 1024
-# candidate tiles in the 3D form (base points owned per axis), first choice
-# first: 3 x 7 x 7 fills the 256 threads with cubes (4 x 8 x 8 with the
-# halo), the most owned points a cube of the shapes that do
-TILES = {
-    3: ((3, 7, 7), (3, 3, 7), (1, 3, 7), (1, 1, 3)),
-    2: ((1, 15, 15), (1, 7, 15), (1, 7, 7)),
-}
-
-
-def tile_smem(d: int, tile, batch: int, itemsize: int) -> int:
-    """Shared memory (bytes) of one tile of the P2 product at ``batch``
-    components (``csrc/cube_device.cuh`` ``tile_smem``): the cube matrix in
-    rows padded to 16 bytes, then the larger of the input box and the stage
-    of every cube's outputs."""
-    nl = 3**d
-    v = 16 // itemsize
-    real = [t for t, k in zip(tile, range(3)) if k >= 3 - d]
-    cubes = int(np.prod([t + 1 for t in real]))
-    box = int(np.prod([2 * (t + 1) + 1 for t in real]))
-    mat = (itemsize * nl * (-(-nl // v) * v) + 15) // 16 * 16
-    return mat + itemsize * batch * max(nl * cubes, box)
-
-
-def mass_smem(d: int, tile, batch: int, itemsize: int) -> int:
-    """K4's shared memory a block: the tile's, then its reduction buffer
-    (kMaxRed x kThreads values)."""
-    return (tile_smem(d, tile, batch, itemsize) + 15) // 16 * 16 + 8 * TILE_THREADS * itemsize
-
-
-def check_tile(tile, d: int, batch: int, dtype: torch.dtype) -> None:
-    """Raise unless ``tile`` is a tile the kernels take for a ``d``-D P2
-    product at ``batch`` (1-4) components of ``dtype``: three positive ints
-    in the 3D form (1 on a 2D grid's leading axis), at most TILE_THREADS
-    cubes (halo included), and K4's shared memory within one block's."""
-    if (not isinstance(tile, tuple) or len(tile) != 3
-            or not all(isinstance(t, int) and t >= 1 for t in tile)):
-        raise ValueError(f"tile: expected three positive ints, got {tile!r}")
-    if d == 2 and tile[0] != 1:
-        raise ValueError(f"tile: a 2D grid's leading axis takes 1, got {tile!r}")
-    cubes = int(np.prod([t + 1 for t in tile[3 - d:]]))
-    if cubes > TILE_THREADS:
-        raise ValueError(f"tile: {tile} holds {cubes} cubes, more than {TILE_THREADS}")
-    smem = mass_smem(d, tile, batch, torch.empty((), dtype=dtype).element_size())
-    if smem > SMEM_BLOCK:
-        raise ValueError(f"tile: {tile} needs {smem} bytes of shared memory at batch {batch}")
-
-
-def const_tile(d: int, batch: int, dtype: torch.dtype) -> tuple[int, int, int]:
-    """The tile of K5's and K4's P2 product: the first of ``TILES[d]`` whose
-    shared memory (with K4's reduction) lets two blocks share an SM, at
-    ``min(batch, 4)`` components (K5 launches four at a time)."""
-    isz = torch.empty((), dtype=dtype).element_size()
-    nb = min(int(batch), 4)
-    for tile in TILES[d]:
-        if mass_smem(d, tile, nb, isz) <= SMEM_TWO:
-            check_tile(tile, d, nb, dtype)
-            return tile
-    raise ValueError(f"no tile fits {d}D batch {batch} {dtype}")
-
-
-# ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the card is held to)
 # ---------------------------------------------------------------------------
 
@@ -394,8 +324,8 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def matvec_const(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
     """y = A x with constant cube matrix C (nl, nl); x (B, npad) or (npad,).
-    On the card the P2 cube (K5) takes the block-tiled product with the
-    tile of ``const_tile``, any other degree (K12) the point-by-point one."""
+    On the card the P2 cube (K5) takes the block-tiled product, any other
+    degree (K12) the point-by-point one."""
     if not _route(x, C):
         return matvec_const_plain(x, C, sm)
     npad = int(np.prod(sm[0]))
@@ -403,11 +333,10 @@ def matvec_const(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.T
     xb = x.reshape(-1, npad) if x.dim() == 1 else x
     _check(xb, "x", x.dtype, (xb.shape[0], npad))
     _check(C, "C", x.dtype, (nl, nl))
-    tile = (0, 0, 0) if int(sm[2]) != 2 else const_tile(len(sm[1]), xb.shape[0], x.dtype)
     y = torch.empty_like(xb)
     with torch.cuda.device(x.device):
         _call("matvec_const", _ptr(xb), _ptr(C), _ptr(y), int(x.dtype == torch.float64),
-              *_dims(sm), int(sm[2]), int(xb.shape[0]), *tile, _stream(x))
+              *_dims(sm), int(sm[2]), int(xb.shape[0]), _stream(x))
     return y.reshape(x.shape)
 
 

@@ -90,7 +90,7 @@ struct CubeArgs {
   int x_bo, x_bi;      // input strides per output / input component
   int m_bo, m_bi, m_to, m_ti, m_cube;  // matrix strides
   int mat_len;         // > 0: the matrix is constant, staged in shared memory
-  // the block-tiled product (tile_product; tile_set fills these): base
+  // the block-tiled product (tile_product; tile_choose fills these): base
   // points a tile owns per axis, tiles per axis, and divisions by both
   int tile[3], ntile[3];
   FastDiv div_tile[3], div_ntile[3];
@@ -346,7 +346,7 @@ __host__ __device__ constexpr int tile_ld(int nl) {
 
 // Bytes of shared memory of one tile at batch nb: the staged matrix, then
 // the larger of the box and the stage (the stage is never the smaller in
-// 2D or 3D, but the buffer holds both in turn).  kernels.tile_smem mirrors it.
+// 2D or 3D, but the buffer holds both in turn).
 template <typename T>
 inline size_t tile_smem(const CubeArgs& a, int nb) {
   int64_t cubes = 1, box = 1;
@@ -363,8 +363,7 @@ inline size_t tile_smem(const CubeArgs& a, int nb) {
 // Set the tile of a deg-2 operator: a.tile = (t0, t1, t2) in the 3D form (t0
 // is 1 on a 2D grid's leading axis), at most kTileThreads cubes a tile and
 // launchable tile counts.  False for any other tile.
-inline bool tile_set(CubeArgs& a, int t0, int t1, int t2) {
-  const int t[3] = {t0, t1, t2};
+inline bool tile_set(CubeArgs& a, const int (&t)[3]) {
   int64_t cubes = 1;
   for (int k = 0; k < 3; ++k) {
     if (t[k] < 1 || (a.par[k] == 1 && t[k] != 1)) return false;
@@ -376,6 +375,44 @@ inline bool tile_set(CubeArgs& a, int t0, int t1, int t2) {
   }
   return a.deg_out == 2 && a.deg_in == 2 && cubes <= kTileThreads && a.ntile[0] <= 65535 &&
          a.ntile[1] <= 65535;
+}
+
+// Values a thread that K4 (krylov_ops.cu) keeps for its block reduction
+// after the tile's buffer.  The tile is chosen with them for K5 as well, so
+// that K5 and K4 take one tile.
+constexpr int kTileRed = 2 * kMaxBatch;
+
+// Bytes of shared memory of one block of K4 at batch nb: the tile's, then
+// the reduction's (at a 16-byte boundary).
+template <typename T>
+inline size_t tile_block_smem(const CubeArgs& a, int nb) {
+  return ((tile_smem<T>(a, nb) + 15) & ~size_t(15)) + sizeof(T) * kTileRed * kTileThreads;
+}
+
+// Choose and set (tile_set) the tile of a deg-2 operator at nb <= kMaxBatch
+// components: the first candidate whose tile_block_smem lets two blocks
+// share an SM of the current device (K5 and K4 run two blocks an SM, at
+// most 128 registers a thread).  In 3D, 3 x 7 x 7 fills the 256 threads
+// with cubes (4 x 8 x 8 with the halo), the most owned points a cube of the
+// shapes that do; float64 and batch 4 take a smaller one.  A 2D grid takes
+// 1 x 15 x 15 (16 x 16 cubes) at every batch of both types.  False where
+// none fits or the device cannot be asked.
+template <typename T>
+inline bool tile_choose(CubeArgs& a, int nb) {
+  constexpr int k3[3][3] = {{3, 7, 7}, {3, 3, 7}, {1, 3, 7}};
+  constexpr int k2[1][3] = {{1, 15, 15}};
+  int dev = 0, per_sm = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
+          cudaSuccess)
+    return false;
+  const size_t two = (size_t)(per_sm / 2 - reserved);
+  const bool three = a.par[0] > 1;
+  for (int i = 0; i < (three ? 3 : 1); ++i)
+    if (tile_set(a, three ? k3[i] : k2[i]) && tile_block_smem<T>(a, nb) <= two) return true;
+  return false;
 }
 
 // Stage the constant matrix (nl, nl) in rows of tile_ld(NL), zero-padded.

@@ -429,34 +429,37 @@ int tiled(const void* x, const void* C, void* y, CubeArgs a, int batch, void* st
 extern "C" {
 
 // y[b] = A x[b] with constant cube matrix C (nl, nl); x, y (batch, grid).
-// deg 2 (K5) takes the tiled product with tile (t0, t1, t2) (tile_set's
-// rules; kernels.const_tile chooses it), any other degree (K12) the
-// point-by-point product with the tile (0, 0, 0); cudaErrorInvalidValue
-// for any other tile.
+// deg 2 (K5) takes the tiled product with the tile of tile_choose, any
+// other degree (K12) the point-by-point product.
 int oasisx_matvec_const(const void* x, const void* C, void* y, int is_f64, int d, int n0,
-                        int n1, int n2, int deg, int batch, int t0, int t1, int t2,
-                        void* stream) {
+                        int n1, int n2, int deg, int batch, void* stream) {
   if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
   CubeArgs a = const_args(d, n0, n1, n2, deg, batch);
-  if (deg != 2) {
-    if (t0 != 0 || t1 != 0 || t2 != 0) return (int)cudaErrorInvalidValue;
-    return batched(is_f64, x, C, y, a, batch, stream);
-  }
-  if (!tile_set(a, t0, t1, t2)) return (int)cudaErrorInvalidValue;
+  if (deg != 2) return batched(is_f64, x, C, y, a, batch, stream);
+  const int nb = batch < kMaxBatch ? batch : kMaxBatch;
+  if (!(is_f64 ? tile_choose<double>(a, nb) : tile_choose<float>(a, nb)))
+    return (int)cudaErrorInvalidValue;
   return is_f64 ? tiled<double>(x, C, y, a, batch, stream)
                 : tiled<float>(x, C, y, a, batch, stream);
 }
 
-// Blocks an SM of K5's tiled kernel at batch and tile (t0, t1, t2) on a
-// d-dimensional grid (the occupancy calculator, after the kernel's shared
-// memory limit is set), or minus a CUDA error.
-int oasisx_const_tile_blocks(int is_f64, int d, int batch, int t0, int t1, int t2) {
-  if ((d != 2 && d != 3) || batch < 1 || batch > kMaxBatch) return -(int)cudaErrorInvalidValue;
+// K5's and K4's tile for batch (1 to kMaxBatch) components of a
+// d-dimensional P2 grid on the current device: out = (t0, t1, t2, bytes of
+// shared memory a block of K5, blocks an SM of K5's kernel (the occupancy
+// calculator), bytes a block of K4).  0 or a CUDA error.
+int oasisx_const_tile(int is_f64, int d, int batch, int* out) {
+  if ((d != 2 && d != 3) || batch < 1 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
   CubeArgs a = const_args(d, 8, 8, 8, 2, batch);
-  if (!tile_set(a, t0, t1, t2)) return -(int)cudaErrorInvalidValue;
+  if (!(is_f64 ? tile_choose<double>(a, batch) : tile_choose<float>(a, batch)))
+    return (int)cudaErrorInvalidValue;
   int blocks = 0;
   const int err = is_f64 ? tile_occupancy<double>(a, &blocks) : tile_occupancy<float>(a, &blocks);
-  return err ? -err : blocks;
+  if (err) return err;
+  for (int k = 0; k < 3; ++k) out[k] = a.tile[k];
+  out[3] = (int)(is_f64 ? tile_smem<double>(a, batch) : tile_smem<float>(a, batch));
+  out[4] = blocks;
+  out[5] = (int)(is_f64 ? tile_block_smem<double>(a, batch) : tile_block_smem<float>(a, batch));
+  return 0;
 }
 
 // y[b] = zmask[b] * A_W (premul[b] * x[b]) with per-cube weights W

@@ -4,7 +4,7 @@
 // with the device-side loops that drive them:
 //   oasisx_cg_mass      <- make_cg_iter_pf (K4) and the loop of cg_pf_solve /
 //                          fracstep.py's velocity update: batched Jacobi-PCG on
-//                          a constant P2 cube matrix, from the caller's r0 and x0
+//                          a constant cube matrix, from the caller's r0 and x0
 //   oasisx_bicgstab     <- make_bicgstab_iter (K2) and bicgstab_fused_from_r0:
 //                          batched BiCGStab on A_W (per-cube weights) with
 //                          zero-masked Dirichlet rows and Jacobi
@@ -39,8 +39,9 @@
 // parameters.  K1's 8 slots a cube (P1) are unrolled (NL), so a thread's
 // loads of one cube are in flight together at its 2-3 blocks an SM.
 //
-// K4's product is K5's block-tiled one (tile_product): the grid-stride loop
-// runs over tiles, a block a tile at a time, each input read once a tile
+// K4's product on the P2 cube is K5's block-tiled one (tile_product; any
+// other cube goes point by point, cg_mass_point_kernel): the grid-stride
+// loop runs over tiles, a block a tile at a time, each input read once a tile
 // into shared memory, a thread a cube with its 27 nb inputs in registers
 // (kMassBlocks 2 an SM: at most 128 registers), pAp summed cube by cube
 // (p_c . C p_c, each cube on the one tile that owns its base point).  The
@@ -113,13 +114,14 @@ using namespace oasisx;
 static_assert(kThreads == kRedThreads, "one block size for the cube and reduction code");
 static_assert(kThreads == kTileThreads, "K4's blocks run the tiled product");
 static_assert(kMaxRed == 2 * kMaxBatch, "two sums per batch row");
+static_assert(kMaxRed == kTileRed, "K4's reduction as tile_choose counts it");
 
 constexpr int kMaxLevels = 8;
 // Blocks an SM of each whole-solve kernel: its launch bound and the cap of
 // its cooperative grid, so that the grid, and with it the order of every
 // reduction, does not depend on the registers the compiler assigns.  K1's
-// non-MG mode holds 3 in float32 (<= 80 registers), the others 2 (K4's
-// kMassBlocks).
+// non-MG mode and K4 on a cube other than P2 hold 3 in float32 (<= 80
+// registers), the others 2 (K4's kMassBlocks).
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
 constexpr int kSolveBlocks = 2;
@@ -153,7 +155,7 @@ struct CgMassArgs {
   T* red;         // reduction slots
   int* iters;     // (nb) out
   T* rnorm;       // (nb) out
-  CubeArgs a;     // nbo = nb rows; the tile of the product (tile_set)
+  CubeArgs a;     // nbo = nb rows; on the P2 cube, the tile of the product
   size_t red_off; // bytes of shared memory before the reduction's
   int maxiter;
 };
@@ -165,11 +167,8 @@ constexpr int kMassBlocks = 2;
 // update's (rz, |r|^2); the direction update rides on the next product.
 constexpr int kMassBarriers = 2;
 
-// K4's shared memory: [matrix (tile rows)] [tile buffer] [reduction].
-template <typename T>
-size_t mass_red_offset(const CubeArgs& a) {
-  return align16(tile_smem<T>(a, a.nbo));
-}
+// K4's shared memory on the P2 cube: [matrix (tile rows)] [tile buffer]
+// [reduction], tile_block_smem bytes.
 
 // NL: 27 (3D) or 9 (2D) slots of the P2 cube; NB as tile_product's.  The
 // rows' scalars (rz, |r|, tol, beta, iterations, last activity) are the
@@ -329,6 +328,137 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
         }
       }
     __syncthreads();
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      P.iters[b] = it[b];
+      P.rnorm[b] = rn[b];
+    }
+}
+
+// K4 on any other cube (P1, P3; no solver path of the port's benchmarks
+// runs one): point by point (cube_point), with the cube matrix and its slot
+// offsets staged in shared memory, and three grid barriers an iteration
+// (the product's pAp, the update's rz and |r|^2, the direction update).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+    cg_mass_point_kernel(CgMassArgs<T> P) {
+  const CubeArgs& a = P.a;
+  const int nb = a.nbo;  // rows solved together
+  const int64_t n = a.npad_out;
+  T* p = P.p[0];  // one search direction, updated in its own pass
+  unsigned char* smem = dynamic_smem();
+  T* smat = reinterpret_cast<T*>(smem);
+  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
+  cube_stage(P.C, a, smat, soff);
+  __syncthreads();
+  // K4's grid-stride loops: 64-bit and not unrolled.  Unrolled, nvcc divides
+  // their trip count (in 64 bits for a 64-bit index), and on an H100 80GB
+  // HBM3 at 700 W they ran 1-2% slower either way, in 32 or 64 bits.
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+
+  // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
+  T s[kMaxRed];
+  zero(s);
+  #pragma unroll 1
+  for (int64_t idx = first; idx < n; idx += stride) {
+    const T iv = P.invd[idx];
+    #pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      const int64_t i = b * n + idx;
+      const T rr = P.r0[i];
+      const T z = iv * rr;
+      P.x[i] = P.x0[i];
+      P.r[i] = rr;
+      p[i] = z;
+      s[b] += rr * z;
+      s[kMaxBatch + b] += rr * rr;
+    }
+  }
+  grid_sum<kMaxRed>(red, s);
+  T rz[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch];
+  int it[kMaxBatch];
+  for (int b = 0; b < kMaxBatch; ++b) {
+    rz[b] = s[b];
+    rn[b] = vsqrt(s[kMaxBatch + b]);
+    tol[b] = b < nb ? P.tol[b] : T(0);
+    it[b] = 0;
+  }
+
+  for (int k = 0; k < P.maxiter; ++k) {
+    bool act[kMaxBatch];
+    bool any = false;
+    for (int b = 0; b < kMaxBatch; ++b) {
+      act[b] = b < nb && rn[b] > tol[b];
+      any = any || act[b];
+    }
+    if (!any) break;
+
+    // Ap = C p; pAp
+    zero(s);
+    #pragma unroll 1
+    for (int64_t idx = first; idx < n; idx += stride) {
+      T acc[kMaxBatch];
+      cube_point(p, smat, soff, a, cube_split(a, (int)idx), acc);
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.Ap[i] = acc[b];
+        s[b] += p[i] * acc[b];
+      }
+    }
+    grid_sum<kMaxBatch>(red, s);
+    T alpha[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) alpha[b] = act[b] ? rz[b] / nz(s[b]) : T(0);
+
+    // x += alpha p; r -= alpha Ap; z = invd r; rz_new = r.z, |r|^2
+    zero(s);
+    #pragma unroll 1
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        const int64_t i = b * n + idx;
+        P.x[i] = P.x[i] + alpha[b] * p[i];
+        const T rr = P.r[i] - alpha[b] * P.Ap[i];
+        P.r[i] = rr;
+        const T z = iv * rr;
+        s[b] += rr * z;
+        s[kMaxBatch + b] += rr * rr;
+      }
+    }
+    grid_sum<kMaxRed>(red, s);
+    T beta[kMaxBatch];
+    for (int b = 0; b < kMaxBatch; ++b) {
+      const T rz_new = act[b] ? s[b] : rz[b];
+      beta[b] = act[b] ? rz_new / nz(rz[b]) : T(0);
+      rz[b] = rz_new;
+      if (act[b]) {
+        rn[b] = vsqrt(s[kMaxBatch + b]);
+        ++it[b];
+      }
+    }
+
+    // p = z + beta p on the active rows (inactive rows keep p)
+    #pragma unroll 1
+    for (int64_t idx = first; idx < n; idx += stride) {
+      const T iv = P.invd[idx];
+      #pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b) {
+        if (b >= nb) break;
+        if (!act[b]) continue;
+        const int64_t i = b * n + idx;
+        p[i] = iv * P.r[i] + beta[b] * p[i];
+      }
+    }
+    cg::this_grid().sync();
   }
   if (blockIdx.x == 0 && threadIdx.x == 0)
     #pragma unroll
@@ -1149,10 +1279,9 @@ template <typename T>
 int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* invd,
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int d, int n0, int n1, int n2, int deg,
-                   int batch, int t0, int t1, int t2, int maxiter, void* stream) {
+                   int batch, int maxiter, void* stream) {
   CgMassArgs<T> P;
   P.a = const_args(d, n0, n1, n2, deg, batch);
-  if (!tile_set(P.a, t0, t1, t2)) return (int)cudaErrorInvalidValue;
   const int64_t n = P.a.npad_out;
   P.C = static_cast<const T*>(C);
   P.r0 = static_cast<const T*>(r0);
@@ -1168,14 +1297,26 @@ int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* in
   P.iters = static_cast<int*>(iters);
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
-  P.red_off = mass_red_offset<T>(P.a);
-  const size_t smem = P.red_off + sizeof(T) * kMaxRed * kThreads;
-  auto kernel = mass_kernel<T>(P.a.nl_in, batch);
+  size_t smem;
+  void (*kernel)(CgMassArgs<T>);
+  int blocks;
+  if (deg == 2) {
+    if (!tile_choose<T>(P.a, batch)) return (int)cudaErrorInvalidValue;
+    P.red_off = align16(tile_smem<T>(P.a, batch));
+    smem = tile_block_smem<T>(P.a, batch);
+    kernel = mass_kernel<T>(P.a.nl_in, batch);
+    blocks = kMassBlocks;
+  } else {
+    P.red_off = red_offset<T>(P.a.mat_len, P.a.nl_in);
+    smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
+    kernel = cg_mass_point_kernel<T>;
+    blocks = kMinBlocks<T>;
+  }
   const cudaError_t e =
       cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  return coop_launch(kernel, P, n, smem, max_blocks, stream, kMassBlocks);
+  return coop_launch(kernel, P, n, smem, max_blocks, stream, blocks);
 }
 
 template <typename T>
@@ -1319,25 +1460,23 @@ bool batch_ok(int d, int n0, int n1, int n2, int deg, int batch) {
 
 extern "C" {
 
-// Batched Jacobi-PCG with the constant P2 cube matrix C (nl, nl): rows b <
-// batch of x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol
-// (batch); the product's tile (t0, t1, t2) (tile_set's rules).  work: 4 *
-// batch * grid; red: 2 * 8 * max_blocks.  Writes x, iters (int32, batch) and
-// rnorm (batch).  cudaErrorInvalidValue for deg other than 2 or another tile.
+// Batched Jacobi-PCG with constant cube matrix C (nl, nl): rows b < batch of
+// x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol (batch).  The
+// P2 cube runs the tiled product with the tile of tile_choose, any other
+// the point-by-point one.  work: 4 * batch * grid; red: 2 * 8 * max_blocks.
+// Writes x, iters (int32, batch) and rnorm (batch).
 int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* invd,
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int is_f64, int d, int n0, int n1, int n2,
-                   int deg, int batch, int t0, int t1, int t2, int maxiter, void* stream) {
-  if (deg != 2 || !batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
+                   int deg, int batch, int maxiter, void* stream) {
+  if (!batch_ok(d, n0, n1, n2, deg, batch)) return (int)cudaErrorInvalidValue;
   return is_f64 ? cg_mass_launch<double>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
-                                         rnorm, d, n0, n1, n2, deg, batch, t0, t1, t2, maxiter,
-                                         stream)
+                                         rnorm, d, n0, n1, n2, deg, batch, maxiter, stream)
                 : cg_mass_launch<float>(C, r0, x0, invd, tol, x, work, red, max_blocks, iters,
-                                        rnorm, d, n0, n1, n2, deg, batch, t0, t1, t2, maxiter,
-                                        stream);
+                                        rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
 }
 
-// K4's grid barriers an iteration (chip_smoke prints it).
+// K4's grid barriers an iteration on the P2 cube (chip_smoke prints it).
 int oasisx_cg_mass_barriers() { return kMassBarriers; }
 
 // Batched BiCGStab on A_W (W (nl*nl, ncubes)) with zero-masked rows, from

@@ -10,9 +10,9 @@ bicgstab     A_W x_b = b_b, zero-masked bc rows,  make_bicgstab_iter (K2) and
              Jacobi BiCGStab, batch B             bicgstab_fused_from_r0
 ============ ==================================== ==============================
 
-K4 runs on the P2 cube only (its product is K5's block-tiled one, with
-the tile of ``kernels.const_tile``) and keeps two search directions, by
-iteration parity, beside r and Ap: a work buffer of 4 (B, npad) vectors.
+K4's work buffer is 4 (B, npad) vectors: r, Ap and, on the P2 cube (whose
+product is K5's block-tiled one), two search directions by iteration
+parity; any other cube runs point by point on one of them.
 
 The plain versions ``cg_from_r0`` and ``bicgstab_from_r0`` follow the JAX
 functions operation for operation, with the loop on the host (one device
@@ -182,15 +182,12 @@ def _cg_mass_kernel(C, r0, x0, invd, bnorm, sm, rtol, maxiter, atol) -> KrylovRe
     B, npad = _vectors(sm, r0, x0, invd, bnorm)
     nl = cub.num_slots(sm)
     kn._check(C, "C", r0.dtype, (nl, nl))
-    if int(sm[2]) != 2:
-        raise ValueError(f"cg_mass: the P2 cube only, got degree {sm[2]}")
-    tile = kn.const_tile(len(sm[1]), B, r0.dtype)
     o = _outputs(r0, B, 4, npad, bnorm, rtol, atol)
     p = kn._ptr
     kn._call("cg_mass", p(C), p(r0), p(x0), p(invd), p(o["tol"]), p(o["x"]), p(o["work"]),
              p(o["red"]), o["red"].numel() // 16, p(o["iters"]), p(o["rnorm"]),
-             int(r0.dtype == torch.float64), *kn._dims(sm), int(sm[2]), B, *tile,
-             int(maxiter), kn._stream(r0))
+             int(r0.dtype == torch.float64), *kn._dims(sm), int(sm[2]), B, int(maxiter),
+             kn._stream(r0))
     return _result(o)
 
 

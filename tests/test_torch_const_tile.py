@@ -4,25 +4,20 @@
 - ``kernels.matvec_const_staged_plain`` (per cube, each output slot sums
   its input slots in order into a staged value; then each point sums its
   cubes' staged values in ``cube_visit``'s order) equals
-  ``matvec_const_plain`` in float64 on a 3x4x5 box and a 2D 5x7 rectangle,
-  at batch 1 and 3.  The two may sum a cube's terms in another order, so
-  they agree to 1e-12 of the output's largest value, not bit for bit;
-- the host's tiles (``kernels.const_tile``, cut as ``tile_boxes`` below
-  mirrors ``tile_product``'s cut): every grid point is owned by exactly one
-  tile, each tile's cube range holds every cube of every point it owns,
-  a tile has at most ``TILE_THREADS`` cubes, and K4's shared memory fits
-  one block for float32 and float64 at batch 1-4 (two blocks an SM);
+  ``matvec_const_plain`` in float64 on 3D boxes with unequal axes and 2D
+  rectangles, at batch 1-4.  The two may sum a cube's terms in another
+  order, so they agree to 1e-12 of the output's largest value, not bit for
+  bit;
 - ``cg_from_r0`` on the staged product takes the same iterations per row
-  as on ``matvec_const_plain`` on the N=4 Taylor-Green mass system in
-  float64, x to 1e-12;
-- ``check_tile`` refuses any other tile, and K4's wrapper refuses a cube
-  other than P2 before any launch.
+  as on ``matvec_const_plain`` on the N=4 Taylor-Green mass systems (3D and
+  2D) in float64, x to 1e-12;
+- ``chip_smoke.py``'s K4 cases, the P1 one included (K4's point-by-point
+  kernel), converge on the CPU with equal iterations in both solves.
 
-The kernels run only on the card; ``chip_smoke.py`` holds them to their
-plain versions there.
+The kernels and their tile (chosen by the entry points, ``tile_choose``)
+run only on the card; ``chip_smoke.py`` holds them to their plain versions
+there and checks the tile for every type and batch.
 """
-
-import itertools
 
 import numpy as np
 import pytest
@@ -39,15 +34,14 @@ from oasisx_tpu_torch.la import fused  # noqa: E402
 from oasisx_tpu_torch.meshes import create_box, create_rectangle  # noqa: E402
 from oasisx_tpu_torch.spaces.functionspace import FunctionSpace  # noqa: E402
 
-GRIDS = ((3, 4, 5), (5, 7))
-DTYPES = (torch.float32, torch.float64)
+GRIDS = ((3, 4, 5), (2, 1, 3), (5, 7), (1, 4))
 
 
-def _sm(cells, deg=2):
+def _sm(cells):
     d = len(cells)
     mesh = (create_box((-1.0,) * 3, (1.0,) * 3, cells) if d == 3
             else create_rectangle((-1.0,) * 2, (1.0,) * 2, cells))
-    el = make_element(("Lagrange", deg), mesh.cell_type)
+    el = make_element(("Lagrange", 2), mesh.cell_type)
     return build_structured_map(mesh, el, FunctionSpace(mesh, el).dofmap)[0]
 
 
@@ -56,7 +50,7 @@ def maps():
     return {cells: _sm(cells) for cells in GRIDS}
 
 
-@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4])
 @pytest.mark.parametrize("cells", GRIDS)
 def test_staged_product_equals_plain(maps, cells, batch):
     sm = maps[cells]
@@ -72,83 +66,14 @@ def test_staged_product_equals_plain(maps, cells, batch):
     assert one.shape == (npad,) and torch.equal(one, got[0])
 
 
-def tile_boxes(cells, tile):
-    """Every tile of a grid with ``cells`` (2 or 3 axes) in the 3D form, as
-    ``csrc/cube_device.cuh`` ``tile_product`` cuts it: (first owned base
-    point, owned base points, first cube, cubes) per axis."""
-    d = len(cells)
-    c = (1,) * (3 - d) + tuple(cells)
-    g = tuple(1 if k < 3 - d else c[k] + 1 for k in range(3))
-    nt = [-(-g[k] // tile[k]) for k in range(3)]
-    out = []
-    for it in np.ndindex(*nt):
-        B0 = tuple(it[k] * tile[k] for k in range(3))
-        lo = tuple(max(b - 1, 0) for b in B0)
-        ncu = tuple(min(c[k] - 1, B0[k] + tile[k] - 1) - lo[k] + 1 for k in range(3))
-        own = tuple(min(tile[k], g[k] - B0[k]) for k in range(3))
-        out.append((B0, own, lo, ncu))
-    return out
-
-
-def _points_and_cubes(cells, box):
-    """The base points a tile owns (all parity channels) and, per point,
-    the cubes b - delta that can hold one of its parities (delta_k in {0, 1},
-    a cube inside the grid), in the 3D form."""
-    d = len(cells)
-    c = (1,) * (3 - d) + tuple(cells)
-    B0, own, _, _ = box
-    pts = list(itertools.product(*(range(B0[k], B0[k] + own[k]) for k in range(3))))
-    cubes = {
-        tuple(b[k] - e[k] for k in range(3))
-        for b in pts for e in itertools.product((0, 1), repeat=3)
-        if all(0 <= b[k] - e[k] < c[k] for k in range(3))
-    }
-    return pts, cubes
-
-
-@pytest.mark.parametrize("cells,tile", [
-    ((3, 4, 5), (3, 7, 7)), ((8, 9, 10), (3, 7, 7)), ((7, 5, 9), (3, 3, 7)),
-    ((6, 6, 6), (1, 3, 7)), ((5, 7), (1, 15, 15)), ((20, 9), (1, 7, 15)), ((5, 7), (1, 7, 7)),
-])
-def test_tiles_own_every_point_once_and_hold_its_cubes(cells, tile):
-    d = len(cells)
-    g = (1,) * (3 - d) + tuple(n + 1 for n in cells)
-    count = np.zeros(g, dtype=np.int64)
-    for box in tile_boxes(cells, tile):
-        _, _, lo, ncu = box
-        assert int(np.prod(ncu)) <= kn.TILE_THREADS
-        pts, cubes = _points_and_cubes(cells, box)
-        for b in pts:
-            count[b] += 1
-        for cube in cubes:
-            assert all(lo[k] <= cube[k] < lo[k] + ncu[k] for k in range(3)), (box, cube)
-    assert (count == 1).all()
-
-
-@pytest.mark.parametrize("batch", [1, 2, 3, 4])
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [2, 3])
-def test_const_tile_fits_shared_memory(d, dtype, batch):
-    tile = kn.const_tile(d, batch, dtype)
-    kn.check_tile(tile, d, batch, dtype)
-    isz = torch.empty((), dtype=dtype).element_size()
-    assert kn.tile_smem(d, tile, batch, isz) < kn.mass_smem(d, tile, batch, isz)
-    assert kn.mass_smem(d, tile, batch, isz) <= kn.SMEM_TWO < kn.SMEM_BLOCK
-    assert int(np.prod([t + 1 for t in tile[3 - d:]])) <= kn.TILE_THREADS
-    # the main path's product, 3D float32 batch 3, takes the first choice
-    if (d, dtype, batch) == (3, torch.float32, 3):
-        assert tile == kn.TILES[3][0]
-    # K5 launches four components at a time: a larger batch keeps batch 4's tile
-    assert kn.const_tile(d, batch + 4, dtype) == kn.const_tile(d, 4, dtype)
-
-
-def test_cg_on_staged_product_same_iterations():
+@pytest.mark.parametrize("cells", [4, (4, 6)])
+def test_cg_on_staged_product_same_iterations(cells):
     """The N=4 Taylor-Green mass system (chip_smoke's K4 case) in float64."""
-    s = cs.tgv_solver(4, torch.float64, "cpu", 1e-8)
+    s = cs.tgv_solver(cells, torch.float64, "cpu", 1e-8)
     sm, M = s._sm_v, s._cu.M_c
     valid = s._pv(torch.ones(s._gf_v.shape[0], dtype=torch.float64)) != 0
     rng = np.random.default_rng(7)
-    b = torch.as_tensor(rng.standard_normal((3, s._npad_v))) * valid
+    b = torch.as_tensor(rng.standard_normal((s._mesh.dim, s._npad_v))) * valid
     args = (b, torch.zeros_like(b), s._M_invd, torch.linalg.vector_norm(b, dim=-1), 1e-10, 2000)
     ref = fused.cg_from_r0(lambda v: kn.matvec_const_plain(v, M, sm), *args)
     got = fused.cg_from_r0(lambda v: kn.matvec_const_staged_plain(v, M, sm), *args)
@@ -157,32 +82,19 @@ def test_cg_on_staged_product_same_iterations():
     assert float((got.x - ref.x).abs().max()) <= 1e-12 * float(ref.x.abs().max())
 
 
-@pytest.mark.parametrize("d,tile,match", [
-    (3, None, "three positive ints"), (3, (3, 7), "three positive ints"),
-    (3, [3, 7, 7], "three positive ints"), (3, (0, 7, 7), "three positive ints"),
-    (3, (3.0, 7, 7), "three positive ints"), (2, (3, 7, 7), "leading axis"),
-    (3, (4, 7, 7), "cubes"), (2, (1, 16, 15), "cubes"),
-])
-def test_check_tile_refuses(d, tile, match):
-    with pytest.raises(ValueError, match=match):
-        kn.check_tile(tile, d, 3, torch.float32)
-
-
-def test_check_tile_refuses_shared_memory_past_a_block():
-    """(3, 7, 7) at batch 4 in float64 needs 240 KB; the chooser takes a
-    smaller tile there."""
-    with pytest.raises(ValueError, match="shared memory"):
-        kn.check_tile((3, 7, 7), 3, 4, torch.float64)
-    assert kn.const_tile(3, 4, torch.float64) != (3, 7, 7)
-
-
-def test_cg_mass_wrapper_refuses_p1():
-    """``_cg_mass_kernel`` checks the cube before it loads or launches
-    anything, so CPU tensors show the refusal."""
-    sm = _sm((3, 4, 5), deg=1)
-    npad, nl = int(np.prod(sm[0])), cub.num_slots(sm)
-    z = torch.zeros((1, npad), dtype=torch.float64)
-    with pytest.raises(ValueError, match="P2 cube only"):
-        fused._cg_mass_kernel(torch.zeros((nl, nl), dtype=torch.float64), z, z,
-                              torch.ones(npad, dtype=torch.float64),
-                              torch.ones(1, dtype=torch.float64), sm, 1e-8, 5, 1e-50)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chip_smoke_mass_cases_converge(dtype):
+    """chip_smoke's K4 cases on an N=6 solver (the MG case needs a grid that
+    coarsens): the P2 mass at batch 3 and 1 and the P1 mass on the pressure
+    grid, each solved twice by its plain version on the CPU."""
+    s = cs.tgv_solver(6, torch.float64, "cpu", 1e-8)
+    _, cases = cs.solve_cases(s, "cpu", dtype=dtype)
+    mass = [c for c in cases if c[0] == "cg_mass"]
+    assert [c[1] for c in mass] == ["M_c, random rhs", "M_c batch 1", "P1 mass"]
+    for _, label, kfn, pfn, work in mass:
+        rk, rp = kfn(), pfn()
+        assert bool(rk.converged.all()) and bool(rp.converged.all()), label
+        assert rk.iters.tolist() == rp.iters.tolist() and int(rk.iters.min()) >= 3, label
+        assert torch.equal(rk.x, rp.x), label
+        nbytes, flops = work(rk)
+        assert nbytes > 0 and flops > 0, label

@@ -12,8 +12,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    krylov_ops.cu have none.
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
-   timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1
-   and with its premul and zmask multipliers, K6, K7) and the cube scatter
+   timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1,
+   with its premul and zmask multipliers and with the zmask alone, K6, K7)
+   and the cube scatter
    (K13) on random data, max relative error 1e-12 (f64) and 1e-5 (f32),
    padded outputs exactly 0, a repeat call bit-identical; the cube gather
    (K8) on the Taylor-Green initial uab (P2, its 27 slots unrolled) and on
@@ -23,7 +24,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    a 2D rectangle of 41x57 cells: an axis mixed up in the kernels'
    decomposition of the grid shows there, where a cube would hide it.
    K8's two loops (27 slots unrolled, and the run-time loop) on one input,
-   the TGV uab, equal and timed (again at N=64 in phase 3c).
+   the TGV uab, equal and timed (again at N=64 in phase 3c).  K3 on every
+   cube degree (1-3 in 3D; 1, 2, 3 and 7 in 2D) at batch 1-5, with and
+   without its multipliers, on grids that take each of its routes; each K3
+   line names the route of its launches (point by point, or cube-owned
+   with the inputs in registers or in shared memory), and each timed K3
+   case the bytes of its product and the rate.
    The whole solves on the main path's systems: the mass CG (K4) on M_c
    with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
@@ -571,6 +577,10 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         ("matvec_win", "W batch 1",
          lambda: kn.matvec_win(W, xv[:1], sm_v), lambda: kn.matvec_win_plain(W, xv[:1], sm_v),
          valid_v, (isz * (nl * nl * nc + 2 * nv), mv(nl, nl, 1)), lib["W1"]),
+        ("matvec_win", "W zmask batch 3",  # the tentative solve's r0 (fracstep)
+         lambda: kn.matvec_win(W, xv, sm_v, zmask=zm),
+         lambda: kn.matvec_win_plain(W, xv, sm_v, zmask=zm), valid_v,
+         (isz * (nl * nl * nc + 3 * d * nv), mv(nl, nl, d) + 1.0 * d * nv), None),
         ("mixed", "B_c",
          lambda: kn.mixed(xq, B_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, B_c, sm_v, sm_q),
          valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["B"]),
@@ -630,8 +640,12 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
             pad_zero = bool((yk[..., ~valid] == 0).all())
             same = bool(torch.equal(yk, yk2))
             dt = str(dtype).replace("torch.", "")
+            route = ""
+            if name == "matvec_win" and torch.device(device).type == "cuda":
+                batch, pm, _ = win_case(label, solver)
+                route = ", route " + win_route(solver._sm_v, batch, pm, dtype)["name"]
             print(f"  {name:13s} {label:20s} {dt}: max abs err {err:.3e}, rel {rel:.3e}"
-                  f" (tol {tol:g}), padding zero: {pad_zero}, repeat bit-identical: {same}")
+                  f" (tol {tol:g}), padding zero: {pad_zero}, repeat bit-identical: {same}{route}")
             check(rel <= tol, f"{name} ({label}, {dt}) disagrees: rel err {rel:.3e}")
             check(pad_zero, f"{name} ({label}, {dt}) wrote non-zero padding")
             check(same, f"{name} ({label}, {dt}): a second kernel call differs from the first")
@@ -640,6 +654,8 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
             out.setdefault(name, []).append(_timed(name, label, kfn, pfn, device, err, work, lib))
             if label.startswith("M_c") and torch.device(device).type == "cuda":
                 k5_report(solver, dtype, out[name][-1])
+            if name == "matvec_win" and torch.device(device).type == "cuda":
+                win_report(solver, dtype, out[name][-1], label)
     return out
 
 
@@ -837,6 +853,140 @@ def k5_report(solver, dtype, rec: dict) -> None:
     print(f"    K5 tile {tuple(t[:3])} (3D form), {t[3]} bytes of shared memory a block, {t[4]} "
           f"blocks an SM; a product moves {moved / 1e6:.2f} MB: "
           f"{moved / rec['ms'] / 1e9:.3f} TB/s")
+
+
+WIN_ROUTES = ("point by point", "cube-owned, inputs in registers",
+              "cube-owned, inputs in shared memory")
+
+
+def win_route(sm, batch: int, premul: bool, dtype) -> dict:
+    """K3's route for one launch of ``batch`` (1-4) components on ``sm``'s
+    grid, as ``oasisx_matvec_win`` chooses it (``oasisx_win_route``): its
+    name, and phase A's threads a block, shared memory a block and blocks an
+    SM."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    out = torch.zeros(4, dtype=torch.int32)
+    err = _build.library().oasisx_win_route(int(dtype == torch.float64), *kn._dims(sm),
+                                            int(sm[2]), batch, int(premul), kn._ptr(out))
+    check(err == 0, f"no K3 route for batch {batch} {dtype}: CUDA error {err}")
+    r, threads, smem, blocks = out.tolist()
+    return {"name": WIN_ROUTES[r], "threads": threads, "smem": smem, "blocks": blocks}
+
+
+def win_case(label: str, solver) -> tuple[int, bool, bool]:
+    """(batch, premul, zmask) of one of kernel_cases' matvec_win cases."""
+    return (1 if "batch 1" in label else solver._mesh.dim, "premul" in label, "zmask" in label)
+
+
+def win_report(solver, dtype, rec: dict, label: str) -> None:
+    """K3's route at ``label``'s case, the bytes of its cube-owned product
+    (W streamed once, the stage written by phase A and read by phase B, the
+    inputs (and premul) read and the outputs written (and zmask read) once)
+    and the rate of ``rec``'s time."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    batch, pm, zm = win_case(label, solver)
+    r = win_route(solver._sm_v, batch, pm, dtype)
+    isz = torch.empty((), dtype=dtype).element_size()
+    nl, nc = cub.num_slots(solver._sm_v), int(np.prod(solver._sm_v[1]))
+    parts = {"W": isz * nl * nl * nc, "stage": 2.0 * isz * batch * nl * nc,
+             "vectors": isz * batch * solver._npad_v * (2 + pm + zm)}
+    moved = sum(parts.values())
+    print(f"    route {r['name']} ({r['threads']} threads a block, {r['smem']} bytes of shared "
+          f"memory, {r['blocks']} blocks an SM); bytes a product: W {parts['W'] / 1e6:.1f} MB, "
+          f"stage {parts['stage'] / 1e6:.1f} MB, vectors {parts['vectors'] / 1e6:.1f} MB; "
+          f"{moved / 1e6:.1f} MB in {rec['ms']:.4f} ms: {moved / rec['ms'] / 1e9:.3f} TB/s")
+
+
+# (cells, degrees) of K3's sweep: the small grids have fewer cubes than one
+# block of phase A an SM and go point by point on the card, the large ones
+# (17,576 and 17,030 cubes) cube-owned
+WIN_SWEEP = (((5, 6, 7), (1, 2, 3)), ((9, 11), (1, 2, 3, 7)), ((26, 26, 26), (1, 2, 3)),
+             ((130, 131), (1, 2, 3, 7)))
+
+
+def win_sweep_cases(device, grids=WIN_SWEEP, seed: int = 7):
+    """(label, map, dtype, batch, premul, kernel call, plain call, padded-
+    output mask) of K3 on every cube it takes: degrees 1-3 in 3D and 1, 2, 3
+    and 7 (64 slots) in 2D, on ``grids``, at batch 1-5 (5 in two launches)
+    without multipliers and with both, in float64 and float32, on random
+    inputs made from ``seed``.  The label names the grid and degree."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.assembly.structured import build_structured_map
+    from oasisx_tpu_torch.elements.element import make_element
+    from oasisx_tpu_torch.meshes import create_box, create_rectangle
+    from oasisx_tpu_torch.spaces.functionspace import FunctionSpace
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for cells, degrees in grids:
+        d = len(cells)
+        mesh = (create_box((-1.0,) * 3, (1.0,) * 3, cells) if d == 3
+                else create_rectangle((-1.0,) * 2, (1.0,) * 2, cells))
+        for deg in degrees:
+            el = make_element(("Lagrange", deg), mesh.cell_type)
+            sm = build_structured_map(mesh, el, FunctionSpace(mesh, el).dofmap)[0]
+            nl, nc, npad = cub.num_slots(sm), int(np.prod(sm[1])), int(np.prod(sm[0]))
+            valid = (cub.cube_scatter(torch.ones((1, nl, nc), dtype=torch.float64), sm)[0]
+                     != 0).to(device)
+            label = f"{d}D P{deg} {'x'.join(map(str, cells))}"
+            for dtype in (torch.float64, torch.float32):
+                t = lambda *shape: torch.as_tensor(rng.standard_normal(shape)).to(device, dtype)
+                W = t(nl * nl, nc)
+                for batch in (1, 2, 3, 4, 5):
+                    x = t(batch, npad) * valid
+                    mults = {"premul": t(batch, npad), "zmask": torch.as_tensor(
+                        rng.random((batch, npad)) > 0.2).to(device, dtype)}
+                    for a in ({}, mults):
+                        cases.append((label, sm, dtype, batch, bool(a),
+                                      lambda W=W, x=x, sm=sm, a=a: kn.matvec_win(W, x, sm, **a),
+                                      lambda W=W, x=x, sm=sm, a=a: kn.matvec_win_plain(W, x, sm,
+                                                                                       **a),
+                                      valid))
+    return cases
+
+
+def check_win_sweep(device, grids=WIN_SWEEP) -> None:
+    """Phase 3: every case of win_sweep_cases against its plain version (f64
+    to 1e-12, f32 to 1e-5 of the output's largest value), padding zero, a
+    repeat bit-identical; a line for each grid, degree and type, with the
+    largest error of its cases and, on the card, the batches that took each
+    route (a launch of at most 4 components each; "p": with premul)."""
+    import torch
+
+    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    rows: dict = {}
+    for label, sm, dtype, batch, pm, kfn, pfn, valid in win_sweep_cases(device, grids):
+        yk, yk2, yp = kfn(), kfn(), pfn()
+        _sync(device)
+        rel = float((yk - yp).abs().max()) / max(float(yp.abs().max()), 1e-300)
+        dt = str(dtype).replace("torch.", "")
+        what = f"matvec_win ({label} batch {batch}{' premul zmask' if pm else ''}, {dt})"
+        check(rel <= tols[dtype], f"{what} disagrees: rel err {rel:.3e}")
+        check(bool((yk[:, ~valid] == 0).all()), f"{what} wrote non-zero padding")
+        check(torch.equal(yk, yk2), f"{what}: a second kernel call differs from the first")
+        row = rows.setdefault((label, dt), {"rel": 0.0, "routes": {}})
+        row["rel"] = max(row["rel"], rel)
+        if torch.device(device).type == "cuda":
+            route = " + ".join(win_route(sm, min(4, batch - b0), pm, dtype)["name"]
+                               for b0 in range(0, batch, 4))
+            row["routes"].setdefault(route, []).append(f"{batch}{'p' if pm else ''}")
+    for (label, dt), row in rows.items():
+        routes = "; ".join(f"{r}: {' '.join(b)}" for r, b in row["routes"].items())
+        print(f"  matvec_win    {label:15s} {dt}: batch 1-5, with and without premul and zmask,"
+              f" max rel err {row['rel']:.3e} (tol {tols[getattr(torch, dt)]:g}), padding zero,"
+              f" repeats bit-identical{'; routes (p: premul) ' + routes if routes else ''}")
 
 
 def k2_product_bytes(solver, dtype, batch: int) -> dict:
@@ -1468,7 +1618,7 @@ def profile_steps(solver, steps: int, path: str) -> None:
     print("    iterations a step in these steps (the slowest row): " + ", ".join(
         f"{f} {float(stats[f'{f}_iters'].reshape(steps, -1).max(axis=-1).mean()):.2f}"
         for f in ("u", "p", "c")))
-    for e in dev[:15]:
+    for e in dev[:20]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} x  {e.key[:90]}")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
@@ -1675,6 +1825,8 @@ def main() -> int:
     print(f"[3] kernels against plain versions (N={N} shapes)")
     kres = compare_kernels(solver, "cuda")
     gather_loops(solver)
+    print("[3] K3 on every cube degree and batch")
+    check_win_sweep("cuda")
     box_solves: dict = {}
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)

@@ -48,7 +48,8 @@ _SIGNATURES = {
     "oasisx_ell_warp_row_k": [],
     "oasisx_matvec_const": [P, P, P, I, I, I, I, I, I, I, P],
     "oasisx_const_tile": [I] * 3 + [P],
-    "oasisx_matvec_win": [P] * 5 + [I] * 7 + [P],
+    "oasisx_matvec_win": [P] * 6 + [LL] + [I] * 7 + [P],
+    "oasisx_win_route": [I] * 8 + [P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_cube_gather": [P, P, I, I, I, I, I, I, I, P],

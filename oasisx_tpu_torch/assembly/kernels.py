@@ -1,7 +1,7 @@
 """The slice's hand-written cube kernels, their plain versions, their
 host-side tables, and the launch counters of every kernel of the port.
 
-Six wrappers here, each in front of one CUDA kernel of ``csrc/cube_ops.cu``:
+Six wrappers here, each in front of one entry point of ``csrc/cube_ops.cu``:
 
 ============== ======================================== =========================
 wrapper        computes                                 replaces (pallas_ops.py)
@@ -16,8 +16,10 @@ cube_gather    U_b = (P_c x_b)_c, (B, nl, ncubes)       make_gather(_chunked)
 cube_scatter   y_b = sum_c P_c^T U_b[:, c]              make_scatter(_chunked)
 ============== ======================================== =========================
 
-``cube_scatter`` is on no path of the solver: its matvecs fuse gather,
-product and scatter in one kernel.  The whole-solve kernels of
+``cube_scatter`` is on no path of the solver, but its kernel is: on the
+card ``matvec_win`` is a cube-owned product in two launches, a thread a cube
+into a stage (min(B, 4), nl, ncubes), then K13's scatter of the stage with
+the zmask at its store.  The whole-solve kernels of
 ``csrc/krylov_ops.cu`` have their wrappers in ``la/fused.py`` (``cg_mass``,
 ``bicgstab``), ``la/pressure_mg.py`` (``pressure_mg``) and
 ``la/pressure_cg.py`` (``pressure_cg``, K1's non-MG modes), the ELL kernels
@@ -33,7 +35,7 @@ versions, so a run can show which path it took.
 product of ``csrc/cube_device.cuh``, whose tile (base points a block owns
 per axis) the entry points choose there (``tile_choose``);
 ``matvec_const_staged_plain`` is its order of sums as tensor code, for the
-tests (``matvec_win_staged_plain`` is K2's).
+tests (``matvec_win_staged_plain`` is K3's and K2's).
 
 Also here: ``conv_weight_tensor`` and ``build_w`` (the per-cube weights of
 the tentative operator, one matmul), and ``build_pressure_mg_data`` (the
@@ -66,6 +68,9 @@ KERNELS = (STRUCTURED_KERNELS + ("cube_scatter",) + ELL_KERNELS
 # counted too: K17's V-cycle launched alone (tests and checks; not on a path)
 _COUNTED = KERNELS + ("ell_vcycle",)
 launches = dict.fromkeys(_COUNTED, 0)
+# components of one launch of the cube kernels (kMaxBatch, csrc/cube_device.cuh):
+# the leading size of matvec_win's stage, which each launch reuses
+STAGE_BATCH = 4
 plain_calls = dict.fromkeys(_COUNTED, 0)
 
 
@@ -231,11 +236,12 @@ def matvec_win_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul
 
 def matvec_win_staged_plain(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
                             zmask=None) -> torch.Tensor:
-    """``matvec_win_plain`` summed in the order of K2's in-solve product
-    (``csrc/krylov_ops.cu``): per cube, each output slot sums its nl input
-    slots in slot order into a staged (B, nl, ncubes) value; then each point
-    sums the staged values of its cubes in ``cube_visit``'s order, which is
-    ``cubes.cube_scatter``'s.  K2's product as tensor code, for the tests."""
+    """``matvec_win_plain`` summed in the order of K3's product and K2's
+    in-solve one (``csrc/cube_device.cuh`` ``win_cube``): per cube, each
+    output slot sums its nl input slots in slot order into a staged (B, nl,
+    ncubes) value; then each point sums the staged values of its cubes in
+    ``cube_visit``'s order, which is ``cubes.cube_scatter``'s.  Their product
+    as tensor code, for the tests."""
     nl = cub.num_slots(sm)
     U = cub.cube_gather(x if premul is None else premul * x, sm)  # (B, nl, nc)
     y = _staged_sum(W.reshape(nl, nl, -1), U, sm)
@@ -341,12 +347,32 @@ def matvec_const(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.T
 
 
 def matvec_win(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
-               zmask=None) -> torch.Tensor:
+               zmask=None, stage=None) -> torch.Tensor:
     """y_b = zmask_b * A_W (premul_b * x_b) with per-cube weights W
-    (nl*nl, ncubes); x (B, npad), premul and zmask (B, npad) or None (1)."""
+    (nl*nl, ncubes); x (B, npad), premul and zmask (B, npad) or None (1).
+    On the card the product is cube-owned (``csrc/cube_ops.cu``): ``stage``
+    is its work buffer, (min(B, 4), nl, ncubes) of x's dtype, allocated here
+    when None; the CPU path ignores it."""
     extra = [t for t in (premul, zmask) if t is not None]
     if not _route(W, x, *extra):
         return matvec_win_plain(W, x, sm, premul, zmask)
+    with torch.cuda.device(x.device):
+        if stage is None:
+            stage = torch.empty((min(x.shape[0], STAGE_BATCH), cub.num_slots(sm),
+                                 int(np.prod(sm[1]))), dtype=x.dtype, device=x.device)
+        return _matvec_win_kernel(W, x, sm, premul, zmask, stage)
+
+
+def _check_stage(stage, B: int, nl: int, nc: int, dtype: torch.dtype) -> None:
+    """A cube-owned product's work buffer (K3's, K2's): a contiguous (B,
+    nl, ncubes) tensor of the product's dtype, where the per-cube outputs go
+    before they are summed into the points."""
+    if not isinstance(stage, torch.Tensor):
+        raise ValueError(f"stage: expected a ({B}, {nl}, {nc}) tensor, got {stage!r}")
+    _check(stage, "stage", dtype, (B, nl, nc))
+
+
+def _matvec_win_kernel(W, x, sm, premul, zmask, stage) -> torch.Tensor:
     npad = int(np.prod(sm[0]))
     nl = cub.num_slots(sm)
     nc = int(np.prod(sm[1]))
@@ -355,12 +381,12 @@ def matvec_win(W: torch.Tensor, x: torch.Tensor, sm: StructuredMap, premul=None,
     for name, t in (("premul", premul), ("zmask", zmask)):
         if t is not None:
             _check(t, name, x.dtype, tuple(x.shape))
+    _check_stage(stage, min(x.shape[0], STAGE_BATCH), nl, nc, x.dtype)
     opt = lambda t: ctypes.c_void_p(0) if t is None else _ptr(t)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _call("matvec_win", _ptr(x), _ptr(W), opt(premul), opt(zmask), _ptr(y),
-              int(x.dtype == torch.float64), *_dims(sm), int(sm[2]), int(x.shape[0]),
-              _stream(x))
+    _call("matvec_win", _ptr(x), _ptr(W), opt(premul), opt(zmask), _ptr(y), _ptr(stage),
+          stage.numel(), int(x.dtype == torch.float64), *_dims(sm), int(sm[2]), int(x.shape[0]),
+          _stream(x))
     return y
 
 

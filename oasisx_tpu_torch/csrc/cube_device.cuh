@@ -8,8 +8,8 @@
 // p_k = f_k % deg, base b_k = f_k / deg.  Positions with p_k > 0 and
 // b_k = n_k are padding and give 0.
 //
-// Two forms, both deterministic, with no atomics.  Point by point
-// (cube_point; K3, K6, K7, K12, K1): the caller owns one output grid point
+// Three forms, all deterministic, with no atomics.  Point by point
+// (cube_point; K6, K7, K12, K1): the caller owns one output grid point
 // (parity p, base b) for every output component.  It sums
 // over the <= 2^d cubes b - delta that contain the point (delta_k in {0,1}
 // on the axes with p_k == 0; the point is slot t = p + deg*delta of that
@@ -21,7 +21,12 @@
 // tiled (tile_product, below; the P2 constant product of K5 and K4): a
 // block reads a box of inputs once into shared memory, a thread a cube
 // computes all the cube's output slots into a stage, and each owned point
-// sums its cubes' staged values through cube_visit.
+// sums its cubes' staged values through cube_visit.  Cube-owned with
+// per-cube weights (win_cube, below; K3 and K2's phase A): a thread a cube
+// reads the cube's inputs once and streams its weights into a stage in
+// global memory, and after it (K3's second launch, K2's grid barrier) each
+// point sums its cubes' staged values through cube_visit.  The last two sum
+// in one order, per cube slot by slot, then per point over its cubes.
 //
 // The output side takes a point already split into its parities and base
 // coordinates (CubePoint), on a 3D form of the grid (a 2D grid gets a
@@ -311,6 +316,55 @@ inline CubeArgs win_args(int d, int n0, int n1, int n2, int deg, int batch) {
   a.m_to = ncube * a.nl_in;
   a.mat_len = 0;
   return a;
+}
+
+// ---------------------------------------------------------------------------
+// The cube-owned product of per-cube weights W (K3, K10, K2's phase A)
+// ---------------------------------------------------------------------------
+
+// Offset of cube c's base in one input channel: c is C-order over the
+// cells of the 3D form, split by multiply-and-shift divisions by c[2]
+// (div_c2) and c[1] (div_c1).
+__device__ __forceinline__ int cube_base(const CubeArgs& a, int c, FastDiv div_c1,
+                                         FastDiv div_c2) {
+  const int q = (int)fast_quo((unsigned)c, div_c2);
+  const int i0 = (int)fast_quo((unsigned)q, div_c1);
+  return (i0 * a.g[1] + (q - i0 * a.c[1])) * a.g[2] + (c - q * a.c[2]);
+}
+
+// One cube of A_W's phase A: stage[(b nl + to) nc] = sum_ti W[(to nl + ti)
+// nc] in(b, ti) for b < nb, the slots in order, with W and stage offset to
+// the cube.  The cube's weights are streamed evict-first (__ldcs: W is read
+// once a product and does not fit in the L2), coalesced across the
+// neighbouring cubes of a warp; NL > 0 fixes nl and unrolls the slot loop,
+// so that a row's NL loads are in flight together.  in(b, ti) is input
+// component b at slot ti, read once a cube by the caller (registers or a
+// shared-memory column).  NB > 0 fixes nb.
+template <typename T, int NL, int NB, typename In>
+__device__ __forceinline__ void win_cube(const T* W, T* stage, int nl, int nb, int nc, In&& in) {
+  const int n = NL > 0 ? NL : nl;
+  const int m = NB > 0 ? NB : nb;
+  for (int to = 0; to < n; ++to) {
+    const T* wt = W + to * n * nc;
+    T acc[kMaxBatch];
+#pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) acc[b] = T(0);
+    auto slot = [&](int ti) {
+      const T w = __ldcs(wt + ti * nc);
+#pragma unroll
+      for (int b = 0; b < kMaxBatch; ++b)
+        if (b < m) acc[b] += w * in(b, ti);
+    };
+    if constexpr (NL > 0) {
+#pragma unroll
+      for (int ti = 0; ti < NL; ++ti) slot(ti);
+    } else {
+      for (int ti = 0; ti < n; ++ti) slot(ti);
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b)
+      if (b < m) stage[(b * n + to) * nc] = acc[b];
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 //
 // Every entry point but the gather and the scatter applies a cube device
 // function of cube_device.cuh (y = sum_cubes P_c^T C P_c x, no atomics):
-// point by point (cube_point), or K5's block-tiled product (tile_product).
+// point by point (cube_point), K5's block-tiled product (tile_product), or
+// K3's cube-owned product in two launches (win_cube, then the scatter).
 // They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py):
 //   oasisx_matvec_const  <- make_matvec_pf (K5) and make_matvec (K12):
 //                           constant cube matrix C (nl, nl), batch B; the P2
@@ -12,9 +13,13 @@
 //                           W[to*nl + ti, cube], shared by the B components;
 //                           with the optional multipliers y = zmask A_W (premul x)
 //                           it is also make_matvec_hbm_chan (K10), and at batch 1
-//                           make_tent_matvec_hbm (W streamed per slot row).  The
-//                           multipliers are fused into the input loads and the
-//                           output stores; a null pointer means 1.
+//                           make_tent_matvec_hbm (W streamed per slot row).
+//                           Cube-owned: phase A (win_cube_kernel, a thread a
+//                           cube) reads the cube's inputs once, premul multiplied
+//                           in, and streams its weights into a stage (B, nl,
+//                           ncubes); phase B is K13's scatter of the stage, the
+//                           zmask multiplied in at its store.  A null multiplier
+//                           means 1.
 //   oasisx_mixed         <- make_mixed_pf (K6): r_g = C_g p, C_all (d, nl_v, nl_q)
 //   oasisx_divergence    <- make_divergence_pf (K7): b2 = sum_g B_g^T u_g,
 //                           B_all (d, nl_v, nl_q) read transposed [g, ti, to]
@@ -31,13 +36,29 @@
 //                           U (B, nl, ncubes).  Output owner: each grid point sums
 //                           its <= 2^d cube slots in cube_visit's fixed order, no
 //                           atomics, so repeat calls are bit-identical; no slot
-//                           chunking.  No solver path of the port calls it: its
-//                           matvecs fuse gather, product and scatter (the JAX
-//                           package used it for the staged gather -> einsum ->
-//                           scatter products of its N=64 tier).
+//                           chunking.  Its kernel is K3's phase B; the entry
+//                           point is on no solver path (the JAX package used it
+//                           for the staged gather -> einsum -> scatter products
+//                           of its N=64 tier).
 //
 // Bound on the H100.  K3 at N=36 (3D P2) must stream the 136 MB W
-// (729 x 46656 f32) once per call, 764 MB at N=64: memory.  K6 and K7 read
+// (729 x 46656 f32) once per call, 764 MB at N=64: memory.  Point by point
+// (cube_point, the form before) it read W once, each (output slot, cube)
+// pair belonging to one point, but each thread read its cubes' 27 nb inputs
+// once for every output slot it owned (with premul, 27 nb premul values
+// too): at N=64 batch 3 ~2.2 GB of input requests through L1/L2 a product
+// against W's 0.76 GB, 0.63 ms (0.95 with premul and zmask) on an NVIDIA
+// H100 80GB HBM3 at 700 W.  Cube-owned, a thread reads its cube's inputs
+// once, into registers (3D P2, at most 108 values: batch 1-4 in float32,
+// 1-2 in float64) or into its own shared-memory column (any other cube or
+// batch, as K2's phase A), and a product moves W once, the stage written
+// and read once (2 x 84.9 MB at N=64; N=36's 15.1 MB stays in L2) and x and
+// y once: 987 MB at N=64, 0.295 ms at 3.35 TB/s.  Measured there: 0.339 ms
+// at batch 3, 0.355 with premul and zmask (0.061 and 0.065 at N=36).  A
+// launch whose columns do not fit in a block's shared memory (64-slot cubes
+// at batch 4 in float64), or whose grid has fewer cubes than one block of
+// phase A an SM, keeps the point-by-point kernel; oasisx_win_route names
+// each launch's route.  K6 and K7 read
 // and write a few MB with the small constant matrix in shared memory, and
 // K13 reads U once (15 MB at N=36) and writes the grid once: by bytes they
 // are memory-bound too.  What bounded them on this card was integer work:
@@ -75,16 +96,23 @@
 //
 // Registers against latency.  A thread's loads are latency-bound: K12's 8
 // slots a cube with one coefficient each are unrolled (8 loads in flight);
-// the 27-slot loops of K3, K6 and K7 stay rolled, since unrolled they take
-// about twice the registers and the occupancy they lose costs more than the
-// latency they hide.  K3 without premul (a W load a slot) and K7 (three input
-// components a slot) are held to 32 registers (kFill: 16 blocks, every
-// thread slot of an SM) when their grid has that many blocks (K3 at N=36
-// and N=64, K7 at N=64; K7's 407 blocks at N=36 fill 3 an SM whatever the
-// registers); K6 keeps the registers the compiler gives it, which measured
-// faster.  K5's tiled kernel keeps a cube's 27 nb inputs in registers, its
-// batch a template parameter in 3D, at most 128 registers (2 blocks an SM,
-// as its shared memory allows at batch 3 in float32).
+// the 27-slot loops of point-by-point K3, K6 and K7 stay rolled, since
+// unrolled they take about twice the registers and the occupancy they lose
+// costs more than the latency they hide.  K7 (three input components a
+// slot) and point-by-point K3 without premul (a W load a slot) are held to
+// 32 registers (kFill: 16 blocks, every thread slot of an SM) when their
+// grid has that many blocks (K7 at N=64; its 407 blocks at N=36 fill 3 an
+// SM whatever the registers); K6 keeps the registers the compiler gives
+// it, which measured faster.  K5's tiled kernel keeps a cube's 27 nb inputs
+// in registers, its batch a template parameter in 3D, at most 128 registers
+// (2 blocks an SM, as its shared memory allows at batch 3 in float32).  K3's
+// phase A unrolls a row's 27 weight loads (all in flight) beside a cube's
+// NB x 27 inputs in registers (NB a template parameter): at most 128
+// registers, 4 blocks of 128 threads an SM, where the inputs take up to 81
+// of them (float32 batch 1-3, float64 batch 1), else 255; no spills
+// (ptxas).  128 threads a block and 256 measured level (within 1.5%) at
+// N=36, whose 46,656 cubes fill 365 blocks of 128 or 182 of 256, and at
+// N=64.
 //
 // Each entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
@@ -244,9 +272,11 @@ int gather(const void* x, void* u, int is_f64, int d, int n0, int n1, int n2, in
 
 // y[b, idx] = sum over the cubes c containing idx of U[b, slot of idx in c, c]:
 // (nbo, nl, ncubes) -> (nbo, npad), 0 at padding, the components in the thread.
-template <typename T>
+// kZm: y = zm * that sum, zm (nbo, npad) (K3's phase B with a zmask).
+template <typename T, bool kZm>
 __global__ void __launch_bounds__(kCubeThreads)
-cube_scatter_kernel(const T* __restrict__ u, T* __restrict__ y, CubeArgs a, int ncube) {
+cube_scatter_kernel(const T* __restrict__ u, T* __restrict__ y, CubeArgs a, int ncube,
+                    const T* __restrict__ zm) {
   CubePoint q;
   int idx;
   if (!block_point(a, q, idx)) return;
@@ -262,7 +292,157 @@ cube_scatter_kernel(const T* __restrict__ u, T* __restrict__ y, CubeArgs a, int 
   });
 #pragma unroll
   for (int bo = 0; bo < kMaxBatch; ++bo)
-    if (bo < a.nbo) y[bo * a.npad_out + idx] = acc[bo];
+    if (bo < a.nbo) {
+      const int i = bo * a.npad_out + idx;
+      y[i] = kZm ? zm[i] * acc[bo] : acc[bo];
+    }
+}
+
+template <typename T, bool kZm>
+void launch_scatter(const void* u, void* y, const CubeArgs& a, int ncube, const void* zm,
+                    void* stream) {
+  cube_scatter_kernel<T, kZm><<<block_grid(a), kCubeThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(u), static_cast<T*>(y), a, ncube, static_cast<const T*>(zm));
+}
+
+// SMs of the current device (asked once)
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+// ---------------------------------------------------------------------------
+// K3's cube-owned product: phase A (a thread a cube) into a stage, phase B
+// K13's scatter of the stage, with the zmask at its store
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct WinArgs {
+  const T* x;   // (nb, grid) input components of this launch
+  const T* pm;  // (nb, grid) premul, or null (1)
+  const T* W;   // (nl*nl, ncubes)
+  T* stage;     // (nb, nl, ncubes) out
+  CubeArgs a;   // win_args, nbo = nb
+  FastDiv div_c1, div_c2;  // divisions by a.c[1] and a.c[2] (cube_base)
+  int nc;       // cubes
+};
+
+// Phase A's routes, chosen in C by shape (win_plan); oasisx_win_route
+// reports them.
+enum WinRoute { kWinPoint = 0, kWinRegisters = 1, kWinShared = 2 };
+constexpr int kWinMaxThreads = 256;  // phase A's largest block (its launch bound)
+
+// Blocks an SM that phase A's launch bound asks for: at most 128 registers
+// a thread (2 blocks of kWinMaxThreads), or 255 where a thread's inputs in
+// registers take more than 81 of them (float32 batch 4, float64 batch 2).
+__host__ __device__ constexpr int win_min_blocks(int tsize, int nb, bool reg) {
+  return reg && nb * tsize > 12 ? 1 : 2;
+}
+
+// Phase A: stage[b, to, c] = sum_ti W[to nl + ti, c] (pm x)_b[slot ti of
+// cube c] for each cube c, a thread a cube.  kReg: the 3D P2 cube (NL 27) at
+// a compile-time batch NB, the cube's NB * 27 inputs in registers; else each
+// thread's own column of dynamic shared memory (as K2's phase A), NL 27 or
+// 0 (run time), NB 0.  Dynamic shared memory: the slot offsets (nl ints,
+// 16-byte aligned), then the columns (nb * nl values a thread).
+template <typename T, int NL, int NB, bool kPm, bool kReg>
+__global__ void __launch_bounds__(kWinMaxThreads, win_min_blocks(sizeof(T), NB, kReg))
+win_cube_kernel(WinArgs<T> P) {
+  const CubeArgs& a = P.a;
+  unsigned char* smem = dynamic_smem();
+  int* soff = reinterpret_cast<int*>(smem);
+  cube_stage<T>(nullptr, a, nullptr, soff);
+  __syncthreads();
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= P.nc) return;
+  const int nl = NL > 0 ? NL : a.nl_in;
+  const int nb = NB > 0 ? NB : a.nbo;
+  const int cbase = cube_base(a, c, P.div_c1, P.div_c2);
+  auto input = [&](int b, int ti) {
+    const int i = b * a.npad_out + soff[ti] + cbase;
+    return kPm ? __ldg(P.x + i) * __ldg(P.pm + i) : __ldg(P.x + i);
+  };
+  if constexpr (kReg) {
+    T xin[NB][NL];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int ti = 0; ti < NL; ++ti) xin[b][ti] = input(b, ti);
+    win_cube<T, NL, NB>(P.W + c, P.stage + c, nl, nb, P.nc,
+                        [&](int b, int ti) { return xin[b][ti]; });
+  } else {
+    const int ld = blockDim.x;
+    T* xs = reinterpret_cast<T*>(smem + ((sizeof(int) * nl + 15) & ~size_t(15))) + threadIdx.x;
+#pragma unroll
+    for (int b = 0; b < kMaxBatch; ++b) {
+      if (b >= nb) break;
+      for (int ti = 0; ti < nl; ++ti) xs[(b * nl + ti) * ld] = input(b, ti);
+    }
+    win_cube<T, NL, 0>(P.W + c, P.stage + c, nl, nb, P.nc,
+                       [&](int b, int ti) { return xs[(b * nl + ti) * ld]; });
+  }
+}
+
+constexpr int kWinThreads = 128;  // threads a block of phase A
+
+template <typename T>
+using WinKernel = void (*)(WinArgs<T>);
+
+template <typename T>
+struct WinPlan {
+  int route;
+  WinKernel<T> kernel;
+  int threads;
+  size_t smem;
+};
+
+template <typename T, bool kPm>
+WinKernel<T> win_kernel(int nl, int nb, bool reg) {
+  if (reg) {
+    if (nb == 1) return win_cube_kernel<T, 27, 1, kPm, true>;
+    if (nb == 2) return win_cube_kernel<T, 27, 2, kPm, true>;
+    if constexpr (sizeof(T) == 4)
+      return nb == 3 ? win_cube_kernel<T, 27, 3, kPm, true> : win_cube_kernel<T, 27, 4, kPm, true>;
+  }
+  return nl == 27 ? win_cube_kernel<T, 27, 0, kPm, false> : win_cube_kernel<T, 0, 0, kPm, false>;
+}
+
+// Phase A of one launch of nb components: its route, kernel, block and
+// dynamic shared memory (its limit set on the kernel).  The 3D P2 cube keeps
+// a cube's inputs in registers, up to 108 of them (float32 batch 1-4,
+// float64 batch 1-2); any other cube and batch takes the shared-memory
+// columns where a block's fit on the device; what fits neither stays point
+// by point (the form before, cube_apply_kernel), as does a grid with fewer
+// cubes than one block of phase A an SM: there a thread's rows of W run one
+// after another on a few SMs (the 41 x 57 rectangle's 2,337 cubes, 19
+// blocks: 0.0152 ms at batch 3, point by point 0.0102, on an NVIDIA H100
+// 80GB HBM3 at 700 W).
+template <typename T>
+int win_plan(const CubeArgs& a, int nb, bool pm, WinPlan<T>* p) {
+  const int nl = a.nl_in;
+  const bool reg = nl == 27 && a.d == 3 && nb * (int)sizeof(T) * nl <= 108 * 4;
+  p->threads = kWinThreads;
+  const size_t soff = (sizeof(int) * nl + 15) & ~size_t(15);
+  p->smem = reg ? soff : soff + sizeof(T) * nb * nl * p->threads;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (p->smem > (size_t)optin || a.c[0] * a.c[1] * a.c[2] < sm_count() * p->threads) {
+    p->route = kWinPoint;
+    p->kernel = nullptr;
+    return 0;
+  }
+  p->route = reg ? kWinRegisters : kWinShared;
+  p->kernel = pm ? win_kernel<T, true>(nl, nb, reg) : win_kernel<T, false>(nl, nb, reg);
+  return (int)cudaFuncSetAttribute((const void*)p->kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
 }
 
 template <typename T, bool kPm, bool kZm, int NL, bool kFill>
@@ -276,15 +456,7 @@ void launch_nl(const void* x, const void* mat, void* y, const CubeArgs& a, void*
 }
 
 // blocks that fill every SM's thread slots at kFillBlocks blocks an SM
-int fill_blocks() {
-  static const int blocks = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms * kFillBlocks;
-  }();
-  return blocks;
-}
+int fill_blocks() { return sm_count() * kFillBlocks; }
 
 // K12's 8 slots a cube with one coefficient a slot: the slot loop unrolled.
 // K3 without premul and K7, which load per slot from global memory (W) or
@@ -326,27 +498,82 @@ int launch(const void* x, const void* mat, void* y, const CubeArgs& a, void* str
 }
 
 int dispatch(int is_f64, const void* x, const void* mat, void* y, const CubeArgs& a,
-             void* stream, const void* pm = nullptr, const void* zm = nullptr) {
-  return is_f64 ? launch<double>(x, mat, y, a, stream, pm, zm)
-                : launch<float>(x, mat, y, a, stream, pm, zm);
+             void* stream) {
+  return is_f64 ? launch<double>(x, mat, y, a, stream) : launch<float>(x, mat, y, a, stream);
 }
 
-// Batched operators with one input per output component (K5, K3): launch
-// in chunks of kMaxBatch components; pm and zm (null, or laid out as x and
-// y) follow the chunks.
+// K12 (K5's entry point off the P2 cube), one input per output component:
+// launches of kMaxBatch components.
 int batched(int is_f64, const void* x, const void* mat, void* y, CubeArgs a, int batch,
-            void* stream, const void* pm = nullptr, const void* zm = nullptr) {
+            void* stream) {
   const size_t esz = is_f64 ? sizeof(double) : sizeof(float);
-  auto at = [&](const void* base, int64_t off) -> const void* {
-    return base == nullptr ? nullptr : static_cast<const char*>(base) + esz * off;
-  };
+  for (int b0 = 0; b0 < batch; b0 += kMaxBatch) {
+    a.nbo = batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch;
+    const size_t off = esz * a.npad_out * b0;
+    const int err = dispatch(is_f64, static_cast<const char*>(x) + off, mat,
+                             static_cast<char*>(y) + off, a, stream);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// K3 in launches of kMaxBatch components, each phase A then phase B on the
+// stream (the stage reused launch after launch), or point by point where
+// win_plan finds phase A no room.  pm and zm are null or laid out as x.
+template <typename T>
+int win_product(const void* x, const void* W, const void* pm, const void* zm, void* y,
+                void* stage, CubeArgs a, int batch, void* stream) {
+  WinArgs<T> P;
+  P.W = static_cast<const T*>(W);
+  P.stage = static_cast<T*>(stage);
+  P.div_c1 = fast_div(a.c[1]);
+  P.div_c2 = fast_div(a.c[2]);
+  P.nc = a.c[0] * a.c[1] * a.c[2];
   for (int b0 = 0; b0 < batch; b0 += kMaxBatch) {
     a.nbo = batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch;
     const int64_t off = (int64_t)a.npad_out * b0;
-    const int err = dispatch(is_f64, at(x, off), mat, static_cast<char*>(y) + esz * off, a,
-                             stream, at(pm, off), at(zm, off));
+    const T* xb = static_cast<const T*>(x) + off;
+    const T* pmb = pm == nullptr ? nullptr : static_cast<const T*>(pm) + off;
+    const T* zmb = zm == nullptr ? nullptr : static_cast<const T*>(zm) + off;
+    T* yb = static_cast<T*>(y) + off;
+    WinPlan<T> p;
+    int err = win_plan<T>(a, a.nbo, pm != nullptr, &p);
+    if (err) return err;
+    if (p.route == kWinPoint) {
+      err = launch<T>(xb, W, yb, a, stream, pmb, zmb);
+      if (err) return err;
+      continue;
+    }
+    P.x = xb;
+    P.pm = pmb;
+    P.a = a;
+    p.kernel<<<(P.nc + p.threads - 1) / p.threads, p.threads, p.smem, (cudaStream_t)stream>>>(P);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    if (zmb != nullptr)
+      launch_scatter<T, true>(stage, yb, a, P.nc, zmb, stream);
+    else
+      launch_scatter<T, false>(stage, yb, a, P.nc, nullptr, stream);
+    err = (int)cudaGetLastError();
     if (err) return err;
   }
+  return 0;
+}
+
+template <typename T>
+int win_route(const CubeArgs& a, int batch, bool pm, int* out) {
+  WinPlan<T> p;
+  int err = win_plan<T>(a, batch, pm, &p);
+  if (err) return err;
+  int blocks = 0;
+  if (p.route != kWinPoint) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.kernel, p.threads, p.smem);
+    if (err) return err;
+  }
+  out[0] = p.route;
+  out[1] = p.route == kWinPoint ? 0 : p.threads;
+  out[2] = p.route == kWinPoint ? 0 : (int)p.smem;
+  out[3] = blocks;
   return 0;
 }
 
@@ -464,13 +691,34 @@ int oasisx_const_tile(int is_f64, int d, int batch, int* out) {
 
 // y[b] = zmask[b] * A_W (premul[b] * x[b]) with per-cube weights W
 // (nl*nl, ncubes); x, y, premul, zmask (batch, grid), premul and zmask may be
-// null (1).
+// null (1).  stage: the cube-owned product's work buffer, at least
+// min(batch, 4) * nl * ncubes values (stage_len, checked).
 int oasisx_matvec_win(const void* x, const void* W, const void* premul, const void* zmask,
-                      void* y, int is_f64, int d, int n0, int n1, int n2, int deg, int batch,
-                      void* stream) {
+                      void* y, void* stage, long long stage_len, int is_f64, int d, int n0,
+                      int n1, int n2, int deg, int batch, void* stream) {
   if (!cube_fits(d, n0, n1, n2, deg, deg, batch)) return (int)cudaErrorInvalidValue;
-  return batched(is_f64, x, W, y, win_args(d, n0, n1, n2, deg, batch), batch, stream, premul,
-                 zmask);
+  const CubeArgs a = win_args(d, n0, n1, n2, deg, batch);
+  const int nb = batch < kMaxBatch ? batch : kMaxBatch;
+  if (stage == nullptr || stage_len < (long long)nb * a.nl_in * a.c[0] * a.c[1] * a.c[2])
+    return (int)cudaErrorInvalidValue;
+  return is_f64 ? win_product<double>(x, W, premul, zmask, y, stage, a, batch, stream)
+                : win_product<float>(x, W, premul, zmask, y, stage, a, batch, stream);
+}
+
+// The route oasisx_matvec_win takes for a launch of batch (1 to kMaxBatch)
+// components of a d-dimensional degree-deg grid with cells (n0, n1, n2) on
+// the current device, with premul or without: out = (route: 0 point by
+// point, 1 cube-owned with a cube's inputs in registers, 2 cube-owned with
+// them in shared-memory columns; phase A's threads a block, its bytes of
+// dynamic shared memory a block and its blocks an SM (the occupancy
+// calculator), 0 for route 0).  0 or a CUDA error.
+int oasisx_win_route(int is_f64, int d, int n0, int n1, int n2, int deg, int batch, int premul,
+                     int* out) {
+  if (batch > kMaxBatch || !cube_fits(d, n0, n1, n2, deg, deg, batch))
+    return (int)cudaErrorInvalidValue;
+  const CubeArgs a = win_args(d, n0, n1, n2, deg, batch);
+  return is_f64 ? win_route<double>(a, batch, premul != 0, out)
+                : win_route<float>(a, batch, premul != 0, out);
 }
 
 // r[g] = C_all[g] p for g < ncomp; p (grid_q) -> r (ncomp, grid_v).
@@ -537,11 +785,9 @@ int oasisx_cube_scatter(const void* u, void* y, int is_f64, int d, int n0, int n
     const void* ub = static_cast<const char*>(u) + esz * comp * b0;
     void* yb = static_cast<char*>(y) + esz * a.npad_out * b0;
     if (is_f64)
-      cube_scatter_kernel<double><<<block_grid(a), kCubeThreads, 0, (cudaStream_t)stream>>>(
-          static_cast<const double*>(ub), static_cast<double*>(yb), a, (int)ncube);
+      launch_scatter<double, false>(ub, yb, a, (int)ncube, nullptr, stream);
     else
-      cube_scatter_kernel<float><<<block_grid(a), kCubeThreads, 0, (cudaStream_t)stream>>>(
-          static_cast<const float*>(ub), static_cast<float*>(yb), a, (int)ncube);
+      launch_scatter<float, false>(ub, yb, a, (int)ncube, nullptr, stream);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }

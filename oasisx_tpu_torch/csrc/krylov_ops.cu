@@ -56,8 +56,9 @@
 // in L2, so its product is cube-owned and in two phases.  Phase A, a
 // grid-stride loop over cubes: a thread copies its cube's nb * nl inputs
 // once into its own column of shared memory and streams the cube's nl^2
-// weights (27 loads in flight, NL unrolled), coalesced across the warp's
-// neighbouring cubes, into nb * nl staged outputs (stage, (nb, nl, ncubes):
+// weights (27 loads in flight, NL unrolled; cube_device.cuh win_cube, which
+// K3's phase A runs too), coalesced across the warp's neighbouring cubes,
+// into nb * nl staged outputs (stage, (nb, nl, ncubes):
 // 15.1 MB at N=36, 84.9 MB at N=64).  Phase B, after a grid barrier, is
 // the output side of every cube operator: a point sums its <= 2^d staged
 // values in cube_visit's order, with the zmask, the store and the dot
@@ -524,45 +525,21 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
 
-  // A_W y, phase A, cube-owned: stage[b, to, c] = sum_ti W[to nl + ti, c]
-  // y_b[slot ti of cube c], the slots in order.  A thread copies its cube's
-  // nb * nl inputs once into its own shared-memory column, then streams the
-  // cube's nl^2 weights (evict-first: W is read once a product and does not
-  // fit in L2), coalesced across the warp's neighbouring cubes.
+  // A_W y, phase A, cube-owned (cube_device.cuh win_cube, as K3's phase A):
+  // stage[b, to, c] = sum_ti W[to nl + ti, c] y_b[slot ti of cube c], the
+  // slots in order.  A thread copies its cube's nb * nl inputs once into its
+  // own shared-memory column, then streams the cube's nl^2 weights.
   auto cube_products = [&]() {
     for (int c = first; c < nc; c += stride) {
-      const int q = (int)fast_quo((unsigned)c, P.div_c2);
-      const int i0 = (int)fast_quo((unsigned)q, P.div_c1);
-      const int cbase = (i0 * a.g[1] + (q - i0 * a.c[1])) * a.g[2] + (c - q * a.c[2]);
+      const int cbase = cube_base(a, c, P.div_c1, P.div_c2);
 #pragma unroll
       for (int b = 0; b < kMaxBatch; ++b) {
         if (b >= nb) break;
         const T* yb = P.y + b * n + cbase;
         for (int ti = 0; ti < nl; ++ti) xs[(b * nl + ti) * kThreads] = yb[soff[ti]];
       }
-      const T* wc = P.W + c;
-      T* sc = P.stage + c;
-      for (int to = 0; to < nl; ++to) {
-        const T* wt = wc + to * nl * nc;
-        T acc[kMaxBatch];
-#pragma unroll
-        for (int b = 0; b < kMaxBatch; ++b) acc[b] = T(0);
-        auto slot = [&](int ti) {
-          const T w = __ldcs(wt + ti * nc);
-#pragma unroll
-          for (int b = 0; b < kMaxBatch; ++b)
-            if (b < nb) acc[b] += w * xs[(b * nl + ti) * kThreads];
-        };
-        if constexpr (NL > 0) {
-#pragma unroll
-          for (int ti = 0; ti < NL; ++ti) slot(ti);
-        } else {
-          for (int ti = 0; ti < nl; ++ti) slot(ti);
-        }
-#pragma unroll
-        for (int b = 0; b < kMaxBatch; ++b)
-          if (b < nb) sc[(b * nl + to) * nc] = acc[b];
-      }
+      win_cube<T, NL, NB>(P.W + c, P.stage + c, nl, nb, nc,
+                          [&](int b, int ti) { return xs[(b * nl + ti) * kThreads]; });
     }
   };
   // A_W y, phase B, after a grid barrier: acc[b] at output point idx, the

@@ -205,21 +205,12 @@ def bicgstab(W: torch.Tensor, r0, x0, zmask, invd, bnorm, sm, rtol: float, maxit
         return _bicgstab_kernel(W, stage, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter, atol)
 
 
-def _check_stage(stage, B: int, nl: int, nc: int, dtype: torch.dtype) -> None:
-    """K2's staging buffer: a contiguous (B, nl, ncubes) tensor of the
-    solve's dtype, where each product's per-cube outputs go before they are
-    summed into the points."""
-    if not isinstance(stage, torch.Tensor):
-        raise ValueError(f"stage: expected a ({B}, {nl}, {nc}) tensor, got {stage!r}")
-    kn._check(stage, "stage", dtype, (B, nl, nc))
-
-
 def _bicgstab_kernel(W, stage, r0, x0, zmask, invd, bnorm, sm, rtol, maxiter,
                      atol) -> KrylovResult:
     B, npad = _vectors(sm, r0, x0, invd, bnorm, ("zmask", zmask))
     nl, nc = cub.num_slots(sm), int(np.prod(sm[1]))
     kn._check(W, "W", r0.dtype, (nl * nl, nc))
-    _check_stage(stage, B, nl, nc, r0.dtype)
+    kn._check_stage(stage, B, nl, nc, r0.dtype)
     o = _outputs(r0, B, 5, npad, bnorm, rtol, atol)
     p = kn._ptr
     kn._call("bicgstab", p(W), p(r0), p(x0), p(zmask), p(invd), p(o["tol"]), p(o["x"]),

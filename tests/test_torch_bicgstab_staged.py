@@ -1,15 +1,16 @@
-"""K2's in-solve product in the order of its two phases (``csrc/krylov_ops.cu``),
-on the CPU with NumPy and torch alone:
+"""K2's in-solve product, and K3's, in the order of their two phases
+(``csrc/krylov_ops.cu``, ``csrc/cube_ops.cu``), on the CPU with NumPy and
+torch alone:
 
 - ``kernels.matvec_win_staged_plain`` (per cube, each output slot sums its
   input slots in order into a staged value; then each point sums its
   cubes' staged values in ``cube_visit``'s order) equals
   ``matvec_win_plain`` (one einsum over the cube, then the cube scatter) in
-  float64 on the N=4 cube, the 20x27x33 box and the 2D 41x57 rectangle,
-  at batch 1 and 3, with and without the premul and zmask multipliers.
-  The two sum each cube's terms in another order, so they agree to 1e-13
-  of the output's largest value (a few ulps of a sum of 27 products), not
-  bit for bit;
+  float64 on the P2 N=4 cube, the 20x27x33 box and the 2D 41x57 rectangle,
+  and on P1 and P3 3D grids, at batch 1-4, with and without the premul and
+  zmask multipliers.  The two sum each cube's terms in another order, so
+  they agree to 1e-13 of the output's largest value (a few ulps of a sum of
+  27 or 64 products), not bit for bit;
 - ``bicgstab_from_r0`` on the staged product takes the same iterations per
   row as on ``matvec_win_plain`` on the first tentative system of the N=4
   Taylor-Green problem in float64, x to 1e-12;
@@ -36,27 +37,29 @@ from oasisx_tpu_torch.meshes import create_box, create_rectangle  # noqa: E402
 from oasisx_tpu_torch.spaces.functionspace import FunctionSpace  # noqa: E402
 
 GRIDS = ((4, 4, 4), (20, 27, 33), (41, 57))
+DEGREE_GRIDS = (((4, 4, 4), 1), ((3, 4, 5), 3))  # (cells, degree): the P1 and P3 cubes
 
 
-def _sm(cells):
+def _sm(cells, deg=2):
     d = len(cells)
     mesh = (create_box((-1.0,) * 3, (1.0,) * 3, cells) if d == 3
             else create_rectangle((-1.0,) * 2, (1.0,) * 2, cells))
-    el = make_element(("Lagrange", 2), mesh.cell_type)
+    el = make_element(("Lagrange", deg), mesh.cell_type)
     return build_structured_map(mesh, el, FunctionSpace(mesh, el).dofmap)[0]
 
 
 @pytest.fixture(scope="module")
 def maps():
-    return {cells: _sm(cells) for cells in GRIDS}
+    """The P2 maps by their cells, the others by (cells, degree)."""
+    return {**{cells: _sm(cells) for cells in GRIDS}, **{g: _sm(*g) for g in DEGREE_GRIDS}}
 
 
 @pytest.mark.parametrize("mult", ["none", "premul", "zmask", "both"])
-@pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("cells", GRIDS)
+@pytest.mark.parametrize("batch", [1, 3, 2, 4])
+@pytest.mark.parametrize("cells", GRIDS + DEGREE_GRIDS)
 def test_staged_product_equals_plain(maps, cells, batch, mult):
     sm = maps[cells]
-    rng = np.random.default_rng(sum(cells) + batch)
+    rng = np.random.default_rng(int(np.hstack(cells).sum()) + batch)
     nl, nc, npad = cub.num_slots(sm), int(np.prod(sm[1])), int(np.prod(sm[0]))
     t = lambda *shape: torch.as_tensor(rng.standard_normal(shape))
     W, x = t(nl * nl, nc), t(batch, npad)
@@ -104,4 +107,4 @@ def test_wrapper_refuses_bad_stage(maps, bad):
     with pytest.raises((TypeError, ValueError), match="stage"):
         fused._bicgstab_kernel(W, stage, z, z, z, torch.ones(npad, dtype=torch.float64),
                                torch.ones(B, dtype=torch.float64), sm, 1e-8, 5, 1e-50)
-    fused._check_stage(torch.zeros((B, nl, nc), dtype=torch.float64), B, nl, nc, torch.float64)
+    kn._check_stage(torch.zeros((B, nl, nc), dtype=torch.float64), B, nl, nc, torch.float64)

@@ -29,7 +29,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    without its multipliers, on grids that take each of its routes; each K3
    line names the route of its launches (point by point, or cube-owned
    with the inputs in registers or in shared memory), and each timed K3
-   case the bytes of its product and the rate.
+   case the bytes of its product and the rate.  K6 and K7 on the degree
+   pairs P2/P1 (block-tiled), P1/P1 and P3/P2 (point by point) in 3D and
+   2D, on grids below and above one tile, with random matrices, in float64
+   and float32: against the plain version and against the staged plain
+   version (the tiled kernels' order of sums), at phase 3's tolerances,
+   padding zero, a repeat bit-identical; each line names its route, and
+   each K6 and K7 line of the cube kernel cases its route, its tile, shared
+   memory and blocks an SM, the bytes of a product and the rate.
    The whole solves on the main path's systems: the mass CG (K4) on M_c
    with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
@@ -644,6 +651,9 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
             if name == "matvec_win" and torch.device(device).type == "cuda":
                 batch, pm, _ = win_case(label, solver)
                 route = ", route " + win_route(solver._sm_v, batch, pm, dtype)["name"]
+            if name in ("mixed", "divergence") and torch.device(device).type == "cuda":
+                route = ", route " + mixed_route(solver._sm_v, solver._sm_q,
+                                                 name == "divergence", dtype)["name"]
             print(f"  {name:13s} {label:20s} {dt}: max abs err {err:.3e}, rel {rel:.3e}"
                   f" (tol {tol:g}), padding zero: {pad_zero}, repeat bit-identical: {same}{route}")
             check(rel <= tol, f"{name} ({label}, {dt}) disagrees: rel err {rel:.3e}")
@@ -656,6 +666,9 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
                 k5_report(solver, dtype, out[name][-1])
             if name == "matvec_win" and torch.device(device).type == "cuda":
                 win_report(solver, dtype, out[name][-1], label)
+            if name in ("mixed", "divergence") and label.startswith("B_c") and \
+                    torch.device(device).type == "cuda":
+                mixed_report(solver, dtype, out[name][-1], name == "divergence")
     return out
 
 
@@ -905,6 +918,144 @@ def win_report(solver, dtype, rec: dict, label: str) -> None:
           f"{moved / 1e6:.1f} MB in {rec['ms']:.4f} ms: {moved / rec['ms'] / 1e9:.3f} TB/s")
 
 
+MIXED_ROUTES = ("point by point", "block-tiled")
+
+
+def mixed_route(sm_v, sm_q, div: bool, dtype) -> dict:
+    """K6's (``div`` false) or K7's route for the d components of ``sm_v``'s
+    and ``sm_q``'s grids, as ``oasisx_mixed`` / ``oasisx_divergence`` choose
+    it (``oasisx_mixed_route``): its name, and on the tiled route the tile
+    (3D form), shared memory a block and blocks an SM."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().oasisx_mixed_route(int(dtype == torch.float64), int(div),
+                                              *kn._dims(sm_v), int(sm_v[2]), int(sm_q[2]),
+                                              len(sm_v[1]), kn._ptr(out))
+    check(err == 0, f"no {'K7' if div else 'K6'} route for {dtype}: CUDA error {err}")
+    r, t0, t1, t2, smem, blocks = out.tolist()
+    return {"name": MIXED_ROUTES[r], "tile": (t0, t1, t2), "smem": smem, "blocks": blocks}
+
+
+def mixed_report(solver, dtype, rec: dict, div: bool) -> None:
+    """K6's (``div`` false) or K7's tile at the solver's shapes: the tile, its
+    shared memory, the blocks an SM the card runs, the bytes a product moves
+    (the P1 vector and the d P2 components once, C_all) and the rate of
+    ``rec``'s time."""
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    r = mixed_route(solver._sm_v, solver._sm_q, div, dtype)
+    d = solver._mesh.dim
+    isz = torch.empty((), dtype=dtype).element_size()
+    nl, nlq = cub.num_slots(solver._sm_v), cub.num_slots(solver._sm_q)
+    moved = isz * (d * solver._npad_v + solver._npad_q + d * nl * nlq)
+    print(f"    {'K7' if div else 'K6'} route {r['name']}, tile {r['tile']} (3D form), {r['smem']} "
+          f"bytes of shared memory a block, {r['blocks']} blocks an SM; a product moves "
+          f"{moved / 1e6:.2f} MB: {moved / rec['ms'] / 1e9:.3f} TB/s")
+
+
+def sweep_map(cells, deg: int, device):
+    """The structured map of Lagrange degree ``deg`` on a box (3D) or a
+    rectangle (2D) of ``cells``, and the mask of its grid points that are
+    not padding, on ``device``: the grids of the K3 and K6/K7 sweeps."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly.structured import build_structured_map
+    from oasisx_tpu_torch.elements.element import make_element
+    from oasisx_tpu_torch.meshes import create_box, create_rectangle
+    from oasisx_tpu_torch.spaces.functionspace import FunctionSpace
+
+    d = len(cells)
+    mesh = (create_box((-1.0,) * 3, (1.0,) * 3, cells) if d == 3
+            else create_rectangle((-1.0,) * 2, (1.0,) * 2, cells))
+    el = make_element(("Lagrange", deg), mesh.cell_type)
+    sm = build_structured_map(mesh, el, FunctionSpace(mesh, el).dofmap)[0]
+    ones = torch.ones((1, cub.num_slots(sm), int(np.prod(sm[1]))), dtype=torch.float64)
+    return sm, (cub.cube_scatter(ones, sm)[0] != 0).to(device)
+
+
+# (cells, (velocity degree, pressure degree) pairs) of K6's and K7's sweep:
+# the P2/P1 pair takes the tiled route on every grid (the two small ones
+# below one tile on some axis), the other pairs the point-by-point one
+MIXED_PAIRS = ((2, 1), (1, 1), (3, 2))
+MIXED_SWEEP = (((5, 6, 7), MIXED_PAIRS), ((9, 11), MIXED_PAIRS), ((26, 26, 26), MIXED_PAIRS),
+               ((130, 131), MIXED_PAIRS))
+
+
+def mixed_sweep_cases(device, grids=MIXED_SWEEP, seed: int = 8):
+    """(kernel, label, maps (sm_v, sm_q), dtype, kernel call, plain call,
+    staged-plain call, padded-output mask) of K6 and K7 on every degree pair
+    of ``grids``, in float64 and float32, on random vectors and random
+    matrices C_all (d, nl_v, nl_q) made from ``seed``."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for cells, pairs in grids:
+        d = len(cells)
+        for dv, dq in pairs:
+            (sm_v, valid_v), (sm_q, valid_q) = (sweep_map(cells, dv, device),
+                                                sweep_map(cells, dq, device))
+            label = f"{d}D P{dv}/P{dq} {'x'.join(map(str, cells))}"
+            for dtype in (torch.float64, torch.float32):
+                t = lambda *shape: torch.as_tensor(rng.standard_normal(shape)).to(device, dtype)
+                C = t(d, cub.num_slots(sm_v), cub.num_slots(sm_q))
+                p = t(valid_q.numel()) * valid_q
+                u = t(d, valid_v.numel()) * valid_v
+                m = (sm_v, sm_q)
+                cases.append(("mixed", label, m, dtype,
+                              lambda C=C, p=p, m=m: kn.mixed(p, C, *m),
+                              lambda C=C, p=p, m=m: kn.mixed_plain(p, C, *m),
+                              lambda C=C, p=p, m=m: kn.mixed_staged_plain(p, C, *m), valid_v))
+                cases.append(("divergence", label, m, dtype,
+                              lambda C=C, u=u, m=m: kn.divergence(u, C, *m),
+                              lambda C=C, u=u, m=m: kn.divergence_plain(u, C, *m),
+                              lambda C=C, u=u, m=m: kn.divergence_staged_plain(u, C, *m),
+                              valid_q))
+    return cases
+
+
+def check_mixed_sweep(device, grids=MIXED_SWEEP) -> None:
+    """Phase 3: every case of mixed_sweep_cases against its plain version and
+    its staged plain version (f64 to 1e-12, f32 to 1e-5 of the output's
+    largest value), padding zero, a repeat bit-identical; a line for each
+    kernel, grid, pair and type, with its errors and, on the card, its route
+    (and tile)."""
+    import torch
+
+    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    for name, label, maps, dtype, kfn, pfn, sfn, valid in mixed_sweep_cases(device, grids):
+        yk, yk2, yp, ys = kfn(), kfn(), pfn(), sfn()
+        _sync(device)
+        scale = max(float(yp.abs().max()), 1e-300)
+        rel = float((yk - yp).abs().max()) / scale
+        rs = float((yk - ys).abs().max()) / scale
+        dt = str(dtype).replace("torch.", "")
+        what = f"{name} ({label}, {dt})"
+        check(rel <= tols[dtype], f"{what} disagrees: rel err {rel:.3e}")
+        check(rs <= tols[dtype], f"{what} disagrees with its staged order: rel err {rs:.3e}")
+        check(bool((yk[..., ~valid] == 0).all()), f"{what} wrote non-zero padding")
+        check(torch.equal(yk, yk2), f"{what}: a second kernel call differs from the first")
+        route = ""
+        if torch.device(device).type == "cuda":
+            r = mixed_route(*maps, name == "divergence", dtype)
+            route = f"; route {r['name']}" + (f", tile {r['tile']}, {r['blocks']} blocks an SM"
+                                              if r["name"] != MIXED_ROUTES[0] else "")
+        print(f"  {name:13s} {label:18s} {dt}: rel err {rel:.3e}, against the staged order "
+              f"{rs:.3e} (tol {tols[dtype]:g}), padding zero, repeat bit-identical{route}")
+
+
 # (cells, degrees) of K3's sweep: the small grids have fewer cubes than one
 # block of phase A an SM and go point by point on the card, the large ones
 # (17,576 and 17,030 cubes) cube-owned
@@ -923,23 +1074,14 @@ def win_sweep_cases(device, grids=WIN_SWEEP, seed: int = 7):
 
     from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
-    from oasisx_tpu_torch.assembly.structured import build_structured_map
-    from oasisx_tpu_torch.elements.element import make_element
-    from oasisx_tpu_torch.meshes import create_box, create_rectangle
-    from oasisx_tpu_torch.spaces.functionspace import FunctionSpace
 
     rng = np.random.default_rng(seed)
     cases = []
     for cells, degrees in grids:
         d = len(cells)
-        mesh = (create_box((-1.0,) * 3, (1.0,) * 3, cells) if d == 3
-                else create_rectangle((-1.0,) * 2, (1.0,) * 2, cells))
         for deg in degrees:
-            el = make_element(("Lagrange", deg), mesh.cell_type)
-            sm = build_structured_map(mesh, el, FunctionSpace(mesh, el).dofmap)[0]
+            sm, valid = sweep_map(cells, deg, device)
             nl, nc, npad = cub.num_slots(sm), int(np.prod(sm[1])), int(np.prod(sm[0]))
-            valid = (cub.cube_scatter(torch.ones((1, nl, nc), dtype=torch.float64), sm)[0]
-                     != 0).to(device)
             label = f"{d}D P{deg} {'x'.join(map(str, cells))}"
             for dtype in (torch.float64, torch.float32):
                 t = lambda *shape: torch.as_tensor(rng.standard_normal(shape)).to(device, dtype)
@@ -1827,6 +1969,8 @@ def main() -> int:
     gather_loops(solver)
     print("[3] K3 on every cube degree and batch")
     check_win_sweep("cuda")
+    print("[3] K6 and K7 on every degree pair")
+    check_mixed_sweep("cuda")
     box_solves: dict = {}
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)

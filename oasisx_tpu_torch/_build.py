@@ -52,6 +52,7 @@ _SIGNATURES = {
     "oasisx_win_route": [I] * 8 + [P],
     "oasisx_mixed": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oasisx_divergence": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "oasisx_mixed_route": [I] * 9 + [P],
     "oasisx_cube_gather": [P, P, I, I, I, I, I, I, I, P],
     "oasisx_cube_gather_loop": [P, P, I, I, I, I, I, I, I, P],
     "oasisx_cube_scatter": [P, P, I, I, I, I, I, I, I, P],

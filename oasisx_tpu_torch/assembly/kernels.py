@@ -33,9 +33,12 @@ versions, so a run can show which path it took.
 
 ``matvec_const`` on the P2 cube (K5) and K4's product run the block-tiled
 product of ``csrc/cube_device.cuh``, whose tile (base points a block owns
-per axis) the entry points choose there (``tile_choose``);
-``matvec_const_staged_plain`` is its order of sums as tensor code, for the
-tests (``matvec_win_staged_plain`` is K3's and K2's).
+per axis) the entry points choose there (``tile_choose``), and so do
+``mixed`` (K6) and ``divergence`` (K7) on the P2/P1 pair (``tile_mixed``;
+any other pair point by point); ``matvec_const_staged_plain``,
+``mixed_staged_plain`` and ``divergence_staged_plain`` are their orders of
+sums as tensor code, for the tests (``matvec_win_staged_plain`` is K3's and
+K2's).
 
 Also here: ``conv_weight_tensor`` and ``build_w`` (the per-cube weights of
 the tentative operator, one matmul), and ``build_pressure_mg_data`` (the
@@ -215,12 +218,13 @@ def matvec_const_staged_plain(x: torch.Tensor, C: torch.Tensor, sm: StructuredMa
 
 
 def _staged_sum(Wt: torch.Tensor, U: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
-    """Per cube, each output slot sums its nl input slots in slot order
-    (Wt (nl, nl, ncubes or 1), U (B, nl, ncubes)); then each point sums its
-    cubes' values in ``cube_visit``'s order, which is ``cubes.cube_scatter``'s."""
-    Y = torch.zeros_like(U)
-    for ti in range(U.shape[1]):
-        Y = Y + Wt[:, ti] * U[:, ti : ti + 1]
+    """Per cube, each output slot sums its input slots in slot order (Wt
+    (..., nl_out, nl_in, ncubes or 1) against U (B, nl_in, ncubes), the
+    leading axes broadcast); then each point of ``sm``'s grid sums its cubes'
+    values in ``cube_visit``'s order, which is ``cubes.cube_scatter``'s."""
+    Y = 0.0
+    for ti in range(U.shape[-2]):
+        Y = Y + Wt[..., ti, :] * U[..., ti : ti + 1, :]
     return cub.cube_scatter(Y, sm)
 
 
@@ -256,6 +260,28 @@ def mixed_plain(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tenso
 def divergence_plain(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
     plain_calls["divergence"] += 1
     return cub.divergence_cube(u, B_all, sm_v, sm_q)
+
+
+def mixed_staged_plain(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    """``mixed_plain`` summed in the order of K6's tiled product
+    (``csrc/cube_device.cuh`` ``tile_mixed``): per cube, each output slot of
+    each component g sums the cube's nl_q inputs in slot order against C_g's
+    row; then each velocity point sums its cubes' staged values in
+    ``cube_visit``'s order.  For the tests."""
+    U = cub.cube_gather(p[None], sm_q)  # (1, nl_q, nc)
+    return _staged_sum(C_all[..., None], U, sm_v)
+
+
+def divergence_staged_plain(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
+    """``divergence_plain`` summed in the order of K7's tiled product
+    (``csrc/cube_device.cuh`` ``tile_mixed``): per cube, each output slot
+    sums the components g in order and, in each, the cube's nl_v input slots
+    in slot order against B_g's column; then each pressure point sums its
+    cubes' staged values in ``cube_visit``'s order.  For the tests."""
+    d, nl_v, nl_q = B_all.shape
+    U = cub.cube_gather(u, sm_v).reshape(1, d * nl_v, -1)  # slots (g, ti), g first
+    Wt = B_all.permute(2, 0, 1).reshape(nl_q, d * nl_v, 1)
+    return _staged_sum(Wt, U, sm_q)[0]
 
 
 def cube_gather_plain(x: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
@@ -391,7 +417,9 @@ def _matvec_win_kernel(W, x, sm, premul, zmask, stage) -> torch.Tensor:
 
 
 def mixed(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
-    """r_g = C_all[g] p for every component g: (npad_q,) -> (d, npad_v)."""
+    """r_g = C_all[g] p for every component g: (npad_q,) -> (d, npad_v).  On
+    the card the P2/P1 pair with d components takes the block-tiled product,
+    any other pair the point-by-point one (chosen in ``csrc/cube_ops.cu``)."""
     if not _route(p, C_all):
         return mixed_plain(p, C_all, sm_v, sm_q)
     if tuple(sm_v[1]) != tuple(sm_q[1]):
@@ -408,7 +436,8 @@ def mixed(p: torch.Tensor, C_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
 
 
 def divergence(u: torch.Tensor, B_all: torch.Tensor, sm_v, sm_q) -> torch.Tensor:
-    """b2 = sum_g B_all[g]^T u[g]: (d, npad_v) -> (npad_q,)."""
+    """b2 = sum_g B_all[g]^T u[g]: (d, npad_v) -> (npad_q,).  Routes as
+    ``mixed``'s."""
     if not _route(u, B_all):
         return divergence_plain(u, B_all, sm_v, sm_q)
     if tuple(sm_v[1]) != tuple(sm_q[1]):

@@ -9,16 +9,17 @@
 // b_k = n_k are padding and give 0.
 //
 // Three forms, all deterministic, with no atomics.  Point by point
-// (cube_point; K6, K7, K12, K1): the caller owns one output grid point
-// (parity p, base b) for every output component.  It sums
-// over the <= 2^d cubes b - delta that contain the point (delta_k in {0,1}
-// on the axes with p_k == 0; the point is slot t = p + deg*delta of that
-// cube), and for each cube over the nl_in input slots, in a fixed order, so
-// a run repeats bit for bit.  Each (output slot, cube) pair belongs to
-// exactly one output point, so each entry of a per-cube weight array is
-// read once per application, for all components together; but each input
-// is read once for every output slot of every cube that holds it.  Block-
-// tiled (tile_product, below; the P2 constant product of K5 and K4): a
+// (cube_point; K12, K1, and K6 and K7 off the P2/P1 pair): the caller owns
+// one output grid point (parity p, base b) for every output component.  It
+// sums over the <= 2^d cubes b - delta that contain the point (delta_k in
+// {0,1} on the axes with p_k == 0; the point is slot t = p + deg*delta of
+// that cube), and for each cube over the nl_in input slots, in a fixed
+// order, so a run repeats bit for bit.  Each (output slot, cube) pair
+// belongs to exactly one output point, so each entry of a per-cube weight
+// array is read once per application, for all components together; but
+// each input is read once for every output slot of every cube that holds
+// it.  Block-tiled (tile_product and tile_mixed, below; the P2 constant
+// product of K5 and K4, and K6's and K7's products on the P2/P1 pair): a
 // block reads a box of inputs once into shared memory, a thread a cube
 // computes all the cube's output slots into a stage, and each owned point
 // sums its cubes' staged values through cube_visit.  Cube-owned with
@@ -368,67 +369,86 @@ __device__ __forceinline__ void win_cube(const T* W, T* stage, int nl, int nb, i
 }
 
 // ---------------------------------------------------------------------------
-// The block-tiled, cube-owned product of a constant P2 cube matrix (K5, K4)
+// The block-tiled, cube-owned product of a constant cube matrix (K5 and K4 on
+// the P2 cube, K6 and K7 on the P2/P1 pair)
 // ---------------------------------------------------------------------------
 //
 // A block owns a tile: a box of a.tile[k] base points per axis (3D form), all
-// parity channels.  The cubes that hold an owned point are b - delta, so the
-// tile's cubes reach one cube below the box on each axis (the halo, which
-// every block recomputes: no block reads another's results).  Three steps,
-// with block barriers between them, in one buffer of shared memory:
-//   the box: the inputs of every cube of the tile, as a fine-lattice box
-//     (2 ncu_k + 1 points an axis for ncu_k cubes), each read once from
-//     global memory by the caller's load(b, i);
-//   phase 1: a thread a cube keeps the cube's nl * nb inputs in registers,
-//     and for each output slot sums its nl inputs in slot order against the
-//     matrix row (16-byte shared loads, the same address in every lane) into
-//     the stage (nb, nl, cubes of the tile), which overwrites the box;
-//   phase 2: a thread an owned point sums its <= 2^d staged values in
-//     cube_visit's order and hands them to the caller's store(i, acc).
+// parity channels of the output grid.  The cubes that hold an owned point
+// are b - delta, so the tile's cubes reach one cube below the box on each
+// axis (the halo, which every block recomputes: no block reads another's
+// results).  Three steps, with block barriers between them, in one buffer of
+// shared memory:
+//   the box (tile_box): the inputs of every cube of the tile on the input
+//     grid's lattice (deg_in ncu_k + 1 points an axis for ncu_k cubes), each
+//     read once from global memory by the caller's load(i, v);
+//   phase 1: a thread a cube computes all the cube's outputs into the stage
+//     (output components, output slots, cubes of the tile), which overwrites
+//     the box once the block has read what it needs of it.  The matrix rows
+//     come from shared memory in 16-byte loads, the same address in every
+//     lane.  tile_product (K5, K4): the cube's nl * nb inputs in registers,
+//     each output slot sums its nl inputs in slot order.  tile_mixed, K6
+//     (P1 in, d P2 components out): the cube's 2^d inputs in registers, each
+//     output slot of each component sums them in slot order.  tile_mixed, K7
+//     (d P2 components in, P1 out): the cube's 2^d outputs in registers, each
+//     summing the components in order and, in each, the 3^d input slots in
+//     order, read from the box;
+//   phase 2 (tile_sum): a thread an owned output point sums its <= 2^d
+//     staged values in cube_visit's order and hands them to the caller's
+//     store(i, acc, pad).
 // No atomics, and one order of sums: per cube, slot by slot, then per point
-// over its cubes, as kernels.matvec_const_staged_plain.  Each input is read
-// once a tile, not once for each output slot of each cube that holds it (27
-// times a product, as cube_point does).
+// over its cubes, as kernels.matvec_const_staged_plain, mixed_staged_plain
+// and divergence_staged_plain.  Each input is read once a tile, not once for
+// each output slot of each cube that holds it (as cube_point does).
 
 constexpr int kTileThreads = 256;  // threads a block of the tiled product: at most one cube each
 
-// Row stride of the staged matrix: nl rounded up to whole 16-byte loads.
+// Row stride of a staged matrix of nc columns: nc rounded up to whole 16-byte loads.
 template <typename T>
-__host__ __device__ constexpr int tile_ld(int nl) {
-  return (nl + (int)(16 / sizeof(T)) - 1) / (int)(16 / sizeof(T)) * (int)(16 / sizeof(T));
+__host__ __device__ constexpr int tile_ld(int nc) {
+  return (nc + (int)(16 / sizeof(T)) - 1) / (int)(16 / sizeof(T)) * (int)(16 / sizeof(T));
 }
 
-// Bytes of shared memory of one tile at batch nb: the staged matrix, then
-// the larger of the box and the stage (the stage is never the smaller in
-// 2D or 3D, but the buffer holds both in turn).
+// Bytes of shared memory of one tile: a staged matrix of `rows` rows of
+// tile_ld(cols), then the larger of the box (nbx input components on the
+// input lattice) and the stage (nbs components of nl_out slots a cube); the
+// buffer holds both in turn.
 template <typename T>
-inline size_t tile_smem(const CubeArgs& a, int nb) {
+inline size_t tile_bytes(const CubeArgs& a, int rows, int cols, int nbx, int nbs) {
   int64_t cubes = 1, box = 1;
   for (int k = 0; k < 3; ++k)
-    if (a.par[k] > 1) {
+    if (a.g[k] > 1) {
       cubes *= a.tile[k] + 1;
-      box *= 2 * (a.tile[k] + 1) + 1;
+      box *= a.deg_in * (a.tile[k] + 1) + 1;
     }
-  const size_t mat = (sizeof(T) * a.nl_in * tile_ld<T>(a.nl_in) + 15) & ~size_t(15);
-  const int64_t buf = a.nl_in * cubes > box ? a.nl_in * cubes : box;
-  return mat + sizeof(T) * nb * buf;
+  const size_t mat = (sizeof(T) * rows * tile_ld<T>(cols) + 15) & ~size_t(15);
+  const int64_t stage = (int64_t)nbs * a.nl_out * cubes, in = (int64_t)nbx * box;
+  return mat + sizeof(T) * (stage > in ? stage : in);
 }
 
-// Set the tile of a deg-2 operator: a.tile = (t0, t1, t2) in the 3D form (t0
-// is 1 on a 2D grid's leading axis), at most kTileThreads cubes a tile and
-// launchable tile counts.  False for any other tile.
+// K5's tile at batch nb: the (nl, nl) matrix, nb components in and out (the
+// stage is never the smaller in 2D or 3D).
+template <typename T>
+inline size_t tile_smem(const CubeArgs& a, int nb) {
+  return tile_bytes<T>(a, a.nl_in, a.nl_in, nb, nb);
+}
+
+// Set the tile of an operator of degrees (deg_out, deg_in) (2, 2), (2, 1) or
+// (1, 2): a.tile = (t0, t1, t2) in the 3D form (t0 is 1 on a 2D grid's
+// leading axis, the one axis of a single base point), at most kTileThreads
+// cubes a tile and launchable tile counts.  False for any other tile.
 inline bool tile_set(CubeArgs& a, const int (&t)[3]) {
   int64_t cubes = 1;
   for (int k = 0; k < 3; ++k) {
-    if (t[k] < 1 || (a.par[k] == 1 && t[k] != 1)) return false;
-    cubes *= a.par[k] > 1 ? t[k] + 1 : 1;
+    if (t[k] < 1 || (a.g[k] == 1 && t[k] != 1)) return false;
+    cubes *= a.g[k] > 1 ? t[k] + 1 : 1;
     a.tile[k] = t[k];
     a.ntile[k] = (a.g[k] + t[k] - 1) / t[k];
     a.div_tile[k] = fast_div(t[k]);
     a.div_ntile[k] = fast_div(a.ntile[k]);
   }
-  return a.deg_out == 2 && a.deg_in == 2 && cubes <= kTileThreads && a.ntile[0] <= 65535 &&
-         a.ntile[1] <= 65535;
+  return a.deg_out <= 2 && a.deg_in <= 2 && a.deg_out + a.deg_in >= 3 && cubes <= kTileThreads &&
+         a.ntile[0] <= 65535 && a.ntile[1] <= 65535;
 }
 
 // Values a thread that K4 (krylov_ops.cu) keeps for its block reduction
@@ -443,16 +463,14 @@ inline size_t tile_block_smem(const CubeArgs& a, int nb) {
   return ((tile_smem<T>(a, nb) + 15) & ~size_t(15)) + sizeof(T) * kTileRed * kTileThreads;
 }
 
-// Choose and set (tile_set) the tile of a deg-2 operator at nb <= kMaxBatch
-// components: the first candidate whose tile_block_smem lets two blocks
-// share an SM of the current device (K5 and K4 run two blocks an SM, at
-// most 128 registers a thread).  In 3D, 3 x 7 x 7 fills the 256 threads
-// with cubes (4 x 8 x 8 with the halo), the most owned points a cube of the
-// shapes that do; float64 and batch 4 take a smaller one.  A 2D grid takes
-// 1 x 15 x 15 (16 x 16 cubes) at every batch of both types.  False where
-// none fits or the device cannot be asked.
-template <typename T>
-inline bool tile_choose(CubeArgs& a, int nb) {
+// Choose and set (tile_set) a tile: the first candidate whose bytes(a) of
+// shared memory a block let `blocks` blocks share an SM of the current
+// device.  In 3D, 3 x 7 x 7 fills the 256 threads with cubes (4 x 8 x 8 with
+// the halo), the most owned points a cube of the shapes that do; 3 x 3 x 7
+// and 1 x 3 x 7 need less shared memory.  A 2D grid takes 1 x 15 x 15 (16 x
+// 16 cubes).  False where none fits or the device cannot be asked.
+template <typename Bytes>
+inline bool tile_pick(CubeArgs& a, int blocks, Bytes&& bytes) {
   constexpr int k3[3][3] = {{3, 7, 7}, {3, 3, 7}, {1, 3, 7}};
   constexpr int k2[1][3] = {{1, 15, 15}};
   int dev = 0, per_sm = 0, reserved = 0;
@@ -462,21 +480,31 @@ inline bool tile_choose(CubeArgs& a, int nb) {
       cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
           cudaSuccess)
     return false;
-  const size_t two = (size_t)(per_sm / 2 - reserved);
-  const bool three = a.par[0] > 1;
+  const size_t fit = (size_t)(per_sm / blocks - reserved);
+  const bool three = a.g[0] > 1;
   for (int i = 0; i < (three ? 3 : 1); ++i)
-    if (tile_set(a, three ? k3[i] : k2[i]) && tile_block_smem<T>(a, nb) <= two) return true;
+    if (tile_set(a, three ? k3[i] : k2[i]) && bytes(a) <= fit) return true;
   return false;
 }
 
-// Stage the constant matrix (nl, nl) in rows of tile_ld(NL), zero-padded.
-// The caller's first tile_product synchronises the block before use.
-template <typename T, int NL>
-__device__ __forceinline__ void tile_stage(const T* mat, T* smat) {
-  constexpr int LD = tile_ld<T>(NL);
-  for (int i = threadIdx.x; i < NL * LD; i += blockDim.x) {
-    const int to = i / LD, ti = i - to * LD;
-    smat[i] = ti < NL ? mat[to * NL + ti] : T(0);
+// K5's and K4's tile at nb <= kMaxBatch components: two blocks an SM (K5 and
+// K4 run two, at most 128 registers a thread), counting K4's reduction.
+// float32 takes 3 x 7 x 7 up to batch 3; float64 and batch 4 take a smaller
+// one.
+template <typename T>
+inline bool tile_choose(CubeArgs& a, int nb) {
+  return tile_pick(a, 2, [nb](const CubeArgs& c) { return tile_block_smem<T>(c, nb); });
+}
+
+// Stage a constant matrix of `rows` rows of NC values in rows of
+// tile_ld(NC), zero-padded.  The caller's first tile_box synchronises the
+// block before use.
+template <typename T, int NC>
+__device__ __forceinline__ void tile_stage(const T* mat, T* smat, int rows = NC) {
+  constexpr int LD = tile_ld<T>(NC);
+  for (int i = threadIdx.x; i < rows * LD; i += blockDim.x) {
+    const int r = i / LD, c = i - r * LD;
+    smat[i] = c < NC ? mat[r * NC + c] : T(0);
   }
 }
 
@@ -498,21 +526,163 @@ struct Vec16<double> {
   __device__ static double get(const double2& v, int u) { return u == 0 ? v.x : v.y; }
 };
 
+// Tile (i0, i1, i2) of a D-dimensional grid on the 3D form: per axis its
+// first owned base point B0, first cube lo, cubes ncu, box points F (inputs
+// of degree DI: DI ncu + 1 on a real axis, 1 on a 2D grid's leading axis)
+// and owned base points; its cubes, and the box's plane and points (one
+// component).
+struct TileGeo {
+  int B0[3], lo[3], ncu[3], F[3], own[3];
+  int ncubes, plane, boxpts;
+};
+
+template <int DI, int D>
+__device__ __forceinline__ TileGeo tile_geo(const CubeArgs& a, int i0, int i1, int i2) {
+  TileGeo t;
+  const int it[3] = {i0, i1, i2};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    t.B0[k] = it[k] * a.tile[k];
+    t.lo[k] = t.B0[k] > 0 ? t.B0[k] - 1 : 0;
+    const int hi = min(a.c[k] - 1, t.B0[k] + a.tile[k] - 1);
+    t.ncu[k] = hi - t.lo[k] + 1;
+    t.F[k] = D == 3 || k > 0 ? DI * t.ncu[k] + 1 : 1;
+    t.own[k] = min(a.tile[k], a.g[k] - t.B0[k]);
+  }
+  t.ncubes = t.ncu[0] * t.ncu[1] * t.ncu[2];
+  t.plane = t.F[1] * t.F[2];
+  t.boxpts = t.F[0] * t.plane;
+  return t;
+}
+
+// The box, after a block barrier (the previous tile's readers of sbuf are
+// done, and the matrix is staged): box point (b, f) at sbuf[b boxpts + (f0
+// F1 + f1) F2 + f2], for b < nb; fine point f of an axis is parity f % DI of
+// base lo + f / DI (DI 1 or 2) on the input grid, whose channels are
+// a.plane points apart (DI 2: 2 parities a real axis, and a 2D grid's
+// leading axis has one fine point, f0 = 0).  A thread takes
+// a point of the (axis 1, axis 2) plane and walks axis 0 in chunks of kRows
+// rows: every load of a chunk, then its stores, so that the loads are in
+// flight together whatever the caller stores.  The caller's functions:
+//   load(i, v): v[b] = input component b at grid index i of one component,
+//     b < nb (no stores: the loads of several box rows are issued together);
+//   keep(i, v): after the loads, v as load gave it at a point i whose base
+//     the tile owns (each point of the grid but padding on one tile).
+// Ends with a block barrier.
+template <typename T, int DI, int NBX, typename Load, typename Keep>
+__device__ __forceinline__ void tile_box(const CubeArgs& a, const TileGeo& t, T* sbuf, int nb,
+                                         Load&& load, Keep&& keep) {
+  constexpr int kRows = 3;
+  __syncthreads();
+  for (int j = threadIdx.x; j < t.plane; j += blockDim.x) {
+    const int f1 = (int)((unsigned)j / (unsigned)t.F[2]);
+    const int f2 = j - f1 * t.F[2];
+    const int ch12 = DI == 2 ? (f1 & 1) * 2 + (f2 & 1) : 0;
+    const int b1 = t.lo[1] + (DI == 2 ? f1 >> 1 : f1), b2 = t.lo[2] + (DI == 2 ? f2 >> 1 : f2);
+    const int b12 = b1 * a.g[2] + b2;
+    const bool own12 = b1 >= t.B0[1] && b1 < t.B0[1] + t.own[1] && b2 >= t.B0[2] &&
+                       b2 < t.B0[2] + t.own[2];
+    for (int r0 = 0; r0 < t.F[0]; r0 += kRows) {
+      int gi[kRows];
+      T v[kRows][NBX];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int f0 = r0 + u;
+        const int ch = DI == 2 ? (f0 & 1) * 4 + ch12 : 0;
+        gi[u] = ch * a.plane + (t.lo[0] + (DI == 2 ? f0 >> 1 : f0)) * a.g[1] * a.g[2] + b12;
+        if (f0 < t.F[0]) load(gi[u], v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int f0 = r0 + u;
+        if (f0 >= t.F[0]) break;
+        const int b0 = t.lo[0] + (DI == 2 ? f0 >> 1 : f0);
+#pragma unroll
+        for (int b = 0; b < NBX; ++b)
+          if (b < nb) sbuf[b * t.boxpts + f0 * t.plane + j] = v[u][b];
+        if (own12 && b0 >= t.B0[0] && b0 < t.B0[0] + t.own[0]) keep(gi[u], v[u]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Cube tid = (cl0 ncu1 + cl1) ncu2 + cl2 of the tile (tid < t.ncubes): its
+// coordinates, by 32-bit divisions.
+__device__ __forceinline__ void tile_cube(const TileGeo& t, int tid, int (&cl)[3]) {
+  const int q = (int)((unsigned)tid / (unsigned)t.ncu[2]);
+  cl[2] = tid - q * t.ncu[2];
+  cl[0] = (int)((unsigned)q / (unsigned)t.ncu[1]);
+  cl[1] = q - cl[0] * t.ncu[1];
+}
+
+// Offset in the box of slot ti of a degree-D cube of NL slots, from the
+// cube's base (the last axis's digit fastest).
+template <int D, int NL>
+__device__ __forceinline__ int tile_slot(const TileGeo& t, int ti) {
+  constexpr int S = D + 1;
+  const int t0 = NL == S * S * S ? ti / (S * S) : 0, t1 = (ti / S) % S, t2 = ti % S;
+  return t0 * t.plane + t1 * t.F[2] + t2;
+}
+
+// Phase 2, after phase 1's block barrier: owned output point j = ((ch t0 +
+// l0) t1 + l1) t2 + l2 of the tile (output degree DO, 1 or 2, of a
+// D-dimensional grid) sums its cubes' staged values sbuf[(b NLO + to)
+// ncubes + cube], b < nb, in cube_visit's order, and hands them to store(i,
+// acc, pad) (0 at padding, pad true there).
+template <typename T, int NLO, int NBX, int D, int DO, typename Store>
+__device__ __forceinline__ void tile_sum(const CubeArgs& a, const TileGeo& t, const T* sbuf,
+                                         int nb, Store&& store) {
+  CubeArgs v = a;  // the tile's cubes, so that cube_visit gives local cube indices
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v.c[k] = t.ncu[k];
+  constexpr int nch = DO == 2 ? 1 << D : 1;  // the output's parity channels
+  const int nown = nch * a.tile[0] * a.tile[1] * a.tile[2];
+  for (int j = threadIdx.x; j < nown; j += blockDim.x) {
+    CubePoint q;
+    int l[3];
+    unsigned r = (unsigned)j;
+#pragma unroll
+    for (int k = 2; k >= 0; --k) {
+      const unsigned s = fast_quo(r, a.div_tile[k]);
+      l[k] = (int)(r - s * (unsigned)a.tile[k]);
+      r = s;
+    }
+    if (l[0] >= t.own[0] || l[1] >= t.own[1] || l[2] >= t.own[2]) continue;
+    const int ch = (int)r;
+    unsigned c = r;
+#pragma unroll
+    for (int k = 2; k >= 0; --k) {
+      const bool split = DO == 2 && (D == 3 || k > 0);
+      q.p[k] = split ? (int)(c & 1u) : 0;
+      if (split) c >>= 1;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q.b[k] = t.B0[k] + l[k] - t.lo[k];
+    T acc[NBX];
+#pragma unroll
+    for (int b = 0; b < NBX; ++b) acc[b] = T(0);
+    bool pad = true;
+    cube_visit(v, q, [&](int to, int cube, int) {
+      pad = false;
+#pragma unroll
+      for (int b = 0; b < NBX; ++b)
+        if (b < nb) acc[b] += sbuf[(b * NLO + to) * t.ncubes + cube];
+    });
+    store(ch * a.plane + ((t.B0[0] + l[0]) * a.g[1] + t.B0[1] + l[1]) * a.g[2] + t.B0[2] + l[2],
+          acc, pad);
+  }
+}
+
 // Tile (i0, i1, i2) of y_b = sum_c P_c^T C P_c x_b for b < nb (NB > 0: nb
-// fixed at compile time; 0: a.nbo), NL = 27 (3D) or 9 (2D) slots, C staged
-// in smat by tile_stage, sbuf the tile's buffer (tile_smem past the matrix).
-// Every thread of the block calls it, with blockDim.x >= the tile's cubes.
-// The caller's functions:
-//   load(i, v): v[b] = input component b at grid index i of one
-//     component, b < nb (no stores: the loads of several box rows are
-//     issued together);
-//   keep(i, v): after the loads, v as load gave it at a point i that the
-//     tile owns (each point of the grid but padding on one tile);
+// fixed at compile time; 0: a.nbo), NL = 27 (3D) or 9 (2D) slots of the P2
+// cube, C staged in smat by tile_stage, sbuf the tile's buffer (tile_smem
+// past the matrix).  Every thread of the block calls it, with blockDim.x >=
+// the tile's cubes.  The caller's functions: tile_box's load and keep, and
 //   dot(d): after phase 1, on the thread of each cube whose base point the
 //     tile owns (each cube of the grid on one tile), d[b] = x_c . (C x_c),
 //     x_c the cube's inputs of component b (K4's pAp, cube by cube);
-//   store(i, acc, pad): the output components at owned grid point i (0 at
-//     padding, pad true there).
+//   store(i, acc, pad): tile_sum's.
 template <typename T, int NL, int NB, typename Load, typename Keep, typename Dot, typename Store>
 __device__ __forceinline__ void tile_product(const CubeArgs& a, const T* smat, T* sbuf, int i0,
                                              int i1, int i2, Load&& load, Keep&& keep, Dot&& dot,
@@ -521,77 +691,26 @@ __device__ __forceinline__ void tile_product(const CubeArgs& a, const T* smat, T
   constexpr int NBX = NB > 0 ? NB : kMaxBatch;
   constexpr int V = 16 / sizeof(T);
   const int nb = NB > 0 ? NB : a.nbo;
-  const int it[3] = {i0, i1, i2};
-  // per axis: first owned base point, first cube, cubes, box points, owned base points
-  int B0[3], lo[3], ncu[3], F[3], own[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    B0[k] = it[k] * a.tile[k];
-    lo[k] = B0[k] > 0 ? B0[k] - 1 : 0;
-    const int hi = min(a.c[k] - 1, B0[k] + a.tile[k] - 1);
-    ncu[k] = hi - lo[k] + 1;
-    F[k] = a.par[k] > 1 ? 2 * ncu[k] + 1 : 1;
-    own[k] = min(a.tile[k], a.g[k] - B0[k]);
-  }
-  const int ncubes = ncu[0] * ncu[1] * ncu[2];
-  const int plane = F[1] * F[2];
-  const int boxpts = F[0] * plane;
-  __syncthreads();  // the previous tile's readers of sbuf are done (and smat is staged)
+  constexpr int D = NL == 27 ? 3 : 2;
+  const TileGeo t = tile_geo<2, D>(a, i0, i1, i2);
+  tile_box<T, 2, NBX>(a, t, sbuf, nb, load, keep);
 
-  // the box: fine point f of an axis is parity f & 1 of base lo + f / 2.
-  // A thread takes a point of the (axis 1, axis 2) plane and walks axis 0
-  // in chunks of kRows rows: every load of a chunk, then its stores, so
-  // that the loads are in flight together whatever the caller stores.
-  constexpr int kRows = 3;
-  for (int j = threadIdx.x; j < plane; j += blockDim.x) {
-    const int f1 = (int)((unsigned)j / (unsigned)F[2]);
-    const int f2 = j - f1 * F[2];
-    const int ch12 = (f1 & 1) * a.par[2] + (f2 & 1);
-    const int b1 = lo[1] + (f1 >> 1), b2 = lo[2] + (f2 >> 1);
-    const int b12 = b1 * a.g[2] + b2;
-    const bool own12 = b1 >= B0[1] && b1 < B0[1] + own[1] && b2 >= B0[2] && b2 < B0[2] + own[2];
-    for (int r0 = 0; r0 < F[0]; r0 += kRows) {
-      int gi[kRows];
-      T v[kRows][NBX];
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        const int f0 = r0 + u;
-        gi[u] = ((f0 & 1) * a.par[1] * a.par[2] + ch12) * a.plane +
-                (lo[0] + (f0 >> 1)) * a.g[1] * a.g[2] + b12;
-        if (f0 < F[0]) load(gi[u], v[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        const int f0 = r0 + u;
-        if (f0 >= F[0]) break;
-        const int b0 = lo[0] + (f0 >> 1);
-#pragma unroll
-        for (int b = 0; b < NBX; ++b)
-          if (b < nb) sbuf[b * boxpts + f0 * plane + j] = v[u][b];
-        if (own12 && b0 >= B0[0] && b0 < B0[0] + own[0]) keep(gi[u], v[u]);
-      }
-    }
-  }
-  __syncthreads();
-
-  // phase 1: thread tid owns local cube tid = (cl0 ncu1 + cl1) ncu2 + cl2
+  // phase 1: thread tid owns local cube tid
   const int tid = threadIdx.x;
-  const bool mine = tid < ncubes;
+  const bool mine = tid < t.ncubes;
   bool base_owned = false;  // the cube's base point is the tile's
   T xin[NBX][NL];
   if (mine) {
-    const int q = (int)((unsigned)tid / (unsigned)ncu[2]);
-    const int cl2 = tid - q * ncu[2];
-    const int cl0 = (int)((unsigned)q / (unsigned)ncu[1]);
-    const int cl1 = q - cl0 * ncu[1];
-    base_owned = lo[0] + cl0 >= B0[0] && lo[1] + cl1 >= B0[1] && lo[2] + cl2 >= B0[2];
-    const T* bx = sbuf + 2 * (cl0 * plane + cl1 * F[2] + cl2);
+    int cl[3];
+    tile_cube(t, tid, cl);
+    base_owned = t.lo[0] + cl[0] >= t.B0[0] && t.lo[1] + cl[1] >= t.B0[1] &&
+                 t.lo[2] + cl[2] >= t.B0[2];
+    const T* bx = sbuf + 2 * (cl[0] * t.plane + cl[1] * t.F[2] + cl[2]);
 #pragma unroll
     for (int ti = 0; ti < NL; ++ti) {
-      const int t0 = NL == 27 ? ti / 9 : 0, t1 = (ti / 3) % 3, t2 = ti % 3;
-      const int off = t0 * plane + t1 * F[2] + t2;
+      const int off = tile_slot<2, NL>(t, ti);
 #pragma unroll
-      for (int b = 0; b < NBX; ++b) xin[b][ti] = b < nb ? bx[b * boxpts + off] : T(0);
+      for (int b = 0; b < NBX; ++b) xin[b][ti] = b < nb ? bx[b * t.boxpts + off] : T(0);
     }
   }
   __syncthreads();  // the box is read: the stage overwrites it
@@ -619,7 +738,7 @@ __device__ __forceinline__ void tile_product(const CubeArgs& a, const T* smat, T
       }
 #pragma unroll
       for (int b = 0; b < NBX; ++b)
-        if (b < nb) sbuf[(b * NL + to) * ncubes + tid] = acc[b];
+        if (b < nb) sbuf[(b * NL + to) * t.ncubes + tid] = acc[b];
     }
     if (base_owned) {
       // x_c . (C x_c) from the thread's own staged outputs, the slots
@@ -631,49 +750,96 @@ __device__ __forceinline__ void tile_product(const CubeArgs& a, const T* smat, T
       for (int to = 0; to < NL; ++to)
 #pragma unroll
         for (int b = 0; b < NBX; ++b)
-          if (b < nb) dots[b] = tile_fma(xin[b][to], sbuf[(b * NL + to) * ncubes + tid], dots[b]);
+          if (b < nb)
+            dots[b] = tile_fma(xin[b][to], sbuf[(b * NL + to) * t.ncubes + tid], dots[b]);
       dot(dots);
     }
   }
   __syncthreads();
+  tile_sum<T, NL, NBX, D, 2>(a, t, sbuf, nb, store);
+}
 
-  // phase 2: owned point j = ((ch t0 + l0) t1 + l1) t2 + l2 of the tile
-  CubeArgs v = a;  // the tile's cubes, so that cube_visit gives local cube indices
+// Tile (i0, i1, i2) of K6 (kDiv false: r_g = sum_c P_c^T C_g P_c p for g <
+// D, p on the P1 grid, r on the P2 grid) or K7 (kDiv true: b2 = sum_c P_c^T
+// sum_g C_g^T P_c u_g, u of D components on the P2 grid, b2 on the P1 grid)
+// on a D-dimensional grid, C_all (D, nl_v, nl_q) staged in smat as D nl_v
+// rows of tile_ld(nl_q) by tile_stage, sbuf the tile's buffer past it.  The
+// caller's load and store as tile_product's, with D components on the P2
+// side and one on the P1 side.
+template <typename T, int D, bool kDiv, typename Load, typename Store>
+__device__ __forceinline__ void tile_mixed(const CubeArgs& a, const T* smat, T* sbuf, int i0,
+                                           int i1, int i2, Load&& load, Store&& store) {
+  constexpr int NLV = D == 3 ? 27 : 9, NLQ = D == 3 ? 8 : 4;
+  constexpr int LD = tile_ld<T>(NLQ);
+  constexpr int V = 16 / sizeof(T);
+  using Vec = typename Vec16<T>::type;
+  constexpr int DI = kDiv ? 2 : 1;
+  const TileGeo t = tile_geo<DI, D>(a, i0, i1, i2);
+  tile_box<T, DI, kDiv ? D : 1>(a, t, sbuf, kDiv ? D : 1, load, [](int, const auto&) {});
+  const int tid = threadIdx.x;
+  const bool mine = tid < t.ncubes;
+  int cl[3] = {0, 0, 0};
+  if (mine) tile_cube(t, tid, cl);
+  const T* bx = sbuf + DI * (cl[0] * t.plane + cl[1] * t.F[2] + cl[2]);
+  if constexpr (kDiv) {
+    // the cube's NLQ outputs: each over the components in order and, in
+    // each, the NLV input slots in order, read from the box
+    T acc[NLQ];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) v.c[k] = ncu[k];
-  const int nown = a.par[0] * a.par[1] * a.par[2] * a.tile[0] * a.tile[1] * a.tile[2];
-  for (int j = tid; j < nown; j += blockDim.x) {
-    CubePoint q;
-    int l[3];
-    unsigned r = (unsigned)j;
+    for (int to = 0; to < NLQ; ++to) acc[to] = T(0);
+    if (mine) {
 #pragma unroll
-    for (int k = 2; k >= 0; --k) {
-      const unsigned t = fast_quo(r, a.div_tile[k]);
-      l[k] = (int)(r - t * (unsigned)a.tile[k]);
-      r = t;
+      for (int g = 0; g < D; ++g)
+#pragma unroll
+        for (int ti = 0; ti < NLV; ++ti) {
+          const T x = bx[g * t.boxpts + tile_slot<2, NLV>(t, ti)];
+          const Vec* mr = reinterpret_cast<const Vec*>(smat + (g * NLV + ti) * LD);
+#pragma unroll
+          for (int t4 = 0; t4 < LD / V; ++t4) {
+            const Vec m = mr[t4];
+#pragma unroll
+            for (int u = 0; u < V; ++u)
+              if (t4 * V + u < NLQ)
+                acc[t4 * V + u] = tile_fma(Vec16<T>::get(m, u), x, acc[t4 * V + u]);
+          }
+        }
     }
-    if (l[0] >= own[0] || l[1] >= own[1] || l[2] >= own[2]) continue;
-    const int ch = (int)r;
-    unsigned c = r;
+    __syncthreads();  // the box is read: the stage overwrites it
+    if (mine)
 #pragma unroll
-    for (int k = 2; k >= 0; --k) {
-      q.p[k] = a.par[k] > 1 ? (int)(c & 1u) : 0;
-      if (a.par[k] > 1) c >>= 1;
+      for (int to = 0; to < NLQ; ++to) sbuf[to * t.ncubes + tid] = acc[to];
+    __syncthreads();
+    tile_sum<T, NLQ, 1, D, 1>(a, t, sbuf, 1, store);
+  } else {
+    // the cube's NLQ inputs in registers; each output slot of each
+    // component sums them in slot order
+    T xin[NLQ];
+#pragma unroll
+    for (int ti = 0; ti < NLQ; ++ti) xin[ti] = mine ? bx[tile_slot<1, NLQ>(t, ti)] : T(0);
+    __syncthreads();  // the box is read: the stage overwrites it
+    if (mine) {
+#pragma unroll 1
+      for (int to = 0; to < NLV; ++to) {
+        T acc[D];
+#pragma unroll
+        for (int g = 0; g < D; ++g) {
+          acc[g] = T(0);
+          const Vec* mr = reinterpret_cast<const Vec*>(smat + (g * NLV + to) * LD);
+#pragma unroll
+          for (int t4 = 0; t4 < LD / V; ++t4) {
+            const Vec m = mr[t4];
+#pragma unroll
+            for (int u = 0; u < V; ++u)
+              if (t4 * V + u < NLQ)
+                acc[g] = tile_fma(Vec16<T>::get(m, u), xin[t4 * V + u], acc[g]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < D; ++g) sbuf[(g * NLV + to) * t.ncubes + tid] = acc[g];
+      }
     }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) q.b[k] = B0[k] + l[k] - lo[k];
-    T acc[NBX];
-#pragma unroll
-    for (int b = 0; b < NBX; ++b) acc[b] = T(0);
-    bool pad = true;
-    cube_visit(v, q, [&](int to, int cube, int) {
-      pad = false;
-#pragma unroll
-      for (int b = 0; b < NBX; ++b)
-        if (b < nb) acc[b] += sbuf[(b * NL + to) * ncubes + cube];
-    });
-    store(ch * a.plane + ((B0[0] + l[0]) * a.g[1] + B0[1] + l[1]) * a.g[2] + B0[2] + l[2], acc,
-          pad);
+    __syncthreads();
+    tile_sum<T, NLV, D, D, 2>(a, t, sbuf, D, store);
   }
 }
 

@@ -2,8 +2,9 @@
 //
 // Every entry point but the gather and the scatter applies a cube device
 // function of cube_device.cuh (y = sum_cubes P_c^T C P_c x, no atomics):
-// point by point (cube_point), K5's block-tiled product (tile_product), or
-// K3's cube-owned product in two launches (win_cube, then the scatter).
+// point by point (cube_point), a block-tiled product (tile_product for K5,
+// tile_mixed for K6 and K7), or K3's cube-owned product in two launches
+// (win_cube, then the scatter).
 // They replace these TPU kernels (oasisx_tpu/assembly/pallas_ops.py):
 //   oasisx_matvec_const  <- make_matvec_pf (K5) and make_matvec (K12):
 //                           constant cube matrix C (nl, nl), batch B; the P2
@@ -22,7 +23,11 @@
 //                           means 1.
 //   oasisx_mixed         <- make_mixed_pf (K6): r_g = C_g p, C_all (d, nl_v, nl_q)
 //   oasisx_divergence    <- make_divergence_pf (K7): b2 = sum_g B_g^T u_g,
-//                           B_all (d, nl_v, nl_q) read transposed [g, ti, to]
+//                           B_all (d, nl_v, nl_q) read transposed [g, ti, to].
+//                           Both block-tiled on the P2/P1 pair with d
+//                           components (tile_mixed, on K5's tiles), any other
+//                           pair point by point; oasisx_mixed_route names the
+//                           route.
 //   oasisx_cube_gather   <- make_gather / make_gather_chunked (K8): the cube-local
 //                           values U (B, nl, ncubes) of a grid vector (B, npad);
 //                           one launch for all B components, a block per
@@ -58,24 +63,32 @@
 // launch whose columns do not fit in a block's shared memory (64-slot cubes
 // at batch 4 in float64), or whose grid has fewer cubes than one block of
 // phase A an SM, keeps the point-by-point kernel; oasisx_win_route names
-// each launch's route.  K6 and K7 read
-// and write a few MB with the small constant matrix in shared memory, and
-// K13 reads U once (15 MB at N=36) and writes the grid once: by bytes they
-// are memory-bound too.  What bounded them on this card was integer work:
-// an output side that split each grid index with 64-bit divisions and
-// remainders (a software sequence of dozens of instructions each) ran at
-// 12-88x their bounds, as K8 did at 18x its present time before it took the
-// shape below.  K5 (3D P2, batch 3) moves 2 x 3 x 4.9 MB at N=36 and 2 x
-// 26.4 MB at N=64, and its 27 x 27 products a cube are 1.15 GFLOP at N=64
-// (0.017 ms at the float32 rate): by the bound both sides are close.  Point
-// by point (cube_point, the form before) it loaded each input once for each
-// output slot of each cube that holds it, 27 loads a value, and ran at 23x
-// its bound; so it is block-tiled (cube_device.cuh tile_product): a block
-// reads a tile's inputs once into shared memory, a thread a cube sums them
-// against the staged matrix (halo cubes recomputed, ~1.8x the operations at
-// a 3 x 7 x 7 tile), and each owned point sums its cubes' staged values.  No
-// tensor cores: the standing rule keeps TF32 off, and in float32 the
-// products are a few hundredths of a millisecond of FFMA.
+// each launch's route.  K13 reads U once (15 MB at N=36) and writes the
+// grid once: memory-bound too.  What bounded the point-by-point kernels on
+// this card was integer work at first: an output side that split each grid
+// index with 64-bit divisions and remainders (a software sequence of
+// dozens of instructions each) ran at 12-88x their bounds, as K8 did at
+// 18x its present time before it took the shape below.  K5 (3D P2, batch
+// 3) moves 2 x 3 x 4.9 MB at N=36 and 2 x 26.4 MB at N=64, and its 27 x 27
+// products a cube are 1.15 GFLOP at N=64 (0.017 ms at the float32 rate): by
+// the bound both sides are close.  Point by point (cube_point, the form
+// before) it loaded each input once for each output slot of each cube that
+// holds it, 27 loads a value, and ran at 23x its bound; so it is
+// block-tiled (cube_device.cuh tile_product): a block reads a tile's
+// inputs once into shared memory, a thread a cube sums them against the
+// staged matrix (halo cubes recomputed, ~1.8x the operations at a 3 x 7 x 7
+// tile), and each owned point sums its cubes' staged values.  K6 and K7
+// move the P1 vector and the d P2 components once, 27.5 MB at N=64 (0.0082
+// ms at 3.35 TB/s).  Point by point K7 loaded up to 8 cubes x 27 slots x 3
+// components of u a P1 point, and K6 a cube's 8 P1 values for each of its
+// 27 x 3 outputs: 0.0323 / 0.1564 ms (K6) and 0.0658 / 0.1695 (K7) at N=36
+// / N=64.  Block-tiled on K5's tiles (tile_mixed) they take 0.0167 / 0.0634
+// and 0.0175 / 0.0577 ms (float32, on an NVIDIA H100 80GB HBM3 at 700 W):
+// K6 writes a cube's 81 staged values at 2 blocks an SM (its stage is 83
+// KB at 3 x 7 x 7), K7 keeps a cube's 8 outputs in registers and streams
+// its 81 inputs from the box at 4.  No tensor cores: the standing rule
+// keeps TF32 off, and in float32 the products are a few hundredths of a
+// millisecond of FFMA.
 //
 // Launch shape of the standalone cube kernels (every one but K8), K8's
 // shape on the output grid: a block per (stretch of the plane of inner base
@@ -96,27 +109,29 @@
 //
 // Registers against latency.  A thread's loads are latency-bound: K12's 8
 // slots a cube with one coefficient each are unrolled (8 loads in flight);
-// the 27-slot loops of point-by-point K3, K6 and K7 stay rolled, since
-// unrolled they take about twice the registers and the occupancy they lose
-// costs more than the latency they hide.  K7 (three input components a
-// slot) and point-by-point K3 without premul (a W load a slot) are held to
-// 32 registers (kFill: 16 blocks, every thread slot of an SM) when their
-// grid has that many blocks (K7 at N=64; its 407 blocks at N=36 fill 3 an
-// SM whatever the registers); K6 keeps the registers the compiler gives
-// it, which measured faster.  K5's tiled kernel keeps a cube's 27 nb inputs
-// in registers, its batch a template parameter in 3D, at most 128 registers
-// (2 blocks an SM, as its shared memory allows at batch 3 in float32).  K3's
-// phase A unrolls a row's 27 weight loads (all in flight) beside a cube's
-// NB x 27 inputs in registers (NB a template parameter): at most 128
-// registers, 4 blocks of 128 threads an SM, where the inputs take up to 81
-// of them (float32 batch 1-3, float64 batch 1), else 255; no spills
-// (ptxas).  128 threads a block and 256 measured level (within 1.5%) at
-// N=36, whose 46,656 cubes fill 365 blocks of 128 or 182 of 256, and at
-// N=64.
+// the 27-slot loops of point-by-point K3, K6 and K7 (off the P2/P1 pair)
+// stay rolled, since unrolled they take about twice the registers and the
+// occupancy they lose costs more than the latency they hide.  Point-by-
+// point K7 (several input components a slot) and K3 without premul (a W
+// load a slot) are held to 32 registers (kFill: 16 blocks, every thread
+// slot of an SM) when their grid has that many blocks; point-by-point K6
+// keeps the registers the compiler gives it.  The tiled kernels: K5 keeps a
+// cube's 27 nb inputs in registers, its batch a template parameter in 3D,
+// at most 128 registers (2 blocks an SM, as its shared memory allows at
+// batch 3 in float32); K6 (51 registers in 3D float32) runs 2 blocks an SM
+// as its stage allows; K7 at most 64 registers (64 in 3D, no spills), 4
+// blocks an SM.  K3's phase A unrolls a row's 27 weight loads
+// (all in flight) beside a cube's NB x 27 inputs in registers (NB a
+// template parameter): at most 128 registers, 4 blocks of 128 threads an
+// SM, where the inputs take up to 81 of them (float32 batch 1-3, float64
+// batch 1), else 255; no spills (ptxas).  128 threads a block and 256
+// measured level (within 1.5%) at N=36, whose 46,656 cubes fill 365 blocks
+// of 128 or 182 of 256, and at N=64.
 //
 // Each entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// where an index would not fit in int32 (cube_fits).
+// where an index would not fit in int32 (cube_fits) or a tiled route finds
+// no tile that fits the device.
 
 #include "cube_device.cuh"
 
@@ -651,6 +666,129 @@ int tiled(const void* x, const void* C, void* y, CubeArgs a, int batch, void* st
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K7 on the P2/P1 pair: the block-tiled product (tile_mixed)
+// ---------------------------------------------------------------------------
+
+constexpr int kDivBlocks = 4;  // K7's blocks an SM: at most 64 registers a thread
+
+// Bytes of shared memory of a tile of K6 (div false) or K7 (div true) with
+// a.d components: C_all's a.d nl_v rows of nl_q values, then K6's stage (a.d
+// P2 components) over its P1 box, or K7's box (a.d P2 components) over its
+// P1 stage.
+template <typename T>
+size_t mixed_smem(const CubeArgs& a, bool div) {
+  return div ? tile_bytes<T>(a, a.d * a.nl_in, a.nl_out, a.d, 1)
+             : tile_bytes<T>(a, a.d * a.nl_out, a.nl_in, 1, a.d);
+}
+
+// One block a tile, a grid of (ntile2, ntile1, ntile0) blocks.  x: K6's p
+// (the P1 grid) or K7's u (D components of the P2 grid, a.x_bi apart); y:
+// K6's r (D components of the P2 grid) or K7's b2 (the P1 grid).  K6 at most
+// 128 registers a thread (2 blocks an SM, as its stage allows), K7 at most
+// 64 (kDivBlocks).
+template <typename T, int D, bool kDiv>
+__global__ void __launch_bounds__(kTileThreads, kDiv ? kDivBlocks : 2)
+mixed_tile_kernel(const T* __restrict__ x, const T* __restrict__ mat, T* __restrict__ y,
+                  CubeArgs a) {
+  constexpr int NLV = D == 3 ? 27 : 9, NLQ = D == 3 ? 8 : 4;
+  constexpr int NI = kDiv ? D : 1, NO = kDiv ? 1 : D;  // components in and out
+  T* smat = reinterpret_cast<T*>(dynamic_smem());
+  T* sbuf = smat + D * NLV * tile_ld<T>(NLQ);
+  tile_stage<T, NLQ>(mat, smat, D * NLV);
+  tile_mixed<T, D, kDiv>(
+      a, smat, sbuf, blockIdx.z, blockIdx.y, blockIdx.x,
+      [&](int i, auto& v) {
+#pragma unroll
+        for (int b = 0; b < NI; ++b) v[b] = __ldg(x + b * a.x_bi + i);
+      },
+      [&](int i, const auto& acc, bool) {
+#pragma unroll
+        for (int b = 0; b < NO; ++b) y[b * a.npad_out + i] = acc[b];
+      });
+}
+
+template <typename T>
+using MixedKernel = void (*)(const T*, const T*, T*, CubeArgs);
+
+// The route of K6 (div false) or K7 (div true), chosen by degree and
+// component count: the P2/P1 pair with a.d components takes the tiled
+// product (tile set on a, kernel, shared memory a block with its limit set
+// on the kernel, true), any other pair the point-by-point kernel (false).
+// cudaErrorInvalidValue where the pair finds no tile.
+template <typename T>
+int mixed_plan(CubeArgs& a, bool div, int ncomp, bool* tiled, MixedKernel<T>* kernel,
+               size_t* smem) {
+  *tiled = ncomp == a.d && (div ? a.deg_out == 1 && a.deg_in == 2 : a.deg_out == 2 && a.deg_in == 1);
+  if (!*tiled) return 0;
+  if (!tile_pick(a, div ? kDivBlocks : 2, [div](const CubeArgs& c) { return mixed_smem<T>(c, div); }))
+    return (int)cudaErrorInvalidValue;
+  *kernel = a.d == 3 ? (div ? mixed_tile_kernel<T, 3, true> : mixed_tile_kernel<T, 3, false>)
+                     : (div ? mixed_tile_kernel<T, 2, true> : mixed_tile_kernel<T, 2, false>);
+  *smem = mixed_smem<T>(a, div);
+  return (int)cudaFuncSetAttribute((const void*)*kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+template <typename T>
+int mixed_apply(const void* x, const void* mat, void* y, CubeArgs a, bool div, int ncomp,
+                void* stream) {
+  bool tiled;
+  MixedKernel<T> kernel;
+  size_t smem;
+  const int err = mixed_plan<T>(a, div, ncomp, &tiled, &kernel, &smem);
+  if (err) return err;
+  if (!tiled) return launch<T>(x, mat, y, a, stream);
+  kernel<<<dim3(a.ntile[2], a.ntile[1], a.ntile[0]), kTileThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(mat), static_cast<T*>(y), a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mixed_route(CubeArgs a, bool div, int ncomp, int* out) {
+  bool tiled;
+  MixedKernel<T> kernel;
+  size_t smem;
+  int err = mixed_plan<T>(a, div, ncomp, &tiled, &kernel, &smem);
+  if (err) return err;
+  int blocks = 0;
+  if (tiled) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kTileThreads, smem);
+    if (err) return err;
+  }
+  out[0] = tiled ? 1 : 0;
+  for (int k = 0; k < 3; ++k) out[1 + k] = tiled ? a.tile[k] : 0;
+  out[4] = tiled ? (int)smem : 0;
+  out[5] = blocks;
+  return 0;
+}
+
+// K6's and K7's operator arguments (the output grid first): K6 r_g = C_all[g]
+// p, C_all (ncomp, nl_v, nl_q) read [g, to, ti]; K7 b2 = sum_g B_all[g]^T
+// u_g, u (ncomp, grid_v), B_all read transposed [g, ti, to].
+CubeArgs mixed_args(int d, int n0, int n1, int n2, int deg_v, int deg_q, int ncomp) {
+  CubeArgs a = base_args(d, n0, n1, n2, deg_v, deg_q);
+  a.nbo = ncomp;
+  a.nbi = 1;
+  a.m_bo = a.nl_out * a.nl_in;
+  a.m_to = a.nl_in;
+  a.m_ti = 1;
+  a.mat_len = ncomp * a.nl_out * a.nl_in;
+  return a;
+}
+
+CubeArgs divergence_args(int d, int n0, int n1, int n2, int deg_v, int deg_q, int ncomp) {
+  CubeArgs a = base_args(d, n0, n1, n2, deg_q, deg_v);
+  a.nbo = 1;
+  a.nbi = ncomp;
+  a.x_bi = (int)grid_points(d, a.n, deg_v);
+  a.m_bi = a.nl_out * a.nl_in;
+  a.m_ti = a.nl_out;  // B_all[g] is (nl_v, nl_q) = (nl_in, nl_out): [ti, to]
+  a.m_to = 1;
+  a.mat_len = ncomp * a.nl_out * a.nl_in;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
@@ -721,36 +859,44 @@ int oasisx_win_route(int is_f64, int d, int n0, int n1, int n2, int deg, int bat
                 : win_route<float>(a, batch, premul != 0, out);
 }
 
-// r[g] = C_all[g] p for g < ncomp; p (grid_q) -> r (ncomp, grid_v).
+// r[g] = C_all[g] p for g < ncomp; p (grid_q) -> r (ncomp, grid_v).  The
+// P2/P1 pair with d components takes the tiled product, any other pair the
+// point-by-point one (oasisx_mixed_route).
 int oasisx_mixed(const void* p, const void* C_all, void* r, int is_f64, int d, int n0,
                  int n1, int n2, int deg_v, int deg_q, int ncomp, void* stream) {
   if (ncomp > kMaxBatch || !cube_fits(d, n0, n1, n2, deg_v, deg_q, ncomp))
     return (int)cudaErrorInvalidValue;
-  CubeArgs a = base_args(d, n0, n1, n2, deg_v, deg_q);
-  a.nbo = ncomp;
-  a.nbi = 1;
-  a.m_bo = a.nl_out * a.nl_in;
-  a.m_to = a.nl_in;
-  a.m_ti = 1;
-  a.mat_len = ncomp * a.nl_out * a.nl_in;
-  return dispatch(is_f64, p, C_all, r, a, stream);
+  const CubeArgs a = mixed_args(d, n0, n1, n2, deg_v, deg_q, ncomp);
+  return is_f64 ? mixed_apply<double>(p, C_all, r, a, false, ncomp, stream)
+                : mixed_apply<float>(p, C_all, r, a, false, ncomp, stream);
 }
 
-// b2 = sum_g B_all[g]^T u[g]; u (ncomp, grid_v) -> b2 (grid_q).
+// b2 = sum_g B_all[g]^T u[g]; u (ncomp, grid_v) -> b2 (grid_q).  Routes as
+// oasisx_mixed's.
 int oasisx_divergence(const void* u, const void* B_all, void* b2, int is_f64, int d,
                       int n0, int n1, int n2, int deg_v, int deg_q, int ncomp,
                       void* stream) {
   if (ncomp > kMaxBatch || !cube_fits(d, n0, n1, n2, deg_q, deg_v, ncomp))
     return (int)cudaErrorInvalidValue;
-  CubeArgs a = base_args(d, n0, n1, n2, deg_q, deg_v);
-  a.nbo = 1;
-  a.nbi = ncomp;
-  a.x_bi = (int)grid_points(d, a.n, deg_v);
-  a.m_bi = a.nl_out * a.nl_in;
-  a.m_ti = a.nl_out;  // B_all[g] is (nl_v, nl_q) = (nl_in, nl_out): [ti, to]
-  a.m_to = 1;
-  a.mat_len = ncomp * a.nl_out * a.nl_in;
-  return dispatch(is_f64, u, B_all, b2, a, stream);
+  const CubeArgs a = divergence_args(d, n0, n1, n2, deg_v, deg_q, ncomp);
+  return is_f64 ? mixed_apply<double>(u, B_all, b2, a, true, ncomp, stream)
+                : mixed_apply<float>(u, B_all, b2, a, true, ncomp, stream);
+}
+
+// The route oasisx_mixed (div 0) or oasisx_divergence (div 1) takes for
+// ncomp components of a d-dimensional grid with cells (n0, n1, n2), velocity
+// degree deg_v and pressure degree deg_q, on the current device: out =
+// (route: 0 point by point, 1 block-tiled; the tile (t0, t1, t2) in the 3D
+// form, bytes of shared memory a block and blocks an SM (the occupancy
+// calculator), 0 for route 0).  0 or a CUDA error.
+int oasisx_mixed_route(int is_f64, int div, int d, int n0, int n1, int n2, int deg_v, int deg_q,
+                       int ncomp, int* out) {
+  if (ncomp > kMaxBatch || !cube_fits(d, n0, n1, n2, deg_v, deg_q, ncomp))
+    return (int)cudaErrorInvalidValue;
+  const CubeArgs a = div ? divergence_args(d, n0, n1, n2, deg_v, deg_q, ncomp)
+                         : mixed_args(d, n0, n1, n2, deg_v, deg_q, ncomp);
+  return is_f64 ? mixed_route<double>(a, div != 0, ncomp, out)
+                : mixed_route<float>(a, div != 0, ncomp, out);
 }
 
 // U[b] = the cube-local values of x[b]; x (batch, grid) -> U (batch, nl, ncubes).

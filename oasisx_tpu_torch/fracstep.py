@@ -218,7 +218,7 @@ class FractionalStep_AB_CN:
         if str(self._solver_c.options.get("pc_type", "")).lower() == "lumped" or \
                 self._solver_c.options.get("lumped"):
             raise NotImplementedError(
-                "the lumped velocity update is not ported: ROADMAP.md Queue 1 item 7"
+                "the lumped velocity update is not ported: ROADMAP.md Queue 1 item 2.1"
             )
         if self._solver_u.method != "bcgs":
             logger.info("the tentative solves run batched BiCGStab (requested %s)",

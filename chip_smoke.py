@@ -13,7 +13,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
    timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1,
-   with its premul and zmask multipliers and with the zmask alone, K6, K7)
+   with its premul and zmask multipliers and with the zmask alone, K6 on
+   B_c, G_c and the lumped update's weighted-gradient matrix Gw_c, K7)
    and the cube scatter
    (K13) on random data, max relative error 1e-12 (f64) and 1e-5 (f32),
    padded outputs exactly 0, a repeat call bit-identical; the cube gather
@@ -73,6 +74,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    validated value.
 5d. GPU against CPU in float64, 3 steps: N=5 (Chebyshev mode) and N=6 with
    the pressure pc_type "jacobi" (Jacobi mode).
+4g. The N=36 main path with the lumped velocity update (a scalar pc_type
+   "lumped"): 5 warm-up and 25 timed steps, phase 4's checks without K4
+   (cg_mass), c iterations 0 every step, every u and p exit residual at
+   most rtol, and a step's launches: K5 once, K6 twice (B_c and Gw_c), K4
+   never.
 
 Prints the kernels' JSON line (per kernel: "ms", "plain_ms" and
 "max_abs_err" of one call at its first case's shape, named in "case", and
@@ -134,6 +140,23 @@ any failure or when there is no card.
    4b's; the band solver's own device memory (before the steps, less what
    stays once it is freed).
 5c. GPU against CPU in float64 with the band layout: the vessel at N=6.
+4h. The vessel at N=36 with the lumped update, BENCH_unstructured_r05.json's
+   configuration (AMG-PCG pressure, low_memory_version False): 5 warm-up
+   and 25 timed steps, phase 4b's checks without K16 (ell_cg), 4g's lumped
+   checks, the per-component u and p iteration means beside that
+   capture's TPU-era means (the like-for-like comparison), steps/s and
+   device memory.
+4c'. The res=30 cylinder with the DFG 2D-3 inflow U(t) = 1.5 sin(pi t/8) in
+   float32: 25 steps of ``run`` with the inflow from ``bc_value_table`` and
+   a kinetic-energy ``step_callback``, against 25 ``solve`` calls that
+   re-evaluate the inflow each step (equal to f32 rounding); the energy
+   after the last step printed.
+5e. GPU against CPU in float64, 3 steps each, phase 5's checks and the
+   host reads a step printed: the lumped update on both paths, the general
+   path's pressure pc_type jacobi and cheb (the cpu solver's bounds handed
+   to the cuda one), its tentative ksp_type cg and gmres, and the band
+   layout with gmres, on the vessel at N=6 and a 6x6 rectangle sent to the
+   general path.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -149,8 +172,8 @@ K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
-The phases run in the order 3, 4, 5, 3e, 4f, 5d, 3c, 4d, then the vessel
-phases 3b, 4b, 3d, 4e, then 4c, 5b, 5c.  Kernel, plain and
+The phases run in the order 3, 4, 4g, 5, 3e, 4f, 5d, 3c, 4d, then the
+vessel phases 3b, 4b, 3d, 4e, 4h, then 4c, 4c', 5b, 5c, 5e.  Kernel, plain and
 library times are device times of back-to-back calls (``time_ms``).
 
 --tree DIR runs the chip_smoke.py of another checkout DIR (a parent
@@ -159,17 +182,18 @@ with this file's ``time_ms``: two trees' times from one timer.  Each main
 path's per-step u / p / c iterations and a hash of its final state go to
 build/chip_smoke_steps_tree.json (under --tree) or _this.json (this
 checkout); a --tree run that finds _this.json fails unless the iterations
-of every step of phases 4, 4f, 4d, 4b, 4e and 4c equal those of this
-checkout's run, and prints whether the final states are bit-identical.
-Run parent, change, change, parent in one call, after removing both
-files: the last parent run compares.
+of every step of phases 4, 4g, 4f, 4d, 4b, 4e, 4h and 4c equal those of this
+checkout's run, and prints whether the final states are bit-identical;
+it compares the phases both trees ran and names those the other tree did
+not run.  Run parent, change, change, parent in one call, after removing
+both files: the last parent run compares.
 --band-setup N only times the host set-up of the band layout of the
 vessel's P2 dofmap at N (``build_band_assembly`` on the CPU) and prints
 the process's peak resident memory before and after it; with --tree, the
 other checkout's.
 
 --profile N adds a torch.profiler window of N more steps after phases 4,
-4f, 4d, 4b and 4e: device time by kernel, the device's busy share of the
+4g, 4f, 4d, 4b, 4e and 4h: device time by kernel, the device's busy share of the
 window, and Chrome traces under build/chip_smoke_trace*.json.
 """
 
@@ -274,13 +298,16 @@ def deform_vessel(mesh):
 
 
 def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell",
-               pressure: dict | None = None):
+               pressure: dict | None = None, scalar: dict | None = None,
+               tentative: dict | None = None, options: dict | None = None):
     """The bench problem (bench.py build_solver) on the port: the box of N
     cells an axis (or of the cells of a tuple N: a 3D box, or a 2D rectangle
     with the 2D Taylor-Green field), or with ``vessel`` the deformed box on
     the general path with bench.py's low_memory_version=False and the
-    velocity operators in ``layout`` ("ell" or "band"); ``pressure`` adds to
-    the pressure solver options."""
+    velocity operators in ``layout`` ("ell" or "band"); ``pressure``,
+    ``scalar`` and ``tentative`` add to those solver options (``scalar``
+    {"pc_type": "lumped"}: the lumped velocity update), ``options`` to the
+    solver's options."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
@@ -306,9 +333,11 @@ def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str 
     opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
     solver = FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
-        solver_options={"tentative": dict(opts), "pressure": dict(opts, **(pressure or {})),
-                        "scalar": dict(opts)},
-        options={"low_memory_version": False, "ell_layout": layout} if vessel else None,
+        solver_options={"tentative": dict(opts, **(tentative or {})),
+                        "pressure": dict(opts, **(pressure or {})),
+                        "scalar": dict(opts, **(scalar or {}))},
+        options=dict({"low_memory_version": False, "ell_layout": layout} if vessel else {},
+                     **(options or {})),
         dtype=dtype, device=device,
     )
     for f, u1, u2 in zip(fs, solver._u1, solver._u2):
@@ -317,10 +346,11 @@ def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str 
     return solver
 
 
-def cylinder_solver(res: int, dtype, device, rtol: float):
+def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3):
     """The DFG cylinder channel with a parabolic inflow, no-slip walls and
     cylinder, and a PressureBC(0) outlet (tests/test_ell_wiring.py's
-    set-up; Um 0.3 as demo/cylinder.py)."""
+    set-up); the inflow's peak ``um()`` (default 0.3, as demo/cylinder.py),
+    read each time the boundary values are evaluated."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
@@ -336,7 +366,7 @@ def cylinder_solver(res: int, dtype, device, rtol: float):
     values = np.hstack([np.full_like(inlet, 1), np.full_like(others, 2),
                         np.full_like(outlet, 3)]).astype(np.int32)
     tags = meshtags(mesh, 1, facets, values)
-    inflow = lambda x: 4.0 * 0.3 * x[1] * (H - x[1]) / H**2
+    inflow = lambda x: 4.0 * um() * x[1] * (H - x[1]) / H**2
     T = LocatorMethod.TOPOLOGICAL
     bcs_u = [[DirichletBC(inflow, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))],
              [DirichletBC(0.0, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))]]
@@ -504,10 +534,27 @@ def amg_report(label: str, solver, isz: int = 4) -> None:
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
+def weighted_gradient_cube(solver, device):
+    """The lumped update's cube matrix Gw_c (d, nl_v, nl_q) at the solver's
+    grid, in float64: the solver's own under the lumped update, else built
+    from its mesh (``cubes.build_cube_ops`` with the Q basis's gradients at
+    the V nodes)."""
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    if solver._cu.Gw_c is not None:
+        return solver._cu.Gw_c.to(device, torch.float64)
+    gtab = solver._Q.element.tabulate(solver._Vi[0][0].element.nodes)[1]
+    return cub.build_cube_ops(solver._mesh, solver._refs, solver._sm_v, solver._sm_q,
+                              dtype=torch.float64, device=device, gtab=gtab).Gw_c
+
+
+def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw=None):
     """(kernel, label, kernel call, plain call, padded-output mask, (bytes,
     operations), library call or None) at the solver's shapes, on random
-    inputs made from ``seed``, the solver's operators cast to ``dtype``."""
+    inputs made from ``seed``, the solver's operators cast to ``dtype``;
+    ``gw`` the lumped update's Gw_c (built here when not given)."""
     import numpy as np
     import torch
 
@@ -528,6 +575,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     nv, nq = solver._npad_v, solver._npad_q
     W = rnd(nl * nl, nc)
     M_c, Ap_c, B_c, G_c = c(cu.M_c), c(cu.Ap_c), c(cu.B_c), c(cu.G_c)
+    Gw_c = c(weighted_gradient_cube(solver, device) if gw is None else gw)
     st = solver._state_from_functions()
     uab = c(1.5 * st["u1"] - 0.5 * st["u2"])
     all_valid = torch.ones(d, nl, nc, dtype=torch.bool, device=device)
@@ -535,7 +583,8 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
     pm = rnd(d, nv) * valid_v
     zm = solver._zmask.to(dtype)
     U = rnd(d, nl, nc)
-    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "W1", "B", "G", "div", "scatter"))
+    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "W1", "B", "G", "Gw", "div",
+                         "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
@@ -546,7 +595,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
                                           shape)
         mixed = lambda C: stack([cube_csr(iv, iq, C[k], nv, nq, row_off=k * nv)
                                  for k in range(d)], (d * nv, nq))
-        A_B, A_G = mixed(B_c), mixed(G_c)
+        A_B, A_G, A_Gw = mixed(B_c), mixed(G_c), mixed(Gw_c)
         A_div = stack([cube_csr(iq, iv, B_c[k].T, nq, nv, col_off=k * nv) for k in range(d)],
                       (nq, d * nv))
         uflat = xv.reshape(-1)
@@ -555,7 +604,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         lib = dict(gather=lambda: uab[:, iv], gather_q=lambda: xq[None][:, iq],
                    M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
                    W=lambda: A_W @ xt, W1=lambda: A_W @ x1, B=lambda: A_B @ xq,
-                   G=lambda: A_G @ xq,
+                   G=lambda: A_G @ xq, Gw=lambda: A_Gw @ xq,
                    div=lambda: A_div @ uflat,
                    scatter=lambda: torch.zeros_like(xv).index_add_(1, ivf, Uf))
     mv = lambda nlo, nli, B: 2.0 * nlo * nli * nc * B  # cube matvec operations
@@ -594,6 +643,9 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False):
         ("mixed", "G_c",
          lambda: kn.mixed(xq, G_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, G_c, sm_v, sm_q),
          valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["G"]),
+        ("mixed", "Gw_c",  # the lumped update's weighted nodal gradient (fracstep)
+         lambda: kn.mixed(xq, Gw_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, Gw_c, sm_v, sm_q),
+         valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["Gw"]),
         ("divergence", "B_c",
          lambda: kn.divergence(xv, B_c, sm_v, sm_q),
          lambda: kn.divergence_plain(xv, B_c, sm_v, sm_q), valid_q,
@@ -632,10 +684,11 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
 
     tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     out: dict = {}
+    gw = weighted_gradient_cube(solver, device)
     for dtype, tol in tols.items():
         timed = dtype == torch.float32 and torch.device(device).type == "cuda"
         for name, label, kfn, pfn, valid, work, lib in kernel_cases(
-                solver, dtype, device, library=timed):
+                solver, dtype, device, library=timed, gw=gw):
             label += tag
             yk = kfn()
             yk2 = kfn()
@@ -666,7 +719,7 @@ def compare_kernels(solver, device, tag: str = "") -> dict:
                 k5_report(solver, dtype, out[name][-1])
             if name == "matvec_win" and torch.device(device).type == "cuda":
                 win_report(solver, dtype, out[name][-1], label)
-            if name in ("mixed", "divergence") and label.startswith("B_c") and \
+            if name in ("mixed", "divergence") and label.startswith(("B_c", "Gw_c")) and \
                     torch.device(device).type == "cuda":
                 mixed_report(solver, dtype, out[name][-1], name == "divergence")
     return out
@@ -1695,6 +1748,12 @@ class StepLog:
                           f" / {rec[f'{f}_res'][k]}")
         check(all(same.values()), f"[{tag}] iterations differ from the other tree's: {same}")
 
+    def report_skipped(self) -> None:
+        """The phases of this checkout's log that the other tree did not run."""
+        skipped = [t for t in self.other if t not in self.data]
+        print(f"[steps] compared phases {[t for t in self.data if t in self.other]}; not run by "
+              f"the other tree, so not compared: {skipped}")
+
 
 
 def state_sha(solver) -> str:
@@ -1705,6 +1764,24 @@ def state_sha(solver) -> str:
     for f in (*solver._u, solver._p):
         h.update(f.x.array.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def check_lumped(tag: str, res: dict, steps: int, rtol: float, per_step: dict) -> None:
+    """A lumped-update path's run: c iterations 0 every step, every u and p
+    exit residual at most rtol, and the launches a step of ``per_step``."""
+    import numpy as np
+
+    st = res["stats"]
+    check(bool(np.all(st["c_iters"] == 0)), f"[{tag}] a lumped update iterated")
+    for f in ("u", "p"):
+        worst = float(np.max(st[f"{f}_res"]))
+        check(worst <= rtol, f"[{tag}] {f} exit residual {worst:.3e} above rtol {rtol:g}")
+    got = {k: res["launches"][k] / steps for k in per_step}
+    print(f"    [{tag}] launches a step {got} (expected {per_step}); c iterations 0 every step; "
+          f"worst exit residuals u {float(np.max(st['u_res'])):.3e} p "
+          f"{float(np.max(st['p_res'])):.3e} (rtol {rtol:g})")
+    check(got == {k: float(v) for k, v in per_step.items()},
+          f"[{tag}] launches a step {got}, not {per_step}")
 
 
 def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: dict,
@@ -1718,9 +1795,9 @@ def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: 
     used = {k: v for k, v in res["launches"].items() if v}
     print(f"[{tag}] {steps} steps in {res['wall']:.3f} s = {sps:.4f} steps/s "
           f"({ndofs * sps / 1e6:.3f} MDOF-updates/s) on {smi}")
+    era = f"; TPU-era reference (per-component means): {tpu_era}" if tpu_era else ""
     print(f"    per step mean iterations (summed over components): u {mean('u_iters'):.3f} "
-          f"p {mean('p_iters'):.3f} c {mean('c_iters'):.3f}; TPU-era reference "
-          f"(per-component means): {tpu_era}")
+          f"p {mean('p_iters'):.3f} c {mean('c_iters'):.3f}{era}")
     print(f"    per-component means: u {float(st['u_iters'].mean()):.3f} "
           f"c {float(st['c_iters'].mean()):.3f}; K4's iterations a step (its rows run "
           f"together until the last converges): {kmax('c_iters'):.3f}")
@@ -1769,27 +1846,110 @@ def profile_steps(solver, steps: int, path: str) -> None:
 def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None) -> None:
     """The same problem on cuda and on cpu from the same state, float64:
     equal iterations, u and p to 1e-10 relative; with ``pressure_pc``, the
-    pressure method both solvers report."""
+    pressure method both solvers report.  A Chebyshev pressure solve on the
+    general path runs on the cpu solver's bounds on both devices (each
+    device's power iteration rounds in its own way); the host reads a step
+    are printed for each device."""
     import numpy as np
     import torch
 
+    solvers = {dev: make(torch.float64, dev) for dev in ("cpu", "cuda")}
+    cheb = solvers["cpu"].config_report().get("pressure_cheb")
+    if cheb is not None and not solvers["cpu"]._structured:
+        solvers["cuda"]._p_cheb.update(lmin=cheb["lmin"], lmax=cheb["lmax"])
     runs = {}
     for dev in ("cuda", "cpu"):
-        s = make(torch.float64, dev)
+        s = solvers[dev]
         pc = s.config_report()["pressure_pc"]
         check(pressure_pc in (None, pc), f"{label} on {dev}: pressure {pc}, not {pressure_pc}")
         st = s.run(steps, dt, nu, max_iter=1)
         u = np.stack([f.x.array.detach().cpu().numpy() for f in s._u])
         p = s._p.x.array.detach().cpu().numpy()
         runs[dev] = (u, p, st)
+    del solvers
     (ug, pg, sg), (uc, pc, sc) = runs["cuda"], runs["cpu"]
     du = np.abs(ug - uc).max() / np.abs(uc).max()
     dp = np.abs(pg - pc).max() / np.abs(pc).max()
-    print(f"  {label} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}")
+    print(f"  {label} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}; host reads a "
+          f"step cuda {sg['host_syncs'].tolist()}, cpu {sc['host_syncs'].tolist()}")
     for k in ("u_iters", "p_iters", "c_iters"):
         print(f"  {k}: cuda {sg[k].tolist()} cpu {sc[k].tolist()}")
         check(np.array_equal(sg[k], sc[k]), f"{label}: {k} differ between cuda and cpu")
     check(du <= 1e-10 and dp <= 1e-10, f"{label}: cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
+
+
+def options_gpu_vs_cpu() -> None:
+    """Phase 5e: the options off the default configurations, cuda against
+    cpu in float64, 3 steps each (gpu_vs_cpu's checks): the lumped update on
+    both paths, the general path's Jacobi and Chebyshev pressure solves and
+    its CG and GMRES tentative solves, the band layout with GMRES; on the
+    vessel at N=6 and on the 2D rectangle of 6x6 cells sent to the general
+    path (CG on the tentative system, which is not symmetric, converges on
+    the vessel and stalls on the rectangle's second step, in both
+    packages)."""
+    lumped, gmres = {"pc_type": "lumped"}, {"ksp_type": "gmres"}
+    rect = {"structured": False, "low_memory_version": False}
+    cases = (
+        ("N=6 lumped (structured)", 6, dict(scalar=lumped), "mg-pcg"),
+        ("vessel N=6 lumped", 6, dict(vessel=True, scalar=lumped), "amg-pcg-fused"),
+        ("vessel N=6 pc_type jacobi, ksp_type cg", 6,
+         dict(vessel=True, pressure={"pc_type": "jacobi"}, tentative={"ksp_type": "cg"}),
+         "jacobi-pcg"),
+        ("vessel N=6 pc_type cheb", 6, dict(vessel=True, pressure={"pc_type": "cheb"}),
+         "cheb-pcg"),
+        ("rectangle 6x6 general, ksp_type gmres, pc_type cheb, lumped", (6, 6),
+         dict(options=rect, tentative=gmres, pressure={"pc_type": "cheb"}, scalar=lumped),
+         "cheb-pcg"),
+        ("vessel N=6 band, ksp_type gmres", 6, dict(vessel=True, layout="band", tentative=gmres),
+         "amg-pcg-fused"),
+    )
+    for label, n, kw, pc in cases:
+        gpu_vs_cpu(lambda dt, dev: tgv_solver(n, dt, dev, rtol=1e-8, **kw), label, pressure_pc=pc)
+
+
+def cylinder_transient(device, smi: str, steps: int = 25, dt=CYL_DT, nu=CYL_NU) -> None:
+    """Phase 4c': the cylinder with the DFG 2D-3 inflow, peak U(t) = 1.5
+    sin(pi t / 8): ``run`` over ``steps`` steps with the boundary values from
+    ``bc_value_table`` and a kinetic-energy monitor as its step_callback,
+    against ``steps`` ``solve`` calls that re-evaluate the inflow each step;
+    float32."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import engine as eng
+
+    clock = {"t": 0.0}
+    um = lambda: 1.5 * np.sin(np.pi * clock["t"] / 8.0)
+    a = cylinder_solver(CYL_RES, torch.float32, device, rtol=1e-5, um=um)
+    b = cylinder_solver(CYL_RES, torch.float32, device, rtol=1e-5, um=um)
+    times = [(k + 1) * dt for k in range(steps)]
+    table = a.bc_value_table(times, update=lambda t: clock.update(t=t))
+    kinetic = lambda st, t: 0.5 * (st["u"] * eng.matvec_v(a._ctx, a._M_elems, st["u"])).sum()
+    _sync(device)
+    t0 = time.perf_counter()
+    stats = a.run(steps, dt, nu, max_iter=1, bc_vals_seq=table, step_callback=kinetic)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    for t in times:
+        clock["t"] = t
+        b.solve(dt, nu, max_iter=1)
+    ua, ub = (np.stack([f.x.array.detach().cpu().numpy() for f in s._u]) for s in (a, b))
+    pa, pb = (s._p.x.array.detach().cpu().numpy() for s in (a, b))
+    du = np.abs(ua - ub).max() / np.abs(ub).max()
+    dp = np.abs(pa - pb).max() / max(np.abs(pb).max(), 1e-30)
+    ke = stats["callback"]
+    print(f"[4c'] cylinder res={CYL_RES}, DFG 2D-3 inflow to U({times[-1]:g}) = {um():.6f}: "
+          f"{steps} steps from a table in {wall:.3f} s = {steps / wall:.4f} steps/s on {smi}; "
+          f"against {steps} solve calls: u rel diff {du:.3e}, p rel diff {dp:.3e}, "
+          f"bit-identical {bool(np.array_equal(ua, ub) and np.array_equal(pa, pb))}; host "
+          f"reads a step {stats['host_syncs'].tolist()[:3]}...; kinetic energy (callback) "
+          f"{float(ke[0]):.6e} after step 1, {float(ke[-1]):.6e} after step {steps}")
+    check(ke.shape == (steps,) and np.isfinite(ke).all(), "the kinetic-energy callback")
+    check(bool(np.all(stats["u_converged"]) and np.all(stats["p_converged"])),
+          "a solve of the transient cylinder did not converge")
+    # the same operations in the same order: equal to f32 rounding
+    check(du <= 1e-5 and dp <= 1e-5, f"the table run and the per-step loop disagree (u {du:.3e},"
+          f" p {dp:.3e})")
 
 
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
@@ -1874,9 +2034,11 @@ def run_tree(root: str, argv: list) -> int:
     sys.argv = [spec.origin, *argv]
     print(f"[tree] {root}: its chip_smoke.py, timed by this one's time_ms")
     try:
-        return mod.main()
+        rc = mod.main()
     except mod.SmokeError as e:
         raise SmokeError(f"{root}: {e}") from e
+    log.report_skipped()
+    return rc
 
 
 def band_setup(n: int, tree: str | None) -> int:
@@ -1999,6 +2161,25 @@ def main() -> int:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
     del solver
 
+    # 4g. the structured main path with the lumped velocity update: K6 on
+    # Gw_c in place of K4's mass solve
+    lumped = {"pc_type": "lumped"}
+    t0 = time.perf_counter()
+    slump = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, scalar=lumped)
+    _sync("cuda")
+    rep = slump.config_report()
+    print(f"[4g] setup N={N}, lumped update: {time.perf_counter() - t0:.1f} s; velocity update "
+          f"{rep['velocity_update']}, kernels {rep['path_kernels']}")
+    check(rep["velocity_update"] == "lumped" and "cg_mass" not in rep["path_kernels"],
+          f"[4g] {rep['velocity_update']} update with {rep['path_kernels']}")
+    res = drive_main_path(slump, WARMUP, STEPS, "cuda", rep["path_kernels"])
+    report_path("4g", res, STEPS, nvel, smi, {}, steps_log)
+    check_lumped("4g", res, STEPS, 1e-5, {"matvec_const": 1, "mixed": 2, "cg_mass": 0})
+    if args.profile:
+        profile_steps(slump, args.profile, "build/chip_smoke_trace_lumped.json")
+    del slump
+    torch.cuda.empty_cache()
+
     # 5. GPU against CPU
     print("[5] cuda against cpu")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6", pressure_pc="mg-pcg")
@@ -2105,8 +2286,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
-    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL,
-                steps_log)
+    report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, {}, steps_log)
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
     for k, v in res["launches"].items():
@@ -2151,8 +2331,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vband, WARMUP, STEPS, "cuda", kn.BAND_KERNELS)
-    report_path("4e", res, STEPS, 3 * vband._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS_VESSEL,
-                steps_log)
+    report_path("4e", res, STEPS, 3 * vband._Vi[0][0].num_dofs, smi, {}, steps_log)
     iters_4e = {f: float(res["stats"][f"{f}_iters"].mean()) for f in ("u", "p", "c")}
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps; setup "
@@ -2171,10 +2350,38 @@ def main() -> int:
           f"{(resident - torch.cuda.memory_allocated()) / 2**20:.1f} MiB (before the steps, "
           f"less what stays once it is freed)")
 
+    # 4h. the vessel with the lumped update: BENCH_unstructured_r05.json's
+    # configuration (AMG-PCG pressure, low_memory_version False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vlump = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True, scalar=lumped)
+    _sync("cuda")
+    rep = vlump.config_report()
+    resident = torch.cuda.memory_allocated()
+    print(f"[4h] vessel setup N={N}, lumped update: {time.perf_counter() - t0:.1f} s; kernels "
+          f"{rep['path_kernels']}, device memory {resident / 2**20:.1f} MiB")
+    check(rep["velocity_update"] == "lumped" and "ell_cg" not in rep["path_kernels"],
+          f"[4h] {rep['velocity_update']} update with {rep['path_kernels']}")
+    res = drive_main_path(vlump, WARMUP, STEPS, "cuda", rep["path_kernels"])
+    report_path("4h", res, STEPS, 3 * vlump._Vi[0][0].num_dofs, smi, {}, steps_log)
+    check_lumped("4h", res, STEPS, 1e-5, {"ell_cg": 0, "ell_bicgstab": 1, "ell_pcg_amg": 1})
+    means = {f: round(float(res["stats"][f"{f}_iters"].mean()), 4) for f in ("u", "p")}
+    print(f"    per-component mean iterations {means} against the TPU-era capture of this "
+          f"configuration {TPU_ERA_ITERS_VESSEL} (BENCH_unstructured_r05.json); device memory "
+          f"{resident / 2**20:.1f} MiB before the steps, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
+    if args.profile:
+        profile_steps(vlump, args.profile, "build/chip_smoke_trace_vessel_lumped.json")
+    del vlump
+    torch.cuda.empty_cache()
+
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
     report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {}, steps_log)
     del cyl
+
+    # 4c'. the cylinder with a time-varying inflow, from a table
+    cylinder_transient("cuda", smi)
 
     # 5b, 5c. GPU against CPU on the general path, both layouts
     print("[5b] cuda against cpu, general path")
@@ -2184,6 +2391,8 @@ def main() -> int:
     print("[5c] cuda against cpu, band layout")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, vessel=True, layout="band"),
                "vessel band N=6")
+    print("[5e] cuda against cpu, the options off the default configurations")
+    options_gpu_vs_cpu()
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

@@ -82,14 +82,21 @@ class CubeOps:
     Ediag: torch.Tensor  # (Q, d, nl_v) PhiW * Dg (convection-diagonal table)
     sm_v: tuple
     sm_q: tuple
+    # (d, nl_v, nl_q) the lumped update's weighted nodal gradient (with gtab)
+    Gw_c: torch.Tensor | None = None
 
 
 def build_cube_ops(
-    mesh, refs: ReferenceTensors, sm_v, sm_q, dtype=None, *, device
+    mesh, refs: ReferenceTensors, sm_v, sm_q, dtype=None, *, device, gtab=None
 ) -> CubeOps | None:
     """Built on the host in float64 NumPy, returned as tensors on ``device``.
     Returns None unless per-shape geometry is uniform (all cells of one
-    Kuhn shape share detJ/Kinv — true for the structured generators)."""
+    Kuhn shape share detJ/Kinv — true for the structured generators).
+
+    With ``gtab``, the Q basis's reference gradients at the V reference
+    nodes (ndv, d, ndq), also ``Gw_c``: per shape detJ_s Mref_jj
+    sum_b Kinv_s[b, g] gtab[j, b, m], so that ``mixed(dp, Gw_c)`` is
+    ``engine.weighted_nodal_grad_p`` on the grid."""
     from .geometry import compute_cell_geometry
 
     info = mesh.structured
@@ -138,6 +145,11 @@ def build_cube_ops(
     Mq_c = embed(Mq_s, slots_q, slots_q, nl_q, nl_q)
     B_c = np.stack([embed(B_s[:, g], slots_v, slots_q, nl_v, nl_q) for g in range(d)])
     G_c = np.stack([embed(Gq_s[:, g], slots_v, slots_q, nl_v, nl_q) for g in range(d)])
+    Gw_c = None
+    if gtab is not None:
+        wts = detJ_s[:, None] * np.diag(refs.mass)[None]  # (s, j)
+        Gw_s = wts[:, None, :, None] * np.einsum("sbg,jbm->sgjm", Kinv_s, np.asarray(gtab))
+        Gw_c = np.stack([embed(Gw_s[:, g], slots_v, slots_q, nl_v, nl_q) for g in range(d)])
 
     w = refs.qweights
     phi = refs.phi_v  # (nq, ndv)
@@ -161,6 +173,7 @@ def build_cube_ops(
     return CubeOps(
         M_c=a(M_c), K_c=a(K_c), Ap_c=a(Ap_c), Mq_c=a(Mq_c), B_c=a(B_c), G_c=a(G_c),
         Phi=a(Phi), Dg=a(Dg), PhiW=a(PhiW), Ediag=a(Ediag), sm_v=sm_v, sm_q=sm_q,
+        Gw_c=None if Gw_c is None else a(Gw_c),
     )
 
 

@@ -261,6 +261,18 @@ def grad_p_vecs(ctx: DeviceContext, dp: torch.Tensor) -> torch.Tensor:
     return scatter_v(ctx, torch.einsum("cbg,cbj->gcj", sc, t))
 
 
+def weighted_nodal_grad_p(ctx: DeviceContext, dp: torch.Tensor, gtab: torch.Tensor) -> torch.Tensor:
+    """The mass-weighted nodal gradient of a Q-function at the V nodes, (d,
+    ndofs_v): num_i = sum over the cells c of dof i of detJ_c Mref_jj
+    (grad dp)|_c(x_j).  Divided by diag(M), the same sum of weights, it is
+    a convex combination of the cells' gradients at each velocity node:
+    the lumped velocity update.  ``gtab``: the Q basis's reference
+    gradients at the V reference nodes, (ndv, d, ndq)."""
+    r = torch.einsum("jbm,cm->cjb", gtab, gather_q(ctx, dp))  # reference gradient at V nodes
+    w = ctx.detJ[:, None] * torch.diagonal(ctx.mass_ref)[None]  # (c, j)
+    return scatter_v(ctx, w[None] * torch.einsum("cbg,cjb->gcj", ctx.Kinv, r))
+
+
 def constant_load_vec(ctx: DeviceContext, f: float) -> torch.Tensor:
     """assemble(f * v dx) for a constant scalar f: (ndofs_v,)."""
     return scatter_v(ctx, f * ctx.detJ[:, None] * ctx.load_ref[None, :])

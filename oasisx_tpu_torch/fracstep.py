@@ -22,6 +22,7 @@ solve of the step goes through one of the eight kernels of
       ps    = p + dp
   velocity update: solve M u_new = M u - dt G dp   cg_mass (r0 by mixed,
                                                    matvec_const)
+    or, lumped: u_new = u - dt (Gw dp) / diag(M)   mixed on Gw_c
   rotate u2 <- u1 <- u_new;  p <- ps
 
 The pressure solve is chosen as the JAX package's kernel path chooses it:
@@ -48,6 +49,14 @@ assembled operator goes through the ELL kernels of ``la/ell.py``:
       solve Ap dp = b2: outlet mask, or        ell_pcg_amg (r0 by ell_matvec)
         nullspace + zero mean
   velocity update: M u_new = M u - dt G dp     ell_cg (b3, r0 by ell_matvec)
+    or, lumped: u_new = u - dt (Gw dp) / diag(M), the element gather-scatter
+
+The general path's other options, off its default configuration: a
+pressure ``pc_type`` jacobi / none (Jacobi-CG) or any other non-AMG type
+(Chebyshev(``cheb_degree``, default 6)-Jacobi CG), and a tentative
+``ksp_type`` cg or gmres (one component at a time): Krylov loops on the
+host around K14's products (K18's in the band layout), one host read an
+iteration.
 
 With ``options={"ell_layout": "band"}`` the velocity operators (A_lhs and
 M) take the band-ELL layout (``assembly/band.py``, RCM order inside a
@@ -114,13 +123,42 @@ def _inv(diag: torch.Tensor) -> torch.Tensor:
                        torch.ones_like(diag))
 
 
+def _lumped_inv(m_diag: torch.Tensor) -> torch.Tensor:
+    """The lumped update's 1 / diag(M): 0 where the diagonal is not
+    positive, so the grid's padding points stay 0."""
+    pos = m_diag > 0
+    return torch.where(pos, 1.0 / torch.where(pos, m_diag, torch.ones_like(m_diag)),
+                       torch.zeros_like(m_diag))
+
+
+def _stack(outs: list, device):
+    """Stack a callback's per-step outputs (tensors, numbers, or dicts /
+    tuples / lists of them) along a new leading step axis."""
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs], device) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack(list(c), device) for c in zip(*outs))
+    return torch.stack([torch.as_tensor(o, device=device) for o in outs])
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
 class FractionalStep_AB_CN:
     """Fractional-step solver with AB2-linearized convection and CN diffusion.
 
     Args mirror the JAX package: ``mesh``, ``u_element`` / ``p_element`` as
     ("Lagrange", degree) tuples or FiniteElements, per-component velocity
     Dirichlet BCs, pressure outlet ``PressureBC``s, per-family
-    ``solver_options`` keyed ``tentative`` / ``pressure`` / ``scalar``,
+    ``solver_options`` keyed ``tentative`` / ``pressure`` / ``scalar``
+    (``la/solver.py``'s PETSc names; a ``scalar`` ``pc_type`` "lumped", or
+    ``lumped: True``, selects the lumped velocity update on both paths),
     ``options`` (``low_memory_version``: direct vector assembly of the
     mixed terms, default True, or preassembled mixed matrices;
     ``ell_layout``: "ell", default, or "band" for the velocity operators
@@ -178,6 +216,22 @@ class FractionalStep_AB_CN:
         for bcp in self._bcs_p:
             bcp.create_bcs(Vi0, self._Q, dtype=self._dtype, device=self._device)
 
+        # --- solvers ---------------------------------------------------------
+        solver_options = solver_options or {}
+        self._solver_u = KSPSolver(
+            solver_options.get("tentative"), prefix="tentative_velocity", symmetric=False
+        )
+        self._solver_p = KSPSolver(
+            solver_options.get("pressure"), prefix="pressure_correction", symmetric=True
+        )
+        self._solver_c = KSPSolver(
+            solver_options.get("scalar"), prefix="velocity_update", symmetric=True
+        )
+        # the lumped velocity update's table: the Q basis's reference
+        # gradients at the V reference nodes (ndv, d, ndq)
+        self._lumped = self._solver_c.lumped
+        gtab = el_p.tabulate(el_u.nodes)[1] if self._lumped else None
+
         # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
         self._cu = None
@@ -188,7 +242,7 @@ class FractionalStep_AB_CN:
                 (self._sm_v, gf_v, _), (self._sm_q, gf_q, valid_q) = rv, rq
                 self._cu = cub.build_cube_ops(
                     mesh, self._refs, self._sm_v, self._sm_q, dtype=self._dtype,
-                    device=self._device,
+                    device=self._device, gtab=gtab,
                 )
         self._structured = self._cu is not None
         if self._structured:
@@ -203,26 +257,11 @@ class FractionalStep_AB_CN:
                 mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
                 self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device,
             )
-
-        # --- solvers ---------------------------------------------------------
-        solver_options = solver_options or {}
-        self._solver_u = KSPSolver(
-            solver_options.get("tentative"), prefix="tentative_velocity", symmetric=False
-        )
-        self._solver_p = KSPSolver(
-            solver_options.get("pressure"), prefix="pressure_correction", symmetric=True
-        )
-        self._solver_c = KSPSolver(
-            solver_options.get("scalar"), prefix="velocity_update", symmetric=True
-        )
-        if str(self._solver_c.options.get("pc_type", "")).lower() == "lumped" or \
-                self._solver_c.options.get("lumped"):
-            raise NotImplementedError(
-                "the lumped velocity update is not ported: ROADMAP.md Queue 1 item 2.1"
-            )
-        if self._solver_u.method != "bcgs":
-            logger.info("the tentative solves run batched BiCGStab (requested %s)",
-                        self._solver_u.method)
+            if self._lumped:
+                self._gtab = torch.as_tensor(gtab, device=self._device).to(self._dtype)
+        if self._structured and self._solver_u.method != "bcgs":
+            logger.info("the structured path's tentative solves run batched BiCGStab "
+                        "(requested %s)", self._solver_u.method)
 
         if self._structured:
             self._preassemble(options)
@@ -262,6 +301,7 @@ class FractionalStep_AB_CN:
         # 0 on Dirichlet rows: the tentative operator's output is zeroed there
         self._zmask = (~self._bc_masks).to(dt)
         self._M_invd = torch.where(self._M_diag != 0, 1.0 / self._M_diag, 1.0)
+        self._lumped_inv = _lumped_inv(self._M_diag) if self._lumped else None
 
         # the pressure solve, chosen as the JAX package's kernel path chooses
         # it (oasisx_tpu/fracstep.py:741-767): the MG-PCG where the grid
@@ -295,11 +335,13 @@ class FractionalStep_AB_CN:
         """General path: constant element stacks and diagonals, BC masks,
         the outlet mask, the mixed matrices (``low_memory_version=False``),
         the ELL tables and the constant operators M and Ap in ELL form, and
-        the pressure AMG with its kernel tables."""
+        the pressure preconditioner: the AMG with its kernel tables, or
+        Jacobi's diagonal and, for Chebyshev, its bounds."""
         ctx, dev, dt = self._ctx, self._device, self._dtype
         c = eng.setup_constants(ctx)
         self._M_elems, self._K_elems, self._Ap_elems = c["M"], c["K"], c["Ap"]
         self._M_invd = _inv(c["M_diag"])
+        self._lumped_inv = _lumped_inv(c["M_diag"]) if self._lumped else None
         self._vol = float(c["vol"])
         self._bc_masks = self._bc_mask_tensor()
         self._zmask = (~self._bc_masks).to(dt)
@@ -326,9 +368,38 @@ class FractionalStep_AB_CN:
             self._M_vals = ell_values(self._M_elems, self._ell_v)
         self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
         self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
-        self._amg = self._build_amg(popts, pmask)
-        self._amg_data = amg_kernel_data(self._amg)
-        self._amg_widths = amg_widths(self._amg)
+        self._amg = self._p_cheb = None
+        pc = str(popts.get("pc_type", "amg")).lower()
+        if pc in AMG_PC_TYPES:
+            self._amg = self._build_amg(popts, pmask)
+            self._amg_data = amg_kernel_data(self._amg)
+            self._amg_widths = amg_widths(self._amg)
+            return
+        # Jacobi-CG (pc_type jacobi or none) or Chebyshev-Jacobi CG, as the
+        # JAX package's _build_cheb for the general path: the diagonal is 1
+        # on the outlet rows, the bounds (lmax / 30, lmax) with lmax the
+        # validated power-iteration estimate (set-up reads only)
+        ap_diag = c["Ap_diag"]
+        if self._pbc_mask is not None:
+            ap_diag = torch.where(self._pbc_mask, torch.ones_like(ap_diag), ap_diag)
+        self._Ap_diag = ap_diag
+        if pc in ("jacobi", "none"):
+            return
+        deg = int(popts.get("cheb_degree", 6))
+        mv, invd = self._pressure_matvec(), _inv(ap_diag)
+        est = krylov.estimate_lmax(mv, invd)
+        lmax = krylov.validated_cheb_bounds(mv, invd, est, deg)[1]
+        self._p_cheb = dict(degree=deg, lmin=lmax / 30.0, lmax=lmax, lmax_estimate=est)
+        logger.info("pressure Chebyshev(%d)-Jacobi preconditioner (lmax %.3g)", deg, lmax)
+
+    def _pressure_matvec(self):
+        """The general path's pressure operator on K14, with identity rows
+        and columns on the outlet dofs where there is an outlet."""
+        op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
+        if self._pbc_mask is None:
+            return lambda x: ell.ell_matvec(*op, x)
+        m = self._pbc_mask
+        return lambda x: torch.where(m, x, ell.ell_matvec(*op, torch.where(m, 0.0, x)))
 
     def _build_amg(self, popts: dict, pmask: np.ndarray) -> AlgebraicMG:
         """Smoothed-aggregation AMG for the pressure Poisson (the JAX
@@ -341,12 +412,6 @@ class FractionalStep_AB_CN:
         rounding noise in the constant mode (entries near 1e6 against 14)
         and the vessel's float32 pressure solves at N=12 took 370-440
         iterations instead of 11-12."""
-        pc = str(popts.get("pc_type", "amg")).lower()
-        if pc not in AMG_PC_TYPES:
-            raise NotImplementedError(
-                f"pressure pc_type {pc!r}: the general path has the AMG preconditioner only "
-                "(the others are ROADMAP.md Queue 1 item 2.2)"
-            )
         ctx = self._ctx
         n = self._Q.num_dofs
         geo = compute_cell_geometry(self._mesh.x, self._mesh.cells, self._mesh.dim)
@@ -378,16 +443,18 @@ class FractionalStep_AB_CN:
         common = dict(
             sharding="single-device",
             structured_fastpath=self._structured,
-            velocity_update=self._solver_c.method,
-            tentative_method="bcgs",
+            velocity_update="lumped" if self._lumped else self._solver_c.method,
+            tentative_method="bcgs" if self._structured else self._solver_u.method,
             kernels=list(kn.KERNELS),
             device=str(self._device),
             dtype=str(self._dtype).replace("torch.", ""),
         )
+        # the mass solve's kernel does not run under the lumped update
+        unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
         if self._structured:
             mg = isinstance(self._pcg, PressureMGCG)
-            unused = "pressure_cg" if mg else "pressure_mg"
-            out = dict(common, path_kernels=[k for k in kn.STRUCTURED_KERNELS if k != unused])
+            unused.add("pressure_cg" if mg else "pressure_mg")
+            out = dict(common, path_kernels=[k for k in kn.STRUCTURED_KERNELS if k not in unused])
             if mg:
                 return dict(out, pressure_pc="mg-pcg", pressure_mg_levels=len(self._pcg.levels))
             if self._p_cheb is None:
@@ -402,11 +469,22 @@ class FractionalStep_AB_CN:
         else:
             ev = self._ell_v
             velocity = {"K_v": ev.K, "n_v": ev.n, "nnz_v": ev.nnz}
+        if self._solver_u.method != "bcgs":  # per-component solves on the products
+            unused |= {"ell_bicgstab", "band_bicgstab"}
+        if self._amg is not None:
+            pressure = dict(pressure_pc="amg-pcg-fused", pressure_mg_levels=self._amg.num_levels)
+        elif self._p_cheb is None:
+            pressure = dict(pressure_pc="jacobi-pcg", pressure_mg_levels=0)
+        else:
+            pressure = dict(pressure_pc="cheb-pcg", pressure_mg_levels=0,
+                            pressure_cheb=dict(self._p_cheb))
+        if self._amg is None:
+            unused.add("ell_pcg_amg")
+        kernels = kn.BAND_KERNELS if self._layout == "band" else kn.ELL_KERNELS
         return dict(
             common,
-            pressure_pc="amg-pcg-fused",
-            pressure_mg_levels=self._amg.num_levels,
-            path_kernels=list(kn.BAND_KERNELS if self._layout == "band" else kn.ELL_KERNELS),
+            **pressure,
+            path_kernels=[k for k in kernels if k not in unused],
             low_memory=self._low_memory,
             outlet=bool(self._bcs_p),
             ell_layout=self._layout,
@@ -488,8 +566,12 @@ class FractionalStep_AB_CN:
         """Batched BiCGStab with zero-masked bc rows (the kernel path's
         formulation, oasisx_tpu fracstep.py:2390-2410, 2465-2488): x0's bc
         rows preset to the bc values, r0 = zmask (rhs - A x0), tolerance from
-        the full rhs norm, Jacobi from the full diagonal.  Returns
-        (KrylovResult, diff against u, relative exit residual)."""
+        the full rhs norm, Jacobi from the full diagonal.  On the general
+        path a ``ksp_type`` cg or gmres solves each component in turn
+        (``_tentative_components``).  Returns (KrylovResult, diff against u,
+        relative exit residual)."""
+        if not self._structured and self._solver_u.method != "bcgs":
+            return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
         rhs = torch.where(masks, bc_vals, rhs1)
         x0 = torch.where(masks, bc_vals, x0)
@@ -520,6 +602,41 @@ class FractionalStep_AB_CN:
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
         return res, diff, _rel_res(res.resnorm, bnorm)
 
+    def _tentative_components(self, A, diag, rhs1, bc_vals, u, x0):
+        """The general path's tentative solves by CG or GMRES(restart), a
+        component at a time, in the JAX package's XLA formulation
+        (oasisx_tpu fracstep.py:2512-2540): identity bc rows after the
+        product, the rhs with the bc values on them, x0 as given (its bc rows
+        not preset), Jacobi with 1 on the bc rows.  The product is K14 at
+        batch 1 on A_lhs's ELL values, or K18's in the band layout, both
+        assembled once a solve; the Krylov loops run on the host (one read
+        an iteration, or an Arnoldi step)."""
+        s, masks = self._solver_u, self._bc_masks
+        if self._layout == "band":
+            bv = self._band_v
+            vals = band_values(A, bv)
+            mv = lambda x: band.from_band(band.band_matvec(vals, *bv.tables, band.to_band(x, bv)),
+                                          bv)
+        else:
+            ev = self._ell_v
+            vals = ell_values(A, ev)
+            mv = lambda x: ell.ell_matvec(vals, ev.cols, ev.widths, x)
+        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
+        rhs = torch.where(masks, bc_vals, rhs1)
+        out = []
+        for i in range(rhs.shape[0]):
+            A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, mv(x), x)
+            kw = dict(x0=x0[i], M=krylov.jacobi_preconditioner(dfull[i]), rtol=s.rtol,
+                      atol=s.atol, maxiter=s.maxiter)
+            if s.method == "gmres":
+                out.append(krylov.gmres(A_i, rhs[i], restart=s.gmres_restart, **kw))
+            else:
+                out.append(krylov.cg(A_i, rhs[i], **kw))
+        res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
+                                  sum(r.syncs for r in out))
+        diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
+        return res, diff, _rel_res(res.resnorm, torch.linalg.vector_norm(rhs, dim=-1))
+
     def _divergence(self, u, dt):
         """b2 = -(1/dt) assemble(div u q), 0 on the outlet dofs."""
         if self._structured:
@@ -539,8 +656,10 @@ class FractionalStep_AB_CN:
     def _pressure_solve(self, b2, dp0):
         """Returns (KrylovResult, dp, relative exit residual).  Structured:
         projected warm start, the pressure PCG, volume-weighted zero mean.
-        General: AMG-PCG with the outlet mask (dp0 as it is), or with the
-        nullspace (warm start demeaned, volume-weighted zero mean after)."""
+        General: AMG-PCG (K17), or Jacobi- or Chebyshev-Jacobi CG on K14's
+        products with the loop on the host; with the outlet mask (dp0 as it
+        is), or with the nullspace (warm start demeaned, volume-weighted zero
+        mean after)."""
         if self._structured:
             nv = self._q_null
             x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
@@ -548,6 +667,8 @@ class FractionalStep_AB_CN:
             dp = res.x - (torch.dot(self._intw, res.x) / self._vol) * nv
             return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
         s = self._solver_p
+        if self._amg is None:
+            return self._pressure_solve_cg(b2, dp0)
         rtol = _effective_rtol(s.rtol, self._dtype)
         op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
         if self._pbc_mask is not None:
@@ -561,9 +682,31 @@ class FractionalStep_AB_CN:
             dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
         return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
 
+    def _pressure_solve_cg(self, b2, dp0):
+        """The general path's non-AMG pressure solve (the JAX package's
+        XLA loop, oasisx_tpu fracstep.py:2660-2720): CG preconditioned by
+        Jacobi or by Chebyshev-Jacobi of the set-up's degree and bounds,
+        read here at each solve."""
+        s, mv = self._solver_p, self._pressure_matvec()
+        ch = self._p_cheb
+        M = krylov.jacobi_preconditioner(self._Ap_diag) if ch is None else \
+            krylov.chebyshev_preconditioner(mv, _inv(self._Ap_diag), ch["lmin"], ch["lmax"],
+                                            ch["degree"])
+        kw = dict(M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter)
+        if self._pbc_mask is not None:
+            res = krylov.cg(mv, b2, x0=dp0, **kw)
+            dp = res.x
+        else:
+            res = krylov.cg(mv, b2, x0=dp0 - torch.mean(dp0), project_nullspace=True, **kw)
+            ctx = self._ctx
+            dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
+        return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
+
     def _velocity_update(self, u, dp, dt, duc):
         """Mass solves M u_new = M u - dt G dp, warm-started from u + duc
-        with r0 = -dt G dp - M duc."""
+        with r0 = -dt G dp - M duc; or the lumped update."""
+        if self._lumped:
+            return self._lumped_update(u, dp, dt)
         sc = self._solver_c
         rtol = _effective_rtol(sc.rtol, self._dtype)
         if self._structured:
@@ -591,6 +734,24 @@ class FractionalStep_AB_CN:
             res = ell.ell_cg(self._M_vals, ev.cols, ev.widths, r0, u + duc, self._M_invd, bnorm,
                              rtol, sc.maxiter, sc.atol)
         return res, _rel_res(res.resnorm, bnorm)
+
+    def _lumped_update(self, u, dp, dt):
+        """The lumped (weighted-gradient) update, u - dt num / diag(M), as
+        the JAX package's (oasisx_tpu fracstep.py:2812-2835): num is the
+        diag(M)-weighted sum of the cells' gradients of dp at each velocity
+        node, K6 on the cube matrix Gw_c (structured) or the element
+        gather-scatter (general).  No solve: 0 iterations, converged, exit
+        residual 0."""
+        if self._structured:
+            num = kn.mixed(dp, self._cu.Gw_c, self._sm_v, self._sm_q)
+        else:
+            num = eng.weighted_nodal_grad_p(self._ctx, dp, self._gtab)
+        d = u.shape[0]
+        res = krylov.KrylovResult(
+            u - dt * num * self._lumped_inv, torch.zeros(d, dtype=torch.int32, device=u.device),
+            torch.zeros(d, dtype=u.dtype, device=u.device),
+            torch.ones(d, dtype=torch.bool, device=u.device), 0)
+        return res, res.resnorm
 
     def _velocity_update_band(self, u, g, dt, duc, rtol):
         """The general path's mass solves in band form, as the JAX band
@@ -701,18 +862,79 @@ class FractionalStep_AB_CN:
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
+    def bc_value_table(self, times, update=None) -> torch.Tensor:
+        """Per-step Dirichlet values for ``run(bc_vals_seq=...)``: for each
+        t in ``times``, ``update(t)`` (the caller's hook that advances its
+        Constants) and every BC re-evaluated; (len(times), d, ndofs) in the
+        canonical dof order, on the solver's device."""
+        rows = []
+        for t in times:
+            if update is not None:
+                update(float(t))
+            for bc_i in self._bcs_u:
+                for bc in bc_i:
+                    bc.update_bc()
+            nv = self._Vi[0][0].num_dofs
+            rows.append(np.stack([bc_mask_and_values(bc_i, nv)[1] for bc_i in self._bcs_u]))
+        return torch.as_tensor(np.stack(rows), dtype=self._dtype, device=self._device)
+
+    def h_value_table(self, times, update=None) -> list[torch.Tensor]:
+        """Per-step outlet values for ``run(h_qvals_seq=...)``: one tensor
+        (len(times), nf, nq) per PressureBC, at its facet quadrature
+        points."""
+        rows = [[] for _ in self._bcs_p]
+        for t in times:
+            if update is not None:
+                update(float(t))
+            for bcp in self._bcs_p:
+                bcp.update_bc()
+            for i, h in enumerate(self._h_qvals()):
+                rows[i].append(h)
+        return [torch.stack(r) for r in rows]
+
     def run(self, num_steps: int, dt: float, nu: float, max_error: float = 1e-12,
-            max_iter: int = 1) -> dict:
-        """Advance ``num_steps`` steps with frozen boundary values; returns
-        per-step stats as NumPy arrays with a leading step axis."""
+            max_iter: int = 1, bc_vals_seq=None, h_qvals_seq=None, step_callback=None,
+            t0: float = 0.0) -> dict:
+        """Advance ``num_steps`` steps; returns per-step stats as NumPy
+        arrays with a leading step axis.
+
+        Without ``bc_vals_seq`` / ``h_qvals_seq`` the boundary values are
+        frozen over the call.  ``bc_vals_seq`` (num_steps, d, ndofs), from
+        ``bc_value_table``, gives each step its Dirichlet values, and
+        ``h_qvals_seq``, from ``h_value_table``, each outlet's; both go to
+        the device and the internal layout once a call.
+        ``step_callback(state, t)`` sees the device state (internal layout)
+        and the time at the end of each step; its outputs, a tensor or a
+        dict / tuple of tensors, are stacked over the steps on the device
+        into ``last_stats["callback"]``, read with the stats once a call."""
         if num_steps < 1 or max_iter < 1:
             raise ValueError("num_steps and max_iter must be at least 1")
         state = self._state_from_functions()
-        bc_vals = self._bc_values()
-        h_qvals = self._h_qvals()
-        steps, syncs = [], []
-        for _ in range(num_steps):
-            state, stats, n = self._step(state, dt, nu, bc_vals, h_qvals, max_error, max_iter)
+        on = lambda a: torch.as_tensor(a, dtype=self._dtype, device=self._device)
+        if bc_vals_seq is None:
+            bc_seq = [self._bc_values()] * num_steps
+        else:
+            bc_seq = self._pv(on(bc_vals_seq))
+            nv = self._Vi[0][0].num_dofs
+            if tuple(bc_seq.shape[:2]) != (num_steps, self._mesh.dim) or \
+                    tuple(bc_vals_seq.shape)[-1] != nv:
+                raise ValueError(f"bc_vals_seq: expected ({num_steps}, {self._mesh.dim}, {nv}), "
+                                 f"got {tuple(bc_vals_seq.shape)}")
+        if h_qvals_seq is None:
+            h_seq = [self._h_qvals()] * num_steps
+        else:
+            tables = [on(h) for h in h_qvals_seq]
+            if len(tables) != len(self._bcs_p) or any(h.shape[0] != num_steps for h in tables):
+                raise ValueError(f"h_qvals_seq: expected {len(self._bcs_p)} tables of "
+                                 f"{num_steps} steps")
+            h_seq = [list(hs) for hs in zip(*tables)] if tables else [[]] * num_steps
+        steps, syncs, outs = [], [], []
+        t = float(t0)
+        for k in range(num_steps):
+            state, stats, n = self._step(state, dt, nu, bc_seq[k], h_seq[k], max_error, max_iter)
+            t += dt
+            if step_callback is not None:
+                outs.append(step_callback(state, t))
             steps.append(stats)
             syncs.append(n)
         self._set_device_state(state)
@@ -720,6 +942,8 @@ class FractionalStep_AB_CN:
             k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]
         }
         self.last_stats["host_syncs"] = np.asarray(syncs)
+        if step_callback is not None:
+            self.last_stats["callback"] = _host(_stack(outs, self._device))
         return self.last_stats
 
     def solve(self, dt: float, nu: float, max_error: float = 1e-12, max_iter: int = 10) -> float:

@@ -2,11 +2,13 @@
 
 from .krylov import (
     KrylovResult,
+    bicgstab,
     bicgstab_batched,
     cg,
     cg_batched,
     chebyshev_preconditioner,
     estimate_lmax,
+    gmres,
     jacobi_preconditioner,
     validated_cheb_bounds,
 )
@@ -15,11 +17,13 @@ from .solver import KSPSolver
 __all__ = [
     "KrylovResult",
     "KSPSolver",
+    "bicgstab",
     "bicgstab_batched",
     "cg",
     "cg_batched",
     "chebyshev_preconditioner",
     "estimate_lmax",
+    "gmres",
     "jacobi_preconditioner",
     "validated_cheb_bounds",
 ]

@@ -1,9 +1,9 @@
 """Matrix-free Krylov solvers on tensors, with the loop on the host.
 
-CG for the SPD operators (pressure Poisson, mass) and batched BiCGStab for
-the nonsymmetric tentative-velocity operator, following
-``oasisx_tpu/la/krylov.py`` operation for operation so that both packages
-take the same iterations.  The loop runs in Python; its condition reads
+CG for the SPD operators (pressure Poisson, mass), BiCGStab (one system or
+a batch) and restarted GMRES for the nonsymmetric tentative-velocity
+operator, following ``oasisx_tpu/la/krylov.py`` operation for operation so
+that both packages take the same iterations.  The loop runs in Python; its condition reads
 a device scalar once per iteration (one host sync), counted in
 ``KrylovResult.syncs`` so a run can report syncs per step.
 
@@ -33,6 +33,15 @@ class KrylovResult(NamedTuple):
     resnorm: torch.Tensor  # final residual 2-norm
     converged: torch.Tensor  # bool
     syncs: int = 0  # device reads made by the loop condition
+    # PETSc-style converged reason of cg, bicgstab and gmres: 2 converged
+    # (rtol), -3 maximum iterations, -5 breakdown (a zero pAp, rho or omega)
+    reason: torch.Tensor | None = None  # int32
+
+
+def _reason(converged: torch.Tensor, breakdown: torch.Tensor) -> torch.Tensor:
+    two, brk, maxit = (torch.tensor(v, dtype=torch.int32, device=converged.device)
+                       for v in (2, -5, -3))
+    return torch.where(converged, two, torch.where(breakdown, brk, maxit))
 
 
 def _identity(x):
@@ -119,9 +128,162 @@ def cg(
         rnorm = torch.linalg.vector_norm(r)
         k += 1
     x = demean(x) if project_nullspace else x
-    return KrylovResult(
-        x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, rnorm <= tol, syncs
-    )
+    conv = rnorm <= tol
+    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, conv, syncs,
+                        _reason(conv, brk))
+
+
+def bicgstab(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-50,
+    maxiter: int = 1000,
+) -> KrylovResult:
+    """Preconditioned BiCGStab for one nonsymmetric system, with the JAX
+    package's restart on a Lanczos breakdown (rho = 0: rhat = r, once) and
+    its half-step exit (||s|| below the tolerance ends with alpha's
+    update); a breakdown that the restart does not cure stops the loop
+    with reason -5."""
+    M = M or _identity
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    rtol = _effective_rtol(rtol, b.dtype)
+    norm = torch.linalg.vector_norm
+    tol = torch.clamp(rtol * norm(b), min=atol)
+    r = b - A(x)
+    rhat = r
+    rho = torch.dot(rhat, r)
+    p = r
+    rnorm = norm(r)
+    false = torch.zeros((), dtype=torch.bool, device=b.device)
+    brk = restarted = false
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = syncs = 0
+    while k < maxiter:
+        syncs += 1
+        if not bool((rnorm > tol) & ~brk):
+            break
+        need_restart = rho == 0
+        brk = brk | (need_restart & restarted)
+        rhat = torch.where(need_restart, r, rhat)
+        rho = torch.where(need_restart, torch.dot(r, r), rho)
+        p = torch.where(need_restart, r, p)
+        restarted = need_restart
+        phat = M(p)
+        v = A(phat)
+        rv = torch.dot(rhat, v)
+        brk = brk | (rv == 0) | (rho == 0)
+        alpha = rho / _nz(rv)
+        s = r - alpha * v
+        half = norm(s) <= tol
+        shat = M(s)
+        t = A(shat)
+        tt = torch.dot(t, t)
+        brk = brk | (~half & (tt == 0))
+        omega = torch.where(half, zero, torch.dot(t, s) / _nz(tt))
+        x = x + alpha * phat + omega * shat
+        r = torch.where(half, s, s - omega * t)
+        rho_new = torch.dot(rhat, r)
+        brk = brk | (~half & (omega == 0))
+        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+        p = r + beta * (p - omega * v)
+        rho = rho_new
+        rnorm = norm(r)
+        k += 1
+    conv = rnorm <= tol
+    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, conv, syncs,
+                        _reason(conv, brk))
+
+
+def gmres(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    M: Callable | None = None,
+    rtol: float = 1e-10,
+    atol: float = 1e-50,
+    maxiter: int = 1000,
+    restart: int = 30,
+) -> KrylovResult:
+    """Restarted GMRES(m), left-preconditioned (PETSc's default): Arnoldi
+    on M A, the test on the preconditioned residual norm against
+    rtol ||M b||, Gram-Schmidt against the basis, Givens rotations.
+
+    The basis lives on the device; the small Hessenberg system (H, the
+    rotations, g) on the host in the solver's precision, so each Arnoldi
+    step reads its new column (one host sync) and each cycle the residual
+    norm.  A cycle that stops before ``restart`` steps (converged, the
+    iteration limit, or an exact breakdown) leaves the rest of its columns
+    as the JAX package's fixed-length cycle does: a unit diagonal, a zero
+    basis vector, an identity rotation."""
+    M = M or _identity
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    rtol = _effective_rtol(rtol, b.dtype)
+    m = int(restart)
+    n = b.shape[0]
+    real = np.float64 if b.dtype == torch.float64 else np.float32
+    norm = torch.linalg.vector_norm
+    tol = np.maximum(real(rtol) * real(norm(M(b)).item()), real(atol))
+    rnorm = norm(M(b - A(x)))
+    it = 0
+    syncs = 2
+    while rnorm.item() > tol and it < maxiter:
+        r = M(b - A(x))
+        beta = norm(r)
+        beta_h = real(beta.item())
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V[0] = r / beta if beta_h > 0 else r
+        H = np.zeros((m + 1, m), real)
+        cs, sn = np.ones(m, real), np.zeros(m, real)
+        g = np.zeros(m + 1, real)
+        g[0] = beta_h
+        live = beta_h > tol
+        syncs += 1
+        for j in range(m):
+            if not live:
+                H[np.arange(j, m), np.arange(j, m)] = 1.0
+                break
+            w = M(A(V[j]))
+            hv = V[: j + 1] @ w
+            w = w - hv @ V[: j + 1]
+            hj1_t = norm(w)
+            col = torch.cat([hv, hj1_t[None]]).cpu().numpy().astype(real)
+            h = np.zeros(m + 1, real)
+            h[: j + 1], hj1 = col[:-1], col[-1]
+            syncs += 1
+            ok = hj1 > 0
+            if ok:
+                V[j + 1] = w / hj1_t
+                h[j + 1] = hj1
+            for i in range(j):
+                hi, hi1 = h[i], h[i + 1]
+                h[i] = cs[i] * hi + sn[i] * hi1
+                h[i + 1] = -sn[i] * hi + cs[i] * hi1
+            denom = np.sqrt(h[j] ** 2 + h[j + 1] ** 2)
+            c = h[j] / denom if denom > 0 else real(1.0)
+            s = h[j + 1] / denom if denom > 0 else real(0.0)
+            h[j], h[j + 1] = denom, 0.0
+            if ok:
+                cs[j], sn[j] = c, s
+                H[:, j] = h
+                gj = g[j]
+                g[j], g[j + 1] = c * gj, -s * gj
+            else:
+                H[j, j] = 1.0
+            it += 1
+            live = ok and np.abs(g[j + 1]) > tol and it < maxiter
+        y = np.zeros(m, real)
+        for i in reversed(range(m)):
+            hii = H[i, i]
+            y[i] = (g[i] - H[i] @ y) / (hii if hii != 0 else real(1.0))
+        x = x + torch.as_tensor(y, device=b.device).to(b.dtype) @ V[:m]
+        rnorm = norm(M(b - A(x)))
+        syncs += 1
+    conv = rnorm <= tol
+    return KrylovResult(x, torch.tensor(it, dtype=torch.int32, device=b.device), rnorm, conv,
+                        syncs, _reason(conv, torch.zeros_like(conv)))
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -7,22 +7,41 @@ option names, translated to a Krylov method and tolerances.
 
     ksp_type: cg | bcgs/bicgstab | gmres/fgmres | preonly
     pc_type:  jacobi | none | lu   (lu / preonly -> tight Krylov)
-    ksp_rtol / ksp_atol / ksp_max_it
+              | lumped (the velocity-update family only: the weighted-
+                gradient lumped update in place of the mass solve)
+    ksp_rtol / ksp_atol / ksp_max_it / ksp_gmres_restart
+
+``solve`` runs the chosen method on an operator given by ``setOperators``
+(a callable and its diagonal for Jacobi); ``converged_reason`` gives
+PETSc's reason of a result.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Callable
+
+import torch
+
+from .krylov import KrylovResult, _reason, bicgstab, cg, gmres, jacobi_preconditioner
 
 
 class KSPSolver:
-    """Config container for one linear solve family."""
+    """Config container and dispatcher for one linear solve family."""
 
     def __init__(self, options: dict | None = None, prefix: str = "", symmetric: bool = True):
         self.prefix = prefix
         self.symmetric = symmetric
         self.options: dict = dict(options or {})
+        self._matvec: Callable | None = None
+        self._pc: Callable | None = None
 
+    def setOperators(self, matvec: Callable, diag: torch.Tensor | None = None) -> None:
+        """The operator of ``solve`` and its diagonal, for Jacobi."""
+        self._matvec = matvec
+        self._pc = None if diag is None else jacobi_preconditioner(diag)
+
+    # --- resolved solve parameters ------------------------------------------
     @property
     def method(self) -> str:
         default = "cg" if self.symmetric else "bcgs"
@@ -43,6 +62,17 @@ class KSPSolver:
         return default
 
     @property
+    def lumped(self) -> bool:
+        """The lumped (weighted-gradient) update in place of a Krylov
+        solve; meaningful for the velocity update's mass solves only."""
+        return (str(self.options.get("pc_type", "")).lower() == "lumped"
+                or bool(self.options.get("lumped", False)))
+
+    @property
+    def gmres_restart(self) -> int:
+        return int(self.options.get("ksp_gmres_restart", 30))
+
+    @property
     def rtol(self) -> float:
         if "ksp_rtol" in self.options:
             return float(self.options["ksp_rtol"])
@@ -59,3 +89,24 @@ class KSPSolver:
     @property
     def maxiter(self) -> int:
         return int(self.options.get("ksp_max_it", 5000))
+
+    def use_jacobi(self) -> bool:
+        return str(self.options.get("pc_type", "jacobi")).lower() not in ("none",)
+
+    # --- solve ----------------------------------------------------------------
+    def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None,
+              nullspace: bool = False) -> KrylovResult:
+        if self._matvec is None:
+            raise RuntimeError("setOperators must be called before solve")
+        M = self._pc if (self._pc is not None and self.use_jacobi()) else None
+        kw = dict(x0=x0, M=M, rtol=self.rtol, atol=self.atol, maxiter=self.maxiter)
+        if self.method == "cg":
+            return cg(self._matvec, b, project_nullspace=nullspace, **kw)
+        if self.method == "gmres":
+            return gmres(self._matvec, b, restart=self.gmres_restart, **kw)
+        return bicgstab(self._matvec, b, **kw)
+
+    @staticmethod
+    def converged_reason(result: KrylovResult) -> torch.Tensor:
+        """PETSc-style reason: 2 (rtol) if converged, else -3 (max_it)."""
+        return _reason(result.converged, torch.zeros_like(result.converged))

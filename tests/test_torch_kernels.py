@@ -160,6 +160,26 @@ def test_mixed(problem, name):
     _check(got, po.from_planeflat(k6(po.to_planeflat(jnp.asarray(p), sm_q)), sm_v), valid_v)
 
 
+def test_mixed_weighted_gradient():
+    """K6 on the lumped update's cube matrix Gw_c (a run-time matrix of
+    G_c's shape) against the Pallas kernel in interpret mode, in 2D."""
+    from oasisx_tpu_torch.elements.element import make_element
+
+    cells = CELLS[1]
+    mesh = trect((-1.0, -1.0), (1.0, 1.0), cells)
+    el_u, el_p = (make_element(("Lagrange", k), "triangle") for k in (2, 1))
+    sm_v, _, valid_v = tbsm(mesh, el_u, TFS(mesh, el_u).dofmap)
+    sm_q, _, valid_q = tbsm(mesh, el_p, TFS(mesh, el_p).dofmap)
+    ops = tcub.build_cube_ops(mesh, build_reference_tensors(el_u, el_p), sm_v, sm_q,
+                              dtype=torch.float64, device="cpu",
+                              gtab=el_p.tabulate(el_u.nodes)[1])
+    p = _data(np.random.default_rng(9), valid_q)
+    got = kn.mixed(torch.tensor(p), ops.Gw_c, sm_v, sm_q)
+    _check(got, kn.mixed_plain(torch.tensor(p), ops.Gw_c, sm_v, sm_q), valid_v)
+    k6 = po.make_mixed_pf(sm_v, sm_q, ops.Gw_c.numpy(), 2, interpret=True)
+    _check(got, po.from_planeflat(k6(po.to_planeflat(jnp.asarray(p), sm_q)), sm_v), valid_v)
+
+
 def test_divergence(problem):
     """K7: b2 = sum_g B_g^T u_g, B read transposed."""
     jops, tops, (sm_v, _, valid_v), (sm_q, _, valid_q) = problem

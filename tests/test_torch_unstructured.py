@@ -16,9 +16,10 @@ operator, tests/test_torch_amg.py).  Per-step u/p/c iteration counts are
 equal, and u and p agree to 1e-9 relative to their largest entry: both run
 the same float64 algorithm with sums in another order, and the solves stop
 at rtol 1e-8, which leaves rounding differences of ~1e-11 (measured) in
-the iterates.  Also: the state round trip on the general path, the card
-as the default device, and the option that is not ported (the lumped
-update; the band layout is in tests/test_torch_band.py).
+the iterates.  Also: the state round trip on the general path and the
+card as the default device (the band layout is in tests/test_torch_band.py,
+the lumped update and the other solver options in tests/test_torch_lumped.py
+and tests/test_torch_options.py).
 """
 
 import numpy as np
@@ -192,15 +193,3 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA device is present: device=None runs on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _vessel(T, TM, 2, {})
-
-
-@pytest.mark.parametrize("options,solver_c,solver_p,match", [
-    ({}, {"pc_type": "lumped"}, {}, "lumped"),
-    ({}, {}, {"pc_type": "jacobi"}, "Queue 1 item 2.2"),
-], ids=["options0-solver_c0-lumped", "pressure-jacobi"])
-def test_options_not_ported_raise(options, solver_c, solver_p, match):
-    mesh = deform_vessel(TM.create_box((-1.0,) * 3, (1.0,) * 3, (2, 2, 2)))
-    with pytest.raises(NotImplementedError, match=match):
-        T.FractionalStep_AB_CN(mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=[[], [], []],
-                               solver_options={"scalar": solver_c, "pressure": solver_p},
-                               options=options, device="cpu")

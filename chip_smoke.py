@@ -38,8 +38,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    padding zero, a repeat bit-identical; each line names its route, and
    each K6 and K7 line of the cube kernel cases its route, its tile, shared
    memory and blocks an SM, the bytes of a product and the rate.
+   K5 also at batch 1 on the pressure mass Mq_c (the rotational update's
+   |rhs|, point by point on the P1 cube).
    The whole solves on the main path's systems: the mass CG (K4) on M_c
-   with a random rhs at batch 3 and 1, the MG pressure CG (K1) on Ap_c with a demeaned
+   with a random rhs at batch 3 and 1, and at batch 1 on Mq_c (the
+   rotational update's solve), the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
    Taylor-Green initial state with the mesh's bc rows, at batch 3 and at
    batch 1 (also on the two unequal grids, and at N=64 in 3c); x to 1e-10
@@ -79,6 +82,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (cg_mass), c iterations 0 every step, every u and p exit residual at
    most rtol, and a step's launches: K5 once, K6 twice (B_c and Gw_c), K4
    never.
+4i. The N=36 main path with the rotational pressure update
+   (``rotational=True``): 5 warm-up and 25 timed steps, phase 4's checks,
+   every rotational solve converged with its exit residual at most rtol,
+   and a step's launches phase 4's and K5 and K4 once more (K7's output is
+   reused for (div u, q)).
 
 Prints the kernels' JSON line (per kernel: "ms", "plain_ms" and
 "max_abs_err" of one call at its first case's shape, named in "case", and
@@ -104,7 +112,9 @@ any failure or when there is no card.
    bound counts the real nonzeros.  Printed for K17 on the vessel and the
    cylinder: each AMG level's rows, each table's K (and whether K17 reads
    it a warp a row) and width-bounded bytes, and its grid barriers an
-   iteration.
+   iteration.  K16 also at batch 1 on the vessel's pressure mass Mq (the
+   rotational update's solve) and at batch 2 on the mass of a Projector
+   of grad(p) into vector P1 on the res=30 cylinder.
 4b. The vessel path at N=36 in float32 (dt 2e-3, nu 1/1600, rtol 1e-5,
    max_iter 1, CG velocity update, low_memory_version False): 5 warm-up
    and 25 timed steps, the same checks as phase 4 on the ELL kernels, and
@@ -146,17 +156,28 @@ any failure or when there is no card.
    checks, the per-component u and p iteration means beside that
    capture's TPU-era means (the like-for-like comparison), steps/s and
    device memory.
+4j. The vessel at N=36 with the rotational update and a constant body
+   force: phase 4b's run and checks, the rotational solves' checks of 4i,
+   and a step's launches 4b's and K14 and K16 once more.
 4c'. The res=30 cylinder with the DFG 2D-3 inflow U(t) = 1.5 sin(pi t/8) in
    float32: 25 steps of ``run`` with the inflow from ``bc_value_table`` and
-   a kinetic-energy ``step_callback``, against 25 ``solve`` calls that
-   re-evaluate the inflow each step (equal to f32 rounding); the energy
-   after the last step printed.
+   a ``step_callback`` of the kinetic energy and the force on the cylinder
+   (-surface_traction, kept on the device: no host read a step), against
+   25 ``solve`` calls that re-evaluate the inflow each step (equal to f32
+   rounding); the energy after the last step, and Cd and Cl of every step
+   (demo/cylinder.py's normalisation) printed.
 5e. GPU against CPU in float64, 3 steps each, phase 5's checks and the
    host reads a step printed: the lumped update on both paths, the general
    path's pressure pc_type jacobi and cheb (the cpu solver's bounds handed
    to the cuda one), its tentative ksp_type cg and gmres, and the band
    layout with gmres, on the vessel at N=6 and a 6x6 rectangle sent to the
    general path.
+5f. GPU against CPU in float64, 3 steps each, phase 5's checks (the
+   rotational solves' iterations too): the rotational update and a callable
+   body force on the N=6 box and the N=6 vessel; then on the res=10
+   cylinder's state after 3 steps the Projector of grad(p) with a
+   Dirichlet BC (one K16 launch on the card), a LumpedProject, the force
+   on the cylinder and assemble_scalar, to 1e-10 relative.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -172,9 +193,10 @@ K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
-The phases run in the order 3, 4, 4g, 5, 3e, 4f, 5d, 3c, 4d, then the
-vessel phases 3b, 4b, 3d, 4e, 4h, then 4c, 4c', 5b, 5c, 5e.  Kernel, plain and
-library times are device times of back-to-back calls (``time_ms``).
+The phases run in the order 3, 4, 4g, 4i, 5, 3e, 4f, 5d, 3c, 4d, then the
+vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f.
+Kernel, plain and library times are device times of back-to-back calls
+(``time_ms``).
 
 --tree DIR runs the chip_smoke.py of another checkout DIR (a parent
 commit unpacked with ``git archive``) on its own package and kernel build,
@@ -182,8 +204,9 @@ with this file's ``time_ms``: two trees' times from one timer.  Each main
 path's per-step u / p / c iterations and a hash of its final state go to
 build/chip_smoke_steps_tree.json (under --tree) or _this.json (this
 checkout); a --tree run that finds _this.json fails unless the iterations
-of every step of phases 4, 4g, 4f, 4d, 4b, 4e, 4h and 4c equal those of this
-checkout's run, and prints whether the final states are bit-identical;
+of every step of phases 4, 4g, 4i, 4f, 4d, 4b, 4e, 4h, 4j and 4c equal
+those of this checkout's run, and prints whether the final states are
+bit-identical;
 it compares the phases both trees ran and names those the other tree did
 not run.  Run parent, change, change, parent in one call, after removing
 both files: the last parent run compares.
@@ -193,8 +216,8 @@ the process's peak resident memory before and after it; with --tree, the
 other checkout's.
 
 --profile N adds a torch.profiler window of N more steps after phases 4,
-4g, 4f, 4d, 4b, 4e and 4h: device time by kernel, the device's busy share of the
-window, and Chrome traces under build/chip_smoke_trace*.json.
+4g, 4i, 4f, 4d, 4b, 4e, 4h and 4j: device time by kernel, the device's busy
+share of the window, and Chrome traces under build/chip_smoke_trace*.json.
 """
 
 from __future__ import annotations
@@ -244,6 +267,8 @@ N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
+CYL_CENTER, CYL_D = (0.2, 0.2), 0.1  # the DFG cylinder (demo/cylinder.py)
+DFG3_UM = 1.5  # the DFG 2D-3 inflow's peak: U(t) = 1.5 sin(pi t / 8), mean 1 at its peak
 HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12  # H100 SXM: HBM3, float32 outside the tensor cores
 L2_BYTES = 50e6  # H100 SXM L2: a solve's operator above it is read from HBM once a product
 SPIN_CYCLES_S = 2.0e9  # about the H100's SM clock: spin-kernel cycles a second
@@ -299,7 +324,8 @@ def deform_vessel(mesh):
 
 def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str = "ell",
                pressure: dict | None = None, scalar: dict | None = None,
-               tentative: dict | None = None, options: dict | None = None):
+               tentative: dict | None = None, options: dict | None = None,
+               rotational: bool = False, body_force=None):
     """The bench problem (bench.py build_solver) on the port: the box of N
     cells an axis (or of the cells of a tuple N: a 3D box, or a 2D rectangle
     with the 2D Taylor-Green field), or with ``vessel`` the deformed box on
@@ -307,7 +333,7 @@ def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str 
     velocity operators in ``layout`` ("ell" or "band"); ``pressure``,
     ``scalar`` and ``tentative`` add to those solver options (``scalar``
     {"pc_type": "lumped"}: the lumped velocity update), ``options`` to the
-    solver's options."""
+    solver's options; ``rotational`` and ``body_force`` go to the solver."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
@@ -338,12 +364,22 @@ def tgv_solver(N, dtype, device, rtol: float, vessel: bool = False, layout: str 
                         "scalar": dict(opts, **(scalar or {}))},
         options=dict({"low_memory_version": False, "ell_layout": layout} if vessel else {},
                      **(options or {})),
-        dtype=dtype, device=device,
+        rotational=rotational, body_force=body_force, dtype=dtype, device=device,
     )
     for f, u1, u2 in zip(fs, solver._u1, solver._u2):
         u1.interpolate(f)
         u2.interpolate(f)
     return solver
+
+
+def cylinder_facets(mesh):
+    """demo/cylinder.py's cylinder facets: the exterior facets within 0.9 D
+    of the cylinder's centre."""
+    import numpy as np
+
+    ext = mesh.exterior_facet_indices()
+    mid = mesh.x[mesh.topology.facets[ext]].mean(axis=1)
+    return ext[np.linalg.norm(mid - np.asarray(CYL_CENTER), axis=1) < 0.9 * CYL_D]
 
 
 def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3):
@@ -574,7 +610,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
     nc, ncq = int(np.prod(sm_v[1])), int(np.prod(sm_q[1]))
     nv, nq = solver._npad_v, solver._npad_q
     W = rnd(nl * nl, nc)
-    M_c, Ap_c, B_c, G_c = c(cu.M_c), c(cu.Ap_c), c(cu.B_c), c(cu.G_c)
+    M_c, Ap_c, B_c, G_c, Mq_c = c(cu.M_c), c(cu.Ap_c), c(cu.B_c), c(cu.G_c), c(cu.Mq_c)
     Gw_c = c(weighted_gradient_cube(solver, device) if gw is None else gw)
     st = solver._state_from_functions()
     uab = c(1.5 * st["u1"] - 0.5 * st["u2"])
@@ -583,13 +619,14 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
     pm = rnd(d, nv) * valid_v
     zm = solver._zmask.to(dtype)
     U = rnd(d, nl, nc)
-    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "W", "W1", "B", "G", "Gw", "div",
+    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "Mq", "W", "W1", "B", "G", "Gw", "div",
                          "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
         A_M = _csr(*cube_csr(iv, iv, M_c, nv, nv))
         A_Ap = _csr(*cube_csr(iq, iq, Ap_c, nq, nq))
+        A_Mq = _csr(*cube_csr(iq, iq, Mq_c, nq, nq))
         A_W = _csr(*cube_csr(iv, iv, W.reshape(nl, nl, nc), nv, nv))
         stack = lambda parts, shape: _csr(*(torch.cat(t) for t in zip(*[q[:3] for q in parts])),
                                           shape)
@@ -602,7 +639,7 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
         ivf, Uf = iv.reshape(-1), U.reshape(d, -1)
         x1 = xv[0].contiguous()
         lib = dict(gather=lambda: uab[:, iv], gather_q=lambda: xq[None][:, iq],
-                   M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq,
+                   M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq, Mq=lambda: A_Mq @ xq,
                    W=lambda: A_W @ xt, W1=lambda: A_W @ x1, B=lambda: A_B @ xq,
                    G=lambda: A_G @ xq, Gw=lambda: A_Gw @ xq,
                    div=lambda: A_div @ uflat,
@@ -623,6 +660,10 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
          lambda: kn.matvec_const(xq[None], Ap_c, sm_q),
          lambda: kn.matvec_const_plain(xq[None], Ap_c, sm_q), valid_q,
          (isz * 2 * nq, mv(nlq, nlq, 1)), lib["Ap"]),
+        ("matvec_const", "Mq_c batch 1",  # the rotational update's |rhs| (fracstep)
+         lambda: kn.matvec_const(xq[None], Mq_c, sm_q),
+         lambda: kn.matvec_const_plain(xq[None], Mq_c, sm_q), valid_q,
+         (isz * 2 * nq, mv(nlq, nlq, 1)), lib["Mq"]),
         ("matvec_win", "W batch 3",
          lambda: kn.matvec_win(W, xv, sm_v), lambda: kn.matvec_win_plain(W, xv, sm_v), valid_v,
          (isz * (nl * nl * nc + 2 * d * nv), mv(nl, nl, d)), lib["W"]),
@@ -806,6 +847,16 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     x0p = torch.zeros_like(bp)
     bnp = torch.linalg.vector_norm(bp, dim=-1)
     mass1 = lambda v: kn.matvec_const_plain(v, M1, sm_q)
+    # K4 at batch 1 on the pressure mass Mq_c: the rotational update's solve
+    # (fracstep), Jacobi 1 on the padding
+    Mq_c = c(cu.Mq_c)
+    dq = cub.diag_cube(Mq_c, sm_q)
+    Mq_invd = torch.where(dq != 0, 1.0 / dq, torch.ones_like(dq))
+    valid_q = (solver._pq(torch.ones(solver._gf_q.shape[0], device=device)) != 0)
+    bmq = rnd(1, nq) * valid_q
+    x0mq = torch.zeros_like(bmq)
+    bnmq = torch.linalg.vector_norm(bmq, dim=-1)
+    massq = lambda v: kn.matvec_const_plain(v, Mq_c, sm_q)
 
     # K1: Ap x = b - mean(b), x0 = 0, the solver's MG hierarchy
     Ap64 = cu.Ap_c.detach().cpu().double().numpy()
@@ -851,6 +902,11 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
          lambda: fused.cg_mass(M1, bp, x0p, M1_invd, bnp, sm_q, rtol, maxiter),
          lambda: fused.cg_from_r0(mass1, bp, x0p, M1_invd, bnp, rtol, maxiter),
          lambda res: (mass_bytes(isz, d, nq, int(res.iters.max())),
+                      rows(res) * (2.0 * nlq * nlq * ncq + 10 * nq))),
+        ("cg_mass", "Mq_c batch 1",
+         lambda: fused.cg_mass(Mq_c, bmq, x0mq, Mq_invd, bnmq, sm_q, rtol, maxiter),
+         lambda: fused.cg_from_r0(massq, bmq, x0mq, Mq_invd, bnmq, rtol, maxiter),
+         lambda res: (mass_bytes(isz, 1, nq, int(res.iters.max())),
                       rows(res) * (2.0 * nlq * nlq * ncq + 10 * nq))),
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
@@ -1463,12 +1519,17 @@ def compare_ell_kernels(vsolvers: dict, device, cases_fn=None) -> dict:
 
 
 def ell_solve_cases(pair, device, seed: int = 3):
-    """Phase 3b, solves on the vessel's systems and the cylinder's outlet
-    Ap: (kernel, label, kernel solve, plain solve, work(result))."""
+    """Phase 3b, solves on the vessel's systems, the cylinder's outlet Ap
+    and the mass of a Projector on the cylinder: (kernel, label, kernel
+    solve, plain solve, work(result))."""
     import torch
 
+    from oasisx_tpu_torch import Projector
+    from oasisx_tpu_torch.assembly import engine as eng
+    from oasisx_tpu_torch.forms.expr import grad
     from oasisx_tpu_torch.la import ell
     from oasisx_tpu_torch.parallel.graph import ell_values
+    from oasisx_tpu_torch.spaces import FunctionSpace
 
     vs, cs = pair
     dtype = vs._dtype
@@ -1498,6 +1559,21 @@ def ell_solve_cases(pair, device, seed: int = 3):
     b = rnd(3, n)
     x0 = torch.zeros_like(b)
     bn = torch.linalg.vector_norm(b, dim=-1)
+    # K16 at batch 1 on Mq, the rotational update's solve (fracstep), and at
+    # batch 2 on the Projector's mass of grad(p) into vector P1 on the cylinder
+    Mq = eng.mass_q_elems(vs._ctx)
+    Mq_vals = ell_values(Mq, eq)
+    dmq = eng.diagonal_q(vs._ctx, Mq)
+    Mq_invd = torch.where(dmq != 0, 1.0 / dmq, torch.ones_like(dmq))
+    bmq = rnd(1, eq.n)
+    x0mq = torch.zeros_like(bmq)
+    bnmq = torch.linalg.vector_norm(bmq, dim=-1)
+    proj = Projector(grad(cs._p), FunctionSpace(cs._mesh, ("Lagrange", 1), shape=(2,)),
+                     dtype=dtype, device=device)
+    pe = proj._ell
+    bpj = rnd(2, pe.n)
+    x0pj = torch.zeros_like(bpj)
+    bnpj = torch.linalg.vector_norm(bpj, dim=-1)
 
     # K17: Ap with the nullspace (random demeaned b), and the cylinder's
     # outlet-masked Ap (b 0 on the outlet rows)
@@ -1527,6 +1603,18 @@ def ell_solve_cases(pair, device, seed: int = 3):
          lambda: ell.ell_cg_plain(vs._M_vals, ev.cols, b, x0, vs._M_invd, bn, rtol, maxiter),
          lambda res: (operator_bytes("K16 M", nnz_bytes(ev), int(res.iters.max()))
                       + isz * (3 * 3 * n + n), rows(res) * (2.0 * ev.nnz + 10 * n))),
+        ("ell_cg", "Mq batch 1",
+         lambda: ell.ell_cg(Mq_vals, eq.cols, eq.widths, bmq, x0mq, Mq_invd, bnmq, rtol, maxiter),
+         lambda: ell.ell_cg_plain(Mq_vals, eq.cols, bmq, x0mq, Mq_invd, bnmq, rtol, maxiter),
+         lambda res: (nnz_bytes(eq) + isz * (3 * eq.n + eq.n),
+                      rows(res) * (2.0 * eq.nnz + 10 * eq.n))),
+        ("ell_cg", f"cylinder res={CYL_RES} Projector batch 2",
+         lambda: ell.ell_cg(proj._vals, pe.cols, pe.widths, bpj, x0pj, proj._invd, bnpj, rtol,
+                            maxiter),
+         lambda: ell.ell_cg_plain(proj._vals, pe.cols, bpj, x0pj, proj._invd, bnpj, rtol,
+                                  maxiter),
+         lambda res: (nnz_bytes(pe) + isz * (3 * 2 * pe.n + pe.n),
+                      rows(res) * (2.0 * pe.nnz + 10 * pe.n))),
         ("ell_pcg_amg", f"Ap nullspace, {len(vs._amg_data[0]['levels']) + 1} levels",
          *pcg(vs, bq, zq, None)),
         ("ell_pcg_amg", f"cylinder res={CYL_RES} Ap, outlet mask", *pcg(cs, bc_q, zc, cmask)),
@@ -1784,6 +1872,28 @@ def check_lumped(tag: str, res: dict, steps: int, rtol: float, per_step: dict) -
           f"[{tag}] launches a step {got}, not {per_step}")
 
 
+def check_rotational(tag: str, res: dict, steps: int, rtol: float, base: dict,
+                     per_step: dict) -> None:
+    """A rotational path's run: every rotational solve converged, its exit
+    residual at most rtol, and a step's launches those of the same path
+    without the update (``base``, the launches of its run of as many steps)
+    and ``per_step`` more; every other kernel's equal."""
+    import numpy as np
+
+    st = res["stats"]
+    check(bool(np.all(st["rot_converged"])), f"[{tag}] a rotational solve did not converge")
+    worst = float(np.max(st["rot_res"]))
+    check(worst <= rtol, f"[{tag}] rotational exit residual {worst:.3e} above rtol {rtol:g}")
+    names = set(base) | set(res["launches"])
+    more = {k: (res["launches"].get(k, 0) - base.get(k, 0)) / steps for k in sorted(names)}
+    want = {k: float(per_step.get(k, 0)) for k in more}
+    print(f"    [{tag}] rotational solve iterations a step {float(st['rot_iters'].mean()):.3f} "
+          f"(max {int(st['rot_iters'].max())}), worst exit residual {worst:.3e} (rtol {rtol:g}); "
+          f"launches a step more than without the update: "
+          f"{ {k: v for k, v in more.items() if v} } (expected {per_step})")
+    check(more == want, f"[{tag}] launches a step {more}, not the base's and {per_step}")
+
+
 def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: dict,
                 log: StepLog | None = None) -> None:
     if log is not None:
@@ -1872,7 +1982,9 @@ def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None)
     dp = np.abs(pg - pc).max() / np.abs(pc).max()
     print(f"  {label} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}; host reads a "
           f"step cuda {sg['host_syncs'].tolist()}, cpu {sc['host_syncs'].tolist()}")
-    for k in ("u_iters", "p_iters", "c_iters"):
+    for k in ("u_iters", "p_iters", "c_iters", "rot_iters"):
+        if k not in sc:
+            continue
         print(f"  {k}: cuda {sg[k].tolist()} cpu {sc[k].tolist()}")
         check(np.array_equal(sg[k], sc[k]), f"{label}: {k} differ between cuda and cpu")
     check(du <= 1e-10 and dp <= 1e-10, f"{label}: cuda and cpu disagree (u {du:.3e}, p {dp:.3e})")
@@ -1907,27 +2019,101 @@ def options_gpu_vs_cpu() -> None:
         gpu_vs_cpu(lambda dt, dev: tgv_solver(n, dt, dev, rtol=1e-8, **kw), label, pressure_pc=pc)
 
 
+def rotational_gpu_vs_cpu() -> None:
+    """Phase 5f, the solver: the rotational update and a callable body
+    force on the structured path (N=6 box) and the general path (N=6
+    vessel), cuda against cpu in float64, 3 steps each (gpu_vs_cpu's
+    checks, the rotational solves' iterations too)."""
+    import numpy as np
+
+    force = (lambda x: np.sin(np.pi * x[0]) * x[1], 0.25, lambda x: 0.5 * x[2] ** 2)
+    for label, kw in (("N=6 rotational", dict(rotational=True)),
+                      ("vessel N=6 rotational", dict(vessel=True, rotational=True)),
+                      ("N=6 callable body force", dict(body_force=force)),
+                      ("vessel N=6 callable body force", dict(vessel=True, body_force=force))):
+        gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8, **kw), label)
+
+
+def forms_gpu_vs_cpu(steps: int = 3) -> None:
+    """Phase 5f, the forms: on the res=10 cylinder's state after ``steps``
+    steps, the Projector of grad(p) into vector P1 with a Dirichlet BC (its
+    CG one K16 launch on the card), the LumpedProject of |u|^2 into P1, the
+    force on the cylinder (-surface_traction) and assemble_scalar of |u|^2,
+    cuda against cpu in float64: 1e-10 relative, the projections' reasons
+    equal."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch import DirichletBC, LocatorMethod, LumpedProject, Projector
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.assembly.facets import build_facet_context, surface_traction
+    from oasisx_tpu_torch.forms.expr import as_expr, assemble_scalar, grad, inner
+    from oasisx_tpu_torch.spaces import FunctionSpace
+
+    f64, out = torch.float64, {}
+    for dev in ("cuda", "cpu"):
+        s = cylinder_solver(10, f64, dev, rtol=1e-8)
+        s.run(steps, CYL_DT, CYL_NU, max_iter=1)
+        mesh = s._mesh
+        bc = DirichletBC(0.0, LocatorMethod.GEOMETRICAL, lambda x: np.isclose(x[0], 0.0))
+        kn.reset_counts()
+        proj = Projector(grad(s._p), FunctionSpace(mesh, ("Lagrange", 1), shape=(2,)), bcs=[bc],
+                         petsc_options={"ksp_rtol": 1e-12}, dtype=f64, device=dev)
+        reason = proj.solve()
+        if dev == "cuda":
+            check(kn.launches["ell_cg"] == 1 and kn.launches["ell_matvec"] == 1,
+                  f"the Projector's solve launched {dict(kn.launches)}")
+        u = as_expr(s.u)
+        lumped = LumpedProject(inner(u, u), FunctionSpace(mesh, ("Lagrange", 1)), dtype=f64,
+                               device=dev)
+        lumped.solve()
+        fctx = build_facet_context(mesh, s._V.element, s._Q.element, cylinder_facets(mesh),
+                                   s._Vi[0][0].dofmap.cell_dofs, f64, dev)
+        st = s._state_from_functions()
+        out[dev] = dict(
+            reason=reason, projection=proj.x.x.array, lumped=lumped.x.x.array,
+            force=-surface_traction(s._ctx, fctx, st["u"], st["p"], CYL_NU),
+            energy=assemble_scalar(mesh, inner(u, u), dtype=f64, device=dev))
+    g, c = out["cuda"], out["cpu"]
+    check(g.pop("reason") == c.pop("reason") == 2, "the Projector did not converge on both")
+    for key in g:
+        a, b = g[key].cpu().numpy(), c[key].numpy()
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        print(f"  cylinder res=10 {key}: cuda against cpu rel diff {rel:.3e}"
+              + (f", {a.tolist()}" if a.size <= 2 else ""))
+        check(rel <= 1e-10, f"{key}: cuda and cpu disagree ({rel:.3e})")
+
+
 def cylinder_transient(device, smi: str, steps: int = 25, dt=CYL_DT, nu=CYL_NU) -> None:
     """Phase 4c': the cylinder with the DFG 2D-3 inflow, peak U(t) = 1.5
     sin(pi t / 8): ``run`` over ``steps`` steps with the boundary values from
-    ``bc_value_table`` and a kinetic-energy monitor as its step_callback,
-    against ``steps`` ``solve`` calls that re-evaluate the inflow each step;
-    float32."""
+    ``bc_value_table`` and a step_callback of the kinetic energy and the
+    force on the cylinder (``-surface_traction``, on the device), against
+    ``steps`` ``solve`` calls that re-evaluate the inflow each step;
+    float32.  Cd and Cl of every step, demo/cylinder.py's normalisation
+    2 F / (Ubar^2 D) with Ubar = 2/3 of the inflow's peak (1 for DFG 2D-3)."""
     import numpy as np
     import torch
 
     from oasisx_tpu_torch.assembly import engine as eng
+    from oasisx_tpu_torch.assembly.facets import build_facet_context, surface_traction
 
     clock = {"t": 0.0}
-    um = lambda: 1.5 * np.sin(np.pi * clock["t"] / 8.0)
+    um = lambda: DFG3_UM * np.sin(np.pi * clock["t"] / 8.0)
     a = cylinder_solver(CYL_RES, torch.float32, device, rtol=1e-5, um=um)
     b = cylinder_solver(CYL_RES, torch.float32, device, rtol=1e-5, um=um)
     times = [(k + 1) * dt for k in range(steps)]
     table = a.bc_value_table(times, update=lambda t: clock.update(t=t))
-    kinetic = lambda st, t: 0.5 * (st["u"] * eng.matvec_v(a._ctx, a._M_elems, st["u"])).sum()
+    fctx = build_facet_context(a._mesh, a._V.element, a._Q.element, cylinder_facets(a._mesh),
+                               a._Vi[0][0].dofmap.cell_dofs, a._dtype, device)
+
+    def monitor(st, t):
+        return dict(ke=0.5 * (st["u"] * eng.matvec_v(a._ctx, a._M_elems, st["u"])).sum(),
+                    F=-surface_traction(a._ctx, fctx, st["u"], st["p"], nu))
+
     _sync(device)
     t0 = time.perf_counter()
-    stats = a.run(steps, dt, nu, max_iter=1, bc_vals_seq=table, step_callback=kinetic)
+    stats = a.run(steps, dt, nu, max_iter=1, bc_vals_seq=table, step_callback=monitor)
     _sync(device)
     wall = time.perf_counter() - t0
     for t in times:
@@ -1937,14 +2123,20 @@ def cylinder_transient(device, smi: str, steps: int = 25, dt=CYL_DT, nu=CYL_NU) 
     pa, pb = (s._p.x.array.detach().cpu().numpy() for s in (a, b))
     du = np.abs(ua - ub).max() / np.abs(ub).max()
     dp = np.abs(pa - pb).max() / max(np.abs(pb).max(), 1e-30)
-    ke = stats["callback"]
+    ke, F = stats["callback"]["ke"], stats["callback"]["F"]
+    scale = 2.0 / ((2.0 * DFG3_UM / 3.0) ** 2 * CYL_D)
     print(f"[4c'] cylinder res={CYL_RES}, DFG 2D-3 inflow to U({times[-1]:g}) = {um():.6f}: "
           f"{steps} steps from a table in {wall:.3f} s = {steps / wall:.4f} steps/s on {smi}; "
           f"against {steps} solve calls: u rel diff {du:.3e}, p rel diff {dp:.3e}, "
           f"bit-identical {bool(np.array_equal(ua, ub) and np.array_equal(pa, pb))}; host "
           f"reads a step {stats['host_syncs'].tolist()[:3]}...; kinetic energy (callback) "
           f"{float(ke[0]):.6e} after step 1, {float(ke[-1]):.6e} after step {steps}")
+    print("    Cd per step: " + " ".join(f"{scale * f:.6e}" for f in F[:, 0]))
+    print("    Cl per step: " + " ".join(f"{scale * f:.6e}" for f in F[:, 1]))
     check(ke.shape == (steps,) and np.isfinite(ke).all(), "the kinetic-energy callback")
+    check(F.shape == (steps, 2) and np.isfinite(F).all(), "the traction callback")
+    check(bool(np.all(stats["host_syncs"] == 0)) or device != "cuda",
+          f"[4c'] host reads inside the steps: {stats['host_syncs'].tolist()}")
     check(bool(np.all(stats["u_converged"]) and np.all(stats["p_converged"])),
           "a solve of the transient cylinder did not converge")
     # the same operations in the same order: equal to f32 rounding
@@ -2157,6 +2349,7 @@ def main() -> int:
     res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
     report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS, steps_log)
     launches = {k: v for k, v in res["launches"].items() if v}
+    base4 = res["launches"]
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
     del solver
@@ -2178,6 +2371,23 @@ def main() -> int:
     if args.profile:
         profile_steps(slump, args.profile, "build/chip_smoke_trace_lumped.json")
     del slump
+    torch.cuda.empty_cache()
+
+    # 4i. the structured main path with the rotational pressure update: K5
+    # and K4 at batch 1 on Mq_c, K7's output reused
+    t0 = time.perf_counter()
+    srot = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, rotational=True)
+    _sync("cuda")
+    rep = srot.config_report()
+    print(f"[4i] setup N={N}, rotational update: {time.perf_counter() - t0:.1f} s; pressure "
+          f"update {rep['pressure_update']}, kernels {rep['path_kernels']}")
+    check(rep["pressure_update"] == "rotational", f"[4i] pressure update {rep['pressure_update']}")
+    res = drive_main_path(srot, WARMUP, STEPS, "cuda", rep["path_kernels"])
+    report_path("4i", res, STEPS, nvel, smi, {}, steps_log)
+    check_rotational("4i", res, STEPS, 1e-5, base4, {"matvec_const": 1, "cg_mass": 1})
+    if args.profile:
+        profile_steps(srot, args.profile, "build/chip_smoke_trace_rotational.json")
+    del srot
     torch.cuda.empty_cache()
 
     # 5. GPU against CPU
@@ -2287,6 +2497,7 @@ def main() -> int:
     resident = torch.cuda.memory_allocated()
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
     report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, {}, steps_log)
+    base4b = res["launches"]
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
     for k, v in res["launches"].items():
@@ -2375,6 +2586,25 @@ def main() -> int:
     del vlump
     torch.cuda.empty_cache()
 
+    # 4j. the vessel with the rotational update and a constant body force:
+    # K14 and K16 at batch 1 on Mq's ELL values
+    t0 = time.perf_counter()
+    vrot = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True, rotational=True,
+                      body_force=(0.0, 0.0, -0.5))
+    _sync("cuda")
+    rep = vrot.config_report()
+    print(f"[4j] vessel setup N={N}, rotational update, body force: "
+          f"{time.perf_counter() - t0:.1f} s; kernels {rep['path_kernels']}")
+    check(rep["pressure_update"] == "rotational" and rep["body_force"],
+          f"[4j] pressure update {rep['pressure_update']}, body force {rep['body_force']}")
+    res = drive_main_path(vrot, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
+    report_path("4j", res, STEPS, 3 * vrot._Vi[0][0].num_dofs, smi, {}, steps_log)
+    check_rotational("4j", res, STEPS, 1e-5, base4b, {"ell_matvec": 1, "ell_cg": 1})
+    if args.profile:
+        profile_steps(vrot, args.profile, "build/chip_smoke_trace_vessel_rotational.json")
+    del vrot
+    torch.cuda.empty_cache()
+
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
     report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {}, steps_log)
@@ -2393,6 +2623,9 @@ def main() -> int:
                "vessel band N=6")
     print("[5e] cuda against cpu, the options off the default configurations")
     options_gpu_vs_cpu()
+    print("[5f] cuda against cpu, the rotational update, body forces and the forms")
+    rotational_gpu_vs_cpu()
+    forms_gpu_vs_cpu()
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

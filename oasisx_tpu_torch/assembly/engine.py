@@ -278,14 +278,55 @@ def constant_load_vec(ctx: DeviceContext, f: float) -> torch.Tensor:
     return scatter_v(ctx, f * ctx.detJ[:, None] * ctx.load_ref[None, :])
 
 
+def source_load_vec_q(ctx: DeviceContext, vals_qp: torch.Tensor) -> torch.Tensor:
+    """assemble(g * q dx) from the values of g at the quadrature points
+    (..., nc, nq): (..., ndofs_q)."""
+    ve = torch.einsum("...cq,q,qm,c->...cm", vals_qp, ctx.qw, ctx.phi_q, ctx.detJ)
+    return scatter_q(ctx, ve)
+
+
+def source_load_vec_v(ctx: DeviceContext, vals_qp: torch.Tensor) -> torch.Tensor:
+    """assemble(g * v dx) from the values of g at the quadrature points
+    (..., nc, nq): (..., ndofs_v)."""
+    ve = torch.einsum("...cq,q,qj,c->...cj", vals_qp, ctx.qw, ctx.phi_v, ctx.detJ)
+    return scatter_v(ctx, ve)
+
+
 # ---------------------------------------------------------------------------
 # quadrature-point values and scalar functionals
 # ---------------------------------------------------------------------------
 
 
+def eval_v_at_qp(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
+    """Values of a V-function at every quadrature point: (..., nc, nq)."""
+    return torch.einsum("qj,...cj->...cq", ctx.phi_v, gather_v(ctx, x))
+
+
 def eval_q_at_qp(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
     """Values of a Q-function at every quadrature point: (nc, nq)."""
     return torch.einsum("qm,cm->cq", ctx.phi_q, gather_q(ctx, x))
+
+
+def grad_v_at_qp(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
+    """Physical gradient of a V-function at the quadrature points:
+    (..., nc, nq, d)."""
+    return torch.einsum("cbg,qbj,...cj->...cqg", ctx.Kinv, ctx.dphi_v, gather_v(ctx, x))
+
+
+def grad_q_at_qp(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
+    """Physical gradient of a Q-function at the quadrature points:
+    (..., nc, nq, d)."""
+    return torch.einsum("cbg,qbm,...cm->...cqg", ctx.Kinv, ctx.dphi_q, gather_q(ctx, x))
+
+
+def div_v_at_qp(ctx: DeviceContext, u: torch.Tensor) -> torch.Tensor:
+    """div(u) at the quadrature points for u (d, ndofs_v): (nc, nq), the
+    components' derivatives summed in component order."""
+    out = None
+    for i in range(u.shape[0]):
+        gi = torch.einsum("cb,qbj,cj->cq", ctx.Kinv[:, :, i], ctx.dphi_v, gather_v(ctx, u[i]))
+        out = gi if out is None else out + gi
+    return out
 
 
 def integrate(ctx: DeviceContext, vals_qp: torch.Tensor) -> torch.Tensor:

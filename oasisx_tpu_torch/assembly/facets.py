@@ -1,7 +1,10 @@
-"""Exterior-facet (surface) assembly for the outlet pressure condition.
+"""Exterior-facet (surface) assembly: the outlet pressure condition and
+the surface traction.
 
 Counterpart of ``oasisx_tpu/assembly/facets.py``: the form
-``p * n_i * v.dx(i) * ds(tag)`` of the pseudo-traction outlet.  Host setup
+``p * n_i * v.dx(i) * ds(tag)`` of the pseudo-traction outlet, and the
+traction integral over a tagged facet set (``surface_traction``: the DFG
+cylinder's drag and lift).  Host setup
 per tagged facet set: owning cell, local facet index, surface scale,
 outward unit normal, and per-local-facet tabulations of the cell bases at
 facet quadrature points.  Assembly is a batched contraction over facets and
@@ -137,3 +140,28 @@ def facet_eval_q(ctx: DeviceContext, fctx: FacetContext, p: torch.Tensor) -> tor
     pe = p[ctx.cd_q[fctx.cells]]  # (nf, m)
     phi = fctx.phi_q[fctx.local]  # (nf, nqf, m)
     return torch.einsum("fqm,fm->fq", phi, pe)
+
+
+def facet_area(fctx: FacetContext) -> torch.Tensor:
+    """The measure of the facet set, a 0-d tensor."""
+    return torch.sum(fctx.scale) * torch.sum(fctx.qw)
+
+
+def surface_traction(ctx: DeviceContext, fctx: FacetContext, u: torch.Tensor, p: torch.Tensor,
+                     nu) -> torch.Tensor:
+    """Traction integral F_i = int_S [nu (du_i/dx_j + du_j/dx_i) n_j - p n_i]
+    ds over the facet set, n the domain-outward normal: the force the
+    surroundings exert on the fluid, (d,).  The force on an immersed body is
+    its negative (the DFG cylinder's drag and lift).  ``u``: (d, ndofs_v)
+    velocity components in the canonical dof order; ``p``: (ndofs_q,).
+    Density 1."""
+    Kc = ctx.Kinv[fctx.cells]  # (nf, b, g)
+    dphi = fctx.dphi_v[fctx.local]  # (nf, nqf, b, j)
+    ue = u[:, ctx.cd_v[fctx.cells]]  # (i, nf, j)
+    gu = torch.einsum("fbg,fqbj,ifj->ifqg", Kc, dphi, ue)  # grad u at the facet points
+    pq = facet_eval_q(ctx, fctx, p)  # (nf, nqf)
+    n = fctx.normal  # (nf, g)
+    # sigma_ij n_j = nu (du_i/dx_j + du_j/dx_i) n_j - p n_i
+    visc = nu * (torch.einsum("ifqg,fg->ifq", gu, n) + torch.einsum("gfqi,fg->ifq", gu, n))
+    press = pq[None, :, :] * n.T[:, :, None]  # (i, nf, nqf)
+    return torch.einsum("ifq,q,f->i", visc - press, fctx.qw, fctx.scale)

@@ -19,7 +19,9 @@ solve of the step goes through one of the eight kernels of
         r0 = zmask rhs - zmask A_W x0, Jacobi    with its zmask)
       b2    = -(1/dt) div u                    divergence
       solve Ap dp = b2 (nullspace)             pressure_mg, or pressure_cg
-      ps    = p + dp
+      ps    = p + dp, or rotational:           (r0 = xi nu dt b2, K7's
+        solve Mq ps = Mq (p + dp) - xi nu        output reused; |rhs| by
+        (div u, q) from x0 = p + dp            matvec_const) cg_mass
   velocity update: solve M u_new = M u - dt G dp   cg_mass (r0 by mixed,
                                                    matvec_const)
     or, lumped: u_new = u - dt (Gw dp) / diag(M)   mixed on Gw_c
@@ -48,8 +50,18 @@ assembled operator goes through the ELL kernels of ``la/ell.py``:
       b2    = -(1/dt) assemble(div u q); b2[outlet] = 0
       solve Ap dp = b2: outlet mask, or        ell_pcg_amg (r0 by ell_matvec)
         nullspace + zero mean
+      ps    = p + dp, or rotational:           ell_cg on Mq (|rhs| by
+        solve Mq ps = Mq (p + dp)                ell_matvec)
+        - xi nu assemble(div u q), unmasked
   velocity update: M u_new = M u - dt G dp     ell_cg (b3, r0 by ell_matvec)
     or, lumped: u_new = u - dt (Gw dp) / diag(M), the element gather-scatter
+
+The rotational pressure update (``rotational=True``, xi = 1/2) runs inside
+the inner loop, so a further inner iteration's right-hand side sees it; its
+CG takes the ``scalar`` family's tolerances, with Jacobi whatever that
+family's ``pc_type``.  A ``body_force`` (a constant or a callable ``f(x)``
+per component) is assembled once at set-up into b0, which is added to
+b_first; without one b_first is as above.
 
 The general path's other options, off its default configuration: a
 pressure ``pc_type`` jacobi / none (Jacobi-CG) or any other non-AMG type
@@ -87,6 +99,7 @@ from .assembly import cubes as cub
 from .assembly import engine as eng
 from .assembly import kernels as kn
 from .assembly.facets import pressure_surface_vecs
+from .forms.expr import padded_coordinates, quadrature_points
 from .assembly.geometry import compute_cell_geometry
 from .assembly.reference_tensors import build_reference_tensors
 from .assembly.structured import build_structured_map, num_padded
@@ -153,18 +166,24 @@ def _host(tree):
 class FractionalStep_AB_CN:
     """Fractional-step solver with AB2-linearized convection and CN diffusion.
 
-    Args mirror the JAX package: ``mesh``, ``u_element`` / ``p_element`` as
-    ("Lagrange", degree) tuples or FiniteElements, per-component velocity
-    Dirichlet BCs, pressure outlet ``PressureBC``s, per-family
+    Args mirror the JAX package's, in its order: ``mesh``, ``u_element`` /
+    ``p_element`` as ("Lagrange", degree) tuples or FiniteElements,
+    per-component velocity Dirichlet BCs, pressure outlet ``PressureBC``s,
+    ``rotational`` (the rotational pressure update, xi = 1/2), per-family
     ``solver_options`` keyed ``tentative`` / ``pressure`` / ``scalar``
     (``la/solver.py``'s PETSc names; a ``scalar`` ``pc_type`` "lumped", or
     ``lumped: True``, selects the lumped velocity update on both paths),
-    ``options`` (``low_memory_version``: direct vector assembly of the
-    mixed terms, default True, or preassembled mixed matrices;
+    ``jit_options`` (the port compiles nothing at run time: its keys are
+    logged as ignored), ``body_force`` (per component a number, a Constant
+    or a callable ``f(x)`` of the (3, nc, nq) zero-padded quadrature points,
+    evaluated on the host at set-up), ``options`` (``low_memory_version``:
+    direct vector assembly of the mixed terms, default True, or
+    preassembled mixed matrices;
     ``ell_layout``: "ell", default, or "band" for the velocity operators
     of the general path; ``structured``: False sends a structured mesh to
     the general path; ``pallas_pressure_pc`` and ``pallas_cheb_degree``:
-    the structured path's pressure solve, above), ``dtype`` and the
+    the structured path's pressure solve, above), ``dtype``,
+    ``device_mesh`` (only None: sharded solves are not ported) and the
     ``device`` every tensor lives on (default: the card; there is no
     fallback to the CPU).  A structured mesh without an outlet takes the
     cube path, where ``low_memory_version`` has no counterpart.
@@ -177,11 +196,23 @@ class FractionalStep_AB_CN:
         p_element,
         bcs_u: list[list[DirichletBC]],
         bcs_p: list[PressureBC] | tuple = (),
+        rotational: bool = False,
         solver_options: dict | None = None,
+        jit_options: dict | None = None,
+        body_force=None,
         options: dict | None = None,
         dtype=None,
+        device_mesh=None,
         device=None,
     ):
+        if device_mesh is not None:
+            raise NotImplementedError("a device_mesh (sharded solves) is not ported: ROADMAP "
+                                      "Queue 1 item 5; the port runs on one device")
+        if jit_options:
+            logger.info("jit_options keys %s ignored: the port compiles its kernels ahead of "
+                        "the run, nothing at run time", sorted(jit_options))
+        self._rotational = bool(rotational)
+        self._xi = 0.5 if self._rotational else None
         self._device = resolve_device(device)
         self._dtype = real_dtype(dtype)
         options = dict(options or {})
@@ -206,6 +237,10 @@ class FractionalStep_AB_CN:
         self._u2 = [fn(Vi0, f"u_{i}2") for i in range(d)]
         self._p = fn(self._Q, "p")
         self._dp = fn(self._Q, "dp")
+        self._b0 = [fn(Vi0, f"b0_{i}") for i in range(d)]
+        self._sol_u = fn(self._V, "u")
+        self._cmaps = [torch.as_tensor(cmap, dtype=torch.long, device=self._device)
+                       for _, cmap in self._Vi]
 
         # --- boundary conditions ---------------------------------------------
         self._bcs_u = bcs_u
@@ -259,6 +294,8 @@ class FractionalStep_AB_CN:
             )
             if self._lumped:
                 self._gtab = torch.as_tensor(gtab, device=self._device).to(self._dtype)
+        b0 = self._body_force(body_force, el_u, el_p)
+        self._b0_dev = None if b0 is None else self._pv(b0)
         if self._structured and self._solver_u.method != "bcgs":
             logger.info("the structured path's tentative solves run batched BiCGStab "
                         "(requested %s)", self._solver_u.method)
@@ -281,6 +318,39 @@ class FractionalStep_AB_CN:
         masks = np.stack([bc_mask_and_values(bc_i, nv)[0] for bc_i in self._bcs_u])
         return self._pv(torch.as_tensor(masks, device=self._device))
 
+    def _body_force(self, body_force, el_u, el_p) -> torch.Tensor | None:
+        """b0_i = assemble(f_i v dx) in the canonical dof order, (d,
+        ndofs_v), or None without a body force (oasisx_tpu fracstep.py:
+        1967-2027): a constant component by ``constant_load_vec``, a
+        callable one evaluated on the host at the (3, nc, nq) padded points
+        of the engine's own rule (the rule ``source_load_vec_v`` contracts
+        against) and assembled by it.  Written into ``self._b0``.  The
+        structured path keeps no element context: one is built here for
+        the set-up only."""
+        if body_force is None:
+            return None
+        Vi0 = self._Vi[0][0]
+        ctx = self._ctx if not self._structured else eng.build_device_context(
+            self._mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
+            self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device)[0]
+        du, dq = el_u.degree, el_p.degree
+        qdeg = max(3 * du - 1, du + dq, 2 * dq, 2)
+        on = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=self._device).to(
+            self._dtype)
+        xq, b0 = None, []
+        for fi in body_force:
+            fi = getattr(fi, "value", fi)
+            if callable(fi):
+                if xq is None:
+                    xq = padded_coordinates(quadrature_points(self._mesh, qdeg)[2])
+                b0.append(eng.source_load_vec_v(ctx, on(fi(xq))))
+            else:
+                b0.append(eng.constant_load_vec(ctx, float(fi)))
+        b0 = torch.stack(b0)
+        for f, b in zip(self._b0, b0):
+            f.x.array.copy_(b)
+        return b0
+
     def _preassemble(self, options: dict) -> None:
         """Structured path: constant diagonals, integration weights, BC
         masks, convection weight tensor and the pressure solve."""
@@ -302,6 +372,8 @@ class FractionalStep_AB_CN:
         self._zmask = (~self._bc_masks).to(dt)
         self._M_invd = torch.where(self._M_diag != 0, 1.0 / self._M_diag, 1.0)
         self._lumped_inv = _lumped_inv(self._M_diag) if self._lumped else None
+        # the rotational update's Jacobi: 1 on the padding, where diag(Mq) is 0
+        self._Mq_invd = _inv(cub.diag_cube(cu.Mq_c, self._sm_q)) if self._rotational else None
 
         # the pressure solve, chosen as the JAX package's kernel path chooses
         # it (oasisx_tpu/fracstep.py:741-767): the MG-PCG where the grid
@@ -368,6 +440,9 @@ class FractionalStep_AB_CN:
             self._M_vals = ell_values(self._M_elems, self._ell_v)
         self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
         self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
+        # the rotational update's Mq in ELL form and its Jacobi (no outlet rows)
+        self._Mq_vals = ell_values(c["Mq"], self._ell_q) if self._rotational else None
+        self._Mq_invd = _inv(eng.diagonal_q(ctx, c["Mq"])) if self._rotational else None
         self._amg = self._p_cheb = None
         pc = str(popts.get("pc_type", "amg")).lower()
         if pc in AMG_PC_TYPES:
@@ -444,13 +519,18 @@ class FractionalStep_AB_CN:
             sharding="single-device",
             structured_fastpath=self._structured,
             velocity_update="lumped" if self._lumped else self._solver_c.method,
+            pressure_update="rotational" if self._rotational else "standard",
+            body_force=self._b0_dev is not None,
             tentative_method="bcgs" if self._structured else self._solver_u.method,
             kernels=list(kn.KERNELS),
             device=str(self._device),
             dtype=str(self._dtype).replace("torch.", ""),
         )
-        # the mass solve's kernel does not run under the lumped update
+        # the mass solve's kernel does not run under the lumped update; the
+        # rotational update's solve is K4 (structured) or K16 (general)
         unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
+        if self._rotational:
+            unused -= {"cg_mass", "ell_cg"}
         if self._structured:
             mg = isinstance(self._pcg, PressureMGCG)
             unused.add("pressure_cg" if mg else "pressure_mg")
@@ -481,6 +561,8 @@ class FractionalStep_AB_CN:
         if self._amg is None:
             unused.add("ell_pcg_amg")
         kernels = kn.BAND_KERNELS if self._layout == "band" else kn.ELL_KERNELS
+        if self._layout == "band" and self._rotational:
+            kernels = kernels + ("ell_cg",)
         return dict(
             common,
             **pressure,
@@ -522,13 +604,15 @@ class FractionalStep_AB_CN:
         """Returns (the tentative operator, the Q-point convecting velocity
         or None, b_first).  Structured: the per-cube weights W of A_W and
         b_first = (2/dt) M u1 - A_W u1.  General: the element stack A_lhs
-        and b_first = A_rhs u1 plus the outlet surface terms (there is no
-        body force on either path)."""
+        and b_first = A_rhs u1 plus the outlet surface terms.  With a body
+        force, b0 is added on either path (before the surface terms)."""
         if not self._structured:
             ctx = self._ctx
             C = eng.convection_elems(ctx, 1.5 * u1 - 0.5 * u2)
             A_rhs = -0.5 * C + (1.0 / dt) * self._M_elems - (0.5 * nu) * self._K_elems
             b_first = eng.matvec_v(ctx, A_rhs, u1)
+            if self._b0_dev is not None:
+                b_first = b_first + self._b0_dev
             for bcp, hq in zip(self._bcs_p, h_qvals):
                 b_first = b_first + pressure_surface_vecs(ctx, bcp.facet_context, hq)
             return -A_rhs + (2.0 / dt) * self._M_elems, None, b_first
@@ -543,6 +627,8 @@ class FractionalStep_AB_CN:
             (2.0 / dt) * kn.matvec_const(u1, cu.M_c, self._sm_v)
             - kn.matvec_win(W, u1, self._sm_v)
         )
+        if self._b0_dev is not None:
+            b_first = b_first + self._b0_dev
         return W, uq, b_first
 
     def _tentative_diag(self, A, uq, dt, nu):
@@ -702,6 +788,39 @@ class FractionalStep_AB_CN:
             dp = res.x - eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol
         return res, dp, _rel_res(res.resnorm, torch.linalg.vector_norm(b2))
 
+    def _rotational_update(self, p, dp, u, b2, dt, nu):
+        """ps = Proj_Q(p + dp - xi nu div u) (oasisx_tpu fracstep.py:
+        2740-2764): Mq ps = Mq (p + dp) - xi nu (div u, q) by Jacobi-PCG from
+        x0 = p + dp, so r0 = -xi nu (div u, q) exactly and the Mq product
+        serves only |rhs|; the ``scalar`` family's rtol (float32-clamped),
+        atol and maxiter, Jacobi on diag(Mq) whatever its pc_type.
+        Structured: (div u, q) = -dt b2, K7's output reused (this path has
+        no outlet rows, and a second K7 launch would add to steps that wait
+        on the host), |rhs| from K5 at batch 1 on Mq_c, the solve K4 at
+        batch 1; ps 0 on the padding.  General: (div u, q) assembled from
+        div u at the quadrature points, as the JAX package does (not the
+        outlet-masked b2; the outlet rows are not masked here either), the
+        product K14 and the solve K16 at batch 1 on Mq's ELL values.
+        Returns (KrylovResult, ps, relative exit residual)."""
+        sc = self._solver_c
+        rtol = _effective_rtol(sc.rtol, self._dtype)
+        x0 = (p + dp)[None]
+        if self._structured:
+            cu, sm_q = self._cu, self._sm_q
+            r0 = ((self._xi * nu * dt) * b2)[None]
+            bnorm = torch.linalg.vector_norm(kn.matvec_const(x0, cu.Mq_c, sm_q) + r0, dim=-1)
+            res = fused.cg_mass(cu.Mq_c, r0, x0, self._Mq_invd, bnorm, sm_q, rtol, sc.maxiter,
+                                sc.atol)
+            ps = res.x[0] * self._q_null
+        else:
+            ctx, eq = self._ctx, self._ell_q
+            op = (self._Mq_vals, eq.cols, eq.widths)
+            r0 = ((-self._xi * nu) * eng.source_load_vec_q(ctx, eng.div_v_at_qp(ctx, u)))[None]
+            bnorm = torch.linalg.vector_norm(ell.ell_matvec(*op, x0) + r0, dim=-1)
+            res = ell.ell_cg(*op, r0, x0, self._Mq_invd, bnorm, rtol, sc.maxiter, sc.atol)
+            ps = res.x[0]
+        return res, ps, _rel_res(res.resnorm, bnorm)
+
     def _velocity_update(self, u, dp, dt, duc):
         """Mass solves M u_new = M u - dt G dp, warm-started from u + duc
         with r0 = -dt G dp - M duc; or the lumped update."""
@@ -784,8 +903,13 @@ class FractionalStep_AB_CN:
             x0 = 2.0 * u1 - u2 if it == 0 else u
             ures, diff, u_res = self._tentative_solve(A, diag, rhs1, bc_vals, u, x0)
             u = ures.x
-            pres, dp, p_res = self._pressure_solve(self._divergence(u, dt), dp)
-            ps = p + dp
+            b2 = self._divergence(u, dt)
+            pres, dp, p_res = self._pressure_solve(b2, dp)
+            if self._rotational:
+                rres, ps, r_res = self._rotational_update(p, dp, u, b2, dt, nu)
+                syncs += rres.syncs
+            else:
+                ps = p + dp
             syncs += ures.syncs + pres.syncs
             it += 1
         cres, c_res = self._velocity_update(u, dp, dt, state["duc"])
@@ -798,11 +922,22 @@ class FractionalStep_AB_CN:
             # filled on the device: a copy from the host would synchronise
             inner_iters=torch.full((), it, dtype=torch.int32, device=u.device), diff=diff,
         )
+        if self._rotational:
+            stats.update(rot_iters=rres.iters[0], rot_converged=rres.converged[0],
+                         rot_res=r_res[0])
         return new_state, stats, syncs
 
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
+    @property
+    def u(self) -> Function:
+        """The tentative velocity as a vector Function on the solver's
+        device (its components written in)."""
+        for ui, cmap in zip(self._u, self._cmaps):
+            self._sol_u.x.array[cmap] = ui.x.array
+        return self._sol_u
+
     def _functions(self) -> list[Function]:
         return [*self._u, *self._u1, *self._u2, self._p, self._dp]
 
@@ -959,6 +1094,7 @@ class FractionalStep_AB_CN:
             self.last_stats["u_converged"].all()
             and self.last_stats["p_converged"]
             and self.last_stats["c_converged"].all()
+            and self.last_stats.get("rot_converged", True)
         ):
             logger.warning("solver did not converge: %s", self.last_stats)
         return float(self.last_stats["diff"])

@@ -85,12 +85,13 @@ def test_cg_on_staged_product_same_iterations(cells):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_chip_smoke_mass_cases_converge(dtype):
     """chip_smoke's K4 cases on an N=6 solver (the MG case needs a grid that
-    coarsens): the P2 mass at batch 3 and 1 and the P1 mass on the pressure
-    grid, each solved twice by its plain version on the CPU."""
+    coarsens): the P2 mass at batch 3 and 1, the P1 mass on the pressure
+    grid and the pressure mass Mq_c at batch 1 (the rotational update's
+    solve), each solved twice by its plain version on the CPU."""
     s = cs.tgv_solver(6, torch.float64, "cpu", 1e-8)
     _, cases = cs.solve_cases(s, "cpu", dtype=dtype)
     mass = [c for c in cases if c[0] == "cg_mass"]
-    assert [c[1] for c in mass] == ["M_c, random rhs", "M_c batch 1", "P1 mass"]
+    assert [c[1] for c in mass] == ["M_c, random rhs", "M_c batch 1", "P1 mass", "Mq_c batch 1"]
     for _, label, kfn, pfn, work in mass:
         rk, rp = kfn(), pfn()
         assert bool(rk.converged.all()) and bool(rp.converged.all()), label

@@ -178,6 +178,39 @@ any failure or when there is no card.
    cylinder's state after 3 steps the Projector of grad(p) with a
    Dirichlet BC (one K16 launch on the card), a LumpedProject, the force
    on the cylinder and assemble_scalar, to 1e-10 relative.
+4k. The split-phase API at N=36 in float32 at bench settings: two solvers
+   take the same 5 warm-up steps of ``run``; then A takes 10 steps of
+   ``run(1, max_iter=1)`` and B 10 split steps (ps = p, the six methods,
+   u2 <- u1 <- u, p <- ps).  Every reason 2, each split step's launches
+   equal to A's step's (K8, K5, K3, K6, K2, K7, K1 and K4 among them), no
+   plain version, and B's u and p within a bound of A's after every step
+   (u: 200 rtol (k+1) after step k; p: 1e4 rtol: a sanity bound on two
+   paths that start their solves from other guesses; 5g holds the split
+   phases at N=36 to 1e-10), each step's differences printed.  Two times
+   of each phase a step: the wall between CUDA events around it (the
+   host's enqueue and its reads of the reasons included; the median of the
+   10 steps), and the device time of its kernels and copies alone, from a
+   torch.profiler window around each phase of 3 more split steps (the
+   median).
+4l. ``oasisx_tpu_torch.demo.vessel`` on demo/meshes/patient_vessel.msh
+   (1,813 nodes; inlet 1, wall 2, outlet 3) in float32, 5 steps: finite
+   velocities, every solve converged, K14-K17 launched (the general path
+   with its outlet mask), no plain version.
+4m. ``python -m oasisx_tpu_torch -dt 0.05 -T 0.2 -nu 0.1 --output ...
+   --checkpoint ...`` in a subprocess on the card: exit 0, the .pvd, .vtu
+   and .npz files, the checkpoint loaded into a new solver equal to the
+   file.  The Taylor-Green demo with the reference CI's arguments (-N 8 -N
+   16 -N 32 -dt 0.005): in float64 rate_u > 1.7 and rate_p > 1.5, in
+   float32 the rates printed.
+5g. GPU against CPU in float64: the split sequence for 3 steps on the N=6
+   box (standard and rotational) and the res=10 cylinder with its outlet
+   (rotational), and for 1 step on the N=36 box (phase 4's width, from its
+   initial state): every solve's iterations and reasons equal; _b_first,
+   _rhs1, _b2, u, p, dp and ps to 1e-10 relative.  tentative_matrix_dense
+   (K3 on identity columns on cuda, its plain version on cpu; the element
+   stack on the cylinder) to 1e-12.  A Checkpoint from the cuda solver
+   loaded into cuda and cpu solvers that take 2 more steps (phase 5's
+   checks), and the cpu solver's loaded back into cuda bit for bit.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -193,8 +226,9 @@ K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
-The phases run in the order 3, 4, 4g, 4i, 5, 3e, 4f, 5d, 3c, 4d, then the
-vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f.
+The phases run in the order 3, 4, 4g, 4i, 4k, 5, 3e, 4f, 5d, 3c, 4d, then
+the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f, 4l,
+4m, 5g.
 Kernel, plain and library times are device times of back-to-back calls
 (``time_ms``).
 
@@ -382,11 +416,13 @@ def cylinder_facets(mesh):
     return ext[np.linalg.norm(mid - np.asarray(CYL_CENTER), axis=1) < 0.9 * CYL_D]
 
 
-def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3):
+def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3,
+                    rotational: bool = False):
     """The DFG cylinder channel with a parabolic inflow, no-slip walls and
     cylinder, and a PressureBC(0) outlet (tests/test_ell_wiring.py's
     set-up); the inflow's peak ``um()`` (default 0.3, as demo/cylinder.py),
-    read each time the boundary values are evaluated."""
+    read each time the boundary values are evaluated; ``rotational`` goes
+    to the solver."""
     import numpy as np
 
     from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
@@ -410,7 +446,7 @@ def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3):
     return FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[PressureBC(0.0, (tags, 3))],
         solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
-        dtype=dtype, device=device,
+        rotational=rotational, dtype=dtype, device=device,
     )
 
 
@@ -2144,6 +2180,399 @@ def cylinder_transient(device, smi: str, steps: int = 25, dt=CYL_DT, nu=CYL_NU) 
           f" p {dp:.3e})")
 
 
+# ---------------------------------------------------------------------------
+# the split-phase API, the demos and the CLI
+# ---------------------------------------------------------------------------
+
+SPLIT_STEPS = 10  # phase 4k's steps after the warm-up
+SPLIT_PROFILED = 3  # phase 4k's split steps with a profiler window around each phase
+SPLIT_PHASES = ("assemble_first", "velocity_tentative_assemble", "velocity_tentative_solve",
+                "pressure_assemble", "pressure_solve", "velocity_update")
+# the kernels of a structured step with the MG pressure solve
+STEP_KERNELS = ("cube_gather", "matvec_const", "matvec_win", "mixed", "bicgstab", "divergence",
+                "pressure_mg", "cg_mass")
+# phase 4k's bound on the split path's distance from run's, relative to run's
+# largest entry, after step k (0-based): both solve the same systems to rtol
+# from other initial guesses (x0 = u against 2 u1 - u2, no warm start of the
+# mass solve), which leaves the velocities O(rtol) apart a step, adding up
+# over the steps; the pressure follows the divergence of the tentative
+# velocity, which amplifies its difference (CPU float32: 2.8e-3 and 3.7e-2
+# after 10 steps at N=16)
+SPLIT_U_BOUND = lambda rtol, k: 200.0 * rtol * (k + 1)  # noqa: E731
+SPLIT_P_BOUND = lambda rtol, k: 1e4 * rtol  # noqa: E731
+CLI_ARGS = ("-dt", "0.05", "-T", "0.2", "-nu", "0.1")  # the CLI smoke of phase 4m: 4 steps
+TG_CI_ARGS = ("-N", "8", "-N", "16", "-N", "32", "-dt", "0.005")  # the reference CI's rates
+VESSEL_MSH = "demo/meshes/patient_vessel.msh"
+
+
+def split_step(solver, dt, nu, around=None):
+    """One step by the split phases (tests/test_taylor_green.py:145-160):
+    ps = p, the six methods, then u2 <- u1 <- u and p <- ps.  Returns (diff,
+    every reason: u per component, p, c per component).  With ``around``,
+    each phase runs as ``around(phase)`` (a timer: ``_event_timer``,
+    ``_kernel_timer``)."""
+    run = around or (lambda phase: phase())
+    solver._ps.x.array.copy_(solver._p.x.array)
+    run(lambda: solver.assemble_first(dt, nu))
+    run(solver.velocity_tentative_assemble)
+    diff, ru = run(solver.velocity_tentative_solve)
+    run(lambda: solver.pressure_assemble(dt))
+    rp = run(lambda: solver.pressure_solve(nu))
+    rc = run(lambda: solver.velocity_update(dt))
+    for u2, u1, u in zip(solver._u2, solver._u1, solver._u):
+        u2.x.array.copy_(u1.x.array)
+        u1.x.array.copy_(u.x.array)
+    solver._p.x.array.copy_(solver._ps.x.array)
+    return diff, [*ru.tolist(), rp, *rc.tolist()]
+
+
+def _event_timer(times: list):
+    """``split_step``'s ``around``: the milliseconds between CUDA events
+    recorded on the stream before and after each phase, appended to
+    ``times``.  The interval holds the host's enqueue of the phase and its
+    reads of the results too: a phase starts on an idle device once the
+    previous one's reads have returned."""
+    import torch
+
+    def around(phase):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = phase()
+        e1.record()
+        times.append((e0, e1))
+        return out
+
+    return around
+
+
+def _kernel_timer(times: list):
+    """``split_step``'s ``around``: each phase in a torch.profiler window of
+    its own; the device time of the kernels and copies it ran (ms, the sum
+    of their durations, no idle time) appended to ``times``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def around(phase):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = phase()
+            torch.cuda.synchronize()
+        times.append(sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA) / 1e3)
+        return out
+
+    return around
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b| (0 where b is 0)."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def split_phase_path(device, smi: str, n=N, warmup: int = WARMUP, steps: int = SPLIT_STEPS,
+                     rtol: float = 1e-5, profiled: int = SPLIT_PROFILED) -> None:
+    """Phase 4k: two solvers of the bench problem at ``n`` in float32 take the
+    same ``warmup`` steps of ``run``; then A takes ``steps`` steps of
+    ``run(1, max_iter=1)`` and B as many split steps.  Every reason 2, each
+    split step's launches (on the CPU: plain calls) those of A's step and
+    every kernel of the step among them, no plain version on the card, and
+    B's u and p within SPLIT_U_BOUND / SPLIT_P_BOUND of A's after every
+    step.  On the card two times of each phase a step: the wall between
+    CUDA events around it (the host's enqueue and its reads included; the
+    median over the steps), and the device time of its kernels alone, from
+    a torch.profiler window around each phase of ``profiled`` more split
+    steps (the median)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    cuda = torch.device(device).type == "cuda"
+    a = tgv_solver(n, torch.float32, device, rtol)
+    b = tgv_solver(n, torch.float32, device, rtol)
+    for s in (a, b):
+        s.run(warmup, DT, NU, max_iter=1)
+    counts = kn.launches if cuda else kn.plain_calls
+    times, du, dp, iters = [], [], [], []
+    log = _iteration_log(b)
+    for k in range(steps):
+        kn.reset_counts()
+        a.run(1, DT, NU, max_iter=1)
+        _sync(device)
+        step = {name: v for name, v in counts.items() if v}
+        kn.reset_counts()
+        events = []
+        _, reasons = split_step(b, DT, NU, _event_timer(events) if cuda else None)
+        _sync(device)
+        split = {name: v for name, v in counts.items() if v}
+        st = a.last_stats
+        iters.append((st["u_iters"][0].tolist(), int(st["p_iters"][0]), st["c_iters"][0].tolist(),
+                      [it for _, it in _iterations(log)]))
+        check(all(r == 2 for r in reasons), f"[4k] step {k}: reasons {reasons}")
+        # on the CPU the plain solves call the plain products an iteration: the same kernels
+        same = split == step if cuda else set(split) == set(step)
+        check(same, f"[4k] step {k}: the split phases launched {split}, a run step {step}")
+        check(all(step.get(name, 0) > 0 for name in STEP_KERNELS),
+              f"[4k] step {k}: a kernel of the step is missing from {step}")
+        if cuda:
+            plain = {name: v for name, v in kn.plain_calls.items() if v}
+            check(not plain, f"[4k] step {k}: plain versions ran: {plain}")
+            times.append([e0.elapsed_time(e1) for e0, e1 in events])
+        ua, ub = (torch.stack([f.x.array for f in s._u]) for s in (a, b))
+        du.append(_rel(ub, ua))
+        dp.append(_rel(b._p.x.array, a._p.x.array))
+        check(du[-1] <= SPLIT_U_BOUND(rtol, k) and dp[-1] <= SPLIT_P_BOUND(rtol, k),
+              f"[4k] step {k}: split against run u {du[-1]:.3e} (bound "
+              f"{SPLIT_U_BOUND(rtol, k):.1e}), p {dp[-1]:.3e} (bound {SPLIT_P_BOUND(rtol, k):.1e})")
+    print(f"[4k] split phases at N={n}, float32, {warmup} warm-up steps of run then {steps} steps "
+          f"each way, on {smi}: every reason 2; a split step's launches equal a run step's: "
+          f"{split}")
+    print("    u rel diff (split against run) per step: " + " ".join(f"{v:.3e}" for v in du)
+          + f" (bound {SPLIT_U_BOUND(rtol, 0):.0e} (k+1))")
+    print("    p rel diff per step: " + " ".join(f"{v:.3e}" for v in dp)
+          + f" (bound {SPLIT_P_BOUND(rtol, 0):.0e})")
+    print("    iterations a step, run (u per component, p, c per component) | split (u, p, c): "
+          + "; ".join(f"{u} {p} {c} | {sp}" for u, p, c, sp in iters))
+    if not cuda:
+        return
+    med = np.median(np.asarray(times), axis=0)
+    print(f"    wall between CUDA events around each phase, host enqueue and reads included, "
+          f"median of {steps} (ms): " + ", ".join(f"{p} {t:.4f}" for p, t in zip(SPLIT_PHASES, med))
+          + f"; sum {med.sum():.4f}")
+    kernel = []
+    for _ in range(profiled):
+        kernel.append([])
+        _, reasons = split_step(b, DT, NU, _kernel_timer(kernel[-1]))
+        check(all(r == 2 for r in reasons), f"[4k] profiled split step: reasons {reasons}")
+    med = np.median(np.asarray(kernel), axis=0)
+    if med.sum() > 0:
+        print(f"    device time of each phase's kernels and copies (torch.profiler, a window a "
+              f"phase), median of {profiled} more split steps (ms): "
+              + ", ".join(f"{p} {t:.4f}" for p, t in zip(SPLIT_PHASES, med))
+              + f"; sum {med.sum():.4f}")
+    else:
+        print("    device time of each phase's kernels: not measured (the profiler recorded no "
+              "device time)")
+
+
+def vessel_demo_path(device, steps: int = 5, dt: float = 0.01) -> None:
+    """Phase 4l: ``demo.vessel.main`` on the repo's tagged patient mesh
+    (inlet 1, wall 2, outlet 3) in float32 for ``steps`` steps: the general
+    path with the outlet.  Finite velocities, every solve converged, every
+    ELL kernel of the path launched (on the CPU: its plain version) and, on
+    the card, no plain version."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.demo import vessel
+
+    cuda = torch.device(device).type == "cuda"
+    msh = os.path.join(os.path.dirname(os.path.abspath(__file__)), VESSEL_MSH)
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    out = vessel.main(["--mesh-path", msh, "-dt", str(dt), "-T", str(steps * dt),
+                       "--device", str(device)])
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = kn.launches if cuda else kn.plain_calls
+    used = {k: v for k, v in counts.items() if v}
+    print(f"[4l] vessel demo on {VESSEL_MSH} ({out['velocity_dofs']} velocity dofs), {steps} "
+          f"steps in {wall:.1f} s with set-up: max |u| per step {out['max_velocity']}, every "
+          f"solve converged {out['converged']}; launches {used}")
+    check(len(out["max_velocity"]) == steps and np.isfinite(out["max_velocity"]).all(),
+          "[4l] the vessel's velocity is not finite")
+    check(all(out["converged"]), "[4l] a solve of the vessel demo did not converge")
+    for name in kn.ELL_KERNELS:
+        check(counts[name] > 0, f"[4l] {name} was not launched")
+    if cuda:
+        plain = {k: v for k, v in kn.plain_calls.items() if v}
+        check(not plain, f"[4l] plain versions ran: {plain}")
+
+
+def cli_and_demo(device, tg_args=TG_CI_ARGS) -> None:
+    """Phase 4m: ``python -m oasisx_tpu_torch`` in a subprocess (on the card
+    by default; ``--device`` only off it), its .pvd / .vtu / .npz files, and
+    its checkpoint loaded into a new solver of the same problem: the arrays
+    of the file.  Then the Taylor-Green demo with the reference CI's
+    arguments: in float64 held to the CI bar (rate_u > 1.7, rate_p > 1.5),
+    in float32 printed."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod
+    from oasisx_tpu_torch.demo import taylor_green
+    from oasisx_tpu_torch.io import Checkpoint
+    from oasisx_tpu_torch.meshes import create_unit_square, meshtags
+
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "chip_smoke_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "oasisx_tpu_torch", *CLI_ARGS, "--output",
+           os.path.join(out, "run.bp"), "--checkpoint", os.path.join(out, "ck.npz")]
+    if not cuda:
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"[4m] the CLI exited with {r.returncode}: {r.stderr[-2000:]}")
+    names = sorted(os.listdir(out))
+    print(f"[4m] python -m oasisx_tpu_torch {' '.join(CLI_ARGS)}: exit 0 in {wall:.1f} s, "
+          f"wrote {names}")
+    for name in ("run.pvd", "run_00000.vtu", "run_00003.vtu", "run_00003.npz", "ck.npz"):
+        check(name in names, f"[4m] the CLI did not write {name}")
+    mesh = create_unit_square(10, 10)
+    facets = mesh.exterior_facet_indices()
+    tags = meshtags(mesh, 1, facets, np.full_like(facets, 1))
+    bcs = [[DirichletBC(0.0, LocatorMethod.TOPOLOGICAL, (tags, 1))] for _ in range(2)]
+    s = FractionalStep_AB_CN(mesh, ("Lagrange", 2), ("Lagrange", 1), bcs, [], device=device)
+    t, step = Checkpoint(os.path.join(out, "ck.npz")).load(s)
+    data = np.load(os.path.join(out, "ck.npz"))
+    fs = {"p": s._p, "dp": s._dp}
+    for i in range(2):
+        fs.update({f"u{i}": s._u[i], f"u1_{i}": s._u1[i], f"u2_{i}": s._u2[i]})
+    same = all(np.array_equal(f.x.array.cpu().numpy(), data[k].astype(np.float32))
+               for k, f in fs.items())
+    print(f"    checkpoint t={t:g} step {step} loaded into a new solver: arrays equal {same}")
+    check(same and step == 4, "[4m] the checkpoint did not load back")
+    rates = {}
+    for dtype in ("float64", "float32"):
+        t0 = time.perf_counter()
+        rates[dtype] = taylor_green.main([*tg_args, "--device", str(device), "--dtype", dtype])
+        print(f"    Taylor-Green demo {' '.join(tg_args)} in {dtype}: rate_u "
+              f"{rates[dtype][0].tolist()}, rate_p {rates[dtype][1].tolist()} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    ru, rp = rates["float64"]
+    check(ru.min() > 1.7 and rp.min() > 1.5,
+          f"[4m] float64 rates {ru.tolist()} / {rp.tolist()} below the CI bar 1.7 / 1.5")
+
+
+def _iteration_log(solver) -> list:
+    """Wrap the solver's solves to record each one's iterations, (name,
+    iterations tensor) in call order: read them with ``_iterations`` after
+    the step (no host read inside it)."""
+    log = []
+    for name in ("_tentative_solve", "_pressure_solve", "_rotational_update", "_velocity_update"):
+        f = getattr(solver, name)
+
+        def wrap(*args, f=f, name=name):
+            out = f(*args)
+            log.append((name, out[0].iters))
+            return out
+
+        setattr(solver, name, wrap)
+    return log
+
+
+def _iterations(log: list) -> list:
+    """The iterations of an ``_iteration_log`` on the host, emptying it."""
+    out = [(name, it.cpu().numpy().tolist()) for name, it in log]
+    log.clear()
+    return out
+
+
+def split_gpu_vs_cpu(steps: int = 3, full_steps: int = 1) -> None:
+    """Phase 5g: in float64, cuda against cpu.  The split sequence for
+    ``steps`` steps on the N=6 box, standard and rotational, and on the
+    res=10 cylinder with its outlet and the rotational update, and for
+    ``full_steps`` at the full width (the N=36 box): every solve's
+    iterations and every reason equal, ``_b_first``, ``_rhs1``, ``_b2``, u,
+    p, dp and ps after each step to 1e-10 relative.  ``tentative_matrix_dense``
+    on the N=6 box (K3 on cuda, its plain version on cpu) and the cylinder
+    (the element stack) to 1e-12.  A Checkpoint written by the cuda solver
+    after 3 steps loads into fresh cuda and cpu solvers, which take 2 more
+    steps: phase 5's checks; the cpu solver's checkpoint loads back into a
+    cuda one bit for bit."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.io import Checkpoint
+
+    f64 = torch.float64
+    dt_nu = {"box": (DT, NU), "cyl": (CYL_DT, CYL_NU)}
+    cases = (("N=6", "box", steps, lambda dev: tgv_solver(6, f64, dev, rtol=1e-8)),
+             ("N=6 rotational", "box", steps,
+              lambda dev: tgv_solver(6, f64, dev, rtol=1e-8, rotational=True)),
+             ("cylinder res=10 rotational", "cyl", steps,
+              lambda dev: cylinder_solver(10, f64, dev, rtol=1e-8, rotational=True)),
+             # the full width: every split phase at N=36 held as tightly
+             (f"N={N}", "box", full_steps, lambda dev: tgv_solver(N, f64, dev, rtol=1e-8)))
+    keys = ("_b_first", "_rhs1", "_u", "_b2", "_p", "_dp", "_ps")
+    for label, kind, nsteps, make in cases:
+        runs = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            s = make(dev)
+            log, vecs, reasons = _iteration_log(s), [], []
+            for _ in range(nsteps):
+                reasons.append(split_step(s, *dt_nu[kind])[1])
+                vecs.append({k: _values(getattr(s, k)) for k in keys})
+            runs[dev] = (log, vecs, reasons)
+        (lg, vg, rg), (lc, vc, rc) = runs["cuda"], runs["cpu"]
+        lg, lc = _iterations(lg), _iterations(lc)
+        worst = {k: max(_rel(g[k].cpu(), c[k]) for g, c in zip(vg, vc)) for k in keys}
+        print(f"  {label} split phases f64 {nsteps} steps: cuda against cpu rel diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f" ({time.perf_counter() - t0:.1f} s with set-up)")
+        print(f"    iterations cuda {lg}")
+        check(lg == lc, f"{label}: split-phase iterations differ: cuda {lg}, cpu {lc}")
+        check(rg == rc and all(r == 2 for rr in rg for r in rr), f"{label}: reasons {rg} / {rc}")
+        check(max(worst.values()) <= 1e-10, f"{label}: cuda and cpu disagree: {worst}")
+    for label, make in (("N=6", lambda dev: tgv_solver(6, f64, dev, rtol=1e-8)),
+                        ("cylinder res=10", lambda dev: cylinder_solver(10, f64, dev, rtol=1e-8))):
+        dense, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            s = make(dev)
+            s.assemble_first(*((DT, NU) if label == "N=6" else (CYL_DT, CYL_NU)))
+            t0 = time.perf_counter()
+            dense[dev] = s.tentative_matrix_dense()
+            secs[dev] = time.perf_counter() - t0
+        rel = float(np.abs(dense["cuda"] - dense["cpu"]).max() / np.abs(dense["cpu"]).max())
+        print(f"  {label} tentative_matrix_dense {dense['cpu'].shape}: cuda against cpu rel diff "
+              f"{rel:.3e} (host clock with the copy to the host: cuda {secs['cuda']:.3f} s, "
+              f"cpu {secs['cpu']:.3f} s)")
+        check(rel <= 1e-12, f"{label}: the dense tentative matrices disagree ({rel:.3e})")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ck = Checkpoint(os.path.join(root, "chip_smoke_ck.npz"))
+    src = tgv_solver(6, f64, "cuda", rtol=1e-8)
+    src.run(3, DT, NU, max_iter=1)
+    ck.save(src, t=3 * DT, step=3)
+    gpu_vs_cpu(lambda dtype, dev: _loaded(tgv_solver(6, dtype, dev, rtol=1e-8), ck),
+               "N=6 from the cuda solver's checkpoint", steps=2)
+    cpu = _loaded(tgv_solver(6, f64, "cpu", rtol=1e-8), ck)
+    cpu.run(2, DT, NU, max_iter=1)
+    ck.save(cpu, t=5 * DT, step=5)
+    back = _loaded(tgv_solver(6, f64, "cuda", rtol=1e-8), ck)
+    same = all(torch.equal(f.x.array.cpu(), g.x.array) for f, g in zip(
+        [*back._u, *back._u1, *back._u2, back._p, back._dp],
+        [*cpu._u, *cpu._u1, *cpu._u2, cpu._p, cpu._dp]))
+    print(f"  the cpu solver's checkpoint loaded into a cuda solver: bit-identical {same}")
+    check(same, "a checkpoint from cpu did not load into cuda bit for bit")
+
+
+def _values(f):
+    """A Function's (or a list of component Functions') values, copied."""
+    import torch
+
+    return torch.stack([g.x.array for g in f]) if isinstance(f, list) else f.x.array.clone()
+
+
+def _loaded(solver, ck):
+    """``solver`` with the state of the checkpoint ``ck`` loaded."""
+    ck.load(solver)
+    return solver
+
+
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
 PTX_NO_DIVISION = ("cube_ops.cu", "krylov_ops.cu")  # phase 2 fails on a 64-bit div/rem there
 
@@ -2390,6 +2819,12 @@ def main() -> int:
     del srot
     torch.cuda.empty_cache()
 
+    # 4k. the split-phase API at N=36 against run, step by step
+    t0 = time.perf_counter()
+    split_phase_path("cuda", smi)
+    torch.cuda.empty_cache()
+    print(f"[4k] {time.perf_counter() - t0:.1f} s")
+
     # 5. GPU against CPU
     print("[5] cuda against cpu")
     gpu_vs_cpu(lambda dt, dev: tgv_solver(6, dt, dev, rtol=1e-8), "N=6", pressure_pc="mg-pcg")
@@ -2626,6 +3061,19 @@ def main() -> int:
     print("[5f] cuda against cpu, the rotational update, body forces and the forms")
     rotational_gpu_vs_cpu()
     forms_gpu_vs_cpu()
+
+    # 4l. the vessel demo on the tagged patient mesh
+    t0 = time.perf_counter()
+    vessel_demo_path("cuda")
+    print(f"[4l] {time.perf_counter() - t0:.1f} s")
+    # 4m. the CLI and the Taylor-Green demo
+    t0 = time.perf_counter()
+    cli_and_demo("cuda")
+    print(f"[4m] {time.perf_counter() - t0:.1f} s")
+    print("[5g] cuda against cpu: the split phases, the dense tentative matrix, a checkpoint")
+    t0 = time.perf_counter()
+    split_gpu_vs_cpu()
+    print(f"[5g] {time.perf_counter() - t0:.1f} s")
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

@@ -355,6 +355,19 @@ def bc_symmetric_matvec(ctx: DeviceContext, elems, mask, x, matvec) -> torch.Ten
     return torch.where(mask, x, y)
 
 
+def elems_to_dense(elems: np.ndarray, rows: np.ndarray, cols: np.ndarray, nr: int,
+                   nc: int) -> np.ndarray:
+    """The dense (nr, nc) matrix of an element stack (ncells, ni, nj) on the
+    host, rows and cols the cells' dofs (the JAX package's dense export for
+    differential tests)."""
+    A = np.zeros((nr, nc))
+    e, r, c = np.asarray(elems), np.asarray(rows), np.asarray(cols)
+    _, ni, nj = e.shape
+    np.add.at(A, (np.repeat(r, nj, axis=1).reshape(-1), np.tile(c, (1, ni)).reshape(-1)),
+              e.reshape(-1))
+    return A
+
+
 def setup_constants(ctx: DeviceContext) -> dict:
     """Every time-independent element stack and diagonal."""
     M = mass_elems(ctx)

@@ -78,6 +78,19 @@ solve stays ell_pcg_amg on the flat ELL Ap: the JAX package's band engine
 ran an XLA AMG-PCG there only because its TPU could not lower the fused
 V-cycle's gathers, and the AMG and the PCG are the same math.
 
+The split-phase API runs one phase of a step per call, through the step's
+own helpers, reading and writing the solver's Functions on its device (the
+JAX package's split methods, oasisx_tpu fracstep.py:3499-3733):
+``assemble_first`` (uab into ``_uab``, b_first into ``_b_first``, the
+tentative operator kept), ``velocity_tentative_assemble`` (``_rhs1``),
+``velocity_tentative_solve`` (from x0 = u, where ``run`` starts from
+2 u1 - u2; returns the diff and a reason a component), ``pressure_assemble``
+(``_b2``), ``pressure_solve`` (``_dp``, ``_ps``) and ``velocity_update``
+(``_u``, with no warm start from a previous correction); the caller rotates
+u2 <- u1 <- u and p <- ps.  ``tentative_matrix_dense`` exports the kept
+operator of component 0 with its BC rows.  A split phase writes the
+Functions, so the next ``run`` rebuilds its state from them.
+
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
 (general); after each call it is written into the solver's Functions.  On
@@ -123,6 +136,16 @@ logger = logging.getLogger("oasisx_tpu_torch")
 
 STATE_KEYS = ("u", "u1", "u2", "p", "dp", "duc")
 AMG_PC_TYPES = ("amg", "gamg", "hypre", "ml", "mg")
+# tentative_matrix_dense: the largest component it exports (demo/assembly_bcs.py
+# exports the dense matrix below 20,000 dofs), and the identity columns a
+# product of the structured path's operator takes
+DENSE_MAX_DOFS = 20000
+DENSE_BATCH = 64
+
+
+def _reasons(converged: torch.Tensor) -> np.ndarray:
+    """PETSc-style converged reasons on the host: 2 converged, -3 not."""
+    return np.where(converged.cpu().numpy(), 2, -3).astype(np.int32)
 
 
 def _rel_res(rnorm: torch.Tensor, bnorm: torch.Tensor) -> torch.Tensor:
@@ -238,6 +261,12 @@ class FractionalStep_AB_CN:
         self._p = fn(self._Q, "p")
         self._dp = fn(self._Q, "dp")
         self._b0 = [fn(Vi0, f"b0_{i}") for i in range(d)]
+        # the split-phase API's Functions (the JAX solver's names)
+        self._uab = [fn(Vi0, f"u_{i}ab") for i in range(d)]
+        self._rhs1 = [fn(Vi0, f"rhs1_{i}") for i in range(d)]
+        self._b_first = [fn(Vi0, f"b_first_{i}") for i in range(d)]
+        self._ps = fn(self._Q, "ps")
+        self._b2 = fn(self._Q, "b2")
         self._sol_u = fn(self._V, "u")
         self._cmaps = [torch.as_tensor(cmap, dtype=torch.long, device=self._device)
                        for _, cmap in self._Vi]
@@ -307,6 +336,10 @@ class FractionalStep_AB_CN:
         self._state: dict | None = None
         self._state_versions = None
         self._bc_cache = None
+        # assemble_first's tentative operator, (A, uq, dt, nu), and the dt of
+        # the last pressure_assemble: the split phases' hand-off
+        self._split = None
+        self._split_dt = None
         self.last_stats: dict = {}
         logger.info("active paths: %s", self.config_report())
 
@@ -965,6 +998,7 @@ class FractionalStep_AB_CN:
             self._u1[i].x.array.copy_(self._uv(state["u1"][i]))
             self._u2[i].x.array.copy_(self._uv(state["u2"][i]))
         self._p.x.array.copy_(self._uq(state["p"]))
+        self._ps.x.array.copy_(self._uq(state["p"]))
         self._dp.x.array.copy_(self._uq(state["dp"]))
         self._state_versions = self._versions()
 
@@ -1098,3 +1132,113 @@ class FractionalStep_AB_CN:
         ):
             logger.warning("solver did not converge: %s", self.last_stats)
         return float(self.last_stats["diff"])
+
+    # ------------------------------------------------------------------
+    # split-phase API (oasisx_tpu fracstep.py:3499-3733): one phase of a
+    # step per call, through the step's own helpers; each reads and writes
+    # the solver's Functions on its device
+    # ------------------------------------------------------------------
+    def _read_v(self, fs: list[Function]) -> torch.Tensor:
+        return self._pv(torch.stack([f.x.array for f in fs]))
+
+    def _write_v(self, fs: list[Function], arr: torch.Tensor) -> None:
+        arr = self._uv(arr)
+        for f, a in zip(fs, arr):
+            f.x.array.copy_(a)
+
+    def assemble_first(self, dt: float, nu: float) -> None:
+        """uab = 1.5 u1 - 0.5 u2, the outlet values updated, b_first into
+        ``_b_first``; keeps the step's tentative operator (W structured, the
+        element stack A_lhs general) for the solve and the dense export."""
+        for ab, f1, f2 in zip(self._uab, self._u1, self._u2):
+            ab.x.array.copy_(1.5 * f1.x.array - 0.5 * f2.x.array)
+        for bcp in self._bcs_p:
+            bcp.update_bc()
+        A, uq, b_first = self._assemble_first(self._read_v(self._u1), self._read_v(self._u2),
+                                              dt, nu, self._h_qvals())
+        self._split = (A, uq, dt, nu)
+        self._write_v(self._b_first, b_first)
+
+    def velocity_tentative_assemble(self) -> None:
+        """rhs1 = b_first + (ps, dv/dx_i) into ``_rhs1``."""
+        rhs1 = self._read_v(self._b_first) + self._pressure_gradient(self._pq(self._ps.x.array))
+        self._write_v(self._rhs1, rhs1)
+
+    def velocity_tentative_solve(self) -> tuple[float, np.ndarray]:
+        """The tentative solves from x0 = u (the JAX split phase's guess;
+        ``run`` starts from 2 u1 - u2), the BC values written into
+        ``_rhs1`` first.  Returns (diff, reasons): 2 converged, -3 not, a
+        component each."""
+        if self._split is None:
+            raise RuntimeError("call assemble_first first")
+        A, uq, dt, nu = self._split
+        bc_vals = self._bc_values()
+        rhs1 = torch.where(self._bc_masks, bc_vals, self._read_v(self._rhs1))
+        self._write_v(self._rhs1, rhs1)
+        u = self._read_v(self._u)
+        res, diff, _ = self._tentative_solve(A, self._tentative_diag(A, uq, dt, nu), rhs1,
+                                             bc_vals, u, u)
+        self._write_v(self._u, res.x)
+        return float(diff), _reasons(res.converged)
+
+    def pressure_assemble(self, dt: float) -> None:
+        """b2 = -(1/dt) (div u, q), 0 on the outlet dofs, into ``_b2``."""
+        self._split_dt = dt
+        self._b2.x.array.copy_(self._uq(self._divergence(self._read_v(self._u), dt)))
+
+    def pressure_solve(self, nu: float | None = None) -> int:
+        """dp from b2, warm-started from ``_dp``; ps = p + dp, or the
+        rotational update with ``nu`` (None: 0).  Writes ``_dp`` and
+        ``_ps``; returns 2 converged, -3 not.  The structured rotational
+        update takes (div u, q) as -dt b2 with the dt of the last
+        ``pressure_assemble``."""
+        b2, p = self._pq(self._b2.x.array), self._pq(self._p.x.array)
+        res, dp, _ = self._pressure_solve(b2, self._pq(self._dp.x.array))
+        if self._rotational:
+            if self._structured and self._split_dt is None:
+                raise RuntimeError("call pressure_assemble first")
+            _, ps, _ = self._rotational_update(p, dp, self._read_v(self._u), b2,
+                                               self._split_dt, 0.0 if nu is None else nu)
+        else:
+            ps = p + dp
+        self._dp.x.array.copy_(self._uq(dp))
+        self._ps.x.array.copy_(self._uq(ps))
+        return int(_reasons(res.converged))
+
+    def velocity_update(self, dt: float) -> np.ndarray:
+        """The velocity update of u with ``_dp``, from x0 = u (no previous
+        correction, as the JAX split phase); writes ``_u``, returns the
+        reasons a component."""
+        u = self._read_v(self._u)
+        res, _ = self._velocity_update(u, self._pq(self._dp.x.array), dt, torch.zeros_like(u))
+        self._write_v(self._u, res.x)
+        return _reasons(res.converged)
+
+    def tentative_matrix_dense(self) -> np.ndarray:
+        """The dense tentative operator of component 0 as ``assemble_first``
+        left it, BC rows zeroed with a unit diagonal, float64 on the host.
+        General path: the element stack summed.  Structured path: the step's
+        operator (K3 on W on the card, its plain version on the CPU) applied
+        to the identity columns, ``DENSE_BATCH`` a call.  Refused above
+        ``DENSE_MAX_DOFS`` dofs a component."""
+        if self._split is None:
+            raise RuntimeError("call assemble_first first")
+        n = self._Vi[0][0].num_dofs
+        if n > DENSE_MAX_DOFS:
+            raise ValueError(f"{n} dofs a component: the dense export stops at {DENSE_MAX_DOFS}")
+        A_op = self._split[0]
+        if self._structured:
+            cols = []
+            for j0 in range(0, n, DENSE_BATCH):
+                j = torch.arange(j0, min(j0 + DENSE_BATCH, n), device=self._device)
+                X = torch.zeros((len(j), self._npad_v), dtype=self._dtype, device=self._device)
+                X[torch.arange(len(j), device=self._device), self._gf_v[j]] = 1.0
+                cols.append(self._uv(kn.matvec_win(A_op, X, self._sm_v)).cpu())
+            A = torch.cat(cols).T.contiguous().double().numpy()  # column j: A e_j
+        else:
+            cd = self._ctx.cd_v.cpu().numpy()
+            A = eng.elems_to_dense(A_op.detach().cpu().double().numpy(), cd, cd, n, n)
+        bc = np.flatnonzero(bc_mask_and_values(self._bcs_u[0], n)[0])
+        A[bc, :] = 0.0
+        A[bc, bc] = 1.0
+        return A

@@ -11,7 +11,8 @@
 - 2D, float32: the pallas-wiring recipe against the JAX kernel path in
   interpret mode, at the bounds the JAX package holds its own f32 engines
   to (5e-4 on u, 5e-3 on p).
-- The port imports neither jax nor oasisx_tpu.
+- The port imports neither jax nor oasisx_tpu: the solver, its kernels,
+  ``io``, the CLI and every demo module.
 """
 
 import subprocess
@@ -198,7 +199,11 @@ def test_slice_2d_f32_matches_jax_kernel_path():
 def test_port_imports_no_jax():
     code = (
         "import sys, oasisx_tpu_torch, oasisx_tpu_torch.fracstep, "
-        "oasisx_tpu_torch.assembly.kernels, oasisx_tpu_torch._build;"
+        "oasisx_tpu_torch.assembly.kernels, oasisx_tpu_torch._build, oasisx_tpu_torch.io, "
+        "oasisx_tpu_torch.main, oasisx_tpu_torch.__main__, oasisx_tpu_torch.demo.taylor_green, "
+        "oasisx_tpu_torch.demo.taylor_green3d, oasisx_tpu_torch.demo.channel, "
+        "oasisx_tpu_torch.demo.cylinder, oasisx_tpu_torch.demo.vessel, "
+        "oasisx_tpu_torch.demo.assembly_bcs;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'oasisx_tpu')];"
         "assert not bad, bad"
     )

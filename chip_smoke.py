@@ -211,6 +211,25 @@ any failure or when there is no card.
    stack on the cylinder) to 1e-12.  A Checkpoint from the cuda solver
    loaded into cuda and cpu solvers that take 2 more steps (phase 5's
    checks), and the cpu solver's loaded back into cuda bit for bit.
+5h. GPU against CPU in float64: the structured path's tentative ksp_type
+   cg (batched CG on K3's product with identity bc rows, the loop on the
+   host) on the N=6 box, 3 steps, phase 5's checks, the u iterations and
+   host reads a step printed; config_report says "cg" without K2, and on
+   the card K3 launched and K2 not.
+4p. ``oasisx_tpu_torch.demo.assembly_strategies`` at the JAX demo's
+   defaults (3D, -n 12, degrees 1-4) in float32: "action" and "matvec"
+   agree at every degree (asserted by the demo), both timed a degree.
+4o. The steady DFG 2D-1 (``demo.cylinder --res 30 --refine-levels 2 --Um
+   0.3 -nu 1e-3 -T 2.5``, dt 2e-3: 1250 steps) in float32: Cd at T within
+   0.5% of FIDELITY.md's 5.608, its place against the band 5.5779-5.5979
+   printed; K14-K17 launched, no plain version.
+4n. ``oasisx_tpu_torch.demo.fidelity_tgv``: Taylor-Green Re=1600 on the
+   symmetry sub-box at N=32 (823,875 velocity dofs), dt 0.01 to T=10 (1000
+   steps), in float32 and in float64: each against the repository's
+   float64 curve fidelity_tgv_N32_f64.npz at FIDELITY.md's float32 bar,
+   max |dE| at most 2e-4 and the 9-point smoothed peak dissipation within
+   0.5%; steps/s, iterations and the worst exit residuals printed; every
+   structured kernel launched, no plain version.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -221,14 +240,16 @@ operator larger than the 50 MB L2 (K2's W, the A_lhs and M of K15, K16
 and K18) read once a product, the products from the iterations; each such
 operator is printed) and
 "library_ms" (one PyTorch call computing the same function: a
-torch.sparse CSR product of the assembled operator for the cube operators,
-K14 and K18, one indexing call for K8, one index_add_ for K13; null for the
+torch.sparse CSR product of the assembled operator for the cube operators
+(K3's zmask and premul folded in as row and column scaling of the batch's
+block-diagonal operator), K14 and K18, one indexing call for K8, one
+index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
 The phases run in the order 3, 4, 4g, 4i, 4k, 5, 3e, 4f, 5d, 3c, 4d, then
 the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f, 4l,
-4m, 5g.
+4m, 5g, 5h, 4p, 4o, 4n.
 Kernel, plain and library times are device times of back-to-back calls
 (``time_ms``).
 
@@ -655,8 +676,8 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
     pm = rnd(d, nv) * valid_v
     zm = solver._zmask.to(dtype)
     U = rnd(d, nl, nc)
-    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "Mq", "W", "W1", "B", "G", "Gw", "div",
-                         "scatter"))
+    lib = dict.fromkeys(("gather", "gather_q", "M", "Ap", "Mq", "W", "W1", "Wz", "Wpz", "B", "G",
+                         "Gw", "div", "scatter"))
     if library:
         iv, iq = cube_index(sm_v, device), cube_index(sm_q, device)
         xt = xv.T.contiguous()
@@ -671,12 +692,21 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
         A_B, A_G, A_Gw = mixed(B_c), mixed(G_c), mixed(Gw_c)
         A_div = stack([cube_csr(iq, iv, B_c[k].T, nq, nv, col_off=k * nv) for k in range(d)],
                       (nq, d * nv))
+        # K3 with its multipliers: the block-diagonal operator of the batch,
+        # zmask folded in as row scaling and premul as column scaling
+        r0, c0, w0, _ = cube_csr(iv, iv, W.reshape(nl, nl, nc), nv, nv)
+        folded = lambda zm_, pm_: _csr(
+            torch.cat([r0 + k * nv for k in range(d)]), torch.cat([c0 + k * nv for k in range(d)]),
+            torch.cat([w0 * zm_[k][r0] * (1.0 if pm_ is None else pm_[k][c0]) for k in range(d)]),
+            (d * nv, d * nv))
+        A_Wz, A_Wpz = folded(zm, None), folded(zm, pm)
         uflat = xv.reshape(-1)
         ivf, Uf = iv.reshape(-1), U.reshape(d, -1)
         x1 = xv[0].contiguous()
         lib = dict(gather=lambda: uab[:, iv], gather_q=lambda: xq[None][:, iq],
                    M=lambda: A_M @ xt, Ap=lambda: A_Ap @ xq, Mq=lambda: A_Mq @ xq,
-                   W=lambda: A_W @ xt, W1=lambda: A_W @ x1, B=lambda: A_B @ xq,
+                   W=lambda: A_W @ xt, W1=lambda: A_W @ x1, Wz=lambda: A_Wz @ uflat,
+                   Wpz=lambda: A_Wpz @ uflat, B=lambda: A_B @ xq,
                    G=lambda: A_G @ xq, Gw=lambda: A_Gw @ xq,
                    div=lambda: A_div @ uflat,
                    scatter=lambda: torch.zeros_like(xv).index_add_(1, ivf, Uf))
@@ -706,14 +736,14 @@ def kernel_cases(solver, dtype, device, seed: int = 0, library: bool = False, gw
         ("matvec_win", "W premul zmask",
          lambda: kn.matvec_win(W, xv, sm_v, premul=pm, zmask=zm),
          lambda: kn.matvec_win_plain(W, xv, sm_v, premul=pm, zmask=zm), valid_v,
-         (isz * (nl * nl * nc + 4 * d * nv), mv(nl, nl, d) + 2.0 * d * nv), None),
+         (isz * (nl * nl * nc + 4 * d * nv), mv(nl, nl, d) + 2.0 * d * nv), lib["Wpz"]),
         ("matvec_win", "W batch 1",
          lambda: kn.matvec_win(W, xv[:1], sm_v), lambda: kn.matvec_win_plain(W, xv[:1], sm_v),
          valid_v, (isz * (nl * nl * nc + 2 * nv), mv(nl, nl, 1)), lib["W1"]),
         ("matvec_win", "W zmask batch 3",  # the tentative solve's r0 (fracstep)
          lambda: kn.matvec_win(W, xv, sm_v, zmask=zm),
          lambda: kn.matvec_win_plain(W, xv, sm_v, zmask=zm), valid_v,
-         (isz * (nl * nl * nc + 3 * d * nv), mv(nl, nl, d) + 1.0 * d * nv), None),
+         (isz * (nl * nl * nc + 3 * d * nv), mv(nl, nl, d) + 1.0 * d * nv), lib["Wz"]),
         ("mixed", "B_c",
          lambda: kn.mixed(xq, B_c, sm_v, sm_q), lambda: kn.mixed_plain(xq, B_c, sm_v, sm_q),
          valid_v, (isz * (nq + d * nv), mv(nl, nlq, d)), lib["B"]),
@@ -2573,6 +2603,140 @@ def _loaded(solver, ck):
     return solver
 
 
+# ---------------------------------------------------------------------------
+# the fidelity runs, assembly_strategies and the structured tentative CG
+# ---------------------------------------------------------------------------
+
+FID_N, FID_DT, FID_T = 32, 0.01, 10.0  # scripts/fidelity_tgv.py's N=32 run: 1000 steps
+FID_REF = "fidelity_tgv_N32_f64.npz"  # the JAX package's float64 curve (FIDELITY.md)
+FID_MAX_DE, FID_PEAK_REL = 2e-4, 5e-3  # FIDELITY.md's float32 against float64: 1.6e-4, 0.4%
+FID_KERNELS = ("cube_gather", "matvec_const", "matvec_win", "mixed", "bicgstab", "divergence",
+               "pressure_mg", "cg_mass")
+DFG1_ARGS = ("--res", "30", "--refine-levels", "2", "--Um", "0.3", "-nu", "1e-3", "-T", "2.5")
+DFG1_CD, DFG1_CD_REL = 5.608, 5e-3  # FIDELITY.md's steady DFG 2D-1 Cd (CPU, float32)
+DFG1_BAND = (5.5779, 5.5979)  # the benchmark's interval for Cd
+STRATEGY_ARGS = ("--dim", "3", "-n", "12", "--max-degree", "4")  # the JAX demo's defaults
+
+
+def fidelity_path(device, n=FID_N, T=FID_T) -> None:
+    """Phase 4n: ``demo.fidelity_tgv`` (Taylor-Green Re=1600 on the symmetry
+    sub-box) at N=32, dt 0.01 to T=10 in float32 and in float64 on
+    ``device``, each held against ``FID_REF``: max |dE| at most
+    ``FID_MAX_DE`` and the smoothed peak dissipation within
+    ``FID_PEAK_REL``; every structured kernel launched and, on the card, no
+    plain version.  Prints steps/s, iterations and the worst exit residuals
+    of each run."""
+    import os
+
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.demo import fidelity_tgv
+
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    ref = os.path.join(root, FID_REF)
+    for dtype in ("float32", "float64"):
+        kn.reset_counts()
+        t0 = time.perf_counter()
+        npz = os.path.join(root, "build", f"chip_smoke_fidelity_tgv_N{n}_{dtype}.npz")
+        out = fidelity_tgv.main(["-N", str(n), "--dt", str(FID_DT), "--T", str(T), "--device",
+                                 str(device), "--dtype", dtype, "--compare", ref, "--out", npz])
+        wall = time.perf_counter() - t0
+        c = out["compare"]
+        counts = kn.launches if cuda else kn.plain_calls
+        print(f"[4n] fidelity_tgv N={n} {dtype}, {out['steps']} steps ({out['velocity_dofs']} "
+              f"velocity dofs): {out['steps_per_s']:.4f} steps/s, {wall:.1f} s with set-up; "
+              f"iterations a step {out['mean_iters']} (largest {out['max_iters']}), worst exit "
+              f"residuals {out['worst_exit_res']}")
+        print(f"    against {FID_REF}: max |dE| {c['max_abs_dE']:.4e} at t={c['t_max_abs_dE']:.2f} "
+              f"(bar {FID_MAX_DE:g}); smoothed peak eps {c['peak_smoothed']:.6f} at "
+              f"t={c['t_peak_smoothed']:.2f}, reference {c['ref_peak_smoothed']:.6f} at "
+              f"t={c['ref_t_peak_smoothed']:.2f}: {100 * c['peak_rel_diff']:+.4f}% (bar "
+              f"{100 * FID_PEAK_REL:g}%); E(0) {out['E0']:.9f}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for name in FID_KERNELS:
+            check(counts[name] > 0, f"[4n] {name} was not launched")
+        if cuda:
+            plain = {k: v for k, v in kn.plain_calls.items() if v}
+            check(not plain, f"[4n] plain versions ran: {plain}")
+        check(c["max_abs_dE"] <= FID_MAX_DE and abs(c["peak_rel_diff"]) <= FID_PEAK_REL,
+              f"[4n] {dtype}: max |dE| {c['max_abs_dE']:.3e}, peak "
+              f"{100 * c['peak_rel_diff']:+.3f}% against {FID_REF}")
+
+
+def dfg1_path(device, args=DFG1_ARGS) -> None:
+    """Phase 4o: ``demo.cylinder`` with the steady DFG 2D-1 settings
+    (res 30 and 2 refinement levels at the cylinder, Re=20, T=2.5, dt 2e-3:
+    1250 steps) in float32: Cd at T within ``DFG1_CD_REL`` of FIDELITY.md's
+    5.608 and its place against the benchmark's band printed; the ELL
+    kernels launched and, on the card, no plain version."""
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.demo import cylinder
+
+    cuda = torch.device(device).type == "cuda"
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    out = cylinder.main([*args, "--device", str(device)])
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = kn.launches if cuda else kn.plain_calls
+    cd, (lo, hi) = out["Cd"], DFG1_BAND
+    place = "inside" if lo <= cd <= hi else f"{cd - hi:+.4f} above" if cd > hi else \
+        f"{cd - lo:+.4f} below"
+    rel = (cd - DFG1_CD) / DFG1_CD
+    print(f"[4o] DFG 2D-1 ({' '.join(args)}), t={out['t_end']:.3f} in {wall:.1f} s with "
+          f"set-up: Cd {cd:.6f} ({100 * rel:+.4f}% against {DFG1_CD}, bar "
+          f"{100 * DFG1_CD_REL:g}%; {place} the band {lo}-{hi}), Cl {out['Cl']:.6f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name in kn.ELL_KERNELS:
+        check(counts[name] > 0, f"[4o] {name} was not launched")
+    if cuda:
+        plain = {k: v for k, v in kn.plain_calls.items() if v}
+        check(not plain, f"[4o] plain versions ran: {plain}")
+    check(abs(rel) <= DFG1_CD_REL, f"[4o] Cd {cd:.6f} is not within {DFG1_CD_REL:g} of {DFG1_CD}")
+
+
+def strategies_path(device, args=STRATEGY_ARGS) -> None:
+    """Phase 4p: ``demo.assembly_strategies`` in float32 (the agreement of
+    "action" and "matvec" asserted at every degree; the table of both
+    strategies' times a degree printed)."""
+    from oasisx_tpu_torch.demo import assembly_strategies
+
+    print(f"[4p] assembly_strategies {' '.join(args)} on {device}")
+    t0 = time.perf_counter()
+    try:
+        assembly_strategies.main([*args, "--device", str(device)])
+    except AssertionError as e:
+        raise SmokeError(f"[4p] {e}") from None
+    print(f"[4p] {time.perf_counter() - t0:.1f} s")
+
+
+def structured_cg_gpu_vs_cpu() -> None:
+    """Phase 5h: the structured path's tentative ``ksp_type`` cg (batched CG
+    on K3's product with identity bc rows, looped on the host) on the N=6
+    box, cuda against cpu in float64 (``gpu_vs_cpu``'s checks, u iterations
+    and host reads a step printed); ``config_report`` says "cg" without K2,
+    and on the card K3 launched and K2 not."""
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    def make(dtype, dev):
+        s = tgv_solver(6, dtype, dev, rtol=1e-8, tentative={"ksp_type": "cg"})
+        rep = s.config_report()
+        check(rep["tentative_method"] == "cg" and "bicgstab" not in rep["path_kernels"],
+              f"[5h] tentative {rep['tentative_method']} with {rep['path_kernels']}")
+        return s
+
+    kn.reset_counts()
+    gpu_vs_cpu(make, "N=6 ksp_type cg (structured)", pressure_pc="mg-pcg")
+    print(f"  launches on the card: matvec_win {kn.launches['matvec_win']}, bicgstab "
+          f"{kn.launches['bicgstab']}")
+    check(kn.launches["matvec_win"] > 0 and kn.launches["bicgstab"] == 0,
+          "[5h] the tentative CG did not run on K3 alone")
+
+
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
 PTX_NO_DIVISION = ("cube_ops.cu", "krylov_ops.cu")  # phase 2 fails on a 64-bit div/rem there
 
@@ -3074,6 +3238,13 @@ def main() -> int:
     t0 = time.perf_counter()
     split_gpu_vs_cpu()
     print(f"[5g] {time.perf_counter() - t0:.1f} s")
+    print("[5h] cuda against cpu: the structured path's tentative ksp_type cg")
+    t0 = time.perf_counter()
+    structured_cg_gpu_vs_cpu()
+    print(f"[5h] {time.perf_counter() - t0:.1f} s")
+    strategies_path("cuda")
+    dfg1_path("cuda")
+    fidelity_path("cuda")
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

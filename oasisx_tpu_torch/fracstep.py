@@ -68,7 +68,9 @@ pressure ``pc_type`` jacobi / none (Jacobi-CG) or any other non-AMG type
 (Chebyshev(``cheb_degree``, default 6)-Jacobi CG), and a tentative
 ``ksp_type`` cg or gmres (one component at a time): Krylov loops on the
 host around K14's products (K18's in the band layout), one host read an
-iteration.
+iteration.  On the structured path a tentative ``ksp_type`` cg is batched
+CG on K3's product with identity bc rows, looped on the host the same way;
+gmres runs batched BiCGStab there, as on the JAX package's kernel path.
 
 With ``options={"ell_layout": "band"}`` the velocity operators (A_lhs and
 M) take the band-ELL layout (``assembly/band.py``, RCM order inside a
@@ -325,7 +327,7 @@ class FractionalStep_AB_CN:
                 self._gtab = torch.as_tensor(gtab, device=self._device).to(self._dtype)
         b0 = self._body_force(body_force, el_u, el_p)
         self._b0_dev = None if b0 is None else self._pv(b0)
-        if self._structured and self._solver_u.method != "bcgs":
+        if self._structured and self._solver_u.method == "gmres":
             logger.info("the structured path's tentative solves run batched BiCGStab "
                         "(requested %s)", self._solver_u.method)
 
@@ -554,7 +556,7 @@ class FractionalStep_AB_CN:
             velocity_update="lumped" if self._lumped else self._solver_c.method,
             pressure_update="rotational" if self._rotational else "standard",
             body_force=self._b0_dev is not None,
-            tentative_method="bcgs" if self._structured else self._solver_u.method,
+            tentative_method=self._tentative_method(),
             kernels=list(kn.KERNELS),
             device=str(self._device),
             dtype=str(self._dtype).replace("torch.", ""),
@@ -564,6 +566,8 @@ class FractionalStep_AB_CN:
         unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
         if self._rotational:
             unused -= {"cg_mass", "ell_cg"}
+        if self._tentative_method() != "bcgs":  # solves on the products, looped on the host
+            unused |= {"bicgstab", "ell_bicgstab", "band_bicgstab"}
         if self._structured:
             mg = isinstance(self._pcg, PressureMGCG)
             unused.add("pressure_cg" if mg else "pressure_mg")
@@ -582,8 +586,6 @@ class FractionalStep_AB_CN:
         else:
             ev = self._ell_v
             velocity = {"K_v": ev.K, "n_v": ev.n, "nnz_v": ev.nnz}
-        if self._solver_u.method != "bcgs":  # per-component solves on the products
-            unused |= {"ell_bicgstab", "band_bicgstab"}
         if self._amg is not None:
             pressure = dict(pressure_pc="amg-pcg-fused", pressure_mg_levels=self._amg.num_levels)
         elif self._p_cheb is None:
@@ -605,6 +607,13 @@ class FractionalStep_AB_CN:
             ell_layout=self._layout,
             ell=dict(velocity, K_q=eq.K, n_q=eq.n, nnz_q=eq.nnz),
         )
+
+    def _tentative_method(self) -> str:
+        """The tentative solves' method: the ``ksp_type``'s, except GMRES on
+        the structured path, which runs BiCGStab there (as the JAX package's
+        kernel path does)."""
+        m = self._solver_u.method
+        return "bcgs" if self._structured and m == "gmres" else m
 
     # --- canonical <-> internal dof order -----------------------------------
     def _pv(self, arr: torch.Tensor) -> torch.Tensor:
@@ -687,9 +696,10 @@ class FractionalStep_AB_CN:
         rows preset to the bc values, r0 = zmask (rhs - A x0), tolerance from
         the full rhs norm, Jacobi from the full diagonal.  On the general
         path a ``ksp_type`` cg or gmres solves each component in turn
-        (``_tentative_components``).  Returns (KrylovResult, diff against u,
+        (``_tentative_components``), and on the structured path a ``ksp_type``
+        cg runs batched CG there.  Returns (KrylovResult, diff against u,
         relative exit residual)."""
-        if not self._structured and self._solver_u.method != "bcgs":
+        if self._tentative_method() != "bcgs":
             return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
         rhs = torch.where(masks, bc_vals, rhs1)
@@ -722,15 +732,26 @@ class FractionalStep_AB_CN:
         return res, diff, _rel_res(res.resnorm, bnorm)
 
     def _tentative_components(self, A, diag, rhs1, bc_vals, u, x0):
-        """The general path's tentative solves by CG or GMRES(restart), a
-        component at a time, in the JAX package's XLA formulation
-        (oasisx_tpu fracstep.py:2512-2540): identity bc rows after the
-        product, the rhs with the bc values on them, x0 as given (its bc rows
-        not preset), Jacobi with 1 on the bc rows.  The product is K14 at
-        batch 1 on A_lhs's ELL values, or K18's in the band layout, both
-        assembled once a solve; the Krylov loops run on the host (one read
-        an iteration, or an Arnoldi step)."""
+        """The tentative solves by CG or GMRES(restart) in the JAX package's
+        XLA formulation (oasisx_tpu fracstep.py:2512-2540): identity bc rows
+        after the product, the rhs with the bc values on them, x0 as given
+        (its bc rows not preset), Jacobi with 1 on the bc rows.  Structured
+        (CG only): every component at once by ``krylov.cg_batched`` on K3's
+        product at batch d, as the JAX kernel path runs it (fracstep.py:
+        2442-2453, its product ``_tentative_matvec`` :2312-2316).  General: a
+        component at a time, the product K14 at batch 1 on A_lhs's ELL
+        values, or K18's in the band layout, both assembled once a solve.
+        The Krylov loops run on the host (one read an iteration, or an
+        Arnoldi step)."""
         s, masks = self._solver_u, self._bc_masks
+        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
+        rhs = torch.where(masks, bc_vals, rhs1)
+        if self._structured:
+            mv = lambda x: eng.apply_bc_rows(masks, kn.matvec_win(A, x, self._sm_v), x)
+            res = krylov.cg_batched(mv, rhs, x0=x0, M=krylov.jacobi_preconditioner(dfull),
+                                    rtol=s.rtol, atol=s.atol, maxiter=s.maxiter)
+            diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
+            return res, diff, _rel_res(res.resnorm, torch.linalg.vector_norm(rhs, dim=-1))
         if self._layout == "band":
             bv = self._band_v
             vals = band_values(A, bv)
@@ -740,8 +761,6 @@ class FractionalStep_AB_CN:
             ev = self._ell_v
             vals = ell_values(A, ev)
             mv = lambda x: ell.ell_matvec(vals, ev.cols, ev.widths, x)
-        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
-        rhs = torch.where(masks, bc_vals, rhs1)
         out = []
         for i in range(rhs.shape[0]):
             A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, mv(x), x)

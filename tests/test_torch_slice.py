@@ -12,7 +12,7 @@
   interpret mode, at the bounds the JAX package holds its own f32 engines
   to (5e-4 on u, 5e-3 on p).
 - The port imports neither jax nor oasisx_tpu: the solver, its kernels,
-  ``io``, the CLI and every demo module.
+  ``io``, the CLI, ``utils`` and every demo module.
 """
 
 import subprocess
@@ -203,7 +203,9 @@ def test_port_imports_no_jax():
         "oasisx_tpu_torch.main, oasisx_tpu_torch.__main__, oasisx_tpu_torch.demo.taylor_green, "
         "oasisx_tpu_torch.demo.taylor_green3d, oasisx_tpu_torch.demo.channel, "
         "oasisx_tpu_torch.demo.cylinder, oasisx_tpu_torch.demo.vessel, "
-        "oasisx_tpu_torch.demo.assembly_bcs;"
+        "oasisx_tpu_torch.demo.assembly_bcs, oasisx_tpu_torch.demo.assembly_strategies, "
+        "oasisx_tpu_torch.demo.fidelity_tgv, oasisx_tpu_torch.demo.fidelity_tg3d, "
+        "oasisx_tpu_torch.utils, oasisx_tpu_torch.utils.timers;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'oasisx_tpu')];"
         "assert not bad, bad"
     )

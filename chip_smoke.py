@@ -231,6 +231,33 @@ any failure or when there is no card.
    0.5%; steps/s, iterations and the worst exit residuals printed; every
    structured kernel launched, no plain version.
 
+4q. The slab path (a ``device_mesh``: slabs of cube planes, a slab a
+   rank of a torch.distributed group, spawned by
+   ``oasisx_tpu_torch.parallel.launch``) on bench.py's problem at N=36 in
+   float32, rtol 1e-5, 5 warm-up and 25 timed steps: at world 1 (the slab
+   code with no neighbours) and over 2 ranks on the one card (gloo, planes
+   and sums through the host), and over NCCL at every card where there
+   are 2 or more.  Each rank's K3, K5, K6 and K7 per shard against their
+   plain versions on random slab vectors (1e-5 relative, halo and padding
+   0); every solve converged; each rank's launches of K3, K5, K6, K7 and
+   K8 in the timed steps all > 0 and equal across ranks, no plain call;
+   every rank's iterations equal.  Printed: steps/s, iterations a step,
+   the exchanges, sums and gathers a step, halo_traffic_report's bytes
+   per exchange, one sum's and one halo refresh's host time, and the
+   card's busy share over 5 more profiled steps.  The state after 30 steps
+   against world 1's (5e-4 u, 5e-3 p: the f32 engines' bound), and world
+   1's against the single-device path's (relative L2 0.03 u, 0.05 p at
+   N=36, 0.05 u, 0.25 p at N=64: about twice the readings; the two paths'
+   MGs and tentative x0s differ, each solve to rtol 1e-5).
+   ``--slab-only [--slab-n N --slab-world W]`` builds the kernels and runs
+   this phase alone (W: world 1 and W ranks; N 36 or 64).
+   ``--slab-gap N [N ...]`` builds the kernels and measures, at each N,
+   world 1 against the single-device path in f32 at rtol 1e-5 and f64 at
+   rtol 1e-5 and 1e-8, each state's distance from the single-device f64
+   rtol 1e-8 one (checks nothing).
+5i. GPU against CPU on the slab path: world 2 (gloo), N=6, float64, 3
+   steps: every iteration count equal, u and p to 1e-12 relative.
+
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
 and the outputs written once over 3.35 TB/s, or the operations over 67
@@ -249,7 +276,7 @@ K14/K15/K16 on the flat ELL form.
 
 The phases run in the order 3, 4, 4g, 4i, 4k, 5, 3e, 4f, 5d, 3c, 4d, then
 the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f, 4l,
-4m, 5g, 5h, 4p, 4o, 4n.
+4m, 5g, 5h, 4p, 4o, 4n, 4q, 5i.
 Kernel, plain and library times are device times of back-to-back calls
 (``time_ms``).
 
@@ -2737,6 +2764,230 @@ def structured_cg_gpu_vs_cpu() -> None:
           "[5h] the tentative CG did not run on K3 alone")
 
 
+SLAB_WORLD = 2  # phase 4q's ranks on the one card (gloo, planes through the host)
+SLAB_WORLD_BOUND = {"u": 5e-4, "p": 5e-3}  # f32 engines (ROADMAP known difference c)
+# the slab path at world 1 against the single-device one, relative L2 after
+# 5 + 25 steps in f32 at rtol 1e-5, by N: about twice the largest reading
+# on an H100 (N=36: u 1.19e-2 and 1.62e-2, p 2.43e-2 and 2.35e-2; N=64: u
+# 2.61e-2, p 0.141, its bound 1.8 times).  The two paths' MGs and tentative x0s differ (ROADMAP
+# known differences a and f) and each solve stops within rtol 1e-5; the
+# gap is that tolerance (``--slab-gap``: at f64 rtol 1e-8 it falls to u
+# 4.3e-6, p 1.7e-5 at N=36 and u 8.2e-6, p 2.5e-5 at N=64), mostly the
+# single-device path's, whose rtol-1e-5 state lies farther from the
+# converged one.  No bound at an N without readings.
+SLAB_SINGLE_BOUND = {36: {"u": 0.03, "p": 0.05}, 64: {"u": 0.05, "p": 0.25}}
+SLAB_TIMEOUT = 900.0  # a rank group's time limit (each collective: 60 s)
+SLAB_PROFILE = 5  # steps under torch.profiler after the timed ones: the device's share
+
+
+def _rel2(a, b) -> tuple[float, float]:
+    """(max, L2) relative differences."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (float(np.abs(a - b).max() / np.abs(b).max()),
+            float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+
+
+def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
+    """One group of ranks (``parallel/launch.py``) running
+    ``parallel.ranks.run_tgv``: every rank's per-shard K3, K5, K6 and K7
+    against their plain versions (f32: 1e-5 relative, halo and padding
+    slots 0), every solve converged, the velocity finite, each rank's
+    launches of K3, K5, K6, K7 and K8 after the warm-up all > 0 and equal
+    across ranks, no plain version on the path, every rank's iterations
+    equal; printed with the steps/s, iterations a step, the traffic and
+    the times of a sum over ranks and of a halo exchange.  Returns rank
+    0's result."""
+    import numpy as np
+
+    from oasisx_tpu_torch.assembly.kernels import SLAB_KERNELS
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    out = launch(ranks.run_tgv, world, (cfg,), backend=backend, timeout=SLAB_TIMEOUT)
+    r0 = out[0]
+    steps = cfg["steps"]
+    rep = r0["config"]
+    print(f"[{label}] world {world} ({backend}, {rep['device']} x{world}) N={cfg['N']}: "
+          f"{time.perf_counter() - t0:.1f} s with set-up (rank 0 {r0['setup_s']:.1f} s); "
+          f"{rep['planes_per_rank']} cube planes a rank, pressure {rep['pressure_pc']} "
+          f"({rep['pressure_mg_levels']} levels)")
+    check(rep["sharding"] == "slab-halo" and rep["ndev"] == world, f"[{label}] {rep}")
+    for r in out:
+        for name, k in r["kernels"].items():
+            print(f"  rank {r['rank']} {name} per shard on {k['shape']}: max abs err "
+                  f"{k['max_abs_err']:.3e} (rel {k['rel_err']:.3e} of {k['max_out']:.3e}), halo "
+                  f"and padding 0: {k['halo_zero']}")
+            check(k["max_out"] > 0 and k["rel_err"] <= 1e-5 and k["halo_zero"],
+                  f"[{label}] rank {r['rank']} {name}: {k}")
+        st = r["stats"]
+        for f in ("u", "p", "c"):
+            check(bool(np.all(st[f + "_converged"])), f"[{label}] rank {r['rank']}: a {f} solve "
+                  "did not converge")
+            check(np.array_equal(st[f + "_iters"], r0["stats"][f + "_iters"]),
+                  f"[{label}] rank {r['rank']}: {f} iterations differ from rank 0's")
+        used = {k: r["launches"].get(k, 0) for k in SLAB_KERNELS}
+        print(f"  rank {r['rank']} launches in {steps} steps {used}, plain calls "
+              f"{r['plain_calls']}; comm {r['comm']}")
+        check(all(v > 0 for v in used.values()), f"[{label}] rank {r['rank']}: {used}")
+        check(used == {k: r0["launches"].get(k, 0) for k in SLAB_KERNELS},
+              f"[{label}] rank {r['rank']}'s launches differ from rank 0's")
+        check(not r["plain_calls"], f"[{label}] rank {r['rank']}: plain calls {r['plain_calls']}")
+    check(bool(np.isfinite(r0["u"]).all()), f"[{label}] velocity not finite")
+    it = ranks.iters_per_step(r0["stats"])
+    tr, cm = r0["traffic"], r0["comm"]
+    print(f"[{label}] {steps} steps in {r0['wall_s']:.3f} s = {r0['steps_per_s']:.4f} steps/s; "
+          f"iterations a step u {it['u']:.3f} p {it['p']:.3f} c {it['c']:.3f}; worst exit "
+          f"residuals u {float(r0['stats']['u_res'].max()):.3e} p "
+          f"{float(r0['stats']['p_res'].max()):.3e} c {float(r0['stats']['c_res'].max()):.3e}")
+    ex = cm["shift"][0] / steps
+    sent = sum(r["comm"]["shift"][1] for r in out) / steps
+    print(f"    a step: {ex:.1f} halo exchanges, {cm['sum'][0] / steps:.1f} sums over ranks, "
+          f"{cm['gather'][0] / steps:.1f} gathers ({cm['gather'][1] / steps / 1e6:.4f} MB sent "
+          f"by rank 0); halo_traffic_report bytes_per_exchange (a plane of one component at "
+          f"every boundary) v {tr['v']['bytes_per_exchange']} q {tr['q']['bytes_per_exchange']}, "
+          f"x {ex:.1f} exchanges = {tr['v']['bytes_per_exchange'] * ex / 1e6:.4f} MB (v); "
+          f"planes sent by all ranks {sent / 1e6:.4f} MB (the velocity's 3 components "
+          f"together)")
+    print(f"    one sum over ranks {r0['sum_ms']:.4f} ms, one halo refresh of u "
+          f"{r0['halo_ms']:.4f} ms ({backend}, host clock, mean of 50)")
+    if "profile_wall_ms" in r0:
+        dev_ms = [r["profile_device_ms"] for r in out]
+        wall = max(r["profile_wall_ms"] for r in out)
+        cards = len({r["config"]["device"] for r in out})
+        busy = sum(dev_ms) / wall / cards  # ranks on one card add up
+        print(f"    profile of {r0['profile_steps']} more steps: wall {wall:.3f} ms, device time "
+              f"a rank {[round(v, 3) for v in dev_ms]} ms (NCCL's kernels apart: "
+              f"{[round(r['profile_nccl_ms'], 3) for r in out]} ms); busy share a card "
+              f"{100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%")
+    return r0
+
+
+def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
+              device: str = "cuda") -> None:
+    """Phase 4q: bench.py's configuration (N, float32, rtol 1e-5) on the
+    slab path, ``warmup`` + ``steps`` steps, at world 1 (the slab code
+    with no neighbours) and over ``SLAB_WORLD`` ranks on the one card
+    (gloo), and over NCCL at world = the card count where that is 2 or
+    more (``worlds``: [(world, backend)] in place of these); each world's
+    state against world 1's (the f32 engines' bound), and world 1's against
+    the single-device path's (the solves' tolerance).  ``device`` "cpu"
+    rehearses it (its launch checks then fail)."""
+    import numpy as np
+    import torch
+
+    ncard = torch.cuda.device_count()
+    if worlds is None:
+        worlds = [(1, "gloo"), (SLAB_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
+    cfg = dict(N=n, dtype="float32", device=device, rtol=1e-5, warmup=warmup, steps=steps,
+               check=True, time_comm=True, profile=SLAB_PROFILE)
+    runs = {}
+    for world, backend in worlds:
+        runs[(world, backend)] = slab_group("4q", world, backend, cfg)
+        torch.cuda.empty_cache()
+    base = runs.get((1, "gloo"))
+    if base is None:
+        return
+    for key, r in runs.items():
+        if key == (1, "gloo"):
+            continue
+        du, dp = _rel2(r["u"], base["u"]), _rel2(r["p"], base["p"])
+        print(f"[4q] world {key[0]} ({key[1]}) against world 1 after {warmup + steps} steps: u "
+              f"max {du[0]:.3e} L2 {du[1]:.3e}, p max {dp[0]:.3e} L2 {dp[1]:.3e} (bound "
+              f"{SLAB_WORLD_BOUND})")
+        check(du[0] <= SLAB_WORLD_BOUND["u"] and dp[0] <= SLAB_WORLD_BOUND["p"],
+              f"[4q] world {key[0]} against world 1: u {du[0]:.3e}, p {dp[0]:.3e}")
+    single = tgv_solver(n, torch.float32, device, rtol=1e-5)
+    single.run(warmup, DT, NU)
+    st = single.run(steps, DT, NU)
+    u = np.stack([f.x.array.double().cpu().numpy() for f in single._u])
+    p = single._p.x.array.double().cpu().numpy()
+    del single
+    torch.cuda.empty_cache()
+    du, dp = _rel2(base["u"], u), _rel2(base["p"], p)
+    mean = lambda k: float(st[k].reshape(steps, -1).sum(axis=1).mean())
+    bound = SLAB_SINGLE_BOUND.get(n)
+    print(f"[4q] world 1 against the single-device path (K1's MG, the kernel path's x0): u max "
+          f"{du[0]:.3e} L2 {du[1]:.3e}, p max {dp[0]:.3e} L2 {dp[1]:.3e} (L2 bound at N={n} "
+          f"{bound}); single-device iterations a step u {mean('u_iters'):.3f} p "
+          f"{mean('p_iters'):.3f} c {mean('c_iters'):.3f}")
+    check(bound is not None and du[1] <= bound["u"] and dp[1] <= bound["p"],
+          f"[4q] world 1 against the single-device path at N={n}: u {du[1]:.3e}, p {dp[1]:.3e} "
+          f"(bound {bound})")
+
+
+SLAB_GAP_CASES = (("float32", 1e-5), ("float64", 1e-5), ("float64", 1e-8))
+
+
+def slab_gap(ns, warmup: int = WARMUP, steps: int = STEPS, device: str = "cuda") -> None:
+    """The slab path at world 1 against the single-device path, as phase 4q
+    compares them, at each N of ``ns`` and each (dtype, rtol) of
+    SLAB_GAP_CASES: whether the gap shrinks with the solves' tolerance.
+    Printed: the two states' relative max and L2 differences after
+    ``warmup + steps`` steps, each one's distance from the single-device
+    float64 rtol 1e-8 run, and the iterations a step.  Measures, checks
+    nothing."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import launch
+
+    for n in ns:
+        got = {}
+        for dtype, rtol in SLAB_GAP_CASES:
+            t0 = time.perf_counter()
+            cfg = dict(N=n, dtype=dtype, device=device, rtol=rtol, warmup=warmup, steps=steps)
+            slab = launch(ranks.run_tgv, 1, (cfg,), timeout=SLAB_TIMEOUT)[0]
+            single = tgv_solver(n, getattr(torch, dtype), device, rtol=rtol)
+            single.run(warmup, DT, NU)
+            st = single.run(steps, DT, NU)
+            one = dict(u=np.stack([f.x.array.double().cpu().numpy() for f in single._u]),
+                       p=single._p.x.array.double().cpu().numpy(),
+                       iters=ranks.iters_per_step(st))
+            del single
+            torch.cuda.empty_cache()
+            got[dtype, rtol] = (slab, one)
+            du, dp = _rel2(slab["u"], one["u"]), _rel2(slab["p"], one["p"])
+            its = lambda r: " ".join(f"{k} {v:.2f}" for k, v in r.items())
+            print(f"[gap] N={n} {dtype} rtol {rtol:g}: world 1 against single-device u max "
+                  f"{du[0]:.3e} L2 {du[1]:.3e}, p max {dp[0]:.3e} L2 {dp[1]:.3e}; iterations a "
+                  f"step slab {its(ranks.iters_per_step(slab['stats']))}, single "
+                  f"{its(one['iters'])} ({time.perf_counter() - t0:.1f} s)")
+        ref = got["float64", 1e-8][1]
+        for (dtype, rtol), pair in got.items():
+            d = [(_rel2(r["u"], ref["u"])[1], _rel2(r["p"], ref["p"])[1]) for r in pair]
+            print(f"[gap] N={n} {dtype} rtol {rtol:g} against single-device float64 rtol 1e-8 "
+                  f"(L2): slab u {d[0][0]:.3e} p {d[0][1]:.3e}, single u {d[1][0]:.3e} p "
+                  f"{d[1][1]:.3e}")
+
+
+def slab_gpu_vs_cpu(n: int = 6, world: int = SLAB_WORLD, steps: int = 3,
+                    devices=("cuda", "cpu")) -> None:
+    """Phase 5i: the slab path at world 2 (gloo) on cuda and on cpu, float64,
+    N=6, rtol 1e-8, ``steps`` steps: every iteration count equal, u and p
+    to 1e-12 relative (``devices`` ("cpu", "cpu") rehearses it)."""
+    import numpy as np
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import launch
+
+    g, c = (launch(ranks.run_tgv, world, (dict(N=n, dtype="float64", device=dev, rtol=1e-8,
+                                               steps=steps),), timeout=SLAB_TIMEOUT)[0]
+            for dev in devices)
+    du, dp = _rel2(g["u"], c["u"]), _rel2(g["p"], c["p"])
+    print(f"  N={n} world {world} f64 {steps} steps: u rel diff {du[0]:.3e}, p rel diff "
+          f"{dp[0]:.3e}; launches on cuda {g['launches']}")
+    for k in ("u_iters", "p_iters", "c_iters"):
+        print(f"  {k}: cuda {g['stats'][k].tolist()} cpu {c['stats'][k].tolist()}")
+        check(np.array_equal(g["stats"][k], c["stats"][k]), f"[5i] {k} differ between cuda "
+              "and cpu")
+    check(du[0] <= 1e-12 and dp[0] <= 1e-12,
+          f"[5i] cuda and cpu disagree (u {du[0]:.3e}, p {dp[0]:.3e})")
+
+
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
 PTX_NO_DIVISION = ("cube_ops.cu", "krylov_ops.cu")  # phase 2 fails on a 64-bit div/rem there
 
@@ -2864,6 +3115,16 @@ def main() -> int:
                     help="run another checkout's chip_smoke.py with this file's time_ms")
     ap.add_argument("--band-setup", type=int, default=0, metavar="N",
                     help="only time the band layout's host set-up of the vessel at N")
+    ap.add_argument("--slab-only", action="store_true",
+                    help="only build the kernels and run phase 4q")
+    ap.add_argument("--slab-n", type=int, default=N, choices=sorted(SLAB_SINGLE_BOUND),
+                    help="phase 4q's N (default %(default)s)")
+    ap.add_argument("--slab-world", type=int, default=0,
+                    help="with --slab-only: phase 4q at world 1 and over this many ranks (NCCL, "
+                         "a card each, where the cards suffice; else gloo on one card)")
+    ap.add_argument("--slab-gap", type=int, nargs="+", metavar="N",
+                    help="only build the kernels and measure, at each N, the slab path at world "
+                         "1 against the single-device path in f32 and f64 at two tolerances")
     args = ap.parse_args()
     if args.band_setup:
         return band_setup(args.band_setup, args.tree)
@@ -2902,6 +3163,23 @@ def main() -> int:
         check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
               "remainders")
     check_tiles()
+    if args.slab_gap:
+        slab_gap(args.slab_gap)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.slab_only:
+        worlds = None
+        if args.slab_world:
+            w = args.slab_world
+            worlds = [(1, "gloo"), (w, "nccl" if torch.cuda.device_count() >= w > 1 else "gloo")]
+        t0 = time.perf_counter()
+        slab_path(n=args.slab_n, worlds=worlds)
+        print(f"[4q] {time.perf_counter() - t0:.1f} s")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # 4a. structured main-path setup (its shapes feed phase 3)
     t0 = time.perf_counter()
@@ -3245,6 +3523,14 @@ def main() -> int:
     strategies_path("cuda")
     dfg1_path("cuda")
     fidelity_path("cuda")
+    # 4q. the slab path over ranks; 5i. its cuda against cpu
+    t0 = time.perf_counter()
+    slab_path()
+    print(f"[4q] {time.perf_counter() - t0:.1f} s")
+    print("[5i] cuda against cpu: the slab path")
+    t0 = time.perf_counter()
+    slab_gpu_vs_cpu()
+    print(f"[5i] {time.perf_counter() - t0:.1f} s")
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

@@ -1,6 +1,6 @@
 """oasisx_tpu_torch: the PyTorch and CUDA port of oasisx_tpu.
 
-The single-device IPCS solver (P2/P1 Taylor-Hood): the structured path
+The IPCS solver (P2/P1 Taylor-Hood) on one device: the structured path
 (``create_box`` meshes, hand-written CUDA kernels for the cube operators and
 solves) and the general unstructured path (any simplex mesh, outlet
 pressure conditions, hand-written CUDA kernels for the ELL operators and
@@ -13,7 +13,9 @@ whole (``run``, ``solve``) or one phase at a time (the split-phase API:
 the surface traction of ``assembly.facets``, mesh import and export, VTU
 output and checkpoints (``io``, whose checkpoints the JAX package reads and
 writes too), the command line (``python -m oasisx_tpu_torch``, ``main``) and
-the demos (``python -m oasisx_tpu_torch.demo.<name>``).
+the demos (``python -m oasisx_tpu_torch.demo.<name>``).  The structured path
+also runs sharded in slabs over the ranks of a ``torch.distributed`` group
+(``device_mesh``; ``parallel/``, ``python -m oasisx_tpu_torch.parallel.ranks``).
 It imports neither jax nor oasisx_tpu; the JAX package stays the reference
 its tests compare against.
 """

@@ -266,7 +266,29 @@ def conv_uq(ops: CubeOps, uab: torch.Tensor) -> torch.Tensor:
     return ops.Phi @ cube_gather(uab, ops.sm_v)
 
 
+def conv_local(ops: CubeOps, uq: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """Cube-local action of C(uab) on cube-local values U (nl, ncube)."""
+    Q, d, nl = ops.Dg.shape
+    G = (ops.Dg.reshape(Q * d, nl) @ U).reshape(Q, d, -1)
+    dotted = torch.einsum("gqc,qgc->qc", uq, G)
+    return ops.PhiW.T @ dotted
+
+
 def conv_diag(ops: CubeOps, uq: torch.Tensor) -> torch.Tensor:
     """Assembled diagonal of C(uab)."""
     D = torch.einsum("gqc,qgt->tc", uq, ops.Ediag)
     return cube_scatter(D, ops.sm_v)
+
+
+def tentative_matvec_local(ops: CubeOps, A0_c: torch.Tensor, uq: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """y = [A0 + 1/2 C(uab)] x over one gather/scatter pair; x (npad_v,)."""
+    U = cube_gather(x, ops.sm_v)
+    return cube_scatter(A0_c @ U + 0.5 * conv_local(ops, uq, U), ops.sm_v)
+
+
+def rhs_matvec_local(ops: CubeOps, A0_c: torch.Tensor, uq: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+    """y = [A0 - 1/2 C(uab)] x, the explicit right-hand side's operator."""
+    U = cube_gather(x, ops.sm_v)
+    return cube_scatter(A0_c @ U - 0.5 * conv_local(ops, uq, U), ops.sm_v)

@@ -62,6 +62,9 @@ STRUCTURED_KERNELS = (
     "matvec_const", "matvec_win", "mixed", "divergence", "cube_gather",
     "cg_mass", "bicgstab", "pressure_mg", "pressure_cg",
 )
+# the slab-sharded structured path: the cube kernels per shard (its Krylov
+# loops run on the host, the pressure MG's level products through K12)
+SLAB_KERNELS = ("matvec_const", "matvec_win", "mixed", "divergence", "cube_gather")
 ELL_KERNELS = ("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg")
 # the general path with ell_layout="band": the velocity operators in band
 # form, the pressure solve (and its r0 product) on the flat ELL Ap

@@ -1,5 +1,5 @@
 """IPCS fractional-step Navier-Stokes solver (Adams-Bashforth convection,
-Crank-Nicolson diffusion) on PyTorch, single device.
+Crank-Nicolson diffusion) on PyTorch, on one device or sharded in slabs.
 
 Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN``.  The
 solver picks one of two paths the way the JAX package does:
@@ -93,6 +93,24 @@ u2 <- u1 <- u and p <- ps.  ``tentative_matrix_dense`` exports the kept
 operator of component 0 with its BC rows.  A split phase writes the
 Functions, so the next ``run`` rebuilds its state from them.
 
+The slab path (a ``device_mesh``; the JAX package's "slab-halo" mode,
+oasisx_tpu fracstep.py:183-230): the cube grid cut into slabs of cube
+planes along its leading axis, a slab a rank (``parallel/slab.py``); every
+operator application is halo refresh -> the kernel on the slab's own
+structured map -> halo fold (``parallel/comm.py`` over
+``torch.distributed``): W by K8 and ``build_w``, b_first by K5 and K3, the
+tentative solve batched BiCGStab (CG for a ``ksp_type`` cg) on K3 with
+identity bc rows and x0 as given, the divergence by K7, the pressure CG on
+K5/K12 preconditioned by the JAX package's XLA MG (``la/multigrid.py``) on
+the gathered grid (Chebyshev or Jacobi for other pressure ``pc_type``s),
+the velocity update batched CG on K5 with K6's gradient.  The Krylov loops
+run on the host with their reductions summed over the ranks; the lumped
+update falls back to the mass CG.  Refused with NotImplementedError
+(ROADMAP Queue 1 item 5): an unstructured mesh, a PressureBC, the
+rotational update, a leading cube count the ranks do not divide, and the
+split-phase API.  ``get_state`` / ``set_state`` use the global slab-flat
+layout; the Functions hold the canonical state on every rank.
+
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
 (general); after each call it is written into the solver's Functions.  On
@@ -169,6 +187,29 @@ def _lumped_inv(m_diag: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(m_diag))
 
 
+SLAB_ITEM = "ROADMAP Queue 1 item 5"  # the sharded modes still to port
+
+
+def _slab_refusals(mesh, bcs_p, rotational: bool, options: dict) -> None:
+    """The cases the slab path cannot serve, refused before the process
+    group is touched (the JAX package sends them to its graph-halo or
+    replicated modes, which the port does not have yet)."""
+    why = None
+    if mesh.structured is None or not options.get("structured", True):
+        why = "an unstructured mesh (the graph-halo mode)"
+    elif bcs_p:
+        why = "a PressureBC (the graph-halo mode)"
+    elif rotational:
+        why = "the rotational update (the graph-halo mode)"
+    elif not options.get("slab", True):
+        why = "options['slab'] False (the graph-halo mode)"
+    elif options.get("replicated", False):
+        why = "options['replicated'] (the replicated mode)"
+    if why is not None:
+        raise NotImplementedError(f"a device_mesh with {why} is not ported: {SLAB_ITEM}; the "
+                                  "port shards only the structured slab path")
+
+
 def _stack(outs: list, device):
     """Stack a callback's per-step outputs (tensors, numbers, or dicts /
     tuples / lists of them) along a new leading step axis."""
@@ -208,10 +249,14 @@ class FractionalStep_AB_CN:
     of the general path; ``structured``: False sends a structured mesh to
     the general path; ``pallas_pressure_pc`` and ``pallas_cheb_degree``:
     the structured path's pressure solve, above), ``dtype``,
-    ``device_mesh`` (only None: sharded solves are not ported) and the
-    ``device`` every tensor lives on (default: the card; there is no
-    fallback to the CPU).  A structured mesh without an outlet takes the
-    cube path, where ``low_memory_version`` has no counterpart.
+    ``device_mesh`` (None: one device; else the slab path over the ranks of
+    a ``torch.distributed`` group: a 1-D ``DeviceMesh``, a ``ProcessGroup``
+    or a ``parallel.comm.Comm``, each rank calling the constructor and every
+    entry point together) and the ``device`` every tensor of this rank lives
+    on (default: the card; there is no fallback to the CPU; a rank's own
+    ``cuda:{rank}`` under NCCL, the one card or the CPU under gloo).  A
+    structured mesh without an outlet takes the cube path, where
+    ``low_memory_version`` has no counterpart.
     """
 
     def __init__(
@@ -231,8 +276,7 @@ class FractionalStep_AB_CN:
         device=None,
     ):
         if device_mesh is not None:
-            raise NotImplementedError("a device_mesh (sharded solves) is not ported: ROADMAP "
-                                      "Queue 1 item 5; the port runs on one device")
+            _slab_refusals(mesh, bcs_p, rotational, options or {})
         if jit_options:
             logger.info("jit_options keys %s ignored: the port compiles its kernels ahead of "
                         "the run, nothing at run time", sorted(jit_options))
@@ -294,14 +338,21 @@ class FractionalStep_AB_CN:
             solver_options.get("scalar"), prefix="velocity_update", symmetric=True
         )
         # the lumped velocity update's table: the Q basis's reference
-        # gradients at the V reference nodes (ndv, d, ndq)
-        self._lumped = self._solver_c.lumped
+        # gradients at the V reference nodes (ndv, d, ndq); under a device_mesh
+        # the update is the mass CG (as in the JAX package)
+        self._lumped = self._solver_c.lumped and device_mesh is None
+        if self._solver_c.lumped and not self._lumped:
+            logger.info("the lumped velocity update is not available under sharding; using the "
+                        "%s mass solve", self._solver_c.method)
         gtab = el_p.tabulate(el_u.nodes)[1] if self._lumped else None
 
         # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
         self._cu = None
-        if not self._bcs_p and mesh.structured is not None and options.get("structured", True):
+        self._comm = self._slab = None
+        if device_mesh is not None:
+            self._setup_slab(device_mesh, el_u, el_p)
+        elif not self._bcs_p and mesh.structured is not None and options.get("structured", True):
             rv = build_structured_map(mesh, el_u, Vi0.dofmap)
             rq = build_structured_map(mesh, el_p, self._Q.dofmap)
             if rv is not None and rq is not None:
@@ -311,13 +362,13 @@ class FractionalStep_AB_CN:
                     device=self._device, gtab=gtab,
                 )
         self._structured = self._cu is not None
-        if self._structured:
+        if self._structured and self._slab is None:  # _setup_slab sets the slab's layout
             self._npad_v = num_padded(self._sm_v)
             self._npad_q = num_padded(self._sm_q)
             self._gf_v = torch.as_tensor(gf_v, dtype=torch.long, device=self._device)
             self._gf_q = torch.as_tensor(gf_q, dtype=torch.long, device=self._device)
             self._q_null = torch.as_tensor(valid_q, dtype=self._dtype, device=self._device)
-        else:
+        elif not self._structured:
             self._gf_v = self._gf_q = None
             self._ctx, _ = eng.build_device_context(
                 mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
@@ -331,7 +382,9 @@ class FractionalStep_AB_CN:
             logger.info("the structured path's tentative solves run batched BiCGStab "
                         "(requested %s)", self._solver_u.method)
 
-        if self._structured:
+        if self._slab is not None:
+            self._preassemble_slab(solver_options.get("pressure") or {})
+        elif self._structured:
             self._preassemble(options)
         else:
             self._preassemble_general(solver_options.get("pressure") or {})
@@ -502,6 +555,238 @@ class FractionalStep_AB_CN:
         self._p_cheb = dict(degree=deg, lmin=lmax / 30.0, lmax=lmax, lmax_estimate=est)
         logger.info("pressure Chebyshev(%d)-Jacobi preconditioner (lmax %.3g)", deg, lmax)
 
+    # ------------------------------------------------------------------
+    # the slab path (oasisx_tpu fracstep.py:183-230, 976-1042, 1765-1787)
+    # ------------------------------------------------------------------
+    def _setup_slab(self, device_mesh, el_u, el_p) -> None:
+        """Structured maps of the whole grid on every rank, cut into slabs
+        of cube planes (``parallel/slab.py``), this rank's slab tables, the
+        cube operators on the global grid (for the set-up constants) and on
+        the slab's own map (for the step)."""
+        from dataclasses import replace as dc_replace
+
+        from .parallel.comm import as_comm
+        from .parallel.slab import build_slab, local_part
+
+        comm = as_comm(device_mesh)
+        mesh, Vi0 = self._mesh, self._Vi[0][0]
+        rv = build_structured_map(mesh, el_u, Vi0.dofmap)
+        rq = build_structured_map(mesh, el_p, self._Q.dofmap)
+        if rv is None or rq is None:
+            raise NotImplementedError(f"a device_mesh on a mesh without a structured dof "
+                                      f"lattice is not ported: {SLAB_ITEM}")
+        (sv, gf_v, _), (sq, gf_q, valid_q) = rv, rq
+        try:
+            info = build_slab(sv, gf_v, sq, gf_q, comm.size)
+        except ValueError as e:
+            raise NotImplementedError(f"{e}: the replicated mode for slabs that do not divide "
+                                      f"is not ported: {SLAB_ITEM}") from None
+        cu = cub.build_cube_ops(mesh, self._refs, sv, sq, dtype=self._dtype, device=self._device)
+        if cu is None:
+            raise NotImplementedError(f"a device_mesh on a mesh without uniform cube geometry "
+                                      f"is not ported: {SLAB_ITEM}")
+        self._comm, self._slab = comm, info
+        self._cu_grid, self._sm_v_grid, self._sm_q_grid = cu, sv, sq
+        self._valid_q_grid = valid_q
+        self._sm_v, self._sm_q = info.sm_v_loc, info.sm_q_loc
+        self._cu = dc_replace(cu, sm_v=info.sm_v_loc, sm_q=info.sm_q_loc)
+        self._npad_v, self._npad_q = info.npad_v_loc, info.npad_q_loc
+        k, on = comm.rank, lambda a: torch.as_tensor(a, dtype=torch.long, device=self._device)
+        # per space, the global slab-flat position of each canonical dof
+        # ("all"), and this rank's part of it and of the grid's ("perm",
+        # "g2s": (entries, local positions))
+        self._slab_idx = {}
+        for space, perm, g2s, n in (("v", info.perm_v, info.grid_to_slab_v, info.npad_v_loc),
+                                    ("q", info.perm_q, info.grid_to_slab_q, info.npad_q_loc)):
+            self._slab_idx[space] = dict(
+                all=on(perm), n=n, perm=tuple(map(on, local_part(perm, n, k))),
+                g2s=tuple(map(on, local_part(g2s, n, k))))
+        nq = info.npad_q_loc
+        self._q_null = torch.as_tensor(info.valid_q[k * nq:(k + 1) * nq], dtype=self._dtype,
+                                       device=self._device)
+        self._gf_v = self._gf_q = None
+        logger.info("slab sharding: rank %d of %d, %d cube planes a rank, backend %s", k,
+                    comm.size, info.planes_per_dev["v"], comm.backend)
+
+    def _slab_part(self, arr: torch.Tensor, space: str, table: str = "perm") -> torch.Tensor:
+        """This rank's slab of ``arr``, halo and padding slots zero: a vector
+        in the canonical dof order (``table`` "perm") or a constant in the
+        single-device grid layout ("g2s")."""
+        ix = self._slab_idx[space]
+        sel, loc = ix[table]
+        out = torch.zeros(arr.shape[:-1] + (ix["n"],), dtype=arr.dtype, device=arr.device)
+        out[..., loc] = arr[..., sel]
+        return out
+
+    def _preassemble_slab(self, popts: dict) -> None:
+        """The slab path's constants, computed on the whole grid and moved
+        into this rank's slab (oasisx_tpu fracstep.py:1908-1935): diag(M),
+        diag(K), diag(Ap), the integration weights Mq 1, the convection
+        weight tensor, the bc masks; and the pressure preconditioner
+        (fracstep.py:592-647, 1789-1830): the XLA MG's V-cycle on the
+        gathered grid for a pressure ``pc_type`` of an MG kind (the
+        default) on a grid that coarsens, Jacobi for jacobi / none, else
+        Chebyshev(``cheb_degree``, default 6)-Jacobi with bounds from the
+        whole grid's operator."""
+        from .la.multigrid import StructuredPoissonMG
+
+        g, smv, smq = self._cu_grid, self._sm_v_grid, self._sm_q_grid
+        dev, dt = self._device, self._dtype
+        self._M_diag = self._slab_part(cub.diag_cube(g.M_c, smv), "v", "g2s")
+        self._K_diag = self._slab_part(cub.diag_cube(g.K_c, smv), "v", "g2s")
+        ap_diag_g = cub.diag_cube(g.Ap_c, smq)
+        self._Ap_diag = self._slab_part(ap_diag_g, "q", "g2s")
+        geo = compute_cell_geometry(self._mesh.x, self._mesh.cells, self._mesh.dim)
+        self._vol = float(np.sum(geo.detJ) * np.sum(self._refs.qweights))
+        valid_g = torch.as_tensor(self._valid_q_grid, dtype=dt, device=dev)
+        self._intw = self._slab_part(cub.matvec_cube(valid_g, g.Mq_c, smq), "q", "g2s")
+        self._T = torch.as_tensor(kn.conv_weight_tensor(self._cu), dtype=dt, device=dev)
+        self._bc_masks = self._bc_mask_tensor()
+        self._mg = self._p_cheb = None
+        pc = str(popts.get("pc_type", "mg")).lower()
+        structured_ok = self._Q.element.degree == 1 and min(self._mesh.structured.shape) >= 4
+        if structured_ok and pc in AMG_PC_TYPES:
+            try:
+                self._mg = StructuredPoissonMG(self._mesh, dtype=dt, device=dev)
+                self._mg_apply = self._make_mg_slab_M()
+                logger.info("pressure MG under slab sharding (gathered V-cycle): %d levels",
+                            self._mg.num_levels)
+            except ValueError as e:
+                logger.info("pressure MG disabled: %s", e)
+        if self._mg is not None or pc in ("jacobi", "none"):
+            return
+        deg = int(popts.get("cheb_degree", 6))
+        mv = lambda x: cub.matvec_cube(x, g.Ap_c, smq)
+        invd = _inv(ap_diag_g)
+        est = krylov.estimate_lmax(mv, invd)
+        lmin, lmax = krylov.validated_cheb_bounds(mv, invd, est, deg)
+        self._p_cheb = dict(degree=deg, lmin=lmin, lmax=lmax, lmax_estimate=est)
+        logger.info("pressure Chebyshev(%d)-Jacobi preconditioner (lmax %.3g)", deg, lmax)
+
+    def _make_mg_slab_M(self):
+        """The MG preconditioner on the slab (oasisx_tpu fracstep.py:
+        1765-1787): gather the ranks' slabs of the residual, one V-cycle on
+        the whole grid, this rank's slab of it back (halo slots zero)."""
+        info, comm, mg = self._slab, self._comm, self._mg
+        g2s = np.asarray(info.grid_to_slab_q)
+        npad_grid = g2s.shape[0]
+        inv = np.full(info.ndev * info.npad_q_loc, npad_grid, np.int64)
+        inv[g2s] = np.arange(npad_grid)
+        k, n = comm.rank, info.npad_q_loc
+        on = lambda a: torch.as_tensor(a, dtype=torch.long, device=self._device)
+        g2s_t, inv_row = on(g2s), on(inv[k * n:(k + 1) * n])
+
+        def M(r_loc):
+            z = mg.vcycle(comm.gather(r_loc).reshape(-1)[g2s_t])
+            return torch.cat([z, z.new_zeros(1)])[inv_row]
+
+        return M
+
+    def _slab_op(self, kernel, x, space_in: str, space_out: str):
+        from .parallel.slab import slab_apply
+
+        sm = {"v": self._sm_v, "q": self._sm_q}
+        return slab_apply(kernel, x, sm[space_in], sm[space_out], self._comm)
+
+    def _gnorm(self, v: torch.Tensor) -> torch.Tensor:
+        """The row norms of slab vectors, over all ranks."""
+        return torch.sqrt(self._comm.sum(torch.sum(v * v, dim=-1)))
+
+    def _assemble_first_slab(self, u1, u2, dt, nu):
+        """(oasisx_tpu fracstep.py:2159-2190) W per shard from the cube
+        values of the refreshed uab (K8, then ``build_w``), and b_first =
+        fold((2/dt) M u1 - A_W u1) on the refreshed u1 (K5, K3)."""
+        from .parallel.slab import halo_fold, halo_refresh
+
+        cu, sm, comm, d = self._cu, self._sm_v, self._comm, u1.shape[0]
+        nl = cu.M_c.shape[0]
+        U = kn.cube_gather(halo_refresh(1.5 * u1 - 0.5 * u2, sm, comm), sm)
+        uq = cu.Phi @ U
+        A0 = (1.0 / dt) * cu.M_c + (0.5 * nu) * cu.K_c
+        W = kn.build_w(self._T, A0, U.reshape(d * nl, -1))
+        u1f = halo_refresh(u1, sm, comm)
+        bf = (2.0 / dt) * kn.matvec_const(u1f, cu.M_c, sm) - kn.matvec_win(W, u1f, sm)
+        b_first = halo_fold(bf, sm, comm)
+        if self._b0_dev is not None:
+            b_first = b_first + self._b0_dev
+        return W, uq, b_first
+
+    def _tentative_solve_slab(self, W, diag, rhs1, bc_vals, u, x0):
+        """(oasisx_tpu fracstep.py:2442-2458) batched BiCGStab (CG for a
+        ``ksp_type`` cg) in the XLA formulation: the product K3 on the slab
+        with identity bc rows, x0 as given, Jacobi with 1 on the bc rows;
+        every reduction summed over the ranks."""
+        masks, sm, s = self._bc_masks, self._sm_v, self._solver_u
+        rhs = torch.where(masks, bc_vals, rhs1)
+        mv = lambda x: eng.apply_bc_rows(
+            masks, self._slab_op(lambda v: kn.matvec_win(W, v, sm), x, "v", "v"), x)
+        M = krylov.jacobi_preconditioner(torch.where(masks, torch.ones_like(bc_vals), diag[None]))
+        solve = krylov.cg_batched if self._tentative_method() == "cg" else \
+            krylov.bicgstab_batched
+        res = solve(mv, rhs, x0=x0, M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter,
+                    comm=self._comm)
+        diff = torch.sum(self._gnorm(res.x - u))
+        return res, diff, _rel_res(res.resnorm, self._gnorm(rhs))
+
+    def _pressure_solve_slab(self, b2, dp0):
+        """(oasisx_tpu fracstep.py:2571-2610) CG on K5/K12's slab product of
+        Ap, preconditioned by the gathered MG (or Chebyshev, or Jacobi),
+        the null space projected with the owned-dof mask, the
+        volume-weighted mean removed; every reduction over the ranks."""
+        cu, sm, s, nv = self._cu, self._sm_q, self._solver_p, self._q_null
+        mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, cu.Ap_c, sm), x, "q", "q")
+        ch = self._p_cheb
+        if self._mg is not None:
+            M = self._mg_apply
+        elif ch is not None:
+            M = krylov.chebyshev_preconditioner(mv, _inv(self._Ap_diag), ch["lmin"], ch["lmax"],
+                                                ch["degree"])
+        else:
+            M = krylov.jacobi_preconditioner(self._Ap_diag)
+        x0 = dp0 - (self._comm.sum(torch.dot(nv, dp0)) / self._comm.sum(torch.dot(nv, nv))) * nv
+        res = krylov.cg(mv, b2, x0=x0, M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter,
+                        project_nullspace=True, nullvec=nv, comm=self._comm)
+        dp = res.x - (self._comm.sum(torch.dot(self._intw, res.x)) / self._vol) * nv
+        return res, dp, _rel_res(res.resnorm, self._gnorm(b2))
+
+    def _velocity_update_slab(self, u, dp, dt, duc):
+        """(oasisx_tpu fracstep.py:2786-2806) batched Jacobi-CG on K5's slab
+        product of M from x0 = u + duc, b3 = M u - dt G dp (K6)."""
+        cu, sv, sq, sc = self._cu, self._sm_v, self._sm_q, self._solver_c
+        g = self._slab_op(lambda p: kn.mixed(p, cu.G_c, sv, sq), dp, "q", "v")
+        mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, cu.M_c, sv), x, "v", "v")
+        b3 = mv(u) - dt * g
+        res = krylov.cg_batched(mv, b3, x0=u + duc, M=krylov.jacobi_preconditioner(self._M_diag),
+                                rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
+        return res, _rel_res(res.resnorm, self._gnorm(b3))
+
+    def halo_traffic_report(self) -> dict | None:
+        """The slab halo exchange's traffic (oasisx_tpu fracstep.py:445-503):
+        per space, ``bytes_per_exchange`` is what one refresh (or one fold)
+        moves over all rank boundaries, one plane each, and ``owned_bytes``
+        the owned state, so ``ratio`` is the share communicated per operator
+        application.  None off the slab path."""
+        if self._slab is None:
+            return None
+        info, d = self._slab, self._mesh.dim
+        fb = torch.finfo(self._dtype).bits // 8
+
+        def space(sm_loc, valid):
+            pshape = sm_loc[0]
+            plane = int(np.prod(pshape)) // int(pshape[d])
+            per_ex = (info.ndev - 1) * plane * fb
+            owned = int(np.asarray(valid).sum()) * fb
+            return dict(bytes_per_exchange=per_ex, owned_bytes=owned,
+                        ratio=per_ex / max(owned, 1))
+
+        return dict(mode="slab-halo", ndev=info.ndev, v=space(info.sm_v_loc, info.valid_v),
+                    q=space(info.sm_q_loc, info.valid_q))
+
+    def _no_split(self, name: str) -> None:
+        if self._slab is not None:
+            raise NotImplementedError(f"{name} under a device_mesh (the split-phase API on the "
+                                      f"slab path) is not ported: {SLAB_ITEM}")
+
     def _pressure_matvec(self):
         """The general path's pressure operator on K14, with identity rows
         and columns on the outlet dofs where there is an outlet."""
@@ -568,6 +853,14 @@ class FractionalStep_AB_CN:
             unused -= {"cg_mass", "ell_cg"}
         if self._tentative_method() != "bcgs":  # solves on the products, looped on the host
             unused |= {"bicgstab", "ell_bicgstab", "band_bicgstab"}
+        if self._slab is not None:
+            info, mg, ch = self._slab, self._mg, self._p_cheb
+            out = dict(common, sharding="slab-halo", ndev=info.ndev, rank=self._comm.rank,
+                       backend=self._comm.backend, planes_per_rank=info.planes_per_dev["v"],
+                       path_kernels=list(kn.SLAB_KERNELS),
+                       pressure_pc="mg-pcg" if mg else "cheb-pcg" if ch else "jacobi-pcg",
+                       pressure_mg_levels=mg.num_levels if mg else 0)
+            return out if ch is None else dict(out, pressure_cheb=dict(ch))
         if self._structured:
             mg = isinstance(self._pcg, PressureMGCG)
             unused.add("pressure_cg" if mg else "pressure_mg")
@@ -618,7 +911,10 @@ class FractionalStep_AB_CN:
     # --- canonical <-> internal dof order -----------------------------------
     def _pv(self, arr: torch.Tensor) -> torch.Tensor:
         """Canonical V dof order -> the internal layout (the padded grid on
-        the structured path, padding zero; a copy on the general path)."""
+        the structured path, padding zero; this rank's slab on the slab
+        path, halo and padding zero; a copy on the general path)."""
+        if self._slab is not None:
+            return self._slab_part(arr, "v")
         if self._gf_v is None:
             return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_v,), dtype=arr.dtype, device=arr.device)
@@ -626,6 +922,8 @@ class FractionalStep_AB_CN:
         return out
 
     def _pq(self, arr: torch.Tensor) -> torch.Tensor:
+        if self._slab is not None:
+            return self._slab_part(arr, "q")
         if self._gf_q is None:
             return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_q,), dtype=arr.dtype, device=arr.device)
@@ -633,11 +931,22 @@ class FractionalStep_AB_CN:
         return out
 
     def _uv(self, arr: torch.Tensor) -> torch.Tensor:
-        """Internal layout -> canonical V dof order."""
+        """Internal layout -> canonical V dof order (on the slab path every
+        rank's slab gathered first: a collective)."""
+        if self._slab is not None:
+            return self._gathered(arr)[..., self._slab_idx["v"]["all"]]
         return arr if self._gf_v is None else arr[..., self._gf_v]
 
     def _uq(self, arr: torch.Tensor) -> torch.Tensor:
+        if self._slab is not None:
+            return self._gathered(arr)[..., self._slab_idx["q"]["all"]]
         return arr if self._gf_q is None else arr[..., self._gf_q]
+
+    def _gathered(self, arr: torch.Tensor) -> torch.Tensor:
+        """The ranks' slabs of ``arr`` in the global slab-flat layout (the
+        JAX package's internal layout on its slab path)."""
+        g = self._comm.gather(arr)  # (ndev, ..., n)
+        return g.movedim(0, -2).reshape(arr.shape[:-1] + (-1,))
 
     # ------------------------------------------------------------------
     # step phases (tensors on the solver's device, internal layout)
@@ -648,6 +957,8 @@ class FractionalStep_AB_CN:
         b_first = (2/dt) M u1 - A_W u1.  General: the element stack A_lhs
         and b_first = A_rhs u1 plus the outlet surface terms.  With a body
         force, b0 is added on either path (before the surface terms)."""
+        if self._slab is not None:
+            return self._assemble_first_slab(u1, u2, dt, nu)
         if not self._structured:
             ctx = self._ctx
             C = eng.convection_elems(ctx, 1.5 * u1 - 0.5 * u2)
@@ -676,14 +987,19 @@ class FractionalStep_AB_CN:
     def _tentative_diag(self, A, uq, dt, nu):
         if not self._structured:
             return eng.diagonal_v(self._ctx, A)
-        return (
-            (1.0 / dt) * self._M_diag
-            + (0.5 * nu) * self._K_diag
-            + 0.5 * cub.conv_diag(self._cu, uq)
-        )
+        if self._slab is not None:
+            from .parallel.slab import conv_diag_slab
+
+            conv = conv_diag_slab(self._cu, uq, self._sm_v, self._comm)
+        else:
+            conv = cub.conv_diag(self._cu, uq)
+        return (1.0 / dt) * self._M_diag + (0.5 * nu) * self._K_diag + 0.5 * conv
 
     def _pressure_gradient(self, ps):
         """The tentative right-hand side's pressure term, (d, n)."""
+        if self._slab is not None:
+            B_c, sv, sq = self._cu.B_c, self._sm_v, self._sm_q
+            return self._slab_op(lambda p: kn.mixed(p, B_c, sv, sq), ps, "q", "v")
         if self._structured:
             return kn.mixed(ps, self._cu.B_c, self._sm_v, self._sm_q)
         if self._low_memory:
@@ -699,6 +1015,8 @@ class FractionalStep_AB_CN:
         (``_tentative_components``), and on the structured path a ``ksp_type``
         cg runs batched CG there.  Returns (KrylovResult, diff against u,
         relative exit residual)."""
+        if self._slab is not None:
+            return self._tentative_solve_slab(A, diag, rhs1, bc_vals, u, x0)
         if self._tentative_method() != "bcgs":
             return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
@@ -777,6 +1095,10 @@ class FractionalStep_AB_CN:
 
     def _divergence(self, u, dt):
         """b2 = -(1/dt) assemble(div u q), 0 on the outlet dofs."""
+        if self._slab is not None:
+            B_c, sv, sq = self._cu.B_c, self._sm_v, self._sm_q
+            return (-1.0 / dt) * self._slab_op(lambda v: kn.divergence(v, B_c, sv, sq), u,
+                                               "v", "q")
         if self._structured:
             return (-1.0 / dt) * kn.divergence(u, self._cu.B_c, self._sm_v, self._sm_q)
         ctx = self._ctx
@@ -798,6 +1120,8 @@ class FractionalStep_AB_CN:
         products with the loop on the host; with the outlet mask (dp0 as it
         is), or with the nullspace (warm start demeaned, volume-weighted zero
         mean after)."""
+        if self._slab is not None:
+            return self._pressure_solve_slab(b2, dp0)
         if self._structured:
             nv = self._q_null
             x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
@@ -878,6 +1202,8 @@ class FractionalStep_AB_CN:
         with r0 = -dt G dp - M duc; or the lumped update."""
         if self._lumped:
             return self._lumped_update(u, dp, dt)
+        if self._slab is not None:
+            return self._velocity_update_slab(u, dp, dt, duc)
         sc = self._solver_c
         rtol = _effective_rtol(sc.rtol, self._dtype)
         if self._structured:
@@ -1012,26 +1338,39 @@ class FractionalStep_AB_CN:
 
     def _set_device_state(self, state: dict) -> None:
         self._state = state
-        for i in range(self._mesh.dim):
-            self._u[i].x.array.copy_(self._uv(state["u"][i]))
-            self._u1[i].x.array.copy_(self._uv(state["u1"][i]))
-            self._u2[i].x.array.copy_(self._uv(state["u2"][i]))
-        self._p.x.array.copy_(self._uq(state["p"]))
-        self._ps.x.array.copy_(self._uq(state["p"]))
-        self._dp.x.array.copy_(self._uq(state["dp"]))
+        for fs, key in ((self._u, "u"), (self._u1, "u1"), (self._u2, "u2")):
+            canon = self._uv(state[key])
+            for f, c in zip(fs, canon):
+                f.x.array.copy_(c)
+        p, dp = self._uq(state["p"]), self._uq(state["dp"])
+        self._p.x.array.copy_(p)
+        self._ps.x.array.copy_(p)
+        self._dp.x.array.copy_(dp)
         self._state_versions = self._versions()
 
     def set_state(self, state: dict) -> None:
         """Load the solver state from NumPy arrays in the internal layout
         (the grid on the structured path, the canonical dof order on the
-        general path), keyed as the JAX solver's ``_state_from_functions``:
-        u, u1, u2, p, dp, duc."""
+        general path; on the slab path the whole state in the global
+        slab-flat layout, as ``get_state`` returns it and as the JAX
+        package's slab path holds it, on every rank, which keeps its own
+        slab), keyed as the JAX solver's ``_state_from_functions``: u, u1,
+        u2, p, dp, duc."""
         t = lambda a: torch.as_tensor(np.array(a), device=self._device).to(self._dtype)
-        self._set_device_state({k: t(state[k]) for k in STATE_KEYS})
+        st = {k: t(state[k]) for k in STATE_KEYS}
+        if self._slab is not None:
+            k = self._comm.rank
+            for key, arr in st.items():
+                n = self._npad_q if key in ("p", "dp") else self._npad_v
+                st[key] = arr[..., k * n:(k + 1) * n].contiguous()
+        self._set_device_state(st)
 
     def get_state(self) -> dict:
-        """The solver state as NumPy arrays in the internal layout."""
+        """The solver state as NumPy arrays in the internal layout (on the
+        slab path the ranks' slabs gathered: a collective)."""
         st = self._state_from_functions()
+        if self._slab is not None:
+            st = {k: self._gathered(st[k]) for k in STATE_KEYS}
         return {k: st[k].detach().cpu().numpy() for k in STATE_KEYS}
 
     def _bc_values(self) -> torch.Tensor:
@@ -1169,6 +1508,7 @@ class FractionalStep_AB_CN:
         """uab = 1.5 u1 - 0.5 u2, the outlet values updated, b_first into
         ``_b_first``; keeps the step's tentative operator (W structured, the
         element stack A_lhs general) for the solve and the dense export."""
+        self._no_split("assemble_first")
         for ab, f1, f2 in zip(self._uab, self._u1, self._u2):
             ab.x.array.copy_(1.5 * f1.x.array - 0.5 * f2.x.array)
         for bcp in self._bcs_p:
@@ -1180,6 +1520,7 @@ class FractionalStep_AB_CN:
 
     def velocity_tentative_assemble(self) -> None:
         """rhs1 = b_first + (ps, dv/dx_i) into ``_rhs1``."""
+        self._no_split("velocity_tentative_assemble")
         rhs1 = self._read_v(self._b_first) + self._pressure_gradient(self._pq(self._ps.x.array))
         self._write_v(self._rhs1, rhs1)
 
@@ -1188,6 +1529,7 @@ class FractionalStep_AB_CN:
         ``run`` starts from 2 u1 - u2), the BC values written into
         ``_rhs1`` first.  Returns (diff, reasons): 2 converged, -3 not, a
         component each."""
+        self._no_split("velocity_tentative_solve")
         if self._split is None:
             raise RuntimeError("call assemble_first first")
         A, uq, dt, nu = self._split
@@ -1202,6 +1544,7 @@ class FractionalStep_AB_CN:
 
     def pressure_assemble(self, dt: float) -> None:
         """b2 = -(1/dt) (div u, q), 0 on the outlet dofs, into ``_b2``."""
+        self._no_split("pressure_assemble")
         self._split_dt = dt
         self._b2.x.array.copy_(self._uq(self._divergence(self._read_v(self._u), dt)))
 
@@ -1211,6 +1554,7 @@ class FractionalStep_AB_CN:
         ``_ps``; returns 2 converged, -3 not.  The structured rotational
         update takes (div u, q) as -dt b2 with the dt of the last
         ``pressure_assemble``."""
+        self._no_split("pressure_solve")
         b2, p = self._pq(self._b2.x.array), self._pq(self._p.x.array)
         res, dp, _ = self._pressure_solve(b2, self._pq(self._dp.x.array))
         if self._rotational:
@@ -1228,6 +1572,7 @@ class FractionalStep_AB_CN:
         """The velocity update of u with ``_dp``, from x0 = u (no previous
         correction, as the JAX split phase); writes ``_u``, returns the
         reasons a component."""
+        self._no_split("velocity_update")
         u = self._read_v(self._u)
         res, _ = self._velocity_update(u, self._pq(self._dp.x.array), dt, torch.zeros_like(u))
         self._write_v(self._u, res.x)
@@ -1240,6 +1585,7 @@ class FractionalStep_AB_CN:
         operator (K3 on W on the card, its plain version on the CPU) applied
         to the identity columns, ``DENSE_BATCH`` a call.  Refused above
         ``DENSE_MAX_DOFS`` dofs a component."""
+        self._no_split("tentative_matrix_dense")
         if self._split is None:
             raise RuntimeError("call assemble_first first")
         n = self._Vi[0][0].num_dofs

@@ -74,6 +74,23 @@ def _nz(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v != 0, v, torch.ones_like(v))
 
 
+def _reducers(comm):
+    """(dot, norm, dot_norm) of vectors, dot_norm(r, z) = (dot(r, z),
+    norm(r)): local, or summed over ``comm``'s ranks (the slab path: halo
+    and padding slots are zero, so the local sums of the ranks add up to
+    the global one; dot_norm in one sum)."""
+    if comm is None:
+        return (torch.dot, torch.linalg.vector_norm,
+                lambda r, z: (torch.dot(r, z), torch.linalg.vector_norm(r)))
+
+    def dot_norm(r, z):
+        s = comm.sum(torch.stack([torch.dot(r, z), torch.sum(r * r)]))
+        return s[0], torch.sqrt(s[1])
+
+    return (lambda a, b: comm.sum(torch.dot(a, b)),
+            lambda v: torch.sqrt(comm.sum(torch.sum(v * v))), dot_norm)
+
+
 def cg(
     A: Callable,
     b: torch.Tensor,
@@ -84,30 +101,38 @@ def cg(
     maxiter: int = 1000,
     project_nullspace: bool = False,
     nullvec: torch.Tensor | None = None,
+    comm=None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradients for an SPD operator.
 
     With ``project_nullspace`` the constant vector (or ``nullvec``) is
-    removed from b, every operator application and the final solution."""
+    removed from b, every operator application and the final solution.
+    With ``comm`` (``parallel.comm.Comm``) the vectors are a rank's slab and
+    every dot product and norm is summed over the ranks."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     rtol = _effective_rtol(rtol, b.dtype)
-    ee = None if nullvec is None else torch.dot(nullvec, nullvec)
+    dot, norm, dot_norm = _reducers(comm)
+    ee = None if nullvec is None else dot(nullvec, nullvec)
 
     def demean(v):
         if not project_nullspace:
             return v
         if nullvec is not None:
-            return v - (torch.dot(nullvec, v) / ee) * nullvec
-        return v - v.mean()
+            return v - (dot(nullvec, v) / ee) * nullvec
+        if comm is None:
+            return v - v.mean()
+        tot = comm.sum(torch.stack([torch.sum(v), torch.tensor(float(v.numel()), dtype=v.dtype,
+                                                               device=v.device)]))
+        return v - tot[0] / tot[1]
 
     b = demean(b)
-    tol = torch.clamp(rtol * torch.linalg.vector_norm(b), min=atol)
+    tol = torch.clamp(rtol * norm(b), min=atol)
     r = demean(b - A(x))
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
-    rnorm = torch.linalg.vector_norm(r)
+    rz = dot(r, z)
+    rnorm = norm(r)
     k = syncs = 0
     brk = torch.zeros((), dtype=torch.bool, device=b.device)
     while k < maxiter:
@@ -115,17 +140,16 @@ def cg(
         if not bool((rnorm > tol) & ~brk):
             break
         Ap = demean(A(p))
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         brk = brk | (pAp == 0) | (rz == 0)
         alpha = rz / _nz(pAp)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new, rnorm = dot_norm(r, z)
         beta = rz_new / _nz(rz)
         p = z + beta * p
         rz = rz_new
-        rnorm = torch.linalg.vector_norm(r)
         k += 1
     x = demean(x) if project_nullspace else x
     conv = rnorm <= tol
@@ -381,12 +405,24 @@ def validated_cheb_bounds(matvec: Callable, inv_diag: torch.Tensor, lmax: float,
     return lmax / 30.0, lmax
 
 
-def _row_norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+def _row_norm(v, comm=None):
+    return torch.sqrt(_row_dot(v, v, comm))
 
 
-def _row_dot(a, b):
-    return torch.sum(a * b, dim=-1, keepdim=True)
+def _row_dot(a, b, comm=None):
+    s = torch.sum(a * b, dim=-1, keepdim=True)
+    return s if comm is None else comm.sum(s)
+
+
+def _row_dots(a, b1, b2, comm=None):
+    """(_row_dot(a, b1), _row_dot(a, b2)), in one sum over the ranks (the
+    same values as two)."""
+    s1 = torch.sum(a * b1, dim=-1, keepdim=True)
+    s2 = torch.sum(a * b2, dim=-1, keepdim=True)
+    if comm is None:
+        return s1, s2
+    s = comm.sum(torch.stack([s1, s2]))
+    return s[0], s[1]
 
 
 def cg_batched(
@@ -397,17 +433,19 @@ def cg_batched(
     rtol: float = 1e-10,
     atol: float = 1e-50,
     maxiter: int = 1000,
+    comm=None,
 ) -> KrylovResult:
-    """Preconditioned CG on k systems at once: b, x0 of shape (k, n)."""
+    """Preconditioned CG on k systems at once: b, x0 of shape (k, n); with
+    ``comm`` each row's reductions are summed over the ranks."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     rtol = _effective_rtol(rtol, b.dtype)
-    tol = torch.clamp(rtol * _row_norm(b), min=atol)
+    tol = torch.clamp(rtol * _row_norm(b, comm), min=atol)
     r = b - A(x)
     z = M(r)
     p = z
-    rz = _row_dot(r, z)
-    rnorm = _row_norm(r)
+    rz = _row_dot(r, z, comm)
+    rnorm = _row_norm(r, comm)
     iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     k = syncs = 0
     while k < maxiter:
@@ -416,17 +454,18 @@ def cg_batched(
             break
         active = rnorm > tol
         Ap = A(p)
-        pAp = _row_dot(p, Ap)
+        pAp = _row_dot(p, Ap, comm)
         alpha = torch.where(active, rz / _nz(pAp), torch.zeros_like(rz))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.where(active, _row_dot(r, z), rz)
+        rz_r, rr = _row_dots(r, z, r, comm)
+        rz_new = torch.where(active, rz_r, rz)
         beta = torch.where(active, rz_new / _nz(rz), torch.zeros_like(rz))
         p = torch.where(active, z + beta * p, p)
         iters = iters + active[..., 0].to(torch.int32)
         rz = rz_new
-        rnorm = _row_norm(r)
+        rnorm = torch.sqrt(rr)
         k += 1
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)
 
@@ -439,17 +478,19 @@ def bicgstab_batched(
     rtol: float = 1e-10,
     atol: float = 1e-50,
     maxiter: int = 1000,
+    comm=None,
 ) -> KrylovResult:
-    """Preconditioned BiCGStab on k systems at once: b, x0 of shape (k, n)."""
+    """Preconditioned BiCGStab on k systems at once: b, x0 of shape (k, n);
+    with ``comm`` each row's reductions are summed over the ranks."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     rtol = _effective_rtol(rtol, b.dtype)
-    tol = torch.clamp(rtol * _row_norm(b), min=atol)
+    tol = torch.clamp(rtol * _row_norm(b, comm), min=atol)
     r = b - A(x)
     rhat = r
-    rho = _row_dot(rhat, r)
+    rho = _row_dot(rhat, r, comm)
     p = r
-    rnorm = _row_norm(r)
+    rnorm = _row_norm(r, comm)
     iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     k = syncs = 0
@@ -460,20 +501,21 @@ def bicgstab_batched(
         active = rnorm > tol
         phat = M(p)
         v = A(phat)
-        rv = _row_dot(rhat, v)
+        rv = _row_dot(rhat, v, comm)
         alpha = rho / _nz(rv)
         s = r - alpha * v
         shat = M(s)
         t = A(shat)
-        tt = _row_dot(t, t)
-        omega = _row_dot(t, s) / _nz(tt)
+        tt, ts = _row_dots(t, t, s, comm)
+        omega = ts / _nz(tt)
         x = x + torch.where(active, alpha * phat + omega * shat, zero)
         r = torch.where(active, s - omega * t, r)
-        rho_new = torch.where(active, _row_dot(rhat, r), rho)
+        rho_r, rr = _row_dots(r, rhat, r, comm)
+        rho_new = torch.where(active, rho_r, rho)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = torch.where(active, r + beta * (p - omega * v), p)
         iters = iters + active[..., 0].to(torch.int32)
         rho = rho_new
-        rnorm = _row_norm(r)
+        rnorm = torch.sqrt(rr)
         k += 1
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)

@@ -12,7 +12,8 @@
   interpret mode, at the bounds the JAX package holds its own f32 engines
   to (5e-4 on u, 5e-3 on p).
 - The port imports neither jax nor oasisx_tpu: the solver, its kernels,
-  ``io``, the CLI, ``utils`` and every demo module.
+  ``io``, the CLI, ``utils``, every demo module, the slab path's
+  ``parallel`` modules and ``la.multigrid``.
 """
 
 import subprocess
@@ -205,7 +206,9 @@ def test_port_imports_no_jax():
         "oasisx_tpu_torch.demo.cylinder, oasisx_tpu_torch.demo.vessel, "
         "oasisx_tpu_torch.demo.assembly_bcs, oasisx_tpu_torch.demo.assembly_strategies, "
         "oasisx_tpu_torch.demo.fidelity_tgv, oasisx_tpu_torch.demo.fidelity_tg3d, "
-        "oasisx_tpu_torch.utils, oasisx_tpu_torch.utils.timers;"
+        "oasisx_tpu_torch.utils, oasisx_tpu_torch.utils.timers, oasisx_tpu_torch.parallel.slab, "
+        "oasisx_tpu_torch.parallel.comm, oasisx_tpu_torch.parallel.launch, "
+        "oasisx_tpu_torch.parallel.ranks, oasisx_tpu_torch.la.multigrid;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'oasisx_tpu')];"
         "assert not bad, bad"
     )

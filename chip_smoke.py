@@ -390,7 +390,9 @@ def operator_bytes(label: str, nbytes: float, products: int) -> float:
 def deform_vessel(mesh):
     """Vessel-style deformation of a box mesh (taper, bulge, curved
     centerline), as bench.py's unstructured mode makes it; marks the mesh
-    unstructured."""
+    unstructured.  ``parallel.ranks.deform_vessel`` for the ranks; this
+    copy imports no package, so that ``--band-setup N --tree DIR`` loads
+    only the other checkout's."""
     import numpy as np
 
     x = mesh.x.copy()
@@ -467,35 +469,13 @@ def cylinder_facets(mesh):
 def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3,
                     rotational: bool = False):
     """The DFG cylinder channel with a parabolic inflow, no-slip walls and
-    cylinder, and a PressureBC(0) outlet (tests/test_ell_wiring.py's
-    set-up); the inflow's peak ``um()`` (default 0.3, as demo/cylinder.py),
-    read each time the boundary values are evaluated; ``rotational`` goes
-    to the solver."""
-    import numpy as np
+    cylinder, and a PressureBC(0) outlet (``parallel.ranks.cylinder_solver``,
+    tests/test_ell_wiring.py's set-up); the inflow's peak ``um()`` (default
+    0.3, as demo/cylinder.py), read each time the boundary values are
+    evaluated; ``rotational`` goes to the solver."""
+    from oasisx_tpu_torch.parallel.ranks import cylinder_solver as build
 
-    from oasisx_tpu_torch import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
-    from oasisx_tpu_torch.meshes import (create_cylinder_channel, locate_entities_boundary,
-                                         meshtags)
-
-    mesh = create_cylinder_channel(res)
-    L, H = 2.2, 0.41
-    inlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 0.0))
-    outlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], L))
-    others = np.setdiff1d(mesh.exterior_facet_indices(), np.hstack([inlet, outlet]))
-    facets = np.hstack([inlet, others, outlet])
-    values = np.hstack([np.full_like(inlet, 1), np.full_like(others, 2),
-                        np.full_like(outlet, 3)]).astype(np.int32)
-    tags = meshtags(mesh, 1, facets, values)
-    inflow = lambda x: 4.0 * um() * x[1] * (H - x[1]) / H**2
-    T = LocatorMethod.TOPOLOGICAL
-    bcs_u = [[DirichletBC(inflow, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))],
-             [DirichletBC(0.0, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))]]
-    opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
-    return FractionalStep_AB_CN(
-        mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[PressureBC(0.0, (tags, 3))],
-        solver_options={"tentative": dict(opts), "pressure": dict(opts), "scalar": dict(opts)},
-        rotational=rotational, dtype=dtype, device=device,
-    )
+    return build(res, dtype, device, rtol, um=um, rotational=rotational)
 
 
 def _sync(device) -> None:
@@ -2988,6 +2968,264 @@ def slab_gpu_vs_cpu(n: int = 6, world: int = SLAB_WORLD, steps: int = 3,
           f"[5i] cuda and cpu disagree (u {du[0]:.3e}, p {dp[0]:.3e})")
 
 
+HALO_WORLD = 2  # phase 4r's ranks on the one card (gloo)
+HALO_TIMEOUT = 900.0  # a rank group's time limit (each collective: 60 s)
+HALO_PROFILE = 5  # steps under torch.profiler after the timed ones
+HALO_BAND_N = 12  # the vessel of phase 4r's band-layout group
+HALO_CYL_RES = 30  # the cylinder of phase 4r-prime
+# phase 4r's state gaps after 5 + 25 steps in f32 at rtol 1e-5, relative L2:
+# world 2 against world 1, and world 1 against phase 4b's single-device
+# path (K15 / K17's fused solves, the kernel path's x0: ROADMAP known
+# differences f and h).  About twice the first readings on an H100 (PERF.md
+# section 6: u 3.979e-6, p 1.019e-4; u 1.085e-2, p 3.254e-2).
+HALO_WORLD_BOUND = {"u": 8e-6, "p": 2e-4}
+HALO_SINGLE_BOUND = {"u": 0.022, "p": 0.065}
+
+
+def halo_group(world: int, backend: str, runs: list, kres: dict | None = None) -> list:
+    """One group of ranks running ``parallel.ranks.halo_checks`` on the
+    cfgs of ``runs`` [(phase label, cfg)], one after another (one spawn and
+    set-up of the group for all), each reported by ``halo_run``.  Returns
+    rank 0's result of each."""
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    out = launch(ranks.halo_checks, world, (None, [cfg for _, cfg in runs]), backend=backend,
+                 timeout=HALO_TIMEOUT)
+    print(f"[{runs[0][0]}] a group of {world} ({backend}) for {len(runs)} run(s): "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+    return [halo_run(label, world, backend, cfg, [o["runs"][i] for o in out], kres)
+            for i, (label, cfg) in enumerate(runs)]
+
+
+def halo_run(label: str, world: int, backend: str, cfg: dict, out: list,
+             kres: dict | None = None) -> dict:
+    """One run of ``parallel.ranks.run_halo`` (``out``: every rank's
+    result): every rank's per-shard K14 (K18 under the band layout)
+    against its plain version between the halo refresh and fold (f32:
+    1e-5 relative, halo and sentinel slots exactly 0), every solve
+    converged, the velocity finite, the path's kernels launched on every
+    rank in the timed steps with the same count on every rank, no plain
+    version, every rank's iterations equal; printed with the steps/s,
+    iterations a step, exchanges, sums and gathers a step, the traffic,
+    the partition, a halo refresh's and a sum's host ms, the set-up and
+    other seconds by part and the card's busy share.  With ``kres`` each
+    rank's timed per-shard cases join the kernel records.  Returns rank
+    0's result, with its seconds on rank 0 (``seconds``: set-up and
+    parts)."""
+    import numpy as np
+
+    from oasisx_tpu_torch.parallel import ranks
+
+    r0 = out[0]
+    steps = cfg["steps"]
+    rep = r0["config"]
+    r0["seconds"] = r0["setup_s"] + sum(r0["times"].values())
+    size = (f"N={cfg['N']}" if cfg["problem"] == "vessel" else f"res={cfg['res']}"
+            + (" rotational" if cfg.get("rotational") else ""))
+    print(f"[{label}] {cfg['problem']} {size} {rep['ell_layout']}, world {world} ({backend}, "
+          f"{rep['device']} x{world}): {r0['seconds']:.1f} s on rank 0 with set-up; pressure "
+          f"{rep['pressure_pc']} ({rep['pressure_mg_levels']} levels); partition "
+          f"{rep['partitioner']}; cells a rank {[r['config']['cells'] for r in out]}")
+    check(rep["sharding"] == "graph-halo" and rep["ndev"] == world, f"[{label}] {rep}")
+    for r in out:
+        parts = " ".join(f"{k} {v:.2f}" for k, v in {**r["setup_parts"], **r["times"]}.items())
+        print(f"  rank {r['rank']} set-up {r['setup_s']:.1f} s ({parts})")
+        for name, k in r.get("kernels", {}).items():
+            t = (f"; kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
+                 f"{k['library_ms']:.4f} ms, bound {bound(k['bytes'], k['flops'])['bound_ms']:.4f}"
+                 f" ms" if "ms" in k else "")
+            print(f"  rank {r['rank']} {name} per shard on {k['shape']}: max abs err "
+                  f"{k['max_abs_err']:.3e} (rel {k['rel_err']:.3e} of {k['max_out']:.3e}), halo "
+                  f"and sentinel 0: {k['halo_zero']}{t}")
+            check(k["max_out"] > 0 and k["rel_err"] <= 1e-5 and k["halo_zero"],
+                  f"[{label}] rank {r['rank']} {name}: {k}")
+            if kres is not None and "ms" in k:
+                kname, case = name.split(" ", 1)
+                kres.setdefault(kname, []).append(dict(
+                    case=f"per shard {case} batch {k['shape'][0] if len(k['shape']) == 2 else 1} "
+                         f"{cfg['problem']} {size} {rep['ell_layout']} rank {r['rank']} of "
+                         f"{world}",
+                    max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+                    **bound(k["bytes"], k["flops"]), library_ms=k["library_ms"]))
+        st = r["stats"]
+        for f in ("u", "p", "c") + (("rot",) if "rot_iters" in st else ()):
+            check(bool(np.all(st[f + "_converged"])), f"[{label}] rank {r['rank']}: a {f} solve "
+                  "did not converge")
+            check(np.array_equal(st[f + "_iters"], r0["stats"][f + "_iters"]),
+                  f"[{label}] rank {r['rank']}: {f} iterations differ from rank 0's")
+        used = {k: r["launches"].get(k, 0) for k in rep["path_kernels"]}
+        print(f"  rank {r['rank']} launches in {steps} steps {used}, plain calls "
+              f"{r['plain_calls']}; comm {r['comm']}")
+        check(all(v > 0 for v in used.values()), f"[{label}] rank {r['rank']}: {used}")
+        check(used == {k: r0["launches"].get(k, 0) for k in rep["path_kernels"]},
+              f"[{label}] rank {r['rank']}'s launches differ from rank 0's")
+        check(not r["plain_calls"], f"[{label}] rank {r['rank']}: plain calls {r['plain_calls']}")
+    check(bool(np.isfinite(r0["u"]).all()), f"[{label}] velocity not finite")
+    it = ranks.iters_per_step(r0["stats"])
+    tr, cm = r0["traffic"], r0["comm"]
+    print(f"[{label}] {steps} steps in {r0['wall_s']:.3f} s = {r0['steps_per_s']:.4f} steps/s; "
+          f"iterations a step u {it['u']:.3f} p {it['p']:.3f} c {it['c']:.3f}; worst exit "
+          f"residuals u {float(r0['stats']['u_res'].max()):.3e} p "
+          f"{float(r0['stats']['p_res'].max()):.3e} c {float(r0['stats']['c_res'].max()):.3e}")
+    print(f"    a step: {cm['shift'][0] / steps:.1f} exchange rounds, {cm['sum'][0] / steps:.1f} "
+          f"sums over ranks, {cm['gather'][0] / steps:.1f} gathers; bytes sent a step by rank 0: "
+          f"{cm['shift'][1] / steps / 1e6:.4f} MB halo, {cm['sum'][1] / steps / 1e6:.4f} MB sums")
+    print(f"    halo_traffic_report: {tr}")
+    if "sum_ms" in r0:
+        print(f"    one sum over ranks {r0['sum_ms']:.4f} ms, one halo refresh of u "
+              f"{r0['halo_ms']:.4f} ms ({backend}, host clock, mean of 50)")
+    if "profile_wall_ms" in r0:
+        dev_ms = [r["profile_device_ms"] for r in out]
+        wall = max(r["profile_wall_ms"] for r in out)
+        cards = len({r["config"]["device"] for r in out})
+        busy = sum(dev_ms) / wall / cards  # ranks on one card add up
+        print(f"    profile of {r0['profile_steps']} more steps: wall {wall:.3f} ms, device time "
+              f"a rank {[round(v, 3) for v in dev_ms]} ms (NCCL's kernels apart: "
+              f"{[round(r['profile_nccl_ms'], 3) for r in out]} ms); busy share a card "
+              f"{100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%")
+    r0["launch_counts"] = {k: r0["launches"].get(k, 0) for k in rep["path_kernels"]}
+    return r0
+
+
+def _gap(label: str, a: dict, b: dict, what: str, bound_: dict | None) -> None:
+    du, dp = _rel2(a["u"], b["u"]), _rel2(a["p"], b["p"])
+    print(f"[{label}] {what}: u max {du[0]:.3e} L2 {du[1]:.3e}, p max {dp[0]:.3e} L2 "
+          f"{dp[1]:.3e} (L2 bound {bound_})")
+    if bound_ is not None:
+        check(du[1] <= bound_["u"] and dp[1] <= bound_["p"],
+              f"[{label}] {what}: u {du[1]:.3e}, p {dp[1]:.3e} (bound {bound_})")
+
+
+def halo_path(single: dict | None, kres: dict | None = None, n: int = N, warmup: int = WARMUP,
+              steps: int = STEPS, worlds=None, device: str = "cuda", band_n: int = HALO_BAND_N,
+              cyl_res: int = HALO_CYL_RES, cyl_steps: tuple = (5, 10)) -> dict:
+    """Phases 4r and 4r'.  4r: bench.py's unstructured configuration (the
+    vessel at N, float32, rtol 1e-5, low_memory_version False) on the
+    graph-halo path, ``warmup`` + ``steps`` steps, at world 1, over
+    ``HALO_WORLD`` ranks on the one card (gloo) and over NCCL at world =
+    the card count where that is 2 or more (``worlds``: [(world, backend)]
+    in place of these); at world 2 the per-shard kernels timed and 5 steps
+    profiled, then the band layout (the vessel at ``band_n``, K18 per
+    shard, 3 steps).  The state gaps: world 2 against world 1, world 1
+    against ``single`` (phase 4b's u and p after the same steps; None: not
+    compared).  4r', in the world-2 group: the DFG cylinder at ``cyl_res``
+    with its PressureBC(0) outlet and the rotational update, ``cyl_steps``
+    (warm-up, timed) steps.  Returns {"counts": each run's launch counts,
+    "cylinder_s": the 4r' run's seconds on rank 0}."""
+    import torch
+
+    ncard = torch.cuda.device_count()
+    if worlds is None:
+        worlds = [(1, "gloo"), (HALO_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
+    cfg = dict(problem="vessel", N=n, dtype="float32", device=device, rtol=1e-5, warmup=warmup,
+               steps=steps, dt=DT, nu=NU, check=True, time_comm=True)
+    band = dict(cfg, N=band_n, warmup=1, steps=3, time_comm=False,
+                options={"ell_layout": "band"}, time_kernels=True)
+    cyl = dict(problem="cylinder", res=cyl_res, rotational=True, dtype="float32",
+               device=device, rtol=1e-5, warmup=cyl_steps[0], steps=cyl_steps[1], check=True)
+    vessels, out = {}, {"counts": {}}
+    for world, backend in worlds:
+        runs = [("4r", cfg)]
+        if world == HALO_WORLD and backend == "gloo":
+            runs = [("4r", dict(cfg, profile=HALO_PROFILE, time_kernels=True)), ("4r", band),
+                    ("4r'", cyl)]
+        res = halo_group(world, backend, runs, kres)
+        vessels[(world, backend)] = res[0]
+        for (label, c), r in zip(runs, res):
+            what = ("cylinder" if c["problem"] == "cylinder" else
+                    f"vessel N={c['N']} {(c.get('options') or {}).get('ell_layout', 'ell')}")
+            out["counts"][f"{what} world {world} {backend}"] = r["launch_counts"]
+            if label == "4r'":
+                print(f"[4r'] rotational iterations a step "
+                      f"{float(r['stats']['rot_iters'].mean()):.3f}")
+                out["cylinder_s"] = r["seconds"]
+        torch.cuda.empty_cache()
+    base = vessels.get((1, "gloo"))
+    for key, r in vessels.items():
+        if base is not None and key != (1, "gloo"):
+            _gap("4r", r, base, f"world {key[0]} ({key[1]}) against world 1 after "
+                 f"{warmup + steps} steps", HALO_WORLD_BOUND)
+    if base is not None and single is not None:
+        _gap("4r", base, single, "world 1 against phase 4b's single-device path",
+             HALO_SINGLE_BOUND)
+    return out
+
+
+def halo_gpu_vs_cpu(world: int = HALO_WORLD, steps: int = 3, devices=("cuda", "cpu")) -> None:
+    """Phase 5j: the graph-halo path at world 2 (gloo) on cuda and on cpu,
+    float64, rtol 1e-12, ``steps`` steps, on the res=10 cylinder (outlet,
+    rotational) and the vessel at N=6: every iteration count equal, u and p
+    to 1e-12 relative; the card's run against the port's single-device
+    general path on the card to 1e-8 (``devices`` ("cpu", "cpu")
+    rehearses it)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import start
+
+    cfgs = [dict(cfg, dtype="float64", rtol=1e-12, steps=steps)
+            for cfg in (dict(problem="cylinder", res=10, rotational=True),
+                        dict(problem="vessel", N=6, dt=DT, nu=NU))]
+    # the two devices' groups at once (the CPU group leaves the card to the other)
+    runs = lambda dev: (None, [dict(c, device=dev) for c in cfgs])
+    with start(ranks.halo_checks, world, runs(devices[0])) as ga, \
+            start(ranks.halo_checks, world, runs(devices[1])) as gc:
+        gs, cs = ga.join(HALO_TIMEOUT)[0]["runs"], gc.join(HALO_TIMEOUT)[0]["runs"]
+    for cfg, g, c in zip(cfgs, gs, cs):
+        label = f"{cfg['problem']} " + (f"res={cfg['res']}" if "res" in cfg else f"N={cfg['N']}")
+        du, dp = _rel2(g["u"], c["u"]), _rel2(g["p"], c["p"])
+        print(f"  {label} world {world} f64 {steps} steps: u rel diff {du[0]:.3e}, p rel diff "
+              f"{dp[0]:.3e}; launches on {devices[0]} {g['launches']}")
+        for k in ("u_iters", "p_iters", "c_iters"):
+            print(f"  {k}: {devices[0]} {g['stats'][k].tolist()} {devices[1]} "
+                  f"{c['stats'][k].tolist()}")
+            check(np.array_equal(g["stats"][k], c["stats"][k]), f"[5j] {label}: {k} differ "
+                  "between the devices")
+        check(du[0] <= 1e-12 and dp[0] <= 1e-12,
+              f"[5j] {label}: the devices disagree (u {du[0]:.3e}, p {dp[0]:.3e})")
+        single = ranks.halo_solver(cfg, torch.float64, devices[0])
+        single.run(steps, cfg.get("dt", ranks.CYL_DT), cfg.get("nu", ranks.CYL_NU))
+        one = dict(u=np.stack([f.x.array.double().cpu().numpy() for f in single._u]),
+                   p=single._p.x.array.double().cpu().numpy())
+        du, dp = _rel2(g["u"], one["u"]), _rel2(g["p"], one["p"])
+        print(f"  {label}: world {world} against the single-device general path: u rel diff "
+              f"{du[0]:.3e}, p rel diff {dp[0]:.3e}")
+        check(du[0] <= 1e-8 and dp[0] <= 1e-8, f"[5j] {label}: world {world} against the "
+              f"single-device path (u {du[0]:.3e}, p {dp[0]:.3e})")
+        del single
+        torch.cuda.empty_cache()
+
+
+def _state(solver) -> dict:
+    """A solver's u (d, n) and p on the host, float64."""
+    import numpy as np
+
+    return dict(u=np.stack([f.x.array.double().cpu().numpy() for f in solver._u]),
+                p=solver._p.x.array.double().cpu().numpy())
+
+
+def halo_phases(single: dict | None, kres: dict, worlds=None) -> None:
+    """Phases 4r, 4r' and 5j, each one's seconds printed, and K14's and
+    K18's launches in each 4r / 4r' group's timed steps."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = halo_path(single, kres, worlds=worlds)
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"[4r] {took - res.get('cylinder_s', 0.0):.1f} s; [4r'] {res.get('cylinder_s', 0.0):.1f} "
+          "s (its run in 4r's world-2 group)")
+    for k, v in res["counts"].items():
+        print(f"  launches in the timed steps, {k}, rank 0: {v}")
+    print("[5j] cuda against cpu: the graph-halo path")
+    t0 = time.perf_counter()
+    halo_gpu_vs_cpu()
+    print(f"[5j] {time.perf_counter() - t0:.1f} s")
+
+
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
 PTX_NO_DIVISION = ("cube_ops.cu", "krylov_ops.cu")  # phase 2 fails on a 64-bit div/rem there
 
@@ -3122,6 +3360,12 @@ def main() -> int:
     ap.add_argument("--slab-world", type=int, default=0,
                     help="with --slab-only: phase 4q at world 1 and over this many ranks (NCCL, "
                          "a card each, where the cards suffice; else gloo on one card)")
+    ap.add_argument("--halo-only", action="store_true",
+                    help="only build the kernels and run phases 4r, 4r' and 5j (with the "
+                         "single-device vessel run that 4r compares with)")
+    ap.add_argument("--halo-world", type=int, default=0,
+                    help="with --halo-only: phase 4r at world 1 and over this many ranks (NCCL, "
+                         "a card each, where the cards suffice; else gloo on one card)")
     ap.add_argument("--slab-gap", type=int, nargs="+", metavar="N",
                     help="only build the kernels and measure, at each N, the slab path at world "
                          "1 against the single-device path in f32 and f64 at two tolerances")
@@ -3150,15 +3394,19 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"[1] card: {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, and the PTX of phase 2's division count compiled meanwhile
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _build.library()
-    print(f"[2] build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds})")
-    if _build.build_log.strip():
-        print(_build.build_log.strip())
-    t0 = time.perf_counter()
-    divs = ptx_divisions({"this": os.path.dirname(os.path.abspath(__file__))})["this"]
-    print(f"[2] 64-bit integer div/rem in the PTX: {divs} ({time.perf_counter() - t0:.1f} s)")
+    with ThreadPoolExecutor(1) as pool:
+        ptx = pool.submit(ptx_divisions, {"this": os.path.dirname(os.path.abspath(__file__))})
+        _build.library()
+        print(f"[2] build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds})")
+        if _build.build_log.strip():
+            print(_build.build_log.strip())
+        divs = ptx.result()["this"]
+    print(f"[2] 64-bit integer div/rem in the PTX: {divs} ({time.perf_counter() - t0:.1f} s with "
+          "the build)")
     for src in PTX_NO_DIVISION:
         check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
               "remainders")
@@ -3166,6 +3414,25 @@ def main() -> int:
     if args.slab_gap:
         slab_gap(args.slab_gap)
         print(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.halo_only:
+        worlds = None
+        if args.halo_world:
+            w = args.halo_world
+            worlds = [(1, "gloo"), (w, "nccl" if torch.cuda.device_count() >= w > 1 else "gloo")]
+        t0 = time.perf_counter()
+        vessel = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True)
+        res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
+        single = _state(vessel)
+        del vessel
+        torch.cuda.empty_cache()
+        print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {STEPS} steps "
+              f"({time.perf_counter() - t0:.1f} s with set-up)")
+        halo_phases(single, {}, worlds)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
     if args.slab_only:
         worlds = None
@@ -3375,6 +3642,7 @@ def main() -> int:
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
     report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, {}, steps_log)
     base4b = res["launches"]
+    single4b = _state(vessel)  # phase 4r's single-device reference
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
     for k, v in res["launches"].items():
@@ -3531,6 +3799,8 @@ def main() -> int:
     t0 = time.perf_counter()
     slab_gpu_vs_cpu()
     print(f"[5i] {time.perf_counter() - t0:.1f} s")
+    # 4r, 4r', 5j. the graph-halo path over ranks
+    halo_phases(single4b, kres)
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

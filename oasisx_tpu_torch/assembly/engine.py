@@ -17,6 +17,13 @@ floating-point atomics in an order that changes between runs.
 Every function takes a leading batch of vectors where the JAX one takes
 one: ``gather_v(ctx, x)`` for x of shape (..., ndofs_v) gives
 (..., ncells, ndv), and ``scatter_v`` the reverse.
+
+Under the graph-halo mode (``parallel/sharding.py``) a context holds one
+rank's cells, its dof vectors are the rank's ``[owned | halo | sentinel]``
+blocks, and ``halo_v`` / ``halo_q`` (``graph.HaloRounds``) with ``comm``
+are set: a gather refreshes the halo slots first, a scatter folds the
+halo contributions into their owners after (zeroing the halo), and a
+scalar integral is summed over the ranks, as in the JAX package's engine.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from ..elements.element import FiniteElement
 from ..meshes.mesh import Mesh
+from ..parallel.graph import halo_fold, halo_refresh
 from .geometry import compute_cell_geometry
 from .reference_tensors import ReferenceTensors, build_reference_tensors
 
@@ -61,6 +69,10 @@ class DeviceContext:
     ndofs_v: int
     ndofs_q: int
     dim: int
+    # the graph-halo mode: this rank's exchange of each space and its Comm
+    halo_v: object = None
+    halo_q: object = None
+    comm: object = None
 
 
 def build_transpose_map(cell_dofs: np.ndarray, num_dofs: int) -> np.ndarray:
@@ -91,8 +103,12 @@ def build_device_context(
     dtype: torch.dtype,
     device: torch.device,
     qdegree: int | None = None,
+    cells: np.ndarray | None = None,
 ) -> tuple[DeviceContext, ReferenceTensors]:
-    geo = compute_cell_geometry(mesh.x, mesh.cells, mesh.dim)
+    """The context of the mesh's cells, or of the cells ``cells`` (indices,
+    in that order) with ``cd_v`` / ``cd_q`` their dofmap rows."""
+    geo = compute_cell_geometry(mesh.x, mesh.cells if cells is None else mesh.cells[cells],
+                                mesh.dim)
     refs = build_reference_tensors(el_v, el_q, qdegree)
     a = lambda x: torch.as_tensor(np.asarray(x, np.float64), device=device).to(dtype)
     i = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
@@ -140,19 +156,25 @@ def transpose_scatter(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def scatter_v(ctx: DeviceContext, vals: torch.Tensor) -> torch.Tensor:
     """Per-cell V-local values (..., nc, ndv) -> dof vectors (..., ndofs_v)."""
-    return transpose_scatter(vals, ctx.pos_v)
+    y = transpose_scatter(vals, ctx.pos_v)
+    return y if ctx.halo_v is None else halo_fold(y, ctx.halo_v, ctx.comm)
 
 
 def scatter_q(ctx: DeviceContext, vals: torch.Tensor) -> torch.Tensor:
-    return transpose_scatter(vals, ctx.pos_q)
+    y = transpose_scatter(vals, ctx.pos_q)
+    return y if ctx.halo_q is None else halo_fold(y, ctx.halo_q, ctx.comm)
 
 
 def gather_v(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
     """Dof vectors (..., ndofs_v) -> per-cell local values (..., nc, ndv)."""
+    if ctx.halo_v is not None:
+        x = halo_refresh(x, ctx.halo_v, ctx.comm)
     return x[..., ctx.cd_v]
 
 
 def gather_q(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:
+    if ctx.halo_q is not None:
+        x = halo_refresh(x, ctx.halo_q, ctx.comm)
     return x[..., ctx.cd_q]
 
 
@@ -329,14 +351,18 @@ def div_v_at_qp(ctx: DeviceContext, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _total(ctx: DeviceContext, t: torch.Tensor) -> torch.Tensor:
+    return t if ctx.comm is None else ctx.comm.sum(t)
+
+
 def integrate(ctx: DeviceContext, vals_qp: torch.Tensor) -> torch.Tensor:
     """Integral over the mesh of a quantity given at quadrature points."""
-    return torch.einsum("cq,q,c->", vals_qp, ctx.qw, ctx.detJ)
+    return _total(ctx, torch.einsum("cq,q,c->", vals_qp, ctx.qw, ctx.detJ))
 
 
 def cell_volume_total(ctx: DeviceContext) -> torch.Tensor:
     """assemble(1 * dx)."""
-    return torch.sum(ctx.detJ) * torch.sum(ctx.qw)
+    return _total(ctx, torch.sum(ctx.detJ) * torch.sum(ctx.qw))
 
 
 # ---------------------------------------------------------------------------

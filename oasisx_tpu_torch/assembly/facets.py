@@ -24,6 +24,7 @@ from ..elements.element import FiniteElement
 from ..elements.nodes import REFERENCE_VERTICES
 from ..elements.quadrature import quadrature
 from ..meshes.mesh import CELL_FACETS, Mesh
+from ..parallel.graph import halo_fold, halo_refresh
 from .engine import DeviceContext, build_transpose_map, transpose_scatter
 
 
@@ -132,11 +133,13 @@ def pressure_surface_vecs(
     re = torch.einsum("f,fg,fbg,fbj->gfj", fctx.scale, fctx.normal, Kc, core)
     out = re.new_zeros((re.shape[0], ctx.ndofs_v))
     out[:, fctx.dofs_v] = transpose_scatter(re, fctx.pos_v)
-    return out
+    return out if ctx.halo_v is None else halo_fold(out, ctx.halo_v, ctx.comm)
 
 
 def facet_eval_q(ctx: DeviceContext, fctx: FacetContext, p: torch.Tensor) -> torch.Tensor:
     """Values of a Q-function at the facet quadrature points: (nf, nqf)."""
+    if ctx.halo_q is not None:
+        p = halo_refresh(p, ctx.halo_q, ctx.comm)
     pe = p[ctx.cd_q[fctx.cells]]  # (nf, m)
     phi = fctx.phi_q[fctx.local]  # (nf, nqf, m)
     return torch.einsum("fqm,fm->fq", phi, pe)

@@ -173,11 +173,16 @@ class PressureBC:
             raise RuntimeError("create_bcs must be called first")
         return self._dofs_q
 
-    def value_at_facet_qp(self, ctx) -> torch.Tensor:
-        """The outlet value h at the facet quadrature points: (nf, nqf)."""
-        f = self.facet_context
+    def value_at_facet_qp(self, ctx, fctx: FacetContext | None = None,
+                          local=None) -> torch.Tensor:
+        """The outlet value h at the facet quadrature points: (nf, nqf).
+        ``fctx`` (default: this condition's) and ``local`` (the map of a
+        canonical Q vector into ``ctx``'s dof layout) give a rank's facets
+        under graph-halo."""
+        f = self.facet_context if fctx is None else fctx
         if self._u is not None:
-            return facet_eval_q(ctx, f, self._u.x.array)
+            h = self._u.x.array
+            return facet_eval_q(ctx, f, h if local is None else local(h))
         v = self._value.value if isinstance(self._value, Constant) else self._value
         return torch.full((f.nfacets, f.qw.shape[0]), float(v), dtype=f.scale.dtype,
                           device=f.scale.device)

@@ -105,11 +105,34 @@ K5/K12 preconditioned by the JAX package's XLA MG (``la/multigrid.py``) on
 the gathered grid (Chebyshev or Jacobi for other pressure ``pc_type``s),
 the velocity update batched CG on K5 with K6's gradient.  The Krylov loops
 run on the host with their reductions summed over the ranks; the lumped
-update falls back to the mass CG.  Refused with NotImplementedError
-(ROADMAP Queue 1 item 5): an unstructured mesh, a PressureBC, the
-rotational update, a leading cube count the ranks do not divide, and the
-split-phase API.  ``get_state`` / ``set_state`` use the global slab-flat
-layout; the Functions hold the canonical state on every rank.
+update falls back to the mass CG.
+
+The graph-halo path (a ``device_mesh`` in every other case, as in the JAX
+package, oasisx_tpu fracstep.py:266-304: an unstructured mesh, a
+PressureBC, the rotational update, ``options["slab"]`` False, a structured
+mesh without a dof lattice or uniform cube geometry, or a leading cube count
+the ranks do not divide): the general element path on one cell block a rank
+(``parallel/sharding.py``), dof vectors in the rank's ``[owned | halo |
+sentinel]`` layout.  The engine's gathers refresh the halo and its scatters
+fold it; every operator product is halo refresh -> K14 (K18 for the
+velocity operators under ``ell_layout`` "band") on the rank's local ELL
+operator -> halo fold (``_halo_apply``), its values assembled from the
+element stack once a solve.  The tentative solves batched BiCGStab or CG
+on the batch-d product with identity bc rows and x0 as given (GMRES a
+component at a time), the pressure CG on Ap (outlet rows masked)
+preconditioned by the distributed AMG (the fine level per rank, the
+restriction summed over the ranks, the coarse levels on every rank), the
+AMG on the gathered residual where level 0 does not coarsen or with
+``amg_distributed`` False, Chebyshev-Jacobi or Jacobi; the velocity update
+batched CG on M, the rotational update CG on Mq.  The Krylov loops run on
+the host, their reductions summed over the ranks.
+
+On both sharded paths ``get_state`` / ``set_state`` use the ranks' layouts
+stacked in rank order (the JAX package's internal layout), and the
+Functions hold the canonical state on every rank.  Refused with
+NotImplementedError (ROADMAP Queue 1 item 5): ``options["replicated"]``,
+and the split-phase API and ``tentative_matrix_dense`` under a
+``device_mesh``.
 
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
@@ -124,6 +147,7 @@ per iteration.  ``last_stats["host_syncs"]`` counts those reads per step;
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -139,7 +163,7 @@ from .assembly.structured import build_structured_map, num_padded
 from .bcs import DirichletBC, PressureBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
-from .assembly.band import band_values, build_band_assembly
+from .assembly.band import BandAssembly, band_values, build_band_assembly
 from .la import band, ell, fused, krylov
 from .la.amg import AlgebraicMG, amg_kernel_data, amg_widths, coo_from_elems
 from .la.krylov import _effective_rtol
@@ -147,7 +171,8 @@ from .la.pressure_cg import PressureCG
 from .la.pressure_mg import PressureMGCG
 from .la.solver import KSPSolver
 from .meshes.mesh import Mesh
-from .parallel.graph import build_ell_assembly, ell_values
+from .parallel.graph import build_ell_assembly, ell_values, halo_fold, halo_refresh
+from .parallel.sharding import local_facets, shard_problem_halo
 from .spaces.functionspace import Function, FunctionSpace
 
 __all__ = ["FractionalStep_AB_CN"]
@@ -187,27 +212,7 @@ def _lumped_inv(m_diag: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(m_diag))
 
 
-SLAB_ITEM = "ROADMAP Queue 1 item 5"  # the sharded modes still to port
-
-
-def _slab_refusals(mesh, bcs_p, rotational: bool, options: dict) -> None:
-    """The cases the slab path cannot serve, refused before the process
-    group is touched (the JAX package sends them to its graph-halo or
-    replicated modes, which the port does not have yet)."""
-    why = None
-    if mesh.structured is None or not options.get("structured", True):
-        why = "an unstructured mesh (the graph-halo mode)"
-    elif bcs_p:
-        why = "a PressureBC (the graph-halo mode)"
-    elif rotational:
-        why = "the rotational update (the graph-halo mode)"
-    elif not options.get("slab", True):
-        why = "options['slab'] False (the graph-halo mode)"
-    elif options.get("replicated", False):
-        why = "options['replicated'] (the replicated mode)"
-    if why is not None:
-        raise NotImplementedError(f"a device_mesh with {why} is not ported: {SLAB_ITEM}; the "
-                                  "port shards only the structured slab path")
+SHARD_ITEM = "ROADMAP Queue 1 item 5"  # the sharded features still to port
 
 
 def _stack(outs: list, device):
@@ -275,8 +280,9 @@ class FractionalStep_AB_CN:
         device_mesh=None,
         device=None,
     ):
-        if device_mesh is not None:
-            _slab_refusals(mesh, bcs_p, rotational, options or {})
+        if device_mesh is not None and (options or {}).get("replicated", False):
+            raise NotImplementedError(f"a device_mesh with options['replicated'] (the replicated "
+                                      f"mode) is not ported: {SHARD_ITEM}")
         if jit_options:
             logger.info("jit_options keys %s ignored: the port compiles its kernels ahead of "
                         "the run, nothing at run time", sorted(jit_options))
@@ -325,6 +331,8 @@ class FractionalStep_AB_CN:
         self._bcs_p = list(bcs_p)
         for bcp in self._bcs_p:
             bcp.create_bcs(Vi0, self._Q, dtype=self._dtype, device=self._device)
+        # the outlets' facet tables (under graph-halo: this rank's facets)
+        self._fctxs = [bcp.facet_context for bcp in self._bcs_p]
 
         # --- solvers ---------------------------------------------------------
         solver_options = solver_options or {}
@@ -349,9 +357,13 @@ class FractionalStep_AB_CN:
         # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
         self._cu = None
-        self._comm = self._slab = None
+        self._comm = self._slab = self._halo = None
         if device_mesh is not None:
-            self._setup_slab(device_mesh, el_u, el_p)
+            from .parallel.comm import as_comm
+
+            comm = as_comm(device_mesh)
+            if not self._setup_slab(comm, el_u, el_p, options):
+                self._setup_halo(comm, el_u, el_p, options)
         elif not self._bcs_p and mesh.structured is not None and options.get("structured", True):
             rv = build_structured_map(mesh, el_u, Vi0.dofmap)
             rq = build_structured_map(mesh, el_p, self._Q.dofmap)
@@ -370,10 +382,11 @@ class FractionalStep_AB_CN:
             self._q_null = torch.as_tensor(valid_q, dtype=self._dtype, device=self._device)
         elif not self._structured:
             self._gf_v = self._gf_q = None
-            self._ctx, _ = eng.build_device_context(
-                mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
-                self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device,
-            )
+            if self._halo is None:
+                self._ctx, _ = eng.build_device_context(
+                    mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
+                    self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device,
+                )
             if self._lumped:
                 self._gtab = torch.as_tensor(gtab, device=self._device).to(self._dtype)
         b0 = self._body_force(body_force, el_u, el_p)
@@ -431,10 +444,15 @@ class FractionalStep_AB_CN:
             if callable(fi):
                 if xq is None:
                     xq = padded_coordinates(quadrature_points(self._mesh, qdeg)[2])
-                b0.append(eng.source_load_vec_v(ctx, on(fi(xq))))
+                vals = np.asarray(fi(xq))
+                if self._halo is not None:  # this rank's cells, in block order
+                    vals = vals[self._halo.cells]
+                b0.append(eng.source_load_vec_v(ctx, on(vals)))
             else:
                 b0.append(eng.constant_load_vec(ctx, float(fi)))
         b0 = torch.stack(b0)
+        if self._halo is not None:
+            b0 = self._uv(b0)
         for f, b in zip(self._b0, b0):
             f.x.array.copy_(b)
         return b0
@@ -509,32 +527,39 @@ class FractionalStep_AB_CN:
         pmask = np.zeros(nq, dtype=bool)
         for bcp in self._bcs_p:
             pmask[bcp.dofs] = True
-        self._pbc_mask = torch.as_tensor(pmask, device=dev) if self._bcs_p else None
+        self._pbc_mask = self._pq(torch.as_tensor(pmask, device=dev)) if self._bcs_p else None
         if not self._low_memory:
             pg = eng.pressure_gradient_mats(ctx)  # (d, nc, ndv, ndq)
             self._p_vdxi = pg
             self._divu = pg.transpose(2, 3)
             self._grad_p = eng.grad_p_mats(ctx)
 
-        Vi0 = self._Vi[0][0]
         # the constant operators' values, assembled once here: the JAX
-        # package assembles them again in every solve, to the same values
+        # package assembles them again in every solve, to the same values.
+        # The tables of the rank's local operators under graph-halo (nloc
+        # rows, the local cell dofmaps)
+        cd_v, nv = ctx.cd_v.cpu().numpy(), ctx.ndofs_v
         if self._layout == "band":
-            self._band_v = build_band_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
+            self._band_v = build_band_assembly(cd_v, nv, dev)
             self._M_vals = band_values(self._M_elems, self._band_v)
             self._M_invd_b = band.to_band(self._M_invd, self._band_v, fill=1.0)
         else:
-            self._ell_v = build_ell_assembly(Vi0.dofmap.cell_dofs, Vi0.num_dofs, dev)
+            self._ell_v = build_ell_assembly(cd_v, nv, dev)
             self._M_vals = ell_values(self._M_elems, self._ell_v)
-        self._ell_q = build_ell_assembly(self._Q.dofmap.cell_dofs, nq, dev)
+        self._ell_q = build_ell_assembly(ctx.cd_q.cpu().numpy(), ctx.ndofs_q, dev)
         self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
         # the rotational update's Mq in ELL form and its Jacobi (no outlet rows)
         self._Mq_vals = ell_values(c["Mq"], self._ell_q) if self._rotational else None
         self._Mq_invd = _inv(eng.diagonal_q(ctx, c["Mq"])) if self._rotational else None
-        self._amg = self._p_cheb = None
+        self._amg = self._p_cheb = self._amg_M = None
         pc = str(popts.get("pc_type", "amg")).lower()
         if pc in AMG_PC_TYPES:
+            t0 = time.perf_counter()
             self._amg = self._build_amg(popts, pmask)
+            if self._halo is not None:
+                self._amg_M = self._make_amg_halo_M(bool(popts.get("amg_distributed", True)))
+                self._halo.times["amg_s"] = time.perf_counter() - t0
+                return
             self._amg_data = amg_kernel_data(self._amg)
             self._amg_widths = amg_widths(self._amg)
             return
@@ -550,6 +575,8 @@ class FractionalStep_AB_CN:
             return
         deg = int(popts.get("cheb_degree", 6))
         mv, invd = self._pressure_matvec(), _inv(ap_diag)
+        if self._halo is not None:  # on the whole operator, as the JAX package
+            mv, invd = self._global_pressure_operator(pmask)
         est = krylov.estimate_lmax(mv, invd)
         lmax = krylov.validated_cheb_bounds(mv, invd, est, deg)[1]
         self._p_cheb = dict(degree=deg, lmin=lmax / 30.0, lmax=lmax, lmax_estimate=est)
@@ -558,33 +585,36 @@ class FractionalStep_AB_CN:
     # ------------------------------------------------------------------
     # the slab path (oasisx_tpu fracstep.py:183-230, 976-1042, 1765-1787)
     # ------------------------------------------------------------------
-    def _setup_slab(self, device_mesh, el_u, el_p) -> None:
+    def _setup_slab(self, comm, el_u, el_p, options: dict) -> bool:
         """Structured maps of the whole grid on every rank, cut into slabs
         of cube planes (``parallel/slab.py``), this rank's slab tables, the
         cube operators on the global grid (for the set-up constants) and on
-        the slab's own map (for the step)."""
+        the slab's own map (for the step).  False, with nothing set, where
+        the JAX package sends the case to graph-halo (oasisx_tpu
+        fracstep.py:187-223, 268): no structured mesh, ``structured`` or
+        ``slab`` False, a PressureBC, the rotational update, no dof lattice,
+        slabs that do not divide, or no uniform cube geometry."""
         from dataclasses import replace as dc_replace
 
-        from .parallel.comm import as_comm
         from .parallel.slab import build_slab, local_part
 
-        comm = as_comm(device_mesh)
         mesh, Vi0 = self._mesh, self._Vi[0][0]
+        if (mesh.structured is None or self._bcs_p or self._rotational
+                or not options.get("structured", True) or not options.get("slab", True)):
+            return False
         rv = build_structured_map(mesh, el_u, Vi0.dofmap)
         rq = build_structured_map(mesh, el_p, self._Q.dofmap)
         if rv is None or rq is None:
-            raise NotImplementedError(f"a device_mesh on a mesh without a structured dof "
-                                      f"lattice is not ported: {SLAB_ITEM}")
+            return False
         (sv, gf_v, _), (sq, gf_q, valid_q) = rv, rq
         try:
             info = build_slab(sv, gf_v, sq, gf_q, comm.size)
         except ValueError as e:
-            raise NotImplementedError(f"{e}: the replicated mode for slabs that do not divide "
-                                      f"is not ported: {SLAB_ITEM}") from None
+            logger.info("slab sharding unavailable (%s); graph-halo path", e)
+            return False
         cu = cub.build_cube_ops(mesh, self._refs, sv, sq, dtype=self._dtype, device=self._device)
         if cu is None:
-            raise NotImplementedError(f"a device_mesh on a mesh without uniform cube geometry "
-                                      f"is not ported: {SLAB_ITEM}")
+            return False
         self._comm, self._slab = comm, info
         self._cu_grid, self._sm_v_grid, self._sm_q_grid = cu, sv, sq
         self._valid_q_grid = valid_q
@@ -595,10 +625,10 @@ class FractionalStep_AB_CN:
         # per space, the global slab-flat position of each canonical dof
         # ("all"), and this rank's part of it and of the grid's ("perm",
         # "g2s": (entries, local positions))
-        self._slab_idx = {}
+        self._shard_idx = {}
         for space, perm, g2s, n in (("v", info.perm_v, info.grid_to_slab_v, info.npad_v_loc),
                                     ("q", info.perm_q, info.grid_to_slab_q, info.npad_q_loc)):
-            self._slab_idx[space] = dict(
+            self._shard_idx[space] = dict(
                 all=on(perm), n=n, perm=tuple(map(on, local_part(perm, n, k))),
                 g2s=tuple(map(on, local_part(g2s, n, k))))
         nq = info.npad_q_loc
@@ -607,12 +637,40 @@ class FractionalStep_AB_CN:
         self._gf_v = self._gf_q = None
         logger.info("slab sharding: rank %d of %d, %d cube planes a rank, backend %s", k,
                     comm.size, info.planes_per_dev["v"], comm.backend)
+        return True
 
-    def _slab_part(self, arr: torch.Tensor, space: str, table: str = "perm") -> torch.Tensor:
-        """This rank's slab of ``arr``, halo and padding slots zero: a vector
-        in the canonical dof order (``table`` "perm") or a constant in the
-        single-device grid layout ("g2s")."""
-        ix = self._slab_idx[space]
+    def _setup_halo(self, comm, el_u, el_p, options: dict) -> None:
+        """The graph-halo decomposition (oasisx_tpu fracstep.py:276-304):
+        this rank's cells, both spaces' exchange tables, its element
+        context in the local layout, its outlet facets; the local
+        positions of the canonical dofs it owns."""
+        from .parallel.slab import local_part
+
+        Vi0 = self._Vi[0][0]
+        sh = shard_problem_halo(comm, self._mesh, el_u, Vi0.dofmap.cell_dofs, el_p,
+                                self._Q.dofmap.cell_dofs, self._dtype, self._device,
+                                partitioner=options.get("partitioner", "multilevel"))
+        self._comm, self._halo, self._ctx = comm, sh, sh.ctx
+        self._fctxs = [local_facets(bcp.facet_context, sh) for bcp in self._bcs_p]
+        on = lambda a: torch.as_tensor(a, dtype=torch.long, device=self._device)
+        self._shard_idx = {}
+        for space, hx in (("v", sh.hx_v), ("q", sh.hx_q)):
+            self._shard_idx[space] = dict(all=on(hx.perm), n=hx.nloc,
+                                          perm=tuple(map(on, local_part(hx.perm, hx.nloc,
+                                                                        sh.rank))))
+        self._npad_v, self._npad_q = sh.hx_v.nloc, sh.hx_q.nloc
+        self._q_null = sh.rounds_q.ownmask
+        logger.info("graph-halo sharding: rank %d of %d, %d cells, nloc_v=%d (halo %d), "
+                    "nloc_q=%d, partition %s, backend %s", sh.rank, sh.ndev, len(sh.cells),
+                    sh.hx_v.nloc, sh.hx_v.nloc - sh.hx_v.owned_pad - 1, sh.hx_q.nloc,
+                    sh.partition.get("name"), comm.backend)
+
+    def _shard_part(self, arr: torch.Tensor, space: str, table: str = "perm") -> torch.Tensor:
+        """This rank's part of ``arr`` in its local layout, halo and padding
+        slots zero: a vector in the canonical dof order (``table`` "perm")
+        or, on the slab path, a constant in the single-device grid layout
+        ("g2s")."""
+        ix = self._shard_idx[space]
         sel, loc = ix[table]
         out = torch.zeros(arr.shape[:-1] + (ix["n"],), dtype=arr.dtype, device=arr.device)
         out[..., loc] = arr[..., sel]
@@ -632,14 +690,14 @@ class FractionalStep_AB_CN:
 
         g, smv, smq = self._cu_grid, self._sm_v_grid, self._sm_q_grid
         dev, dt = self._device, self._dtype
-        self._M_diag = self._slab_part(cub.diag_cube(g.M_c, smv), "v", "g2s")
-        self._K_diag = self._slab_part(cub.diag_cube(g.K_c, smv), "v", "g2s")
+        self._M_diag = self._shard_part(cub.diag_cube(g.M_c, smv), "v", "g2s")
+        self._K_diag = self._shard_part(cub.diag_cube(g.K_c, smv), "v", "g2s")
         ap_diag_g = cub.diag_cube(g.Ap_c, smq)
-        self._Ap_diag = self._slab_part(ap_diag_g, "q", "g2s")
+        self._Ap_diag = self._shard_part(ap_diag_g, "q", "g2s")
         geo = compute_cell_geometry(self._mesh.x, self._mesh.cells, self._mesh.dim)
         self._vol = float(np.sum(geo.detJ) * np.sum(self._refs.qweights))
         valid_g = torch.as_tensor(self._valid_q_grid, dtype=dt, device=dev)
-        self._intw = self._slab_part(cub.matvec_cube(valid_g, g.Mq_c, smq), "q", "g2s")
+        self._intw = self._shard_part(cub.matvec_cube(valid_g, g.Mq_c, smq), "q", "g2s")
         self._T = torch.as_tensor(kn.conv_weight_tensor(self._cu), dtype=dt, device=dev)
         self._bc_masks = self._bc_mask_tensor()
         self._mg = self._p_cheb = None
@@ -760,16 +818,208 @@ class FractionalStep_AB_CN:
                                 rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
         return res, _rel_res(res.resnorm, self._gnorm(b3))
 
+    # ------------------------------------------------------------------
+    # the graph-halo path (oasisx_tpu fracstep.py:1044-1234, 1640-1763,
+    # 2459-2540, 2620-2765, 2943-2953)
+    # ------------------------------------------------------------------
+    def _halo_apply(self, vals, asm, x, space: str):
+        """refresh -> K14 on the rank's local ELL operator (K18 on a band
+        one) -> fold: a global operator application in the local layout."""
+        hr = self._halo.rounds_v if space == "v" else self._halo.rounds_q
+        x = halo_refresh(x, hr, self._comm)
+        if isinstance(asm, BandAssembly):
+            y = band.from_band(band.band_matvec(vals, *asm.tables, band.to_band(x, asm)), asm)
+        else:
+            y = ell.ell_matvec(vals, asm.cols, asm.widths, x)
+        return halo_fold(y, hr, self._comm)
+
+    def _velocity_op(self, elems):
+        """(values, tables) of a velocity-space element stack in the
+        layout's form: ELL, or band under ``ell_layout`` "band"."""
+        if self._layout == "band":
+            return band_values(elems, self._band_v), self._band_v
+        return ell_values(elems, self._ell_v), self._ell_v
+
+    def _global_pressure_operator(self, pmask: np.ndarray):
+        """(K14's product of the whole pressure Laplacian with identity
+        outlet rows and columns, its Jacobi inverse diagonal, 1 on the
+        outlet rows): the single-device operator, on which the graph-halo
+        path estimates the Chebyshev bounds at set-up (oasisx_tpu
+        fracstep.py:1826-1850)."""
+        Vi0, Q = self._Vi[0][0], self._Q
+        ctx, _ = eng.build_device_context(
+            self._mesh, Vi0.element, Vi0.dofmap.cell_dofs, Vi0.num_dofs, Q.element,
+            Q.dofmap.cell_dofs, Q.num_dofs, self._dtype, self._device)
+        Ap = eng.stiffness_q_elems(ctx)
+        diag = eng.diagonal_q(ctx, Ap)
+        asm = build_ell_assembly(self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._device)
+        op = (ell_values(Ap, asm), asm.cols, asm.widths)
+        if not self._bcs_p:
+            return (lambda x: ell.ell_matvec(*op, x)), _inv(diag)
+        m = torch.as_tensor(pmask, device=self._device)
+        return (lambda x: torch.where(m, x, ell.ell_matvec(*op, torch.where(m, 0.0, x))),
+                _inv(torch.where(m, torch.ones_like(diag), diag)))
+
+    def _make_amg_halo_M(self, distributed: bool):
+        """The AMG preconditioner under graph-halo: the distributed apply
+        where level 0 coarsens (shard-pure aggregates) and
+        ``amg_distributed`` is not False, else the V-cycle on the gathered
+        residual (oasisx_tpu fracstep.py:1605-1663)."""
+        from .la.amg import amg_dist_tables
+
+        amg, sh, comm = self._amg, self._halo, self._comm
+        k, n, nloc = sh.rank, self._Q.num_dofs, sh.hx_q.nloc
+        on = lambda a: torch.as_tensor(a, device=self._device)
+        own = sh.rounds_q.ownmask
+        if distributed and amg.dist is not None:
+            self._amg_kind = "amg-pcg-distributed"
+            t = {key: on(v[k]) for key, v in amg_dist_tables(amg, sh.hx_q).items()}
+            for key in ("Rvals", "Pvals", "sm0"):
+                t[key] = t[key].to(self._dtype)
+            n_own = float(sh.hx_q.ownmask.sum())
+            return lambda mv: self._amg_dist_apply(t, own, n_own, mv)
+        self._amg_kind = "amg-pcg"
+        perm = on(sh.hx_q.perm)
+        inv = np.full(sh.ndev * nloc, n, np.int64)
+        inv[sh.hx_q.perm] = np.arange(n)
+        inv_row = on(inv[k * nloc:(k + 1) * nloc])
+
+        def M(r):
+            z = amg.vcycle(comm.gather(r).reshape(-1)[perm])
+            return torch.cat([z, z.new_zeros(1)])[inv_row] * own
+
+        return lambda mv: M
+
+    def _amg_dist_apply(self, t: dict, own, n_own: float, matvec):
+        """The distributed V(pre, post) apply (oasisx_tpu fracstep.py:
+        1729-1763): fine-level smoothing and residual through the halo'd
+        ``matvec``, the rank's partial restriction summed over the ranks in
+        one (nagg,) sum, the coarse levels on every rank, the local
+        prolongation; the nullspace projected out with summed dots."""
+        amg, comm = self._amg, self._comm
+        sm0 = t["sm0"]
+        proj = amg.nullvec is not None
+
+        def M(r):
+            if proj:
+                r = r - (comm.sum(torch.dot(own, r)) / n_own) * own
+            z = sm0 * r
+            for _ in range(amg.pre - 1):
+                z = z + sm0 * (r - matvec(z))
+            res = r - matvec(z)
+            rc = comm.sum(torch.sum(t["Rvals"] * res[t["Rcols"]], dim=-1))
+            zc = amg.cycle_coarse(rc)
+            z = z + torch.sum(t["Pvals"] * zc[t["Pcols"]], dim=-1)
+            for _ in range(amg.post):
+                z = z + sm0 * (r - matvec(z))
+            if proj:
+                z = z - (comm.sum(torch.dot(own, z)) / n_own) * own
+            return z
+
+        return M
+
+    def _tentative_solve_halo(self, A, diag, rhs1, bc_vals, u, x0):
+        """(oasisx_tpu fracstep.py:2489-2540) batched BiCGStab, or CG, on
+        the halo'd batch-d product of A_lhs with identity bc rows, x0 as
+        given, Jacobi with 1 on the bc rows; GMRES a component at a time.
+        Every reduction summed over the ranks."""
+        masks, s, comm = self._bc_masks, self._solver_u, self._comm
+        rhs = torch.where(masks, bc_vals, rhs1)
+        vals, asm = self._velocity_op(A)
+        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
+        kw = dict(rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=comm)
+        if s.method == "gmres":
+            out = []
+            for i in range(rhs.shape[0]):
+                A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, self._halo_apply(vals, asm, x,
+                                                                                  "v"), x)
+                out.append(krylov.gmres(A_i, rhs[i], x0=x0[i],
+                                        M=krylov.jacobi_preconditioner(dfull[i]),
+                                        restart=s.gmres_restart, **kw))
+            res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
+                                      sum(r.syncs for r in out))
+        else:
+            mv = lambda x: eng.apply_bc_rows(masks, self._halo_apply(vals, asm, x, "v"), x)
+            solve = krylov.cg_batched if s.method == "cg" else krylov.bicgstab_batched
+            res = solve(mv, rhs, x0=x0, M=krylov.jacobi_preconditioner(dfull), **kw)
+        diff = torch.sum(self._gnorm(res.x - u))
+        return res, diff, _rel_res(res.resnorm, self._gnorm(rhs))
+
+    def _pressure_solve_halo(self, b2, dp0):
+        """(oasisx_tpu fracstep.py:2620-2735) CG on the halo'd K14 product
+        of Ap (outlet rows and columns identity where there is an outlet),
+        preconditioned by the AMG, Chebyshev-Jacobi or Jacobi; without an
+        outlet the nullspace (the owned-slot mask) projected out with summed
+        dots and the volume-weighted mean removed."""
+        s, comm, mv = self._solver_p, self._comm, self._pressure_matvec()
+        ch = self._p_cheb
+        if self._amg is not None:
+            M = self._amg_M(mv)
+        elif ch is not None:
+            M = krylov.chebyshev_preconditioner(mv, _inv(self._Ap_diag), ch["lmin"], ch["lmax"],
+                                                ch["degree"])
+        else:
+            M = krylov.jacobi_preconditioner(self._Ap_diag)
+        kw = dict(M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=comm)
+        if self._pbc_mask is not None:
+            res = krylov.cg(mv, b2, x0=dp0, **kw)
+            dp = res.x
+        else:
+            nv, ctx = self._q_null, self._ctx
+            d = comm.sum(torch.stack([torch.dot(nv, dp0), torch.dot(nv, nv)]))
+            res = krylov.cg(mv, b2, x0=dp0 - (d[0] / d[1]) * nv, project_nullspace=True,
+                            nullvec=nv, **kw)
+            dp = res.x - (eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol) * nv
+        return res, dp, _rel_res(res.resnorm, self._gnorm(b2))
+
+    def _rotational_update_halo(self, p, dp, u, nu):
+        """(oasisx_tpu fracstep.py:2740-2765) CG on the halo'd Mq from x0 =
+        p + dp, rhs = Mq (p + dp) - xi nu (div u, q), Jacobi on diag(Mq),
+        the ``scalar`` family's tolerances; results batched as one row."""
+        sc, ctx = self._solver_c, self._ctx
+        mv = lambda x: self._halo_apply(self._Mq_vals, self._ell_q, x, "q")
+        x0 = p + dp
+        rhs = mv(x0) - (self._xi * nu) * eng.source_load_vec_q(ctx, eng.div_v_at_qp(ctx, u))
+        res = krylov.cg(mv, rhs, x0=x0, M=lambda r: self._Mq_invd * r, rtol=sc.rtol,
+                        atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
+        res = res._replace(iters=res.iters[None], resnorm=res.resnorm[None],
+                           converged=res.converged[None])
+        return res, res.x, _rel_res(res.resnorm, self._gnorm(rhs)[None])
+
+    def _velocity_update_halo(self, u, g, dt, duc):
+        """(oasisx_tpu fracstep.py:2943-2953) batched Jacobi-CG on the halo'd
+        product of M from x0 = u + duc, b3 = M u - dt G dp."""
+        sc = self._solver_c
+        mv = lambda x: self._halo_apply(self._M_vals, self._band_v if self._layout == "band"
+                                        else self._ell_v, x, "v")
+        b3 = mv(u) - dt * g
+        res = krylov.cg_batched(mv, b3, x0=u + duc, M=lambda r: self._M_invd * r,
+                                rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
+        return res, _rel_res(res.resnorm, self._gnorm(b3))
+
     def halo_traffic_report(self) -> dict | None:
-        """The slab halo exchange's traffic (oasisx_tpu fracstep.py:445-503):
+        """The halo exchange's traffic (oasisx_tpu fracstep.py:445-503):
         per space, ``bytes_per_exchange`` is what one refresh (or one fold)
-        moves over all rank boundaries, one plane each, and ``owned_bytes``
-        the owned state, so ``ratio`` is the share communicated per operator
-        application.  None off the slab path."""
+        moves over all rank boundaries as the JAX package counts it (each
+        round's messages padded to its longest), ``owned_bytes`` the owned
+        state, so ``ratio`` is the share communicated per operator
+        application.  Graph-halo also gives ``rounds`` and
+        ``sent_bytes_per_exchange``, the messages' real entries, which is
+        what the port sends.  None off the sharded paths."""
+        fb = torch.finfo(self._dtype).bits // 8
+        if self._halo is not None:
+            def hspace(hx):
+                per_ex = sum(len(pairs) * pack.shape[1] for pairs, pack, _ in hx.sched) * fb
+                sent = sum(int(np.sum(pack != hx.nloc - 1)) for _, pack, _ in hx.sched) * fb
+                owned = int(hx.ownmask.sum()) * fb
+                return dict(bytes_per_exchange=per_ex, owned_bytes=owned, rounds=len(hx.sched),
+                            ratio=per_ex / max(owned, 1), sent_bytes_per_exchange=sent)
+
+            return dict(mode="graph-halo", ndev=self._halo.ndev, v=hspace(self._halo.hx_v),
+                        q=hspace(self._halo.hx_q))
         if self._slab is None:
             return None
         info, d = self._slab, self._mesh.dim
-        fb = torch.finfo(self._dtype).bits // 8
 
         def space(sm_loc, valid):
             pshape = sm_loc[0]
@@ -783,18 +1033,23 @@ class FractionalStep_AB_CN:
                     q=space(info.sm_q_loc, info.valid_q))
 
     def _no_split(self, name: str) -> None:
-        if self._slab is not None:
+        if self._comm is not None:
             raise NotImplementedError(f"{name} under a device_mesh (the split-phase API on the "
-                                      f"slab path) is not ported: {SLAB_ITEM}")
+                                      f"sharded paths) is not ported: {SHARD_ITEM}")
 
     def _pressure_matvec(self):
-        """The general path's pressure operator on K14, with identity rows
-        and columns on the outlet dofs where there is an outlet."""
-        op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
+        """The general path's pressure operator on K14 (halo'd under
+        graph-halo), with identity rows and columns on the outlet dofs where
+        there is an outlet."""
+        if self._halo is not None:
+            mv = lambda x: self._halo_apply(self._Ap_vals, self._ell_q, x, "q")
+        else:
+            op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
+            mv = lambda x: ell.ell_matvec(*op, x)
         if self._pbc_mask is None:
-            return lambda x: ell.ell_matvec(*op, x)
+            return mv
         m = self._pbc_mask
-        return lambda x: torch.where(m, x, ell.ell_matvec(*op, torch.where(m, 0.0, x)))
+        return lambda x: torch.where(m, x, mv(torch.where(m, 0.0, x)))
 
     def _build_amg(self, popts: dict, pmask: np.ndarray) -> AlgebraicMG:
         """Smoothed-aggregation AMG for the pressure Poisson (the JAX
@@ -807,11 +1062,10 @@ class FractionalStep_AB_CN:
         rounding noise in the constant mode (entries near 1e6 against 14)
         and the vessel's float32 pressure solves at N=12 took 370-440
         iterations instead of 11-12."""
-        ctx = self._ctx
         n = self._Q.num_dofs
         geo = compute_cell_geometry(self._mesh.x, self._mesh.cells, self._mesh.dim)
         elems = np.einsum("c,cab,abij->cij", geo.detJ, geo.G, self._refs.stiffness_q)
-        rows, cols, vals = coo_from_elems(ctx.cd_q.cpu().numpy(), elems, n)
+        rows, cols, vals = coo_from_elems(self._Q.dofmap.cell_dofs, elems, n)
         if self._bcs_p:
             # identity rows and columns on the outlet dofs, as the operator's
             # mask wrap (bc_symmetric_matvec) has them
@@ -829,6 +1083,8 @@ class FractionalStep_AB_CN:
             pre=int(popts.get("amg_pre", 2)),
             post=int(popts.get("amg_post", 2)),
             nullvec=None if self._bcs_p else np.ones(n),
+            # under graph-halo: level-0 aggregates within one rank's owned dofs
+            dof_shard=None if self._halo is None else self._halo.hx_q.perm // self._npad_q,
         )
         logger.info("pressure AMG: %d levels, coarse n=%d", amg.num_levels, amg.coarse_n)
         return amg
@@ -848,6 +1104,8 @@ class FractionalStep_AB_CN:
         )
         # the mass solve's kernel does not run under the lumped update; the
         # rotational update's solve is K4 (structured) or K16 (general)
+        if self._halo is not None:
+            return self._config_halo(common)
         unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
         if self._rotational:
             unused -= {"cg_mass", "ell_cg"}
@@ -901,6 +1159,28 @@ class FractionalStep_AB_CN:
             ell=dict(velocity, K_q=eq.K, n_q=eq.n, nnz_q=eq.nnz),
         )
 
+    def _config_halo(self, common: dict) -> dict:
+        sh, eq = self._halo, self._ell_q
+        if self._layout == "band":
+            bv = self._band_v
+            velocity = {"S_v": bv.S, "P_v": bv.P, "R_v": bv.R, "n_v": bv.n, "nnz_v": bv.nnz}
+        else:
+            ev = self._ell_v
+            velocity = {"K_v": ev.K, "n_v": ev.n, "nnz_v": ev.nnz}
+        if self._amg is not None:
+            pressure = dict(pressure_pc=self._amg_kind, pressure_mg_levels=self._amg.num_levels)
+        elif self._p_cheb is None:
+            pressure = dict(pressure_pc="jacobi-pcg", pressure_mg_levels=0)
+        else:
+            pressure = dict(pressure_pc="cheb-pcg", pressure_mg_levels=0,
+                            pressure_cheb=dict(self._p_cheb))
+        kernels = kn.HALO_BAND_KERNELS if self._layout == "band" else kn.HALO_KERNELS
+        return dict(common, **pressure, sharding="graph-halo", ndev=sh.ndev, rank=sh.rank,
+                    backend=self._comm.backend, partitioner=dict(sh.partition),
+                    cells=len(sh.cells), path_kernels=list(kernels), low_memory=self._low_memory,
+                    outlet=bool(self._bcs_p), ell_layout=self._layout,
+                    ell=dict(velocity, K_q=eq.K, n_q=eq.n, nnz_q=eq.nnz))
+
     def _tentative_method(self) -> str:
         """The tentative solves' method: the ``ksp_type``'s, except GMRES on
         the structured path, which runs BiCGStab there (as the JAX package's
@@ -913,8 +1193,8 @@ class FractionalStep_AB_CN:
         """Canonical V dof order -> the internal layout (the padded grid on
         the structured path, padding zero; this rank's slab on the slab
         path, halo and padding zero; a copy on the general path)."""
-        if self._slab is not None:
-            return self._slab_part(arr, "v")
+        if self._comm is not None:
+            return self._shard_part(arr, "v")
         if self._gf_v is None:
             return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_v,), dtype=arr.dtype, device=arr.device)
@@ -922,8 +1202,8 @@ class FractionalStep_AB_CN:
         return out
 
     def _pq(self, arr: torch.Tensor) -> torch.Tensor:
-        if self._slab is not None:
-            return self._slab_part(arr, "q")
+        if self._comm is not None:
+            return self._shard_part(arr, "q")
         if self._gf_q is None:
             return arr.clone()
         out = torch.zeros(arr.shape[:-1] + (self._npad_q,), dtype=arr.dtype, device=arr.device)
@@ -931,20 +1211,20 @@ class FractionalStep_AB_CN:
         return out
 
     def _uv(self, arr: torch.Tensor) -> torch.Tensor:
-        """Internal layout -> canonical V dof order (on the slab path every
-        rank's slab gathered first: a collective)."""
-        if self._slab is not None:
-            return self._gathered(arr)[..., self._slab_idx["v"]["all"]]
+        """Internal layout -> canonical V dof order (on the sharded paths
+        every rank's part gathered first: a collective)."""
+        if self._comm is not None:
+            return self._gathered(arr)[..., self._shard_idx["v"]["all"]]
         return arr if self._gf_v is None else arr[..., self._gf_v]
 
     def _uq(self, arr: torch.Tensor) -> torch.Tensor:
-        if self._slab is not None:
-            return self._gathered(arr)[..., self._slab_idx["q"]["all"]]
+        if self._comm is not None:
+            return self._gathered(arr)[..., self._shard_idx["q"]["all"]]
         return arr if self._gf_q is None else arr[..., self._gf_q]
 
     def _gathered(self, arr: torch.Tensor) -> torch.Tensor:
-        """The ranks' slabs of ``arr`` in the global slab-flat layout (the
-        JAX package's internal layout on its slab path)."""
+        """The ranks' parts of ``arr`` stacked in rank order (the JAX
+        package's internal layout on its sharded paths)."""
         g = self._comm.gather(arr)  # (ndev, ..., n)
         return g.movedim(0, -2).reshape(arr.shape[:-1] + (-1,))
 
@@ -966,8 +1246,8 @@ class FractionalStep_AB_CN:
             b_first = eng.matvec_v(ctx, A_rhs, u1)
             if self._b0_dev is not None:
                 b_first = b_first + self._b0_dev
-            for bcp, hq in zip(self._bcs_p, h_qvals):
-                b_first = b_first + pressure_surface_vecs(ctx, bcp.facet_context, hq)
+            for fctx, hq in zip(self._fctxs, h_qvals):
+                b_first = b_first + pressure_surface_vecs(ctx, fctx, hq)
             return -A_rhs + (2.0 / dt) * self._M_elems, None, b_first
         cu, d = self._cu, u1.shape[0]
         nl = cu.M_c.shape[0]
@@ -1017,6 +1297,8 @@ class FractionalStep_AB_CN:
         relative exit residual)."""
         if self._slab is not None:
             return self._tentative_solve_slab(A, diag, rhs1, bc_vals, u, x0)
+        if self._halo is not None:
+            return self._tentative_solve_halo(A, diag, rhs1, bc_vals, u, x0)
         if self._tentative_method() != "bcgs":
             return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
@@ -1122,6 +1404,8 @@ class FractionalStep_AB_CN:
         mean after)."""
         if self._slab is not None:
             return self._pressure_solve_slab(b2, dp0)
+        if self._halo is not None:
+            return self._pressure_solve_halo(b2, dp0)
         if self._structured:
             nv = self._q_null
             x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
@@ -1178,6 +1462,8 @@ class FractionalStep_AB_CN:
         outlet-masked b2; the outlet rows are not masked here either), the
         product K14 and the solve K16 at batch 1 on Mq's ELL values.
         Returns (KrylovResult, ps, relative exit residual)."""
+        if self._halo is not None:
+            return self._rotational_update_halo(p, dp, u, nu)
         sc = self._solver_c
         rtol = _effective_rtol(sc.rtol, self._dtype)
         x0 = (p + dp)[None]
@@ -1216,6 +1502,8 @@ class FractionalStep_AB_CN:
                 g = eng.grad_p_vecs(ctx, dp)
             else:
                 g = eng.matvec_vq(ctx, self._grad_p, dp)
+            if self._halo is not None:
+                return self._velocity_update_halo(u, g, dt, duc)
             if self._layout == "band":
                 return self._velocity_update_band(u, g, dt, duc, rtol)
             ev = self._ell_v
@@ -1352,13 +1640,13 @@ class FractionalStep_AB_CN:
         """Load the solver state from NumPy arrays in the internal layout
         (the grid on the structured path, the canonical dof order on the
         general path; on the slab path the whole state in the global
-        slab-flat layout, as ``get_state`` returns it and as the JAX
-        package's slab path holds it, on every rank, which keeps its own
-        slab), keyed as the JAX solver's ``_state_from_functions``: u, u1,
-        u2, p, dp, duc."""
+        slab-flat layout, on the graph-halo path the stacked local layouts,
+        as ``get_state`` returns it and as the JAX package holds it, on every
+        rank, which keeps its own part), keyed as the JAX solver's
+        ``_state_from_functions``: u, u1, u2, p, dp, duc."""
         t = lambda a: torch.as_tensor(np.array(a), device=self._device).to(self._dtype)
         st = {k: t(state[k]) for k in STATE_KEYS}
-        if self._slab is not None:
+        if self._comm is not None:
             k = self._comm.rank
             for key, arr in st.items():
                 n = self._npad_q if key in ("p", "dp") else self._npad_v
@@ -1367,9 +1655,9 @@ class FractionalStep_AB_CN:
 
     def get_state(self) -> dict:
         """The solver state as NumPy arrays in the internal layout (on the
-        slab path the ranks' slabs gathered: a collective)."""
+        sharded paths the ranks' parts gathered: a collective)."""
         st = self._state_from_functions()
-        if self._slab is not None:
+        if self._comm is not None:
             st = {k: self._gathered(st[k]) for k in STATE_KEYS}
         return {k: st[k].detach().cpu().numpy() for k in STATE_KEYS}
 
@@ -1383,8 +1671,11 @@ class FractionalStep_AB_CN:
         return self._bc_cache[1]
 
     def _h_qvals(self) -> list[torch.Tensor]:
-        """Each outlet's value at its facet quadrature points."""
-        return [bcp.value_at_facet_qp(self._ctx) for bcp in self._bcs_p]
+        """Each outlet's value at its facet quadrature points (under
+        graph-halo: this rank's facets, from the value in the local
+        layout)."""
+        return [bcp.value_at_facet_qp(self._ctx, f, self._pq)
+                for bcp, f in zip(self._bcs_p, self._fctxs)]
 
     # ------------------------------------------------------------------
     # entry points

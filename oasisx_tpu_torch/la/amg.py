@@ -18,7 +18,7 @@ import torch
 
 from ..parallel.graph import row_widths
 
-__all__ = ["AlgebraicMG", "amg_kernel_data", "amg_widths", "coo_from_elems"]
+__all__ = ["AlgebraicMG", "amg_dist_tables", "amg_kernel_data", "amg_widths", "coo_from_elems"]
 
 
 def coo_from_elems(cd: np.ndarray, elems: np.ndarray, n: int):
@@ -50,11 +50,15 @@ def _csr_pointers(rows, n):
     return indptr
 
 
-def _aggregate(rows, cols, vals, n, theta=0.25):
+def _aggregate(rows, cols, vals, n, theta=0.25, shard=None):
     """Greedy aggregation on the strength graph
     |a_ij| >= theta*sqrt(a_ii*a_jj) (standard SA passes 1-3).
     Returns (agg ids (n,), nagg).  Rows with no strong neighbours
-    (Dirichlet identity rows, isolated dofs) become singletons."""
+    (Dirichlet identity rows, isolated dofs) become singletons.
+
+    ``shard`` (n,) optional: strong edges between dofs of different
+    shards are dropped, so every aggregate is shard-pure (the distributed
+    fine-level apply relies on it)."""
     diag = np.zeros(n)
     dmask = rows == cols
     diag[rows[dmask]] = vals[dmask]
@@ -62,6 +66,8 @@ def _aggregate(rows, cols, vals, n, theta=0.25):
     r, c, v = rows[off], cols[off], vals[off]
     dd = np.sqrt(np.abs(diag[r] * diag[c]))
     strong = np.abs(v) >= theta * np.where(dd > 0, dd, np.inf)
+    if shard is not None:
+        strong &= shard[r] == shard[c]
     r, c = r[strong], c[strong]
     order = np.argsort(r, kind="stable")
     r, c = r[order], c[order]
@@ -187,16 +193,28 @@ class AlgebraicMG:
         pre: int = 1,
         post: int = 1,
         nullvec: np.ndarray | None = None,
+        dof_shard: np.ndarray | None = None,
     ):
         """``nullvec``: the operator's nullspace vector (the pure-Neumann
         pressure constant).  The V-cycle then projects it out of its input
         and its output, which keeps the preconditioner symmetric positive
-        definite on the complement."""
+        definite on the complement.
+
+        ``dof_shard`` (n,) optional: the owning shard of each fine dof.
+        Level-0 aggregation then never crosses a shard boundary, and
+        ``self.dist`` keeps what a distributed fine-level apply needs: the
+        level-0 smoothed prolongation P0 as COO (fine dof, aggregate,
+        weight), the level-0 smoother diagonal ``sm0`` and the aggregate
+        count ``nagg0`` (None without ``dof_shard``, or when level 0 does
+        not coarsen).  Coarser levels are not constrained.  Without
+        ``dof_shard`` the levels are those of the JAX package's
+        single-device AMG."""
         t = lambda a: torch.as_tensor(np.asarray(a), device=device)
         f = lambda a: t(np.asarray(a, np.float64)).to(dtype)
         self.pre, self.post = pre, post
         self.nullvec = None if nullvec is None else f(nullvec)
         self.levels = []
+        self.dist = None
         # canonicalize (row-major sorted, duplicate-summed): callers may
         # hand-edit entries (e.g. Dirichlet identity rows)
         lrows, lcols, lvals = _sum_duplicates(
@@ -204,7 +222,7 @@ class AlgebraicMG:
             np.asarray(vals, np.float64), n,
         )
         ln = n
-        for _ in range(max_levels):
+        for li in range(max_levels):
             diag = np.zeros(ln)
             dm = lrows == lcols
             diag[lrows[dm]] = lvals[dm]
@@ -214,7 +232,8 @@ class AlgebraicMG:
             # adaptive strength threshold: retry a stalled level with smaller
             # theta (at theta=0 every connection is strong)
             for th in (theta, theta / 4.0, 0.0):
-                agg, nagg = _aggregate(lrows, lcols, lvals, ln, th)
+                agg, nagg = _aggregate(lrows, lcols, lvals, ln, th,
+                                       shard=dof_shard if li == 0 else None)
                 if nagg < 0.5 * ln:
                     break
             if nagg >= 0.9 * ln:  # no meaningful coarsening left
@@ -224,6 +243,9 @@ class AlgebraicMG:
             prw, pcl, pvl = _smoothed_prolongation(
                 lrows, lcols, lvals, ln, agg, nagg, invd, omega_p
             )
+            if li == 0 and dof_shard is not None:
+                self.dist = dict(P0=(prw.copy(), pcl.copy(), pvl.copy()),
+                                 sm0=invd * (4.0 / (3.0 * lmax)), nagg0=nagg)
             crw, ccl, cvl = _galerkin(prw, pcl, pvl, lrows, lcols, lvals, ln, nagg)
             # restriction = P^T: swap row/col then duplicate-sort by row
             rrw, rcl, rvl = _sum_duplicates(pcl, prw, pvl, ln)
@@ -291,6 +313,11 @@ class AlgebraicMG:
             return self._cycle(0, r)
         return self._project(self._cycle(0, self._project(r)))
 
+    def cycle_coarse(self, rc: torch.Tensor) -> torch.Tensor:
+        """The V-cycle from level 1 down: what a distributed apply runs on
+        every rank after the fine residual's restriction is summed."""
+        return self._cycle(1, rc)
+
 
 def amg_kernel_data(amg: AlgebraicMG) -> tuple[dict, list[torch.Tensor]]:
     """Flatten an ``AlgebraicMG`` into (meta, tensors) for the in-kernel
@@ -329,3 +356,57 @@ def amg_widths(amg: AlgebraicMG) -> list[torch.Tensor]:
     row loops stop: per level those of A, P and R (int32, one per 32 rows:
     A and P over the level's n rows, R over its nc)."""
     return [lv["widths"][key].contiguous() for lv in amg.levels for key in ("A", "P", "R")]
+
+
+def amg_dist_tables(amg: AlgebraicMG, hx) -> dict:
+    """The distributed fine level's tables for every shard (host NumPy,
+    the JAX package's ``_make_amg_dist_tables``, oasisx_tpu fracstep.py:
+    1665-1727), from an AMG built with ``dof_shard`` and the pressure
+    space's ``graph.HaloExchange`` ``hx``:
+
+    - ``Rcols``/``Rvals`` (ndev, nagg, K_R): row J of P0^T restricted to
+      the fine dofs shard s owns, columns in its local layout (padding:
+      the sentinel, value 0); the ranks' partial products summed give the
+      restriction, each fine dof counted once, on its owner;
+    - ``Pcols``/``Pvals`` (ndev, nloc, K_P): the P0 rows of shard s's owned
+      fine dofs, columns the global aggregates (padding: 0, value 0);
+    - ``sm0`` (ndev, nloc): the level-0 smoother diagonal in the local
+      layout, 0 on halo and padding slots."""
+    ndev, nloc = hx.ndev, hx.nloc
+    perm = np.asarray(hx.perm)
+    sgl = (perm // nloc).astype(np.int64)
+    lloc = (perm % nloc).astype(np.int64)
+    d0 = amg.dist
+    prw, pcl, pvl = d0["P0"]  # (fine dof i, aggregate J, weight)
+    nagg = int(d0["nagg0"])
+
+    def grouped_slots(keys):
+        """slot index within each group of equal (sorted) keys."""
+        first = np.ones(len(keys), bool)
+        first[1:] = keys[1:] != keys[:-1]
+        starts = np.where(first, np.arange(len(keys)), 0)
+        return np.arange(len(keys)) - np.maximum.accumulate(starts)
+
+    s_of = sgl[prw]
+    order = np.lexsort((pcl, s_of))
+    so, Jo, io, vo = s_of[order], pcl[order], prw[order], pvl[order]
+    slot = grouped_slots(so * nagg + Jo)
+    K_R = int(slot.max()) + 1 if len(slot) else 1
+    Rcols = np.full((ndev, nagg, K_R), nloc - 1, np.int64)
+    Rvals = np.zeros((ndev, nagg, K_R))
+    Rcols[so, Jo, slot] = lloc[io]
+    Rvals[so, Jo, slot] = vo
+
+    order = np.argsort(prw, kind="stable")
+    io, Jo, vo = prw[order], pcl[order], pvl[order]
+    slot = grouped_slots(io)
+    K_P = int(slot.max()) + 1 if len(slot) else 1
+    Pcols = np.zeros((ndev, nloc, K_P), np.int64)
+    Pvals = np.zeros((ndev, nloc, K_P))
+    Pcols[sgl[io], lloc[io], slot] = Jo
+    Pvals[sgl[io], lloc[io], slot] = vo
+
+    sm0 = np.zeros(ndev * nloc)
+    sm0[perm] = d0["sm0"]
+    return dict(Rcols=Rcols, Rvals=Rvals, Pcols=Pcols, Pvals=Pvals,
+                sm0=sm0.reshape(ndev, nloc))

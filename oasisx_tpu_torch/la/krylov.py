@@ -230,10 +230,14 @@ def gmres(
     atol: float = 1e-50,
     maxiter: int = 1000,
     restart: int = 30,
+    comm=None,
 ) -> KrylovResult:
     """Restarted GMRES(m), left-preconditioned (PETSc's default): Arnoldi
     on M A, the test on the preconditioned residual norm against
-    rtol ||M b||, Gram-Schmidt against the basis, Givens rotations.
+    rtol ||M b||, Gram-Schmidt against the basis, Givens rotations.  With
+    ``comm`` the vectors are a rank's local part: every norm and the
+    Hessenberg column's dots are summed over the ranks (the JAX package's
+    ``gmres(axis=)``), so every rank holds the same small system.
 
     The basis lives on the device; the small Hessenberg system (H, the
     rotations, g) on the host in the solver's precision, so each Arnoldi
@@ -248,7 +252,7 @@ def gmres(
     m = int(restart)
     n = b.shape[0]
     real = np.float64 if b.dtype == torch.float64 else np.float32
-    norm = torch.linalg.vector_norm
+    _, norm, _ = _reducers(comm)
     tol = np.maximum(real(rtol) * real(norm(M(b)).item()), real(atol))
     rnorm = norm(M(b - A(x)))
     it = 0
@@ -271,6 +275,8 @@ def gmres(
                 break
             w = M(A(V[j]))
             hv = V[: j + 1] @ w
+            if comm is not None:
+                hv = comm.sum(hv)
             w = w - hv @ V[: j + 1]
             hj1_t = norm(w)
             col = torch.cat([hv, hj1_t[None]]).cpu().numpy().astype(real)

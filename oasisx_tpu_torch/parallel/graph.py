@@ -1,12 +1,11 @@
-"""ELL sparsity of the unstructured operators, and their deterministic
-assembly from element stacks.
+"""ELL sparsity of the unstructured operators, their deterministic
+assembly from element stacks, and the graph-halo exchange of the sharded
+general path.
 
-Counterpart of ``build_ell_tables`` and ``ell_values`` in
-``oasisx_tpu/parallel/graph.py``, on one device (the halo exchange of the
-multi-device path is not ported).  An operator in ELL form is applied as
-``y[r] = sum_k vals[k, r] * x[cols[k, r]]`` (the ELL kernels of
-``la/ell.py``); its values are assembled from the element stack once per
-solve, outside the Krylov loop.
+Counterpart of ``oasisx_tpu/parallel/graph.py``.  An operator in ELL form
+is applied as ``y[r] = sum_k vals[k, r] * x[cols[k, r]]`` (the ELL kernels
+of ``la/ell.py``); its values are assembled from the element stack once
+per solve, outside the Krylov loop.
 
 The JAX package assembles by a segment-sum.  Here the element entries are
 grouped by their ELL slot once, at setup (``EllAssembly``): the slots with
@@ -24,6 +23,28 @@ stop each row's loop at it: the slots past a row's own length hold value 0
 and column 0 and add exactly 0, so the product reads only the slices' real
 widths (at the vessel's P2 operator 89% of what it reads are entries, where
 the full K slots are 43% entries).
+
+The graph-halo mode (a rank a cell block, ``parallel/sharding.py``).  The
+host tables are copied from the JAX package, so both number the dofs the
+same way: cells partitioned into ``ndev`` blocks (``rcb_partition``, or
+``partition.choose_partition``); each dof *owned* by the lowest shard whose
+cells touch it, its *halo* the dofs its cells touch but another shard owns;
+each shard's local layout ``[owned | halo | sentinel]``, padded to the
+largest shard's counts (``nloc`` slots, the last one the sentinel); the
+messages (halo holder -> owner) edge-coloured into rounds in which every
+shard sends to at most one partner and receives from at most one
+(``color_messages``).  A round is one ``Comm.shift`` on every rank, with
+None where a rank has no partner in it (a rank that skipped a round would
+leave its partners waiting):
+
+- ``halo_fold`` adds each halo slot's value into its owner's slot, then
+  zeroes every slot the rank does not own;
+- ``halo_refresh`` copies each owner's value into the halo slots.
+
+The owned-dof invariant: halo and sentinel slots are 0 in every assembled
+vector and every solution, so a local dot plus one ``Comm.sum`` is the
+global one.  A message carries only its real entries (the JAX package pads
+each round's messages to the longest one).
 """
 
 from __future__ import annotations
@@ -32,6 +53,219 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def rcb_partition(centroids: np.ndarray, ndev: int) -> np.ndarray:
+    """Recursive coordinate bisection: split the cell set into ``ndev``
+    equal-count parts by recursively cutting at the coordinate median of
+    the widest axis.  Returns the shard of each cell (balanced up to
+    rounding).  Copied from the JAX package."""
+    nc = centroids.shape[0]
+    out = np.zeros(nc, dtype=np.int32)
+
+    def rec(idx: np.ndarray, parts: int, base: int) -> None:
+        if parts == 1:
+            out[idx] = base
+            return
+        pts = centroids[idx]
+        widths = pts.max(axis=0) - pts.min(axis=0)
+        ax = int(np.argmax(widths))
+        lo_parts = parts // 2
+        k = int(round(len(idx) * lo_parts / parts))
+        order = np.argsort(pts[:, ax], kind="stable")
+        rec(idx[order[:k]], lo_parts, base)
+        rec(idx[order[k:]], parts - lo_parts, base + lo_parts)
+
+    rec(np.arange(nc), ndev, 0)
+    return out
+
+
+def color_messages(sizes: list[tuple[int, int, int]]) -> list[list[int]]:
+    """Greedy size-sorted edge colouring of point-to-point messages
+    ``sizes`` [(src, dst, size)]: rounds as lists of message indices, in
+    each round every src and every dst distinct.  Largest first, a message
+    joins the round where it adds the least padded payload, or opens a new
+    round when joining would pad it by more than a quarter.  Copied from
+    the JAX package (also ``partition.schedule_cost``'s model)."""
+    order = sorted(range(len(sizes)), key=lambda i: -sizes[i][2])
+    rounds: list[list[int]] = []
+    used: list[tuple[set, set]] = []
+    bmax: list[int] = []  # per-round buffer width (max message size)
+    for i in order:
+        s, o, sz = sizes[i]
+        best, best_inc = None, sz + (sz >> 2) + 1
+        for ridx, (su, du) in enumerate(used):
+            if s in su or o in du:
+                continue
+            nb = max(bmax[ridx], sz)
+            inc = nb * (len(rounds[ridx]) + 1) - bmax[ridx] * len(rounds[ridx])
+            if inc < best_inc:
+                best, best_inc = ridx, inc
+        if best is None:
+            rounds.append([i])
+            used.append(({s}, {o}))
+            bmax.append(sz)
+        else:
+            rounds[best].append(i)
+            used[best][0].add(s)
+            used[best][1].add(o)
+            bmax[best] = max(bmax[best], sz)
+    return rounds
+
+
+@dataclass
+class HaloExchange:
+    """The exchange tables of one function space, for every shard (host)."""
+
+    ndev: int
+    nloc: int  # owned_pad + halo_pad + 1 (sentinel)
+    owned_pad: int
+    # canonical dof -> shard * nloc + local slot on its owner (the stacked
+    # local layout, the JAX package's internal dof order)
+    perm: np.ndarray
+    # per round: (pairs ((src, dst), ...) in the fold direction, pack
+    # (ndev, B), unpack (ndev, B)) int32; rows padded with the sentinel
+    # nloc - 1, all-sentinel rows for shards out of the round
+    sched: list
+    ownmask: np.ndarray  # (ndev * nloc,) 1.0 on owned slots
+    # per-shard local cell dofmaps (ndev * cells_per_shard, ndpc) into
+    # [0, nloc), the shard-blocked cell order, padded rows all sentinel
+    cell_dofs_local: np.ndarray
+
+
+def build_halo_exchange(
+    cell_dofs: np.ndarray, shard_of_cell: np.ndarray, ndev: int,
+    cell_perm: np.ndarray, cells_per_shard: int,
+) -> HaloExchange:
+    """Ownership, local numbering and the exchange schedule of one
+    dofmap.  ``cell_perm`` is the shard-blocked cell order (padded with -1
+    up to ndev * cells_per_shard); ``shard_of_cell`` indexes the original
+    cells.  Copied from the JAX package."""
+    num_dofs = int(cell_dofs.max()) + 1
+    ndpc = cell_dofs.shape[1]
+
+    # owner = lowest shard touching the dof
+    owner = np.full(num_dofs, ndev, dtype=np.int32)
+    for s in range(ndev):
+        dofs_s = np.unique(cell_dofs[shard_of_cell == s])
+        owner[dofs_s] = np.minimum(owner[dofs_s], s)
+    assert (owner < ndev).all(), "dof untouched by any cell"
+
+    # per-shard owned and halo dof lists (sorted for locality)
+    owned = [np.where(owner == s)[0] for s in range(ndev)]
+    halo = []
+    for s in range(ndev):
+        touched = np.unique(cell_dofs[shard_of_cell == s])
+        halo.append(touched[owner[touched] != s])
+    owned_pad = max(len(o) for o in owned)
+    halo_pad = max((len(h) for h in halo), default=0)
+    nloc = owned_pad + halo_pad + 1  # +1 sentinel
+    sent = nloc - 1
+
+    # local index of each (shard, dof)
+    loc = np.full((ndev, num_dofs), -1, dtype=np.int64)
+    for s in range(ndev):
+        loc[s, owned[s]] = np.arange(len(owned[s]))
+        loc[s, halo[s]] = owned_pad + np.arange(len(halo[s]))
+
+    perm = np.empty(num_dofs, dtype=np.int64)
+    for s in range(ndev):
+        perm[owned[s]] = s * nloc + loc[s, owned[s]]
+
+    # one message per (halo holder s -> owner o), edge-coloured into rounds
+    msgs = []  # (s, o, sender halo locs, owner owned locs)
+    for s in range(ndev):
+        if not len(halo[s]):
+            continue
+        o_of = owner[halo[s]]
+        for o in np.unique(o_of):
+            hd = halo[s][o_of == o]
+            msgs.append((s, int(o), loc[s, hd], loc[o, hd]))
+    rounds = color_messages([(s, o, len(sl)) for s, o, sl, _ in msgs])
+    sched = []
+    for ridx in rounds:
+        B = max(len(msgs[i][2]) for i in ridx)
+        pack = np.full((ndev, B), sent, dtype=np.int32)
+        unpack = np.full((ndev, B), sent, dtype=np.int32)
+        pairs = []
+        for i in ridx:
+            s, o, sl, ol = msgs[i]
+            pack[s, : len(sl)] = sl
+            unpack[o, : len(ol)] = ol
+            pairs.append((s, o))
+        sched.append((tuple(pairs), pack, unpack))
+
+    ownmask = np.zeros(ndev * nloc)
+    for s in range(ndev):
+        ownmask[s * nloc : s * nloc + len(owned[s])] = 1.0
+
+    # local cell dofmaps in shard-blocked order
+    nc_pad = ndev * cells_per_shard
+    cdl = np.full((nc_pad, ndpc), sent, dtype=np.int32)
+    for i, c in enumerate(cell_perm):
+        if c < 0:
+            continue
+        s = i // cells_per_shard
+        cdl[i] = loc[s, cell_dofs[c]]
+    assert (cdl >= 0).all()
+
+    return HaloExchange(
+        ndev=ndev, nloc=nloc, owned_pad=owned_pad, perm=perm, sched=sched,
+        ownmask=ownmask, cell_dofs_local=cdl,
+    )
+
+
+@dataclass
+class HaloRounds:
+    """One rank's share of a ``HaloExchange``, on its device: per round
+    (the owner it sends to in the fold or None, the halo holder it receives
+    from or None, its halo slots sent, its owned slots received into), each
+    message cut to its real entries; its owned-slot mask."""
+
+    rank: int
+    nloc: int
+    rounds: list
+    ownmask: torch.Tensor  # (nloc,) in the solver's dtype
+
+
+def halo_rounds(hx: HaloExchange, rank: int, dtype, device) -> HaloRounds:
+    """``rank``'s rounds of the schedule ``hx.sched``."""
+    sent = hx.nloc - 1
+    idx = lambda row: torch.as_tensor(row[row != sent].astype(np.int64), device=device)
+    rounds = []
+    for pairs, pack, unpack in hx.sched:
+        dst = next((o for s, o in pairs if s == rank), None)
+        src = next((s for s, o in pairs if o == rank), None)
+        rounds.append((dst, src, idx(pack[rank]), idx(unpack[rank])))
+    own = hx.ownmask[rank * hx.nloc:(rank + 1) * hx.nloc]
+    return HaloRounds(rank=rank, nloc=hx.nloc, rounds=rounds,
+                      ownmask=torch.as_tensor(own, device=device).to(dtype))
+
+
+def halo_fold(y: torch.Tensor, hr: HaloRounds, comm) -> torch.Tensor:
+    """scatter_reverse(add) of local vectors ``y`` (..., nloc): each round
+    sends this rank's halo values to their owner and adds what it receives
+    into its owned slots; then every slot it does not own is zeroed."""
+    y = y.clone()
+    for dst, src, pack, unpack in hr.rounds:
+        like = y.new_empty(y.shape[:-1] + (unpack.shape[0],))
+        buf = comm.shift(y[..., pack] if dst is not None else None, dst, src, like)
+        if buf is not None:
+            y.index_add_(y.dim() - 1, unpack, buf)
+    return y * hr.ownmask
+
+
+def halo_refresh(x: torch.Tensor, hr: HaloRounds, comm) -> torch.Tensor:
+    """scatter_forward of local vectors ``x`` (..., nloc): each round the
+    owners send their values to the halo holders, which write them into
+    their halo slots (the fold's rounds, reversed pairs)."""
+    x = x.clone()
+    for dst, src, pack, unpack in hr.rounds:
+        like = x.new_empty(x.shape[:-1] + (pack.shape[0],))
+        buf = comm.shift(x[..., unpack] if src is not None else None, src, dst, like)
+        if buf is not None:
+            x[..., pack] = buf
+    return x
 
 
 def build_ell_tables(

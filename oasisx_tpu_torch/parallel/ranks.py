@@ -1,4 +1,5 @@
-"""Rank functions of the slab-sharded solver, and its command line.
+"""Rank functions of the sharded solver (the slab and graph-halo paths),
+and its command line.
 
 Each function here runs on every rank of a group that
 ``parallel/launch.py`` started (or ``torchrun``): ``fn(comm, ...)``.  They
@@ -14,10 +15,19 @@ afresh; the module imports nothing of JAX.
 - ``slab_ops``: the slab operators of ``parallel/slab.py`` on inputs from
   a ``.npz`` file, each rank's slab of the outputs; ``refusals``,
   ``slab_checks`` and ``misbehave``: the tests' other rank functions.
+- ``halo_solver``: the graph-halo path's problems: bench.py's vessel (the
+  deformed box on the general path), the DFG cylinder channel with its
+  ``PressureBC(0)`` outlet (``res``, ``rotational``), and the Taylor-Green
+  box with ``slab`` False.
+- ``run_halo``: as ``run_tgv`` for those; ``halo_kernel_checks``: K14 (K18
+  under the band layout) per shard between the halo refresh and fold
+  against its plain version; ``halo_ops`` and ``halo_checks``: the tests'
+  rank functions.
 
 Command line (the same entry for the launcher and for torchrun)::
 
     python -m oasisx_tpu_torch.parallel.ranks --world 2 -N 16 --steps 10
+    python -m oasisx_tpu_torch.parallel.ranks --world 2 --problem vessel -N 16
     torchrun --standalone --nproc-per-node 2 -m oasisx_tpu_torch.parallel.ranks -N 16 --steps 10
 
 prints rank 0's steps/s, iterations a step and traffic as one JSON line.
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from .comm import Comm
+from .graph import halo_fold, halo_refresh
 
 DT, NU = 2e-3, 1.0 / 1600.0  # bench.py's step and viscosity
 TGV = (
@@ -43,11 +54,18 @@ TGV = (
 )
 
 
+def _options(rtol: float, solver_options: dict | None) -> dict:
+    opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
+    return {k: dict(opts, **(solver_options or {}).get(k, {}))
+            for k in ("tentative", "pressure", "scalar")}
+
+
 def tgv_solver(N, dtype, device, rtol: float, device_mesh=None,
-               solver_options: dict | None = None):
+               solver_options: dict | None = None, options: dict | None = None):
     """The bench problem at N cells an axis (a tuple: the box's cells), the
     initial u1 = u2 = the Taylor-Green field; ``solver_options`` adds to a
-    solve family's ("tentative", "pressure", "scalar")."""
+    solve family's ("tentative", "pressure", "scalar"); ``options`` are the
+    solver's."""
     from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod
     from ..meshes import create_box, meshtags
 
@@ -56,11 +74,9 @@ def tgv_solver(N, dtype, device, rtol: float, device_mesh=None,
     facets = mesh.exterior_facet_indices()
     tags = meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
     bcs_u = [[DirichletBC(f, LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in TGV]
-    opts = {"ksp_rtol": rtol, "ksp_max_it": 2000}
     solver = FractionalStep_AB_CN(
         mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
-        solver_options={k: dict(opts, **(solver_options or {}).get(k, {}))
-                        for k in ("tentative", "pressure", "scalar")},
+        solver_options=_options(rtol, solver_options), options=options,
         dtype=dtype, device=device, device_mesh=device_mesh,
     )
     for f, u1, u2 in zip(TGV, solver._u1, solver._u2):
@@ -143,13 +159,15 @@ def _profile(solver, steps: int, dt, nu) -> dict:
     """torch.profiler over ``steps`` more steps: this rank's device time
     (its kernels' and copies' self time) apart from NCCL's kernels, which
     hold the card while they wait for a partner, NCCL's, and the wall, in
-    ms."""
+    ms.  On the card only the device's activity is recorded (not the
+    host's thousands of small ops a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = solver._device
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    on_card = torch.device(dev).type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         solver.run(steps, dt, nu)
         _sync(dev)
@@ -232,21 +250,18 @@ def iters_per_step(stats: dict) -> dict:
 
 
 def refusals(comm: Comm) -> dict:
-    """What the slab path refuses once the group exists: a leading cube
-    count that the ranks do not divide, the split-phase API; the lumped
-    update's fall-back to the mass CG (on a solver given a 1-D
-    ``DeviceMesh``); the (rank, size) of a DeviceMesh's and the world
-    group's ``Comm``.  Each refusal's message, and
-    whether this process imported anything of JAX."""
+    """What the sharded solver does once the group exists: the path a
+    leading cube count that the ranks do not divide takes (graph-halo); the
+    split-phase API's refusal; the lumped update's fall-back to the mass CG
+    (on a solver given a 1-D ``DeviceMesh``); the (rank, size) of a
+    DeviceMesh's and the world group's ``Comm``.  The refusal's message,
+    and whether this process imported anything of JAX."""
     import sys
 
     out = dict(jax_free=not any(m.split(".")[0] in ("jax", "jaxlib", "oasisx_tpu")
                                 for m in sys.modules))
-    try:
-        tgv_solver((comm.size * 2 + 1, 4, 4), torch.float64, "cpu", 1e-8, device_mesh=comm)
-        out["ndev"] = None
-    except NotImplementedError as e:
-        out["ndev"] = str(e)
+    s = tgv_solver((comm.size * 2 + 1, 4, 4), torch.float64, "cpu", 1e-8, device_mesh=comm)
+    out["ndev"] = s.config_report()["sharding"]
     # a 1-D DeviceMesh as the device_mesh, and the world's ProcessGroup
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -344,6 +359,34 @@ def misbehave(comm: Comm, rank: int, how: str) -> None:
     comm.sum(torch.ones(1))
 
 
+ROUTED = ("unstructured", "structured_false", "pressure_bc", "rotational", "slab_false")
+
+
+def routing(comm: Comm, cases=ROUTED) -> dict:
+    """The sharding mode the solver takes, on the box of 2 cells an axis
+    with every exterior facet tagged 1, for each case the JAX package sends
+    to graph-halo: an unstructured mesh, ``structured`` False, a
+    PressureBC, the rotational update, ``slab`` False."""
+    from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
+    from ..meshes import create_box, meshtags
+
+    out = {}
+    for case in cases:
+        m = create_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2))
+        facets = m.exterior_facet_indices()
+        tags = meshtags(m, m.dim - 1, facets, np.full_like(facets, 1))
+        kw = {"unstructured": {}, "structured_false": {"options": {"structured": False}},
+              "pressure_bc": {"bcs_p": [PressureBC(0.0, (tags, 1))]},
+              "rotational": {"rotational": True}, "slab_false": {"options": {"slab": False}}}[case]
+        if case == "unstructured":
+            m.structured = None
+        bcs = [[DirichletBC(0.0, LocatorMethod.TOPOLOGICAL, (tags, 1))] for _ in range(3)]
+        s = FractionalStep_AB_CN(m, ("Lagrange", 2), ("Lagrange", 1), bcs, device="cpu",
+                                 dtype=torch.float64, device_mesh=comm, **kw)
+        out[case] = s.config_report()["sharding"]
+    return out
+
+
 def slab_checks(comm: Comm, path: str, cfgs: list) -> dict:
     """``slab_ops``, ``run_tgv`` of each of ``cfgs`` and ``refusals`` in
     one group (the tests' one spawn per world)."""
@@ -351,9 +394,356 @@ def slab_checks(comm: Comm, path: str, cfgs: list) -> dict:
                 refusals=refusals(comm))
 
 
+# ---------------------------------------------------------------------------
+# the graph-halo path
+# ---------------------------------------------------------------------------
+
+CYL_L, CYL_H, CYL_UM = 2.2, 0.41, 0.3  # the DFG channel and its inflow peak
+CYL_DT, CYL_NU = 2e-3, 1e-3  # the cylinder's step and viscosity
+
+
+def deform_vessel(mesh):
+    """bench.py's vessel: a taper, a bulge and a curved centreline applied
+    to a box mesh, marked unstructured."""
+    x = mesh.x.copy()
+    lo, hi = x[:, 0].min(), x[:, 0].max()
+    s = (x[:, 0] - lo) / (hi - lo)
+    r = (1.0 - 0.25 * s) * (1.0 + 0.55 * np.exp(-(((s - 0.55) / 0.12) ** 2)))
+    x[:, 1] = 0.45 * np.sin(np.pi * s) + 1.0 * r * x[:, 1]
+    x[:, 2] = 0.3 * np.sin(np.pi * s * 0.9) + 0.8 * r * x[:, 2]
+    mesh.x[:] = x
+    mesh.structured = None
+    return mesh
+
+
+def vessel_solver(N: int, dtype, device, rtol: float, device_mesh=None,
+                  solver_options: dict | None = None, options: dict | None = None):
+    """bench.py's unstructured configuration: the Taylor-Green problem on
+    the vessel-deformed box of N cells an axis, ``low_memory_version``
+    False; ``options`` add to the solver's."""
+    from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod
+    from ..meshes import create_box, meshtags
+
+    mesh = deform_vessel(create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (N, N, N)))
+    facets = mesh.exterior_facet_indices()
+    tags = meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
+    bcs_u = [[DirichletBC(f, LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in TGV]
+    solver = FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[],
+        solver_options=_options(rtol, solver_options),
+        options=dict({"low_memory_version": False}, **(options or {})),
+        dtype=dtype, device=device, device_mesh=device_mesh,
+    )
+    for f, u1, u2 in zip(TGV, solver._u1, solver._u2):
+        u1.interpolate(f)
+        u2.interpolate(f)
+    return solver
+
+
+def cylinder_solver(res: int, dtype, device, rtol: float, device_mesh=None,
+                    solver_options: dict | None = None, options: dict | None = None,
+                    rotational: bool = False, um=lambda: CYL_UM):
+    """The DFG cylinder channel (tests/test_graph_halo.py's set-up): a
+    parabolic inflow of peak ``um()`` (read each time the boundary values
+    are evaluated), no-slip walls and cylinder, a ``PressureBC(0)`` outlet;
+    zero initial state."""
+    from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
+    from ..meshes import create_cylinder_channel, locate_entities_boundary, meshtags
+
+    mesh = create_cylinder_channel(res)
+    inlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], 0.0))
+    outlet = locate_entities_boundary(mesh, 1, lambda x: np.isclose(x[0], CYL_L))
+    others = np.setdiff1d(mesh.exterior_facet_indices(), np.hstack([inlet, outlet]))
+    facets = np.hstack([inlet, others, outlet])
+    values = np.hstack([np.full_like(inlet, 1), np.full_like(others, 2),
+                        np.full_like(outlet, 3)]).astype(np.int32)
+    tags = meshtags(mesh, 1, facets, values)
+    inflow = lambda x: 4.0 * um() * x[1] * (CYL_H - x[1]) / CYL_H**2
+    T = LocatorMethod.TOPOLOGICAL
+    bcs_u = [[DirichletBC(inflow, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))],
+             [DirichletBC(0.0, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))]]
+    return FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u, bcs_p=[PressureBC(0.0, (tags, 3))],
+        rotational=rotational, solver_options=_options(rtol, solver_options), options=options,
+        dtype=dtype, device=device, device_mesh=device_mesh,
+    )
+
+
+def halo_solver(cfg: dict, dtype, device, device_mesh=None):
+    """The problem of ``cfg``: "problem" "vessel" (N), "cylinder" (res,
+    rotational) or "box" (N, the Taylor-Green box with ``slab`` False);
+    rtol, solver_options and options as those functions take them."""
+    kw = dict(device_mesh=device_mesh, solver_options=cfg.get("solver_options"),
+              options=cfg.get("options"))
+    rtol = cfg.get("rtol", 1e-8)
+    if cfg["problem"] == "vessel":
+        return vessel_solver(cfg["N"], dtype, device, rtol, **kw)
+    if cfg["problem"] == "cylinder":
+        return cylinder_solver(cfg["res"], dtype, device, rtol,
+                               rotational=cfg.get("rotational", False), **kw)
+    kw["options"] = dict({"slab": False}, **(kw["options"] or {}))
+    return tgv_solver(cfg["N"], dtype, device, rtol, **kw)
+
+
+def _device_ms(fn, device, reps: int = 20) -> float:
+    """Mean ms a call: on the card the device time of ``reps`` back-to-back
+    calls queued behind a spin kernel (so the host's enqueueing is not
+    timed), on the CPU the host clock."""
+    for _ in range(3):
+        fn()
+    if torch.device(device).type != "cuda":
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    fn()
+    spin_s = min(1.5 * reps * (time.perf_counter() - t) + 1e-4, 0.05)
+    torch.cuda.synchronize(device)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0e9 * spin_s))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize(device)
+    return e0.elapsed_time(e1) / reps
+
+
+def _local_csr(cd: torch.Tensor, elems: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's local operator of an element stack as a CSR tensor (the
+    library call's operand)."""
+    nd = cd.shape[1]
+    rows = cd[:, :, None].expand(-1, nd, nd).reshape(-1)
+    cols = cd[:, None, :].expand(-1, nd, nd).reshape(-1)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), elems.reshape(-1), (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def halo_kernel_checks(solver, dt, nu, seed: int = 0, timed: bool = False) -> dict:
+    """This rank's products between the halo refresh and fold, the kernel
+    against its plain version on the same inputs: K14 at batch d on A_lhs
+    (of the solver's next step) and on M, at batch 1 on Ap; under the band
+    layout K18 on A_lhs and M.  Inputs: float64 normal draws from ``seed``
+    and the rank on the owned slots (0 elsewhere), cast.  The largest
+    error of each, absolute and relative to the largest output, and
+    whether every halo and sentinel slot of the kernel's output is exactly
+    0.  On the CPU both sides are the plain version.  With ``timed``, each
+    product alone on the refreshed input (the ranks one after another):
+    the kernel's, the plain version's and the library call's (a CSR
+    product of the local operator) ms, and the bytes (operator entries with
+    their columns, input and output once) and operations of the bound."""
+    from ..assembly.band import band_values
+    from ..la import band as lb
+    from ..la import ell
+    from .graph import ell_values
+
+    sh, comm, dev, dt_ = solver._halo, solver._comm, solver._device, solver._dtype
+    st = solver._state_from_functions()
+    A = solver._assemble_first(st["u1"], st["u2"], dt, nu, solver._h_qvals())[0]
+    gen = torch.Generator().manual_seed(seed * 1000 + comm.rank)
+    own = {"v": sh.rounds_v.ownmask, "q": sh.rounds_q.ownmask}
+    draw = lambda shape, sp: (torch.randn(shape, generator=gen, dtype=torch.float64)
+                              .to(dev, dt_) * own[sp])
+    d = solver._mesh.dim
+    xv, xq = draw((d, sh.hx_v.nloc), "v"), draw((sh.hx_q.nloc,), "q")
+    eq = solver._ell_q
+    Ap = (solver._Ap_vals, eq.cols, eq.widths)
+    ctx = solver._ctx
+    # (kernel, plain version, input, space, element stack, entries)
+    cases = {"ell_matvec Ap": (lambda x: ell.ell_matvec(*Ap, x),
+                               lambda x: ell.ell_matvec_plain(Ap[0], Ap[1], x), xq, "q",
+                               solver._Ap_elems, eq.nnz)}
+    if solver._layout == "band":
+        bv = solver._band_v
+        for name, vals, E in (("A_lhs", band_values(A, bv), A),
+                              ("M", solver._M_vals, solver._M_elems)):
+            cases["band_matvec " + name] = (
+                lambda x, v=vals: lb.from_band(lb.band_matvec(v, *bv.tables, lb.to_band(x, bv)),
+                                               bv),
+                lambda x, v=vals: lb.from_band(
+                    lb.band_matvec_plain(v, *bv.tables, lb.to_band(x, bv)), bv), xv, "v", E,
+                bv.nnz)
+    else:
+        ev = solver._ell_v
+        for name, vals, E in (("A_lhs", ell_values(A, ev), A),
+                              ("M", solver._M_vals, solver._M_elems)):
+            cases["ell_matvec " + name] = (
+                lambda x, v=vals: ell.ell_matvec(v, ev.cols, ev.widths, x),
+                lambda x, v=vals: ell.ell_matvec_plain(v, ev.cols, x), xv, "v", E, ev.nnz)
+    out = {}
+    for name, (kfn, pfn, x, sp, E, nnz) in cases.items():
+        hr = sh.rounds_v if sp == "v" else sh.rounds_q
+        xr = halo_refresh(x, hr, comm)
+        y, ref = halo_fold(kfn(xr), hr, comm), halo_fold(pfn(xr), hr, comm)
+        scale = float(torch.max(torch.abs(ref)))
+        err = float(torch.max(torch.abs(y - ref)))
+        out[name] = dict(rel_err=err / max(scale, 1e-300), max_abs_err=err, max_out=scale,
+                         halo_zero=bool(torch.all(y[..., own[sp] == 0] == 0)),
+                         shape=list(x.shape))
+        if not timed:
+            continue
+        isz = x.element_size()
+        nb, n = (x.shape[0] if x.dim() == 2 else 1), x.shape[-1]
+        csr = _local_csr(ctx.cd_v if sp == "v" else ctx.cd_q, E, n)
+        xt = xr.T.contiguous() if x.dim() == 2 else xr
+        times = {}
+        for r in range(comm.size):  # one rank at a time on a shared card
+            if r == comm.rank:
+                times = dict(ms=_device_ms(lambda: kfn(xr), dev),
+                             plain_ms=_device_ms(lambda: pfn(xr), dev, reps=5),
+                             library_ms=_device_ms(lambda: csr @ xt, dev))
+            comm.barrier()
+        out[name].update(times, bytes=(isz + 4) * nnz + isz * 2 * nb * n,
+                         flops=2.0 * nnz * nb)
+    return out
+
+
+def _time_halo(solver, reps: int = 50) -> dict:
+    """Host-clock ms of one sum over ranks (one value) and of one halo
+    refresh of the velocity (d components), each the mean of ``reps``."""
+    comm, dev = solver._comm, solver._device
+    one = torch.ones(1, dtype=solver._dtype, device=dev)
+    u = solver._state_from_functions()["u"]
+    out = {}
+    for name, fn in (("sum_ms", lambda: comm.sum(one)),
+                     ("halo_ms", lambda: halo_refresh(u, solver._halo.rounds_v, comm))):
+        fn()
+        comm.barrier()
+        _sync(dev)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        out[name] = (time.perf_counter() - t) * 1e3 / reps
+    return out
+
+
+def run_halo(comm: Comm, cfg: dict) -> dict:
+    """The graph-halo solver of ``cfg`` (``halo_solver``'s keys, and dtype,
+    device, warmup, steps, dt, nu, max_iter, check, time_comm, profile as
+    ``run_tgv`` takes them; time_kernels: the checks' products timed;
+    ``p_cheb``: the Chebyshev bounds to use,
+    ``coarse_inv``: the AMG's coarse inverse to use) on this rank.  Returns
+    its set-up seconds by part, config, traffic, launch counts, per-step
+    stats and times; rank 0 also the canonical state and ``get_state``."""
+    from ..assembly import kernels as kn
+    from .launch import rank_device
+
+    dtype = getattr(torch, cfg.get("dtype", "float64"))
+    device = rank_device(comm, cfg.get("device", "cpu"))
+    t0 = time.perf_counter()
+    solver = halo_solver(cfg, dtype, device, device_mesh=comm)
+    setup_s = time.perf_counter() - t0
+    if cfg.get("p_cheb") is not None:
+        solver._p_cheb = dict(cfg["p_cheb"])
+    if cfg.get("coarse_inv") is not None:
+        solver._amg.coarse_inv = torch.as_tensor(np.asarray(cfg["coarse_inv"]),
+                                                 device=device).to(dtype)
+    dt, nu = cfg.get("dt", CYL_DT), cfg.get("nu", CYL_NU)
+    max_iter = cfg.get("max_iter", 1)
+    res = dict(rank=comm.rank, setup_s=setup_s, setup_parts=dict(solver._halo.times),
+               config=solver.config_report(), traffic=solver.halo_traffic_report())
+    clock = [time.perf_counter()]
+    times = res["times"] = {}
+
+    def lap(name):  # host seconds of each part after the set-up
+        clock.append(time.perf_counter())
+        times[name] = clock[-1] - clock[-2]
+
+    if cfg.get("warmup", 0):
+        solver.run(cfg["warmup"], dt, nu, max_iter=max_iter)
+    lap("warmup_s")
+    if cfg.get("check"):
+        res["kernels"] = halo_kernel_checks(solver, dt, nu, timed=cfg.get("time_kernels", False))
+    lap("check_s")
+    kn.reset_counts()
+    comm.reset_stats()
+    comm.barrier()
+    _sync(device)
+    t0 = time.perf_counter()
+    stats = solver.run(cfg["steps"], dt, nu, max_iter=max_iter)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
+               launches={k: v for k, v in kn.launches.items() if v},
+               plain_calls={k: v for k, v in kn.plain_calls.items() if v},
+               comm={k: list(v) for k, v in comm.stats.items()})
+    f = lambda g: np.array(g.x.array.double().cpu().numpy())
+    out = dict(u=np.stack([f(g) for g in solver._u]), u1=np.stack([f(g) for g in solver._u1]),
+               u2=np.stack([f(g) for g in solver._u2]), p=f(solver._p), dp=f(solver._dp),
+               state=solver.get_state())
+    lap("steps_and_state_s")
+    if comm.rank == 0:
+        res.update(out)
+    if cfg.get("time_comm"):
+        res.update(_time_halo(solver))
+    lap("time_comm_s")
+    if cfg.get("profile"):
+        res.update(_profile(solver, cfg["profile"], dt, nu))
+    lap("profile_s")
+    return res
+
+
+def halo_ops(comm: Comm, path: str) -> dict:
+    """The graph-halo exchange and products on the inputs of ``path`` (an
+    .npz: problem "cylinder" with res, or "vessel" with N; yv, yq, xv, xq
+    in the stacked local layout; elems_v, elems_q element stacks of every
+    cell), in float64 on the CPU: ``halo_refresh`` of xv / xq (owned slots
+    set), ``halo_fold`` of yv / yq (any slots set), and refresh -> the
+    plain K14 (and K18, on the band tables) on the rank's local operator
+    of the element stacks -> fold.  Returns this rank's block of each."""
+    from ..assembly.band import band_values, build_band_assembly
+    from ..la import band as lb
+    from ..la import ell
+    from .graph import build_ell_assembly, ell_values
+
+    z = np.load(path)
+    cfg = dict(problem=str(z["problem"]), res=int(z["res"]), N=int(z["N"]))
+    solver = halo_solver(cfg, torch.float64, "cpu", device_mesh=comm)
+    sh = solver._halo
+    k = comm.rank
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    blk = lambda a, n: t(a[..., k * n:(k + 1) * n])
+    nv, nq = sh.hx_v.nloc, sh.hx_q.nloc
+    out = dict(refresh_v=halo_refresh(blk(z["xv"], nv), sh.rounds_v, comm),
+               refresh_q=halo_refresh(blk(z["xq"], nq), sh.rounds_q, comm),
+               fold_v=halo_fold(blk(z["yv"], nv), sh.rounds_v, comm),
+               fold_q=halo_fold(blk(z["yq"], nq), sh.rounds_q, comm))
+    for sp, hx, hr, n in (("v", sh.hx_v, sh.rounds_v, nv), ("q", sh.hx_q, sh.rounds_q, nq)):
+        cd = sh.ctx.cd_v if sp == "v" else sh.ctx.cd_q
+        E = t(z["elems_" + sp][sh.cells])
+        x = halo_refresh(blk(z["x" + sp], n), hr, comm)
+        ea = build_ell_assembly(cd.numpy(), n, "cpu")
+        out["ell_" + sp] = halo_fold(ell.ell_matvec_plain(ell_values(E, ea), ea.cols, x), hr, comm)
+        ba = build_band_assembly(cd.numpy(), n, "cpu")
+        yb = lb.band_matvec_plain(band_values(E, ba), *ba.tables, lb.to_band(x, ba))
+        out["band_" + sp] = halo_fold(lb.from_band(yb, ba), hr, comm)
+    return {key: v.numpy() for key, v in out.items()}
+
+
+def halo_checks(comm: Comm, path: str | None, cfgs: list) -> dict:
+    """``halo_ops`` (with a ``path``) and ``run_halo`` of each of ``cfgs``
+    in one group, and whether this process imported anything of JAX."""
+    import sys
+
+    out = dict(runs=[run_halo(comm, c) for c in cfgs],
+               jax_free=not any(m.split(".")[0] in ("jax", "jaxlib", "oasisx_tpu")
+                                for m in sys.modules))
+    if path is not None:
+        out["ops"] = halo_ops(comm, path)
+    return out
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="bench.py's problem on the slab path")
+    ap = argparse.ArgumentParser(description="bench.py's problem on the sharded solver")
+    ap.add_argument("--problem", default="box", choices=("box", "vessel", "cylinder"),
+                    help="box: bench.py's structured problem (the slab path); vessel: its "
+                         "unstructured one, cylinder: the DFG channel with its outlet (the "
+                         "graph-halo path)")
     ap.add_argument("-N", type=int, default=16)
+    ap.add_argument("--res", type=int, default=30, help="the cylinder's resolution")
     ap.add_argument("--world", type=int, default=2, help="ranks to spawn (not under torchrun)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32")
@@ -365,10 +755,16 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     cfg = dict(N=a.N, device=a.device, dtype=a.dtype, rtol=a.rtol, warmup=a.warmup,
                steps=a.steps, time_comm=True)
+    fn = run_tgv
+    if a.problem != "box":
+        fn = run_halo
+        cfg.update(problem=a.problem, res=a.res)
+        if a.problem == "vessel":
+            cfg.update(dt=DT, nu=NU)
     if "RANK" in os.environ:  # under torchrun
         from .launch import run_env
 
-        res = [run_env(run_tgv, (cfg,), backend=a.backend)]
+        res = [run_env(fn, (cfg,), backend=a.backend)]
         if res[0]["rank"] != 0:
             return 0
     else:
@@ -376,10 +772,11 @@ def main(argv=None) -> int:
 
         backend = a.backend or ("nccl" if a.device == "cuda" and
                                 torch.cuda.device_count() >= a.world > 1 else "gloo")
-        res = launch(run_tgv, a.world, (cfg,), backend=backend)
+        res = launch(fn, a.world, (cfg,), backend=backend)
     r = res[0]
     print(json.dumps(dict(
-        N=a.N, world=r["config"]["ndev"], backend=r["config"]["backend"],
+        problem=a.problem, N=a.N, res=a.res, world=r["config"]["ndev"],
+        backend=r["config"]["backend"],
         steps_per_s=r["steps_per_s"], setup_s=r["setup_s"],
         iters=iters_per_step(r["stats"]),
         comm=r["comm"], sum_ms=r["sum_ms"], halo_ms=r["halo_ms"], traffic=r["traffic"])))

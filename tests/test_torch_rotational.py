@@ -167,9 +167,13 @@ def test_constructor_matches_jax_signature(caplog):
     assert pt[-1] == "device" and pt[:-1] == pj
     mesh = TM.create_rectangle((0.0, 0.0), (1.0, 1.0), (2, 2))
     args = (mesh, ("Lagrange", 2), ("Lagrange", 1), [[], []])
-    # a device_mesh takes the slab path; its refusals (here the rotational
-    # update) name the ROADMAP item of the sharded modes still to port
+    # a device_mesh with the rotational update takes the graph-halo path;
+    # the replicated mode is refused naming the ROADMAP item of the sharded
+    # features still to port, and a device_mesh that is not one is a TypeError
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        T.FractionalStep_AB_CN(*args, rotational=True, device_mesh=object(), device="cpu",
+                               options={"replicated": True})
+    with pytest.raises(TypeError, match="device_mesh"):
         T.FractionalStep_AB_CN(*args, rotational=True, device_mesh=object(), device="cpu")
     with caplog.at_level(logging.INFO, logger="oasisx_tpu_torch"):
         T.FractionalStep_AB_CN(*args, jit_options={"cffi_extra_compile_args": ["-O3"]},

@@ -21,11 +21,12 @@ in float64.
   preconditioner; Jacobi for the pressure with batched CG for the
   tentative solves (capped at 300 iterations: CG stalls on that
   nonsymmetric system from the second step in both packages).
-- The refusals: a leading cube count the ranks do not divide and the
-  split-phase API (in the spawned groups); an unstructured mesh, a
-  PressureBC, the rotational update, ``slab`` False and ``replicated``
-  (before any process group is touched); the lumped update falls back to
-  the mass CG.
+- The routing: a leading cube count the ranks do not divide runs
+  graph-halo, the split-phase API is refused (in the spawned groups); an
+  unstructured mesh, ``structured`` False, a PressureBC, the rotational
+  update and ``slab`` False run graph-halo (one world-1 group);
+  ``replicated`` is refused before any process group is touched; the
+  lumped update falls back to the mass CG.
 
 The ranks start before the JAX references are computed and are joined
 after them, with a time limit; each collective has a 60 s limit.  A rank
@@ -53,7 +54,7 @@ from tests.test_cubes import setup as jsetup  # noqa: E402
 import oasisx_tpu_torch as T  # noqa: E402
 import oasisx_tpu_torch.meshes as TM  # noqa: E402
 from oasisx_tpu_torch.assembly.structured import build_structured_map  # noqa: E402
-from oasisx_tpu_torch.fracstep import SLAB_ITEM  # noqa: E402
+from oasisx_tpu_torch.fracstep import SHARD_ITEM  # noqa: E402
 from oasisx_tpu_torch.parallel import ranks, slab as tsl  # noqa: E402
 from oasisx_tpu_torch.parallel.launch import launch, start  # noqa: E402
 from oasisx_tpu_torch.spaces import FunctionSpace  # noqa: E402
@@ -249,7 +250,7 @@ def test_slab_group(world, tmp_path, single_device):
     for o in out:
         ref_ = o["refusals"]
         assert ref_["jax_free"]
-        assert SLAB_ITEM in ref_["ndev"] and SLAB_ITEM in ref_["split"]
+        assert ref_["ndev"] == "graph-halo" and SHARD_ITEM in ref_["split"]
         assert ref_["velocity_update"] == "cg"
         assert ref_["groups"] == [(o["runs"][0]["rank"], world)] * 2
 
@@ -301,24 +302,24 @@ def _box():
     return m, meshtags(m, m.dim - 1, facets, np.full_like(facets, 1))
 
 
+@pytest.fixture(scope="module")
+def routed():
+    """The sharding mode of each graph-halo case (``ranks.routing``), all
+    built in one world-1 group."""
+    return launch(ranks.routing, 1, (ranks.ROUTED,))[0]
+
+
 @pytest.mark.parametrize("case", ["unstructured", "structured_false", "pressure_bc",
                                   "rotational", "slab_false", "replicated"])
-def test_refused_before_the_group(case):
+def test_refused_before_the_group(case, routed):
+    """The cases the JAX package sends to graph-halo take it; only
+    ``replicated`` is refused, before any process group is touched."""
+    if case != "replicated":
+        assert routed[case] == "graph-halo", (case, routed)
+        return
     m, tags = _box()
-    kw = {}
-    if case == "unstructured":
-        m.structured = None
-    elif case == "structured_false":
-        kw["options"] = {"structured": False}
-    elif case == "pressure_bc":
-        kw["bcs_p"] = [T.PressureBC(0.0, (tags, 1))]
-    elif case == "rotational":
-        kw["rotational"] = True
-    elif case == "slab_false":
-        kw["options"] = {"slab": False}
-    else:
-        kw["options"] = {"replicated": True}
     bcs = [[T.DirichletBC(0.0, T.LocatorMethod.TOPOLOGICAL, (tags, 1))] for _ in range(3)]
-    with pytest.raises(NotImplementedError, match=SLAB_ITEM):
+    with pytest.raises(NotImplementedError, match=SHARD_ITEM):
         T.FractionalStep_AB_CN(m, ("Lagrange", 2), ("Lagrange", 1), bcs, device="cpu",
-                               dtype=torch.float64, device_mesh=object(), **kw)
+                               dtype=torch.float64, device_mesh=object(),
+                               options={"replicated": True})

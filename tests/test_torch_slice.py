@@ -208,7 +208,9 @@ def test_port_imports_no_jax():
         "oasisx_tpu_torch.demo.fidelity_tgv, oasisx_tpu_torch.demo.fidelity_tg3d, "
         "oasisx_tpu_torch.utils, oasisx_tpu_torch.utils.timers, oasisx_tpu_torch.parallel.slab, "
         "oasisx_tpu_torch.parallel.comm, oasisx_tpu_torch.parallel.launch, "
-        "oasisx_tpu_torch.parallel.ranks, oasisx_tpu_torch.la.multigrid;"
+        "oasisx_tpu_torch.parallel.ranks, oasisx_tpu_torch.parallel.partition, "
+        "oasisx_tpu_torch.parallel.sharding, oasisx_tpu_torch.parallel.graph, "
+        "oasisx_tpu_torch.la.multigrid;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'oasisx_tpu')];"
         "assert not bad, bad"
     )

@@ -71,9 +71,9 @@ ELL_KERNELS = ("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_amg")
 BAND_KERNELS = ("band_matvec", "band_bicgstab", "band_cg", "ell_matvec", "ell_pcg_amg")
 # the graph-halo sharded general path: every product K14 on the rank's local
 # ELL operator between the halo refresh and fold (its Krylov loops run on the
-# host); under ell_layout="band" the velocity products K18
+# host); under ell_layout="band" every product K18 on band tables
 HALO_KERNELS = ("ell_matvec",)
-HALO_BAND_KERNELS = ("band_matvec", "ell_matvec")
+HALO_BAND_KERNELS = ("band_matvec",)
 KERNELS = (STRUCTURED_KERNELS + ("cube_scatter",) + ELL_KERNELS
            + ("band_matvec", "band_bicgstab", "band_cg"))
 # counted too: K17's V-cycle launched alone (tests and checks; not on a path)

@@ -114,10 +114,12 @@ mesh without a dof lattice or uniform cube geometry, or a leading cube count
 the ranks do not divide): the general element path on one cell block a rank
 (``parallel/sharding.py``), dof vectors in the rank's ``[owned | halo |
 sentinel]`` layout.  The engine's gathers refresh the halo and its scatters
-fold it; every operator product is halo refresh -> K14 (K18 for the
-velocity operators under ``ell_layout`` "band") on the rank's local ELL
-operator -> halo fold (``_halo_apply``), its values assembled from the
-element stack once a solve.  The tentative solves batched BiCGStab or CG
+fold it; every operator product is halo refresh -> K14 on the rank's
+local ELL operator (K18 on its band tables under ``ell_layout`` "band", in
+both spaces as the JAX halo band engine) -> halo fold (``_halo_apply``), its
+values assembled from the element stack once a solve.  The two sharded
+paths share the tentative, pressure and velocity-update solves
+(``_*_sharded``), each on its path's product.  The tentative solves batched BiCGStab or CG
 on the batch-d product with identity bc rows and x0 as given (GMRES a
 component at a time), the pressure CG on Ap (outlet rows masked)
 preconditioned by the distributed AMG (the fine level per rank, the
@@ -539,25 +541,33 @@ class FractionalStep_AB_CN:
         # The tables of the rank's local operators under graph-halo (nloc
         # rows, the local cell dofmaps)
         cd_v, nv = ctx.cd_v.cpu().numpy(), ctx.ndofs_v
+        cd_q, nq_loc = ctx.cd_q.cpu().numpy(), ctx.ndofs_q
+        self._ell_v = self._band_v = self._ell_q = None
         if self._layout == "band":
-            self._band_v = build_band_assembly(cd_v, nv, dev)
-            self._M_vals = band_values(self._M_elems, self._band_v)
+            self._asm_v = self._band_v = build_band_assembly(cd_v, nv, dev)
             self._M_invd_b = band.to_band(self._M_invd, self._band_v, fill=1.0)
         else:
-            self._ell_v = build_ell_assembly(cd_v, nv, dev)
-            self._M_vals = ell_values(self._M_elems, self._ell_v)
-        self._ell_q = build_ell_assembly(ctx.cd_q.cpu().numpy(), ctx.ndofs_q, dev)
-        self._Ap_vals = ell_values(self._Ap_elems, self._ell_q)
-        # the rotational update's Mq in ELL form and its Jacobi (no outlet rows)
-        self._Mq_vals = ell_values(c["Mq"], self._ell_q) if self._rotational else None
+            self._asm_v = self._ell_v = build_ell_assembly(cd_v, nv, dev)
+        # the pressure space: band tables too under graph-halo in the band
+        # layout (every product K18, as the JAX halo band engine); the
+        # single-device band layout keeps K14 / K17 on the flat Ap (ROADMAP
+        # known difference h)
+        if self._layout == "band" and self._halo is not None:
+            self._asm_q = build_band_assembly(cd_q, nq_loc, dev)
+        else:
+            self._asm_q = self._ell_q = build_ell_assembly(cd_q, nq_loc, dev)
+        self._M_vals = self._op_values(self._M_elems, "v")[0]
+        self._Ap_vals = self._op_values(self._Ap_elems, "q")[0]
+        # the rotational update's Mq and its Jacobi (no outlet rows)
+        self._Mq_vals = self._op_values(c["Mq"], "q")[0] if self._rotational else None
         self._Mq_invd = _inv(eng.diagonal_q(ctx, c["Mq"])) if self._rotational else None
-        self._amg = self._p_cheb = self._amg_M = None
+        self._amg = self._p_cheb = self._mg_M = None
         pc = str(popts.get("pc_type", "amg")).lower()
         if pc in AMG_PC_TYPES:
             t0 = time.perf_counter()
             self._amg = self._build_amg(popts, pmask)
             if self._halo is not None:
-                self._amg_M = self._make_amg_halo_M(bool(popts.get("amg_distributed", True)))
+                self._mg_M = self._make_amg_halo_M(bool(popts.get("amg_distributed", True)))
                 self._halo.times["amg_s"] = time.perf_counter() - t0
                 return
             self._amg_data = amg_kernel_data(self._amg)
@@ -700,13 +710,14 @@ class FractionalStep_AB_CN:
         self._intw = self._shard_part(cub.matvec_cube(valid_g, g.Mq_c, smq), "q", "g2s")
         self._T = torch.as_tensor(kn.conv_weight_tensor(self._cu), dtype=dt, device=dev)
         self._bc_masks = self._bc_mask_tensor()
-        self._mg = self._p_cheb = None
+        self._mg = self._p_cheb = self._mg_M = self._pbc_mask = None
+        self._M_invd = _inv(self._M_diag)
         pc = str(popts.get("pc_type", "mg")).lower()
         structured_ok = self._Q.element.degree == 1 and min(self._mesh.structured.shape) >= 4
         if structured_ok and pc in AMG_PC_TYPES:
             try:
                 self._mg = StructuredPoissonMG(self._mesh, dtype=dt, device=dev)
-                self._mg_apply = self._make_mg_slab_M()
+                self._mg_M = self._make_mg_slab_M()
                 logger.info("pressure MG under slab sharding (gathered V-cycle): %d levels",
                             self._mg.num_levels)
             except ValueError as e:
@@ -724,7 +735,9 @@ class FractionalStep_AB_CN:
     def _make_mg_slab_M(self):
         """The MG preconditioner on the slab (oasisx_tpu fracstep.py:
         1765-1787): gather the ranks' slabs of the residual, one V-cycle on
-        the whole grid, this rank's slab of it back (halo slots zero)."""
+        the whole grid, this rank's slab of it back (halo slots zero); as a
+        function of the product, as ``_make_amg_halo_M``'s, which it does
+        not read."""
         info, comm, mg = self._slab, self._comm, self._mg
         g2s = np.asarray(info.grid_to_slab_q)
         npad_grid = g2s.shape[0]
@@ -738,7 +751,7 @@ class FractionalStep_AB_CN:
             z = mg.vcycle(comm.gather(r_loc).reshape(-1)[g2s_t])
             return torch.cat([z, z.new_zeros(1)])[inv_row]
 
-        return M
+        return lambda mv: M
 
     def _slab_op(self, kernel, x, space_in: str, space_out: str):
         from .parallel.slab import slab_apply
@@ -769,52 +782,74 @@ class FractionalStep_AB_CN:
             b_first = b_first + self._b0_dev
         return W, uq, b_first
 
-    def _tentative_solve_slab(self, W, diag, rhs1, bc_vals, u, x0):
-        """(oasisx_tpu fracstep.py:2442-2458) batched BiCGStab (CG for a
-        ``ksp_type`` cg) in the XLA formulation: the product K3 on the slab
-        with identity bc rows, x0 as given, Jacobi with 1 on the bc rows;
-        every reduction summed over the ranks."""
-        masks, sm, s = self._bc_masks, self._sm_v, self._solver_u
+    # ------------------------------------------------------------------
+    # the solves of both sharded paths, on the path's product ``op``: K3 /
+    # K5 on the slab, K14 / K18 between the halo refresh and fold under
+    # graph-halo; every reduction summed over the ranks
+    # ------------------------------------------------------------------
+    def _tentative_solve_sharded(self, op, diag, rhs1, bc_vals, u, x0):
+        """(oasisx_tpu fracstep.py:2442-2458, 2489-2540) batched BiCGStab
+        (CG for a ``ksp_type`` cg) in the XLA formulation: the batch-d
+        product ``op`` with identity bc rows, x0 as given, Jacobi with 1 on
+        the bc rows; GMRES (graph-halo only) a component at a time."""
+        masks, s = self._bc_masks, self._solver_u
         rhs = torch.where(masks, bc_vals, rhs1)
-        mv = lambda x: eng.apply_bc_rows(
-            masks, self._slab_op(lambda v: kn.matvec_win(W, v, sm), x, "v", "v"), x)
-        M = krylov.jacobi_preconditioner(torch.where(masks, torch.ones_like(bc_vals), diag[None]))
-        solve = krylov.cg_batched if self._tentative_method() == "cg" else \
-            krylov.bicgstab_batched
-        res = solve(mv, rhs, x0=x0, M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter,
-                    comm=self._comm)
+        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
+        kw = dict(rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=self._comm)
+        method = self._tentative_method()
+        if method == "gmres":
+            out = []
+            for i in range(rhs.shape[0]):
+                A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, op(x), x)
+                out.append(krylov.gmres(A_i, rhs[i], x0=x0[i],
+                                        M=krylov.jacobi_preconditioner(dfull[i]),
+                                        restart=s.gmres_restart, **kw))
+            res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
+                                      sum(r.syncs for r in out))
+        else:
+            mv = lambda x: eng.apply_bc_rows(masks, op(x), x)
+            solve = krylov.cg_batched if method == "cg" else krylov.bicgstab_batched
+            res = solve(mv, rhs, x0=x0, M=krylov.jacobi_preconditioner(dfull), **kw)
         diff = torch.sum(self._gnorm(res.x - u))
         return res, diff, _rel_res(res.resnorm, self._gnorm(rhs))
 
-    def _pressure_solve_slab(self, b2, dp0):
-        """(oasisx_tpu fracstep.py:2571-2610) CG on K5/K12's slab product of
-        Ap, preconditioned by the gathered MG (or Chebyshev, or Jacobi),
-        the null space projected with the owned-dof mask, the
-        volume-weighted mean removed; every reduction over the ranks."""
-        cu, sm, s, nv = self._cu, self._sm_q, self._solver_p, self._q_null
-        mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, cu.Ap_c, sm), x, "q", "q")
+    def _pressure_solve_sharded(self, b2, dp0):
+        """(oasisx_tpu fracstep.py:2571-2610, 2620-2735) CG on the sharded
+        product of Ap (``_pressure_matvec``), preconditioned by the path's
+        multigrid (the gathered MG on the slab, the AMG under graph-halo),
+        Chebyshev-Jacobi or Jacobi.  With an outlet dp0 as it is; else the
+        nullspace (the owned-slot mask) projected out with summed dots and
+        the volume-weighted mean removed."""
+        s, comm, mv = self._solver_p, self._comm, self._pressure_matvec()
         ch = self._p_cheb
-        if self._mg is not None:
-            M = self._mg_apply
+        if self._mg_M is not None:
+            M = self._mg_M(mv)
         elif ch is not None:
             M = krylov.chebyshev_preconditioner(mv, _inv(self._Ap_diag), ch["lmin"], ch["lmax"],
                                                 ch["degree"])
         else:
             M = krylov.jacobi_preconditioner(self._Ap_diag)
-        x0 = dp0 - (self._comm.sum(torch.dot(nv, dp0)) / self._comm.sum(torch.dot(nv, nv))) * nv
-        res = krylov.cg(mv, b2, x0=x0, M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter,
-                        project_nullspace=True, nullvec=nv, comm=self._comm)
-        dp = res.x - (self._comm.sum(torch.dot(self._intw, res.x)) / self._vol) * nv
-        return res, dp, _rel_res(res.resnorm, self._gnorm(b2))
+        kw = dict(M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=comm)
+        if self._pbc_mask is not None:
+            res = krylov.cg(mv, b2, x0=dp0, **kw)
+            return res, res.x, _rel_res(res.resnorm, self._gnorm(b2))
+        nv = self._q_null
+        d = comm.sum(torch.stack([torch.dot(nv, dp0), torch.dot(nv, nv)]))
+        res = krylov.cg(mv, b2, x0=dp0 - (d[0] / d[1]) * nv, project_nullspace=True, nullvec=nv,
+                        **kw)
+        if self._slab is not None:
+            w = comm.sum(torch.dot(self._intw, res.x))
+        else:
+            w = eng.integrate(self._ctx, eng.eval_q_at_qp(self._ctx, res.x))
+        return res, res.x - (w / self._vol) * nv, _rel_res(res.resnorm, self._gnorm(b2))
 
-    def _velocity_update_slab(self, u, dp, dt, duc):
-        """(oasisx_tpu fracstep.py:2786-2806) batched Jacobi-CG on K5's slab
-        product of M from x0 = u + duc, b3 = M u - dt G dp (K6)."""
-        cu, sv, sq, sc = self._cu, self._sm_v, self._sm_q, self._solver_c
-        g = self._slab_op(lambda p: kn.mixed(p, cu.G_c, sv, sq), dp, "q", "v")
-        mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, cu.M_c, sv), x, "v", "v")
-        b3 = mv(u) - dt * g
-        res = krylov.cg_batched(mv, b3, x0=u + duc, M=krylov.jacobi_preconditioner(self._M_diag),
+    def _velocity_update_sharded(self, op, u, g, dt, duc):
+        """(oasisx_tpu fracstep.py:2786-2806, 2943-2953) batched Jacobi-CG
+        on the sharded product ``op`` of M from x0 = u + duc, b3 = M u - dt
+        G dp (``g`` = G dp)."""
+        sc = self._solver_c
+        b3 = op(u) - dt * g
+        res = krylov.cg_batched(op, b3, x0=u + duc, M=lambda r: self._M_invd * r,
                                 rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
         return res, _rel_res(res.resnorm, self._gnorm(b3))
 
@@ -833,12 +868,16 @@ class FractionalStep_AB_CN:
             y = ell.ell_matvec(vals, asm.cols, asm.widths, x)
         return halo_fold(y, hr, self._comm)
 
-    def _velocity_op(self, elems):
-        """(values, tables) of a velocity-space element stack in the
-        layout's form: ELL, or band under ``ell_layout`` "band"."""
-        if self._layout == "band":
-            return band_values(elems, self._band_v), self._band_v
-        return ell_values(elems, self._ell_v), self._ell_v
+    def _op_values(self, elems, space: str):
+        """(values, tables) of an element stack of ``space`` ("v" or "q")
+        on the general path's operator (the rank's local one under
+        graph-halo): ELL, or band under ``ell_layout`` "band" (under
+        graph-halo in both spaces, as the JAX halo band engine, oasisx_tpu
+        fracstep.py:1106-1145)."""
+        asm = self._asm_v if space == "v" else self._asm_q
+        if isinstance(asm, BandAssembly):
+            return band_values(elems, asm), asm
+        return ell_values(elems, asm), asm
 
     def _global_pressure_operator(self, pmask: np.ndarray):
         """(K14's product of the whole pressure Laplacian with identity
@@ -918,66 +957,12 @@ class FractionalStep_AB_CN:
 
         return M
 
-    def _tentative_solve_halo(self, A, diag, rhs1, bc_vals, u, x0):
-        """(oasisx_tpu fracstep.py:2489-2540) batched BiCGStab, or CG, on
-        the halo'd batch-d product of A_lhs with identity bc rows, x0 as
-        given, Jacobi with 1 on the bc rows; GMRES a component at a time.
-        Every reduction summed over the ranks."""
-        masks, s, comm = self._bc_masks, self._solver_u, self._comm
-        rhs = torch.where(masks, bc_vals, rhs1)
-        vals, asm = self._velocity_op(A)
-        dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
-        kw = dict(rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=comm)
-        if s.method == "gmres":
-            out = []
-            for i in range(rhs.shape[0]):
-                A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, self._halo_apply(vals, asm, x,
-                                                                                  "v"), x)
-                out.append(krylov.gmres(A_i, rhs[i], x0=x0[i],
-                                        M=krylov.jacobi_preconditioner(dfull[i]),
-                                        restart=s.gmres_restart, **kw))
-            res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
-                                      sum(r.syncs for r in out))
-        else:
-            mv = lambda x: eng.apply_bc_rows(masks, self._halo_apply(vals, asm, x, "v"), x)
-            solve = krylov.cg_batched if s.method == "cg" else krylov.bicgstab_batched
-            res = solve(mv, rhs, x0=x0, M=krylov.jacobi_preconditioner(dfull), **kw)
-        diff = torch.sum(self._gnorm(res.x - u))
-        return res, diff, _rel_res(res.resnorm, self._gnorm(rhs))
-
-    def _pressure_solve_halo(self, b2, dp0):
-        """(oasisx_tpu fracstep.py:2620-2735) CG on the halo'd K14 product
-        of Ap (outlet rows and columns identity where there is an outlet),
-        preconditioned by the AMG, Chebyshev-Jacobi or Jacobi; without an
-        outlet the nullspace (the owned-slot mask) projected out with summed
-        dots and the volume-weighted mean removed."""
-        s, comm, mv = self._solver_p, self._comm, self._pressure_matvec()
-        ch = self._p_cheb
-        if self._amg is not None:
-            M = self._amg_M(mv)
-        elif ch is not None:
-            M = krylov.chebyshev_preconditioner(mv, _inv(self._Ap_diag), ch["lmin"], ch["lmax"],
-                                                ch["degree"])
-        else:
-            M = krylov.jacobi_preconditioner(self._Ap_diag)
-        kw = dict(M=M, rtol=s.rtol, atol=s.atol, maxiter=s.maxiter, comm=comm)
-        if self._pbc_mask is not None:
-            res = krylov.cg(mv, b2, x0=dp0, **kw)
-            dp = res.x
-        else:
-            nv, ctx = self._q_null, self._ctx
-            d = comm.sum(torch.stack([torch.dot(nv, dp0), torch.dot(nv, nv)]))
-            res = krylov.cg(mv, b2, x0=dp0 - (d[0] / d[1]) * nv, project_nullspace=True,
-                            nullvec=nv, **kw)
-            dp = res.x - (eng.integrate(ctx, eng.eval_q_at_qp(ctx, res.x)) / self._vol) * nv
-        return res, dp, _rel_res(res.resnorm, self._gnorm(b2))
-
     def _rotational_update_halo(self, p, dp, u, nu):
         """(oasisx_tpu fracstep.py:2740-2765) CG on the halo'd Mq from x0 =
         p + dp, rhs = Mq (p + dp) - xi nu (div u, q), Jacobi on diag(Mq),
         the ``scalar`` family's tolerances; results batched as one row."""
         sc, ctx = self._solver_c, self._ctx
-        mv = lambda x: self._halo_apply(self._Mq_vals, self._ell_q, x, "q")
+        mv = lambda x: self._halo_apply(self._Mq_vals, self._asm_q, x, "q")
         x0 = p + dp
         rhs = mv(x0) - (self._xi * nu) * eng.source_load_vec_q(ctx, eng.div_v_at_qp(ctx, u))
         res = krylov.cg(mv, rhs, x0=x0, M=lambda r: self._Mq_invd * r, rtol=sc.rtol,
@@ -985,17 +970,6 @@ class FractionalStep_AB_CN:
         res = res._replace(iters=res.iters[None], resnorm=res.resnorm[None],
                            converged=res.converged[None])
         return res, res.x, _rel_res(res.resnorm, self._gnorm(rhs)[None])
-
-    def _velocity_update_halo(self, u, g, dt, duc):
-        """(oasisx_tpu fracstep.py:2943-2953) batched Jacobi-CG on the halo'd
-        product of M from x0 = u + duc, b3 = M u - dt G dp."""
-        sc = self._solver_c
-        mv = lambda x: self._halo_apply(self._M_vals, self._band_v if self._layout == "band"
-                                        else self._ell_v, x, "v")
-        b3 = mv(u) - dt * g
-        res = krylov.cg_batched(mv, b3, x0=u + duc, M=lambda r: self._M_invd * r,
-                                rtol=sc.rtol, atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
-        return res, _rel_res(res.resnorm, self._gnorm(b3))
 
     def halo_traffic_report(self) -> dict | None:
         """The halo exchange's traffic (oasisx_tpu fracstep.py:445-503):
@@ -1038,11 +1012,15 @@ class FractionalStep_AB_CN:
                                       f"sharded paths) is not ported: {SHARD_ITEM}")
 
     def _pressure_matvec(self):
-        """The general path's pressure operator on K14 (halo'd under
-        graph-halo), with identity rows and columns on the outlet dofs where
-        there is an outlet."""
-        if self._halo is not None:
-            mv = lambda x: self._halo_apply(self._Ap_vals, self._ell_q, x, "q")
+        """The pressure operator of the general and sharded paths: K14
+        (halo'd under graph-halo, K18 there in the band layout; K5 on the
+        slab), with identity rows and columns on the outlet dofs where there
+        is an outlet."""
+        if self._slab is not None:
+            Ap_c, sm = self._cu.Ap_c, self._sm_q
+            mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, Ap_c, sm), x, "q", "q")
+        elif self._halo is not None:
+            mv = lambda x: self._halo_apply(self._Ap_vals, self._asm_q, x, "q")
         else:
             op = (self._Ap_vals, self._ell_q.cols, self._ell_q.widths)
             mv = lambda x: ell.ell_matvec(*op, x)
@@ -1160,13 +1138,10 @@ class FractionalStep_AB_CN:
         )
 
     def _config_halo(self, common: dict) -> dict:
-        sh, eq = self._halo, self._ell_q
-        if self._layout == "band":
-            bv = self._band_v
-            velocity = {"S_v": bv.S, "P_v": bv.P, "R_v": bv.R, "n_v": bv.n, "nnz_v": bv.nnz}
-        else:
-            ev = self._ell_v
-            velocity = {"K_v": ev.K, "n_v": ev.n, "nnz_v": ev.nnz}
+        sh, tables = self._halo, {}
+        for sp, asm in (("v", self._asm_v), ("q", self._asm_q)):
+            keys = ("S", "P", "R") if isinstance(asm, BandAssembly) else ("K",)
+            tables.update({f"{k}_{sp}": getattr(asm, k) for k in keys + ("n", "nnz")})
         if self._amg is not None:
             pressure = dict(pressure_pc=self._amg_kind, pressure_mg_levels=self._amg.num_levels)
         elif self._p_cheb is None:
@@ -1178,8 +1153,7 @@ class FractionalStep_AB_CN:
         return dict(common, **pressure, sharding="graph-halo", ndev=sh.ndev, rank=sh.rank,
                     backend=self._comm.backend, partitioner=dict(sh.partition),
                     cells=len(sh.cells), path_kernels=list(kernels), low_memory=self._low_memory,
-                    outlet=bool(self._bcs_p), ell_layout=self._layout,
-                    ell=dict(velocity, K_q=eq.K, n_q=eq.n, nnz_q=eq.nnz))
+                    outlet=bool(self._bcs_p), ell_layout=self._layout, ell=tables)
 
     def _tentative_method(self) -> str:
         """The tentative solves' method: the ``ksp_type``'s, except GMRES on
@@ -1296,9 +1270,13 @@ class FractionalStep_AB_CN:
         cg runs batched CG there.  Returns (KrylovResult, diff against u,
         relative exit residual)."""
         if self._slab is not None:
-            return self._tentative_solve_slab(A, diag, rhs1, bc_vals, u, x0)
+            sm = self._sm_v
+            op = lambda x: self._slab_op(lambda v: kn.matvec_win(A, v, sm), x, "v", "v")
+            return self._tentative_solve_sharded(op, diag, rhs1, bc_vals, u, x0)
         if self._halo is not None:
-            return self._tentative_solve_halo(A, diag, rhs1, bc_vals, u, x0)
+            vals, asm = self._op_values(A, "v")
+            op = lambda x: self._halo_apply(vals, asm, x, "v")
+            return self._tentative_solve_sharded(op, diag, rhs1, bc_vals, u, x0)
         if self._tentative_method() != "bcgs":
             return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
@@ -1402,10 +1380,8 @@ class FractionalStep_AB_CN:
         products with the loop on the host; with the outlet mask (dp0 as it
         is), or with the nullspace (warm start demeaned, volume-weighted zero
         mean after)."""
-        if self._slab is not None:
-            return self._pressure_solve_slab(b2, dp0)
-        if self._halo is not None:
-            return self._pressure_solve_halo(b2, dp0)
+        if self._comm is not None:
+            return self._pressure_solve_sharded(b2, dp0)
         if self._structured:
             nv = self._q_null
             x0 = dp0 - (torch.dot(nv, dp0) / torch.dot(nv, nv)) * nv
@@ -1489,7 +1465,10 @@ class FractionalStep_AB_CN:
         if self._lumped:
             return self._lumped_update(u, dp, dt)
         if self._slab is not None:
-            return self._velocity_update_slab(u, dp, dt, duc)
+            cu, sv, sq = self._cu, self._sm_v, self._sm_q
+            g = self._slab_op(lambda p: kn.mixed(p, cu.G_c, sv, sq), dp, "q", "v")
+            op = lambda x: self._slab_op(lambda v: kn.matvec_const(v, cu.M_c, sv), x, "v", "v")
+            return self._velocity_update_sharded(op, u, g, dt, duc)
         sc = self._solver_c
         rtol = _effective_rtol(sc.rtol, self._dtype)
         if self._structured:
@@ -1503,7 +1482,8 @@ class FractionalStep_AB_CN:
             else:
                 g = eng.matvec_vq(ctx, self._grad_p, dp)
             if self._halo is not None:
-                return self._velocity_update_halo(u, g, dt, duc)
+                op = lambda x: self._halo_apply(self._M_vals, self._asm_v, x, "v")
+                return self._velocity_update_sharded(op, u, g, dt, duc)
             if self._layout == "band":
                 return self._velocity_update_band(u, g, dt, duc, rtol)
             ev = self._ell_v

@@ -470,19 +470,16 @@ def cylinder_solver(res: int, dtype, device, rtol: float, device_mesh=None,
 
 
 def halo_solver(cfg: dict, dtype, device, device_mesh=None):
-    """The problem of ``cfg``: "problem" "vessel" (N), "cylinder" (res,
-    rotational) or "box" (N, the Taylor-Green box with ``slab`` False);
-    rtol, solver_options and options as those functions take them."""
+    """The problem of ``cfg``: "problem" "vessel" (N) or "cylinder" (res,
+    rotational); rtol, solver_options and options as those functions take
+    them."""
     kw = dict(device_mesh=device_mesh, solver_options=cfg.get("solver_options"),
               options=cfg.get("options"))
     rtol = cfg.get("rtol", 1e-8)
     if cfg["problem"] == "vessel":
         return vessel_solver(cfg["N"], dtype, device, rtol, **kw)
-    if cfg["problem"] == "cylinder":
-        return cylinder_solver(cfg["res"], dtype, device, rtol,
-                               rotational=cfg.get("rotational", False), **kw)
-    kw["options"] = dict({"slab": False}, **(kw["options"] or {}))
-    return tgv_solver(cfg["N"], dtype, device, rtol, **kw)
+    return cylinder_solver(cfg["res"], dtype, device, rtol,
+                           rotational=cfg.get("rotational", False), **kw)
 
 
 def _device_ms(fn, device, reps: int = 20) -> float:
@@ -523,80 +520,71 @@ def _local_csr(cd: torch.Tensor, elems: torch.Tensor, n: int) -> torch.Tensor:
 
 def halo_kernel_checks(solver, dt, nu, seed: int = 0, timed: bool = False) -> dict:
     """This rank's products between the halo refresh and fold, the kernel
-    against its plain version on the same inputs: K14 at batch d on A_lhs
-    (of the solver's next step) and on M, at batch 1 on Ap; under the band
-    layout K18 on A_lhs and M.  Inputs: float64 normal draws from ``seed``
-    and the rank on the owned slots (0 elsewhere), cast.  The largest
-    error of each, absolute and relative to the largest output, and
-    whether every halo and sentinel slot of the kernel's output is exactly
-    0.  On the CPU both sides are the plain version.  With ``timed``, each
-    product alone on the refreshed input (the ranks one after another):
-    the kernel's, the plain version's and the library call's (a CSR
-    product of the local operator) ms, and the bytes (operator entries with
-    their columns, input and output once) and operations of the bound."""
-    from ..assembly.band import band_values
+    against its plain version on the same inputs: K14 (K18 on the band
+    tables under the band layout) at batch d on A_lhs (of the solver's next
+    step) and on M, at batch 1 on Ap.  Inputs: float64 normal draws from
+    ``seed`` and the rank on the owned slots (0 elsewhere), cast, then
+    refreshed.  Of each product: the kernel's own output against the plain
+    version's on every slot before the fold (``raw_rel_err``: the halo
+    slots' partial sums are what the fold sends to their owners) and its
+    sentinel slot exactly 0 (``sentinel_zero``); after the fold the largest
+    error, absolute and relative to the largest output, and whether every
+    halo and sentinel slot is exactly 0 (``halo_zero``: the fold's mask,
+    which a non-finite value would survive).  On the CPU both sides are the
+    plain version.  With ``timed``, the kernel alone on its input in its
+    own layout (the ranks one after another): the kernel's, the plain
+    version's and the library call's (a CSR product of the local operator)
+    ms, and the bytes (operator entries with their columns, input and
+    output once) and operations of the bound."""
+    from ..assembly.band import BandAssembly
     from ..la import band as lb
     from ..la import ell
-    from .graph import ell_values
 
     sh, comm, dev, dt_ = solver._halo, solver._comm, solver._device, solver._dtype
     st = solver._state_from_functions()
     A = solver._assemble_first(st["u1"], st["u2"], dt, nu, solver._h_qvals())[0]
     gen = torch.Generator().manual_seed(seed * 1000 + comm.rank)
-    own = {"v": sh.rounds_v.ownmask, "q": sh.rounds_q.ownmask}
-    draw = lambda shape, sp: (torch.randn(shape, generator=gen, dtype=torch.float64)
-                              .to(dev, dt_) * own[sp])
-    d = solver._mesh.dim
-    xv, xq = draw((d, sh.hx_v.nloc), "v"), draw((sh.hx_q.nloc,), "q")
-    eq = solver._ell_q
-    Ap = (solver._Ap_vals, eq.cols, eq.widths)
-    ctx = solver._ctx
-    # (kernel, plain version, input, space, element stack, entries)
-    cases = {"ell_matvec Ap": (lambda x: ell.ell_matvec(*Ap, x),
-                               lambda x: ell.ell_matvec_plain(Ap[0], Ap[1], x), xq, "q",
-                               solver._Ap_elems, eq.nnz)}
-    if solver._layout == "band":
-        bv = solver._band_v
-        for name, vals, E in (("A_lhs", band_values(A, bv), A),
-                              ("M", solver._M_vals, solver._M_elems)):
-            cases["band_matvec " + name] = (
-                lambda x, v=vals: lb.from_band(lb.band_matvec(v, *bv.tables, lb.to_band(x, bv)),
-                                               bv),
-                lambda x, v=vals: lb.from_band(
-                    lb.band_matvec_plain(v, *bv.tables, lb.to_band(x, bv)), bv), xv, "v", E,
-                bv.nnz)
-    else:
-        ev = solver._ell_v
-        for name, vals, E in (("A_lhs", ell_values(A, ev), A),
-                              ("M", solver._M_vals, solver._M_elems)):
-            cases["ell_matvec " + name] = (
-                lambda x, v=vals: ell.ell_matvec(v, ev.cols, ev.widths, x),
-                lambda x, v=vals: ell.ell_matvec_plain(v, ev.cols, x), xv, "v", E, ev.nnz)
+    ctx, d = solver._ctx, solver._mesh.dim
     out = {}
-    for name, (kfn, pfn, x, sp, E, nnz) in cases.items():
+    for name, E, sp in (("A_lhs", A, "v"), ("M", solver._M_elems, "v"),
+                        ("Ap", solver._Ap_elems, "q")):
         hr = sh.rounds_v if sp == "v" else sh.rounds_q
-        xr = halo_refresh(x, hr, comm)
-        y, ref = halo_fold(kfn(xr), hr, comm), halo_fold(pfn(xr), hr, comm)
+        n = hr.ownmask.shape[0]
+        x = torch.randn((d, n) if sp == "v" else (n,), generator=gen, dtype=torch.float64)
+        xr = halo_refresh(x.to(dev, dt_) * hr.ownmask, hr, comm)
+        vals, asm = solver._op_values(E, sp)
+        if isinstance(asm, BandAssembly):
+            kname, xk, back = "band_matvec", lb.to_band(xr, asm), lambda y: lb.from_band(y, asm)
+            kfn = lambda t: lb.band_matvec(vals, *asm.tables, t)
+            pfn = lambda t: lb.band_matvec_plain(vals, *asm.tables, t)
+        else:
+            kname, xk, back = "ell_matvec", xr, lambda y: y
+            kfn = lambda t: ell.ell_matvec(vals, asm.cols, asm.widths, t)
+            pfn = lambda t: ell.ell_matvec_plain(vals, asm.cols, t)
+        yk, yp = back(kfn(xk)), back(pfn(xk))
+        raw = float(torch.max(torch.abs(yk - yp))) / max(float(torch.max(torch.abs(yp))), 1e-300)
+        y, ref = halo_fold(yk, hr, comm), halo_fold(yp, hr, comm)
         scale = float(torch.max(torch.abs(ref)))
         err = float(torch.max(torch.abs(y - ref)))
-        out[name] = dict(rel_err=err / max(scale, 1e-300), max_abs_err=err, max_out=scale,
-                         halo_zero=bool(torch.all(y[..., own[sp] == 0] == 0)),
-                         shape=list(x.shape))
+        rec = out[f"{kname} {name}"] = dict(
+            rel_err=err / max(scale, 1e-300), max_abs_err=err, max_out=scale, raw_rel_err=raw,
+            sentinel_zero=bool(torch.all(yk[..., -1] == 0)),
+            halo_zero=bool(torch.all(y[..., hr.ownmask == 0] == 0)), shape=list(x.shape))
         if not timed:
             continue
-        isz = x.element_size()
-        nb, n = (x.shape[0] if x.dim() == 2 else 1), x.shape[-1]
+        isz = xr.element_size()
+        nb = x.shape[0] if x.dim() == 2 else 1
         csr = _local_csr(ctx.cd_v if sp == "v" else ctx.cd_q, E, n)
         xt = xr.T.contiguous() if x.dim() == 2 else xr
         times = {}
         for r in range(comm.size):  # one rank at a time on a shared card
             if r == comm.rank:
-                times = dict(ms=_device_ms(lambda: kfn(xr), dev),
-                             plain_ms=_device_ms(lambda: pfn(xr), dev, reps=5),
+                times = dict(ms=_device_ms(lambda: kfn(xk), dev),
+                             plain_ms=_device_ms(lambda: pfn(xk), dev, reps=5),
                              library_ms=_device_ms(lambda: csr @ xt, dev))
             comm.barrier()
-        out[name].update(times, bytes=(isz + 4) * nnz + isz * 2 * nb * n,
-                         flops=2.0 * nnz * nb)
+        rec.update(times, bytes=(isz + 4) * asm.nnz + isz * 2 * nb * n,
+                   flops=2.0 * asm.nnz * nb)
     return out
 
 
@@ -622,8 +610,8 @@ def _time_halo(solver, reps: int = 50) -> dict:
 
 def run_halo(comm: Comm, cfg: dict) -> dict:
     """The graph-halo solver of ``cfg`` (``halo_solver``'s keys, and dtype,
-    device, warmup, steps, dt, nu, max_iter, check, time_comm, profile as
-    ``run_tgv`` takes them; time_kernels: the checks' products timed;
+    device, warmup, steps, dt, nu, check, time_comm, profile as ``run_tgv``
+    takes them; max_iter 1; time_kernels: the checks' products timed;
     ``p_cheb``: the Chebyshev bounds to use,
     ``coarse_inv``: the AMG's coarse inverse to use) on this rank.  Returns
     its set-up seconds by part, config, traffic, launch counts, per-step
@@ -642,7 +630,6 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
         solver._amg.coarse_inv = torch.as_tensor(np.asarray(cfg["coarse_inv"]),
                                                  device=device).to(dtype)
     dt, nu = cfg.get("dt", CYL_DT), cfg.get("nu", CYL_NU)
-    max_iter = cfg.get("max_iter", 1)
     res = dict(rank=comm.rank, setup_s=setup_s, setup_parts=dict(solver._halo.times),
                config=solver.config_report(), traffic=solver.halo_traffic_report())
     clock = [time.perf_counter()]
@@ -653,7 +640,7 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
         times[name] = clock[-1] - clock[-2]
 
     if cfg.get("warmup", 0):
-        solver.run(cfg["warmup"], dt, nu, max_iter=max_iter)
+        solver.run(cfg["warmup"], dt, nu, max_iter=1)
     lap("warmup_s")
     if cfg.get("check"):
         res["kernels"] = halo_kernel_checks(solver, dt, nu, timed=cfg.get("time_kernels", False))
@@ -663,7 +650,7 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     comm.barrier()
     _sync(device)
     t0 = time.perf_counter()
-    stats = solver.run(cfg["steps"], dt, nu, max_iter=max_iter)
+    stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
     _sync(device)
     wall = time.perf_counter() - t0
     res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,

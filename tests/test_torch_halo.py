@@ -17,8 +17,7 @@ in float64.
   per-shard product of random element stacks through the plain K14 and
   K18 versions between them to 1e-11 (the JAX side: refresh, the element
   product, fold), halo and sentinel slots exactly 0.  Then 3 steps of the
-  res=10 cylinder with its outlet (rotational False and True at world 2,
-  True at world 4, where the JAX references cost the most) and of the
+  res=10 cylinder with its outlet (rotational False and True) and of the
   vessel at N=4 (its AMG coarsened below 50 dofs, so that the distributed
   apply with the nullspace runs; the JAX AMG's coarse pseudo-inverse handed
   to the ranks: ROADMAP known difference g) against the JAX halo solver
@@ -309,9 +308,7 @@ def test_halo_group(world, tmp_path):
     path = tmp_path / "inputs.npz"
     np.savez(path, **z)
     cfg = dict(rtol=RTOL, steps=STEPS, dtype="float64", device="cpu")
-    mains = [dict(cfg, **CYL, rotational=True), dict(cfg, **VES)]
-    if world == 2:
-        mains.insert(0, dict(cfg, **CYL))
+    mains = [dict(cfg, **CYL), dict(cfg, **CYL, rotational=True), dict(cfg, **VES)]
     # the JAX solvers whose coarse inverse or Chebyshev bounds the ranks take
     jv = _jax_solver(mains[-1], world)
     mains[-1]["coarse_inv"] = np.asarray(jv._amg.coarse_inv)

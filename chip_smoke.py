@@ -276,6 +276,38 @@ any failure or when there is no card.
    1e-12, 3 steps, on the res=10 cylinder (outlet, rotational) and the
    vessel at N=6: every iteration count equal, u and p to 1e-12 relative;
    the card's run against the single-device general path to 1e-8.
+4k'. One step of the split-phase API under a device_mesh at N=36 at the
+   end of 4q's and 4r's gloo groups (world 1 and 2), after their 5 + 25
+   steps of ``run``: bench.py's box on the slab path and its vessel under
+   graph-halo, float32, rtol 1e-5.  Every reason 2, each phase's launches
+   on every rank the path's (SPLIT_MESH_KERNELS: K8, K5, K3, K6, K7 on the
+   slab; K14 under graph-halo), no plain call; the world-2 step's u and ps
+   against world 1's (SPLIT_MESH_BOUND); each phase's wall printed.
+4s. The replicated mode (``options={"replicated": True}``: a block of
+   cells a rank, whole dof vectors, every operator the element product
+   and one sum over the ranks, Jacobi-PCG for the pressure, no kernel of
+   the package on its path) on the vessel at N=36 (float32, rtol 1e-5), 2
+   warm-up and 5 timed steps, at world 1, at world 2 on the one card
+   (gloo) and over NCCL on every card where there are two or more.  Every
+   solve converged, every rank's iterations and state bits rank 0's, no
+   kernel and no plain version; printed: steps/s, iterations a step, the
+   sums a step and bytes summed, one sum of a whole velocity component's
+   and of one value's host ms, the busy share over 1 profiled step (world
+   2 and above).  Each
+   world's state against world 1's after the 7 steps (REP_WORLD_BOUND);
+   world 1, taken on to 30 steps, against 4r's world-1 graph-halo state
+   after its 5 + 25 (REP_HALO_BOUND).
+5k. GPU against CPU on every sharded mode: world 2 (gloo), float64, rtol
+   1e-12.  The replicated mode 3 steps on the vessel at N=6 and the res=10
+   cylinder: every iteration count equal, u and p to 1e-10, every rank's
+   state bits rank 0's.  One split step on the slab path (box N=6),
+   graph-halo (vessel N=6) and the replicated mode (vessel N=6, cylinder
+   res=10): reasons and iterations equal, u and ps to 1e-10, on the card
+   each phase's kernels and the dense export's (K3 per slab, K14 per rank)
+   launched and no plain version; ``tentative_matrix_dense`` after it
+   equal to the cpu export and to the single-device export on the card to
+   1e-12.  ``--shard-only`` builds the kernels and runs 4q and 4r (with
+   4r'; without the single-device references), 4k', 4s and 5k.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -295,7 +327,7 @@ K14/K15/K16 on the flat ELL form.
 
 The phases run in the order 3, 4, 4g, 4i, 4k, 5, 3e, 4f, 5d, 3c, 4d, then
 the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f, 4l,
-4m, 5g, 5h, 4p, 4o, 4n, 4q, 5i, 4r (with 4r'), 5j.
+4m, 5g, 5h, 4p, 4o, 4n, 4q, 5i, 4r (with 4r'), 5j, 4k', 4s, 5k.
 Kernel, plain and library times are device times of back-to-back calls
 (``time_ms``).
 
@@ -2861,6 +2893,8 @@ def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
               f"a rank {[round(v, 3) for v in dev_ms]} ms (NCCL's kernels apart: "
               f"{[round(r['profile_nccl_ms'], 3) for r in out]} ms); busy share a card "
               f"{100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%")
+    if "split" in r0:  # phase 4k''s split step after the run, every rank's
+        r0["splits_all"] = [r["split"] for r in out]
     return r0
 
 
@@ -2873,7 +2907,9 @@ def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
     more (``worlds``: [(world, backend)] in place of these); each world's
     state against world 1's (the f32 engines' bound), and world 1's against
     the single-device path's (the solves' tolerance).  ``device`` "cpu"
-    rehearses it (its launch checks then fail)."""
+    rehearses it (its launch checks then fail).  The gloo groups of world 1
+    and ``SLAB_WORLD`` end with phase 4k''s split step; returns every rank's
+    split result by world."""
     import numpy as np
     import torch
 
@@ -2884,11 +2920,13 @@ def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
                check=True, time_comm=True, profile=SLAB_PROFILE)
     runs = {}
     for world, backend in worlds:
-        runs[(world, backend)] = slab_group("4q", world, backend, cfg)
+        split = backend == "gloo" and world in (1, SLAB_WORLD)
+        runs[(world, backend)] = slab_group("4q", world, backend, dict(cfg, split=split))
         torch.cuda.empty_cache()
+    splits = {w: r["splits_all"] for (w, _), r in runs.items() if "splits_all" in r}
     base = runs.get((1, "gloo"))
     if base is None:
-        return
+        return splits
     for key, r in runs.items():
         if key == (1, "gloo"):
             continue
@@ -2915,6 +2953,7 @@ def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
     check(bound is not None and du[1] <= bound["u"] and dp[1] <= bound["p"],
           f"[4q] world 1 against the single-device path at N={n}: u {du[1]:.3e}, p {dp[1]:.3e} "
           f"(bound {bound})")
+    return splits
 
 
 SLAB_GAP_CASES = (("float32", 1e-5), ("float64", 1e-5), ("float64", 1e-8))
@@ -3107,6 +3146,8 @@ def halo_run(label: str, world: int, backend: str, cfg: dict, out: list,
               f"{[round(r['profile_nccl_ms'], 3) for r in out]} ms); busy share a card "
               f"{100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%")
     r0["launch_counts"] = {k: r0["launches"].get(k, 0) for k in rep["path_kernels"]}
+    if "split" in r0:  # phase 4k''s split step after the run, every rank's
+        r0["splits_all"] = [r["split"] for r in out]
     return r0
 
 
@@ -3133,8 +3174,11 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N, warmup:
     against ``single`` (phase 4b's u and p after the same steps; None: not
     compared).  4r', in the world-2 group: the DFG cylinder at ``cyl_res``
     with its PressureBC(0) outlet and the rotational update, ``cyl_steps``
-    (warm-up, timed) steps.  Returns {"counts": each run's launch counts,
-    "cylinder_s": the 4r' run's seconds on rank 0}."""
+    (warm-up, timed) steps.  The vessel runs of the gloo groups of world 1
+    and ``HALO_WORLD`` end with phase 4k''s split step.  Returns {"counts":
+    each run's launch counts, "cylinder_s": the 4r' run's seconds on rank
+    0, "world1": rank 0's world-1 vessel result (phase 4s's reference),
+    "splits": every rank's split result by world}."""
     import torch
 
     ncard = torch.cuda.device_count()
@@ -3146,14 +3190,17 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N, warmup:
                 options={"ell_layout": "band"}, time_kernels=True)
     cyl = dict(problem="cylinder", res=cyl_res, rotational=True, dtype="float32",
                device=device, rtol=1e-5, warmup=cyl_steps[0], steps=cyl_steps[1], check=True)
-    vessels, out = {}, {"counts": {}}
+    vessels, out = {}, {"counts": {}, "splits": {}}
     for world, backend in worlds:
-        runs = [("4r", cfg)]
+        vessel = dict(cfg, split=backend == "gloo" and world in (1, HALO_WORLD))
+        runs = [("4r", vessel)]
         if world == HALO_WORLD and backend == "gloo":
-            runs = [("4r", dict(cfg, profile=HALO_PROFILE, time_kernels=True)), ("4r", band),
+            runs = [("4r", dict(vessel, profile=HALO_PROFILE, time_kernels=True)), ("4r", band),
                     ("4r'", cyl)]
         res = halo_group(world, backend, runs, kres)
         vessels[(world, backend)] = res[0]
+        if "splits_all" in res[0]:
+            out["splits"][world] = res[0]["splits_all"]
         for (label, c), r in zip(runs, res):
             what = ("cylinder" if c["problem"] == "cylinder" else
                     f"vessel N={c['N']} {(c.get('options') or {}).get('ell_layout', 'ell')}")
@@ -3171,6 +3218,7 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N, warmup:
     if base is not None and single is not None:
         _gap("4r", base, single, "world 1 against phase 4b's single-device path",
              HALO_SINGLE_BOUND)
+    out["world1"] = base
     return out
 
 
@@ -3227,9 +3275,10 @@ def _state(solver) -> dict:
                 p=solver._p.x.array.double().cpu().numpy())
 
 
-def halo_phases(single: dict | None, kres: dict, worlds=None) -> None:
+def halo_phases(single: dict | None, kres: dict, worlds=None) -> dict:
     """Phases 4r, 4r' and 5j, each one's seconds printed, and K14's and
-    K18's launches in each 4r / 4r' group's timed steps."""
+    K18's launches in each 4r / 4r' group's timed steps.  Returns
+    ``halo_path``'s result."""
     import torch
 
     t0 = time.perf_counter()
@@ -3244,6 +3293,284 @@ def halo_phases(single: dict | None, kres: dict, worlds=None) -> None:
     t0 = time.perf_counter()
     halo_gpu_vs_cpu()
     print(f"[5j] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+SPLIT_WORLD = 2  # the ranks of 4s's second group and of 5k's groups on the one card (gloo)
+REP_STEPS = (2, 5)  # phase 4s's warm-up and timed steps
+# steps under torch.profiler after the timed ones, at world 2 and above
+# (at world 1 two of them cost ~20 s on an H100's host, which records each
+# of a step's thousands of small ops)
+REP_PROFILE = 1
+# phase 4s's state gaps in f32 at rtol 1e-5, relative L2: the replicated
+# mode at world 1 against phase 4r's graph-halo state at world 1 after the
+# same 5 + 25 steps (their pressure preconditioners differ, Jacobi against
+# the distributed AMG, and each solve stops within rtol 1e-5); over the
+# ranks against world 1 after 2 + 5 steps (the f32 sums grouped by rank).
+# About twice the first readings on an H100 (PERF.md section 6: u
+# 2.989e-4, p 1.362e-2; u 1.565e-6, p 7.459e-6).
+REP_HALO_BOUND = {"u": 6e-4, "p": 0.028}
+REP_WORLD_BOUND = {"u": 3.2e-6, "p": 1.5e-5}
+# phase 4k-prime's split step at world 2 against world 1, relative L2 of u
+# and ps, by path: f32 sums grouped by rank (and a shard-pure AMG under
+# graph-halo), each solve to rtol 1e-5.  About twice the first readings
+# (PERF.md section 6: slab u 5.485e-6, ps 9.125e-6; graph-halo u
+# 3.885e-6, ps 4.014e-5).
+SPLIT_MESH_BOUND = {"slab-halo": {"u": 1.1e-5, "p": 1.8e-5},
+                    "graph-halo": {"u": 7.8e-6, "p": 8e-5}}
+# each split phase's kernels under a device_mesh, by path (phases 4k-prime
+# and 5k): the slab's cube kernels, K14 between the halo exchanges under
+# graph-halo (the element assembly and the gathers launch none), none when
+# replicated
+SPLIT_MESH_KERNELS = {
+    "slab-halo": {"assemble_first": {"cube_gather", "matvec_const", "matvec_win"},
+                  "velocity_tentative_assemble": {"mixed"},
+                  "velocity_tentative_solve": {"matvec_win"},
+                  "pressure_assemble": {"divergence"}, "pressure_solve": {"matvec_const"},
+                  "velocity_update": {"mixed", "matvec_const"}},
+    "graph-halo": {"assemble_first": set(), "velocity_tentative_assemble": set(),
+                   "velocity_tentative_solve": {"ell_matvec"}, "pressure_assemble": set(),
+                   "pressure_solve": {"ell_matvec"}, "velocity_update": {"ell_matvec"}},
+    "replicated": {p: set() for p in SPLIT_PHASES},
+}
+# the dense export's kernel by path: K3 per slab, K14 per rank, none replicated
+DENSE_KERNEL = {"slab-halo": "matvec_win", "graph-halo": "ell_matvec", "replicated": None}
+
+
+def replicated_run(label: str, world: int, backend: str, cfg: dict, out: list) -> dict:
+    """One run of ``parallel.ranks.run_halo`` in the replicated mode
+    (``out``: every rank's result): the mode and Jacobi-PCG reported, every
+    solve converged, every rank's iterations and state bits rank 0's, no
+    kernel and no plain version, the velocity finite; printed with the
+    steps/s, iterations a step, the sums a step and bytes summed, one
+    whole-vector sum's and one scalar sum's host ms, the card's busy share
+    (where the run was profiled) and rank 0's seconds by part.  Returns
+    rank 0's result."""
+    import numpy as np
+
+    from oasisx_tpu_torch.parallel import ranks
+
+    r0, steps, rep = out[0], cfg["steps"], out[0]["config"]
+    print(f"[{label}] vessel N={cfg['N']} replicated, world {world} ({backend}, "
+          f"{rep['device']} x{world}): set-up {r0['setup_s']:.1f} s on rank 0; pressure "
+          f"{rep['pressure_pc']}; cells a rank {[r['config']['cells'] for r in out]}")
+    check(rep["sharding"] == "replicated" and rep["ndev"] == world
+          and rep["pressure_pc"] == "jacobi-pcg", f"[{label}] {rep}")
+    for r in out:
+        for f in ("u", "p", "c"):
+            check(bool(np.all(r["stats"][f + "_converged"])), f"[{label}] rank {r['rank']}: a {f} "
+                  "solve did not converge")
+            check(np.array_equal(r["stats"][f + "_iters"], r0["stats"][f + "_iters"]),
+                  f"[{label}] rank {r['rank']}: {f} iterations differ from rank 0's")
+        check(r["digest"] == r0["digest"], f"[{label}] rank {r['rank']}'s state differs from "
+              "rank 0's in its bits")
+        check(not r["launches"] and not r["plain_calls"], f"[{label}] rank {r['rank']}: launches "
+              f"{r['launches']}, plain calls {r['plain_calls']}")
+    check(bool(np.isfinite(r0["u"]).all()), f"[{label}] velocity not finite")
+    it, cm = ranks.iters_per_step(r0["stats"]), r0["comm"]
+    print(f"[{label}] {steps} steps in {r0['wall_s']:.3f} s = {r0['steps_per_s']:.4f} steps/s; "
+          f"iterations a step u {it['u']:.3f} p {it['p']:.3f} c {it['c']:.3f}; worst exit "
+          f"residuals u {float(r0['stats']['u_res'].max()):.3e} p "
+          f"{float(r0['stats']['p_res'].max()):.3e} c {float(r0['stats']['c_res'].max()):.3e}; "
+          f"every rank's state bit for bit rank 0's")
+    print(f"    a step: {cm['sum'][0] / steps:.1f} sums over ranks, {cm['sum'][1] / steps / 1e6:.4f} "
+          f"MB summed by rank 0; one sum of a velocity component {r0['vector_sum_ms']:.4f} ms, of "
+          f"one value {r0['sum_ms']:.4f} ms ({backend}, host clock, mean of 50)")
+    if "profile_wall_ms" in r0:
+        dev_ms = [r["profile_device_ms"] for r in out]
+        wall = max(r["profile_wall_ms"] for r in out)
+        busy = sum(dev_ms) / wall / len({r["config"]["device"] for r in out})
+        print(f"    profile of {r0['profile_steps']} more step(s): wall {wall:.3f} ms, device time a "
+              f"rank {[round(v, 3) for v in dev_ms]} ms (NCCL's kernels apart: "
+              f"{[round(r['profile_nccl_ms'], 3) for r in out]} ms); busy share a card "
+              f"{100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%")
+    print("    seconds by part on rank 0: "
+          + " ".join(f"{k} {v:.1f}" for k, v in r0["times"].items()))
+    return r0
+
+
+def replicated_path(ref: dict | None, n: int = N, steps: tuple = REP_STEPS,
+                    until: int = WARMUP + STEPS, worlds=None, device: str = "cuda") -> None:
+    """Phase 4s: the replicated mode (``options={"replicated": True}``) on
+    bench.py's vessel at N (float32, rtol 1e-5, low_memory_version False),
+    ``steps`` (warm-up, timed) steps, at world 1, over ``SPLIT_WORLD`` ranks
+    on the one card (gloo) and over NCCL at every card where there are two
+    or more (``worlds``: [(world, backend)] in place of these), each checked
+    by ``replicated_run``.  The state gaps: each world against world 1
+    (REP_WORLD_BOUND); world 1, taken on to ``until`` steps in all, against
+    ``ref`` (phase 4r's world-1 graph-halo result after as many steps;
+    REP_HALO_BOUND; None: not compared)."""
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import launch
+
+    ncard = torch.cuda.device_count()
+    if worlds is None:
+        worlds = [(1, "gloo"), (SPLIT_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
+    rep = dict(problem="vessel", N=n, dtype="float32", device=device, rtol=1e-5,
+               warmup=steps[0], steps=steps[1], dt=DT, nu=NU, options={"replicated": True},
+               time_comm=True)
+    runs = {}
+    for world, backend in worlds:
+        t0 = time.perf_counter()
+        cfg = dict(rep, until=until) if world == 1 else dict(rep, profile=REP_PROFILE)
+        out = launch(ranks.halo_checks, world, (None, [cfg]), backend=backend,
+                     timeout=HALO_TIMEOUT)
+        print(f"[4s] a group of {world} ({backend}): {time.perf_counter() - t0:.1f} s with the "
+              "spawn")
+        runs[(world, backend)] = replicated_run("4s", world, backend, cfg,
+                                                [o["runs"][0] for o in out])
+        torch.cuda.empty_cache()
+    one = runs.get((1, "gloo"))
+    for (world, backend), r in runs.items():
+        if one is not None and world > 1:
+            _gap("4s", r, one, f"world {world} ({backend}) against world 1 after {sum(steps)} "
+                 "steps", REP_WORLD_BOUND)
+    if one is not None and ref is not None:
+        _gap("4s", one["until"], ref, f"world 1 against phase 4r's graph-halo path at world 1 "
+             f"after {until} steps", REP_HALO_BOUND)
+
+
+def split_report(mode: str, world: int, rs: list) -> None:
+    """Phase 4k': one split step under the mesh on every rank (``rs``: each
+    rank's ``ranks._split_result``): the mode, every reason 2, each phase's
+    launches on every rank those of SPLIT_MESH_KERNELS and no plain call;
+    printed with the diff, the iterations, each phase's wall (the slowest
+    rank) and rank 0's launches by phase."""
+    import numpy as np
+
+    check(all(r["config"]["sharding"] == mode for r in rs), f"[4k'] {mode}: "
+          f"{[r['config']['sharding'] for r in rs]}")
+    for r in rs:
+        reasons = np.concatenate([np.ravel(v) for v in r["reasons"].values()])
+        check(bool(np.all(reasons == 2)), f"[4k'] {mode} world {world} rank {r['rank']}: "
+              f"reasons {r['reasons']}")
+        for phase, want in SPLIT_MESH_KERNELS[mode].items():
+            ph = r["phases"][phase]
+            check(set(ph["launches"]) == want and not ph["plain_calls"],
+                  f"[4k'] {mode} world {world} rank {r['rank']} {phase}: launches "
+                  f"{ph['launches']} (want {sorted(want)}), plain {ph['plain_calls']}")
+    walls = {p: max(r["phases"][p]["s"] for r in rs) * 1e3 for p in SPLIT_PHASES}
+    print(f"[4k'] {mode} world {world}: diff {rs[0]['diff']:.6e}, iterations {rs[0]['iters']}; "
+          "each phase's wall, the slowest rank (ms): "
+          + ", ".join(f"{p} {t:.3f}" for p, t in walls.items()) + f"; sum {sum(walls.values()):.3f}")
+    print("    rank 0's launches by phase: "
+          + "; ".join(f"{p} {rs[0]['phases'][p]['launches']}" for p in SPLIT_PHASES))
+
+
+def split_mesh_report(splits: dict) -> None:
+    """Phase 4k': the split steps that end 4q's and 4r's gloo groups
+    (``splits``: {mode: {world: every rank's result}}), each by
+    ``split_report``, and the largest world's step's u and ps against world
+    1's (SPLIT_MESH_BOUND)."""
+    for mode, by_world in splits.items():
+        for world in sorted(by_world):
+            split_report(mode, world, by_world[world])
+        w = max(by_world, default=1)
+        if 1 in by_world and w > 1:
+            a, b = by_world[w][0], by_world[1][0]
+            _gap("4k'", dict(u=a["u"], p=a["ps"]), dict(u=b["u"], p=b["ps"]),
+                 f"{mode}: the split step at world {w} against world 1 (p: ps)",
+                 SPLIT_MESH_BOUND[mode])
+
+
+def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu")) -> None:
+    """Phase 5k: every sharded mode on cuda and on cpu at world 2 (gloo),
+    float64, rtol 1e-12, small sizes.  The replicated mode 3 ``run`` steps
+    on the vessel at N=6 and the res=10 cylinder: every iteration count
+    equal, u and p to 1e-10.  One split step each on the slab path (the box
+    at N=6), graph-halo (the vessel at N=6) and the replicated mode (the
+    vessel at N=6, the cylinder at res=10): reasons and iterations equal, u
+    and ps to 1e-10; on cuda each split phase's and the dense export's
+    kernels launched (SPLIT_MESH_KERNELS, DENSE_KERNEL), no plain version.
+    ``tentative_matrix_dense`` after each: equal to the cpu export and to
+    the single-device export on cuda to 1e-12.  ``devices`` ("cpu", "cpu")
+    rehearses it."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import start
+
+    rep = {"replicated": True}
+    small = (dict(problem="vessel", N=6), dict(problem="cylinder", res=10))
+    base = dict(dtype="float64", rtol=1e-12)
+    runs = [dict(base, **c, options=rep, steps=3) for c in small]
+    splits = [dict(base, problem="box", N=6, dense=True), dict(base, **small[0], dense=True)]
+    splits += [dict(base, **c, options=rep, dense=True) for c in small]
+    args = lambda dev: (None, [dict(c, device=dev) for c in runs],
+                        [dict(c, device=dev) for c in splits])
+    with start(ranks.halo_checks, world, args(devices[0])) as ga, \
+            start(ranks.halo_checks, world, args(devices[1])) as gc:
+        g_all, c_all = ga.join(HALO_TIMEOUT), gc.join(HALO_TIMEOUT)
+    name = lambda c: c["problem"] + (f" N={c['N']}" if "N" in c else f" res={c['res']}")
+    for i, cfg in enumerate(runs):
+        g, c = g_all[0]["runs"][i], c_all[0]["runs"][i]
+        du, dp = _rel2(g["u"], c["u"]), _rel2(g["p"], c["p"])
+        print(f"  {name(cfg)} replicated world {world} f64 3 steps: u rel diff {du[0]:.3e}, p "
+              f"rel diff {dp[0]:.3e}; {devices[0]} launches {g['launches']}, plain "
+              f"{g['plain_calls']}")
+        for k in ("u_iters", "p_iters", "c_iters"):
+            print(f"  {k}: {devices[0]} {g['stats'][k].tolist()} {devices[1]} "
+                  f"{c['stats'][k].tolist()}")
+            check(np.array_equal(g["stats"][k], c["stats"][k]), f"[5k] {name(cfg)} replicated: "
+                  f"{k} differ between the devices")
+        check(du[0] <= 1e-10 and dp[0] <= 1e-10, f"[5k] {name(cfg)} replicated: the devices "
+              f"disagree (u {du[0]:.3e}, p {dp[0]:.3e})")
+        check(len({o["runs"][i]["digest"] for o in g_all}) == 1, f"[5k] {name(cfg)} replicated: "
+              "the ranks' states differ in their bits")
+    for i, cfg in enumerate(splits):
+        g, c = g_all[0]["splits"][i], c_all[0]["splits"][i]
+        mode = g["config"]["sharding"]
+        label = f"{name(cfg)} {mode}"
+        du, dp = _rel2(g["u"], c["u"]), _rel2(g["ps"], c["ps"])
+        reasons = lambda r: {k: np.asarray(v).tolist() for k, v in r["reasons"].items()}
+        print(f"  {label} split step: u rel diff {du[0]:.3e}, ps rel diff {dp[0]:.3e}; reasons "
+              f"{reasons(g)}; iterations {devices[0]} {g['iters']} {devices[1]} {c['iters']}")
+        check(reasons(g) == reasons(c) and g["iters"] == c["iters"],
+              f"[5k] {label}: reasons or iterations differ between the devices")
+        check(du[0] <= 1e-10 and dp[0] <= 1e-10, f"[5k] {label}: the split steps disagree (u "
+              f"{du[0]:.3e}, ps {dp[0]:.3e})")
+        if torch.device(devices[0]).type == "cuda":
+            for r in (o["splits"][i] for o in g_all):
+                used = {p: set(ph["launches"]) for p, ph in r["phases"].items()}
+                plain = {p: ph["plain_calls"] for p, ph in r["phases"].items() if ph["plain_calls"]}
+                want = DENSE_KERNEL[mode]
+                check(used == SPLIT_MESH_KERNELS[mode] and not plain,
+                      f"[5k] {label} rank {r['rank']}: launches {used}, plain {plain}")
+                check(set(r["dense_launches"]) == ({want} if want else set()),
+                      f"[5k] {label} rank {r['rank']}: the dense export launched "
+                      f"{r['dense_launches']}")
+            print(f"  {label}: rank 0's launches by phase "
+                  + "; ".join(f"{p} {ph['launches']}" for p, ph in g["phases"].items())
+                  + f"; the dense export {g['dense_launches']}")
+        single = ranks.halo_solver(dict(cfg, options=None), torch.float64, devices[0])
+        single.assemble_first(*ranks.step_size(cfg))
+        A1 = single.tentative_matrix_dense()
+        del single
+        e_dev = float(np.abs(g["dense"] - c["dense"]).max())
+        e_one = float(np.abs(g["dense"] - A1).max())
+        print(f"  {label} tentative_matrix_dense {g['dense'].shape}: against {devices[1]} "
+              f"{e_dev:.3e}, against the single-device export on {devices[0]} {e_one:.3e}")
+        check(e_dev <= 1e-12 and e_one <= 1e-12, f"[5k] {label}: the dense export differs "
+              f"({e_dev:.3e}, {e_one:.3e})")
+        torch.cuda.empty_cache()
+
+
+def shard_phases(slab_splits: dict, halo: dict) -> None:
+    """Phases 4k' (the split steps that 4q's and 4r's gloo groups ended
+    with: ``slab_splits``, ``halo["splits"]``), 4s (``halo["world1"]`` its
+    reference) and 5k, each one's seconds printed."""
+    split_mesh_report({"slab-halo": slab_splits, "graph-halo": halo["splits"]})
+    t0 = time.perf_counter()
+    replicated_path(halo.get("world1"))
+    print(f"[4s] {time.perf_counter() - t0:.1f} s")
+    print("[5k] cuda against cpu: the replicated mode, the split step and the dense export on "
+          "every sharded mode")
+    t0 = time.perf_counter()
+    shard_gpu_vs_cpu()
+    print(f"[5k] {time.perf_counter() - t0:.1f} s")
 
 
 PTX_SOURCES = ("cube_ops.cu", "krylov_ops.cu", "ell_ops.cu")
@@ -3386,6 +3713,9 @@ def main() -> int:
     ap.add_argument("--halo-world", type=int, default=0,
                     help="with --halo-only: phase 4r at world 1 and over this many ranks (NCCL, "
                          "a card each, where the cards suffice; else gloo on one card)")
+    ap.add_argument("--shard-only", action="store_true",
+                    help="only build the kernels and run phases 4q and 4r (with 4r'; their "
+                         "groups end with 4k''s split steps), 4k', 4s and 5k")
     ap.add_argument("--slab-gap", type=int, nargs="+", metavar="N",
                     help="only build the kernels and measure, at each N, the slab path at world "
                          "1 against the single-device path in f32 and f64 at two tolerances")
@@ -3449,6 +3779,19 @@ def main() -> int:
         print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {STEPS} steps "
               f"({time.perf_counter() - t0:.1f} s with set-up)")
         halo_phases(single, {}, worlds)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if args.shard_only:
+        t0 = time.perf_counter()
+        slab_splits = slab_path()
+        print(f"[4q] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        halo = halo_path(None)
+        print(f"[4r] [4r'] {time.perf_counter() - t0:.1f} s")
+        shard_phases(slab_splits, halo)
         print(f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3813,14 +4156,18 @@ def main() -> int:
     fidelity_path("cuda")
     # 4q. the slab path over ranks; 5i. its cuda against cpu
     t0 = time.perf_counter()
-    slab_path()
+    slab_splits = slab_path()
     print(f"[4q] {time.perf_counter() - t0:.1f} s")
     print("[5i] cuda against cpu: the slab path")
     t0 = time.perf_counter()
     slab_gpu_vs_cpu()
     print(f"[5i] {time.perf_counter() - t0:.1f} s")
     # 4r, 4r', 5j. the graph-halo path over ranks
-    halo_phases(single4b, kres)
+    halo = halo_phases(single4b, kres)
+    # 4k', 4s, 5k. the split phases under a device_mesh (ending 4q's and
+    # 4r's groups), the replicated mode, and every sharded mode GPU against
+    # CPU
+    shard_phases(slab_splits, halo)
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),

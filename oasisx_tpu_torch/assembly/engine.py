@@ -24,6 +24,11 @@ blocks, and ``halo_v`` / ``halo_q`` (``graph.HaloRounds``) with ``comm``
 are set: a gather refreshes the halo slots first, a scatter folds the
 halo contributions into their owners after (zeroing the halo), and a
 scalar integral is summed over the ranks, as in the JAX package's engine.
+Under the replicated mode a context holds one rank's block of cells with
+the canonical dofmaps and ``comm`` alone is set: dof vectors are whole on
+every rank, a gather is local, and a scatter ends in one sum of the whole
+vector over the ranks (``Comm.sum``: the same bits on every rank), as the
+integrals do.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ class DeviceContext:
     ndofs_v: int
     ndofs_q: int
     dim: int
-    # the graph-halo mode: this rank's exchange of each space and its Comm
+    # the graph-halo mode: this rank's exchange of each space and its Comm;
+    # the replicated mode: the Comm alone
     halo_v: object = None
     halo_q: object = None
     comm: object = None
@@ -154,15 +160,22 @@ def transpose_scatter(vals: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return flat[..., pos].sum(dim=-1)
 
 
+def fold(ctx: DeviceContext, y: torch.Tensor, halo) -> torch.Tensor:
+    """A scatter's rank-local sums made global: folded into their owners
+    under graph-halo (``halo``: the space's rounds), summed over the ranks
+    under the replicated mode."""
+    if halo is not None:
+        return halo_fold(y, halo, ctx.comm)
+    return y if ctx.comm is None else ctx.comm.sum(y)
+
+
 def scatter_v(ctx: DeviceContext, vals: torch.Tensor) -> torch.Tensor:
     """Per-cell V-local values (..., nc, ndv) -> dof vectors (..., ndofs_v)."""
-    y = transpose_scatter(vals, ctx.pos_v)
-    return y if ctx.halo_v is None else halo_fold(y, ctx.halo_v, ctx.comm)
+    return fold(ctx, transpose_scatter(vals, ctx.pos_v), ctx.halo_v)
 
 
 def scatter_q(ctx: DeviceContext, vals: torch.Tensor) -> torch.Tensor:
-    y = transpose_scatter(vals, ctx.pos_q)
-    return y if ctx.halo_q is None else halo_fold(y, ctx.halo_q, ctx.comm)
+    return fold(ctx, transpose_scatter(vals, ctx.pos_q), ctx.halo_q)
 
 
 def gather_v(ctx: DeviceContext, x: torch.Tensor) -> torch.Tensor:

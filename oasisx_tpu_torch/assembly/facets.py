@@ -24,8 +24,8 @@ from ..elements.element import FiniteElement
 from ..elements.nodes import REFERENCE_VERTICES
 from ..elements.quadrature import quadrature
 from ..meshes.mesh import CELL_FACETS, Mesh
-from ..parallel.graph import halo_fold, halo_refresh
-from .engine import DeviceContext, build_transpose_map, transpose_scatter
+from ..parallel.graph import halo_refresh
+from .engine import DeviceContext, build_transpose_map, fold, transpose_scatter
 
 
 @dataclass
@@ -133,7 +133,7 @@ def pressure_surface_vecs(
     re = torch.einsum("f,fg,fbg,fbj->gfj", fctx.scale, fctx.normal, Kc, core)
     out = re.new_zeros((re.shape[0], ctx.ndofs_v))
     out[:, fctx.dofs_v] = transpose_scatter(re, fctx.pos_v)
-    return out if ctx.halo_v is None else halo_fold(out, ctx.halo_v, ctx.comm)
+    return fold(ctx, out, ctx.halo_v)
 
 
 def facet_eval_q(ctx: DeviceContext, fctx: FacetContext, p: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """IPCS fractional-step Navier-Stokes solver (Adams-Bashforth convection,
-Crank-Nicolson diffusion) on PyTorch, on one device or sharded in slabs.
+Crank-Nicolson diffusion) on PyTorch, on one device or sharded over the
+ranks of a ``torch.distributed`` group.
 
 Counterpart of ``oasisx_tpu/fracstep.py``'s ``FractionalStep_AB_CN``.  The
 solver picks one of two paths the way the JAX package does:
@@ -91,10 +92,18 @@ tentative operator kept), ``velocity_tentative_assemble`` (``_rhs1``),
 (``_u``, with no warm start from a previous correction); the caller rotates
 u2 <- u1 <- u and p <- ps.  ``tentative_matrix_dense`` exports the kept
 operator of component 0 with its BC rows.  A split phase writes the
-Functions, so the next ``run`` rebuilds its state from them.
+Functions, so the next ``run`` rebuilds its state from them.  Under a
+``device_mesh`` every phase is a collective on every sharded mode: it reads
+the canonical Functions into the rank's layout, runs the mode's own phase
+and writes its result back canonical (a gather); the dense export applies
+the mode's own tentative operator to identity columns and gathers them.
 
-The slab path (a ``device_mesh``; the JAX package's "slab-halo" mode,
-oasisx_tpu fracstep.py:183-230): the cube grid cut into slabs of cube
+With a ``device_mesh`` the solver runs on every rank of the group, in one
+of three modes, chosen as the JAX package chooses (oasisx_tpu
+fracstep.py:183-304):
+
+The slab path (the JAX package's "slab-halo" mode, taken first whatever
+``options["replicated"]`` says): the cube grid cut into slabs of cube
 planes along its leading axis, a slab a rank (``parallel/slab.py``); every
 operator application is halo refresh -> the kernel on the slab's own
 structured map -> halo fold (``parallel/comm.py`` over
@@ -107,34 +116,49 @@ the velocity update batched CG on K5 with K6's gradient.  The Krylov loops
 run on the host with their reductions summed over the ranks; the lumped
 update falls back to the mass CG.
 
-The graph-halo path (a ``device_mesh`` in every other case, as in the JAX
-package, oasisx_tpu fracstep.py:266-304: an unstructured mesh, a
-PressureBC, the rotational update, ``options["slab"]`` False, a structured
-mesh without a dof lattice or uniform cube geometry, or a leading cube count
-the ranks do not divide): the general element path on one cell block a rank
-(``parallel/sharding.py``), dof vectors in the rank's ``[owned | halo |
-sentinel]`` layout.  The engine's gathers refresh the halo and its scatters
-fold it; every operator product is halo refresh -> K14 on the rank's
-local ELL operator (K18 on its band tables under ``ell_layout`` "band", in
-both spaces as the JAX halo band engine) -> halo fold (``_halo_apply``), its
-values assembled from the element stack once a solve.  The two sharded
-paths share the tentative, pressure and velocity-update solves
-(``_*_sharded``), each on its path's product.  The tentative solves batched BiCGStab or CG
-on the batch-d product with identity bc rows and x0 as given (GMRES a
-component at a time), the pressure CG on Ap (outlet rows masked)
-preconditioned by the distributed AMG (the fine level per rank, the
-restriction summed over the ranks, the coarse levels on every rank), the
-AMG on the gathered residual where level 0 does not coarsen or with
-``amg_distributed`` False, Chebyshev-Jacobi or Jacobi; the velocity update
-batched CG on M, the rotational update CG on Mq.  The Krylov loops run on
-the host, their reductions summed over the ranks.
+Where the slab path is not taken (an unstructured mesh, a PressureBC, the
+rotational update, ``options["slab"]`` or ``structured`` False, a
+structured mesh without a dof lattice or uniform cube geometry, or a
+leading cube count the ranks do not divide), ``options["replicated"]``
+selects the replicated mode and otherwise the graph-halo path runs.
 
-On both sharded paths ``get_state`` / ``set_state`` use the ranks' layouts
-stacked in rank order (the JAX package's internal layout), and the
-Functions hold the canonical state on every rank.  Refused with
-NotImplementedError (ROADMAP Queue 1 item 5): ``options["replicated"]``,
-and the split-phase API and ``tentative_matrix_dense`` under a
-``device_mesh``.
+The graph-halo path: the general element path on one cell block a rank
+(``parallel/sharding.py`` ``shard_problem_halo``), dof vectors in the
+rank's ``[owned | halo | sentinel]`` layout.  The engine's gathers refresh
+the halo and its scatters fold it; every operator product is halo refresh
+-> K14 on the rank's local ELL operator (K18 on its band tables under
+``ell_layout`` "band", in both spaces as the JAX halo band engine) -> halo
+fold (``_halo_apply``), its values assembled from the element stack once a
+solve.  The two owned-dof paths share the tentative, pressure and
+velocity-update solves (``_*_sharded``), each on its path's product.  The
+tentative solves batched BiCGStab or CG on the batch-d product with
+identity bc rows and x0 as given (GMRES a component at a time), the
+pressure CG on Ap (outlet rows masked) preconditioned by the distributed
+AMG (the fine level per rank, the restriction summed over the ranks, the
+coarse levels on every rank), the AMG on the gathered residual where level
+0 does not coarsen or with ``amg_distributed`` False, Chebyshev-Jacobi or
+Jacobi; the velocity update batched CG on M, the rotational update CG on
+Mq.  The Krylov loops run on the host, their reductions summed over the
+ranks.
+
+The replicated mode (``parallel/sharding.py`` ``shard_problem``; the JAX
+package's debug path): a contiguous block of cells a rank, dof vectors
+canonical and whole on every rank.  Every operator is the engine's element
+product followed by one sum of the whole vector over the ranks (the
+tentative A_lhs, M, Ap, Mq, the gradient, the divergence, the outlet
+surface terms), as the JAX package runs XLA there: no kernel of this
+package runs on this path.  The solves are the JAX package's XLA loops, a
+component at a time, with their dots local on the whole vectors (the same
+bits on every rank): BiCGStab, CG or GMRES for the tentative velocity with
+identity bc rows and x0 as given, Jacobi-PCG for the pressure (the JAX
+package's observable preconditioner there: ROADMAP known difference l)
+with the outlet rows masked or the nullspace projected, Jacobi-CG on M for
+the velocity update and on Mq for the rotational update.
+
+On the owned-dof paths ``get_state`` / ``set_state`` use the ranks'
+layouts stacked in rank order (the JAX package's internal layout), and the
+Functions hold the canonical state on every rank; under the replicated
+mode the state is canonical.
 
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
@@ -174,7 +198,7 @@ from .la.pressure_mg import PressureMGCG
 from .la.solver import KSPSolver
 from .meshes.mesh import Mesh
 from .parallel.graph import build_ell_assembly, ell_values, halo_fold, halo_refresh
-from .parallel.sharding import local_facets, shard_problem_halo
+from .parallel.sharding import local_facets, shard_problem, shard_problem_halo
 from .spaces.functionspace import Function, FunctionSpace
 
 __all__ = ["FractionalStep_AB_CN"]
@@ -212,9 +236,6 @@ def _lumped_inv(m_diag: torch.Tensor) -> torch.Tensor:
     pos = m_diag > 0
     return torch.where(pos, 1.0 / torch.where(pos, m_diag, torch.ones_like(m_diag)),
                        torch.zeros_like(m_diag))
-
-
-SHARD_ITEM = "ROADMAP Queue 1 item 5"  # the sharded features still to port
 
 
 def _stack(outs: list, device):
@@ -255,13 +276,17 @@ class FractionalStep_AB_CN:
     ``ell_layout``: "ell", default, or "band" for the velocity operators
     of the general path; ``structured``: False sends a structured mesh to
     the general path; ``pallas_pressure_pc`` and ``pallas_cheb_degree``:
-    the structured path's pressure solve, above), ``dtype``,
-    ``device_mesh`` (None: one device; else the slab path over the ranks of
-    a ``torch.distributed`` group: a 1-D ``DeviceMesh``, a ``ProcessGroup``
-    or a ``parallel.comm.Comm``, each rank calling the constructor and every
-    entry point together) and the ``device`` every tensor of this rank lives
-    on (default: the card; there is no fallback to the CPU; a rank's own
-    ``cuda:{rank}`` under NCCL, the one card or the CPU under gloo).  A
+    the structured path's pressure solve, above; ``slab``: False keeps a
+    sharded structured mesh off the slab path; ``replicated``: the
+    replicated mode where the slab path is not taken; ``partitioner`` and
+    ``amg_distributed``: the graph-halo path's), ``dtype``, ``device_mesh``
+    (None: one device; else the sharded modes of the module docstring over
+    the ranks of a ``torch.distributed`` group: a 1-D ``DeviceMesh``, a
+    ``ProcessGroup`` or a ``parallel.comm.Comm``, each rank calling the
+    constructor and every entry point, the split phases and the dense
+    export included, together) and the ``device`` every tensor of this rank
+    lives on (default: the card; there is no fallback to the CPU; a rank's
+    own ``cuda:{rank}`` under NCCL, the one card or the CPU under gloo).  A
     structured mesh without an outlet takes the cube path, where
     ``low_memory_version`` has no counterpart.
     """
@@ -282,9 +307,6 @@ class FractionalStep_AB_CN:
         device_mesh=None,
         device=None,
     ):
-        if device_mesh is not None and (options or {}).get("replicated", False):
-            raise NotImplementedError(f"a device_mesh with options['replicated'] (the replicated "
-                                      f"mode) is not ported: {SHARD_ITEM}")
         if jit_options:
             logger.info("jit_options keys %s ignored: the port compiles its kernels ahead of "
                         "the run, nothing at run time", sorted(jit_options))
@@ -359,13 +381,18 @@ class FractionalStep_AB_CN:
         # --- the structured grid layout, when the mesh has one ------------------
         self._refs = build_reference_tensors(el_u, el_p)
         self._cu = None
-        self._comm = self._slab = self._halo = None
+        self._comm = self._slab = self._halo = self._rep = self._shard_idx = None
         if device_mesh is not None:
             from .parallel.comm import as_comm
 
             comm = as_comm(device_mesh)
+            # the slab path first, whatever "replicated" says (oasisx_tpu
+            # fracstep.py:186-223, 268)
             if not self._setup_slab(comm, el_u, el_p, options):
-                self._setup_halo(comm, el_u, el_p, options)
+                if options.get("replicated", False):
+                    self._setup_replicated(comm, el_u, el_p)
+                else:
+                    self._setup_halo(comm, el_u, el_p, options)
         elif not self._bcs_p and mesh.structured is not None and options.get("structured", True):
             rv = build_structured_map(mesh, el_u, Vi0.dofmap)
             rq = build_structured_map(mesh, el_p, self._Q.dofmap)
@@ -384,7 +411,7 @@ class FractionalStep_AB_CN:
             self._q_null = torch.as_tensor(valid_q, dtype=self._dtype, device=self._device)
         elif not self._structured:
             self._gf_v = self._gf_q = None
-            if self._halo is None:
+            if self._comm is None:
                 self._ctx, _ = eng.build_device_context(
                     mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
                     self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device,
@@ -447,8 +474,8 @@ class FractionalStep_AB_CN:
                 if xq is None:
                     xq = padded_coordinates(quadrature_points(self._mesh, qdeg)[2])
                 vals = np.asarray(fi(xq))
-                if self._halo is not None:  # this rank's cells, in block order
-                    vals = vals[self._halo.cells]
+                if self._comm is not None:  # this rank's cells, in block order
+                    vals = vals[(self._halo or self._rep).cells]
                 b0.append(eng.source_load_vec_v(ctx, on(vals)))
             else:
                 b0.append(eng.constant_load_vec(ctx, float(fi)))
@@ -535,6 +562,19 @@ class FractionalStep_AB_CN:
             self._p_vdxi = pg
             self._divu = pg.transpose(2, 3)
             self._grad_p = eng.grad_p_mats(ctx)
+        # the rotational update's Jacobi (no outlet rows); the pressure's
+        # Jacobi diagonal, 1 on the outlet rows (unused under the AMG)
+        self._Mq_invd = _inv(eng.diagonal_q(ctx, c["Mq"])) if self._rotational else None
+        ap_diag = c["Ap_diag"]
+        if self._pbc_mask is not None:
+            ap_diag = torch.where(self._pbc_mask, torch.ones_like(ap_diag), ap_diag)
+        self._Ap_diag = ap_diag
+        self._amg = self._p_cheb = self._mg_M = None
+        if self._rep is not None:
+            # the replicated mode: element products summed over the ranks, no
+            # ELL table; Jacobi-PCG for the pressure (ROADMAP known difference l)
+            self._Mq_elems = c["Mq"]
+            return
 
         # the constant operators' values, assembled once here: the JAX
         # package assembles them again in every solve, to the same values.
@@ -558,10 +598,8 @@ class FractionalStep_AB_CN:
             self._asm_q = self._ell_q = build_ell_assembly(cd_q, nq_loc, dev)
         self._M_vals = self._op_values(self._M_elems, "v")[0]
         self._Ap_vals = self._op_values(self._Ap_elems, "q")[0]
-        # the rotational update's Mq and its Jacobi (no outlet rows)
+        # the rotational update's Mq
         self._Mq_vals = self._op_values(c["Mq"], "q")[0] if self._rotational else None
-        self._Mq_invd = _inv(eng.diagonal_q(ctx, c["Mq"])) if self._rotational else None
-        self._amg = self._p_cheb = self._mg_M = None
         pc = str(popts.get("pc_type", "amg")).lower()
         if pc in AMG_PC_TYPES:
             t0 = time.perf_counter()
@@ -574,13 +612,9 @@ class FractionalStep_AB_CN:
             self._amg_widths = amg_widths(self._amg)
             return
         # Jacobi-CG (pc_type jacobi or none) or Chebyshev-Jacobi CG, as the
-        # JAX package's _build_cheb for the general path: the diagonal is 1
-        # on the outlet rows, the bounds (lmax / 30, lmax) with lmax the
-        # validated power-iteration estimate (set-up reads only)
-        ap_diag = c["Ap_diag"]
-        if self._pbc_mask is not None:
-            ap_diag = torch.where(self._pbc_mask, torch.ones_like(ap_diag), ap_diag)
-        self._Ap_diag = ap_diag
+        # JAX package's _build_cheb for the general path: the bounds (lmax /
+        # 30, lmax) with lmax the validated power-iteration estimate (set-up
+        # reads only)
         if pc in ("jacobi", "none"):
             return
         deg = int(popts.get("cheb_degree", 6))
@@ -674,6 +708,18 @@ class FractionalStep_AB_CN:
                     "nloc_q=%d, partition %s, backend %s", sh.rank, sh.ndev, len(sh.cells),
                     sh.hx_v.nloc, sh.hx_v.nloc - sh.hx_v.owned_pad - 1, sh.hx_q.nloc,
                     sh.partition.get("name"), comm.backend)
+
+    def _setup_replicated(self, comm, el_u, el_p) -> None:
+        """The replicated mode (oasisx_tpu fracstep.py:268-275): this rank's
+        block of cells with the canonical dofmaps (``shard_problem``), its
+        outlet facets."""
+        Vi0 = self._Vi[0][0]
+        sh = shard_problem(comm, self._mesh, el_u, Vi0.dofmap.cell_dofs, Vi0.num_dofs, el_p,
+                           self._Q.dofmap.cell_dofs, self._Q.num_dofs, self._dtype, self._device)
+        self._comm, self._rep, self._ctx = comm, sh, sh.ctx
+        self._fctxs = [local_facets(bcp.facet_context, sh) for bcp in self._bcs_p]
+        logger.info("replicated sharding: rank %d of %d, %d of %d cells, backend %s", sh.rank,
+                    sh.ndev, len(sh.cells), len(sh.shard_of), comm.backend)
 
     def _shard_part(self, arr: torch.Tensor, space: str, table: str = "perm") -> torch.Tensor:
         """This rank's part of ``arr`` in its local layout, halo and padding
@@ -957,19 +1003,25 @@ class FractionalStep_AB_CN:
 
         return M
 
-    def _rotational_update_halo(self, p, dp, u, nu):
-        """(oasisx_tpu fracstep.py:2740-2765) CG on the halo'd Mq from x0 =
-        p + dp, rhs = Mq (p + dp) - xi nu (div u, q), Jacobi on diag(Mq),
-        the ``scalar`` family's tolerances; results batched as one row."""
+    def _rotational_update_sharded(self, p, dp, u, nu):
+        """(oasisx_tpu fracstep.py:2740-2765) CG on Mq from x0 = p + dp, rhs =
+        Mq (p + dp) - xi nu (div u, q), Jacobi on diag(Mq), the ``scalar``
+        family's tolerances; results batched as one row.  Mq halo'd with its
+        dots summed over the ranks under graph-halo, the element product
+        summed with local dots under the replicated mode."""
         sc, ctx = self._solver_c, self._ctx
-        mv = lambda x: self._halo_apply(self._Mq_vals, self._asm_q, x, "q")
+        if self._rep is not None:
+            comm, mv = None, lambda x: eng.matvec_q(ctx, self._Mq_elems, x)
+        else:
+            comm, mv = self._comm, lambda x: self._halo_apply(self._Mq_vals, self._asm_q, x, "q")
         x0 = p + dp
         rhs = mv(x0) - (self._xi * nu) * eng.source_load_vec_q(ctx, eng.div_v_at_qp(ctx, u))
         res = krylov.cg(mv, rhs, x0=x0, M=lambda r: self._Mq_invd * r, rtol=sc.rtol,
-                        atol=sc.atol, maxiter=sc.maxiter, comm=self._comm)
+                        atol=sc.atol, maxiter=sc.maxiter, comm=comm)
         res = res._replace(iters=res.iters[None], resnorm=res.resnorm[None],
                            converged=res.converged[None])
-        return res, res.x, _rel_res(res.resnorm, self._gnorm(rhs)[None])
+        rnorm = torch.linalg.vector_norm(rhs) if comm is None else self._gnorm(rhs)
+        return res, res.x, _rel_res(res.resnorm, rnorm[None])
 
     def halo_traffic_report(self) -> dict | None:
         """The halo exchange's traffic (oasisx_tpu fracstep.py:445-503):
@@ -1006,17 +1058,15 @@ class FractionalStep_AB_CN:
         return dict(mode="slab-halo", ndev=info.ndev, v=space(info.sm_v_loc, info.valid_v),
                     q=space(info.sm_q_loc, info.valid_q))
 
-    def _no_split(self, name: str) -> None:
-        if self._comm is not None:
-            raise NotImplementedError(f"{name} under a device_mesh (the split-phase API on the "
-                                      f"sharded paths) is not ported: {SHARD_ITEM}")
-
     def _pressure_matvec(self):
         """The pressure operator of the general and sharded paths: K14
         (halo'd under graph-halo, K18 there in the band layout; K5 on the
-        slab), with identity rows and columns on the outlet dofs where there
-        is an outlet."""
-        if self._slab is not None:
+        slab; the element product summed under the replicated mode), with
+        identity rows and columns on the outlet dofs where there is an
+        outlet."""
+        if self._rep is not None:
+            mv = lambda x: eng.matvec_q(self._ctx, self._Ap_elems, x)
+        elif self._slab is not None:
             Ap_c, sm = self._cu.Ap_c, self._sm_q
             mv = lambda x: self._slab_op(lambda v: kn.matvec_const(v, Ap_c, sm), x, "q", "q")
         elif self._halo is not None:
@@ -1084,6 +1134,12 @@ class FractionalStep_AB_CN:
         # rotational update's solve is K4 (structured) or K16 (general)
         if self._halo is not None:
             return self._config_halo(common)
+        if self._rep is not None:
+            sh = self._rep
+            return dict(common, sharding="replicated", ndev=sh.ndev, rank=sh.rank,
+                        backend=self._comm.backend, cells=len(sh.cells), path_kernels=[],
+                        pressure_pc="jacobi-pcg", pressure_mg_levels=0,
+                        low_memory=self._low_memory, outlet=bool(self._bcs_p))
         unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
         if self._rotational:
             unused -= {"cg_mass", "ell_cg"}
@@ -1165,9 +1221,10 @@ class FractionalStep_AB_CN:
     # --- canonical <-> internal dof order -----------------------------------
     def _pv(self, arr: torch.Tensor) -> torch.Tensor:
         """Canonical V dof order -> the internal layout (the padded grid on
-        the structured path, padding zero; this rank's slab on the slab
-        path, halo and padding zero; a copy on the general path)."""
-        if self._comm is not None:
+        the structured path, padding zero; this rank's slab or local block on
+        the owned-dof paths, halo and padding zero; a copy on the general
+        path and under the replicated mode)."""
+        if self._shard_idx is not None:
             return self._shard_part(arr, "v")
         if self._gf_v is None:
             return arr.clone()
@@ -1176,7 +1233,7 @@ class FractionalStep_AB_CN:
         return out
 
     def _pq(self, arr: torch.Tensor) -> torch.Tensor:
-        if self._comm is not None:
+        if self._shard_idx is not None:
             return self._shard_part(arr, "q")
         if self._gf_q is None:
             return arr.clone()
@@ -1185,14 +1242,14 @@ class FractionalStep_AB_CN:
         return out
 
     def _uv(self, arr: torch.Tensor) -> torch.Tensor:
-        """Internal layout -> canonical V dof order (on the sharded paths
+        """Internal layout -> canonical V dof order (on the owned-dof paths
         every rank's part gathered first: a collective)."""
-        if self._comm is not None:
+        if self._shard_idx is not None:
             return self._gathered(arr)[..., self._shard_idx["v"]["all"]]
         return arr if self._gf_v is None else arr[..., self._gf_v]
 
     def _uq(self, arr: torch.Tensor) -> torch.Tensor:
-        if self._comm is not None:
+        if self._shard_idx is not None:
             return self._gathered(arr)[..., self._shard_idx["q"]["all"]]
         return arr if self._gf_q is None else arr[..., self._gf_q]
 
@@ -1267,17 +1324,13 @@ class FractionalStep_AB_CN:
         the full rhs norm, Jacobi from the full diagonal.  On the general
         path a ``ksp_type`` cg or gmres solves each component in turn
         (``_tentative_components``), and on the structured path a ``ksp_type``
-        cg runs batched CG there.  Returns (KrylovResult, diff against u,
-        relative exit residual)."""
-        if self._slab is not None:
-            sm = self._sm_v
-            op = lambda x: self._slab_op(lambda v: kn.matvec_win(A, v, sm), x, "v", "v")
-            return self._tentative_solve_sharded(op, diag, rhs1, bc_vals, u, x0)
-        if self._halo is not None:
-            vals, asm = self._op_values(A, "v")
-            op = lambda x: self._halo_apply(vals, asm, x, "v")
-            return self._tentative_solve_sharded(op, diag, rhs1, bc_vals, u, x0)
-        if self._tentative_method() != "bcgs":
+        cg runs batched CG there; the replicated mode solves a component at a
+        time.  Returns (KrylovResult, diff against u, relative exit
+        residual)."""
+        if self._slab is not None or self._halo is not None:
+            return self._tentative_solve_sharded(self._tentative_product(A), diag, rhs1, bc_vals,
+                                                 u, x0)
+        if self._rep is not None or self._tentative_method() != "bcgs":
             return self._tentative_components(A, diag, rhs1, bc_vals, u, x0)
         masks, zmask = self._bc_masks, self._zmask
         rhs = torch.where(masks, bc_vals, rhs1)
@@ -1309,36 +1362,51 @@ class FractionalStep_AB_CN:
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
         return res, diff, _rel_res(res.resnorm, bnorm)
 
+    def _tentative_product(self, A):
+        """The tentative operator's product on the internal layout, without
+        its bc rows, from ``_assemble_first``'s A: K3 on W (between the halo
+        refresh and fold on the slab); K14 on A_lhs's ELL values, K18 on its
+        band values in the band layout (between the halo refresh and fold
+        under graph-halo); the element product summed under the replicated
+        mode."""
+        if self._rep is not None:
+            return lambda x: eng.matvec_v(self._ctx, A, x)
+        if self._structured:
+            sm = self._sm_v
+            if self._slab is None:
+                return lambda x: kn.matvec_win(A, x, sm)
+            return lambda x: self._slab_op(lambda v: kn.matvec_win(A, v, sm), x, "v", "v")
+        vals, asm = self._op_values(A, "v")
+        if self._halo is not None:
+            return lambda x: self._halo_apply(vals, asm, x, "v")
+        if isinstance(asm, BandAssembly):
+            return lambda x: band.from_band(band.band_matvec(vals, *asm.tables,
+                                                             band.to_band(x, asm)), asm)
+        return lambda x: ell.ell_matvec(vals, asm.cols, asm.widths, x)
+
     def _tentative_components(self, A, diag, rhs1, bc_vals, u, x0):
-        """The tentative solves by CG or GMRES(restart) in the JAX package's
-        XLA formulation (oasisx_tpu fracstep.py:2512-2540): identity bc rows
-        after the product, the rhs with the bc values on them, x0 as given
-        (its bc rows not preset), Jacobi with 1 on the bc rows.  Structured
-        (CG only): every component at once by ``krylov.cg_batched`` on K3's
-        product at batch d, as the JAX kernel path runs it (fracstep.py:
-        2442-2453, its product ``_tentative_matvec`` :2312-2316).  General: a
-        component at a time, the product K14 at batch 1 on A_lhs's ELL
-        values, or K18's in the band layout, both assembled once a solve.
-        The Krylov loops run on the host (one read an iteration, or an
-        Arnoldi step)."""
+        """The tentative solves by CG, GMRES(restart) or (replicated)
+        BiCGStab in the JAX package's XLA formulation (oasisx_tpu
+        fracstep.py:2512-2540): identity bc rows after the product, the rhs
+        with the bc values on them, x0 as given (its bc rows not preset),
+        Jacobi with 1 on the bc rows.  Structured (CG only): every component
+        at once by ``krylov.cg_batched`` on K3's product at batch d, as the
+        JAX kernel path runs it (fracstep.py:2442-2453, its product
+        ``_tentative_matvec`` :2312-2316).  General: a component at a time,
+        the product K14 at batch 1 on A_lhs's ELL values, or K18's in the
+        band layout, both assembled once a solve; replicated: the element
+        product summed over the ranks, the dots local.  The Krylov loops run
+        on the host (one read an iteration, or an Arnoldi step)."""
         s, masks = self._solver_u, self._bc_masks
         dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
         rhs = torch.where(masks, bc_vals, rhs1)
+        mv = self._tentative_product(A)
         if self._structured:
-            mv = lambda x: eng.apply_bc_rows(masks, kn.matvec_win(A, x, self._sm_v), x)
-            res = krylov.cg_batched(mv, rhs, x0=x0, M=krylov.jacobi_preconditioner(dfull),
+            res = krylov.cg_batched(lambda x: eng.apply_bc_rows(masks, mv(x), x), rhs, x0=x0,
+                                    M=krylov.jacobi_preconditioner(dfull),
                                     rtol=s.rtol, atol=s.atol, maxiter=s.maxiter)
             diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
             return res, diff, _rel_res(res.resnorm, torch.linalg.vector_norm(rhs, dim=-1))
-        if self._layout == "band":
-            bv = self._band_v
-            vals = band_values(A, bv)
-            mv = lambda x: band.from_band(band.band_matvec(vals, *bv.tables, band.to_band(x, bv)),
-                                          bv)
-        else:
-            ev = self._ell_v
-            vals = ell_values(A, ev)
-            mv = lambda x: ell.ell_matvec(vals, ev.cols, ev.widths, x)
         out = []
         for i in range(rhs.shape[0]):
             A_i = lambda x, m=masks[i]: eng.apply_bc_rows(m, mv(x), x)
@@ -1347,7 +1415,7 @@ class FractionalStep_AB_CN:
             if s.method == "gmres":
                 out.append(krylov.gmres(A_i, rhs[i], restart=s.gmres_restart, **kw))
             else:
-                out.append(krylov.cg(A_i, rhs[i], **kw))
+                out.append((krylov.cg if s.method == "cg" else krylov.bicgstab)(A_i, rhs[i], **kw))
         res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
                                   sum(r.syncs for r in out))
         diff = torch.sum(torch.linalg.vector_norm(res.x - u, dim=-1))
@@ -1380,7 +1448,7 @@ class FractionalStep_AB_CN:
         products with the loop on the host; with the outlet mask (dp0 as it
         is), or with the nullspace (warm start demeaned, volume-weighted zero
         mean after)."""
-        if self._comm is not None:
+        if self._slab is not None or self._halo is not None:
             return self._pressure_solve_sharded(b2, dp0)
         if self._structured:
             nv = self._q_null
@@ -1438,8 +1506,8 @@ class FractionalStep_AB_CN:
         outlet-masked b2; the outlet rows are not masked here either), the
         product K14 and the solve K16 at batch 1 on Mq's ELL values.
         Returns (KrylovResult, ps, relative exit residual)."""
-        if self._halo is not None:
-            return self._rotational_update_halo(p, dp, u, nu)
+        if self._halo is not None or self._rep is not None:
+            return self._rotational_update_sharded(p, dp, u, nu)
         sc = self._solver_c
         rtol = _effective_rtol(sc.rtol, self._dtype)
         x0 = (p + dp)[None]
@@ -1484,6 +1552,8 @@ class FractionalStep_AB_CN:
             if self._halo is not None:
                 op = lambda x: self._halo_apply(self._M_vals, self._asm_v, x, "v")
                 return self._velocity_update_sharded(op, u, g, dt, duc)
+            if self._rep is not None:
+                return self._velocity_update_components(u, g, dt, duc)
             if self._layout == "band":
                 return self._velocity_update_band(u, g, dt, duc, rtol)
             ev = self._ell_v
@@ -1499,6 +1569,20 @@ class FractionalStep_AB_CN:
             res = ell.ell_cg(self._M_vals, ev.cols, ev.widths, r0, u + duc, self._M_invd, bnorm,
                              rtol, sc.maxiter, sc.atol)
         return res, _rel_res(res.resnorm, bnorm)
+
+    def _velocity_update_components(self, u, g, dt, duc):
+        """The replicated mode's mass solves (oasisx_tpu fracstep.py:
+        2954-2965): Jacobi-CG a component at a time on the element product of
+        M summed over the ranks, its dots local, from x0 = u + duc, b3 = M u
+        - dt G dp (``g`` = G dp)."""
+        sc = self._solver_c
+        mv = lambda x: eng.matvec_v(self._ctx, self._M_elems, x)
+        b3 = torch.stack([mv(u[i]) - dt * g[i] for i in range(u.shape[0])])
+        out = [krylov.cg(mv, b3[i], x0=u[i] + duc[i], M=lambda r: self._M_invd * r, rtol=sc.rtol,
+                         atol=sc.atol, maxiter=sc.maxiter) for i in range(u.shape[0])]
+        res = krylov.KrylovResult(*(torch.stack(t) for t in list(zip(*out))[:4]),
+                                  sum(r.syncs for r in out))
+        return res, _rel_res(res.resnorm, torch.linalg.vector_norm(b3, dim=-1))
 
     def _lumped_update(self, u, dp, dt):
         """The lumped (weighted-gradient) update, u - dt num / diag(M), as
@@ -1619,14 +1703,14 @@ class FractionalStep_AB_CN:
     def set_state(self, state: dict) -> None:
         """Load the solver state from NumPy arrays in the internal layout
         (the grid on the structured path, the canonical dof order on the
-        general path; on the slab path the whole state in the global
-        slab-flat layout, on the graph-halo path the stacked local layouts,
-        as ``get_state`` returns it and as the JAX package holds it, on every
-        rank, which keeps its own part), keyed as the JAX solver's
-        ``_state_from_functions``: u, u1, u2, p, dp, duc."""
+        general path and under the replicated mode; on the slab path the
+        whole state in the global slab-flat layout, on the graph-halo path
+        the stacked local layouts, as ``get_state`` returns it and as the JAX
+        package holds it, on every rank, which keeps its own part), keyed as
+        the JAX solver's ``_state_from_functions``: u, u1, u2, p, dp, duc."""
         t = lambda a: torch.as_tensor(np.array(a), device=self._device).to(self._dtype)
         st = {k: t(state[k]) for k in STATE_KEYS}
-        if self._comm is not None:
+        if self._shard_idx is not None:
             k = self._comm.rank
             for key, arr in st.items():
                 n = self._npad_q if key in ("p", "dp") else self._npad_v
@@ -1635,9 +1719,9 @@ class FractionalStep_AB_CN:
 
     def get_state(self) -> dict:
         """The solver state as NumPy arrays in the internal layout (on the
-        sharded paths the ranks' parts gathered: a collective)."""
+        owned-dof paths the ranks' parts gathered: a collective)."""
         st = self._state_from_functions()
-        if self._comm is not None:
+        if self._shard_idx is not None:
             st = {k: self._gathered(st[k]) for k in STATE_KEYS}
         return {k: st[k].detach().cpu().numpy() for k in STATE_KEYS}
 
@@ -1763,9 +1847,11 @@ class FractionalStep_AB_CN:
         return float(self.last_stats["diff"])
 
     # ------------------------------------------------------------------
-    # split-phase API (oasisx_tpu fracstep.py:3499-3733): one phase of a
-    # step per call, through the step's own helpers; each reads and writes
-    # the solver's Functions on its device
+    # split-phase API (oasisx_tpu fracstep.py:3452-3733): one phase of a
+    # step per call, through the step's own helpers; each reads the
+    # solver's canonical Functions into the internal layout (a rank's part
+    # under a device_mesh) and writes its result back canonical (gathered
+    # over the ranks: every phase is a collective there)
     # ------------------------------------------------------------------
     def _read_v(self, fs: list[Function]) -> torch.Tensor:
         return self._pv(torch.stack([f.x.array for f in fs]))
@@ -1779,7 +1865,6 @@ class FractionalStep_AB_CN:
         """uab = 1.5 u1 - 0.5 u2, the outlet values updated, b_first into
         ``_b_first``; keeps the step's tentative operator (W structured, the
         element stack A_lhs general) for the solve and the dense export."""
-        self._no_split("assemble_first")
         for ab, f1, f2 in zip(self._uab, self._u1, self._u2):
             ab.x.array.copy_(1.5 * f1.x.array - 0.5 * f2.x.array)
         for bcp in self._bcs_p:
@@ -1791,7 +1876,6 @@ class FractionalStep_AB_CN:
 
     def velocity_tentative_assemble(self) -> None:
         """rhs1 = b_first + (ps, dv/dx_i) into ``_rhs1``."""
-        self._no_split("velocity_tentative_assemble")
         rhs1 = self._read_v(self._b_first) + self._pressure_gradient(self._pq(self._ps.x.array))
         self._write_v(self._rhs1, rhs1)
 
@@ -1800,7 +1884,6 @@ class FractionalStep_AB_CN:
         ``run`` starts from 2 u1 - u2), the BC values written into
         ``_rhs1`` first.  Returns (diff, reasons): 2 converged, -3 not, a
         component each."""
-        self._no_split("velocity_tentative_solve")
         if self._split is None:
             raise RuntimeError("call assemble_first first")
         A, uq, dt, nu = self._split
@@ -1815,7 +1898,6 @@ class FractionalStep_AB_CN:
 
     def pressure_assemble(self, dt: float) -> None:
         """b2 = -(1/dt) (div u, q), 0 on the outlet dofs, into ``_b2``."""
-        self._no_split("pressure_assemble")
         self._split_dt = dt
         self._b2.x.array.copy_(self._uq(self._divergence(self._read_v(self._u), dt)))
 
@@ -1825,7 +1907,6 @@ class FractionalStep_AB_CN:
         ``_ps``; returns 2 converged, -3 not.  The structured rotational
         update takes (div u, q) as -dt b2 with the dt of the last
         ``pressure_assemble``."""
-        self._no_split("pressure_solve")
         b2, p = self._pq(self._b2.x.array), self._pq(self._p.x.array)
         res, dp, _ = self._pressure_solve(b2, self._pq(self._dp.x.array))
         if self._rotational:
@@ -1843,7 +1924,6 @@ class FractionalStep_AB_CN:
         """The velocity update of u with ``_dp``, from x0 = u (no previous
         correction, as the JAX split phase); writes ``_u``, returns the
         reasons a component."""
-        self._no_split("velocity_update")
         u = self._read_v(self._u)
         res, _ = self._velocity_update(u, self._pq(self._dp.x.array), dt, torch.zeros_like(u))
         self._write_v(self._u, res.x)
@@ -1852,24 +1932,29 @@ class FractionalStep_AB_CN:
     def tentative_matrix_dense(self) -> np.ndarray:
         """The dense tentative operator of component 0 as ``assemble_first``
         left it, BC rows zeroed with a unit diagonal, float64 on the host.
-        General path: the element stack summed.  Structured path: the step's
-        operator (K3 on W on the card, its plain version on the CPU) applied
-        to the identity columns, ``DENSE_BATCH`` a call.  Refused above
-        ``DENSE_MAX_DOFS`` dofs a component."""
-        self._no_split("tentative_matrix_dense")
+        General path on one device: the element stack summed.  Structured
+        path and every sharded mode: the mode's own product of the step's
+        operator (``_tentative_product``: K3 on W, per slab on the slab
+        path; K14 or K18 per rank under graph-halo; the element product
+        summed when replicated; the plain versions on the CPU) applied to
+        the identity columns, ``DENSE_BATCH`` a call (under graph-halo the
+        solve's batch d), and gathered.  Refused above ``DENSE_MAX_DOFS``
+        dofs a component."""
         if self._split is None:
             raise RuntimeError("call assemble_first first")
         n = self._Vi[0][0].num_dofs
         if n > DENSE_MAX_DOFS:
             raise ValueError(f"{n} dofs a component: the dense export stops at {DENSE_MAX_DOFS}")
         A_op = self._split[0]
-        if self._structured:
+        if self._structured or self._comm is not None:
+            mv, dev = self._tentative_product(A_op), self._device
+            step = self._mesh.dim if self._halo is not None else DENSE_BATCH
             cols = []
-            for j0 in range(0, n, DENSE_BATCH):
-                j = torch.arange(j0, min(j0 + DENSE_BATCH, n), device=self._device)
-                X = torch.zeros((len(j), self._npad_v), dtype=self._dtype, device=self._device)
-                X[torch.arange(len(j), device=self._device), self._gf_v[j]] = 1.0
-                cols.append(self._uv(kn.matvec_win(A_op, X, self._sm_v)).cpu())
+            for j0 in range(0, n, step):
+                j = torch.arange(j0, min(j0 + step, n), device=dev)
+                X = torch.zeros((len(j), n), dtype=self._dtype, device=dev)
+                X[torch.arange(len(j), device=dev), j] = 1.0
+                cols.append(self._uv(mv(self._pv(X))).cpu())
             A = torch.cat(cols).T.contiguous().double().numpy()  # column j: A e_j
         else:
             cd = self._ctx.cd_v.cpu().numpy()

@@ -7,7 +7,9 @@ One process per rank; the JAX package's ``jax.lax`` collectives map so:
 =============== ===================================== ==================
 ``ppermute``    ``Comm.shift`` (one plane to a        halo refresh and
                 neighbour, one from the other)        fold
-``psum``        ``Comm.sum``                          Krylov dots, norms
+``psum``        ``Comm.sum``                          Krylov dots, norms;
+                                                      the replicated
+                                                      mode's products
 ``all_gather``  ``Comm.gather`` (equal slabs)         the gathered MG,
                                                       state reads
 ``axis_index``  ``Comm.rank``; ``Comm.size``          —
@@ -95,8 +97,9 @@ class Comm:
         return t[None] if self.size == 1 else self._gather(t, "gather")
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over ranks of ``t`` (a small tensor), added in rank
-        order: the same bits on every rank."""
+        """The sum over ranks of ``t`` (a few scalars, or under the
+        replicated mode a whole dof vector), added in rank order: the same
+        bits on every rank."""
         if self.size == 1:
             return t
         g = self._gather(t, "sum")

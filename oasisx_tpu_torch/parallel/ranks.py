@@ -1,5 +1,5 @@
-"""Rank functions of the sharded solver (the slab and graph-halo paths),
-and its command line.
+"""Rank functions of the sharded solver (the slab path, the graph-halo
+path and the replicated mode), and its command line.
 
 Each function here runs on every rank of a group that
 ``parallel/launch.py`` started (or ``torchrun``): ``fn(comm, ...)``.  They
@@ -13,24 +13,34 @@ afresh; the module imports nothing of JAX.
   the times of one halo exchange and one sum over ranks; rank 0 returns
   the state.
 - ``slab_ops``: the slab operators of ``parallel/slab.py`` on inputs from
-  a ``.npz`` file, each rank's slab of the outputs; ``refusals``,
+  a ``.npz`` file, each rank's slab of the outputs; ``mesh_checks``,
   ``slab_checks`` and ``misbehave``: the tests' other rank functions.
-- ``halo_solver``: the graph-halo path's problems: bench.py's vessel (the
-  deformed box on the general path), the DFG cylinder channel with its
-  ``PressureBC(0)`` outlet (``res``, ``rotational``), and the Taylor-Green
-  box with ``slab`` False.
-- ``run_halo``: as ``run_tgv`` for those; ``halo_kernel_checks``: K14 (K18
-  under the band layout) per shard between the halo refresh and fold
-  against its plain version; ``halo_ops`` and ``halo_checks``: the tests'
-  rank functions.
+- ``halo_solver``: the problems of the general path (graph-halo, or the
+  replicated mode with ``options`` ``{"replicated": True}``) and of the
+  split step: bench.py's vessel (the deformed box on the general path), the
+  DFG cylinder channel with its ``PressureBC(0)`` outlet (``res``,
+  ``rotational``), the unit square with its ``PressureBC`` outlet, the 8 x 8
+  rectangle of the split-phase cases, and bench.py's box.
+- ``run_halo``: as ``run_tgv`` for those, graph-halo or replicated;
+  ``halo_kernel_checks``: K14 (K18 under the band layout) per shard between
+  the halo refresh and fold against its plain version; ``halo_ops`` and
+  ``halo_checks``: the tests' rank functions.
+- ``split_step``: one step of the split-phase API under the mesh, after
+  ``run`` warm-up steps, on any mode: each phase's launches and wall, the
+  diff, the reasons and iterations, u and ps; and the dense tentative
+  matrix.  ``run_tgv`` and ``run_halo`` end with one under ``split``.
 
 Command line (the same entry for the launcher and for torchrun)::
 
     python -m oasisx_tpu_torch.parallel.ranks --world 2 -N 16 --steps 10
     python -m oasisx_tpu_torch.parallel.ranks --world 2 --problem vessel -N 16
+    python -m oasisx_tpu_torch.parallel.ranks --world 2 --problem vessel -N 16 --replicated
+    python -m oasisx_tpu_torch.parallel.ranks --world 2 --problem box -N 16 --split
     torchrun --standalone --nproc-per-node 2 -m oasisx_tpu_torch.parallel.ranks -N 16 --steps 10
 
-prints rank 0's steps/s, iterations a step and traffic as one JSON line.
+prints rank 0's steps/s, iterations a step and traffic as one JSON line
+(with ``--split``: one split step's phase walls, reasons and launches after
+the warm-up steps).
 """
 
 from __future__ import annotations
@@ -184,9 +194,10 @@ def run_tgv(comm: Comm, cfg: dict) -> dict:
     N, dtype ("float32" or "float64"), device ("cpu" or "cuda"), rtol,
     warmup, steps, dt, nu, check (the per-shard kernel checks, after the
     warm-up), time_comm (time a sum and a halo exchange), profile (this
-    many more steps under torch.profiler: the device time), solve (after
-    the run, ``set_state(get_state())`` and one ``solve``) and
-    solver_options (``tgv_solver``'s).  Returns this rank's
+    many more steps under torch.profiler: the device time), split (one
+    split step after the run, ``_split_result``, before any of the
+    following), solve (after the run, ``set_state(get_state())`` and one
+    ``solve``) and solver_options (``tgv_solver``'s).  Returns this rank's
     launch counts, traffic and times, and the last run's per-step stats;
     rank 0 also the canonical state (u, u1, u2 as (d, n); p, dp) and
     ``get_state``."""
@@ -226,6 +237,8 @@ def run_tgv(comm: Comm, cfg: dict) -> dict:
                              u2=np.stack([f(g) for g in solver._u2]),
                              p=f(solver._p), dp=f(solver._dp), state=solver.get_state())
     out = canonical()
+    if cfg.get("split"):
+        res["split"] = _split_result(comm, solver, dt, nu)
     if cfg.get("solve"):  # the state written back, then one solve() of max_iter 2
         solver.set_state(out["state"])
         res["solve_diff"] = solver.solve(dt, nu, max_iter=2)
@@ -249,17 +262,68 @@ def iters_per_step(stats: dict) -> dict:
         len(stats[k + "_iters"]), -1).sum(axis=1))) for k in ("u", "p", "c")}
 
 
-def refusals(comm: Comm) -> dict:
-    """What the sharded solver does once the group exists: the path a
-    leading cube count that the ranks do not divide takes (graph-halo); the
-    split-phase API's refusal; the lumped update's fall-back to the mass CG
-    (on a solver given a 1-D ``DeviceMesh``); the (rank, size) of a
-    DeviceMesh's and the world group's ``Comm``.  The refusal's message,
-    and whether this process imported anything of JAX."""
+def _jax_free() -> bool:
+    """Whether this process imported nothing of JAX."""
     import sys
 
-    out = dict(jax_free=not any(m.split(".")[0] in ("jax", "jaxlib", "oasisx_tpu")
-                                for m in sys.modules))
+    return not any(m.split(".")[0] in ("jax", "jaxlib", "oasisx_tpu") for m in sys.modules)
+
+
+def _split_phases(solver, dt, nu) -> dict:
+    """One step of the split-phase API in the JAX package's order (ps <- p,
+    assemble_first, velocity_tentative_assemble, velocity_tentative_solve,
+    pressure_assemble, pressure_solve, velocity_update; the caller does not
+    rotate): the diff, the reasons and iterations of the u, p (rotational
+    update: rot) and c solves, and each phase's host seconds (the device
+    synchronised around it), launches and plain calls."""
+    from ..assembly import kernels as kn
+
+    phases, dev, iters = {}, solver._device, {}
+    for key, name in (("u", "_tentative_solve"), ("p", "_pressure_solve"),
+                      ("rot", "_rotational_update"), ("c", "_velocity_update")):
+        def wrap(*args, f=getattr(solver, name), key=key):  # records the solve's iterations
+            out = f(*args)
+            iters[key] = out[0].iters
+            return out
+
+        setattr(solver, name, wrap)
+
+    def phase(name, fn):
+        launches, plain = dict(kn.launches), dict(kn.plain_calls)
+        _sync(dev)
+        t = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        phases[name] = dict(
+            s=time.perf_counter() - t,
+            launches={k: v - launches.get(k, 0) for k, v in kn.launches.items()
+                      if v != launches.get(k, 0)},
+            plain_calls={k: v - plain.get(k, 0) for k, v in kn.plain_calls.items()
+                         if v != plain.get(k, 0)})
+        return out
+
+    solver._ps.x.array.copy_(solver._p.x.array)
+    phase("assemble_first", lambda: solver.assemble_first(dt, nu))
+    phase("velocity_tentative_assemble", solver.velocity_tentative_assemble)
+    diff, u_reasons = phase("velocity_tentative_solve", solver.velocity_tentative_solve)
+    phase("pressure_assemble", lambda: solver.pressure_assemble(dt))
+    p_reason = phase("pressure_solve", lambda: solver.pressure_solve(nu))
+    c_reasons = phase("velocity_update", lambda: solver.velocity_update(dt))
+    for name in ("_tentative_solve", "_pressure_solve", "_rotational_update", "_velocity_update"):
+        delattr(solver, name)
+    return dict(diff=diff, reasons=dict(u=u_reasons, p=p_reason, c=c_reasons), phases=phases,
+                iters={k: np.asarray(v.cpu()).tolist() for k, v in iters.items()})
+
+
+def mesh_checks(comm: Comm) -> dict:
+    """What the sharded solver does once the group exists: the path a
+    leading cube count that the ranks do not divide takes (graph-halo); on a
+    solver given a 1-D ``DeviceMesh`` (the slab path on the box of (2 world,
+    2, 2) cells), the lumped update's fall-back to the mass CG, one split
+    step (its diff and reasons) and the dense tentative matrix after it
+    (rank 0); the (rank, size) of a DeviceMesh's and the world group's
+    ``Comm``; and whether this process imported anything of JAX."""
+    out = dict(jax_free=_jax_free())
     s = tgv_solver((comm.size * 2 + 1, 4, 4), torch.float64, "cpu", 1e-8, device_mesh=comm)
     out["ndev"] = s.config_report()["sharding"]
     # a 1-D DeviceMesh as the device_mesh, and the world's ProcessGroup
@@ -272,12 +336,13 @@ def refusals(comm: Comm) -> dict:
     out["groups"] = [(c.rank, c.size) for c in (as_comm(mesh), world)]
     s = tgv_solver((comm.size * 2, 2, 2), torch.float64, "cpu", 1e-8, device_mesh=mesh,
                    solver_options={"scalar": {"pc_type": "lumped"}})
-    out["velocity_update"] = s.config_report()["velocity_update"]
-    try:
-        s.assemble_first(DT, NU)
-        out["split"] = None
-    except NotImplementedError as e:
-        out["split"] = str(e)
+    rep = s.config_report()
+    out["velocity_update"], out["sharding"] = rep["velocity_update"], rep["sharding"]
+    split = _split_phases(s, DT, NU)
+    out["split"] = dict(diff=split["diff"], reasons=split["reasons"])
+    A = s.tentative_matrix_dense()
+    if comm.rank == 0:
+        out["dense"] = A
     return out
 
 
@@ -360,13 +425,16 @@ def misbehave(comm: Comm, rank: int, how: str) -> None:
 
 
 ROUTED = ("unstructured", "structured_false", "pressure_bc", "rotational", "slab_false")
+# options["replicated"] on a box whose slabs divide (the slab path, taken
+# first), on an unstructured mesh and with a PressureBC (the replicated mode)
+ROUTED_REPLICATED = ("replicated_slab", "replicated_unstructured", "replicated_pressure_bc")
 
 
-def routing(comm: Comm, cases=ROUTED) -> dict:
+def routing(comm: Comm, cases=ROUTED + ROUTED_REPLICATED) -> dict:
     """The sharding mode the solver takes, on the box of 2 cells an axis
     with every exterior facet tagged 1, for each case the JAX package sends
-    to graph-halo: an unstructured mesh, ``structured`` False, a
-    PressureBC, the rotational update, ``slab`` False."""
+    to graph-halo (an unstructured mesh, ``structured`` False, a PressureBC,
+    the rotational update, ``slab`` False) and each of ROUTED_REPLICATED."""
     from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
     from ..meshes import create_box, meshtags
 
@@ -375,10 +443,14 @@ def routing(comm: Comm, cases=ROUTED) -> dict:
         m = create_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2))
         facets = m.exterior_facet_indices()
         tags = meshtags(m, m.dim - 1, facets, np.full_like(facets, 1))
-        kw = {"unstructured": {}, "structured_false": {"options": {"structured": False}},
+        rep = case.startswith("replicated_")
+        base = case[len("replicated_"):] if rep else case
+        kw = {"unstructured": {}, "slab": {}, "structured_false": {"options": {"structured": False}},
               "pressure_bc": {"bcs_p": [PressureBC(0.0, (tags, 1))]},
-              "rotational": {"rotational": True}, "slab_false": {"options": {"slab": False}}}[case]
-        if case == "unstructured":
+              "rotational": {"rotational": True}, "slab_false": {"options": {"slab": False}}}[base]
+        if rep:
+            kw["options"] = dict(kw.get("options", {}), replicated=True)
+        if base == "unstructured":
             m.structured = None
         bcs = [[DirichletBC(0.0, LocatorMethod.TOPOLOGICAL, (tags, 1))] for _ in range(3)]
         s = FractionalStep_AB_CN(m, ("Lagrange", 2), ("Lagrange", 1), bcs, device="cpu",
@@ -387,11 +459,12 @@ def routing(comm: Comm, cases=ROUTED) -> dict:
     return out
 
 
-def slab_checks(comm: Comm, path: str, cfgs: list) -> dict:
-    """``slab_ops``, ``run_tgv`` of each of ``cfgs`` and ``refusals`` in
-    one group (the tests' one spawn per world)."""
+def slab_checks(comm: Comm, path: str, cfgs: list, splits=()) -> dict:
+    """``slab_ops``, ``run_tgv`` of each of ``cfgs``, ``mesh_checks`` and
+    ``split_step`` of each of ``splits`` in one group (the tests' one spawn
+    per world)."""
     return dict(ops=slab_ops(comm, path), runs=[run_tgv(comm, c) for c in cfgs],
-                refusals=refusals(comm))
+                checks=mesh_checks(comm), splits=[split_step(comm, c) for c in splits])
 
 
 # ---------------------------------------------------------------------------
@@ -469,17 +542,91 @@ def cylinder_solver(res: int, dtype, device, rtol: float, device_mesh=None,
     )
 
 
+SQUARE_DT, SQUARE_NU = 0.05, 0.1  # the unit square's step and viscosity
+RECT_DT = RECT_NU = 0.01  # the split-phase rectangle's
+
+
+def square_solver(dtype, device, rtol: float, device_mesh=None, solver_options=None,
+                  options=None):
+    """tests/test_sharding.py's problem: the unit square of 10 cells an
+    axis, u = (sin(pi y), 0) on x = 0, no slip on y = 0 and 1, a
+    ``PressureBC(1 + 0.1 y)`` outlet on x = 1, both components of u1 and u2
+    0.1 sin(pi x) sin(pi y)."""
+    from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod, PressureBC
+    from ..meshes import create_unit_square, locate_entities_boundary, meshtags
+
+    mesh = create_unit_square(10)
+    side = lambda f: locate_entities_boundary(mesh, 1, f)
+    left = side(lambda x: np.isclose(x[0], 0))
+    tb = side(lambda x: np.isclose(x[1], 0) | np.isclose(x[1], 1))
+    right = side(lambda x: np.isclose(x[0], 1))
+    values = np.hstack([np.full_like(left, 1), np.full_like(tb, 2),
+                        np.full_like(right, 3)]).astype(np.int32)
+    tags = meshtags(mesh, 1, np.hstack([left, tb, right]), values)
+    T = LocatorMethod.TOPOLOGICAL
+    bcs_u = [[DirichletBC(lambda x: np.sin(np.pi * x[1]), T, (tags, 1)),
+              DirichletBC(0.0, T, (tags, 2))],
+             [DirichletBC(0.0, T, (tags, 1)), DirichletBC(0.0, T, (tags, 2))]]
+    s = FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1), bcs_u=bcs_u,
+        bcs_p=[PressureBC(lambda x: 1.0 + 0.1 * x[1], (tags, 3))],
+        solver_options=_options(rtol, solver_options), options=options, dtype=dtype,
+        device=device, device_mesh=device_mesh)
+    for f in (*s._u1, *s._u2):
+        f.interpolate(lambda x: 0.1 * np.sin(np.pi * x[0]) * np.sin(np.pi * x[1]))
+    return s
+
+
+def rect_solver(dtype, device, rtol: float, device_mesh=None, solver_options=None,
+                options=None):
+    """tests/test_graph_halo.py's split-phase and dense-matrix problem: the
+    rectangle [-1, 1]^2 of 8 x 8 cells, P2/P1, the Taylor-Green velocity
+    (-cos(pi x) sin(pi y), cos(pi y) sin(pi x)) on every boundary facet and
+    in u1 and u2."""
+    from .. import DirichletBC, FractionalStep_AB_CN, LocatorMethod
+    from ..meshes import create_rectangle, meshtags
+
+    ux = lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1])
+    uy = lambda x: np.cos(np.pi * x[1]) * np.sin(np.pi * x[0])
+    mesh = create_rectangle((-1.0, -1.0), (1.0, 1.0), (8, 8))
+    facets = mesh.exterior_facet_indices()
+    tags = meshtags(mesh, 1, facets, np.full_like(facets, 3))
+    T = LocatorMethod.TOPOLOGICAL
+    s = FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1),
+        bcs_u=[[DirichletBC(ux, T, (tags, 3))], [DirichletBC(uy, T, (tags, 3))]], bcs_p=[],
+        solver_options=_options(rtol, solver_options), options=options, dtype=dtype,
+        device=device, device_mesh=device_mesh)
+    for f, g in ((s._u1[0], ux), (s._u1[1], uy), (s._u2[0], ux), (s._u2[1], uy)):
+        f.interpolate(g)
+    return s
+
+
 def halo_solver(cfg: dict, dtype, device, device_mesh=None):
-    """The problem of ``cfg``: "problem" "vessel" (N) or "cylinder" (res,
-    rotational); rtol, solver_options and options as those functions take
-    them."""
+    """The problem of ``cfg``: "problem" "vessel" (N), "cylinder" (res,
+    rotational), "square", "rect" or "box" (bench.py's Taylor-Green box, N);
+    rtol, solver_options and options as those functions take them."""
     kw = dict(device_mesh=device_mesh, solver_options=cfg.get("solver_options"),
               options=cfg.get("options"))
     rtol = cfg.get("rtol", 1e-8)
-    if cfg["problem"] == "vessel":
+    problem = cfg["problem"]
+    if problem == "vessel":
         return vessel_solver(cfg["N"], dtype, device, rtol, **kw)
+    if problem == "square":
+        return square_solver(dtype, device, rtol, **kw)
+    if problem == "rect":
+        return rect_solver(dtype, device, rtol, **kw)
+    if problem == "box":
+        return tgv_solver(cfg["N"], dtype, device, rtol, **kw)
     return cylinder_solver(cfg["res"], dtype, device, rtol,
                            rotational=cfg.get("rotational", False), **kw)
+
+
+def step_size(cfg: dict) -> tuple[float, float]:
+    """(dt, nu) of ``cfg``: its own, else its problem's."""
+    dt, nu = {"square": (SQUARE_DT, SQUARE_NU), "rect": (RECT_DT, RECT_NU),
+              "cylinder": (CYL_DT, CYL_NU)}.get(cfg["problem"], (DT, NU))
+    return cfg.get("dt", dt), cfg.get("nu", nu)
 
 
 def _device_ms(fn, device, reps: int = 20) -> float:
@@ -590,13 +737,16 @@ def halo_kernel_checks(solver, dt, nu, seed: int = 0, timed: bool = False) -> di
 
 def _time_halo(solver, reps: int = 50) -> dict:
     """Host-clock ms of one sum over ranks (one value) and of one halo
-    refresh of the velocity (d components), each the mean of ``reps``."""
+    refresh of the velocity (d components) under graph-halo, or of one sum
+    of a whole velocity component under the replicated mode (a product's
+    sum), each the mean of ``reps``."""
     comm, dev = solver._comm, solver._device
     one = torch.ones(1, dtype=solver._dtype, device=dev)
     u = solver._state_from_functions()["u"]
+    second = (("halo_ms", lambda: halo_refresh(u, solver._halo.rounds_v, comm))
+              if solver._halo is not None else ("vector_sum_ms", lambda: comm.sum(u[0])))
     out = {}
-    for name, fn in (("sum_ms", lambda: comm.sum(one)),
-                     ("halo_ms", lambda: halo_refresh(u, solver._halo.rounds_v, comm))):
+    for name, fn in (("sum_ms", lambda: comm.sum(one)), second):
         fn()
         comm.barrier()
         _sync(dev)
@@ -608,15 +758,10 @@ def _time_halo(solver, reps: int = 50) -> dict:
     return out
 
 
-def run_halo(comm: Comm, cfg: dict) -> dict:
-    """The graph-halo solver of ``cfg`` (``halo_solver``'s keys, and dtype,
-    device, warmup, steps, dt, nu, check, time_comm, profile as ``run_tgv``
-    takes them; max_iter 1; time_kernels: the checks' products timed;
-    ``p_cheb``: the Chebyshev bounds to use,
-    ``coarse_inv``: the AMG's coarse inverse to use) on this rank.  Returns
-    its set-up seconds by part, config, traffic, launch counts, per-step
-    stats and times; rank 0 also the canonical state and ``get_state``."""
-    from ..assembly import kernels as kn
+def _solver(comm: Comm, cfg: dict):
+    """(the solver of ``cfg`` on this rank, its device, the set-up
+    seconds), with the JAX references the cfg hands in: ``p_cheb`` (the
+    Chebyshev bounds) and ``coarse_inv`` (the AMG's coarse inverse)."""
     from .launch import rank_device
 
     dtype = getattr(torch, cfg.get("dtype", "float64"))
@@ -629,8 +774,48 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     if cfg.get("coarse_inv") is not None:
         solver._amg.coarse_inv = torch.as_tensor(np.asarray(cfg["coarse_inv"]),
                                                  device=device).to(dtype)
-    dt, nu = cfg.get("dt", CYL_DT), cfg.get("nu", CYL_NU)
-    res = dict(rank=comm.rank, setup_s=setup_s, setup_parts=dict(solver._halo.times),
+    return solver, device, setup_s
+
+
+def _canonical(solver) -> dict:
+    """Copies of the solver's canonical state Functions, float64 (a later
+    step writes the arrays in place)."""
+    f = lambda g: np.array(g.x.array.double().cpu().numpy())
+    return dict(u=np.stack([f(g) for g in solver._u]), u1=np.stack([f(g) for g in solver._u1]),
+                u2=np.stack([f(g) for g in solver._u2]), p=f(solver._p), dp=f(solver._dp))
+
+
+def _digest(solver) -> str:
+    """A hash of the bits of the solver's state Functions on this rank."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for g in (*solver._u, *solver._u1, *solver._u2, solver._p, solver._dp):
+        h.update(g.x.array.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_halo(comm: Comm, cfg: dict) -> dict:
+    """The general path's solver of ``cfg`` (``halo_solver``'s keys: graph-
+    halo, or the replicated mode with ``options`` ``{"replicated": True}``;
+    and dtype, device, warmup, steps, dt, nu, check, time_comm, profile as
+    ``run_tgv`` takes them; max_iter 1, or ``solve_iter``: the steps as
+    ``solve(max_iter=solve_iter)`` calls; time_kernels: the checks'
+    products timed; ``p_cheb``: the Chebyshev bounds to use, ``coarse_inv``:
+    the AMG's coarse inverse to use; ``split``: one split step after the
+    run, ``_split_result``; ``until``: at the end, more steps to this many
+    in all, the canonical state after them on rank 0 as ``until``) on this
+    rank.  Returns its set-up seconds by part, config, traffic, launch
+    counts, per-step stats and times, and a digest of its state's bits;
+    rank 0 also the canonical state (before the split step) and
+    ``get_state``."""
+    from ..assembly import kernels as kn
+
+    solver, device, setup_s = _solver(comm, cfg)
+    dt, nu = step_size(cfg)
+    halo = solver._halo is not None
+    res = dict(rank=comm.rank, setup_s=setup_s,
+               setup_parts=dict(solver._halo.times) if halo else {},
                config=solver.config_report(), traffic=solver.halo_traffic_report())
     clock = [time.perf_counter()]
     times = res["times"] = {}
@@ -642,7 +827,7 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     if cfg.get("warmup", 0):
         solver.run(cfg["warmup"], dt, nu, max_iter=1)
     lap("warmup_s")
-    if cfg.get("check"):
+    if cfg.get("check") and halo:
         res["kernels"] = halo_kernel_checks(solver, dt, nu, timed=cfg.get("time_kernels", False))
     lap("check_s")
     kn.reset_counts()
@@ -650,26 +835,77 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     comm.barrier()
     _sync(device)
     t0 = time.perf_counter()
-    stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
+    if cfg.get("solve_iter"):
+        per = []
+        for _ in range(cfg["steps"]):
+            solver.solve(dt, nu, max_iter=cfg["solve_iter"])
+            per.append(solver.last_stats)
+        stats = {k: np.stack([np.asarray(p[k]) for p in per]) for k in per[0]}
+    else:
+        stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
     _sync(device)
     wall = time.perf_counter() - t0
     res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
                launches={k: v for k, v in kn.launches.items() if v},
                plain_calls={k: v for k, v in kn.plain_calls.items() if v},
-               comm={k: list(v) for k, v in comm.stats.items()})
-    f = lambda g: np.array(g.x.array.double().cpu().numpy())
-    out = dict(u=np.stack([f(g) for g in solver._u]), u1=np.stack([f(g) for g in solver._u1]),
-               u2=np.stack([f(g) for g in solver._u2]), p=f(solver._p), dp=f(solver._dp),
-               state=solver.get_state())
+               comm={k: list(v) for k, v in comm.stats.items()}, digest=_digest(solver))
+    out = dict(_canonical(solver), state=solver.get_state())
     lap("steps_and_state_s")
     if comm.rank == 0:
         res.update(out)
+    if cfg.get("split"):
+        res["split"] = _split_result(comm, solver, dt, nu)
+        lap("split_s")
     if cfg.get("time_comm"):
         res.update(_time_halo(solver))
     lap("time_comm_s")
     if cfg.get("profile"):
         res.update(_profile(solver, cfg["profile"], dt, nu))
     lap("profile_s")
+    if cfg.get("until"):  # more steps, to this many in all
+        more = cfg["until"] - (cfg.get("warmup", 0) + cfg["steps"] + cfg.get("profile", 0))
+        if more > 0:
+            solver.run(more, dt, nu, max_iter=1)
+        if comm.rank == 0:
+            res["until"] = _canonical(solver)
+        lap("until_s")
+    return res
+
+
+def _split_result(comm: Comm, solver, dt, nu) -> dict:
+    """``_split_phases`` on this rank's solver; rank 0 also u (d, n) and ps,
+    canonical."""
+    comm.barrier()
+    res = dict(rank=comm.rank, config=solver.config_report(), **_split_phases(solver, dt, nu))
+    if comm.rank == 0:
+        f = lambda g: np.array(g.x.array.double().cpu().numpy())
+        res.update(u=np.stack([f(g) for g in solver._u]), ps=f(solver._ps))
+    return res
+
+
+def split_step(comm: Comm, cfg: dict) -> dict:
+    """One split step under the mesh (``_split_result``) of the solver of
+    ``cfg`` (``halo_solver``'s keys, any sharded mode; dtype, device; p_cheb
+    and coarse_inv as ``run_halo`` takes them), after ``warmup`` ``run``
+    steps; with ``dense``, the dense tentative matrix of that step's
+    operator after it (a collective) and its launches.  Returns this rank's
+    set-up seconds, config, diff, reasons and iterations and each phase's
+    seconds, launches and plain calls; rank 0 also u (d, n) and ps,
+    canonical, and the matrix."""
+    from ..assembly import kernels as kn
+
+    solver, _, setup_s = _solver(comm, cfg)
+    dt, nu = step_size(cfg)
+    if cfg.get("warmup", 0):
+        solver.run(cfg["warmup"], dt, nu, max_iter=1)
+    res = dict(_split_result(comm, solver, dt, nu), setup_s=setup_s)
+    if cfg.get("dense"):
+        launches = dict(kn.launches)
+        A = solver.tentative_matrix_dense()
+        res["dense_launches"] = {k: v - launches.get(k, 0) for k, v in kn.launches.items()
+                                 if v != launches.get(k, 0)}
+        if comm.rank == 0:
+            res["dense"] = A
     return res
 
 
@@ -710,14 +946,12 @@ def halo_ops(comm: Comm, path: str) -> dict:
     return {key: v.numpy() for key, v in out.items()}
 
 
-def halo_checks(comm: Comm, path: str | None, cfgs: list) -> dict:
-    """``halo_ops`` (with a ``path``) and ``run_halo`` of each of ``cfgs``
-    in one group, and whether this process imported anything of JAX."""
-    import sys
-
-    out = dict(runs=[run_halo(comm, c) for c in cfgs],
-               jax_free=not any(m.split(".")[0] in ("jax", "jaxlib", "oasisx_tpu")
-                                for m in sys.modules))
+def halo_checks(comm: Comm, path: str | None, cfgs: list, splits=()) -> dict:
+    """``halo_ops`` (with a ``path``), ``run_halo`` of each of ``cfgs`` and
+    ``split_step`` of each of ``splits`` in one group, and whether this
+    process imported anything of JAX."""
+    out = dict(runs=[run_halo(comm, c) for c in cfgs], splits=[split_step(comm, c) for c in splits],
+               jax_free=_jax_free())
     if path is not None:
         out["ops"] = halo_ops(comm, path)
     return out
@@ -728,9 +962,14 @@ def main(argv=None) -> int:
     ap.add_argument("--problem", default="box", choices=("box", "vessel", "cylinder"),
                     help="box: bench.py's structured problem (the slab path); vessel: its "
                          "unstructured one, cylinder: the DFG channel with its outlet (the "
-                         "graph-halo path)")
+                         "graph-halo path, or the replicated mode with --replicated)")
     ap.add_argument("-N", type=int, default=16)
     ap.add_argument("--res", type=int, default=30, help="the cylinder's resolution")
+    ap.add_argument("--replicated", action="store_true",
+                    help="options['replicated'] (the vessel and the cylinder)")
+    ap.add_argument("--split", action="store_true",
+                    help="after the warm-up steps, one step of the split-phase API in place "
+                         "of the timed steps")
     ap.add_argument("--world", type=int, default=2, help="ranks to spawn (not under torchrun)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32")
@@ -743,11 +982,11 @@ def main(argv=None) -> int:
     cfg = dict(N=a.N, device=a.device, dtype=a.dtype, rtol=a.rtol, warmup=a.warmup,
                steps=a.steps, time_comm=True)
     fn = run_tgv
-    if a.problem != "box":
-        fn = run_halo
+    if a.problem != "box" or a.split:
+        fn = split_step if a.split else run_halo
         cfg.update(problem=a.problem, res=a.res)
-        if a.problem == "vessel":
-            cfg.update(dt=DT, nu=NU)
+        if a.replicated:
+            cfg["options"] = {"replicated": True}
     if "RANK" in os.environ:  # under torchrun
         from .launch import run_env
 
@@ -761,12 +1000,19 @@ def main(argv=None) -> int:
                                 torch.cuda.device_count() >= a.world > 1 else "gloo")
         res = launch(fn, a.world, (cfg,), backend=backend)
     r = res[0]
+    head = dict(problem=a.problem, N=a.N, res=a.res, sharding=r["config"]["sharding"],
+                world=r["config"]["ndev"], backend=r["config"]["backend"], setup_s=r["setup_s"])
+    if a.split:
+        print(json.dumps(dict(head, diff=r["diff"], reasons={k: np.asarray(v).tolist() for k, v in
+                                                             r["reasons"].items()},
+                              phases=r["phases"])))
+        return 0
+    if "digest" in r:  # every rank's state bits rank 0's (under the launcher, which has them all)
+        head["same_bits"] = len({o["digest"] for o in res}) == 1
     print(json.dumps(dict(
-        problem=a.problem, N=a.N, res=a.res, world=r["config"]["ndev"],
-        backend=r["config"]["backend"],
-        steps_per_s=r["steps_per_s"], setup_s=r["setup_s"],
-        iters=iters_per_step(r["stats"]),
-        comm=r["comm"], sum_ms=r["sum_ms"], halo_ms=r["halo_ms"], traffic=r["traffic"])))
+        head, steps_per_s=r["steps_per_s"], iters=iters_per_step(r["stats"]), comm=r["comm"],
+        **{k: r[k] for k in ("sum_ms", "halo_ms", "vector_sum_ms") if k in r},
+        traffic=r["traffic"])))
     return 0
 
 

@@ -1,7 +1,8 @@
-"""The graph-halo mode's cell partition, for one rank.
+"""The cell decompositions of the general path, for one rank: the
+graph-halo mode's partition and the replicated mode's cell block.
 
-Counterpart of ``shard_problem_halo`` in ``oasisx_tpu/parallel/sharding.py``
-(oasisx_tpu sharding.py:208-360).  Every rank runs the same host NumPy:
+``shard_problem_halo`` is the counterpart of the function of that name in
+``oasisx_tpu/parallel/sharding.py`` (oasisx_tpu sharding.py:208-360).  Every rank runs the same host NumPy:
 the partition of the cells into ``ndev`` blocks (``partition``
 "multilevel": ``partition.choose_partition``, the cheaper of the multilevel
 edge-cut partition and RCB by exact exchange cost; "rcb":
@@ -18,6 +19,17 @@ dofmaps and its exchange rounds, so the engine's gathers refresh and its
 scatters fold (``assembly/engine.py``).  The outlet facets are grouped by
 the shard of their cell, in their original order, their cells localized to
 the block.
+
+``shard_problem`` is the replicated mode (oasisx_tpu sharding.py:94-205,
+``options["replicated"]``): rank r holds the contiguous block of
+``B = ceil(nc / ndev)`` cells ``[r B, min((r + 1) B, nc))``, the JAX
+package's split, with the canonical dofmaps, so its dof vectors stay whole
+and every scatter ends in one sum over the ranks (``assembly/engine.py``).
+The JAX package pads the last blocks with cells of detJ = 0; ranks here are
+processes whose shapes may differ, so a rank holds only its own cells, and
+each rank's partial sums group the same cells as the JAX shard's do.  The
+outlet facets go to the rank of their cell, in their order, their cells
+localized to its block.
 """
 
 from __future__ import annotations
@@ -109,10 +121,37 @@ def shard_problem_halo(comm, mesh, el_v, cd_v: np.ndarray, el_q, cd_q: np.ndarra
         times=dict(partition_s=t1 - t0, exchange_s=t2 - t1, context_s=t3 - t2))
 
 
-def local_facets(fctx: FacetContext, sh: HaloShard) -> FacetContext:
+@dataclass
+class ReplicatedShard:
+    """One rank's cell block of the replicated mode."""
+
+    rank: int
+    ndev: int
+    B: int  # cells a block (the last blocks may hold fewer)
+    shard_of: np.ndarray  # (nc,) the block of each cell
+    cells: np.ndarray  # this rank's cells, ascending
+    ctx: eng.DeviceContext  # this rank's cells, canonical dof numbering
+
+
+def shard_problem(comm, mesh, el_v, cd_v: np.ndarray, nv: int, el_q, cd_q: np.ndarray, nq: int,
+                  dtype, device) -> ReplicatedShard:
+    """This rank's block of cells and its element context (``comm``:
+    ``parallel.comm.Comm``), whose scatters sum over the ranks."""
+    ndev, k = comm.size, comm.rank
+    nc = len(mesh.cells)
+    B = -(-nc // ndev)
+    shard_of = np.arange(nc) // B
+    cells = np.arange(k * B, min((k + 1) * B, nc))
+    ctx, _ = eng.build_device_context(mesh, el_v, np.asarray(cd_v)[cells], nv, el_q,
+                                      np.asarray(cd_q)[cells], nq, dtype, device, cells=cells)
+    ctx.comm = comm
+    return ReplicatedShard(rank=k, ndev=ndev, B=B, shard_of=shard_of, cells=cells, ctx=ctx)
+
+
+def local_facets(fctx: FacetContext, sh: HaloShard | ReplicatedShard) -> FacetContext:
     """The facets of ``fctx`` whose cell is on this rank, in their order,
     the cells as positions in the rank's block, the touched dofs in its
-    local V numbering."""
+    V numbering (local under graph-halo, canonical when replicated)."""
     cells = fctx.cells.cpu().numpy()
     sel = np.flatnonzero(sh.shard_of[cells] == sh.rank)
     pos = np.full(sh.shard_of.shape[0], -1, dtype=np.int64)

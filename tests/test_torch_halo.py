@@ -30,6 +30,19 @@ in float64.
   (the JAX solver's bounds handed to the ranks) with GMRES tentative
   solves; pressure Jacobi with CG tentative solves.
 
+The same groups run the replicated mode (``options={"replicated": True}``)
+against the JAX package's: tests/test_sharding.py's unit square with its
+PressureBC outlet (3 steps of ``solve(max_iter=2)``) and the vessel at N=4
+(nullspace), rtol 1e-12: every rank's iterations equal to JAX's, u and p to
+1e-9, ``config_report`` as JAX's (Jacobi-PCG), every rank's state bit for
+bit rank 0's.  And the split-phase API under the mesh on
+tests/test_graph_halo.py's 8 x 8 rectangle (rtol 1e-13) in the graph-halo
+and replicated modes: the split step against JAX's split step in the same
+mode and world (u 1e-9, ps 1e-8, the diff and reasons equal) and against
+the port's single-device ``solve(max_iter=1)``; the dense tentative matrix
+against JAX's sharded export and the port's single-device one to 1e-12.
+Each check is a test of its own on the module's group of its world.
+
 The JAX solvers that hand something to the ranks are built first, then the
 ranks start, and the JAX references run while they do; the groups are
 joined with a time limit (each collective: 60 s).
@@ -301,11 +314,125 @@ def _check_run(runs, ref, pc, method):
         assert tr[sp]["sent_bytes_per_exchange"] <= jtr[sp]["bytes_per_exchange"]
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_halo_group(world, tmp_path):
+def _jax_replicated(cfg, world):
+    """The JAX replicated solver of a ``ranks.halo_solver`` cfg ("square" or
+    "vessel") on ``world`` virtual devices."""
+    opts = {"ksp_rtol": RTOL, "ksp_max_it": 2000}
+    so = {k: dict(opts) for k in ("tentative", "pressure", "scalar")}
+    kw = dict(solver_options=so, dtype=np.float64, options=dict(cfg["options"]),
+              device_mesh=Mesh(np.array(jax.devices()[:world]), ("x",)))
+    if cfg["problem"] == "vessel":
+        mesh = _mesh(JM, cfg)
+        facets = mesh.exterior_facet_indices()
+        tags = JM.meshtags(mesh, mesh.dim - 1, facets, np.full_like(facets, 1))
+        bcs = [[J.DirichletBC(f, J.LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in ranks.TGV]
+        kw["options"]["low_memory_version"] = False
+        s = J.FractionalStep_AB_CN(mesh, ("Lagrange", 2), ("Lagrange", 1), bcs, [], **kw)
+        for f, u1, u2 in zip(ranks.TGV, s._u1, s._u2):
+            u1.interpolate(f)
+            u2.interpolate(f)
+    else:
+        mesh = JM.create_unit_square(10)
+        side = lambda f: JM.locate_entities_boundary(mesh, 1, f)
+        left, right = side(lambda x: np.isclose(x[0], 0)), side(lambda x: np.isclose(x[0], 1))
+        tb = side(lambda x: np.isclose(x[1], 0) | np.isclose(x[1], 1))
+        values = np.hstack([np.full_like(left, 1), np.full_like(tb, 2),
+                            np.full_like(right, 3)]).astype(np.int32)
+        tags = JM.meshtags(mesh, 1, np.hstack([left, tb, right]), values)
+        T = J.LocatorMethod.TOPOLOGICAL
+        bcs = [[J.DirichletBC(lambda x: np.sin(np.pi * x[1]), T, (tags, 1)),
+                J.DirichletBC(0.0, T, (tags, 2))],
+               [J.DirichletBC(0.0, T, (tags, 1)), J.DirichletBC(0.0, T, (tags, 2))]]
+        s = J.FractionalStep_AB_CN(mesh, ("Lagrange", 2), ("Lagrange", 1), bcs,
+                                   [J.PressureBC(lambda x: 1.0 + 0.1 * x[1], (tags, 3))], **kw)
+        for f in (*s._u1, *s._u2):
+            f.interpolate(lambda x: 0.1 * np.sin(np.pi * x[0]) * np.sin(np.pi * x[1]))
+    assert s.config_report()["sharding"] == "replicated"
+    return s
+
+
+def _jax_replicated_run(cfg, world):
+    js = _jax_replicated(cfg, world)
+    dt, nu = ranks.step_size(cfg)
+    if cfg.get("solve_iter"):
+        per = []
+        for _ in range(cfg["steps"]):
+            js.solve(dt, nu, max_iter=cfg["solve_iter"])
+            per.append(dict(js.last_stats))
+        stats = {k: np.stack([np.asarray(p[k]) for p in per]) for k in per[0]}
+    else:
+        stats = js.run(cfg["steps"], dt, nu)
+    return dict(stats=stats, state={k: np.asarray(v) for k, v in js._dev_state.items()},
+                fun=_functions(js), config=js.config_report(), traffic=js.halo_traffic_report())
+
+
+def _jax_rect(mode, world):
+    """tests/test_graph_halo.py's split-phase rectangle on ``world`` virtual
+    devices (``mode`` "slab", "graph" with its per-shard kernels in
+    interpret mode, or "replicated")."""
+    ux = lambda x: -np.cos(np.pi * x[0]) * np.sin(np.pi * x[1])
+    uy = lambda x: np.cos(np.pi * x[1]) * np.sin(np.pi * x[0])
+    mesh = JM.create_rectangle((-1, -1), (1, 1), (8, 8))
+    facets = mesh.exterior_facet_indices()
+    tags = JM.meshtags(mesh, 1, facets, np.full_like(facets, 3))
+    T = J.LocatorMethod.TOPOLOGICAL
+    s = J.FractionalStep_AB_CN(
+        mesh, ("Lagrange", 2), ("Lagrange", 1),
+        bcs_u=[[J.DirichletBC(ux, T, (tags, 3))], [J.DirichletBC(uy, T, (tags, 3))]], bcs_p=[],
+        solver_options={k: {"ksp_rtol": SPLIT_RTOL} for k in ("tentative", "pressure", "scalar")},
+        options=RECT_OPTIONS[mode] | ({"pallas": "interpret"} if mode == "graph" else {}),
+        device_mesh=Mesh(np.array(jax.devices()[:world]), ("x",)), dtype=np.float64)
+    for f, g in ((s._u1[0], ux), (s._u1[1], uy), (s._u2[0], ux), (s._u2[1], uy)):
+        f.interpolate(g)
+    return s
+
+
+def _jax_split(mode, world):
+    """The JAX split step and the dense tentative matrix of its operator."""
+    s = _jax_rect(mode, world)
+    assert s.config_report()["sharding"] == SHARDING[mode]
+    s._ps.x.array[:] = s._p.x.array
+    s.assemble_first(ranks.RECT_DT, ranks.RECT_NU)
+    s.velocity_tentative_assemble()
+    diff, u = s.velocity_tentative_solve()
+    s.pressure_assemble(ranks.RECT_DT)
+    p = s.pressure_solve(ranks.RECT_NU)
+    c = s.velocity_update(ranks.RECT_DT)
+    return dict(diff=diff, reasons=dict(u=u, p=p, c=c), ps=np.array(s._ps.x.array),
+                u=np.stack([np.array(f.x.array) for f in s._u]), dense=s.tentative_matrix_dense())
+
+
+def _port_single(mode):
+    """The port's single-device solve(max_iter=1) of the rectangle and its
+    dense tentative matrix (of the initial state's operator)."""
+    opts = {k: v for k, v in RECT_OPTIONS[mode].items() if k != "replicated"}
+    s = ranks.rect_solver(torch.float64, "cpu", SPLIT_RTOL, options=opts)
+    s.assemble_first(ranks.RECT_DT, ranks.RECT_NU)
+    A = s.tentative_matrix_dense()
+    s.solve(ranks.RECT_DT, ranks.RECT_NU, max_iter=1)
+    return dict(u=np.stack([f.x.array.numpy() for f in s._u]), ps=s._ps.x.array.numpy(), dense=A)
+
+
+SPLIT_RTOL = 1e-13
+RECT_OPTIONS = {"slab": {"structured": True}, "graph": {"structured": False},
+                "replicated": {"structured": False, "replicated": True}}
+SHARDING = {"slab": "slab-halo", "graph": "graph-halo", "replicated": "replicated"}
+HALO_SPLITS = ("graph", "replicated")  # the slab mode's split rides test_torch_slab.py's groups
+# the replicated runs: tests/test_sharding.py's square (3 steps of solve(max_iter=2)) and the
+# vessel at N=4 (nullspace), each at rtol 1e-12
+REPLICATED = {"square": dict(problem="square", solve_iter=2),
+              "vessel": dict(problem="vessel", N=4)}
+
+
+@pytest.fixture(scope="module", params=[2, 4])
+def halo_group(request, tmp_path_factory):
+    """One spawned group a world: ``ranks.halo_checks`` on the ops'
+    inputs, the graph-halo runs, the replicated runs and the split steps;
+    the JAX references computed while the ranks run."""
+    world = request.param
     rng = np.random.default_rng(70 + world)
     z, hxs, perm, B = _inputs(world, rng)
-    path = tmp_path / "inputs.npz"
+    path = tmp_path_factory.mktemp(f"halo{world}") / "inputs.npz"
     np.savez(path, **z)
     cfg = dict(rtol=RTOL, steps=STEPS, dtype="float64", device="cpu")
     mains = [dict(cfg, **CYL), dict(cfg, **CYL, rotational=True), dict(cfg, **VES)]
@@ -320,35 +447,161 @@ def test_halo_group(world, tmp_path):
             c["p_cheb"] = dict(zip(("degree", "lmin", "lmax"), js._cheb))
         variants.append(c)
         jvar.append(js)
-    with start(ranks.halo_checks, world, (str(path), mains + variants)) as group:
+    reps = {k: dict(cfg, options={"replicated": True}, **v) for k, v in REPLICATED.items()}
+    splits = [dict(problem="rect", rtol=SPLIT_RTOL, dtype="float64", device="cpu",
+                   options=RECT_OPTIONS[m], dense=True) for m in HALO_SPLITS]
+    cfgs = mains + variants + list(reps.values())
+    with start(ranks.halo_checks, world, (str(path), cfgs, splits)) as group:
         ops = _jax_ops(world, z, hxs, perm, B)
         ref = [_jax_run(_jax_solver(c, world), c, STEPS) for c in mains[:-1]]
         ref.append(_jax_run(jv, mains[-1], STEPS))
         ref += [_jax_run(js, c, VSTEPS) for js, c in zip(jvar, variants)]
+        jrep = {k: _jax_replicated_run(c, world) for k, c in reps.items()}
+        jsplit = {m: _jax_split(m, world) for m in HALO_SPLITS}
+        single = {m: _port_single(m) for m in HALO_SPLITS}
         out = group.join(JOIN_S)
+    nrun = len(mains) + len(variants)
+    return SimpleNamespace(
+        world=world, out=out, ops=ops, ref=ref, hxs=hxs, mains=mains, variants=variants,
+        rep={k: ([o["runs"][nrun + i] for o in out], jrep[k]) for i, k in enumerate(reps)},
+        split={m: ([o["splits"][i] for o in out], jsplit[m], single[m])
+               for i, m in enumerate(HALO_SPLITS)})
 
+
+def test_halo_group(halo_group):
+    g = halo_group
+    out, hxs, mains, variants = g.out, g.hxs, g.mains, g.variants
     # the exchange and the per-shard products
-    for key, r in ops.items():
+    for key, r in g.ops.items():
         sp = key[-1]
         own = hxs[sp].ownmask == 1
         parts = ([o["ops"][key] for o in out] if not key.startswith("mv") else None)
         if parts is not None:
-            g = np.concatenate(parts)
-            assert np.array_equal(g, r), key
+            g_ = np.concatenate(parts)
+            assert np.array_equal(g_, r), key
             continue
         for kind in ("ell", "band"):
-            g = np.concatenate([o["ops"][f"{kind}_{sp}"] for o in out])
-            assert _rel(g, r) <= 1e-11, (kind, sp, _rel(g, r))
-            assert np.all(g[~own] == 0), (kind, sp)
+            g_ = np.concatenate([o["ops"][f"{kind}_{sp}"] for o in out])
+            assert _rel(g_, r) <= 1e-11, (kind, sp, _rel(g_, r))
+            assert np.all(g_[~own] == 0), (kind, sp)
     for o in out:
         assert o["jax_free"]
 
     # the solver
     checks = [(m, "amg-pcg-distributed", "bcgs") for m in mains]
     checks += [(c, v[2], v[3]) for c, v in zip(variants, VARIANTS)]
-    for i, ((c, pc, method), r) in enumerate(zip(checks, ref)):
+    for i, ((c, pc, method), r) in enumerate(zip(checks, g.ref)):
         _check_run([o["runs"][i] for o in out], r, pc, method)
     assert out[0]["runs"][0]["config"]["partitioner"]["name"] in ("multilevel", "rcb")
-    if world == 2:
+    if g.world == 2:
         band_run = out[0]["runs"][len(mains)]["config"]
         assert band_run["partitioner"] == {"name": "rcb"} and band_run["ell_layout"] == "band"
+
+
+# ---------------------------------------------------------------------------
+# the replicated mode (options["replicated"]) against the JAX package's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("problem", list(REPLICATED))
+def test_replicated_iterations(halo_group, problem):
+    """Every rank's u / p / c iterations equal to the JAX replicated
+    solver's.  The square's third step is the exception for u: its flow
+    blows up (diff ~5e4), its BiCGStab takes ~150 iterations at rtol 1e-12,
+    and rounding decides the count (the JAX package itself: 145 / 172 at
+    world 2, 149 / 162 at world 4); there every u solve converged."""
+    runs, ref = halo_group.rep[problem]
+    for k in ("u_iters", "p_iters", "c_iters"):
+        got, want = np.asarray(runs[0]["stats"][k]), np.asarray(ref["stats"][k])
+        if k == "u_iters" and problem == "square":
+            assert bool(np.all(runs[0]["stats"]["u_converged"][-1]))
+            got, want = got[:-1], want[:-1]
+        assert np.array_equal(got, want), (k, runs[0]["stats"][k], ref["stats"][k])
+        for r in runs[1:]:
+            assert np.array_equal(r["stats"][k], runs[0]["stats"][k]), k
+
+
+@pytest.mark.parametrize("problem", list(REPLICATED))
+def test_replicated_state(halo_group, problem):
+    """Rank 0's state Functions and ``get_state`` (canonical, as the JAX
+    replicated state) to 1e-9 relative of the JAX replicated solver's."""
+    runs, ref = halo_group.rep[problem]
+    r0 = runs[0]
+    for k in ("u", "u1", "u2", "p", "dp"):
+        assert _rel(r0[k], ref["fun"][k]) <= 1e-9, (k, _rel(r0[k], ref["fun"][k]))
+    for k in ("u", "u1", "u2", "p", "dp", "duc"):
+        assert r0["state"][k].shape == ref["state"][k].shape, k
+        assert _rel(r0["state"][k], ref["state"][k]) <= 1e-9, k
+
+
+@pytest.mark.parametrize("problem", list(REPLICATED))
+def test_replicated_config(halo_group, problem):
+    """``config_report`` as the JAX replicated solver's (Jacobi-PCG: ROADMAP
+    known difference l), no kernel on the path, no halo traffic."""
+    runs, ref = halo_group.rep[problem]
+    cfg, jcfg = runs[0]["config"], ref["config"]
+    for k in ("sharding", "structured_fastpath", "velocity_update", "pressure_pc",
+              "pressure_mg_levels", "tentative_method", "low_memory", "dtype"):
+        assert cfg[k] == jcfg[k], (k, cfg[k], jcfg[k])
+    assert cfg["pressure_pc"] == "jacobi-pcg" and cfg["ndev"] == halo_group.world
+    assert cfg["path_kernels"] == [] and runs[0]["traffic"] is None is ref["traffic"]
+    assert not any(r["launches"] or r["plain_calls"] for r in runs)
+
+
+@pytest.mark.parametrize("problem", list(REPLICATED))
+def test_replicated_ranks_identical(halo_group, problem):
+    """Every rank's state bit for bit rank 0's (the products' sums add in
+    rank order on every rank, the dots are local on the same vectors)."""
+    runs, _ = halo_group.rep[problem]
+    assert len({r["digest"] for r in runs}) == 1, [r["digest"] for r in runs]
+
+
+# ---------------------------------------------------------------------------
+# the split-phase API and the dense tentative matrix under the mesh
+# ---------------------------------------------------------------------------
+
+def check_split(splits, ref):
+    """Every rank's split step against the JAX split step in the same mode
+    and world: the diff (1e-12 relative) and the reasons equal, u within
+    1e-9 and ps within 1e-8."""
+    r0 = splits[0]
+    for r in splits:
+        assert abs(r["diff"] - ref["diff"]) <= 1e-12 * abs(ref["diff"]), (r["diff"], ref["diff"])
+        for k in ("u", "p", "c"):
+            assert np.array_equal(np.asarray(r["reasons"][k]), np.asarray(ref["reasons"][k])), k
+    assert np.abs(r0["u"] - ref["u"]).max() < 1e-9
+    assert np.abs(r0["ps"] - ref["ps"]).max() < 1e-8
+
+
+def check_split_single(splits, single):
+    """The split step against the port's single-device solve(max_iter=1)
+    (ROADMAP known difference j apart: u 1e-9, ps 1e-8)."""
+    assert np.abs(splits[0]["u"] - single["u"]).max() < 1e-9
+    assert np.abs(splits[0]["ps"] - single["ps"]).max() < 1e-8
+
+
+def check_dense(splits, ref, single):
+    """The gathered dense tentative matrix against JAX's sharded export and
+    the port's single-device export, to 1e-12."""
+    A = splits[0]["dense"]
+    assert A.shape == ref["dense"].shape == single["dense"].shape
+    assert np.abs(A - ref["dense"]).max() < 1e-12, np.abs(A - ref["dense"]).max()
+    assert np.abs(A - single["dense"]).max() < 1e-12, np.abs(A - single["dense"]).max()
+
+
+@pytest.mark.parametrize("mode", HALO_SPLITS)
+def test_split_step(halo_group, mode):
+    splits, ref, _ = halo_group.split[mode]
+    assert {r["config"]["sharding"] for r in splits} == {SHARDING[mode]}
+    check_split(splits, ref)
+
+
+@pytest.mark.parametrize("mode", HALO_SPLITS)
+def test_split_step_single_device(halo_group, mode):
+    splits, _, single = halo_group.split[mode]
+    check_split_single(splits, single)
+
+
+@pytest.mark.parametrize("mode", HALO_SPLITS)
+def test_dense_tentative_matrix(halo_group, mode):
+    splits, ref, single = halo_group.split[mode]
+    check_dense(splits, ref, single)

@@ -167,10 +167,10 @@ def test_constructor_matches_jax_signature(caplog):
     assert pt[-1] == "device" and pt[:-1] == pj
     mesh = TM.create_rectangle((0.0, 0.0), (1.0, 1.0), (2, 2))
     args = (mesh, ("Lagrange", 2), ("Lagrange", 1), [[], []])
-    # a device_mesh with the rotational update takes the graph-halo path;
-    # the replicated mode is refused naming the ROADMAP item of the sharded
-    # features still to port, and a device_mesh that is not one is a TypeError
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # a device_mesh with the rotational update takes the graph-halo path, or
+    # with "replicated" the replicated mode; a device_mesh that is not one is
+    # a TypeError in either case
+    with pytest.raises(TypeError, match="device_mesh"):
         T.FractionalStep_AB_CN(*args, rotational=True, device_mesh=object(), device="cpu",
                                options={"replicated": True})
     with pytest.raises(TypeError, match="device_mesh"):

@@ -21,12 +21,19 @@ in float64.
   preconditioner; Jacobi for the pressure with batched CG for the
   tentative solves (capped at 300 iterations: CG stalls on that
   nonsymmetric system from the second step in both packages).
-- The routing: a leading cube count the ranks do not divide runs
-  graph-halo, the split-phase API is refused (in the spawned groups); an
-  unstructured mesh, ``structured`` False, a PressureBC, the rotational
-  update and ``slab`` False run graph-halo (one world-1 group);
-  ``replicated`` is refused before any process group is touched; the
-  lumped update falls back to the mass CG.
+- In the spawned groups also the slab path's split step on
+  tests/test_graph_halo.py's 8 x 8 rectangle (rtol 1e-13) against the JAX
+  slab split step (u 1e-9, ps 1e-8, the diff and reasons equal) and the
+  port's single-device ``solve(max_iter=1)``, and its dense tentative
+  matrix against JAX's sharded export and the port's single-device one to
+  1e-12 (the graph-halo and replicated cases are tests/test_torch_halo.py's);
+  a leading cube count the ranks do not divide runs graph-halo; on a 1-D
+  ``DeviceMesh`` the lumped update falls back to the mass CG, a split step
+  converges and its dense matrix equals the single-device export.
+- The routing (one world-1 group): an unstructured mesh, ``structured``
+  False, a PressureBC, the rotational update and ``slab`` False run
+  graph-halo; with ``replicated`` a box whose slabs divide keeps the slab
+  path, an unstructured mesh or a PressureBC runs the replicated mode.
 
 The ranks start before the JAX references are computed and are joined
 after them, with a time limit; each collective has a 60 s limit.  A rank
@@ -50,11 +57,12 @@ import oasisx_tpu as J  # noqa: E402
 import oasisx_tpu.meshes as JM  # noqa: E402
 from oasisx_tpu.parallel import slab as jsl  # noqa: E402
 from tests.test_cubes import setup as jsetup  # noqa: E402
+from tests.test_torch_halo import (_jax_split, _port_single, check_dense, check_split,  # noqa: E402
+                                   check_split_single, RECT_OPTIONS, SPLIT_RTOL)
 
 import oasisx_tpu_torch as T  # noqa: E402
 import oasisx_tpu_torch.meshes as TM  # noqa: E402
 from oasisx_tpu_torch.assembly.structured import build_structured_map  # noqa: E402
-from oasisx_tpu_torch.fracstep import SHARD_ITEM  # noqa: E402
 from oasisx_tpu_torch.parallel import ranks, slab as tsl  # noqa: E402
 from oasisx_tpu_torch.parallel.launch import launch, start  # noqa: E402
 from oasisx_tpu_torch.spaces import FunctionSpace  # noqa: E402
@@ -161,8 +169,13 @@ def single_device():
     return dict(u=np.stack([f.x.array.numpy() for f in s._u]), p=s._p.x.array.numpy())
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_slab_group(world, tmp_path, single_device):
+@pytest.fixture(scope="module", params=[2, 4])
+def slab_group(request, tmp_path_factory, single_device):
+    """One spawned group a world: ``ranks.slab_checks`` (the slab
+    operators, the solver runs, ``mesh_checks``, the slab-mode split step
+    on the rectangle); the JAX references computed while the ranks run."""
+    world = request.param
+    tmp_path = tmp_path_factory.mktemp(f"slab{world}")
     _, _, _, ops, (sv, gfv, _), (sq, gfq, _) = jsetup(3, N, 2, 1)
     info = jsl.build_slab(sv, gfv, sq, gfq, world)
     nv, nq = len(gfv), len(gfq)
@@ -178,7 +191,9 @@ def test_slab_group(world, tmp_path, single_device):
     cfg = dict(N=N, dtype="float64", device="cpu", rtol=RTOL, steps=STEPS, dt=DT, nu=NU)
     variants = VARIANTS if world == 2 else ()
     cfgs = [dict(cfg, solve=world == 2)] + [dict(cfg, solver_options=v[0]) for v in variants]
-    with start(ranks.slab_checks, world, (str(path), cfgs)) as group:
+    splits = [dict(problem="rect", rtol=SPLIT_RTOL, dtype="float64", device="cpu",
+                   options=RECT_OPTIONS["slab"], dense=True)]
+    with start(ranks.slab_checks, world, (str(path), cfgs, splits)) as group:
         # the JAX references while the ranks run
         slab = _to_slab
         z.update(xvs=slab(z["xv"], info.perm_v, world * info.npad_v_loc),
@@ -198,7 +213,24 @@ def test_slab_group(world, tmp_path, single_device):
             jdiff = js.solve(DT, NU, max_iter=2)
             jsolve = dict(js.last_stats, state={k: np.asarray(v) for k, v in
                                                 js._dev_state.items()}, **_functions(js))
+        jsplit, single = _jax_split("slab", world), _port_single("slab")
+        lumped = ranks.tgv_solver((world * 2, 2, 2), torch.float64, "cpu", 1e-8,
+                                  solver_options={"scalar": {"pc_type": "lumped"}})
+        lumped.assemble_first(ranks.DT, ranks.NU)
+        lumped_dense = lumped.tentative_matrix_dense()
         out = group.join(JOIN_S)
+    return dict(world=world, out=out, info=info, ref=ref, jstats=jstats, jstate=jstate, jfun=jfun,
+                jvar=jvar, variants=variants, js=js, single_device=single_device,
+                jdiff=jdiff if world == 2 else None, jsolve=jsolve if world == 2 else None,
+                split=([o["splits"][0] for o in out], jsplit, single), lumped_dense=lumped_dense)
+
+
+def test_slab_group(slab_group):
+    grp = slab_group
+    world, out, info, ref, js = (grp[k] for k in ("world", "out", "info", "ref", "js"))
+    jstats, jstate, jfun, jvar = (grp[k] for k in ("jstats", "jstate", "jfun", "jvar"))
+    single_device, variants = grp["single_device"], grp["variants"]
+    jdiff, jsolve = grp["jdiff"], grp["jsolve"]
 
     # the slab operators
     valid = dict(v=info.valid_v, q=info.valid_q)
@@ -246,13 +278,36 @@ def test_slab_group(world, tmp_path, single_device):
         assert (runs[0]["config"]["pressure_pc"], runs[0]["config"]["tentative_method"]) == \
             (pc, method), opts
 
-    # the refusals inside the group, and no JAX in the ranks
+    # the group's other checks, and no JAX in the ranks: a leading cube count
+    # the ranks do not divide runs graph-halo; the lumped update falls back to
+    # the mass CG on the slab path, where a split step converges and the
+    # dense tentative matrix equals the single-device export
     for o in out:
-        ref_ = o["refusals"]
-        assert ref_["jax_free"]
-        assert ref_["ndev"] == "graph-halo" and SHARD_ITEM in ref_["split"]
-        assert ref_["velocity_update"] == "cg"
-        assert ref_["groups"] == [(o["runs"][0]["rank"], world)] * 2
+        chk = o["checks"]
+        assert chk["jax_free"]
+        assert chk["ndev"] == "graph-halo" and chk["sharding"] == "slab-halo"
+        assert chk["velocity_update"] == "cg"
+        assert np.isfinite(chk["split"]["diff"]) and chk["split"]["diff"] > 0
+        assert all(np.all(np.asarray(v) == 2) for v in chk["split"]["reasons"].values())
+        assert chk["groups"] == [(o["runs"][0]["rank"], world)] * 2
+    assert np.abs(out[0]["checks"]["dense"] - grp["lumped_dense"]).max() < 1e-12
+
+
+def test_split_step(slab_group):
+    """The slab path's split step on tests/test_graph_halo.py's rectangle
+    against the JAX slab split step (as tests/test_torch_halo.py's
+    graph-halo and replicated cases)."""
+    splits, ref, _ = slab_group["split"]
+    assert {r["config"]["sharding"] for r in splits} == {"slab-halo"}
+    check_split(splits, ref)
+
+
+def test_split_step_single_device(slab_group):
+    check_split_single(*slab_group["split"][::2])
+
+
+def test_dense_tentative_matrix(slab_group):
+    check_dense(*slab_group["split"])
 
 
 def _check_run(runs, jstats, jfun):
@@ -294,32 +349,26 @@ def _functions(js):
                 dp=np.array(js._dp.x.array))
 
 
-def _box():
-    from oasisx_tpu_torch.meshes import create_box, meshtags
-
-    m = create_box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (2, 2, 2))
-    facets = m.exterior_facet_indices()
-    return m, meshtags(m, m.dim - 1, facets, np.full_like(facets, 1))
-
-
 @pytest.fixture(scope="module")
 def routed():
-    """The sharding mode of each graph-halo case (``ranks.routing``), all
-    built in one world-1 group."""
-    return launch(ranks.routing, 1, (ranks.ROUTED,))[0]
+    """The sharding mode of each case of ``ranks.routing``, all built in one
+    world-1 group."""
+    return launch(ranks.routing, 1, ())[0]
 
 
-@pytest.mark.parametrize("case", ["unstructured", "structured_false", "pressure_bc",
-                                  "rotational", "slab_false", "replicated"])
+ROUTES = {"unstructured": "graph-halo", "structured_false": "graph-halo",
+          "pressure_bc": "graph-halo", "rotational": "graph-halo", "slab_false": "graph-halo",
+          # options["replicated"]: the slab path first where it is taken (a box
+          # whose slabs divide), else the replicated mode
+          "replicated": ("replicated_slab", "slab-halo"),
+          "replicated_unstructured": "replicated", "replicated_pressure_bc": "replicated"}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
 def test_refused_before_the_group(case, routed):
-    """The cases the JAX package sends to graph-halo take it; only
-    ``replicated`` is refused, before any process group is touched."""
-    if case != "replicated":
-        assert routed[case] == "graph-halo", (case, routed)
-        return
-    m, tags = _box()
-    bcs = [[T.DirichletBC(0.0, T.LocatorMethod.TOPOLOGICAL, (tags, 1))] for _ in range(3)]
-    with pytest.raises(NotImplementedError, match=SHARD_ITEM):
-        T.FractionalStep_AB_CN(m, ("Lagrange", 2), ("Lagrange", 1), bcs, device="cpu",
-                               dtype=torch.float64, device_mesh=object(),
-                               options={"replicated": True})
+    """The cases the JAX package sends to graph-halo take it; with
+    ``replicated`` a box whose slabs divide keeps the slab path and an
+    unstructured mesh or a PressureBC takes the replicated mode, as in the
+    JAX package (oasisx_tpu fracstep.py:186-275)."""
+    key, want = ROUTES[case] if isinstance(ROUTES[case], tuple) else (case, ROUTES[case])
+    assert routed[key] == want, (case, routed)

@@ -45,7 +45,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    rotational update's solve), the MG pressure CG (K1) on Ap_c with a demeaned
    random rhs and its 3-level MG, the BiCGStab (K2) on the W of the
    Taylor-Green initial state with the mesh's bc rows, at batch 3 and at
-   batch 1 (also on the two unequal grids, and at N=64 in 3c); x to 1e-10
+   batch 1 (also on the two unequal grids, and at N=64 in 3c); on the two
+   unequal grids, which do not coarsen, also K1's non-MG modes, K4 on the
+   pressure grid's P1 cube (a P1 mass at batch d, Mq_c at batch 1) and K4
+   on a P3 cube of the same cells at batch 2 (a tensor-product P3 mass: the
+   point-by-point route, box_solve_cases); x to 1e-10
    relative with equal iteration counts in f64 (rtol 1e-8), to 10 rtol
    with iterations within 1 per row in f32 (rtol 1e-5), and a second
    kernel call bit-identical to the first.  The plain solves loop on the
@@ -55,7 +59,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    for K2: the bytes of one product (W, the staged per-cube outputs, the
    vectors) and the rate its products moved them at; for K5 (M_c at batch
    d): its tile, shared memory a block, blocks an SM, the bytes a product
-   moves and their rate; for K4: its grid barriers an iteration.
+   moves and their rate; for K4: its grid barriers an iteration; for each
+   timed K1 (non-MG) and K4 case: its route, tile, shared memory a block,
+   Chebyshev steps a segment (K1), grid barriers an iteration (from the C
+   entry points oasisx_pressure_cg_plan / oasisx_cg_mass_route) and the
+   microseconds an iteration.  `--solves-only` runs only these whole-solve
+   cases, 3e's and 4f (with --tree, on the other checkout's package: the
+   two trees' K1 and K4 in one call in a few minutes a leg).
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
    dofs) in float32 on the card, bench settings (dt 2e-3, nu 1/1600, rtol
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
@@ -956,31 +966,7 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     mass = lambda v: kn.matvec_const_plain(v, M_c, sm_v)
     M_invd = c(solver._M_invd)
     b1, x01, bn1 = b[1:2], x0[1:2], bn[1:2]
-    # K4 on the P1 cube (point by point) on the pressure grid: the SPD cube
-    # matrix of a tensor-product (Q1) mass, a unit cube
-    m1 = torch.tensor([[2.0, 1.0], [1.0, 2.0]], dtype=torch.float64) / 6
-    M1 = m1
-    for _ in range(d - 1):
-        M1 = torch.kron(M1, m1)
-    M1 = M1.to(device, dtype)
-    ncq = int(np.prod(sm_q[1]))
-    diag1 = cub.cube_scatter(torch.diag(M1)[None, :, None].expand(1, nlq, ncq).contiguous(),
-                             sm_q)[0]
-    M1_invd = torch.where(diag1 != 0, 1.0 / diag1, torch.ones_like(diag1))
-    bp = rnd(d, nq)
-    x0p = torch.zeros_like(bp)
-    bnp = torch.linalg.vector_norm(bp, dim=-1)
-    mass1 = lambda v: kn.matvec_const_plain(v, M1, sm_q)
-    # K4 at batch 1 on the pressure mass Mq_c: the rotational update's solve
-    # (fracstep), Jacobi 1 on the padding
-    Mq_c = c(cu.Mq_c)
-    dq = cub.diag_cube(Mq_c, sm_q)
-    Mq_invd = torch.where(dq != 0, 1.0 / dq, torch.ones_like(dq))
-    valid_q = (solver._pq(torch.ones(solver._gf_q.shape[0], device=device)) != 0)
-    bmq = rnd(1, nq) * valid_q
-    x0mq = torch.zeros_like(bmq)
-    bnmq = torch.linalg.vector_norm(bmq, dim=-1)
-    massq = lambda v: kn.matvec_const_plain(v, Mq_c, sm_q)
+    p1 = p1_mass_cases(solver, dtype, device, rnd, rtol, maxiter)
 
     # K1: Ap x = b - mean(b), x0 = 0, the solver's MG hierarchy
     Ap64 = cu.Ap_c.detach().cpu().double().numpy()
@@ -1006,36 +992,140 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
         return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
 
     rows = lambda res: float(res.iters.sum())
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and has_routes():
         print(f"  cg_mass       grid barriers an iteration: "
-              f"{_build.library().oasisx_cg_mass_barriers()} (the product's pAp, the update's "
-              "rz and |r|^2)")
+              f"{_build.library().oasisx_cg_mass_barriers(2)} on the P2 cube, "
+              f"{_build.library().oasisx_cg_mass_barriers(1)} on the P1 cube (the product's pAp, "
+              "the update's rz and |r|^2)")
 
     def mass_work(B):
         return lambda res: (mass_bytes(isz, B, nv, int(res.iters.max())),
                             rows(res) * (2.0 * nl * nl * nc + 10 * nv))
 
+    route = lambda sm, B: mass_route_extra(device, len(sm[1]), int(sm[2]), B, dtype)
     return rtol, [
         ("cg_mass", "M_c, random rhs",
          lambda: fused.cg_mass(M_c, b, x0, M_invd, bn, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b, x0, M_invd, bn, rtol, maxiter), mass_work(d)),
+         lambda: fused.cg_from_r0(mass, b, x0, M_invd, bn, rtol, maxiter), mass_work(d),
+         *route(sm_v, d)),
         ("cg_mass", "M_c batch 1",
          lambda: fused.cg_mass(M_c, b1, x01, M_invd, bn1, sm_v, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter), mass_work(1)),
-        ("cg_mass", "P1 mass",
-         lambda: fused.cg_mass(M1, bp, x0p, M1_invd, bnp, sm_q, rtol, maxiter),
-         lambda: fused.cg_from_r0(mass1, bp, x0p, M1_invd, bnp, rtol, maxiter),
-         lambda res: (mass_bytes(isz, d, nq, int(res.iters.max())),
-                      rows(res) * (2.0 * nlq * nlq * ncq + 10 * nq))),
-        ("cg_mass", "Mq_c batch 1",
-         lambda: fused.cg_mass(Mq_c, bmq, x0mq, Mq_invd, bnmq, sm_q, rtol, maxiter),
-         lambda: fused.cg_from_r0(massq, bmq, x0mq, Mq_invd, bnmq, rtol, maxiter),
-         lambda res: (mass_bytes(isz, 1, nq, int(res.iters.max())),
-                      rows(res) * (2.0 * nlq * nlq * ncq + 10 * nq))),
+         lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter), mass_work(1),
+         *route(sm_v, 1)),
+        *p1,
         ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
          lambda: pcg.solve(bq, xq),
          lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
     ] + bicgstab_cases(solver, dtype)[1]
+
+
+def p1_mass_cases(solver, dtype, device, rnd, rtol: float, maxiter: int) -> list:
+    """solve_cases' K4 cases on the pressure grid's P1 cube, in ``dtype``
+    with ``rnd`` drawing the right-hand sides: a P1 mass at batch d and the
+    pressure mass Mq_c at batch 1 (the rotational update's solve)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la import fused
+
+    c = lambda t: t.to(dtype)
+    cu, sm_q, d, nq = solver._cu, solver._sm_q, solver._mesh.dim, solver._npad_q
+    nlq = cub.num_slots(sm_q)
+    isz = torch.empty((), dtype=dtype).element_size()
+    # K4 on the P1 cube (the stencil tile) on the pressure grid: the SPD cube
+    # matrix of a tensor-product (Q1) mass, a unit cube
+    m1 = torch.tensor([[2.0, 1.0], [1.0, 2.0]], dtype=torch.float64) / 6
+    M1 = m1
+    for _ in range(d - 1):
+        M1 = torch.kron(M1, m1)
+    M1 = M1.to(device, dtype)
+    ncq = int(np.prod(sm_q[1]))
+    diag1 = cub.cube_scatter(torch.diag(M1)[None, :, None].expand(1, nlq, ncq).contiguous(),
+                             sm_q)[0]
+    M1_invd = torch.where(diag1 != 0, 1.0 / diag1, torch.ones_like(diag1))
+    bp = rnd(d, nq)
+    x0p = torch.zeros_like(bp)
+    bnp = torch.linalg.vector_norm(bp, dim=-1)
+    mass1 = lambda v: kn.matvec_const_plain(v, M1, sm_q)
+    # K4 at batch 1 on the pressure mass Mq_c: the rotational update's solve
+    # (fracstep), Jacobi 1 on the padding
+    Mq_c = c(cu.Mq_c)
+    dq = cub.diag_cube(Mq_c, sm_q)
+    Mq_invd = torch.where(dq != 0, 1.0 / dq, torch.ones_like(dq))
+    valid_q = (solver._pq(torch.ones(solver._gf_q.shape[0], device=device)) != 0)
+    bmq = rnd(1, nq) * valid_q
+    x0mq = torch.zeros_like(bmq)
+    bnmq = torch.linalg.vector_norm(bmq, dim=-1)
+    massq = lambda v: kn.matvec_const_plain(v, Mq_c, sm_q)
+
+    rows = lambda res: float(res.iters.sum())
+    route = lambda B: mass_route_extra(device, d, 1, B, dtype)
+    return [
+        ("cg_mass", "P1 mass",
+         lambda: fused.cg_mass(M1, bp, x0p, M1_invd, bnp, sm_q, rtol, maxiter),
+         lambda: fused.cg_from_r0(mass1, bp, x0p, M1_invd, bnp, rtol, maxiter),
+         lambda res: (mass_bytes(isz, d, nq, int(res.iters.max())),
+                      rows(res) * (2.0 * 3 ** d * nq + 10 * nq)), *route(d)),
+        ("cg_mass", "Mq_c batch 1",
+         lambda: fused.cg_mass(Mq_c, bmq, x0mq, Mq_invd, bnmq, sm_q, rtol, maxiter),
+         lambda: fused.cg_from_r0(massq, bmq, x0mq, Mq_invd, bnmq, rtol, maxiter),
+         lambda res: (mass_bytes(isz, 1, nq, int(res.iters.max())),
+                      rows(res) * (2.0 * 3 ** d * nq + 10 * nq)), *route(1)),
+    ]
+
+
+# the 1D mass matrix of cubic Lagrange on [0, 1], nodes 0, 1/3, 2/3, 1: K4's
+# P3 case takes its tensor product as the cube matrix
+P3_MASS_1D = ((128.0, 99.0, -36.0, 19.0), (99.0, 648.0, -81.0, -36.0),
+              (-36.0, -81.0, 648.0, 99.0), (19.0, -36.0, 99.0, 128.0))
+
+
+def box_solve_cases(pair, device, seed: int = 9):
+    """Phase 3's whole solves on an unequal grid of ``pair`` = (solver,
+    dtype), which does not coarsen: K2's cases (bicgstab_cases), K1's
+    non-MG modes (pcg_solve_cases), K4 on the pressure grid's P1 cube
+    (p1_mass_cases) and K4 on a P3 cube of the same cells at batch 2 (the
+    tensor product of P3_MASS_1D: the point-by-point route)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la import fused
+
+    solver, dtype = pair
+    rtol, cases = bicgstab_cases(solver, dtype)
+    maxiter = 2000
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    cases = cases + pcg_solve_cases(pair, device)[1] + p1_mass_cases(solver, dtype, device, rnd,
+                                                                      rtol, maxiter)
+    cells = tuple(int(c) for c in solver._sm_q[1])
+    sm3, valid3 = sweep_map(cells, 3, device)
+    m3 = torch.tensor(P3_MASS_1D, dtype=torch.float64) / 1680
+    C3 = m3
+    for _ in range(len(cells) - 1):
+        C3 = torch.kron(C3, m3)
+    C3 = C3.to(device, dtype)
+    d3 = cub.diag_cube(C3, sm3)
+    invd3 = torch.where(d3 != 0, 1.0 / d3, torch.ones_like(d3))
+    n3 = int(np.prod(sm3[0]))
+    b3 = rnd(2, n3) * valid3
+    x03 = torch.zeros_like(b3)
+    bn3 = torch.linalg.vector_norm(b3, dim=-1)
+    isz = torch.empty((), dtype=dtype).element_size()
+    nl3, nc3 = cub.num_slots(sm3), int(np.prod(sm3[1]))
+    mass3 = lambda v: kn.matvec_const_plain(v, C3, sm3)
+    return rtol, cases + [
+        ("cg_mass", "P3 mass batch 2",
+         lambda: fused.cg_mass(C3, b3, x03, invd3, bn3, sm3, rtol, maxiter),
+         lambda: fused.cg_from_r0(mass3, b3, x03, invd3, bn3, rtol, maxiter),
+         lambda res: (mass_bytes(isz, 2, n3, int(res.iters.max())),
+                      float(res.iters.sum()) * (2.0 * nl3 * nl3 * nc3 + 10 * n3)),
+         *mass_route_extra(device, len(cells), 3, 2, dtype)),
+    ]
 
 
 def mass_bytes(isz: int, B: int, nv: int, iters: int) -> float:
@@ -1053,6 +1143,67 @@ def mass_bytes(isz: int, B: int, nv: int, iters: int) -> float:
     print(f"    bound: K4's state {state / 1e6:.1f} MB > the {L2_BYTES / 1e6:.0f} MB L2, counted "
           f"{it / 1e6:.1f} MB an iteration: {iters} iterations")
     return once + iters * it
+
+
+MASS_ROUTES = ("point by point", "block-tiled (P2)", "stencil tile (P1)")
+
+
+def has_routes() -> bool:
+    """Whether the loaded kernels report K4's route and K1's plan (under
+    --tree a parent's build may not)."""
+    from oasisx_tpu_torch import _build
+
+    return hasattr(_build.library(), "oasisx_cg_mass_route")
+
+
+def mass_route(d: int, deg: int, batch: int, dtype) -> dict:
+    """K4's route for ``batch`` rows of a ``d``-D grid of degree ``deg``, as
+    ``oasisx_cg_mass`` chooses it on this card (``oasisx_cg_mass_route``):
+    the route, its tile (3D form), shared memory a block and grid barriers
+    an iteration."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    out = torch.zeros(6, dtype=torch.int32)
+    err = _build.library().oasisx_cg_mass_route(int(dtype == torch.float64), d, deg, batch,
+                                                kn._ptr(out))
+    check(err == 0, f"no K4 route for {d}D degree {deg} batch {batch} {dtype}: CUDA error {err}")
+    o = out.tolist()
+    return {"route": MASS_ROUTES[o[0]], "tile": tuple(o[1:4]), "smem": o[4], "barriers": o[5]}
+
+
+def pcg_plan(d: int, degree: int, dtype) -> dict:
+    """K1's non-MG plan at Chebyshev degree ``degree`` (0: Jacobi) on a
+    ``d``-D grid, as ``oasisx_pressure_cg`` chooses it on this card
+    (``oasisx_pressure_cg_plan``): its tile (3D form), shared memory a
+    block, Chebyshev steps a segment and grid barriers an iteration, the
+    last equal to ``oasisx_pressure_cg_barriers``."""
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    lib, f64 = _build.library(), int(dtype == torch.float64)
+    out = torch.zeros(6, dtype=torch.int32)
+    err = lib.oasisx_pressure_cg_plan(f64, d, degree, kn._ptr(out))
+    check(err == 0, f"no K1 plan for {d}D degree {degree} {dtype}: CUDA error {err}")
+    o = out.tolist()
+    check(lib.oasisx_pressure_cg_barriers(f64, d, degree) == o[5],
+          f"K1's barriers {lib.oasisx_pressure_cg_barriers(f64, d, degree)}, its plan's {o[5]}")
+    return {"route": "stencil tile (P1)", "tile": tuple(o[:3]), "smem": o[3], "steps": o[4],
+            "barriers": o[5]}
+
+
+def mass_route_extra(device, d: int, deg: int, batch: int, dtype) -> tuple:
+    """A K4 case's extra record on the card (its route, as "plan"), none
+    elsewhere."""
+    import torch
+
+    if torch.device(device).type != "cuda" or not has_routes():
+        return ()
+    return ({"plan": mass_route(d, deg, batch, dtype)},)
 
 
 def const_tile(d: int, batch: int, dtype) -> list:
@@ -1440,10 +1591,8 @@ def pcg_solve_cases(pair, device, seed: int = 6):
     work(result) -> (bytes, operations)): every fine product (one an
     iteration, degree - 1 a Chebyshev application, one for r0) and ~12
     vector operations a point an iteration."""
-    import numpy as np
     import torch
 
-    from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la.pressure_cg import PressureCG
 
@@ -1459,7 +1608,9 @@ def pcg_solve_cases(pair, device, seed: int = 6):
     bq = bq - bq.mean()
     xq = torch.zeros_like(bq)
     isz = torch.empty((), dtype=dtype).element_size()
-    prod = 2.0 * cub.num_slots(sm_q) ** 2 * int(np.prod(sm_q[1]))
+    # a product's operations: the P1 stencil's 3^d fmas a point, fewer than
+    # the cube form's (2^d)^2 a cube
+    prod = 2.0 * 3 ** len(sm_q[1]) * nq
 
     def case(deg, lmin, lmax, label):
         pcg = PressureCG(sm_q, Ap_c, invd, rtol, maxiter, deg, lmin, lmax)
@@ -1469,8 +1620,10 @@ def pcg_solve_cases(pair, device, seed: int = 6):
             products = 1 + k + (k + 1) * max(deg - 1, 0)
             return isz * 4 * nq, products * prod + 12.0 * k * nq
 
+        plan = (({"plan": pcg_plan(len(sm_q[1]), deg, dtype)},)
+                if torch.device(device).type == "cuda" and has_routes() else ())
         return ("pressure_cg", label, lambda: pcg.solve(bq, xq),
-                lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), work)
+                lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), work, *plan)
 
     return rtol, [
         case(cheb["degree"], cheb["lmin"], cheb["lmax"], f"Ap_c, Chebyshev({cheb['degree']})"),
@@ -1524,6 +1677,12 @@ def compare_solves(solvers: dict, device, cases_fn=None, suffix: str = "") -> di
                              if callable(fn) else fn)
             rec = _timed(name, label, kfn, pfn, device, err, work(rk), None, reps=10, preps=3,
                          extra=more)
+            if "plan" in more:  # K1, K4: route, tile, barriers, time an iteration
+                r, its = more["plan"], int(ik.max())
+                steps = f", {r['steps']} Chebyshev steps a segment" if "steps" in r else ""
+                print(f"    route {r['route']}, tile {r['tile']}, {r['smem']} bytes of shared "
+                      f"memory a block{steps}, {r['barriers']} grid barriers an iteration; "
+                      f"{1000 * rec['ms'] / max(its, 1):.2f} us an iteration ({its} iterations)")
             if "product_bytes" in more:  # K2: its products' bytes and rate
                 pb, products = more["product_bytes"], 2 * int(ik.max())
                 moved = products * sum(pb.values())
@@ -3620,16 +3779,62 @@ def nvidia_smi() -> str:
         return "not available"
 
 
-def run_tree(root: str, argv: list) -> int:
+def solves_phases(log: StepLog, profile: int = 0) -> None:
+    """--solves-only: phase 3's whole-solve cases (solve_cases on the N=36
+    systems, box_solve_cases on the two unequal grids; float64 and float32),
+    phase 3e's K1 cases at N=35 and the N=35 main path 4f into ``log``:
+    K1's and K4's kernels against their plain versions and timed, in a few
+    minutes; with ``profile``, a torch.profiler window of that many steps
+    after 4f's (profile_steps).  Under --tree the other checkout's package
+    runs these cases, so that both trees run the same ones."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    solver = tgv_solver(N, torch.float32, "cuda", rtol=1e-5)
+    solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
+    print(f"[3] whole solves against plain versions (N={N})")
+    compare_solves({"float64": solver64, "float32": solver}, "cuda")
+    del solver, solver64
+    for cells in BOXES:
+        box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
+        tag = " " + "x".join(map(str, cells))
+        print(f"[3] whole solves against plain versions ({len(cells)}D, {tag[1:]} cells)")
+        compare_solves({"float64": (box, torch.float64), "float32": (box, torch.float32)},
+                       "cuda", cases_fn=box_solve_cases, suffix=tag)
+        del box
+    s35 = tgv_solver(N_ODD, torch.float32, "cuda", rtol=1e-5)
+    rep35 = s35.config_report()
+    check(rep35["pressure_pc"] == "cheb-pcg", f"N={N_ODD}: pressure {rep35['pressure_pc']}")
+    print(f"[3e] K1's non-MG modes against plain versions (N={N_ODD})")
+    compare_solves({"float64": (s35, torch.float64), "float32": (s35, torch.float32)}, "cuda",
+                   cases_fn=pcg_solve_cases, suffix=f" N={N_ODD}")
+    res = drive_main_path(s35, WARMUP, STEPS, "cuda", rep35["path_kernels"])
+    report_path("4f", res, STEPS, 3 * s35._Vi[0][0].num_dofs, smi, {}, log)
+    if profile:
+        profile_steps(s35, profile, "build/chip_smoke_trace_n35.json")
+    print(f"[solves] {time.perf_counter() - t0:.1f} s")
+
+
+def run_tree(root: str, argv: list, solves_only: bool = False, profile: int = 0) -> int:
     """--tree: the chip_smoke.py of another checkout ``root`` on its own
     package and kernel build, with this file's ``time_ms``, so that the
     times of two trees come from one timer.  Its phases and checks are its
-    own."""
+    own; with ``solves_only``, this file's solves_phases on its package
+    (``profile`` its 4f profile window)."""
     import importlib.util
     import os
 
     root = os.path.abspath(root)
     here = os.path.dirname(os.path.abspath(__file__))
+    if solves_only:
+        os.chdir(root)
+        sys.path.insert(0, root)
+        print(f"[tree] {root}: its package, this file's solves_phases and time_ms")
+        log = StepLog("tree")
+        solves_phases(log, profile)
+        log.report_skipped()
+        return 0
     counts = ptx_divisions({"tree": root, "this": here})
     print(f"[2] 64-bit integer div/rem in the PTX: {root} {counts['tree']}; {here} "
           f"{counts['this']}")
@@ -3716,6 +3921,10 @@ def main() -> int:
     ap.add_argument("--shard-only", action="store_true",
                     help="only build the kernels and run phases 4q and 4r (with 4r'; their "
                          "groups end with 4k''s split steps), 4k', 4s and 5k")
+    ap.add_argument("--solves-only", action="store_true",
+                    help="only build the kernels and run phase 3's whole-solve cases, 3e's K1 "
+                         "cases and the N=35 main path 4f (with --tree: on that checkout's "
+                         "package)")
     ap.add_argument("--slab-gap", type=int, nargs="+", metavar="N",
                     help="only build the kernels and measure, at each N, the slab path at world "
                          "1 against the single-device path in f32 and f64 at two tolerances")
@@ -3723,7 +3932,8 @@ def main() -> int:
     if args.band_setup:
         return band_setup(args.band_setup, args.tree)
     if args.tree:
-        return run_tree(args.tree, ["--profile", str(args.profile)] if args.profile else [])
+        return run_tree(args.tree, ["--profile", str(args.profile)] if args.profile else [],
+                        solves_only=args.solves_only, profile=args.profile)
 
     import os
 
@@ -3761,6 +3971,13 @@ def main() -> int:
         check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
               "remainders")
     check_tiles()
+    if args.solves_only:
+        solves_phases(steps_log, args.profile)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
     if args.slab_gap:
         slab_gap(args.slab_gap)
         print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3835,13 +4052,13 @@ def main() -> int:
             kres[name] = kres[name] + recs
         for name, recs in compare_solves(
                 {"float64": (box, torch.float64), "float32": (box, torch.float32)}, "cuda",
-                cases_fn=lambda pr, dev: bicgstab_cases(*pr), suffix=tag).items():
+                cases_fn=box_solve_cases, suffix=tag).items():
             box_solves[name] = box_solves.get(name, []) + recs
         del box
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     kres.update(compare_solves({"float64": solver64, "float32": solver}, "cuda"))
     for name, recs in box_solves.items():
-        kres[name] = kres[name] + recs
+        kres[name] = kres.get(name, []) + recs
     del solver64
 
     # 4. the structured main path
@@ -3915,8 +4132,9 @@ def main() -> int:
     print(f"[3e] kernels against plain versions (N={N_ODD} shapes)")
     for name, recs in compare_kernels(s35, "cuda", tag=f" N={N_ODD}").items():
         kres[name] = kres[name] + recs
-    kres.update(compare_solves({"float64": (s35, torch.float64), "float32": (s35, torch.float32)},
-                               "cuda", cases_fn=pcg_solve_cases, suffix=f" N={N_ODD}"))
+    pcg35 = compare_solves({"float64": (s35, torch.float64), "float32": (s35, torch.float32)},
+                           "cuda", cases_fn=pcg_solve_cases, suffix=f" N={N_ODD}")
+    kres["pressure_cg"] = pcg35["pressure_cg"] + kres.get("pressure_cg", [])
     res = drive_main_path(s35, WARMUP, STEPS, "cuda", rep35["path_kernels"])
     report_path("4f", res, STEPS, nvel35, smi, {}, steps_log)
     print(f"    pressure Chebyshev({cheb['degree']})-Jacobi: lmax estimated "
@@ -4183,8 +4401,8 @@ def main() -> int:
     # per kernel: its first case's numbers, and every case under "cases"
     print(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [
-        {"name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
-         "launches": launches.get(n, 0), **kres[n][0], "cases": kres[n]}
+        {**kres[n][0], "name": n, "route": "cuda", "source": SOURCE[n], "replaces": REPLACES[n],
+         "launches": launches.get(n, 0), "cases": kres[n]}
         for n in kn.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

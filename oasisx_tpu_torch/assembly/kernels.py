@@ -225,6 +225,52 @@ def matvec_const_staged_plain(x: torch.Tensor, C: torch.Tensor, sm: StructuredMa
     return _staged_sum(C[:, :, None], cub.cube_gather(xb, sm), sm).reshape(x.shape)
 
 
+def stencil_table(C: torch.Tensor, d: int) -> torch.Tensor:
+    """The P1 cube matrix C (2^d, 2^d) as 3^d classes of 3^d stencil
+    coefficients, as ``csrc/cube_device.cuh`` ``stencil_stage`` builds them:
+    S[cls, e] sums C[delta, delta + e] over the cubes b - delta that hold a
+    point of class cls (per axis: b = 0 delta 0 only, b = n delta 1 only,
+    else both) and both ends of the offset, in float64 over delta in
+    C-order, rounded once to C's dtype; cls and e with the last axis's digit
+    fastest (e's digits are the offsets plus 1)."""
+    Cd = C.detach().to("cpu", torch.float64).numpy()
+    S = np.zeros((3 ** d, 3 ** d))
+    for cls, e in np.ndindex(3 ** d, 3 ** d):
+        cd = np.array(np.unravel_index(cls, (3,) * d))
+        ed = np.array(np.unravel_index(e, (3,) * d)) - 1
+        for dl in range(2 ** d):
+            delta = np.array(np.unravel_index(dl, (2,) * d))
+            ti = delta + ed
+            if (np.all((ti >= 0) & (ti <= 1)) and not np.any((cd == 0) & (delta == 1))
+                    and not np.any((cd == 2) & (delta == 0))):
+                S[cls, e] += Cd[dl, np.ravel_multi_index(tuple(ti), (2,) * d)]
+    return torch.as_tensor(S).to(C.device, C.dtype)
+
+
+def matvec_stencil_plain(x: torch.Tensor, C: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
+    """``matvec_const_plain`` on the P1 cube summed as K1's non-MG modes
+    and K4's P1 route sum it (``csrc/cube_device.cuh`` ``stencil_apply``):
+    each point adds its 3^d neighbours times its class's coefficients
+    (``stencil_table``) in the offsets' C-order, 0 beyond the grid.  x
+    (B, npad) or (npad,).  For the tests."""
+    d = len(sm[1])
+    if int(sm[2]) != 1:
+        raise ValueError(f"the stencil is the P1 cube's, not degree {sm[2]}'s")
+    g = tuple(int(n) + 1 for n in sm[1])
+    xb = x.reshape(-1, *g)
+    S = stencil_table(C, d)
+    xp = torch.nn.functional.pad(xb, (1, 1) * d)
+    cls = torch.zeros(g, dtype=torch.long, device=x.device)
+    for k in range(d):
+        i = torch.arange(g[k], device=x.device)
+        ck = torch.where(i == 0, 0, torch.where(i == g[k] - 1, 2, 1))
+        cls = 3 * cls + ck.reshape([g[k] if j == k else 1 for j in range(d)])
+    y = torch.zeros_like(xb)
+    for e, ed in enumerate(np.ndindex((3,) * d)):
+        y = y + S[cls, e] * xp[(slice(None),) + tuple(slice(o, o + g[k]) for k, o in enumerate(ed))]
+    return y.reshape(x.shape)
+
+
 def _staged_sum(Wt: torch.Tensor, U: torch.Tensor, sm: StructuredMap) -> torch.Tensor:
     """Per cube, each output slot sums its input slots in slot order (Wt
     (..., nl_out, nl_in, ncubes or 1) against U (B, nl_in, ncubes), the

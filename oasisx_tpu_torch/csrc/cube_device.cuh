@@ -27,7 +27,11 @@
 // reads the cube's inputs once and streams its weights into a stage in
 // global memory, and after it (K3's second launch, K2's grid barrier) each
 // point sums its cubes' staged values through cube_visit.  The last two sum
-// in one order, per cube slot by slot, then per point over its cubes.
+// in one order, per cube slot by slot, then per point over its cubes.  The
+// P1 stencil tile (stencil_*, at the end; K1's non-MG modes and K4 on the
+// P1 cube): a block reads a box of inputs once into shared memory and each
+// point sums its 3^d neighbours times its class's coefficients, which fold
+// the cube matrix's entries over the cubes that hold the point.
 //
 // The output side takes a point already split into its parities and base
 // coordinates (CubePoint), on a 3D form of the grid (a 2D grid gets a
@@ -840,6 +844,268 @@ __device__ __forceinline__ void tile_mixed(const CubeArgs& a, const T* smat, T* 
     }
     __syncthreads();
     tile_sum<T, NLV, D, D, 2>(a, t, sbuf, D, store);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The P1 stencil tile (K1's non-MG modes and K4 on the P1 cube, krylov_ops.cu)
+// ---------------------------------------------------------------------------
+//
+// On the P1 cube (one parity channel, 2^d slots) a point's row of the
+// operator is a 3^d-point stencil:
+//
+//     (A x)_i = sum_e S_cls(i)[e] x_(i+e),   e in {-1, 0, 1}^d,
+//     S_cls[e] = sum over the cubes b - delta that exist of C[delta][delta + e]
+//               (delta, delta + e in {0, 1}^d),
+//
+// and which cubes exist is decided axis by axis (b_k = 0: delta_k = 0 only;
+// b_k = n_k: delta_k = 1 only; else both), so 3^d classes of 3^d
+// coefficients (729 values in 3D) cover every point.  stencil_stage builds
+// them from C in shared memory (each summed in double over delta in C-order,
+// then rounded once), and a point sums its neighbours in e's C-order with
+// explicit fmas: a point's value does not depend on the block or tile that
+// computes it.  That lets K1 recompute a neighbouring tile's points in a halo
+// and get the owner's bits.
+//
+// A block owns a tile of t0 x t1 x t2 points (3D form; a 2D grid's leading
+// axis has one) and holds a box of H halo layers around it in shared memory,
+// B_k = t_k + 2H points an axis on a real axis, without clipping at the grid's
+// edge.  Region j of a tile is its owned points and j layers round them;
+// stencil_region walks a region's points that lie on the grid (a thread a
+// point, the extents' divisions by multiply-and-shift constants of the plan)
+// and the box points outside the grid, which a caller zero-fills so that a
+// stencil at the edge reads zeros there (their coefficients are 0).  A
+// stencil on region j reads region j + 1, so a box of H layers carries H
+// products one after another without a grid barrier.  A block reads each
+// input once a tile, and a product costs 3^d fmas and shared-memory loads a
+// point, where the point-by-point product (cube_point) loaded 2^d inputs for
+// each of its <= 2^d cubes from global memory.
+
+constexpr int kStencilHalo = 8;  // the widest halo a plan takes
+
+struct StencilPlan {
+  int t[3];                      // points a tile owns per axis (3D form)
+  int ntile[3];                  // tiles per axis
+  FastDiv div_ntile[3];
+  int H;                         // halo layers of the box
+  int box[3];                    // t + 2H on a real axis, 1 on a 2D grid's leading axis
+  int boxpts;
+  FastDiv div_e1[kStencilHalo + 1], div_e2[kStencilHalo + 1];  // region j's extents, axes 1, 2
+};
+
+__host__ __device__ constexpr int stencil_len(int d) { return d == 3 ? 27 : 9; }
+
+// Bytes of the coefficients of stencil_stage: 3^d classes of tile_ld(3^d)
+// values (a class's row in whole 16-byte loads).
+template <typename T>
+__host__ __device__ inline size_t stencil_table_bytes(int d) {
+  return sizeof(T) * stencil_len(d) * tile_ld<T>(stencil_len(d));
+}
+
+// Set a plan of tile t (3D form) and halo H on the grid of a (g, c).  False
+// where the tile does not fit the grid's form or H is out of range.
+inline bool stencil_set(const CubeArgs& a, const int (&t)[3], int H, StencilPlan& s) {
+  if (H < 1 || H > kStencilHalo) return false;
+  s.H = H;
+  s.boxpts = 1;
+  for (int k = 0; k < 3; ++k) {
+    const bool real = a.g[k] > 1;
+    if (t[k] < 1 || (!real && t[k] != 1)) return false;
+    s.t[k] = t[k];
+    s.ntile[k] = (a.g[k] + t[k] - 1) / t[k];
+    s.div_ntile[k] = fast_div(s.ntile[k]);
+    s.box[k] = real ? t[k] + 2 * H : 1;
+    s.boxpts *= s.box[k];
+  }
+  for (int j = 0; j <= kStencilHalo; ++j) {
+    s.div_e1[j] = fast_div(a.g[1] > 1 ? t[1] + 2 * j : 1);
+    s.div_e2[j] = fast_div(a.g[2] > 1 ? t[2] + 2 * j : 1);
+  }
+  return true;
+}
+
+// Choose and set a plan of halo H: the first candidate tile whose bytes(plan)
+// of shared memory a block let `blocks` blocks share an SM of the current
+// device.  3D: 4 x 8 x 8 (256 points, a thread each), then smaller ones for
+// wide halos or float64; 2D: 1 x 16 x 16 and smaller.  False where none fits
+// or the device cannot be asked.
+template <typename Bytes>
+inline bool stencil_pick(const CubeArgs& a, int blocks, int H, Bytes&& bytes, StencilPlan& s) {
+  constexpr int k3[5][3] = {{4, 8, 8}, {4, 4, 8}, {2, 4, 8}, {2, 4, 4}, {1, 2, 4}};
+  constexpr int k2[4][3] = {{1, 16, 16}, {1, 8, 16}, {1, 8, 8}, {1, 4, 8}};
+  int dev = 0, per_sm = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
+          cudaSuccess)
+    return false;
+  const size_t fit = (size_t)(per_sm / blocks - reserved);
+  const bool three = a.g[0] > 1;
+  for (int i = 0; i < (three ? 5 : 4); ++i)
+    if (stencil_set(a, three ? k3[i] : k2[i], H, s) && bytes(s) <= fit) return true;
+  return false;
+}
+
+// Block-cooperative: the 3^d classes' coefficients S[cls LD + e] of the
+// constant P1 cube matrix C (2^d, 2^d), cls and e with the last axis's digit
+// fastest, each class's row zero-padded to LD = tile_ld(3^d).  The caller
+// synchronises the block before use.
+template <typename T, int D>
+__device__ void stencil_stage(const T* C, T* S) {
+  constexpr int NE = D == 3 ? 27 : 9, NL = 1 << D, LD = tile_ld<T>(NE);
+  for (int idx = threadIdx.x; idx < NE * LD; idx += blockDim.x) {
+    const int cls = idx / LD, e = idx - cls * LD;
+    double acc = 0.0;
+    for (int dl = 0; dl < NL; ++dl) {  // delta, the last axis's bit lowest
+      bool ok = true;
+      int ti = 0, pc = NE / 3;
+      for (int k = 0; k < D; ++k, pc /= 3) {
+        const int dk = (dl >> (D - 1 - k)) & 1;
+        const int ck = cls / pc % 3, sk = dk + e / pc % 3 - 1;
+        ok = ok && !(ck == 0 && dk == 1) && !(ck == 2 && dk == 0) && sk >= 0 && sk <= 1;
+        ti = 2 * ti + sk;
+      }
+      if (ok && e < NE) acc += (double)C[dl * NL + ti];
+    }
+    S[idx] = (T)acc;
+  }
+}
+
+// Tile tt (C-order over the plan's tiles): its first owned point per axis.
+__device__ __forceinline__ void stencil_tile(const StencilPlan& s, int tt, int (&B0)[3]) {
+  const int q = (int)fast_quo((unsigned)tt, s.div_ntile[2]);
+  const int i0 = (int)fast_quo((unsigned)q, s.div_ntile[1]);
+  B0[0] = i0 * s.t[0];
+  B0[1] = (q - i0 * s.ntile[1]) * s.t[1];
+  B0[2] = (tt - q * s.ntile[2]) * s.t[2];
+}
+
+// Region j of the tile at B0: its extents, its first grid point and the
+// offset of its first point in the box, per axis (3D form).
+struct StencilRegion {
+  int e[3], lo[3], off[3], np, j;
+};
+
+template <int D>
+__device__ __forceinline__ StencilRegion stencil_extent(const StencilPlan& s, const int (&B0)[3],
+                                                        int j) {
+  StencilRegion r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const bool real = D == 3 || k > 0;
+    r.e[k] = real ? s.t[k] + 2 * j : 1;
+    r.lo[k] = real ? B0[k] - j : 0;
+    r.off[k] = real ? s.H - j : 0;
+  }
+  r.np = r.e[0] * r.e[1] * r.e[2];
+  r.j = j;
+  return r;
+}
+
+// Point q (< r.np) of region r: its grid index i (-1 outside the grid), its
+// index l in the box, its coefficients' class and whether the tile owns it.
+template <int D>
+__device__ __forceinline__ void stencil_point(const CubeArgs& a, const StencilPlan& s,
+                                              const int (&B0)[3], const StencilRegion& r, int q,
+                                              int& i, int& l, int& cls, bool& own) {
+  const unsigned q01 = fast_quo((unsigned)q, s.div_e2[r.j]);
+  const unsigned q0 = fast_quo(q01, s.div_e1[r.j]);
+  const int fc[3] = {(int)q0, (int)(q01 - q0 * (unsigned)r.e[1]),
+                     (int)((unsigned)q - q01 * (unsigned)r.e[2])};
+  int gi[3];
+  bool in = true;
+  own = true;
+  cls = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    gi[k] = r.lo[k] + fc[k];
+    in = in && gi[k] >= 0 && gi[k] < a.g[k];
+    own = own && gi[k] >= B0[k] && gi[k] < B0[k] + s.t[k];
+    if (D == 3 || k > 0) cls = 3 * cls + (gi[k] == 0 ? 0 : gi[k] == a.c[k] ? 2 : 1);
+  }
+  own = own && in;
+  l = ((fc[0] + r.off[0]) * s.box[1] + fc[1] + r.off[1]) * s.box[2] + fc[2] + r.off[2];
+  i = in ? (gi[0] * a.g[1] + gi[1]) * a.g[2] + gi[2] : -1;
+}
+
+// f(i, l, cls, own) for each point of region j of the tile at B0 (a thread a
+// point): i its grid index (-1 outside the grid), l its index in the box,
+// cls its coefficients' class, own whether the tile owns it.
+template <int D, typename F>
+__device__ __forceinline__ void stencil_region(const CubeArgs& a, const StencilPlan& s,
+                                               const int (&B0)[3], int j, F&& f) {
+  const StencilRegion r = stencil_extent<D>(s, B0, j);
+  for (int q = threadIdx.x; q < r.np; q += blockDim.x) {
+    int i, l, cls;
+    bool own;
+    stencil_point<D>(a, s, B0, r, q, i, l, cls, own);
+    f(i, l, cls, own);
+  }
+}
+
+// A box load: the points of region j, U a thread a round, with fetch(i,
+// own) (global loads only, returning a value type) for each of a round's
+// points on the grid, then put(i, l, own, v) for each of them (i -1 and v
+// value-initialised outside the grid): a round's loads are in flight
+// together whatever put stores.
+template <int D, int U, typename Fetch, typename Put>
+__device__ __forceinline__ void stencil_load(const CubeArgs& a, const StencilPlan& s,
+                                             const int (&B0)[3], int j, Fetch&& fetch, Put&& put) {
+  using V = decltype(fetch(0, false));
+  const StencilRegion r = stencil_extent<D>(s, B0, j);
+  for (int q0 = threadIdx.x; q0 < r.np; q0 += U * blockDim.x) {
+    int i[U], l[U];
+    bool own[U];
+    V v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + u * (int)blockDim.x;
+      int cls;
+      i[u] = -1;
+      own[u] = false;
+      l[u] = 0;
+      if (q < r.np) stencil_point<D>(a, s, B0, r, q, i[u], l[u], cls, own[u]);
+      v[u] = i[u] >= 0 ? fetch(i[u], own[u]) : V{};
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (q0 + u * (int)blockDim.x < r.np) put(i[u], l[u], own[u], v[u]);
+  }
+}
+
+// A small value type for stencil_load's fetch.
+template <typename T, int N>
+struct Vals {
+  T v[N];
+};
+
+// acc[b] = (A x_b) at box point l of class cls, b < nb: x_b at box[b boxpts
+// + ...], the neighbours in e's C-order, explicit fmas.
+template <typename T, int D, int NBX>
+__device__ __forceinline__ void stencil_apply(const T* S, int cls, const T* box,
+                                              const StencilPlan& s, int l, int nb,
+                                              T (&acc)[NBX]) {
+  constexpr int NE = D == 3 ? 27 : 9, LD = tile_ld<T>(NE), V = 16 / sizeof(T);
+  using Vec = typename Vec16<T>::type;
+  const Vec* c = reinterpret_cast<const Vec*>(S + cls * LD);  // the class's row, 16 bytes a load
+#pragma unroll
+  for (int b = 0; b < NBX; ++b) acc[b] = T(0);
+#pragma unroll
+  for (int t4 = 0; t4 < LD / V; ++t4) {
+    const Vec m = c[t4];
+#pragma unroll
+    for (int w = 0; w < V; ++w) {
+      const int u = t4 * V + w;
+      if (u < NE) {
+        const int e0 = D == 3 ? u / 9 - 1 : 0, e1 = u / 3 % 3 - 1, e2 = u % 3 - 1;
+        const T coef = Vec16<T>::get(m, w);
+        const int o = l + (e0 * s.box[1] + e1) * s.box[2] + e2;
+#pragma unroll
+        for (int b = 0; b < NBX; ++b)
+          if (b < nb) acc[b] = tile_fma(coef, box[b * s.boxpts + o], acc[b]);
+      }
+    }
   }
 }
 

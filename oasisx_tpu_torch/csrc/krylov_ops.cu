@@ -27,20 +27,28 @@
 // grid_group::sync needs no relocatable device code (-rdc) since CUDA 11.
 //
 // Reductions and the cooperative launch are those of grid_reduce.cuh:
-// deterministic, the same bits on every block, no floating-point atomics.
+// deterministic, the same bits on every block, no floating-point atomics;
+// K1's non-MG modes and K4 on the P1 cube reduce with warp shuffles
+// (grid_sum_warp, below), as deterministic, with one block barrier a sum.
 //
 // Operators: the cube device functions of cube_device.cuh, with the
 // constant matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in
-// shared memory.  K1's products go point by point (cube_point): the grid is
-// fixed by the cooperative launch, so a product's grid-stride loop cannot
+// shared memory.  K1's MG products go point by point (cube_point): the grid
+// is fixed by the cooperative launch, so a product's grid-stride loop cannot
 // take its points' parities and base coordinates from blockIdx, as the
 // standalone cube kernels do, and each point is split in place by
 // cube_split's multiply-and-shift divisions, whose constants are kernel
-// parameters.  K1's 8 slots a cube (P1) are unrolled (NL), so a thread's
-// loads of one cube are in flight together at its 2-3 blocks an SM.
+// parameters.  Its 8 slots a cube (P1) are unrolled (NL), so a thread's
+// loads of one cube are in flight together at its 2 blocks an SM.  K1's
+// non-MG modes and K4 on the P1 cube run the P1 stencil tile instead
+// (cube_device.cuh: a block reads a box of its tile and a halo into shared
+// memory once and each point sums its 3^d neighbours there), with the
+// direction update riding on the product and two grid barriers an
+// iteration (pressure_cg_kernel says how K1 fits its Chebyshev steps in).
 //
-// K4's product on the P2 cube is K5's block-tiled one (tile_product; any
-// other cube goes point by point, cg_mass_point_kernel): the grid-stride
+// K4's product on the P2 cube is K5's block-tiled one (tile_product; the P1
+// cube takes the stencil tile, any other cube, P3 among them, goes point by
+// point, cg_mass_point_kernel): the grid-stride
 // loop runs over tiles, a block a tile at a time, each input read once a tile
 // into shared memory, a thread a cube with its 27 nb inputs in registers
 // (kMassBlocks 2 an SM: at most 128 registers), pAp summed cube by cube
@@ -98,12 +106,14 @@
 // 10 vectors of nb rows and the shared invd twice, ~282 MB (0.084 ms).
 // K1: latency; the 50k / 7k / 1k point pressure levels fit in L2, and the
 // time goes to barriers (per MG iteration at N=36, 11 grid barriers and 19
-// among the sub-group's blocks; 5 + (degree - 1) per iteration of the
-// Chebyshev mode, where every barrier spans the fine grid).
+// among the sub-group's blocks; 2 an iteration of the Jacobi and
+// Chebyshev modes where the steps' box fits, pcg_barriers).
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
 // error, or cudaErrorInvalidValue for arguments it does not take.
+
+#include <algorithm>
 
 #include "cube_device.cuh"
 #include "grid_reduce.cuh"
@@ -120,9 +130,10 @@ static_assert(kMaxRed == kTileRed, "K4's reduction as tile_choose counts it");
 constexpr int kMaxLevels = 8;
 // Blocks an SM of each whole-solve kernel: its launch bound and the cap of
 // its cooperative grid, so that the grid, and with it the order of every
-// reduction, does not depend on the registers the compiler assigns.  K1's
-// non-MG mode and K4 on a cube other than P2 hold 3 in float32 (<= 80
-// registers), the others 2 (K4's kMassBlocks).
+// reduction, does not depend on the registers the compiler assigns.  K4 on
+// a cube other than P2 holds 3 in float32 (<= 80 registers), the others 2
+// (K4's kMassBlocks; K1's non-MG mode, whose box code spilled at 80
+// registers, and which has at most a block a tile: 225 at N=35).
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
 constexpr int kSolveBlocks = 2;
@@ -136,6 +147,56 @@ __host__ __device__ inline size_t red_offset(int mat_len, int nl) {
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int mat_len, int nl) {
   return red_offset<T>(mat_len, nl) + sizeof(T) * kMaxRed * kThreads;
+}
+
+// K1's non-MG modes and K4 on the P1 cube reduce with warp shuffles: each
+// warp sums its lanes by a butterfly of __shfl_xor_sync (a + b == b + a, so
+// every lane ends with the same bits), thread 0 adds the block's warp sums
+// in order into the block's slot, and after the grid barrier every warp
+// sums the slots (lane l the slots l, l + 32, ... in order) and ends with
+// a butterfly: every thread of the grid gets the same bits, with one block
+// barrier where grid_sum has two trees of nine.  The slots alternate halves
+// as grid_sum's; the warp sums need kMaxRed * kWarps values of shared memory.
+constexpr int kWarps = kThreads / 32;
+
+template <int N, typename T>
+__device__ __forceinline__ void warp_sum(T* v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], m);
+}
+
+template <int N, typename T>
+__device__ void grid_sum_warp(Reducer<T>& red, T* v) {
+  warp_sum<N>(v);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0)
+    for (int i = 0; i < N; ++i) red.sred[i * kWarps + (threadIdx.x >> 5)] = v[i];
+  __syncthreads();
+  T* slot = red.slots + (size_t)red.half * kMaxRed * gridDim.x;
+  red.half ^= 1;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < N; ++i) {
+      T b = T(0);
+      for (int w = 0; w < kWarps; ++w) b += red.sred[i * kWarps + w];
+      slot[i * gridDim.x + blockIdx.x] = b;
+    }
+  cg::this_grid().sync();  // also ends the block's reads of sred
+  for (int i = 0; i < N; ++i) {
+    T t = T(0);
+    for (int b = lane; b < (int)gridDim.x; b += 32) t += slot[i * gridDim.x + b];
+    v[i] = t;
+  }
+  warp_sum<N>(v);
+}
+
+template <bool kWarp, int N, typename T>
+__device__ __forceinline__ void solve_sum(Reducer<T>& red, T* v) {
+  if constexpr (kWarp)
+    grid_sum_warp<N>(red, v);
+  else
+    grid_sum<N>(red, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -157,6 +218,7 @@ struct CgMassArgs {
   int* iters;     // (nb) out
   T* rnorm;       // (nb) out
   CubeArgs a;     // nbo = nb rows; on the P2 cube, the tile of the product
+  StencilPlan s;  // on the P1 cube, the stencil's tiles (halo 1)
   size_t red_off; // bytes of shared memory before the reduction's
   int maxiter;
 };
@@ -169,33 +231,56 @@ constexpr int kMassBlocks = 2;
 constexpr int kMassBarriers = 2;
 
 // K4's shared memory on the P2 cube: [matrix (tile rows)] [tile buffer]
-// [reduction], tile_block_smem bytes.
+// [reduction], tile_block_smem bytes; on the P1 cube: [stencil
+// coefficients] [box, nb rows] [warp sums] (p1_mass_smem).
+template <typename T>
+inline size_t p1_box_bytes(const StencilPlan& s, int nb) {
+  return align16(sizeof(T) * nb * s.boxpts);
+}
+template <typename T>
+inline size_t p1_mass_smem(int d, const StencilPlan& s, int nb) {
+  return stencil_table_bytes<T>(d) + p1_box_bytes<T>(s, nb) + sizeof(T) * kMaxRed * kWarps;
+}
 
-// NL: 27 (3D) or 9 (2D) slots of the P2 cube; NB as tile_product's.  The
-// rows' scalars (rz, |r|, tol, beta, iterations, last activity) are the
-// same in every thread: they live in shared memory, written by thread 0
-// after each reduction, so that the registers go to the product's inputs.
-template <typename T, int NL, int NB>
-__global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassArgs<T> P) {
+// NL: 27 (3D) or 9 (2D) slots of the P2 cube, or 8 (3D) or 4 (2D) of the
+// P1 cube (kP1); NB as tile_product's (0 on the P1 cube).  The rows'
+// scalars (rz, |r|, tol, beta, iterations, last activity) are the same in
+// every thread: they live in shared memory, written by thread 0 after each
+// reduction, so that the registers go to the product's inputs.  The P1 cube
+// runs the stencil tile (cube_device.cuh) with a halo of one layer, three
+// blocks an SM in float32, and reduces with warp shuffles; the P2 cube
+// keeps grid_sum and its rounding.
+template <typename T, int NL, int NB, bool kP1>
+__global__ void __launch_bounds__(kThreads, kP1 ? kMinBlocks<T> : kMassBlocks)
+    cg_mass_kernel(CgMassArgs<T> P) {
   constexpr int NBX = NB > 0 ? NB : kMaxBatch;
+  constexpr int D = NL == 27 || NL == 8 ? 3 : 2;
   const CubeArgs& a = P.a;
+  const StencilPlan& sp = P.s;
   const int nb = NB > 0 ? NB : a.nbo;  // rows solved together
   const int n = a.npad_out;            // nb * n < 2^31 (cube_fits)
   unsigned char* smem = dynamic_smem();
   T* smat = reinterpret_cast<T*>(smem);
-  T* sbuf = smat + NL * tile_ld<T>(NL);
+  T* sbuf = kP1 ? reinterpret_cast<T*>(smem + stencil_table_bytes<T>(D))
+                : smat + NL * tile_ld<T>(NL);
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + P.red_off), 0};
   __shared__ T rz[kMaxBatch], rn[kMaxBatch], tol[kMaxBatch], beta[kMaxBatch];
   __shared__ int it[kMaxBatch];
   __shared__ bool upd[kMaxBatch];  // the row was active in the last iteration: p = z + beta p
-  tile_stage<T, NL>(P.C, smat);
+  if constexpr (kP1) {
+    stencil_stage<T, D>(P.C, smat);
+    __syncthreads();
+  } else {
+    tile_stage<T, NL>(P.C, smat);
+  }
   // K4's point loops: int32 (coop_launch bounds an index plus a stride
   // below 2^31) and not unrolled (nvcc would divide their trip count); each
   // point loads every row before it stores any, so that its loads are in
   // flight together (a store may alias a later row's load).
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
-  const int ntiles = a.ntile[0] * a.ntile[1] * a.ntile[2];
+  const int ntiles = kP1 ? sp.ntile[0] * sp.ntile[1] * sp.ntile[2]
+                         : a.ntile[0] * a.ntile[1] * a.ntile[2];
   auto active = [&](int b) { return b < nb && rn[b] > tol[b]; };
 
   // x = x0, r = r0, p = z0 = invd r0; rz = r0.z0, rnorm = |r0|
@@ -223,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
         s[kMaxBatch + b] += rv[b] * rv[b];
       }
   }
-  grid_sum<kMaxRed>(red, s);
+  solve_sum<kP1, kMaxRed>(red, s);
   if (threadIdx.x == 0)
     for (int b = 0; b < kMaxBatch; ++b) {
       rz[b] = s[b];
@@ -253,6 +338,52 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
       return upd[b] ? vfma(beta[b], old, iv * P.r[i]) : old;
     };
     zero(s);
+    if constexpr (kP1) {
+      // the box (region 1) holds p; each owned point's Ap and p . Ap
+      #pragma unroll 1
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int B0[3];
+        stencil_tile(sp, t, B0);
+        __syncthreads();  // the last tile's stencils have read the box
+        // a point's loads: invd, then each row's last p and r
+        stencil_load<D, 2>(
+            a, sp, B0, 1,
+            [&](int i, bool) {
+              Vals<T, 2 * NBX + 1> v;
+              v.v[0] = P.invd[i];
+              #pragma unroll
+              for (int b = 0; b < NBX; ++b)
+                if (b < nb) {
+                  v.v[1 + 2 * b] = po[b * n + i];
+                  v.v[2 + 2 * b] = P.r[b * n + i];
+                }
+              return v;
+            },
+            [&](int i, int l, bool own, const Vals<T, 2 * NBX + 1>& v) {
+              #pragma unroll
+              for (int b = 0; b < NBX; ++b)
+                if (b < nb) {
+                  const T old = v.v[1 + 2 * b];
+                  const T pb =
+                      i < 0 ? T(0) : upd[b] ? vfma(beta[b], old, v.v[0] * v.v[2 + 2 * b]) : old;
+                  sbuf[b * sp.boxpts + l] = pb;
+                  if (own) pn[b * n + i] = pb;
+                }
+            });
+        __syncthreads();
+        stencil_region<D>(a, sp, B0, 0, [&](int i, int l, int cls, bool) {
+          if (i < 0) return;
+          T acc[NBX];
+          stencil_apply<T, D, NBX>(smat, cls, sbuf, sp, l, nb, acc);
+          #pragma unroll
+          for (int b = 0; b < NBX; ++b)
+            if (b < nb) {
+              P.Ap[b * n + i] = acc[b];
+              s[b] = vfma(sbuf[b * sp.boxpts + l], acc[b], s[b]);
+            }
+        });
+      }
+    } else {
     #pragma unroll 1
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const unsigned q = fast_quo((unsigned)t, a.div_ntile[2]);
@@ -284,7 +415,8 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
               }
           });
     }
-    grid_sum<kMaxBatch>(red, s);
+    }
+    solve_sum<kP1, kMaxBatch>(red, s);
     T alpha[kMaxBatch];
     for (int b = 0; b < kMaxBatch; ++b) alpha[b] = active(b) ? rz[b] / nz(s[b]) : T(0);
 
@@ -315,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
           s[kMaxBatch + b] += rr * rr;
         }
     }
-    grid_sum<kMaxRed>(red, s);  // its block sums end the block's reads of the scalars
+    solve_sum<kP1, kMaxRed>(red, s);  // its block barrier ends the block's reads of the scalars
     if (threadIdx.x == 0)
       for (int b = 0; b < kMaxBatch; ++b) {
         const bool act = active(b);
@@ -339,10 +471,13 @@ __global__ void __launch_bounds__(kThreads, kMassBlocks) cg_mass_kernel(CgMassAr
     }
 }
 
-// K4 on any other cube (P1, P3; no solver path of the port's benchmarks
-// runs one): point by point (cube_point), with the cube matrix and its slot
-// offsets staged in shared memory, and three grid barriers an iteration
-// (the product's pAp, the update's rz and |r|^2, the direction update).
+// K4 on any cube but P1 and P2 (P3: the velocity update's mass CG and
+// K11 of a structured P3 velocity, fracstep's u_element): point by point
+// (cube_point), with the cube matrix and its slot offsets staged in shared
+// memory, and three grid barriers an iteration (the product's pAp, the
+// update's rz and |r|^2, the direction update).  The P1 cube (the
+// rotational update's Mq_c solve at batch 1, phase 4i every step; a P1
+// velocity's mass CG) runs cg_mass_kernel's stencil tile.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
     cg_mass_point_kernel(CgMassArgs<T> P) {
@@ -1066,8 +1201,35 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
 // A x0), every A p demeaned, x demeaned at the end; z = M r is not demeaned.
 // M r is invd r (cheb_degree 0), or the recurrence of cheb_into on the fine
 // operator: dk = invd r / theta, z = dk, then cheb_degree - 1 steps of
-// dk = c1 dk + c2 invd (r - A z), z += dk, each a fine A z and a barrier
-// (z double-buffered, since A z reads the neighbours' z).
+// dk = c1 dk + c2 invd (r - A z), z += dk.
+//
+// The grid is small (46,656 points at N=35, 9 work vectors of 187 KB in
+// float32, L2-resident) and an iteration's time goes to its grid-wide
+// phases, not to bytes or operations: a grid-wide phase (a barrier, a
+// reduction and a pass) takes 5-7.5 us on an NVIDIA H100 80GB HBM3 at
+// 700 W, against ~0.05 us of arithmetic.  So an iteration has two grid
+// barriers, both reductions, at any degree whose box fits:
+//   phase A, on the stencil tile (cube_device.cuh) with a halo of one
+//     layer: p = z + beta p wherever the tile reads p (its owned points go
+//     to the other of two p buffers, by iteration parity), Ap = A p on the
+//     owned points, and the sums of Ap, p . Ap and p, so that p . demean(Ap)
+//     = p . Ap - sum(Ap) sum(p) / n needs no pass of its own;
+//   phase B: x += alpha p and r' = r - alpha (Ap - mean) on the owned
+//     points, and z = M r'.  A Chebyshev step reads the neighbours' z, so a
+//     block takes a box of `steps` halo layers: r' and the first term on the
+//     whole box, then each step on one layer less, in shared memory, and it
+//     writes r' and z on its owned points with the sums |r'|^2 and r' . z.
+//     A value computed in a halo is the owner's formula on the owner's inputs
+//     (stencil_apply's order, explicit fmas), so it has the owner's bits.
+// Where a box of deg - 1 layers does not fit (a high degree), the steps run
+// in segments of `steps`, each on its box, a grid barrier after each: 1 +
+// ceil((deg - 1) / steps) barriers an iteration (pcg_barriers).  Jacobi and
+// degree 1 run phase B point by point.  A block loops over its tiles (N=63:
+// 512 tiles of 4 x 8 x 8 against 264 resident blocks, two an SM), so the
+// state stays in global memory and a block re-reads its box after each
+// barrier.  A box load issues four points' loads a thread before it stores
+// any (stencil_load), and a point reads its class's coefficients in 16-byte
+// loads (stencil_apply).
 
 template <typename T>
 struct PcgArgs {
@@ -1076,160 +1238,277 @@ struct PcgArgs {
   const T* x0;    // (n)
   const T* invd;  // (n) Jacobi inverse diagonal
   T* x;           // (n) out
-  T* work;        // 6 vectors: r, z, z', p, t (A p), dk
+  T* work;        // 9 vectors: r[2], p[2], Ap, z[2], dk[2] (each pair by parity)
   T* red;
   int* iters;     // (1) out
   T* rnorm;       // (1) out
   int* conv;      // (1) out
-  CubeArgs a;     // the fine operator, staged in shared memory
+  CubeArgs a;     // the grid
+  StencilPlan s;  // the tiles, with a box of s.H = steps halo layers
+  int steps;      // Chebyshev steps a segment of phase B
   int cheb_degree, maxiter;
   double lmin, lmax, rtol;
 };
 
-template <typename T, int NL>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(PcgArgs<T> P) {
+// K1's shared memory: [stencil coefficients] [warp sums] [box: r', invd, dk
+// and z twice for the Chebyshev steps; one array (phase A's p) for Jacobi
+// and degree 1].
+template <typename T>
+__host__ __device__ inline size_t pcg_box_offset(int d) {
+  return stencil_table_bytes<T>(d) + align16(sizeof(T) * kMaxRed * kWarps);
+}
+template <typename T>
+inline size_t pcg_smem(int d, const StencilPlan& s, int deg) {
+  return pcg_box_offset<T>(d) + sizeof(T) * (deg > 1 ? 5 : 1) * s.boxpts;
+}
+inline int pcg_barriers(int deg, int steps) {
+  const int nsteps = deg > 1 ? deg - 1 : 0;
+  return 1 + (nsteps > 0 ? (nsteps + steps - 1) / steps : 1);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_cg_kernel(PcgArgs<T> P) {
   const CubeArgs& a = P.a;
+  const StencilPlan& sp = P.s;
   const int n = a.npad_out;
   unsigned char* smem = dynamic_smem();
-  T* smat = reinterpret_cast<T*>(smem);
-  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * a.mat_len);
-  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(a.mat_len, a.nl_in)), 0};
-  cube_stage(P.Ap, a, smat, soff);
+  T* S = reinterpret_cast<T*>(smem);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + stencil_table_bytes<T>(D)), 0};
+  T* R = reinterpret_cast<T*>(smem + pcg_box_offset<T>(D));  // phase A's p, then r'
+  T* IV = R + sp.boxpts;
+  T* DK = IV + sp.boxpts;
+  T* Z0 = DK + sp.boxpts;
+  T* Z1 = Z0 + sp.boxpts;
+  stencil_stage<T, D>(P.Ap, S);
   __syncthreads();
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
+  const int ntiles = sp.ntile[0] * sp.ntile[1] * sp.ntile[2];
 
-  T* r = P.work;
-  T* z = r + n;
-  T* zb = z + n;
-  T* p = zb + n;
-  T* t = p + n;
-  T* dk = t + n;
+  T* r[2] = {P.work, P.work + n};
+  T* p[2] = {P.work + 2 * n, P.work + 3 * n};
+  T* Ap = P.work + 4 * n;
+  T* zs[2] = {P.work + 5 * n, P.work + 6 * n};
+  T* dks[2] = {P.work + 7 * n, P.work + 8 * n};
   T* x = P.x;
   const T* iv = P.invd;
   const T nmean = (T)n;
   const int deg = P.cheb_degree;
+  const int nsteps = deg > 1 ? deg - 1 : 0;  // Chebyshev steps an application
+  const int nseg = nsteps > 0 ? (nsteps + P.steps - 1) / P.steps : 1;
+  T* zf = zs[(nseg - 1) & 1];  // z = M r, as phase A reads it
   const double theta = 0.5 * (P.lmax + P.lmin);
   const double delta = 0.5 * (P.lmax - P.lmin);
   const double sigma1 = deg > 0 ? theta / delta : 0.0;
   const T rtheta = deg > 0 ? (T)theta : T(1);
+  T s[kMaxRed];
 
-  auto mv = [&](const T* src, int idx) -> T {
-    T acc[kMaxBatch];
-    cube_point<T, false, NL>(src, smat, soff, a, cube_split(a, idx), acc);
-    return acc[0];
+  // A x on a tile: fetch(i) (global loads) and put(i, own, v) give the input
+  // at grid point i, into the box (region 1); then store(i, (A x)_i, x_i) at
+  // each owned point
+  auto product = [&](const int (&B0)[3], auto&& fetch, auto&& put, auto&& store) {
+    __syncthreads();  // the last tile's readers of the box are done
+    stencil_load<D, 4>(
+        a, sp, B0, 1, [&](int i, bool) { return fetch(i); },
+        [&](int i, int l, bool own, const Vals<T, 2>& v) { R[l] = i >= 0 ? put(i, own, v) : T(0); });
+    __syncthreads();
+    stencil_region<D>(a, sp, B0, 0, [&](int i, int l, int cls, bool) {
+      if (i < 0) return;
+      T acc[1];
+      stencil_apply<T, D, 1>(S, cls, R, sp, l, 1, acc);
+      store(i, acc[0], R[l]);
+    });
   };
-  T s[kMaxRed] = {};
 
-  // r[idx] = v: its first preconditioner term into z (and dk); sums |r|^2 and
-  // r.z into s[0], s[1]
-  auto first_term = [&](int idx, T v) {
-    r[idx] = v;
-    const T zz = deg > 0 ? (iv[idx] * v) / rtheta : iv[idx] * v;
-    z[idx] = zz;
-    if (deg > 0) dk[idx] = zz;
-    s[0] += v * v;
-    s[1] += v * zz;
-  };
-  // the Chebyshev steps after first_term's grid sum; returns r.z of the result
-  auto cheb_steps = [&](T rz) -> T {
-    double rho = 1.0 / sigma1;
-    for (int k = 0; k + 1 < deg; ++k) {
-      const double rho_new = 1.0 / (2.0 * sigma1 - rho);
-      const T c1 = (T)(rho_new * rho);
-      const T c2 = (T)(2.0 * rho_new / delta);
-      zero(s);
+  // Phase B: x += alpha p (not on init), r' = r - alpha (Ap - ma) (on init
+  // r - ma) from rin into rout, z = M r' into zf; s[0] = |r'|^2 and s[1] =
+  // r' . z over the block's owned points (the caller sums the grid).
+  auto phase_b = [&](bool init, T alpha, T ma, const T* pv, const T* rin, T* rout) {
+    zero(s);
+    auto rnew = [&](int i) { return init ? rin[i] - ma : vfma(-alpha, Ap[i] - ma, rin[i]); };
+    if (nsteps == 0) {
       for (int idx = first; idx < n; idx += stride) {
-        const T d = vfma(c1, dk[idx], c2 * (iv[idx] * (r[idx] - mv(z, idx))));
-        dk[idx] = d;
-        const T zn = z[idx] + d;
-        zb[idx] = zn;
-        s[0] += r[idx] * zn;
+        if (!init) x[idx] = vfma(alpha, pv[idx], x[idx]);
+        const T rr = rnew(idx);
+        const T zz = deg > 0 ? (iv[idx] * rr) / rtheta : iv[idx] * rr;
+        rout[idx] = rr;
+        zf[idx] = zz;
+        s[0] = vfma(rr, rr, s[0]);
+        s[1] = vfma(rr, zz, s[1]);
       }
-      T* tmp = z;
-      z = zb;
-      zb = tmp;
-      if (k + 2 == deg) {
-        grid_sum<1>(red, s);
-        rz = s[0];
-      } else {
-        cg::this_grid().sync();
-      }
-      rho = rho_new;
+      return;
     }
-    return rz;
+    double rho0 = 1.0 / sigma1;  // rho before a segment's first step
+    for (int m = 0, done = 0; m < nseg; ++m) {
+      const int st = nsteps - done < P.steps ? nsteps - done : P.steps;
+      const bool last = m + 1 == nseg;
+      const T* zi = zs[(m + 1) & 1];  // the last segment's
+      const T* dki = dks[(m + 1) & 1];
+      T* zo = zs[m & 1];
+      T* dko = dks[m & 1];
+      #pragma unroll 1
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int B0[3];
+        stencil_tile(sp, t, B0);
+        __syncthreads();  // the last tile's readers of the box are done
+        // the box (region st): r', invd and the first term, or the last
+        // segment's dk and z; 0 outside the grid
+        stencil_load<D, 4>(
+            a, sp, B0, st,
+            [&](int i, bool own) {
+              Vals<T, 5> v;  // invd; r and Ap, or r', dk and z; p and x if owned
+              v.v[0] = iv[i];
+              if (m == 0) {
+                v.v[1] = rin[i];
+                v.v[2] = init ? T(0) : Ap[i];
+                v.v[3] = own && !init ? pv[i] : T(0);
+                v.v[4] = own && !init ? x[i] : T(0);
+              } else {
+                v.v[1] = rout[i];
+                v.v[2] = dki[i];
+                v.v[3] = zi[i];
+              }
+              return v;
+            },
+            [&](int i, int l, bool own, const Vals<T, 5>& v) {
+              T rr = T(0), d = T(0), zz = T(0);
+              if (i >= 0) {
+                if (m == 0) {
+                  rr = init ? v.v[1] - ma : vfma(-alpha, v.v[2] - ma, v.v[1]);
+                  d = (v.v[0] * rr) / rtheta;
+                  zz = d;
+                  if (own) {
+                    rout[i] = rr;
+                    if (!init) x[i] = vfma(alpha, v.v[3], v.v[4]);
+                  }
+                } else {
+                  rr = v.v[1];
+                  d = v.v[2];
+                  zz = v.v[3];
+                }
+              }
+              R[l] = rr;
+              IV[l] = v.v[0];
+              DK[l] = d;
+              Z0[l] = zz;
+              Z1[l] = zz;
+            });
+        double rho = rho0;
+        T* za = Z0;
+        T* zb = Z1;
+        for (int j = 1; j <= st; ++j) {
+          const double rho_new = 1.0 / (2.0 * sigma1 - rho);
+          const T c1 = (T)(rho_new * rho);
+          const T c2 = (T)(2.0 * rho_new / delta);
+          const bool out = j == st;  // region 0: the owned points
+          __syncthreads();
+          stencil_region<D>(a, sp, B0, st - j, [&](int i, int l, int cls, bool) {
+            if (i < 0) return;
+            T acc[1];
+            stencil_apply<T, D, 1>(S, cls, za, sp, l, 1, acc);
+            const T dn = vfma(c1, DK[l], c2 * (IV[l] * (R[l] - acc[0])));
+            const T zn = za[l] + dn;
+            DK[l] = dn;
+            zb[l] = zn;
+            if (out) {
+              zo[i] = zn;
+              if (!last) {
+                dko[i] = dn;
+              } else {
+                s[0] = vfma(R[l], R[l], s[0]);
+                s[1] = vfma(R[l], zn, s[1]);
+              }
+            }
+          });
+          T* tmp = za;
+          za = zb;
+          zb = tmp;
+          rho = rho_new;
+        }
+      }
+      for (int j = 0; j < st; ++j) rho0 = 1.0 / (2.0 * sigma1 - rho0);
+      done += st;
+      if (!last) cg::this_grid().sync();
+    }
   };
 
-  // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
+  // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0) (r[0])
   zero(s);
-  for (int idx = first; idx < n; idx += stride) {
-    x[idx] = P.x0[idx];
-    t[idx] = mv(P.x0, idx);
-    s[0] += P.b[idx];
+  #pragma unroll 1
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    int B0[3];
+    stencil_tile(sp, t, B0);
+    product(
+        B0, [&](int i) { return Vals<T, 2>{{P.x0[i], T(0)}}; },
+        [&](int i, bool own, const Vals<T, 2>& v) {
+          if (own) x[i] = v.v[0];
+          return v.v[0];
+        },
+        [&](int i, T ap, T) {
+          Ap[i] = ap;
+          s[0] += P.b[i];
+        });
   }
-  grid_sum<1>(red, s);
+  grid_sum_warp<1>(red, s);
   const T mb = s[0] / nmean;
   zero(s);
   for (int idx = first; idx < n; idx += stride) {
     const T bd = P.b[idx] - mb;
-    const T v = bd - t[idx];
-    r[idx] = v;
-    s[0] += bd * bd;
+    const T v = bd - Ap[idx];
+    r[1][idx] = v;
+    s[0] = vfma(bd, bd, s[0]);
     s[1] += v;
   }
-  grid_sum<2>(red, s);
+  grid_sum_warp<2>(red, s);
   const T tol = (T)P.rtol * vsqrt(s[0]);
-  const T mr = s[1] / nmean;
-  // z = M r; p = z; rz = r.z
-  zero(s);
-  for (int idx = first; idx < n; idx += stride) first_term(idx, r[idx] - mr);
-  grid_sum<2>(red, s);
+  // z = M r; rz = r.z, |r|
+  phase_b(true, T(0), s[1] / nmean, nullptr, r[1], r[0]);
+  grid_sum_warp<2>(red, s);
   T rn = vsqrt(s[0]);
-  T rz = cheb_steps(s[1]);
-  for (int idx = first; idx < n; idx += stride) p[idx] = z[idx];
-  cg::this_grid().sync();
+  T rz = s[1];
 
   int k = 0;
+  T beta = T(0);
   while (k < P.maxiter && rn > tol) {
-    // Apv = demean(A p); alpha = rz / p.Apv
+    // phase A: p = z + beta p (k = 0: p = z); Ap; alpha = rz / p.demean(Ap)
+    T* pn = p[k & 1];
+    const T* po = p[(k & 1) ^ 1];
     zero(s);
-    for (int idx = first; idx < n; idx += stride) {
-      const T ap = mv(p, idx);
-      t[idx] = ap;
-      s[0] += ap;
+    #pragma unroll 1
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      int B0[3];
+      stencil_tile(sp, t, B0);
+      product(
+          B0, [&](int i) { return Vals<T, 2>{{zf[i], k == 0 ? T(0) : po[i]}}; },
+          [&](int i, bool own, const Vals<T, 2>& v) {
+            const T pp = k == 0 ? v.v[0] : vfma(beta, v.v[1], v.v[0]);
+            if (own) pn[i] = pp;
+            return pp;
+          },
+          [&](int i, T ap, T pv) {
+            Ap[i] = ap;
+            s[0] += ap;
+            s[1] = vfma(pv, ap, s[1]);
+            s[2] += pv;
+          });
     }
-    grid_sum<1>(red, s);
+    grid_sum_warp<3>(red, s);
     const T ma = s[0] / nmean;
-    zero(s);
-    for (int idx = first; idx < n; idx += stride) {
-      const T apv = t[idx] - ma;
-      t[idx] = apv;
-      s[0] += p[idx] * apv;
-    }
-    grid_sum<1>(red, s);
-    const T alpha = rz / nz(s[0]);
-    // x += alpha p; r -= alpha Apv; z = M r; |r|, r.z
-    zero(s);
-    for (int idx = first; idx < n; idx += stride) {
-      x[idx] = x[idx] + alpha * p[idx];
-      first_term(idx, r[idx] - alpha * t[idx]);
-    }
-    grid_sum<2>(red, s);
-    const T rn_new = vsqrt(s[0]);
-    const T rz_new = cheb_steps(s[1]);
-    // p = z + beta p
-    const T beta = rz_new / nz(rz);
-    for (int idx = first; idx < n; idx += stride) p[idx] = z[idx] + beta * p[idx];
-    cg::this_grid().sync();
+    const T alpha = rz / nz(vfma(-ma, s[2], s[1]));
+    // phase B: x += alpha p; r -= alpha Apv; z = M r; |r|, r.z
+    phase_b(false, alpha, ma, pn, r[k & 1], r[(k & 1) ^ 1]);
+    grid_sum_warp<2>(red, s);
+    const T rz_new = s[1];
+    beta = rz_new / nz(rz);
     rz = rz_new;
-    rn = rn_new;
+    rn = vsqrt(s[0]);
     ++k;
   }
 
   // x = demean(x)
   zero(s);
   for (int idx = first; idx < n; idx += stride) s[0] += x[idx];
-  grid_sum<1>(red, s);
+  grid_sum_warp<1>(red, s);
   const T mx = s[0] / nmean;
   for (int idx = first; idx < n; idx += stride) x[idx] = x[idx] - mx;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -1245,11 +1524,46 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>) pressure_cg_kernel(Pc
 
 template <typename T>
 auto mass_kernel(int nl, int nb) {
-  if (nl != 27) return cg_mass_kernel<T, 9, 0>;
-  return nb == 1 ? cg_mass_kernel<T, 27, 1>
-         : nb == 2 ? cg_mass_kernel<T, 27, 2>
-         : nb == 3 ? cg_mass_kernel<T, 27, 3>
-                   : cg_mass_kernel<T, 27, 4>;
+  if (nl == 8) return cg_mass_kernel<T, 8, 0, true>;
+  if (nl == 4) return cg_mass_kernel<T, 4, 0, true>;
+  if (nl != 27) return cg_mass_kernel<T, 9, 0, false>;
+  return nb == 1 ? cg_mass_kernel<T, 27, 1, false>
+         : nb == 2 ? cg_mass_kernel<T, 27, 2, false>
+         : nb == 3 ? cg_mass_kernel<T, 27, 3, false>
+                   : cg_mass_kernel<T, 27, 4, false>;
+}
+
+// K4's routes (oasisx_cg_mass_route): the point-by-point product (any cube
+// but P1 and P2), K5's block-tiled one (P2), the stencil tile (P1).
+enum MassRoute { kMassPoint = 0, kMassTiled = 1, kMassStencil = 2 };
+
+// K4's route, shared memory and blocks an SM on a (a.nbo rows), with the
+// tile or the stencil plan set in a / s.  False where no tile fits.
+template <typename T>
+bool mass_plan(CubeArgs& a, StencilPlan& s, int deg, int* route, size_t* red_off, size_t* smem,
+               int* blocks) {
+  const int nb = a.nbo;
+  if (deg == 2) {
+    if (!tile_choose<T>(a, nb)) return false;
+    *route = kMassTiled;
+    *red_off = align16(tile_smem<T>(a, nb));
+    *smem = tile_block_smem<T>(a, nb);
+    *blocks = kMassBlocks;
+  } else if (deg == 1) {
+    if (!stencil_pick(a, kMinBlocks<T>, 1,
+                      [&](const StencilPlan& c) { return p1_mass_smem<T>(a.d, c, nb); }, s))
+      return false;
+    *route = kMassStencil;
+    *red_off = stencil_table_bytes<T>(a.d) + p1_box_bytes<T>(s, nb);
+    *smem = p1_mass_smem<T>(a.d, s, nb);
+    *blocks = kMinBlocks<T>;
+  } else {
+    *route = kMassPoint;
+    *red_off = red_offset<T>(a.mat_len, a.nl_in);
+    *smem = smem_bytes<T>(a.mat_len, a.nl_in);
+    *blocks = kMinBlocks<T>;
+  }
+  return true;
 }
 
 template <typename T>
@@ -1275,25 +1589,22 @@ int cg_mass_launch(const void* C, const void* r0, const void* x0, const void* in
   P.rnorm = static_cast<T*>(rnorm);
   P.maxiter = maxiter;
   size_t smem;
-  void (*kernel)(CgMassArgs<T>);
-  int blocks;
-  if (deg == 2) {
-    if (!tile_choose<T>(P.a, batch)) return (int)cudaErrorInvalidValue;
-    P.red_off = align16(tile_smem<T>(P.a, batch));
-    smem = tile_block_smem<T>(P.a, batch);
-    kernel = mass_kernel<T>(P.a.nl_in, batch);
-    blocks = kMassBlocks;
-  } else {
-    P.red_off = red_offset<T>(P.a.mat_len, P.a.nl_in);
-    smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
-    kernel = cg_mass_point_kernel<T>;
-    blocks = kMinBlocks<T>;
-  }
+  int route, blocks;
+  if (!mass_plan<T>(P.a, P.s, deg, &route, &P.red_off, &smem, &blocks))
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(CgMassArgs<T>) =
+      route == kMassPoint ? cg_mass_point_kernel<T> : mass_kernel<T>(P.a.nl_in, batch);
   const cudaError_t e =
       cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  return coop_launch(kernel, P, n, smem, max_blocks, stream, blocks);
+  // the stencil tile: a block a tile where the card holds them (250 tiles
+  // of 4 x 8 x 8 at N=36, where n / 256 gives 198 blocks)
+  const int64_t points =
+      route == kMassStencil
+          ? std::max<int64_t>(n, (int64_t)P.s.ntile[0] * P.s.ntile[1] * P.s.ntile[2] * kThreads)
+          : n;
+  return coop_launch(kernel, P, points, smem, max_blocks, stream, blocks);
 }
 
 template <typename T>
@@ -1398,6 +1709,21 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
                            kSolveBlocks);
 }
 
+// K1's non-MG plan on a: the tile and the Chebyshev steps a segment (the
+// box's halo), the most of the degree's deg - 1 steps (at least 1) for which
+// a tile fits kSolveBlocks blocks an SM.  False where none fits.
+template <typename T>
+bool pcg_plan(const CubeArgs& a, int deg, StencilPlan& s, int* steps) {
+  const int nsteps = deg > 1 ? deg - 1 : 0;
+  for (int st = nsteps < 1 ? 1 : nsteps < kStencilHalo ? nsteps : kStencilHalo; st >= 1; --st)
+    if (stencil_pick(a, kSolveBlocks, st,
+                     [&](const StencilPlan& c) { return pcg_smem<T>(a.d, c, deg); }, s)) {
+      *steps = st;
+      return true;
+    }
+  return false;
+}
+
 template <typename T>
 int pressure_cg_launch(const void* Ap, const void* b, const void* x0, const void* invd, void* x,
                        void* work, void* red, int max_blocks, void* iters, void* rnorm,
@@ -1405,6 +1731,7 @@ int pressure_cg_launch(const void* Ap, const void* b, const void* x0, const void
                        double lmax, double rtol, int maxiter, void* stream) {
   PcgArgs<T> P;
   P.a = const_args(d, n0, n1, n2, 1, 1);
+  if (!pcg_plan<T>(P.a, cheb_degree, P.s, &P.steps)) return (int)cudaErrorInvalidValue;
   P.Ap = static_cast<const T*>(Ap);
   P.b = static_cast<const T*>(b);
   P.x0 = static_cast<const T*>(x0);
@@ -1420,12 +1747,15 @@ int pressure_cg_launch(const void* Ap, const void* b, const void* x0, const void
   P.lmin = lmin;
   P.lmax = lmax;
   P.rtol = rtol;
-  const size_t smem = smem_bytes<T>(P.a.mat_len, P.a.nl_in);
-  return P.a.nl_in == 8
-             ? coop_launch(pressure_cg_kernel<T, 8>, P, P.a.npad_out, smem, max_blocks, stream,
-                           kMinBlocks<T>)
-             : coop_launch(pressure_cg_kernel<T, 0>, P, P.a.npad_out, smem, max_blocks, stream,
-                           kMinBlocks<T>);
+  const size_t smem = pcg_smem<T>(d, P.s, cheb_degree);
+  auto kernel = d == 3 ? pressure_cg_kernel<T, 3> : pressure_cg_kernel<T, 2>;
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // a block a tile at most: every phase of an iteration walks the tiles
+  const int64_t ntiles = (int64_t)P.s.ntile[0] * P.s.ntile[1] * P.s.ntile[2];
+  return coop_launch(kernel, P, ntiles * kThreads, smem, max_blocks, stream, kSolveBlocks);
 }
 
 // d, batch and every index in int32 (cube_fits)
@@ -1439,9 +1769,10 @@ extern "C" {
 
 // Batched Jacobi-PCG with constant cube matrix C (nl, nl): rows b < batch of
 // x (batch, grid) from r0, x0 (batch, grid); invd (grid); tol (batch).  The
-// P2 cube runs the tiled product with the tile of tile_choose, any other
-// the point-by-point one.  work: 4 * batch * grid; red: 2 * 8 * max_blocks.
-// Writes x, iters (int32, batch) and rnorm (batch).
+// P2 cube runs the tiled product with the tile of tile_choose, the P1 cube
+// the stencil tile, any other the point-by-point product (mass_plan).
+// work: 4 * batch * grid; red: 2 * 8 * max_blocks.  Writes x, iters (int32,
+// batch) and rnorm (batch).
 int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* invd,
                    const void* tol, void* x, void* work, void* red, int max_blocks,
                    void* iters, void* rnorm, int is_f64, int d, int n0, int n1, int n2,
@@ -1453,8 +1784,31 @@ int oasisx_cg_mass(const void* C, const void* r0, const void* x0, const void* in
                                         rnorm, d, n0, n1, n2, deg, batch, maxiter, stream);
 }
 
-// K4's grid barriers an iteration on the P2 cube (chip_smoke prints it).
-int oasisx_cg_mass_barriers() { return kMassBarriers; }
+// K4's grid barriers an iteration on a cube of degree deg (chip_smoke
+// prints it): two on the tiled routes (P1, P2), three point by point.
+int oasisx_cg_mass_barriers(int deg) { return deg == 1 || deg == 2 ? kMassBarriers : 3; }
+
+// K4's route at batch rows of a d-dimensional grid of degree deg on the
+// current device: out = (route: 0 point by point, 1 block-tiled (P2), 2
+// stencil tile (P1); the tile t0, t1, t2 (3D form; 0 point by point); bytes
+// of shared memory a block; grid barriers an iteration).  0 or a CUDA
+// error.
+int oasisx_cg_mass_route(int is_f64, int d, int deg, int batch, int* out) {
+  if (!batch_ok(d, 8, 8, 8, deg, batch)) return (int)cudaErrorInvalidValue;
+  CubeArgs a = const_args(d, 8, 8, 8, deg, batch);
+  StencilPlan s = {};
+  int route = 0, blocks = 0;
+  size_t red_off = 0, smem = 0;
+  if (!(is_f64 ? mass_plan<double>(a, s, deg, &route, &red_off, &smem, &blocks)
+               : mass_plan<float>(a, s, deg, &route, &red_off, &smem, &blocks)))
+    return (int)cudaErrorInvalidValue;
+  out[0] = route;
+  for (int k = 0; k < 3; ++k)
+    out[1 + k] = route == kMassTiled ? a.tile[k] : route == kMassStencil ? s.t[k] : 0;
+  out[4] = (int)smem;
+  out[5] = oasisx_cg_mass_barriers(deg);
+  return 0;
+}
 
 // Batched BiCGStab on A_W (W (nl*nl, ncubes)) with zero-masked rows, from
 // r0 = zmask (b - A_W x0) and x0; invd (grid); zmask, r0, x0 (batch, grid);
@@ -1501,7 +1855,7 @@ int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void
 
 // Jacobi (cheb_degree 0) or degree-cheb_degree Chebyshev-Jacobi PCG on the P1
 // grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d), bounds
-// lmin < lmax of D^-1 A: b, x0, x, invd (grid); work: 6 * grid points; red:
+// lmin < lmax of D^-1 A: b, x0, x, invd (grid); work: 9 * grid points; red:
 // 2 * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
 int oasisx_pressure_cg(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,
@@ -1517,6 +1871,32 @@ int oasisx_pressure_cg(const void* Ap, const void* b, const void* x0, const void
                 : pressure_cg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
                                             rnorm, conv, d, n0, n1, n2, cheb_degree, lmin, lmax,
                                             rtol, maxiter, stream);
+}
+
+// K1's non-MG plan for a d-dimensional grid at Chebyshev degree cheb_degree
+// (0: Jacobi) on the current device: out = (t0, t1, t2 (3D form), bytes of
+// shared memory a block, Chebyshev steps a segment of phase B, grid
+// barriers an iteration).  0 or a CUDA error.
+int oasisx_pressure_cg_plan(int is_f64, int d, int cheb_degree, int* out) {
+  if ((d != 2 && d != 3) || cheb_degree < 0) return (int)cudaErrorInvalidValue;
+  const CubeArgs a = const_args(d, 8, 8, 8, 1, 1);
+  StencilPlan s = {};
+  int steps = 0;
+  if (!(is_f64 ? pcg_plan<double>(a, cheb_degree, s, &steps)
+               : pcg_plan<float>(a, cheb_degree, s, &steps)))
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 3; ++k) out[k] = s.t[k];
+  out[3] = (int)(is_f64 ? pcg_smem<double>(d, s, cheb_degree) : pcg_smem<float>(d, s, cheb_degree));
+  out[4] = steps;
+  out[5] = pcg_barriers(cheb_degree, steps);
+  return 0;
+}
+
+// K1's non-MG grid barriers an iteration (oasisx_pressure_cg_plan's last
+// value), or 0 where no plan fits.
+int oasisx_pressure_cg_barriers(int is_f64, int d, int cheb_degree) {
+  int out[6];
+  return oasisx_pressure_cg_plan(is_f64, d, cheb_degree, out) == 0 ? out[5] : 0;
 }
 
 }  // extern "C"

@@ -11,8 +11,9 @@ bicgstab     A_W x_b = b_b, zero-masked bc rows,  make_bicgstab_iter (K2) and
 ============ ==================================== ==============================
 
 K4's work buffer is 4 (B, npad) vectors: r, Ap and, on the P2 cube (whose
-product is K5's block-tiled one), two search directions by iteration
-parity; any other cube runs point by point on one of them.
+product is K5's block-tiled one) and the P1 cube (the stencil tile), two
+search directions by iteration parity; any other cube runs point by point
+on one of them (``oasisx_cg_mass_route`` names the route).
 
 The plain versions ``cg_from_r0`` and ``bicgstab_from_r0`` follow the JAX
 functions operation for operation, with the loop on the host (one device

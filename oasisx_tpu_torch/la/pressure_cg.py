@@ -15,8 +15,10 @@ cell count) or of ``options["pallas_pressure_pc"] != "mg"``:
 
 ``solve`` sends a CUDA tensor to the whole-solve kernel of
 ``csrc/krylov_ops.cu`` (K1's non-MG modes: the CG loop, the Chebyshev
-recurrence and every reduction on the card, no host read) and a CPU tensor
-to ``solve_plain``, the plain version: ``krylov.cg`` with the nullspace
+recurrence and every reduction on the card, no host read; its products on
+the P1 stencil tile, two grid barriers an iteration where the Chebyshev
+steps' box fits, ``oasisx_pressure_cg_plan``; a work buffer of 9 vectors)
+and a CPU tensor to ``solve_plain``, the plain version: ``krylov.cg`` with the nullspace
 projection, its loop on the host, every ``Ap`` application through the
 operator it is given (by default the constant-cube kernel's wrapper
 ``assembly.kernels.matvec_const``).  Launches and plain calls count under
@@ -70,7 +72,7 @@ class PressureCG:
         kn._check(self.Ap_c, "Ap_c", dt, tuple(self.Ap_c.shape))
         kn._check(self.invd, "invd", dt, (n,))
         x = torch.empty(n, dtype=dt, device=dev)
-        work = torch.empty(6 * n, dtype=dt, device=dev)
+        work = torch.empty(9 * n, dtype=dt, device=dev)
         red = torch.empty(2 * 8 * kn.coop_capacity(dev), dtype=dt, device=dev)
         iters = torch.empty(1, dtype=torch.int32, device=dev)
         rnorm = torch.empty(1, dtype=dt, device=dev)

@@ -11,8 +11,9 @@
 - ``cg_from_r0`` on the staged product takes the same iterations per row
   as on ``matvec_const_plain`` on the N=4 Taylor-Green mass systems (3D and
   2D) in float64, x to 1e-12;
-- ``chip_smoke.py``'s K4 cases, the P1 one included (K4's point-by-point
-  kernel), converge on the CPU with equal iterations in both solves.
+- ``chip_smoke.py``'s K4 cases, the P1 ones included (K4's stencil-tile
+  route on the card), converge on the CPU with equal iterations in both
+  solves.
 
 The kernels and their tile (chosen by the entry points, ``tile_choose``)
 run only on the card; ``chip_smoke.py`` holds them to their plain versions

@@ -6,7 +6,9 @@ the systems of tests/test_pallas_ops.py (3D, N=4, P2/P1, float64):
   ``bicgstab_fused_from_r0``: same W, zmask, invd, r0 and x0; x to 1e-7
   relative (the Pallas test's own bound), equal iteration counts per row.
 - K4 ``cg_from_r0`` against ``make_cg_iter_pf`` driven by ``cg_pf_solve``:
-  x to 1e-8 relative, equal iteration counts per row.
+  x to 1e-8 relative, equal iteration counts per row; on the P2 velocity
+  mass at batch 3, and on the P1 pressure mass at batch 1 and 3 (the P1
+  cube's route).
 - K8 ``cube_gather`` against ``make_gather_chunked``: equal (a copy).
 - Every new wrapper sends a CPU tensor to its plain version and counts it
   there, and raises for a device with no kernel.
@@ -120,6 +122,43 @@ def test_cg_from_r0_matches_kernel(box):
     assert kn.plain_calls["cg_mass"] == 1 and kn.launches["cg_mass"] == 0
     assert bool(np.asarray(cj).all()) and bool(res.converged.all())
     assert np.array_equal(res.iters.numpy(), np.asarray(itj)), (res.iters, itj)
+    assert np.abs(res.x.numpy() - xj).max() <= 1e-8 * np.abs(xj).max()
+
+
+@pytest.mark.parametrize("batch", [1, 3], ids=["Mq_c-batch1", "P1-mass-batch3"])
+def test_cg_from_r0_p1_matches_kernel(box, batch):
+    """K4 on the P1 cube (the kernel's stencil-tile route): the pressure
+    mass Mq_c at batch 1 (the rotational update's solve) and at batch d (a
+    P1 mass, rows of unequal scale) from a warm start, rtol 1e-10, against
+    ``make_cg_iter_pf`` on the pressure grid driven by ``cg_pf_solve``: x to
+    1e-8 relative, equal iteration counts per row."""
+    mesh, ctx, refs, ops, _, (sm_q, gf_q, _) = box
+    rng = np.random.default_rng(23 + batch)
+    gq = lambda: _grid(rng.standard_normal(ctx.ndofs_q), gf_q, sm_q)
+    Mq = np.asarray(ops.Mq_c)
+    diag = np.asarray(cu.diag_cube(ops.Mq_c, sm_q))
+    invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
+    mvb = lambda x: jnp.stack([cu.matvec_cube(x[b], ops.Mq_c, sm_q) for b in range(batch)])
+    b = np.asarray(mvb(jnp.asarray(np.stack([gq() for _ in range(batch)]))))
+    b = b * np.array([[1.0], [1e-2], [30.0]])[:batch]
+    x0 = 0.5 * np.stack([gq() for _ in range(batch)])
+    r0 = b - np.asarray(mvb(jnp.asarray(x0)))
+    rtol, maxiter = 1e-10, 100
+
+    pf = lambda v: po.to_planeflat(jnp.asarray(v), sm_q)
+    mv_pf = lambda xp: pf(mvb(po.from_planeflat(xp, sm_q)))
+    it_fn = po.make_cg_iter_pf(sm_q, Mq, batch, interpret=True)
+    xj, itj, rnj, cj = po.cg_pf_solve(it_fn, mv_pf, pf(b), pf(x0), pf(invd), rtol, maxiter)
+    xj = np.asarray(po.from_planeflat(xj, sm_q))
+
+    t = torch.tensor
+    kn.reset_counts()
+    res = fused.cg_mass(t(Mq), t(r0), t(x0), t(invd), t(np.sqrt(np.sum(b * b, axis=-1))), sm_q,
+                        rtol, maxiter)
+    assert kn.plain_calls["cg_mass"] == 1 and kn.launches["cg_mass"] == 0
+    assert bool(np.asarray(cj).all()) and bool(res.converged.all())
+    assert np.array_equal(res.iters.numpy(), np.asarray(itj)), (res.iters, itj)
+    assert int(res.iters.min()) >= 3
     assert np.abs(res.x.numpy() - xj).max() <= 1e-8 * np.abs(xj).max()
 
 

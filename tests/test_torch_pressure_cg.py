@@ -3,7 +3,9 @@ preconditioned pressure CG (``la/pressure_cg.py``), and the structured path
 on grids that do not coarsen, against the JAX package on the CPU.
 
 - The plain version against ``make_pressure_cg(mg=None, interpret=True)``
-  in float64, at Chebyshev degrees 0, 1 and 4, the bounds passed in to
+  in float64, at Chebyshev degrees 0, 1 and 4 (2D, 11 x 11 cells; 3D, 5^3),
+  and 0 and 2 on a 3D box of 5 x 6 x 7 cells (axes of both parities and
+  unequal lengths, as the kernel's tiles meet them), the bounds passed in to
   both: equal iterations and x to 1e-8 relative; x demeaned and its true
   residual within 2 rtol.
 - 2D float32 at N=5 (odd: no MG) against the JAX kernel path in interpret
@@ -47,8 +49,9 @@ from tests.test_torch_slice import (  # noqa: E402
 
 
 @pytest.mark.parametrize("cells,degree", [((11, 11), 0), ((11, 11), 1), ((11, 11), 4),
-                                          ((5, 5, 5), 4)],
-                         ids=["2d-11-jacobi", "2d-11-cheb1", "2d-11-cheb4", "3d-5-cheb4"])
+                                          ((5, 5, 5), 4), ((5, 6, 7), 0), ((5, 6, 7), 2)],
+                         ids=["2d-11-jacobi", "2d-11-cheb1", "2d-11-cheb4", "3d-5-cheb4",
+                              "3d-567-jacobi", "3d-567-cheb2"])
 def test_pressure_cg_matches_kernel(cells, degree):
     jops, tops, _, (sm_q, _, valid_q) = _both(cells)
     n = valid_q.size

@@ -9,7 +9,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and emits the PTX of cube_ops.cu, krylov_ops.cu and ell_ops.cu (nvcc
    -ptx): the count of 64-bit integer divisions and remainders (div/rem on
    .s64/.u64) in each is printed, and phase 2 fails unless cube_ops.cu and
-   krylov_ops.cu have none.
+   krylov_ops.cu have none.  K1 MG's plan (oasisx_pressure_mg_plan) for
+   N=36, N=64, a 256x256 rectangle and the two MG_BOXES grids, both types:
+   printed, and held against la/pressure_mg.py's mirror of its teams and
+   barriers.
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
    kernel against its plain PyTorch version, in float64 and float32, both
    timed with CUDA events.  The cube operators (K5, K3 at batch 3 and 1,
@@ -54,18 +57,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with iterations within 1 per row in f32 (rtol 1e-5), and a second
    kernel call bit-identical to the first.  The plain solves loop on the
    host with their operators on the cube kernels' plain versions.  Printed
-   for K1 (and in 3c at N=64): its levels, the levels that run on the
-   sub-group of blocks, and its grid and sub-group barriers an iteration;
-   for K2: the bytes of one product (W, the staged per-cube outputs, the
+   for K1 (and in 3c at N=64): its levels; for K2: the bytes of one product (W, the staged per-cube outputs, the
    vectors) and the rate its products moved them at; for K5 (M_c at batch
    d): its tile, shared memory a block, blocks an SM, the bytes a product
    moves and their rate; for K4: its grid barriers an iteration; for each
    timed K1 (non-MG) and K4 case: its route, tile, shared memory a block,
    Chebyshev steps a segment (K1), grid barriers an iteration (from the C
    entry points oasisx_pressure_cg_plan / oasisx_cg_mass_route) and the
-   microseconds an iteration.  `--solves-only` runs only these whole-solve
-   cases, 3e's and 4f (with --tree, on the other checkout's package: the
-   two trees' K1 and K4 in one call in a few minutes a leg).
+   microseconds an iteration; for each K1 MG case its plan (from
+   oasisx_pressure_mg_plan, held against la/pressure_mg.py's mirror, as
+   phase 2 does for the main path's grids): the fine level's route and
+   tile, the levels run by the whole grid, by the sub-group of blocks and
+   by block 0 alone, and the barriers of each an iteration.
+   `--solves-only` runs only these whole-solve cases, K1 MG at N=64 (the
+   N=36 cube matrix scaled by the cell width) and on a 16x24x32 box and a
+   48x64 rectangle, the N=36 main path 4, 3e's and 4f (with --tree, on the
+   other checkout's package: the two trees' K1 and K4 in one call in a few
+   minutes a leg, and phase 4's and 4f's steps compared).
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
    dofs) in float32 on the card, bench settings (dt 2e-3, nu 1/1600, rtol
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
@@ -409,6 +417,7 @@ N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
 N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev mode
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
+MG_BOXES = ((16, 24, 32), (48, 64))  # grids whose axes differ that coarsen: 3 and 5 MG levels
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 CYL_CENTER, CYL_D = (0.2, 0.2), 0.1  # the DFG cylinder (demo/cylinder.py)
 DFG3_UM = 1.5  # the DFG 2D-3 inflow's peak: U(t) = 1.5 sin(pi t / 8), mean 1 at its peak
@@ -943,7 +952,6 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     from oasisx_tpu_torch.assembly import cubes as cub
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la import fused
-    from oasisx_tpu_torch.la.pressure_mg import PressureMGCG, barriers
 
     dtype = dtype or solver._dtype
     rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
@@ -969,27 +977,7 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
     p1 = p1_mass_cases(solver, dtype, device, rnd, rtol, maxiter)
 
     # K1: Ap x = b - mean(b), x0 = 0, the solver's MG hierarchy
-    Ap64 = cu.Ap_c.detach().cpu().double().numpy()
-    diag = solver._Ap_diag.detach().cpu().double().numpy()
-    invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
-    pcg = PressureMGCG(sm_q, Ap_c, invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol, maxiter)
-    L = len(pcg.levels)
-    grid, sub = barriers(L, pcg.sub_level, pcg.nsmooth, pcg.coarse[2])
-    print(f"  pressure_mg   {L} levels of {[int(np.prod(lv['grid'])) for lv in pcg.levels]} points "
-          f"({dtype}): levels {pcg.sub_level}-{L - 1} on {pcg.sub_blocks} blocks; barriers an "
-          f"iteration: {grid} grid, {sub} sub-group (all on the grid: "
-          f"{barriers(L, L, pcg.nsmooth, pcg.coarse[2])[0]})")
-    bq = rnd(nq)
-    bq = bq - bq.mean()
-    xq = torch.zeros_like(bq)
-
-    def mg_work(res):
-        # operator applications: the fine Ap per iteration, and per V-cycle
-        # 2 nsmooth on each level above the coarsest and degree-1 there
-        k = int(res.iters)
-        lv = [2.0 * nlq * nlq * int(np.prod(L["sm"][1])) for L in pcg.levels]
-        vflops = sum(2 * pcg.nsmooth * f for f in lv[:-1]) + (pcg.coarse[2] - 1) * lv[-1]
-        return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
+    mg = mg_case(sm_q, cu.Ap_c, solver._Ap_diag, dtype, device, rnd, rtol, maxiter)
 
     rows = lambda res: float(res.iters.sum())
     if torch.device(device).type == "cuda" and has_routes():
@@ -1013,10 +1001,156 @@ def solve_cases(solver, device, seed: int = 1, dtype=None):
          lambda: fused.cg_from_r0(mass, b1, x01, M_invd, bn1, rtol, maxiter), mass_work(1),
          *route(sm_v, 1)),
         *p1,
-        ("pressure_mg", f"Ap_c, {len(pcg.levels)} levels",
-         lambda: pcg.solve(bq, xq),
-         lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work),
+        mg,
     ] + bicgstab_cases(solver, dtype)[1]
+
+
+def mg_levels(cells) -> int:
+    """The levels of ``kernels.build_pressure_mg_data`` on a grid of
+    ``cells``: halved while every axis is even and its half at least 3."""
+    cells, L = list(cells), 1
+    while all(c % 2 == 0 and c // 2 >= 3 for c in cells):
+        cells, L = [c // 2 for c in cells], L + 1
+    return L
+
+
+def has_mg_plan() -> bool:
+    """Whether the loaded kernels report K1 MG's plan (under --tree a
+    parent's build may not)."""
+    from oasisx_tpu_torch import _build
+
+    return hasattr(_build.library(), "oasisx_pressure_mg_plan")
+
+
+MG_ROUTES = ("point by point", "stencil tile (P1)")
+
+
+def mg_plan(cells, dtype, nsmooth: int = 2, degree: int = 14) -> dict:
+    """K1 MG's plan on this card for the MG levels of a grid of ``cells``
+    (``oasisx_pressure_mg_plan``): the fine level's route, its tile (3D
+    form), shared memory a block, the levels of each team (the whole grid,
+    the sub-group of blocks, block 0) and the barriers of each an
+    iteration; held against the plain mirror (``la/pressure_mg.py``
+    ``mg_teams``, ``barriers``)."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch import _build
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la import pressure_mg as pm
+
+    cells = tuple(int(c) for c in cells)
+    L = mg_levels(cells)
+    out = torch.zeros(11, dtype=torch.int32)
+    err = _build.library().oasisx_pressure_mg_plan(
+        int(dtype == torch.float64), len(cells), *cells, *(0,) * (3 - len(cells)), L, nsmooth,
+        degree, kn._ptr(out))
+    check(err == 0, f"no K1 MG plan for {cells} {dtype}: CUDA error {err}")
+    o = out.tolist()
+    sizes = [int(np.prod([c // 2 ** l + 1 for c in cells])) for l in range(L)]
+    teams, bars = tuple(o[5:8]), tuple(o[8:11])
+    want = pm.mg_teams(sizes)
+    want_bars = pm.barriers(L, want[0], want[1], nsmooth, degree)
+    check(teams == want and bars == want_bars,
+          f"K1 MG's plan for {cells} {dtype}: teams {teams} barriers {bars}, its plain mirror "
+          f"{want} {want_bars}")
+    lsub, lblk = teams[0], teams[1]
+    return {"route": MG_ROUTES[o[0]], "tile": tuple(o[1:4]), "smem": o[4], "sizes": sizes,
+            "levels": {"grid": list(range(lsub)), "sub-group": list(range(lsub, lblk)),
+                       "block": list(range(lblk, L))},
+            "sub_blocks": teams[2],
+            "barriers": f"{bars[0]} grid, {bars[1]} sub-group, {bars[2]} block"}
+
+
+MG_PLAN_GRIDS = ((36, 36, 36), (64, 64, 64), (256, 256), (16, 24, 32), (48, 64))
+
+
+def check_mg_plans() -> None:
+    """Phase 2: K1 MG's plan on this card for the grids of MG_PLAN_GRIDS in
+    both types, each against its plain mirror (mg_plan)."""
+    import torch
+
+    if not has_mg_plan():
+        return
+    for cells in MG_PLAN_GRIDS:
+        for dtype in (torch.float32, torch.float64):
+            r = mg_plan(cells, dtype)
+            print(f"[2] K1 MG plan {'x'.join(map(str, cells))} {str(dtype)[6:]}: levels of "
+                  f"{r['sizes']} points; route {r['route']}, tile {r['tile']}, {r['smem']} bytes "
+                  f"of shared memory a block; levels by team {r['levels']} (the sub-group "
+                  f"{r['sub_blocks']} blocks); barriers an iteration {r['barriers']}; its "
+                  "mirror agrees")
+
+
+def mg_case(sm_q, Ap_c, Ap_diag, dtype, device, rnd, rtol: float, maxiter: int, label: str = ""):
+    """solve_cases' K1 MG case on the pressure grid ``sm_q`` with cube
+    matrix ``Ap_c`` and diagonal ``Ap_diag``, in ``dtype``: Ap x = b -
+    mean(b) from a random ``rnd`` rhs, x0 = 0, the grid's MG hierarchy; on
+    the card with its plan (mg_plan) as the case's extra record."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la.pressure_mg import PressureMGCG
+
+    Ap64 = Ap_c.detach().cpu().double().numpy()
+    diag = Ap_diag.detach().cpu().double().numpy()
+    invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
+    pcg = PressureMGCG(sm_q, Ap_c.to(dtype), invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol,
+                       maxiter)
+    nq, nlq = int(np.prod(sm_q[0])), cub.num_slots(sm_q)
+    isz = torch.empty((), dtype=dtype).element_size()
+    L = len(pcg.levels)
+    print(f"  pressure_mg   {L} levels of {[int(np.prod(lv['grid'])) for lv in pcg.levels]} points "
+          f"({dtype}){label}")
+    bq = rnd(nq)
+    bq = bq - bq.mean()
+    xq = torch.zeros_like(bq)
+
+    def mg_work(res):
+        # operator applications: the fine Ap per iteration, and per V-cycle
+        # 2 nsmooth on each level above the coarsest and degree-1 there
+        k = int(res.iters)
+        lv = [2.0 * nlq * nlq * int(np.prod(L["sm"][1])) for L in pcg.levels]
+        vflops = sum(2 * pcg.nsmooth * f for f in lv[:-1]) + (pcg.coarse[2] - 1) * lv[-1]
+        return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
+
+    plan = (({"plan": mg_plan(sm_q[1], dtype, pcg.nsmooth, pcg.coarse[2])},)
+            if torch.device(device).type == "cuda" and has_mg_plan() else ())
+    return ("pressure_mg", f"Ap_c, {L} levels", lambda: pcg.solve(bq, xq),
+            lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work, *plan)
+
+
+def mg_box_cases(pair, device, seed: int = 10):
+    """--solves-only's K1 MG case on a grid that coarsens, of ``pair`` =
+    (solver, dtype): the MG_BOXES grids, whose axes differ."""
+    import torch
+
+    solver, dtype = pair
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    return rtol, [mg_case(solver._sm_q, solver._cu.Ap_c, solver._Ap_diag, dtype, device, rnd, rtol,
+                          2000)]
+
+
+def mg_n64_cases(pair, device, seed: int = 11):
+    """--solves-only's K1 MG case at N=64 without the N=64 solver's set-up:
+    ``pair`` = (the N=36 solver, dtype), whose pressure cube matrix, scaled
+    by the cell width (36 / 64: the P1 Laplacian's cube matrix is h^(d-2)
+    times the unit cube's), is N=64's; the N=64 P1 grid and its 5 levels."""
+    import torch
+
+    from oasisx_tpu_torch.assembly import cubes as cub
+
+    solver, dtype = pair
+    rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
+    sm64 = sweep_map((N64,) * 3, 1, device)[0]
+    Ap = solver._cu.Ap_c.double() * (N / N64)
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
+    return rtol, [mg_case(sm64, Ap, cub.diag_cube(Ap, sm64), dtype, device, rnd, rtol, 2000)]
 
 
 def p1_mass_cases(solver, dtype, device, rnd, rtol: float, maxiter: int) -> list:
@@ -1680,8 +1814,9 @@ def compare_solves(solvers: dict, device, cases_fn=None, suffix: str = "") -> di
             if "plan" in more:  # K1, K4: route, tile, barriers, time an iteration
                 r, its = more["plan"], int(ik.max())
                 steps = f", {r['steps']} Chebyshev steps a segment" if "steps" in r else ""
+                bars = r["barriers"] if isinstance(r["barriers"], str) else f"{r['barriers']} grid"
                 print(f"    route {r['route']}, tile {r['tile']}, {r['smem']} bytes of shared "
-                      f"memory a block{steps}, {r['barriers']} grid barriers an iteration; "
+                      f"memory a block{steps}, {bars} barriers an iteration; "
                       f"{1000 * rec['ms'] / max(its, 1):.2f} us an iteration ({its} iterations)")
             if "product_bytes" in more:  # K2: its products' bytes and rate
                 pb, products = more["product_bytes"], 2 * int(ik.max())
@@ -3782,11 +3917,13 @@ def nvidia_smi() -> str:
 def solves_phases(log: StepLog, profile: int = 0) -> None:
     """--solves-only: phase 3's whole-solve cases (solve_cases on the N=36
     systems, box_solve_cases on the two unequal grids; float64 and float32),
-    phase 3e's K1 cases at N=35 and the N=35 main path 4f into ``log``:
-    K1's and K4's kernels against their plain versions and timed, in a few
-    minutes; with ``profile``, a torch.profiler window of that many steps
-    after 4f's (profile_steps).  Under --tree the other checkout's package
-    runs these cases, so that both trees run the same ones."""
+    K1 MG at N=64 (mg_n64_cases) and on the MG_BOXES grids (mg_box_cases),
+    the N=36 main path 4, phase 3e's K1 cases at N=35 and the N=35 main path
+    4f, the main paths into ``log``: K1's and K4's kernels against their
+    plain versions and timed, in a few minutes; with ``profile``, a
+    torch.profiler window of that many steps after 4's and 4f's
+    (profile_steps).  Under --tree the other checkout's package runs these
+    cases, so that both trees run the same ones."""
     import torch
 
     t0 = time.perf_counter()
@@ -3795,13 +3932,32 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     print(f"[3] whole solves against plain versions (N={N})")
     compare_solves({"float64": solver64, "float32": solver}, "cuda")
-    del solver, solver64
+    del solver64
+    print(f"[3c] K1 MG against its plain version (N={N64}: N={N}'s cube matrix scaled by the "
+          "cell width)")
+    compare_solves({"float64": (solver, torch.float64), "float32": (solver, torch.float32)},
+                   "cuda", cases_fn=mg_n64_cases, suffix=f" N={N64}")
+    # 4. the N=36 main path (K1 MG)
+    rep = solver.config_report()
+    check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
+    res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
+    report_path("4", res, STEPS, 3 * solver._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS, log)
+    if profile:
+        profile_steps(solver, profile, "build/chip_smoke_trace.json")
+    del solver
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
         tag = " " + "x".join(map(str, cells))
         print(f"[3] whole solves against plain versions ({len(cells)}D, {tag[1:]} cells)")
         compare_solves({"float64": (box, torch.float64), "float32": (box, torch.float32)},
                        "cuda", cases_fn=box_solve_cases, suffix=tag)
+        del box
+    for cells in MG_BOXES:
+        box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
+        tag = " " + "x".join(map(str, cells))
+        print(f"[3] K1 MG against its plain version ({len(cells)}D, {tag[1:]} cells)")
+        compare_solves({"float64": (box, torch.float64), "float32": (box, torch.float32)},
+                       "cuda", cases_fn=mg_box_cases, suffix=tag)
         del box
     s35 = tgv_solver(N_ODD, torch.float32, "cuda", rtol=1e-5)
     rep35 = s35.config_report()
@@ -3971,6 +4127,7 @@ def main() -> int:
         check(divs[src] == 0, f"{src}'s PTX has {divs[src]} 64-bit integer divisions or "
               "remainders")
     check_tiles()
+    check_mg_plans()
     if args.solves_only:
         solves_phases(steps_log, args.profile)
         print(f"total {time.perf_counter() - t_start:.1f} s")

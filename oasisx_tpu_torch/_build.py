@@ -63,7 +63,8 @@ _SIGNATURES = {
     "oasisx_cg_mass_barriers": [I],
     "oasisx_cg_mass_route": [I] * 4 + [P],
     "oasisx_bicgstab": [P] * 9 + [LL, P, I] + [P] * 2 + [I] * 8 + [P],
-    "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 9 + [D] * 3 + [I, D, I, P],
+    "oasisx_pressure_mg": [P] * 7 + [I] + [P] * 3 + [I] * 7 + [D] * 3 + [I, D, I, P],
+    "oasisx_pressure_mg_plan": [I] * 8 + [P],
     "oasisx_pressure_cg": [P] * 7 + [I] + [P] * 3 + [I] * 6 + [D] * 3 + [I, P],
     "oasisx_pressure_cg_plan": [I] * 3 + [P],
     "oasisx_pressure_cg_barriers": [I] * 3,

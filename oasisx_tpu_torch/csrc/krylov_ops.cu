@@ -864,11 +864,29 @@ struct MgArgs {
   Level lev[kMaxLevels];
   T scale[kMaxLevels];      // 2^(l (d-2))
   int L, nsmooth, cheb_degree, maxiter;
-  // levels sub_level (>= 1) to L - 1 run on the first sub_blocks blocks
-  // (pressure_mg_kernel); sub_level == L: every level on the whole grid
-  int sub_level, sub_blocks;
+  // the teams of mg_plan: levels [sub_level, block_level) on the first
+  // sub_blocks blocks, [block_level, L) on block 0 with their vectors in
+  // shared memory from byte block_off
+  int sub_level, block_level, sub_blocks;
+  size_t block_off;
   double omega, lmin, lmax, rtol;
 };
+
+// K1 MG's teams (mg_plan).  The sub-group: kSubBlocks blocks of kThreads run
+// the levels from the first one below the finest with at most kSubPoints
+// points a thread of theirs (PR 8 timed 8, 16 and 32 blocks and a cluster
+// of 8 with cluster.sync(): a coarse phase is bound by the work of the
+// sub-group's SMs, so 8 blocks were slower than the whole grid; 16 and 32
+// tie once the first sub-group level has at most a point a thread).  Block
+// 0: the levels from the first one below the finest with at most
+// kBlockPoints points a thread of one block (the coarsest at N=36, 1,000
+// points; levels 3-4 at N=64, 729 and 125) hold their r, z, z', t and
+// invd in its shared memory and take block barriers, so that the coarse
+// Chebyshev steps cost a __syncthreads each in place of a sub-group
+// barrier.  The sub-group starts there at the latest.
+constexpr int kSubBlocks = 32;
+constexpr int kSubPoints = 1;
+constexpr int kBlockPoints = 4;
 
 // A point's coordinates on its level, by exact multiply-and-shift divisions
 // (FastDiv, exact below 2^31; cube_fits bounds every level).
@@ -918,22 +936,35 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     for (int i = threadIdx.x; i < nn; i += blockDim.x) smat[l * nn + i] = P.Ap[i] * P.scale[l];
     cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * nl);
   }
-  __syncthreads();
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
+  const bool lead = blockIdx.x == 0;  // block 0: the levels from block_level
 
+  // a level's vectors: in global memory, or (from block_level) in shared
+  // memory, where block 0 stages its invd
   T* rr[kMaxLevels];
   T* z[kMaxLevels];
   T* zb[kMaxLevels];
   T* t[kMaxLevels];
   const T* iv[kMaxLevels];
+  T* sb = reinterpret_cast<T*>(smem + P.block_off);
   for (int l = 0; l < L; ++l) {
-    rr[l] = P.work + 4 * P.lev[l].off;
-    z[l] = rr[l] + P.lev[l].n;
-    zb[l] = z[l] + P.lev[l].n;
-    t[l] = zb[l] + P.lev[l].n;
-    iv[l] = P.invd + P.lev[l].off;
+    const int n = P.lev[l].n;
+    if (l < P.block_level) {
+      rr[l] = P.work + 4 * P.lev[l].off;
+      iv[l] = P.invd + P.lev[l].off;
+    } else {
+      rr[l] = sb;
+      sb += 5 * n;
+      if (lead)
+        for (int i = threadIdx.x; i < n; i += blockDim.x) rr[l][4 * n + i] = P.invd[P.lev[l].off + i];
+      iv[l] = rr[l] + 4 * n;
+    }
+    z[l] = rr[l] + n;
+    zb[l] = z[l] + n;
+    t[l] = zb[l] + n;
   }
+  __syncthreads();
   T* p = P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n);
   T* x = P.x;
   const int n0 = P.lev[0].n;
@@ -943,27 +974,37 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
 
   // The team of a level: the whole grid above level lsub; on lsub and below
   // the first B blocks (a level there has at most ~8 points a thread of
-  // theirs), while the other blocks, which would have no work, run through
-  // the same phases with empty loops and no barrier, and so make the same
-  // z/zb swaps, up to the grid barrier that closes the coarse part.  A
-  // coarse phase holds no reduction and a point's arithmetic does not
-  // depend on its thread, so the result is the whole grid's, bit for bit.
-  const int lsub = P.sub_level;
+  // theirs); from lblk block 0 alone (at most kBlockPoints points a thread).
+  // The blocks outside a team, which would have no work, run through the
+  // same phases with empty loops and no barrier, and so make the same z/zb
+  // swaps, up to the barrier that closes the team's part: the grid's after
+  // the sub-group's last phase, the sub-group's (or the grid's where lsub
+  // == lblk) after block 0 prolongs its first level into the level above.
+  // A coarse phase holds no reduction and a point's arithmetic does not
+  // depend on its thread or on where its vectors live, so the result is the
+  // whole grid's, bit for bit.
+  const int lsub = P.sub_level, lblk = P.block_level;
+  const bool subpart = lsub < lblk;  // levels on the sub-group
   const int B = P.sub_blocks < (int)gridDim.x ? P.sub_blocks : (int)gridDim.x;
   const bool member = (int)blockIdx.x < B;
   const int sub_first = member ? first : INT32_MAX;
   const int sub_stride = B * blockDim.x;
-  auto lo = [&](int l) { return l < lsub ? first : sub_first; };
-  auto step = [&](int l) { return l < lsub ? stride : sub_stride; };
+  const int blk_first = lead ? (int)threadIdx.x : INT32_MAX;
+  auto lo = [&](int l) { return l < lsub ? first : l < lblk ? sub_first : blk_first; };
+  auto step = [&](int l) { return l < lsub ? stride : l < lblk ? sub_stride : (int)blockDim.x; };
   unsigned* bar = reinterpret_cast<unsigned*>(p + n0);  // sub_sync's words
   if (blockIdx.x == 0 && threadIdx.x == 0) bar[0] = 0u;  // before the first grid barrier
   // the barrier that ends a phase on level l: the grid's above lsub and for
-  // the phase that closes the coarse part, else the sub-group's
+  // the phase that closes the sub-group's part, the sub-group's above lblk,
+  // else block 0's
   auto sync = [&](int l, bool closing) {
-    if (l < lsub || closing)
+    if (l < lsub || closing) {
       cg::this_grid().sync();
-    else if (member)
-      sub_sync(bar, (unsigned)B);
+    } else if (l < lblk) {
+      if (member) sub_sync(bar, (unsigned)B);
+    } else if (lead) {
+      __syncthreads();
+    }
   };
 
   auto mv = [&](int l, const T* src, int idx) -> T {
@@ -1040,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
           z[l + 1][idx] = (om * iv[l + 1][idx]) * acc0;
         }
       }
-      sync(l + 1, coarsest && l + 1 == lsub && P.cheb_degree < 2);
+      sync(l + 1, subpart && coarsest && l + 1 == lsub && P.cheb_degree < 2);
     }
     // coarsest level: Chebyshev-Jacobi, dk kept in t
     const int lc = L - 1;
@@ -1055,15 +1096,16 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         zb[lc][idx] = z[lc][idx] + dk;
       }
       swapz(lc);
-      sync(lc, lc == lsub && k + 2 == P.cheb_degree);
+      sync(lc, subpart && lc == lsub && k + 2 == P.cheb_degree);
       rho = rho_new;
     }
     T zsum = T(0);
     for (int l = L - 2; l >= 0; --l) {
-      // z[l] += P z[l+1]
+      // z[l] += P z[l+1]; block 0 prolongs its first level
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
-      for (int idx = lo(l); idx < F.n; idx += step(l)) {
+      const int tl = l + 1 == lblk ? lblk : l;  // the team
+      for (int idx = lo(tl); idx < F.n; idx += step(tl)) {
         int i[3], I0[2], I1[2], I2[2];
         float w0[2], w1[2], w2[2];
         coords(idx, F, i);
@@ -1085,7 +1127,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       }
       sync(l, false);
       for (int k = 0; k < ns; ++k)
-        zsum = sweep(l, l == 0 && k + 1 == ns, l == lsub && k + 1 == ns);
+        zsum = sweep(l, l == 0 && k + 1 == ns, subpart && l == lsub && k + 1 == ns);
     }
     return zsum;
   };
@@ -1656,22 +1698,12 @@ int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* z
   return coop_launch(kernel, P, n, smem, max_blocks, stream, kSolveBlocks);
 }
 
-template <typename T>
-int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void* invd,
-                       void* x, void* work, void* red, int max_blocks, void* iters,
-                       void* rnorm, void* conv, int d, int n0, int n1, int n2, int levels,
-                       int nsmooth, int sub_level, int sub_blocks, double omega, double lmin,
-                       double lmax, int cheb_degree, double rtol, int maxiter, void* stream) {
-  MgArgs<T> P;
-  P.L = levels;
-  P.sub_level = sub_level;
-  P.sub_blocks = sub_blocks;
+// The levels' grids: cells halved per level; a 2D grid is (1, g0, g1).
+inline void mg_levels(int d, int n0, int n1, int n2, int levels, Level* lev, int64_t* total) {
   int cells[3] = {n0, n1, d == 3 ? n2 : 0};
   int64_t off = 0;
   for (int l = 0; l < levels; ++l) {
-    P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
-    P.lv[l].mat_len = 0;  // the kernel stages Ap * scale itself
-    Level& lv = P.lev[l];
+    Level& lv = lev[l];
     lv.g[0] = d == 3 ? cells[0] + 1 : 1;
     lv.g[1] = d == 3 ? cells[1] + 1 : cells[0] + 1;
     lv.g[2] = d == 3 ? cells[2] + 1 : cells[1] + 1;
@@ -1680,6 +1712,102 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
     lv.n = lv.g[0] * lv.g[1] * lv.g[2];
     lv.off = off;
     off += lv.n;
+    for (int k = 0; k < d; ++k) cells[k] /= 2;
+  }
+  *total = off;
+}
+
+// K1 MG's plan: the fine level's route, the teams of the levels, the
+// shared memory a block and the barriers of one iteration.
+enum MgRoute { kMgPoint = 0 };
+
+struct MgPlan {
+  int route, sub_level, block_level, sub_blocks;
+  size_t smem, block_off;
+  int grid_bars, sub_bars, block_bars;
+};
+
+// Barriers of one iteration: the CG body's grid barriers, and one after
+// each V-cycle phase (per level above the coarsest: nsmooth down (the
+// sweeps after the first, the residual), the restriction into the next
+// level, nsmooth + 1 up (the prolongation, the sweeps); degree - 1
+// Chebyshev steps on the coarsest), each its team's: the phases of levels
+// from block_level are block 0's (the prolongation out of block_level
+// belongs to the level above), and the sub-group's last phase takes the
+// grid's barrier that closes its part.
+inline void mg_barriers(int L, int nsmooth, int degree, int body, MgPlan& m) {
+  int phases[kMaxLevels] = {};
+  for (int l = 0; l + 1 < L; ++l) {
+    phases[l] += 2 * nsmooth + 1;
+    phases[l + 1] += 1;
+  }
+  phases[L - 1] += degree - 1;
+  m.grid_bars = body;
+  m.sub_bars = m.block_bars = 0;
+  for (int l = 0; l < L; ++l)
+    (l < m.sub_level ? m.grid_bars : l < m.block_level ? m.sub_bars : m.block_bars) += phases[l];
+  if (m.sub_bars > 0) {
+    --m.sub_bars;
+    ++m.grid_bars;
+  }
+}
+
+template <typename T>
+bool mg_plan(int d, int n0, int n1, int n2, int L, int nsmooth, int degree, MgPlan& m) {
+  Level lev[kMaxLevels];
+  int64_t total = 0;
+  mg_levels(d, n0, n1, n2, L, lev, &total);
+  const int nl = 1 << d;
+  m.route = kMgPoint;
+  m.sub_blocks = kSubBlocks;
+  m.sub_level = m.block_level = L;
+  for (int l = L - 1; l >= 1; --l) {
+    if (lev[l].n <= kSubPoints * kThreads * kSubBlocks) m.sub_level = l;
+    if (lev[l].n <= kBlockPoints * kThreads) m.block_level = l;
+  }
+  m.block_off = align16(smem_bytes<T>(L * nl * nl, L * nl));
+  int dev = 0, per_sm = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
+          cudaSuccess)
+    return false;
+  const size_t fit = (size_t)(per_sm / kSolveBlocks - reserved);
+  // block 0's levels where their five vectors fit, each level fewer
+  for (;; ++m.block_level) {
+    size_t pts = 0;
+    for (int l = m.block_level; l < L; ++l) pts += lev[l].n;
+    m.smem = m.block_off + sizeof(T) * 5 * pts;
+    if (m.smem <= fit || m.block_level == L) break;
+  }
+  if (m.smem > fit) return false;
+  if (m.sub_level > m.block_level) m.sub_level = m.block_level;
+  mg_barriers(L, nsmooth, degree, 5, m);
+  return true;
+}
+
+template <typename T>
+int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void* invd,
+                       void* x, void* work, void* red, int max_blocks, void* iters,
+                       void* rnorm, void* conv, int d, int n0, int n1, int n2, int levels,
+                       int nsmooth, double omega, double lmin, double lmax, int cheb_degree,
+                       double rtol, int maxiter, void* stream) {
+  MgArgs<T> P;
+  MgPlan m;
+  if (!mg_plan<T>(d, n0, n1, n2, levels, nsmooth, cheb_degree, m))
+    return (int)cudaErrorInvalidValue;
+  P.L = levels;
+  P.sub_level = m.sub_level;
+  P.block_level = m.block_level;
+  P.sub_blocks = m.sub_blocks;
+  P.block_off = m.block_off;
+  int64_t total = 0;
+  mg_levels(d, n0, n1, n2, levels, P.lev, &total);
+  int cells[3] = {n0, n1, d == 3 ? n2 : 0};
+  for (int l = 0; l < levels; ++l) {
+    P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
+    P.lv[l].mat_len = 0;  // the kernel stages Ap * scale itself
     P.scale[l] = (T)(double)(1 << (l * (d - 2)));
     for (int k = 0; k < d; ++k) cells[k] /= 2;
   }
@@ -1701,12 +1829,12 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
   P.lmax = lmax;
   P.rtol = rtol;
   const int nl = P.lv[0].nl_in;
-  const size_t smem = smem_bytes<T>(levels * nl * nl, levels * nl);
-  return nl == 8
-             ? coop_launch(pressure_mg_kernel<T, 8>, P, P.lev[0].n, smem, max_blocks, stream,
-                           kSolveBlocks)
-             : coop_launch(pressure_mg_kernel<T, 0>, P, P.lev[0].n, smem, max_blocks, stream,
-                           kSolveBlocks);
+  auto kernel = nl == 8 ? pressure_mg_kernel<T, 8> : pressure_mg_kernel<T, 0>;
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)m.smem);
+  if (e != cudaSuccess) return (int)e;
+  return coop_launch(kernel, P, P.lev[0].n, m.smem, max_blocks, stream, kSolveBlocks);
 }
 
 // K1's non-MG plan on a: the tile and the Chebyshev steps a segment (the
@@ -1829,28 +1957,45 @@ int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* z
 }
 
 // MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)
-// and `levels` levels of halved cells, levels sub_level (1 <= sub_level <=
-// levels) and below on the first sub_blocks blocks: b, x0, x (grid); invd
-// (every level's points, concatenated); work: 4 * (points of all levels) +
-// grid points + 2 (the sub-group barrier's words); red: 2 * 8 * max_blocks.
-// Writes x, iters, rnorm and conv (int32, 1 each).
+// and `levels` levels of halved cells, the levels' teams of mg_plan: b, x0,
+// x (grid); invd (every level's points, concatenated); work: 4 * (points of
+// all levels) + grid points + 2 (the sub-group barrier's words); red: 2 * 8
+// * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
 int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,
                        void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
-                       int levels, int nsmooth, int sub_level, int sub_blocks, double omega,
-                       double lmin, double lmax, int cheb_degree, double rtol, int maxiter,
-                       void* stream) {
+                       int levels, int nsmooth, double omega, double lmin, double lmax,
+                       int cheb_degree, double rtol, int maxiter, void* stream) {
   if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
-      cheb_degree < 1 || sub_level < 1 || sub_level > levels || sub_blocks < 1)
+      cheb_degree < 1)
     return (int)cudaErrorInvalidValue;
   return is_f64 ? pressure_mg_launch<double>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
-                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth,
-                                             sub_level, sub_blocks, omega, lmin, lmax,
-                                             cheb_degree, rtol, maxiter, stream)
+                                             rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
+                                             lmin, lmax, cheb_degree, rtol, maxiter, stream)
                 : pressure_mg_launch<float>(Ap, b, x0, invd, x, work, red, max_blocks, iters,
-                                            rnorm, conv, d, n0, n1, n2, levels, nsmooth,
-                                            sub_level, sub_blocks, omega, lmin, lmax,
-                                            cheb_degree, rtol, maxiter, stream);
+                                            rnorm, conv, d, n0, n1, n2, levels, nsmooth, omega,
+                                            lmin, lmax, cheb_degree, rtol, maxiter, stream);
+}
+
+// K1 MG's plan on the current device for `levels` levels of the P1 grid of
+// (n0, n1[, n2]) cells, nsmooth sweeps and coarse Chebyshev degree
+// cheb_degree: out = (route: 0 the fine level point by point; the tile t0,
+// t1, t2 (3D form; 0 point by point); bytes of shared memory a block;
+// sub_level, block_level, sub_blocks (the teams); grid, sub-group and block
+// barriers an iteration).  0 or a CUDA error.
+int oasisx_pressure_mg_plan(int is_f64, int d, int n0, int n1, int n2, int levels, int nsmooth,
+                            int cheb_degree, int* out) {
+  if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
+      cheb_degree < 1)
+    return (int)cudaErrorInvalidValue;
+  MgPlan m;
+  if (!(is_f64 ? mg_plan<double>(d, n0, n1, n2, levels, nsmooth, cheb_degree, m)
+               : mg_plan<float>(d, n0, n1, n2, levels, nsmooth, cheb_degree, m)))
+    return (int)cudaErrorInvalidValue;
+  const int v[11] = {m.route, 0, 0, 0, (int)m.smem, m.sub_level, m.block_level, m.sub_blocks,
+                     m.grid_bars, m.sub_bars, m.block_bars};
+  for (int k = 0; k < 11; ++k) out[k] = v[k];
+  return 0;
 }
 
 // Jacobi (cheb_degree 0) or degree-cheb_degree Chebyshev-Jacobi PCG on the P1

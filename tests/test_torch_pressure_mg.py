@@ -126,18 +126,23 @@ def test_coords_split_exact():
 
 
 @pytest.mark.parametrize("cells, levels, plan, bars", [
-    ((36,) * 3, 3, (1, 32), (11, 19)),   # bench.py's N=36: 50,653 / 6,859 / 1,000 points
-    ((64,) * 3, 5, (2, 32), (17, 25)),   # N=64: level 1 has 35,937 points, over 1 a thread
-    ((256, 256), 6, (2, 32), (17, 31)),  # 2D: 66,049 / 16,641 / 4,225 / ... / 81 points
+    # bench.py's N=36: 50,653 / 6,859 / 1,000 points
+    ((36,) * 3, 3, (1, 2, 32), (11, 5, 14)),
+    # N=64: level 1 has 35,937 points, over 1 a thread; levels 3-4 (729, 125) on one block
+    ((64,) * 3, 5, (2, 3, 32), (17, 5, 20)),
+    # 2D: 66,049 / 16,641 / 4,225 / 1,089 / 289 / 81 points
+    ((256, 256), 6, (2, 4, 32), (17, 11, 20)),
 ], ids=["3d-36", "3d-64", "2d-256"])
 def test_sub_group_plan(cells, levels, plan, bars):
-    """The sub-group of K1's V-cycle: the first level below the finest with at
-    most one point a thread of 32 blocks of 256, and the barriers of one
-    iteration (nsmooth 2, coarse Chebyshev degree 14): the grid's, and the
-    sub-group's; on the whole grid there would be their sum."""
-    from oasisx_tpu_torch.la.pressure_mg import barriers, sub_group
+    """The teams of K1's V-cycle: the sub-group from the first level below
+    the finest with at most one point a thread of 32 blocks of 256, block 0
+    from the first with at most 4 points a thread of one block; and the
+    barriers of one iteration (nsmooth 2, coarse Chebyshev degree 14): the
+    grid's, the sub-group's and block 0's; on the whole grid there would be
+    their sum."""
+    from oasisx_tpu_torch.la.pressure_mg import barriers, mg_teams
 
     sizes = [int(np.prod(g)) for g in _mg_grids(cells)[:levels]]
-    assert sub_group(sizes) == plan
-    assert barriers(levels, plan[0], 2, 14) == bars
-    assert barriers(levels, levels, 2, 14) == (sum(bars), 0)
+    assert mg_teams(sizes) == plan
+    assert barriers(levels, plan[0], plan[1], 2, 14) == bars
+    assert barriers(levels, levels, levels, 2, 14) == (sum(bars), 0, 0)

@@ -1022,7 +1022,8 @@ def has_mg_plan() -> bool:
     return hasattr(_build.library(), "oasisx_pressure_mg_plan")
 
 
-MG_ROUTES = ("point by point", "stencil tile (P1)")
+MG_ROUTES = ("stencil tile (P1), the coarsest levels on block 0",
+             "stencil tile (P1), no level on block 0")
 
 
 def mg_plan(cells, dtype, nsmooth: int = 2, degree: int = 14) -> dict:
@@ -1049,7 +1050,7 @@ def mg_plan(cells, dtype, nsmooth: int = 2, degree: int = 14) -> dict:
     o = out.tolist()
     sizes = [int(np.prod([c // 2 ** l + 1 for c in cells])) for l in range(L)]
     teams, bars = tuple(o[5:8]), tuple(o[8:11])
-    want = pm.mg_teams(sizes)
+    want = pm.mg_teams(sizes, block=o[0] == 0)
     want_bars = pm.barriers(L, want[0], want[1], nsmooth, degree)
     check(teams == want and bars == want_bars,
           f"K1 MG's plan for {cells} {dtype}: teams {teams} barriers {bars}, its plain mirror "
@@ -3918,10 +3919,10 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     """--solves-only: phase 3's whole-solve cases (solve_cases on the N=36
     systems, box_solve_cases on the two unequal grids; float64 and float32),
     K1 MG at N=64 (mg_n64_cases) and on the MG_BOXES grids (mg_box_cases),
-    the N=36 main path 4, phase 3e's K1 cases at N=35 and the N=35 main path
-    4f, the main paths into ``log``: K1's and K4's kernels against their
-    plain versions and timed, in a few minutes; with ``profile``, a
-    torch.profiler window of that many steps after 4's and 4f's
+    phase 3e's K1 cases at N=35, the N=35 main path 4f and the N=36 main
+    path 4, the main paths into ``log``: K1's and K4's kernels against
+    their plain versions and timed, in a few minutes; with ``profile``, a
+    torch.profiler window of that many steps after 4f's and 4's
     (profile_steps).  Under --tree the other checkout's package runs these
     cases, so that both trees run the same ones."""
     import torch
@@ -3937,14 +3938,6 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
           "cell width)")
     compare_solves({"float64": (solver, torch.float64), "float32": (solver, torch.float32)},
                    "cuda", cases_fn=mg_n64_cases, suffix=f" N={N64}")
-    # 4. the N=36 main path (K1 MG)
-    rep = solver.config_report()
-    check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
-    res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
-    report_path("4", res, STEPS, 3 * solver._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS, log)
-    if profile:
-        profile_steps(solver, profile, "build/chip_smoke_trace.json")
-    del solver
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
         tag = " " + "x".join(map(str, cells))
@@ -3969,6 +3962,15 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     report_path("4f", res, STEPS, 3 * s35._Vi[0][0].num_dofs, smi, {}, log)
     if profile:
         profile_steps(s35, profile, "build/chip_smoke_trace_n35.json")
+    del s35
+    # 4. the N=36 main path (K1 MG), last: under --tree its step check ends
+    # the run where the two trees' iterations part
+    rep = solver.config_report()
+    check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
+    res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
+    report_path("4", res, STEPS, 3 * solver._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS, log)
+    if profile:
+        profile_steps(solver, profile, "build/chip_smoke_trace.json")
     print(f"[solves] {time.perf_counter() - t0:.1f} s")
 
 

@@ -840,6 +840,46 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // ---------------------------------------------------------------------------
 // K1: MG-preconditioned CG for the singular P1 pressure Poisson
 // ---------------------------------------------------------------------------
+//
+// make_pressure_cg with mg=build_pressure_mg_data(...): b demeaned, tol =
+// rtol |b|, r0 = demean(b - A x0), z = demean(V-cycle(r)), every A p
+// demeaned, x demeaned at the end.  The V-cycle: per level above the
+// coarsest, nsmooth damped-Jacobi sweeps (the first from zero), the
+// residual, its restriction; the coarsest level's degree-cheb_degree
+// Chebyshev-Jacobi; back up, the prolongation and nsmooth sweeps.
+//
+// Every phase ends with a barrier of its level's team (mg_plan), and a
+// phase that is not a reduction is bound by its barrier, not by its work:
+// at N=36 the levels hold 50,653 / 6,859 / 1,000 points against ~64k
+// threads, and a grid-wide phase costs ~6 us on an NVIDIA H100 80GB HBM3
+// at 700 W.  So:
+//   - the levels on the whole grid (the fine level, and at N=64 level 1)
+//     run their products on the P1 stencil tile with a halo of one layer
+//     (cube_device.cuh, as K1's other modes: a block reads its tile's box
+//     once, each point sums its 3^d neighbours in shared memory; level l's
+//     coefficients are the fine level's times 2^(l (d-2)), a power of two,
+//     applied to the sum, which leaves its bits those of the scaled table);
+//   - the CG body has two grid barriers, both reductions.  Phase A, on the
+//     tile: p = (z - mz) + beta p wherever the tile reads p (two p buffers
+//     by parity), Ap on the owned points, and the sums of Ap, p . Ap and p,
+//     so that p . demean(Ap) = p . Ap - sum(Ap) sum(p) / n.  Phase B: x +=
+//     alpha p, r -= alpha (Ap - mean), the first sweep z = omega invd r and
+//     |r|^2.  The last up-sweep of the fine level sums z, r . z and r, so
+//     that rz = r . demean(z) = r . z - mean(z) sum(r): z is never demeaned
+//     in memory, and p is formed where it is read;
+//   - the levels with at most one point a thread of kSubBlocks blocks run
+//     point by point (cube_point) on those blocks, separated by a barrier
+//     among them (sub_sync);
+//   - the coarsest levels (at most kBlockPoints points a thread of one
+//     block) run on block 0 alone, their vectors in its shared memory as
+//     boxes with a layer of zeros, products by the stencil there
+//     (stencil_dot), each phase (every coarse Chebyshev step among them)
+//     ending with a __syncthreads; the last one also writes z to the
+//     level's global slot and ends with the level above's barrier, whose
+//     team prolongs from there.
+// Per iteration at N=36: 8 grid barriers, 6 among the sub-group and 13 of
+// block 0 (mg_barriers; the parent design took 30 grid barriers, PR 8's
+// sub-group 11 and 19).
 
 struct Level {
   int g[3];            // grid points per axis; a 2D grid is (1, g0, g1)
@@ -848,6 +888,11 @@ struct Level {
   int64_t off;         // first point of this level in the concatenated level arrays
 };
 
+// Levels that may run on the whole grid, each with its stencil plan (a
+// kernel's parameters hold at most 4 KB); the sub-group starts at level
+// kStencilLevels at the latest.
+constexpr int kStencilLevels = 4;
+
 template <typename T>
 struct MgArgs {
   const T* Ap;    // (nl, nl) fine cube matrix
@@ -855,20 +900,21 @@ struct MgArgs {
   const T* x0;    // (n0)
   const T* invd;  // every level's Jacobi inverse diagonal, concatenated
   T* x;           // (n0) out
-  T* work;        // 4 vectors per level (r, z, z', t), then p (n0)
+  T* work;        // 4 vectors per level (r, z, z', t), then p twice (n0 each)
   T* red;
   int* iters;     // (1) out
   T* rnorm;       // (1) out
   int* conv;      // (1) out
   CubeArgs lv[kMaxLevels];  // each level's operator (mat_len 0: staged here)
   Level lev[kMaxLevels];
+  StencilPlan sp[kStencilLevels];  // the tiles of the levels on the whole grid
   T scale[kMaxLevels];      // 2^(l (d-2))
   int L, nsmooth, cheb_degree, maxiter;
   // the teams of mg_plan: levels [sub_level, block_level) on the first
   // sub_blocks blocks, [block_level, L) on block 0 with their vectors in
-  // shared memory from byte block_off
+  // shared memory
   int sub_level, block_level, sub_blocks;
-  size_t block_off;
+  size_t mat_off, red_off, box_off, block_off;  // shared memory (mg_smem)
   double omega, lmin, lmax, rtol;
 };
 
@@ -887,6 +933,7 @@ struct MgArgs {
 constexpr int kSubBlocks = 32;
 constexpr int kSubPoints = 1;
 constexpr int kBlockPoints = 4;
+constexpr int kMgBody = 2;  // grid barriers of the CG body outside the V-cycle
 
 // A point's coordinates on its level, by exact multiply-and-shift divisions
 // (FastDiv, exact below 2^31; cube_fits bounds every level).
@@ -923,51 +970,105 @@ __device__ __forceinline__ int prolong_taps(int i, int* I, float* w) {
   return 2;
 }
 
-template <typename T, int NL>
+// K1 MG's shared memory: [stencil coefficients] [every level's Ap * scale
+// and slot offsets (cube_point)] [warp sums] [the tile's box] [block 0's
+// levels: r, z, z', t and invd, each a box of mg_box_points].
+struct MgSmem {
+  size_t mat_off, red_off, box_off, block_off, bytes;
+};
+
+// Points of a level's box on block 0: a layer of zeros round each real axis.
+inline int64_t mg_box_points(int d, const Level& lv) {
+  return (int64_t)(d == 3 ? lv.g[0] + 2 : 1) * (lv.g[1] + 2) * (lv.g[2] + 2);
+}
+
+template <typename T>
+inline MgSmem mg_smem(int d, int L, const StencilPlan& s, int64_t block_pts) {
+  const int nl = 1 << d;
+  MgSmem m;
+  m.mat_off = stencil_table_bytes<T>(d);
+  m.red_off = align16(m.mat_off + sizeof(T) * L * nl * nl + sizeof(int) * L * nl);
+  m.box_off = align16(m.red_off + sizeof(T) * kMaxRed * kWarps);
+  m.block_off = align16(m.box_off + sizeof(T) * s.boxpts);
+  m.bytes = m.block_off + sizeof(T) * 5 * block_pts;
+  return m;
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgArgs<T> P) {
+  constexpr int NL = D == 3 ? 8 : 4;
+  constexpr int nn = NL * NL;
   const int L = P.L;
-  const int nl = P.lv[0].nl_in;
-  const int nn = nl * nl;
   unsigned char* smem = dynamic_smem();
-  T* smat = reinterpret_cast<T*>(smem);
-  int* soff = reinterpret_cast<int*>(smem + sizeof(T) * L * nn);
-  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + red_offset<T>(L * nn, L * nl)), 0};
+  T* S = reinterpret_cast<T*>(smem);
+  T* smat = reinterpret_cast<T*>(smem + P.mat_off);
+  int* soff = reinterpret_cast<int*>(smem + P.mat_off + sizeof(T) * L * nn);
+  Reducer<T> red{P.red, reinterpret_cast<T*>(smem + P.red_off), 0};
+  T* BX = reinterpret_cast<T*>(smem + P.box_off);
+  stencil_stage<T, D>(P.Ap, S);
   for (int l = 0; l < L; ++l) {
     for (int i = threadIdx.x; i < nn; i += blockDim.x) smat[l * nn + i] = P.Ap[i] * P.scale[l];
-    cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * nl);
+    cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * NL);
   }
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   const bool lead = blockIdx.x == 0;  // block 0: the levels from block_level
+  const int lsub = P.sub_level, lblk = P.block_level;
 
-  // a level's vectors: in global memory, or (from block_level) in shared
-  // memory, where block 0 stages its invd
+  // A level's vectors and their layout: point (c0, c1, c2) at org + c0 pl +
+  // c1 pr + c2.  In global memory the level's own order; from lblk in block
+  // 0's shared memory (invd staged there too), each vector a box with a
+  // layer of zeros round the grid's real axes, which the stencil reads
+  // beyond the edge (a box point outside the grid is never written).
   T* rr[kMaxLevels];
   T* z[kMaxLevels];
   T* zb[kMaxLevels];
   T* t[kMaxLevels];
   const T* iv[kMaxLevels];
+  int org[kMaxLevels], pl[kMaxLevels], pr[kMaxLevels];
   T* sb = reinterpret_cast<T*>(smem + P.block_off);
   for (int l = 0; l < L; ++l) {
-    const int n = P.lev[l].n;
-    if (l < P.block_level) {
+    const int* g = P.lev[l].g;
+    int len;
+    if (l < lblk) {
       rr[l] = P.work + 4 * P.lev[l].off;
       iv[l] = P.invd + P.lev[l].off;
+      len = P.lev[l].n;
+      pr[l] = g[2];
+      pl[l] = g[1] * g[2];
+      org[l] = 0;
     } else {
+      pr[l] = g[2] + 2;
+      pl[l] = (g[1] + 2) * pr[l];
+      org[l] = (D == 3 ? pl[l] : 0) + pr[l] + 1;
+      len = (D == 3 ? g[0] + 2 : 1) * pl[l];
       rr[l] = sb;
-      sb += 5 * n;
-      if (lead)
-        for (int i = threadIdx.x; i < n; i += blockDim.x) rr[l][4 * n + i] = P.invd[P.lev[l].off + i];
-      iv[l] = rr[l] + 4 * n;
+      sb += 5 * len;
+      iv[l] = rr[l] + 4 * len;
     }
-    z[l] = rr[l] + n;
-    zb[l] = z[l] + n;
-    t[l] = zb[l] + n;
+    z[l] = rr[l] + len;
+    zb[l] = z[l] + len;
+    t[l] = zb[l] + len;
+  }
+  if (lead && lblk < L) {
+    T* b0 = reinterpret_cast<T*>(smem + P.block_off);
+    for (int i = threadIdx.x; i < (int)(sb - b0); i += blockDim.x) b0[i] = T(0);
+    __syncthreads();
+    for (int l = lblk; l < L; ++l) {
+      T* ivs = t[l] + (t[l] - zb[l]);
+      for (int idx = threadIdx.x; idx < P.lev[l].n; idx += blockDim.x) {
+        int c[3];
+        coords(idx, P.lev[l], c);
+        ivs[org[l] + c[0] * pl[l] + c[1] * pr[l] + c[2]] = P.invd[P.lev[l].off + idx];
+      }
+    }
   }
   __syncthreads();
-  T* p = P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n);
-  T* x = P.x;
   const int n0 = P.lev[0].n;
+  T* pv[2] = {P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n), nullptr};
+  pv[1] = pv[0] + n0;
+  T* Ap = t[0];  // A p, from phase A to phase B
+  T* x = P.x;
   const T nmean = (T)n0;
   const T om = (T)P.omega;
   const int ns = P.nsmooth;
@@ -978,12 +1079,10 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   // The blocks outside a team, which would have no work, run through the
   // same phases with empty loops and no barrier, and so make the same z/zb
   // swaps, up to the barrier that closes the team's part: the grid's after
-  // the sub-group's last phase, the sub-group's (or the grid's where lsub
-  // == lblk) after block 0 prolongs its first level into the level above.
-  // A coarse phase holds no reduction and a point's arithmetic does not
-  // depend on its thread or on where its vectors live, so the result is the
-  // whole grid's, bit for bit.
-  const int lsub = P.sub_level, lblk = P.block_level;
+  // the sub-group's last phase; after block 0's last phase, which also
+  // writes level lblk's z to its global slot zg, the barrier of the level
+  // above, whose team then prolongs from zg.  A coarse phase holds no
+  // reduction and a point's arithmetic does not depend on its thread.
   const bool subpart = lsub < lblk;  // levels on the sub-group
   const int B = P.sub_blocks < (int)gridDim.x ? P.sub_blocks : (int)gridDim.x;
   const bool member = (int)blockIdx.x < B;
@@ -992,12 +1091,15 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   const int blk_first = lead ? (int)threadIdx.x : INT32_MAX;
   auto lo = [&](int l) { return l < lsub ? first : l < lblk ? sub_first : blk_first; };
   auto step = [&](int l) { return l < lsub ? stride : l < lblk ? sub_stride : (int)blockDim.x; };
-  unsigned* bar = reinterpret_cast<unsigned*>(p + n0);  // sub_sync's words
+  unsigned* bar = reinterpret_cast<unsigned*>(pv[1] + n0);  // sub_sync's words
   if (blockIdx.x == 0 && threadIdx.x == 0) bar[0] = 0u;  // before the first grid barrier
+  T* zg = lblk < L ? P.work + 4 * P.lev[lblk].off + P.lev[lblk].n : nullptr;
   // the barrier that ends a phase on level l: the grid's above lsub and for
   // the phase that closes the sub-group's part, the sub-group's above lblk,
-  // else block 0's
-  auto sync = [&](int l, bool closing) {
+  // else block 0's; block 0's last phase (publish) ends with the level
+  // above's
+  auto sync = [&](int l, bool closing, bool publish = false) {
+    if (publish) l = lblk - 1;
     if (l < lsub || closing) {
       cg::this_grid().sync();
     } else if (l < lblk) {
@@ -1007,11 +1109,52 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     }
   };
 
-  auto mv = [&](int l, const T* src, int idx) -> T {
-    T acc[kMaxBatch];
-    cube_point<T, false, NL>(src, smat + l * nn, soff + l * nl, P.lv[l],
-                             cube_split(P.lv[l], idx), acc);
-    return acc[0];
+  // A v on level l < lsub, a tile at a time (the grid's blocks in turn):
+  // fetch(i) (global loads) and put(i, own, v) give the input at grid point
+  // i into the box (region 1); then store(i, (A v)_i, v_i) at each owned
+  // point
+  auto tiled = [&](int l, auto&& fetch, auto&& put, auto&& store) {
+    const StencilPlan& sp = P.sp[l];
+    const CubeArgs& a = P.lv[l];
+    const T sc = P.scale[l];
+    const int nt = sp.ntile[0] * sp.ntile[1] * sp.ntile[2];
+#pragma unroll 1
+    for (int tt = blockIdx.x; tt < nt; tt += gridDim.x) {
+      int B0[3];
+      stencil_tile(sp, tt, B0);
+      __syncthreads();  // the last tile's readers of the box are done
+      stencil_load<D, 4>(
+          a, sp, B0, 1, [&](int i, bool) { return fetch(i); },
+          [&](int i, int lb, bool own, const auto& v) { BX[lb] = i >= 0 ? put(i, own, v) : T(0); });
+      __syncthreads();
+      stencil_region<D>(a, sp, B0, 0, [&](int i, int lb, int cls, bool) {
+        if (i < 0) return;
+        T acc[1];
+        stencil_apply<T, D, 1>(S, cls, BX, sp, lb, 1, acc);
+        store(i, acc[0] * sc, BX[lb]);
+      });
+    }
+  };
+  // point idx of level l >= lsub: its index in the level's layout, and A v
+  // there (point by point on the sub-group's levels, the stencil on block
+  // 0's)
+  auto at = [&](int l, int idx, int* c) {
+    if (l < lblk) return idx;
+    coords(idx, P.lev[l], c);
+    return org[l] + c[0] * pl[l] + c[1] * pr[l] + c[2];
+  };
+  auto mv = [&](int l, const T* src, int idx, int si, const int* c) -> T {
+    if (l < lblk) {
+      T acc[kMaxBatch];
+      cube_point<T, false, NL>(src, smat + l * nn, soff + l * NL, P.lv[l],
+                               cube_split(P.lv[l], idx), acc);
+      return acc[0];
+    }
+    const int* g = P.lev[l].g;
+    int cls = 0;
+#pragma unroll
+    for (int k = 3 - D; k < 3; ++k) cls = 3 * cls + (c[k] == 0 ? 0 : c[k] == g[k] - 1 ? 2 : 1);
+    return stencil_dot<T, D>(S, cls, src, g[1] + 2, pr[l], si) * P.scale[l];
   };
   auto swapz = [&](int l) {
     T* tmp = z[l];
@@ -1020,40 +1163,69 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   };
   T s[kMaxRed];
 
-  // z' = z + omega invd (r - A z); with_sum: a grid sum of z', else the
-  // level's barrier (closing: the grid's)
-  auto sweep = [&](int l, bool with_sum, bool closing) -> T {
+  // z' = z + omega invd (r - A z); with_sum (level 0): the grid sums of z',
+  // r . z' and r into s, else the level's barrier (closing: the grid's;
+  // publish: block 0's last phase)
+  auto sweep = [&](int l, bool with_sum, bool closing, bool publish) {
     zero(s);
-    for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
-      const T zn = z[l][idx] + (om * iv[l][idx]) * (rr[l][idx] - mv(l, z[l], idx));
-      zb[l][idx] = zn;
-      s[0] += zn;
+    auto upd = [&](int i, T az, T zi) {
+      const T zn = zi + (om * iv[l][i]) * (rr[l][i] - az);
+      zb[l][i] = zn;
+      if (with_sum) {
+        const T r = rr[l][i];
+        s[0] += zn;
+        s[1] = vfma(r, zn, s[1]);
+        s[2] += r;
+      }
+      return zn;
+    };
+    if (l < lsub) {
+      const T* zl = z[l];
+      tiled(l, [&](int i) { return Vals<T, 1>{{zl[i]}}; },
+            [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; }, upd);
+    } else {
+      for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
+        int c[3];
+        const int si = at(l, idx, c);
+        const T zn = upd(si, mv(l, z[l], idx, si, c), z[l][si]);
+        if (publish) zg[idx] = zn;
+      }
     }
     swapz(l);
-    if (with_sum) {
-      grid_sum<1>(red, s);
-      return s[0];
-    }
-    sync(l, closing);
-    return T(0);
+    if (with_sum)
+      grid_sum_warp<3>(red, s);
+    else
+      sync(l, closing, publish);
   };
 
   const double theta = 0.5 * (P.lmax + P.lmin);
   const double delta = 0.5 * (P.lmax - P.lmin);
   const double sigma1 = theta / delta;
 
-  // z[0] holds omega invd r[0] (the first sweep from zero) on entry; returns
-  // the grid sum of the V-cycle's z[0]
-  auto vcycle = [&]() -> T {
+  // z[0] holds omega invd r[0] (the first sweep from zero) on entry; leaves
+  // the V-cycle's z in z[0] and the grid sums of z, r . z and r in s
+  auto vcycle = [&]() {
     for (int l = 0; l + 1 < L; ++l) {
-      for (int k = 1; k < ns; ++k) sweep(l, false, false);
-      for (int idx = lo(l); idx < P.lev[l].n; idx += step(l))
-        t[l][idx] = rr[l][idx] - mv(l, z[l], idx);
+      for (int k = 1; k < ns; ++k) sweep(l, false, false, false);
+      // t[l] = r[l] - A z[l]
+      if (l < lsub) {
+        const T* zl = z[l];
+        tiled(l, [&](int i) { return Vals<T, 1>{{zl[i]}}; },
+              [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; },
+              [&](int i, T az, T) { t[l][i] = rr[l][i] - az; });
+      } else {
+        for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
+          int c[3];
+          const int si = at(l, idx, c);
+          t[l][si] = rr[l][si] - mv(l, z[l], idx, si, c);
+        }
+      }
       sync(l, false);
       // r[l+1] = P^T t[l], then the next level's first step
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
       const bool coarsest = l + 2 == L;
+      const bool publish = coarsest && l + 1 == lblk && P.cheb_degree < 2;
       for (int idx = lo(l + 1); idx < C.n; idx += step(l + 1)) {
         int I[3], i0[3], i1[3], i2[3];
         float w0[3], w1[3], w2[3];
@@ -1065,23 +1237,25 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         for (int a0 = 0; a0 < m0; ++a0) {
           T acc1 = T(0);
           for (int a1 = 0; a1 < m1; ++a1) {
-            const T* row = t[l] + ((int64_t)i0[a0] * F.g[1] + i1[a1]) * F.g[2];
+            const T* row = t[l] + org[l] + i0[a0] * pl[l] + i1[a1] * pr[l];
             T acc2 = T(0);
             for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[i2[a2]];
             acc1 += (T)w1[a1] * acc2;
           }
           acc0 += (T)w0[a0] * acc1;
         }
-        rr[l + 1][idx] = acc0;
+        const int si = org[l + 1] + I[0] * pl[l + 1] + I[1] * pr[l + 1] + I[2];
+        rr[l + 1][si] = acc0;
         if (coarsest) {
-          const T dk = (iv[l + 1][idx] * acc0) / (T)theta;
-          t[l + 1][idx] = dk;
-          z[l + 1][idx] = dk;
+          const T dk = (iv[l + 1][si] * acc0) / (T)theta;
+          t[l + 1][si] = dk;
+          z[l + 1][si] = dk;
+          if (publish) zg[idx] = dk;
         } else {
-          z[l + 1][idx] = (om * iv[l + 1][idx]) * acc0;
+          z[l + 1][si] = (om * iv[l + 1][si]) * acc0;
         }
       }
-      sync(l + 1, subpart && coarsest && l + 1 == lsub && P.cheb_degree < 2);
+      sync(l + 1, subpart && coarsest && l + 1 == lsub && P.cheb_degree < 2, publish);
     }
     // coarsest level: Chebyshev-Jacobi, dk kept in t
     const int lc = L - 1;
@@ -1090,22 +1264,30 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const double rho_new = 1.0 / (2.0 * sigma1 - rho);
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);
+      const bool publish = lc == lblk && k + 2 == P.cheb_degree;
       for (int idx = lo(lc); idx < P.lev[lc].n; idx += step(lc)) {
-        const T dk = vfma(c1, t[lc][idx], c2 * (iv[lc][idx] * (rr[lc][idx] - mv(lc, z[lc], idx))));
-        t[lc][idx] = dk;
-        zb[lc][idx] = z[lc][idx] + dk;
+        int c[3];
+        const int si = at(lc, idx, c);
+        const T az = mv(lc, z[lc], idx, si, c);
+        const T dk = vfma(c1, t[lc][si], c2 * (iv[lc][si] * (rr[lc][si] - az)));
+        t[lc][si] = dk;
+        const T zn = z[lc][si] + dk;
+        zb[lc][si] = zn;
+        if (publish) zg[idx] = zn;
       }
       swapz(lc);
-      sync(lc, subpart && lc == lsub && k + 2 == P.cheb_degree);
+      sync(lc, subpart && lc == lsub && k + 2 == P.cheb_degree, publish);
       rho = rho_new;
     }
-    T zsum = T(0);
     for (int l = L - 2; l >= 0; --l) {
-      // z[l] += P z[l+1]; block 0 prolongs its first level
+      // z[l] += P z[l+1] (from zg out of block 0's first level)
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
-      const int tl = l + 1 == lblk ? lblk : l;  // the team
-      for (int idx = lo(tl); idx < F.n; idx += step(tl)) {
+      const bool out = l + 1 == lblk;
+      const T* zc = out ? zg : z[l + 1];
+      const int corg = out ? 0 : org[l + 1], cpl = out ? C.g[1] * C.g[2] : pl[l + 1];
+      const int cpr = out ? C.g[2] : pr[l + 1];
+      for (int idx = lo(l); idx < F.n; idx += step(l)) {
         int i[3], I0[2], I1[2], I2[2];
         float w0[2], w1[2], w2[2];
         coords(idx, F, i);
@@ -1116,40 +1298,45 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         for (int a0 = 0; a0 < m0; ++a0) {
           T acc1 = T(0);
           for (int a1 = 0; a1 < m1; ++a1) {
-            const T* row = z[l + 1] + ((int64_t)I0[a0] * C.g[1] + I1[a1]) * C.g[2];
+            const T* row = zc + corg + I0[a0] * cpl + I1[a1] * cpr;
             T acc2 = T(0);
             for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[I2[a2]];
             acc1 += (T)w1[a1] * acc2;
           }
           acc0 += (T)w0[a0] * acc1;
         }
-        z[l][idx] += acc0;
+        z[l][org[l] + i[0] * pl[l] + i[1] * pr[l] + i[2]] += acc0;
       }
       sync(l, false);
       for (int k = 0; k < ns; ++k)
-        zsum = sweep(l, l == 0 && k + 1 == ns, subpart && l == lsub && k + 1 == ns);
+        sweep(l, l == 0 && k + 1 == ns, subpart && l == lsub && k + 1 == ns,
+              l == lblk && k + 1 == ns);
     }
-    return zsum;
   };
 
   // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
   zero(s);
-  for (int idx = first; idx < n0; idx += stride) {
-    x[idx] = P.x0[idx];
-    t[0][idx] = mv(0, P.x0, idx);
-    s[0] += P.b[idx];
-  }
-  grid_sum<1>(red, s);
+  tiled(
+      0, [&](int i) { return Vals<T, 1>{{P.x0[i]}}; },
+      [&](int i, bool own, const Vals<T, 1>& v) {
+        if (own) x[i] = v.v[0];
+        return v.v[0];
+      },
+      [&](int i, T ap, T) {
+        Ap[i] = ap;
+        s[0] += P.b[i];
+      });
+  grid_sum_warp<1>(red, s);
   const T mb = s[0] / nmean;
   zero(s);
   for (int idx = first; idx < n0; idx += stride) {
     const T bd = P.b[idx] - mb;
-    const T v = bd - t[0][idx];
+    const T v = bd - Ap[idx];
     rr[0][idx] = v;
-    s[0] += bd * bd;
+    s[0] = vfma(bd, bd, s[0]);
     s[1] += v;
   }
-  grid_sum<2>(red, s);
+  grid_sum_warp<2>(red, s);
   const T tol = (T)P.rtol * vsqrt(s[0]);
   const T mr = s[1] / nmean;
   zero(s);
@@ -1157,65 +1344,57 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     const T r = rr[0][idx] - mr;
     rr[0][idx] = r;
     z[0][idx] = (om * iv[0][idx]) * r;
-    s[0] += r * r;
+    s[0] = vfma(r, r, s[0]);
   }
-  grid_sum<1>(red, s);
+  grid_sum_warp<1>(red, s);
   T rn = vsqrt(s[0]);
-  // z = demean(V-cycle(r)); p = z; rz = r.z
-  T mz = vcycle() / nmean;
-  zero(s);
-  for (int idx = first; idx < n0; idx += stride) {
-    const T zz = z[0][idx] - mz;
-    z[0][idx] = zz;
-    p[idx] = zz;
-    s[0] += rr[0][idx] * zz;
-  }
-  grid_sum<1>(red, s);
-  T rz = s[0];
+  // z = V-cycle(r); rz = r . demean(z)
+  vcycle();
+  T mz = s[0] / nmean;
+  T rz = vfma(-mz, s[2], s[1]);
 
   int k = 0;
+  T beta = T(0);
   while (k < P.maxiter && rn > tol) {
-    // Apv = demean(A p); alpha = rz / p.Apv
+    // phase A: p = demean(z) + beta p (k = 0: demean(z)); Ap; alpha = rz /
+    // p . demean(Ap)
+    T* pn = pv[k & 1];
+    const T* po = pv[(k & 1) ^ 1];
+    const T* zl = z[0];
     zero(s);
-    for (int idx = first; idx < n0; idx += stride) {
-      const T ap = mv(0, p, idx);
-      t[0][idx] = ap;
-      s[0] += ap;
-    }
-    grid_sum<1>(red, s);
+    tiled(
+        0, [&](int i) { return Vals<T, 2>{{zl[i], k == 0 ? T(0) : po[i]}}; },
+        [&](int i, bool own, const Vals<T, 2>& v) {
+          const T zz = v.v[0] - mz;
+          const T pp = k == 0 ? zz : vfma(beta, v.v[1], zz);
+          if (own) pn[i] = pp;
+          return pp;
+        },
+        [&](int i, T ap, T pp) {
+          Ap[i] = ap;
+          s[0] += ap;
+          s[1] = vfma(pp, ap, s[1]);
+          s[2] += pp;
+        });
+    grid_sum_warp<3>(red, s);
     const T ma = s[0] / nmean;
+    const T alpha = rz / nz(vfma(-ma, s[2], s[1]));
+    // phase B: x += alpha p; r -= alpha (Ap - ma); |r|; the V-cycle's first
+    // sweep
     zero(s);
     for (int idx = first; idx < n0; idx += stride) {
-      const T apv = t[0][idx] - ma;
-      t[0][idx] = apv;
-      s[0] += p[idx] * apv;
-    }
-    grid_sum<1>(red, s);
-    const T alpha = rz / nz(s[0]);
-    // x += alpha p; r -= alpha Apv; |r|; the V-cycle's first sweep
-    zero(s);
-    for (int idx = first; idx < n0; idx += stride) {
-      x[idx] = x[idx] + alpha * p[idx];
-      const T r = rr[0][idx] - alpha * t[0][idx];
+      x[idx] = vfma(alpha, pn[idx], x[idx]);
+      const T r = vfma(-alpha, Ap[idx] - ma, rr[0][idx]);
       rr[0][idx] = r;
       z[0][idx] = (om * iv[0][idx]) * r;
-      s[0] += r * r;
+      s[0] = vfma(r, r, s[0]);
     }
-    grid_sum<1>(red, s);
+    grid_sum_warp<1>(red, s);
     const T rn_new = vsqrt(s[0]);
-    mz = vcycle() / nmean;
-    // z = demean(z); rz_new = r.z; p = z + beta p
-    zero(s);
-    for (int idx = first; idx < n0; idx += stride) {
-      const T zz = z[0][idx] - mz;
-      z[0][idx] = zz;
-      s[0] += rr[0][idx] * zz;
-    }
-    grid_sum<1>(red, s);
-    const T rz_new = s[0];
-    const T beta = rz_new / nz(rz);
-    for (int idx = first; idx < n0; idx += stride) p[idx] = z[0][idx] + beta * p[idx];
-    cg::this_grid().sync();
+    vcycle();
+    mz = s[0] / nmean;
+    const T rz_new = vfma(-mz, s[2], s[1]);
+    beta = rz_new / nz(rz);
     rz = rz_new;
     rn = rn_new;
     ++k;
@@ -1224,7 +1403,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   // x = demean(x)
   zero(s);
   for (int idx = first; idx < n0; idx += stride) s[0] += x[idx];
-  grid_sum<1>(red, s);
+  grid_sum_warp<1>(red, s);
   const T mx = s[0] / nmean;
   for (int idx = first; idx < n0; idx += stride) x[idx] = x[idx] - mx;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -1699,7 +1878,7 @@ int bicgstab_launch(const void* W, const void* r0, const void* x0, const void* z
 }
 
 // The levels' grids: cells halved per level; a 2D grid is (1, g0, g1).
-inline void mg_levels(int d, int n0, int n1, int n2, int levels, Level* lev, int64_t* total) {
+inline void mg_levels(int d, int n0, int n1, int n2, int levels, Level* lev) {
   int cells[3] = {n0, n1, d == 3 ? n2 : 0};
   int64_t off = 0;
   for (int l = 0; l < levels; ++l) {
@@ -1714,38 +1893,45 @@ inline void mg_levels(int d, int n0, int n1, int n2, int levels, Level* lev, int
     off += lv.n;
     for (int k = 0; k < d; ++k) cells[k] /= 2;
   }
-  *total = off;
 }
 
-// K1 MG's plan: the fine level's route, the teams of the levels, the
-// shared memory a block and the barriers of one iteration.
-enum MgRoute { kMgPoint = 0 };
+// K1 MG's plan: the route, the fine level's tile, the teams of the levels,
+// the shared memory and the barriers of one iteration.  Routes: the
+// stencil tile on the levels on the whole grid with the coarsest levels on
+// block 0, or with no level on block 0 (none has at most kBlockPoints
+// points a thread, or no level's boxes fit beside the smallest tile).
+enum MgRoute { kMgStencilBlock = 0, kMgStencil = 1 };
 
 struct MgPlan {
   int route, sub_level, block_level, sub_blocks;
-  size_t smem, block_off;
+  StencilPlan s;  // the fine level's tiles
+  MgSmem sm;
   int grid_bars, sub_bars, block_bars;
 };
 
-// Barriers of one iteration: the CG body's grid barriers, and one after
-// each V-cycle phase (per level above the coarsest: nsmooth down (the
+// Barriers of one iteration: the CG body's kMgBody grid barriers, and one
+// after each V-cycle phase (per level above the coarsest: nsmooth down (the
 // sweeps after the first, the residual), the restriction into the next
 // level, nsmooth + 1 up (the prolongation, the sweeps); degree - 1
 // Chebyshev steps on the coarsest), each its team's: the phases of levels
-// from block_level are block 0's (the prolongation out of block_level
-// belongs to the level above), and the sub-group's last phase takes the
-// grid's barrier that closes its part.
-inline void mg_barriers(int L, int nsmooth, int degree, int body, MgPlan& m) {
+// from block_level are block 0's but the last, which takes the level
+// above's barrier, and the sub-group's last phase takes the grid's barrier
+// that closes its part.
+inline void mg_barriers(int L, int nsmooth, int degree, MgPlan& m) {
   int phases[kMaxLevels] = {};
   for (int l = 0; l + 1 < L; ++l) {
     phases[l] += 2 * nsmooth + 1;
     phases[l + 1] += 1;
   }
   phases[L - 1] += degree - 1;
-  m.grid_bars = body;
+  m.grid_bars = kMgBody;
   m.sub_bars = m.block_bars = 0;
   for (int l = 0; l < L; ++l)
     (l < m.sub_level ? m.grid_bars : l < m.block_level ? m.sub_bars : m.block_bars) += phases[l];
+  if (m.block_level < L) {  // block 0's last phase ends with the level above's barrier
+    --m.block_bars;
+    ++(m.block_level - 1 < m.sub_level ? m.grid_bars : m.sub_bars);
+  }
   if (m.sub_bars > 0) {
     --m.sub_bars;
     ++m.grid_bars;
@@ -1755,35 +1941,30 @@ inline void mg_barriers(int L, int nsmooth, int degree, int body, MgPlan& m) {
 template <typename T>
 bool mg_plan(int d, int n0, int n1, int n2, int L, int nsmooth, int degree, MgPlan& m) {
   Level lev[kMaxLevels];
-  int64_t total = 0;
-  mg_levels(d, n0, n1, n2, L, lev, &total);
-  const int nl = 1 << d;
-  m.route = kMgPoint;
+  mg_levels(d, n0, n1, n2, L, lev);
   m.sub_blocks = kSubBlocks;
-  m.sub_level = m.block_level = L;
+  int lsub = L, lblk = L;
   for (int l = L - 1; l >= 1; --l) {
-    if (lev[l].n <= kSubPoints * kThreads * kSubBlocks) m.sub_level = l;
-    if (lev[l].n <= kBlockPoints * kThreads) m.block_level = l;
+    if (lev[l].n <= kSubPoints * kThreads * kSubBlocks) lsub = l;
+    if (lev[l].n <= kBlockPoints * kThreads) lblk = l;
   }
-  m.block_off = align16(smem_bytes<T>(L * nl * nl, L * nl));
-  int dev = 0, per_sm = 0, reserved = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) !=
-          cudaSuccess)
-    return false;
-  const size_t fit = (size_t)(per_sm / kSolveBlocks - reserved);
-  // block 0's levels where their five vectors fit, each level fewer
-  for (;; ++m.block_level) {
-    size_t pts = 0;
-    for (int l = m.block_level; l < L; ++l) pts += lev[l].n;
-    m.smem = m.block_off + sizeof(T) * 5 * pts;
-    if (m.smem <= fit || m.block_level == L) break;
+  // block 0's levels from lblk where their boxes fit beside a tile, else
+  // from a coarser level, else none
+  const CubeArgs a0 = const_args(d, n0, n1, n2, 1, 1);
+  for (;; ++lblk) {
+    int64_t pts = 0;
+    for (int l = lblk; l < L; ++l) pts += mg_box_points(d, lev[l]);
+    if (stencil_pick(a0, kSolveBlocks, 1,
+                     [&](const StencilPlan& c) { return mg_smem<T>(d, L, c, pts).bytes; }, m.s)) {
+      m.sm = mg_smem<T>(d, L, m.s, pts);
+      break;
+    }
+    if (lblk == L) return false;
   }
-  if (m.smem > fit) return false;
-  if (m.sub_level > m.block_level) m.sub_level = m.block_level;
-  mg_barriers(L, nsmooth, degree, 5, m);
+  m.route = lblk < L ? kMgStencilBlock : kMgStencil;
+  m.block_level = lblk;
+  m.sub_level = std::min(std::min(lsub, lblk), kStencilLevels);
+  mg_barriers(L, nsmooth, degree, m);
   return true;
 }
 
@@ -1801,14 +1982,17 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
   P.sub_level = m.sub_level;
   P.block_level = m.block_level;
   P.sub_blocks = m.sub_blocks;
-  P.block_off = m.block_off;
-  int64_t total = 0;
-  mg_levels(d, n0, n1, n2, levels, P.lev, &total);
+  P.mat_off = m.sm.mat_off;
+  P.red_off = m.sm.red_off;
+  P.box_off = m.sm.box_off;
+  P.block_off = m.sm.block_off;
+  mg_levels(d, n0, n1, n2, levels, P.lev);
   int cells[3] = {n0, n1, d == 3 ? n2 : 0};
   for (int l = 0; l < levels; ++l) {
     P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
     P.lv[l].mat_len = 0;  // the kernel stages Ap * scale itself
     P.scale[l] = (T)(double)(1 << (l * (d - 2)));
+    if (l < m.sub_level && !stencil_set(P.lv[l], m.s.t, 1, P.sp[l])) return (int)cudaErrorInvalidValue;
     for (int k = 0; k < d; ++k) cells[k] /= 2;
   }
   P.Ap = static_cast<const T*>(Ap);
@@ -1828,13 +2012,14 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
   P.lmin = lmin;
   P.lmax = lmax;
   P.rtol = rtol;
-  const int nl = P.lv[0].nl_in;
-  auto kernel = nl == 8 ? pressure_mg_kernel<T, 8> : pressure_mg_kernel<T, 0>;
+  auto kernel = d == 3 ? pressure_mg_kernel<T, 3> : pressure_mg_kernel<T, 2>;
   const cudaError_t e =
       cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)m.smem);
+                           (int)m.sm.bytes);
   if (e != cudaSuccess) return (int)e;
-  return coop_launch(kernel, P, P.lev[0].n, m.smem, max_blocks, stream, kSolveBlocks);
+  // a block a tile of the fine level at most: its phases walk the tiles
+  const int64_t ntiles = (int64_t)m.s.ntile[0] * m.s.ntile[1] * m.s.ntile[2];
+  return coop_launch(kernel, P, ntiles * kThreads, m.sm.bytes, max_blocks, stream, kSolveBlocks);
 }
 
 // K1's non-MG plan on a: the tile and the Chebyshev steps a segment (the
@@ -1959,8 +2144,8 @@ int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* z
 // MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)
 // and `levels` levels of halved cells, the levels' teams of mg_plan: b, x0,
 // x (grid); invd (every level's points, concatenated); work: 4 * (points of
-// all levels) + grid points + 2 (the sub-group barrier's words); red: 2 * 8
-// * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
+// all levels) + 2 * grid points + 2 (the sub-group barrier's words); red: 2
+// * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
 int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,
                        void* rnorm, void* conv, int is_f64, int d, int n0, int n1, int n2,
@@ -1979,10 +2164,11 @@ int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void
 
 // K1 MG's plan on the current device for `levels` levels of the P1 grid of
 // (n0, n1[, n2]) cells, nsmooth sweeps and coarse Chebyshev degree
-// cheb_degree: out = (route: 0 the fine level point by point; the tile t0,
-// t1, t2 (3D form; 0 point by point); bytes of shared memory a block;
-// sub_level, block_level, sub_blocks (the teams); grid, sub-group and block
-// barriers an iteration).  0 or a CUDA error.
+// cheb_degree: out = (route: 0 the stencil tile with the coarsest levels on
+// block 0, 1 the stencil tile with no level on block 0; the fine level's
+// tile t0, t1, t2 (3D form); bytes of shared memory a block; sub_level,
+// block_level, sub_blocks (the teams); grid, sub-group and block barriers
+// an iteration).  0 or a CUDA error.
 int oasisx_pressure_mg_plan(int is_f64, int d, int n0, int n1, int n2, int levels, int nsmooth,
                             int cheb_degree, int* out) {
   if (!cube_fits(d, n0, n1, n2, 1, 1, 1) || levels < 2 || levels > kMaxLevels || nsmooth < 1 ||
@@ -1992,8 +2178,9 @@ int oasisx_pressure_mg_plan(int is_f64, int d, int n0, int n1, int n2, int level
   if (!(is_f64 ? mg_plan<double>(d, n0, n1, n2, levels, nsmooth, cheb_degree, m)
                : mg_plan<float>(d, n0, n1, n2, levels, nsmooth, cheb_degree, m)))
     return (int)cudaErrorInvalidValue;
-  const int v[11] = {m.route, 0, 0, 0, (int)m.smem, m.sub_level, m.block_level, m.sub_blocks,
-                     m.grid_bars, m.sub_bars, m.block_bars};
+  const int v[11] = {m.route,        m.s.t[0],        m.s.t[1],     m.s.t[2],
+                     (int)m.sm.bytes, m.sub_level,     m.block_level, m.sub_blocks,
+                     m.grid_bars,     m.sub_bars,      m.block_bars};
   for (int k = 0; k < 11; ++k) out[k] = v[k];
   return 0;
 }

@@ -33,25 +33,30 @@ from ..assembly import kernels as kn
 from .krylov import KrylovResult, chebyshev_preconditioner
 
 # K1's teams (csrc/krylov_ops.cu mg_plan, which decides; these mirror it for
-# the tests and chip_smoke's check): SUB_BLOCKS blocks of 256 threads run the
-# levels from the first one below the finest with at most SUB_POINTS points a
-# thread of theirs, block 0 alone those from the first with at most
-# BLOCK_POINTS points a thread of one block, in its shared memory.
+# the tests and chip_smoke's check): the levels above the sub-group run on
+# the whole grid, on the P1 stencil tile (at most STENCIL_LEVELS of them);
+# SUB_BLOCKS blocks of 256 threads run the levels from the first one below
+# the finest with at most SUB_POINTS points a thread of theirs, block 0
+# alone those from the first with at most BLOCK_POINTS points a thread of
+# one block, in its shared memory.
 SUB_BLOCKS = 32
 SUB_POINTS = 1
 BLOCK_POINTS = 4
-BODY_BARRIERS = 5  # grid barriers of the CG body outside the V-cycle
+STENCIL_LEVELS = 4
+BODY_BARRIERS = 2  # grid barriers of the CG body outside the V-cycle
 
 
-def mg_teams(sizes: list[int]) -> tuple[int, int, int]:
+def mg_teams(sizes: list[int], block: bool = True) -> tuple[int, int, int]:
     """(sub_level, block_level, SUB_BLOCKS) for MG levels of ``sizes``
     points, finest first: block_level the first level l >= 1 with at most
-    BLOCK_POINTS * 256 points, sub_level the first with at most SUB_POINTS *
-    256 * SUB_BLOCKS, at most block_level (len(sizes) where none)."""
+    BLOCK_POINTS * 256 points (len(sizes) where none, or without ``block``:
+    the plan's route where block 0's vectors do not fit), sub_level the
+    first with at most SUB_POINTS * 256 * SUB_BLOCKS, at most block_level
+    and STENCIL_LEVELS."""
     L = len(sizes)
     first = lambda cap: next((l for l in range(1, L) if sizes[l] <= cap), L)
-    lblk = first(BLOCK_POINTS * 256)
-    return min(first(SUB_POINTS * 256 * SUB_BLOCKS), lblk), lblk, SUB_BLOCKS
+    lblk = first(BLOCK_POINTS * 256) if block else L
+    return min(first(SUB_POINTS * 256 * SUB_BLOCKS), lblk, STENCIL_LEVELS), lblk, SUB_BLOCKS
 
 
 def barriers(L: int, lsub: int, lblk: int, nsmooth: int, degree: int) -> tuple[int, int, int]:
@@ -60,17 +65,23 @@ def barriers(L: int, lsub: int, lblk: int, nsmooth: int, degree: int) -> tuple[i
     level above the coarsest: nsmooth down (the sweeps after the first, the
     residual), the restriction into the next level, nsmooth + 1 up (the
     prolongation, the sweeps); degree - 1 Chebyshev steps on the coarsest),
-    each its level's team's (the prolongation out of block level lblk is the
-    level above's); the sub-group's last phase takes the grid barrier that
-    closes its part."""
+    each its level's team's; block 0's last phase (it writes z for the
+    level above) takes the level above's barrier, and the sub-group's last
+    phase the grid barrier that closes its part."""
     phases = [0] * L  # V-cycle phases per level
     for l in range(L - 1):
         phases[l] += 2 * nsmooth + 1
         phases[l + 1] += 1
     phases[L - 1] += degree - 1
-    sub = sum(phases[lsub:lblk])
-    grid = BODY_BARRIERS + sum(phases[:lsub]) + (1 if sub else 0)
-    return grid, max(sub - 1, 0), sum(phases[lblk:])
+    grid = BODY_BARRIERS + sum(phases[:lsub])
+    sub, block = sum(phases[lsub:lblk]), sum(phases[lblk:])
+    if lblk < L:
+        block -= 1
+        if lblk - 1 < lsub:
+            grid += 1
+        else:
+            sub += 1
+    return grid + (1 if sub else 0), max(sub - 1, 0), block
 
 
 class PressureMGCG:
@@ -184,7 +195,7 @@ class PressureMGCG:
         kn._check(self.Ap_c, "Ap_c", dt, tuple(self.Ap_c.shape))
         ntot = self.invd_all.numel()
         x = torch.empty(n, dtype=dt, device=dev)
-        work = torch.empty(4 * ntot + n + 2, dtype=dt, device=dev)  # + sub_sync's 2 words
+        work = torch.empty(4 * ntot + 2 * n + 2, dtype=dt, device=dev)  # + sub_sync's 2 words
         red = torch.empty(2 * 8 * kn.coop_capacity(dev), dtype=dt, device=dev)
         iters = torch.empty(1, dtype=torch.int32, device=dev)
         rnorm = torch.empty(1, dtype=dt, device=dev)

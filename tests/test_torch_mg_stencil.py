@@ -68,9 +68,9 @@ def test_mg_plain_in_stencil_order(cells):
 def _walk(L, lsub, lblk, nsmooth, degree):
     """(grid, sub-group, block) barriers of one iteration, counted by
     walking the kernel's phases (csrc/krylov_ops.cu pressure_mg_kernel) in
-    order: each phase ends with its team's barrier; the prolongation out of
-    block level lblk is block 0's work and ends with the level above's
-    barrier; the last phase the sub-group runs ends with the grid's."""
+    order: each phase ends with its team's barrier; block 0's last phase
+    (which writes z for the level above) with the level above's; the last
+    phase the sub-group runs with the grid's."""
     def team(level):
         return "grid" if level < lsub else "sub" if level < lblk else "block"
 
@@ -81,6 +81,8 @@ def _walk(L, lsub, lblk, nsmooth, degree):
     seq += [team(L - 1)] * (degree - 1)  # the coarsest's Chebyshev steps
     for level in reversed(range(L - 1)):
         seq += [team(level)] * (nsmooth + 1)  # the prolongation, the sweeps
+    if "block" in seq:  # block 0's last phase ends with the level above's barrier
+        seq[len(seq) - 1 - seq[::-1].index("block")] = team(lblk - 1)
     if "sub" in seq:  # the sub-group's last phase closes its part
         seq[len(seq) - 1 - seq[::-1].index("sub")] = "grid"
     return (pm.BODY_BARRIERS + seq.count("grid"), seq.count("sub"), seq.count("block"))
@@ -92,9 +94,9 @@ def _sizes(cells, L):
 
 @pytest.mark.parametrize("cells, L", [
     ((36,) * 3, 3), ((64,) * 3, 5), ((256, 256), 7), ((16, 24, 32), 3), ((48, 64), 5),
-    ((12, 12, 12), 3), ((8, 8), 2), ((512, 512), 8), ((128, 128, 128), 6),
+    ((12, 12, 12), 3), ((8, 8), 2), ((512, 512), 8), ((128, 128, 128), 6), ((4096, 4096), 11),
 ], ids=["3d-36", "3d-64", "2d-256", "3d-16x24x32", "2d-48x64", "3d-12", "2d-8", "2d-512",
-        "3d-128"])
+        "3d-128", "2d-4096"])
 @pytest.mark.parametrize("nsmooth, degree", [(2, 14), (1, 1), (3, 2)])
 def test_mg_plan_mirror_walk(cells, L, nsmooth, degree):
     sizes = _sizes(cells, L)
@@ -102,8 +104,12 @@ def test_mg_plan_mirror_walk(cells, L, nsmooth, degree):
     assert blocks == pm.SUB_BLOCKS and 1 <= lsub <= lblk <= L
     # block 0 from the first level below the finest with <= 4 points a
     # thread, the sub-group from the first with <= one a thread of its
-    # blocks (at the latest block 0's level)
     assert all(n > pm.BLOCK_POINTS * 256 for n in sizes[1:lblk])
     assert all(n <= pm.BLOCK_POINTS * 256 for n in sizes[lblk:])
-    assert all(n > pm.SUB_POINTS * 256 * pm.SUB_BLOCKS for n in sizes[1:lsub])
+    # blocks (at the latest block 0's level, and after at most STENCIL_LEVELS
+    # levels on the whole grid: 2d-4096's first level of 8,192 points or
+    # fewer is its sixth)
+    sub_cap = pm.SUB_POINTS * 256 * pm.SUB_BLOCKS
+    first_sub = next((level for level in range(1, L) if sizes[level] <= sub_cap), L)
+    assert lsub == min(first_sub, lblk, pm.STENCIL_LEVELS)
     assert pm.barriers(L, lsub, lblk, nsmooth, degree) == _walk(L, lsub, lblk, nsmooth, degree)

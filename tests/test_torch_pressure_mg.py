@@ -127,11 +127,11 @@ def test_coords_split_exact():
 
 @pytest.mark.parametrize("cells, levels, plan, bars", [
     # bench.py's N=36: 50,653 / 6,859 / 1,000 points
-    ((36,) * 3, 3, (1, 2, 32), (11, 5, 14)),
+    ((36,) * 3, 3, (1, 2, 32), (8, 6, 13)),
     # N=64: level 1 has 35,937 points, over 1 a thread; levels 3-4 (729, 125) on one block
-    ((64,) * 3, 5, (2, 3, 32), (17, 5, 20)),
+    ((64,) * 3, 5, (2, 3, 32), (14, 6, 19)),
     # 2D: 66,049 / 16,641 / 4,225 / 1,089 / 289 / 81 points
-    ((256, 256), 6, (2, 4, 32), (17, 11, 20)),
+    ((256, 256), 6, (2, 4, 32), (14, 12, 19)),
 ], ids=["3d-36", "3d-64", "2d-256"])
 def test_sub_group_plan(cells, levels, plan, bars):
     """The teams of K1's V-cycle: the sub-group from the first level below

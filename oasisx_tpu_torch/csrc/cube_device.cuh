@@ -1109,27 +1109,25 @@ __device__ __forceinline__ void stencil_apply(const T* S, int cls, const T* box,
   }
 }
 
-// (A x) at point l of class cls of a box whose rows hold b2 points and
-// whose planes b1 rows: stencil_apply's sum for one vector, in its order
-// with its fmas (K1 MG's levels on block 0, zero-padded by one layer).
-template <typename T, int D>
-__device__ __forceinline__ T stencil_dot(const T* S, int cls, const T* box, int b1, int b2,
-                                         int l) {
+// (A x) at a point of class cls whose neighbour at offset (e0, e1, e2) is
+// x(e0, e1, e2): stencil_apply's sum for one vector, in its order with its
+// fmas (K1 MG's levels below the whole grid).  An offset beyond the grid has
+// coefficient 0, so x may return any finite value there.
+template <typename T, int D, typename X>
+__device__ __forceinline__ T stencil_sum(const T* S, int cls, X&& x) {
   constexpr int NE = D == 3 ? 27 : 9, LD = tile_ld<T>(NE), V = 16 / sizeof(T);
   using Vec = typename Vec16<T>::type;
   const Vec* c = reinterpret_cast<const Vec*>(S + cls * LD);
+  T v[NE];  // every neighbour's load in flight before the sum
+#pragma unroll
+  for (int u = 0; u < NE; ++u) v[u] = x(D == 3 ? u / 9 - 1 : 0, u / 3 % 3 - 1, u % 3 - 1);
   T acc = T(0);
 #pragma unroll
   for (int t4 = 0; t4 < LD / V; ++t4) {
     const Vec m = c[t4];
 #pragma unroll
-    for (int w = 0; w < V; ++w) {
-      const int u = t4 * V + w;
-      if (u < NE) {
-        const int e0 = D == 3 ? u / 9 - 1 : 0, e1 = u / 3 % 3 - 1, e2 = u % 3 - 1;
-        acc = tile_fma(Vec16<T>::get(m, w), box[l + (e0 * b1 + e1) * b2 + e2], acc);
-      }
-    }
+    for (int w = 0; w < V; ++w)
+      if (t4 * V + w < NE) acc = tile_fma(Vec16<T>::get(m, w), v[t4 * V + w], acc);
   }
   return acc;
 }

@@ -32,19 +32,14 @@
 // (grid_sum_warp, below), as deterministic, with one block barrier a sum.
 //
 // Operators: the cube device functions of cube_device.cuh, with the
-// constant matrix (K4's M_c, K1's Ap_c * 2^(l(d-2)) per level) staged in
-// shared memory.  K1's MG products go point by point (cube_point): the grid
-// is fixed by the cooperative launch, so a product's grid-stride loop cannot
-// take its points' parities and base coordinates from blockIdx, as the
-// standalone cube kernels do, and each point is split in place by
-// cube_split's multiply-and-shift divisions, whose constants are kernel
-// parameters.  Its 8 slots a cube (P1) are unrolled (NL), so a thread's
-// loads of one cube are in flight together at its 2 blocks an SM.  K1's
-// non-MG modes and K4 on the P1 cube run the P1 stencil tile instead
-// (cube_device.cuh: a block reads a box of its tile and a halo into shared
-// memory once and each point sums its 3^d neighbours there), with the
-// direction update riding on the product and two grid barriers an
-// iteration (pressure_cg_kernel says how K1 fits its Chebyshev steps in).
+// constant matrix (K4's M_c) staged in shared memory.  K1 (every mode) and
+// K4 on the P1 cube run the P1 stencil (cube_device.cuh: each point sums its
+// 3^d neighbours times its class's coefficients, in one order with explicit
+// fmas), on a tile where a level spans the grid (a block reads a box of its
+// tile and a halo into shared memory once), with the direction update
+// riding on the product and two grid barriers in the CG body
+// (pressure_cg_kernel says how K1 fits its Chebyshev steps in,
+// pressure_mg_kernel how the V-cycle's coarse levels run).
 //
 // K4's product on the P2 cube is K5's block-tiled one (tile_product; the P1
 // cube takes the stencil tile, any other cube, P3 among them, goes point by
@@ -84,16 +79,8 @@
 // 64-bit index), so no kernel here divides in 64 bits.  cube_fits and
 // coop_launch bound every index, and an index plus a stride, below 2^31.
 //
-// K1's V-cycle runs its coarse levels on a sub-group of blocks.  Those
-// levels (6,859 and 1,000 points at N=36) leave 90-99% of the cooperative
-// grid's threads idle, and a grid barrier over all of them costs more than
-// their work: so from the restriction into level sub_level down to the
-// coarsest and back up to the last sweep on sub_level, the phases run on
-// the first sub_blocks blocks, separated by a barrier among them alone
-// (sub_sync, grid_reduce.cuh), and one grid barrier closes that part.  At
-// N=36 an iteration's 30 grid barriers become 11 and 19 sub-group
-// barriers; at N=64, 42 become 17 and 25.  la/pressure_mg.py chooses
-// sub_level and sub_blocks (SUB_BLOCKS says how they were timed).
+// K1's V-cycle runs its coarse levels on a sub-group of blocks and its
+// coarsest on one block (pressure_mg_kernel, mg_plan).
 //
 // Bound on the H100.  K2: memory; each iteration applies A_W twice, and each
 // application streams W (nl^2 x ncubes, 136 MB in f32 at N=36) once for all
@@ -105,9 +92,10 @@
 // (batch 3) and does not, so an iteration moves its two passes from HBM:
 // 10 vectors of nb rows and the shared invd twice, ~282 MB (0.084 ms).
 // K1: latency; the 50k / 7k / 1k point pressure levels fit in L2, and the
-// time goes to barriers (per MG iteration at N=36, 11 grid barriers and 19
-// among the sub-group's blocks; 2 an iteration of the Jacobi and
-// Chebyshev modes where the steps' box fits, pcg_barriers).
+// time goes to barriers (per MG iteration at N=36, 8 grid barriers, 6 among
+// the sub-group's blocks and 13 of one block, mg_barriers; 2 an iteration
+// of the Jacobi and Chebyshev modes where the steps' box fits,
+// pcg_barriers).
 //
 // Each entry point launches on the stream it is given, allocates nothing
 // (the caller passes the work and reduction buffers), and returns the launch
@@ -868,15 +856,19 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 //     that rz = r . demean(z) = r . z - mean(z) sum(r): z is never demeaned
 //     in memory, and p is formed where it is read;
 //   - the levels with at most one point a thread of kSubBlocks blocks run
-//     point by point (cube_point) on those blocks, separated by a barrier
-//     among them (sub_sync);
+//     point by point on those blocks, each point's 3^d neighbours loaded at
+//     once (stencil_sum), separated by a barrier among them (sub_sync);
 //   - the coarsest levels (at most kBlockPoints points a thread of one
 //     block) run on block 0 alone, their vectors in its shared memory as
-//     boxes with a layer of zeros, products by the stencil there
-//     (stencil_dot), each phase (every coarse Chebyshev step among them)
-//     ending with a __syncthreads; the last one also writes z to the
-//     level's global slot and ends with the level above's barrier, whose
-//     team prolongs from there.
+//     boxes with a layer of zeros, the stencil read there, each phase
+//     (every coarse Chebyshev step among them) ending with a
+//     __syncthreads; the last one also writes z to the level's global slot
+//     and ends with the level above's barrier, whose team prolongs from
+//     there.
+// Every level sums a point's stencil in one order with explicit fmas
+// (stencil_apply, stencil_sum), so a point's value does not depend on the
+// team that computes it: the plan moves no bit.  A grid transfer's point
+// loads its taps at once, a tap beyond the grid at weight 0 (transfer).
 // Per iteration at N=36: 8 grid barriers, 6 among the sub-group and 13 of
 // block 0 (mg_barriers; the parent design took 30 grid barriers, PR 8's
 // sub-group 11 and 19).
@@ -905,16 +897,16 @@ struct MgArgs {
   int* iters;     // (1) out
   T* rnorm;       // (1) out
   int* conv;      // (1) out
-  CubeArgs lv[kMaxLevels];  // each level's operator (mat_len 0: staged here)
   Level lev[kMaxLevels];
-  StencilPlan sp[kStencilLevels];  // the tiles of the levels on the whole grid
+  CubeArgs lv[kStencilLevels];     // the grids of the levels on the whole grid
+  StencilPlan sp[kStencilLevels];  // and their tiles
   T scale[kMaxLevels];      // 2^(l (d-2))
   int L, nsmooth, cheb_degree, maxiter;
   // the teams of mg_plan: levels [sub_level, block_level) on the first
   // sub_blocks blocks, [block_level, L) on block 0 with their vectors in
   // shared memory
   int sub_level, block_level, sub_blocks;
-  size_t mat_off, red_off, box_off, block_off;  // shared memory (mg_smem)
+  size_t red_off, box_off, block_off;  // shared memory (mg_smem)
   double omega, lmin, lmax, rtol;
 };
 
@@ -945,36 +937,66 @@ __device__ __forceinline__ void coords(int idx, const Level& lv, int* c) {
 }
 
 // Fine neighbours of coarse index I along an axis of f fine points: the
-// column of the 1-D linear interpolation (weights 0.5, 1, 0.5).
-__device__ __forceinline__ int restrict_taps(int I, int f, int* i, float* w) {
-  int m = 0;
-  for (int a = -1; a <= 1; ++a) {
-    const int j = 2 * I + a;
-    if (j < 0 || j >= f) continue;
-    i[m] = j;
-    w[m++] = a == 0 ? 1.0f : 0.5f;
+// column of the 1-D linear interpolation (weights 0.5, 1, 0.5), a tap beyond
+// the axis at weight 0 and clamped onto it.
+template <typename T>
+__device__ __forceinline__ void restrict_taps(int I, int f, int* j, T* w) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int v = 2 * I + a - 1;
+    const bool in = v >= 0 && v < f;
+    j[a] = in ? v : 2 * I;
+    w[a] = in ? (a == 1 ? T(1) : T(0.5)) : T(0);
   }
-  return m;
 }
 
-// Coarse neighbours of fine index i: the row of the same interpolation.
-__device__ __forceinline__ int prolong_taps(int i, int* I, float* w) {
-  if (i % 2 == 0) {
-    I[0] = i / 2;
-    w[0] = 1.0f;
-    return 1;
-  }
-  I[0] = (i - 1) / 2;
-  I[1] = (i + 1) / 2;
-  w[0] = w[1] = 0.5f;
-  return 2;
+// Coarse neighbours of fine index i along an axis of c coarse points: the
+// row of the same interpolation (an even i: its coarse point at weight 1
+// and a second tap at weight 0).
+template <typename T>
+__device__ __forceinline__ void prolong_taps(int i, int c, int* j, T* w) {
+  j[0] = i >> 1;
+  j[1] = (i >> 1) + 1 < c ? (i >> 1) + 1 : i >> 1;
+  w[0] = i & 1 ? T(0.5) : T(1);
+  w[1] = i & 1 ? T(0.5) : T(0);
 }
 
-// K1 MG's shared memory: [stencil coefficients] [every level's Ap * scale
-// and slot offsets (cube_point)] [warp sums] [the tile's box] [block 0's
-// levels: r, z, z', t and invd, each a box of mg_box_points].
+// sum over a0 (outer), a1, a2 of w0 (w1 (w2 v)) for the taps j with weights
+// w (M a side; a 2D grid's leading axis its first tap only): a point of a
+// grid transfer, every load in flight before the sums.  A weight-0 tap adds
+// an exact 0, so the sum is the one over the taps on the grid.
+template <typename T, int D, int M>
+__device__ __forceinline__ T transfer(const T* v, int pl, int pr, const int (&j)[3][M],
+                                      const T (&w)[3][M]) {
+  constexpr int M0 = D == 3 ? M : 1;
+  T x[M0][M][M];
+#pragma unroll
+  for (int a0 = 0; a0 < M0; ++a0)
+#pragma unroll
+    for (int a1 = 0; a1 < M; ++a1)
+#pragma unroll
+      for (int a2 = 0; a2 < M; ++a2) x[a0][a1][a2] = v[j[0][a0] * pl + j[1][a1] * pr + j[2][a2]];
+  T acc0 = T(0);
+#pragma unroll
+  for (int a0 = 0; a0 < M0; ++a0) {
+    T acc1 = T(0);
+#pragma unroll
+    for (int a1 = 0; a1 < M; ++a1) {
+      T acc2 = T(0);
+#pragma unroll
+      for (int a2 = 0; a2 < M; ++a2) acc2 += w[2][a2] * x[a0][a1][a2];
+      acc1 += w[1][a1] * acc2;
+    }
+    acc0 += (D == 3 ? w[0][a0] : T(1)) * acc1;
+  }
+  return acc0;
+}
+
+// K1 MG's shared memory: [stencil coefficients] [warp sums] [the tile's
+// box] [block 0's levels: r, z, z', t and invd, each a box of
+// mg_box_points].
 struct MgSmem {
-  size_t mat_off, red_off, box_off, block_off, bytes;
+  size_t red_off, box_off, block_off, bytes;
 };
 
 // Points of a level's box on block 0: a layer of zeros round each real axis.
@@ -983,11 +1005,9 @@ inline int64_t mg_box_points(int d, const Level& lv) {
 }
 
 template <typename T>
-inline MgSmem mg_smem(int d, int L, const StencilPlan& s, int64_t block_pts) {
-  const int nl = 1 << d;
+inline MgSmem mg_smem(int d, const StencilPlan& s, int64_t block_pts) {
   MgSmem m;
-  m.mat_off = stencil_table_bytes<T>(d);
-  m.red_off = align16(m.mat_off + sizeof(T) * L * nl * nl + sizeof(int) * L * nl);
+  m.red_off = stencil_table_bytes<T>(d);
   m.box_off = align16(m.red_off + sizeof(T) * kMaxRed * kWarps);
   m.block_off = align16(m.box_off + sizeof(T) * s.boxpts);
   m.bytes = m.block_off + sizeof(T) * 5 * block_pts;
@@ -996,20 +1016,12 @@ inline MgSmem mg_smem(int d, int L, const StencilPlan& s, int64_t block_pts) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgArgs<T> P) {
-  constexpr int NL = D == 3 ? 8 : 4;
-  constexpr int nn = NL * NL;
   const int L = P.L;
   unsigned char* smem = dynamic_smem();
   T* S = reinterpret_cast<T*>(smem);
-  T* smat = reinterpret_cast<T*>(smem + P.mat_off);
-  int* soff = reinterpret_cast<int*>(smem + P.mat_off + sizeof(T) * L * nn);
   Reducer<T> red{P.red, reinterpret_cast<T*>(smem + P.red_off), 0};
   T* BX = reinterpret_cast<T*>(smem + P.box_off);
   stencil_stage<T, D>(P.Ap, S);
-  for (int l = 0; l < L; ++l) {
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) smat[l * nn + i] = P.Ap[i] * P.scale[l];
-    cube_stage<T>(nullptr, P.lv[l], nullptr, soff + l * NL);
-  }
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   const bool lead = blockIdx.x == 0;  // block 0: the levels from block_level
@@ -1135,26 +1147,31 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       });
     }
   };
-  // point idx of level l >= lsub: its index in the level's layout, and A v
-  // there (point by point on the sub-group's levels, the stencil on block
-  // 0's)
+  // point idx of level l >= lsub: its coordinates c, its index in the
+  // level's layout, and A v there, point by point: each neighbour's load in
+  // flight at once (stencil_sum), a neighbour beyond the grid read at the
+  // nearest point of the grid (its coefficient is 0) or in the box's zeros
   auto at = [&](int l, int idx, int* c) {
-    if (l < lblk) return idx;
     coords(idx, P.lev[l], c);
     return org[l] + c[0] * pl[l] + c[1] * pr[l] + c[2];
   };
-  auto mv = [&](int l, const T* src, int idx, int si, const int* c) -> T {
-    if (l < lblk) {
-      T acc[kMaxBatch];
-      cube_point<T, false, NL>(src, smat + l * nn, soff + l * NL, P.lv[l],
-                               cube_split(P.lv[l], idx), acc);
-      return acc[0];
-    }
+  auto mv = [&](int l, const T* src, int si, const int* c) -> T {
     const int* g = P.lev[l].g;
     int cls = 0;
 #pragma unroll
     for (int k = 3 - D; k < 3; ++k) cls = 3 * cls + (c[k] == 0 ? 0 : c[k] == g[k] - 1 ? 2 : 1);
-    return stencil_dot<T, D>(S, cls, src, g[1] + 2, pr[l], si) * P.scale[l];
+    T y;
+    if (l < lblk) {
+      auto in = [](int v, int n) { return v < 0 ? 0 : v >= n ? n - 1 : v; };
+      y = stencil_sum<T, D>(S, cls, [&](int e0, int e1, int e2) {
+        return src[(in(c[0] + e0, g[0]) * g[1] + in(c[1] + e1, g[1])) * g[2] + in(c[2] + e2, g[2])];
+      });
+    } else {
+      y = stencil_sum<T, D>(S, cls, [&](int e0, int e1, int e2) {
+        return src[si + e0 * pl[l] + e1 * pr[l] + e2];
+      });
+    }
+    return y * P.scale[l];
   };
   auto swapz = [&](int l) {
     T* tmp = z[l];
@@ -1187,7 +1204,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
         int c[3];
         const int si = at(l, idx, c);
-        const T zn = upd(si, mv(l, z[l], idx, si, c), z[l][si]);
+        const T zn = upd(si, mv(l, z[l], si, c), z[l][si]);
         if (publish) zg[idx] = zn;
       }
     }
@@ -1217,7 +1234,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
           int c[3];
           const int si = at(l, idx, c);
-          t[l][si] = rr[l][si] - mv(l, z[l], idx, si, c);
+          t[l][si] = rr[l][si] - mv(l, z[l], si, c);
         }
       }
       sync(l, false);
@@ -1227,23 +1244,11 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const bool coarsest = l + 2 == L;
       const bool publish = coarsest && l + 1 == lblk && P.cheb_degree < 2;
       for (int idx = lo(l + 1); idx < C.n; idx += step(l + 1)) {
-        int I[3], i0[3], i1[3], i2[3];
-        float w0[3], w1[3], w2[3];
+        int I[3], j[3][3];
+        T w[3][3];
         coords(idx, C, I);
-        const int m0 = restrict_taps(I[0], F.g[0], i0, w0);
-        const int m1 = restrict_taps(I[1], F.g[1], i1, w1);
-        const int m2 = restrict_taps(I[2], F.g[2], i2, w2);
-        T acc0 = T(0);
-        for (int a0 = 0; a0 < m0; ++a0) {
-          T acc1 = T(0);
-          for (int a1 = 0; a1 < m1; ++a1) {
-            const T* row = t[l] + org[l] + i0[a0] * pl[l] + i1[a1] * pr[l];
-            T acc2 = T(0);
-            for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[i2[a2]];
-            acc1 += (T)w1[a1] * acc2;
-          }
-          acc0 += (T)w0[a0] * acc1;
-        }
+        for (int k = 0; k < 3; ++k) restrict_taps(I[k], F.g[k], j[k], w[k]);
+        const T acc0 = transfer<T, D, 3>(t[l] + org[l], pl[l], pr[l], j, w);
         const int si = org[l + 1] + I[0] * pl[l + 1] + I[1] * pr[l + 1] + I[2];
         rr[l + 1][si] = acc0;
         if (coarsest) {
@@ -1268,7 +1273,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       for (int idx = lo(lc); idx < P.lev[lc].n; idx += step(lc)) {
         int c[3];
         const int si = at(lc, idx, c);
-        const T az = mv(lc, z[lc], idx, si, c);
+        const T az = mv(lc, z[lc], si, c);
         const T dk = vfma(c1, t[lc][si], c2 * (iv[lc][si] * (rr[lc][si] - az)));
         t[lc][si] = dk;
         const T zn = z[lc][si] + dk;
@@ -1288,24 +1293,11 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const int corg = out ? 0 : org[l + 1], cpl = out ? C.g[1] * C.g[2] : pl[l + 1];
       const int cpr = out ? C.g[2] : pr[l + 1];
       for (int idx = lo(l); idx < F.n; idx += step(l)) {
-        int i[3], I0[2], I1[2], I2[2];
-        float w0[2], w1[2], w2[2];
+        int i[3], j[3][2];
+        T w[3][2];
         coords(idx, F, i);
-        const int m0 = prolong_taps(i[0], I0, w0);
-        const int m1 = prolong_taps(i[1], I1, w1);
-        const int m2 = prolong_taps(i[2], I2, w2);
-        T acc0 = T(0);
-        for (int a0 = 0; a0 < m0; ++a0) {
-          T acc1 = T(0);
-          for (int a1 = 0; a1 < m1; ++a1) {
-            const T* row = zc + corg + I0[a0] * cpl + I1[a1] * cpr;
-            T acc2 = T(0);
-            for (int a2 = 0; a2 < m2; ++a2) acc2 += (T)w2[a2] * row[I2[a2]];
-            acc1 += (T)w1[a1] * acc2;
-          }
-          acc0 += (T)w0[a0] * acc1;
-        }
-        z[l][org[l] + i[0] * pl[l] + i[1] * pr[l] + i[2]] += acc0;
+        for (int k = 0; k < 3; ++k) prolong_taps(i[k], C.g[k], j[k], w[k]);
+        z[l][org[l] + i[0] * pl[l] + i[1] * pr[l] + i[2]] += transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
       }
       sync(l, false);
       for (int k = 0; k < ns; ++k)
@@ -1955,8 +1947,8 @@ bool mg_plan(int d, int n0, int n1, int n2, int L, int nsmooth, int degree, MgPl
     int64_t pts = 0;
     for (int l = lblk; l < L; ++l) pts += mg_box_points(d, lev[l]);
     if (stencil_pick(a0, kSolveBlocks, 1,
-                     [&](const StencilPlan& c) { return mg_smem<T>(d, L, c, pts).bytes; }, m.s)) {
-      m.sm = mg_smem<T>(d, L, m.s, pts);
+                     [&](const StencilPlan& c) { return mg_smem<T>(d, c, pts).bytes; }, m.s)) {
+      m.sm = mg_smem<T>(d, m.s, pts);
       break;
     }
     if (lblk == L) return false;
@@ -1982,17 +1974,17 @@ int pressure_mg_launch(const void* Ap, const void* b, const void* x0, const void
   P.sub_level = m.sub_level;
   P.block_level = m.block_level;
   P.sub_blocks = m.sub_blocks;
-  P.mat_off = m.sm.mat_off;
   P.red_off = m.sm.red_off;
   P.box_off = m.sm.box_off;
   P.block_off = m.sm.block_off;
   mg_levels(d, n0, n1, n2, levels, P.lev);
   int cells[3] = {n0, n1, d == 3 ? n2 : 0};
   for (int l = 0; l < levels; ++l) {
-    P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
-    P.lv[l].mat_len = 0;  // the kernel stages Ap * scale itself
     P.scale[l] = (T)(double)(1 << (l * (d - 2)));
-    if (l < m.sub_level && !stencil_set(P.lv[l], m.s.t, 1, P.sp[l])) return (int)cudaErrorInvalidValue;
+    if (l < m.sub_level) {
+      P.lv[l] = const_args(d, cells[0], cells[1], cells[2], 1, 1);
+      if (!stencil_set(P.lv[l], m.s.t, 1, P.sp[l])) return (int)cudaErrorInvalidValue;
+    }
     for (int k = 0; k < d; ++k) cells[k] /= 2;
   }
   P.Ap = static_cast<const T*>(Ap);

@@ -1147,8 +1147,8 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       });
     }
   };
-  // point idx of level l >= lsub: its coordinates c, its index in the
-  // level's layout, and A v there, point by point: each neighbour's load in
+  // point idx of level l: its coordinates c, its index in the level's
+  // layout; A v there (l >= lsub) point by point: each neighbour's load in
   // flight at once (stencil_sum), a neighbour beyond the grid read at the
   // nearest point of the grid (its coefficient is 0) or in the box's zeros
   auto at = [&](int l, int idx, int* c) {
@@ -1172,6 +1172,36 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       });
     }
     return y * P.scale[l];
+  };
+  // load(idx, si, c) (loads only) then store(idx, si, v) at each point idx
+  // of level l >= lsub for its team, si its index in the level's layout and
+  // c its coordinates.  On block 0 a thread's points (at most kBlockPoints)
+  // all load before any stores, so that their loads are in flight together.
+  auto points = [&](int l, auto&& load, auto&& store) {
+    const int n = P.lev[l].n;
+    if (l >= lblk) {
+      int si[kBlockPoints];
+      T v[kBlockPoints];
+#pragma unroll
+      for (int k = 0; k < kBlockPoints; ++k) {
+        const int idx = threadIdx.x + k * blockDim.x;
+        si[k] = -1;
+        if (lead && idx < n) {
+          int c[3];
+          si[k] = at(l, idx, c);
+          v[k] = load(idx, si[k], c);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBlockPoints; ++k)
+        if (si[k] >= 0) store((int)(threadIdx.x + k * blockDim.x), si[k], v[k]);
+    } else {
+      for (int idx = lo(l); idx < n; idx += step(l)) {
+        int c[3];
+        const int si = at(l, idx, c);
+        store(idx, si, load(idx, si, c));
+      }
+    }
   };
   auto swapz = [&](int l) {
     T* tmp = z[l];
@@ -1201,12 +1231,12 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       tiled(l, [&](int i) { return Vals<T, 1>{{zl[i]}}; },
             [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; }, upd);
     } else {
-      for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
-        int c[3];
-        const int si = at(l, idx, c);
-        const T zn = upd(si, mv(l, z[l], si, c), z[l][si]);
-        if (publish) zg[idx] = zn;
-      }
+      points(
+          l, [&](int, int si, const int* c) { return mv(l, z[l], si, c); },
+          [&](int idx, int si, T az) {
+            const T zn = upd(si, az, z[l][si]);
+            if (publish) zg[idx] = zn;
+          });
     }
     swapz(l);
     if (with_sum)
@@ -1231,11 +1261,9 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
               [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; },
               [&](int i, T az, T) { t[l][i] = rr[l][i] - az; });
       } else {
-        for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
-          int c[3];
-          const int si = at(l, idx, c);
-          t[l][si] = rr[l][si] - mv(l, z[l], si, c);
-        }
+        points(
+            l, [&](int, int si, const int* c) { return mv(l, z[l], si, c); },
+            [&](int, int si, T az) { t[l][si] = rr[l][si] - az; });
       }
       sync(l, false);
       // r[l+1] = P^T t[l], then the next level's first step
@@ -1243,23 +1271,25 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const Level& C = P.lev[l + 1];
       const bool coarsest = l + 2 == L;
       const bool publish = coarsest && l + 1 == lblk && P.cheb_degree < 2;
-      for (int idx = lo(l + 1); idx < C.n; idx += step(l + 1)) {
-        int I[3], j[3][3];
-        T w[3][3];
-        coords(idx, C, I);
-        for (int k = 0; k < 3; ++k) restrict_taps(I[k], F.g[k], j[k], w[k]);
-        const T acc0 = transfer<T, D, 3>(t[l] + org[l], pl[l], pr[l], j, w);
-        const int si = org[l + 1] + I[0] * pl[l + 1] + I[1] * pr[l + 1] + I[2];
-        rr[l + 1][si] = acc0;
-        if (coarsest) {
-          const T dk = (iv[l + 1][si] * acc0) / (T)theta;
-          t[l + 1][si] = dk;
-          z[l + 1][si] = dk;
-          if (publish) zg[idx] = dk;
-        } else {
-          z[l + 1][si] = (om * iv[l + 1][si]) * acc0;
-        }
-      }
+      points(
+          l + 1,
+          [&](int, int, const int* I) {
+            int j[3][3];
+            T w[3][3];
+            for (int k = 0; k < 3; ++k) restrict_taps(I[k], F.g[k], j[k], w[k]);
+            return transfer<T, D, 3>(t[l] + org[l], pl[l], pr[l], j, w);
+          },
+          [&](int idx, int si, T acc0) {
+            rr[l + 1][si] = acc0;
+            if (coarsest) {
+              const T dk = (iv[l + 1][si] * acc0) / (T)theta;
+              t[l + 1][si] = dk;
+              z[l + 1][si] = dk;
+              if (publish) zg[idx] = dk;
+            } else {
+              z[l + 1][si] = (om * iv[l + 1][si]) * acc0;
+            }
+          });
       sync(l + 1, subpart && coarsest && l + 1 == lsub && P.cheb_degree < 2, publish);
     }
     // coarsest level: Chebyshev-Jacobi, dk kept in t
@@ -1270,16 +1300,15 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);
       const bool publish = lc == lblk && k + 2 == P.cheb_degree;
-      for (int idx = lo(lc); idx < P.lev[lc].n; idx += step(lc)) {
-        int c[3];
-        const int si = at(lc, idx, c);
-        const T az = mv(lc, z[lc], si, c);
-        const T dk = vfma(c1, t[lc][si], c2 * (iv[lc][si] * (rr[lc][si] - az)));
-        t[lc][si] = dk;
-        const T zn = z[lc][si] + dk;
-        zb[lc][si] = zn;
-        if (publish) zg[idx] = zn;
-      }
+      points(
+          lc, [&](int, int si, const int* c) { return mv(lc, z[lc], si, c); },
+          [&](int idx, int si, T az) {
+            const T dk = vfma(c1, t[lc][si], c2 * (iv[lc][si] * (rr[lc][si] - az)));
+            t[lc][si] = dk;
+            const T zn = z[lc][si] + dk;
+            zb[lc][si] = zn;
+            if (publish) zg[idx] = zn;
+          });
       swapz(lc);
       sync(lc, subpart && lc == lsub && k + 2 == P.cheb_degree, publish);
       rho = rho_new;
@@ -1292,12 +1321,24 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       const T* zc = out ? zg : z[l + 1];
       const int corg = out ? 0 : org[l + 1], cpl = out ? C.g[1] * C.g[2] : pl[l + 1];
       const int cpr = out ? C.g[2] : pr[l + 1];
-      for (int idx = lo(l); idx < F.n; idx += step(l)) {
-        int i[3], j[3][2];
-        T w[3][2];
-        coords(idx, F, i);
-        for (int k = 0; k < 3; ++k) prolong_taps(i[k], C.g[k], j[k], w[k]);
-        z[l][org[l] + i[0] * pl[l] + i[1] * pr[l] + i[2]] += transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
+      if (l < lsub) {
+        for (int idx = first; idx < F.n; idx += stride) {
+          int i[3], j[3][2];
+          T w[3][2];
+          coords(idx, F, i);
+          for (int k = 0; k < 3; ++k) prolong_taps(i[k], C.g[k], j[k], w[k]);
+          z[l][idx] += transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
+        }
+      } else {
+        points(
+            l,
+            [&](int, int, const int* i) {
+              int j[3][2];
+              T w[3][2];
+              for (int k = 0; k < 3; ++k) prolong_taps(i[k], C.g[k], j[k], w[k]);
+              return transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
+            },
+            [&](int, int si, T acc0) { z[l][si] += acc0; });
       }
       sync(l, false);
       for (int k = 0; k < ns; ++k)

@@ -92,7 +92,7 @@
 // (batch 3) and does not, so an iteration moves its two passes from HBM:
 // 10 vectors of nb rows and the shared invd twice, ~282 MB (0.084 ms).
 // K1: latency; the 50k / 7k / 1k point pressure levels fit in L2, and the
-// time goes to barriers (per MG iteration at N=36, 8 grid barriers, 6 among
+// time goes to barriers (per MG iteration at N=36, 6 grid barriers, 6 among
 // the sub-group's blocks and 13 of one block, mg_barriers; 2 an iteration
 // of the Jacobi and Chebyshev modes where the steps' box fits,
 // pcg_barriers).
@@ -847,14 +847,19 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 //     once, each point sums its 3^d neighbours in shared memory; level l's
 //     coefficients are the fine level's times 2^(l (d-2)), a power of two,
 //     applied to the sum, which leaves its bits those of the scaled table);
-//   - the CG body has two grid barriers, both reductions.  Phase A, on the
-//     tile: p = (z - mz) + beta p wherever the tile reads p (two p buffers
-//     by parity), Ap on the owned points, and the sums of Ap, p . Ap and p,
-//     so that p . demean(Ap) = p . Ap - sum(Ap) sum(p) / n.  Phase B: x +=
-//     alpha p, r -= alpha (Ap - mean), the first sweep z = omega invd r and
-//     |r|^2.  The last up-sweep of the fine level sums z, r . z and r, so
-//     that rz = r . demean(z) = r . z - mean(z) sum(r): z is never demeaned
-//     in memory, and p is formed where it is read;
+//   - the CG body has one grid barrier of its own, a reduction.  Phase A,
+//     on the tile: p = (z - mz) + beta p wherever the tile reads p (two p
+//     buffers by parity), Ap on the owned points, and the sums of Ap, p .
+//     Ap and p, so that p . demean(Ap) = p . Ap - sum(Ap) sum(p) / n.
+//     Phase B (x += alpha p, r' = r - alpha (Ap - mean) into the other of
+//     two r buffers, the first sweep z = omega invd r', |r'|^2) rides on
+//     the loads of the V-cycle's first product, which computes r' and z in
+//     its box, halo included, and sums |r'|^2.  The last up-sweep of the
+//     fine level sums z, r . z and r, so that rz = r . demean(z) = r . z -
+//     mean(z) sum(r): z is never demeaned in memory, and p is formed where
+//     it is read;
+//   - on those levels the prolongation rides on the first up-sweep's loads
+//     (a box point takes z + P z' of the coarser level);
 //   - the levels with at most one point a thread of kSubBlocks blocks run
 //     point by point on those blocks, each point's 3^d neighbours loaded at
 //     once (stencil_sum), separated by a barrier among them (sub_sync);
@@ -869,9 +874,9 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // (stencil_apply, stencil_sum), so a point's value does not depend on the
 // team that computes it: the plan moves no bit.  A grid transfer's point
 // loads its taps at once, a tap beyond the grid at weight 0 (transfer).
-// Per iteration at N=36: 8 grid barriers, 6 among the sub-group and 13 of
-// block 0 (mg_barriers; the parent design took 30 grid barriers, PR 8's
-// sub-group 11 and 19).
+// Per iteration at N=36: 6 grid barriers, 6 among the sub-group and 13 of
+// block 0; at N=64 11, 6 and 19 (mg_barriers; the design before took 30
+// grid barriers at N=36, PR 8's sub-group 11 and 19).
 
 struct Level {
   int g[3];            // grid points per axis; a 2D grid is (1, g0, g1)
@@ -925,7 +930,7 @@ struct MgArgs {
 constexpr int kSubBlocks = 32;
 constexpr int kSubPoints = 1;
 constexpr int kBlockPoints = 4;
-constexpr int kMgBody = 2;  // grid barriers of the CG body outside the V-cycle
+constexpr int kMgBody = 1;  // grid barriers of the CG body outside the V-cycle
 
 // A point's coordinates on its level, by exact multiply-and-shift divisions
 // (FastDiv, exact below 2^31; cube_fits bounds every level).
@@ -1079,7 +1084,8 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   const int n0 = P.lev[0].n;
   T* pv[2] = {P.work + 4 * (P.lev[L - 1].off + P.lev[L - 1].n), nullptr};
   pv[1] = pv[0] + n0;
-  T* Ap = t[0];  // A p, from phase A to phase B
+  T* Ap = pv[1] + n0;  // A p, from phase A to phase B
+  T* rnext = Ap + n0;  // the fine level's r by iteration parity, with rr[0]
   T* x = P.x;
   const T nmean = (T)n0;
   const T om = (T)P.omega;
@@ -1103,7 +1109,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   const int blk_first = lead ? (int)threadIdx.x : INT32_MAX;
   auto lo = [&](int l) { return l < lsub ? first : l < lblk ? sub_first : blk_first; };
   auto step = [&](int l) { return l < lsub ? stride : l < lblk ? sub_stride : (int)blockDim.x; };
-  unsigned* bar = reinterpret_cast<unsigned*>(pv[1] + n0);  // sub_sync's words
+  unsigned* bar = reinterpret_cast<unsigned*>(rnext + n0);  // sub_sync's words
   if (blockIdx.x == 0 && threadIdx.x == 0) bar[0] = 0u;  // before the first grid barrier
   T* zg = lblk < L ? P.work + 4 * P.lev[lblk].off + P.lev[lblk].n : nullptr;
   // the barrier that ends a phase on level l: the grid's above lsub and for
@@ -1122,9 +1128,9 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   };
 
   // A v on level l < lsub, a tile at a time (the grid's blocks in turn):
-  // fetch(i) (global loads) and put(i, own, v) give the input at grid point
-  // i into the box (region 1); then store(i, (A v)_i, v_i) at each owned
-  // point
+  // fetch(i, own) (global loads) and put(i, own, v) give the input at grid
+  // point i into the box (region 1); then store(i, (A v)_i, v_i) at each
+  // owned point
   auto tiled = [&](int l, auto&& fetch, auto&& put, auto&& store) {
     const StencilPlan& sp = P.sp[l];
     const CubeArgs& a = P.lv[l];
@@ -1136,7 +1142,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       stencil_tile(sp, tt, B0);
       __syncthreads();  // the last tile's readers of the box are done
       stencil_load<D, 4>(
-          a, sp, B0, 1, [&](int i, bool) { return fetch(i); },
+          a, sp, B0, 1, [&](int i, bool own) { return fetch(i, own); },
           [&](int i, int lb, bool own, const auto& v) { BX[lb] = i >= 0 ? put(i, own, v) : T(0); });
       __syncthreads();
       stencil_region<D>(a, sp, B0, 0, [&](int i, int lb, int cls, bool) {
@@ -1210,10 +1216,63 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   };
   T s[kMaxRed];
 
+  // The input z of a product on level l < lsub, a tile at a time, into
+  // store: z[l]; kProlong: z[l] + P z' of the coarser level (zc_p, its rows
+  // cpr_p and planes cpl_p apart), the prolongation riding on the first
+  // up-sweep; kPhaseB (level 0, the V-cycle's first product): phase B of
+  // the CG body riding on it, r' = r - alpha (Ap - ma) from the last
+  // iteration's r (r_b) and z = omega invd r', with r', z and x += alpha p
+  // written at the owned points and |r'|^2 summed into s[0].
+  enum { kPlain, kProlong, kPhaseB };
+  T alpha_b = T(0), ma_b = T(0);
+  const T* p_b = nullptr;
+  const T* r_b = nullptr;
+  const T* zc_p = nullptr;
+  int cpl_p = 0, cpr_p = 0;
+  auto tiled_z = [&](int l, int mode, auto&& store) {
+    const T* zl = z[l];
+    if (mode == kPhaseB) {
+      T* z0 = z[0];
+      tiled(
+          0,
+          [&](int i, bool own) {
+            return Vals<T, 5>{{r_b[i], Ap[i], iv[0][i], own ? p_b[i] : T(0), own ? x[i] : T(0)}};
+          },
+          [&](int i, bool own, const Vals<T, 5>& v) {
+            const T r = vfma(-alpha_b, v.v[1] - ma_b, v.v[0]);
+            const T zz = (om * v.v[2]) * r;
+            if (own) {
+              rr[0][i] = r;
+              z0[i] = zz;
+              x[i] = vfma(alpha_b, v.v[3], v.v[4]);
+              s[0] = vfma(r, r, s[0]);
+            }
+            return zz;
+          },
+          store);
+    } else if (mode == kProlong) {
+      const Level& F = P.lev[l];
+      const Level& C = P.lev[l + 1];
+      tiled(
+          l,
+          [&](int i, bool) {
+            int c[3], j[3][2];
+            T w[3][2];
+            coords(i, F, c);
+            for (int k = 0; k < 3; ++k) prolong_taps(c[k], C.g[k], j[k], w[k]);
+            return Vals<T, 2>{{zl[i], transfer<T, D, 2>(zc_p, cpl_p, cpr_p, j, w)}};
+          },
+          [&](int, bool, const Vals<T, 2>& v) { return v.v[0] + v.v[1]; }, store);
+    } else {
+      tiled(l, [&](int i, bool) { return Vals<T, 1>{{zl[i]}}; },
+            [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; }, store);
+    }
+  };
+
   // z' = z + omega invd (r - A z); with_sum (level 0): the grid sums of z',
   // r . z' and r into s, else the level's barrier (closing: the grid's;
-  // publish: block 0's last phase)
-  auto sweep = [&](int l, bool with_sum, bool closing, bool publish) {
+  // publish: block 0's last phase; kPhaseB: the grid sum of s[0])
+  auto sweep = [&](int l, bool with_sum, bool closing, bool publish, int mode) {
     zero(s);
     auto upd = [&](int i, T az, T zi) {
       const T zn = zi + (om * iv[l][i]) * (rr[l][i] - az);
@@ -1227,9 +1286,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       return zn;
     };
     if (l < lsub) {
-      const T* zl = z[l];
-      tiled(l, [&](int i) { return Vals<T, 1>{{zl[i]}}; },
-            [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; }, upd);
+      tiled_z(l, mode, upd);
     } else {
       points(
           l, [&](int, int si, const int* c) { return mv(l, z[l], si, c); },
@@ -1241,6 +1298,8 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     swapz(l);
     if (with_sum)
       grid_sum_warp<3>(red, s);
+    else if (mode == kPhaseB)
+      grid_sum_warp<1>(red, s);
     else
       sync(l, closing, publish);
   };
@@ -1249,23 +1308,34 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   const double delta = 0.5 * (P.lmax - P.lmin);
   const double sigma1 = theta / delta;
 
-  // z[0] holds omega invd r[0] (the first sweep from zero) on entry; leaves
-  // the V-cycle's z in z[0] and the grid sums of z, r . z and r in s
-  auto vcycle = [&]() {
+  // z[0] holds omega invd r[0] (the first sweep from zero) on entry, or,
+  // with phase_b, comes from phase B riding on the first product (its |r'|^2
+  // in rsq); leaves the V-cycle's z in z[0] and the grid sums of z, r . z
+  // and r in s
+  T rsq = T(0);
+  auto vcycle = [&](bool phase_b) {
     for (int l = 0; l + 1 < L; ++l) {
-      for (int k = 1; k < ns; ++k) sweep(l, false, false, false);
+      for (int k = 1; k < ns; ++k) {
+        const bool b = phase_b && l == 0 && k == 1;
+        sweep(l, false, false, false, b ? kPhaseB : kPlain);
+        if (b) rsq = s[0];
+      }
       // t[l] = r[l] - A z[l]
+      const bool b = phase_b && l == 0 && ns == 1;
       if (l < lsub) {
-        const T* zl = z[l];
-        tiled(l, [&](int i) { return Vals<T, 1>{{zl[i]}}; },
-              [&](int, bool, const Vals<T, 1>& v) { return v.v[0]; },
-              [&](int i, T az, T) { t[l][i] = rr[l][i] - az; });
+        zero(s);
+        tiled_z(l, b ? kPhaseB : kPlain, [&](int i, T az, T) { t[l][i] = rr[l][i] - az; });
       } else {
         points(
             l, [&](int, int si, const int* c) { return mv(l, z[l], si, c); },
             [&](int, int si, T az) { t[l][si] = rr[l][si] - az; });
       }
-      sync(l, false);
+      if (b) {
+        grid_sum_warp<1>(red, s);
+        rsq = s[0];
+      } else {
+        sync(l, false);
+      }
       // r[l+1] = P^T t[l], then the next level's first step
       const Level& F = P.lev[l];
       const Level& C = P.lev[l + 1];
@@ -1314,22 +1384,14 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
       rho = rho_new;
     }
     for (int l = L - 2; l >= 0; --l) {
-      // z[l] += P z[l+1] (from zg out of block 0's first level)
-      const Level& F = P.lev[l];
+      // z[l] += P z[l+1] (from zg out of block 0's first level): on a level
+      // of the whole grid riding on the first sweep's loads, else a phase
       const Level& C = P.lev[l + 1];
       const bool out = l + 1 == lblk;
       const T* zc = out ? zg : z[l + 1];
       const int corg = out ? 0 : org[l + 1], cpl = out ? C.g[1] * C.g[2] : pl[l + 1];
       const int cpr = out ? C.g[2] : pr[l + 1];
-      if (l < lsub) {
-        for (int idx = first; idx < F.n; idx += stride) {
-          int i[3], j[3][2];
-          T w[3][2];
-          coords(idx, F, i);
-          for (int k = 0; k < 3; ++k) prolong_taps(i[k], C.g[k], j[k], w[k]);
-          z[l][idx] += transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
-        }
-      } else {
+      if (l >= lsub) {
         points(
             l,
             [&](int, int, const int* i) {
@@ -1339,18 +1401,21 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
               return transfer<T, D, 2>(zc + corg, cpl, cpr, j, w);
             },
             [&](int, int si, T acc0) { z[l][si] += acc0; });
+        sync(l, false);
       }
-      sync(l, false);
+      zc_p = zc + corg;
+      cpl_p = cpl;
+      cpr_p = cpr;
       for (int k = 0; k < ns; ++k)
         sweep(l, l == 0 && k + 1 == ns, subpart && l == lsub && k + 1 == ns,
-              l == lblk && k + 1 == ns);
+              l == lblk && k + 1 == ns, l < lsub && k == 0 ? kProlong : kPlain);
     }
   };
 
   // b = demean(b); tol = rtol |b|; x = x0; r = demean(b - A x0)
   zero(s);
   tiled(
-      0, [&](int i) { return Vals<T, 1>{{P.x0[i]}}; },
+      0, [&](int i, bool) { return Vals<T, 1>{{P.x0[i]}}; },
       [&](int i, bool own, const Vals<T, 1>& v) {
         if (own) x[i] = v.v[0];
         return v.v[0];
@@ -1382,7 +1447,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
   grid_sum_warp<1>(red, s);
   T rn = vsqrt(s[0]);
   // z = V-cycle(r); rz = r . demean(z)
-  vcycle();
+  vcycle(false);
   T mz = s[0] / nmean;
   T rz = vfma(-mz, s[2], s[1]);
 
@@ -1396,7 +1461,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     const T* zl = z[0];
     zero(s);
     tiled(
-        0, [&](int i) { return Vals<T, 2>{{zl[i], k == 0 ? T(0) : po[i]}}; },
+        0, [&](int i, bool) { return Vals<T, 2>{{zl[i], k == 0 ? T(0) : po[i]}}; },
         [&](int i, bool own, const Vals<T, 2>& v) {
           const T zz = v.v[0] - mz;
           const T pp = k == 0 ? zz : vfma(beta, v.v[1], zz);
@@ -1410,21 +1475,16 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
           s[2] += pp;
         });
     grid_sum_warp<3>(red, s);
-    const T ma = s[0] / nmean;
-    const T alpha = rz / nz(vfma(-ma, s[2], s[1]));
-    // phase B: x += alpha p; r -= alpha (Ap - ma); |r|; the V-cycle's first
-    // sweep
-    zero(s);
-    for (int idx = first; idx < n0; idx += stride) {
-      x[idx] = vfma(alpha, pn[idx], x[idx]);
-      const T r = vfma(-alpha, Ap[idx] - ma, rr[0][idx]);
-      rr[0][idx] = r;
-      z[0][idx] = (om * iv[0][idx]) * r;
-      s[0] = vfma(r, r, s[0]);
-    }
-    grid_sum_warp<1>(red, s);
-    const T rn_new = vsqrt(s[0]);
-    vcycle();
+    ma_b = s[0] / nmean;
+    alpha_b = rz / nz(vfma(-ma_b, s[2], s[1]));
+    // phase B (x += alpha p; r -= alpha (Ap - ma) into the other r buffer;
+    // |r|; the V-cycle's first sweep) rides on the V-cycle's first product
+    p_b = pn;
+    r_b = rr[0];
+    rr[0] = rnext;
+    rnext = const_cast<T*>(r_b);
+    vcycle(true);
+    const T rn_new = vsqrt(rsq);
     mz = s[0] / nmean;
     const T rz_new = vfma(-mz, s[2], s[1]);
     beta = rz_new / nz(rz);
@@ -1945,7 +2005,8 @@ struct MgPlan {
 // Barriers of one iteration: the CG body's kMgBody grid barriers, and one
 // after each V-cycle phase (per level above the coarsest: nsmooth down (the
 // sweeps after the first, the residual), the restriction into the next
-// level, nsmooth + 1 up (the prolongation, the sweeps); degree - 1
+// level, nsmooth + 1 up (the prolongation, the sweeps; on a level of the
+// whole grid the prolongation rides on the first sweep); degree - 1
 // Chebyshev steps on the coarsest), each its team's: the phases of levels
 // from block_level are block 0's but the last, which takes the level
 // above's barrier, and the sub-group's last phase takes the grid's barrier
@@ -1953,7 +2014,7 @@ struct MgPlan {
 inline void mg_barriers(int L, int nsmooth, int degree, MgPlan& m) {
   int phases[kMaxLevels] = {};
   for (int l = 0; l + 1 < L; ++l) {
-    phases[l] += 2 * nsmooth + 1;
+    phases[l] += 2 * nsmooth + (l < m.sub_level ? 0 : 1);
     phases[l + 1] += 1;
   }
   phases[L - 1] += degree - 1;
@@ -2177,7 +2238,7 @@ int oasisx_bicgstab(const void* W, const void* r0, const void* x0, const void* z
 // MG-PCG on the P1 grid of (n0, n1[, n2]) cells with cube matrix Ap (2^d, 2^d)
 // and `levels` levels of halved cells, the levels' teams of mg_plan: b, x0,
 // x (grid); invd (every level's points, concatenated); work: 4 * (points of
-// all levels) + 2 * grid points + 2 (the sub-group barrier's words); red: 2
+// all levels) + 4 * grid points + 2 (the sub-group barrier's words); red: 2
 // * 8 * max_blocks.  Writes x, iters, rnorm and conv (int32, 1 each).
 int oasisx_pressure_mg(const void* Ap, const void* b, const void* x0, const void* invd,
                        void* x, void* work, void* red, int max_blocks, void* iters,

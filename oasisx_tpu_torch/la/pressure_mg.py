@@ -43,7 +43,7 @@ SUB_BLOCKS = 32
 SUB_POINTS = 1
 BLOCK_POINTS = 4
 STENCIL_LEVELS = 4
-BODY_BARRIERS = 2  # grid barriers of the CG body outside the V-cycle
+BODY_BARRIERS = 1  # grid barriers of the CG body outside the V-cycle
 
 
 def mg_teams(sizes: list[int], block: bool = True) -> tuple[int, int, int]:
@@ -64,13 +64,14 @@ def barriers(L: int, lsub: int, lblk: int, nsmooth: int, degree: int) -> tuple[i
     BODY_BARRIERS in the CG body, and one after each V-cycle phase (per
     level above the coarsest: nsmooth down (the sweeps after the first, the
     residual), the restriction into the next level, nsmooth + 1 up (the
-    prolongation, the sweeps); degree - 1 Chebyshev steps on the coarsest),
-    each its level's team's; block 0's last phase (it writes z for the
-    level above) takes the level above's barrier, and the sub-group's last
-    phase the grid barrier that closes its part."""
+    prolongation, the sweeps; above lsub the prolongation rides on the
+    first sweep); degree - 1 Chebyshev steps on the coarsest), each its
+    level's team's; block 0's last phase (it writes z for the level above)
+    takes the level above's barrier, and the sub-group's last phase the grid
+    barrier that closes its part."""
     phases = [0] * L  # V-cycle phases per level
     for l in range(L - 1):
-        phases[l] += 2 * nsmooth + 1
+        phases[l] += 2 * nsmooth + (0 if l < lsub else 1)
         phases[l + 1] += 1
     phases[L - 1] += degree - 1
     grid = BODY_BARRIERS + sum(phases[:lsub])
@@ -195,7 +196,8 @@ class PressureMGCG:
         kn._check(self.Ap_c, "Ap_c", dt, tuple(self.Ap_c.shape))
         ntot = self.invd_all.numel()
         x = torch.empty(n, dtype=dt, device=dev)
-        work = torch.empty(4 * ntot + 2 * n + 2, dtype=dt, device=dev)  # + sub_sync's 2 words
+        # 4 vectors a level, p twice, Ap, r's second buffer, sub_sync's 2 words
+        work = torch.empty(4 * ntot + 4 * n + 2, dtype=dt, device=dev)
         red = torch.empty(2 * 8 * kn.coop_capacity(dev), dtype=dt, device=dev)
         iters = torch.empty(1, dtype=torch.int32, device=dev)
         rnorm = torch.empty(1, dtype=dt, device=dev)

@@ -68,7 +68,8 @@ def test_mg_plain_in_stencil_order(cells):
 def _walk(L, lsub, lblk, nsmooth, degree):
     """(grid, sub-group, block) barriers of one iteration, counted by
     walking the kernel's phases (csrc/krylov_ops.cu pressure_mg_kernel) in
-    order: each phase ends with its team's barrier; block 0's last phase
+    order (the CG body's phase B riding on the V-cycle's first product):
+    each phase ends with its team's barrier; block 0's last phase
     (which writes z for the level above) with the level above's; the last
     phase the sub-group runs with the grid's."""
     def team(level):
@@ -80,7 +81,8 @@ def _walk(L, lsub, lblk, nsmooth, degree):
         seq.append(team(level + 1))  # the restriction and the next level's first sweep
     seq += [team(L - 1)] * (degree - 1)  # the coarsest's Chebyshev steps
     for level in reversed(range(L - 1)):
-        seq += [team(level)] * (nsmooth + 1)  # the prolongation, the sweeps
+        # the prolongation (above lsub riding on the first sweep), the sweeps
+        seq += [team(level)] * (nsmooth + (0 if level < lsub else 1))
     if "block" in seq:  # block 0's last phase ends with the level above's barrier
         seq[len(seq) - 1 - seq[::-1].index("block")] = team(lblk - 1)
     if "sub" in seq:  # the sub-group's last phase closes its part

@@ -1179,34 +1179,13 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     }
     return y * P.scale[l];
   };
-  // load(idx, si, c) (loads only) then store(idx, si, v) at each point idx
-  // of level l >= lsub for its team, si its index in the level's layout and
-  // c its coordinates.  On block 0 a thread's points (at most kBlockPoints)
-  // all load before any stores, so that their loads are in flight together.
+  // store(idx, si, load(idx, si, c)) at each point idx of level l >= lsub
+  // for its team, si its index in the level's layout and c its coordinates
   auto points = [&](int l, auto&& load, auto&& store) {
-    const int n = P.lev[l].n;
-    if (l >= lblk) {
-      int si[kBlockPoints];
-      T v[kBlockPoints];
-#pragma unroll
-      for (int k = 0; k < kBlockPoints; ++k) {
-        const int idx = threadIdx.x + k * blockDim.x;
-        si[k] = -1;
-        if (lead && idx < n) {
-          int c[3];
-          si[k] = at(l, idx, c);
-          v[k] = load(idx, si[k], c);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kBlockPoints; ++k)
-        if (si[k] >= 0) store((int)(threadIdx.x + k * blockDim.x), si[k], v[k]);
-    } else {
-      for (int idx = lo(l); idx < n; idx += step(l)) {
-        int c[3];
-        const int si = at(l, idx, c);
-        store(idx, si, load(idx, si, c));
-      }
+    for (int idx = lo(l); idx < P.lev[l].n; idx += step(l)) {
+      int c[3];
+      const int si = at(l, idx, c);
+      store(idx, si, load(idx, si, c));
     }
   };
   auto swapz = [&](int l) {

@@ -1161,11 +1161,16 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     coords(idx, P.lev[l], c);
     return org[l] + c[0] * pl[l] + c[1] * pr[l] + c[2];
   };
-  auto mv = [&](int l, const T* src, int si, const int* c) -> T {
+  auto klass = [&](int l, const int* c) {  // the stencil's class of point c
     const int* g = P.lev[l].g;
     int cls = 0;
 #pragma unroll
     for (int k = 3 - D; k < 3; ++k) cls = 3 * cls + (c[k] == 0 ? 0 : c[k] == g[k] - 1 ? 2 : 1);
+    return cls;
+  };
+  auto mv = [&](int l, const T* src, int si, const int* c) -> T {
+    const int* g = P.lev[l].g;
+    const int cls = klass(l, c);
     T y;
     if (l < lblk) {
       auto in = [](int v, int n) { return v < 0 ? 0 : v >= n ? n - 1 : v; };
@@ -1344,7 +1349,56 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
     // coarsest level: Chebyshev-Jacobi, dk kept in t
     const int lc = L - 1;
     double rho = 1.0 / sigma1;
-    for (int k = 0; k + 1 < P.cheb_degree; ++k) {
+    if (lc >= lblk) {
+      // on block 0: a thread's points (at most kBlockPoints), their index in
+      // the box and their class, and the level's vectors held in registers
+      // over the steps
+      int si[kBlockPoints], cl[kBlockPoints];
+#pragma unroll
+      for (int j = 0; j < kBlockPoints; ++j) {
+        const int idx = threadIdx.x + j * blockDim.x;
+        si[j] = -1;
+        if (lead && idx < P.lev[lc].n) {
+          int c[3];
+          si[j] = at(lc, idx, c);
+          cl[j] = klass(lc, c);
+        }
+      }
+      T* R = rr[lc];
+      T* TK = t[lc];
+      const T* IV = iv[lc];
+      T* za = z[lc];
+      T* zo = zb[lc];
+      const int ppl = pl[lc], ppr = pr[lc];
+      const T sc = P.scale[lc];
+      for (int k = 0; k + 1 < P.cheb_degree; ++k) {
+        const double rho_new = 1.0 / (2.0 * sigma1 - rho);
+        const T c1 = (T)(rho_new * rho);
+        const T c2 = (T)(2.0 * rho_new / delta);
+        const bool publish = lc == lblk && k + 2 == P.cheb_degree;
+#pragma unroll
+        for (int j = 0; j < kBlockPoints; ++j) {
+          const int q = si[j];
+          if (q < 0) continue;
+          const T az = stencil_sum<T, D>(S, cl[j], [&](int e0, int e1, int e2) {
+                         return za[q + e0 * ppl + e1 * ppr + e2];
+                       }) * sc;
+          const T dk = vfma(c1, TK[q], c2 * (IV[q] * (R[q] - az)));
+          TK[q] = dk;
+          const T zn = za[q] + dk;
+          zo[q] = zn;
+          if (publish) zg[threadIdx.x + j * blockDim.x] = zn;
+        }
+        T* tmp = za;
+        za = zo;
+        zo = tmp;
+        sync(lc, false, publish);
+        rho = rho_new;
+      }
+      z[lc] = za;
+      zb[lc] = zo;
+    }
+    for (int k = 0; lc < lblk && k + 1 < P.cheb_degree; ++k) {
       const double rho_new = 1.0 / (2.0 * sigma1 - rho);
       const T c1 = (T)(rho_new * rho);
       const T c2 = (T)(2.0 * rho_new / delta);

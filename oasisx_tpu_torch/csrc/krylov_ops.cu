@@ -1376,7 +1376,7 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) pressure_mg_kernel(MgA
         const T c1 = (T)(rho_new * rho);
         const T c2 = (T)(2.0 * rho_new / delta);
         const bool publish = lc == lblk && k + 2 == P.cheb_degree;
-#pragma unroll
+#pragma unroll 1
         for (int j = 0; j < kBlockPoints; ++j) {
           const int q = si[j];
           if (q < 0) continue;

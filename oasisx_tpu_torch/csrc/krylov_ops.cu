@@ -836,11 +836,10 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // residual, its restriction; the coarsest level's degree-cheb_degree
 // Chebyshev-Jacobi; back up, the prolongation and nsmooth sweeps.
 //
-// Every phase ends with a barrier of its level's team (mg_plan), and a
-// phase that is not a reduction is bound by its barrier, not by its work:
-// at N=36 the levels hold 50,653 / 6,859 / 1,000 points against ~64k
-// threads, and a grid-wide phase costs ~6 us on an NVIDIA H100 80GB HBM3
-// at 700 W.  So:
+// Every phase ends with a barrier of its level's team (mg_plan).  The
+// levels are small (50,653 / 6,859 / 1,000 points at N=36 against ~64k
+// threads), so a phase is bound by latency, its loads and its barrier, not
+// by bytes or operations.  So:
 //   - the levels on the whole grid (the fine level, and at N=64 level 1)
 //     run their products on the P1 stencil tile with a halo of one layer
 //     (cube_device.cuh, as K1's other modes: a block reads its tile's box
@@ -876,7 +875,11 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // loads its taps at once, a tap beyond the grid at weight 0 (transfer).
 // Per iteration at N=36: 6 grid barriers, 6 among the sub-group and 13 of
 // block 0; at N=64 11, 6 and 19 (mg_barriers; the design before took 30
-// grid barriers at N=36, PR 8's sub-group 11 and 19).
+// grid barriers at N=36, PR 8's sub-group 11 and 19).  On an NVIDIA H100
+// 80GB HBM3 at 700 W an iteration took ~77 us at N=36, of which the 13
+// coarse Chebyshev steps on block 0 ~2 us each; riding phase B and the
+// prolongation on products (two grid barriers fewer) saved ~1 us each
+// (PERF.md, PR 21).
 
 struct Level {
   int g[3];            // grid points per axis; a 2D grid is (1, g0, g1)
@@ -897,7 +900,8 @@ struct MgArgs {
   const T* x0;    // (n0)
   const T* invd;  // every level's Jacobi inverse diagonal, concatenated
   T* x;           // (n0) out
-  T* work;        // 4 vectors per level (r, z, z', t), then p twice (n0 each)
+  T* work;        // 4 vectors per level (r, z, z', t), then p twice, Ap and r's
+                  // second buffer (n0 each), then sub_sync's words
   T* red;
   int* iters;     // (1) out
   T* rnorm;       // (1) out

@@ -15,8 +15,9 @@ The plain-tensor counterpart of the whole-solve TPU kernel
 ``solve`` sends a CUDA tensor to the whole-solve kernel of
 ``csrc/krylov_ops.cu`` (K1: the CG loop, the V-cycle and every reduction on
 the card, no host read; its coarse levels on a sub-group of the grid's
-blocks and the coarsest on one block, in its shared memory: the teams of
-``mg_teams``) and a CPU tensor to ``solve_plain``, the
+blocks and the coarsest on one block, in its shared memory: the teams that
+``csrc/krylov_ops.cu`` ``mg_plan`` chooses and ``mg_teams`` mirrors) and a
+CPU tensor to ``solve_plain``, the
 plain version: its loop runs on the host with one device read per iteration, and
 every ``Ap`` application, on every level, goes through the level operator
 it is given (by default the constant-cube kernel's wrapper
@@ -116,8 +117,6 @@ class PressureMGCG:
         self.cells = tuple(int(c) for c in sm_q[1])
         self.invd_all = torch.cat([lvl["invd"] for lvl in self.levels]).contiguous()
         self.matvec_fn = kn.matvec_const
-        self.sub_level, self.block_level, self.sub_blocks = mg_teams(
-            [int(np.prod(lvl["grid"])) for lvl in self.levels])
 
     # --- operators -----------------------------------------------------------
     def matvec(self, li: int, x: torch.Tensor) -> torch.Tensor:

@@ -874,12 +874,13 @@ __global__ void __launch_bounds__(kThreads, kSolveBlocks) bicgstab_kernel(BicgAr
 // team that computes it: the plan moves no bit.  A grid transfer's point
 // loads its taps at once, a tap beyond the grid at weight 0 (transfer).
 // Per iteration at N=36: 6 grid barriers, 6 among the sub-group and 13 of
-// block 0; at N=64 11, 6 and 19 (mg_barriers; the design before took 30
-// grid barriers at N=36, PR 8's sub-group 11 and 19).  On an NVIDIA H100
+// block 0; at N=64 11, 6 and 19 (mg_barriers; with every level on the whole
+// grid and point by point there were 30 grid barriers at N=36, with a
+// sub-group alone 11 and 19).  On an NVIDIA H100
 // 80GB HBM3 at 700 W an iteration took ~77 us at N=36, of which the 13
 // coarse Chebyshev steps on block 0 ~2 us each; riding phase B and the
 // prolongation on products (two grid barriers fewer) saved ~1 us each
-// (PERF.md, PR 21).
+// (PERF.md).
 
 struct Level {
   int g[3];            // grid points per axis; a 2D grid is (1, g0, g1)
@@ -921,8 +922,8 @@ struct MgArgs {
 
 // K1 MG's teams (mg_plan).  The sub-group: kSubBlocks blocks of kThreads run
 // the levels from the first one below the finest with at most kSubPoints
-// points a thread of theirs (PR 8 timed 8, 16 and 32 blocks and a cluster
-// of 8 with cluster.sync(): a coarse phase is bound by the work of the
+// points a thread of theirs (timed at 8, 16 and 32 blocks and a cluster of
+// 8 with cluster.sync(): a coarse phase is bound by the work of the
 // sub-group's SMs, so 8 blocks were slower than the whole grid; 16 and 32
 // tie once the first sub-group level has at most a point a thread).  Block
 // 0: the levels from the first one below the finest with at most
@@ -930,7 +931,8 @@ struct MgArgs {
 // points; levels 3-4 at N=64, 729 and 125) hold their r, z, z', t and
 // invd in its shared memory and take block barriers, so that the coarse
 // Chebyshev steps cost a __syncthreads each in place of a sub-group
-// barrier.  The sub-group starts there at the latest.
+// barrier (4 points a thread timed faster than 2 and than no level on
+// block 0, PERF.md).  The sub-group starts there at the latest.
 constexpr int kSubBlocks = 32;
 constexpr int kSubPoints = 1;
 constexpr int kBlockPoints = 4;

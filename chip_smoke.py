@@ -10,7 +10,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    -ptx): the count of 64-bit integer divisions and remainders (div/rem on
    .s64/.u64) in each is printed, and phase 2 fails unless cube_ops.cu and
    krylov_ops.cu have none.  K1 MG's plan (oasisx_pressure_mg_plan) for
-   N=36, N=64, a 256x256 rectangle and the two MG_BOXES grids, both types:
+   N=36, N=64, a 256x256 rectangle and the MG_BOXES, MG_GRID_BOXES and
+   MG_CUBES grids, both types:
    printed, and held against la/pressure_mg.py's mirror of its teams and
    barriers.
 3. Kernels: at the bench shapes (3D Taylor-Green, N=36, P2/P1) each
@@ -52,7 +53,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    unequal grids, which do not coarsen, also K1's non-MG modes, K4 on the
    pressure grid's P1 cube (a P1 mass at batch d, Mq_c at batch 1) and K4
    on a P3 cube of the same cells at batch 2 (a tensor-product P3 mass: the
-   point-by-point route, box_solve_cases); x to 1e-10
+   point-by-point route, box_solve_cases); K1 MG also on the MG_BOXES
+   grids and the MG_CUBES cube (mg_route_cases: 2D, every level below the
+   finest on block 0, no level on block 0); x to 1e-10
    relative with equal iteration counts in f64 (rtol 1e-8), to 10 rtol
    with iterations within 1 per row in f32 (rtol 1e-5), and a second
    kernel call bit-identical to the first.  The plain solves loop on the
@@ -70,8 +73,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    tile, the levels run by the whole grid, by the sub-group of blocks and
    by block 0 alone, and the barriers of each an iteration.
    `--solves-only` runs only these whole-solve cases, K1 MG at N=64 (the
-   N=36 cube matrix scaled by the cell width) and on a 16x24x32 box and a
-   48x64 rectangle, the N=36 main path 4, 3e's and 4f (with --tree, on the
+   N=36 cube matrix scaled by the cell width) and on the MG_GRID_BOXES
+   rectangle (every level on the whole grid), the N=36 main path 4, 3e's
+   and 4f (with --tree, on the
    other checkout's package: the two trees' K1 and K4 in one call in a few
    minutes a leg, and phase 4's and 4f's steps compared).
 4. Main path: the 3D Taylor-Green IPCS solver at N=36 (1,167,051 velocity
@@ -417,7 +421,17 @@ N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
 N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev mode
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
-MG_BOXES = ((16, 24, 32), (48, 64))  # grids whose axes differ that coarsen: 3 and 5 MG levels
+# grids whose axes differ that coarsen: 3, 5 and 2 MG levels; 66x98's
+# coarsest (1,700 points) is over block 0's 1,024, so no level runs there
+MG_BOXES = ((16, 24, 32), (48, 64), (66, 98))
+# a cube whose coarsest is over block 0's: N=44 (3 levels, 12^3 = 1,728 on
+# the sub-group)
+MG_CUBES = (44,)
+# --solves-only: a rectangle whose coarsest (64x129 = 8,256 points) is over
+# the sub-group's 8,192, so every level runs on the whole grid (its
+# Chebyshev steps too); its coarse bounds' dense eigvalsh takes ~10 s of
+# host time, which the full run does not spend
+MG_GRID_BOXES = ((126, 256),)
 CYL_RES, CYL_STEPS, CYL_DT, CYL_NU = 30, 5, 2e-3, 1e-3  # demo/cylinder.py's settings
 CYL_CENTER, CYL_D = (0.2, 0.2), 0.1  # the DFG cylinder (demo/cylinder.py)
 DFG3_UM = 1.5  # the DFG 2D-3 inflow's peak: U(t) = 1.5 sin(pi t / 8), mean 1 at its peak
@@ -1014,12 +1028,9 @@ def mg_levels(cells) -> int:
     return L
 
 
-def has_mg_plan() -> bool:
-    """Whether the loaded kernels report K1 MG's plan (under --tree a
-    parent's build may not)."""
-    from oasisx_tpu_torch import _build
-
-    return hasattr(_build.library(), "oasisx_pressure_mg_plan")
+# set by run_tree: the package loaded is another checkout's, whose kernels
+# may not report K1 MG's plan (mg_case then records none)
+OTHER_TREE = False
 
 
 MG_ROUTES = ("stencil tile (P1), the coarsest levels on block 0",
@@ -1032,7 +1043,10 @@ def mg_plan(cells, dtype, nsmooth: int = 2, degree: int = 14) -> dict:
     form), shared memory a block, the levels of each team (the whole grid,
     the sub-group of blocks, block 0) and the barriers of each an
     iteration; held against the plain mirror (``la/pressure_mg.py``
-    ``mg_teams``, ``barriers``)."""
+    ``mg_teams``, ``barriers``), which is given the plan's block level: it
+    does not model the step that moves block 0 to a coarser level (or to
+    none) where shared memory is short, but checks that the plan's is no
+    finer than its own and the rest from there."""
     import numpy as np
     import torch
 
@@ -1050,20 +1064,23 @@ def mg_plan(cells, dtype, nsmooth: int = 2, degree: int = 14) -> dict:
     o = out.tolist()
     sizes = [int(np.prod([c // 2 ** l + 1 for c in cells])) for l in range(L)]
     teams, bars = tuple(o[5:8]), tuple(o[8:11])
-    want = pm.mg_teams(sizes, block=o[0] == 0)
+    want = pm.mg_teams(sizes, block_from=teams[1])
     want_bars = pm.barriers(L, want[0], want[1], nsmooth, degree)
-    check(teams == want and bars == want_bars,
-          f"K1 MG's plan for {cells} {dtype}: teams {teams} barriers {bars}, its plain mirror "
-          f"{want} {want_bars}")
+    check(teams == want and bars == want_bars and o[0] == (0 if teams[1] < L else 1),
+          f"K1 MG's plan for {cells} {dtype}: route {o[0]} teams {teams} barriers {bars}, its "
+          f"plain mirror {want} {want_bars}")
     lsub, lblk = teams[0], teams[1]
-    return {"route": MG_ROUTES[o[0]], "tile": tuple(o[1:4]), "smem": o[4], "sizes": sizes,
+    moved = lblk != pm.mg_teams(sizes)[1]
+    return {"route": MG_ROUTES[o[0]] + (" (shared memory moved block 0 coarser)" if moved else ""),
+            "tile": tuple(o[1:4]), "smem": o[4], "sizes": sizes,
             "levels": {"grid": list(range(lsub)), "sub-group": list(range(lsub, lblk)),
                        "block": list(range(lblk, L))},
             "sub_blocks": teams[2],
             "barriers": f"{bars[0]} grid, {bars[1]} sub-group, {bars[2]} block"}
 
 
-MG_PLAN_GRIDS = ((36, 36, 36), (64, 64, 64), (256, 256), (16, 24, 32), (48, 64))
+MG_PLAN_GRIDS = ((36, 36, 36), (64, 64, 64), (256, 256), *MG_BOXES, *MG_GRID_BOXES,
+                 *((n,) * 3 for n in MG_CUBES))
 
 
 def check_mg_plans() -> None:
@@ -1071,8 +1088,6 @@ def check_mg_plans() -> None:
     both types, each against its plain mirror (mg_plan)."""
     import torch
 
-    if not has_mg_plan():
-        return
     for cells in MG_PLAN_GRIDS:
         for dtype in (torch.float32, torch.float64):
             r = mg_plan(cells, dtype)
@@ -1081,6 +1096,9 @@ def check_mg_plans() -> None:
                   f"of shared memory a block; levels by team {r['levels']} (the sub-group "
                   f"{r['sub_blocks']} blocks); barriers an iteration {r['barriers']}; its "
                   "mirror agrees")
+
+
+_MG_DATA: dict = {}  # mg_case's last MG hierarchy (its coarse bounds take a dense eigvalsh)
 
 
 def mg_case(sm_q, Ap_c, Ap_diag, dtype, device, rnd, rtol: float, maxiter: int, label: str = ""):
@@ -1098,8 +1116,11 @@ def mg_case(sm_q, Ap_c, Ap_diag, dtype, device, rnd, rtol: float, maxiter: int, 
     Ap64 = Ap_c.detach().cpu().double().numpy()
     diag = Ap_diag.detach().cpu().double().numpy()
     invd = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 1.0)
-    pcg = PressureMGCG(sm_q, Ap_c.to(dtype), invd, kn.build_pressure_mg_data(sm_q, Ap64), rtol,
-                       maxiter)
+    key = (tuple(sm_q[1]), Ap64.tobytes())  # one hierarchy for both types
+    if key not in _MG_DATA:
+        _MG_DATA.clear()
+        _MG_DATA[key] = kn.build_pressure_mg_data(sm_q, Ap64)
+    pcg = PressureMGCG(sm_q, Ap_c.to(dtype), invd, _MG_DATA[key], rtol, maxiter)
     nq, nlq = int(np.prod(sm_q[0])), cub.num_slots(sm_q)
     isz = torch.empty((), dtype=dtype).element_size()
     L = len(pcg.levels)
@@ -1111,21 +1132,23 @@ def mg_case(sm_q, Ap_c, Ap_diag, dtype, device, rnd, rtol: float, maxiter: int, 
 
     def mg_work(res):
         # operator applications: the fine Ap per iteration, and per V-cycle
-        # 2 nsmooth on each level above the coarsest and degree-1 there
+        # 2 nsmooth on each level above the coarsest and degree-1 there; a
+        # product's operations: the P1 stencil's 3^d fmas a point of its
+        # level, fewer than the cube form's (2^d)^2 a cube
         k = int(res.iters)
-        lv = [2.0 * nlq * nlq * int(np.prod(L["sm"][1])) for L in pcg.levels]
+        lv = [2.0 * 3 ** len(sm_q[1]) * int(np.prod(L["grid"])) for L in pcg.levels]
         vflops = sum(2 * pcg.nsmooth * f for f in lv[:-1]) + (pcg.coarse[2] - 1) * lv[-1]
         return isz * (3 * nq + pcg.invd_all.numel()), (k + 1) * vflops + k * lv[0]
 
     plan = (({"plan": mg_plan(sm_q[1], dtype, pcg.nsmooth, pcg.coarse[2])},)
-            if torch.device(device).type == "cuda" and has_mg_plan() else ())
+            if torch.device(device).type == "cuda" and not OTHER_TREE else ())
     return ("pressure_mg", f"Ap_c, {L} levels", lambda: pcg.solve(bq, xq),
             lambda: pcg.solve_plain(bq, xq, matvec=kn.matvec_const_plain), mg_work, *plan)
 
 
 def mg_box_cases(pair, device, seed: int = 10):
-    """--solves-only's K1 MG case on a grid that coarsens, of ``pair`` =
-    (solver, dtype): the MG_BOXES grids, whose axes differ."""
+    """K1 MG's case on the pressure grid of ``pair`` = (solver, dtype): the
+    MG_BOXES and MG_GRID_BOXES grids, whose axes differ."""
     import torch
 
     solver, dtype = pair
@@ -1136,22 +1159,53 @@ def mg_box_cases(pair, device, seed: int = 10):
                           2000)]
 
 
-def mg_n64_cases(pair, device, seed: int = 11):
-    """--solves-only's K1 MG case at N=64 without the N=64 solver's set-up:
-    ``pair`` = (the N=36 solver, dtype), whose pressure cube matrix, scaled
-    by the cell width (36 / 64: the P1 Laplacian's cube matrix is h^(d-2)
-    times the unit cube's), is N=64's; the N=64 P1 grid and its 5 levels."""
+def mg_cube_cases(pair, device, n: int = N64, seed: int = 11):
+    """K1 MG's case on an n^3 grid without its solver's set-up: ``pair`` =
+    (the N=36 solver, dtype), whose pressure cube matrix, scaled by the cell
+    width (36 / n: the P1 Laplacian's cube matrix is h^(d-2) times the unit
+    cube's), is n's; the n^3 P1 grid and its MG levels (N=64: 5, N=44:
+    3)."""
     import torch
 
     from oasisx_tpu_torch.assembly import cubes as cub
 
     solver, dtype = pair
     rtol = SOLVE_RTOL[str(dtype).replace("torch.", "")]
-    sm64 = sweep_map((N64,) * 3, 1, device)[0]
-    Ap = solver._cu.Ap_c.double() * (N / N64)
+    sm = sweep_map((n,) * 3, 1, device)[0]
+    Ap = solver._cu.Ap_c.double() * (N / n)
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64).to(device, dtype)
-    return rtol, [mg_case(sm64, Ap, cub.diag_cube(Ap, sm64), dtype, device, rnd, rtol, 2000)]
+    return rtol, [mg_case(sm, Ap, cub.diag_cube(Ap, sm), dtype, device, rnd, rtol, 2000)]
+
+
+def mg_route_cases(solver, device, boxes=MG_BOXES) -> dict:
+    """Phase 3's K1 MG cases beside the main path's: the grids of ``boxes``
+    (MG_BOXES: axes that differ, 2D, every level below the finest on block
+    0, no level on block 0; --solves-only adds MG_GRID_BOXES: every level
+    on the whole grid) and the MG_CUBES grids (no level on block 0, the
+    coarsest on the sub-group), each in float64 and float32 against the
+    plain version; ``solver`` is the N=36 float32 solver.  Returns per
+    kernel its f32 cases."""
+    import torch
+
+    out: dict = {}
+    for cells in boxes:
+        box = tgv_solver(cells, torch.float32, device, rtol=1e-5)
+        tag = " " + "x".join(map(str, cells))
+        print(f"[3] K1 MG against its plain version ({len(cells)}D, {tag[1:]} cells)")
+        for name, recs in compare_solves(
+                {"float64": (box, torch.float64), "float32": (box, torch.float32)}, device,
+                cases_fn=mg_box_cases, suffix=tag).items():
+            out[name] = out.get(name, []) + recs
+        del box
+    for n in MG_CUBES:
+        print(f"[3] K1 MG against its plain version (N={n}: N={N}'s cube matrix scaled by the "
+              "cell width)")
+        for name, recs in compare_solves(
+                {"float64": (solver, torch.float64), "float32": (solver, torch.float32)}, device,
+                cases_fn=lambda pr, dev, n=n: mg_cube_cases(pr, dev, n), suffix=f" N={n}").items():
+            out[name] = out.get(name, []) + recs
+    return out
 
 
 def p1_mass_cases(solver, dtype, device, rnd, rtol: float, maxiter: int) -> list:
@@ -3918,7 +3972,8 @@ def nvidia_smi() -> str:
 def solves_phases(log: StepLog, profile: int = 0) -> None:
     """--solves-only: phase 3's whole-solve cases (solve_cases on the N=36
     systems, box_solve_cases on the two unequal grids; float64 and float32),
-    K1 MG at N=64 (mg_n64_cases) and on the MG_BOXES grids (mg_box_cases),
+    K1 MG at N=64 (mg_cube_cases) and on the MG_BOXES and MG_CUBES grids
+    and MG_GRID_BOXES (mg_route_cases),
     phase 3e's K1 cases at N=35, the N=35 main path 4f and the N=36 main
     path 4, the main paths into ``log``: K1's and K4's kernels against
     their plain versions and timed, in a few minutes; with ``profile``, a
@@ -3937,7 +3992,7 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     print(f"[3c] K1 MG against its plain version (N={N64}: N={N}'s cube matrix scaled by the "
           "cell width)")
     compare_solves({"float64": (solver, torch.float64), "float32": (solver, torch.float32)},
-                   "cuda", cases_fn=mg_n64_cases, suffix=f" N={N64}")
+                   "cuda", cases_fn=mg_cube_cases, suffix=f" N={N64}")
     for cells in BOXES:
         box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
         tag = " " + "x".join(map(str, cells))
@@ -3945,13 +4000,7 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
         compare_solves({"float64": (box, torch.float64), "float32": (box, torch.float32)},
                        "cuda", cases_fn=box_solve_cases, suffix=tag)
         del box
-    for cells in MG_BOXES:
-        box = tgv_solver(cells, torch.float32, "cuda", rtol=1e-5)
-        tag = " " + "x".join(map(str, cells))
-        print(f"[3] K1 MG against its plain version ({len(cells)}D, {tag[1:]} cells)")
-        compare_solves({"float64": (box, torch.float64), "float32": (box, torch.float32)},
-                       "cuda", cases_fn=mg_box_cases, suffix=tag)
-        del box
+    mg_route_cases(solver, "cuda", MG_BOXES + MG_GRID_BOXES)
     s35 = tgv_solver(N_ODD, torch.float32, "cuda", rtol=1e-5)
     rep35 = s35.config_report()
     check(rep35["pressure_pc"] == "cheb-pcg", f"N={N_ODD}: pressure {rep35['pressure_pc']}")
@@ -3983,9 +4032,11 @@ def run_tree(root: str, argv: list, solves_only: bool = False, profile: int = 0)
     import importlib.util
     import os
 
+    global OTHER_TREE
     root = os.path.abspath(root)
     here = os.path.dirname(os.path.abspath(__file__))
     if solves_only:
+        OTHER_TREE = True
         os.chdir(root)
         sys.path.insert(0, root)
         print(f"[tree] {root}: its package, this file's solves_phases and time_ms")
@@ -4216,9 +4267,11 @@ def main() -> int:
         del box
     solver64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     kres.update(compare_solves({"float64": solver64, "float32": solver}, "cuda"))
+    del solver64
+    for name, recs in mg_route_cases(solver, "cuda").items():
+        box_solves[name] = box_solves.get(name, []) + recs
     for name, recs in box_solves.items():
         kres[name] = kres.get(name, []) + recs
-    del solver64
 
     # 4. the structured main path
     rep = solver.config_report()

@@ -47,16 +47,18 @@ STENCIL_LEVELS = 4
 BODY_BARRIERS = 1  # grid barriers of the CG body outside the V-cycle
 
 
-def mg_teams(sizes: list[int], block: bool = True) -> tuple[int, int, int]:
+def mg_teams(sizes: list[int], block_from: int = 1) -> tuple[int, int, int]:
     """(sub_level, block_level, SUB_BLOCKS) for MG levels of ``sizes``
-    points, finest first: block_level the first level l >= 1 with at most
-    BLOCK_POINTS * 256 points (len(sizes) where none, or without ``block``:
-    the plan's route where block 0's vectors do not fit), sub_level the
-    first with at most SUB_POINTS * 256 * SUB_BLOCKS, at most block_level
-    and STENCIL_LEVELS."""
+    points, finest first: block_level the first level l >= ``block_from``
+    with at most BLOCK_POINTS * 256 points (len(sizes) where none),
+    sub_level the first l >= 1 with at most SUB_POINTS * 256 * SUB_BLOCKS,
+    at most block_level and STENCIL_LEVELS.  ``block_from`` is the first
+    level whose boxes fit in block 0's shared memory beside the fine tile:
+    the plan alone knows it (it moves block 0 to coarser levels, or to none,
+    where they do not fit), so a check passes the plan's block level."""
     L = len(sizes)
-    first = lambda cap: next((l for l in range(1, L) if sizes[l] <= cap), L)
-    lblk = first(BLOCK_POINTS * 256) if block else L
+    first = lambda cap, lo=1: next((l for l in range(lo, L) if sizes[l] <= cap), L)
+    lblk = first(BLOCK_POINTS * 256, max(block_from, 1))
     return min(first(SUB_POINTS * 256 * SUB_BLOCKS), lblk, STENCIL_LEVELS), lblk, SUB_BLOCKS
 
 

@@ -1,18 +1,15 @@
-"""K1's MG mode on the CPU, with NumPy and torch alone:
+"""K1's MG mode on the CPU, with NumPy and torch alone.
 
-- ``PressureMGCG.solve_plain`` with every level's product summed in the P1
-  stencil's order (``kernels.matvec_stencil_plain``, the order of the
-  kernel's products on the levels that run on the stencil tile) takes the
-  same iterations as on ``matvec_const_plain`` and agrees to 1e-12, in
-  float64 on a 2D 12x24 rectangle and a 3D 12x12x12 box (3 levels each);
-- the plain mirror of the kernel's plan (``la/pressure_mg.py`` ``mg_teams``
-  and ``barriers``: the levels on the whole grid, on the sub-group of
-  blocks and on block 0, and the barriers of each an iteration) against a
-  walk of the kernel's V-cycle that counts the barrier each phase ends
-  with.
+``PressureMGCG.solve_plain`` with every level's product summed in the P1
+stencil's order (``kernels.matvec_stencil_plain``, the order of the
+kernel's products on the levels that run on the stencil tile) takes the
+same iterations as on ``matvec_const_plain`` and agrees to 1e-12, in
+float64 on a 2D 12x24 rectangle and a 3D 12x12x12 box (3 levels each).
 
 The kernel runs only on the card; ``chip_smoke.py`` holds it to its plain
-version there and its plan (``oasisx_pressure_mg_plan``) to this mirror.
+version there and its plan (``oasisx_pressure_mg_plan``) to the plain
+mirror, whose rows ``test_torch_pressure_mg.py::test_sub_group_plan``
+checks.
 """
 
 import numpy as np
@@ -64,54 +61,3 @@ def test_mg_plain_in_stencil_order(cells):
     assert int(got.iters) == int(ref.iters) >= 4
     assert float((got.x - ref.x).abs().max()) <= 1e-12 * float(ref.x.abs().max())
 
-
-def _walk(L, lsub, lblk, nsmooth, degree):
-    """(grid, sub-group, block) barriers of one iteration, counted by
-    walking the kernel's phases (csrc/krylov_ops.cu pressure_mg_kernel) in
-    order (the CG body's phase B riding on the V-cycle's first product):
-    each phase ends with its team's barrier; block 0's last phase
-    (which writes z for the level above) with the level above's; the last
-    phase the sub-group runs with the grid's."""
-    def team(level):
-        return "grid" if level < lsub else "sub" if level < lblk else "block"
-
-    seq = []  # the team whose barrier ends each V-cycle phase
-    for level in range(L - 1):
-        seq += [team(level)] * nsmooth  # the sweeps after the first, the residual
-        seq.append(team(level + 1))  # the restriction and the next level's first sweep
-    seq += [team(L - 1)] * (degree - 1)  # the coarsest's Chebyshev steps
-    for level in reversed(range(L - 1)):
-        # the prolongation (above lsub riding on the first sweep), the sweeps
-        seq += [team(level)] * (nsmooth + (0 if level < lsub else 1))
-    if "block" in seq:  # block 0's last phase ends with the level above's barrier
-        seq[len(seq) - 1 - seq[::-1].index("block")] = team(lblk - 1)
-    if "sub" in seq:  # the sub-group's last phase closes its part
-        seq[len(seq) - 1 - seq[::-1].index("sub")] = "grid"
-    return (pm.BODY_BARRIERS + seq.count("grid"), seq.count("sub"), seq.count("block"))
-
-
-def _sizes(cells, L):
-    return [int(np.prod([c // 2 ** level + 1 for c in cells])) for level in range(L)]
-
-
-@pytest.mark.parametrize("cells, L", [
-    ((36,) * 3, 3), ((64,) * 3, 5), ((256, 256), 7), ((16, 24, 32), 3), ((48, 64), 5),
-    ((12, 12, 12), 3), ((8, 8), 2), ((512, 512), 8), ((128, 128, 128), 6), ((4096, 4096), 11),
-], ids=["3d-36", "3d-64", "2d-256", "3d-16x24x32", "2d-48x64", "3d-12", "2d-8", "2d-512",
-        "3d-128", "2d-4096"])
-@pytest.mark.parametrize("nsmooth, degree", [(2, 14), (1, 1), (3, 2)])
-def test_mg_plan_mirror_walk(cells, L, nsmooth, degree):
-    sizes = _sizes(cells, L)
-    lsub, lblk, blocks = pm.mg_teams(sizes)
-    assert blocks == pm.SUB_BLOCKS and 1 <= lsub <= lblk <= L
-    # block 0 from the first level below the finest with <= 4 points a
-    # thread, the sub-group from the first with <= one a thread of its
-    assert all(n > pm.BLOCK_POINTS * 256 for n in sizes[1:lblk])
-    assert all(n <= pm.BLOCK_POINTS * 256 for n in sizes[lblk:])
-    # blocks (at the latest block 0's level, and after at most STENCIL_LEVELS
-    # levels on the whole grid: 2d-4096's first level of 8,192 points or
-    # fewer is its sixth)
-    sub_cap = pm.SUB_POINTS * 256 * pm.SUB_BLOCKS
-    first_sub = next((level for level in range(1, L) if sizes[level] <= sub_cap), L)
-    assert lsub == min(first_sub, lblk, pm.STENCIL_LEVELS)
-    assert pm.barriers(L, lsub, lblk, nsmooth, degree) == _walk(L, lsub, lblk, nsmooth, degree)

@@ -125,25 +125,90 @@ def test_coords_split_exact():
             np.testing.assert_array_equal(got.astype(np.int64), ref)
 
 
-@pytest.mark.parametrize("cells, levels, plan, bars", [
-    # bench.py's N=36: 50,653 / 6,859 / 1,000 points
-    ((36,) * 3, 3, (1, 2, 32), (6, 6, 13)),
-    # N=64: level 1 has 35,937 points, over 1 a thread; levels 3-4 (729, 125) on one block
-    ((64,) * 3, 5, (2, 3, 32), (11, 6, 19)),
-    # 2D: 66,049 / 16,641 / 4,225 / 1,089 / 289 / 81 points
-    ((256, 256), 6, (2, 4, 32), (11, 12, 19)),
-], ids=["3d-36", "3d-64", "2d-256"])
-def test_sub_group_plan(cells, levels, plan, bars):
+# K1 MG's plan mirror (la/pressure_mg.py mg_teams, barriers): per case
+# (cells, levels, nsmooth, coarse Chebyshev degree, block_from, teams
+# (sub_level, block_level, 32), barriers an iteration (grid, sub-group,
+# block)).  Points a level: N=36 50,653 / 6,859 / 1,000 (the coarsest on
+# block 0); N=64 274,625 / 35,937 / 4,913 / 729 / 125 (level 1 over one
+# point a thread of the sub-group, levels 3-4 on block 0); 256^2 66,049 /
+# 16,641 / 4,225 / 1,089 / 289 / 81 (/ 25); 66x98 6,633 / 1,700, N=44
+# 91,125 / 12,167 / 1,728 (no level on block 0: the coarsest on the
+# sub-group); N=50 132,651 / 17,576 (every level on the whole grid);
+# 2d-4096's first level of 8,192 points or fewer is its sixth, past the
+# STENCIL_LEVELS levels on the whole grid.  "block-from" rows: the plan
+# moved block 0 coarser (or to none) for shared memory.
+PLAN_ROWS = {
+    "3d-36": ((36, 36, 36), 3, 2, 14, 1, (1, 2, 32), (6, 6, 13)),
+    "3d-36-ns1-deg1": ((36, 36, 36), 3, 1, 1, 1, (1, 2, 32), (4, 4, 0)),
+    "3d-36-ns3-deg2": ((36, 36, 36), 3, 3, 2, 1, (1, 2, 32), (8, 8, 1)),
+    "3d-64": ((64, 64, 64), 5, 2, 14, 1, (2, 3, 32), (11, 6, 19)),
+    "3d-64-ns1-deg1": ((64, 64, 64), 5, 1, 1, 1, (2, 3, 32), (7, 4, 4)),
+    "3d-64-ns3-deg2": ((64, 64, 64), 5, 3, 2, 1, (2, 3, 32), (15, 8, 9)),
+    "2d-256": ((256, 256), 6, 2, 14, 1, (2, 4, 32), (11, 12, 19)),
+    "2d-256-ns1-deg1": ((256, 256), 6, 1, 1, 1, (2, 4, 32), (7, 8, 4)),
+    "2d-256-ns3-deg2": ((256, 256), 6, 3, 2, 1, (2, 4, 32), (15, 16, 9)),
+    "2d-256-7lv": ((256, 256), 7, 2, 14, 1, (2, 4, 32), (11, 12, 25)),
+    "2d-256-7lv-ns1-deg1": ((256, 256), 7, 1, 1, 1, (2, 4, 32), (7, 8, 8)),
+    "2d-256-7lv-ns3-deg2": ((256, 256), 7, 3, 2, 1, (2, 4, 32), (15, 16, 17)),
+    "3d-16x24x32": ((16, 24, 32), 3, 2, 14, 1, (1, 2, 32), (6, 6, 13)),
+    "3d-16x24x32-ns1-deg1": ((16, 24, 32), 3, 1, 1, 1, (1, 2, 32), (4, 4, 0)),
+    "3d-16x24x32-ns3-deg2": ((16, 24, 32), 3, 3, 2, 1, (1, 2, 32), (8, 8, 1)),
+    "2d-48x64": ((48, 64), 5, 2, 14, 1, (1, 1, 32), (6, 0, 31)),
+    "2d-48x64-ns1-deg1": ((48, 64), 5, 1, 1, 1, (1, 1, 32), (4, 0, 12)),
+    "2d-48x64-ns3-deg2": ((48, 64), 5, 3, 2, 1, (1, 1, 32), (8, 0, 25)),
+    "3d-12": ((12, 12, 12), 3, 2, 14, 1, (1, 1, 32), (6, 0, 19)),
+    "3d-12-ns1-deg1": ((12, 12, 12), 3, 1, 1, 1, (1, 1, 32), (4, 0, 4)),
+    "3d-12-ns3-deg2": ((12, 12, 12), 3, 3, 2, 1, (1, 1, 32), (8, 0, 9)),
+    "2d-8": ((8, 8), 2, 2, 14, 1, (1, 1, 32), (6, 0, 13)),
+    "2d-8-ns1-deg1": ((8, 8), 2, 1, 1, 1, (1, 1, 32), (4, 0, 0)),
+    "2d-8-ns3-deg2": ((8, 8), 2, 3, 2, 1, (1, 1, 32), (8, 0, 1)),
+    "2d-512": ((512, 512), 8, 2, 14, 1, (3, 5, 32), (16, 12, 25)),
+    "2d-512-ns1-deg1": ((512, 512), 8, 1, 1, 1, (3, 5, 32), (10, 8, 8)),
+    "2d-512-ns3-deg2": ((512, 512), 8, 3, 2, 1, (3, 5, 32), (22, 16, 17)),
+    "3d-128": ((128, 128, 128), 6, 2, 14, 1, (3, 4, 32), (16, 6, 19)),
+    "3d-128-ns1-deg1": ((128, 128, 128), 6, 1, 1, 1, (3, 4, 32), (10, 4, 4)),
+    "3d-128-ns3-deg2": ((128, 128, 128), 6, 3, 2, 1, (3, 4, 32), (22, 8, 9)),
+    "2d-4096": ((4096, 4096), 11, 2, 14, 1, (4, 8, 32), (21, 24, 25)),
+    "2d-4096-ns1-deg1": ((4096, 4096), 11, 1, 1, 1, (4, 8, 32), (13, 16, 8)),
+    "2d-4096-ns3-deg2": ((4096, 4096), 11, 3, 2, 1, (4, 8, 32), (29, 32, 17)),
+    "2d-66x98": ((66, 98), 2, 2, 14, 1, (1, 2, 32), (6, 13, 0)),
+    "2d-66x98-ns1-deg1": ((66, 98), 2, 1, 1, 1, (1, 2, 32), (4, 0, 0)),
+    "2d-66x98-ns3-deg2": ((66, 98), 2, 3, 2, 1, (1, 2, 32), (8, 1, 0)),
+    "3d-44": ((44, 44, 44), 3, 2, 14, 1, (2, 3, 32), (11, 13, 0)),
+    "3d-44-ns1-deg1": ((44, 44, 44), 3, 1, 1, 1, (2, 3, 32), (7, 0, 0)),
+    "3d-44-ns3-deg2": ((44, 44, 44), 3, 3, 2, 1, (2, 3, 32), (15, 1, 0)),
+    "3d-50": ((50, 50, 50), 2, 2, 14, 1, (2, 2, 32), (19, 0, 0)),
+    "3d-50-ns1-deg1": ((50, 50, 50), 2, 1, 1, 1, (2, 2, 32), (4, 0, 0)),
+    "3d-50-ns3-deg2": ((50, 50, 50), 2, 3, 2, 1, (2, 2, 32), (9, 0, 0)),
+    "3d-36-block-from-3": ((36, 36, 36), 3, 2, 14, 3, (1, 3, 32), (6, 19, 0)),
+    "3d-64-block-from-4": ((64, 64, 64), 5, 2, 14, 4, (2, 4, 32), (11, 12, 13)),
+    "3d-64-block-from-5": ((64, 64, 64), 5, 2, 14, 5, (2, 5, 32), (11, 25, 0)),
+    "2d-256-block-from-5": ((256, 256), 6, 2, 14, 5, (2, 5, 32), (11, 18, 13)),
+}
+
+
+@pytest.mark.parametrize("cells, levels, nsmooth, degree, block_from, plan, bars",
+                         list(PLAN_ROWS.values()), ids=list(PLAN_ROWS))
+def test_sub_group_plan(cells, levels, nsmooth, degree, block_from, plan, bars):
     """The teams of K1's V-cycle: the sub-group from the first level below
-    the finest with at most one point a thread of 32 blocks of 256, block 0
-    from the first with at most 4 points a thread of one block; and the
-    barriers of one iteration (nsmooth 2, coarse Chebyshev degree 14): the
+    the finest with at most one point a thread of 32 blocks of 256 (at most
+    block 0's level and after at most STENCIL_LEVELS levels on the whole
+    grid), block 0 from the first level from ``block_from`` with at most 4
+    points a thread of one block; and the barriers of one iteration: the
     grid's, the sub-group's and block 0's; on the whole grid there would be
-    their sum less the prolongation phase of each level from the sub-group's
-    first to the one above the coarsest (on the grid it rides on a sweep)."""
-    from oasisx_tpu_torch.la.pressure_mg import barriers, mg_teams
+    their sum less the prolongation phase of each level from the
+    sub-group's first to the one above the coarsest (on the grid it rides
+    on a sweep)."""
+    from oasisx_tpu_torch.la import pressure_mg as pm
 
     sizes = [int(np.prod(g)) for g in _mg_grids(cells)[:levels]]
-    assert mg_teams(sizes) == plan
-    assert barriers(levels, plan[0], plan[1], 2, 14) == bars
-    assert barriers(levels, levels, levels, 2, 14) == (sum(bars) - (levels - 1 - plan[0]), 0, 0)
+    lsub, lblk, blocks = pm.mg_teams(sizes, block_from=block_from)
+    assert (lsub, lblk, blocks) == plan
+    block_cap, sub_cap = pm.BLOCK_POINTS * 256, pm.SUB_POINTS * 256 * pm.SUB_BLOCKS
+    assert all(n > block_cap for n in sizes[block_from:lblk])
+    assert all(n <= block_cap for n in sizes[lblk:])
+    first_sub = next((lv for lv in range(1, levels) if sizes[lv] <= sub_cap), levels)
+    assert lsub == min(first_sub, lblk, pm.STENCIL_LEVELS)
+    assert pm.barriers(levels, lsub, lblk, nsmooth, degree) == bars
+    assert pm.barriers(levels, levels, levels, nsmooth, degree) == (
+        sum(bars) - max(levels - 1 - lsub, 0), 0, 0)

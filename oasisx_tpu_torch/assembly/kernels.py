@@ -29,7 +29,9 @@ for the band-ELL layout, ``la/band.py``; all count here too.
 A CPU tensor goes to the plain version (built from the ``cubes.py`` ops); a
 CUDA tensor goes to the kernel, and anything else raises.  ``launches``
 counts kernel launches per wrapper and ``plain_calls`` counts the plain
-versions, so a run can show which path it took.
+versions, so a run can show which path it took.  A replay of a captured
+CUDA graph calls no wrapper: ``RecordedCounts`` records what a capture
+launched and adds it once per replay (``step_graph.py``).
 
 ``matvec_const`` on the P2 cube (K5) and K4's product run the block-tiled
 product of ``csrc/cube_device.cuh``, whose tile (base points a block owns
@@ -89,6 +91,30 @@ def reset_counts() -> None:
     for k in _COUNTED:
         launches[k] = 0
         plain_calls[k] = 0
+
+
+class RecordedCounts:
+    """The launches and plain calls made inside a ``with`` block (the
+    capture of a CUDA graph, or a warm-up), taken out of the counters when
+    the block ends; ``replayed(n)`` adds them back n times, once per replay
+    of what the block recorded: a replay runs its kernels without calling a
+    wrapper, so the counters see it only here."""
+
+    def __enter__(self) -> "RecordedCounts":
+        self._start = (dict(launches), dict(plain_calls))
+        self.launches = self.plain_calls = None
+        return self
+
+    def __exit__(self, *exc) -> None:
+        (l0, p0), self.launches, self.plain_calls = self._start, {}, {}
+        for k in _COUNTED:
+            self.launches[k], self.plain_calls[k] = launches[k] - l0[k], plain_calls[k] - p0[k]
+            launches[k], plain_calls[k] = l0[k], p0[k]
+
+    def replayed(self, n: int) -> None:
+        for k in _COUNTED:
+            launches[k] += n * self.launches[k]
+            plain_calls[k] += n * self.plain_calls[k]
 
 
 # ---------------------------------------------------------------------------

@@ -168,6 +168,16 @@ reads nothing on the host (with ``max_iter > 1`` the inner-loop test reads
 ``diff``); the plain versions loop on the host and read one device scalar
 per iteration.  ``last_stats["host_syncs"]`` counts those reads per step;
 ``run`` adds one read of the stats per call.
+
+Where a step makes no host read on one device (``config_report()["run"]``
+"graph": every default single-device configuration, ``max_iter`` 1),
+``run`` is the JAX package's device program (its ``jit`` of a ``lax.scan``,
+oasisx_tpu fracstep.py:3332-3446): one step on static buffers
+(``step_graph.py``), captured on the card as a CUDA graph and replayed once
+a step, the per-step boundary values, time, stats and callback outputs in
+device tables indexed by a device step counter.  The sharded modes, the
+host-looped option solves and ``max_iter > 1`` run the per-step loop
+("eager: <reason>"), and so does ``options["run"]`` "eager".
 """
 
 from __future__ import annotations
@@ -200,6 +210,7 @@ from .meshes.mesh import Mesh
 from .parallel.graph import build_ell_assembly, ell_values, halo_fold, halo_refresh
 from .parallel.sharding import local_facets, shard_problem, shard_problem_halo
 from .spaces.functionspace import Function, FunctionSpace
+from .step_graph import StepGraph, host_reads_allowed, table_rows
 
 __all__ = ["FractionalStep_AB_CN"]
 
@@ -279,7 +290,8 @@ class FractionalStep_AB_CN:
     the structured path's pressure solve, above; ``slab``: False keeps a
     sharded structured mesh off the slab path; ``replicated``: the
     replicated mode where the slab path is not taken; ``partitioner`` and
-    ``amg_distributed``: the graph-halo path's), ``dtype``, ``device_mesh``
+    ``amg_distributed``: the graph-halo path's; ``run``: "graph", the
+    default, or "eager", the per-step loop, for ``run``), ``dtype``, ``device_mesh``
     (None: one device; else the sharded modes of the module docstring over
     the ranks of a ``torch.distributed`` group: a 1-D ``DeviceMesh``, a
     ``ProcessGroup`` or a ``parallel.comm.Comm``, each rank calling the
@@ -437,6 +449,13 @@ class FractionalStep_AB_CN:
         # the last pressure_assemble: the split phases' hand-off
         self._split = None
         self._split_dt = None
+        # run's mode (options["run"]: "graph", the default, or "eager"), the
+        # max_iter of its last call, and its StepGraph
+        self._run_option = options.get("run", "graph")
+        if self._run_option not in ("graph", "eager"):
+            raise ValueError(f"unknown run option {self._run_option!r}")
+        self._last_max_iter = 1
+        self._graph = None
         self.last_stats: dict = {}
         logger.info("active paths: %s", self.config_report())
 
@@ -1127,6 +1146,7 @@ class FractionalStep_AB_CN:
             body_force=self._b0_dev is not None,
             tentative_method=self._tentative_method(),
             kernels=list(kn.KERNELS),
+            run=self._run_mode(self._last_max_iter),
             device=str(self._device),
             dtype=str(self._dtype).replace("torch.", ""),
         )
@@ -1774,6 +1794,49 @@ class FractionalStep_AB_CN:
                 rows[i].append(h)
         return [torch.stack(r) for r in rows]
 
+    def _run_mode(self, max_iter: int = 1) -> str:
+        """How ``run`` advances its steps: "graph" (one step captured as a
+        CUDA graph and replayed, the static-buffer body uncaptured on the
+        CPU) where a step makes no host read, else "eager: <reason>" (the
+        per-step loop)."""
+        if self._comm is not None:
+            mode = "slab-halo" if self._slab is not None else \
+                "graph-halo" if self._halo is not None else "replicated"
+            return f"eager: the {mode} mode's Krylov loops read the host every iteration"
+        if self._run_option == "eager":
+            return "eager: options['run'] is 'eager'"
+        method = self._tentative_method()
+        if method != "bcgs":
+            return f"eager: the tentative {method} solve loops on the host"
+        if not self._structured and self._amg is None:
+            pc = "jacobi-pcg" if self._p_cheb is None else "cheb-pcg"
+            return f"eager: the pressure {pc} solve loops on the host"
+        if max_iter > 1:
+            return "eager: max_iter > 1 reads diff between the inner iterations"
+        return "graph"
+
+    def _run_tables(self, num_steps: int, bc_vals_seq, h_qvals_seq):
+        """The call's boundary values on the device in the internal layout:
+        the frozen (d, n) vector or the (num_steps, d, n) table, and each
+        outlet's (nf, nq) values or (num_steps, nf, nq) table."""
+        on = lambda a: torch.as_tensor(a, dtype=self._dtype, device=self._device)
+        if bc_vals_seq is None:
+            bc = self._bc_values()
+        else:
+            bc = self._pv(on(bc_vals_seq))
+            nv = self._Vi[0][0].num_dofs
+            if tuple(bc.shape[:2]) != (num_steps, self._mesh.dim) or \
+                    tuple(bc_vals_seq.shape)[-1] != nv:
+                raise ValueError(f"bc_vals_seq: expected ({num_steps}, {self._mesh.dim}, {nv}), "
+                                 f"got {tuple(bc_vals_seq.shape)}")
+        if h_qvals_seq is None:
+            return bc, self._h_qvals()
+        h = [on(a) for a in h_qvals_seq]
+        if len(h) != len(self._bcs_p) or any(a.shape[0] != num_steps for a in h):
+            raise ValueError(f"h_qvals_seq: expected {len(self._bcs_p)} tables of "
+                             f"{num_steps} steps")
+        return bc, h
+
     def run(self, num_steps: int, dt: float, nu: float, max_error: float = 1e-12,
             max_iter: int = 1, bc_vals_seq=None, h_qvals_seq=None, step_callback=None,
             t0: float = 0.0) -> dict:
@@ -1786,46 +1849,67 @@ class FractionalStep_AB_CN:
         ``h_qvals_seq``, from ``h_value_table``, each outlet's; both go to
         the device and the internal layout once a call.
         ``step_callback(state, t)`` sees the device state (internal layout)
-        and the time at the end of each step; its outputs, a tensor or a
-        dict / tuple of tensors, are stacked over the steps on the device
-        into ``last_stats["callback"]``, read with the stats once a call."""
+        and the time at the end of each step, a 0-d tensor of the solver's
+        dtype (t0 + dt + ... + dt); its outputs, a tensor or a dict / tuple
+        of tensors, are stacked over the steps on the device into
+        ``last_stats["callback"]``, read with the stats once a call.
+
+        Where ``config_report()["run"]`` is "graph" (a single-device solver
+        whose step makes no host read, ``max_iter`` 1), the step runs on
+        static buffers (``step_graph.StepGraph``): on the card one step is
+        captured as a CUDA graph the first time the call's key (dt, nu,
+        max_error, max_iter, the tables' presence and row shapes, the
+        callback's identity) is met, or a call is longer than its tables'
+        rows, and replayed ``num_steps`` times; a new key replaces the
+        graph.  A
+        callback there must be torch on the device (a host read fails the
+        capture, naming it); a failed capture raises.  Elsewhere the steps
+        run in a loop on the host."""
         if num_steps < 1 or max_iter < 1:
             raise ValueError("num_steps and max_iter must be at least 1")
+        self._last_max_iter = max_iter
         state = self._state_from_functions()
-        on = lambda a: torch.as_tensor(a, dtype=self._dtype, device=self._device)
-        if bc_vals_seq is None:
-            bc_seq = [self._bc_values()] * num_steps
+        bc, h = self._run_tables(num_steps, bc_vals_seq, h_qvals_seq)
+        seq_bc, seq_h = bc_vals_seq is not None, h_qvals_seq is not None
+        if self._run_mode(max_iter) == "graph":
+            key = (dt, nu, max_error, max_iter, seq_bc and tuple(bc.shape[1:]),
+                   seq_h and tuple(tuple(a.shape[1:]) for a in h),
+                   None if step_callback is None else id(step_callback))
+            g = self._graph
+            if g is None or g.key != key or g.rows < num_steps:
+                # one graph is kept: the old one's buffers and pool go first
+                self._graph = g = None
+                step = lambda st, b, hq: self._step(st, dt, nu, b, hq, max_error, max_iter)
+                g = StepGraph(key, step, state, bc, h, seq_bc, seq_h, table_rows(num_steps), dt,
+                              step_callback)
+            g.load(state, bc, h, t0)
+            if self._device.type == "cuda" and g.graph is None:
+                g.capture(t0)
+            syncs = g.run(num_steps)
+            self._graph = g
+            self._set_device_state(dict(g.state))
+            self.last_stats, outs = g.read(num_steps)
         else:
-            bc_seq = self._pv(on(bc_vals_seq))
-            nv = self._Vi[0][0].num_dofs
-            if tuple(bc_seq.shape[:2]) != (num_steps, self._mesh.dim) or \
-                    tuple(bc_vals_seq.shape)[-1] != nv:
-                raise ValueError(f"bc_vals_seq: expected ({num_steps}, {self._mesh.dim}, {nv}), "
-                                 f"got {tuple(bc_vals_seq.shape)}")
-        if h_qvals_seq is None:
-            h_seq = [self._h_qvals()] * num_steps
-        else:
-            tables = [on(h) for h in h_qvals_seq]
-            if len(tables) != len(self._bcs_p) or any(h.shape[0] != num_steps for h in tables):
-                raise ValueError(f"h_qvals_seq: expected {len(self._bcs_p)} tables of "
-                                 f"{num_steps} steps")
-            h_seq = [list(hs) for hs in zip(*tables)] if tables else [[]] * num_steps
-        steps, syncs, outs = [], [], []
-        t = float(t0)
-        for k in range(num_steps):
-            state, stats, n = self._step(state, dt, nu, bc_seq[k], h_seq[k], max_error, max_iter)
-            t += dt
-            if step_callback is not None:
-                outs.append(step_callback(state, t))
-            steps.append(stats)
-            syncs.append(n)
-        self._set_device_state(state)
-        self.last_stats = {
-            k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]
-        }
+            steps, syncs, outs = [], [], []
+            t = torch.full((), t0, dtype=self._dtype, device=self._device)
+            for k in range(num_steps):
+                state, stats, n = self._step(state, dt, nu, bc[k] if seq_bc else bc,
+                                             [a[k] for a in h] if seq_h else h, max_error,
+                                             max_iter)
+                t = t + dt
+                if step_callback is not None:
+                    outs.append(step_callback(state, t))
+                steps.append(stats)
+                syncs.append(n)
+            self._set_device_state(state)
+            with host_reads_allowed(self._device):
+                self.last_stats = {
+                    k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]
+                }
+                outs = _host(_stack(outs, self._device)) if step_callback is not None else None
         self.last_stats["host_syncs"] = np.asarray(syncs)
         if step_callback is not None:
-            self.last_stats["callback"] = _host(_stack(outs, self._device))
+            self.last_stats["callback"] = outs
         return self.last_stats
 
     def solve(self, dt: float, nu: float, max_error: float = 1e-12, max_iter: int = 10) -> float:

@@ -9,7 +9,8 @@ Cd ~ 5.58, Cl ~ 0.0106 (fine-mesh literature values).
 
 Runs the general path with its PressureBC outlet; the force on the
 cylinder is ``assembly.facets.surface_traction`` taken by ``run``'s step
-callback on the device, read once a chunk.
+callback on the device (inside the step's CUDA graph on the card: one
+callback for the whole run), read once a chunk.
 
 Usage:
     python -m oasisx_tpu_torch.demo.cylinder [--res 40] [-dt 2e-3] [-T 0.5]

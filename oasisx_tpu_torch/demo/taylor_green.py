@@ -105,16 +105,16 @@ def _run_window_errors(solver, mesh, inputs, u_time, num_steps, dt, nu):
     cd_q = torch.as_tensor(solver._Q.dofmap.cell_dofs, dtype=torch.long, device=dev)
     pi = np.pi
 
-    def err_cb(state, t):
+    def err_cb(state, t):  # t: a 0-d tensor; torch only, so that the step's graph holds it
         u, p = solver._uv(state["u"]), solver._uq(state["p"])
-        decay_u = np.exp(-2 * pi**2 * nu * t)
+        decay_u = torch.exp(-2 * pi**2 * nu * t)
         uex = torch.stack([
             -torch.cos(pi * xq[..., 0]) * torch.sin(pi * xq[..., 1]),
             torch.sin(pi * xq[..., 0]) * torch.cos(pi * xq[..., 1]),
         ]) * decay_u
         du = torch.einsum("qj,gcj->gcq", phi_u, u[:, cd_u]) - uex
         err_u = torch.einsum("gcq,q,c->", du * du, wq, detJ)
-        decay_p = np.exp(-4 * pi**2 * nu * (t - dt / 2.0))
+        decay_p = torch.exp(-4 * pi**2 * nu * (t - dt / 2.0))
         pex = -0.25 * (torch.cos(2 * pi * xq[..., 0]) + torch.cos(2 * pi * xq[..., 1])) * decay_p
         dp_ = torch.einsum("qj,cj->cq", phi_q, p[cd_q]) - pex
         err_p = torch.einsum("cq,q,c->", dp_ * dp_, wq, detJ)

@@ -10,8 +10,8 @@ on the CPU in float64.
   tentative solves): equal iterations, u and p to 1e-10.
 - ``h_qvals_seq`` on the DFG cylinder with an outlet pressure that changes
   each step, against the per-step loop and the JAX package.
-- Two different ``step_callback``s in turn, a dict-valued one, and the
-  tables' shape checks.
+- Two different ``step_callback``s in turn, a dict-valued one (the time a
+  0-d tensor), and the tables' shape checks.
 """
 
 import numpy as np
@@ -146,8 +146,10 @@ def test_step_callbacks_in_turn():
     assert (p < 1.0).all() and (e > 1.0).all()
     times = []
     out = s.run(3, DT, NU, t0=1.0, step_callback=lambda st, t: times.append(t) or
-                {"t": torch.tensor(t), "umax": (st["u"].abs().amax(dim=-1), st["p"].sum())})
-    assert times == pytest.approx([1.0 + DT, 1.0 + 2 * DT, 1.0 + 3 * DT])
+                {"t": t, "umax": (st["u"].abs().amax(dim=-1), st["p"].sum())})
+    # the time is a 0-d tensor of the solver's dtype (each step's own)
+    assert all(t.shape == () and t.dtype == torch.float64 for t in times)
+    assert [float(t) for t in times] == pytest.approx([1.0 + DT, 1.0 + 2 * DT, 1.0 + 3 * DT])
     cb = out["callback"]
     assert cb["t"] == pytest.approx(times)
     assert cb["umax"][0].shape == (3, 2) and cb["umax"][1].shape == (3,)

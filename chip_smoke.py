@@ -83,7 +83,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1e-5, max_iter 1): 5 warm-up steps, then 25 timed steps with every
    launch counter reset before them.  Velocity finite, every solve
    converged, every kernel launched, no plain version called, no host
-   read inside a step (host_syncs 0).
+   read inside a step (host_syncs 0).  ``run``'s mode is "graph" (on every
+   single-device default path): the warm-up captures one step as a CUDA
+   graph and the timed steps replay it.  Then the graph leg (``graph_leg``,
+   also after 4f, 4d and 4b): from one saved state, 3 windows of 25 steps
+   through the per-step loop (``solver._force_eager``) and 25 through
+   the graph, in turns: iterations equal at every step, the final state
+   bit for bit the loop's (within GRAPH_F32_BOUND where two loop windows
+   already differ), launches a step equal, one replay a step, the replays
+   under ``torch.cuda.set_sync_debug_mode("error")``; both steps/s, their
+   ratio and a profile of 10 graph steps (the device's busy share).
 5. GPU against CPU: N=6 in float64, 3 steps from the same state on cuda
    and on cpu; u and p agree to 1e-10 relative with equal iteration counts.
 3e. K1's non-MG modes at N=35 (bench.py's problem at a grid of odd cell
@@ -143,6 +152,8 @@ any failure or when there is no card.
    the device memory before and at its peak in the steps.
 4c. The res=30 DFG cylinder with its outlet PressureBC in float32: 5
    steps, every solve converged, the ELL kernels launched.
+4c''. A step callback that reads the host (``float(t)``) on the N=6 box:
+   ``run``'s capture fails with an error naming it; the next run captures.
 5b. GPU against CPU in float64, 3 steps: the vessel at N=6 and the
    cylinder at res=10; equal iterations, u and p to 1e-10 relative.
 
@@ -193,7 +204,8 @@ any failure or when there is no card.
    path's pressure pc_type jacobi and cheb (the cpu solver's bounds handed
    to the cuda one), its tentative ksp_type cg and gmres, and the band
    layout with gmres, on the vessel at N=6 and a 6x6 rectangle sent to the
-   general path.
+   general path; each case's run mode: "graph" for the lumped update,
+   "eager: <reason>" where a solve loops on the host.
 5f. GPU against CPU in float64, 3 steps each, phase 5's checks (the
    rotational solves' iterations too): the rotational update and a callable
    body force on the N=6 box and the N=6 vessel; then on the res=10
@@ -256,7 +268,7 @@ any failure or when there is no card.
 4q. The slab path (a ``device_mesh``: slabs of cube planes, a slab a
    rank of a torch.distributed group, spawned by
    ``oasisx_tpu_torch.parallel.launch``) on bench.py's problem at N=36 in
-   float32, rtol 1e-5, 5 warm-up and 25 timed steps: at world 1 (the slab
+   float32, rtol 1e-5, 2 warm-up and 10 timed steps (SHARD_STEPS): at world 1 (the slab
    code with no neighbours) and over 2 ranks on the one card (gloo, planes
    and sums through the host), and over NCCL at every card where there
    are 2 or more.  Each rank's K3, K5, K6 and K7 per shard against their
@@ -266,7 +278,7 @@ any failure or when there is no card.
    every rank's iterations equal.  Printed: steps/s, iterations a step,
    the exchanges, sums and gathers a step, halo_traffic_report's bytes
    per exchange, one sum's and one halo refresh's host time, and the
-   card's busy share over 5 more profiled steps.  The state after 30 steps
+   card's busy share over 3 more profiled steps.  The state after 12 steps
    against world 1's (5e-4 u, 5e-3 p: the f32 engines' bound), and world
    1's against the single-device path's (relative L2 0.03 u, 0.05 p at
    N=36, 0.05 u, 0.25 p at N=64: about twice the readings; the two paths'
@@ -281,7 +293,7 @@ any failure or when there is no card.
    steps: every iteration count equal, u and p to 1e-12 relative.
 4r. The graph-halo path (``parallel/ranks.py`` ``run_halo``): the vessel
    at N=36 (bench.py's unstructured configuration, float32, rtol 1e-5),
-   5 + 25 steps at world 1, at world 2 on the one card (gloo) and over NCCL
+   2 + 10 steps at world 1, at world 2 on the one card (gloo) and over NCCL
    on every card where there are two or more.  Every rank's per-shard K14
    at batch 3 on A_lhs and M and at batch 1 on Ap against its plain version
    between the halo refresh and fold: before the fold on every slot and
@@ -293,13 +305,13 @@ any failure or when there is no card.
    with the same checks.  ``--halo-only [--halo-world W]`` builds the
    kernels and runs 4r, 4r' and 5j alone.
 4r'. In 4r's world-2 group: the DFG cylinder at res=30 with its
-   PressureBC(0) outlet and the rotational update, 5 + 10 steps.
+   PressureBC(0) outlet and the rotational update, 2 + 6 steps.
 5j. GPU against CPU on the graph-halo path: world 2 (gloo), float64, rtol
    1e-12, 3 steps, on the res=10 cylinder (outlet, rotational) and the
    vessel at N=6: every iteration count equal, u and p to 1e-12 relative;
    the card's run against the single-device general path to 1e-8.
 4k'. One step of the split-phase API under a device_mesh at N=36 at the
-   end of 4q's and 4r's gloo groups (world 1 and 2), after their 5 + 25
+   end of 4q's and 4r's gloo groups (world 1 and 2), after their 2 + 10
    steps of ``run``: bench.py's box on the slab path and its vessel under
    graph-halo, float32, rtol 1e-5.  Every reason 2, each phase's launches
    on every rank the path's (SPLIT_MESH_KERNELS: K8, K5, K3, K6, K7 on the
@@ -308,17 +320,17 @@ any failure or when there is no card.
 4s. The replicated mode (``options={"replicated": True}``: a block of
    cells a rank, whole dof vectors, every operator the element product
    and one sum over the ranks, Jacobi-PCG for the pressure, no kernel of
-   the package on its path) on the vessel at N=36 (float32, rtol 1e-5), 2
-   warm-up and 5 timed steps, at world 1, at world 2 on the one card
+   the package on its path) on the vessel at N=36 (float32, rtol 1e-5), 1
+   warm-up and 3 timed steps, at world 1, at world 2 on the one card
    (gloo) and over NCCL on every card where there are two or more.  Every
    solve converged, every rank's iterations and state bits rank 0's, no
    kernel and no plain version; printed: steps/s, iterations a step, the
    sums a step and bytes summed, one sum of a whole velocity component's
    and of one value's host ms, the busy share over 1 profiled step (world
    2 and above).  Each
-   world's state against world 1's after the 7 steps (REP_WORLD_BOUND);
-   world 1, taken on to 30 steps, against 4r's world-1 graph-halo state
-   after its 5 + 25 (REP_HALO_BOUND).
+   world's state against world 1's after the 4 steps (REP_WORLD_BOUND);
+   world 1, taken on to 12 steps, against 4r's world-1 graph-halo state
+   after its 2 + 10 (REP_HALO_BOUND).
 5k. GPU against CPU on every sharded mode: world 2 (gloo), float64, rtol
    1e-12.  The replicated mode 3 steps on the vessel at N=6 and the res=10
    cylinder: every iteration count equal, u and p to 1e-10, every rank's
@@ -418,6 +430,13 @@ SOURCE.update(dict.fromkeys(("ell_matvec", "ell_bicgstab", "ell_cg", "ell_pcg_am
 SOLVE_RTOL = {"float64": 1e-8, "float32": 1e-5}
 DT, NU = 2e-3, 1.0 / 1600.0
 N, WARMUP, STEPS = 36, 5, 25  # bench.py's size; steps timed after the warm-up
+# phases 4q's and 4r's warm-up and timed steps (5 + 25 before the graph legs
+# came; these host-bound sharded phases were cut to keep the full run's margin)
+SHARD_STEPS = (2, 10)
+GRAPH_WINDOWS = 3  # a graph leg's windows of STEPS steps a mode (eager, graph, in turns)
+# a graph leg's bound (relative to the eager state's largest entry) where two
+# eager windows from one state already differ: the f32 state's rounding
+GRAPH_F32_BOUND = {"u": 1e-5, "p": 1e-3}
 N_ODD = 35  # bench.py's problem at a grid that does not coarsen: K1's Chebyshev mode
 N64 = 64  # bench.py's BENCH_N=64 tier (BENCH_N64_r05.json), the same settings
 BOXES = ((20, 27, 33), (41, 57))  # structured grids whose axes differ (phase 3)
@@ -2228,14 +2247,18 @@ def band_solve_cases(pair, device, seed: int = 5):
 
 
 def drive_main_path(solver, warmup: int, steps: int, device, kernels, dt=DT, nu=NU) -> dict:
-    """Warm-up steps, reset counters, timed steps; fails unless every
-    kernel of ``kernels`` launched, no plain version ran, every solve
+    """Warm-up steps, reset counters, timed steps; fails unless the run mode
+    is "graph" (the warm-up captures the step, the timed steps replay it),
+    every kernel of ``kernels`` launched, no plain version ran, every solve
     converged and (on the card) no step read the host."""
     import numpy as np
     import torch
 
     from oasisx_tpu_torch.assembly import kernels as kn
 
+    mode = solver.config_report().get("run")  # None: --tree's package from before the graph run
+    check(mode == "graph" or (OTHER_TREE and mode is None),
+          f"run mode {mode!r} on a single-device default path, not graph")
     solver.run(warmup, dt, nu, max_iter=1)
     _sync(device)
     kn.reset_counts()
@@ -2392,8 +2415,10 @@ def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: 
           f"{ {k: v for k, v in res['plain'].items() if v} }")
 
 
-def profile_steps(solver, steps: int, path: str) -> None:
-    """torch.profiler over ``steps`` more main-path steps."""
+def profile_steps(solver, steps: int, path: str, top: int = 20) -> dict:
+    """torch.profiler over ``steps`` more main-path steps, its trace
+    written to ``path`` (none where empty); returns the device's busy share
+    and its kernels a step."""
     import os
 
     import torch
@@ -2420,16 +2445,102 @@ def profile_steps(solver, steps: int, path: str) -> None:
     print("    iterations a step in these steps (the slowest row): " + ", ".join(
         f"{f} {float(stats[f'{f}_iters'].reshape(steps, -1).max(axis=-1).mean()):.2f}"
         for f in ("u", "p", "c")))
-    for e in dev[:20]:
+    for e in dev[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} x  {e.key[:90]}")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
+    if path:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+    return dict(busy=busy / wall_us, kernels=count / steps)
 
 
-def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None) -> None:
+def graph_leg(solver, tag: str, smi: str, steps: int = STEPS, windows: int = GRAPH_WINDOWS,
+              dt=DT, nu=NU) -> dict:
+    """The graph leg of a main path: from one saved state, ``windows``
+    pairs of ``steps`` steps through ``run``'s per-step loop
+    (``_force_eager``) and through its CUDA graph, in turns.  Fails unless
+    every graph window's iterations equal the eager window's at every step,
+    its final state is bit for bit the eager one's (or, where two eager
+    windows already differ, within GRAPH_F32_BOUND), its launches a step
+    are equal, the host's work a step is one replay, and the replays ran
+    under ``torch.cuda.set_sync_debug_mode("error")``.  Prints both steps/s
+    (the median window), their ratio, and a profile of 10 graph steps."""
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+
+    check(solver.config_report()["run"] == "graph",
+          f"[{tag}] run mode {solver.config_report()['run']!r}, not graph")
+    st0 = {k: v.clone() for k, v in solver._state_from_functions().items()}
+    solver.run(1, dt, nu, max_iter=1)  # the graph of this key, captured before the windows
+    graph = solver._graph
+    res = {"eager": [], "graph": []}
+    for _ in range(windows):
+        for mode in ("eager", "graph"):
+            solver._force_eager = mode == "eager"
+            solver._set_device_state({k: v.clone() for k, v in st0.items()})
+            replays = graph.replays
+            _sync("cuda")
+            kn.reset_counts()
+            t0 = time.perf_counter()
+            if mode == "graph":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                stats = solver.run(steps, dt, nu, max_iter=1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            _sync("cuda")
+            wall = time.perf_counter() - t0
+            check(solver._graph is graph, f"[{tag}] the {mode} window replaced the graph")
+            if mode == "graph":
+                check(graph.replays - replays == steps,
+                      f"[{tag}] {graph.replays - replays} replays for {steps} steps")
+            state = {k: v.detach().cpu().numpy() for k, v in solver._state.items()}
+            res[mode].append(dict(stats=stats, wall=wall, launches=dict(kn.launches),
+                                  sha=state_sha(solver), state=state))
+    solver._force_eager = False
+    e0 = res["eager"][0]
+    reproducible = all(r["sha"] == e0["sha"] for r in res["eager"])
+    worst = {"u": 0.0, "p": 0.0}
+    for e, g in zip(res["eager"], res["graph"]):
+        for f in ("u", "p", "c"):
+            check(np.array_equal(e["stats"][f"{f}_iters"], g["stats"][f"{f}_iters"]),
+                  f"[{tag}] {f} iterations of the graph differ from the eager loop's")
+        check(e["launches"] == g["launches"],
+              f"[{tag}] launches: graph {g['launches']}, eager {e['launches']}")
+        for f, keys in (("u", ("u", "u1", "u2")), ("p", ("p", "dp"))):
+            ref = np.concatenate([e["state"][k].ravel() for k in keys])
+            got = np.concatenate([g["state"][k].ravel() for k in keys])
+            worst[f] = max(worst[f], float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30)))
+        if reproducible:
+            check(g["sha"] == e["sha"], f"[{tag}] graph state {g['sha']} against eager {e['sha']}")
+    if not reproducible:
+        check(all(worst[f] <= GRAPH_F32_BOUND[f] for f in worst),
+              f"[{tag}] eager runs from one state differ; graph against eager {worst}, bound "
+              f"{GRAPH_F32_BOUND}")
+    sps = {m: steps / float(np.median([r["wall"] for r in res[m]])) for m in res}
+    per_step = {k: v / steps for k, v in res["graph"][0]["launches"].items() if v}
+    print(f"[{tag}] graph leg, {windows} x {steps} steps a mode from one state on {smi}: eager "
+          f"{sps['eager']:.4f} steps/s, graph {sps['graph']:.4f} steps/s (x"
+          f"{sps['graph'] / sps['eager']:.4f}; windows eager "
+          f"{[round(steps / r['wall'], 2) for r in res['eager']]}, graph "
+          f"{[round(steps / r['wall'], 2) for r in res['graph']]})")
+    print(f"    iterations equal at every step; launches a step equal {per_step}; one replay a "
+          f"step under sync debug mode 'error'; eager windows bit-reproducible {reproducible}; "
+          f"final state graph against eager: bit-identical "
+          f"{all(e['sha'] == g['sha'] for e, g in zip(res['eager'], res['graph']))}, worst rel "
+          f"diff u {worst['u']:.3e} p {worst['p']:.3e}")
+    solver._set_device_state({k: v.clone() for k, v in st0.items()})
+    prof = profile_steps(solver, 10, "", top=8)
+    return dict(sps=sps, busy=prof["busy"], reproducible=reproducible)
+
+
+def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None,
+               run: str = "graph") -> None:
     """The same problem on cuda and on cpu from the same state, float64:
     equal iterations, u and p to 1e-10 relative; with ``pressure_pc``, the
-    pressure method both solvers report.  A Chebyshev pressure solve on the
+    pressure method both solvers report; ``run``, the run mode both report
+    ("graph", or "eager" with its reason).  A Chebyshev pressure solve on the
     general path runs on the cpu solver's bounds on both devices (each
     device's power iteration rounds in its own way); the host reads a step
     are printed for each device."""
@@ -2443,8 +2554,9 @@ def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None)
     runs = {}
     for dev in ("cuda", "cpu"):
         s = solvers[dev]
-        pc = s.config_report()["pressure_pc"]
+        pc, mode = s.config_report()["pressure_pc"], s.config_report()["run"]
         check(pressure_pc in (None, pc), f"{label} on {dev}: pressure {pc}, not {pressure_pc}")
+        check(mode.split(":")[0] == run, f"{label} on {dev}: run mode {mode!r}, not {run}")
         st = s.run(steps, dt, nu, max_iter=1)
         u = np.stack([f.x.array.detach().cpu().numpy() for f in s._u])
         p = s._p.x.array.detach().cpu().numpy()
@@ -2454,7 +2566,7 @@ def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None)
     du = np.abs(ug - uc).max() / np.abs(uc).max()
     dp = np.abs(pg - pc).max() / np.abs(pc).max()
     print(f"  {label} f64 {steps} steps: u rel diff {du:.3e}, p rel diff {dp:.3e}; host reads a "
-          f"step cuda {sg['host_syncs'].tolist()}, cpu {sc['host_syncs'].tolist()}")
+          f"step cuda {sg['host_syncs'].tolist()}, cpu {sc['host_syncs'].tolist()}; run {mode}")
     for k in ("u_iters", "p_iters", "c_iters", "rot_iters"):
         if k not in sc:
             continue
@@ -2475,21 +2587,22 @@ def options_gpu_vs_cpu() -> None:
     lumped, gmres = {"pc_type": "lumped"}, {"ksp_type": "gmres"}
     rect = {"structured": False, "low_memory_version": False}
     cases = (
-        ("N=6 lumped (structured)", 6, dict(scalar=lumped), "mg-pcg"),
-        ("vessel N=6 lumped", 6, dict(vessel=True, scalar=lumped), "amg-pcg-fused"),
+        ("N=6 lumped (structured)", 6, dict(scalar=lumped), "mg-pcg", "graph"),
+        ("vessel N=6 lumped", 6, dict(vessel=True, scalar=lumped), "amg-pcg-fused", "graph"),
         ("vessel N=6 pc_type jacobi, ksp_type cg", 6,
          dict(vessel=True, pressure={"pc_type": "jacobi"}, tentative={"ksp_type": "cg"}),
-         "jacobi-pcg"),
+         "jacobi-pcg", "eager"),
         ("vessel N=6 pc_type cheb", 6, dict(vessel=True, pressure={"pc_type": "cheb"}),
-         "cheb-pcg"),
+         "cheb-pcg", "eager"),
         ("rectangle 6x6 general, ksp_type gmres, pc_type cheb, lumped", (6, 6),
          dict(options=rect, tentative=gmres, pressure={"pc_type": "cheb"}, scalar=lumped),
-         "cheb-pcg"),
+         "cheb-pcg", "eager"),
         ("vessel N=6 band, ksp_type gmres", 6, dict(vessel=True, layout="band", tentative=gmres),
-         "amg-pcg-fused"),
+         "amg-pcg-fused", "eager"),
     )
-    for label, n, kw, pc in cases:
-        gpu_vs_cpu(lambda dt, dev: tgv_solver(n, dt, dev, rtol=1e-8, **kw), label, pressure_pc=pc)
+    for label, n, kw, pc, run in cases:
+        gpu_vs_cpu(lambda dt, dev: tgv_solver(n, dt, dev, rtol=1e-8, **kw), label, pressure_pc=pc,
+                   run=run)
 
 
 def rotational_gpu_vs_cpu() -> None:
@@ -2615,6 +2728,32 @@ def cylinder_transient(device, smi: str, steps: int = 25, dt=CYL_DT, nu=CYL_NU) 
     # the same operations in the same order: equal to f32 rounding
     check(du <= 1e-5 and dp <= 1e-5, f"the table run and the per-step loop disagree (u {du:.3e},"
           f" p {dp:.3e})")
+
+
+def host_read_callback(device) -> None:
+    """Phase 4c'': a step callback that reads the host (``float(t)``) fails
+    the capture of ``run``'s graph with an error that names it; the
+    solver's next run, without it, captures and runs."""
+    import torch
+
+    from oasisx_tpu_torch.step_graph import CallbackError
+
+    s = tgv_solver(6, torch.float32, device, rtol=1e-5)
+
+    def reads_the_host(st, t):
+        return st["u"].sum() * float(t)
+
+    try:
+        s.run(2, DT, NU, max_iter=1, step_callback=reads_the_host)
+    except CallbackError as e:
+        msg = str(e)
+    else:
+        msg = ""
+    print(f"[4c''] a callback that reads the host: {msg[:160]!r}")
+    check("reads_the_host" in msg, "[4c''] a host-reading callback was not refused by name")
+    st = s.run(2, DT, NU, max_iter=1)
+    check(bool(st["p_converged"].all()) and s._graph is not None,
+          "[4c''] the run after the refused callback")
 
 
 # ---------------------------------------------------------------------------
@@ -3137,7 +3276,7 @@ def structured_cg_gpu_vs_cpu() -> None:
         return s
 
     kn.reset_counts()
-    gpu_vs_cpu(make, "N=6 ksp_type cg (structured)", pressure_pc="mg-pcg")
+    gpu_vs_cpu(make, "N=6 ksp_type cg (structured)", pressure_pc="mg-pcg", run="eager")
     print(f"  launches on the card: matvec_win {kn.launches['matvec_win']}, bicgstab "
           f"{kn.launches['bicgstab']}")
     check(kn.launches["matvec_win"] > 0 and kn.launches["bicgstab"] == 0,
@@ -3147,7 +3286,8 @@ def structured_cg_gpu_vs_cpu() -> None:
 SLAB_WORLD = 2  # phase 4q's ranks on the one card (gloo, planes through the host)
 SLAB_WORLD_BOUND = {"u": 5e-4, "p": 5e-3}  # f32 engines (ROADMAP known difference c)
 # the slab path at world 1 against the single-device one, relative L2 after
-# 5 + 25 steps in f32 at rtol 1e-5, by N: about twice the largest reading
+# its steps in f32 at rtol 1e-5, by N: about twice the largest reading (taken
+# after 5 + 25 steps)
 # on an H100 (N=36: u 1.19e-2 and 1.62e-2, p 2.43e-2 and 2.35e-2; N=64: u
 # 2.61e-2, p 0.141, its bound 1.8 times).  The two paths' MGs and tentative x0s differ (ROADMAP
 # known differences a and f) and each solve stops within rtol 1e-5; the
@@ -3157,7 +3297,7 @@ SLAB_WORLD_BOUND = {"u": 5e-4, "p": 5e-3}  # f32 engines (ROADMAP known differen
 # converged one.  No bound at an N without readings.
 SLAB_SINGLE_BOUND = {36: {"u": 0.03, "p": 0.05}, 64: {"u": 0.05, "p": 0.25}}
 SLAB_TIMEOUT = 900.0  # a rank group's time limit (each collective: 60 s)
-SLAB_PROFILE = 5  # steps under torch.profiler after the timed ones: the device's share
+SLAB_PROFILE = 1  # steps under torch.profiler after the timed ones: the device's share
 
 
 def _rel2(a, b) -> tuple[float, float]:
@@ -3194,7 +3334,8 @@ def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
           f"{time.perf_counter() - t0:.1f} s with set-up (rank 0 {r0['setup_s']:.1f} s); "
           f"{rep['planes_per_rank']} cube planes a rank, pressure {rep['pressure_pc']} "
           f"({rep['pressure_mg_levels']} levels)")
-    check(rep["sharding"] == "slab-halo" and rep["ndev"] == world, f"[{label}] {rep}")
+    check(rep["sharding"] == "slab-halo" and rep["ndev"] == world
+          and rep["run"].startswith("eager: "), f"[{label}] {rep}")
     for r in out:
         for name, k in r["kernels"].items():
             print(f"  rank {r['rank']} {name} per shard on {k['shape']}: max abs err "
@@ -3247,16 +3388,17 @@ def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
     return r0
 
 
-def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
-              device: str = "cuda") -> None:
+def slab_path(n: int = N, warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS[1], worlds=None,
+              device: str = "cuda", single: dict | None = None) -> None:
     """Phase 4q: bench.py's configuration (N, float32, rtol 1e-5) on the
     slab path, ``warmup`` + ``steps`` steps, at world 1 (the slab code
     with no neighbours) and over ``SLAB_WORLD`` ranks on the one card
     (gloo), and over NCCL at world = the card count where that is 2 or
     more (``worlds``: [(world, backend)] in place of these); each world's
     state against world 1's (the f32 engines' bound), and world 1's against
-    the single-device path's (the solves' tolerance).  ``device`` "cpu"
-    rehearses it (its launch checks then fail).  The gloo groups of world 1
+    the single-device path's (the solves' tolerance; ``single``: its u, p
+    and stats after as many steps, from phase 4, or None: run here).
+    ``device`` "cpu" rehearses it (its launch checks then fail).  The gloo groups of world 1
     and ``SLAB_WORLD`` end with phase 4k''s split step; returns every rank's
     split result by world."""
     import numpy as np
@@ -3285,13 +3427,12 @@ def slab_path(n: int = N, warmup: int = WARMUP, steps: int = STEPS, worlds=None,
               f"{SLAB_WORLD_BOUND})")
         check(du[0] <= SLAB_WORLD_BOUND["u"] and dp[0] <= SLAB_WORLD_BOUND["p"],
               f"[4q] world {key[0]} against world 1: u {du[0]:.3e}, p {dp[0]:.3e}")
-    single = tgv_solver(n, torch.float32, device, rtol=1e-5)
-    single.run(warmup, DT, NU)
-    st = single.run(steps, DT, NU)
-    u = np.stack([f.x.array.double().cpu().numpy() for f in single._u])
-    p = single._p.x.array.double().cpu().numpy()
-    del single
-    torch.cuda.empty_cache()
+    if single is None:
+        solver = tgv_solver(n, torch.float32, device, rtol=1e-5)
+        single = single_steps(solver, None, warmup, steps)
+        del solver
+        torch.cuda.empty_cache()
+    u, p, st = single["u"], single["p"], single["stats"]
     du, dp = _rel2(base["u"], u), _rel2(base["p"], p)
     mean = lambda k: float(st[k].reshape(steps, -1).sum(axis=1).mean())
     bound = SLAB_SINGLE_BOUND.get(n)
@@ -3377,10 +3518,12 @@ def slab_gpu_vs_cpu(n: int = 6, world: int = SLAB_WORLD, steps: int = 3,
 
 HALO_WORLD = 2  # phase 4r's ranks on the one card (gloo)
 HALO_TIMEOUT = 900.0  # a rank group's time limit (each collective: 60 s)
-HALO_PROFILE = 5  # steps under torch.profiler after the timed ones
+HALO_PROFILE = 1  # steps under torch.profiler after the timed ones
 HALO_BAND_N = 18  # the vessel of phase 4r's band-layout group
 HALO_CYL_RES = 30  # the cylinder of phase 4r-prime
-# phase 4r's state gaps after 5 + 25 steps in f32 at rtol 1e-5, relative L2:
+HALO_CYL_STEPS = (1, 4)  # its warm-up and timed steps (5 + 10 before the graph legs)
+# phase 4r's state gaps after its steps in f32 at rtol 1e-5, relative L2
+# (the first readings were taken after 5 + 25 steps):
 # world 2 against world 1, and world 1 against phase 4b's single-device
 # path (K15 / K17's fused solves, the kernel path's x0: ROADMAP known
 # differences f and h).  About twice the first readings on an H100 (PERF.md
@@ -3435,7 +3578,8 @@ def halo_run(label: str, world: int, backend: str, cfg: dict, out: list,
           f"{rep['device']} x{world}): {r0['seconds']:.1f} s on rank 0 with set-up; pressure "
           f"{rep['pressure_pc']} ({rep['pressure_mg_levels']} levels); partition "
           f"{rep['partitioner']}; cells a rank {[r['config']['cells'] for r in out]}")
-    check(rep["sharding"] == "graph-halo" and rep["ndev"] == world, f"[{label}] {rep}")
+    check(rep["sharding"] == "graph-halo" and rep["ndev"] == world
+          and rep["run"].startswith("eager: "), f"[{label}] {rep}")
     for r in out:
         parts = " ".join(f"{k} {v:.2f}" for k, v in {**r["setup_parts"], **r["times"]}.items())
         print(f"  rank {r['rank']} set-up {r['setup_s']:.1f} s ({parts})")
@@ -3509,9 +3653,10 @@ def _gap(label: str, a: dict, b: dict, what: str, bound_: dict | None) -> None:
               f"[{label}] {what}: u {du[1]:.3e}, p {dp[1]:.3e} (bound {bound_})")
 
 
-def halo_path(single: dict | None, kres: dict | None = None, n: int = N, warmup: int = WARMUP,
-              steps: int = STEPS, worlds=None, device: str = "cuda", band_n: int = HALO_BAND_N,
-              cyl_res: int = HALO_CYL_RES, cyl_steps: tuple = (5, 10)) -> dict:
+def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
+              warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS[1], worlds=None,
+              device: str = "cuda", band_n: int = HALO_BAND_N, cyl_res: int = HALO_CYL_RES,
+              cyl_steps: tuple = HALO_CYL_STEPS) -> dict:
     """Phases 4r and 4r'.  4r: bench.py's unstructured configuration (the
     vessel at N, float32, rtol 1e-5, low_memory_version False) on the
     graph-halo path, ``warmup`` + ``steps`` steps, at world 1, over
@@ -3616,6 +3761,16 @@ def halo_gpu_vs_cpu(world: int = HALO_WORLD, steps: int = 3, devices=("cuda", "c
         torch.cuda.empty_cache()
 
 
+def single_steps(solver, state0: dict | None, warmup: int, steps: int) -> dict:
+    """The single-device reference of a sharded phase: from ``state0`` (a
+    device state; None: the solver's own), ``warmup`` then ``steps`` steps;
+    u, p (``_state``) and the timed steps' stats."""
+    if state0 is not None:
+        solver._set_device_state({k: v.clone() for k, v in state0.items()})
+    solver.run(warmup, DT, NU, max_iter=1)
+    return dict(_state(solver), stats=solver.run(steps, DT, NU, max_iter=1))
+
+
 def _state(solver) -> dict:
     """A solver's u (d, n) and p on the host, float64."""
     import numpy as np
@@ -3646,17 +3801,17 @@ def halo_phases(single: dict | None, kres: dict, worlds=None) -> dict:
 
 
 SPLIT_WORLD = 2  # the ranks of 4s's second group and of 5k's groups on the one card (gloo)
-REP_STEPS = (2, 5)  # phase 4s's warm-up and timed steps
+REP_STEPS = (1, 3)  # phase 4s's warm-up and timed steps (2 + 5 before the graph legs)
 # steps under torch.profiler after the timed ones, at world 2 and above
 # (at world 1 two of them cost ~20 s on an H100's host, which records each
 # of a step's thousands of small ops)
 REP_PROFILE = 1
 # phase 4s's state gaps in f32 at rtol 1e-5, relative L2: the replicated
 # mode at world 1 against phase 4r's graph-halo state at world 1 after the
-# same 5 + 25 steps (their pressure preconditioners differ, Jacobi against
-# the distributed AMG, and each solve stops within rtol 1e-5); over the
-# ranks against world 1 after 2 + 5 steps (the f32 sums grouped by rank).
-# About twice the first readings on an H100 (PERF.md section 6: u
+# same steps (their pressure preconditioners differ, Jacobi against the
+# distributed AMG, and each solve stops within rtol 1e-5); over the ranks
+# against world 1 after REP_STEPS (the f32 sums grouped by rank).  About
+# twice the first readings on an H100, after 5 + 25 and 2 + 5 steps (PERF.md section 6: u
 # 2.989e-4, p 1.362e-2; u 1.565e-6, p 7.459e-6).
 REP_HALO_BOUND = {"u": 6e-4, "p": 0.028}
 REP_WORLD_BOUND = {"u": 3.2e-6, "p": 1.5e-5}
@@ -3704,7 +3859,8 @@ def replicated_run(label: str, world: int, backend: str, cfg: dict, out: list) -
           f"{rep['device']} x{world}): set-up {r0['setup_s']:.1f} s on rank 0; pressure "
           f"{rep['pressure_pc']}; cells a rank {[r['config']['cells'] for r in out]}")
     check(rep["sharding"] == "replicated" and rep["ndev"] == world
-          and rep["pressure_pc"] == "jacobi-pcg", f"[{label}] {rep}")
+          and rep["pressure_pc"] == "jacobi-pcg" and rep["run"].startswith("eager: "),
+          f"[{label}] {rep}")
     for r in out:
         for f in ("u", "p", "c"):
             check(bool(np.all(r["stats"][f + "_converged"])), f"[{label}] rank {r['rank']}: a {f} "
@@ -3739,7 +3895,7 @@ def replicated_run(label: str, world: int, backend: str, cfg: dict, out: list) -
 
 
 def replicated_path(ref: dict | None, n: int = N, steps: tuple = REP_STEPS,
-                    until: int = WARMUP + STEPS, worlds=None, device: str = "cuda") -> None:
+                    until: int = sum(SHARD_STEPS), worlds=None, device: str = "cuda") -> None:
     """Phase 4s: the replicated mode (``options={"replicated": True}``) on
     bench.py's vessel at N (float32, rtol 1e-5, low_memory_version False),
     ``steps`` (warm-up, timed) steps, at world 1, over ``SPLIT_WORLD`` ranks
@@ -4199,11 +4355,11 @@ def main() -> int:
             worlds = [(1, "gloo"), (w, "nccl" if torch.cuda.device_count() >= w > 1 else "gloo")]
         t0 = time.perf_counter()
         vessel = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True)
-        res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
+        res = drive_main_path(vessel, *SHARD_STEPS, "cuda", kn.ELL_KERNELS)
         single = _state(vessel)
         del vessel
         torch.cuda.empty_cache()
-        print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {STEPS} steps "
+        print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {SHARD_STEPS[1]} steps "
               f"({time.perf_counter() - t0:.1f} s with set-up)")
         halo_phases(single, {}, worlds)
         print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4276,10 +4432,14 @@ def main() -> int:
     # 4. the structured main path
     rep = solver.config_report()
     check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
+    state0 = {k: v.clone() for k, v in solver._state_from_functions().items()}
     res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
     report_path("4", res, STEPS, nvel, smi, TPU_ERA_ITERS, steps_log)
     launches = {k: v for k, v in res["launches"].items() if v}
     base4 = res["launches"]
+    graph_leg(solver, "4", smi)
+    single4 = single_steps(solver, state0, *SHARD_STEPS)  # phase 4q's reference
+    del state0
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
     del solver
@@ -4352,6 +4512,7 @@ def main() -> int:
     print(f"    pressure Chebyshev({cheb['degree']})-Jacobi: lmax estimated "
           f"{cheb['lmax_estimate']:.6f}, validated {cheb['lmax']:.6f}, lmin {cheb['lmin']:.6f}")
     launches["pressure_cg"] = res["launches"]["pressure_cg"]
+    graph_leg(s35, "4f", smi)
     if args.profile:
         profile_steps(s35, args.profile, "build/chip_smoke_trace_n35.json")
     del s35
@@ -4393,6 +4554,7 @@ def main() -> int:
     report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64, steps_log)
     print(f"    pressure MG levels {levels64}; peak device memory in the steps "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; setup {setup64:.1f} s")
+    graph_leg(s64, "4d", smi)
     if args.profile:
         profile_steps(s64, args.profile, "build/chip_smoke_trace_n64.json")
     del s64
@@ -4435,9 +4597,10 @@ def main() -> int:
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
     report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, {}, steps_log)
     base4b = res["launches"]
-    single4b = _state(vessel)  # phase 4r's single-device reference
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
+    graph_leg(vessel, "4b", smi)
+    single4b = single_steps(vessel, vessel_state0, *SHARD_STEPS)  # phase 4r's reference
     for k, v in res["launches"].items():
         if v:
             launches.setdefault(k, v)
@@ -4548,8 +4711,10 @@ def main() -> int:
     report_path("4c", res, CYL_STEPS, 2 * cyl._Vi[0][0].num_dofs, smi, {}, steps_log)
     del cyl
 
-    # 4c'. the cylinder with a time-varying inflow, from a table
+    # 4c'. the cylinder with a time-varying inflow, from a table; 4c''. a
+    # callback that reads the host, refused
     cylinder_transient("cuda", smi)
+    host_read_callback("cuda")
 
     # 5b, 5c. GPU against CPU on the general path, both layouts
     print("[5b] cuda against cpu, general path")
@@ -4586,7 +4751,7 @@ def main() -> int:
     fidelity_path("cuda")
     # 4q. the slab path over ranks; 5i. its cuda against cpu
     t0 = time.perf_counter()
-    slab_splits = slab_path()
+    slab_splits = slab_path(single=single4)
     print(f"[4q] {time.perf_counter() - t0:.1f} s")
     print("[5i] cuda against cpu: the slab path")
     t0 = time.perf_counter()

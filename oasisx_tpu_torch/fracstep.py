@@ -177,7 +177,7 @@ oasisx_tpu fracstep.py:3332-3446): one step on static buffers
 a step, the per-step boundary values, time, stats and callback outputs in
 device tables indexed by a device step counter.  The sharded modes, the
 host-looped option solves and ``max_iter > 1`` run the per-step loop
-("eager: <reason>"), and so does ``options["run"]`` "eager".
+("eager: <reason>").
 """
 
 from __future__ import annotations
@@ -290,8 +290,7 @@ class FractionalStep_AB_CN:
     the structured path's pressure solve, above; ``slab``: False keeps a
     sharded structured mesh off the slab path; ``replicated``: the
     replicated mode where the slab path is not taken; ``partitioner`` and
-    ``amg_distributed``: the graph-halo path's; ``run``: "graph", the
-    default, or "eager", the per-step loop, for ``run``), ``dtype``, ``device_mesh``
+    ``amg_distributed``: the graph-halo path's), ``dtype``, ``device_mesh``
     (None: one device; else the sharded modes of the module docstring over
     the ranks of a ``torch.distributed`` group: a 1-D ``DeviceMesh``, a
     ``ProcessGroup`` or a ``parallel.comm.Comm``, each rank calling the
@@ -449,11 +448,10 @@ class FractionalStep_AB_CN:
         # the last pressure_assemble: the split phases' hand-off
         self._split = None
         self._split_dt = None
-        # run's mode (options["run"]: "graph", the default, or "eager"), the
-        # max_iter of its last call, and its StepGraph
-        self._run_option = options.get("run", "graph")
-        if self._run_option not in ("graph", "eager"):
-            raise ValueError(f"unknown run option {self._run_option!r}")
+        # run: the max_iter of its last call, its StepGraph, and whether it
+        # runs the per-step loop where the graph would run (set by the
+        # comparisons of the two: tests, chip_smoke's graph leg)
+        self._force_eager = False
         self._last_max_iter = 1
         self._graph = None
         self.last_stats: dict = {}
@@ -1803,8 +1801,8 @@ class FractionalStep_AB_CN:
             mode = "slab-halo" if self._slab is not None else \
                 "graph-halo" if self._halo is not None else "replicated"
             return f"eager: the {mode} mode's Krylov loops read the host every iteration"
-        if self._run_option == "eager":
-            return "eager: options['run'] is 'eager'"
+        if self._force_eager:
+            return "eager: forced, for a comparison with the graph"
         method = self._tentative_method()
         if method != "bcgs":
             return f"eager: the tentative {method} solve loops on the host"

@@ -2,8 +2,7 @@
 of ``step_graph.StepGraph`` (what the card captures as a CUDA graph and
 replays) without the capture.
 
-- The body bit for bit against the per-step loop (``options["run"]``
-  "eager") on the structured 3D box (N=4) and on the general path (the 2D
+- The body bit for bit against the per-step loop (``_force_eager``) on the structured 3D box (N=4) and on the general path (the 2D
   rectangle with ``structured: False``, AMG pressure), 3 steps and 2 more,
   with and without a Dirichlet table and a step callback: every stat, the
   callback's outputs, the state and the plain calls equal.
@@ -15,7 +14,7 @@ replays) without the capture.
   solver's run from the same state.
 - ``config_report()["run"]``: "graph" on both paths' defaults, "eager:
   <reason>" for ``max_iter`` 2, a tentative ``ksp_type`` cg, the general
-  path's Jacobi pressure and ``options["run"]`` "eager"; a callback that
+  path's Jacobi pressure and a forced loop; a callback that
   returns a host number is refused by name.
 """
 
@@ -43,7 +42,6 @@ DT, NU = rs.DT, rs.NU
 # JAX solver's ELL kernels in interpret mode), and the option solves
 PATHS = {
     "general-amg": ({"structured": False}, {}, {"amg_coarse_max": 10}),
-    "general-amg-eager": ({"structured": False, "run": "eager"}, {}, {"amg_coarse_max": 10}),
     "general-amg-jax": ({"structured": False, "pallas": "interpret"}, {}, {"amg_coarse_max": 10}),
     "structured-cg": ({"low_memory_version": False}, {"ksp_type": "cg"}, {"pc_type": "jacobi"}),
     "general-jacobi": ({"structured": False}, {}, {"pc_type": "jacobi"}),
@@ -71,15 +69,18 @@ def _box(run="graph"):
         mesh, ("Lagrange", 2), ("Lagrange", 1),
         bcs_u=[[T.DirichletBC(f, T.LocatorMethod.TOPOLOGICAL, (tags, 1))] for f in TGV],
         solver_options={"tentative": dict(o), "pressure": dict(o), "scalar": dict(o)},
-        options={"run": run}, dtype=torch.float64, device="cpu")
+        dtype=torch.float64, device="cpu")
     for f, a, b in zip(TGV, s._u1, s._u2):
         a.interpolate(f)
         b.interpolate(f)
+    s._force_eager = run == "eager"
     return s
 
 
 def _rect(run="graph"):
-    return _make(T, TM, "general-amg" if run == "graph" else "general-amg-eager", device="cpu")
+    s = _make(T, TM, "general-amg", device="cpu")
+    s._force_eager = run == "eager"
+    return s
 
 
 def _energy(st, t):
@@ -108,7 +109,7 @@ def test_graph_body_matches_eager_loop(path, variant):
     make = _box if path == "box" else _rect
     a, b = make("graph"), make("eager")
     assert a.config_report()["run"] == "graph"
-    assert b.config_report()["run"] == "eager: options['run'] is 'eager'"
+    assert b.config_report()["run"] == "eager: forced, for a comparison with the graph"
     (ra, ca), (rb, cb) = _runs(a, variant), _runs(b, variant)
     assert a._graph is not None and b._graph is None
     assert ca == cb and sum(ca.values()) > 0
@@ -193,8 +194,6 @@ def test_run_mode_report():
     assert gm.config_report()["run"] == "eager: the tentative gmres solve loops on the host"
     jac = _make(T, TM, "general-jacobi", device="cpu")
     assert jac.config_report()["run"] == "eager: the pressure jacobi-pcg solve loops on the host"
-    with pytest.raises(ValueError, match="run option"):
-        _box(run="scan")
     with pytest.raises(CallbackError, match="_host_number"):
         s.run(1, DT, NU, step_callback=_host_number)
 

@@ -210,7 +210,7 @@ from .meshes.mesh import Mesh
 from .parallel.graph import build_ell_assembly, ell_values, halo_fold, halo_refresh
 from .parallel.sharding import local_facets, shard_problem, shard_problem_halo
 from .spaces.functionspace import Function, FunctionSpace
-from .step_graph import StepGraph, host_reads_allowed, table_rows
+from .step_graph import StepGraph, table_rows
 
 __all__ = ["FractionalStep_AB_CN"]
 
@@ -1859,10 +1859,9 @@ class FractionalStep_AB_CN:
         max_error, max_iter, the tables' presence and row shapes, the
         callback's identity) is met, or a call is longer than its tables'
         rows, and replayed ``num_steps`` times; a new key replaces the
-        graph.  A
-        callback there must be torch on the device (a host read fails the
-        capture, naming it); a failed capture raises.  Elsewhere the steps
-        run in a loop on the host."""
+        graph.  A callback there must be torch on the device (a host read
+        fails the capture, naming it); a failed capture raises.  Elsewhere
+        the steps run in a loop on the host."""
         if num_steps < 1 or max_iter < 1:
             raise ValueError("num_steps and max_iter must be at least 1")
         self._last_max_iter = max_iter
@@ -1900,11 +1899,10 @@ class FractionalStep_AB_CN:
                 steps.append(stats)
                 syncs.append(n)
             self._set_device_state(state)
-            with host_reads_allowed(self._device):
-                self.last_stats = {
-                    k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]
-                }
-                outs = _host(_stack(outs, self._device)) if step_callback is not None else None
+            self.last_stats = {
+                k: torch.stack([s[k] for s in steps]).cpu().numpy() for k in steps[0]
+            }
+            outs = _host(_stack(outs, self._device)) if step_callback is not None else None
         self.last_stats["host_syncs"] = np.asarray(syncs)
         if step_callback is not None:
             self.last_stats["callback"] = outs

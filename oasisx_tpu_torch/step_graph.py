@@ -77,10 +77,6 @@ class CallbackError(RuntimeError):
     """A step callback that failed inside the graph's body."""
 
 
-def _name(fn) -> str:
-    return getattr(fn, "__qualname__", None) or repr(fn)
-
-
 class StepGraph:
     """The static buffers of ``key``'s step and, on the card, its graph.
 
@@ -118,7 +114,7 @@ class StepGraph:
         return tables
 
     def _callback(self, t: torch.Tensor) -> dict:
-        name = _name(self.callback)
+        name = getattr(self.callback, "__qualname__", None) or repr(self.callback)
         try:
             out = self.callback(dict(self.state), t)
         except Exception as e:

@@ -3764,11 +3764,12 @@ def halo_gpu_vs_cpu(world: int = HALO_WORLD, steps: int = 3, devices=("cuda", "c
 def single_steps(solver, state0: dict | None, warmup: int, steps: int) -> dict:
     """The single-device reference of a sharded phase: from ``state0`` (a
     device state; None: the solver's own), ``warmup`` then ``steps`` steps;
-    u, p (``_state``) and the timed steps' stats."""
+    u, p (``_state``) after them and the timed steps' stats."""
     if state0 is not None:
         solver._set_device_state({k: v.clone() for k, v in state0.items()})
     solver.run(warmup, DT, NU, max_iter=1)
-    return dict(_state(solver), stats=solver.run(steps, DT, NU, max_iter=1))
+    stats = solver.run(steps, DT, NU, max_iter=1)
+    return dict(_state(solver), stats=stats)
 
 
 def _state(solver) -> dict:
@@ -4571,7 +4572,9 @@ def main() -> int:
           f"AMG {rep['pressure_mg_levels']} levels (coarse n {vessel._amg.coarse_n}), "
           f"device memory {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     vessel_state0 = vessel._state_from_functions()  # phase 3d's inputs, taken before 4b runs
+    m0 = torch.cuda.memory_allocated()
     vessel64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"], vessel=True)
+    own64 = torch.cuda.memory_allocated() - m0  # kept for 3d: left out of 4b's device memory
     cyl = cylinder_solver(CYL_RES, torch.float32, "cuda", rtol=1e-5)
     cyl64 = cylinder_solver(CYL_RES, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"])
     print(f"[3b] ELL kernels against plain versions (vessel N={N}, cylinder res={CYL_RES})")
@@ -4587,18 +4590,19 @@ def main() -> int:
     for name, recs in compare_solves({"float64": (vessel64, cyl64), "float32": (vessel, cyl)},
                                      "cuda", cases_fn=ell_solve_cases).items():
         kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
-    del vessel64, cyl64
+    del cyl64
     torch.cuda.empty_cache()
 
     # 4b. the vessel main path, before the band solver exists (so that 4b's
-    # device memory holds no band tables)
+    # device memory holds no band tables; the float64 vessel's own is left out)
     torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
+    resident = torch.cuda.memory_allocated() - own64
     res = drive_main_path(vessel, WARMUP, STEPS, "cuda", kn.ELL_KERNELS)
     report_path("4b", res, STEPS, 3 * vessel._Vi[0][0].num_dofs, smi, {}, steps_log)
     base4b = res["launches"]
     print(f"    device memory {resident / 2**20:.1f} MiB before the steps, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in the steps")
+          f"{(torch.cuda.max_memory_allocated() - own64) / 2**20:.1f} MiB in the steps (the "
+          f"float64 vessel's {own64 / 2**20:.1f} MiB left out)")
     graph_leg(vessel, "4b", smi)
     single4b = single_steps(vessel, vessel_state0, *SHARD_STEPS)  # phase 4r's reference
     for k, v in res["launches"].items():
@@ -4610,10 +4614,9 @@ def main() -> int:
 
     # 3d. the band-ELL kernels at the vessel's N=36 shapes (tables of the
     # band-layout solver of phase 4e; elements of the flat-ELL solvers, at
-    # the initial state: the float64 one built again)
+    # the initial state: the float64 one kept from 3b, which ran no step)
     from oasisx_tpu_torch.assembly.band import build_band_assembly
 
-    vessel64 = tgv_solver(N, torch.float64, "cuda", rtol=SOLVE_RTOL["float64"], vessel=True)
     t0 = time.perf_counter()
     vband = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, vessel=True, layout="band")
     _sync("cuda")

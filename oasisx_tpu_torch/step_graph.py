@@ -31,6 +31,7 @@ error names the callback.  There is no eager fallback: ``run`` raises.
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 import torch.utils._pytree as pytree
@@ -168,6 +169,12 @@ class StepGraph:
         self.t.fill_(t0)
         del saved
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection while capturing: a collected graph (an old
+        # solver's, held in a reference cycle) is destroyed by a CUDA call
+        # that a capture forbids, and the capture fails; torch.cuda.graph
+        # collects once before it begins
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with kn.RecordedCounts() as counts:
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -181,6 +188,9 @@ class StepGraph:
             raise RuntimeError(f"capturing the step as a CUDA graph failed ({type(e).__name__}: "
                                f"{e}); the run mode is 'graph', which has no eager "
                                f"fallback") from e
+        finally:
+            if gc_on:
+                gc.enable()
         self.graph, self.counts, self.syncs = graph, counts, syncs
 
     def run(self, n: int) -> list[int]:

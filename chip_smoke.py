@@ -93,6 +93,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    already differ), launches a step equal, one replay a step, the replays
    under ``torch.cuda.set_sync_debug_mode("error")``; both steps/s, their
    ratio and a profile of 10 graph steps (the device's busy share).
+4t. The device while loops (la/device_loop.py: conditional WHILE nodes,
+   their condition set by csrc/graph_loop.cu): three loops nested outside
+   a solver against the same loops in Python (bit-identical, trips
+   printed), and a loop of 1,000 trips timed a trip on the device against
+   the Python loop's host read a trip (the condition setter's kernel
+   line); then graph legs of phase 4's solver at max_iter 3, and at
+   max_iter 3 with a max_error that ends some inner loops after 2 (the
+   larger of step 1's and the median of 5 steps' diff after 2 from the
+   leg's state, so step 1 ends there): every graph_leg check, the inner
+   iterations equal at every step.
+4u. The vessel at N=36 with the tentative ksp_type gmres (a restart loop
+   and its Arnoldi steps, nested device loops, a component at a time on
+   K14) and the pressure pc_type jacobi (CG on K14): a graph leg of 3 x 10
+   steps a mode.
+4v. The N=36 box with the tentative ksp_type cg (batched CG on K3): a
+   graph leg of 3 x 10 steps a mode.
 5. GPU against CPU: N=6 in float64, 3 steps from the same state on cuda
    and on cpu; u and p agree to 1e-10 relative with equal iteration counts.
 3e. K1's non-MG modes at N=35 (bench.py's problem at a grid of odd cell
@@ -204,8 +220,8 @@ any failure or when there is no card.
    path's pressure pc_type jacobi and cheb (the cpu solver's bounds handed
    to the cuda one), its tentative ksp_type cg and gmres, and the band
    layout with gmres, on the vessel at N=6 and a 6x6 rectangle sent to the
-   general path; each case's run mode: "graph" for the lumped update,
-   "eager: <reason>" where a solve loops on the host.
+   general path; each case's run mode "graph" (the option solves' Krylov
+   loops are device while loops: no host read a step on cuda).
 5f. GPU against CPU in float64, 3 steps each, phase 5's checks (the
    rotational solves' iterations too): the rotational update and a callable
    body force on the N=6 box and the N=6 vessel; then on the res=10
@@ -285,12 +301,16 @@ any failure or when there is no card.
    MGs and tentative x0s differ, each solve to rtol 1e-5).
    ``--slab-only [--slab-n N --slab-world W]`` builds the kernels and runs
    this phase alone (W: world 1 and W ranks; N 36 or 64).
+   The world-1 and world-2 gloo groups start at once (their spawns and
+   set-ups overlap, and so do their timed steps on the one card, so each
+   steps/s is read with the other group running).
    ``--slab-gap N [N ...]`` builds the kernels and measures, at each N,
    world 1 against the single-device path in f32 at rtol 1e-5 and f64 at
    rtol 1e-5 and 1e-8, each state's distance from the single-device f64
    rtol 1e-8 one (checks nothing).
 5i. GPU against CPU on the slab path: world 2 (gloo), N=6, float64, 3
-   steps: every iteration count equal, u and p to 1e-12 relative.
+   steps (the two devices' groups at once): every iteration count equal,
+   u and p to 1e-12 relative.
 4r. The graph-halo path (``parallel/ranks.py`` ``run_halo``): the vessel
    at N=36 (bench.py's unstructured configuration, float32, rtol 1e-5),
    2 + 10 steps at world 1, at world 2 on the one card (gloo) and over NCCL
@@ -302,8 +322,9 @@ any failure or when there is no card.
    the same count and no plain call; the state gaps of world 2 against
    world 1 and of world 1 against phase 4b.  In the world-2 group also the
    band layout on the vessel at N=18 (K18 in both spaces, 1 + 3 steps)
-   with the same checks.  ``--halo-only [--halo-world W]`` builds the
-   kernels and runs 4r, 4r' and 5j alone.
+   with the same checks.  The gloo groups start at once, as 4q's, and
+   each ends with phase 4s's run.  ``--halo-only [--halo-world W]``
+   builds the kernels and runs 4r, 4r', 4s and 5j alone.
 4r'. In 4r's world-2 group: the DFG cylinder at res=30 with its
    PressureBC(0) outlet and the rotational update, 2 + 6 steps.
 5j. GPU against CPU on the graph-halo path: world 2 (gloo), float64, rtol
@@ -317,7 +338,8 @@ any failure or when there is no card.
    on every rank the path's (SPLIT_MESH_KERNELS: K8, K5, K3, K6, K7 on the
    slab; K14 under graph-halo), no plain call; the world-2 step's u and ps
    against world 1's (SPLIT_MESH_BOUND); each phase's wall printed.
-4s. The replicated mode (``options={"replicated": True}``: a block of
+4s. At the end of each of 4r's groups (one spawn for both phases), the
+   replicated mode (``options={"replicated": True}``: a block of
    cells a rank, whole dof vectors, every operator the element product
    and one sum over the ranks, Jacobi-PCG for the pressure, no kernel of
    the package on its path) on the vessel at N=36 (float32, rtol 1e-5), 1
@@ -341,7 +363,7 @@ any failure or when there is no card.
    launched and no plain version; ``tentative_matrix_dense`` after it
    equal to the cpu export and to the single-device export on the card to
    1e-12.  ``--shard-only`` builds the kernels and runs 4q and 4r (with
-   4r'; without the single-device references), 4k', 4s and 5k.
+   4r' and 4s; without the single-device references), 4k' and 5k.
 
 Every kernel's entry in the JSON line also has "bound_ms" (the least time
 the H100 could take for the same work: the bytes of the inputs read once
@@ -359,9 +381,10 @@ index_add_ for K13; null for the
 solves).  A band case also has "ell_ms": the same product or solve by
 K14/K15/K16 on the flat ELL form.
 
-The phases run in the order 3, 4, 4g, 4i, 4k, 5, 3e, 4f, 5d, 3c, 4d, then
-the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b, 5c, 5e, 5f, 4l,
-4m, 5g, 5h, 4p, 4o, 4n, 4q, 5i, 4r (with 4r'), 5j, 4k', 4s, 5k.
+The phases run in the order 3, 4, 4t, 4u, 4v, 4g, 4i, 4k, 5, 3e, 4f, 5d,
+3c, 4d, then the vessel phases 3b, 4b, 3d, 4e, 4h, 4j, then 4c, 4c', 5b,
+5c, 5e, 5f, 4l, 4m, 5g, 5h, 4p, 4o, 4n, 4q, 4r (with 4r' and 4s), 4k', then
+5i, 5j and 5k, whose cuda and cpu rank groups all start at once.
 Kernel, plain and library times are device times of back-to-back calls
 (``time_ms``).
 
@@ -579,6 +602,18 @@ def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3,
     from oasisx_tpu_torch.parallel.ranks import cylinder_solver as build
 
     return build(res, dtype, device, rtol, um=um, rotational=rotational)
+
+
+def free_device() -> None:
+    """Free the device memory of the solvers dropped so far: a solver that
+    ran ``run``'s graph is in a reference cycle (its StepGraph's step calls
+    the solver), which only the cyclic collector frees."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _sync(device) -> None:
@@ -2415,10 +2450,11 @@ def report_path(tag: str, res: dict, steps: int, ndofs: int, smi: str, tpu_era: 
           f"{ {k: v for k, v in res['plain'].items() if v} }")
 
 
-def profile_steps(solver, steps: int, path: str, top: int = 20) -> dict:
-    """torch.profiler over ``steps`` more main-path steps, its trace
-    written to ``path`` (none where empty); returns the device's busy share
-    and its kernels a step."""
+def profile_steps(solver, steps: int, path: str, top: int = 20, max_iter: int = 1,
+                  max_error: float = 1e-12) -> dict:
+    """torch.profiler over ``steps`` more main-path steps (at ``max_iter``
+    and ``max_error``), its trace written to ``path`` (none where empty);
+    returns the device's busy share and its kernels a step."""
     import os
 
     import torch
@@ -2427,7 +2463,7 @@ def profile_steps(solver, steps: int, path: str, top: int = 20) -> dict:
     _sync("cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stats = solver.run(steps, DT, NU, max_iter=1)
+        stats = solver.run(steps, DT, NU, max_iter=max_iter, max_error=max_error)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -2454,26 +2490,37 @@ def profile_steps(solver, steps: int, path: str, top: int = 20) -> dict:
 
 
 def graph_leg(solver, tag: str, smi: str, steps: int = STEPS, windows: int = GRAPH_WINDOWS,
-              dt=DT, nu=NU) -> dict:
+              dt=DT, nu=NU, max_iter: int = 1, max_error: float = 1e-12,
+              loops: bool | None = None) -> dict:
     """The graph leg of a main path: from one saved state, ``windows``
-    pairs of ``steps`` steps through ``run``'s per-step loop
-    (``_force_eager``) and through its CUDA graph, in turns.  Fails unless
-    every graph window's iterations equal the eager window's at every step,
-    its final state is bit for bit the eager one's (or, where two eager
-    windows already differ, within GRAPH_F32_BOUND), its launches a step
-    are equal, the host's work a step is one replay, and the replays ran
-    under ``torch.cuda.set_sync_debug_mode("error")``.  Prints both steps/s
-    (the median window), their ratio, and a profile of 10 graph steps."""
+    pairs of ``steps`` steps at ``max_iter`` / ``max_error`` through
+    ``run``'s per-step loop (``_force_eager``) and through its CUDA graph,
+    in turns.  Fails unless every graph window's iterations (u, p, c and
+    the inner ones) equal the eager window's at every step, its final state
+    is bit for bit the eager one's (or, where two eager windows already
+    differ, within GRAPH_F32_BOUND), its launches a step are equal (the
+    device while loops' condition setter, ``graph_loop``, launches in the
+    graph only), the host's work a step is one replay, and the replays ran
+    under ``torch.cuda.set_sync_debug_mode("error")``.  ``loops``: whether
+    the graph holds device while loops (conditional nodes; default: with
+    ``max_iter`` > 1): with none, no condition setter ran.  Prints both
+    steps/s (the median window), their ratio, the loops and their
+    condition setter's launches, and a profile of 10 graph steps."""
     import numpy as np
     import torch
 
     from oasisx_tpu_torch.assembly import kernels as kn
 
+    loops = max_iter > 1 if loops is None else loops
+    run = lambda n: solver.run(n, dt, nu, max_iter=max_iter, max_error=max_error)
     check(solver.config_report()["run"] == "graph",
           f"[{tag}] run mode {solver.config_report()['run']!r}, not graph")
     st0 = {k: v.clone() for k, v in solver._state_from_functions().items()}
-    solver.run(1, dt, nu, max_iter=1)  # the graph of this key, captured before the windows
+    run(1)  # the graph of this key, captured before the windows
     graph = solver._graph
+    nloops = len(getattr(graph, "loops", ()))  # a --tree package from before the loops: none
+    check((nloops > 0) == loops, f"[{tag}] {nloops} device while loops in the graph, expected "
+          f"{'some' if loops else 'none'}")
     res = {"eager": [], "graph": []}
     for _ in range(windows):
         for mode in ("eager", "graph"):
@@ -2486,7 +2533,7 @@ def graph_leg(solver, tag: str, smi: str, steps: int = STEPS, windows: int = GRA
             if mode == "graph":
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                stats = solver.run(steps, dt, nu, max_iter=1)
+                stats = run(steps)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             _sync("cuda")
@@ -2502,12 +2549,16 @@ def graph_leg(solver, tag: str, smi: str, steps: int = STEPS, windows: int = GRA
     e0 = res["eager"][0]
     reproducible = all(r["sha"] == e0["sha"] for r in res["eager"])
     worst = {"u": 0.0, "p": 0.0}
+    setter = lambda r: r["launches"].get("graph_loop", 0)
+    others = lambda r: {k: v for k, v in r["launches"].items() if k != "graph_loop"}
     for e, g in zip(res["eager"], res["graph"]):
-        for f in ("u", "p", "c"):
-            check(np.array_equal(e["stats"][f"{f}_iters"], g["stats"][f"{f}_iters"]),
-                  f"[{tag}] {f} iterations of the graph differ from the eager loop's")
-        check(e["launches"] == g["launches"],
+        for f in ("u_iters", "p_iters", "c_iters", "inner_iters"):
+            check(np.array_equal(e["stats"][f], g["stats"][f]),
+                  f"[{tag}] {f} of the graph differ from the eager loop's")
+        check(others(e) == others(g),
               f"[{tag}] launches: graph {g['launches']}, eager {e['launches']}")
+        check(setter(e) == 0 and (setter(g) > 0) == loops,
+              f"[{tag}] condition setter launches: graph {setter(g)}, eager {setter(e)}")
         for f, keys in (("u", ("u", "u1", "u2")), ("p", ("p", "dp"))):
             ref = np.concatenate([e["state"][k].ravel() for k in keys])
             got = np.concatenate([g["state"][k].ravel() for k in keys])
@@ -2519,20 +2570,145 @@ def graph_leg(solver, tag: str, smi: str, steps: int = STEPS, windows: int = GRA
               f"[{tag}] eager runs from one state differ; graph against eager {worst}, bound "
               f"{GRAPH_F32_BOUND}")
     sps = {m: steps / float(np.median([r["wall"] for r in res[m]])) for m in res}
-    per_step = {k: v / steps for k, v in res["graph"][0]["launches"].items() if v}
-    print(f"[{tag}] graph leg, {windows} x {steps} steps a mode from one state on {smi}: eager "
-          f"{sps['eager']:.4f} steps/s, graph {sps['graph']:.4f} steps/s (x"
-          f"{sps['graph'] / sps['eager']:.4f}; windows eager "
+    per_step = {k: v / steps for k, v in others(res["graph"][0]).items() if v}
+    inner = np.asarray(res["graph"][0]["stats"]["inner_iters"])
+    print(f"[{tag}] graph leg, max_iter {max_iter}, max_error {max_error:.6g}, {windows} x "
+          f"{steps} steps a mode from one state on {smi}: eager {sps['eager']:.4f} steps/s, graph "
+          f"{sps['graph']:.4f} steps/s (x{sps['graph'] / sps['eager']:.4f}; windows eager "
           f"{[round(steps / r['wall'], 2) for r in res['eager']]}, graph "
           f"{[round(steps / r['wall'], 2) for r in res['graph']]})")
-    print(f"    iterations equal at every step; launches a step equal {per_step}; one replay a "
-          f"step under sync debug mode 'error'; eager windows bit-reproducible {reproducible}; "
-          f"final state graph against eager: bit-identical "
+    print(f"    iterations (u, p, c, inner) equal at every step; launches a step equal "
+          f"{per_step}; one replay a step under sync debug mode 'error'; eager windows "
+          f"bit-reproducible {reproducible}; final state graph against eager: bit-identical "
           f"{all(e['sha'] == g['sha'] for e, g in zip(res['eager'], res['graph']))}, worst rel "
           f"diff u {worst['u']:.3e} p {worst['p']:.3e}")
+    print(f"    device while loops in the graph {nloops}; condition setter launches a step "
+          f"{setter(res['graph'][0]) / steps:.2f}; inner iterations a step {inner.tolist()}; "
+          f"host reads a step in the eager windows "
+          f"{float(np.mean(res['eager'][0]['stats']['host_syncs'])):.2f}")
     solver._set_device_state({k: v.clone() for k, v in st0.items()})
-    prof = profile_steps(solver, 10, "", top=8)
-    return dict(sps=sps, busy=prof["busy"], reproducible=reproducible)
+    prof = profile_steps(solver, 10, "", top=8, max_iter=max_iter, max_error=max_error)
+    return dict(sps=sps, busy=prof["busy"], reproducible=reproducible, inner=inner,
+                setter=setter(res["graph"][0]), loops=nloops)
+
+
+LOOP_STEPS = 10  # the option solves' graph legs (4u, 4v): steps a window
+
+
+def loop_legs(solver, smi: str) -> dict:
+    """Phases 4t, 4u and 4v: graph legs whose step holds device while
+    loops (conditional WHILE nodes, la/device_loop.py), each under every
+    ``graph_leg`` check.  4t: phase 4's solver (``solver``) at max_iter 3,
+    then with a max_error that ends some inner loops after 2 iterations
+    (the larger of step 1's and the median of 5 steps' diff after 2, from
+    the same state: step 1 ends there).  4u: the vessel at N=36 with the
+    tentative ksp_type gmres (the restart loop and its Arnoldi steps, a
+    component at a time on K14) and the pressure pc_type jacobi (CG on
+    K14).  4v: the N=36 box with the tentative ksp_type cg (batched CG on
+    K3).  Returns 4t's condition-setter launches (the kernel line's)."""
+    import numpy as np
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    out["4t"] = graph_leg(solver, "4t", smi, max_iter=3)
+    st = {k: v.clone() for k, v in solver._state_from_functions().items()}
+    d2 = solver.run(5, DT, NU, max_iter=2)["diff"]
+    max_error = max(float(d2[0]), float(np.median(d2)))
+    solver._set_device_state({k: v.clone() for k, v in st.items()})
+    early = graph_leg(solver, "4t", smi, max_iter=3, max_error=max_error)
+    check(bool((early["inner"] < 3).any()), f"[4t] max_error {max_error}: no inner loop ended "
+          f"early ({early['inner'].tolist()})")
+    print(f"[4t] {time.perf_counter() - t0:.1f} s; diffs after 2 inner iterations "
+          f"{np.asarray(d2).tolist()}")
+    for tag, kw, want in (
+            ("4u", dict(vessel=True, tentative={"ksp_type": "gmres"},
+                        pressure={"pc_type": "jacobi"}), ("gmres", "jacobi-pcg")),
+            ("4v", dict(tentative={"ksp_type": "cg"}), ("cg", "mg-pcg"))):
+        t0 = time.perf_counter()
+        s = tgv_solver(N, torch.float32, "cuda", rtol=1e-5, **kw)
+        rep = s.config_report()
+        print(f"[{tag}] setup N={N}: {time.perf_counter() - t0:.1f} s; tentative "
+              f"{rep['tentative_method']}, pressure {rep['pressure_pc']}, run {rep['run']}")
+        check((rep["tentative_method"], rep["pressure_pc"]) == want, f"[{tag}] {rep}")
+        out[tag] = graph_leg(s, tag, smi, steps=LOOP_STEPS, loops=True)
+        print(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+        del s
+        free_device()
+    return out
+
+
+def loop_probe(trips: int = 1000) -> dict:
+    """The device while loop alone (la/device_loop.py, its condition setter
+    csrc/graph_loop.cu), captured outside a solver: three loops nested,
+    the innermost stopping on a norm, against the same loops uncaptured
+    (the plain version, a Python loop that reads the condition a trip):
+    equal results and trips; then one loop of ``trips`` trips whose body
+    adds 1 to a counter, its device time a trip against the Python loop's
+    host time a trip.  Returns the kernel line's record."""
+    import torch
+
+    from oasisx_tpu_torch.assembly import kernels as kn
+    from oasisx_tpu_torch.la import device_loop as dl
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    i32 = lambda v: torch.full((), v, dtype=torch.int32, device=dev)
+
+    def nested():
+        x = torch.linspace(1.0, 3.0, 256, dtype=torch.float64, device=dev)
+
+        def b1(x, a):
+            def b2(x, b):
+                (x,), _ = dl.while_loop(lambda x: torch.linalg.vector_norm(x) > 1.0,
+                                        lambda x: (0.5 * x + 0.01 * torch.dot(x, x) / 256.0,), (x,))
+                return 4.0 * x, b + 1
+            (x, b), _ = dl.while_loop(lambda x, b: b < 3, b2, (x, i32(0)))
+            return x, a + 1
+        (x, a), _ = dl.while_loop(lambda x, a: a < 2, b1, (x, i32(0)))
+        return x
+
+    def captured(fn):
+        graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+        with kn.RecordedCounts(), dl.capturing(pool, dev) as cap:
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                out = fn()
+        cap.trips.zero_()
+        return graph, out, cap
+
+    ref = nested()  # the Python loops
+    graph, got, cap = captured(nested)
+    graph.replay()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    nested_trips = [int(t) for _, t in cap.loops]
+    print(f"[4t] nested conditional WHILE nodes (3 deep; cuBLAS dots and a norm test in the "
+          f"innermost body): against the Python loops max abs err {err:.3e}; trips a loop "
+          f"{nested_trips} (outermost first)")
+    check(err == 0.0 and nested_trips[:2] == [2, 6] and nested_trips[2] > 6,
+          f"[4t] nested loops: err {err}, trips {nested_trips}")
+    del graph, got, cap
+
+    count = lambda: dl.while_loop(lambda k: k < trips, lambda k: (k + 1,), (i32(0),))[0][0]
+    graph, k, cap = captured(count)
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / trips
+    t0 = time.perf_counter()
+    kp = count()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / trips
+    check(int(k) == int(kp) == trips, f"[4t] counter loop: {int(k)}, {int(kp)}")
+    print(f"    a loop of {trips} trips adding 1 to a counter: {ms * 1e3:.3f} us a trip on the "
+          f"device (a graph replay), {plain_ms * 1e3:.3f} us a trip in the Python loop (a host "
+          f"read a trip)")
+    return dict(name="graph_loop", route="cuda", source=CSRC + "graph_loop.cu",
+                replaces="oasisx_tpu/fracstep.py:3008", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, **bound(1.0, 0.0), library_ms=None)
 
 
 def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None,
@@ -2591,14 +2767,14 @@ def options_gpu_vs_cpu() -> None:
         ("vessel N=6 lumped", 6, dict(vessel=True, scalar=lumped), "amg-pcg-fused", "graph"),
         ("vessel N=6 pc_type jacobi, ksp_type cg", 6,
          dict(vessel=True, pressure={"pc_type": "jacobi"}, tentative={"ksp_type": "cg"}),
-         "jacobi-pcg", "eager"),
+         "jacobi-pcg", "graph"),
         ("vessel N=6 pc_type cheb", 6, dict(vessel=True, pressure={"pc_type": "cheb"}),
-         "cheb-pcg", "eager"),
+         "cheb-pcg", "graph"),
         ("rectangle 6x6 general, ksp_type gmres, pc_type cheb, lumped", (6, 6),
          dict(options=rect, tentative=gmres, pressure={"pc_type": "cheb"}, scalar=lumped),
-         "cheb-pcg", "eager"),
+         "cheb-pcg", "graph"),
         ("vessel N=6 band, ksp_type gmres", 6, dict(vessel=True, layout="band", tentative=gmres),
-         "amg-pcg-fused", "eager"),
+         "amg-pcg-fused", "graph"),
     )
     for label, n, kw, pc, run in cases:
         gpu_vs_cpu(lambda dt, dev: tgv_solver(n, dt, dev, rtol=1e-8, **kw), label, pressure_pc=pc,
@@ -3276,7 +3452,7 @@ def structured_cg_gpu_vs_cpu() -> None:
         return s
 
     kn.reset_counts()
-    gpu_vs_cpu(make, "N=6 ksp_type cg (structured)", pressure_pc="mg-pcg", run="eager")
+    gpu_vs_cpu(make, "N=6 ksp_type cg (structured)", pressure_pc="mg-pcg")
     print(f"  launches on the card: matvec_win {kn.launches['matvec_win']}, bicgstab "
           f"{kn.launches['bicgstab']}")
     check(kn.launches["matvec_win"] > 0 and kn.launches["bicgstab"] == 0,
@@ -3309,9 +3485,11 @@ def _rel2(a, b) -> tuple[float, float]:
             float(np.linalg.norm(a - b) / np.linalg.norm(b)))
 
 
-def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
+def slab_group(label: str, world: int, backend: str, cfg: dict, group=None,
+               t0: float | None = None) -> dict:
     """One group of ranks (``parallel/launch.py``) running
-    ``parallel.ranks.run_tgv``: every rank's per-shard K3, K5, K6 and K7
+    ``parallel.ranks.run_tgv`` (``group``: the ranks already started, at
+    ``t0``; None: started here): every rank's per-shard K3, K5, K6 and K7
     against their plain versions (f32: 1e-5 relative, halo and padding
     slots 0), every solve converged, the velocity finite, each rank's
     launches of K3, K5, K6, K7 and K8 after the warm-up all > 0 and equal
@@ -3323,10 +3501,11 @@ def slab_group(label: str, world: int, backend: str, cfg: dict) -> dict:
 
     from oasisx_tpu_torch.assembly.kernels import SLAB_KERNELS
     from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import launch
+    from oasisx_tpu_torch.parallel.launch import start
 
-    t0 = time.perf_counter()
-    out = launch(ranks.run_tgv, world, (cfg,), backend=backend, timeout=SLAB_TIMEOUT)
+    if group is None:
+        t0, group = time.perf_counter(), start(ranks.run_tgv, world, (cfg,), backend=backend)
+    out = group.join(SLAB_TIMEOUT)
     r0 = out[0]
     steps = cfg["steps"]
     rep = r0["config"]
@@ -3400,20 +3579,35 @@ def slab_path(n: int = N, warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS
     and stats after as many steps, from phase 4, or None: run here).
     ``device`` "cpu" rehearses it (its launch checks then fail).  The gloo groups of world 1
     and ``SLAB_WORLD`` end with phase 4k''s split step; returns every rank's
-    split result by world."""
+    split result by world.  The gloo groups start at once (their spawns and
+    set-ups overlap, and so do their timed steps, on the one card: each
+    prints its steps/s with the other group running), then NCCL's."""
+    import contextlib
+
     import numpy as np
     import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import start
 
     ncard = torch.cuda.device_count()
     if worlds is None:
         worlds = [(1, "gloo"), (SLAB_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
     cfg = dict(N=n, dtype="float32", device=device, rtol=1e-5, warmup=warmup, steps=steps,
                check=True, time_comm=True, profile=SLAB_PROFILE)
+    cfgs = {(w, b): dict(cfg, split=b == "gloo" and w in (1, SLAB_WORLD)) for w, b in worlds}
     runs = {}
-    for world, backend in worlds:
-        split = backend == "gloo" and world in (1, SLAB_WORLD)
-        runs[(world, backend)] = slab_group("4q", world, backend, dict(cfg, split=split))
-        torch.cuda.empty_cache()
+    with contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        groups = {key: stack.enter_context(start(ranks.run_tgv, key[0], (cfgs[key],),
+                                                 backend=key[1]))
+                  for key in cfgs if key[1] == "gloo"}
+        for key, group in groups.items():
+            runs[key] = slab_group("4q", *key, cfgs[key], group=group, t0=t0)
+    for key in cfgs:
+        if key not in runs:
+            runs[key] = slab_group("4q", *key, cfgs[key])
+            torch.cuda.empty_cache()
     splits = {w: r["splits_all"] for (w, _), r in runs.items() if "splits_all" in r}
     base = runs.get((1, "gloo"))
     if base is None:
@@ -3492,19 +3686,50 @@ def slab_gap(ns, warmup: int = WARMUP, steps: int = STEPS, device: str = "cuda")
                   f"{d[1][1]:.3e}")
 
 
+def deferred(phase):
+    """``phase(..., stack=None)``, a phase that starts rank groups and then
+    checks their results: with an ``contextlib.ExitStack`` ``stack`` it
+    starts its groups there and returns the check, to be called later (so
+    that several phases' groups run at once); without one it runs whole."""
+    import contextlib
+    import functools
+
+    @functools.wraps(phase)
+    def run(*args, stack=None, **kw):
+        if stack is not None:
+            return phase(*args, stack=stack, **kw)
+        with contextlib.ExitStack() as own:
+            return phase(*args, stack=own, **kw)()
+    return run
+
+
+def two_groups(stack, fn, world: int, args_of, devices) -> list:
+    """A group of ``world`` ranks running ``fn`` on each device of
+    ``devices`` (``args_of(device)`` its arguments), all started at once
+    and closed with ``stack`` (the CPU groups leave the card to the
+    others)."""
+    from oasisx_tpu_torch.parallel.launch import start
+
+    return [stack.enter_context(start(fn, world, args_of(dev))) for dev in devices]
+
+
+@deferred
 def slab_gpu_vs_cpu(n: int = 6, world: int = SLAB_WORLD, steps: int = 3,
-                    devices=("cuda", "cpu")) -> None:
+                    devices=("cuda", "cpu"), stack=None):
     """Phase 5i: the slab path at world 2 (gloo) on cuda and on cpu, float64,
     N=6, rtol 1e-8, ``steps`` steps: every iteration count equal, u and p
     to 1e-12 relative (``devices`` ("cpu", "cpu") rehearses it)."""
+    from oasisx_tpu_torch.parallel import ranks
+
+    cfg = lambda dev: (dict(N=n, dtype="float64", device=dev, rtol=1e-8, steps=steps),)
+    ga, gc = two_groups(stack, ranks.run_tgv, world, cfg, devices)
+    return lambda: _slab_gpu_vs_cpu(n, world, steps, ga.join(SLAB_TIMEOUT)[0],
+                                    gc.join(SLAB_TIMEOUT)[0])
+
+
+def _slab_gpu_vs_cpu(n: int, world: int, steps: int, g: dict, c: dict) -> None:
     import numpy as np
 
-    from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import launch
-
-    g, c = (launch(ranks.run_tgv, world, (dict(N=n, dtype="float64", device=dev, rtol=1e-8,
-                                               steps=steps),), timeout=SLAB_TIMEOUT)[0]
-            for dev in devices)
     du, dp = _rel2(g["u"], c["u"]), _rel2(g["p"], c["p"])
     print(f"  N={n} world {world} f64 {steps} steps: u rel diff {du[0]:.3e}, p rel diff "
           f"{dp[0]:.3e}; launches on cuda {g['launches']}")
@@ -3532,21 +3757,31 @@ HALO_WORLD_BOUND = {"u": 8e-6, "p": 2e-4}
 HALO_SINGLE_BOUND = {"u": 0.022, "p": 0.065}
 
 
-def halo_group(world: int, backend: str, runs: list, kres: dict | None = None) -> list:
+def halo_group(world: int, backend: str, runs: list, kres: dict | None = None, group=None,
+               t0: float | None = None) -> list:
     """One group of ranks running ``parallel.ranks.halo_checks`` on the
     cfgs of ``runs`` [(phase label, cfg)], one after another (one spawn and
-    set-up of the group for all), each reported by ``halo_run``.  Returns
-    rank 0's result of each."""
+    set-up of the group for all; ``group``: the ranks already started, at
+    ``t0``), each reported by ``halo_run`` (by ``replicated_run`` for
+    phase 4s's).  Returns rank 0's result of each."""
     from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import launch
+    from oasisx_tpu_torch.parallel.launch import start
 
-    t0 = time.perf_counter()
-    out = launch(ranks.halo_checks, world, (None, [cfg for _, cfg in runs]), backend=backend,
-                 timeout=HALO_TIMEOUT)
+    if group is None:
+        t0 = time.perf_counter()
+        group = start(ranks.halo_checks, world, halo_args(runs), backend=backend)
+    out = group.join(HALO_TIMEOUT)
     print(f"[{runs[0][0]}] a group of {world} ({backend}) for {len(runs)} run(s): "
           f"{time.perf_counter() - t0:.1f} s with the spawn")
-    return [halo_run(label, world, backend, cfg, [o["runs"][i] for o in out], kres)
+    report = lambda label: replicated_run if label == "4s" else \
+        (lambda *a: halo_run(*a, kres))
+    return [report(label)(label, world, backend, cfg, [o["runs"][i] for o in out])
             for i, (label, cfg) in enumerate(runs)]
+
+
+def halo_args(runs: list) -> tuple:
+    """``parallel.ranks.halo_checks``'s arguments for the cfgs of ``runs``."""
+    return None, [cfg for _, cfg in runs]
 
 
 def halo_run(label: str, world: int, backend: str, cfg: dict, out: list,
@@ -3656,8 +3891,8 @@ def _gap(label: str, a: dict, b: dict, what: str, bound_: dict | None) -> None:
 def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
               warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS[1], worlds=None,
               device: str = "cuda", band_n: int = HALO_BAND_N, cyl_res: int = HALO_CYL_RES,
-              cyl_steps: tuple = HALO_CYL_STEPS) -> dict:
-    """Phases 4r and 4r'.  4r: bench.py's unstructured configuration (the
+              cyl_steps: tuple = HALO_CYL_STEPS, rep_steps: tuple = None) -> dict:
+    """Phases 4r, 4r' and 4s.  4r: bench.py's unstructured configuration (the
     vessel at N, float32, rtol 1e-5, low_memory_version False) on the
     graph-halo path, ``warmup`` + ``steps`` steps, at world 1, over
     ``HALO_WORLD`` ranks on the one card (gloo) and over NCCL at world =
@@ -3669,12 +3904,26 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
     compared).  4r', in the world-2 group: the DFG cylinder at ``cyl_res``
     with its PressureBC(0) outlet and the rotational update, ``cyl_steps``
     (warm-up, timed) steps.  The vessel runs of the gloo groups of world 1
-    and ``HALO_WORLD`` end with phase 4k''s split step.  Returns {"counts":
-    each run's launch counts, "cylinder_s": the 4r' run's seconds on rank
-    0, "world1": rank 0's world-1 vessel result (phase 4s's reference),
-    "splits": every rank's split result by world}."""
+    and ``HALO_WORLD`` end with phase 4k''s split step.  4s, the last run
+    of every group: the replicated mode (``options={"replicated": True}``)
+    on the same vessel, ``rep_steps`` (warm-up, timed) steps, checked by
+    ``replicated_run``; each world against world 1 (REP_WORLD_BOUND), and
+    world 1, taken on to ``warmup + steps`` steps in all, against 4r's
+    world-1 state after as many (REP_HALO_BOUND).  The gloo groups start at
+    once (their spawns and set-ups overlap, and so do their timed steps, on
+    the one card: each prints its steps/s with the other group running),
+    then NCCL's.  Returns {"counts": each run's launch counts,
+    "cylinder_s": the 4r' run's seconds on rank 0, "world1": rank 0's
+    world-1 vessel result, "splits": every rank's split result by
+    world}."""
+    import contextlib
+
     import torch
 
+    from oasisx_tpu_torch.parallel import ranks
+    from oasisx_tpu_torch.parallel.launch import start
+
+    rep_steps = rep_steps or REP_STEPS
     ncard = torch.cuda.device_count()
     if worlds is None:
         worlds = [(1, "gloo"), (HALO_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
@@ -3684,18 +3933,39 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
                 options={"ell_layout": "band"}, time_kernels=True)
     cyl = dict(problem="cylinder", res=cyl_res, rotational=True, dtype="float32",
                device=device, rtol=1e-5, warmup=cyl_steps[0], steps=cyl_steps[1], check=True)
-    vessels, out = {}, {"counts": {}, "splits": {}}
+    rep = dict(problem="vessel", N=n, dtype="float32", device=device, rtol=1e-5,
+               warmup=rep_steps[0], steps=rep_steps[1], dt=DT, nu=NU,
+               options={"replicated": True}, time_comm=True)
+    group_runs = {}
     for world, backend in worlds:
         vessel = dict(cfg, split=backend == "gloo" and world in (1, HALO_WORLD))
-        runs = [("4r", vessel)]
+        runs = [("4r", vessel), ("4s", dict(rep, until=warmup + steps))]
+        if world > 1:
+            runs = [("4r", vessel), ("4s", dict(rep, profile=REP_PROFILE))]
         if world == HALO_WORLD and backend == "gloo":
             runs = [("4r", dict(vessel, profile=HALO_PROFILE, time_kernels=True)), ("4r", band),
-                    ("4r'", cyl)]
-        res = halo_group(world, backend, runs, kres)
-        vessels[(world, backend)] = res[0]
+                    ("4r'", cyl)] + runs[1:]
+        group_runs[(world, backend)] = runs
+    results = {}
+    with contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        groups = {key: stack.enter_context(start(ranks.halo_checks, key[0], halo_args(runs),
+                                                 backend=key[1]))
+                  for key, runs in group_runs.items() if key[1] == "gloo"}
+        for key, group in groups.items():
+            results[key] = halo_group(*key, group_runs[key], kres, group=group, t0=t0)
+    for key, runs in group_runs.items():
+        if key not in results:
+            results[key] = halo_group(*key, runs, kres)
+            torch.cuda.empty_cache()
+    vessels, reps, out = {}, {}, {"counts": {}, "splits": {}}
+    for (world, backend), res in results.items():
+        vessels[(world, backend)], reps[(world, backend)] = res[0], res[-1]
         if "splits_all" in res[0]:
             out["splits"][world] = res[0]["splits_all"]
-        for (label, c), r in zip(runs, res):
+        for (label, c), r in zip(group_runs[(world, backend)], res):
+            if label == "4s":
+                continue
             what = ("cylinder" if c["problem"] == "cylinder" else
                     f"vessel N={c['N']} {(c.get('options') or {}).get('ell_layout', 'ell')}")
             out["counts"][f"{what} world {world} {backend}"] = r["launch_counts"]
@@ -3703,7 +3973,6 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
                 print(f"[4r'] rotational iterations a step "
                       f"{float(r['stats']['rot_iters'].mean()):.3f}")
                 out["cylinder_s"] = r["seconds"]
-        torch.cuda.empty_cache()
     base = vessels.get((1, "gloo"))
     for key, r in vessels.items():
         if base is not None and key != (1, "gloo"):
@@ -3712,31 +3981,45 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
     if base is not None and single is not None:
         _gap("4r", base, single, "world 1 against phase 4b's single-device path",
              HALO_SINGLE_BOUND)
+    one = reps.get((1, "gloo"))
+    for (world, backend), r in reps.items():
+        if one is not None and world > 1:
+            _gap("4s", r, one, f"world {world} ({backend}) against world 1 after "
+                 f"{sum(rep_steps)} steps", REP_WORLD_BOUND)
+    if one is not None and base is not None:
+        _gap("4s", one["until"], base, f"world 1 against phase 4r's graph-halo path at world 1 "
+             f"after {warmup + steps} steps", REP_HALO_BOUND)
     out["world1"] = base
     return out
 
 
-def halo_gpu_vs_cpu(world: int = HALO_WORLD, steps: int = 3, devices=("cuda", "cpu")) -> None:
+@deferred
+def halo_gpu_vs_cpu(world: int = HALO_WORLD, steps: int = 3, devices=("cuda", "cpu"),
+                    stack=None):
     """Phase 5j: the graph-halo path at world 2 (gloo) on cuda and on cpu,
     float64, rtol 1e-12, ``steps`` steps, on the res=10 cylinder (outlet,
     rotational) and the vessel at N=6: every iteration count equal, u and p
     to 1e-12 relative; the card's run against the port's single-device
     general path on the card to 1e-8 (``devices`` ("cpu", "cpu")
     rehearses it)."""
-    import numpy as np
-    import torch
-
     from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import start
 
     cfgs = [dict(cfg, dtype="float64", rtol=1e-12, steps=steps)
             for cfg in (dict(problem="cylinder", res=10, rotational=True),
                         dict(problem="vessel", N=6, dt=DT, nu=NU))]
-    # the two devices' groups at once (the CPU group leaves the card to the other)
     runs = lambda dev: (None, [dict(c, device=dev) for c in cfgs])
-    with start(ranks.halo_checks, world, runs(devices[0])) as ga, \
-            start(ranks.halo_checks, world, runs(devices[1])) as gc:
-        gs, cs = ga.join(HALO_TIMEOUT)[0]["runs"], gc.join(HALO_TIMEOUT)[0]["runs"]
+    ga, gc = two_groups(stack, ranks.halo_checks, world, runs, devices)
+    return lambda: _halo_gpu_vs_cpu(world, steps, devices, cfgs,
+                                    ga.join(HALO_TIMEOUT)[0]["runs"],
+                                    gc.join(HALO_TIMEOUT)[0]["runs"])
+
+
+def _halo_gpu_vs_cpu(world: int, steps: int, devices, cfgs: list, gs: list, cs: list) -> None:
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+
     for cfg, g, c in zip(cfgs, gs, cs):
         label = f"{cfg['problem']} " + (f"res={cfg['res']}" if "res" in cfg else f"N={cfg['N']}")
         du, dp = _rel2(g["u"], c["u"]), _rel2(g["p"], c["p"])
@@ -3780,7 +4063,7 @@ def _state(solver) -> dict:
                 p=solver._p.x.array.double().cpu().numpy())
 
 
-def halo_phases(single: dict | None, kres: dict, worlds=None) -> dict:
+def halo_phases(single: dict | None, kres: dict, worlds=None, gpu_vs_cpu: bool = True) -> dict:
     """Phases 4r, 4r' and 5j, each one's seconds printed, and K14's and
     K18's launches in each 4r / 4r' group's timed steps.  Returns
     ``halo_path``'s result."""
@@ -3794,10 +4077,11 @@ def halo_phases(single: dict | None, kres: dict, worlds=None) -> dict:
           "s (its run in 4r's world-2 group)")
     for k, v in res["counts"].items():
         print(f"  launches in the timed steps, {k}, rank 0: {v}")
-    print("[5j] cuda against cpu: the graph-halo path")
-    t0 = time.perf_counter()
-    halo_gpu_vs_cpu()
-    print(f"[5j] {time.perf_counter() - t0:.1f} s")
+    if gpu_vs_cpu:
+        print("[5j] cuda against cpu: the graph-halo path")
+        t0 = time.perf_counter()
+        halo_gpu_vs_cpu()
+        print(f"[5j] {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -3895,49 +4179,6 @@ def replicated_run(label: str, world: int, backend: str, cfg: dict, out: list) -
     return r0
 
 
-def replicated_path(ref: dict | None, n: int = N, steps: tuple = REP_STEPS,
-                    until: int = sum(SHARD_STEPS), worlds=None, device: str = "cuda") -> None:
-    """Phase 4s: the replicated mode (``options={"replicated": True}``) on
-    bench.py's vessel at N (float32, rtol 1e-5, low_memory_version False),
-    ``steps`` (warm-up, timed) steps, at world 1, over ``SPLIT_WORLD`` ranks
-    on the one card (gloo) and over NCCL at every card where there are two
-    or more (``worlds``: [(world, backend)] in place of these), each checked
-    by ``replicated_run``.  The state gaps: each world against world 1
-    (REP_WORLD_BOUND); world 1, taken on to ``until`` steps in all, against
-    ``ref`` (phase 4r's world-1 graph-halo result after as many steps;
-    REP_HALO_BOUND; None: not compared)."""
-    import torch
-
-    from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import launch
-
-    ncard = torch.cuda.device_count()
-    if worlds is None:
-        worlds = [(1, "gloo"), (SPLIT_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
-    rep = dict(problem="vessel", N=n, dtype="float32", device=device, rtol=1e-5,
-               warmup=steps[0], steps=steps[1], dt=DT, nu=NU, options={"replicated": True},
-               time_comm=True)
-    runs = {}
-    for world, backend in worlds:
-        t0 = time.perf_counter()
-        cfg = dict(rep, until=until) if world == 1 else dict(rep, profile=REP_PROFILE)
-        out = launch(ranks.halo_checks, world, (None, [cfg]), backend=backend,
-                     timeout=HALO_TIMEOUT)
-        print(f"[4s] a group of {world} ({backend}): {time.perf_counter() - t0:.1f} s with the "
-              "spawn")
-        runs[(world, backend)] = replicated_run("4s", world, backend, cfg,
-                                                [o["runs"][0] for o in out])
-        torch.cuda.empty_cache()
-    one = runs.get((1, "gloo"))
-    for (world, backend), r in runs.items():
-        if one is not None and world > 1:
-            _gap("4s", r, one, f"world {world} ({backend}) against world 1 after {sum(steps)} "
-                 "steps", REP_WORLD_BOUND)
-    if one is not None and ref is not None:
-        _gap("4s", one["until"], ref, f"world 1 against phase 4r's graph-halo path at world 1 "
-             f"after {until} steps", REP_HALO_BOUND)
-
-
 def split_report(mode: str, world: int, rs: list) -> None:
     """Phase 4k': one split step under the mesh on every rank (``rs``: each
     rank's ``ranks._split_result``): the mode, every reason 2, each phase's
@@ -3981,7 +4222,8 @@ def split_mesh_report(splits: dict) -> None:
                  SPLIT_MESH_BOUND[mode])
 
 
-def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu")) -> None:
+@deferred
+def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu"), stack=None):
     """Phase 5k: every sharded mode on cuda and on cpu at world 2 (gloo),
     float64, rtol 1e-12, small sizes.  The replicated mode 3 ``run`` steps
     on the vessel at N=6 and the res=10 cylinder: every iteration count
@@ -3993,11 +4235,7 @@ def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu")) -> None:
     ``tentative_matrix_dense`` after each: equal to the cpu export and to
     the single-device export on cuda to 1e-12.  ``devices`` ("cpu", "cpu")
     rehearses it."""
-    import numpy as np
-    import torch
-
     from oasisx_tpu_torch.parallel import ranks
-    from oasisx_tpu_torch.parallel.launch import start
 
     rep = {"replicated": True}
     small = (dict(problem="vessel", N=6), dict(problem="cylinder", res=10))
@@ -4007,9 +4245,18 @@ def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu")) -> None:
     splits += [dict(base, **c, options=rep, dense=True) for c in small]
     args = lambda dev: (None, [dict(c, device=dev) for c in runs],
                         [dict(c, device=dev) for c in splits])
-    with start(ranks.halo_checks, world, args(devices[0])) as ga, \
-            start(ranks.halo_checks, world, args(devices[1])) as gc:
-        g_all, c_all = ga.join(HALO_TIMEOUT), gc.join(HALO_TIMEOUT)
+    ga, gc = two_groups(stack, ranks.halo_checks, world, args, devices)
+    return lambda: _shard_gpu_vs_cpu(world, devices, runs, splits, ga.join(HALO_TIMEOUT),
+                                     gc.join(HALO_TIMEOUT))
+
+
+def _shard_gpu_vs_cpu(world: int, devices, runs: list, splits: list, g_all: list,
+                      c_all: list) -> None:
+    import numpy as np
+    import torch
+
+    from oasisx_tpu_torch.parallel import ranks
+
     name = lambda c: c["problem"] + (f" N={c['N']}" if "N" in c else f" res={c['res']}")
     for i, cfg in enumerate(runs):
         g, c = g_all[0]["runs"][i], c_all[0]["runs"][i]
@@ -4064,14 +4311,13 @@ def shard_gpu_vs_cpu(world: int = SPLIT_WORLD, devices=("cuda", "cpu")) -> None:
         torch.cuda.empty_cache()
 
 
-def shard_phases(slab_splits: dict, halo: dict) -> None:
+def shard_phases(slab_splits: dict, halo: dict, gpu_vs_cpu: bool = True) -> None:
     """Phases 4k' (the split steps that 4q's and 4r's gloo groups ended
-    with: ``slab_splits``, ``halo["splits"]``), 4s (``halo["world1"]`` its
-    reference) and 5k, each one's seconds printed."""
+    with: ``slab_splits``, ``halo["splits"]``) and 5k, its seconds
+    printed (4s runs in 4r's groups)."""
     split_mesh_report({"slab-halo": slab_splits, "graph-halo": halo["splits"]})
-    t0 = time.perf_counter()
-    replicated_path(halo.get("world1"))
-    print(f"[4s] {time.perf_counter() - t0:.1f} s")
+    if not gpu_vs_cpu:
+        return
     print("[5k] cuda against cpu: the replicated mode, the split step and the dense export on "
           "every sharded mode")
     t0 = time.perf_counter()
@@ -4132,7 +4378,7 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     K1 MG at N=64 (mg_cube_cases) and on the MG_BOXES and MG_CUBES grids
     and MG_GRID_BOXES (mg_route_cases),
     phase 3e's K1 cases at N=35, the N=35 main path 4f and the N=36 main
-    path 4, the main paths into ``log``: K1's and K4's kernels against
+    path 4 with its graph leg, the main paths into ``log``: K1's and K4's kernels against
     their plain versions and timed, in a few minutes; with ``profile``, a
     torch.profiler window of that many steps after 4f's and 4's
     (profile_steps).  Under --tree the other checkout's package runs these
@@ -4175,6 +4421,7 @@ def solves_phases(log: StepLog, profile: int = 0) -> None:
     check(rep["pressure_pc"] == "mg-pcg", f"N={N}: pressure {rep['pressure_pc']}, not mg-pcg")
     res = drive_main_path(solver, WARMUP, STEPS, "cuda", rep["path_kernels"])
     report_path("4", res, STEPS, 3 * solver._Vi[0][0].num_dofs, smi, TPU_ERA_ITERS, log)
+    graph_leg(solver, "4", smi)
     if profile:
         profile_steps(solver, profile, "build/chip_smoke_trace.json")
     print(f"[solves] {time.perf_counter() - t0:.1f} s")
@@ -4285,8 +4532,8 @@ def main() -> int:
                     help="with --halo-only: phase 4r at world 1 and over this many ranks (NCCL, "
                          "a card each, where the cards suffice; else gloo on one card)")
     ap.add_argument("--shard-only", action="store_true",
-                    help="only build the kernels and run phases 4q and 4r (with 4r'; their "
-                         "groups end with 4k''s split steps), 4k', 4s and 5k")
+                    help="only build the kernels and run phases 4q and 4r (with 4r' and 4s; "
+                         "their groups end with 4k''s split steps), 4k' and 5k")
     ap.add_argument("--solves-only", action="store_true",
                     help="only build the kernels and run phase 3's whole-solve cases, 3e's K1 "
                          "cases and the N=35 main path 4f (with --tree: on that checkout's "
@@ -4359,7 +4606,7 @@ def main() -> int:
         res = drive_main_path(vessel, *SHARD_STEPS, "cuda", kn.ELL_KERNELS)
         single = _state(vessel)
         del vessel
-        torch.cuda.empty_cache()
+        free_device()
         print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {SHARD_STEPS[1]} steps "
               f"({time.perf_counter() - t0:.1f} s with set-up)")
         halo_phases(single, {}, worlds)
@@ -4443,7 +4690,13 @@ def main() -> int:
     del state0
     if args.profile:
         profile_steps(solver, args.profile, "build/chip_smoke_trace.json")
+    # 4t, 4u, 4v. the device while loops: phase 4's solver at max_iter 3,
+    # the option solves' Krylov loops; the loop alone first
+    loop_rec = loop_probe()
+    legs = loop_legs(solver, smi)
+    loop_rec["launches"] = legs["4t"]["setter"]
     del solver
+    free_device()
 
     # 4g. the structured main path with the lumped velocity update: K6 on
     # Gw_c in place of K4's mass solve
@@ -4462,7 +4715,7 @@ def main() -> int:
     if args.profile:
         profile_steps(slump, args.profile, "build/chip_smoke_trace_lumped.json")
     del slump
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4i. the structured main path with the rotational pressure update: K5
     # and K4 at batch 1 on Mq_c, K7's output reused
@@ -4479,12 +4732,12 @@ def main() -> int:
     if args.profile:
         profile_steps(srot, args.profile, "build/chip_smoke_trace_rotational.json")
     del srot
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4k. the split-phase API at N=36 against run, step by step
     t0 = time.perf_counter()
     split_phase_path("cuda", smi)
-    torch.cuda.empty_cache()
+    free_device()
     print(f"[4k] {time.perf_counter() - t0:.1f} s")
 
     # 5. GPU against CPU
@@ -4517,7 +4770,7 @@ def main() -> int:
     if args.profile:
         profile_steps(s35, args.profile, "build/chip_smoke_trace_n35.json")
     del s35
-    torch.cuda.empty_cache()
+    free_device()
 
     # 5d. GPU against CPU with K1's non-MG modes
     print("[5d] cuda against cpu, K1's non-MG modes")
@@ -4527,7 +4780,7 @@ def main() -> int:
 
     # 3c. the structured kernels at the N=64 shapes (the f64 cases on the
     # f32 solver's operators cast), and 4d. the N=64 main path
-    torch.cuda.empty_cache()
+    free_device()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s64 = tgv_solver(N64, torch.float32, "cuda", rtol=1e-5)
@@ -4549,7 +4802,7 @@ def main() -> int:
             cases_fn=lambda pr, dev: solve_cases(pr[0], dev, dtype=pr[1]),
             suffix=f" N={N64}").items():
         kres[name] = kres[name] + recs
-    torch.cuda.empty_cache()
+    free_device()
     torch.cuda.reset_peak_memory_stats()
     res = drive_main_path(s64, WARMUP, STEPS, "cuda", rep64["path_kernels"])
     report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64, steps_log)
@@ -4559,7 +4812,7 @@ def main() -> int:
     if args.profile:
         profile_steps(s64, args.profile, "build/chip_smoke_trace_n64.json")
     del s64
-    torch.cuda.empty_cache()
+    free_device()
 
     # 3b. ELL kernels at the vessel's N=36 shapes
     torch.cuda.reset_peak_memory_stats()
@@ -4591,7 +4844,7 @@ def main() -> int:
                                      "cuda", cases_fn=ell_solve_cases).items():
         kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
     del cyl64
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4b. the vessel main path, before the band solver exists (so that 4b's
     # device memory holds no band tables; the float64 vessel's own is left out)
@@ -4640,7 +4893,7 @@ def main() -> int:
     for name, recs in compare_solves(pairs, "cuda", cases_fn=band_solve_cases).items():
         kres[name] = recs
     del vessel64, vessel, vessel_state0, bq, pairs
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4e. the vessel with the band layout, the flat-ELL solvers freed
     torch.cuda.reset_peak_memory_stats()
@@ -4660,7 +4913,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vband, args.profile, "build/chip_smoke_trace_band.json")
     del vband
-    torch.cuda.empty_cache()
+    free_device()
     print(f"    the band solver's own device memory "
           f"{(resident - torch.cuda.memory_allocated()) / 2**20:.1f} MiB (before the steps, "
           f"less what stays once it is freed)")
@@ -4688,7 +4941,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vlump, args.profile, "build/chip_smoke_trace_vessel_lumped.json")
     del vlump
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4j. the vessel with the rotational update and a constant body force:
     # K14 and K16 at batch 1 on Mq's ELL values
@@ -4707,7 +4960,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vrot, args.profile, "build/chip_smoke_trace_vessel_rotational.json")
     del vrot
-    torch.cuda.empty_cache()
+    free_device()
 
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)
@@ -4756,16 +5009,24 @@ def main() -> int:
     t0 = time.perf_counter()
     slab_splits = slab_path(single=single4)
     print(f"[4q] {time.perf_counter() - t0:.1f} s")
-    print("[5i] cuda against cpu: the slab path")
+    # 4r, 4r', 4s. the graph-halo path and the replicated mode over ranks
+    halo = halo_phases(single4b, kres, gpu_vs_cpu=False)
+    # 4k'. the split phases under a device_mesh (ending 4q's and 4r's groups)
+    shard_phases(slab_splits, halo, gpu_vs_cpu=False)
+    # 5i, 5j, 5k. every sharded mode GPU against CPU, their groups at once
+    import contextlib
+
     t0 = time.perf_counter()
-    slab_gpu_vs_cpu()
-    print(f"[5i] {time.perf_counter() - t0:.1f} s")
-    # 4r, 4r', 5j. the graph-halo path over ranks
-    halo = halo_phases(single4b, kres)
-    # 4k', 4s, 5k. the split phases under a device_mesh (ending 4q's and
-    # 4r's groups), the replicated mode, and every sharded mode GPU against
-    # CPU
-    shard_phases(slab_splits, halo)
+    with contextlib.ExitStack() as stack:
+        checks = [(tag, what, phase(stack=stack)) for tag, what, phase in (
+            ("5i", "the slab path", slab_gpu_vs_cpu),
+            ("5j", "the graph-halo path", halo_gpu_vs_cpu),
+            ("5k", "the replicated mode, the split step and the dense export on every "
+                   "sharded mode", shard_gpu_vs_cpu))]
+        for tag, what, finish in checks:
+            print(f"[{tag}] cuda against cpu: {what}")
+            finish()
+    print(f"[5i] [5j] [5k] {time.perf_counter() - t0:.1f} s (their groups started at once)")
 
     # the kernels redesigned against their one-call library yardsticks
     for name, label in (("cube_scatter", "U batch 3"), ("cube_scatter", f"U batch 3 N={N64}"),
@@ -4785,6 +5046,8 @@ def main() -> int:
          "launches": launches.get(n, 0), "cases": kres[n]}
         for n in kn.KERNELS
     ]
+    # the device while loops' condition setter: its launches are 4t's
+    kernels.append(dict(loop_rec, cases=[dict(loop_rec)]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,9 @@ _SIGNATURES = {
     "oasisx_pressure_cg": [P] * 7 + [I] + [P] * 3 + [I] * 6 + [D] * 3 + [I, P],
     "oasisx_pressure_cg_plan": [I] * 3 + [P],
     "oasisx_pressure_cg_barriers": [I] * 3,
+    "oasisx_loop_open": [P] * 4,
+    "oasisx_loop_close": [P, P, LL],
+    "oasisx_loop_abort": [P],
 }
 
 

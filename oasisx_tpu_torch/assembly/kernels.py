@@ -78,8 +78,10 @@ HALO_KERNELS = ("ell_matvec",)
 HALO_BAND_KERNELS = ("band_matvec",)
 KERNELS = (STRUCTURED_KERNELS + ("cube_scatter",) + ELL_KERNELS
            + ("band_matvec", "band_bicgstab", "band_cg"))
-# counted too: K17's V-cycle launched alone (tests and checks; not on a path)
-_COUNTED = KERNELS + ("ell_vcycle",)
+# counted too: K17's V-cycle launched alone (tests and checks; not on a path),
+# and the condition setter of a device while loop (la/device_loop.py), which
+# launches only while a graph is captured and replaces no TPU kernel
+_COUNTED = KERNELS + ("ell_vcycle", "graph_loop")
 launches = dict.fromkeys(_COUNTED, 0)
 # components of one launch of the cube kernels (kMaxBatch, csrc/cube_device.cuh):
 # the leading size of matvec_win's stage, which each launch reuses
@@ -95,10 +97,14 @@ def reset_counts() -> None:
 
 class RecordedCounts:
     """The launches and plain calls made inside a ``with`` block (the
-    capture of a CUDA graph, or a warm-up), taken out of the counters when
-    the block ends; ``replayed(n)`` adds them back n times, once per replay
-    of what the block recorded: a replay runs its kernels without calling a
-    wrapper, so the counters see it only here."""
+    capture of a CUDA graph, the body of a device while loop captured in
+    it, or a warm-up), taken out of the counters when the block ends;
+    ``replayed(n)`` adds them back n times, once per replay of what the
+    block recorded: a replay runs its kernels without calling a wrapper, so
+    the counters see it only here.  A block nested in another is taken out
+    of the outer one's count too: a while body's launches run once a trip,
+    not once a replay, so ``replayed(n, loops)`` adds each body's (a
+    ``RecordedCounts``) as many times as its trip counter ran it."""
 
     def __enter__(self) -> "RecordedCounts":
         self._start = (dict(launches), dict(plain_calls))
@@ -111,10 +117,13 @@ class RecordedCounts:
             self.launches[k], self.plain_calls[k] = launches[k] - l0[k], plain_calls[k] - p0[k]
             launches[k], plain_calls[k] = l0[k], p0[k]
 
-    def replayed(self, n: int) -> None:
+    def replayed(self, n: int, loops=()) -> None:
+        """n replays; ``loops``: (a while body's counts, its trips in them)."""
         for k in _COUNTED:
             launches[k] += n * self.launches[k]
             plain_calls[k] += n * self.plain_calls[k]
+        for body, trips in loops:
+            body.replayed(trips)
 
 
 # ---------------------------------------------------------------------------

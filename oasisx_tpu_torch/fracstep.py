@@ -67,11 +67,12 @@ b_first; without one b_first is as above.
 The general path's other options, off its default configuration: a
 pressure ``pc_type`` jacobi / none (Jacobi-CG) or any other non-AMG type
 (Chebyshev(``cheb_degree``, default 6)-Jacobi CG), and a tentative
-``ksp_type`` cg or gmres (one component at a time): Krylov loops on the
-host around K14's products (K18's in the band layout), one host read an
-iteration.  On the structured path a tentative ``ksp_type`` cg is batched
-CG on K3's product with identity bc rows, looped on the host the same way;
-gmres runs batched BiCGStab there, as on the JAX package's kernel path.
+``ksp_type`` cg or gmres (one component at a time): Krylov loops around
+K14's products (K18's in the band layout), each the JAX package's
+``lax.while_loop`` as a device while loop (``la/device_loop.py``).  On the
+structured path a tentative ``ksp_type`` cg is batched CG on K3's product
+with identity bc rows, its loop the same; gmres runs batched BiCGStab
+there, as on the JAX package's kernel path.
 
 With ``options={"ell_layout": "band"}`` the velocity operators (A_lhs and
 M) take the band-ELL layout (``assembly/band.py``, RCM order inside a
@@ -163,21 +164,21 @@ mode the state is canonical.
 State (u, u1, u2, p, dp, duc) stays on the device between calls, in the
 parity-split grid layout (structured) or the canonical dof order
 (general); after each call it is written into the solver's Functions.  On
-the card each solve is one kernel with its loop on the device, so a step
-reads nothing on the host (with ``max_iter > 1`` the inner-loop test reads
-``diff``); the plain versions loop on the host and read one device scalar
-per iteration.  ``last_stats["host_syncs"]`` counts those reads per step;
-``run`` adds one read of the stats per call.
+the card each default solve is one kernel with its loop on the device; the
+option solves' Krylov loops and the inner ``max_iter`` loop are device
+while loops (``la/device_loop.py``), which outside a captured step loop in
+Python and read their condition once a trip, as the plain versions do.
+``last_stats["host_syncs"]`` counts those reads per step; ``run`` adds
+one read of the stats per call.
 
-Where a step makes no host read on one device (``config_report()["run"]``
-"graph": every default single-device configuration, ``max_iter`` 1),
-``run`` is the JAX package's device program (its ``jit`` of a ``lax.scan``,
-oasisx_tpu fracstep.py:3332-3446): one step on static buffers
-(``step_graph.py``), captured on the card as a CUDA graph and replayed once
-a step, the per-step boundary values, time, stats and callback outputs in
-device tables indexed by a device step counter.  The sharded modes, the
-host-looped option solves and ``max_iter > 1`` run the per-step loop
-("eager: <reason>").
+On one device (``config_report()["run"]`` "graph": every single-device
+configuration) ``run`` is the JAX package's device program (its ``jit``
+of a ``lax.scan``, oasisx_tpu fracstep.py:3332-3446): one step on static
+buffers (``step_graph.py``), captured on the card as a CUDA graph and
+replayed once a step, its while loops conditional nodes in the graph, the
+per-step boundary values, time, stats and callback outputs in device
+tables indexed by a device step counter.  The sharded modes, whose sums go
+through the host, run the per-step loop ("eager: <reason>").
 """
 
 from __future__ import annotations
@@ -200,7 +201,7 @@ from .bcs import DirichletBC, PressureBC, bc_mask_and_values
 from .config import real_dtype, resolve_device
 from .elements.element import make_element
 from .assembly.band import BandAssembly, band_values, build_band_assembly
-from .la import band, ell, fused, krylov
+from .la import band, device_loop as dl, ell, fused, krylov
 from .la.amg import AlgebraicMG, amg_kernel_data, amg_widths, coo_from_elems
 from .la.krylov import _effective_rtol
 from .la.pressure_cg import PressureCG
@@ -448,11 +449,10 @@ class FractionalStep_AB_CN:
         # the last pressure_assemble: the split phases' hand-off
         self._split = None
         self._split_dt = None
-        # run: the max_iter of its last call, its StepGraph, and whether it
-        # runs the per-step loop where the graph would run (set by the
-        # comparisons of the two: tests, chip_smoke's graph leg)
+        # run: its StepGraph, and whether it runs the per-step loop where the
+        # graph would run (set by the comparisons of the two: tests,
+        # chip_smoke's graph leg)
         self._force_eager = False
-        self._last_max_iter = 1
         self._graph = None
         self.last_stats: dict = {}
         logger.info("active paths: %s", self.config_report())
@@ -1144,7 +1144,7 @@ class FractionalStep_AB_CN:
             body_force=self._b0_dev is not None,
             tentative_method=self._tentative_method(),
             kernels=list(kn.KERNELS),
-            run=self._run_mode(self._last_max_iter),
+            run=self._run_mode(),
             device=str(self._device),
             dtype=str(self._dtype).replace("torch.", ""),
         )
@@ -1161,7 +1161,7 @@ class FractionalStep_AB_CN:
         unused = {"cg_mass", "ell_cg", "band_cg"} if self._lumped else set()
         if self._rotational:
             unused -= {"cg_mass", "ell_cg"}
-        if self._tentative_method() != "bcgs":  # solves on the products, looped on the host
+        if self._tentative_method() != "bcgs":  # Krylov loops on the products
             unused |= {"bicgstab", "ell_bicgstab", "band_bicgstab"}
         if self._slab is not None:
             info, mg, ch = self._slab, self._mg, self._p_cheb
@@ -1414,7 +1414,7 @@ class FractionalStep_AB_CN:
         the product K14 at batch 1 on A_lhs's ELL values, or K18's in the
         band layout, both assembled once a solve; replicated: the element
         product summed over the ranks, the dots local.  The Krylov loops run
-        on the host (one read an iteration, or an Arnoldi step)."""
+        as device while loops (in Python outside a capture: a read a trip)."""
         s, masks = self._solver_u, self._bc_masks
         dfull = torch.where(masks, torch.ones_like(bc_vals), diag[None])
         rhs = torch.where(masks, bc_vals, rhs1)
@@ -1463,7 +1463,7 @@ class FractionalStep_AB_CN:
         """Returns (KrylovResult, dp, relative exit residual).  Structured:
         projected warm start, the pressure PCG, volume-weighted zero mean.
         General: AMG-PCG (K17), or Jacobi- or Chebyshev-Jacobi CG on K14's
-        products with the loop on the host; with the outlet mask (dp0 as it
+        products, its loop a device while loop; with the outlet mask (dp0 as it
         is), or with the nullspace (warm start demeaned, volume-weighted zero
         mean after)."""
         if self._slab is not None or self._halo is not None:
@@ -1636,44 +1636,64 @@ class FractionalStep_AB_CN:
 
     def _step(self, state, dt, nu, bc_vals, h_qvals, max_error, max_iter):
         """One time step; returns (new state, per-step stats on the device,
-        host syncs made)."""
-        u, u1, u2, p = state["u"], state["u1"], state["u2"], state["p"]
+        host syncs made).  The inner iterations after the first run as the
+        JAX package's ``lax.while_loop`` (oasisx_tpu fracstep.py:2969-3018):
+        a device while loop while it < max_iter and diff > max_error, its
+        carry (u, ps, dp, diff, it and the u/p stats); with ``max_iter`` 1
+        there is no loop."""
+        u1, u2, p = state["u1"], state["u2"], state["p"]
         A, uq, b_first = self._assemble_first(u1, u2, dt, nu, h_qvals)
         diag = self._tentative_diag(A, uq, dt, nu)
-        ps, dp, it, syncs = p, state["dp"], 0, 0
-        while it < max_iter:
-            if it > 0:
-                syncs += 1
-                if not bool(diff > max_error):
-                    break
+        syncs = [0]
+
+        def inner(u, ps, dp, x0):
+            """One inner iteration from (u, ps, dp): (u, ps, dp, diff, stats)."""
             rhs1 = b_first + self._pressure_gradient(ps)
-            # first inner iteration: AB2-extrapolated guess
-            x0 = 2.0 * u1 - u2 if it == 0 else u
             ures, diff, u_res = self._tentative_solve(A, diag, rhs1, bc_vals, u, x0)
             u = ures.x
             b2 = self._divergence(u, dt)
             pres, dp, p_res = self._pressure_solve(b2, dp)
+            stats = dict(u_iters=ures.iters, u_converged=ures.converged, u_res=u_res,
+                         p_iters=pres.iters, p_converged=pres.converged, p_res=p_res)
+            syncs[0] += ures.syncs + pres.syncs
             if self._rotational:
                 rres, ps, r_res = self._rotational_update(p, dp, u, b2, dt, nu)
-                syncs += rres.syncs
+                syncs[0] += rres.syncs
+                stats.update(rot_iters=rres.iters[0], rot_converged=rres.converged[0],
+                             rot_res=r_res[0])
             else:
                 ps = p + dp
-            syncs += ures.syncs + pres.syncs
-            it += 1
+            return u, ps, dp, diff, stats
+
+        # first inner iteration: AB2-extrapolated guess
+        u, ps, dp, diff, st = inner(state["u"], p, state["dp"], 2.0 * u1 - u2)
+        # filled on the device: a copy from the host would synchronise
+        it = torch.full((), 1, dtype=torch.int32, device=u.device)
+        if max_iter > 1:
+            keys = tuple(st)
+
+            def cond(u, ps, dp, diff, it, *_):
+                return (it < max_iter) & (diff > max_error)
+
+            def body(u, ps, dp, diff, it, *_):
+                u, ps, dp, diff, s = inner(u, ps, dp, u)
+                return (u, ps, dp, diff, it + 1) + tuple(s[k] for k in keys)
+
+            out, n = dl.while_loop(cond, body, (u, ps, dp, diff, it) + tuple(st[k] for k in keys))
+            syncs[0] += n
+            (u, ps, dp, diff, it), st = out[:5], dict(zip(keys, out[5:]))
         cres, c_res = self._velocity_update(u, dp, dt, state["duc"])
-        syncs += cres.syncs
+        syncs[0] += cres.syncs
         new_state = dict(u=cres.x, u1=cres.x, u2=u1, p=ps, dp=dp, duc=cres.x - u)
         stats = dict(
-            u_iters=ures.iters, u_converged=ures.converged, u_res=u_res,
-            p_iters=pres.iters, p_converged=pres.converged, p_res=p_res,
+            u_iters=st["u_iters"], u_converged=st["u_converged"], u_res=st["u_res"],
+            p_iters=st["p_iters"], p_converged=st["p_converged"], p_res=st["p_res"],
             c_iters=cres.iters, c_converged=cres.converged, c_res=c_res,
-            # filled on the device: a copy from the host would synchronise
-            inner_iters=torch.full((), it, dtype=torch.int32, device=u.device), diff=diff,
+            inner_iters=it, diff=diff,
         )
         if self._rotational:
-            stats.update(rot_iters=rres.iters[0], rot_converged=rres.converged[0],
-                         rot_res=r_res[0])
-        return new_state, stats, syncs
+            stats.update({k: st[k] for k in ("rot_iters", "rot_converged", "rot_res")})
+        return new_state, stats, syncs[0]
 
     # ------------------------------------------------------------------
     # state
@@ -1792,25 +1812,16 @@ class FractionalStep_AB_CN:
                 rows[i].append(h)
         return [torch.stack(r) for r in rows]
 
-    def _run_mode(self, max_iter: int = 1) -> str:
+    def _run_mode(self) -> str:
         """How ``run`` advances its steps: "graph" (one step captured as a
         CUDA graph and replayed, the static-buffer body uncaptured on the
-        CPU) where a step makes no host read, else "eager: <reason>" (the
-        per-step loop)."""
+        CPU) on one device, else "eager: <reason>" (the per-step loop)."""
         if self._comm is not None:
             mode = "slab-halo" if self._slab is not None else \
                 "graph-halo" if self._halo is not None else "replicated"
             return f"eager: the {mode} mode's Krylov loops read the host every iteration"
         if self._force_eager:
             return "eager: forced, for a comparison with the graph"
-        method = self._tentative_method()
-        if method != "bcgs":
-            return f"eager: the tentative {method} solve loops on the host"
-        if not self._structured and self._amg is None:
-            pc = "jacobi-pcg" if self._p_cheb is None else "cheb-pcg"
-            return f"eager: the pressure {pc} solve loops on the host"
-        if max_iter > 1:
-            return "eager: max_iter > 1 reads diff between the inner iterations"
         return "graph"
 
     def _run_tables(self, num_steps: int, bc_vals_seq, h_qvals_seq):
@@ -1852,26 +1863,27 @@ class FractionalStep_AB_CN:
         of tensors, are stacked over the steps on the device into
         ``last_stats["callback"]``, read with the stats once a call.
 
-        Where ``config_report()["run"]`` is "graph" (a single-device solver
-        whose step makes no host read, ``max_iter`` 1), the step runs on
-        static buffers (``step_graph.StepGraph``): on the card one step is
-        captured as a CUDA graph the first time the call's key (dt, nu,
+        Where ``config_report()["run"]`` is "graph" (a single-device
+        solver), the step runs on static buffers (``step_graph.StepGraph``):
+        on the card one step is captured as a CUDA graph, its while loops
+        conditional nodes, the first time the call's key (dt, nu,
         max_error, max_iter, the tables' presence and row shapes, the
-        callback's identity) is met, or a call is longer than its tables'
-        rows, and replayed ``num_steps`` times; a new key replaces the
-        graph.  A callback there must be torch on the device (a host read
+        callback's identity, the Chebyshev bounds) is met, or a call is
+        longer than its tables' rows, and replayed ``num_steps`` times; a
+        new key replaces the graph.  A callback there must be torch on the device (a host read
         fails the capture, naming it); a failed capture raises.  Elsewhere
         the steps run in a loop on the host."""
         if num_steps < 1 or max_iter < 1:
             raise ValueError("num_steps and max_iter must be at least 1")
-        self._last_max_iter = max_iter
         state = self._state_from_functions()
         bc, h = self._run_tables(num_steps, bc_vals_seq, h_qvals_seq)
         seq_bc, seq_h = bc_vals_seq is not None, h_qvals_seq is not None
-        if self._run_mode(max_iter) == "graph":
+        if self._run_mode() == "graph":
+            # the Chebyshev bounds are constants of the captured step
             key = (dt, nu, max_error, max_iter, seq_bc and tuple(bc.shape[1:]),
                    seq_h and tuple(tuple(a.shape[1:]) for a in h),
-                   None if step_callback is None else id(step_callback))
+                   None if step_callback is None else id(step_callback),
+                   None if self._p_cheb is None else tuple(sorted(self._p_cheb.items())))
             g = self._graph
             if g is None or g.key != key or g.rows < num_steps:
                 # one graph is kept: the old one's buffers and pool go first

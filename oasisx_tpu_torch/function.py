@@ -11,8 +11,9 @@ at set-up (identity rows, zero columns: ``engine.bc_symmetric_matvec``'s
 operator).  Every product with it is K14 (``la.ell.ell_matvec``).  The
 default solve, CG with Jacobi, runs the components of a vector space
 together in one K16 launch (``la.ell.ell_cg``) at batch ``bs``, warm-started
-from the last projection; any other ``ksp_type`` runs ``KSPSolver``'s host
-loop on K14, a component at a time.  On the CPU both run their plain
+from the last projection; any other ``ksp_type`` runs ``KSPSolver``'s
+Krylov loop (a Python loop outside a captured step) on K14, a component
+at a time.  On the CPU both run their plain
 versions.
 """
 

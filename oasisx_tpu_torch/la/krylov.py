@@ -1,11 +1,17 @@
-"""Matrix-free Krylov solvers on tensors, with the loop on the host.
+"""Matrix-free Krylov solvers on tensors, their loops device while loops.
 
 CG for the SPD operators (pressure Poisson, mass), BiCGStab (one system or
 a batch) and restarted GMRES for the nonsymmetric tentative-velocity
 operator, following ``oasisx_tpu/la/krylov.py`` operation for operation so
-that both packages take the same iterations.  The loop runs in Python; its condition reads
-a device scalar once per iteration (one host sync), counted in
-``KrylovResult.syncs`` so a run can report syncs per step.
+that both packages take the same iterations.  Each loop is the JAX
+package's ``lax.while_loop`` as ``device_loop.while_loop``: the counters,
+the tolerance and the flags are 0-d device tensors, so that inside a
+captured step (``run``'s graph) the loop is a conditional node and reads
+nothing on the host; elsewhere it is a Python loop whose condition reads a
+device scalar once an iteration (one host sync), counted in
+``KrylovResult.syncs`` so a run can report syncs per step.  With ``comm``
+(the sharded modes) the sums go through the host and the loop stays a
+Python loop.
 
 Batched variants solve k systems sharing one operator, with per-row
 convergence: converged rows are frozen so further iterations cannot
@@ -24,6 +30,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .device_loop import while_loop
+
 logger = logging.getLogger("oasisx_tpu_torch")
 
 
@@ -39,9 +47,15 @@ class KrylovResult(NamedTuple):
 
 
 def _reason(converged: torch.Tensor, breakdown: torch.Tensor) -> torch.Tensor:
-    two, brk, maxit = (torch.tensor(v, dtype=torch.int32, device=converged.device)
-                       for v in (2, -5, -3))
-    return torch.where(converged, two, torch.where(breakdown, brk, maxit))
+    """2 where converged, else -5 where broken down, else -3 (filled on the
+    device: a copy from the host would synchronise)."""
+    fill = lambda v: torch.full_like(converged, v, dtype=torch.int32)
+    return torch.where(converged, fill(2), torch.where(breakdown, fill(-5), fill(-3)))
+
+
+def _zero(b: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """A 0-d zero on b's device: an iteration counter or a flag."""
+    return torch.zeros((), dtype=dtype, device=b.device)
 
 
 def _identity(x):
@@ -130,15 +144,12 @@ def cg(
     tol = torch.clamp(rtol * norm(b), min=atol)
     r = demean(b - A(x))
     z = M(r)
-    p = z
     rz = dot(r, z)
-    rnorm = norm(r)
-    k = syncs = 0
-    brk = torch.zeros((), dtype=torch.bool, device=b.device)
-    while k < maxiter:
-        syncs += 1
-        if not bool((rnorm > tol) & ~brk):
-            break
+
+    def cond(x, r, p, rz, k, rnorm, brk):
+        return (rnorm > tol) & (k < maxiter) & ~brk
+
+    def body(x, r, p, rz, k, rnorm, brk):
         Ap = demean(A(p))
         pAp = dot(p, Ap)
         brk = brk | (pAp == 0) | (rz == 0)
@@ -148,13 +159,13 @@ def cg(
         z = M(r)
         rz_new, rnorm = dot_norm(r, z)
         beta = rz_new / _nz(rz)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
+        return x, r, z + beta * p, rz_new, k + 1, rnorm, brk
+
+    (x, r, p, rz, k, rnorm, brk), syncs = while_loop(
+        cond, body, (x, r, z, rz, _zero(b), norm(r), _zero(b, torch.bool)), host=comm is not None)
     x = demean(x) if project_nullspace else x
     conv = rnorm <= tol
-    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, conv, syncs,
-                        _reason(conv, brk))
+    return KrylovResult(x, k, rnorm, conv, syncs, _reason(conv, brk))
 
 
 def bicgstab(
@@ -177,24 +188,18 @@ def bicgstab(
     norm = torch.linalg.vector_norm
     tol = torch.clamp(rtol * norm(b), min=atol)
     r = b - A(x)
-    rhat = r
-    rho = torch.dot(rhat, r)
-    p = r
-    rnorm = norm(r)
-    false = torch.zeros((), dtype=torch.bool, device=b.device)
-    brk = restarted = false
+    false = _zero(b, torch.bool)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    k = syncs = 0
-    while k < maxiter:
-        syncs += 1
-        if not bool((rnorm > tol) & ~brk):
-            break
+
+    def cond(x, r, p, rho, rhat, restarted, k, rnorm, brk):
+        return (rnorm > tol) & (k < maxiter) & ~brk
+
+    def body(x, r, p, rho, rhat, restarted, k, rnorm, brk):
         need_restart = rho == 0
         brk = brk | (need_restart & restarted)
         rhat = torch.where(need_restart, r, rhat)
         rho = torch.where(need_restart, torch.dot(r, r), rho)
         p = torch.where(need_restart, r, p)
-        restarted = need_restart
         phat = M(p)
         v = A(phat)
         rv = torch.dot(rhat, v)
@@ -213,12 +218,12 @@ def bicgstab(
         brk = brk | (~half & (omega == 0))
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = r + beta * (p - omega * v)
-        rho = rho_new
-        rnorm = norm(r)
-        k += 1
+        return x, r, p, rho_new, rhat, need_restart, k + 1, norm(r), brk
+
+    carry = (x, r, r, torch.dot(r, r), r, false, _zero(b), norm(r), false)
+    (x, r, p, rho, rhat, restarted, k, rnorm, brk), syncs = while_loop(cond, body, carry)
     conv = rnorm <= tol
-    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rnorm, conv, syncs,
-                        _reason(conv, brk))
+    return KrylovResult(x, k, rnorm, conv, syncs, _reason(conv, brk))
 
 
 def gmres(
@@ -239,81 +244,89 @@ def gmres(
     Hessenberg column's dots are summed over the ranks (the JAX package's
     ``gmres(axis=)``), so every rank holds the same small system.
 
-    The basis lives on the device; the small Hessenberg system (H, the
-    rotations, g) on the host in the solver's precision, so each Arnoldi
-    step reads its new column (one host sync) and each cycle the residual
-    norm.  A cycle that stops before ``restart`` steps (converged, the
-    iteration limit, or an exact breakdown) leaves the rest of its columns
-    as the JAX package's fixed-length cycle does: a unit diagonal, a zero
-    basis vector, an identity rotation."""
+    The JAX package's fixed-shape cycle (oasisx_tpu/la/krylov.py:516-590)
+    on device tensors in the solver's dtype: the basis V (m+1, n), the
+    Hessenberg matrix H (m+1, m), g, the step counter and the live flag.
+    The restart loop is a device while loop, and so are a cycle's Arnoldi
+    steps: they stop at the first step that is not live (converged, the
+    iteration limit, an exact breakdown), where the JAX cycle runs its
+    remaining steps as masked no-ops; the columns those leave, a unit
+    diagonal and a zero basis vector, are where H and V start.  The Givens
+    rotations of the earlier steps act on a new column as their product Q
+    ((m+1, m+1), one small product a step in place of the JAX loop over
+    them), each new rotation updating two rows of Q; the back-substitution
+    is one triangular solve on the m x m H (a zero diagonal read as 1)."""
     M = M or _identity
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     rtol = _effective_rtol(rtol, b.dtype)
     m = int(restart)
-    n = b.shape[0]
-    real = np.float64 if b.dtype == torch.float64 else np.float32
+    n, dt, dev = b.shape[0], b.dtype, b.device
+    host = comm is not None
     _, norm, _ = _reducers(comm)
-    tol = np.maximum(real(rtol) * real(norm(M(b)).item()), real(atol))
-    rnorm = norm(M(b - A(x)))
-    it = 0
-    syncs = 2
-    while rnorm.item() > tol and it < maxiter:
+    tol = torch.clamp(rtol * norm(M(b)), min=atol)
+    rows = torch.arange(m + 1, device=dev)
+    cols = torch.arange(m, device=dev)
+    syncs = [0]
+
+    def arnoldi(V, H, Q, g, j, it, live):
+        vj = V.index_select(0, j.view(1))[0]
+        w = M(A(vj))
+        # Gram-Schmidt against rows 0..j (the rest of V is zero)
+        h = (V @ w) * (rows <= j).to(dt)
+        if comm is not None:
+            h = comm.sum(h)
+        w = w - h @ V
+        hj1 = norm(w)
+        ok = hj1 > 0
+        V.index_copy_(0, (j + 1).view(1),
+                      torch.where(ok & live, w / torch.where(ok, hj1, torch.ones_like(hj1)),
+                                  torch.zeros_like(w))[None])
+        h = torch.where(rows == j + 1, torch.where(ok, hj1, torch.zeros_like(hj1)), h)
+        h = Q @ h  # the earlier rotations
+        hj, hj1 = h.index_select(0, j.view(1))[0], h.index_select(0, (j + 1).view(1))[0]
+        denom = torch.sqrt(hj * hj + hj1 * hj1)
+        pos = denom > 0
+        dd = torch.where(pos, denom, torch.ones_like(denom))
+        live_step = live & ok
+        c = torch.where(live_step & pos, hj / dd, torch.ones_like(hj))
+        s = torch.where(live_step & pos, hj1 / dd, torch.zeros_like(hj))
+        h = torch.where(rows == j, denom, torch.where(rows == j + 1, torch.zeros_like(h), h))
+        qj, qj1 = Q.index_select(0, j.view(1)), Q.index_select(0, (j + 1).view(1))
+        Q = torch.where((rows == j)[:, None], c * qj + s * qj1,
+                        torch.where((rows == j + 1)[:, None], c * qj1 - s * qj, Q))
+        H = torch.where((cols == j)[None, :] & live_step, h[:, None], H)
+        gj = g.index_select(0, j.view(1))[0]
+        g = torch.where(live_step, torch.where(rows == j, c * gj,
+                                               torch.where(rows == j + 1, -s * gj, g)), g)
+        res = torch.abs(g.index_select(0, (j + 1).view(1))[0])
+        it = it + live.to(torch.int32)
+        live = live_step & (res > tol) & (it < maxiter)
+        return V, H, Q, g, j + 1, it, live
+
+    def cycle(x, it, rnorm):
         r = M(b - A(x))
         beta = norm(r)
-        beta_h = real(beta.item())
-        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
-        V[0] = r / beta if beta_h > 0 else r
-        H = np.zeros((m + 1, m), real)
-        cs, sn = np.ones(m, real), np.zeros(m, real)
-        g = np.zeros(m + 1, real)
-        g[0] = beta_h
-        live = beta_h > tol
-        syncs += 1
-        for j in range(m):
-            if not live:
-                H[np.arange(j, m), np.arange(j, m)] = 1.0
-                break
-            w = M(A(V[j]))
-            hv = V[: j + 1] @ w
-            if comm is not None:
-                hv = comm.sum(hv)
-            w = w - hv @ V[: j + 1]
-            hj1_t = norm(w)
-            col = torch.cat([hv, hj1_t[None]]).cpu().numpy().astype(real)
-            h = np.zeros(m + 1, real)
-            h[: j + 1], hj1 = col[:-1], col[-1]
-            syncs += 1
-            ok = hj1 > 0
-            if ok:
-                V[j + 1] = w / hj1_t
-                h[j + 1] = hj1
-            for i in range(j):
-                hi, hi1 = h[i], h[i + 1]
-                h[i] = cs[i] * hi + sn[i] * hi1
-                h[i + 1] = -sn[i] * hi + cs[i] * hi1
-            denom = np.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-            c = h[j] / denom if denom > 0 else real(1.0)
-            s = h[j + 1] / denom if denom > 0 else real(0.0)
-            h[j], h[j + 1] = denom, 0.0
-            if ok:
-                cs[j], sn[j] = c, s
-                H[:, j] = h
-                gj = g[j]
-                g[j], g[j + 1] = c * gj, -s * gj
-            else:
-                H[j, j] = 1.0
-            it += 1
-            live = ok and np.abs(g[j + 1]) > tol and it < maxiter
-        y = np.zeros(m, real)
-        for i in reversed(range(m)):
-            hii = H[i, i]
-            y[i] = (g[i] - H[i] @ y) / (hii if hii != 0 else real(1.0))
-        x = x + torch.as_tensor(y, device=b.device).to(b.dtype) @ V[:m]
-        rnorm = norm(M(b - A(x)))
-        syncs += 1
+        V = torch.zeros((m + 1, n), dtype=dt, device=dev)
+        V[0] = torch.where(beta > 0, r / torch.where(beta > 0, beta, torch.ones_like(beta)), r)
+        H = torch.eye(m + 1, m, dtype=dt, device=dev)
+        Q = torch.eye(m + 1, dtype=dt, device=dev)
+        g = torch.where(rows == 0, beta, torch.zeros((), dtype=dt, device=dev))
+        (V, H, Q, g, j, it, live), n_in = while_loop(
+            lambda V, H, Q, g, j, it, live: live & (j < m), arnoldi,
+            (V, H, Q, g, torch.zeros((), dtype=torch.int64, device=dev), it, beta > tol), host=host)
+        syncs[0] += n_in
+        U = H[:m]
+        U = U + torch.diag((torch.diagonal(U) == 0).to(dt))
+        y = torch.linalg.solve_triangular(U, g[:m, None], upper=True)[:, 0]
+        x = x + y @ V[:m]
+        return x, it, norm(M(b - A(x)))
+
+    (x, it, rnorm), n_out = while_loop(
+        lambda x, it, rnorm: (rnorm > tol) & (it < maxiter), cycle,
+        (x, _zero(b), norm(M(b - A(x)))), host=host)
     conv = rnorm <= tol
-    return KrylovResult(x, torch.tensor(it, dtype=torch.int32, device=b.device), rnorm, conv,
-                        syncs, _reason(conv, torch.zeros_like(conv)))
+    return KrylovResult(x, it, rnorm, conv, syncs[0] + n_out,
+                        _reason(conv, torch.zeros_like(conv)))
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:
@@ -449,15 +462,11 @@ def cg_batched(
     tol = torch.clamp(rtol * _row_norm(b, comm), min=atol)
     r = b - A(x)
     z = M(r)
-    p = z
-    rz = _row_dot(r, z, comm)
-    rnorm = _row_norm(r, comm)
-    iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-    k = syncs = 0
-    while k < maxiter:
-        syncs += 1
-        if not bool(torch.any(rnorm > tol)):
-            break
+
+    def cond(x, r, p, rz, k, rnorm, iters):
+        return torch.any(rnorm > tol) & (k < maxiter)
+
+    def body(x, r, p, rz, k, rnorm, iters):
         active = rnorm > tol
         Ap = A(p)
         pAp = _row_dot(p, Ap, comm)
@@ -469,10 +478,11 @@ def cg_batched(
         rz_new = torch.where(active, rz_r, rz)
         beta = torch.where(active, rz_new / _nz(rz), torch.zeros_like(rz))
         p = torch.where(active, z + beta * p, p)
-        iters = iters + active[..., 0].to(torch.int32)
-        rz = rz_new
-        rnorm = torch.sqrt(rr)
-        k += 1
+        return x, r, p, rz_new, k + 1, torch.sqrt(rr), iters + active[..., 0].to(torch.int32)
+
+    carry = (x, r, z, _row_dot(r, z, comm), _zero(b), _row_norm(r, comm),
+             torch.zeros(b.shape[0], dtype=torch.int32, device=b.device))
+    (x, r, p, rz, k, rnorm, iters), syncs = while_loop(cond, body, carry, host=comm is not None)
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)
 
 
@@ -494,16 +504,12 @@ def bicgstab_batched(
     tol = torch.clamp(rtol * _row_norm(b, comm), min=atol)
     r = b - A(x)
     rhat = r
-    rho = _row_dot(rhat, r, comm)
-    p = r
-    rnorm = _row_norm(r, comm)
-    iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    k = syncs = 0
-    while k < maxiter:
-        syncs += 1
-        if not bool(torch.any(rnorm > tol)):
-            break
+
+    def cond(x, r, p, rho, k, rnorm, iters):
+        return torch.any(rnorm > tol) & (k < maxiter)
+
+    def body(x, r, p, rho, k, rnorm, iters):
         active = rnorm > tol
         phat = M(p)
         v = A(phat)
@@ -520,8 +526,9 @@ def bicgstab_batched(
         rho_new = torch.where(active, rho_r, rho)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = torch.where(active, r + beta * (p - omega * v), p)
-        iters = iters + active[..., 0].to(torch.int32)
-        rho = rho_new
-        rnorm = torch.sqrt(rr)
-        k += 1
+        return x, r, p, rho_new, k + 1, torch.sqrt(rr), iters + active[..., 0].to(torch.int32)
+
+    carry = (x, r, r, _row_dot(rhat, r, comm), _zero(b), _row_norm(r, comm),
+             torch.zeros(b.shape[0], dtype=torch.int32, device=b.device))
+    (x, r, p, rho, k, rnorm, iters), syncs = while_loop(cond, body, carry, host=comm is not None)
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)

@@ -19,7 +19,7 @@ recurrence and every reduction on the card, no host read; its products on
 the P1 stencil tile, two grid barriers an iteration where the Chebyshev
 steps' box fits, ``oasisx_pressure_cg_plan``; a work buffer of 9 vectors)
 and a CPU tensor to ``solve_plain``, the plain version: ``krylov.cg`` with the nullspace
-projection, its loop on the host, every ``Ap`` application through the
+projection, its loop in Python on the CPU, every ``Ap`` application through the
 operator it is given (by default the constant-cube kernel's wrapper
 ``assembly.kernels.matvec_const``).  Launches and plain calls count under
 ``pressure_cg`` in ``assembly.kernels``.

@@ -20,8 +20,13 @@ reads and writes in place:
 read of the tables.  On the card the first ``run`` warms the step up once
 (its lazy set-up: the kernels' library, cuBLAS), puts the state back and
 captures one step; the wrappers count the capture's launches in
-``assembly.kernels.RecordedCounts``, which adds them once per replay.  On
-the CPU the same step body runs n times without capture.
+``assembly.kernels.RecordedCounts``, which adds them once per replay.  The
+step's device while loops (``la/device_loop.py``: the inner ``max_iter``
+loop, the Krylov loops of the option solves) are conditional nodes in the
+graph, each with a trip counter on the device; the counters are zeroed
+before a call's replays and read with the tables after them, and each
+loop's body launches are added once a trip.  On the CPU the same step body
+runs n times without capture, its loops in Python.
 
 A step callback must be torch on the device: a host read inside it (a
 NumPy call on ``t``, ``float(t)``, ``.item()``) fails the capture, and the
@@ -37,6 +42,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from .assembly import kernels as kn
+from .la import device_loop as dl
 
 # the order in which a step's new state overwrites the static state: the
 # step returns the static u1 itself as the new u2, so u2 is written first
@@ -99,7 +105,8 @@ class StepGraph:
         self.k = torch.zeros((), dtype=torch.long, device=self.device)
         self.t = torch.zeros((), dtype=dtype, device=self.device)
         self.stats = self.outs = self.spec = None  # tables, allocated by the first step
-        self.graph = self.counts = None
+        self.graph = self.counts = self.trips = None
+        self.loops: list = []  # the graph's while loops: (body's RecordedCounts, trip counter)
         self.syncs = self.replays = 0
 
     # --- the step body ----------------------------------------------------
@@ -160,7 +167,8 @@ class StepGraph:
 
     def capture(self, t0: float) -> None:
         """Warm the step up once on the loaded buffers (its launches not
-        counted), load them again, and capture one step."""
+        counted), load them again, and capture one step, its while loops
+        as conditional nodes in the graph's memory pool."""
         saved = {k: v.clone() for k, v in self.state.items()}
         with kn.RecordedCounts():
             self.body()
@@ -168,7 +176,7 @@ class StepGraph:
         self.k.zero_()
         self.t.fill_(t0)
         del saved
-        graph = torch.cuda.CUDAGraph()
+        graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
         # no garbage collection while capturing: a collected graph (an old
         # solver's, held in a reference cycle) is destroyed by a CUDA call
         # that a capture forbids, and the capture fails; torch.cuda.graph
@@ -176,8 +184,8 @@ class StepGraph:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with kn.RecordedCounts() as counts:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with kn.RecordedCounts() as counts, dl.capturing(pool, self.device) as loops:
+                with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
                     syncs = self.body()
         except Exception as e:
             cause = e
@@ -192,27 +200,36 @@ class StepGraph:
             if gc_on:
                 gc.enable()
         self.graph, self.counts, self.syncs = graph, counts, syncs
+        self.loops, self.trips = loops.loops, loops.trips[: len(loops.loops)]
 
     def run(self, n: int) -> list[int]:
         """n steps from the loaded buffers: n replays on the card (the
-        wrappers' counters advanced by the capture's launches n times), the
-        body n times on the CPU.  Returns each step's host syncs."""
+        loops' trip counters zeroed first), the body n times on the CPU.
+        Returns each step's host syncs."""
         if self.graph is None:
             return [self.body() for _ in range(n)]
+        if self.loops:
+            self.trips.zero_()
         for _ in range(n):
             self.graph.replay()
         self.replays += n
-        self.counts.replayed(n)
         return [self.syncs] * n
 
     def read(self, n: int) -> tuple[dict, object]:
         """The first n rows of the stats and of the callback's outputs
         (None without a callback), on the host: the call's one read (a copy
-        also on the CPU, where the next call writes the tables again)."""
+        also on the CPU, where the next call writes the tables again).  On
+        the card the loops' trips are read with them, and the wrappers'
+        counters advanced by the capture's launches n times and by each
+        loop body's launches once a trip."""
         host = lambda v: v[:n].to("cpu", copy=True).numpy()
         with host_reads_allowed(self.device):
             stats = {k: host(v) for k, v in self.stats.items()}
-            if self.outs is None:
-                return stats, None
-            leaves = [host(self.outs[str(i)]) for i in range(len(self.outs))]
+            trips = self.trips.tolist() if self.loops else []
+            leaves = None if self.outs is None else \
+                [host(self.outs[str(i)]) for i in range(len(self.outs))]
+        if self.graph is not None:
+            self.counts.replayed(n, [(body, t) for (body, _), t in zip(self.loops, trips)])
+        if leaves is None:
+            return stats, None
         return stats, pytree.tree_unflatten(leaves, self.spec)

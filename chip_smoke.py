@@ -96,10 +96,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4t. The device while loops (la/device_loop.py: conditional WHILE nodes,
    their condition set by csrc/graph_loop.cu): three loops nested outside
    a solver against the same loops in Python (bit-identical, trips
-   printed), and a loop of 1,000 trips timed a trip on the device against
-   the Python loop's host read a trip (the condition setter's kernel
-   line); then graph legs of phase 4's solver at max_iter 3, and at
-   max_iter 3 with a max_error that ends some inner loops after 2 (the
+   printed), a loop of 1,000 trips timed a trip on the device against
+   the Python loop a trip (printed), and the condition setter alone, its
+   device time a launch from torch.profiler over one replay of that loop
+   against one host read of the condition (its kernel line, "replaces"
+   null: no Pallas kernel); then graph legs of phase 4's solver at
+   max_iter 3, and at max_iter 3 with a max_error that ends some inner loops after 2 (the
    larger of step 1's and the median of 5 steps' diff after 2 from the
    leg's state, so step 1 ends there): every graph_leg check, the inner
    iterations equal at every step.
@@ -301,9 +303,10 @@ any failure or when there is no card.
    MGs and tentative x0s differ, each solve to rtol 1e-5).
    ``--slab-only [--slab-n N --slab-world W]`` builds the kernels and runs
    this phase alone (W: world 1 and W ranks; N 36 or 64).
-   The world-1 and world-2 gloo groups start at once (their spawns and
-   set-ups overlap, and so do their timed steps on the one card, so each
-   steps/s is read with the other group running).
+   The world-1 and world-2 gloo groups start at once: their spawns,
+   set-ups and warm-ups overlap, and each takes the card alone, one group
+   after the other, from its timed steps to its profile (a lock shared by
+   the groups), so that no reading is taken while the other group runs.
    ``--slab-gap N [N ...]`` builds the kernels and measures, at each N,
    world 1 against the single-device path in f32 at rtol 1e-5 and f64 at
    rtol 1e-5 and 1e-8, each state's distance from the single-device f64
@@ -322,7 +325,8 @@ any failure or when there is no card.
    the same count and no plain call; the state gaps of world 2 against
    world 1 and of world 1 against phase 4b.  In the world-2 group also the
    band layout on the vessel at N=18 (K18 in both spaces, 1 + 3 steps)
-   with the same checks.  The gloo groups start at once, as 4q's, and
+   with the same checks.  The gloo groups start at once, as 4q's (each
+   run alone on the card from its kernel timings to its profile), and
    each ends with phase 4s's run.  ``--halo-only [--halo-world W]``
    builds the kernels and runs 4r, 4r', 4s and 5j alone.
 4r'. In 4r's world-2 group: the DFG cylinder at res=30 with its
@@ -602,18 +606,6 @@ def cylinder_solver(res: int, dtype, device, rtol: float, um=lambda: 0.3,
     from oasisx_tpu_torch.parallel.ranks import cylinder_solver as build
 
     return build(res, dtype, device, rtol, um=um, rotational=rotational)
-
-
-def free_device() -> None:
-    """Free the device memory of the solvers dropped so far: a solver that
-    ran ``run``'s graph is in a reference cycle (its StepGraph's step calls
-    the solver), which only the cyclic collector frees."""
-    import gc
-
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def _sync(device) -> None:
@@ -2634,7 +2626,7 @@ def loop_legs(solver, smi: str) -> dict:
         out[tag] = graph_leg(s, tag, smi, steps=LOOP_STEPS, loops=True)
         print(f"[{tag}] {time.perf_counter() - t0:.1f} s")
         del s
-        free_device()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2644,9 +2636,16 @@ def loop_probe(trips: int = 1000) -> dict:
     the innermost stopping on a norm, against the same loops uncaptured
     (the plain version, a Python loop that reads the condition a trip):
     equal results and trips; then one loop of ``trips`` trips whose body
-    adds 1 to a counter, its device time a trip against the Python loop's
-    host time a trip.  Returns the kernel line's record."""
+    adds 1 to a counter: its device time a trip (the body, the trip
+    counter, the condition and its setter) against the Python loop's host
+    time a trip, printed; and the condition setter alone, its device time
+    a launch from torch.profiler over one replay (``trips`` + 1 launches)
+    against the plain version's, one host read of the condition.  Returns
+    the kernel line's record (``replaces`` None: no Pallas kernel; XLA ran
+    the TPU's loops without one)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from oasisx_tpu_torch.assembly import kernels as kn
     from oasisx_tpu_torch.la import device_loop as dl
@@ -2697,18 +2696,34 @@ def loop_probe(trips: int = 1000) -> dict:
     graph.replay()
     e1.record()
     torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / trips
+    trip_ms = e0.elapsed_time(e1) / trips
     t0 = time.perf_counter()
     kp = count()
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / trips
+    trip_plain_ms = (time.perf_counter() - t0) * 1e3 / trips
     check(int(k) == int(kp) == trips, f"[4t] counter loop: {int(k)}, {int(kp)}")
-    print(f"    a loop of {trips} trips adding 1 to a counter: {ms * 1e3:.3f} us a trip on the "
-          f"device (a graph replay), {plain_ms * 1e3:.3f} us a trip in the Python loop (a host "
-          f"read a trip)")
-    return dict(name="graph_loop", route="cuda", source=CSRC + "graph_loop.cu",
-                replaces="oasisx_tpu/fracstep.py:3008", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, **bound(1.0, 0.0), library_ms=None)
+    print(f"    a loop of {trips} trips adding 1 to a counter: {trip_ms * 1e3:.3f} us a trip on "
+          f"the device (a graph replay), {trip_plain_ms * 1e3:.3f} us a trip in the Python loop "
+          f"(a host read a trip)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    setter = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "set_cond_kernel" in e.key]
+    n = sum(e.count for e in setter)
+    check(n == trips + 1, f"[4t] the profile of a replay holds {n} condition setter launches, "
+          f"not {trips + 1}")
+    ms = sum(e.self_device_time_total for e in setter) / n / 1e3
+    flag = k < trips
+    t0 = time.perf_counter()
+    for _ in range(trips):
+        bool(flag)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / trips
+    print(f"    the condition setter alone (torch.profiler over a replay, {n} launches): "
+          f"{ms * 1e3:.3f} us a launch on the device; its plain version, a host read of the "
+          f"condition: {plain_ms * 1e3:.3f} us")
+    return dict(name="graph_loop", route="cuda", source=CSRC + "graph_loop.cu", replaces=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(1.0, 0.0), library_ms=None)
 
 
 def gpu_vs_cpu(make, label: str, steps: int = 3, dt=DT, nu=NU, pressure_pc=None,
@@ -3579,10 +3594,11 @@ def slab_path(n: int = N, warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS
     and stats after as many steps, from phase 4, or None: run here).
     ``device`` "cpu" rehearses it (its launch checks then fail).  The gloo groups of world 1
     and ``SLAB_WORLD`` end with phase 4k''s split step; returns every rank's
-    split result by world.  The gloo groups start at once (their spawns and
-    set-ups overlap, and so do their timed steps, on the one card: each
-    prints its steps/s with the other group running), then NCCL's."""
+    split result by world.  The gloo groups start at once: their spawns,
+    set-ups and warm-ups overlap, and each times its steps, profile and
+    comm with the card to itself (``ranks._card_alone``); then NCCL's."""
     import contextlib
+    import multiprocessing as mp
 
     import numpy as np
     import torch
@@ -3595,7 +3611,10 @@ def slab_path(n: int = N, warmup: int = SHARD_STEPS[0], steps: int = SHARD_STEPS
         worlds = [(1, "gloo"), (SLAB_WORLD, "gloo")] + ([(ncard, "nccl")] if ncard >= 2 else [])
     cfg = dict(N=n, dtype="float32", device=device, rtol=1e-5, warmup=warmup, steps=steps,
                check=True, time_comm=True, profile=SLAB_PROFILE)
-    cfgs = {(w, b): dict(cfg, split=b == "gloo" and w in (1, SLAB_WORLD)) for w, b in worlds}
+    # the gloo groups run at once, each timing its steps with the card alone
+    lock = mp.get_context("spawn").Lock()
+    cfgs = {(w, b): dict(cfg, split=b == "gloo" and w in (1, SLAB_WORLD),
+                         card_lock=lock if b == "gloo" else None) for w, b in worlds}
     runs = {}
     with contextlib.ExitStack() as stack:
         t0 = time.perf_counter()
@@ -3910,13 +3929,14 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
     ``replicated_run``; each world against world 1 (REP_WORLD_BOUND), and
     world 1, taken on to ``warmup + steps`` steps in all, against 4r's
     world-1 state after as many (REP_HALO_BOUND).  The gloo groups start at
-    once (their spawns and set-ups overlap, and so do their timed steps, on
-    the one card: each prints its steps/s with the other group running),
-    then NCCL's.  Returns {"counts": each run's launch counts,
+    once: their spawns, set-ups and warm-ups overlap, and each run times
+    its kernels, steps, profile and comm with the card to its group
+    (``ranks._card_alone``); then NCCL's.  Returns {"counts": each run's launch counts,
     "cylinder_s": the 4r' run's seconds on rank 0, "world1": rank 0's
     world-1 vessel result, "splits": every rank's split result by
     world}."""
     import contextlib
+    import multiprocessing as mp
 
     import torch
 
@@ -3946,6 +3966,11 @@ def halo_path(single: dict | None, kres: dict | None = None, n: int = N,
             runs = [("4r", dict(vessel, profile=HALO_PROFILE, time_kernels=True)), ("4r", band),
                     ("4r'", cyl)] + runs[1:]
         group_runs[(world, backend)] = runs
+    # the gloo groups run at once, each run timing its work with the card alone
+    lock = mp.get_context("spawn").Lock()
+    for (world, backend), runs in group_runs.items():
+        if backend == "gloo":
+            group_runs[(world, backend)] = [(label, dict(c, card_lock=lock)) for label, c in runs]
     results = {}
     with contextlib.ExitStack() as stack:
         t0 = time.perf_counter()
@@ -4606,7 +4631,7 @@ def main() -> int:
         res = drive_main_path(vessel, *SHARD_STEPS, "cuda", kn.ELL_KERNELS)
         single = _state(vessel)
         del vessel
-        free_device()
+        torch.cuda.empty_cache()
         print(f"[4b] the single-device vessel for 4r: {res['wall']:.3f} s for {SHARD_STEPS[1]} steps "
               f"({time.perf_counter() - t0:.1f} s with set-up)")
         halo_phases(single, {}, worlds)
@@ -4696,7 +4721,7 @@ def main() -> int:
     legs = loop_legs(solver, smi)
     loop_rec["launches"] = legs["4t"]["setter"]
     del solver
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4g. the structured main path with the lumped velocity update: K6 on
     # Gw_c in place of K4's mass solve
@@ -4715,7 +4740,7 @@ def main() -> int:
     if args.profile:
         profile_steps(slump, args.profile, "build/chip_smoke_trace_lumped.json")
     del slump
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4i. the structured main path with the rotational pressure update: K5
     # and K4 at batch 1 on Mq_c, K7's output reused
@@ -4732,12 +4757,12 @@ def main() -> int:
     if args.profile:
         profile_steps(srot, args.profile, "build/chip_smoke_trace_rotational.json")
     del srot
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4k. the split-phase API at N=36 against run, step by step
     t0 = time.perf_counter()
     split_phase_path("cuda", smi)
-    free_device()
+    torch.cuda.empty_cache()
     print(f"[4k] {time.perf_counter() - t0:.1f} s")
 
     # 5. GPU against CPU
@@ -4770,7 +4795,7 @@ def main() -> int:
     if args.profile:
         profile_steps(s35, args.profile, "build/chip_smoke_trace_n35.json")
     del s35
-    free_device()
+    torch.cuda.empty_cache()
 
     # 5d. GPU against CPU with K1's non-MG modes
     print("[5d] cuda against cpu, K1's non-MG modes")
@@ -4780,7 +4805,7 @@ def main() -> int:
 
     # 3c. the structured kernels at the N=64 shapes (the f64 cases on the
     # f32 solver's operators cast), and 4d. the N=64 main path
-    free_device()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s64 = tgv_solver(N64, torch.float32, "cuda", rtol=1e-5)
@@ -4802,7 +4827,7 @@ def main() -> int:
             cases_fn=lambda pr, dev: solve_cases(pr[0], dev, dtype=pr[1]),
             suffix=f" N={N64}").items():
         kres[name] = kres[name] + recs
-    free_device()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = drive_main_path(s64, WARMUP, STEPS, "cuda", rep64["path_kernels"])
     report_path("4d", res, STEPS, nvel64, smi, TPU_ERA_ITERS_N64, steps_log)
@@ -4812,7 +4837,7 @@ def main() -> int:
     if args.profile:
         profile_steps(s64, args.profile, "build/chip_smoke_trace_n64.json")
     del s64
-    free_device()
+    torch.cuda.empty_cache()
 
     # 3b. ELL kernels at the vessel's N=36 shapes
     torch.cuda.reset_peak_memory_stats()
@@ -4844,7 +4869,7 @@ def main() -> int:
                                      "cuda", cases_fn=ell_solve_cases).items():
         kres[name] = recs + kres.get(name, [])  # the solve first: it is the main path's call
     del cyl64
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4b. the vessel main path, before the band solver exists (so that 4b's
     # device memory holds no band tables; the float64 vessel's own is left out)
@@ -4893,7 +4918,7 @@ def main() -> int:
     for name, recs in compare_solves(pairs, "cuda", cases_fn=band_solve_cases).items():
         kres[name] = recs
     del vessel64, vessel, vessel_state0, bq, pairs
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4e. the vessel with the band layout, the flat-ELL solvers freed
     torch.cuda.reset_peak_memory_stats()
@@ -4913,7 +4938,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vband, args.profile, "build/chip_smoke_trace_band.json")
     del vband
-    free_device()
+    torch.cuda.empty_cache()
     print(f"    the band solver's own device memory "
           f"{(resident - torch.cuda.memory_allocated()) / 2**20:.1f} MiB (before the steps, "
           f"less what stays once it is freed)")
@@ -4941,7 +4966,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vlump, args.profile, "build/chip_smoke_trace_vessel_lumped.json")
     del vlump
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4j. the vessel with the rotational update and a constant body force:
     # K14 and K16 at batch 1 on Mq's ELL values
@@ -4960,7 +4985,7 @@ def main() -> int:
     if args.profile:
         profile_steps(vrot, args.profile, "build/chip_smoke_trace_vessel_rotational.json")
     del vrot
-    free_device()
+    torch.cuda.empty_cache()
 
     # 4c. the cylinder with its outlet
     res = drive_main_path(cyl, 2, CYL_STEPS, "cuda", kn.ELL_KERNELS, dt=CYL_DT, nu=CYL_NU)

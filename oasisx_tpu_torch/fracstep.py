@@ -185,6 +185,7 @@ from __future__ import annotations
 
 import logging
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1888,7 +1889,11 @@ class FractionalStep_AB_CN:
             if g is None or g.key != key or g.rows < num_steps:
                 # one graph is kept: the old one's buffers and pool go first
                 self._graph = g = None
-                step = lambda st, b, hq: self._step(st, dt, nu, b, hq, max_error, max_iter)
+                # the graph reaches the solver through a weak reference: a
+                # solver dropped with its graph frees the graph's memory at
+                # once, not at the cyclic collector's next pass
+                solver = weakref.ref(self)
+                step = lambda st, b, hq: solver()._step(st, dt, nu, b, hq, max_error, max_iter)
                 g = StepGraph(key, step, state, bc, h, seq_bc, seq_h, table_rows(num_steps), dt,
                               step_callback)
             g.load(state, bc, h, t0)

@@ -6,8 +6,7 @@ carry tensors whose shapes and types the body keeps.  It returns the last
 carry and the host reads it made.
 
 - Outside a capture (on the CPU, on the card in ``run``'s per-step loop, in
-  the split-phase API and the sharded modes), and with ``host=True``, it is
-  a Python loop that reads the condition once a trip, as a host loop over a
+  the split-phase API and the sharded modes), it is a Python loop that reads the condition once a trip, as a host loop over a
   device scalar must: each read counts in the returned syncs.
 - Inside ``step_graph.StepGraph.capture`` (``capturing``) it captures a
   CUDA conditional WHILE node (``csrc/graph_loop.cu``): the carry copied
@@ -104,16 +103,13 @@ def capturing(pool, device: torch.device):
         _capture = prev
 
 
-def while_loop(cond_fn: Callable, body_fn: Callable, carry, host: bool = False):
+def while_loop(cond_fn: Callable, body_fn: Callable, carry):
     """Run ``body_fn`` while ``cond_fn`` holds; returns (carry, host reads).
 
     ``cond_fn(*carry)`` is a 0-d bool tensor, ``body_fn(*carry)`` the next
-    carry.  ``host`` keeps the Python loop even inside a capture (a caller
-    whose body reads the host, the sharded solvers' sums); there the
-    capture fails on its first read."""
+    carry."""
     carry = tuple(carry)
-    capturing_now = carry[0].is_cuda and torch.cuda.is_current_stream_capturing()
-    if host or not capturing_now:
+    if not (carry[0].is_cuda and torch.cuda.is_current_stream_capturing()):
         syncs = 0
         while True:
             syncs += 1

@@ -10,8 +10,8 @@ captured step (``run``'s graph) the loop is a conditional node and reads
 nothing on the host; elsewhere it is a Python loop whose condition reads a
 device scalar once an iteration (one host sync), counted in
 ``KrylovResult.syncs`` so a run can report syncs per step.  With ``comm``
-(the sharded modes) the sums go through the host and the loop stays a
-Python loop.
+(the sharded modes, whose steps run eager and are never captured) the sums
+go through the host and the loop is that Python loop.
 
 Batched variants solve k systems sharing one operator, with per-row
 convergence: converged rows are frozen so further iterations cannot
@@ -162,7 +162,7 @@ def cg(
         return x, r, z + beta * p, rz_new, k + 1, rnorm, brk
 
     (x, r, p, rz, k, rnorm, brk), syncs = while_loop(
-        cond, body, (x, r, z, rz, _zero(b), norm(r), _zero(b, torch.bool)), host=comm is not None)
+        cond, body, (x, r, z, rz, _zero(b), norm(r), _zero(b, torch.bool)))
     x = demean(x) if project_nullspace else x
     conv = rnorm <= tol
     return KrylovResult(x, k, rnorm, conv, syncs, _reason(conv, brk))
@@ -261,7 +261,6 @@ def gmres(
     rtol = _effective_rtol(rtol, b.dtype)
     m = int(restart)
     n, dt, dev = b.shape[0], b.dtype, b.device
-    host = comm is not None
     _, norm, _ = _reducers(comm)
     tol = torch.clamp(rtol * norm(M(b)), min=atol)
     rows = torch.arange(m + 1, device=dev)
@@ -313,7 +312,7 @@ def gmres(
         g = torch.where(rows == 0, beta, torch.zeros((), dtype=dt, device=dev))
         (V, H, Q, g, j, it, live), n_in = while_loop(
             lambda V, H, Q, g, j, it, live: live & (j < m), arnoldi,
-            (V, H, Q, g, torch.zeros((), dtype=torch.int64, device=dev), it, beta > tol), host=host)
+            (V, H, Q, g, torch.zeros((), dtype=torch.int64, device=dev), it, beta > tol))
         syncs[0] += n_in
         U = H[:m]
         U = U + torch.diag((torch.diagonal(U) == 0).to(dt))
@@ -323,7 +322,7 @@ def gmres(
 
     (x, it, rnorm), n_out = while_loop(
         lambda x, it, rnorm: (rnorm > tol) & (it < maxiter), cycle,
-        (x, _zero(b), norm(M(b - A(x)))), host=host)
+        (x, _zero(b), norm(M(b - A(x)))))
     conv = rnorm <= tol
     return KrylovResult(x, it, rnorm, conv, syncs[0] + n_out,
                         _reason(conv, torch.zeros_like(conv)))
@@ -482,7 +481,7 @@ def cg_batched(
 
     carry = (x, r, z, _row_dot(r, z, comm), _zero(b), _row_norm(r, comm),
              torch.zeros(b.shape[0], dtype=torch.int32, device=b.device))
-    (x, r, p, rz, k, rnorm, iters), syncs = while_loop(cond, body, carry, host=comm is not None)
+    (x, r, p, rz, k, rnorm, iters), syncs = while_loop(cond, body, carry)
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)
 
 
@@ -530,5 +529,5 @@ def bicgstab_batched(
 
     carry = (x, r, r, _row_dot(rhat, r, comm), _zero(b), _row_norm(r, comm),
              torch.zeros(b.shape[0], dtype=torch.int32, device=b.device))
-    (x, r, p, rho, k, rnorm, iters), syncs = while_loop(cond, body, carry, host=comm is not None)
+    (x, r, p, rho, k, rnorm, iters), syncs = while_loop(cond, body, carry)
     return KrylovResult(x, iters, rnorm[..., 0], rnorm[..., 0] <= tol[..., 0], syncs)

@@ -46,6 +46,7 @@ the warm-up steps).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -189,6 +190,27 @@ def _profile(solver, steps: int, dt, nu) -> dict:
                 profile_nccl_ms=nccl / 1e3)
 
 
+@contextlib.contextmanager
+def _card_alone(comm: Comm, lock):
+    """The block with the card to this group alone: ``lock`` (a
+    ``multiprocessing`` lock of the spawn context shared by groups that run
+    at once on one card, or None: no other group) held by rank 0 from a
+    barrier before the block to one after it, so that no other group's work
+    runs while this one's steps, profile and kernels are timed."""
+    if lock is None:
+        yield
+        return
+    if comm.rank == 0:
+        lock.acquire()
+    try:
+        comm.barrier()
+        yield
+        comm.barrier()
+    finally:
+        if comm.rank == 0:
+            lock.release()
+
+
 def run_tgv(comm: Comm, cfg: dict) -> dict:
     """The slab solver on this rank, one inner iteration a step: ``cfg``
     N, dtype ("float32" or "float64"), device ("cpu" or "cuda"), rtol,
@@ -197,8 +219,10 @@ def run_tgv(comm: Comm, cfg: dict) -> dict:
     many more steps under torch.profiler: the device time), split (one
     split step after the run, ``_split_result``, before any of the
     following), solve (after the run, ``set_state(get_state())`` and one
-    ``solve``) and solver_options (``tgv_solver``'s).  Returns this rank's
-    launch counts, traffic and times, and the last run's per-step stats;
+    ``solve``), solver_options (``tgv_solver``'s) and card_lock
+    (``_card_alone``'s lock: the timed steps to the profile with the card
+    to this group).  Returns this rank's launch counts, traffic and times,
+    and the last run's per-step stats;
     rank 0 also the canonical state (u, u1, u2 as (d, n); p, dp) and
     ``get_state``."""
     from ..assembly import kernels as kn
@@ -217,41 +241,42 @@ def run_tgv(comm: Comm, cfg: dict) -> dict:
         solver.run(cfg["warmup"], dt, nu, max_iter=1)
     if cfg.get("check"):
         res["kernels"] = kernel_checks(solver)
-    kn.reset_counts()
-    comm.reset_stats()
-    comm.barrier()
-    _sync(device)
-    t0 = time.perf_counter()
-    stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
-    _sync(device)
-    wall = time.perf_counter() - t0
-    res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
-               launches={k: v for k, v in kn.launches.items() if v},
-               plain_calls={k: v for k, v in kn.plain_calls.items() if v},
-               comm={k: list(v) for k, v in comm.stats.items()})
-    # copies (a later step writes the Functions in place); get_state is a
-    # collective, so every rank reads them
-    f = lambda g: np.array(g.x.array.double().cpu().numpy())
-    canonical = lambda: dict(u=np.stack([f(g) for g in solver._u]),
-                             u1=np.stack([f(g) for g in solver._u1]),
-                             u2=np.stack([f(g) for g in solver._u2]),
-                             p=f(solver._p), dp=f(solver._dp), state=solver.get_state())
-    out = canonical()
-    if cfg.get("split"):
-        res["split"] = _split_result(comm, solver, dt, nu)
-    if cfg.get("solve"):  # the state written back, then one solve() of max_iter 2
-        solver.set_state(out["state"])
-        res["solve_diff"] = solver.solve(dt, nu, max_iter=2)
-        res["solve_stats"] = solver.last_stats
-        after = canonical()
+    with _card_alone(comm, cfg.get("card_lock")):
+        kn.reset_counts()
+        comm.reset_stats()
+        comm.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
+                   launches={k: v for k, v in kn.launches.items() if v},
+                   plain_calls={k: v for k, v in kn.plain_calls.items() if v},
+                   comm={k: list(v) for k, v in comm.stats.items()})
+        # copies (a later step writes the Functions in place); get_state is a
+        # collective, so every rank reads them
+        f = lambda g: np.array(g.x.array.double().cpu().numpy())
+        canonical = lambda: dict(u=np.stack([f(g) for g in solver._u]),
+                                 u1=np.stack([f(g) for g in solver._u1]),
+                                 u2=np.stack([f(g) for g in solver._u2]),
+                                 p=f(solver._p), dp=f(solver._dp), state=solver.get_state())
+        out = canonical()
+        if cfg.get("split"):
+            res["split"] = _split_result(comm, solver, dt, nu)
+        if cfg.get("solve"):  # the state written back, then one solve() of max_iter 2
+            solver.set_state(out["state"])
+            res["solve_diff"] = solver.solve(dt, nu, max_iter=2)
+            res["solve_stats"] = solver.last_stats
+            after = canonical()
+            if comm.rank == 0:
+                res["solve"] = after
         if comm.rank == 0:
-            res["solve"] = after
-    if comm.rank == 0:
-        res.update(out)
-    if cfg.get("time_comm"):
-        res.update(_time_comm(solver))
-    if cfg.get("profile"):
-        res.update(_profile(solver, cfg["profile"], dt, nu))
+            res.update(out)
+        if cfg.get("time_comm"):
+            res.update(_time_comm(solver))
+        if cfg.get("profile"):
+            res.update(_profile(solver, cfg["profile"], dt, nu))
     return res
 
 
@@ -805,7 +830,8 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     the AMG's coarse inverse to use; ``split``: one split step after the
     run, ``_split_result``; ``until``: at the end, more steps to this many
     in all, the canonical state after them on rank 0 as ``until``) on this
-    rank.  Returns its set-up seconds by part, config, traffic, launch
+    rank; card_lock as ``run_tgv`` takes it, from the checks to the
+    profile.  Returns its set-up seconds by part, config, traffic, launch
     counts, per-step stats and times, and a digest of its state's bits;
     rank 0 also the canonical state (before the split step) and
     ``get_state``."""
@@ -827,41 +853,44 @@ def run_halo(comm: Comm, cfg: dict) -> dict:
     if cfg.get("warmup", 0):
         solver.run(cfg["warmup"], dt, nu, max_iter=1)
     lap("warmup_s")
-    if cfg.get("check") and halo:
-        res["kernels"] = halo_kernel_checks(solver, dt, nu, timed=cfg.get("time_kernels", False))
-    lap("check_s")
-    kn.reset_counts()
-    comm.reset_stats()
-    comm.barrier()
-    _sync(device)
-    t0 = time.perf_counter()
-    if cfg.get("solve_iter"):
-        per = []
-        for _ in range(cfg["steps"]):
-            solver.solve(dt, nu, max_iter=cfg["solve_iter"])
-            per.append(solver.last_stats)
-        stats = {k: np.stack([np.asarray(p[k]) for p in per]) for k in per[0]}
-    else:
-        stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
-    _sync(device)
-    wall = time.perf_counter() - t0
-    res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
-               launches={k: v for k, v in kn.launches.items() if v},
-               plain_calls={k: v for k, v in kn.plain_calls.items() if v},
-               comm={k: list(v) for k, v in comm.stats.items()}, digest=_digest(solver))
-    out = dict(_canonical(solver), state=solver.get_state())
-    lap("steps_and_state_s")
-    if comm.rank == 0:
-        res.update(out)
-    if cfg.get("split"):
-        res["split"] = _split_result(comm, solver, dt, nu)
-        lap("split_s")
-    if cfg.get("time_comm"):
-        res.update(_time_halo(solver))
-    lap("time_comm_s")
-    if cfg.get("profile"):
-        res.update(_profile(solver, cfg["profile"], dt, nu))
-    lap("profile_s")
+    with _card_alone(comm, cfg.get("card_lock")):
+        lap("card_wait_s")
+        if cfg.get("check") and halo:
+            res["kernels"] = halo_kernel_checks(solver, dt, nu,
+                                                timed=cfg.get("time_kernels", False))
+        lap("check_s")
+        kn.reset_counts()
+        comm.reset_stats()
+        comm.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        if cfg.get("solve_iter"):
+            per = []
+            for _ in range(cfg["steps"]):
+                solver.solve(dt, nu, max_iter=cfg["solve_iter"])
+                per.append(solver.last_stats)
+            stats = {k: np.stack([np.asarray(p[k]) for p in per]) for k in per[0]}
+        else:
+            stats = solver.run(cfg["steps"], dt, nu, max_iter=1)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        res.update(stats=stats, wall_s=wall, steps_per_s=cfg["steps"] / wall,
+                   launches={k: v for k, v in kn.launches.items() if v},
+                   plain_calls={k: v for k, v in kn.plain_calls.items() if v},
+                   comm={k: list(v) for k, v in comm.stats.items()}, digest=_digest(solver))
+        out = dict(_canonical(solver), state=solver.get_state())
+        lap("steps_and_state_s")
+        if comm.rank == 0:
+            res.update(out)
+        if cfg.get("split"):
+            res["split"] = _split_result(comm, solver, dt, nu)
+            lap("split_s")
+        if cfg.get("time_comm"):
+            res.update(_time_halo(solver))
+        lap("time_comm_s")
+        if cfg.get("profile"):
+            res.update(_profile(solver, cfg["profile"], dt, nu))
+        lap("profile_s")
     if cfg.get("until"):  # more steps, to this many in all
         more = cfg["until"] - (cfg.get("warmup", 0) + cfg["steps"] + cfg.get("profile", 0))
         if more > 0:

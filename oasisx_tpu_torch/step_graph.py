@@ -177,10 +177,10 @@ class StepGraph:
         self.t.fill_(t0)
         del saved
         graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
-        # no garbage collection while capturing: a collected graph (an old
-        # solver's, held in a reference cycle) is destroyed by a CUDA call
-        # that a capture forbids, and the capture fails; torch.cuda.graph
-        # collects once before it begins
+        # no garbage collection while capturing: a collected graph (one in a
+        # reference cycle, as a step callback that holds its solver makes)
+        # is destroyed by a CUDA call that a capture forbids, and the capture
+        # fails; torch.cuda.graph collects once before it begins
         gc_on = gc.isenabled()
         gc.disable()
         try:

@@ -19,7 +19,8 @@ replays) without the capture.
   structured path also at ``max_iter`` 3 (the JAX ``lax.while_loop`` inner
   loop), ``inner_iters`` equal.
 - A second ``run`` with another dt replaces the graph and equals a fresh
-  solver's run from the same state.
+  solver's run from the same state; a dropped solver frees its graph at
+  once (no reference cycle between them).
 - ``config_report()["run"]``: "graph" on every single-device
   configuration (``max_iter`` 2, a tentative ``ksp_type`` cg or gmres, the
   general path's Jacobi pressure), "eager: <reason>" for a forced loop; a
@@ -227,6 +228,26 @@ def test_second_dt_replaces_the_graph():
         np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
     for key, v in a.get_state().items():
         np.testing.assert_array_equal(v, b.get_state()[key], err_msg=key)
+
+
+def test_dropped_solver_frees_its_graph():
+    """The StepGraph reaches its solver through a weak reference: a solver
+    dropped after run (its inner loop a device while loop) is freed at once,
+    with its graph, without the cyclic collector."""
+    import gc
+    import weakref
+
+    s = _box()
+    s.run(2, DT, NU, max_iter=2)
+    solver, graph = weakref.ref(s), weakref.ref(s._graph)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del s
+        assert solver() is None and graph() is None
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_run_mode_report():
